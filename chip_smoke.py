@@ -11,17 +11,24 @@ Phases (any failure raises, and the script exits non-zero):
 2. Hold each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main path's shapes: ``sweep_expired`` over 2^24 slots (and
    the TTL-saturation case), ``acquire_packed`` and ``acquire_grouped`` at
-   B = 4096 with Zipf-like duplicates. Grants, masks, ``exists`` and
-   ``last_ts`` must be equal; remaining and tokens within atol 1e-4. Time
-   each (median of CUDA-event timings, and device time from
-   ``torch.profiler``) beside the plain version and the bound.
+   B = 4096 with Zipf-like duplicates, and the bulk lane's
+   ``acquire_scan_packed`` on one chunk of K = 32 batches of 4096 (Zipf(1.2)
+   slots duplicated within and across batches, 2% padding, three ticks)
+   with the fused u8 operand (bits out and f32 out) and the i32 operand
+   (counts up to 1000), and on a chunk of distinct slots within each batch
+   (the main path's bulk). Grants, bits, masks, ``exists`` and ``last_ts`` must
+   be equal; remaining and tokens within atol 1e-4. Time each (median of
+   CUDA-event timings, and device time from ``torch.profiler``) beside the
+   plain version and the bound.
 3. The main path at full size: ``PartitionedRateLimiter`` over
    ``DeviceBucketStore(device="cuda", n_slots=2**24)`` — ``acquire_many``
-   over 10,000,000 distinct keys, concurrent ``acquire_async`` on hot and
-   cold keys checked against a host oracle (cap-5 bucket × 32 asks → 5),
-   then ``sweep_all`` past the TTL with an exact eviction count. Each
-   phase prints its rate and where its host time went (the store's
-   dispatch spans, the key directory, Python's garbage collector).
+   over 10,000,000 distinct keys, one more bulk chunk under
+   ``torch.profiler`` (its device busy share and kernel launches),
+   concurrent ``acquire_async`` on hot and cold keys checked against a host
+   oracle (cap-5 bucket × 32 asks → 5), then ``sweep_all`` past the TTL
+   with an exact eviction count. Each phase prints its rate and where its
+   host time went (the store's dispatch spans, the key directory, Python's
+   garbage collector).
 4. Print ``{"kernels": [...]}``: per kernel its launches on the main path
    (each must be > 0), the error against the plain version, and its times.
 5. Last line: ``{"ok": true, "device": {...}}``.
@@ -35,6 +42,7 @@ import asyncio
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,6 +54,7 @@ SEED = 1234
 N_SLOTS = 2**24
 BATCH = 4096
 N_KEYS = 10_000_000
+SCAN_K = 32  # batches in one bulk chunk (the store's largest K)
 ATOL = 1e-4
 #: H100 SXM device-memory rate and float32 rate outside the tensor cores
 #: (NVIDIA data sheet, at the 700 W limit), for the bound.
@@ -275,16 +284,150 @@ def kernel_phase(torch, K, ck, dev):
         ms = _median_ms(lambda: kernel(ks, op_d, cap, rate), inner=20)
         plain_ms = _median_ms(lambda: plain_fn(ps, op_d, cap, rate))
         dev_ms = _device_ms(lambda: kernel(ks, op_d, cap, rate),
-                            ["decide_kernel", "set_kernel", "add_kernel"])
+                            ["flush_kernel"])
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bytes=nbytes, ops=ops,
                          device_ms=dev_ms)
         print(f"{name} B={BATCH} ({d_uniq} distinct slots): grants equal, "
               f"max abs err {err:.3g}; {ms:.4f} ms (plain {plain_ms:.4f} ms, "
               f"device time {dev_ms} ms)")
+    res["acquire_scan"] = scan_case(torch, K, ck, dev, rng, table, now, cap,
+                                    rate)
     del table, tokens, last_ts, exists0, state, plain, sat
     torch.cuda.empty_cache()
     return res
+
+
+def scan_case(torch, K, ck, dev, rng, table, now, cap, rate) -> dict:
+    """The bulk lane's kernel on one chunk (K = 32 batches of 4096) against
+    the plain per-batch loop: Zipf slots with the fused u8 operand (bits
+    and f32 out) and the i32 operand, and distinct slots (fused, bits).
+    Returns the main path's variant (distinct slots, fused, bits) with the
+    largest error of the four."""
+    n = table[0].numel()
+    k, b = SCAN_K, BATCH
+    zipf = ((rng.zipf(1.2, (k, b)) - 1) % n).astype(np.int32)
+    # Distinct slots within each batch, as a bulk call over distinct keys
+    # gives them: the kernel skips the sort and the scans.
+    distinct = np.stack([rng.choice(n, b, replace=False)
+                         for _ in range(k)]).astype(np.int32)
+    for slots in (zipf, distinct):
+        slots[rng.random((k, b)) < 0.02] = -1
+    nows = np.repeat(np.array([now, now + 500, now + 1500], np.int32),
+                     [11, 11, k - 22])
+    c8 = rng.integers(0, 40, (k, b)).astype(np.uint8)
+    c32 = rng.integers(0, 1001, (k, b)).astype(np.int32)
+    nows_d = torch.from_numpy(nows).to(dev)
+    variants = {
+        "fused, bits": (zipf, K.pack_compact5(zipf, c8), c8, False),
+        "fused, f32": (zipf, K.pack_compact5(zipf, c8), c8, True),
+        "i32, f32": (zipf, np.stack([zipf, c32]), c32, True),
+        "fused, bits, distinct slots": (
+            distinct, K.pack_compact5(distinct, c8), c8, False),
+    }
+    out_res = {}
+    for label, (slots, op, counts, with_rem) in variants.items():
+        valid = slots >= 0
+        # Distinct valid slots in the chunk: each is read once and written
+        # once at least (9 B each way).
+        d = len(np.unique(slots[valid]))
+        slots_d = torch.from_numpy(slots).to(dev)
+        op_d = torch.from_numpy(op).to(dev)
+        counts_d = torch.from_numpy(counts.astype(np.int32)).to(dev)
+        ks = K.BucketState(*(x.clone() for x in table))
+        ps = K.BucketState(*(x.clone() for x in table))
+        got = ck.acquire_scan_packed(ks, op_d, nows_d, cap, rate,
+                                     with_remaining=with_rem)
+        _, pout = K.acquire_scan_packed(ps, slots_d, counts_d, nows_d, cap,
+                                        rate)
+        torch.cuda.synchronize()
+        err = _check_close(f"scan {label} tokens", ks.tokens, ps.tokens)
+        _check_equal(f"scan {label} last_ts", ks.last_ts, ps.last_ts)
+        _check_equal(f"scan {label} exists", ks.exists, ps.exists)
+        if with_rem:
+            _check_equal(f"scan {label} grants", got[:, 0], pout[:, 0])
+            err = max(err, _check_close(f"scan {label} remaining", got[:, 1],
+                                        pout[:, 1]))
+        else:
+            _check_equal(f"scan {label} bits", got,
+                         K.pack_grant_bits(pout[:, 0] > 0.5))
+        granted = int((pout[:, 0] > 0.5).sum())
+        if not 0 < granted < int(valid.sum()):  # a mix
+            raise AssertionError(f"scan {label}: granted {granted}")
+        call = (lambda ks=ks, op_d=op_d, with_rem=with_rem:
+                ck.acquire_scan_packed(ks, op_d, nows_d, cap, rate,
+                                       with_remaining=with_rem))
+        ms = _median_ms(call, inner=5)
+        plain_ms = _median_ms(lambda ps=ps, slots_d=slots_d,
+                              counts_d=counts_d:
+                              K.acquire_scan_packed(ps, slots_d, counts_d,
+                                                    nows_d, cap, rate),
+                              reps=5, warmup=1)
+        dev_ms = _device_ms(call, ["scan_kernel"])
+        out_bytes = k * b // 8 if not with_rem else k * 2 * b * 4
+        out_res[label] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            bytes=op.nbytes + 4 * k + out_bytes + 18 * d, ops=15 * k * b,
+            device_ms=dev_ms)
+        print(f"acquire_scan ({label}) K={k} B={b} ({d} distinct slots, "
+              f"{granted} granted): equal to plain, max abs err {err:.3g}; "
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, device time {dev_ms} "
+              f"ms)")
+    # Every row padding but two rows of one slot a batch: the sort, the scans
+    # and the barriers run, and next to no row gathers or writes. The
+    # difference to the Zipf chunk is what the gathers and writes cost.
+    pad = np.full((k, b), -1, np.int32)
+    pad[:, :2] = 7
+    pad = torch.from_numpy(K.pack_compact5(pad, c8)).to(dev)
+    ps = K.BucketState(*(x.clone() for x in table))
+    pad_ms = _median_ms(lambda: ck.acquire_scan_packed(
+        ps, pad, nows_d, cap, rate, with_remaining=False), inner=5)
+    print(f"acquire_scan (fused, bits) with every row padding but one "
+          f"repeated slot a batch: {pad_ms:.4f} ms (sort, scans and "
+          f"barriers; next to no gather or write)")
+    # The main path's bulk sends distinct keys.
+    main = dict(out_res["fused, bits, distinct slots"])
+    main["max_abs_err"] = max(r["max_abs_err"] for r in out_res.values())
+    return main
+
+
+async def trace_chunk(torch, ck, lim, keys, card: str) -> None:
+    """One bulk chunk of new keys (one K = 32 launch) under
+    ``torch.profiler``: the device's busy share of the call's wall time (the
+    union of kernel and copy intervals) and the kernels it launched. The
+    Chrome trace goes to the build directory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = await lim.acquire_many(keys, permits=1, with_remaining=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    if res.granted_count != len(keys):
+        raise AssertionError("traced chunk: not every fresh key granted")
+    path = ck.BUILD_DIR / "bulk_chunk_trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        if b > end:  # the union of the device intervals
+            busy_us += b - max(a, end)
+            end = b
+    # The function's name, without its namespace, template and arguments.
+    kernels = [re.sub(r"^.*?(\w+)(<.*?>)?\(.*$", r"\1", e["name"])
+               for e in device if e["cat"] == "kernel"]
+    if not kernels:
+        raise AssertionError("traced chunk: no kernel in the trace")
+    print(f"bulk chunk under torch.profiler: {len(keys)} keys in "
+          f"{wall_us / 1e3:.3f} ms ({card}); device busy "
+          f"{busy_us / 1e3:.4f} ms = {busy_us / wall_us:.4%} of wall; "
+          f"{len(kernels)} kernel launch(es) {kernels}, "
+          f"{len(device) - len(kernels)} copies or sets")
 
 
 async def main_path(torch, ck, pkg, card: str) -> dict:
@@ -328,7 +471,7 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
     if len(res) != N_KEYS or res.granted_count != N_KEYS:
         raise AssertionError(f"bulk: {res.granted_count}/{len(res)} granted")
     dispatch_s = sum(c.duration_s for c in session.finish())
-    bulk_launches = ck.launches["acquire_packed"]
+    bulk_launches = dict(ck.launches)
     # A second bulk call on 1M of them reads back remaining: 100 - 1 - 1.
     sub = list(range(0, N_KEYS, 10))
     res = await lim.acquire_many(sub, permits=1)
@@ -338,7 +481,9 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
           f"{N_KEYS / bulk_s:.0f} decisions/s ({card}); host dispatch "
           f"{dispatch_s:.3f} s, of which key->slot resolve "
           f"{bulk_resolve_s:.3f} s; garbage collector {bulk_gc_s:.3f} s; "
-          f"{bulk_launches} acquire_packed launches")
+          f"kernel launches {bulk_launches}")
+    chunk = range(N_KEYS, N_KEYS + SCAN_K * BATCH)
+    await trace_chunk(torch, ck, lim, chunk, card)
 
     # Flushes: cold keys (distinct rows) and hot keys (duplicates, grouped).
     rng = np.random.default_rng(SEED)
@@ -394,7 +539,8 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     sweep_gc_s = gc_clock.total - gc0
-    if store.metrics.slots_evicted != live or live != N_KEYS + len(hot) + 1:
+    if store.metrics.slots_evicted != live or \
+            live != N_KEYS + len(chunk) + len(hot) + 1:
         raise AssertionError(f"sweep evicted {store.metrics.slots_evicted} "
                              f"of {live} live slots")
     print(f"sweep_all: evicted {live} slots in {sweep_s:.3f} s ({card}); "
@@ -433,14 +579,19 @@ def main() -> int:
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
-               "acquire_grouped": "csrc/acquire.cu"}
+               "acquire_grouped": "csrc/acquire.cu",
+               "acquire_scan": "csrc/acquire.cu"}
     replaces = {
         "sweep_expired":
             "distributedratelimiting/redis_tpu/ops/pallas_kernels.py:80",
         "acquire_packed":
-            "distributedratelimiting/redis_tpu/ops/kernels.py:238",
+            "distributedratelimiting/redis_tpu/ops/kernels.py:239",
         "acquire_grouped":
-            "distributedratelimiting/redis_tpu/ops/kernels.py:256",
+            "distributedratelimiting/redis_tpu/ops/kernels.py:257",
+        # acquire_scan_fused_packed; also _bits (:451) and
+        # acquire_scan_compact_packed (:383).
+        "acquire_scan":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:479",
     }
     kernels = []
     for name, r in res.items():

@@ -14,16 +14,20 @@ Each wrapper takes the state and operands as tensors:
   adds one to :data:`launches` — there is no fallback from the kernel to
   the plain version.
 
-=====================  ========================  ===========================
-wrapper                source                    replaces
-=====================  ========================  ===========================
-``sweep_expired``      ``csrc/sweep.cu``         ``pallas_kernels.sweep_expired_pallas``
-``acquire_packed``     ``csrc/acquire.cu``       ``kernels.acquire_batch_packed``
-``acquire_grouped``    ``csrc/acquire.cu``       ``kernels.acquire_batch_packed_grouped``
-=====================  ========================  ===========================
+The wrappers, their sources, and what each replaces in the JAX package:
 
-:func:`acquire_scan_packed` is the bulk lane: one ``acquire_packed`` launch
-per scanned batch, with the batch's duplicate prefix computed on the device.
+- ``sweep_expired`` (``csrc/sweep.cu``) replaces
+  ``pallas_kernels.sweep_expired_pallas``;
+- ``acquire_packed`` (``csrc/acquire.cu``) replaces
+  ``kernels.acquire_batch_packed``;
+- ``acquire_grouped`` (``csrc/acquire.cu``) replaces
+  ``kernels.acquire_batch_packed_grouped``;
+- ``acquire_scan_packed`` (``csrc/acquire.cu``) replaces
+  ``kernels.acquire_scan_fused_packed``, ``acquire_scan_fused_bits`` and
+  ``acquire_scan_compact_packed``.
+
+Every wrapper call on the card is one kernel launch; the bulk lane's K
+batches and their duplicate prefixes run inside that one launch.
 """
 
 from __future__ import annotations
@@ -39,11 +43,12 @@ import time
 
 import torch
 
-from distributedratelimiting.redis_tpu_torch.ops import bucket_math as bm
 from distributedratelimiting.redis_tpu_torch.ops import kernels as K
 
 __all__ = [
     "TILE",
+    "SCAN_MAX_BATCH",
+    "FLUSH_MAX_BATCH",
     "NVCC_FLAGS",
     "launches",
     "reset_launches",
@@ -51,11 +56,16 @@ __all__ = [
     "sweep_expired",
     "acquire_packed",
     "acquire_grouped",
+    "scan_sort_bits",
     "acquire_scan_packed",
 ]
 
 #: Slots per expired-count tile, as the TPU kernel's (256 rows × 128 lanes).
 TILE = 32768
+#: Rows of one bulk-lane batch the scan kernel holds (1024 threads × 4).
+SCAN_MAX_BATCH = 4096
+#: Rows of one flush the flush kernels hold (8 B of shared memory a row).
+FLUSH_MAX_BATCH = 29_056
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -79,16 +89,19 @@ _SIGNATURES = {
                               _I64, _P),
     },
     "acquire": {
-        "drl_acquire_packed": (_P, _P, _P, _I32, _P, _P, _I32, _F32, _F32,
-                               _P, _P, _P, _P),
+        "drl_acquire_packed": (_P, _P, _P, _I32, _P, _I32, _F32, _F32, _P,
+                               _P),
         "drl_acquire_grouped": (_P, _P, _P, _I32, _P, _I32, _F32, _F32, _P,
-                                _P, _P, _P),
+                                _P),
+        "drl_acquire_scan": (_P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
+                             _I32, _F32, _F32, _P, _P, _P),
     },
 }
 
 #: Kernel launches per wrapper — plain ints, incremented only where a wrapper
 #: launches its kernel on the card (never for the CPU's plain version).
-launches = {"sweep_expired": 0, "acquire_packed": 0, "acquire_grouped": 0}
+launches = {"sweep_expired": 0, "acquire_packed": 0, "acquire_grouped": 0,
+            "acquire_scan": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -239,43 +252,37 @@ def sweep_expired(state: K.BucketState, now: int, capacity: float,
     return mask, counts
 
 
-def acquire_packed(state: K.BucketState, packed: torch.Tensor,
-                   capacity: float, fill_rate_per_tick: float,
-                   prefix: torch.Tensor | None = None, *,
-                   out: torch.Tensor | None = None) -> torch.Tensor:
-    """One flush decided against the table (updated in place): ``packed
-    i32[4, B]`` as :func:`kernels.acquire_batch_packed` takes it, and
-    optionally a float32 ``prefix f32[B]`` that replaces row 3. Returns
-    ``out f32[2, B]`` (written into ``out`` when given)."""
-    if _on_cpu(state):
-        slots, counts, valid, now, pref = K._unpack_requests(packed)
-        _, granted, remaining = K.acquire_core(
-            state, slots, counts, valid, now, capacity, fill_rate_per_tick,
-            prefix=pref if prefix is None else prefix)
-        res = torch.stack([granted.to(torch.float32), remaining])
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
+def _flush(name: str, state: K.BucketState, packed: torch.Tensor,
+           rows: int, capacity: float,
+           fill_rate_per_tick: float) -> torch.Tensor:
+    """One launch of a flush kernel: ``packed i32[rows, B]`` against the
+    CUDA table (updated in place); returns ``out f32[2, B]``."""
     n = _check_state(state)
     b = packed.shape[-1]
-    _check(packed, "packed", torch.int32, (4, b))
-    if prefix is not None:
-        _check(prefix, "prefix", torch.float32, (b,))
-    dev = state.tokens.device
-    if out is None:
-        out = torch.empty((2, b), dtype=torch.float32, device=dev)
-    _check(out, "out", torch.float32, (2, b))
-    scratch = torch.empty((2, b), dtype=torch.float32, device=dev)
-    rc = _lib("acquire").drl_acquire_packed(
+    _check(packed, "packed", torch.int32, (rows, b))
+    if b > FLUSH_MAX_BATCH:
+        raise ValueError(f"{name}: a flush holds at most {FLUSH_MAX_BATCH} "
+                         f"rows, got {b}")
+    out = torch.empty((2, b), dtype=torch.float32, device=state.tokens.device)
+    rc = getattr(_lib("acquire"), f"drl_{name}")(
         state.tokens.data_ptr(), state.last_ts.data_ptr(),
-        state.exists.data_ptr(), n, packed.data_ptr(),
-        None if prefix is None else prefix.data_ptr(), b, float(capacity),
-        float(fill_rate_per_tick), out.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), _stream(state.tokens))
-    _raise_on(rc, "acquire_packed")
-    launches["acquire_packed"] += 1
+        state.exists.data_ptr(), n, packed.data_ptr(), b, float(capacity),
+        float(fill_rate_per_tick), out.data_ptr(), _stream(state.tokens))
+    _raise_on(rc, name)
+    launches[name] += 1
     return out
+
+
+def acquire_packed(state: K.BucketState, packed: torch.Tensor,
+                   capacity: float, fill_rate_per_tick: float) -> torch.Tensor:
+    """One flush decided against the table (updated in place): ``packed
+    i32[4, B]`` as :func:`kernels.acquire_batch_packed` takes it, with the
+    host's duplicate prefix in row 3. Returns ``out f32[2, B]``."""
+    if _on_cpu(state):
+        return K.acquire_batch_packed(state, packed, capacity,
+                                      fill_rate_per_tick)[1]
+    return _flush("acquire_packed", state, packed, 4, capacity,
+                  fill_rate_per_tick)
 
 
 def acquire_grouped(state: K.BucketState, packed: torch.Tensor,
@@ -287,46 +294,63 @@ def acquire_grouped(state: K.BucketState, packed: torch.Tensor,
     if _on_cpu(state):
         return K.acquire_batch_packed_grouped(state, packed, capacity,
                                               fill_rate_per_tick)[1]
-    n = _check_state(state)
-    b = packed.shape[-1]
-    _check(packed, "packed", torch.int32, (5, b))
-    dev = state.tokens.device
-    out = torch.empty((2, b), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2, b), dtype=torch.float32, device=dev)
-    rc = _lib("acquire").drl_acquire_grouped(
-        state.tokens.data_ptr(), state.last_ts.data_ptr(),
-        state.exists.data_ptr(), n, packed.data_ptr(), b, float(capacity),
-        float(fill_rate_per_tick), out.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), _stream(state.tokens))
-    _raise_on(rc, "acquire_grouped")
-    launches["acquire_grouped"] += 1
-    return out
+    return _flush("acquire_grouped", state, packed, 5, capacity,
+                  fill_rate_per_tick)
 
 
-def acquire_scan_packed(state: K.BucketState, slots_k: torch.Tensor,
-                        counts_k: torch.Tensor, nows_k: torch.Tensor,
-                        capacity: float,
-                        fill_rate_per_tick: float) -> torch.Tensor:
-    """The bulk lane: K batches (``slots_k``/``counts_k i32[K, B]``,
-    ``nows_k i32[K]``) decided in order against the table, each with its
-    in-batch duplicate prefix. Returns ``out f32[K, 2, B]``. On the card
-    this is one :func:`acquire_packed` launch per batch, its prefix from
-    :func:`bucket_math.duplicate_prefix` computed on the device."""
+def scan_sort_bits(n_slots: int) -> int:
+    """Key bits the bulk kernel's radix sort orders: every slot ``0 … N-1``
+    and the padding key ``N`` (which sorts after every slot) fit, and no
+    more — ``bit_length(N)``, whatever N a grown or restored table has."""
+    return int(n_slots).bit_length()
+
+
+def acquire_scan_packed(state: K.BucketState, operand: torch.Tensor,
+                        nows_k: torch.Tensor, capacity: float,
+                        fill_rate_per_tick: float, *,
+                        with_remaining: bool = True) -> torch.Tensor:
+    """The bulk lane: K batches decided in order against the table (updated
+    in place), each with its in-batch duplicate prefix, at its own tick
+    ``nows_k i32[K]``. ``operand`` is the fused ``u8[K, B, 5]`` of
+    :func:`kernels.pack_compact5` (counts ≤ 255) or ``i32[2, K, B]`` (slots,
+    then counts). Returns ``out f32[K, 2, B]`` (grants, remaining), or with
+    ``with_remaining=False`` the grants bit-packed little-endian, ``u8[K,
+    B/8]`` (``B % 8 == 0``). On the card: one launch for the whole chunk."""
+    fused = operand.dtype == torch.uint8
+    k, b = operand.shape[:2] if fused else operand.shape[1:]
+    if not with_remaining and b % 8:
+        raise ValueError(f"bit-packed grants need B % 8 == 0, got B = {b}")
     if _on_cpu(state):
-        return K.acquire_scan_packed(state, slots_k, counts_k, nows_k,
-                                     capacity, fill_rate_per_tick)[1]
-    k, b = slots_k.shape
+        if fused:
+            fn = (K.acquire_scan_fused_packed if with_remaining
+                  else K.acquire_scan_fused_bits)
+            return fn(state, operand, nows_k, capacity, fill_rate_per_tick)[1]
+        out = K.acquire_scan_packed(state, operand[0], operand[1], nows_k,
+                                    capacity, fill_rate_per_tick)[1]
+        return out if with_remaining else K.pack_grant_bits(out[:, 0] > 0.5)
+    n = _check_state(state)
+    if fused:
+        _check(operand, "operand", torch.uint8, (k, b, 5))
+    else:
+        _check(operand, "operand", torch.int32, (2, k, b))
+    _check(nows_k, "nows_k", torch.int32, (k,))
+    if b > SCAN_MAX_BATCH:
+        raise ValueError(f"acquire_scan: a batch holds at most "
+                         f"{SCAN_MAX_BATCH} rows, got {b}")
     dev = state.tokens.device
-    packed = torch.zeros((k, 4, b), dtype=torch.int32, device=dev)
-    packed[:, 0] = slots_k
-    packed[:, 1] = counts_k
-    packed[:, 2] = nows_k.to(device=dev, dtype=torch.int32)[:, None]
-    out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
-    n = state.tokens.shape[0]
-    for i in range(k):
-        slots = packed[i, 0]
-        valid = (slots >= 0) & (slots < n)
-        prefix = bm.duplicate_prefix(slots, packed[i, 1], valid)
-        acquire_packed(state, packed[i], capacity, fill_rate_per_tick,
-                       prefix, out=out[i])
+    if with_remaining:
+        out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
+    else:
+        # The kernel ORs grants into whole 4-byte words of the allocation.
+        n_bytes = k * (b // 8)
+        out = torch.empty((-(-n_bytes // 4) * 4,), dtype=torch.uint8,
+                          device=dev)[:n_bytes].view(k, b // 8)
+    rc = _lib("acquire").drl_acquire_scan(
+        state.tokens.data_ptr(), state.last_ts.data_ptr(),
+        state.exists.data_ptr(), n, operand.data_ptr(), int(fused),
+        nows_k.data_ptr(), k, b, scan_sort_bits(n), float(capacity),
+        float(fill_rate_per_tick), out.data_ptr() if with_remaining else None,
+        None if with_remaining else out.data_ptr(), _stream(state.tokens))
+    _raise_on(rc, "acquire_scan")
+    launches["acquire_scan"] += 1
     return out

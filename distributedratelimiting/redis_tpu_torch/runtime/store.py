@@ -385,8 +385,8 @@ class _PackedLaunchMixin:
         """Dispatch a whole resolved slot array as scanned launches;
         returns per-dispatch device results (no readback — callers overlap
         it). Counts that fit a byte ride the fused 5-bytes/decision operand;
-        larger counts travel as separate i32 slot and count arrays. The
-        caller holds the store lock."""
+        larger counts travel as one ``i32[2, K, B]`` operand (slots, then
+        counts). The caller holds the store lock."""
         n = len(slots)
         b = self.store.max_batch
         outs: list[tuple] = []
@@ -641,20 +641,15 @@ class _DeviceTable(_PackedLaunchMixin):
     def _launch_scan_chunk(self, s: np.ndarray, c: np.ndarray,
                            nows: np.ndarray, compact: bool,
                            with_remaining: bool) -> torch.Tensor:
-        """One chunk's scanned dispatch: ``f32[K, 2, B]``, or bit-packed
-        grants ``u8[K, B/8]`` for a verdict-only call."""
-        k, b = s.shape
-        if compact:
-            slots_k, counts_k = K._unpack_compact5(
-                self._upload(K.pack_compact5(s, c)))
-        else:
-            slots_k, counts_k = self._upload(s), self._upload(c)
-        out = ck.acquire_scan_packed(self.state, slots_k, counts_k,
-                                     self._upload(nows), self.capacity,
-                                     self.rate_per_tick)
-        if not with_remaining and b % 8 == 0:
-            return K.pack_grant_bits(out[:, 0] > 0.5)
-        return out
+        """One chunk's scanned dispatch, one operand upload and one kernel
+        launch: ``f32[K, 2, B]``, or bit-packed grants ``u8[K, B/8]`` for a
+        verdict-only call."""
+        b = s.shape[1]
+        operand = K.pack_compact5(s, c) if compact else np.stack([s, c])
+        return ck.acquire_scan_packed(
+            self.state, self._upload(operand), self._upload(nows),
+            self.capacity, self.rate_per_tick,
+            with_remaining=with_remaining or b % 8 != 0)
 
     def peek_blocking(self, key: str) -> float:
         with self.store._lock:
@@ -732,6 +727,10 @@ class DeviceBucketStore(BucketStore):
                     "DeviceBucketStore: no CUDA device is available; pass "
                     "device='cpu' to run the plain PyTorch versions on the "
                     "CPU")
+            if max_batch > ck.SCAN_MAX_BATCH:
+                raise ValueError(
+                    f"max_batch {max_batch} > {ck.SCAN_MAX_BATCH}: the card's "
+                    "bulk-lane kernel holds one batch in one thread block")
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
         self.clock = clock or MonotonicClock()

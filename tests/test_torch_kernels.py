@@ -181,16 +181,103 @@ def test_unpack_compact5_keeps_negative_padding():
     np.testing.assert_array_equal(counts.numpy(), [[0, 1, 2, 255]])
 
 
-def test_scan_wrapper_matches_fused_plain():
+@pytest.mark.parametrize("with_remaining", [True, False])
+def test_scan_wrapper_matches_fused_plain(with_remaining):
+    """The i32 operand (slots, then counts) decides as the fused one."""
     s = _state_np(N, 5)
     fused, nows = _fused(55)
     slots_k, counts_k = TK._unpack_compact5(torch.from_numpy(fused))
-    a = ck.acquire_scan_packed(_torch_state(s), slots_k, counts_k,
-                               torch.from_numpy(nows), CAP, 0.013)
+    a = ck.acquire_scan_packed(_torch_state(s), torch.stack([slots_k,
+                                                             counts_k]),
+                               torch.from_numpy(nows), CAP, 0.013,
+                               with_remaining=with_remaining)
     _, b = TK.acquire_scan_fused_packed(_torch_state(s),
                                         torch.from_numpy(fused),
                                         torch.from_numpy(nows), CAP, 0.013)
+    if not with_remaining:
+        b = TK.pack_grant_bits(b[:, 0] > 0.5)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _scan_case(seed, fused, k=6, b=64, n=N):
+    """K batches sharing hot slots within and across batches, padding and
+    out-of-range rows, three ticks; the fused operand (u8 counts) or the
+    i32 one with counts up to 1000."""
+    rng = np.random.default_rng(seed)
+    slots = np.stack([_slots_np(rng, b, n) for _ in range(k)])
+    nows = np.array([50_000] * 2 + [50_400] * 2 + [51_500] * (k - 4),
+                    np.int32)
+    if fused:
+        counts = rng.integers(0, 4, (k, b)).astype(np.uint8)
+        return JK.pack_compact5(slots, counts), slots, counts, nows
+    counts = rng.integers(0, 1001, (k, b)).astype(np.int32)
+    return np.stack([slots, counts]), slots, counts, nows
+
+
+@pytest.mark.parametrize("with_remaining", [True, False])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("seed", range(2))
+def test_scan_wrapper_matches_jax(seed, fused, with_remaining):
+    """The bulk-lane wrapper on CPU tensors against the JAX scans: the
+    fused operand through ``acquire_scan_fused_packed``/``_bits``, the i32
+    one through ``acquire_scan_compact_packed``/``_bits``."""
+    # Balances stay below 1024, where one float32 ulp is under ATOL: the
+    # two scatter-adds add duplicates' consumption in different orders.
+    cap = CAP if fused else 1000.0
+    s = _state_np(N, seed)
+    s = (s[0] * (cap / CAP), s[1], s[2])
+    operand, slots, counts, nows = _scan_case(seed + 500, fused)
+    assert len(set(nows)) == 3
+    rate = 0.013
+    jstate = _jax_state(s)
+    if fused:
+        fn = (JK.acquire_scan_fused_packed if with_remaining
+              else JK.acquire_scan_fused_bits)
+        jstate, jout = fn(jstate, jnp.asarray(operand), jnp.asarray(nows),
+                          jnp.float32(cap), jnp.float32(rate))
+    else:
+        fn = (JK.acquire_scan_compact_packed if with_remaining
+              else JK.acquire_scan_compact_bits)
+        res = fn(jstate, jnp.asarray(slots), jnp.asarray(counts),
+                 jnp.asarray(nows), jnp.float32(cap), jnp.float32(rate))
+        jstate, jout = res[0], res[1]
+    tstate = _torch_state(s)
+    tout = ck.acquire_scan_packed(tstate, torch.from_numpy(operand),
+                                  torch.from_numpy(nows), cap, rate,
+                                  with_remaining=with_remaining)
+    jout = np.asarray(jout)
+    assert tout.shape == jout.shape
+    if with_remaining:
+        grants = jout[:, 0]
+        np.testing.assert_array_equal(tout[:, 0].numpy(), grants)
+        np.testing.assert_allclose(tout[:, 1].numpy(), jout[:, 1],
+                                   atol=ATOL, rtol=0)
+    else:
+        assert tout.dtype == torch.uint8
+        np.testing.assert_array_equal(tout.numpy(), jout)
+        grants = np.unpackbits(jout, axis=-1, bitorder="little")
+    _assert_state(tstate, jstate)
+    assert grants.sum() > 0 and (grants == 0).any()  # both outcomes seen
+
+
+def test_scan_bits_need_whole_bytes():
+    s = _state_np(N, 1)
+    operand = np.zeros((2, 1, 12), np.int32)
+    with pytest.raises(ValueError, match="B % 8"):
+        ck.acquire_scan_packed(_torch_state(s), torch.from_numpy(operand),
+                               torch.zeros(1, dtype=torch.int32), CAP, 0.01,
+                               with_remaining=False)
+
+
+@pytest.mark.parametrize("n", [1, 64, 2**24, 2**24 + 12_345, 2**25,
+                               2**25 + 1])
+def test_scan_sort_bits_cover_table_and_padding_key(n):
+    """The radix sort's bit range follows N (a grown or restored table need
+    not be a power of two): slots 0 … N-1 and the padding key N fit, and
+    one bit fewer would not hold the padding key."""
+    bits = ck.scan_sort_bits(n)
+    assert n < 2**bits            # slots 0 … N-1 and the padding key N
+    assert n >= 2 ** (bits - 1)   # no wasted radix pass
 
 
 def test_padding_rows_never_touch_state():
@@ -274,5 +361,12 @@ def test_launch_counts_untouched_on_cpu():
     s = _state_np(N, 2)
     ck.acquire_packed(_torch_state(s), torch.from_numpy(_packed4(2)), CAP,
                       0.01)
+    ck.acquire_grouped(_torch_state(s), torch.from_numpy(_packed5(2)), CAP,
+                       0.01)
+    fused, nows = _fused(2)
+    ck.acquire_scan_packed(_torch_state(s), torch.from_numpy(fused),
+                           torch.from_numpy(nows), CAP, 0.01)
     ck.sweep_expired(_torch_state(s), 60_000, CAP, 0.01)
+    assert set(ck.launches) == {"sweep_expired", "acquire_packed",
+                                "acquire_grouped", "acquire_scan"}
     assert all(v == 0 for v in ck.launches.values())

@@ -37,6 +37,8 @@ from distributedratelimiting.redis_tpu_torch import (
     TokenBucketOptions,
     TokenBucketRateLimiter,
 )
+from distributedratelimiting.redis_tpu_torch.ops import bucket_math as tbm
+from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
 
 # Small tensors: one intra-op thread, so that parallel test workers keep
 # their cores.
@@ -172,6 +174,13 @@ def test_default_device_without_gpu_raises(monkeypatch):
         DeviceBucketStore()
 
 
+def test_card_store_refuses_batches_the_scan_kernel_cannot_hold(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="max_batch 4097"):
+        DeviceBucketStore(max_batch=ck.SCAN_MAX_BATCH + 1)
+    DeviceBucketStore(max_batch=ck.SCAN_MAX_BATCH)  # touches no device yet
+
+
 def test_port_serves_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None\n"
@@ -193,3 +202,41 @@ def test_port_serves_with_jax_blocked():
                          text=True, env=env, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["5", "False"]
+
+
+@pytest.mark.parametrize("with_remaining", [True, False])
+@pytest.mark.parametrize("max_count", [3, 300])
+def test_bulk_chunk_is_one_scan_wrapper_call(monkeypatch, max_count,
+                                             with_remaining):
+    """The scanned bulk lane hands each chunk's whole operand to the scan
+    wrapper in one call (fused u8 for counts ≤ 255, else i32[2, K, B]) and
+    computes no duplicate prefix itself."""
+    calls = []
+
+    def scan(state, operand, nows_k, capacity, rate, *, with_remaining):
+        calls.append((operand.dtype, tuple(operand.shape), tuple(nows_k.shape),
+                      with_remaining))
+        k, b = (operand.shape[:2] if operand.dtype == torch.uint8
+                else operand.shape[1:])
+        if with_remaining:
+            return torch.ones((k, 2, b))
+        return torch.full((k, b // 8), 255, dtype=torch.uint8)
+
+    def no_prefix(*args, **kwargs):
+        raise AssertionError("the bulk lane computed a duplicate prefix")
+
+    monkeypatch.setattr(ck, "acquire_scan_packed", scan)
+    monkeypatch.setattr(tbm, "duplicate_prefix", no_prefix)
+    store = _port(ManualClock(0), n_slots=2**14, max_batch=64,
+                  coalesce_duplicates=False)
+    n = 2 * 32 * 64 + 10  # two K = 32 chunks and a K = 1 tail
+    counts = np.random.default_rng(0).integers(1, max_count + 1, n)
+    res = store.acquire_many_blocking([f"k{i}" for i in range(n)], counts,
+                                      10.0, 1.0,
+                                      with_remaining=with_remaining)
+    assert res.granted.all() and len(res) == n
+    fused = max_count <= 255
+    dtype = torch.uint8 if fused else torch.int32
+    assert calls == [
+        (dtype, (k, 64, 5) if fused else (2, k, 64), (k,), with_remaining)
+        for k in (32, 32, 1)]
