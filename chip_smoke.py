@@ -16,22 +16,41 @@ Phases (any failure raises, and the script exits non-zero):
    slots duplicated within and across batches, 2% padding, three ticks)
    with the fused u8 operand (bits out and f32 out) and the i32 operand
    (counts up to 1000), and on a chunk of distinct slots within each batch
-   (the main path's bulk). Grants, bits, masks, ``exists`` and ``last_ts`` must
-   be equal; remaining and tokens within atol 1e-4. Time each (median of
-   CUDA-event timings, and device time from ``torch.profiler``) beside the
-   plain version and the bound.
+   (the main path's bulk); the counter kernels ``sync_counters`` at B = 2^20
+   (Zipf(1.1) slots with duplicates, 2% padding, half the counters live,
+   ticks on both sides of the stored ones; distinct slots) and B = 8, and
+   ``sweep_counters`` over 2^20 counters. Grants, bits, masks, ``exists``,
+   ``last_ts``, counter replies and periods must be equal; remaining and
+   tokens within atol 1e-4, counter values equal for distinct slots and,
+   where a slot takes r > 1 adds, within r spacings of its float32 value
+   (atomic adds in no fixed order). Time each
+   (median of CUDA-event timings, and device time from ``torch.profiler``)
+   beside the plain version and the bound.
 3. The main path at full size: ``PartitionedRateLimiter`` over
    ``DeviceBucketStore(device="cuda", n_slots=2**24)`` — ``acquire_many``
    over 10,000,000 distinct keys, one more bulk chunk under
    ``torch.profiler`` (its device busy share and kernel launches),
    concurrent ``acquire_async`` on hot and cold keys checked against a host
    oracle (cap-5 bucket × 32 asks → 5), then ``sweep_all`` past the TTL
-   with an exact eviction count. Each phase prints its rate and where its
+   with an exact eviction count. Every table resolves keys through the
+   native key directory (checked). Each phase prints its rate and where its
    host time went (the store's dispatch spans, the key directory, Python's
    garbage collector).
-4. Print ``{"kernels": [...]}``: per kernel its launches on the main path
-   (each must be > 0), the error against the plain version, and its times.
-5. Last line: ``{"ok": true, "device": {...}}``.
+4. The approximate path, 1M keys, Zipf(1.1) (BASELINE.json config 3), on a
+   second store with ``counter_slots=2**20``: one ``sync_counters_many``
+   over 1,000,000 distinct keys (one launch; every score equals its count),
+   16 rounds of 2^18 Zipf(1.1) draws pre-aggregated per key and one round
+   left unaggregated, each reply checked against a host float32 oracle of
+   the decay; eight ``ApproximateTokenBucketRateLimiter``s sharing one
+   counter at a staggered cadence (the instance estimate reaches 8, grants
+   per period stay within the limit plus the staleness bound); then
+   ``sweep_all`` a day later evicts exactly the live counters. Prints the
+   fleet sync's counters/s and its host split.
+5. Print ``{"kernels": [...]}``: per kernel its launches on each path of
+   phases 3 and 4 (``launches_by_path``; counts set to 0 before each path
+   and read after it; > 0 on the path the kernel serves) and their sum
+   (``launches``), the error against the plain version, and its times.
+6. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -55,6 +74,12 @@ N_SLOTS = 2**24
 BATCH = 4096
 N_KEYS = 10_000_000
 SCAN_K = 32  # batches in one bulk chunk (the store's largest K)
+COUNTER_SLOTS = 2**20
+N_COUNTER_KEYS = 1_000_000
+COUNTER_ROUNDS = 16
+ROUND_DRAWS = 2**18
+ZIPF_S = 1.1
+DECAY_PER_S = 10.0  # the counters' decay rate (per second)
 ATOL = 1e-4
 #: H100 SXM device-memory rate and float32 rate outside the tensor cores
 #: (NVIDIA data sheet, at the 700 W limit), for the bound.
@@ -166,6 +191,32 @@ def _check_close(what, got, want) -> float:
     if not err <= ATOL:
         raise AssertionError(f"{what}: max abs error {err} > {ATOL}")
     return err
+
+
+def _check_repeated_adds(what, slots, got, want) -> tuple[float, float]:
+    """Counter values after a sync whose slots repeat, each slot against its
+    own limit. A sync sets every touched slot to its decayed value, then
+    slot s takes r_s adds in an order the atomics choose. Decayed values and
+    counts are >= 0 here, so every partial sum lies within the final one and
+    each add rounds by at most half a spacing of max(|got_s|, |want_s|): two
+    orders differ by at most r_s such spacings. A slot with one add or none
+    must be equal. ``slots`` indexes ``got`` and ``want`` (out-of-range rows
+    dropped). Returns the largest error and the limit of that slot."""
+    n = len(got)
+    slots = slots[(slots >= 0) & (slots < n)]
+    reps = np.bincount(slots, minlength=n)
+    got64, want64 = got.astype(np.float64), want.astype(np.float64)
+    mag = np.maximum(np.abs(got), np.abs(want)).astype(np.float32)
+    tol = np.where(reps > 1, reps, 0) * np.spacing(mag).astype(np.float64)
+    err = np.abs(got64 - want64)
+    bad = np.flatnonzero(err > tol)
+    if len(bad):
+        s = bad[np.argmax(err[bad] - tol[bad])]
+        raise AssertionError(
+            f"{what}: {len(bad)} slots past their limit, e.g. slot {s} "
+            f"({reps[s]} adds): {got[s]} vs {want[s]}, limit {tol[s]}")
+    worst = int(np.argmax(err))
+    return float(err[worst]), float(tol[worst])
 
 
 def kernel_phase(torch, K, ck, dev):
@@ -295,7 +346,151 @@ def kernel_phase(torch, K, ck, dev):
                                     rate)
     del table, tokens, last_ts, exists0, state, plain, sat
     torch.cuda.empty_cache()
+    res.update(counter_cases(torch, K, ck, dev, rng))
     return res
+
+
+def _sync_packed(rng, b, n, now, distinct):
+    """A counter-sync operand ``i32[3, B]``: Zipf(1.1) slots (duplicates) or
+    distinct ones, 2% padding, float counts bitcast, the tick."""
+    if distinct:
+        slots = rng.permutation(n)[:b].astype(np.int32)
+    else:
+        slots = ((rng.zipf(ZIPF_S, b) - 1) % n).astype(np.int32)
+    slots[rng.random(b) < 0.02] = -1
+    counts = rng.uniform(0, 50, b).astype(np.float32)
+    counts[slots < 0] = 0.0
+    return np.stack([slots, counts.view(np.int32), np.full(b, now, np.int32)])
+
+
+def counter_cases(torch, K, ck, dev, rng) -> dict:
+    """``sync_counters`` and ``sweep_counters`` against their plain versions
+    on a counter table of 2^20 slots: half live, stored ticks on both sides
+    of ``now`` (a clock behind some of them)."""
+    n, now, rate = COUNTER_SLOTS, 3_000_000, DECAY_PER_S / 1024
+    table = (torch.tensor(rng.uniform(0, 1000, n).astype(np.float32),
+                          device=dev),
+             torch.tensor(rng.uniform(0, 5000, n).astype(np.float32),
+                          device=dev),
+             torch.tensor(rng.integers(now - 3000, now + 300, n).astype(
+                 np.int32), device=dev),
+             torch.tensor(rng.random(n) < 0.5, device=dev))
+    res = {}
+    sync = {}
+    for label, b, distinct in (("Zipf(1.1)", n, False),
+                               ("distinct", n, True), ("B = 8", 8, False)):
+        packed = _sync_packed(rng, b, n, now, distinct)
+        valid = packed[0] >= 0
+        uniq, reps = np.unique(packed[0][valid], return_counts=True)
+        op = torch.from_numpy(packed).to(dev)
+        ks = K.CounterState(*(x.clone() for x in table))
+        ps = K.CounterState(*(x.clone() for x in table))
+        got = ck.sync_counters(ks, op, rate)
+        _, want = K.sync_batch_packed(ps, op, rate)
+        torch.cuda.synchronize()
+        _check_equal(f"sync {label} replies", got, want)
+        _check_equal(f"sync {label} period", ks.period, ps.period)
+        _check_equal(f"sync {label} last_ts", ks.last_ts, ps.last_ts)
+        _check_equal(f"sync {label} exists", ks.exists, ps.exists)
+        if (reps > 1).any():
+            # Duplicates' adds land in atomic order (the plain version's
+            # index_add_ on the card is atomic too).
+            err, tol = _check_repeated_adds(
+                f"sync {label} value", packed[0], ks.value.cpu().numpy(),
+                ps.value.cpu().numpy())
+        else:
+            _check_equal(f"sync {label} value", ks.value, ps.value)
+            err, tol = 0.0, 0.0
+        ms = _median_ms(lambda: ck.sync_counters(ks, op, rate),
+                        inner=5 if b > 8 else 20)
+        plain_ms = _median_ms(lambda: K.sync_batch_packed(ps, op, rate),
+                              reps=5, warmup=1)
+        dev_ms = _device_ms(lambda: ck.sync_counters(ks, op, rate),
+                            ["sync_kernel"])
+        # Bytes: the operand and the reply (20 B a row), 13 B of state read
+        # and 13 B written per distinct slot. ~12 operations a row.
+        sync[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=None, bytes=20 * b + 26 * len(uniq),
+                           ops=12 * b, device_ms=dev_ms)
+        print(f"sync_counters ({label}) B={b} ({len(uniq)} distinct slots, "
+              f"max repeat {reps.max()}): replies, period, last_ts, exists "
+              f"equal to plain, value max abs err {err!r} (that slot's limit "
+              f"{tol!r}); {ms:.4f} ms (plain {plain_ms:.4f} ms, device time "
+              f"{dev_ms} ms)")
+    # The fleet sync of the main path sends distinct keys.
+    res["sync_counters"] = dict(sync["distinct"], max_abs_err=max(
+        r["max_abs_err"] for r in sync.values()))
+    exact_sums_case(torch, K, ck, dev, rng, table, now, rate)
+
+    # sweep_counters over the table: last touches up to two days back.
+    last = torch.tensor(rng.integers(now - 2 * 86400 * 1024, now + 300,
+                                     n).astype(np.int32), device=dev)
+    exists0 = table[3]
+    ks = K.CounterState(table[0], table[1], last, exists0.clone())
+    ps = K.CounterState(table[0], table[1], last, exists0.clone())
+    mask, counts = ck.sweep_counters(ks, now)
+    _, expired = K.sweep_counters(ps, now)
+    torch.cuda.synchronize()
+    _check_equal("sweep_counters mask", mask.bool(), expired)
+    _check_equal("sweep_counters exists", ks.exists, ps.exists)
+    want_tiles = torch.nn.functional.pad(
+        expired.int(), (0, counts.numel() * ck.TILE - n)).view(
+            -1, ck.TILE).sum(1)
+    _check_equal("sweep_counters tile counts", counts, want_tiles.int())
+    n_expired = int(counts.sum())
+    if not 0 < n_expired < int(exists0.sum()):
+        raise AssertionError(f"sweep_counters expired {n_expired}: no mix")
+    ms = _median_ms(lambda: ck.sweep_counters(ks, now),
+                    setup=lambda: ks.exists.copy_(exists0))
+    plain_ms = _median_ms(lambda: K.sweep_counters(ps, now),
+                          setup=lambda: ps.exists.copy_(exists0))
+    dev_ms = _device_ms(lambda: ck.sweep_counters(ks, now),
+                        ["sweep_counters_kernel"])
+    # 7 B a slot (last_ts and exists read, exists and mask written) and the
+    # tile counts; ~4 operations a slot (sub, max, compare, and).
+    res["sweep_counters"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        bytes=7 * n + 4 * counts.numel(), ops=4 * n, device_ms=dev_ms)
+    print(f"sweep_counters N={n}: expired {n_expired}, equal to plain; "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, device time {dev_ms} ms)")
+    return res
+
+
+def exact_sums_case(torch, K, ck, dev, rng, table, now, rate) -> None:
+    """``sync_counters`` at B = 2^20 with Zipf(1.1) duplicates on sums that
+    float32 holds exactly: whole-number values and counts (1 to 8), stored
+    ticks on a 1024-tick grid around ``now`` so the decay subtracts a whole
+    number (``rate`` · 1024 is one). Every order of the atomic adds then
+    gives the same value, so every slot, the hottest included, must equal
+    the plain version: an add lost to a set that landed after it shows."""
+    n = table[0].numel()
+    if float(np.float32(rate) * 1024) != float(DECAY_PER_S):
+        raise AssertionError("the decay per 1024 ticks is not whole")
+    grid = (now - 1024 * rng.integers(-1, 4, n)).astype(np.int32)
+    itable = (torch.tensor(rng.integers(0, 1000, n).astype(np.float32),
+                           device=dev),
+              table[1], torch.tensor(grid, device=dev), table[3])
+    packed = _sync_packed(rng, n, n, now, distinct=False)
+    counts = rng.integers(1, 9, n).astype(np.float32)
+    counts[packed[0] < 0] = 0.0
+    packed[1] = counts.view(np.int32)
+    reps = np.bincount(packed[0][packed[0] >= 0], minlength=n)
+    # Largest partial sum: a value below 1000 plus every count of the slot.
+    if 1000 + 8 * int(reps.max()) >= 2**24:
+        raise AssertionError("a slot's sum passes 2^24: not exact")
+    op = torch.from_numpy(packed).to(dev)
+    ks = K.CounterState(*(x.clone() for x in itable))
+    ps = K.CounterState(*(x.clone() for x in itable))
+    got = ck.sync_counters(ks, op, rate)
+    _, want = K.sync_batch_packed(ps, op, rate)
+    torch.cuda.synchronize()
+    _check_equal("sync exact sums replies", got, want)
+    for name in ("value", "period", "last_ts", "exists"):
+        _check_equal(f"sync exact sums {name}", getattr(ks, name),
+                     getattr(ps, name))
+    print(f"sync_counters (Zipf(1.1), exact sums) B={n} (max repeat "
+          f"{reps.max()}): replies and every slot's value, period, last_ts, "
+          f"exists equal to plain")
 
 
 def scan_case(torch, K, ck, dev, rng, table, now, cap, rate) -> dict:
@@ -430,6 +625,20 @@ async def trace_chunk(torch, ck, lim, keys, card: str) -> None:
           f"{len(device) - len(kernels)} copies or sets")
 
 
+def _check_native(store) -> None:
+    """Every table's key directory and the counter directory must be the
+    native one: no silent fallback to the Python directory on the card."""
+    from distributedratelimiting.redis_tpu_torch.runtime.directory import (
+        NativeKeyDirectory,
+    )
+
+    dirs = [t.dir for t in store._tables.values()] + [store._counter_dir]
+    kinds = {type(d).__name__ for d in dirs}
+    if kinds != {"NativeKeyDirectory"} or not all(
+            isinstance(d, NativeKeyDirectory) for d in dirs):
+        raise AssertionError(f"key directories are {kinds}, not native")
+
+
 async def main_path(torch, ck, pkg, card: str) -> dict:
     """The port's serving path at full size; returns the kernel launches it
     made."""
@@ -527,6 +736,7 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
           f"{store.metrics.flush_latency.p99 * 1e3:.3f} ms, garbage collector "
           f"{flush_gc_s:.3f} s")
 
+    _check_native(store)
     # Sweep: past every bucket's time-to-full, every live slot expires.
     live = sum(len(t.dir) for t in store._tables.values())
     clock.advance_seconds(11.0)
@@ -548,6 +758,195 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
           f"{sweep_gc_s:.3f} s")
     counts = dict(ck.launches)
     gc.callbacks.remove(gc_clock)
+    await store.aclose()
+    return counts
+
+
+class _CounterOracle:
+    """Host float32 model of the counter table, indexed by key rank: each
+    operation of the decay rounded on its own, in the kernel's order."""
+
+    def __init__(self, n: int) -> None:
+        self.value = np.zeros(n, np.float32)
+        self.period = np.zeros(n, np.float32)
+        self.last = np.zeros(n, np.int64)
+        self.exists = np.zeros(n, bool)
+        self.rate = np.float32(DECAY_PER_S / 1024)
+
+    def decay(self, idx: np.ndarray, now: int):
+        ex = self.exists[idx]
+        delta = np.maximum(0, now - np.where(ex, self.last[idx], 0)).astype(
+            np.float32)
+        decayed = np.where(ex, np.maximum(np.float32(0), self.value[idx]
+                                          - delta * self.rate),
+                           np.float32(0)).astype(np.float32)
+        period = np.where(ex, np.float32(0.8) * self.period[idx]
+                          + np.float32(0.2) * delta, delta).astype(np.float32)
+        return decayed, period
+
+    def sync(self, idx: np.ndarray, counts: np.ndarray, now: int):
+        """Rows may repeat: every row sees the pre-sync state, the adds
+        accumulate. Returns the replies (decayed + own count, period)."""
+        decayed, period = self.decay(idx, now)
+        self.value[idx] = decayed
+        self.period[idx] = period
+        self.last[idx] = now
+        self.exists[idx] = True
+        np.add.at(self.value, idx, counts)
+        return decayed + counts, period
+
+
+def _check_replies(what, got, want) -> float:
+    err = float(np.abs(np.asarray(got, np.float64)
+                       - np.asarray(want, np.float64)).max())
+    if not err <= ATOL:
+        raise AssertionError(f"{what}: max abs error {err} > {ATOL}")
+    return err
+
+
+async def approximate_path(torch, ck, pkg, card: str) -> dict:
+    """BASELINE config 3, the approximate token bucket at 1M keys with
+    Zipf(1.1) skew, on a store of its own; returns the kernel launches it
+    made."""
+    rng = np.random.default_rng(SEED + 3)
+    clock = pkg.ManualClock(1_000_000)
+    store = pkg.DeviceBucketStore(device="cuda", counter_slots=COUNTER_SLOTS,
+                                  clock=clock)
+    await store.connect()
+    _check_native(store)
+    keys = [f"tenant:{i}" for i in range(N_COUNTER_KEYS)]
+    oracle = _CounterOracle(N_COUNTER_KEYS)
+    ck.reset_launches()
+
+    # 1. One fleet sync of 1M distinct counters: one launch. Host split:
+    # native resolve, launch (wrapper call), pack + upload (the rest of the
+    # dispatch), readback (the rest of the call: device time, copy, await).
+    resolve_s, launch_s, dispatch_s = [0.0], [0.0], [0.0]
+    _time_calls(store._counter_dir, "resolve_batch", resolve_s)
+    _time_calls(store, "_sync_dispatch_many", dispatch_s)
+    sync_fn = ck.sync_counters
+    _time_calls(ck, "sync_counters", launch_s)
+    counts = rng.uniform(0, 100, N_COUNTER_KEYS).astype(np.float32)
+    t0 = time.perf_counter()
+    scores, periods = await store.sync_counters_many(keys, counts,
+                                                     DECAY_PER_S)
+    fleet_s = time.perf_counter() - t0
+    ck.sync_counters = sync_fn
+    if ck.launches["sync_counters"] != 1:
+        raise AssertionError(f"fleet sync: {ck.launches['sync_counters']} "
+                             "launches, not one")
+    want, want_p = oracle.sync(np.arange(N_COUNTER_KEYS), counts,
+                               clock.now_ticks())
+    if not (np.array_equal(scores, counts) and np.array_equal(scores, want)
+            and np.array_equal(periods, want_p)):
+        raise AssertionError("fleet sync: a score differs from its count")
+    pack_s = dispatch_s[0] - resolve_s[0] - launch_s[0]
+    print(f"fleet sync_counters_many: {N_COUNTER_KEYS} counters in "
+          f"{fleet_s:.4f} s = {N_COUNTER_KEYS / fleet_s:.0f} counters/s "
+          f"({card}); native resolve {resolve_s[0]:.4f} s, pack + upload "
+          f"{pack_s:.4f} s, launch {launch_s[0]:.4f} s, readback "
+          f"{fleet_s - dispatch_s[0]:.4f} s; every score equals its count")
+
+    # 2. Zipf(1.1) rounds, pre-aggregated per key with np.unique.
+    err, n_rows, rounds_s = 0.0, 0, 0.0
+    for _ in range(COUNTER_ROUNDS):
+        clock.advance_seconds(0.25)
+        ranks = (rng.zipf(ZIPF_S, ROUND_DRAWS) - 1) % N_COUNTER_KEYS
+        uniq, inv = np.unique(ranks, return_inverse=True)
+        agg = np.bincount(inv, weights=rng.uniform(0, 4, ROUND_DRAWS)).astype(
+            np.float32)
+        batch = [keys[i] for i in uniq]
+        t0 = time.perf_counter()
+        scores, periods = await store.sync_counters_many(batch, agg,
+                                                         DECAY_PER_S)
+        rounds_s += time.perf_counter() - t0
+        want, want_p = oracle.sync(uniq, agg, clock.now_ticks())
+        err = max(err, _check_replies("Zipf round scores", scores, want),
+                  _check_replies("Zipf round periods", periods, want_p))
+        n_rows += len(uniq)
+    print(f"{COUNTER_ROUNDS} Zipf({ZIPF_S}) rounds of {ROUND_DRAWS} draws "
+          f"({n_rows} aggregated rows) in {rounds_s:.4f} s = "
+          f"{n_rows / rounds_s:.0f} counters/s; replies within {err:.3g} of "
+          f"the host oracle")
+
+    # 3. One round left unaggregated: duplicates share the decayed value,
+    # each reply adds its own count, the adds accumulate.
+    clock.advance_seconds(0.25)
+    ranks = (rng.zipf(ZIPF_S, ROUND_DRAWS) - 1) % N_COUNTER_KEYS
+    raw = rng.uniform(0, 4, ROUND_DRAWS).astype(np.float32)
+    scores, periods = await store.sync_counters_many(
+        [keys[i] for i in ranks], raw, DECAY_PER_S)
+    want, want_p = oracle.sync(ranks, raw, clock.now_ticks())
+    dup_err = max(_check_replies("duplicate round scores", scores, want),
+                  _check_replies("duplicate round periods", periods, want_p))
+    uniq, inv, reps = np.unique(ranks, return_inverse=True,
+                                return_counts=True)
+    slots = store._counter_dir.resolve_batch([keys[i] for i in uniq])
+    value = store._counters.value[torch.from_numpy(slots).long().to(
+        store.device)].cpu().numpy()
+    value_err, value_tol = _check_repeated_adds(
+        "duplicate round values", inv, value, oracle.value[uniq])
+    print(f"unaggregated round: {ROUND_DRAWS} rows on {len(uniq)} keys "
+          f"(hottest {reps.max()} times): replies within {dup_err:.3g}, "
+          f"values within their per-key limits, largest error {value_err!r} "
+          f"(that key's limit {value_tol!r})")
+
+    # 4. Eight approximate limiters sharing one counter, syncing at a
+    # staggered cadence.
+    from distributedratelimiting.redis_tpu_torch.models.approximate import (
+        overadmit_epsilon,
+    )
+
+    n_lim, limit, rate = 8, 100, 10
+    opts = pkg.ApproximateTokenBucketOptions(
+        token_limit=limit, tokens_per_period=rate, replenishment_period_s=1.0,
+        instance_name="fleet-limiter")
+    lims = [pkg.ApproximateTokenBucketRateLimiter(opts, store)
+            for _ in range(n_lim)]
+    # The counter is fresh, so its first interval is the whole epoch (~1e6
+    # ticks); ten rounds (80 syncs, each keeping 0.8 of the EWMA) bring the
+    # average down to the 128-tick cadence.
+    for _ in range(10):
+        for lim in lims:
+            clock.advance_seconds(1.0 / n_lim)
+            await lim.refresh()
+    estimates = [lim._instance_count for lim in lims]
+    if estimates != [n_lim] * n_lim:
+        raise AssertionError(f"instance estimates {estimates}, not 8")
+    per_period = []
+    for _ in range(12):
+        grants = 0
+        for lim in lims:
+            while lim.acquire(1).is_acquired:
+                grants += 1
+            clock.advance_seconds(1.0 / n_lim)
+            await lim.refresh()
+        per_period.append(grants)
+    bound = limit + overadmit_epsilon(0.0, rate, 1.0)
+    if max(per_period) > bound:
+        raise AssertionError(f"grants per period {per_period} > {bound}")
+    for lim in lims:
+        await lim.aclose()
+    print(f"8 approximate limiters on one counter: instance estimates "
+          f"{estimates}; grants per period {per_period} (bound {bound:g})")
+
+    # 5. A day later every counter has expired: sweep_all evicts them all.
+    live = len(store._counter_dir)
+    clock.advance_seconds(86_401)
+    removed_s = [0.0]
+    _time_calls(store._counter_dir, "remove_slots", removed_s)
+    evicted0 = store.metrics.slots_evicted
+    t0 = time.perf_counter()
+    store.sweep_all()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    evicted = store.metrics.slots_evicted - evicted0
+    if evicted != live or len(store._counter_dir) != 0 or \
+            live != N_COUNTER_KEYS + 1:
+        raise AssertionError(f"counter sweep evicted {evicted} of {live}")
+    print(f"counter sweep_all: evicted {live} counters in {sweep_s:.4f} s; "
+          f"directory removal {removed_s[0]:.4f} s")
+    counts = dict(ck.launches)
     await store.aclose()
     return counts
 
@@ -575,12 +974,22 @@ def main() -> int:
 
     dev = torch.device("cuda")
     res = kernel_phase(torch, K, ck, dev)
-    launches = asyncio.run(main_path(torch, ck, pkg, card))
+    # Each path resets the counts just before it runs and reads them just
+    # after; a kernel's launches are its count summed over the two paths,
+    # and it must have launched on the path it serves.
+    by_path = {"exact": asyncio.run(main_path(torch, ck, pkg, card)),
+               "approximate": asyncio.run(approximate_path(torch, ck, pkg,
+                                                           card))}
+    serves = {"sweep_expired": "exact", "acquire_packed": "exact",
+              "acquire_grouped": "exact", "acquire_scan": "exact",
+              "sync_counters": "approximate", "sweep_counters": "approximate"}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
                "acquire_grouped": "csrc/acquire.cu",
-               "acquire_scan": "csrc/acquire.cu"}
+               "acquire_scan": "csrc/acquire.cu",
+               "sync_counters": "csrc/counter.cu",
+               "sweep_counters": "csrc/counter.cu"}
     replaces = {
         "sweep_expired":
             "distributedratelimiting/redis_tpu/ops/pallas_kernels.py:80",
@@ -592,6 +1001,11 @@ def main() -> int:
         # acquire_scan_compact_packed (:383).
         "acquire_scan":
             "distributedratelimiting/redis_tpu/ops/kernels.py:479",
+        # core _sync_core (:728)
+        "sync_counters":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:1085",
+        "sweep_counters":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:1220",
     }
     kernels = []
     for name, r in res.items():
@@ -600,16 +1014,19 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "distributedratelimiting/redis_tpu_torch/"
                       + sources[name],
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
-    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    idle = [f"{name} ({path} path)" for name, path in serves.items()
+            if by_path[path][name] <= 0]
     if idle:
-        raise AssertionError(f"main path never launched {idle}")
+        raise AssertionError(f"never launched: {idle}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,13 @@
 """Distributed rate limiting on PyTorch and CUDA — the port of
 :mod:`distributedratelimiting.redis_tpu` to an NVIDIA Hopper GPU.
 
-The exact token-bucket serving path: limiters (``TokenBucketRateLimiter``,
-``PartitionedRateLimiter``) over a ``DeviceBucketStore`` whose per-key state
-lives on the card and whose decisions and TTL sweeps run as hand-written
-CUDA kernels (``ops/cuda_kernels.py``, sources in ``csrc/``). Module and
+The token-bucket family: limiters (``TokenBucketRateLimiter``,
+``PartitionedRateLimiter``, ``ApproximateTokenBucketRateLimiter``,
+``QueueingTokenBucketRateLimiter``) over a ``DeviceBucketStore`` whose
+per-key state and decaying global counters live on the card and whose
+decisions, counter syncs and TTL sweeps run as hand-written CUDA kernels
+(``ops/cuda_kernels.py``, sources in ``csrc/``). Keys resolve to slots
+through the native key directory (``native/directory.cc``). Module and
 class names follow the JAX package so each counterpart is easy to find.
 This package imports PyTorch and numpy only.
 """
@@ -17,11 +20,19 @@ from distributedratelimiting.redis_tpu_torch.models.base import (
     RateLimiterStatistics,
     RateLimitLease,
 )
+from distributedratelimiting.redis_tpu_torch.models.approximate import (
+    ApproximateTokenBucketRateLimiter,
+)
 from distributedratelimiting.redis_tpu_torch.models.options import (
+    ApproximateTokenBucketOptions,
+    QueueingTokenBucketOptions,
     TokenBucketOptions,
 )
 from distributedratelimiting.redis_tpu_torch.models.partitioned import (
     PartitionedRateLimiter,
+)
+from distributedratelimiting.redis_tpu_torch.models.queueing_token_bucket import (
+    QueueingTokenBucketRateLimiter,
 )
 from distributedratelimiting.redis_tpu_torch.models.token_bucket import (
     TokenBucketRateLimiter,
@@ -39,4 +50,5 @@ from distributedratelimiting.redis_tpu_torch.runtime.store import (
     BucketStore,
     BulkAcquireResult,
     DeviceBucketStore,
+    SyncResult,
 )

@@ -1,7 +1,8 @@
 """Options dataclasses — the configuration layer.
 
 Frozen dataclasses with fail-fast validation and derived values computed
-once. Only the exact token bucket's options are ported so far.
+once: the token-bucket family (exact, queueing, approximate). The window
+and concurrency options are not ported yet.
 
 - ``replenishment_period_s`` must be **> 0** — a zero period would make the
   fill rate infinite.
@@ -13,7 +14,15 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["TokenBucketOptions"]
+from distributedratelimiting.redis_tpu_torch.runtime.queueing import (
+    QueueProcessingOrder,
+)
+
+__all__ = [
+    "TokenBucketOptions",
+    "ApproximateTokenBucketOptions",
+    "QueueingTokenBucketOptions",
+]
 
 
 @dataclass(frozen=True)
@@ -45,3 +54,27 @@ class TokenBucketOptions:
     def fill_rate_per_second(self) -> float:
         """Derived ``FillRatePerSecond``."""
         return self.tokens_per_period / self.replenishment_period_s
+
+
+@dataclass(frozen=True)
+class QueueingTokenBucketOptions(TokenBucketOptions):
+    """Queueing + exact hybrid options (≙ the reference's orphaned
+    ``RedisQueueingTokenBucketRateLimiterOptions``; here the hybrid is live,
+    see :class:`~.queueing_token_bucket.QueueingTokenBucketRateLimiter`).
+    Also the base for every queueing-capable options family, so queueing
+    validation lives in exactly one place."""
+
+    queue_limit: int = 0
+    queue_processing_order: QueueProcessingOrder = QueueProcessingOrder.OLDEST_FIRST
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.queue_limit < 0:
+            raise ValueError("queue_limit must be >= 0")
+
+
+@dataclass(frozen=True)
+class ApproximateTokenBucketOptions(QueueingTokenBucketOptions):
+    """Approximate two-level limiter options
+    (≙ ``RedisApproximateTokenBucketRateLimiterOptions`` — the same
+    queueing surface, inherited from :class:`QueueingTokenBucketOptions`)."""

@@ -24,10 +24,15 @@ The wrappers, their sources, and what each replaces in the JAX package:
   ``kernels.acquire_batch_packed_grouped``;
 - ``acquire_scan_packed`` (``csrc/acquire.cu``) replaces
   ``kernels.acquire_scan_fused_packed``, ``acquire_scan_fused_bits`` and
-  ``acquire_scan_compact_packed``.
+  ``acquire_scan_compact_packed``;
+- ``sync_counters`` (``csrc/counter.cu``) replaces
+  ``kernels.sync_batch_packed``;
+- ``sweep_counters`` (``csrc/counter.cu``) replaces
+  ``kernels.sweep_counters``.
 
 Every wrapper call on the card is one kernel launch; the bulk lane's K
-batches and their duplicate prefixes run inside that one launch.
+batches and their duplicate prefixes run inside that one launch, and a
+counter sync's three phases inside one cooperative launch.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ __all__ = [
     "acquire_grouped",
     "scan_sort_bits",
     "acquire_scan_packed",
+    "sync_counters",
+    "sweep_counters",
 ]
 
 #: Slots per expired-count tile, as the TPU kernel's (256 rows × 128 lanes).
@@ -77,7 +84,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_SOURCES = {"sweep": "sweep.cu", "acquire": "acquire.cu"}
+_SOURCES = {"sweep": "sweep.cu", "acquire": "acquire.cu",
+            "counter": "counter.cu"}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -96,12 +104,16 @@ _SIGNATURES = {
         "drl_acquire_scan": (_P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
                              _I32, _F32, _F32, _P, _P, _P),
     },
+    "counter": {
+        "drl_sync_counters": (_P, _P, _P, _P, _I64, _P, _I32, _F32, _P, _P),
+        "drl_sweep_counters": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
+    },
 }
 
 #: Kernel launches per wrapper — plain ints, incremented only where a wrapper
 #: launches its kernel on the card (never for the CPU's plain version).
 launches = {"sweep_expired": 0, "acquire_packed": 0, "acquire_grouped": 0,
-            "acquire_scan": 0}
+            "acquire_scan": 0, "sync_counters": 0, "sweep_counters": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -202,15 +214,35 @@ def _check_state(state: K.BucketState) -> int:
     return n
 
 
-def _on_cpu(state: K.BucketState) -> bool:
+def _check_counters(state: K.CounterState) -> int:
+    n = state.value.shape[0]
+    _check(state.value, "state.value", torch.float32, (n,))
+    _check(state.period, "state.period", torch.float32, (n,))
+    _check(state.last_ts, "state.last_ts", torch.int32, (n,))
+    _check(state.exists, "state.exists", torch.bool, (n,))
+    if n >= 2**31:
+        raise ValueError("tables beyond 2^31 - 1 slots are not supported")
+    return n
+
+
+def _on_cpu(state) -> bool:
     """True for a CPU table (the plain version runs); False for a CUDA one
     (the kernel runs); anything else raises."""
-    dev = state.tokens.device.type
-    if dev == "cpu":
+    dev = state[0].device
+    if dev.type == "cpu":
         return True
-    if dev == "cuda":
+    if dev.type == "cuda":
         return False
-    raise ValueError(f"no kernel for tensors on {state.tokens.device}")
+    raise ValueError(f"no kernel for tensors on {dev}")
+
+
+def _tile_counts(mask: torch.Tensor) -> torch.Tensor:
+    """Expired count per :data:`TILE` slots of a CPU mask, as int32."""
+    n = mask.shape[0]
+    t = -(-n // TILE)
+    padded = torch.zeros(t * TILE, dtype=torch.int32)
+    padded[:n] = mask
+    return padded.view(t, TILE).sum(1, dtype=torch.int32)
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -234,9 +266,7 @@ def sweep_expired(state: K.BucketState, now: int, capacity: float,
         _, expired = K.sweep_expired(state, now, capacity,
                                      fill_rate_per_tick)
         mask = expired.to(torch.int8)
-        padded = torch.zeros(t * TILE, dtype=torch.int32)
-        padded[:n] = mask
-        return mask, padded.view(t, TILE).sum(1, dtype=torch.int32)
+        return mask, _tile_counts(mask)
     _check_state(state)
     lib = _lib("sweep")
     dev = state.tokens.device
@@ -354,3 +384,48 @@ def acquire_scan_packed(state: K.BucketState, operand: torch.Tensor,
     _raise_on(rc, "acquire_scan")
     launches["acquire_scan"] += 1
     return out
+
+
+def sync_counters(state: K.CounterState, packed: torch.Tensor,
+                  decay_rate_per_tick: float) -> torch.Tensor:
+    """One decaying-counter sync against the counter table (updated in
+    place): ``packed i32[3, B]`` as :func:`kernels.sync_batch_packed` takes
+    it (slots, float32 counts bitcast, tick). Returns ``out f32[2, B]``: the
+    global scores and the period EWMAs. On the card: one cooperative
+    launch."""
+    if _on_cpu(state):
+        return K.sync_batch_packed(state, packed, decay_rate_per_tick)[1]
+    n = _check_counters(state)
+    b = packed.shape[-1]
+    _check(packed, "packed", torch.int32, (3, b))
+    out = torch.empty((2, b), dtype=torch.float32, device=state.value.device)
+    rc = _lib("counter").drl_sync_counters(
+        state.value.data_ptr(), state.period.data_ptr(),
+        state.last_ts.data_ptr(), state.exists.data_ptr(), n,
+        packed.data_ptr(), b, float(decay_rate_per_tick), out.data_ptr(),
+        _stream(state.value))
+    _raise_on(rc, "sync_counters")
+    launches["sync_counters"] += 1
+    return out
+
+
+def sweep_counters(state: K.CounterState, now: int):
+    """TTL sweep of the counter table (the fixed 86400 s TTL): clears
+    ``state.exists`` in place for expired counters and returns ``(mask
+    i8[N], tile_counts i32[T])`` with the contract of
+    :func:`sweep_expired`."""
+    n = state.value.shape[0]
+    if _on_cpu(state):
+        _, expired = K.sweep_counters(state, now)
+        mask = expired.to(torch.int8)
+        return mask, _tile_counts(mask)
+    _check_counters(state)
+    dev = state.value.device
+    mask = torch.empty((n,), dtype=torch.int8, device=dev)
+    counts = torch.zeros((-(-n // TILE),), dtype=torch.int32, device=dev)
+    rc = _lib("counter").drl_sweep_counters(
+        state.last_ts.data_ptr(), state.exists.data_ptr(), mask.data_ptr(),
+        counts.data_ptr(), n, int(now), TILE, _stream(state.value))
+    _raise_on(rc, "sweep_counters")
+    launches["sweep_counters"] += 1
+    return mask, counts

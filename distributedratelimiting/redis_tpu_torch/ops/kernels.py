@@ -1,16 +1,19 @@
-"""L1 — the token-bucket batch operations, as plain PyTorch.
+"""L1 — the token-bucket and decaying-counter batch operations, as plain
+PyTorch.
 
 These are the PLAIN versions of the JAX package's ``ops/kernels.py`` bucket
-family: torch operations with the same names, operand layouts and result
-layouts (``i32[4, B]`` / ``i32[5, B]`` in, ``f32[2, B]`` out, ``f32[K, 2, B]``
-and little-endian bit-packed ``u8[K, B/8]`` for the scanned bulk lane).
+and counter families: torch operations with the same names, operand layouts
+and result layouts (``i32[4, B]`` / ``i32[5, B]`` in, ``f32[2, B]`` out,
+``f32[K, 2, B]`` and little-endian bit-packed ``u8[K, B/8]`` for the scanned
+bulk lane; ``i32[3, B]`` in and ``f32[2, B]`` out for a counter sync).
 They run whenever the state lies on the CPU, and they are the oracle the
 hand-written CUDA kernels (:mod:`.cuda_kernels`) are held against on the card.
 
 State is structure-of-arrays — ``tokens: f32[N]``, ``last_ts: i32[N]``,
-``exists: bool[N]``, 9 bytes/key. Where the JAX kernels donate the state
+``exists: bool[N]``, 9 bytes/key (a counter table: ``value``, ``period``,
+``last_ts``, ``exists``, 13 bytes). Where the JAX kernels donate the state
 buffers and return new ones, these functions update the state tensors IN
-PLACE and return the same :class:`BucketState`, so the table is never
+PLACE and return the same state tuple, so the table is never
 double-buffered.
 
 Padding rows (slot < 0 or slot ≥ N) are masked out before any
@@ -41,6 +44,12 @@ __all__ = [
     "sweep_expired",
     "peek_batch_packed",
     "rebase_bucket_epoch",
+    "CounterState",
+    "init_counter_state",
+    "sync_batch",
+    "sync_batch_packed",
+    "sweep_counters",
+    "rebase_counter_epoch",
 ]
 
 
@@ -55,6 +64,24 @@ class BucketState(NamedTuple):
 def init_bucket_state(n: int, device="cpu") -> BucketState:
     return BucketState(
         tokens=torch.zeros((n,), dtype=torch.float32, device=device),
+        last_ts=torch.zeros((n,), dtype=torch.int32, device=device),
+        exists=torch.zeros((n,), dtype=torch.bool, device=device),
+    )
+
+
+class CounterState(NamedTuple):
+    """SoA decaying-counter table ≙ the Redis hash ``{v, p, t}``."""
+
+    value: torch.Tensor    # f32[N] decaying throttle score
+    period: torch.Tensor   # f32[N] EWMA of the inter-sync interval (ticks)
+    last_ts: torch.Tensor  # i32[N]
+    exists: torch.Tensor   # bool[N]
+
+
+def init_counter_state(n: int, device="cpu") -> CounterState:
+    return CounterState(
+        value=torch.zeros((n,), dtype=torch.float32, device=device),
+        period=torch.zeros((n,), dtype=torch.float32, device=device),
         last_ts=torch.zeros((n,), dtype=torch.int32, device=device),
         exists=torch.zeros((n,), dtype=torch.bool, device=device),
     )
@@ -258,6 +285,66 @@ def rebase_bucket_epoch(state: BucketState, offset_ticks: int) -> BucketState:
     """Shift every live timestamp back by ``offset_ticks`` (clamped at 0), in
     place — paired with the clock's own rebase, so elapsed values are
     unchanged."""
-    shifted = torch.clamp_min(state.last_ts - int(offset_ticks), 0)
-    state.last_ts.copy_(torch.where(state.exists, shifted, state.last_ts))
+    _rebase_ts(state.last_ts, state.exists, offset_ticks)
+    return state
+
+
+def _rebase_ts(last_ts, exists, offset_ticks: int) -> None:
+    shifted = torch.clamp_min(last_ts - int(offset_ticks), 0)
+    last_ts.copy_(torch.where(exists, shifted, last_ts))
+
+
+def sync_batch(state: CounterState, slots, local_counts, valid, now,
+               decay_rate_per_tick):
+    """Batched decaying-counter sync — the approximate bucket's global tier
+    over a batch of counters. Every valid row sets its slot to the decayed
+    value, the new period EWMA, ``last_ts = now`` and ``exists``; THEN every
+    valid row's count is added into its slot's value, so duplicate slots'
+    adds accumulate. Each row's reply is its decayed value plus its OWN
+    count. Invalid rows (and out-of-range slots) write nothing; their reply
+    is computed from slot 0, as the JAX gather clamps them. Returns
+    ``(state, global_scores f32[B], period_ewmas f32[B])``, the state
+    updated in place."""
+    valid = _valid_slots(slots, valid, state.value.shape[0])
+    gs = torch.where(valid, slots, torch.zeros_like(slots)).long()
+    counts_f = torch.as_tensor(local_counts).to(torch.float32)
+    decayed, new_period = bm.decay_core(
+        state.value[gs], state.period[gs], state.last_ts[gs],
+        state.exists[gs], now, decay_rate_per_tick)
+    new_value = decayed + counts_f
+    idx = slots[valid].long()
+    state.value.index_put_((idx,), decayed[valid])
+    state.value.index_add_(0, idx, counts_f[valid])
+    state.period.index_put_((idx,), new_period[valid])
+    state.last_ts.index_fill_(0, idx, int(now))
+    state.exists.index_fill_(0, idx, True)
+    return state, new_value, new_period
+
+
+def sync_batch_packed(state: CounterState, packed, decay_rate_per_tick):
+    """:func:`sync_batch` with one operand and one result: ``packed i32[3,
+    B]`` — row 0 slots (negative ⇒ padding), row 1 the float32 local counts
+    bitcast to int32, row 2 the tick. Returns ``(state, out f32[2, B])``:
+    the global scores and the period EWMAs."""
+    slots = packed[0]
+    counts = packed[1].contiguous().view(torch.float32)
+    state, scores, periods = sync_batch(state, slots, counts, slots >= 0,
+                                        packed[2, 0], decay_rate_per_tick)
+    return state, torch.stack([scores, periods])
+
+
+def sweep_counters(state: CounterState, now):
+    """TTL eviction for the counter table: a fixed 86400 s TTL (the
+    reference's ``EXPIRE`` on the global counter hash). Clears ``exists`` in
+    place; returns ``(state, expired bool[N])``."""
+    expired = state.exists & (bm.elapsed_ticks(now, state.last_ts)
+                              >= bm.GLOBAL_COUNTER_TTL_TICKS)
+    state.exists.logical_and_(~expired)
+    return state, expired
+
+
+def rebase_counter_epoch(state: CounterState,
+                         offset_ticks: int) -> CounterState:
+    """:func:`rebase_bucket_epoch` for the counter table."""
+    _rebase_ts(state.last_ts, state.exists, offset_ticks)
     return state

@@ -1,20 +1,24 @@
 """The bucket store — where rate-limit state lives and decisions execute.
 
-The exact-token-bucket half of the JAX package's ``runtime/store.py``, on
-PyTorch:
+The exact-token-bucket and decaying-counter half of the JAX package's
+``runtime/store.py``, on PyTorch:
 
-- :class:`BucketStore` — the storage seam (abstract). The bucket methods
-  are the contract; the counter, window, semaphore, hierarchical and
+- :class:`BucketStore` — the storage seam (abstract). The bucket and
+  counter methods are the contract; the window, semaphore, hierarchical and
   reservation methods are not ported yet and raise ``NotImplementedError``.
 - :class:`DeviceBucketStore` — per-key bucket state lives on the device
   as SoA tensors, one table per bucket configuration ``(capacity,
   fill_rate)``; ``acquire`` calls are micro-batched into one packed
   ``i32[4|5, B]`` operand, one kernel launch and one ``f32[2, B]`` readback.
+  The approximate bucket's global counters live in one counter table; a
+  sync (one limiter's, or a whole fleet's through ``sync_counters_many``)
+  is one ``i32[3, B]`` operand, one launch and one ``f32[2, B]`` readback.
   The store's clock stamps every launch. Tables grow by doubling and
-  reclaim slots with TTL sweeps.
+  reclaim slots with TTL sweeps; every table resolves keys through the
+  native key directory when it builds.
 
-The store runs on ``cuda`` by default, where every decision and sweep goes
-through the hand-written kernels of :mod:`..ops.cuda_kernels`. It runs on
+The store runs on ``cuda`` by default, where every decision, sync and sweep
+goes through the hand-written kernels of :mod:`..ops.cuda_kernels`. It runs on
 the CPU only when the caller passes ``device="cpu"`` (the kernels' plain
 versions then decide); with no GPU and no such request, construction
 raises. State tensors are updated in place (the JAX store donated them).
@@ -52,6 +56,7 @@ __all__ = [
     "BulkAcquireResult",
     "BucketStore",
     "DeviceBucketStore",
+    "SyncResult",
 ]
 
 # Host tick value at which the store rebases its epoch (≪ int32 max), and
@@ -98,6 +103,11 @@ class BulkAcquireResult:
     @property
     def granted_count(self) -> int:
         return int(np.count_nonzero(self.granted))
+
+
+class SyncResult(NamedTuple):
+    global_score: float
+    period_ewma_ticks: float
 
 
 class _AcquireReq(NamedTuple):
@@ -168,6 +178,34 @@ class BucketStore(abc.ABC):
             np.fromiter((r.remaining for r in results), np.float32,
                         len(results)) if with_remaining else None)
 
+    # -- decaying global counter (the approximate bucket's shared tier) ----
+    @abc.abstractmethod
+    async def sync_counter(self, key: str, local_count: float,
+                           decay_rate_per_sec: float) -> SyncResult: ...
+
+    @abc.abstractmethod
+    def sync_counter_blocking(self, key: str, local_count: float,
+                              decay_rate_per_sec: float) -> SyncResult: ...
+
+    async def sync_counters_many(self, keys: Sequence[str],
+                                 local_counts: Sequence[float],
+                                 decay_rate_per_sec: float
+                                 ) -> tuple[np.ndarray, np.ndarray]:
+        """Bulk decaying-counter sync — for a host running many
+        approximate-limiter replicas, or an edge tier reconciling a whole
+        key table, in one call instead of one :meth:`sync_counter` per key.
+        Returns ``(global_scores f64[n], period_ewmas f64[n])`` row for row
+        with ``keys``. Default: a sequential loop (same-key rows keep
+        request order); :class:`DeviceBucketStore` overrides it with ONE
+        kernel launch for the whole fleet."""
+        scores = np.empty(len(keys), np.float64)
+        periods = np.empty(len(keys), np.float64)
+        for i, (k, c) in enumerate(zip(keys, local_counts)):
+            res = await self.sync_counter(k, float(c), decay_rate_per_sec)
+            scores[i] = res.global_score
+            periods[i] = res.period_ewma_ticks
+        return scores, periods
+
     # -- lifecycle / ops ---------------------------------------------------
     @abc.abstractmethod
     async def aclose(self) -> None: ...
@@ -184,16 +222,16 @@ def _not_ported(name: str):
     def method(self, *args, **kwargs):
         raise NotImplementedError(
             f"{type(self).__name__}.{name} is not ported to the PyTorch "
-            "package yet (only the exact token bucket is)")
+            "package yet (the exact token bucket and the decaying counters "
+            "are)")
 
     method.__name__ = name
     return method
 
 
-# The rest of the storage seam: decaying counters, windows, semaphores,
-# hierarchical admission, reservations, tier-0 debits, migration export.
-for _name in ("sync_counter", "sync_counter_blocking", "sync_counters_many",
-              "debit_many", "window_acquire", "window_acquire_blocking",
+# The rest of the storage seam: windows, semaphores, hierarchical
+# admission, reservations, tier-0 debits, migration export.
+for _name in ("debit_many", "window_acquire", "window_acquire_blocking",
               "fixed_window_acquire", "fixed_window_acquire_blocking",
               "window_acquire_many", "window_acquire_many_blocking",
               "concurrency_acquire", "concurrency_acquire_blocking",
@@ -695,7 +733,7 @@ class _DeviceTable(_PackedLaunchMixin):
 
 
 def _live_rows(section) -> int:
-    """Live rows of a snapshot's counter/semaphore section (0 if absent)."""
+    """Live rows of a snapshot's semaphore section (0 if absent)."""
     if not section:
         return 0
     return int(np.count_nonzero(np.asarray(section["exists"])))
@@ -711,6 +749,7 @@ class DeviceBucketStore(BucketStore):
         self,
         *,
         n_slots: int = 2**17,
+        counter_slots: int = 2**14,
         clock: Clock | None = None,
         max_batch: int = 4096,
         max_delay_s: float = 200e-6,
@@ -739,11 +778,16 @@ class DeviceBucketStore(BucketStore):
         # launch row, serialized by the host prefix).
         self.coalesce_duplicates = coalesce_duplicates
         self.n_slots_default = n_slots
+        self.counter_slots = counter_slots
         self.max_batch = max_batch
         self.max_delay_s = max_delay_s
         self.max_inflight = max_inflight
         self.metrics = StoreMetrics()
         self._tables: dict[tuple[float, float], _DeviceTable] = {}
+        # The counter table is allocated at first use, as bucket tables are:
+        # construction touches no device.
+        self._counter_state: K.CounterState | None = None
+        self._counter_dir = make_directory(counter_slots)
         self._lock = threading.RLock()  # directory/slot allocation guard
         self._rebase_threshold = rebase_threshold_ticks
         self._connected = False
@@ -781,6 +825,8 @@ class DeviceBucketStore(BucketStore):
         with self._lock:
             for t in self._tables.values():
                 t.rebase(offset)
+            if self._counter_state is not None:
+                K.rebase_counter_epoch(self._counter_state, offset)
 
     # -- table routing -----------------------------------------------------
     def _table(self, capacity: float, fill_rate_per_sec: float) -> _DeviceTable:
@@ -836,14 +882,112 @@ class DeviceBucketStore(BucketStore):
                       fill_rate_per_sec: float) -> float:
         return self._table(capacity, fill_rate_per_sec).peek_blocking(key)
 
+    # -- decaying counter -------------------------------------------------
+    @property
+    def _counters(self) -> K.CounterState:
+        if self._counter_state is None:
+            self._counter_state = K.init_counter_state(self.counter_slots,
+                                                       self.device)
+        return self._counter_state
+
+    def _sweep_counters(self) -> None:
+        with self.profiler.span("sweep_counters",
+                                self._counters.value.shape[0]):
+            self._sweep_counters_locked()
+
+    def _sweep_counters_locked(self) -> None:
+        mask, counts = ck.sweep_counters(self._counters,
+                                         self.clock.now_ticks())
+        if int(_to_host(counts).sum()) > 0:
+            dead = np.nonzero(_to_host(mask))[0].astype(np.int32)
+            self.metrics.slots_evicted += self._counter_dir.remove_slots(dead)
+        self.metrics.sweeps += 1
+
+    def _grow_counters(self) -> None:
+        """Double the counter table (old state copied, new half empty)."""
+        old_n = self._counters.value.shape[0]
+        grown = K.init_counter_state(old_n * 2, self.device)
+        for dst, src in zip(grown, self._counters):
+            dst[:old_n] = src
+        self._counter_state = grown
+        self._counter_dir.add_slots(old_n, old_n * 2)
+
+    def _sync_dispatch(self, key: str, local_count: float,
+                       decay_rate_per_sec: float) -> torch.Tensor:
+        return self._sync_dispatch_many([key], [local_count],
+                                        decay_rate_per_sec)
+
+    def _sync_dispatch_many(self, keys: Sequence[str],
+                            local_counts: Sequence[float],
+                            decay_rate_per_sec: float) -> torch.Tensor:
+        """ONE counter-sync launch for a whole fleet of counters — the
+        device half of :meth:`sync_counters_many` (and, with one row, of
+        :meth:`sync_counter`). Resolution and launch share one hold of the
+        store lock (the JAX store takes it twice)."""
+        n = len(keys)
+        with self.profiler.span("sync_counter", n), self._lock:
+            # On exhaustion: a sweep (pinning nothing, as in the JAX store:
+            # the batch is re-resolved whole before the launch), then a
+            # doubling if the sweep freed nothing.
+            slots = _resolve_with_reclaim(
+                self._counter_dir, list(keys),
+                lambda pinned: self._sweep_counters(), self._grow_counters)
+            b = _pad_size(n, floor=8)
+            packed = np.full((3, b), -1, np.int32)
+            packed[1] = 0
+            packed[0, :n] = slots
+            # Float local counts travel bitcast in the int32 row (exact).
+            packed[1, :n] = np.asarray(local_counts,
+                                       np.float32).view(np.int32)
+            packed[2] = self.now_ticks_checked()
+            return ck.sync_counters(
+                self._counters, torch.from_numpy(packed).to(self.device),
+                _rate_per_tick(decay_rate_per_sec))
+
+    async def sync_counter(self, key: str, local_count: float,
+                           decay_rate_per_sec: float) -> SyncResult:
+        """One decaying-counter sync (the approximate limiter's periodic
+        sync script)."""
+        await self.connect()
+        out = self._sync_dispatch(key, local_count, decay_rate_per_sec)
+        loop = asyncio.get_running_loop()
+        out_np = await loop.run_in_executor(None, _to_host, out)
+        return SyncResult(float(out_np[0, 0]), float(out_np[1, 0]))
+
+    def sync_counter_blocking(self, key: str, local_count: float,
+                              decay_rate_per_sec: float) -> SyncResult:
+        """Synchronous sync for loop-less callers (the approximate limiter's
+        inline refresh)."""
+        out_np = _to_host(self._sync_dispatch(key, local_count,
+                                              decay_rate_per_sec))
+        return SyncResult(float(out_np[0, 0]), float(out_np[1, 0]))
+
+    async def sync_counters_many(self, keys: Sequence[str],
+                                 local_counts: Sequence[float],
+                                 decay_rate_per_sec: float
+                                 ) -> tuple[np.ndarray, np.ndarray]:
+        """Bulk replica sync: the whole fleet's local counts land in ONE
+        launch against the counter table. Duplicate keys' adds accumulate,
+        but each duplicate's EWMA sees the same previous sync: pre-aggregate
+        per key for exact EWMAs."""
+        await self.connect()
+        n = len(keys)
+        out = self._sync_dispatch_many(keys, local_counts,
+                                       decay_rate_per_sec)
+        loop = asyncio.get_running_loop()
+        out_np = await loop.run_in_executor(None, _to_host, out)
+        return (out_np[0, :n].astype(np.float64),
+                out_np[1, :n].astype(np.float64))
+
     # -- TTL maintenance ---------------------------------------------------
     def sweep_all(self) -> None:
-        """One TTL-eviction pass over every bucket table — the active
-        expiry pass, so an idle store's memory shrinks without waiting for
-        the next allocation to force a sweep."""
+        """One TTL-eviction pass over every bucket table and the counter
+        table — the active expiry pass, so an idle store's memory shrinks
+        without waiting for the next allocation to force a sweep."""
         with self._lock:
             for t in list(self._tables.values()):
                 t._sweep()
+            self._sweep_counters()
 
     # -- lifecycle / ops ---------------------------------------------------
     async def aclose(self) -> None:
@@ -855,21 +999,28 @@ class DeviceBucketStore(BucketStore):
         ``now_ticks`` is captured so a restore into another process (fresh
         clock epoch) can re-align every timestamp."""
         with self._lock:
+            c = self._counters
             return {
                 "now_ticks": self.clock.now_ticks(),
                 "tables": {key: t.to_snap()
                            for key, t in self._tables.items()},
                 "wtables": {},
+                "counter_dir": self._counter_dir.to_dict(),
+                "counters": {
+                    "value": _to_host(c.value).copy(),
+                    "period": _to_host(c.period).copy(),
+                    "last_ts": _to_host(c.last_ts).copy(),
+                    "exists": _to_host(c.exists).copy(),
+                },
             }
 
     def restore(self, snap: dict) -> None:
         """Restore a checkpoint — this store's own or one the JAX
         ``DeviceBucketStore.snapshot()`` wrote — re-aligning timestamps to
         this process's clock epoch (shift by ``now_here − now_at_snapshot``).
-        Live window, counter or semaphore state cannot be carried yet and
-        raises ``NotImplementedError`` rather than being dropped."""
+        Live window or semaphore state cannot be carried yet and raises
+        ``NotImplementedError`` rather than being dropped."""
         live = {"window tables": len(snap.get("wtables") or {}),
-                "counters": _live_rows(snap.get("counters")),
                 "semaphores": _live_rows(snap.get("semas"))}
         held = [name for name, n in live.items() if n]
         if held:
@@ -880,3 +1031,18 @@ class DeviceBucketStore(BucketStore):
             shift = int(self.clock.now_ticks()) - int(snap["now_ticks"])
             for (cap, rate), data in snap["tables"].items():
                 self._table(cap, rate).load_snap(data, shift)
+            c = snap.get("counters")
+            if c is not None:
+                dev = self.device
+                self._counter_state = K.CounterState(
+                    value=torch.tensor(np.asarray(c["value"], np.float32),
+                                       device=dev),
+                    period=torch.tensor(np.asarray(c["period"], np.float32),
+                                        device=dev),
+                    last_ts=torch.tensor(_shift_ts(c["last_ts"], shift),
+                                         device=dev),
+                    exists=torch.tensor(np.asarray(c["exists"], bool),
+                                        device=dev),
+                )
+                self._counter_dir.load(snap["counter_dir"],
+                                       len(c["value"]))

@@ -1,7 +1,8 @@
 """Metrics — decisions, denial rate, batch occupancy, latency.
 
 The per-limiter and per-store counters of the JAX package's
-``utils/metrics.py`` that the exact-bucket serving path touches. Counters
+``utils/metrics.py`` that the exact, approximate and queueing limiters and
+the store touch. Counters
 are plain ints guarded by the GIL (single event loop); latency uses fixed
 log-spaced buckets so p50/p99 are O(1) to read and recording is
 allocation-free. OpenMetrics exposition is not ported yet.
@@ -102,6 +103,12 @@ class LimiterMetrics:
     decisions: int = 0
     grants: int = 0
     denials: int = 0
+    queued: int = 0
+    evicted: int = 0
+    cancelled: int = 0
+    sync_failures: int = 0
+    syncs: int = 0
+    last_sync_lag_s: float = 0.0
     acquire_latency: LatencyHistogram = field(default_factory=LatencyHistogram)
 
     def record_decision(self, granted: bool, latency_s: float | None = None) -> None:
@@ -133,6 +140,12 @@ class LimiterMetrics:
             "grants": self.grants,
             "denials": self.denials,
             "denial_rate": self.denial_rate,
+            "queued": self.queued,
+            "evicted": self.evicted,
+            "cancelled": self.cancelled,
+            "syncs": self.syncs,
+            "sync_failures": self.sync_failures,
+            "last_sync_lag_s": self.last_sync_lag_s,
             "acquire_p50_s": self.acquire_latency.p50,
             "acquire_p99_s": self.acquire_latency.p99,
         }

@@ -119,3 +119,74 @@ def test_duplicate_prefix_integer_exact_past_2_24():
     got = tbm.duplicate_prefix(slots, counts, torch.ones(6, dtype=torch.bool))
     want = np.arange(6, dtype=np.int64) * (2**22 + 1)
     np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
+def _counter_np(n, seed, now):
+    """Counter state with live and fresh slots, timestamps ahead of ``now``
+    (a clock regression) and long before it (deltas past 2^24 ticks)."""
+    rng = np.random.default_rng(seed)
+    value = rng.uniform(0, 1000, n).astype(np.float32)
+    period = rng.uniform(0, 5000, n).astype(np.float32)
+    last_ts = rng.integers(max(now - 3000, 0), now + 500, n).astype(np.int32)
+    last_ts[rng.random(n) < 0.2] = max(now - 2**25 - 17, 0)
+    exists = rng.random(n) < 0.6
+    return value, period, last_ts, exists
+
+
+def test_counter_constants_are_copied():
+    assert tbm.GLOBAL_COUNTER_TTL_TICKS == bm.GLOBAL_COUNTER_TTL_TICKS
+    assert tbm.PERIOD_EWMA_ALPHA == bm.PERIOD_EWMA_ALPHA
+
+
+@pytest.mark.parametrize("rate", [3 / 1024, 0.37, 1e-4, 0.0])
+@pytest.mark.parametrize("now", [0, 50_000, 2**25 + 7, 2**30])
+def test_decay_core_and_add_exact(now, rate):
+    v, p, ts, ex = _counter_np(4096, now % 97, now)
+    counts = np.random.default_rng(1).uniform(0, 50, 4096).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (v, p, ts, ex)]
+    targs = [torch.from_numpy(a) for a in (v, p, ts, ex)]
+    for got, want in zip(tbm.decay_core(*targs, now, rate),
+                         bm.decay_core(*jargs, now, rate)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = tbm.decay_and_add(*targs, now, torch.from_numpy(counts), rate)
+    want = bm.decay_and_add(*jargs, now, jnp.asarray(counts), rate)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    decayed, period = tbm.decay_core(*targs, now, rate)
+    # A fresh counter decays from nothing, and its EWMA starts at delta.
+    assert (decayed.numpy()[~ex] == 0).all()
+    np.testing.assert_array_equal(period.numpy()[~ex], np.float32(now))
+
+
+@pytest.mark.parametrize("period_ticks", [1024, 4096.0, 10 * 1024])
+def test_instance_count_estimate_exact(period_ticks):
+    p = np.random.default_rng(2).uniform(0, 20_000, 2048).astype(np.float32)
+    p[:4] = [0.0, 0.5, 512.0, 1536.0]  # clamp at 1; round half to even
+    want = np.asarray(bm.instance_count_estimate(period_ticks,
+                                                 jnp.asarray(p)))
+    got = tbm.instance_count_estimate(period_ticks, torch.from_numpy(p))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("limit", [10, 100, 5000])
+def test_available_tokens_exact(limit):
+    rng = np.random.default_rng(limit)
+    g = rng.uniform(0, 2 * limit, 1024).astype(np.float32)
+    k = rng.integers(0, 9, 1024).astype(np.int32)  # 0 clamps to 1
+    local = rng.uniform(0, limit / 4, 1024).astype(np.float32)
+    want = np.asarray(bm.available_tokens(limit, jnp.asarray(g),
+                                          jnp.asarray(k), jnp.asarray(local)))
+    got = tbm.available_tokens(limit, torch.from_numpy(g),
+                               torch.from_numpy(k), torch.from_numpy(local))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("rate", [0.37, 1e-4, 0.0])
+def test_retry_after_ticks_exact_and_saturating(rate):
+    d = np.random.default_rng(3).uniform(-100, 1e6, 1024).astype(np.float32)
+    want = np.asarray(bm.retry_after_ticks(jnp.asarray(d), rate))
+    got = tbm.retry_after_ticks(torch.from_numpy(d), rate)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -10,8 +10,13 @@ Tolerances as in ``test_torch_kernels.py``: grants, bits, masks, ``exists``
 and ``last_ts`` equal; remaining and tokens within atol 1e-4 (the flush
 kernels add duplicates' consumption with atomics in no fixed order; the scan
 kernel subtracts each slot's int64 sum once, where the plain version
-subtracts row by row).
+subtracts row by row). Counter syncs: replies, period, ``last_ts`` and
+``exists`` equal; value equal where slots are distinct and, for a slot that
+takes r > 1 adds, within r spacings of its float32 value (atomic adds in no
+fixed order).
 """
+
+import asyncio
 
 import numpy as np
 import pytest
@@ -234,3 +239,131 @@ def test_sweep_kernel_matches_plain(cuda_device, rate):
                                   plain.exists.numpy())
     if rate < 1e-6:  # the TTL saturates at 2^31 - 1: nothing expires
         assert int(got[1].sum()) == 0
+
+
+# -- decaying counters --------------------------------------------------------
+
+def _counters(seed, n, device, now=50_000):
+    """Half the counters live, timestamps on both sides of ``now``."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.uniform(0, 1000, n).astype(np.float32),
+              rng.uniform(0, 5000, n).astype(np.float32),
+              rng.integers(now - 3000, now + 200, n).astype(np.int32),
+              rng.random(n) < 0.5)
+    return [K.CounterState(*(torch.tensor(a, device=d) for a in arrays))
+            for d in ("cpu", device)]
+
+
+def _sync_operand(seed, b, n, distinct, now=50_000):
+    rng = np.random.default_rng(seed)
+    if distinct:
+        slots = rng.choice(n, b, replace=False).astype(np.int32)
+    else:
+        slots = ((rng.zipf(1.1, b) - 1) % n).astype(np.int32)
+    slots[rng.random(b) < 0.02] = -1
+    slots[rng.random(b) < 0.01] = n + 5
+    counts = rng.uniform(0, 50, b).astype(np.float32)
+    return np.stack([slots, counts.view(np.int32), np.full(b, now, np.int32)])
+
+
+def _assert_counters_same(card, plain, packed, exact):
+    for name in ("period", "last_ts", "exists"):
+        np.testing.assert_array_equal(getattr(card, name).cpu().numpy(),
+                                      getattr(plain, name).cpu().numpy())
+    got, want = card.value.cpu().numpy(), plain.value.cpu().numpy()
+    if exact:
+        np.testing.assert_array_equal(got, want)
+        return
+    # Each slot against its own limit. Slot s is set to its decayed value,
+    # then takes r_s adds in atomic order. Decayed values and counts are
+    # >= 0, so each add rounds by at most half a spacing of the final value:
+    # two orders differ by at most r_s spacings; one add or none is exact.
+    slots = packed[0][(packed[0] >= 0) & (packed[0] < len(got))]
+    reps = np.bincount(slots, minlength=len(got))
+    mag = np.maximum(np.abs(got), np.abs(want)).astype(np.float32)
+    tol = np.where(reps > 1, reps, 0) * np.spacing(mag).astype(np.float64)
+    err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    bad = np.flatnonzero(err > tol)
+    assert not len(bad), (f"{len(bad)} slots past their limit, e.g. slot "
+                          f"{bad[0]}: {got[bad[0]]} vs {want[bad[0]]}, "
+                          f"{reps[bad[0]]} adds, limit {tol[bad[0]]}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distinct", [True, False])
+@pytest.mark.parametrize("b", [8, 4096, 2**20])
+def test_sync_kernel_matches_plain(cuda_device, b, distinct):
+    n = max(2 * b, 64)
+    plain, card = _counters(b, n, cuda_device)
+    packed = _sync_operand(b + distinct, b, n, distinct)
+    op = torch.from_numpy(packed)
+    before = ck.launches["sync_counters"]
+    got = ck.sync_counters(card, op.to(cuda_device), 3 / 1024)
+    want = ck.sync_counters(plain, op, 3 / 1024)
+    torch.cuda.synchronize()
+    assert ck.launches["sync_counters"] == before + 1  # one launch a call
+    # Replies are per row (decayed + own count): bit-exact even with
+    # duplicates, padding and out-of-range rows.
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_counters_same(card, plain, packed, exact=distinct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4096, 2**20])
+def test_sync_kernel_exact_sums_with_duplicates(cuda_device, b):
+    """Whole-number values and counts, stored ticks on a 1024-tick grid (the
+    decay subtracts a whole number): float32 holds every partial sum, so any
+    order of the atomic adds gives the plain value on every slot, the
+    hottest included. A duplicate's add lost to a late set shows here."""
+    n, now = max(2 * b, 64), 50_000
+    rng = np.random.default_rng(b)
+    arrays = (rng.integers(0, 1000, n).astype(np.float32),
+              rng.uniform(0, 5000, n).astype(np.float32),
+              (now - 1024 * rng.integers(-1, 4, n)).astype(np.int32),
+              rng.random(n) < 0.5)
+    plain, card = [K.CounterState(*(torch.tensor(a, device=d) for a in arrays))
+                   for d in ("cpu", cuda_device)]
+    packed = _sync_operand(b, b, n, distinct=False, now=now)
+    packed[1] = rng.integers(1, 9, b).astype(np.float32).view(np.int32)
+    op = torch.from_numpy(packed)
+    got = ck.sync_counters(card, op.to(cuda_device), 1 / 1024)
+    want = ck.sync_counters(plain, op, 1 / 1024)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_counters_same(card, plain, packed, exact=True)
+
+
+@pytest.mark.cuda
+def test_sweep_counters_after_grow_matches_plain(cuda_device):
+    """A counter table grown from 5,000 to 10,000 slots (not a power of
+    two), swept by the store: the mask, tile counts and directory agree
+    with the plain version."""
+    from distributedratelimiting.redis_tpu_torch import (
+        DeviceBucketStore,
+        ManualClock,
+    )
+
+    clock = ManualClock(1_000)
+    store = DeviceBucketStore(device="cuda", counter_slots=5_000, clock=clock)
+    keys = [f"c{i}" for i in range(7_000)]
+    store.sync_counter_blocking("warm", 1.0, 1.0)
+    # 7,000 keys outrun 5,000 slots: no counter has expired, so it grows.
+    scores, _ = asyncio.run(store.sync_counters_many(keys, [1.0] * 7_000,
+                                                     1.0))
+    assert store._counters.value.shape[0] == 10_000 and (scores == 1.0).all()
+    clock.advance_seconds(86_400 - 10)
+    asyncio.run(store.sync_counters_many(keys[:3000], [1.0] * 3000, 1.0))
+    clock.advance_seconds(20)  # the other 4,001 counters pass their TTL
+    plain = K.CounterState(*(t.cpu().clone() for t in store._counters))
+    want_mask, want_counts = ck.sweep_counters(plain, clock.now_ticks())
+    before = ck.launches["sweep_counters"]
+    mask, counts = ck.sweep_counters(
+        K.CounterState(*(t.clone() for t in store._counters)),
+        clock.now_ticks())
+    torch.cuda.synchronize()
+    assert ck.launches["sweep_counters"] == before + 1
+    np.testing.assert_array_equal(mask.cpu().numpy(), want_mask.numpy())
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_counts.numpy())
+    assert int(counts.sum()) == 4_001
+    store.sweep_all()
+    assert len(store._counter_dir) == 3_000

@@ -367,6 +367,193 @@ def test_launch_counts_untouched_on_cpu():
     ck.acquire_scan_packed(_torch_state(s), torch.from_numpy(fused),
                            torch.from_numpy(nows), CAP, 0.01)
     ck.sweep_expired(_torch_state(s), 60_000, CAP, 0.01)
+    counters = TK.init_counter_state(N)
+    ck.sync_counters(counters, torch.from_numpy(_sync_operand(2)), 0.01)
+    ck.sweep_counters(counters, 60_000)
     assert set(ck.launches) == {"sweep_expired", "acquire_packed",
-                                "acquire_grouped", "acquire_scan"}
+                                "acquire_grouped", "acquire_scan",
+                                "sync_counters", "sweep_counters"}
     assert all(v == 0 for v in ck.launches.values())
+
+
+# -- decaying counters ------------------------------------------------------
+
+def _counter_state_np(n, seed, now=50_000):
+    """Half the counters live; some touched after ``now`` (a clock behind the
+    stored timestamps), some long ago (deltas past 2^24 ticks)."""
+    rng = np.random.default_rng(seed)
+    value = rng.uniform(0, 1000, n).astype(np.float32)
+    period = rng.uniform(0, 5000, n).astype(np.float32)
+    last_ts = rng.integers(now - 3000, now + 200, n).astype(np.int32)
+    last_ts[rng.random(n) < 0.1] = now - 2**25
+    exists = rng.random(n) < 0.5
+    return value, period, last_ts, exists
+
+
+def _sync_operand(seed, b=256, n=N, now=50_000, distinct=False):
+    """``i32[3, B]``: Zipf slots (or distinct ones), 5% padding, 3%
+    out-of-range slots, float counts bitcast, the tick."""
+    rng = np.random.default_rng(seed)
+    if distinct:
+        slots = rng.choice(n, b, replace=False).astype(np.int32)
+    else:
+        slots = np.minimum(rng.zipf(1.3, b) - 1, n - 1).astype(np.int32)
+    slots[rng.random(b) < 0.05] = -1
+    slots[rng.random(b) < 0.03] = n + 3
+    counts = rng.uniform(0, 50, b).astype(np.float32)
+    counts[slots == -1] = 0.0
+    packed = np.stack([slots, counts.view(np.int32), np.full(b, now,
+                                                             np.int32)])
+    return packed
+
+
+def _counter_jax(s):
+    return JK.CounterState(*(jnp.asarray(a) for a in s))
+
+
+def _counter_torch(s):
+    return TK.CounterState(*(torch.tensor(a) for a in s))
+
+
+def _assert_near_jax(got, want, mag):
+    """Within two float32 ulps of the largest operand (``mag``): XLA on the
+    CPU may contract ``v - delta * rate`` or the EWMA's ``0.8 * p + 0.2 *
+    delta`` into one fused multiply-add (it did in ``sync_batch_packed``),
+    where the port rounds each operation on its own; the two differ by at
+    most half an ulp of the product plus one of the result."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = np.maximum(np.maximum(np.abs(got), np.abs(want)), mag)
+    assert np.all(np.abs(got - want) <= 2 * np.spacing(scale)), \
+        np.abs(got - want).max()
+
+
+def _sync_oracle(s, packed, rate):
+    """Host float32 oracle of one sync, each operation rounded on its own
+    in the plain version's order. Returns the replies ``f32[2, B]``, the new
+    ``value`` and ``period``, and per row and per slot the magnitude of the
+    largest operand (for :func:`_assert_near_jax`)."""
+    value, period, last_ts, exists = (a.copy() for a in s)
+    slots, now = packed[0], int(packed[2, 0])
+    counts = packed[1].view(np.float32)
+    rate = np.float32(rate)
+    # Per slot, as if every slot were synced: decayed value and new EWMA.
+    delta = np.maximum(0, now - np.where(exists, last_ts, 0)).astype(
+        np.float32)
+    decayed = np.where(exists, np.maximum(np.float32(0),
+                                          value - delta * rate),
+                       np.float32(0)).astype(np.float32)
+    new_p = np.where(exists, np.float32(0.8) * period
+                     + np.float32(0.2) * delta, delta).astype(np.float32)
+    mag_v = np.maximum(np.abs(value), delta * rate)
+    mag_p = np.maximum(np.float32(0.8) * np.abs(period),
+                       np.float32(0.2) * delta)
+    valid = (slots >= 0) & (slots < len(value))
+    g = np.where(valid, slots, 0)
+    replies = np.stack([decayed[g] + counts, new_p[g]])
+    mags = np.stack([mag_v[g], mag_p[g]])
+    value[slots[valid]] = decayed[slots[valid]]
+    period[slots[valid]] = new_p[slots[valid]]
+    np.add.at(value, slots[valid], counts[valid])
+    return replies, value, period, mags, mag_v, mag_p
+
+
+def _assert_counters(tstate, jstate, packed, mag_v, mag_p):
+    """last_ts and exists equal; period, and value on slots synced once, as
+    :func:`_assert_near_jax` allows. A slot with r > 1 adds may differ by
+    that much more r spacings of max(|got|, |want|): the decayed values
+    and counts are >= 0, so each add, in whichever order the scatter-add
+    takes them, rounds by at most half a spacing of the final value."""
+    for name in ("last_ts", "exists"):
+        np.testing.assert_array_equal(getattr(tstate, name).numpy(),
+                                      np.asarray(getattr(jstate, name)))
+    _assert_near_jax(tstate.period.numpy(), np.asarray(jstate.period), mag_p)
+    got, want = tstate.value.numpy(), np.asarray(jstate.value)
+    slots = packed[0][(packed[0] >= 0) & (packed[0] < len(got))]
+    reps = np.bincount(slots, minlength=len(got))
+    once = reps <= 1
+    _assert_near_jax(got[once], want[once], mag_v[once])
+    top = np.maximum(np.abs(got), np.abs(want))
+    tol = (2 * np.spacing(np.maximum(top, mag_v)).astype(np.float64)
+           + reps * np.spacing(top).astype(np.float64))
+    err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    assert np.all(err[~once] <= tol[~once]), (err - tol)[~once].max()
+
+
+@pytest.mark.parametrize("rate", [3 / 1024, 0.37, 1e-4])
+@pytest.mark.parametrize("distinct", [False, True])
+@pytest.mark.parametrize("seed", range(2))
+def test_sync_batch_packed_matches(seed, distinct, rate):
+    s = _counter_state_np(N, seed)
+    packed = _sync_operand(seed, distinct=distinct)
+    jstate, jout = JK.sync_batch_packed(_counter_jax(s), jnp.asarray(packed),
+                                        jnp.float32(rate))
+    tstate = _counter_torch(s)
+    out = ck.sync_counters(tstate, torch.from_numpy(packed), rate)
+    want_out, want_value, want_period, mags, mag_v, mag_p = _sync_oracle(
+        s, packed, rate)
+    # Every row's reply is decayed + its own count (padding and
+    # out-of-range rows read slot 0, as the JAX gather clamps them).
+    _assert_near_jax(out.numpy(), np.asarray(jout), mags)
+    _assert_counters(tstate, jstate, packed, mag_v, mag_p)
+    # Against the separately rounded host oracle: replies and period equal,
+    # value equal but for the order of duplicates' adds.
+    np.testing.assert_array_equal(out.numpy(), want_out)
+    np.testing.assert_array_equal(tstate.period.numpy(), want_period)
+    np.testing.assert_allclose(tstate.value.numpy(), want_value, atol=ATOL,
+                               rtol=0)
+    # Padding and out-of-range rows wrote nothing.
+    touched = np.zeros(N, bool)
+    valid = packed[0][(packed[0] >= 0) & (packed[0] < N)]
+    touched[valid] = True
+    np.testing.assert_array_equal(tstate.last_ts.numpy()[~touched],
+                                  s[2][~touched])
+
+
+def test_sync_duplicates_set_before_add():
+    """Every duplicate reads the pre-sync state and every add lands after
+    every set: a slot synced three times holds decayed + the three counts,
+    and each reply is decayed + its own count."""
+    s = _counter_state_np(8, 5)
+    s[3][2] = True
+    now = 60_000
+    counts = np.array([1.5, 2.0, 4.25, 0.0], np.float32)
+    packed = np.stack([np.array([2, 2, 2, -1], np.int32),
+                       counts.view(np.int32), np.full(4, now, np.int32)])
+    tstate = _counter_torch(s)
+    out = ck.sync_counters(tstate, torch.from_numpy(packed), 0.01).numpy()
+    delta = np.float32(max(0, now - int(s[2][2])))
+    decayed = max(np.float32(0), s[0][2] - delta * np.float32(0.01))
+    np.testing.assert_array_equal(out[0, :3], decayed + counts[:3])
+    assert tstate.value[2].item() == decayed + np.float32(7.75)
+    assert tstate.last_ts[2].item() == now and bool(tstate.exists[2])
+
+
+@pytest.mark.parametrize("n", [4096, 70_000])
+def test_sweep_counters_matches(n):
+    now = 200_000_000
+    rng = np.random.default_rng(n)
+    s = (np.zeros(n, np.float32), np.zeros(n, np.float32),
+         rng.integers(now - 2 * 86400 * 1024, now + 100, n).astype(np.int32),
+         rng.random(n) < 0.5)
+    _, jfreed = JK.sweep_counters(_counter_jax(s), jnp.int32(now))
+    tstate = _counter_torch(s)
+    mask, counts = ck.sweep_counters(tstate, now)
+    assert mask.dtype == torch.int8 and counts.dtype == torch.int32
+    np.testing.assert_array_equal(mask.numpy().astype(bool),
+                                  np.asarray(jfreed))
+    np.testing.assert_array_equal(tstate.exists.numpy(),
+                                  s[3] & ~np.asarray(jfreed))
+    padded = np.zeros(len(counts) * ck.TILE, np.int32)
+    padded[:n] = np.asarray(jfreed)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  padded.reshape(-1, ck.TILE).sum(1))
+    assert 0 < int(counts.sum()) < int(s[3].sum())
+
+
+def test_rebase_counter_epoch_matches():
+    s = _counter_state_np(N, 9)
+    jstate = JK.rebase_counter_epoch(_counter_jax(s), jnp.int32(40_000))
+    tstate = TK.rebase_counter_epoch(_counter_torch(s), 40_000)
+    for name in ("value", "period", "last_ts", "exists"):
+        np.testing.assert_array_equal(getattr(tstate, name).numpy(),
+                                      np.asarray(getattr(jstate, name)))

@@ -145,8 +145,8 @@ def test_restore_refuses_live_window_state():
     with pytest.raises(NotImplementedError, match="window"):
         port.restore(snap)
     snap = {"now_ticks": 0, "tables": {}, "wtables": {},
-            "counters": {"exists": np.array([False, True])}}
-    with pytest.raises(NotImplementedError, match="counters"):
+            "semas": {"exists": np.array([False, True])}}
+    with pytest.raises(NotImplementedError, match="semaphores"):
         port.restore(snap)
 
 
@@ -162,8 +162,8 @@ def test_blocking_and_single_bucket_paths():
 
 def test_unported_methods_raise():
     store = _port(ManualClock(0))
-    with pytest.raises(NotImplementedError, match="sync_counter"):
-        store.sync_counter_blocking("k", 1.0, 1.0)
+    with pytest.raises(NotImplementedError, match="concurrency_acquire"):
+        store.concurrency_acquire_blocking("k", 1, 5)
     with pytest.raises(NotImplementedError, match="window_acquire"):
         store.window_acquire_blocking("k", 1, 5.0, 1.0)
 
@@ -240,3 +240,155 @@ def test_bulk_chunk_is_one_scan_wrapper_call(monkeypatch, max_count,
     assert calls == [
         (dtype, (k, 64, 5) if fused else (2, k, 64), (k,), with_remaining)
         for k in (32, 32, 1)]
+
+
+# -- decaying counters -------------------------------------------------------
+
+async def _counter_trace(store, clock, seed):
+    """Seeded syncs through all three entry points. Keys outrun the 8-slot
+    counter table: exhaustion sweeps (after idle spells past the 86400 s TTL)
+    and grows it. Returns every reply and the counter directory."""
+    rng = np.random.default_rng(seed)
+    log = []
+    for r in range(14):
+        keys = [f"c{int(k)}" for k in (rng.zipf(1.4, 6) - 1) % 24]
+        counts = np.round(rng.uniform(0, 20, len(keys)), 2).tolist()
+        if r % 3 == 0:
+            scores, periods = await store.sync_counters_many(
+                keys, counts, 5.0)
+            log.append((scores.tolist(), periods.tolist()))
+        elif r % 3 == 1:
+            for k, c in zip(keys, counts):
+                log.append(tuple(await store.sync_counter(k, c, 5.0)))
+        else:
+            for k, c in zip(keys, counts):
+                log.append(tuple(store.sync_counter_blocking(k, c, 5.0)))
+        clock.advance_ticks(int(rng.integers(50, 3000)))
+        if r % 5 == 4:
+            clock.advance_seconds(86_401)  # every counter idles past its TTL
+    return log, store._counter_dir.to_dict()
+
+
+def _flat(log):
+    out = []
+    for entry in log:
+        for x in entry:
+            out.extend(x if isinstance(x, list) else [x])
+    return np.array(out)
+
+
+def _assert_replies(got, want):
+    """Within 1e-4, or a few float32 ulps of a large period EWMA: XLA on
+    the CPU may fuse the EWMA's multiply and add, where the port rounds each
+    (periods reach ~2e8 ticks after days idle, where an ulp is 16; the EWMA
+    carries an ulp into later syncs at a weight of 0.8 each, so at most
+    five)."""
+    np.testing.assert_allclose(_flat(got), _flat(want), atol=1e-4,
+                               rtol=1e-6)
+
+
+def _run_counters(store, clock, seed):
+    async def main():
+        try:
+            return await _counter_trace(store, clock, seed)
+        finally:
+            await store.aclose()
+
+    return asyncio.run(main())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_counter_trace_matches_jax_store(seed):
+    pclock, jclock = ManualClock(7_000), JClock(7_000)
+    port = _port(pclock, counter_slots=8)
+    (got, got_dir) = _run_counters(port, pclock, seed)
+    (want, want_dir) = _run_counters(_jax(jclock, counter_slots=8), jclock,
+                                     seed)
+    assert got_dir == want_dir
+    assert len(got) == len(want)
+    _assert_replies(got, want)
+    # The trace exhausted the table: sweeps ran, evicted, and it grew.
+    assert port.metrics.sweeps > 0 and port.metrics.slots_evicted > 0
+    assert port._counters.value.shape[0] > 8
+
+
+def test_counter_sync_decay_and_one_launch_fleet():
+    """Mirrors the JAX store's decay check, and the fleet sync against
+    per-key syncs."""
+    clock = ManualClock(0)
+    store = _port(clock, counter_slots=64)
+
+    async def main():
+        clock.advance_seconds(1.0)
+        assert (await store.sync_counter("bucket", 30.0, 10.0)).global_score \
+            == 30.0
+        clock.advance_seconds(2.0)
+        res = await store.sync_counter("bucket", 5.0, 10.0)
+        assert res.global_score == 15.0  # 30 decayed by 2 s × 10/s, + 5
+        keys = [f"c{i}" for i in range(5)]
+        counts = [float(i + 1) for i in range(5)]
+        scores, periods = await store.sync_counters_many(keys, counts, 1.0)
+        assert scores.dtype == np.float64 and scores.tolist() == counts
+        serial = _port(clock, counter_slots=64)
+        singles = [serial.sync_counter_blocking(k, c, 1.0)
+                   for k, c in zip(keys, counts)]
+        assert scores.tolist() == [s.global_score for s in singles]
+        assert periods.tolist() == [s.period_ewma_ticks for s in singles]
+        # Duplicates in one fleet sync: each reply is its own count on the
+        # shared decayed value; the adds accumulate.
+        scores, _ = await store.sync_counters_many(["d", "d", "d"],
+                                                   [1.0, 2.0, 4.0], 1.0)
+        assert scores.tolist() == [1.0, 2.0, 4.0]
+        assert store.sync_counter_blocking("d", 0.0, 1.0).global_score == 7.0
+        await store.aclose()
+
+    asyncio.run(main())
+
+
+def test_jax_counter_snapshot_restores_into_port():
+    jclock = JClock(5_000)
+    jstore = _jax(jclock, counter_slots=8)
+    _run_counters(jstore, jclock, 3)
+    snap = jstore.snapshot()
+    live = [k for k, slot in snap["counter_dir"].items()
+            if snap["counters"]["exists"][slot]]
+    assert live
+    # Restored at the snapshot's tick, the port continues identically.
+    port = _port(ManualClock(snap["now_ticks"]), counter_slots=8)
+    port.restore(snap)
+    assert port._counter_dir.to_dict() == snap["counter_dir"]
+    # Restored into another clock epoch, elapsed time is kept: a live
+    # counter decays and averages exactly as it does at the snapshot's tick.
+    other = _port(ManualClock(900_000), counter_slots=8)
+    other.restore(snap)
+    for st in (port, other):
+        st.clock.advance_ticks(1000)
+    assert [tuple(other.sync_counter_blocking(k, 0.0, 5.0)) for k in live] \
+        == [tuple(port.sync_counter_blocking(k, 0.0, 5.0)) for k in live]
+    jclock.advance_ticks(1000)
+    for k in live:
+        jstore.sync_counter_blocking(k, 0.0, 5.0)
+    (got, got_dir) = _run_counters(port, port.clock, 4)
+    (want, want_dir) = _run_counters(jstore, jclock, 4)
+    assert got_dir == want_dir
+    _assert_replies(got, want)
+    # The port's own snapshot carries the counters in the JAX schema, and
+    # the JAX store takes it back.
+    back = port.snapshot()
+    assert set(back["counters"]) == {"value", "period", "last_ts", "exists"}
+    j2 = _jax(JClock(back["now_ticks"]), counter_slots=8)
+    j2.restore(back)
+    assert j2._counter_dir.to_dict() == back["counter_dir"]
+    np.testing.assert_array_equal(np.asarray(j2._counters.value),
+                                  back["counters"]["value"])
+
+
+def test_counter_epoch_rebase_keeps_elapsed_time():
+    clock = ManualClock(2**30 - 2048)
+    store = _port(clock, counter_slots=8)
+    store.sync_counter_blocking("k", 50.0, 10.0)
+    clock.advance_seconds(2.0)  # reaches 2^30: the next sync rebases first
+    res = store.sync_counter_blocking("k", 0.0, 10.0)
+    assert clock.now_ticks() == 2**29
+    assert res.global_score == 30.0  # 50 decayed by 2 s × 10/s
+    assert int(store._counters.last_ts[0]) == 2**29
