@@ -46,11 +46,31 @@ Phases (any failure raises, and the script exits non-zero):
    per period stay within the limit plus the staleness bound); then
    ``sweep_all`` a day later evicts exactly the live counters. Prints the
    fleet sync's counters/s and its host split.
-5. Print ``{"kernels": [...]}``: per kernel its launches on each path of
-   phases 3 and 4 (``launches_by_path``; counts set to 0 before each path
-   and read after it; > 0 on the path the kernel serves) and their sum
-   (``launches``), the error against the plain version, and its times.
-6. Last line: ``{"ok": true, "device": {...}}``.
+5. The shared store server (README "Multi-host", BASELINE config 2's
+   shape): ``BucketStoreServer`` over a third ``DeviceBucketStore`` (2^24
+   slots, 2^20 counters, a ManualClock) on 127.0.0.1, limiters on
+   ``RemoteBucketStore`` clients. ``acquire_many`` over 10,000,000 distinct
+   keys as ``ACQUIRE_MANY`` frames resolved from the frames' bytes on the
+   server (``wire.KeyBlob``), then 1M of them with remaining; from a client
+   process of its own (``chip_smoke.py --scalar-client``), 20 rounds of
+   ``acquire_async`` over 10,000 uniform keys with 64 tasks, alternating a
+   coalescing client and one sending a frame per request (token limit 10:
+   every round grants all, then denies all; each key grants exactly 10);
+   cap-5 × 32 → 5 on both lanes; eight approximate limiters syncing
+   one counter over the wire; the periodic sweeper (0.5 s) evicting exactly
+   every bucket and the counter a day later. Prints the wire rates,
+   latencies (client and server), frames, and the server's key-blob
+   resolve beside the in-process string resolve.
+6. The console entry point on the card: ``python -m
+   distributedratelimiting.redis_tpu_torch.runtime.server --port 0 --slots
+   1048576 --sweep-period 1`` as a subprocess: its listening line, ping,
+   cap-5 × 32 → 5, ``OP_STATS`` keys, SIGTERM → exit 0.
+7. Print ``{"kernels": [...]}``: per kernel its launches on each path of
+   phases 3–5 (``launches_by_path``; counts set to 0 before each path and
+   read after it; > 0 on the path the kernel serves, and every kernel > 0
+   on the server path) and their sum (``launches``), the error against the
+   plain version, and its times; before it, each phase's wall seconds.
+8. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -86,6 +106,12 @@ ATOL = 1e-4
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS = 30
+#: The server path's scalar phase (BASELINE config 2's shape).
+N_SCALAR_KEYS = 10_000
+SCALAR_LIMIT = 10
+SCALAR_ASKS = 20
+SCALAR_TASKS = 64
+SCALAR_LANES = ("coalesced", "per-request")
 
 
 def _card_line() -> str:
@@ -677,6 +703,7 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
     bulk_s = time.perf_counter() - t0
     bulk_gc_s = gc_clock.total
     bulk_resolve_s = resolve_s[0]
+    _INPROCESS_RESOLVE_S[0] = bulk_resolve_s
     if len(res) != N_KEYS or res.granted_count != N_KEYS:
         raise AssertionError(f"bulk: {res.granted_count}/{len(res)} granted")
     dispatch_s = sum(c.duration_s for c in session.finish())
@@ -951,6 +978,331 @@ async def approximate_path(torch, ck, pkg, card: str) -> dict:
     return counts
 
 
+#: Wall seconds of the in-process main path's key→slot resolve (strings),
+#: set by ``main_path`` and printed beside the server's key-blob resolve.
+_INPROCESS_RESOLVE_S = [0.0]
+#: Extra arguments for the console server (the CPU rehearsal adds
+#: ``--device cpu``; on the card it runs with none, so on ``cuda``).
+CLI_EXTRA_ARGS: list = []
+
+
+def _pct(values, q) -> float:
+    return float(np.percentile(np.asarray(values), q)) if values else 0.0
+
+
+async def _scalar_round(lim, keys, order, workers):
+    """One round of ``acquire_async``: ``workers`` tasks take the keys in
+    ``order``; returns per-key grants and per-request latencies (s)."""
+    it = iter(order)
+    grants = np.zeros(len(keys), np.int64)
+    lat = []
+
+    async def worker():
+        for i in it:
+            t = time.perf_counter()
+            lease = await lim.acquire_async(keys[i])
+            lat.append(time.perf_counter() - t)
+            grants[i] += bool(lease)
+
+    await asyncio.gather(*(worker() for _ in range(workers)))
+    return grants, lat
+
+
+async def scalar_client(pkg, addr, n_keys: int) -> dict:
+    """The server path's scalar phase, run in a process of its own as a
+    client host would: ``acquire_async`` through ``PartitionedRateLimiter``
+    over ``RemoteBucketStore``s, 64 tasks, ``n_keys`` uniform keys, token
+    limit 10, 20 asks per key on the server's unadvanced clock. Rounds
+    alternate between a coalescing client (ACQUIRE_MANY flushes →
+    acquire_scan) and a per-request one (OP_ACQUIRE → acquire_packed); the
+    first 10 rounds must grant every ask and the last 10 deny every ask, so
+    each key grants min(10, 20) = 10. Returns the grants, and per client the
+    rate, the latencies and the frames it sent."""
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    frames = [0]
+    write_frame = wire.write_frame
+
+    def counted(writer, data):
+        frames[0] += 1
+        write_frame(writer, data)
+
+    wire.write_frame = counted
+    opts = pkg.TokenBucketOptions(token_limit=SCALAR_LIMIT,
+                                  tokens_per_period=1,
+                                  replenishment_period_s=1.0,
+                                  instance_name="scalar")
+    stores = {lane: pkg.RemoteBucketStore(
+        address=addr, coalesce_requests=lane == "coalesced")
+        for lane in SCALAR_LANES}
+    lims = {lane: pkg.PartitionedRateLimiter(opts, st)
+            for lane, st in stores.items()}
+    keys = list(range(n_keys))
+    rng = np.random.default_rng(SEED + 2)
+    total = np.zeros(n_keys, np.int64)
+    clients = {lane: {"requests": 0, "wall_s": 0.0, "frames": 0, "lat": []}
+               for lane in SCALAR_LANES}
+    rounds = []
+    for r in range(SCALAR_ASKS):
+        lane = SCALAR_LANES[r % 2]
+        c = clients[lane]
+        f0 = frames[0]
+        t0 = time.perf_counter()
+        grants, lat = await _scalar_round(lims[lane], keys,
+                                          rng.permutation(n_keys),
+                                          SCALAR_TASKS)
+        c["wall_s"] += time.perf_counter() - t0
+        c["frames"] += frames[0] - f0
+        c["requests"] += n_keys
+        c["lat"] += lat
+        rounds.append((lane, np.unique(grants).tolist()))
+        total += grants
+    for st in stores.values():
+        await st.aclose()
+    for c in clients.values():
+        lat = c.pop("lat")
+        c["p50_ms"], c["p99_ms"] = _pct(lat, 50) * 1e3, _pct(lat, 99) * 1e3
+    return {"rounds": rounds, "totals": np.unique(total).tolist(),
+            "clients": clients}
+
+
+async def server_path(torch, ck, pkg, card: str) -> dict:
+    """The shared store server (README "Multi-host"; BASELINE config 2's
+    shape): a ``BucketStoreServer`` over a ``DeviceBucketStore`` on the card
+    at the main path's size, limiters on ``RemoteBucketStore`` clients.
+    Returns the kernel launches the path made."""
+    clock = pkg.ManualClock(1_000_000)
+    store = pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                  counter_slots=COUNTER_SLOTS,
+                                  max_batch=BATCH, clock=clock)
+    server = pkg.BucketStoreServer(store, host="127.0.0.1", port=0)
+    host, port = await server.start()
+    addr = (host, port)
+    opts = pkg.TokenBucketOptions(token_limit=100, tokens_per_period=10,
+                                  replenishment_period_s=1.0,
+                                  instance_name="wire")
+    # The table exists before the timing, so its key-blob resolve is timed.
+    table = store._table(opts.token_limit, opts.fill_rate_per_second)
+    resolve_s = [0.0]
+    _time_calls(table.dir, "resolve_batch", resolve_s)
+    bulk_cli = pkg.RemoteBucketStore(address=addr, request_timeout_s=600.0)
+    co = pkg.RemoteBucketStore(address=addr, clock=clock)
+    solo = pkg.RemoteBucketStore(address=addr, clock=clock,
+                                 coalesce_requests=False)
+    ck.reset_launches()
+
+    # 1. Bulk over the wire: 10M distinct keys as ACQUIRE_MANY frames
+    # (chained chunks under MAX_FRAME), resolved from each frame's bytes.
+    lim = pkg.PartitionedRateLimiter(opts, bulk_cli)
+    frames0 = server.requests_served
+    t0 = time.perf_counter()
+    res = await lim.acquire_many(range(N_KEYS), permits=1,
+                                 with_remaining=False)
+    bulk_s = time.perf_counter() - t0
+    frames = server.requests_served - frames0
+    if len(res) != N_KEYS or res.granted_count != N_KEYS:
+        raise AssertionError(f"wire bulk: {res.granted_count}/{len(res)} "
+                             "granted")
+    sub = range(0, N_KEYS, 10)
+    res = await lim.acquire_many(sub, permits=1)
+    if not (res.granted.all() and np.all(res.remaining == 98.0)):
+        raise AssertionError("wire bulk: second call's remaining is not 98")
+    print(f"server bulk acquire_many over the wire: {N_KEYS} distinct keys "
+          f"in {bulk_s:.3f} s = {N_KEYS / bulk_s:.0f} decisions/s ({card}); "
+          f"{frames} ACQUIRE_MANY frames; server key-blob resolve "
+          f"{resolve_s[0]:.3f} s for {N_KEYS + len(sub)} keys (in-process "
+          f"path's string resolve {_INPROCESS_RESOLVE_S[0]:.3f} s for "
+          f"{N_KEYS}); every grant and remaining checked")
+
+    # 2. Scalar acquire_async, BASELINE config 2's shape, from a client
+    # process of its own (a client host; see scalar_client).
+    await co.stats(reset=True)
+    frames0 = server.requests_served
+    t0 = time.perf_counter()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, os.path.abspath(__file__), "--scalar-client", host,
+        str(port), str(N_SCALAR_KEYS), stdout=asyncio.subprocess.PIPE,
+        stderr=asyncio.subprocess.PIPE)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), 900)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+    phase_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"scalar client exited {proc.returncode}: "
+                             f"{err.decode()[-3000:]}")
+    rep = json.loads(out.decode().strip().splitlines()[-1])
+    for r, (lane, values) in enumerate(rep["rounds"]):
+        want = 1 if r < SCALAR_LIMIT else 0
+        if values != [want]:
+            raise AssertionError(f"scalar round {r} ({lane}): grants per "
+                                 f"key {values}, not all {want}")
+    if rep["totals"] != [min(SCALAR_LIMIT, SCALAR_ASKS)]:
+        raise AssertionError(f"scalar grants per key {rep['totals']} differ "
+                             "from min(limit, asks)")
+    stats = await co.stats()
+    for lane, c in rep["clients"].items():
+        print(f"server scalar acquire_async ({lane} client, {SCALAR_TASKS} "
+              f"tasks): {c['requests']} requests in {c['wall_s']:.3f} s = "
+              f"{c['requests'] / c['wall_s']:.0f} requests/s ({card}); "
+              f"client p50 {c['p50_ms']:.3f} ms, p99 {c['p99_ms']:.3f} ms; "
+              f"{c['frames']} frames sent")
+    stages = "; ".join(f"{k} p50 {v['p50_ms']:.3f} ms, p99 "
+                       f"{v['p99_ms']:.3f} ms"
+                       for k, v in stats.get("stages", {}).items())
+    print(f"server scalar: {phase_s:.3f} s with the client process's start; "
+          f"grants per key exactly min(10, 20) for {N_SCALAR_KEYS} keys "
+          f"(every round all granted, then all denied); server (OP_STATS) "
+          f"serving p50 {stats['serving_p50_ms']:.3f} ms, p99 "
+          f"{stats['serving_p99_ms']:.3f} ms over {stats['serving_samples']} "
+          f"frames ({server.requests_served - frames0} served); stages: "
+          f"{stages}")
+    # Cap-5 × 32 over the wire, on both lanes (duplicates in one flush).
+    for name, cli in (("per-request", solo), ("coalesced", co)):
+        cap5 = pkg.PartitionedRateLimiter(
+            pkg.TokenBucketOptions(token_limit=5, tokens_per_period=1,
+                                   instance_name=f"cap5-{name}"), cli)
+        five = await asyncio.gather(*(cap5.acquire_async("h5")
+                                      for _ in range(32)))
+        if sum(map(bool, five)) != 5:
+            raise AssertionError(f"cap-5 over the wire ({name}) granted "
+                                 f"{sum(map(bool, five))}")
+    print("server cap-5 bucket x 32 asks: 5 granted on both lanes")
+
+    # 3. Counter syncs: eight approximate limiters on one key over one
+    # remote store, held to the approximate path's bound.
+    from distributedratelimiting.redis_tpu_torch.models.approximate import (
+        overadmit_epsilon,
+    )
+
+    n_lim, limit, rate = 8, 100, 10
+    aopts = pkg.ApproximateTokenBucketOptions(
+        token_limit=limit, tokens_per_period=rate, replenishment_period_s=1.0,
+        instance_name="wire-fleet")
+    alims = [pkg.ApproximateTokenBucketRateLimiter(aopts, solo)
+             for _ in range(n_lim)]
+    for _ in range(10):
+        for a in alims:
+            clock.advance_seconds(1.0 / n_lim)
+            await a.refresh()
+    estimates = [a._instance_count for a in alims]
+    if estimates != [n_lim] * n_lim:
+        raise AssertionError(f"wire instance estimates {estimates}, not 8")
+    per_period = []
+    for _ in range(12):
+        grants = 0
+        for a in alims:
+            while a.acquire(1).is_acquired:
+                grants += 1
+            clock.advance_seconds(1.0 / n_lim)
+            await a.refresh()
+        per_period.append(grants)
+    bound = limit + overadmit_epsilon(0.0, rate, 1.0)
+    if max(per_period) > bound:
+        raise AssertionError(f"wire grants per period {per_period} > "
+                             f"{bound}")
+    for a in alims:
+        await a.aclose()
+    print(f"server OP_SYNC: 8 approximate limiters on one counter, instance "
+          f"estimates {estimates}; grants per period {per_period} (bound "
+          f"{bound:g})")
+
+    # 4. The periodic sweeper: a day later every bucket and the counter
+    # have expired; the sweeper (every 0.5 s) evicts exactly them.
+    _check_native(store)
+    live = sum(len(t.dir) for t in store._tables.values())
+    want_live = N_KEYS + N_SCALAR_KEYS + 2
+    if live != want_live:
+        raise AssertionError(f"server holds {live} buckets, not {want_live}")
+    live += len(store._counter_dir)
+    evicted0 = store.metrics.slots_evicted
+    store.start_sweeper(0.5)
+    clock.advance_seconds(86_401)
+    t0 = time.perf_counter()
+    while (store.metrics.slots_evicted - evicted0 < live
+           and time.perf_counter() - t0 < 120):
+        await asyncio.sleep(0.05)
+    waited = time.perf_counter() - t0
+    evicted = store.metrics.slots_evicted - evicted0
+    left = sum(len(t.dir) for t in store._tables.values()) + len(
+        store._counter_dir)
+    if evicted != live or left:
+        raise AssertionError(f"sweeper evicted {evicted} of {live} ({left} "
+                             "left)")
+    print(f"server periodic sweeper (0.5 s): evicted exactly {live} slots "
+          f"within {waited:.3f} s of the clock passing their TTL")
+    for cli in (bulk_cli, co, solo):
+        await cli.aclose()
+    await server.aclose()
+    await store.aclose()
+    if store._sweeper_task is not None:
+        raise AssertionError("aclose left the sweeper running")
+    counts = dict(ck.launches)
+    print(f"server path kernel launches: {counts}")
+    return counts
+
+
+def cli_server(pkg) -> None:
+    """The console entry point on the card: start it (no ``--device``, so
+    ``cuda``), read its listening line, ping, cap-5 × 32 → 5, check that
+    ``OP_STATS`` has the JAX server's keys, SIGTERM → exit 0."""
+    import select
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m",
+           "distributedratelimiting.redis_tpu_torch.runtime.server",
+           "--port", "0", "--slots", "1048576", "--sweep-period", "1",
+           *CLI_EXTRA_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 120)
+        line = proc.stdout.readline() if ready else ""
+        prefix = "bucket-store server listening on "
+        if not line.startswith(prefix):
+            proc.kill()
+            raise AssertionError(f"console server printed {line!r}; stderr "
+                                 f"{proc.communicate()[1][-2000:]!r}")
+        start_s = time.perf_counter() - t0
+        host, port = line[len(prefix):].strip().rsplit(":", 1)
+
+        async def drive():
+            cli = pkg.RemoteBucketStore(address=(host, int(port)))
+            await cli.ping()
+            res = await asyncio.gather(*(cli.acquire("five", 1, 5.0, 1.0)
+                                         for _ in range(32)))
+            stats = await cli.stats()
+            await cli.aclose()
+            return sum(r.granted for r in res), stats
+
+        granted, stats = asyncio.run(drive())
+        if granted != 5:
+            raise AssertionError(f"console server: cap-5 granted {granted}")
+        keys = {"connections_served", "requests_served", "serving_p50_ms",
+                "serving_p99_ms", "serving_samples", "requests_shed",
+                "stats_resets", "store"}
+        if not keys <= set(stats):
+            raise AssertionError(f"console server OP_STATS lacks "
+                                 f"{keys - set(stats)}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        if rc != 0:
+            raise AssertionError(f"console server exited {rc} on SIGTERM")
+        print(f"console server ({' '.join(cmd[2:])}): listening after "
+              f"{start_s:.1f} s, ping, cap-5 x 32 -> 5, OP_STATS keys "
+              f"present, SIGTERM -> exit 0 in {time.perf_counter() - t1:.2f} "
+              "s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def main() -> int:
     import torch
 
@@ -973,13 +1325,24 @@ def main() -> int:
             f.write(f"== {name} ({r['seconds']:.1f} s)\n{r['log']}\n")
 
     dev = torch.device("cuda")
+    phases = {}
+    t = time.perf_counter()
     res = kernel_phase(torch, K, ck, dev)
+    phases["kernels"] = time.perf_counter() - t
     # Each path resets the counts just before it runs and reads them just
-    # after; a kernel's launches are its count summed over the two paths,
-    # and it must have launched on the path it serves.
-    by_path = {"exact": asyncio.run(main_path(torch, ck, pkg, card)),
-               "approximate": asyncio.run(approximate_path(torch, ck, pkg,
-                                                           card))}
+    # after; a kernel's launches are its count summed over the paths, and
+    # it must have launched on the path it serves.
+    by_path = {}
+    for name, path in (("exact", main_path), ("approximate", approximate_path),
+                       ("server", server_path)):
+        t = time.perf_counter()
+        by_path[name] = asyncio.run(path(torch, ck, pkg, card))
+        phases[name] = time.perf_counter() - t
+    t = time.perf_counter()
+    cli_server(pkg)
+    phases["console server"] = time.perf_counter() - t
+    print("phase wall seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phases.items()))
     serves = {"sweep_expired": "exact", "acquire_packed": "exact",
               "acquire_grouped": "exact", "acquire_scan": "exact",
               "sync_counters": "approximate", "sweep_counters": "approximate"}
@@ -1023,8 +1386,11 @@ def main() -> int:
             "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
+    # The server path drives every kernel.
     idle = [f"{name} ({path} path)" for name, path in serves.items()
             if by_path[path][name] <= 0]
+    idle += [f"{name} (server path)" for name in serves
+             if by_path["server"][name] <= 0]
     if idle:
         raise AssertionError(f"never launched: {idle}")
     print(json.dumps({"ok": True, "device": {
@@ -1034,4 +1400,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--scalar-client"]:
+        # A client process of the server path (see scalar_client).
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import distributedratelimiting.redis_tpu_torch as _pkg
+
+        print(json.dumps(asyncio.run(scalar_client(
+            _pkg, (sys.argv[2], int(sys.argv[3])), int(sys.argv[4])))))
+        sys.exit(0)
     sys.exit(main())

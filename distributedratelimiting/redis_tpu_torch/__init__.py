@@ -7,7 +7,10 @@ The token-bucket family: limiters (``TokenBucketRateLimiter``,
 per-key state and decaying global counters live on the card and whose
 decisions, counter syncs and TTL sweeps run as hand-written CUDA kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``). Keys resolve to slots
-through the native key directory (``native/directory.cc``). Module and
+through the native key directory (``native/directory.cc``). A
+``BucketStoreServer`` serves such a store over TCP, byte-compatible with
+the JAX package's server, and ``RemoteBucketStore`` is its client: limiters
+on other hosts share one card through it. Module and
 class names follow the JAX package so each counterpart is easy to find.
 This package imports PyTorch and numpy only.
 """
@@ -44,6 +47,13 @@ from distributedratelimiting.redis_tpu_torch.runtime.clock import (
 )
 from distributedratelimiting.redis_tpu_torch.runtime.queueing import (
     QueueProcessingOrder,
+)
+from distributedratelimiting.redis_tpu_torch.runtime.remote import (
+    RemoteBucketStore,
+    StoreTimeoutError,
+)
+from distributedratelimiting.redis_tpu_torch.runtime.server import (
+    BucketStoreServer,
 )
 from distributedratelimiting.redis_tpu_torch.runtime.store import (
     AcquireResult,

@@ -38,6 +38,9 @@ class KeyDirectory:
     """Interface (duck-typed; both impls below)."""
 
     def resolve_batch(self, keys: list[str]) -> np.ndarray:  # i32[n]
+        """``keys`` is a list of strings or a ``wire.KeyBlob`` (a bulk
+        frame's key bytes): the native directory probes the blob in C, the
+        Python one iterates it."""
         raise NotImplementedError
 
     def lookup(self, key: str) -> int | None:
@@ -147,6 +150,13 @@ class NativeKeyDirectory(KeyDirectory):
 
     def resolve_batch(self, keys) -> np.ndarray:
         out = np.empty(len(keys), np.int32)
+        blob = getattr(keys, "blob", None)
+        if blob is not None:
+            # Wire-blob fast path (wire.KeyBlob): the frame's key bytes
+            # probe the table directly — no Python strings anywhere.
+            self._lib.dir_resolve_batch(self._h, blob, _i64_ptr(keys.offsets),
+                                        len(keys), _i32_ptr(out))
+            return out
         if self._lib.has_pylist:
             # Zero-copy: C reads each str's cached UTF-8 directly.
             if not isinstance(keys, list):

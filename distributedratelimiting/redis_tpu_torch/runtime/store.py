@@ -45,6 +45,7 @@ from distributedratelimiting.redis_tpu_torch.runtime.clock import (
 from distributedratelimiting.redis_tpu_torch.runtime.directory import (
     make_directory,
 )
+from distributedratelimiting.redis_tpu_torch.utils import log
 from distributedratelimiting.redis_tpu_torch.utils.metrics import StoreMetrics
 from distributedratelimiting.redis_tpu_torch.utils.tracing import (
     Profiler,
@@ -241,6 +242,26 @@ for _name in ("debit_many", "window_acquire", "window_acquire_blocking",
               "acquire_hierarchical_many_blocking", "reserve", "settle",
               "export_entries"):
     setattr(BucketStore, _name, _not_ported(_name))
+
+
+def start_periodic_sweeper(sweep_all: Callable[[], None],
+                           period_s: float) -> "asyncio.Task":
+    """The active-expiry loop: runs ``sweep_all`` off-loop every
+    ``period_s``; a transient device error must not silently end active
+    expiry for the store's lifetime — log and retry next period."""
+
+    async def loop() -> None:
+        while True:
+            await asyncio.sleep(period_s)
+            try:
+                # Device passes block; keep the event loop responsive.
+                await asyncio.to_thread(sweep_all)
+            except asyncio.CancelledError:
+                raise
+            except Exception as exc:
+                log.error_evaluating_kernel(exc)
+
+    return asyncio.get_running_loop().create_task(loop())
 
 
 def _rate_per_tick(rate_per_sec: float) -> float:
@@ -557,7 +578,9 @@ class _PackedLaunchMixin:
     def _bulk_plan(self, keys: Sequence[str], counts_np: np.ndarray,
                    with_remaining: bool):
         """Resolve the keys once, then choose and dispatch the bulk
-        strategy; returns the readback closure. Resolution and dispatch
+        strategy; returns the readback closure. ``keys`` may be a
+        ``wire.KeyBlob`` (the server's bulk lane), which the native
+        directory resolves without building a string per key. Resolution and dispatch
         share one hold of the store lock, so no sweep can hand a resolved
         slot to another key in between. (The JAX store resolves a second
         time when grouping does not pay; here the slots are reused.)"""
@@ -792,6 +815,7 @@ class DeviceBucketStore(BucketStore):
         self._rebase_threshold = rebase_threshold_ticks
         self._connected = False
         self._connect_gate = asyncio.Lock()
+        self._sweeper_task: asyncio.Task | None = None
 
     # -- connection lifecycle (lazy, idempotent) ---------------------------
     async def connect(self) -> None:
@@ -989,8 +1013,24 @@ class DeviceBucketStore(BucketStore):
                 t._sweep()
             self._sweep_counters()
 
+    def start_sweeper(self, period_s: float = 30.0) -> None:
+        """Start the periodic active-expiry task on the running event loop
+        (idempotent). Stops in :meth:`aclose`."""
+        if self._sweeper_task is not None and not self._sweeper_task.done():
+            return
+        self._sweeper_task = start_periodic_sweeper(self.sweep_all, period_s)
+
     # -- lifecycle / ops ---------------------------------------------------
     async def aclose(self) -> None:
+        # The sweeper first: it must not start a pass over tables whose
+        # batchers are closing.
+        if self._sweeper_task is not None:
+            self._sweeper_task.cancel()
+            try:
+                await self._sweeper_task
+            except (asyncio.CancelledError, Exception):
+                pass  # a failed sweeper must not abort batcher cleanup
+            self._sweeper_task = None
         for t in self._tables.values():
             await t.batcher.aclose()
 

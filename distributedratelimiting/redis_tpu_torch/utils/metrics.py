@@ -38,11 +38,16 @@ class LatencyHistogram:
         # bucket idx -> (trace_id, observed value, unix ts); None until
         # the first traced observation.
         self.exemplars: dict[int, tuple[str, float, float]] | None = None
+        # Measurement-window resets survive reset(): a consumer sharing the
+        # window can tell that someone else reset it (OP_STATS
+        # ``stats_resets``).
+        self.resets = 0
 
     def reset(self) -> None:
         """Zero in place. Holders keep their reference (the MicroBatcher
         captures the histogram at construction), so a measurement-window
         reset must NOT swap in a fresh object."""
+        self.resets += 1
         self.counts = [0] * self.N_BUCKETS
         self.total = 0
         self.sum_s = 0.0
