@@ -19,11 +19,17 @@ Phases (any failure raises, and the script exits non-zero):
    (the main path's bulk); the counter kernels ``sync_counters`` at B = 2^20
    (Zipf(1.1) slots with duplicates, 2% padding, half the counters live,
    ticks on both sides of the stored ones; distinct slots) and B = 8, and
-   ``sweep_counters`` over 2^20 counters. Grants, bits, masks, ``exists``,
+   ``sweep_counters`` over 2^20 counters; the window kernels on a window
+   table of 2^24 slots: ``window_packed`` and ``window_grouped`` at B =
+   4096 with duplicates, ``window_scan_packed`` on one chunk of K = 32 x
+   4096 (distinct and Zipf slots, the fused and the i32 lane, sliding and
+   fixed, ticks crossing a window boundary), ``sweep_windows`` over 2^24
+   slots. Grants, bits, masks, ``exists``,
    ``last_ts``, counter replies and periods must be equal; remaining and
    tokens within atol 1e-4, counter values equal for distinct slots and,
    where a slot takes r > 1 adds, within r spacings of its float32 value
-   (atomic adds in no fixed order). Time each
+   (atomic adds in no fixed order); every window result and state field
+   equal (whole-number counts). Time each
    (median of CUDA-event timings, and device time from ``torch.profiler``)
    beside the plain version and the bound.
 3. The main path at full size: ``PartitionedRateLimiter`` over
@@ -46,31 +52,44 @@ Phases (any failure raises, and the script exits non-zero):
    per period stay within the limit plus the staleness bound); then
    ``sweep_all`` a day later evicts exactly the live counters. Prints the
    fleet sync's counters/s and its host split.
-5. The shared store server (README "Multi-host", BASELINE config 2's
+5. The window path, BASELINE config 4 ("sliding-window counter variant,
+   10M keys, bursty Poisson arrivals"), on a store of its own (2^24 window
+   slots): ``PartitionedWindowRateLimiter`` with a sliding window of 100
+   permits a second, ``acquire_many`` over 10,000,000 distinct keys (one
+   ``window_scan`` launch per chunk) and 1M of them again with remaining;
+   40 steps of Poisson arrivals on a ManualClock (10x bursts, half of a
+   burst on 64 hot keys) through ``acquire_async`` (``window_packed``,
+   ``window_grouped``), every key's grants held to a host float32 serial
+   oracle of the sliding-window rule; cap-5 x 32 -> 5 and readmission after
+   roll-off, sliding and fixed; ``sweep_all`` evicting exactly every slot.
+6. The shared store server (README "Multi-host", BASELINE config 2's
    shape): ``BucketStoreServer`` over a third ``DeviceBucketStore`` (2^24
    slots, 2^20 counters, a ManualClock) on 127.0.0.1, limiters on
    ``RemoteBucketStore`` clients. ``acquire_many`` over 10,000,000 distinct
    keys as ``ACQUIRE_MANY`` frames resolved from the frames' bytes on the
    server (``wire.KeyBlob``), then 1M of them with remaining; from a client
-   process of its own (``chip_smoke.py --scalar-client``), 20 rounds of
+   process of its own (``chip_smoke.py --scalar-client``), 10 rounds of
    ``acquire_async`` over 10,000 uniform keys with 64 tasks, alternating a
-   coalescing client and one sending a frame per request (token limit 10:
-   every round grants all, then denies all; each key grants exactly 10);
-   cap-5 × 32 → 5 on both lanes; eight approximate limiters syncing
-   one counter over the wire; the periodic sweeper (0.5 s) evicting exactly
-   every bucket and the counter a day later. Prints the wire rates,
-   latencies (client and server), frames, and the server's key-blob
-   resolve beside the in-process string resolve.
-6. The console entry point on the card: ``python -m
+   coalescing client and one sending a frame per request (token limit 5:
+   every round grants all, then denies all; each key grants exactly 5);
+   cap-5 × 32 → 5 on both lanes; windows over the wire (1M keys as
+   ``BULK_KIND_WINDOW`` frames, 4,000 ``OP_WINDOW`` / ``OP_FWINDOW``
+   requests, cap-5 × 32 → 5) and ``OP_SEMA`` answering "not served by this
+   server yet"; eight approximate limiters syncing one counter over the
+   wire; the periodic sweeper (0.5 s) evicting exactly every bucket, window
+   and the counter a day later. Prints the wire rates, latencies (client
+   and server), frames, and the server's key-blob resolve beside the
+   in-process string resolve.
+7. The console entry point on the card: ``python -m
    distributedratelimiting.redis_tpu_torch.runtime.server --port 0 --slots
    1048576 --sweep-period 1`` as a subprocess: its listening line, ping,
    cap-5 × 32 → 5, ``OP_STATS`` keys, SIGTERM → exit 0.
-7. Print ``{"kernels": [...]}``: per kernel its launches on each path of
-   phases 3–5 (``launches_by_path``; counts set to 0 before each path and
+8. Print ``{"kernels": [...]}``: per kernel its launches on each path of
+   phases 3–6 (``launches_by_path``; counts set to 0 before each path and
    read after it; > 0 on the path the kernel serves, and every kernel > 0
    on the server path) and their sum (``launches``), the error against the
    plain version, and its times; before it, each phase's wall seconds.
-8. Last line: ``{"ok": true, "device": {...}}``.
+9. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -106,10 +125,26 @@ ATOL = 1e-4
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS = 30
-#: The server path's scalar phase (BASELINE config 2's shape).
+#: The server path's scalar phase (BASELINE config 2's shape): 100,000
+#: requests since the window path joined the script (200,000 before).
 N_SCALAR_KEYS = 10_000
-SCALAR_LIMIT = 10
-SCALAR_ASKS = 20
+SCALAR_LIMIT = 5
+SCALAR_ASKS = 10
+#: The window path (BASELINE config 4): a sliding window of 100 permits a
+#: second over the 10M keys, bursty Poisson arrivals on a ManualClock.
+WINDOW_LIMIT = 100
+WINDOW_TICKS = 1024  # one second
+WINDOW_STEPS = 40
+WINDOW_STEP_TICKS = 48  # ~47 ms of store time a step
+WINDOW_BASE_ARRIVALS = 400  # Poisson mean a step; 10x in a burst step
+WINDOW_BURST_SHARE = 0.25
+N_HOT = 64
+HOT_SHARE = 0.5  # of a burst step's arrivals
+#: The server path's window traffic.
+N_WIRE_WINDOW_KEYS = 1_000_000
+N_WIRE_SCALAR_WINDOW_KEYS = 200
+WIRE_WINDOW_LIMIT = 6
+WIRE_WINDOW_ASKS = 10
 SCALAR_TASKS = 64
 SCALAR_LANES = ("coalesced", "per-request")
 
@@ -182,13 +217,16 @@ class _GcClock:
 
     def __init__(self) -> None:
         self.total = 0.0
+        self.longest = 0.0  # the longest single collection
         self._start = 0.0
 
     def __call__(self, phase: str, info: dict) -> None:
         if phase == "start":
             self._start = time.perf_counter()
         else:
-            self.total += time.perf_counter() - self._start
+            pause = time.perf_counter() - self._start
+            self.total += pause
+            self.longest = max(self.longest, pause)
 
 
 def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -373,7 +411,203 @@ def kernel_phase(torch, K, ck, dev):
     del table, tokens, last_ts, exists0, state, plain, sat
     torch.cuda.empty_cache()
     res.update(counter_cases(torch, K, ck, dev, rng))
+    torch.cuda.empty_cache()
+    res.update(window_cases(torch, K, ck, dev, rng))
     return res
+
+
+def _check_windows(what, ks, ps) -> None:
+    """Every field of two window tables equal, bit for bit: counts are whole
+    numbers, so even the flushes' atomic adds of duplicates sum exactly."""
+    for name in ks._fields:
+        _check_equal(f"{what} {name}", getattr(ks, name), getattr(ps, name))
+
+
+def window_cases(torch, K, ck, dev, rng) -> dict:
+    """The four window kernels against their plain versions on a window
+    table of 2^24 slots (whole-number counts; indices current, one and two
+    windows behind, and one ahead of a clock behind them): a flush of B =
+    4096 with Zipf(1.2) duplicates, its grouped form, one bulk chunk of K =
+    32 x 4096 (distinct and Zipf slots, the fused and the i32 lane, sliding
+    and fixed; the ticks cross a window boundary), and the sweep. Grants,
+    bits, masks, remaining and every state field must be equal."""
+    from distributedratelimiting.redis_tpu_torch.runtime.store import (
+        _duplicate_prefix_host,
+    )
+
+    n, wt, limit = N_SLOTS, WINDOW_TICKS, float(WINDOW_LIMIT)
+    now = 2_000_000 + 300
+    idx = (now // wt + rng.choice([-2, -1, 0, 0, 1], n)).astype(np.int32)
+    table = (torch.tensor(rng.integers(0, 60, n).astype(np.float32),
+                          device=dev),
+             torch.tensor(rng.integers(0, 60, n).astype(np.float32),
+                          device=dev),
+             torch.tensor(idx, device=dev),
+             torch.tensor(rng.random(n) < 0.7, device=dev))
+    res = {}
+
+    # -- window_packed / window_grouped at B = 4096 ---------------------------
+    slots = ((rng.zipf(1.2, BATCH) - 1) % n).astype(np.int32)
+    slots[rng.random(BATCH) < 0.02] = -1
+    cnt = rng.integers(0, 40, BATCH).astype(np.int32)
+    valid = slots >= 0
+    packed = np.zeros((4, BATCH), np.int32)
+    packed[0], packed[1], packed[2] = slots, cnt, now
+    packed[3][valid] = _duplicate_prefix_host(slots[valid], cnt[valid])
+    uniq, sizes = np.unique(slots[valid], return_counts=True)
+    g = len(uniq)
+    packed5 = np.full((5, BATCH), -1, np.int32)
+    packed5[1:] = 0
+    packed5[0, :g], packed5[2] = uniq, now
+    packed5[1, :g] = rng.integers(1, 4, g)
+    packed5[4, :g] = sizes
+    # Bytes: the operand read, out written, 13 B gathered and 13 B written
+    # back per distinct slot. Operations: ~30 a row (the advance, the
+    # estimate's division and clamps, the test, remaining, the add).
+    cases = {
+        "window_packed": (ck.window_packed, K.window_acquire_batch_packed,
+                          packed, 16 * BATCH + 8 * BATCH + 26 * g),
+        "window_grouped": (ck.window_grouped,
+                           K.window_acquire_batch_packed_grouped, packed5,
+                           20 * BATCH + 8 * BATCH + 26 * g),
+    }
+    for name, (kernel, plain_fn, op, nbytes) in cases.items():
+        op_d = torch.from_numpy(op).to(dev)
+        for interpolate in (False, True):  # the sliding case is timed
+            ks = K.WindowState(*(x.clone() for x in table))
+            ps = K.WindowState(*(x.clone() for x in table))
+            out = kernel(ks, op_d, limit, wt, interpolate=interpolate)
+            _, pout = plain_fn(ps, op_d, limit, wt, interpolate=interpolate)
+            torch.cuda.synchronize()
+            kind = "sliding" if interpolate else "fixed"
+            _check_equal(f"{name} ({kind}) out", out, pout)
+            _check_windows(f"{name} ({kind})", ks, ps)
+            # Requests asked: valid rows, or the members of the groups.
+            asked = (int(op[4][op[0] >= 0].sum()) if len(op) == 5
+                     else int(valid.sum()))
+            if not 0 < float(out[0].sum()) < asked:
+                raise AssertionError(f"{name} ({kind}): no mix of grants")
+        ms = _median_ms(lambda: kernel(ks, op_d, limit, wt), inner=20)
+        plain_ms = _median_ms(lambda: plain_fn(ps, op_d, limit, wt))
+        dev_ms = _device_ms(lambda: kernel(ks, op_d, limit, wt),
+                            ["flush_kernel"])
+        res[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bytes=nbytes, ops=30 * BATCH,
+                         device_ms=dev_ms)
+        print(f"{name} B={BATCH} ({g} distinct slots), sliding and fixed: "
+              f"out and every state field equal to plain; {ms:.4f} ms "
+              f"(plain {plain_ms:.4f} ms, device time {dev_ms} ms)")
+
+    # -- window_scan: one chunk of K = 32 x 4096 ------------------------------
+    k, b = SCAN_K, BATCH
+    zipf = ((rng.zipf(1.2, (k, b)) - 1) % n).astype(np.int32)
+    distinct = np.stack([rng.choice(n, b, replace=False)
+                         for _ in range(k)]).astype(np.int32)
+    for sl in (zipf, distinct):
+        sl[rng.random((k, b)) < 0.02] = -1
+    # Three ticks, the last in the next window.
+    nows = np.repeat(np.array([now, now + 500, now + 900], np.int32),
+                     [11, 11, k - 22])
+    nows_d = torch.from_numpy(nows).to(dev)
+    c8 = rng.integers(0, 40, (k, b)).astype(np.uint8)
+    c32 = rng.integers(0, 1001, (k, b)).astype(np.int32)
+    variants = {}
+    for label, sl in (("distinct", distinct), ("Zipf", zipf)):
+        variants[f"fused, bits, {label}"] = (sl, K.pack_compact5(sl, c8), c8,
+                                             False)
+        variants[f"fused, f32, {label}"] = (sl, K.pack_compact5(sl, c8), c8,
+                                            True)
+        variants[f"i32, f32, {label}"] = (sl, np.stack([sl, c32]), c32,
+                                          True)
+    out_res = {}
+    for label, (sl, op, counts, with_rem) in variants.items():
+        d = len(np.unique(sl[sl >= 0]))
+        op_d = torch.from_numpy(op).to(dev)
+        lim = limit if counts.dtype == np.uint8 else 500.0
+        for interpolate in (True, False):
+            kind = "sliding" if interpolate else "fixed"
+            ks = K.WindowState(*(x.clone() for x in table))
+            ps = K.WindowState(*(x.clone() for x in table))
+            got = ck.window_scan_packed(ks, op_d, nows_d, lim, wt,
+                                        interpolate=interpolate,
+                                        with_remaining=with_rem)
+            want = _plain_window_scan(torch, K, ps, sl, counts, nows_d, lim,
+                                      wt, interpolate, with_rem)
+            torch.cuda.synchronize()
+            _check_equal(f"window_scan ({label}, {kind}) out", got, want)
+            _check_windows(f"window_scan ({label}, {kind})", ks, ps)
+            grants = (want[:, 0] > 0.5 if with_rem else torch.from_numpy(
+                np.unpackbits(want.cpu().numpy(), axis=-1,
+                              bitorder="little")))
+            if not 0 < int(grants.sum()) < int((sl >= 0).sum()):
+                raise AssertionError(f"window_scan ({label}, {kind}): no mix")
+        call = (lambda ks=ks, op_d=op_d, with_rem=with_rem, lim=lim:
+                ck.window_scan_packed(ks, op_d, nows_d, lim, wt,
+                                      with_remaining=with_rem))
+        ms = _median_ms(call, inner=5)
+        slots_d = torch.from_numpy(sl).to(dev)
+        counts_d = torch.from_numpy(counts.astype(np.int32)).to(dev)
+        plain_ms = _median_ms(
+            lambda ps=ps, slots_d=slots_d, counts_d=counts_d, lim=lim:
+            K.window_acquire_scan(ps, slots_d, counts_d, slots_d >= 0,
+                                  nows_d, lim, wt), reps=3, warmup=1)
+        dev_ms = _device_ms(call, ["scan_kernel"])
+        out_bytes = k * b // 8 if not with_rem else k * 2 * b * 4
+        out_res[label] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+            bytes=op.nbytes + 4 * k + out_bytes + 26 * d, ops=30 * k * b,
+            device_ms=dev_ms)
+        print(f"window_scan ({label}) K={k} B={b} ({d} distinct slots), "
+              f"sliding and fixed: equal to plain; {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, device time {dev_ms} ms)")
+    # The window path's bulk sends distinct keys, verdicts only.
+    res["window_scan"] = dict(out_res["fused, bits, distinct"])
+
+    # -- sweep_windows at N = 2^24 -------------------------------------------
+    exists0 = table[3]
+    ks = K.WindowState(table[0], table[1], table[2], exists0.clone())
+    ps = K.WindowState(table[0], table[1], table[2], exists0.clone())
+    sweep_now = now + wt  # the "two behind" slots and the current-1 expire
+    mask, counts = ck.sweep_windows(ks, sweep_now, wt)
+    _, expired = K.sweep_windows(ps, sweep_now, wt)
+    torch.cuda.synchronize()
+    _check_equal("sweep_windows mask", mask.bool(), expired)
+    _check_equal("sweep_windows exists", ks.exists, ps.exists)
+    want_tiles = torch.nn.functional.pad(
+        expired.int(), (0, counts.numel() * ck.TILE - n)).view(
+            -1, ck.TILE).sum(1)
+    _check_equal("sweep_windows tile counts", counts, want_tiles.int())
+    n_expired = int(counts.sum())
+    if not 0 < n_expired < int(exists0.sum()):
+        raise AssertionError(f"sweep_windows expired {n_expired}: no mix")
+    ms = _median_ms(lambda: ck.sweep_windows(ks, sweep_now, wt),
+                    setup=lambda: ks.exists.copy_(exists0))
+    plain_ms = _median_ms(lambda: K.sweep_windows(ps, sweep_now, wt),
+                          setup=lambda: ps.exists.copy_(exists0))
+    dev_ms = _device_ms(lambda: ck.sweep_windows(ks, sweep_now, wt),
+                        ["sweep_windows_kernel"])
+    # 7 B a slot (window_idx and exists read, exists and mask written) and
+    # the tile counts; ~4 operations a slot (sub, compare, and, clear).
+    res["sweep_windows"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        bytes=7 * n + 4 * counts.numel(), ops=4 * n, device_ms=dev_ms)
+    print(f"sweep_windows N={n}: expired {n_expired}, equal to plain; "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, device time {dev_ms} ms)")
+    return res
+
+
+def _plain_window_scan(torch, K, ps, slots, counts, nows_d, limit, wt,
+                       interpolate, with_remaining):
+    """The plain per-batch loop of the window scan on the card's tensors,
+    in the result form of the kernel."""
+    dev = nows_d.device
+    slots_d = torch.from_numpy(slots).to(dev)
+    _, granted, remaining = K.window_acquire_scan(
+        ps, slots_d, torch.from_numpy(counts.astype(np.int32)).to(dev),
+        slots_d >= 0, nows_d, limit, wt, interpolate=interpolate)
+    if not with_remaining:
+        return K.pack_grant_bits(granted)
+    return torch.stack([granted.to(torch.float32), remaining], dim=1)
 
 
 def _sync_packed(rng, b, n, now, distinct):
@@ -658,7 +892,8 @@ def _check_native(store) -> None:
         NativeKeyDirectory,
     )
 
-    dirs = [t.dir for t in store._tables.values()] + [store._counter_dir]
+    dirs = [t.dir for t in (*store._tables.values(),
+                            *store._wtables.values())] + [store._counter_dir]
     kinds = {type(d).__name__ for d in dirs}
     if kinds != {"NativeKeyDirectory"} or not all(
             isinstance(d, NativeKeyDirectory) for d in dirs):
@@ -978,6 +1213,198 @@ async def approximate_path(torch, ck, pkg, card: str) -> dict:
     return counts
 
 
+class _WindowOracle:
+    """Host float32 serial model of the sliding-window rule, per key, for
+    one-permit asks: each ask is granted iff ``(est + granted so far) + 1 <=
+    limit``, ``est = curr + prev * (1 - frac)``, every operation rounded in
+    float32 (with whole counts and a window of 1024 ticks every value here
+    is exact)."""
+
+    def __init__(self, limit: float, window_ticks: int) -> None:
+        self.limit = np.float32(limit)
+        self.wt = window_ticks
+        self.state: dict = {}  # key -> [prev, curr, idx]
+
+    def decide(self, key, n: int, now: int) -> int:
+        idx_now = now // self.wt
+        prev, curr, idx = self.state.get(key, (0.0, 0.0, idx_now))
+        idx_now = max(idx_now, idx)
+        steps = idx_now - idx
+        prev, curr = ((prev, curr) if steps == 0 else
+                      (curr, 0.0) if steps == 1 else (0.0, 0.0))
+        prev, curr = np.float32(prev), np.float32(curr)
+        frac = np.float32(min(max(np.float32(now - idx_now * self.wt)
+                                  / np.float32(self.wt), 0.0), 1.0))
+        est = np.float32(curr + np.float32(prev * np.float32(1 - frac)))
+        granted = 0
+        while granted < n and np.float32(
+                np.float32(est + np.float32(granted)) + 1) <= self.limit:
+            granted += 1
+        self.state[key] = (prev, np.float32(curr + granted), idx_now)
+        return granted
+
+
+async def window_path(torch, ck, pkg, card: str) -> dict:
+    """BASELINE config 4, the sliding-window counter at 10M keys with bursty
+    Poisson arrivals, on a store of its own (2^24 window slots, ~218 MB);
+    returns the kernel launches it made."""
+    from distributedratelimiting.redis_tpu_torch.utils.tracing import (
+        ProfilingSession,
+    )
+
+    rng = np.random.default_rng(SEED + 4)
+    clock = pkg.ManualClock(1_000_000)
+    session = ProfilingSession()
+    store = pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                  max_batch=BATCH, clock=clock,
+                                  profiling_session=lambda: session)
+    opts = pkg.SlidingWindowOptions(permit_limit=WINDOW_LIMIT, window_s=1.0,
+                                    instance_name="win")
+    lim = pkg.PartitionedWindowRateLimiter(opts, store)
+    await store.connect()
+    table = store._wtable(opts.permit_limit, opts.window_s)
+    resolve_s = [0.0]
+    _time_calls(table.dir, "resolve_batch", resolve_s)
+    gc_clock = _GcClock()
+    gc.callbacks.append(gc_clock)
+    ck.reset_launches()
+
+    # 1. Bulk: 10M distinct keys, one permit each, then 1M again.
+    t0 = time.perf_counter()
+    res = await lim.acquire_many(range(N_KEYS), permits=1,
+                                 with_remaining=False)
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    if len(res) != N_KEYS or res.granted_count != N_KEYS:
+        raise AssertionError(f"window bulk: {res.granted_count}/{len(res)} "
+                             "granted")
+    dispatch_s = sum(c.duration_s for c in session.finish())
+    bulk_launches = ck.launches["window_scan"]
+    res = await lim.acquire_many(range(0, N_KEYS, 10), permits=1)
+    if not (res.granted.all() and np.all(res.remaining == WINDOW_LIMIT - 2)):
+        raise AssertionError("window bulk: second call's remaining is not "
+                             f"{WINDOW_LIMIT - 2}")
+    print(f"window bulk acquire_many: {N_KEYS} distinct keys in "
+          f"{bulk_s:.3f} s = {N_KEYS / bulk_s:.0f} decisions/s ({card}); "
+          f"host dispatch {dispatch_s:.3f} s, of which key->slot resolve "
+          f"{resolve_s[0]:.3f} s; garbage collector {gc_clock.total:.3f} s; "
+          f"{bulk_launches} window_scan launches")
+
+    # 2. Bursty Poisson arrivals through acquire_async, against the oracle.
+    oracle = _WindowOracle(WINDOW_LIMIT, WINDOW_TICKS)
+    idx0 = clock.now_ticks() // WINDOW_TICKS
+    hot = rng.choice(N_KEYS, N_HOT, replace=False)
+    bursts = set(rng.choice(WINDOW_STEPS,
+                            round(WINDOW_BURST_SHARE * WINDOW_STEPS),
+                            replace=False).tolist())
+    store.metrics.flush_latency.reset()
+    session.finish()
+    gc0 = gc_clock.total
+    gc_clock.longest = 0.0
+    tracked = len(gc.get_objects())  # what a full collection walks
+    n_req = n_granted = 0
+    wall = 0.0
+    for step in range(WINDOW_STEPS):
+        burst = step in bursts
+        m = int(rng.poisson(WINDOW_BASE_ARRIVALS * (10 if burst else 1)))
+        keys = rng.integers(0, N_KEYS, m)
+        if burst:
+            h = rng.random(m) < HOT_SHARE
+            keys[h] = hot[rng.integers(0, N_HOT, int(h.sum()))]
+        now = clock.now_ticks()
+        t0 = time.perf_counter()
+        leases = await asyncio.gather(*(lim.acquire_async(int(k))
+                                        for k in keys))
+        wall += time.perf_counter() - t0
+        uniq, inv = np.unique(keys, return_inverse=True)
+        got = np.bincount(inv, weights=[bool(x) for x in leases],
+                          minlength=len(uniq)).astype(np.int64)
+        asks = np.bincount(inv, minlength=len(uniq))
+        for u, a, g in zip(uniq.tolist(), asks.tolist(), got.tolist()):
+            if int(u) not in oracle.state:  # the bulk's counts, window idx0
+                oracle.state[int(u)] = (0.0, 2.0 if u % 10 == 0 else 1.0,
+                                        idx0)
+            want = oracle.decide(int(u), a, now)
+            if g != want:
+                raise AssertionError(f"window key {u} at tick {now}: "
+                                     f"{g} of {a} granted, oracle {want}")
+        n_req += m
+        n_granted += int(got.sum())
+        clock.advance_ticks(WINDOW_STEP_TICKS)
+    flushes = store.metrics.flush_latency.total
+    dispatch_s = sum(c.duration_s for c in session.finish())
+    print(f"window acquire_async, {WINDOW_STEPS} steps of "
+          f"{WINDOW_STEP_TICKS} ticks ({len(bursts)} bursts at 10x): "
+          f"{n_req} "
+          f"requests in {wall:.3f} s = {n_req / wall:.0f} decisions/s "
+          f"({card}); {n_granted} granted, every key's grants equal to the "
+          f"host float32 oracle; {flushes} flushes, host dispatch "
+          f"{dispatch_s:.3f} s, flush p50 "
+          f"{store.metrics.flush_latency.p50 * 1e3:.3f} ms, p99 "
+          f"{store.metrics.flush_latency.p99 * 1e3:.3f} ms, garbage "
+          f"collector {gc_clock.total - gc0:.3f} s (longest pause "
+          f"{gc_clock.longest:.3f} s; {tracked} objects tracked at the "
+          f"start)")
+    if not 0 < n_granted < n_req:
+        raise AssertionError("window traffic: no mix of grants and denials")
+
+    # 3. Cap-5 x 32 inside one window -> 5; readmission after roll-off
+    # (sliding: two windows, once the previous count has slid out; fixed:
+    # the next window).
+    for fixed in (False, True):
+        o = (pkg.FixedWindowOptions if fixed else pkg.SlidingWindowOptions)(
+            permit_limit=5, window_s=1.0,
+            instance_name="fcap5" if fixed else "cap5")
+        cap5 = pkg.PartitionedWindowRateLimiter(o, store)
+        for _ in range(2):
+            five = await asyncio.gather(*(cap5.acquire_async("h5")
+                                          for _ in range(32)))
+            if sum(map(bool, five)) != 5:
+                raise AssertionError(f"window cap-5 (fixed={fixed}) granted "
+                                     f"{sum(map(bool, five))}")
+            clock.advance_ticks(WINDOW_TICKS * (1 if fixed else 2))
+    print("window cap-5 x 32 asks: 5 granted, and 5 again after roll-off, "
+          "sliding and fixed")
+
+    # 4. Two windows after the last touch every slot expires.
+    _check_native(store)
+    live = sum(len(t.dir) for t in store._wtables.values())
+    if live != N_KEYS + 2:
+        raise AssertionError(f"window tables hold {live} keys")
+    clock.advance_ticks(3 * WINDOW_TICKS)
+    removed_s = [0.0]
+    for t in store._wtables.values():
+        _time_calls(t.dir, "remove_slots", removed_s)
+    evicted0 = store.metrics.slots_evicted
+    t0 = time.perf_counter()
+    store.sweep_all()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    evicted = store.metrics.slots_evicted - evicted0
+    if evicted != live:
+        raise AssertionError(f"window sweep evicted {evicted} of {live}")
+    print(f"window sweep_all: evicted exactly {live} slots in {sweep_s:.3f} "
+          f"s; directory removal {removed_s[0]:.3f} s")
+    counts = dict(ck.launches)
+    gc.callbacks.remove(gc_clock)
+    await store.aclose()
+    return counts
+
+
+async def _raw_request(addr, frame: bytes):
+    """One frame on a connection of its own; the decoded reply."""
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    reader, writer = await asyncio.open_connection(*addr)
+    try:
+        writer.write(frame)
+        await writer.drain()
+        body = await asyncio.wait_for(wire.read_frame(reader), 30)
+        return wire.decode_response(body)
+    finally:
+        writer.close()
+
+
 #: Wall seconds of the in-process main path's key→slot resolve (strings),
 #: set by ``main_path`` and printed beside the server's key-blob resolve.
 _INPROCESS_RESOLVE_S = [0.0]
@@ -1012,11 +1439,11 @@ async def scalar_client(pkg, addr, n_keys: int) -> dict:
     """The server path's scalar phase, run in a process of its own as a
     client host would: ``acquire_async`` through ``PartitionedRateLimiter``
     over ``RemoteBucketStore``s, 64 tasks, ``n_keys`` uniform keys, token
-    limit 10, 20 asks per key on the server's unadvanced clock. Rounds
+    limit 5, 10 asks per key on the server's unadvanced clock. Rounds
     alternate between a coalescing client (ACQUIRE_MANY flushes →
     acquire_scan) and a per-request one (OP_ACQUIRE → acquire_packed); the
-    first 10 rounds must grant every ask and the last 10 deny every ask, so
-    each key grants min(10, 20) = 10. Returns the grants, and per client the
+    first 5 rounds must grant every ask and the last 5 deny every ask, so
+    each key grants min(5, 10) = 5. Returns the grants, and per client the
     rate, the latencies and the frames it sent."""
     from distributedratelimiting.redis_tpu_torch.runtime import wire
 
@@ -1153,7 +1580,8 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
                        f"{v['p99_ms']:.3f} ms"
                        for k, v in stats.get("stages", {}).items())
     print(f"server scalar: {phase_s:.3f} s with the client process's start; "
-          f"grants per key exactly min(10, 20) for {N_SCALAR_KEYS} keys "
+          f"grants per key exactly min({SCALAR_LIMIT}, {SCALAR_ASKS}) for "
+          f"{N_SCALAR_KEYS} keys "
           f"(every round all granted, then all denied); server (OP_STATS) "
           f"serving p50 {stats['serving_p50_ms']:.3f} ms, p99 "
           f"{stats['serving_p99_ms']:.3f} ms over {stats['serving_samples']} "
@@ -1170,6 +1598,88 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
             raise AssertionError(f"cap-5 over the wire ({name}) granted "
                                  f"{sum(map(bool, five))}")
     print("server cap-5 bucket x 32 asks: 5 granted on both lanes")
+
+    # Windows over the wire: window-kind ACQUIRE_MANY frames, then
+    # OP_WINDOW / OP_FWINDOW requests (one frame each), on the unadvanced
+    # clock: every estimate is a whole number and each key's grants are
+    # min(limit, asks).
+    wlim = pkg.PartitionedWindowRateLimiter(pkg.SlidingWindowOptions(
+        permit_limit=WINDOW_LIMIT, window_s=1.0, instance_name="wire-win"),
+        bulk_cli)
+    # The server's window tables exist before the timing (each is a 2^24-slot
+    # table and directory on first use); their creation is timed apart.
+    t0 = time.perf_counter()
+    for limit, fixed in ((WINDOW_LIMIT, False), (WIRE_WINDOW_LIMIT, False),
+                         (WIRE_WINDOW_LIMIT, True), (5, False), (5, True)):
+        store._wtable(limit, 1.0, fixed)
+    torch.cuda.synchronize()
+    tables_s = (time.perf_counter() - t0) / 5
+    frames0 = server.requests_served
+    t0 = time.perf_counter()
+    res = await wlim.acquire_many(range(N_WIRE_WINDOW_KEYS), permits=1,
+                                  with_remaining=False)
+    wbulk_s = time.perf_counter() - t0
+    wframes = server.requests_served - frames0
+    if res.granted_count != N_WIRE_WINDOW_KEYS:
+        raise AssertionError(f"wire window bulk: {res.granted_count} granted")
+    res = await wlim.acquire_many(range(0, N_WIRE_WINDOW_KEYS, 10),
+                                  permits=1)
+    if not (res.granted.all()
+            and np.all(res.remaining == WINDOW_LIMIT - 2)):
+        raise AssertionError("wire window bulk: remaining is not "
+                             f"{WINDOW_LIMIT - 2}")
+    print(f"server window bulk (BULK_KIND_WINDOW frames): "
+          f"{N_WIRE_WINDOW_KEYS} distinct keys in {wbulk_s:.3f} s = "
+          f"{N_WIRE_WINDOW_KEYS / wbulk_s:.0f} decisions/s ({card}); "
+          f"{wframes} frames; every grant and remaining checked (a window "
+          f"table of {N_SLOTS} slots and its directory: {tables_s:.3f} s to "
+          f"create, untimed)")
+    wkeys = list(range(N_WIRE_SCALAR_WINDOW_KEYS))
+    rng = np.random.default_rng(SEED + 5)
+    n_wreq, wwall, wlat = 0, 0.0, []
+    for fixed in (False, True):
+        o = (pkg.FixedWindowOptions if fixed else pkg.SlidingWindowOptions)(
+            permit_limit=WIRE_WINDOW_LIMIT, window_s=1.0,
+            instance_name="wire-fwin" if fixed else "wire-swin")
+        wl = pkg.PartitionedWindowRateLimiter(o, solo)
+        total = np.zeros(len(wkeys), np.int64)
+        for r in range(WIRE_WINDOW_ASKS):
+            t0 = time.perf_counter()
+            grants, lat = await _scalar_round(wl, wkeys,
+                                              rng.permutation(len(wkeys)),
+                                              SCALAR_TASKS)
+            wwall += time.perf_counter() - t0
+            wlat += lat
+            want = 1 if r < WIRE_WINDOW_LIMIT else 0
+            if np.unique(grants).tolist() != [want]:
+                raise AssertionError(f"wire window round {r} (fixed="
+                                     f"{fixed}): grants per key "
+                                     f"{np.unique(grants).tolist()}")
+            total += grants
+            n_wreq += len(wkeys)
+        cap5 = pkg.PartitionedWindowRateLimiter(
+            (pkg.FixedWindowOptions if fixed else pkg.SlidingWindowOptions)(
+                permit_limit=5, window_s=1.0, instance_name=f"wcap5-{fixed}"),
+            solo)
+        five = await asyncio.gather(*(cap5.acquire_async("h5")
+                                      for _ in range(32)))
+        if sum(map(bool, five)) != 5:
+            raise AssertionError(f"wire window cap-5 (fixed={fixed}) granted "
+                                 f"{sum(map(bool, five))}")
+    print(f"server OP_WINDOW / OP_FWINDOW: {n_wreq} requests over "
+          f"{len(wkeys)} keys in {wwall:.3f} s = {n_wreq / wwall:.0f} "
+          f"requests/s ({card}), client p50 {_pct(wlat, 50) * 1e3:.3f} ms, "
+          f"p99 {_pct(wlat, 99) * 1e3:.3f} ms; grants per key exactly "
+          f"min({WIRE_WINDOW_LIMIT}, {WIRE_WINDOW_ASKS}) (the oracle); cap-5 "
+          f"x 32 -> 5, sliding and fixed")
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    _, kind, vals = await _raw_request(addr, wire.encode_request(
+        77, wire.OP_SEMA, "sema", 1, 5.0, 0.0))
+    if kind != wire.RESP_ERROR or "not served by this server yet" \
+            not in vals[0]:
+        raise AssertionError(f"OP_SEMA answered {kind} {vals}")
+    print(f"server OP_SEMA: {vals[0]!r}")
 
     # 3. Counter syncs: eight approximate limiters on one key over one
     # remote store, held to the approximate path's bound.
@@ -1216,7 +1726,12 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
     want_live = N_KEYS + N_SCALAR_KEYS + 2
     if live != want_live:
         raise AssertionError(f"server holds {live} buckets, not {want_live}")
-    live += len(store._counter_dir)
+    wlive = sum(len(t.dir) for t in store._wtables.values())
+    want_wlive = N_WIRE_WINDOW_KEYS + 2 * N_WIRE_SCALAR_WINDOW_KEYS + 2
+    if wlive != want_wlive:
+        raise AssertionError(f"server holds {wlive} windows, not "
+                             f"{want_wlive}")
+    live += wlive + len(store._counter_dir)
     evicted0 = store.metrics.slots_evicted
     store.start_sweeper(0.5)
     clock.advance_seconds(86_401)
@@ -1226,13 +1741,15 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
         await asyncio.sleep(0.05)
     waited = time.perf_counter() - t0
     evicted = store.metrics.slots_evicted - evicted0
-    left = sum(len(t.dir) for t in store._tables.values()) + len(
+    left = sum(len(t.dir) for t in (*store._tables.values(),
+                                    *store._wtables.values())) + len(
         store._counter_dir)
     if evicted != live or left:
         raise AssertionError(f"sweeper evicted {evicted} of {live} ({left} "
                              "left)")
     print(f"server periodic sweeper (0.5 s): evicted exactly {live} slots "
-          f"within {waited:.3f} s of the clock passing their TTL")
+          f"({wlive} of them windows) within {waited:.3f} s of the clock "
+          f"passing their TTL")
     for cli in (bulk_cli, co, solo):
         await cli.aclose()
     await server.aclose()
@@ -1334,7 +1851,7 @@ def main() -> int:
     # it must have launched on the path it serves.
     by_path = {}
     for name, path in (("exact", main_path), ("approximate", approximate_path),
-                       ("server", server_path)):
+                       ("window", window_path), ("server", server_path)):
         t = time.perf_counter()
         by_path[name] = asyncio.run(path(torch, ck, pkg, card))
         phases[name] = time.perf_counter() - t
@@ -1345,14 +1862,20 @@ def main() -> int:
         f"{k} {v:.1f}" for k, v in phases.items()))
     serves = {"sweep_expired": "exact", "acquire_packed": "exact",
               "acquire_grouped": "exact", "acquire_scan": "exact",
-              "sync_counters": "approximate", "sweep_counters": "approximate"}
+              "sync_counters": "approximate", "sweep_counters": "approximate",
+              "window_packed": "window", "window_grouped": "window",
+              "window_scan": "window", "sweep_windows": "window"}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
                "acquire_grouped": "csrc/acquire.cu",
                "acquire_scan": "csrc/acquire.cu",
                "sync_counters": "csrc/counter.cu",
-               "sweep_counters": "csrc/counter.cu"}
+               "sweep_counters": "csrc/counter.cu",
+               "window_packed": "csrc/window.cu",
+               "window_grouped": "csrc/window.cu",
+               "window_scan": "csrc/window.cu",
+               "sweep_windows": "csrc/window.cu"}
     replaces = {
         "sweep_expired":
             "distributedratelimiting/redis_tpu/ops/pallas_kernels.py:80",
@@ -1369,6 +1892,16 @@ def main() -> int:
             "distributedratelimiting/redis_tpu/ops/kernels.py:1085",
         "sweep_counters":
             "distributedratelimiting/redis_tpu/ops/kernels.py:1220",
+        "window_packed":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:1103",
+        "window_grouped":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:1117",
+        # window_acquire_scan_fused_packed; also _fused_bits (:638),
+        # window_acquire_scan (:613) and window_acquire_scan_compact (:687).
+        "window_scan":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:663",
+        "sweep_windows":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:1233",
     }
     kernels = []
     for name, r in res.items():
@@ -1381,7 +1914,7 @@ def main() -> int:
             "launches": sum(p[name] for p in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"],
         })

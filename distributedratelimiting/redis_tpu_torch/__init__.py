@@ -1,12 +1,14 @@
 """Distributed rate limiting on PyTorch and CUDA — the port of
 :mod:`distributedratelimiting.redis_tpu` to an NVIDIA Hopper GPU.
 
-The token-bucket family: limiters (``TokenBucketRateLimiter``,
+The token-bucket family (``TokenBucketRateLimiter``,
 ``PartitionedRateLimiter``, ``ApproximateTokenBucketRateLimiter``,
-``QueueingTokenBucketRateLimiter``) over a ``DeviceBucketStore`` whose
-per-key state and decaying global counters live on the card and whose
-decisions, counter syncs and TTL sweeps run as hand-written CUDA kernels
-(``ops/cuda_kernels.py``, sources in ``csrc/``). Keys resolve to slots
+``QueueingTokenBucketRateLimiter``) and the window family
+(``SlidingWindowRateLimiter``, ``FixedWindowRateLimiter``,
+``PartitionedWindowRateLimiter``) over a ``DeviceBucketStore`` whose
+per-key state, windows and decaying global counters live on the card and
+whose decisions, counter syncs and TTL sweeps run as hand-written CUDA
+kernels (``ops/cuda_kernels.py``, sources in ``csrc/``). Keys resolve to slots
 through the native key directory (``native/directory.cc``). A
 ``BucketStoreServer`` serves such a store over TCP, byte-compatible with
 the JAX package's server, and ``RemoteBucketStore`` is its client: limiters
@@ -26,16 +28,27 @@ from distributedratelimiting.redis_tpu_torch.models.base import (
 from distributedratelimiting.redis_tpu_torch.models.approximate import (
     ApproximateTokenBucketRateLimiter,
 )
+from distributedratelimiting.redis_tpu_torch.models.fixed_window import (
+    FixedWindowRateLimiter,
+)
 from distributedratelimiting.redis_tpu_torch.models.options import (
     ApproximateTokenBucketOptions,
+    FixedWindowOptions,
     QueueingTokenBucketOptions,
+    SlidingWindowOptions,
     TokenBucketOptions,
 )
 from distributedratelimiting.redis_tpu_torch.models.partitioned import (
     PartitionedRateLimiter,
 )
+from distributedratelimiting.redis_tpu_torch.models.partitioned_window import (
+    PartitionedWindowRateLimiter,
+)
 from distributedratelimiting.redis_tpu_torch.models.queueing_token_bucket import (
     QueueingTokenBucketRateLimiter,
+)
+from distributedratelimiting.redis_tpu_torch.models.sliding_window import (
+    SlidingWindowRateLimiter,
 )
 from distributedratelimiting.redis_tpu_torch.models.token_bucket import (
     TokenBucketRateLimiter,

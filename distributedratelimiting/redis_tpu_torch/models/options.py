@@ -1,8 +1,8 @@
 """Options dataclasses — the configuration layer.
 
 Frozen dataclasses with fail-fast validation and derived values computed
-once: the token-bucket family (exact, queueing, approximate). The window
-and concurrency options are not ported yet.
+once: the token-bucket family (exact, queueing, approximate) and the window
+family (fixed, sliding). The concurrency options are not ported yet.
 
 - ``replenishment_period_s`` must be **> 0** — a zero period would make the
   fill rate infinite.
@@ -22,6 +22,8 @@ __all__ = [
     "TokenBucketOptions",
     "ApproximateTokenBucketOptions",
     "QueueingTokenBucketOptions",
+    "FixedWindowOptions",
+    "SlidingWindowOptions",
 ]
 
 
@@ -78,3 +80,34 @@ class ApproximateTokenBucketOptions(QueueingTokenBucketOptions):
     """Approximate two-level limiter options
     (≙ ``RedisApproximateTokenBucketRateLimiterOptions`` — the same
     queueing surface, inherited from :class:`QueueingTokenBucketOptions`)."""
+
+
+@dataclass(frozen=True)
+class FixedWindowOptions:
+    """Fixed-window counter limiter options (≙
+    ``FixedWindowRateLimiterOptions`` of ``System.Threading.RateLimiting``)."""
+
+    permit_limit: int = 100
+    window_s: float = 1.0
+    instance_name: str = "rate-limiter"
+
+    def __post_init__(self) -> None:
+        if self.permit_limit <= 0:
+            raise ValueError("permit_limit must be > 0")
+        if self.window_s <= 0:
+            raise ValueError("window_s must be > 0")
+
+
+@dataclass(frozen=True)
+class SlidingWindowOptions:
+    """Sliding-window counter limiter options (BASELINE config 4)."""
+
+    permit_limit: int = 100
+    window_s: float = 1.0
+    instance_name: str = "rate-limiter"
+
+    def __post_init__(self) -> None:
+        if self.permit_limit <= 0:
+            raise ValueError("permit_limit must be > 0")
+        if self.window_s <= 0:
+            raise ValueError("window_s must be > 0")

@@ -9,10 +9,16 @@ same names and the same float32/int32 representation:
 - **Tokens** are ``float32``. Grant comparison is ``tokens >= count`` with
   no epsilon: float rounding can only under-admit, never over-admit.
 
-The decaying-counter functions (the approximate bucket's global tier) follow
-the same rules. Every function works on tensors of any device; scalars
-(``now``, ``capacity``, ``fill_rate_per_tick``) may be Python numbers or 0-d
-tensors. The sliding-window functions are not ported yet.
+The decaying-counter functions (the approximate bucket's global tier) and
+the two-counter window functions (sliding and fixed windows) follow the same
+rules. Every function works on tensors of any device; scalars (``now``,
+``capacity``, ``fill_rate_per_tick``, ``limit``, ``window_ticks``) may be
+Python numbers or 0-d tensors.
+
+Where XLA's int32 arithmetic wraps (``window_idx * window_ticks`` and the
+differences of window indices), these functions compute in int64 and wrap
+back explicitly; ``now // window_ticks`` is a floor division, as
+``jnp.floor_divide`` is.
 """
 
 from __future__ import annotations
@@ -35,6 +41,10 @@ __all__ = [
     "instance_count_estimate",
     "available_tokens",
     "retry_after_ticks",
+    "window_index",
+    "sliding_window_advance",
+    "sliding_window_estimate",
+    "sliding_window_acquire",
 ]
 
 # One tick = 1/1024 s. Power of two → exact in float32, and a full int32 range
@@ -212,3 +222,72 @@ def _saturate_i32(x):
     inner = torch.clamp(x, -(2.0**31), _F32_BELOW_2_31).to(torch.int32)
     return torch.where(x >= 2.0**31, big, torch.where(x < -(2.0**31), small,
                                                       inner))
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced to int32 with two's-complement wraparound, as
+    XLA's int32 arithmetic wraps (PyTorch's int32 overflow is not defined)."""
+    return (torch.remainder(x + 2**31, 2**32) - 2**31).to(torch.int32)
+
+
+def window_index(now, window_ticks, device=None) -> torch.Tensor:
+    """The index of the window holding ``now``: ``floor(now / window_ticks)``
+    as a 0-d int32 tensor (a floor, not C's truncation, for a negative
+    ``now``)."""
+    now = torch.as_tensor(now, dtype=torch.int32, device=device)
+    w = torch.as_tensor(window_ticks, dtype=torch.int32, device=now.device)
+    return torch.div(now, w, rounding_mode="floor").to(torch.int32)
+
+
+def sliding_window_advance(prev_count, curr_count, window_idx, exists, now,
+                           window_ticks):
+    """Advance a two-counter window to the window holding ``now``: on an
+    advance by one window the current count rolls into the previous one, on
+    an advance by two or more both are zero, and a missing slot starts at
+    zero. The clock-regression clamp never moves a window backwards.
+    Returns ``(prev_count', curr_count', window_idx')``."""
+    dev = window_idx.device
+    idx_now = window_index(now, window_ticks, dev).expand(window_idx.shape)
+    idx_now = torch.maximum(idx_now, torch.where(exists, window_idx, idx_now))
+    base = torch.where(exists, window_idx, idx_now)
+    steps = _wrap_i32(idx_now.to(torch.int64) - base.to(torch.int64))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    same = steps == 0
+    prev_new = torch.where(same, prev_count,
+                           torch.where(steps == 1, curr_count, zero))
+    curr_new = torch.where(same, curr_count, zero)
+    return (torch.where(exists, prev_new, zero),
+            torch.where(exists, curr_new, zero), idx_now.contiguous())
+
+
+def sliding_window_estimate(prev_count, curr_count, window_idx, now,
+                            window_ticks):
+    """The interpolated consumption of the trailing window: ``curr + prev *
+    (1 - frac)``, ``frac`` the elapsed part of the current window, clipped to
+    ``[0, 1]``. The in-window remainder ``now - window_idx * window_ticks`` is
+    taken in (wrapping) int32 before the float conversion; the product and
+    the sum each round on their own (XLA on the CPU contracts them into one
+    fused multiply-add)."""
+    dev = window_idx.device
+    w = torch.as_tensor(window_ticks, dtype=torch.int64, device=dev)
+    now64 = torch.as_tensor(now, dtype=torch.int64, device=dev)
+    rem = _wrap_i32(now64 - window_idx.to(torch.int64) * w)
+    frac = torch.clamp(rem.to(torch.float32) / w.to(torch.float32), 0.0, 1.0)
+    return curr_count + prev_count * (1.0 - frac)
+
+
+def sliding_window_acquire(prev_count, curr_count, window_idx, exists, now,
+                           counts, limit, window_ticks):
+    """Advance, estimate and all-or-nothing grant: granted iff ``estimate +
+    count <= limit``; a grant adds its count to the current window.
+    Returns ``(prev', curr', idx', granted)``."""
+    counts = torch.as_tensor(counts, dtype=torch.float32,
+                             device=prev_count.device)
+    prev_new, curr_new, idx_new = sliding_window_advance(
+        prev_count, curr_count, window_idx, exists, now, window_ticks)
+    est = sliding_window_estimate(prev_new, curr_new, idx_new, now,
+                                  window_ticks)
+    granted = est + counts <= _f32(limit, prev_count.device)
+    curr_new = curr_new + torch.where(granted, counts,
+                                      torch.zeros_like(counts))
+    return prev_new, curr_new, idx_new, granted

@@ -28,11 +28,23 @@ The wrappers, their sources, and what each replaces in the JAX package:
 - ``sync_counters`` (``csrc/counter.cu``) replaces
   ``kernels.sync_batch_packed``;
 - ``sweep_counters`` (``csrc/counter.cu``) replaces
-  ``kernels.sweep_counters``.
+  ``kernels.sweep_counters``;
+- ``window_packed`` (``csrc/window.cu``) replaces
+  ``kernels.window_acquire_batch_packed``;
+- ``window_grouped`` (``csrc/window.cu``) replaces
+  ``kernels.window_acquire_batch_packed_grouped``;
+- ``window_scan_packed`` (``csrc/window.cu``) replaces
+  ``kernels.window_acquire_scan_fused_packed``,
+  ``window_acquire_scan_fused_bits``, ``window_acquire_scan`` and
+  ``window_acquire_scan_compact``;
+- ``sweep_windows`` (``csrc/window.cu``) replaces ``kernels.sweep_windows``.
 
-Every wrapper call on the card is one kernel launch; the bulk lane's K
-batches and their duplicate prefixes run inside that one launch, and a
-counter sync's three phases inside one cooperative launch.
+The bucket and window decision kernels share their machinery
+(``csrc/decide.cuh``); each source's library is named by the hash of the
+source and of every header beside it. Every wrapper call on the card is one
+kernel launch; the bulk lane's K batches and their duplicate prefixes run
+inside that one launch, and a counter sync's three phases inside one
+cooperative launch.
 """
 
 from __future__ import annotations
@@ -65,6 +77,11 @@ __all__ = [
     "acquire_scan_packed",
     "sync_counters",
     "sweep_counters",
+    "WINDOW_FLUSH_MAX_BATCH",
+    "window_packed",
+    "window_grouped",
+    "window_scan_packed",
+    "sweep_windows",
 ]
 
 #: Slots per expired-count tile, as the TPU kernel's (256 rows × 128 lanes).
@@ -73,6 +90,8 @@ TILE = 32768
 SCAN_MAX_BATCH = 4096
 #: Rows of one flush the flush kernels hold (8 B of shared memory a row).
 FLUSH_MAX_BATCH = 29_056
+#: Rows of one window flush (16 B of shared memory a row).
+WINDOW_FLUSH_MAX_BATCH = 14_528
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -85,7 +104,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _SOURCES = {"sweep": "sweep.cu", "acquire": "acquire.cu",
-            "counter": "counter.cu"}
+            "counter": "counter.cu", "window": "window.cu"}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -108,12 +127,23 @@ _SIGNATURES = {
         "drl_sync_counters": (_P, _P, _P, _P, _I64, _P, _I32, _F32, _P, _P),
         "drl_sweep_counters": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
     },
+    "window": {
+        "drl_window_packed": (_P, _P, _P, _P, _I32, _P, _I32, _F32, _I32,
+                              _I32, _P, _P),
+        "drl_window_grouped": (_P, _P, _P, _P, _I32, _P, _I32, _F32, _I32,
+                               _I32, _P, _P),
+        "drl_window_scan": (_P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
+                            _I32, _F32, _I32, _I32, _P, _P, _P),
+        "drl_sweep_windows": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
+    },
 }
 
 #: Kernel launches per wrapper — plain ints, incremented only where a wrapper
 #: launches its kernel on the card (never for the CPU's plain version).
 launches = {"sweep_expired": 0, "acquire_packed": 0, "acquire_grouped": 0,
-            "acquire_scan": 0, "sync_counters": 0, "sweep_counters": 0}
+            "acquire_scan": 0, "sync_counters": 0, "sweep_counters": 0,
+            "window_packed": 0, "window_grouped": 0, "window_scan": 0,
+            "sweep_windows": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -135,9 +165,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    """Content-addressed library path: a changed source or flag set builds
-    a new file instead of loading a stale one."""
+    """Content-addressed library path: a changed source, header or flag set
+    builds a new file instead of loading a stale one."""
     h = hashlib.sha256((CSRC / _SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
@@ -428,4 +460,154 @@ def sweep_counters(state: K.CounterState, now: int):
         counts.data_ptr(), n, int(now), TILE, _stream(state.value))
     _raise_on(rc, "sweep_counters")
     launches["sweep_counters"] += 1
+    return mask, counts
+
+
+def _check_windows(state: K.WindowState) -> int:
+    n = state.prev_count.shape[0]
+    _check(state.prev_count, "state.prev_count", torch.float32, (n,))
+    _check(state.curr_count, "state.curr_count", torch.float32, (n,))
+    _check(state.window_idx, "state.window_idx", torch.int32, (n,))
+    _check(state.exists, "state.exists", torch.bool, (n,))
+    if n >= 2**31:
+        raise ValueError("tables beyond 2^31 - 1 slots are not supported")
+    return n
+
+
+def _window_ticks(window_ticks) -> int:
+    w = int(window_ticks)
+    if not 1 <= w < 2**31:
+        raise ValueError(f"window_ticks must lie in [1, 2^31), got {w}")
+    return w
+
+
+def _window_ptrs(state: K.WindowState) -> tuple:
+    return (state.prev_count.data_ptr(), state.curr_count.data_ptr(),
+            state.window_idx.data_ptr(), state.exists.data_ptr())
+
+
+def _window_flush(name: str, state: K.WindowState, packed: torch.Tensor,
+                  rows: int, limit: float, window_ticks: int,
+                  interpolate: bool) -> torch.Tensor:
+    """One launch of a window flush kernel: ``packed i32[rows, B]`` against
+    the CUDA table (updated in place); returns ``out f32[2, B]``."""
+    n = _check_windows(state)
+    b = packed.shape[-1]
+    _check(packed, "packed", torch.int32, (rows, b))
+    if b > WINDOW_FLUSH_MAX_BATCH:
+        raise ValueError(f"{name}: a window flush holds at most "
+                         f"{WINDOW_FLUSH_MAX_BATCH} rows, got {b}")
+    out = torch.empty((2, b), dtype=torch.float32,
+                      device=state.prev_count.device)
+    rc = getattr(_lib("window"), f"drl_{name}")(
+        *_window_ptrs(state), n, packed.data_ptr(), b, float(limit),
+        _window_ticks(window_ticks), int(bool(interpolate)), out.data_ptr(),
+        _stream(state.prev_count))
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
+
+
+def window_packed(state: K.WindowState, packed: torch.Tensor, limit: float,
+                  window_ticks: int, *, interpolate: bool = True
+                  ) -> torch.Tensor:
+    """One window flush decided against the window table (updated in
+    place): ``packed i32[4, B]`` as
+    :func:`kernels.window_acquire_batch_packed` takes it.
+    ``interpolate=False`` is the fixed window. Returns ``out f32[2, B]``."""
+    if _on_cpu(state):
+        return K.window_acquire_batch_packed(
+            state, packed, limit, window_ticks, interpolate=interpolate)[1]
+    return _window_flush("window_packed", state, packed, 4, limit,
+                         window_ticks, interpolate)
+
+
+def window_grouped(state: K.WindowState, packed: torch.Tensor, limit: float,
+                   window_ticks: int, *, interpolate: bool = True
+                   ) -> torch.Tensor:
+    """One coalesced window flush (``packed i32[5, B]``, one row per ``(key,
+    count)`` group) against the window table, updated in place. Returns
+    ``out f32[2, B]``: granted members per group, and remaining."""
+    if _on_cpu(state):
+        return K.window_acquire_batch_packed_grouped(
+            state, packed, limit, window_ticks, interpolate=interpolate)[1]
+    return _window_flush("window_grouped", state, packed, 5, limit,
+                         window_ticks, interpolate)
+
+
+def window_scan_packed(state: K.WindowState, operand: torch.Tensor,
+                       nows_k: torch.Tensor, limit: float, window_ticks: int,
+                       *, interpolate: bool = True,
+                       with_remaining: bool = True) -> torch.Tensor:
+    """The window bulk lane: K batches decided in order against the window
+    table (updated in place), with the operands and results of
+    :func:`acquire_scan_packed` — the fused ``u8[K, B, 5]`` or ``i32[2, K,
+    B]`` operand, ``nows_k i32[K]``; ``out f32[K, 2, B]`` or, with
+    ``with_remaining=False``, bit-packed grants ``u8[K, B/8]``. On the card:
+    one launch for the whole chunk."""
+    fused = operand.dtype == torch.uint8
+    k, b = operand.shape[:2] if fused else operand.shape[1:]
+    if not with_remaining and b % 8:
+        raise ValueError(f"bit-packed grants need B % 8 == 0, got B = {b}")
+    if _on_cpu(state):
+        if fused:
+            fn = (K.window_acquire_scan_fused_packed if with_remaining
+                  else K.window_acquire_scan_fused_bits)
+            return fn(state, operand, nows_k, limit, window_ticks,
+                      interpolate=interpolate)[1]
+        _, granted, remaining = K.window_acquire_scan(
+            state, operand[0], operand[1], operand[0] >= 0, nows_k, limit,
+            window_ticks, interpolate=interpolate)
+        if not with_remaining:
+            return K.pack_grant_bits(granted)
+        return torch.stack([granted.to(torch.float32), remaining], dim=1)
+    n = _check_windows(state)
+    if fused:
+        _check(operand, "operand", torch.uint8, (k, b, 5))
+    else:
+        _check(operand, "operand", torch.int32, (2, k, b))
+    _check(nows_k, "nows_k", torch.int32, (k,))
+    if b > SCAN_MAX_BATCH:
+        raise ValueError(f"window_scan: a batch holds at most "
+                         f"{SCAN_MAX_BATCH} rows, got {b}")
+    dev = state.prev_count.device
+    if with_remaining:
+        out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
+    else:
+        # The kernel ORs grants into whole 4-byte words of the allocation.
+        n_bytes = k * (b // 8)
+        out = torch.empty((-(-n_bytes // 4) * 4,), dtype=torch.uint8,
+                          device=dev)[:n_bytes].view(k, b // 8)
+    rc = _lib("window").drl_window_scan(
+        *_window_ptrs(state), n, operand.data_ptr(), int(fused),
+        nows_k.data_ptr(), k, b, scan_sort_bits(n), float(limit),
+        _window_ticks(window_ticks), int(bool(interpolate)),
+        out.data_ptr() if with_remaining else None,
+        None if with_remaining else out.data_ptr(), _stream(state.prev_count))
+    _raise_on(rc, "window_scan")
+    launches["window_scan"] += 1
+    return out
+
+
+def sweep_windows(state: K.WindowState, now: int, window_ticks: int):
+    """TTL sweep of a window table (a slot two whole windows behind
+    ``now``): clears ``state.exists`` in place for expired slots and returns
+    ``(mask i8[N], tile_counts i32[T])`` with the contract of
+    :func:`sweep_expired`."""
+    n = state.prev_count.shape[0]
+    if _on_cpu(state):
+        _, expired = K.sweep_windows(state, now, window_ticks)
+        mask = expired.to(torch.int8)
+        return mask, _tile_counts(mask)
+    _check_windows(state)
+    # floor(now / W), as the plain version's bucket_math.window_index.
+    idx_now = int(now) // _window_ticks(window_ticks)
+    dev = state.prev_count.device
+    mask = torch.empty((n,), dtype=torch.int8, device=dev)
+    counts = torch.zeros((-(-n // TILE),), dtype=torch.int32, device=dev)
+    rc = _lib("window").drl_sweep_windows(
+        state.window_idx.data_ptr(), state.exists.data_ptr(), mask.data_ptr(),
+        counts.data_ptr(), n, idx_now, TILE, _stream(state.prev_count))
+    _raise_on(rc, "sweep_windows")
+    launches["sweep_windows"] += 1
     return mask, counts

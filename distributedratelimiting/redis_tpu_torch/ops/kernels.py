@@ -1,20 +1,23 @@
-"""L1 — the token-bucket and decaying-counter batch operations, as plain
-PyTorch.
+"""L1 — the token-bucket, decaying-counter and window batch operations, as
+plain PyTorch.
 
-These are the PLAIN versions of the JAX package's ``ops/kernels.py`` bucket
-and counter families: torch operations with the same names, operand layouts
-and result layouts (``i32[4, B]`` / ``i32[5, B]`` in, ``f32[2, B]`` out,
-``f32[K, 2, B]`` and little-endian bit-packed ``u8[K, B/8]`` for the scanned
-bulk lane; ``i32[3, B]`` in and ``f32[2, B]`` out for a counter sync).
+These are the PLAIN versions of the JAX package's ``ops/kernels.py`` bucket,
+counter and window families: torch operations with the same names, operand
+layouts and result layouts (``i32[4, B]`` / ``i32[5, B]`` in, ``f32[2, B]``
+out, ``f32[K, 2, B]`` and little-endian bit-packed ``u8[K, B/8]`` for the
+scanned bulk lane; ``i32[3, B]`` in and ``f32[2, B]`` out for a counter
+sync). The window family (sliding windows, and fixed windows with
+``interpolate=False``) takes the bucket family's operands.
 They run whenever the state lies on the CPU, and they are the oracle the
 hand-written CUDA kernels (:mod:`.cuda_kernels`) are held against on the card.
 
 State is structure-of-arrays — ``tokens: f32[N]``, ``last_ts: i32[N]``,
 ``exists: bool[N]``, 9 bytes/key (a counter table: ``value``, ``period``,
-``last_ts``, ``exists``, 13 bytes). Where the JAX kernels donate the state
-buffers and return new ones, these functions update the state tensors IN
-PLACE and return the same state tuple, so the table is never
-double-buffered.
+``last_ts``, ``exists``, 13 bytes; a window table: ``prev_count``,
+``curr_count``, ``window_idx``, ``exists``, 13 bytes). Where the JAX kernels
+donate the state buffers and return new ones, these functions update the
+state tensors IN PLACE and return the same state tuple, so the table is
+never double-buffered.
 
 Padding rows (slot < 0 or slot ≥ N) are masked out before any
 ``index_put_``/``index_add_``: JAX drops them by sending them to index ``N``
@@ -50,6 +53,18 @@ __all__ = [
     "sync_batch_packed",
     "sweep_counters",
     "rebase_counter_epoch",
+    "WindowState",
+    "init_window_state",
+    "window_acquire_core",
+    "window_acquire_batch",
+    "window_acquire_batch_packed",
+    "window_acquire_batch_packed_grouped",
+    "window_acquire_scan",
+    "window_acquire_scan_fused_bits",
+    "window_acquire_scan_fused_packed",
+    "window_acquire_scan_compact",
+    "sweep_windows",
+    "rebase_window_epoch",
 ]
 
 
@@ -83,6 +98,24 @@ def init_counter_state(n: int, device="cpu") -> CounterState:
         value=torch.zeros((n,), dtype=torch.float32, device=device),
         period=torch.zeros((n,), dtype=torch.float32, device=device),
         last_ts=torch.zeros((n,), dtype=torch.int32, device=device),
+        exists=torch.zeros((n,), dtype=torch.bool, device=device),
+    )
+
+
+class WindowState(NamedTuple):
+    """SoA two-counter window table (BASELINE config 4)."""
+
+    prev_count: torch.Tensor  # f32[N]
+    curr_count: torch.Tensor  # f32[N]
+    window_idx: torch.Tensor  # i32[N]
+    exists: torch.Tensor      # bool[N]
+
+
+def init_window_state(n: int, device="cpu") -> WindowState:
+    return WindowState(
+        prev_count=torch.zeros((n,), dtype=torch.float32, device=device),
+        curr_count=torch.zeros((n,), dtype=torch.float32, device=device),
+        window_idx=torch.zeros((n,), dtype=torch.int32, device=device),
         exists=torch.zeros((n,), dtype=torch.bool, device=device),
     )
 
@@ -347,4 +380,199 @@ def rebase_counter_epoch(state: CounterState,
                          offset_ticks: int) -> CounterState:
     """:func:`rebase_bucket_epoch` for the counter table."""
     _rebase_ts(state.last_ts, state.exists, offset_ticks)
+    return state
+
+
+def _window_gather(state: WindowState, slots, valid):
+    """Each row's ``(prev_count, curr_count, window_idx, exists)``; invalid
+    rows read slot 0 and their results are masked out by the caller."""
+    gs = torch.where(valid, slots, torch.zeros_like(slots)).long()
+    return (state.prev_count[gs], state.curr_count[gs], state.window_idx[gs],
+            state.exists[gs])
+
+
+def _window_advance(state: WindowState, slots, valid, now, window_ticks,
+                    interpolate: bool):
+    """Gather and advance every row's slot to ``now``; returns ``(prev_new,
+    curr_new, idx_new, est)``, ``est`` the sliding estimate or, for a fixed
+    window, the current count."""
+    prev_new, curr_new, idx_new = bm.sliding_window_advance(
+        *_window_gather(state, slots, valid), now, window_ticks)
+    est = (bm.sliding_window_estimate(prev_new, curr_new, idx_new, now,
+                                      window_ticks)
+           if interpolate else curr_new)
+    return prev_new, curr_new, idx_new, est
+
+
+def _window_scatter(state: WindowState, slots, valid, prev_new, curr_new,
+                    idx_new, consumed) -> None:
+    """Write back the valid rows: every duplicate of a slot sets the same
+    advanced state, then consumption accumulates into the current count."""
+    idx = slots[valid].long()
+    state.prev_count.index_put_((idx,), prev_new[valid])
+    state.curr_count.index_put_((idx,), curr_new[valid])
+    state.curr_count.index_add_(0, idx, consumed[valid])
+    state.window_idx.index_put_((idx,), idx_new[valid])
+    state.exists.index_fill_(0, idx, True)
+
+
+def window_acquire_core(state: WindowState, slots, counts, valid, now, limit,
+                        window_ticks, *, handle_duplicates: bool = True,
+                        prefix=None, interpolate: bool = True):
+    """Gather → advance → estimate → all-or-nothing grant → scatter for
+    one batch of a window table. Granted iff ``est + prefix + count <= limit``
+    (``interpolate=False``: ``est`` is the current window's count alone, the
+    fixed window); ``remaining = max(((limit - est) - prefix) - consumed,
+    0)``. Returns ``(state, granted bool[B], remaining f32[B])``, the state
+    updated in place."""
+    valid = _valid_slots(slots, valid, state.prev_count.shape[0])
+    prev_new, curr_new, idx_new, est = _window_advance(
+        state, slots, valid, now, window_ticks, interpolate)
+    counts_f = counts.to(torch.float32)
+    if prefix is None and handle_duplicates:
+        prefix = bm.duplicate_prefix(slots, counts, valid)
+    elif prefix is None:
+        prefix = torch.zeros_like(counts_f)
+    else:
+        prefix = prefix.to(torch.float32)
+    lim = torch.as_tensor(limit, dtype=torch.float32, device=counts_f.device)
+    zero = torch.zeros_like(counts_f)
+    granted = valid & (est + prefix + counts_f <= lim)
+    consumed = torch.where(granted, counts_f, zero)
+    remaining = torch.where(
+        valid, torch.clamp_min(lim - est - prefix - consumed, 0.0), zero)
+    _window_scatter(state, slots, valid, prev_new, curr_new, idx_new,
+                    consumed)
+    return state, granted, remaining
+
+
+def window_acquire_batch(state: WindowState, slots, counts, valid, now, limit,
+                         window_ticks, *, handle_duplicates: bool = True,
+                         interpolate: bool = True):
+    """Batched window acquire: :func:`window_acquire_core` with the
+    in-batch duplicate prefix computed here."""
+    return window_acquire_core(state, slots, counts, valid, now, limit,
+                               window_ticks,
+                               handle_duplicates=handle_duplicates,
+                               interpolate=interpolate)
+
+
+def window_acquire_batch_packed(state: WindowState, packed, limit,
+                                window_ticks, *, interpolate: bool = True):
+    """One window flush: ``packed i32[4, B]`` (as
+    :func:`acquire_batch_packed`) in, ``out f32[2, B]`` back (grants,
+    remaining). Returns ``(state, out)``."""
+    slots, counts, valid, now, prefix = _unpack_requests(packed)
+    state, granted, remaining = window_acquire_core(
+        state, slots, counts, valid, now, limit, window_ticks, prefix=prefix,
+        interpolate=interpolate)
+    return state, torch.stack([granted.to(torch.float32), remaining])
+
+
+def window_acquire_batch_packed_grouped(state: WindowState, packed, limit,
+                                        window_ticks, *,
+                                        interpolate: bool = True):
+    """Coalesced-duplicates window flush (``packed i32[5, B]``, one row per
+    ``(key, count)`` group): ``n_granted = clamp(floor(avail / max(c, 1)),
+    0, n)`` with ``avail = (limit - est) - prefix`` (a ``c == 0`` probe group
+    grants all ``n`` iff ``avail >= 0``). Returns ``(state, out f32[2, B])``:
+    granted members per group, and the post-consumption remaining."""
+    slots, counts, now = packed[0], packed[1], packed[2, 0]
+    prefix = packed[3].to(torch.float32)
+    n = packed[4].to(torch.float32)
+    valid = _valid_slots(slots, slots >= 0, state.prev_count.shape[0])
+    prev_new, curr_new, idx_new, est = _window_advance(
+        state, slots, valid, now, window_ticks, interpolate)
+    c = counts.to(torch.float32)
+    zero = torch.zeros_like(c)
+    avail = torch.as_tensor(limit, dtype=torch.float32,
+                            device=c.device) - est - prefix
+    n_granted = torch.where(
+        c > 0,
+        torch.minimum(torch.clamp_min(
+            torch.floor(avail / torch.clamp_min(c, 1.0)), 0.0), n),
+        torch.where(avail >= 0, n, zero),
+    )
+    n_granted = torch.where(valid, n_granted, zero)
+    consumed = n_granted * c
+    remaining = torch.where(valid, torch.clamp_min(avail - consumed, 0.0),
+                            zero)
+    _window_scatter(state, slots, valid, prev_new, curr_new, idx_new,
+                    consumed)
+    return state, torch.stack([n_granted, remaining])
+
+
+def window_acquire_scan(state: WindowState, slots_k, counts_k, valid_k,
+                        nows_k, limit, window_ticks, *,
+                        handle_duplicates: bool = True,
+                        interpolate: bool = True):
+    """K window batches decided one after another, each at its own tick
+    with its in-batch duplicate prefix (the JAX ``lax.scan`` as a loop).
+    Returns ``(state, granted bool[K, B], remaining f32[K, B])``."""
+    granted, remaining = [], []
+    for k in range(slots_k.shape[0]):
+        state, g, r = window_acquire_core(
+            state, slots_k[k], counts_k[k], valid_k[k], nows_k[k], limit,
+            window_ticks, handle_duplicates=handle_duplicates,
+            interpolate=interpolate)
+        granted.append(g)
+        remaining.append(r)
+    return state, torch.stack(granted), torch.stack(remaining)
+
+
+def window_acquire_scan_fused_packed(state: WindowState, fused, nows_k, limit,
+                                     window_ticks, *,
+                                     handle_duplicates: bool = True,
+                                     interpolate: bool = True):
+    """The window bulk lane: one fused ``u8[K, B, 5]`` operand
+    (:func:`pack_compact5`) in, ``f32[K, 2, B]`` back (grants,
+    remaining)."""
+    slots_k, counts_k = _unpack_compact5(fused)
+    state, granted, remaining = window_acquire_scan(
+        state, slots_k, counts_k, slots_k >= 0, nows_k, limit, window_ticks,
+        handle_duplicates=handle_duplicates, interpolate=interpolate)
+    return state, torch.stack([granted.to(torch.float32), remaining], dim=1)
+
+
+def window_acquire_scan_fused_bits(state: WindowState, fused, nows_k, limit,
+                                   window_ticks, *,
+                                   handle_duplicates: bool = True,
+                                   interpolate: bool = True):
+    """Verdict-only window bulk lane: grants bit-packed ``u8[K, B/8]``."""
+    slots_k, counts_k = _unpack_compact5(fused)
+    state, granted, _ = window_acquire_scan(
+        state, slots_k, counts_k, slots_k >= 0, nows_k, limit, window_ticks,
+        handle_duplicates=handle_duplicates, interpolate=interpolate)
+    return state, pack_grant_bits(granted)
+
+
+def window_acquire_scan_compact(state: WindowState, slots_k, counts_k, nows_k,
+                                limit, window_ticks, *,
+                                handle_duplicates: bool = True):
+    """The sliding-window scan with validity implied by the slot's sign and
+    u8 counts widened to int32. Returns ``(state, granted, remaining)``."""
+    return window_acquire_scan(
+        state, slots_k, counts_k.to(torch.int32), slots_k >= 0, nows_k,
+        limit, window_ticks, handle_duplicates=handle_duplicates)
+
+
+def sweep_windows(state: WindowState, now, window_ticks):
+    """TTL eviction for a window table: a slot idle for two whole windows
+    carries nothing (both counts would roll to zero), so ``exists`` is
+    cleared in place. The index difference wraps as int32. Returns
+    ``(state, expired bool[N])``."""
+    idx_now = bm.window_index(now, window_ticks, state.window_idx.device)
+    behind = bm._wrap_i32(idx_now.to(torch.int64)
+                          - state.window_idx.to(torch.int64))
+    expired = state.exists & (behind >= 2)
+    state.exists.logical_and_(~expired)
+    return state, expired
+
+
+def rebase_window_epoch(state: WindowState,
+                        offset_windows: int) -> WindowState:
+    """Epoch rebase of a window table, in place: live indices shift back by
+    whole windows (``offset_ticks // window_ticks``, host-computed),
+    clamped at 0."""
+    _rebase_ts(state.window_idx, state.exists, offset_windows)
     return state

@@ -31,8 +31,11 @@ All socket I/O runs on a dedicated background event loop thread, so one
 client serves both ``async`` callers (from any event loop) and blocking
 callers (from any thread).
 
+Windows travel as ``OP_WINDOW`` / ``OP_FWINDOW`` frames (one per request)
+and, in bulk, as ``ACQUIRE_MANY`` frames of the window kinds.
+
 Not ported yet: the live-config chase ("config moved" errors surface as
-:class:`wire.RemoteStoreError`), and the window, semaphore, hierarchical,
+:class:`wire.RemoteStoreError`), and the semaphore, hierarchical,
 reservation, federation, placement, config, metrics, traces and audit
 methods, which raise ``NotImplementedError`` as the port's ``BucketStore``
 does.
@@ -583,11 +586,13 @@ class RemoteBucketStore(BucketStore):
                        fill_rate: float, with_remaining: bool,
                        profile: bool = True,
                        parent: "tracing.TraceContext | None" = None,
-                       timeout_s: "float | None" = None) -> list[tuple]:
+                       timeout_s: "float | None" = None,
+                       kind: int = wire.BULK_KIND_BUCKET) -> list[tuple]:
         """Send every chunk of one bulk call pipelined on the connection,
         then await all replies: one wire round trip (per ~MAX_FRAME of
         keys) carries thousands of decisions. Chunks after the first are
-        flagged chained, so the server decides them in order.
+        flagged chained, so the server decides them in order. ``kind``
+        selects the server's table tier (bucket, window, fixed window).
 
         Tracing: one ``client.acquire_many`` span covers the whole call;
         every chunk carries its context as the bulk trace tail (an old
@@ -617,7 +622,7 @@ class RemoteBucketStore(BucketStore):
                             self._writer, wire.encode_bulk_request_span(
                                 seq, blob, offsets, klens, counts_np,
                                 start, end, capacity, fill_rate,
-                                with_remaining=with_remaining,
+                                with_remaining=with_remaining, kind=kind,
                                 chained=(i > 0), trace=trace))
                     await self._writer.drain()
                 except Exception as exc:
@@ -676,23 +681,45 @@ class RemoteBucketStore(BucketStore):
             np.zeros((0,), bool),
             np.zeros((0,), np.float32) if with_remaining else None)
 
-    async def acquire_many(self, keys: Sequence[str], counts: Sequence[int],
-                           capacity: float, fill_rate_per_sec: float, *,
-                           with_remaining: bool = True,
-                           timeout_s: "float | None" = None
-                           ) -> BulkAcquireResult:
-        """One bulk round trip: prepare → chunked pipelined frames on the
-        I/O loop → reassemble. Duplicate keys decide in request order,
-        across chunk boundaries too."""
+    async def _bulk_call(self, keys, counts, a: float, b: float,
+                         with_remaining: bool, kind: int,
+                         timeout_s: "float | None" = None
+                         ) -> BulkAcquireResult:
+        """One bulk round trip (any table kind): prepare → chunked
+        pipelined frames on the I/O loop → reassemble. Duplicate keys
+        decide in request order, across chunk boundaries too."""
         if len(keys) == 0:
             return self._bulk_empty(with_remaining)
         blob, offsets, klens, counts_np, spans = self._bulk_prepare(
             keys, counts)
         chunks = await self._await_on_io(self._bulk_io(
-            blob, offsets, klens, counts_np, spans, capacity,
-            fill_rate_per_sec, with_remaining,
-            parent=tracing.current_context(), timeout_s=timeout_s))
+            blob, offsets, klens, counts_np, spans, a, b, with_remaining,
+            parent=tracing.current_context(), timeout_s=timeout_s,
+            kind=kind))
         return self._bulk_assemble(chunks, with_remaining)
+
+    def _bulk_call_blocking(self, keys, counts, a: float, b: float,
+                            with_remaining: bool, kind: int,
+                            timeout_s: "float | None" = None
+                            ) -> BulkAcquireResult:
+        if len(keys) == 0:
+            return self._bulk_empty(with_remaining)
+        blob, offsets, klens, counts_np, spans = self._bulk_prepare(
+            keys, counts)
+        chunks = self._submit(self._bulk_io(
+            blob, offsets, klens, counts_np, spans, a, b, with_remaining,
+            parent=tracing.current_context(), timeout_s=timeout_s,
+            kind=kind)).result(self._blocking_timeout(timeout_s))
+        return self._bulk_assemble(chunks, with_remaining)
+
+    async def acquire_many(self, keys: Sequence[str], counts: Sequence[int],
+                           capacity: float, fill_rate_per_sec: float, *,
+                           with_remaining: bool = True,
+                           timeout_s: "float | None" = None
+                           ) -> BulkAcquireResult:
+        return await self._bulk_call(keys, counts, capacity,
+                                     fill_rate_per_sec, with_remaining,
+                                     wire.BULK_KIND_BUCKET, timeout_s)
 
     def acquire_many_blocking(self, keys: Sequence[str],
                               counts: Sequence[int], capacity: float,
@@ -700,16 +727,30 @@ class RemoteBucketStore(BucketStore):
                               with_remaining: bool = True,
                               timeout_s: "float | None" = None
                               ) -> BulkAcquireResult:
-        if len(keys) == 0:
-            return self._bulk_empty(with_remaining)
-        blob, offsets, klens, counts_np, spans = self._bulk_prepare(
-            keys, counts)
-        chunks = self._submit(self._bulk_io(
-            blob, offsets, klens, counts_np, spans, capacity,
-            fill_rate_per_sec, with_remaining,
-            parent=tracing.current_context(),
-            timeout_s=timeout_s)).result(self._blocking_timeout(timeout_s))
-        return self._bulk_assemble(chunks, with_remaining)
+        return self._bulk_call_blocking(keys, counts, capacity,
+                                        fill_rate_per_sec, with_remaining,
+                                        wire.BULK_KIND_BUCKET, timeout_s)
+
+    async def window_acquire_many(self, keys: Sequence[str],
+                                  counts: Sequence[int], limit: float,
+                                  window_sec: float, *, fixed: bool = False,
+                                  with_remaining: bool = True
+                                  ) -> BulkAcquireResult:
+        """Bulk windows over the wire: the ACQUIRE_MANY framing with the
+        table-kind flag selecting the server's window tier."""
+        kind = wire.BULK_KIND_FWINDOW if fixed else wire.BULK_KIND_WINDOW
+        return await self._bulk_call(keys, counts, limit, window_sec,
+                                     with_remaining, kind)
+
+    def window_acquire_many_blocking(self, keys: Sequence[str],
+                                     counts: Sequence[int], limit: float,
+                                     window_sec: float, *,
+                                     fixed: bool = False,
+                                     with_remaining: bool = True
+                                     ) -> BulkAcquireResult:
+        kind = wire.BULK_KIND_FWINDOW if fixed else wire.BULK_KIND_WINDOW
+        return self._bulk_call_blocking(keys, counts, limit, window_sec,
+                                        with_remaining, kind)
 
     # -- client-side frame coalescing ---------------------------------------
     #: Cap on distinct (capacity, fill_rate) coalescing batchers: configs
@@ -831,6 +872,31 @@ class RemoteBucketStore(BucketStore):
             timeout_s=timeout_s)
         return SyncResult(score, ewma)
 
+    async def window_acquire(self, key: str, count: int, limit: float,
+                             window_sec: float) -> AcquireResult:
+        granted, remaining = await self._request(
+            wire.OP_WINDOW, key, count, limit, window_sec)
+        return AcquireResult(granted, remaining)
+
+    def window_acquire_blocking(self, key: str, count: int, limit: float,
+                                window_sec: float) -> AcquireResult:
+        granted, remaining = self._request_blocking(
+            wire.OP_WINDOW, key, count, limit, window_sec)
+        return AcquireResult(granted, remaining)
+
+    async def fixed_window_acquire(self, key: str, count: int, limit: float,
+                                   window_sec: float) -> AcquireResult:
+        granted, remaining = await self._request(
+            wire.OP_FWINDOW, key, count, limit, window_sec)
+        return AcquireResult(granted, remaining)
+
+    def fixed_window_acquire_blocking(self, key: str, count: int,
+                                      limit: float,
+                                      window_sec: float) -> AcquireResult:
+        granted, remaining = self._request_blocking(
+            wire.OP_FWINDOW, key, count, limit, window_sec)
+        return AcquireResult(granted, remaining)
+
     async def ping(self, *, timeout_s: "float | None" = None) -> None:
         await self._request(wire.OP_PING, timeout_s=timeout_s)
 
@@ -912,8 +978,8 @@ class RemoteBucketStore(BucketStore):
 
 
 # The JAX client's other lanes: metrics/traces/audit exports, placement and
-# live-config control, and federation. (Windows, semaphores, hierarchical
-# admission and reservations raise through BucketStore already.)
+# live-config control, and federation. (Semaphores, hierarchical admission
+# and reservations raise through BucketStore already.)
 for _name in ("metrics", "traces", "audit", "placement_fetch",
               "placement_announce", "migrate_pull", "migrate_push",
               "config_fetch", "config_announce", "fed_lease", "fed_renew",

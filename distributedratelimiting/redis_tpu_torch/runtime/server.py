@@ -11,13 +11,14 @@ request is served as its own task and answers in completion order (the seq
 id matches replies to requests); bulk continuation chunks chain per
 connection so duplicate keys across a chunk boundary decide in chunk order.
 
-Served: ``OP_ACQUIRE``, ``OP_ACQUIRE_MANY`` (bucket kind; keys resolve
-straight from the frame's bytes through ``wire.KeyBlob``), ``OP_PEEK``,
-``OP_SYNC``, ``OP_PING``, ``OP_SAVE``, ``OP_STATS`` and the ``OP_HELLO``
-auth handshake, with the trace, deadline and attempt tails (deadline-expired
-work is shed unexecuted). An op the JAX server serves but this one does not
-yet (windows, semaphores, hierarchical, reservations, placement, live
-config, federation, metrics, traces, audit) answers a routable error that
+Served: ``OP_ACQUIRE``, ``OP_WINDOW``, ``OP_FWINDOW``, ``OP_ACQUIRE_MANY``
+(bucket, window and fixed-window kinds; keys resolve straight from the
+frame's bytes through ``wire.KeyBlob``), ``OP_PEEK``, ``OP_SYNC``,
+``OP_PING``, ``OP_SAVE``, ``OP_STATS`` and the ``OP_HELLO`` auth handshake,
+with the trace, deadline and attempt tails (deadline-expired work is shed
+unexecuted). An op the JAX server serves but this one does not yet
+(semaphores, hierarchical, reservations, placement, live config,
+federation, metrics, traces, audit) answers a routable error that
 names it as not served — never the "unknown op" / "unknown bulk kind" text,
 which a JAX client reads as an old peer and silently falls back from.
 
@@ -43,14 +44,12 @@ __all__ = ["BucketStoreServer", "main"]
 #: Ops the JAX server serves that this one does not yet. Each answers a
 #: routable error that never reads as "unknown op" (see the module doc).
 _UNPORTED_OPS = frozenset((
-    wire.OP_WINDOW, wire.OP_SEMA, wire.OP_FWINDOW, wire.OP_METRICS,
-    wire.OP_TRACES, wire.OP_PLACEMENT, wire.OP_PLACEMENT_ANNOUNCE,
-    wire.OP_MIGRATE_PULL, wire.OP_MIGRATE_PUSH, wire.OP_CONFIG,
-    wire.OP_ACQUIRE_H, wire.OP_RESERVE, wire.OP_SETTLE, wire.OP_FED_LEASE,
-    wire.OP_FED_RENEW, wire.OP_FED_RECLAIM, wire.OP_AUDIT))
-_UNPORTED_BULK_KINDS = {wire.BULK_KIND_WINDOW: "window",
-                        wire.BULK_KIND_FWINDOW: "fixed window",
-                        wire.BULK_KIND_HBUCKET: "hierarchical bucket"}
+    wire.OP_SEMA, wire.OP_METRICS, wire.OP_TRACES, wire.OP_PLACEMENT,
+    wire.OP_PLACEMENT_ANNOUNCE, wire.OP_MIGRATE_PULL, wire.OP_MIGRATE_PUSH,
+    wire.OP_CONFIG, wire.OP_ACQUIRE_H, wire.OP_RESERVE, wire.OP_SETTLE,
+    wire.OP_FED_LEASE, wire.OP_FED_RENEW, wire.OP_FED_RECLAIM,
+    wire.OP_AUDIT))
+_UNPORTED_BULK_KINDS = {wire.BULK_KIND_HBUCKET: "hierarchical bucket"}
 
 
 def _not_served(what: str) -> str:
@@ -353,13 +352,19 @@ class BucketStoreServer:
                 # Python string per key. One frame = one store bulk call.
                 seq, keys, counts, a, b, with_rem, kind = (
                     wire.decode_bulk_request(body, as_view=True))
-                if kind != wire.BULK_KIND_BUCKET:
+                if kind in _UNPORTED_BULK_KINDS:
                     return wire.encode_response(
                         seq, wire.RESP_ERROR, _not_served(
                             f"bulk kind {kind} "
                             f"({_UNPORTED_BULK_KINDS[kind]})"))
-                res = await self.store.acquire_many(
-                    keys, counts, a, b, with_remaining=with_rem)
+                if kind == wire.BULK_KIND_BUCKET:
+                    res = await self.store.acquire_many(
+                        keys, counts, a, b, with_remaining=with_rem)
+                else:
+                    res = await self.store.window_acquire_many(
+                        keys, counts, a, b,
+                        fixed=(kind == wire.BULK_KIND_FWINDOW),
+                        with_remaining=with_rem)
                 return wire.encode_bulk_response(seq, res.granted,
                                                  res.remaining)
             if len(body) >= 6 and body[5] == wire.OP_ACQUIRE_H:
@@ -386,6 +391,14 @@ class BucketStoreServer:
                     seq, wire.RESP_ERROR, _not_served(wire.op_name(op)))
             elif op == wire.OP_ACQUIRE:
                 res = await self.store.acquire(key, count, a, b)
+                resp = wire.encode_response(
+                    seq, wire.RESP_DECISION, res.granted, res.remaining)
+            elif op == wire.OP_WINDOW:
+                res = await self.store.window_acquire(key, count, a, b)
+                resp = wire.encode_response(
+                    seq, wire.RESP_DECISION, res.granted, res.remaining)
+            elif op == wire.OP_FWINDOW:
+                res = await self.store.fixed_window_acquire(key, count, a, b)
                 resp = wire.encode_response(
                     seq, wire.RESP_DECISION, res.granted, res.remaining)
             elif op == wire.OP_PEEK:

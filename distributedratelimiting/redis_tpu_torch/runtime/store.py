@@ -1,11 +1,12 @@
 """The bucket store — where rate-limit state lives and decisions execute.
 
-The exact-token-bucket and decaying-counter half of the JAX package's
-``runtime/store.py``, on PyTorch:
+The exact-token-bucket, decaying-counter and window half of the JAX
+package's ``runtime/store.py``, on PyTorch:
 
-- :class:`BucketStore` — the storage seam (abstract). The bucket and
-  counter methods are the contract; the window, semaphore, hierarchical and
-  reservation methods are not ported yet and raise ``NotImplementedError``.
+- :class:`BucketStore` — the storage seam (abstract). The bucket, counter
+  and window (sliding and fixed) methods are the contract; the semaphore,
+  hierarchical and reservation methods are not ported yet and raise
+  ``NotImplementedError``.
 - :class:`DeviceBucketStore` — per-key bucket state lives on the device
   as SoA tensors, one table per bucket configuration ``(capacity,
   fill_rate)``; ``acquire`` calls are micro-batched into one packed
@@ -13,9 +14,11 @@ The exact-token-bucket and decaying-counter half of the JAX package's
   The approximate bucket's global counters live in one counter table; a
   sync (one limiter's, or a whole fleet's through ``sync_counters_many``)
   is one ``i32[3, B]`` operand, one launch and one ``f32[2, B]`` readback.
-  The store's clock stamps every launch. Tables grow by doubling and
-  reclaim slots with TTL sweeps; every table resolves keys through the
-  native key directory when it builds.
+  Window limiters (sliding, and fixed with no interpolation) live in one
+  window table per ``(limit, window_ticks, fixed)`` with the same operands,
+  batching and bulk lane. The store's clock stamps every launch. Tables grow
+  by doubling and reclaim slots with TTL sweeps; every table resolves keys
+  through the native key directory when it builds.
 
 The store runs on ``cuda`` by default, where every decision, sync and sweep
 goes through the hand-written kernels of :mod:`..ops.cuda_kernels`. It runs on
@@ -179,6 +182,60 @@ class BucketStore(abc.ABC):
             np.fromiter((r.remaining for r in results), np.float32,
                         len(results)) if with_remaining else None)
 
+    # -- bulk windows (one call, many keys) --------------------------------
+    async def window_acquire_many(self, keys: Sequence[str],
+                                  counts: Sequence[int], limit: float,
+                                  window_sec: float, *, fixed: bool = False,
+                                  with_remaining: bool = True
+                                  ) -> BulkAcquireResult:
+        """Vectorized window acquire (sliding by default, ``fixed=True`` for
+        fixed windows), with the in-call duplicate conservatism and probe
+        semantics of :meth:`acquire_many`. Default: a gather over the
+        per-key path; :class:`DeviceBucketStore` overrides it with scanned
+        whole-array launches."""
+        op = (self.fixed_window_acquire if fixed else self.window_acquire)
+        results = await asyncio.gather(
+            *(op(k, int(c), limit, window_sec)
+              for k, c in zip(keys, counts)))
+        return BulkAcquireResult(
+            np.fromiter((r.granted for r in results), bool, len(results)),
+            np.fromiter((r.remaining for r in results), np.float32,
+                        len(results)) if with_remaining else None)
+
+    def window_acquire_many_blocking(self, keys: Sequence[str],
+                                     counts: Sequence[int], limit: float,
+                                     window_sec: float, *,
+                                     fixed: bool = False,
+                                     with_remaining: bool = True
+                                     ) -> BulkAcquireResult:
+        op = (self.fixed_window_acquire_blocking if fixed
+              else self.window_acquire_blocking)
+        results = [op(k, int(c), limit, window_sec)
+                   for k, c in zip(keys, counts)]
+        return BulkAcquireResult(
+            np.fromiter((r.granted for r in results), bool, len(results)),
+            np.fromiter((r.remaining for r in results), np.float32,
+                        len(results)) if with_remaining else None)
+
+    # -- sliding window ----------------------------------------------------
+    @abc.abstractmethod
+    async def window_acquire(self, key: str, count: int, limit: float,
+                             window_sec: float) -> AcquireResult: ...
+
+    @abc.abstractmethod
+    def window_acquire_blocking(self, key: str, count: int, limit: float,
+                                window_sec: float) -> AcquireResult: ...
+
+    # -- fixed window (current-window count only, no interpolation) --------
+    @abc.abstractmethod
+    async def fixed_window_acquire(self, key: str, count: int, limit: float,
+                                   window_sec: float) -> AcquireResult: ...
+
+    @abc.abstractmethod
+    def fixed_window_acquire_blocking(self, key: str, count: int,
+                                      limit: float,
+                                      window_sec: float) -> AcquireResult: ...
+
     # -- decaying global counter (the approximate bucket's shared tier) ----
     @abc.abstractmethod
     async def sync_counter(self, key: str, local_count: float,
@@ -223,19 +280,17 @@ def _not_ported(name: str):
     def method(self, *args, **kwargs):
         raise NotImplementedError(
             f"{type(self).__name__}.{name} is not ported to the PyTorch "
-            "package yet (the exact token bucket and the decaying counters "
-            "are)")
+            "package yet (the exact token bucket, the decaying counters and "
+            "the windows are)")
 
     method.__name__ = name
     return method
 
 
-# The rest of the storage seam: windows, semaphores, hierarchical
-# admission, reservations, tier-0 debits, migration export.
-for _name in ("debit_many", "window_acquire", "window_acquire_blocking",
-              "fixed_window_acquire", "fixed_window_acquire_blocking",
-              "window_acquire_many", "window_acquire_many_blocking",
-              "concurrency_acquire", "concurrency_acquire_blocking",
+# The rest of the storage seam: semaphores, hierarchical admission,
+# reservations, tier-0 debits, migration export.
+for _name in ("debit_many", "concurrency_acquire",
+              "concurrency_acquire_blocking",
               "concurrency_release", "concurrency_release_blocking",
               "concurrency_acquire_many", "acquire_hierarchical",
               "acquire_hierarchical_blocking", "acquire_hierarchical_many",
@@ -347,7 +402,54 @@ class _PackedLaunchMixin:
     ``_launch_grouped``, verdicts fanned back out in arrival order —
     bit-identical to the per-row conservative serialization; keys whose
     in-flush counts are mixed become per-row entries with exact cumulative
-    prefixes."""
+    prefixes. Also the slot plumbing every table shares: its directory,
+    batcher, resolution with reclaim, eviction and doubling."""
+
+    # -- slot management ---------------------------------------------------
+    def _init_slots(self, store: "DeviceBucketStore", state,
+                    n_slots: int) -> None:
+        self.store = store
+        self.state = state
+        self.n_slots = n_slots
+        self.dir = make_directory(n_slots)
+        self.batcher: MicroBatcher[_AcquireReq, AcquireResult] = MicroBatcher(
+            self._flush,
+            max_batch=store.max_batch,
+            max_delay_s=store.max_delay_s,
+            max_inflight=store.max_inflight,
+            flush_latency=store.metrics.flush_latency,
+            queue_latency=store.metrics.queue_latency,
+        )
+
+    def resolve_slots(self, keys: list[str]) -> np.ndarray:
+        """Batch key→slot resolution (the host hot path)."""
+        return _resolve_with_reclaim(self.dir, keys, self._sweep, self._grow,
+                                     min_free=self.n_slots // 16)
+
+    def _evict(self, mask: torch.Tensor, counts: torch.Tensor,
+               pinned: set[int] | None) -> None:
+        """Return a sweep's expired slots to the directory's free list, all
+        but ``pinned``; its per-tile expired counts let a sweep that freed
+        nothing finish after reading T ints instead of the N-byte mask."""
+        if int(_to_host(counts).sum()) > 0:
+            dead = np.nonzero(_to_host(mask))[0].astype(np.int32)
+            if pinned:
+                dead = dead[~np.isin(dead, np.fromiter(pinned, np.int32,
+                                                       len(pinned)))]
+            self.store.metrics.slots_evicted += self.dir.remove_slots(dead)
+        self.store.metrics.sweeps += 1
+
+    def _grow(self) -> None:
+        """Double the table (a new allocation: old state copied, new half
+        empty)."""
+        old_n = self.n_slots
+        grown = type(self.state)(*(t.new_zeros(2 * old_n)
+                                   for t in self.state))
+        for dst, src in zip(grown, self.state):
+            dst[:old_n] = src
+        self.state = grown
+        self.dir.add_slots(old_n, 2 * old_n)
+        self.n_slots = 2 * old_n
 
     async def _flush(self, reqs: Sequence[_AcquireReq]) -> list[AcquireResult]:
         groups = (self._coalesce(reqs)
@@ -430,6 +532,29 @@ class _PackedLaunchMixin:
         """One host→device copy of an operand."""
         return torch.from_numpy(arr).to(self.store.device)
 
+    def _launch(self, reqs: Sequence[_AcquireReq]) -> torch.Tensor:
+        """Build the padded operand and launch one decision (the table's
+        ``_launch_packed``). The whole read-modify-write of the table runs
+        under the store lock: the blocking path may be called from any
+        thread while the event loop flushes batches."""
+        with self.store.profiler.span(self._FLUSH_SPAN, len(reqs)), \
+                self.store._lock:
+            slots = self.resolve_slots([r.key for r in reqs])
+            # Fixed pad width: every flush has the same shape.
+            b = self.store.max_batch
+            now = self.store.now_ticks_checked()
+            packed = _build_packed(reqs, slots, b, now)
+            out = self._launch_packed(self._upload(packed))
+            self.store.metrics.record_launch(b, len(reqs))
+            return out
+
+    def to_snap(self) -> dict:
+        """The checkpoint form, the JAX store's numpy schema: the directory
+        and one array per state field."""
+        return {"directory": self.dir.to_dict(),
+                **{name: _to_host(t).copy()
+                   for name, t in zip(self.state._fields, self.state)}}
+
     def acquire_blocking(self, key: str, count: int) -> AcquireResult:
         out_np = _to_host(self._launch([_AcquireReq(key, count)]))
         return AcquireResult(bool(out_np[0, 0] > 0.5), float(out_np[1, 0]))
@@ -438,6 +563,8 @@ class _PackedLaunchMixin:
     #: Max scanned batches per bulk dispatch; K is chosen per call from
     #: {1, 2, 4, …, 32}.
     _BULK_MAX_K = 32
+    #: The profiler span of one bulk call.
+    _BULK_SPAN = "acquire_many"
 
     def _launch_many(self, slots: np.ndarray, counts_np: np.ndarray,
                      with_remaining: bool = True) -> list[tuple]:
@@ -585,7 +712,7 @@ class _PackedLaunchMixin:
         slot to another key in between. (The JAX store resolves a second
         time when grouping does not pay; here the slots are reused.)"""
         n = len(keys)
-        with self.store.profiler.span("acquire_many", n), self.store._lock:
+        with self.store.profiler.span(self._BULK_SPAN, n), self.store._lock:
             slots = self.resolve_slots(keys)
             if self.store.coalesce_duplicates and n:
                 gather = self._launch_many_grouped(slots, counts_np,
@@ -617,33 +744,16 @@ class _DeviceTable(_PackedLaunchMixin):
 
     def __init__(self, store: "DeviceBucketStore", capacity: float,
                  fill_rate_per_sec: float, n_slots: int) -> None:
-        self.store = store
         self.capacity = float(capacity)
         self.fill_rate_per_sec = float(fill_rate_per_sec)
         self.rate_per_tick = _rate_per_tick(fill_rate_per_sec)
-        self.state = K.init_bucket_state(n_slots, store.device)
-        self.n_slots = n_slots
-        self.dir = make_directory(n_slots)
-        self.batcher: MicroBatcher[_AcquireReq, AcquireResult] = MicroBatcher(
-            self._flush,
-            max_batch=store.max_batch,
-            max_delay_s=store.max_delay_s,
-            max_inflight=store.max_inflight,
-            flush_latency=store.metrics.flush_latency,
-            queue_latency=store.metrics.queue_latency,
-        )
+        self._init_slots(store, K.init_bucket_state(n_slots, store.device),
+                         n_slots)
 
     # -- slot management ---------------------------------------------------
-    def resolve_slots(self, keys: list[str]) -> np.ndarray:
-        """Batch key→slot resolution (the host hot path)."""
-        return _resolve_with_reclaim(self.dir, keys, self._sweep, self._grow,
-                                     min_free=self.n_slots // 16)
-
     def _sweep(self, pinned: set[int] | None = None) -> None:
-        """Reclaim slots whose buckets have sat full-refilled past TTL. One
-        sweep-kernel pass; its per-tile expired counts let a sweep that
-        freed nothing finish after reading T ints instead of the N-byte
-        mask.
+        """Reclaim slots whose buckets have sat full-refilled past TTL, in
+        one sweep-kernel pass.
 
         ``pinned`` slots (already resolved for the in-flight batch) are not
         returned to the free-list — a sweep triggered mid-batch must not
@@ -654,50 +764,21 @@ class _DeviceTable(_PackedLaunchMixin):
             self._sweep_locked(pinned)
 
     def _sweep_locked(self, pinned: set[int] | None = None) -> None:
-        now = self.store.clock.now_ticks()
-        mask, counts = ck.sweep_expired(self.state, now, self.capacity,
-                                        self.rate_per_tick)
-        if int(_to_host(counts).sum()) > 0:
-            dead = np.nonzero(_to_host(mask))[0].astype(np.int32)
-            if pinned:
-                dead = dead[~np.isin(dead, np.fromiter(pinned, np.int32,
-                                                       len(pinned)))]
-            self.store.metrics.slots_evicted += self.dir.remove_slots(dead)
-        self.store.metrics.sweeps += 1
-
-    def _grow(self) -> None:
-        """Double the table (a new allocation: old state copied, new half
-        empty)."""
-        old_n = self.n_slots
-        new_n = old_n * 2
-        grown = K.init_bucket_state(new_n, self.store.device)
-        for dst, src in zip(grown, self.state):
-            dst[:old_n] = src
-        self.state = grown
-        self.dir.add_slots(old_n, new_n)
-        self.n_slots = new_n
+        mask, counts = ck.sweep_expired(self.state,
+                                        self.store.clock.now_ticks(),
+                                        self.capacity, self.rate_per_tick)
+        self._evict(mask, counts, pinned)
 
     # -- decision paths ----------------------------------------------------
+    _FLUSH_SPAN = "acquire_batch"
+
+    def _launch_packed(self, packed: torch.Tensor) -> torch.Tensor:
+        return ck.acquire_packed(self.state, packed, self.capacity,
+                                 self.rate_per_tick)
+
     def _launch_grouped(self, packed: torch.Tensor) -> torch.Tensor:
         return ck.acquire_grouped(self.state, packed, self.capacity,
                                   self.rate_per_tick)
-
-    def _launch(self, reqs: Sequence[_AcquireReq]) -> torch.Tensor:
-        """Build the padded operand and launch one decision. The whole
-        read-modify-write of the table runs under the store lock: the
-        blocking path may be called from any thread while the event loop
-        flushes batches."""
-        with self.store.profiler.span("acquire_batch", len(reqs)), \
-                self.store._lock:
-            slots = self.resolve_slots([r.key for r in reqs])
-            # Fixed pad width: every flush has the same shape.
-            b = self.store.max_batch
-            now = self.store.now_ticks_checked()
-            packed = _build_packed(reqs, slots, b, now)
-            out = ck.acquire_packed(self.state, self._upload(packed),
-                                    self.capacity, self.rate_per_tick)
-            self.store.metrics.record_launch(b, len(reqs))
-            return out
 
     def _launch_scan_chunk(self, s: np.ndarray, c: np.ndarray,
                            nows: np.ndarray, compact: bool,
@@ -728,14 +809,6 @@ class _DeviceTable(_PackedLaunchMixin):
         K.rebase_bucket_epoch(self.state, offset)
 
     # -- checkpoint form (the JAX store's numpy schema) --------------------
-    def to_snap(self) -> dict:
-        return {
-            "directory": self.dir.to_dict(),
-            "tokens": _to_host(self.state.tokens).copy(),
-            "last_ts": _to_host(self.state.last_ts).copy(),
-            "exists": _to_host(self.state.exists).copy(),
-        }
-
     def load_snap(self, data: dict, shift: int) -> None:
         if "directory" not in data:
             raise NotImplementedError(
@@ -749,6 +822,91 @@ class _DeviceTable(_PackedLaunchMixin):
                                 device=dev),
             last_ts=torch.tensor(_shift_ts(data["last_ts"], shift),
                                  device=dev),
+            exists=torch.tensor(np.asarray(data["exists"], bool),
+                                device=dev),
+        )
+        self.dir.load(data["directory"], self.n_slots)
+
+
+class _DeviceWindowTable(_PackedLaunchMixin):
+    """One homogeneous-config window table: sliding by default, ``fixed=True``
+    for the fixed window (no trailing-window interpolation) over the same
+    state, batching and sweeps."""
+
+    def __init__(self, store: "DeviceBucketStore", limit: float,
+                 window_ticks: int, n_slots: int, *,
+                 fixed: bool = False) -> None:
+        if int(window_ticks) < 1:
+            raise ValueError(f"a window must last at least one tick (1/"
+                             f"{bm.TICKS_PER_SECOND} s), got {window_ticks} "
+                             "ticks")
+        self.limit = float(limit)
+        self.fixed = fixed
+        self.window_ticks = int(window_ticks)
+        self._init_slots(store, K.init_window_state(n_slots, store.device),
+                         n_slots)
+
+    def _sweep(self, pinned: set[int] | None = None) -> None:
+        """Reclaim slots two whole windows idle (:meth:`_DeviceTable._sweep`
+        explains ``pinned``)."""
+        with self.store.profiler.span("sweep_windows", self.n_slots):
+            self._sweep_locked(pinned)
+
+    def _sweep_locked(self, pinned: set[int] | None = None) -> None:
+        mask, counts = ck.sweep_windows(self.state,
+                                        self.store.clock.now_ticks(),
+                                        self.window_ticks)
+        self._evict(mask, counts, pinned)
+
+    def rebase(self, offset_ticks: int) -> None:
+        """Shift live indices back by the whole windows of ``offset_ticks``;
+        the remainder skews one boundary by less than a window, once a
+        rebase (~6 days)."""
+        K.rebase_window_epoch(self.state, offset_ticks // self.window_ticks)
+
+    # -- decision paths ----------------------------------------------------
+    _FLUSH_SPAN = "window_acquire_batch"
+    _BULK_SPAN = "window_acquire_many"
+
+    def _launch_packed(self, packed: torch.Tensor) -> torch.Tensor:
+        return ck.window_packed(self.state, packed, self.limit,
+                                self.window_ticks, interpolate=not self.fixed)
+
+    def _launch_grouped(self, packed: torch.Tensor) -> torch.Tensor:
+        return ck.window_grouped(self.state, packed, self.limit,
+                                 self.window_ticks,
+                                 interpolate=not self.fixed)
+
+    def _launch_scan_chunk(self, s: np.ndarray, c: np.ndarray,
+                           nows: np.ndarray, compact: bool,
+                           with_remaining: bool) -> torch.Tensor:
+        """One chunk's scanned dispatch: one operand upload, one launch."""
+        b = s.shape[1]
+        operand = K.pack_compact5(s, c) if compact else np.stack([s, c])
+        return ck.window_scan_packed(
+            self.state, self._upload(operand), self._upload(nows),
+            self.limit, self.window_ticks, interpolate=not self.fixed,
+            with_remaining=with_remaining or b % 8 != 0)
+
+    # -- checkpoint form (the JAX store's numpy schema) --------------------
+    def load_snap(self, data: dict, shift: int) -> None:
+        """Adopt a snapshot's table, its indices shifted by the whole
+        windows of ``shift`` (a floor: a restore into a younger clock shifts
+        back)."""
+        if "directory" not in data:
+            raise NotImplementedError(
+                "checkpoint's window tables use the device-resident "
+                "fingerprint directory, which is not ported yet")
+        dev = self.store.device
+        self.n_slots = len(data["prev_count"])
+        self.state = K.WindowState(
+            prev_count=torch.tensor(np.asarray(data["prev_count"],
+                                               np.float32), device=dev),
+            curr_count=torch.tensor(np.asarray(data["curr_count"],
+                                               np.float32), device=dev),
+            window_idx=torch.tensor(
+                _shift_ts(data["window_idx"], shift // self.window_ticks),
+                device=dev),
             exists=torch.tensor(np.asarray(data["exists"], bool),
                                 device=dev),
         )
@@ -807,6 +965,7 @@ class DeviceBucketStore(BucketStore):
         self.max_inflight = max_inflight
         self.metrics = StoreMetrics()
         self._tables: dict[tuple[float, float], _DeviceTable] = {}
+        self._wtables: dict[tuple[float, int, bool], _DeviceWindowTable] = {}
         # The counter table is allocated at first use, as bucket tables are:
         # construction touches no device.
         self._counter_state: K.CounterState | None = None
@@ -847,7 +1006,7 @@ class DeviceBucketStore(BucketStore):
         """Shift every table's stored timestamps by ``-offset`` without
         touching the clock."""
         with self._lock:
-            for t in self._tables.values():
+            for t in (*self._tables.values(), *self._wtables.values()):
                 t.rebase(offset)
             if self._counter_state is not None:
                 K.rebase_counter_epoch(self._counter_state, offset)
@@ -861,6 +1020,18 @@ class DeviceBucketStore(BucketStore):
                 table = _DeviceTable(self, capacity, fill_rate_per_sec,
                                      self.n_slots_default)
                 self._tables[key] = table
+            return table
+
+    def _wtable(self, limit: float, window_sec: float,
+                fixed: bool = False) -> _DeviceWindowTable:
+        wt = int(window_sec * bm.TICKS_PER_SECOND)
+        key = (float(limit), wt, fixed)
+        with self._lock:
+            table = self._wtables.get(key)
+            if table is None:
+                table = _DeviceWindowTable(self, limit, wt,
+                                           self.n_slots_default, fixed=fixed)
+                self._wtables[key] = table
             return table
 
     # -- exact bucket ------------------------------------------------------
@@ -905,6 +1076,50 @@ class DeviceBucketStore(BucketStore):
     def peek_blocking(self, key: str, capacity: float,
                       fill_rate_per_sec: float) -> float:
         return self._table(capacity, fill_rate_per_sec).peek_blocking(key)
+
+    # -- sliding and fixed windows -----------------------------------------
+    async def window_acquire(self, key: str, count: int, limit: float,
+                             window_sec: float) -> AcquireResult:
+        await self.connect()
+        table = self._wtable(limit, window_sec)
+        return await table.batcher.submit(_AcquireReq(key, count))
+
+    def window_acquire_blocking(self, key: str, count: int, limit: float,
+                                window_sec: float) -> AcquireResult:
+        return self._wtable(limit, window_sec).acquire_blocking(key, count)
+
+    async def fixed_window_acquire(self, key: str, count: int, limit: float,
+                                   window_sec: float) -> AcquireResult:
+        await self.connect()
+        table = self._wtable(limit, window_sec, fixed=True)
+        return await table.batcher.submit(_AcquireReq(key, count))
+
+    def fixed_window_acquire_blocking(self, key: str, count: int,
+                                      limit: float,
+                                      window_sec: float) -> AcquireResult:
+        return self._wtable(limit, window_sec,
+                            fixed=True).acquire_blocking(key, count)
+
+    async def window_acquire_many(self, keys: Sequence[str],
+                                  counts: Sequence[int], limit: float,
+                                  window_sec: float, *, fixed: bool = False,
+                                  with_remaining: bool = True
+                                  ) -> BulkAcquireResult:
+        """Bulk path of a window table: scanned kernel launches, one await
+        per call."""
+        await self.connect()
+        table = self._wtable(limit, window_sec, fixed)
+        return await table.acquire_many(keys, counts,
+                                        with_remaining=with_remaining)
+
+    def window_acquire_many_blocking(self, keys: Sequence[str],
+                                     counts: Sequence[int], limit: float,
+                                     window_sec: float, *,
+                                     fixed: bool = False,
+                                     with_remaining: bool = True
+                                     ) -> BulkAcquireResult:
+        return self._wtable(limit, window_sec, fixed).acquire_many_blocking(
+            keys, counts, with_remaining=with_remaining)
 
     # -- decaying counter -------------------------------------------------
     @property
@@ -1005,11 +1220,11 @@ class DeviceBucketStore(BucketStore):
 
     # -- TTL maintenance ---------------------------------------------------
     def sweep_all(self) -> None:
-        """One TTL-eviction pass over every bucket table and the counter
-        table — the active expiry pass, so an idle store's memory shrinks
-        without waiting for the next allocation to force a sweep."""
+        """One TTL-eviction pass over every bucket and window table and the
+        counter table — the active expiry pass, so an idle store's memory
+        shrinks without waiting for the next allocation to force a sweep."""
         with self._lock:
-            for t in list(self._tables.values()):
+            for t in (*self._tables.values(), *self._wtables.values()):
                 t._sweep()
             self._sweep_counters()
 
@@ -1031,7 +1246,7 @@ class DeviceBucketStore(BucketStore):
             except (asyncio.CancelledError, Exception):
                 pass  # a failed sweeper must not abort batcher cleanup
             self._sweeper_task = None
-        for t in self._tables.values():
+        for t in (*self._tables.values(), *self._wtables.values()):
             await t.batcher.aclose()
 
     def snapshot(self) -> dict:
@@ -1044,7 +1259,8 @@ class DeviceBucketStore(BucketStore):
                 "now_ticks": self.clock.now_ticks(),
                 "tables": {key: t.to_snap()
                            for key, t in self._tables.items()},
-                "wtables": {},
+                "wtables": {key: t.to_snap()
+                            for key, t in self._wtables.items()},
                 "counter_dir": self._counter_dir.to_dict(),
                 "counters": {
                     "value": _to_host(c.value).copy(),
@@ -1057,20 +1273,25 @@ class DeviceBucketStore(BucketStore):
     def restore(self, snap: dict) -> None:
         """Restore a checkpoint — this store's own or one the JAX
         ``DeviceBucketStore.snapshot()`` wrote — re-aligning timestamps to
-        this process's clock epoch (shift by ``now_here − now_at_snapshot``).
-        Live window or semaphore state cannot be carried yet and raises
-        ``NotImplementedError`` rather than being dropped."""
-        live = {"window tables": len(snap.get("wtables") or {}),
-                "semaphores": _live_rows(snap.get("semas"))}
-        held = [name for name, n in live.items() if n]
-        if held:
+        this process's clock epoch (shift by ``now_here − now_at_snapshot``;
+        window indices by its whole windows). Live semaphore state cannot be
+        carried yet and raises ``NotImplementedError`` rather than being
+        dropped."""
+        if _live_rows(snap.get("semas")):
             raise NotImplementedError(
-                "snapshot holds live " + ", ".join(held) + ", which the "
-                "PyTorch store does not port yet")
+                "snapshot holds live semaphores, which the PyTorch store "
+                "does not port yet")
         with self._lock:
             shift = int(self.clock.now_ticks()) - int(snap["now_ticks"])
             for (cap, rate), data in snap["tables"].items():
                 self._table(cap, rate).load_snap(data, shift)
+            for wkey, data in (snap.get("wtables") or {}).items():
+                # Snapshots from before the fixed window carry (limit,
+                # window_ticks) keys: sliding windows.
+                limit, wt = wkey[0], wkey[1]
+                fixed = bool(wkey[2]) if len(wkey) > 2 else False
+                self._wtable(limit, wt / bm.TICKS_PER_SECOND,
+                             fixed).load_snap(data, shift)
             c = snap.get("counters")
             if c is not None:
                 dev = self.device

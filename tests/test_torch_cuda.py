@@ -13,7 +13,11 @@ kernel subtracts each slot's int64 sum once, where the plain version
 subtracts row by row). Counter syncs: replies, period, ``last_ts`` and
 ``exists`` equal; value equal where slots are distinct and, for a slot that
 takes r > 1 adds, within r spacings of its float32 value (atomic adds in no
-fixed order).
+fixed order). Window kernels (sliding and fixed): grants, remaining, masks,
+``prev_count``, ``window_idx`` and ``exists`` equal bit for bit;
+``curr_count`` too, since the counts are whole numbers (the flushes add
+duplicates' consumption with atomics in no fixed order, which for whole
+numbers below 2^24 gives the same sum).
 """
 
 import asyncio
@@ -367,3 +371,144 @@ def test_sweep_counters_after_grow_matches_plain(cuda_device):
     assert int(counts.sum()) == 4_001
     store.sweep_all()
     assert len(store._counter_dir) == 3_000
+
+
+# -- windows --------------------------------------------------------------------
+
+W_LIMIT = 20.0
+W_TICKS = 1000  # not a power of two
+
+
+def _windows(seed, device, n=N, now=50_000, w=W_TICKS):
+    """A window table: whole-number counts, indices one window behind,
+    current, two behind, and (a clock behind them) one ahead."""
+    rng = np.random.default_rng(seed)
+    idx = now // w + rng.choice([-2, -1, 0, 0, 1], n)
+    arrays = (rng.integers(0, 25, n).astype(np.float32),
+              rng.integers(0, 25, n).astype(np.float32),
+              idx.astype(np.int32), rng.random(n) < 0.6)
+    return [K.WindowState(*(torch.tensor(a, device=d) for a in arrays))
+            for d in ("cpu", device)]
+
+
+def _assert_windows_same(card, plain):
+    for name in K.WindowState._fields:
+        np.testing.assert_array_equal(getattr(card, name).cpu().numpy(),
+                                      getattr(plain, name).cpu().numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interpolate", [True, False])
+@pytest.mark.parametrize("b", [B, 5000])
+@pytest.mark.parametrize("rows,wrapper", [(4, ck.window_packed),
+                                          (5, ck.window_grouped)])
+def test_window_flush_kernels_match_plain(cuda_device, rows, wrapper, b,
+                                          interpolate):
+    plain, card = _windows(7, cuda_device)
+    op = _operand(8, rows, b, now=50_377)
+    before = dict(ck.launches)
+    want = wrapper(plain, op, W_LIMIT, W_TICKS, interpolate=interpolate)
+    got = wrapper(card, op.to(cuda_device), W_LIMIT, W_TICKS,
+                  interpolate=interpolate)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_windows_same(card, plain)
+    name = "window_packed" if rows == 4 else "window_grouped"
+    assert ck.launches[name] == before[name] + 1
+    assert sum(ck.launches.values()) == sum(before.values()) + 1
+    assert 0 < float(want[0].sum()) and float(want[1].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interpolate", [True, False])
+@pytest.mark.parametrize("k,b", [(32, B), (31, 104)])
+@pytest.mark.parametrize("fused,with_remaining,distinct", [
+    (True, True, False), (True, False, False), (False, True, False),
+    (True, False, True)])
+def test_window_scan_matches_plain(cuda_device, fused, with_remaining, k, b,
+                                   distinct, interpolate):
+    """K window batches in one launch against the plain per-batch loop, the
+    ticks crossing window boundaries within the chunk."""
+    limit = W_LIMIT if fused else 5000.0
+    plain, card = _windows(9, cuda_device)
+    operand = _scan_operand(np.random.default_rng(10), k, b, N, fused,
+                            distinct)
+    nows = torch.tensor([50_000 + 700 * (3 * i // k) for i in range(k)],
+                        dtype=torch.int32)
+    before = dict(ck.launches)
+    want = ck.window_scan_packed(plain, operand, nows, limit, W_TICKS,
+                                 interpolate=interpolate,
+                                 with_remaining=with_remaining)
+    got = ck.window_scan_packed(card, operand.to(cuda_device),
+                                nows.to(cuda_device), limit, W_TICKS,
+                                interpolate=interpolate,
+                                with_remaining=with_remaining)
+    torch.cuda.synchronize()
+    assert ck.launches["window_scan"] == before["window_scan"] + 1
+    assert sum(ck.launches.values()) == sum(before.values()) + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_windows_same(card, plain)
+    grants = (want[:, 0] if with_remaining else torch.from_numpy(
+        np.unpackbits(want.numpy(), axis=-1, bitorder="little")))
+    assert 0 < int(grants.sum()) < grants.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["packed", "scan"])
+def test_window_int32_wraparound_matches_plain(cuda_device, kernel):
+    """Ticks near 2^31 - 1 and stored indices whose ``idx * W`` and index
+    differences wrap as int32 (a clock behind them, restored state): the
+    kernel wraps through uint32 exactly as the plain version's int64 wrap."""
+    n, w = 64, 7919
+    now = 2**31 - 5
+    rng = np.random.default_rng(11)
+    idx = np.concatenate([
+        np.full(16, now // w, np.int64), np.full(16, now // w - 1),
+        rng.integers(2**30, 2**31 - 1, 16), rng.integers(-2**31, -2**30, 16)])
+    arrays = (rng.integers(0, 9, n).astype(np.float32),
+              rng.integers(0, 9, n).astype(np.float32), idx.astype(np.int32),
+              np.ones(n, bool))
+    plain, card = [K.WindowState(*(torch.tensor(a, device=d) for a in arrays))
+                   for d in ("cpu", cuda_device)]
+    slots = np.arange(n, dtype=np.int32)
+    counts = rng.integers(0, 4, n).astype(np.int32)
+    if kernel == "packed":
+        op = torch.from_numpy(np.stack([slots, counts, np.full(n, now,
+                                                               np.int32),
+                                        np.zeros(n, np.int32)]))
+        want = ck.window_packed(plain, op, 10.0, w)
+        got = ck.window_packed(card, op.to(cuda_device), 10.0, w)
+    else:
+        op = torch.from_numpy(np.stack([slots, counts])[:, None])
+        nows = torch.tensor([now], dtype=torch.int32)
+        want = ck.window_scan_packed(plain, op, nows, 10.0, w)
+        got = ck.window_scan_packed(card, op.to(cuda_device),
+                                    nows.to(cuda_device), 10.0, w)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_windows_same(card, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("now", [50_000, -3_001, 2**31 - 1])
+def test_sweep_windows_kernel_matches_plain(cuda_device, now):
+    """Two windows behind expires; indices far on either side wrap."""
+    n = 70_000
+    rng = np.random.default_rng(12)
+    base = now // W_TICKS
+    idx = (base - rng.integers(-1, 5, n)).astype(np.int64)
+    far = rng.random(n) < 0.05
+    idx[far] = rng.integers(-2**31, 2**31 - 1, int(far.sum()))
+    arrays = (np.zeros(n, np.float32), np.zeros(n, np.float32),
+              np.clip(idx, -2**31, 2**31 - 1).astype(np.int32),
+              rng.random(n) < 0.5)
+    plain, card = [K.WindowState(*(torch.tensor(a, device=d) for a in arrays))
+                   for d in ("cpu", cuda_device)]
+    want = ck.sweep_windows(plain, now, W_TICKS)
+    got = ck.sweep_windows(card, now, W_TICKS)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), wnt.numpy())
+    _assert_windows_same(card, plain)
+    assert 0 < int(want[1].sum()) < int(arrays[3].sum())

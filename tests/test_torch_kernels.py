@@ -370,9 +370,18 @@ def test_launch_counts_untouched_on_cpu():
     counters = TK.init_counter_state(N)
     ck.sync_counters(counters, torch.from_numpy(_sync_operand(2)), 0.01)
     ck.sweep_counters(counters, 60_000)
+    windows = TK.init_window_state(N)
+    ck.window_packed(windows, torch.from_numpy(_packed4(2)), CAP, 1000)
+    ck.window_grouped(windows, torch.from_numpy(_packed5(2)), CAP, 1000,
+                      interpolate=False)
+    ck.window_scan_packed(windows, torch.from_numpy(fused),
+                          torch.from_numpy(nows), CAP, 1000)
+    ck.sweep_windows(windows, 60_000, 1000)
     assert set(ck.launches) == {"sweep_expired", "acquire_packed",
                                 "acquire_grouped", "acquire_scan",
-                                "sync_counters", "sweep_counters"}
+                                "sync_counters", "sweep_counters",
+                                "window_packed", "window_grouped",
+                                "window_scan", "sweep_windows"}
     assert all(v == 0 for v in ck.launches.values())
 
 

@@ -344,11 +344,12 @@ def test_unported_ops_answer_without_the_old_peer_words():
                     frames.append(pw.encode_request(
                         op, op, "{}" if op in pw.TEXT_OPS else "k", 1, 5.0,
                         1.0))
-            for kind in (1, 2, 3):
-                frames.append(pw.encode_bulk_request(
-                    100 + kind, [b"k"], [1], 5.0, 1.0, kind=kind,
-                    hier=("t", 9.0, 1.0, 0) if kind == 3 else None))
-            frames.append(pw.encode_request(200, pw.OP_WINDOW, "k", 1, 5.0,
+            # The hierarchical bulk kind; the window kinds (1, 2) are
+            # served since the windows were ported.
+            frames.append(pw.encode_bulk_request(
+                103, [b"k"], [1], 5.0, 1.0, kind=pw.BULK_KIND_HBUCKET,
+                hier=("t", 9.0, 1.0, 0)))
+            frames.append(pw.encode_request(200, pw.OP_SEMA, "k", 1, 5.0,
                                             1.0, trace=(1, 2, 3, 1)))
             frames.append(bytes([6, 0, 0, 0, 4, 99, 0, 0, 0, 30]))  # no such op
             replies, closed = await _raw(srv.address, *frames)
@@ -374,7 +375,7 @@ def test_unported_ops_answer_without_the_old_peer_words():
             with pytest.raises(jw.RemoteStoreError, match="not served"):
                 await w(cli.reserve("r1", "t", "k", 2.0, 9.0, 1.0, 5.0, 1.0))
             with pytest.raises(jw.RemoteStoreError, match="not served"):
-                await w(cli.window_acquire("k", 1, 5.0, 1.0))
+                await w(cli.concurrency_acquire("k", 1, 5))
             stats = cli.resilience_stats()
             assert stats["hier_fallbacks"] == stats["reserve_fallbacks"] == 0
             assert cli._peer_traces and cli._peer_hier

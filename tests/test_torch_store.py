@@ -140,14 +140,21 @@ def test_jax_snapshot_restores_into_port():
 
 
 def test_restore_refuses_live_window_state():
+    """Live window tables restore since the windows were ported (their
+    parity with JAX is tests/test_torch_window.py's); live semaphores are
+    still refused rather than dropped, also beside window tables."""
     port = _port(ManualClock(0))
-    snap = {"now_ticks": 0, "tables": {}, "wtables": {(5.0, 1024, False): {}}}
-    with pytest.raises(NotImplementedError, match="window"):
-        port.restore(snap)
-    snap = {"now_ticks": 0, "tables": {}, "wtables": {},
-            "semas": {"exists": np.array([False, True])}}
-    with pytest.raises(NotImplementedError, match="semaphores"):
-        port.restore(snap)
+    port.window_acquire_blocking("w", 2, 5.0, 1.0)
+    wsnap = port.snapshot()
+    fresh = _port(ManualClock(0))
+    fresh.restore(wsnap)
+    assert fresh.window_acquire_blocking("w", 3, 5.0, 1.0).granted
+    assert not fresh.window_acquire_blocking("w", 1, 5.0, 1.0).granted
+    for wtables in ({}, wsnap["wtables"]):
+        snap = {"now_ticks": 0, "tables": {}, "wtables": wtables,
+                "semas": {"exists": np.array([False, True])}}
+        with pytest.raises(NotImplementedError, match="semaphores"):
+            _port(ManualClock(0)).restore(snap)
 
 
 def test_blocking_and_single_bucket_paths():
@@ -164,8 +171,10 @@ def test_unported_methods_raise():
     store = _port(ManualClock(0))
     with pytest.raises(NotImplementedError, match="concurrency_acquire"):
         store.concurrency_acquire_blocking("k", 1, 5)
-    with pytest.raises(NotImplementedError, match="window_acquire"):
-        store.window_acquire_blocking("k", 1, 5.0, 1.0)
+    with pytest.raises(NotImplementedError, match="acquire_hierarchical"):
+        store.acquire_hierarchical_blocking("t", "k", 1, 9.0, 1.0, 5.0, 1.0)
+    with pytest.raises(NotImplementedError, match="concurrency_release"):
+        store.concurrency_release_blocking("k", 1)
 
 
 def test_default_device_without_gpu_raises(monkeypatch):
