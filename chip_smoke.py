@@ -24,7 +24,13 @@ Phases (any failure raises, and the script exits non-zero):
    4096 with duplicates, ``window_scan_packed`` on one chunk of K = 32 x
    4096 (distinct and Zipf slots, the fused and the i32 lane, sliding and
    fixed, ticks crossing a window boundary), ``sweep_windows`` over 2^24
-   slots. Grants, bits, masks, ``exists``,
+   slots; the semaphore kernels ``sema_packed`` at B = 8 and B = 4096
+   (repeated slots, acquires, releases, probes, padding, out-of-range slots)
+   over 2^20 slots and ``sweep_semas`` over 2^20 (held slots survive);
+   ``acquire_hierarchical`` at B = 4096 on the LLM workload's rows, with its
+   own budgets and with both budgets binding; ``debit_packed`` at B = 2^20
+   distinct slots of a 2^24 table and at B = 4096 with repeats, fractional
+   and negative amounts. Grants, bits, masks, ``exists``,
    ``last_ts``, counter replies and periods must be equal; remaining and
    tokens within atol 1e-4, counter values equal for distinct slots and,
    where a slot takes r > 1 adds, within r spacings of its float32 value
@@ -37,8 +43,10 @@ Phases (any failure raises, and the script exits non-zero):
    over 10,000,000 distinct keys, one more bulk chunk under
    ``torch.profiler`` (its device busy share and kernel launches),
    concurrent ``acquire_async`` on hot and cold keys checked against a host
-   oracle (cap-5 bucket × 32 asks → 5), then ``sweep_all`` past the TTL
-   with an exact eviction count. Every table resolves keys through the
+   oracle (cap-5 bucket × 32 asks → 5), the tier-0 debit (``debit_many`` of
+   float amounts on 1,000,000 of the table's keys in one launch, then a
+   refund, both held to a host float32 oracle), then ``sweep_all`` past the
+   TTL with an exact eviction count. Every table resolves keys through the
    native key directory (checked). Each phase prints its rate and where its
    host time went (the store's dispatch spans, the key directory, Python's
    garbage collector).
@@ -62,7 +70,23 @@ Phases (any failure raises, and the script exits non-zero):
    ``window_grouped``), every key's grants held to a host float32 serial
    oracle of the sliding-window rule; cap-5 x 32 -> 5 and readmission after
    roll-off, sliding and fixed; ``sweep_all`` evicting exactly every slot.
-6. The shared store server (README "Multi-host", BASELINE config 2's
+6. The admission path, on a store of its own (2^18 bucket slots, 2^20
+   semaphore slots): ``concurrency_acquire_many`` of 1 permit on 1,000,000
+   distinct keys and their release (one ``sema_packed`` launch per 4,096
+   rows), a batch whose keys mix releases with other rows (the one-op-at-a-
+   time hazard route), ``ConcurrencyLimiter(permit_limit=5)`` with 32
+   concurrent acquires (exactly 5 leases, the waiters failed by dispose, a
+   second limiter on the same ``instance_name``), ``sweep_all`` a day later
+   (exactly the zero-held slots go); then two-level admission on the LLM
+   workload (``benchmarks/llm_workload.py:63-91``, copied; 2^16 rows as
+   ``benchmarks/recapture.py:143-170`` runs it): ``acquire_hierarchical_many``
+   with the workload's budgets (16 launches), a binding arm (tenant budget
+   5e4 tokens, the clock 10 ticks on before each 2,048-row window) in which
+   a third or more of the rows are denied and every tenant stays within
+   budget plus refill, and ``AdmissionPolicy.acquire`` on 2,048 rows; all
+   grants equal, row by row, to the port's CPU store on the same clock
+   schedule, and the rows within float rounding of a threshold counted.
+7. The shared store server (README "Multi-host", BASELINE config 2's
    shape): ``BucketStoreServer`` over a third ``DeviceBucketStore`` (2^24
    slots, 2^20 counters, a ManualClock) on 127.0.0.1, limiters on
    ``RemoteBucketStore`` clients. ``acquire_many`` over 10,000,000 distinct
@@ -74,22 +98,28 @@ Phases (any failure raises, and the script exits non-zero):
    every round grants all, then denies all; each key grants exactly 5);
    cap-5 × 32 → 5 on both lanes; windows over the wire (1M keys as
    ``BULK_KIND_WINDOW`` frames, 4,000 ``OP_WINDOW`` / ``OP_FWINDOW``
-   requests, cap-5 × 32 → 5) and ``OP_SEMA`` answering "not served by this
-   server yet"; eight approximate limiters syncing one counter over the
-   wire; the periodic sweeper (0.5 s) evicting exactly every bucket, window
-   and the counter a day later. Prints the wire rates, latencies (client
-   and server), frames, and the server's key-blob resolve beside the
-   in-process string resolve.
-7. The console entry point on the card: ``python -m
+   requests, cap-5 × 32 → 5) and ``OP_RESERVE`` (still unported) answering
+   "not served by this server yet"; 4,000 ``OP_SEMA`` acquires (cap-5 × 32
+   → 5 a round) and their releases; 4,000 ``OP_ACQUIRE_H`` requests on the
+   LLM rows and the 2^16 rows as ``BULK_KIND_HBUCKET`` frames (one per
+   tenant in each 2,048-row window), grants equal to the port's CPU store;
+   eight approximate limiters syncing one counter over the wire; the
+   periodic sweeper (0.5 s) evicting exactly every bucket, window, the
+   counter and every idle semaphore a day later. Prints the wire rates,
+   latencies (client and server), frames, and the server's key-blob
+   resolve beside the in-process string resolve.
+8. The console entry point on the card: ``python -m
    distributedratelimiting.redis_tpu_torch.runtime.server --port 0 --slots
    1048576 --sweep-period 1`` as a subprocess: its listening line, ping,
    cap-5 × 32 → 5, ``OP_STATS`` keys, SIGTERM → exit 0.
-8. Print ``{"kernels": [...]}``: per kernel its launches on each path of
-   phases 3–6 (``launches_by_path``; counts set to 0 before each path and
-   read after it; > 0 on the path the kernel serves, and every kernel > 0
-   on the server path) and their sum (``launches``), the error against the
-   plain version, and its times; before it, each phase's wall seconds.
-9. Last line: ``{"ok": true, "device": {...}}``.
+9. Print ``{"kernels": [...]}``: per kernel (14) its launches on each path
+   of phases 3–7 (``launches_by_path``; counts set to 0 before each path
+   and read after it; > 0 on the path the kernel serves, and every kernel
+   that a wire op reaches > 0 on the server path — all but
+   ``debit_packed``, which no wire op reaches until tier-0 and the
+   reservations are ported) and their sum (``launches``), the error against
+   the plain version, and its times; before it, each phase's wall seconds.
+10. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -147,6 +177,29 @@ WIRE_WINDOW_LIMIT = 6
 WIRE_WINDOW_ASKS = 10
 SCALAR_TASKS = 64
 SCALAR_LANES = ("coalesced", "per-request")
+#: The admission path. Semaphores: a 2^20-slot table (BASELINE config 3's
+#: counter size, 9 B a slot), 1M keys. Two-level admission: the LLM workload
+#: of benchmarks/llm_workload.py:63-91 at the device size of
+#: benchmarks/recapture.py:143-170 (its seed 9, 2^16 rows, 2^18 slots,
+#: max_batch 4096), key budget 1e6 and tenant budget 5e6 tokens, both at
+#: 1e5 tokens/s; the binding arm lowers the tenant budget to 5e4 tokens and
+#: advances the clock 10 ticks before each 2,048-row window.
+SEMA_SLOTS = 2**20
+N_SEMA_KEYS = 1_000_000
+LLM_SEED = 9
+LLM_ROWS = 2**16
+LLM_SLOTS = 2**18
+LLM_BUDGETS = (1e6, 5e6)  # (key, tenant) tokens
+LLM_RATE = 1e5  # tokens/s at both levels
+LLM_BINDING_TENANT = 5e4
+LLM_WINDOW = 2048
+LLM_STEP_TICKS = 10
+LLM_POLICY_ROWS = 2048
+#: Tier-0 debit on the exact path's table: every tenth of its keys.
+N_DEBIT_STRIDE = 10
+#: The server path's semaphore and two-level requests.
+N_WIRE_SEMA_ROUNDS = 125  # x 32 acquires on a cap-5 key
+N_WIRE_HIER = 4000
 
 
 def _card_line() -> str:
@@ -413,6 +466,8 @@ def kernel_phase(torch, K, ck, dev):
     res.update(counter_cases(torch, K, ck, dev, rng))
     torch.cuda.empty_cache()
     res.update(window_cases(torch, K, ck, dev, rng))
+    torch.cuda.empty_cache()
+    res.update(admission_cases(torch, K, ck, dev, rng))
     return res
 
 
@@ -997,6 +1052,37 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
           f"{store.metrics.flush_latency.p50 * 1e3:.3f} ms, p99 "
           f"{store.metrics.flush_latency.p99 * 1e3:.3f} ms, garbage collector "
           f"{flush_gc_s:.3f} s")
+
+    # Tier-0 debit: pre-aggregated float amounts on 1M keys of the table
+    # (every tenth key from 5: 99 tokens, untouched since the bulk), ONE
+    # launch; then a refund (negative amounts). Held to a host float32
+    # oracle: no time has passed, so each slot refills to 99 exactly.
+    dkeys = [f"smoke:{i}" for i in range(5, N_KEYS, N_DEBIT_STRIDE)]
+    amounts = rng.uniform(0, 150, len(dkeys)).astype(np.float32)
+    d0 = ck.launches["debit_packed"]
+    t0 = time.perf_counter()
+    rem, short = await store.debit_many(dkeys, amounts, 100.0, 10.0)
+    debit_s = time.perf_counter() - t0
+    if ck.launches["debit_packed"] - d0 != 1:
+        raise AssertionError("debit_many: not one launch")
+    applied = np.minimum(amounts, np.float32(99.0))
+    want_rem = np.float32(99.0) - applied
+    if not (np.array_equal(rem.astype(np.float32), want_rem)
+            and np.array_equal(short.astype(np.float32),
+                               amounts - applied)):
+        raise AssertionError("debit_many disagrees with the host oracle")
+    refund = -(applied / np.float32(2.0))
+    t0 = time.perf_counter()
+    rem2, short2 = await store.debit_many(dkeys, refund, 100.0, 10.0)
+    refund_s = time.perf_counter() - t0
+    if not (np.array_equal(rem2.astype(np.float32), want_rem - refund)
+            and not short2.any()):
+        raise AssertionError("debit_many refund disagrees with the oracle")
+    print(f"debit_many (tier-0): {len(dkeys)} distinct keys of the "
+          f"{N_SLOTS}-slot table in one launch, {debit_s:.3f} s = "
+          f"{len(dkeys) / debit_s:.0f} keys/s ({card}); shortfall on "
+          f"{int((short > 0).sum())} keys; the refund in {refund_s:.3f} s; "
+          f"both equal to the host float32 oracle")
 
     _check_native(store)
     # Sweep: past every bucket's time-to-full, every live slot expires.
@@ -1675,11 +1761,77 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
     from distributedratelimiting.redis_tpu_torch.runtime import wire
 
     _, kind, vals = await _raw_request(addr, wire.encode_request(
-        77, wire.OP_SEMA, "sema", 1, 5.0, 0.0))
+        77, wire.OP_RESERVE, "{}", 1, 5.0, 0.0))
     if kind != wire.RESP_ERROR or "not served by this server yet" \
             not in vals[0]:
-        raise AssertionError(f"OP_SEMA answered {kind} {vals}")
-    print(f"server OP_SEMA: {vals[0]!r}")
+        raise AssertionError(f"OP_RESERVE answered {kind} {vals}")
+    print(f"server OP_RESERVE (still unported): {vals[0]!r}")
+
+    # Semaphores over the wire: OP_SEMA frames, rounds of 32 concurrent
+    # acquires on a cap-5 key (exactly 5 granted), then the 5 releases.
+    t0 = time.perf_counter()
+    for r in range(N_WIRE_SEMA_ROUNDS):
+        key = f"wsema:{r}"
+        got = await asyncio.gather(*(solo.concurrency_acquire(key, 1, 5)
+                                     for _ in range(32)))
+        if sum(g.granted for g in got) != 5:
+            raise AssertionError(f"OP_SEMA cap-5 round {r}: "
+                                 f"{sum(g.granted for g in got)} granted")
+        await asyncio.gather(*(solo.concurrency_release(key, 1)
+                               for _ in range(5)))
+    sema_s = time.perf_counter() - t0
+    n_sema = N_WIRE_SEMA_ROUNDS * 37
+    print(f"server OP_SEMA: {N_WIRE_SEMA_ROUNDS * 32} acquires (cap-5 x 32 "
+          f"-> 5 in every round) and {N_WIRE_SEMA_ROUNDS * 5} releases in "
+          f"{sema_s:.3f} s = {n_sema / sema_s:.0f} requests/s ({card})")
+
+    # Two-level admission over the wire on the LLM rows, held row by row to
+    # the port's CPU store on the same clock schedule: OP_ACQUIRE_H, one
+    # frame a request, then the 2^16 rows as HBUCKET frames, one per tenant
+    # in each 2,048-row window (benchmarks/llm_workload.py:111-131).
+    tenants, hkeys, costs = _llm_workload(LLM_SEED, LLM_ROWS)
+    ccap, tcap, rate = LLM_BUDGETS[0], LLM_BINDING_TENANT, LLM_RATE
+    oracle = pkg.DeviceBucketStore(device="cpu", n_slots=LLM_SLOTS,
+                                   max_batch=BATCH,
+                                   clock=pkg.ManualClock(clock.now_ticks()))
+    t0 = time.perf_counter()
+    got = [(await solo.acquire_hierarchical(
+        tenants[i], hkeys[i], int(costs[i]), tcap, rate, ccap,
+        rate)).granted for i in range(N_WIRE_HIER)]
+    hier_s = time.perf_counter() - t0
+    want = [oracle.acquire_hierarchical_blocking(
+        tenants[i], hkeys[i], int(costs[i]), tcap, rate, ccap,
+        rate).granted for i in range(N_WIRE_HIER)]
+    if got != want:
+        raise AssertionError("OP_ACQUIRE_H grants differ from the CPU store")
+    print(f"server OP_ACQUIRE_H: {N_WIRE_HIER} LLM rows one frame each in "
+          f"{hier_s:.3f} s = {N_WIRE_HIER / hier_s:.0f} requests/s ({card}); "
+          f"{sum(got)} granted, equal to the CPU store")
+    frames0 = server.requests_served
+    granted, hb_s = [], 0.0
+    for wt, wk, wc in _llm_windows(tenants, hkeys, costs):
+        clock.advance_ticks(LLM_STEP_TICKS)
+        oracle.clock.advance_ticks(LLM_STEP_TICKS)
+        t0 = time.perf_counter()
+        r = await bulk_cli.acquire_hierarchical_many(
+            wt, wk, wc, tcap, rate, ccap, rate, with_remaining=False)
+        hb_s += time.perf_counter() - t0
+        o = await oracle.acquire_hierarchical_many(wt, wk, wc, tcap, rate,
+                                                   ccap, rate)
+        if r.granted.tolist() != o.granted.tolist():
+            raise AssertionError("HBUCKET grants differ from the CPU store")
+        granted.append(r.granted)
+    granted = np.concatenate(granted)
+    hframes = server.requests_served - frames0
+    await oracle.aclose()
+    print(f"server HBUCKET bulk: {LLM_ROWS} LLM rows as {hframes} frames "
+          f"(one per tenant per {LLM_WINDOW}-row window) in {hb_s:.3f} s = "
+          f"{LLM_ROWS / hb_s:.0f} rows/s, {int(costs.sum()) / hb_s:.0f} "
+          f"tokens/s offered ({card}); {granted.sum()} granted "
+          f"({1 - granted.mean():.1%} denied), equal to the CPU store")
+    stats = await solo.stats()
+    if not stats.get("token_velocity", {}).get("observed_tokens"):
+        raise AssertionError("OP_STATS has no token_velocity")
 
     # 3. Counter syncs: eight approximate limiters on one key over one
     # remote store, held to the approximate path's bound.
@@ -1719,11 +1871,13 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
           f"estimates {estimates}; grants per period {per_period} (bound "
           f"{bound:g})")
 
-    # 4. The periodic sweeper: a day later every bucket and the counter
-    # have expired; the sweeper (every 0.5 s) evicts exactly them.
+    # 4. The periodic sweeper: a day later every bucket, window, the counter
+    # and every (zero-held) semaphore have expired; the sweeper (every 0.5
+    # s) evicts exactly them.
     _check_native(store)
     live = sum(len(t.dir) for t in store._tables.values())
-    want_live = N_KEYS + N_SCALAR_KEYS + 2
+    want_live = (N_KEYS + N_SCALAR_KEYS + 2 + len(set(hkeys))
+                 + len(set(tenants)))
     if live != want_live:
         raise AssertionError(f"server holds {live} buckets, not {want_live}")
     wlive = sum(len(t.dir) for t in store._wtables.values())
@@ -1731,7 +1885,10 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
     if wlive != want_wlive:
         raise AssertionError(f"server holds {wlive} windows, not "
                              f"{want_wlive}")
-    live += wlive + len(store._counter_dir)
+    if len(store._sema_dir) != N_WIRE_SEMA_ROUNDS:
+        raise AssertionError(f"server holds {len(store._sema_dir)} "
+                             "semaphores")
+    live += wlive + len(store._counter_dir) + len(store._sema_dir)
     evicted0 = store.metrics.slots_evicted
     store.start_sweeper(0.5)
     clock.advance_seconds(86_401)
@@ -1743,13 +1900,13 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
     evicted = store.metrics.slots_evicted - evicted0
     left = sum(len(t.dir) for t in (*store._tables.values(),
                                     *store._wtables.values())) + len(
-        store._counter_dir)
+        store._counter_dir) + len(store._sema_dir)
     if evicted != live or left:
         raise AssertionError(f"sweeper evicted {evicted} of {live} ({left} "
                              "left)")
     print(f"server periodic sweeper (0.5 s): evicted exactly {live} slots "
-          f"({wlive} of them windows) within {waited:.3f} s of the clock "
-          f"passing their TTL")
+          f"({wlive} of them windows, {N_WIRE_SEMA_ROUNDS} semaphores) within "
+          f"{waited:.3f} s of the clock passing their TTL")
     for cli in (bulk_cli, co, solo):
         await cli.aclose()
     await server.aclose()
@@ -1820,6 +1977,550 @@ def cli_server(pkg) -> None:
             proc.wait()
 
 
+def _llm_workload(seed: int, n_rows: int):
+    """The LLM workload's generator, copied from
+    ``benchmarks/llm_workload.py:63-91`` (``gen_workload``; the script
+    imports nothing of the benchmarks): 64 tenants Zipf(1.2), keys
+    ``t{t}/u{zipf(1.5) % 200}``, costs LogNormal(4.0, 1.3) clamped to [1,
+    8192], priorities 60/30/10 (drawn to keep the generator's stream).
+    Returns ``(tenants, keys, costs i64[n])``."""
+    rng = np.random.default_rng(seed)
+    t_idx = rng.zipf(1.2, n_rows) % 64
+    costs = np.minimum(np.maximum(rng.lognormal(4.0, 1.3, n_rows), 1.0),
+                       8192).astype(np.int64)
+    rng.random(n_rows)  # the priority mix
+    keys = [f"t{t}/u{rng.zipf(1.5) % 200}" for t in t_idx]
+    tenants = [f"tenant:{t}" for t in t_idx]
+    return tenants, keys, costs
+
+
+def _dense_ids(names) -> np.ndarray:
+    """Each name's rank of first appearance, as int32 slot ids."""
+    ids: dict = {}
+    return np.array([ids.setdefault(n, len(ids)) for n in names], np.int32)
+
+
+def _hier_levels(torch, K, bm, child, parent, packed, ccap, crate, pcap,
+                 prate):
+    """The two-level rule's pieces as the plain version computes them, on
+    the tables before a launch: ``(child_ok, granted, near)``, ``near``
+    marking rows whose margin ``ref - (prefix + cost)`` at either level
+    lies within two float32 spacings of 0 (a rounding could flip them)."""
+    cs, cnt, now, ps = packed[0], packed[1], int(packed[2, 0]), packed[3]
+    valid = ((cs >= 0) & (cs < child.tokens.shape[0]) & (ps >= 0)
+             & (ps < parent.tokens.shape[0]))
+    cf = cnt.to(torch.float32)
+    c_ref = bm.refill_or_init(*K._gather(child, cs, valid), now, ccap, crate)
+    p_ref = bm.refill_or_init(*K._gather(parent, ps, valid), now, pcap, prate)
+    c_need = bm.duplicate_prefix(cs, cnt, valid) + cf
+    child_ok = valid & (c_ref >= c_need)
+    p_need = bm.duplicate_prefix(ps, torch.where(child_ok, cnt,
+                                                 torch.zeros_like(cnt)),
+                                 valid) + cf
+    granted = child_ok & (p_ref >= p_need)
+
+    def close(ref, need):
+        mag = torch.maximum(ref.abs(), need.abs()).cpu().numpy()
+        gap = (ref - need).abs().cpu().numpy()
+        return torch.from_numpy(gap <= 2 * np.spacing(mag)).to(ref.device)
+
+    near = valid & (close(c_ref, c_need) | (child_ok & close(p_ref, p_need)))
+    return child_ok, granted, near
+
+
+def admission_cases(torch, K, ck, dev, rng) -> dict:
+    """The semaphore, two-level admission and debit kernels against their
+    plain versions on the card, at the admission path's shapes."""
+    from distributedratelimiting.redis_tpu_torch.ops import bucket_math as bm
+
+    res = {}
+    # -- sema_packed at B = 8 and B = 4096 over a 2^20 table ----------------
+    n, now = SEMA_SLOTS, 3_000_000
+    table = (torch.tensor(rng.integers(0, 6, n).astype(np.int32),
+                          device=dev),
+             torch.tensor(rng.integers(now - 3000, now, n).astype(np.int32),
+                          device=dev),
+             torch.tensor(rng.random(n) < 0.6, device=dev))
+    sema = {}
+    for b in (8, BATCH):
+        slots = ((rng.zipf(1.2, b) - 1) % n).astype(np.int32)
+        slots[: b // 4] = slots[b // 4]  # repeats, also at B = 8
+        slots[rng.permutation(b)[: max(1, b // 32)]] = -1
+        slots[rng.permutation(b)[: max(1, b // 64)]] = n + 7
+        deltas = rng.integers(-2, 4, b).astype(np.int32)
+        deltas[:3] = (1, -1, 0)  # an acquire, a release and a probe
+        limits = rng.integers(0, 9, b).astype(np.int32)
+        packed = np.stack([slots, deltas, limits, np.full(b, now, np.int32)])
+        op = torch.from_numpy(packed).to(dev)
+        ks = K.SemaState(*(x.clone() for x in table))
+        ps = K.SemaState(*(x.clone() for x in table))
+        got = ck.sema_packed(ks, op)
+        _, want = K.sema_batch_packed(ps, op)
+        torch.cuda.synchronize()
+        _check_equal(f"sema_packed B={b} replies", got, want)
+        for name in ("active", "last_ts", "exists"):
+            _check_equal(f"sema_packed B={b} {name}", getattr(ks, name),
+                         getattr(ps, name))
+        ok = want[0].cpu().numpy()
+        if not 0 < ok.sum() < b:
+            raise AssertionError(f"sema_packed B={b}: not a mix of grants")
+        ms = _median_ms(lambda: ck.sema_packed(ks, op), inner=20)
+        plain_ms = _median_ms(lambda: K.sema_batch_packed(ps, op), reps=5,
+                              warmup=1)
+        dev_ms = _device_ms(lambda: ck.sema_packed(ks, op), ["sema_kernel"])
+        distinct = len(np.unique(slots[(slots >= 0) & (slots < n)]))
+        # Bytes: the 16 B operand row and 8 B reply, 9 B of state read and
+        # written per distinct slot. ~12 operations a row.
+        sema[b] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bytes=24 * b + 18 * distinct,
+                       ops=12 * b, device_ms=dev_ms)
+        print(f"sema_packed B={b} ({distinct} distinct slots, repeats, "
+              f"releases, probes, padding) over {n} slots: replies and "
+              f"every state field equal to plain; {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, device time {dev_ms} ms)")
+    res["sema_packed"] = sema[BATCH]
+
+    # -- sweep_semas over 2^20 slots, held slots must survive ----------------
+    ttl = 86400 * 1024
+    active = torch.tensor(rng.integers(0, 3, n).astype(np.int32), device=dev)
+    last = torch.tensor(rng.integers(now - 2 * ttl, now, n).astype(np.int32),
+                        device=dev)
+    exists0 = table[2]
+    ks = K.SemaState(active, last, exists0.clone())
+    ps = K.SemaState(active, last, exists0.clone())
+    mask, counts = ck.sweep_semas(ks, now)
+    _, expired = K.sweep_semas(ps, now)
+    torch.cuda.synchronize()
+    _check_equal("sweep_semas mask", mask.bool(), expired)
+    _check_equal("sweep_semas exists", ks.exists, ps.exists)
+    want_tiles = torch.nn.functional.pad(
+        expired.int(), (0, counts.numel() * ck.TILE - n)).view(
+            -1, ck.TILE).sum(1)
+    _check_equal("sweep_semas tile counts", counts, want_tiles.int())
+    if bool((mask.bool() & (active > 0)).any()):
+        raise AssertionError("sweep_semas evicted a slot that holds permits")
+    n_expired = int(counts.sum())
+    if not 0 < n_expired < int(exists0.sum()):
+        raise AssertionError(f"sweep_semas expired {n_expired}: no mix")
+    ms = _median_ms(lambda: ck.sweep_semas(ks, now),
+                    setup=lambda: ks.exists.copy_(exists0))
+    plain_ms = _median_ms(lambda: K.sweep_semas(ps, now),
+                          setup=lambda: ps.exists.copy_(exists0))
+    dev_ms = _device_ms(lambda: ck.sweep_semas(ks, now),
+                        ["sweep_semas_kernel"])
+    # 11 B a slot (active, last_ts, exists read; exists, mask written) and
+    # the tile counts; ~5 operations a slot.
+    res["sweep_semas"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        bytes=11 * n + 4 * counts.numel(), ops=5 * n, device_ms=dev_ms)
+    print(f"sweep_semas N={n}: expired {n_expired}, no held slot, equal to "
+          f"plain; {ms:.4f} ms (plain {plain_ms:.4f} ms, device time "
+          f"{dev_ms} ms)")
+    del table, active, last, exists0, ks, ps
+    torch.cuda.empty_cache()
+
+    # -- acquire_hierarchical at B = 4096 on the LLM workload's rows ---------
+    tenants, keys, costs = _llm_workload(LLM_SEED, BATCH)
+    cs, ps_ = _dense_ids(keys), _dense_ids(tenants)
+    cs[rng.permutation(BATCH)[:40]] = -1
+    m, now = LLM_SLOTS, 3_000_000
+    packed = np.stack([cs, costs.astype(np.int32),
+                       np.full(BATCH, now, np.int32), ps_])
+    op = torch.from_numpy(packed).to(dev)
+    per_tick = 1e5 / 1024
+    err = 0.0
+    for case, (ccap, pcap) in (("workload budgets", LLM_BUDGETS),
+                               ("both budgets bind", (2e3, 5e3))):
+        def bucket(cap):
+            return (torch.tensor(rng.uniform(cap / 2, cap, m).astype(
+                        np.float32), device=dev),
+                    torch.tensor(rng.integers(now - 3000, now, m).astype(
+                        np.int32), device=dev),
+                    torch.tensor(rng.random(m) < 0.6, device=dev))
+        ctab, ptab = bucket(ccap), bucket(pcap)
+        kc, kp = (K.BucketState(*(x.clone() for x in t)) for t in (ctab, ptab))
+        pc, pp = (K.BucketState(*(x.clone() for x in t)) for t in (ctab, ptab))
+        args = (ccap, per_tick, pcap, per_tick)
+        child_ok, granted, near = _hier_levels(torch, K, bm, pc, pp, op,
+                                               *args)
+        got = ck.acquire_hierarchical(kc, kp, op, *args)
+        _, _, want = K.acquire_hierarchical_packed(pc, pp, op, *args)
+        torch.cuda.synchronize()
+        _check_equal(f"acquire_hierarchical ({case}) grants", got[0],
+                     want[0])
+        _check_equal(f"acquire_hierarchical ({case}) levels", want[0] > 0.5,
+                     granted)
+        err = max(err, _check_close(f"acquire_hierarchical ({case}) "
+                                    "remaining", got[1], want[1]))
+        for name, kt, pt in (("child", kc, pc), ("parent", kp, pp)):
+            err = max(err, _check_close(
+                f"acquire_hierarchical ({case}) {name} tokens", kt.tokens,
+                pt.tokens))
+            _check_equal(f"acquire_hierarchical ({case}) {name} last_ts",
+                         kt.last_ts, pt.last_ts)
+            _check_equal(f"acquire_hierarchical ({case}) {name} exists",
+                         kt.exists, pt.exists)
+        valid = torch.from_numpy((cs >= 0)).to(dev)
+        deny_child = int((valid & ~child_ok).sum())
+        deny_parent = int((child_ok & ~granted).sum())
+        if case == "both budgets bind" and not (deny_child and deny_parent):
+            raise AssertionError(f"acquire_hierarchical: denials at the key "
+                                 f"{deny_child}, at the tenant "
+                                 f"{deny_parent}: not both")
+        line = (f"acquire_hierarchical B={BATCH} ({case}: key {ccap:g}, "
+                f"tenant {pcap:g}; {len(set(keys))} keys, "
+                f"{len(set(tenants))} tenants): grants equal to plain "
+                f"({int(granted.sum())} granted, {deny_child} denied at the "
+                f"key, {deny_parent} at the tenant, {int(near.sum())} near a "
+                f"threshold), max abs err {err:.3g}")
+        if case == "workload budgets":
+            ms = _median_ms(lambda: ck.acquire_hierarchical(kc, kp, op,
+                                                            *args), inner=20)
+            plain_ms = _median_ms(lambda: K.acquire_hierarchical_packed(
+                pc, pp, op, *args), reps=5, warmup=1)
+            dev_ms = _device_ms(lambda: ck.acquire_hierarchical(kc, kp, op,
+                                                                *args),
+                                ["hier_kernel"])
+            distinct = len(set(keys)) + len(set(tenants))
+            # Bytes: the 16 B operand row and 8 B reply, 18 B per distinct
+            # slot of either table. ~30 operations a row.
+            res["acquire_hierarchical"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=24 * BATCH + 18 * distinct, ops=30 * BATCH,
+                device_ms=dev_ms)
+            line += (f"; {ms:.4f} ms (plain {plain_ms:.4f} ms, device time "
+                     f"{dev_ms} ms)")
+        print(line)
+    res["acquire_hierarchical"]["max_abs_err"] = err
+    del kc, kp, pc, pp, ctab, ptab
+    torch.cuda.empty_cache()
+
+    # -- debit_packed: 2^20 distinct slots of a 2^24 table; 4096 with
+    #    repeats, fractional and negative amounts -----------------------------
+    n, cap, rate = N_SLOTS, 100.0, 10 / 1024
+    table = (torch.tensor(rng.uniform(0, cap, n).astype(np.float32),
+                          device=dev),
+             torch.tensor(rng.integers(now - 3000, now, n).astype(np.int32),
+                          device=dev),
+             torch.tensor(rng.random(n) < 0.6, device=dev))
+    for label, b in (("distinct", min(2**20, n // 2)), ("repeats", BATCH)):
+        if label == "distinct":
+            slots = rng.choice(n, b, replace=False).astype(np.int32)
+            amounts = rng.uniform(0, 120, b).astype(np.float32)
+        else:
+            slots = ((rng.zipf(1.2, b) - 1) % n).astype(np.int32)
+            amounts = rng.uniform(-20, 60, b).astype(np.float32)
+        slots[rng.permutation(b)[:b // 64]] = -1
+        t_slots = torch.from_numpy(slots)
+        prefix = bm.duplicate_prefix_float(t_slots, torch.from_numpy(amounts),
+                                           t_slots >= 0)
+        packed = np.stack([slots, amounts.view(np.int32),
+                           np.full(b, now, np.int32),
+                           prefix.numpy().view(np.int32)])
+        op = torch.from_numpy(packed).to(dev)
+        ks = K.BucketState(*(x.clone() for x in table))
+        ps = K.BucketState(*(x.clone() for x in table))
+        got = ck.debit_packed(ks, op, cap, rate)
+        _, want = K.debit_batch_packed(ps, op, cap, rate)
+        torch.cuda.synchronize()
+        _check_equal(f"debit_packed ({label}) replies", got, want)
+        _check_equal(f"debit_packed ({label}) last_ts", ks.last_ts,
+                     ps.last_ts)
+        _check_equal(f"debit_packed ({label}) exists", ks.exists, ps.exists)
+        if label == "distinct":
+            _check_equal("debit_packed (distinct) tokens", ks.tokens,
+                         ps.tokens)
+            derr = 0.0
+        else:
+            # r atomic adds on a slot round by at most r spacings of its
+            # largest partial sum (its value plus its amounts' magnitudes).
+            ok = slots >= 0
+            reps = np.bincount(slots[ok], minlength=n)
+            g, wt = ks.tokens.cpu().numpy(), ps.tokens.cpu().numpy()
+            mag = np.abs(wt) + np.bincount(slots[ok], np.abs(amounts[ok]),
+                                           minlength=n)
+            tol = np.where(reps > 1, reps, 0) * np.spacing(
+                mag.astype(np.float32))
+            derr = float(np.abs(g.astype(np.float64) - wt).max())
+            if not (np.abs(g.astype(np.float64) - wt) <= tol).all():
+                raise AssertionError("debit_packed (repeats): a slot's "
+                                     "tokens past its rounding limit")
+        short = float(want[1].sum())
+        print(f"debit_packed B={b} ({label}): replies, last_ts and exists "
+              f"equal to plain, tokens max abs err {derr!r}; shortfall "
+              f"{short:.1f} tokens")
+        if label == "distinct":
+            ms = _median_ms(lambda: ck.debit_packed(ks, op, cap, rate),
+                            inner=5)
+            plain_ms = _median_ms(lambda: K.debit_batch_packed(
+                ps, op, cap, rate), reps=5, warmup=1)
+            dev_ms = _device_ms(lambda: ck.debit_packed(ks, op, cap, rate),
+                                ["debit_kernel"])
+            # Bytes: the 16 B operand row and 8 B reply, 18 B per distinct
+            # slot. ~12 operations a row.
+            res["debit_packed"] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=24 * b + 18 * b, ops=12 * b, device_ms=dev_ms)
+            print(f"debit_packed B={b}: {ms:.4f} ms (plain {plain_ms:.4f} "
+                  f"ms, device time {dev_ms} ms)")
+        else:
+            res["debit_packed"]["max_abs_err"] = derr
+    return res
+
+
+
+class _HierProbe:
+    """Counts, while installed, the rows of every plain-version two-level
+    launch (the CPU oracle's) whose margin at either level lies within
+    float rounding of its threshold: wraps ``ck.acquire_hierarchical``,
+    which the store calls through the module."""
+
+    def __init__(self, torch, K, ck) -> None:
+        from distributedratelimiting.redis_tpu_torch.ops import (
+            bucket_math as bm,
+        )
+
+        self.near = 0
+        real = ck.acquire_hierarchical
+
+        def probed(child, parent, packed, *args):
+            if child.tokens.device.type == "cpu":
+                self.near += int(_hier_levels(torch, K, bm, child, parent,
+                                              packed, *args)[2].sum())
+            return real(child, parent, packed, *args)
+
+        self._ck, self._real = ck, real
+        ck.acquire_hierarchical = probed
+
+    def remove(self) -> None:
+        self._ck.acquire_hierarchical = self._real
+
+
+def _llm_windows(tenants, keys, costs):
+    """The 2,048-row windows of ``benchmarks/llm_workload.py`` (its
+    FLUSH_WINDOW): ``(tenants, keys, costs)`` slices."""
+    for s in range(0, len(keys), LLM_WINDOW):
+        yield (tenants[s:s + LLM_WINDOW], keys[s:s + LLM_WINDOW],
+               costs[s:s + LLM_WINDOW])
+
+
+def _tenant_totals(tenants, costs, granted) -> dict:
+    out: dict = {}
+    for t, c, g in zip(tenants, costs, granted):
+        if g:
+            out[t] = out.get(t, 0) + int(c)
+    return out
+
+
+async def admission_path(torch, ck, pkg, card: str) -> dict:
+    """Semaphores and two-level (tenant → key) admission in process, on a
+    store of their own: returns the kernel launches the path made."""
+    from distributedratelimiting.redis_tpu_torch.ops import kernels as K
+    from distributedratelimiting.redis_tpu_torch.runtime import admission
+
+    clock = pkg.ManualClock(1_000_000)
+    store = pkg.DeviceBucketStore(device="cuda", n_slots=LLM_SLOTS,
+                                  counter_slots=SEMA_SLOTS, max_batch=BATCH,
+                                  clock=clock)
+    await store.connect()
+    ck.reset_launches()
+
+    # 1. Semaphores at full size: one permit on each of 1M keys (limit 4),
+    # then their release, one launch per 4,096-row chunk.
+    keys = [f"lease:{i}" for i in range(N_SEMA_KEYS)]
+    t0 = time.perf_counter()
+    res = await store.concurrency_acquire_many(keys, [1] * len(keys), 4)
+    acq_s = time.perf_counter() - t0
+    if not (res.granted.all() and np.all(res.remaining == 1.0)):
+        raise AssertionError("semaphore bulk: not every key holds 1")
+    launches = ck.launches["sema_packed"]
+    if launches != -(-len(keys) // ck.SEMA_MAX_BATCH):
+        raise AssertionError(f"semaphore bulk: {launches} launches")
+    t0 = time.perf_counter()
+    res = await store.concurrency_acquire_many(keys, [-1] * len(keys), 4)
+    rel_s = time.perf_counter() - t0
+    if not (res.granted.all() and np.all(res.remaining == 0.0)):
+        raise AssertionError("semaphore bulk release: not all granted")
+    if int(store._semas.active.sum()) != 0:
+        raise AssertionError("semaphore bulk release: permits still held")
+    print(f"concurrency_acquire_many: {len(keys)} distinct keys x 1 permit "
+          f"in {acq_s:.3f} s = {len(keys) / acq_s:.0f} ops/s, their release "
+          f"in {rel_s:.3f} s = {len(keys) / rel_s:.0f} ops/s ({card}); "
+          f"{launches} sema_packed launches each way; a {SEMA_SLOTS}-slot "
+          f"table")
+
+    # A batch whose keys mix a release with other rows (the hazard route:
+    # such rows go one op at a time), against the port's CPU store.
+    hz_keys = ["hz0", "hz1", "hz0", "hz2", "hz0", "hz1", "hz3", "hz0"]
+    hz_deltas = [2, 3, -1, 1, 3, -5, 0, 1]
+    oracle = pkg.DeviceBucketStore(device="cpu", counter_slots=64,
+                                   clock=pkg.ManualClock(1_000_000))
+    got = await store.concurrency_acquire_many(hz_keys, hz_deltas, 4)
+    want = await oracle.concurrency_acquire_many(hz_keys, hz_deltas, 4)
+    if (got.granted.tolist() != want.granted.tolist()
+            or got.remaining.tolist() != want.remaining.tolist()):
+        raise AssertionError(f"hazard batch: {got.granted.tolist()} "
+                             f"{got.remaining.tolist()} vs the CPU store's "
+                             f"{want.granted.tolist()} "
+                             f"{want.remaining.tolist()}")
+    print(f"concurrency_acquire_many, mixed-sign same-key rows: grants "
+          f"{got.granted.tolist()}, held {got.remaining.tolist()}, equal to "
+          f"the CPU store")
+
+    # ConcurrencyLimiter(permit_limit=5): 32 concurrent acquires -> exactly
+    # 5 leases; the queued waiters drained by dispose; a second limiter
+    # with the same instance_name shares the semaphore.
+    opts = pkg.ConcurrencyLimiterOptions(permit_limit=5, queue_limit=27,
+                                         instance_name="cap5",
+                                         retry_period_s=0.01)
+    lim, twin = pkg.ConcurrencyLimiter(opts, store), pkg.ConcurrencyLimiter(
+        opts, store)
+    tasks = [asyncio.ensure_future(lim.acquire_async(1)) for _ in range(32)]
+    deadline = time.monotonic() + 60
+    while len(lim._queue) < 27:
+        if time.monotonic() > deadline:
+            raise AssertionError("cap-5 limiter: waiters never parked")
+        await asyncio.sleep(0.001)
+    held = [t.result() for t in tasks if t.done() and t.result()]
+    if len(held) != 5 or twin.acquire(1).is_acquired or \
+            twin.available_permits() != 0:
+        raise AssertionError(f"cap-5 limiter: {len(held)} leases")
+    await lim.aclose()
+    rest = await asyncio.gather(*tasks)
+    if sum(map(bool, rest)) != 5:
+        raise AssertionError("cap-5 limiter: dispose granted a waiter")
+    held[0].dispose()  # the twin can take the permit it returns
+    lease = twin.acquire(1)
+    if not lease.is_acquired:
+        raise AssertionError("cap-5 limiter: the twin missed the release")
+    await twin.aclose()
+    print("ConcurrencyLimiter(permit_limit=5): 32 concurrent acquires -> 5 "
+          "leases, 27 queued waiters failed by dispose, a twin limiter "
+          "sharing the instance_name saw every held permit")
+
+    # sweep_all a day later: exactly the zero-held slots go.
+    dir_map = store._sema_dir.to_dict()
+    active = store._semas.active.cpu().numpy()
+    want_evicted = sum(1 for s in dir_map.values() if active[s] <= 0)
+    held_keys = [k for k, s in dir_map.items() if active[s] > 0]
+    evicted0 = store.metrics.slots_evicted
+    clock.advance_seconds(86_401)
+    t0 = time.perf_counter()
+    store.sweep_all()
+    sweep_s = time.perf_counter() - t0
+    evicted = store.metrics.slots_evicted - evicted0
+    if evicted != want_evicted or any(store._sema_dir.lookup(k) is None
+                                      for k in held_keys):
+        raise AssertionError(f"semaphore sweep evicted {evicted} of "
+                             f"{want_evicted}; held slots {held_keys}")
+    print(f"sweep_all a day later: evicted exactly the {want_evicted} "
+          f"zero-held semaphore slots in {sweep_s:.3f} s, kept the "
+          f"{len(held_keys)} that hold permits ({held_keys})")
+
+    # 2. Two-level admission on the LLM workload (benchmarks/llm_workload.py,
+    # recapture.py's device size): 2^16 rows, 2^18 slots, max_batch 4096.
+    tenants, keys, costs = _llm_workload(LLM_SEED, LLM_ROWS)
+    tokens = int(costs.sum())
+    oracle = pkg.DeviceBucketStore(device="cpu", n_slots=LLM_SLOTS,
+                                   max_batch=BATCH,
+                                   clock=pkg.ManualClock(clock.now_ticks()))
+    ccap, tcap = LLM_BUDGETS
+    rate = LLM_RATE
+    probe = _HierProbe(torch, K, ck)
+    try:
+        h0 = ck.launches["acquire_hierarchical"]
+        t0 = time.perf_counter()
+        res = await store.acquire_hierarchical_many(
+            tenants, keys, costs, tcap, rate, ccap, rate,
+            with_remaining=False)
+        arm1_s = time.perf_counter() - t0
+        launches = ck.launches["acquire_hierarchical"] - h0
+        want = await oracle.acquire_hierarchical_many(
+            tenants, keys, costs, tcap, rate, ccap, rate,
+            with_remaining=False)
+        if res.granted.tolist() != want.granted.tolist():
+            raise AssertionError("two-level admission (workload budgets): "
+                                 "grants differ from the CPU store")
+        print(f"acquire_hierarchical_many, LLM workload ({LLM_ROWS} rows, "
+              f"64 Zipf(1.2) tenants, {len(set(keys))} keys, {tokens} "
+              f"tokens; tenant {tcap:g} and key {ccap:g} tokens at "
+              f"{rate:g}/s): {res.granted_count} granted in {arm1_s:.3f} s "
+              f"= {LLM_ROWS / arm1_s:.0f} rows/s, {tokens / arm1_s:.0f} "
+              f"tokens/s ({card}); {launches} launches; grants equal to the "
+              f"CPU store row by row")
+        # The binding arm: the tenant budget lowered to 5e4 tokens, the
+        # clock 10 ticks on before each 2,048-row window.
+        btcap = LLM_BINDING_TENANT
+        granted, t_total, start = [], 0.0, clock.now_ticks()
+        for wt, wk, wc in _llm_windows(tenants, keys, costs):
+            clock.advance_ticks(LLM_STEP_TICKS)
+            oracle.clock.advance_ticks(LLM_STEP_TICKS)
+            t0 = time.perf_counter()
+            r = await store.acquire_hierarchical_many(wt, wk, wc, btcap,
+                                                      rate, ccap, rate)
+            t_total += time.perf_counter() - t0
+            o = await oracle.acquire_hierarchical_many(wt, wk, wc, btcap,
+                                                       rate, ccap, rate)
+            if r.granted.tolist() != o.granted.tolist():
+                raise AssertionError("two-level admission (binding): grants "
+                                     "differ from the CPU store")
+            granted.append(r.granted)
+        granted = np.concatenate(granted)
+        denied = 1.0 - granted.mean()
+        if denied < 1 / 3:
+            raise AssertionError(f"binding arm denied only {denied:.3f}")
+        elapsed_s = (clock.now_ticks() - start) / pkg.TICKS_PER_SECOND
+        over = {t: v for t, v in _tenant_totals(tenants, costs,
+                                                granted).items()
+                if v > btcap + rate * elapsed_s}
+        if over:
+            raise AssertionError(f"tenants past budget + refill: {over}")
+        btokens = int(costs[granted].sum())
+        print(f"acquire_hierarchical_many, binding arm (tenant {btcap:g} "
+              f"tokens at {rate:g}/s, {LLM_STEP_TICKS} ticks between "
+              f"{LLM_WINDOW}-row windows): {granted.sum()} of {LLM_ROWS} "
+              f"granted ({denied:.1%} denied), {btokens} tokens admitted; "
+              f"{LLM_ROWS / t_total:.0f} rows/s, {tokens / t_total:.0f} "
+              f"tokens/s offered ({card}); every tenant within budget + "
+              f"refill; grants equal to the CPU store")
+        # AdmissionPolicy.acquire: one decision (one launch) a row.
+        pols = [admission.AdmissionPolicy(s, key_config=(ccap, rate))
+                for s in (store, oracle)]
+        for pol in pols:
+            for t in sorted(set(tenants)):
+                pol.set_tenant(admission.TenantBudget(t, btcap, rate))
+        n_pol = LLM_POLICY_ROWS
+        t0 = time.perf_counter()
+        got = [bool(await pols[0].acquire(tenants[i], keys[i],
+                                          int(costs[i])))
+               for i in range(n_pol)]
+        pol_s = time.perf_counter() - t0
+        want = [bool(await pols[1].acquire(tenants[i], keys[i],
+                                           int(costs[i])))
+                for i in range(n_pol)]
+        if got != want or pols[0].stats()["admitted_tokens"] != \
+                pols[1].stats()["admitted_tokens"]:
+            raise AssertionError("AdmissionPolicy.acquire: grants differ "
+                                 "from the CPU store")
+        print(f"AdmissionPolicy.acquire: {n_pol} rows one at a time in "
+              f"{pol_s:.3f} s = {n_pol / pol_s:.0f} rows/s ({card}); "
+              f"{sum(got)} granted, admitted tokens "
+              f"{pols[0].stats()['admitted_tokens']:g}, equal to the CPU "
+              f"store")
+    finally:
+        probe.remove()
+    # Rows whose margin is within two float32 spacings of a threshold are
+    # where another rounding (XLA's FMA, an exact oracle) could decide
+    # otherwise; the kernel and the CPU store round alike, so their grants
+    # are compared exactly above whatever this count is.
+    print(f"two-level admission: {probe.near} rows within float rounding of "
+          f"a threshold in the CPU store's launches (0 expected)")
+    counts = dict(ck.launches)
+    await store.aclose()
+    await oracle.aclose()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1851,7 +2552,8 @@ def main() -> int:
     # it must have launched on the path it serves.
     by_path = {}
     for name, path in (("exact", main_path), ("approximate", approximate_path),
-                       ("window", window_path), ("server", server_path)):
+                       ("window", window_path), ("admission", admission_path),
+                       ("server", server_path)):
         t = time.perf_counter()
         by_path[name] = asyncio.run(path(torch, ck, pkg, card))
         phases[name] = time.perf_counter() - t
@@ -1864,7 +2566,12 @@ def main() -> int:
               "acquire_grouped": "exact", "acquire_scan": "exact",
               "sync_counters": "approximate", "sweep_counters": "approximate",
               "window_packed": "window", "window_grouped": "window",
-              "window_scan": "window", "sweep_windows": "window"}
+              "window_scan": "window", "sweep_windows": "window",
+              "sema_packed": "admission", "sweep_semas": "admission",
+              "acquire_hierarchical": "admission", "debit_packed": "exact"}
+    # No wire op reaches the debit until tier-0 and the reservations are
+    # ported: it is exempt from the server-path rule.
+    no_wire_op = {"debit_packed"}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
@@ -1875,7 +2582,11 @@ def main() -> int:
                "window_packed": "csrc/window.cu",
                "window_grouped": "csrc/window.cu",
                "window_scan": "csrc/window.cu",
-               "sweep_windows": "csrc/window.cu"}
+               "sweep_windows": "csrc/window.cu",
+               "sema_packed": "csrc/sema.cu",
+               "sweep_semas": "csrc/sema.cu",
+               "acquire_hierarchical": "csrc/admission.cu",
+               "debit_packed": "csrc/admission.cu"}
     replaces = {
         "sweep_expired":
             "distributedratelimiting/redis_tpu/ops/pallas_kernels.py:80",
@@ -1902,6 +2613,14 @@ def main() -> int:
             "distributedratelimiting/redis_tpu/ops/kernels.py:663",
         "sweep_windows":
             "distributedratelimiting/redis_tpu/ops/kernels.py:1233",
+        "sema_packed":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:840",
+        "sweep_semas":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:921",
+        "acquire_hierarchical":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:945",
+        "debit_packed":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:1033",
     }
     kernels = []
     for name, r in res.items():
@@ -1918,12 +2637,16 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"],
         })
+        if name in no_wire_op:
+            kernels[-1]["server_path"] = ("exempt: no wire op reaches it "
+                                          "until tier-0 is ported")
     print(json.dumps({"kernels": kernels}))
-    # The server path drives every kernel.
+    # Each kernel launched on the path it serves, and the server path drives
+    # every kernel that a wire op reaches.
     idle = [f"{name} ({path} path)" for name, path in serves.items()
             if by_path[path][name] <= 0]
     idle += [f"{name} (server path)" for name in serves
-             if by_path["server"][name] <= 0]
+             if name not in no_wire_op and by_path["server"][name] <= 0]
     if idle:
         raise AssertionError(f"never launched: {idle}")
     print(json.dumps({"ok": True, "device": {

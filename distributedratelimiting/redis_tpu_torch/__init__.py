@@ -3,12 +3,16 @@
 
 The token-bucket family (``TokenBucketRateLimiter``,
 ``PartitionedRateLimiter``, ``ApproximateTokenBucketRateLimiter``,
-``QueueingTokenBucketRateLimiter``) and the window family
+``QueueingTokenBucketRateLimiter``), the window family
 (``SlidingWindowRateLimiter``, ``FixedWindowRateLimiter``,
-``PartitionedWindowRateLimiter``) over a ``DeviceBucketStore`` whose
-per-key state, windows and decaying global counters live on the card and
-whose decisions, counter syncs and TTL sweeps run as hand-written CUDA
-kernels (``ops/cuda_kernels.py``, sources in ``csrc/``). Keys resolve to slots
+``PartitionedWindowRateLimiter``) and the ``ConcurrencyLimiter`` over a
+``DeviceBucketStore`` whose per-key state, windows, semaphores and decaying
+global counters live on the card and whose decisions, counter syncs,
+two-level (tenant → key) admissions, tier-0 debits and TTL sweeps run as
+hand-written CUDA kernels (``ops/cuda_kernels.py``, sources in ``csrc/``).
+``runtime.admission.AdmissionPolicy`` is the token-denominated gateway
+façade over the two-level lane, and ``ServiceRegistry`` with the
+``add_tpu_*`` helpers is the DI layer. Keys resolve to slots
 through the native key directory (``native/directory.cc``). A
 ``BucketStoreServer`` serves such a store over TCP, byte-compatible with
 the JAX package's server, and ``RemoteBucketStore`` is its client: limiters
@@ -28,11 +32,16 @@ from distributedratelimiting.redis_tpu_torch.models.base import (
 from distributedratelimiting.redis_tpu_torch.models.approximate import (
     ApproximateTokenBucketRateLimiter,
 )
+from distributedratelimiting.redis_tpu_torch.models.concurrency import (
+    ConcurrencyLease,
+    ConcurrencyLimiter,
+)
 from distributedratelimiting.redis_tpu_torch.models.fixed_window import (
     FixedWindowRateLimiter,
 )
 from distributedratelimiting.redis_tpu_torch.models.options import (
     ApproximateTokenBucketOptions,
+    ConcurrencyLimiterOptions,
     FixedWindowOptions,
     QueueingTokenBucketOptions,
     SlidingWindowOptions,
@@ -75,3 +84,54 @@ from distributedratelimiting.redis_tpu_torch.runtime.store import (
     DeviceBucketStore,
     SyncResult,
 )
+from distributedratelimiting.redis_tpu_torch.utils.registry import (
+    ServiceRegistry,
+    add_tpu_approximate_token_bucket_rate_limiter,
+    add_tpu_concurrency_limiter,
+    add_tpu_fixed_window_rate_limiter,
+    add_tpu_queueing_token_bucket_rate_limiter,
+    add_tpu_sliding_window_rate_limiter,
+    add_tpu_token_bucket_rate_limiter,
+)
+
+__all__ = [
+    "MetadataName",
+    "RateLimitLease",
+    "RateLimiterStatistics",
+    "RateLimiter",
+    "TokenBucketOptions",
+    "ApproximateTokenBucketOptions",
+    "QueueingTokenBucketOptions",
+    "SlidingWindowOptions",
+    "FixedWindowOptions",
+    "ConcurrencyLimiterOptions",
+    "TokenBucketRateLimiter",
+    "ApproximateTokenBucketRateLimiter",
+    "QueueingTokenBucketRateLimiter",
+    "SlidingWindowRateLimiter",
+    "FixedWindowRateLimiter",
+    "ConcurrencyLimiter",
+    "ConcurrencyLease",
+    "PartitionedRateLimiter",
+    "PartitionedWindowRateLimiter",
+    "AcquireResult",
+    "BulkAcquireResult",
+    "SyncResult",
+    "BucketStore",
+    "BucketStoreServer",
+    "DeviceBucketStore",
+    "RemoteBucketStore",
+    "StoreTimeoutError",
+    "ManualClock",
+    "MonotonicClock",
+    "TICKS_PER_SECOND",
+    "QueueProcessingOrder",
+    "ServiceRegistry",
+    "add_tpu_token_bucket_rate_limiter",
+    "add_tpu_approximate_token_bucket_rate_limiter",
+    "add_tpu_queueing_token_bucket_rate_limiter",
+    "add_tpu_sliding_window_rate_limiter",
+    "add_tpu_fixed_window_rate_limiter",
+    "add_tpu_concurrency_limiter",
+    "__version__",
+]

@@ -36,22 +36,14 @@
 //
 // Exactness: tokens + elapsed * rate is a multiply then an add
 // (__fmul_rn/__fadd_rn, and the build passes -fmad=false): a contracted FMA
-// flips grants at the refilled >= prefix + count boundary.
+// flips grants at the refilled >= prefix + count boundary. The refill is
+// bucket.cuh's, shared with the admission and debit kernels (admission.cu).
 
+#include "bucket.cuh"
 #include "decide.cuh"
 
 // A named namespace: the policy is a template argument of the kernels.
 namespace drl_bucket {
-
-// Lazy refill min(cap, tokens + elapsed * rate), or a full bucket on a miss.
-__device__ __forceinline__ float refill_or_init(float tokens, int32_t ts,
-                                                uint8_t exists, int32_t now,
-                                                float cap, float rate) {
-  if (!exists) return cap;
-  const int32_t elapsed = max((int32_t)((uint32_t)now - (uint32_t)ts), 0);
-  return fminf(cap,
-               __fadd_rn(tokens, __fmul_rn(__int2float_rn(elapsed), rate)));
-}
 
 struct BucketPolicy {
   struct Table {

@@ -1,8 +1,8 @@
 """Options dataclasses — the configuration layer.
 
 Frozen dataclasses with fail-fast validation and derived values computed
-once: the token-bucket family (exact, queueing, approximate) and the window
-family (fixed, sliding). The concurrency options are not ported yet.
+once: the token-bucket family (exact, queueing, approximate), the window
+family (fixed, sliding) and the concurrency (held-permit) limiter.
 
 - ``replenishment_period_s`` must be **> 0** — a zero period would make the
   fill rate infinite.
@@ -24,6 +24,7 @@ __all__ = [
     "QueueingTokenBucketOptions",
     "FixedWindowOptions",
     "SlidingWindowOptions",
+    "ConcurrencyLimiterOptions",
 ]
 
 
@@ -80,6 +81,31 @@ class ApproximateTokenBucketOptions(QueueingTokenBucketOptions):
     """Approximate two-level limiter options
     (≙ ``RedisApproximateTokenBucketRateLimiterOptions`` — the same
     queueing surface, inherited from :class:`QueueingTokenBucketOptions`)."""
+
+
+@dataclass(frozen=True)
+class ConcurrencyLimiterOptions:
+    """Concurrency (held-permit) limiter options (≙
+    ``ConcurrencyLimiterOptions`` of ``System.Threading.RateLimiting``);
+    ``instance_name`` keys one shared semaphore across every host sharing
+    the store."""
+
+    permit_limit: int = 10
+    queue_limit: int = 0
+    queue_processing_order: QueueProcessingOrder = QueueProcessingOrder.OLDEST_FIRST
+    instance_name: str = "rate-limiter"
+    #: How often parked waiters re-probe the shared store. Local releases
+    #: drain at once; the poll serves permits freed by OTHER instances
+    #: sharing the semaphore (no cross-instance signal exists).
+    retry_period_s: float = 0.05
+
+    def __post_init__(self) -> None:
+        if self.permit_limit <= 0:
+            raise ValueError("permit_limit must be > 0")
+        if self.queue_limit < 0:
+            raise ValueError("queue_limit must be >= 0")
+        if self.retry_period_s <= 0:
+            raise ValueError("retry_period_s must be > 0")
 
 
 @dataclass(frozen=True)

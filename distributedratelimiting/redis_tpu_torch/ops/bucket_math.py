@@ -36,6 +36,7 @@ __all__ = [
     "refill_or_init",
     "time_to_full_ttl",
     "duplicate_prefix",
+    "duplicate_prefix_float",
     "decay_core",
     "decay_and_add",
     "instance_count_estimate",
@@ -127,8 +128,9 @@ def duplicate_prefix(slots, counts, valid):
     counts[i]``; counting all earlier same-slot demand (granted or not) can
     only under-admit relative to true serial order. A stable sort groups equal
     slots in request order; the in-segment exclusive prefix is an int64
-    cumulative sum minus its segment's base, so integer demand stays exact
-    (a whole-batch float32 cumsum would lose integers past 2^24)."""
+    cumulative sum minus its value at the segment's first row, so integer
+    demand stays exact (a whole-batch float32 cumsum would lose integers
+    past 2^24), signed counts included (the semaphore's applied deltas)."""
     c = torch.where(valid, counts.to(torch.int64),
                     torch.zeros((), dtype=torch.int64, device=counts.device))
     order = torch.sort(slots, stable=True).indices
@@ -138,11 +140,50 @@ def duplicate_prefix(slots, counts, valid):
     excl = csum - c_sorted
     seg_start = torch.ones_like(s_sorted, dtype=torch.bool)
     seg_start[1:] = s_sorted[1:] != s_sorted[:-1]
-    base = torch.cummax(torch.where(seg_start, excl, torch.zeros_like(excl)),
-                        0).values
+    pos = torch.arange(len(excl), device=excl.device)
+    first = torch.cummax(torch.where(seg_start, pos, torch.zeros_like(pos)),
+                         0).values
+    base = excl[first]
     prefix = torch.empty_like(excl)
     prefix[order] = excl - base
     return prefix.to(torch.float32)
+
+
+def duplicate_prefix_float(slots, amounts, valid):
+    """The same-slot prefix of earlier FLOAT amounts (the tier-0 debit's):
+    ``prefix[i] = sum_{j < i, slots[j] == slots[i], valid[j]} amounts[j]``
+    as float32, where :func:`duplicate_prefix`'s int64 sum would truncate
+    fractional and negative amounts.
+
+    Summation order: the earlier amounts of a slot are added one at a time
+    in request order, each add rounded to float32 (``p_0 = 0``, ``p_{k+1} =
+    p_k + a_k``). JAX sums the same terms with a segmented associative scan
+    (a tree), so with k earlier terms the two may differ by about k float32
+    spacings of the largest partial sum; whole numbers (and dyadic amounts)
+    whose partial sums stay below 2^24 spacings are exact in both. A stable
+    sort groups each slot's rows; the loop runs once per rank within a
+    segment, each pass over the rows of that rank."""
+    n = slots.shape[0]
+    a = torch.where(valid, amounts.to(torch.float32),
+                    torch.zeros((), dtype=torch.float32, device=slots.device))
+    prefix = torch.zeros(n, dtype=torch.float32, device=slots.device)
+    if n == 0:
+        return prefix
+    order = torch.sort(slots, stable=True).indices
+    s_sorted = slots[order]
+    a_sorted = a[order]
+    pos = torch.arange(n, device=slots.device)
+    seg_start = torch.ones(n, dtype=torch.bool, device=slots.device)
+    seg_start[1:] = s_sorted[1:] != s_sorted[:-1]
+    rank = pos - torch.cummax(torch.where(seg_start, pos, 0), 0).values
+    by_rank = torch.sort(rank, stable=True)
+    bounds = torch.bincount(rank).cumsum(0).tolist()
+    p_sorted = torch.zeros(n, dtype=torch.float32, device=slots.device)
+    for k in range(1, len(bounds)):
+        at = by_rank.indices[bounds[k - 1]:bounds[k]]
+        p_sorted[at] = p_sorted[at - 1] + a_sorted[at - 1]
+    prefix[order] = p_sorted
+    return prefix
 
 
 def decay_core(value, period_ewma, last_ts, exists, now, decay_rate_per_tick):

@@ -37,14 +37,21 @@ The wrappers, their sources, and what each replaces in the JAX package:
   ``kernels.window_acquire_scan_fused_packed``,
   ``window_acquire_scan_fused_bits``, ``window_acquire_scan`` and
   ``window_acquire_scan_compact``;
-- ``sweep_windows`` (``csrc/window.cu``) replaces ``kernels.sweep_windows``.
+- ``sweep_windows`` (``csrc/window.cu``) replaces ``kernels.sweep_windows``;
+- ``sema_packed`` (``csrc/sema.cu``) replaces ``kernels.sema_batch_packed``;
+- ``sweep_semas`` (``csrc/sema.cu``) replaces ``kernels.sweep_semas``;
+- ``acquire_hierarchical`` (``csrc/admission.cu``) replaces
+  ``kernels.acquire_hierarchical_packed``;
+- ``debit_packed`` (``csrc/admission.cu``) replaces
+  ``kernels.debit_batch_packed``.
 
 The bucket and window decision kernels share their machinery
-(``csrc/decide.cuh``); each source's library is named by the hash of the
-source and of every header beside it. Every wrapper call on the card is one
-kernel launch; the bulk lane's K batches and their duplicate prefixes run
-inside that one launch, and a counter sync's three phases inside one
-cooperative launch.
+(``csrc/decide.cuh``), whose segmented scan the semaphore and two-level
+admission kernels reuse; the bucket refill is ``csrc/bucket.cuh``'s. Each
+source's library is named by the hash of the source and of every header
+beside it. Every wrapper call on the card is one kernel launch; the bulk
+lane's K batches and their duplicate prefixes run inside that one launch,
+and a counter sync's or a debit's phases inside one cooperative launch.
 """
 
 from __future__ import annotations
@@ -82,6 +89,11 @@ __all__ = [
     "window_grouped",
     "window_scan_packed",
     "sweep_windows",
+    "SEMA_MAX_BATCH",
+    "sema_packed",
+    "sweep_semas",
+    "acquire_hierarchical",
+    "debit_packed",
 ]
 
 #: Slots per expired-count tile, as the TPU kernel's (256 rows × 128 lanes).
@@ -92,6 +104,9 @@ SCAN_MAX_BATCH = 4096
 FLUSH_MAX_BATCH = 29_056
 #: Rows of one window flush (16 B of shared memory a row).
 WINDOW_FLUSH_MAX_BATCH = 14_528
+#: Rows of one semaphore batch or two-level admission batch: one block of
+#: 1024 threads × 4 rows.
+SEMA_MAX_BATCH = 4096
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -104,7 +119,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _SOURCES = {"sweep": "sweep.cu", "acquire": "acquire.cu",
-            "counter": "counter.cu", "window": "window.cu"}
+            "counter": "counter.cu", "window": "window.cu",
+            "sema": "sema.cu", "admission": "admission.cu"}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -136,6 +152,16 @@ _SIGNATURES = {
                             _I32, _F32, _I32, _I32, _P, _P, _P),
         "drl_sweep_windows": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
     },
+    "sema": {
+        "drl_sema_packed": (_P, _P, _P, _I32, _P, _I32, _I32, _P, _P),
+        "drl_sweep_semas": (_P, _P, _P, _P, _P, _I64, _I32, _I64, _P),
+    },
+    "admission": {
+        "drl_acquire_hierarchical": (_P, _P, _P, _I32, _F32, _F32, _P, _P,
+                                     _P, _I32, _F32, _F32, _P, _I32, _I32,
+                                     _I32, _P, _P),
+        "drl_debit_packed": (_P, _P, _P, _I64, _P, _I32, _F32, _F32, _P, _P),
+    },
 }
 
 #: Kernel launches per wrapper — plain ints, incremented only where a wrapper
@@ -143,7 +169,8 @@ _SIGNATURES = {
 launches = {"sweep_expired": 0, "acquire_packed": 0, "acquire_grouped": 0,
             "acquire_scan": 0, "sync_counters": 0, "sweep_counters": 0,
             "window_packed": 0, "window_grouped": 0, "window_scan": 0,
-            "sweep_windows": 0}
+            "sweep_windows": 0, "sema_packed": 0, "sweep_semas": 0,
+            "acquire_hierarchical": 0, "debit_packed": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -611,3 +638,123 @@ def sweep_windows(state: K.WindowState, now: int, window_ticks: int):
     _raise_on(rc, "sweep_windows")
     launches["sweep_windows"] += 1
     return mask, counts
+
+
+def _check_semas(state: K.SemaState) -> int:
+    n = state.active.shape[0]
+    _check(state.active, "state.active", torch.int32, (n,))
+    _check(state.last_ts, "state.last_ts", torch.int32, (n,))
+    _check(state.exists, "state.exists", torch.bool, (n,))
+    if n >= 2**31:
+        raise ValueError("tables beyond 2^31 - 1 slots are not supported")
+    return n
+
+
+def sema_packed(state: K.SemaState, packed: torch.Tensor) -> torch.Tensor:
+    """One semaphore batch against the semaphore table (updated in place):
+    ``packed i32[4, B]`` as :func:`kernels.sema_batch_packed` takes it
+    (slots, signed deltas, limits, tick), ``B <=`` :data:`SEMA_MAX_BATCH`.
+    Returns ``out f32[2, B]``: ok, and each row's post-op active count."""
+    if _on_cpu(state):
+        return K.sema_batch_packed(state, packed)[1]
+    n = _check_semas(state)
+    b = packed.shape[-1]
+    _check(packed, "packed", torch.int32, (4, b))
+    if b > SEMA_MAX_BATCH:
+        raise ValueError(f"sema_packed: a batch holds at most "
+                         f"{SEMA_MAX_BATCH} rows, got {b}")
+    out = torch.empty((2, b), dtype=torch.float32, device=state.active.device)
+    rc = _lib("sema").drl_sema_packed(
+        state.active.data_ptr(), state.last_ts.data_ptr(),
+        state.exists.data_ptr(), n, packed.data_ptr(), b, scan_sort_bits(n),
+        out.data_ptr(), _stream(state.active))
+    _raise_on(rc, "sema_packed")
+    launches["sema_packed"] += 1
+    return out
+
+
+def sweep_semas(state: K.SemaState, now: int):
+    """Idle-slot sweep of the semaphore table (no permit held, untouched for
+    86400 s): clears ``state.exists`` in place and returns ``(mask i8[N],
+    tile_counts i32[T])`` with the contract of :func:`sweep_expired`."""
+    n = state.active.shape[0]
+    if _on_cpu(state):
+        _, expired = K.sweep_semas(state, now)
+        mask = expired.to(torch.int8)
+        return mask, _tile_counts(mask)
+    _check_semas(state)
+    dev = state.active.device
+    mask = torch.empty((n,), dtype=torch.int8, device=dev)
+    counts = torch.zeros((-(-n // TILE),), dtype=torch.int32, device=dev)
+    rc = _lib("sema").drl_sweep_semas(
+        state.active.data_ptr(), state.last_ts.data_ptr(),
+        state.exists.data_ptr(), mask.data_ptr(), counts.data_ptr(), n,
+        int(now), TILE, _stream(state.active))
+    _raise_on(rc, "sweep_semas")
+    launches["sweep_semas"] += 1
+    return mask, counts
+
+
+def acquire_hierarchical(child: K.BucketState, parent: K.BucketState,
+                         packed: torch.Tensor, child_capacity: float,
+                         child_rate_per_tick: float, parent_capacity: float,
+                         parent_rate_per_tick: float) -> torch.Tensor:
+    """Two-level (tenant → key) admission against two bucket tables (both
+    updated in place): ``packed i32[4, B]`` as
+    :func:`kernels.acquire_hierarchical_packed` takes it (child slots,
+    costs, tick, parent slots), ``B <=`` :data:`SEMA_MAX_BATCH`. Returns
+    ``out f32[2, B]``: granted, and ``min(child, parent)`` remaining."""
+    if _on_cpu(child):
+        if not _on_cpu(parent):
+            raise ValueError("child and parent tables lie on different "
+                             "devices")
+        return K.acquire_hierarchical_packed(
+            child, parent, packed, child_capacity, child_rate_per_tick,
+            parent_capacity, parent_rate_per_tick)[2]
+    n_c = _check_state(child)
+    n_p = _check_state(parent)
+    if parent.tokens.device != child.tokens.device:
+        raise ValueError("child and parent tables lie on different devices")
+    if parent.tokens.data_ptr() == child.tokens.data_ptr():
+        raise ValueError("child and parent must be distinct tables")
+    b = packed.shape[-1]
+    _check(packed, "packed", torch.int32, (4, b))
+    if b > SEMA_MAX_BATCH:
+        raise ValueError(f"acquire_hierarchical: a batch holds at most "
+                         f"{SEMA_MAX_BATCH} rows, got {b}")
+    out = torch.empty((2, b), dtype=torch.float32, device=child.tokens.device)
+    rc = _lib("admission").drl_acquire_hierarchical(
+        child.tokens.data_ptr(), child.last_ts.data_ptr(),
+        child.exists.data_ptr(), n_c, float(child_capacity),
+        float(child_rate_per_tick), parent.tokens.data_ptr(),
+        parent.last_ts.data_ptr(), parent.exists.data_ptr(), n_p,
+        float(parent_capacity), float(parent_rate_per_tick),
+        packed.data_ptr(), b, scan_sort_bits(n_c), scan_sort_bits(n_p),
+        out.data_ptr(), _stream(child.tokens))
+    _raise_on(rc, "acquire_hierarchical")
+    launches["acquire_hierarchical"] += 1
+    return out
+
+
+def debit_packed(state: K.BucketState, packed: torch.Tensor,
+                 capacity: float, fill_rate_per_tick: float) -> torch.Tensor:
+    """The saturating bulk debit against the bucket table (updated in
+    place), all rows in one call: ``packed i32[4, B]`` — slots, float32
+    amounts bitcast, tick, and the host's float32 same-slot prefix bitcast
+    (:func:`bucket_math.duplicate_prefix_float`); the plain version also
+    takes JAX's ``i32[3, B]``. Returns ``out f32[2, B]``: remaining and
+    shortfall. On the card: one cooperative launch."""
+    if _on_cpu(state):
+        return K.debit_batch_packed(state, packed, capacity,
+                                    fill_rate_per_tick)[1]
+    n = _check_state(state)
+    b = packed.shape[-1]
+    _check(packed, "packed", torch.int32, (4, b))
+    out = torch.empty((2, b), dtype=torch.float32, device=state.tokens.device)
+    rc = _lib("admission").drl_debit_packed(
+        state.tokens.data_ptr(), state.last_ts.data_ptr(),
+        state.exists.data_ptr(), n, packed.data_ptr(), b, float(capacity),
+        float(fill_rate_per_tick), out.data_ptr(), _stream(state.tokens))
+    _raise_on(rc, "debit_packed")
+    launches["debit_packed"] += 1
+    return out

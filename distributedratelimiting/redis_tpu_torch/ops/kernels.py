@@ -7,14 +7,19 @@ layouts and result layouts (``i32[4, B]`` / ``i32[5, B]`` in, ``f32[2, B]``
 out, ``f32[K, 2, B]`` and little-endian bit-packed ``u8[K, B/8]`` for the
 scanned bulk lane; ``i32[3, B]`` in and ``f32[2, B]`` out for a counter
 sync). The window family (sliding windows, and fixed windows with
-``interpolate=False``) takes the bucket family's operands.
+``interpolate=False``) takes the bucket family's operands. The semaphore
+batch (``i32[4, B]``: slots, signed deltas, limits, tick), the two-level
+tenant → key admission over two bucket tables (``i32[4, B]``: child slots,
+costs, tick, parent slots) and the saturating debit (``i32[3, B]``, or
+``i32[4, B]`` with the host's float prefix) return ``f32[2, B]`` too.
 They run whenever the state lies on the CPU, and they are the oracle the
 hand-written CUDA kernels (:mod:`.cuda_kernels`) are held against on the card.
 
 State is structure-of-arrays — ``tokens: f32[N]``, ``last_ts: i32[N]``,
 ``exists: bool[N]``, 9 bytes/key (a counter table: ``value``, ``period``,
 ``last_ts``, ``exists``, 13 bytes; a window table: ``prev_count``,
-``curr_count``, ``window_idx``, ``exists``, 13 bytes). Where the JAX kernels
+``curr_count``, ``window_idx``, ``exists``, 13 bytes; a semaphore table:
+``active``, ``last_ts``, ``exists``, 9 bytes). Where the JAX kernels
 donate the state buffers and return new ones, these functions update the
 state tensors IN PLACE and return the same state tuple, so the table is
 never double-buffered.
@@ -65,6 +70,13 @@ __all__ = [
     "window_acquire_scan_compact",
     "sweep_windows",
     "rebase_window_epoch",
+    "SemaState",
+    "init_sema_state",
+    "sema_batch_packed",
+    "sweep_semas",
+    "rebase_sema_epoch",
+    "acquire_hierarchical_packed",
+    "debit_batch_packed",
 ]
 
 
@@ -576,3 +588,159 @@ def rebase_window_epoch(state: WindowState,
     clamped at 0."""
     _rebase_ts(state.window_idx, state.exists, offset_windows)
     return state
+
+
+class SemaState(NamedTuple):
+    """SoA concurrency-semaphore table: permits held per key (the
+    ``ConcurrencyLimiter`` member of ``System.Threading.RateLimiting``, whose
+    leases return their permits on dispose)."""
+
+    active: torch.Tensor   # i32[N] held permits
+    last_ts: torch.Tensor  # i32[N] last touch (for idle-slot sweeps)
+    exists: torch.Tensor   # bool[N]
+
+
+def init_sema_state(n: int, device="cpu") -> SemaState:
+    return SemaState(
+        active=torch.zeros((n,), dtype=torch.int32, device=device),
+        last_ts=torch.zeros((n,), dtype=torch.int32, device=device),
+        exists=torch.zeros((n,), dtype=torch.bool, device=device),
+    )
+
+
+def sema_batch_packed(state: SemaState, packed):
+    """Batched semaphore update: ``packed i32[4, B]`` — row 0 slots
+    (negative or ≥ N ⇒ padding), row 1 signed deltas (+n acquire, -n
+    release, 0 probe), row 2 per-row permit limits, row 3 the tick.
+
+    An acquire is all-or-nothing: granted iff ``(active + prefix) + n <=
+    limit`` in float32, ``prefix`` the earlier same-slot ACQUIRE demand of
+    the batch, granted or not (conservative, as the bucket kernels). A
+    release always applies; a probe changes nothing. Every valid row's slot
+    takes ``max(active + Σ applied, 0)``; ``last_ts`` and ``exists`` are
+    written only where ``delta != 0``, so a probe neither allocates nor
+    refreshes a slot. Untouched slots are not clamped (every write clamps,
+    so none is negative; the JAX program clamps the whole table).
+
+    Returns ``(state, out f32[2, B])``: row 0 ok (releases 1), row 1 the
+    row's post-op active count, ``max((active + earlier applied) + applied,
+    0)``. A batch must not mix a release with other rows of the same slot:
+    the slot's net delta is clamped once (the store routes such rows one at
+    a time)."""
+    slots, deltas, limits, now = packed[0], packed[1], packed[2], packed[3, 0]
+    valid = _valid_slots(slots, slots >= 0, state.active.shape[0])
+    gs = torch.where(valid, slots, torch.zeros_like(slots)).long()
+    zero = torch.zeros((), dtype=torch.int32, device=slots.device)
+    active_old = torch.where(state.exists[gs], state.active[gs], zero)
+    acq = torch.clamp_min(deltas, 0)
+    prefix = bm.duplicate_prefix(slots, acq, valid)
+    f32 = torch.float32
+    fits = ((active_old.to(f32) + prefix) + acq.to(f32)) <= limits.to(f32)
+    ok = valid & ((deltas < 0) | fits)
+    applied = torch.where(ok, deltas, zero)
+
+    idx = slots[valid].long()
+    state.active.index_put_((idx,), active_old[valid])
+    state.active.index_add_(0, idx, applied[valid])
+    state.active[idx] = torch.clamp_min(state.active[idx], 0)
+    touch = slots[valid & (deltas != 0)].long()
+    state.last_ts.index_fill_(0, touch, int(now))
+    state.exists.index_fill_(0, touch, True)
+
+    applied_prefix = bm.duplicate_prefix(slots, applied, valid)
+    after = torch.clamp_min(
+        (active_old.to(f32) + applied_prefix) + applied.to(f32), 0.0)
+    return state, torch.stack([ok.to(f32), torch.where(
+        valid, after, torch.zeros((), dtype=f32, device=slots.device))])
+
+
+def sweep_semas(state: SemaState, now):
+    """Idle-slot eviction for the semaphore table: a slot that holds no
+    permit (``active <= 0``) and was untouched for the fixed 86400 s TTL.
+    A slot still holding permits is never swept: a leaked permit is the
+    operator's to release, not expiry's to forgive. Clears ``exists`` in
+    place; returns ``(state, expired bool[N])``."""
+    expired = (state.exists & (state.active <= 0)
+               & (bm.elapsed_ticks(now, state.last_ts)
+                  >= bm.GLOBAL_COUNTER_TTL_TICKS))
+    state.exists.logical_and_(~expired)
+    return state, expired
+
+
+def rebase_sema_epoch(state: SemaState, offset_ticks: int) -> SemaState:
+    """Epoch rebase of the semaphore table, in place: every timestamp shifts
+    back by ``offset_ticks``, clamped at 0 (the JAX program shifts every
+    slot, live or not)."""
+    shifted = torch.clamp_min(state.last_ts.to(torch.int64)
+                              - int(offset_ticks), 0)
+    state.last_ts.copy_(shifted.to(torch.int32))
+    return state
+
+
+def acquire_hierarchical_packed(child: BucketState, parent: BucketState,
+                                packed, child_capacity, child_rate_per_tick,
+                                parent_capacity, parent_rate_per_tick):
+    """Two-level (tenant → key) weighted-cost admission over two bucket
+    tables: ``packed i32[4, B]`` — row 0 child (key) slots, row 1 costs, row
+    2 the tick, row 3 parent (tenant) slots; a row is valid only where both
+    slots lie in their tables.
+
+    Both rows refill. The child prefix counts every earlier same-key cost;
+    the parent prefix counts the earlier same-tenant costs the child level
+    admitted. Granted iff both levels admit; both tables then take the cost,
+    or neither does, and both timestamps advance either way. Returns
+    ``(child, parent, out f32[2, B])``: row 0 granted, row 1 ``min(max((c_ref
+    - c_pre) - consumed, 0), max((p_ref - p_pre) - consumed, 0))``."""
+    cslots, counts, now, pslots = packed[0], packed[1], packed[2, 0], packed[3]
+    valid = (_valid_slots(cslots, cslots >= 0, child.tokens.shape[0])
+             & _valid_slots(pslots, pslots >= 0, parent.tokens.shape[0]))
+    counts_f = counts.to(torch.float32)
+    c_ref = bm.refill_or_init(*_gather(child, cslots, valid), now,
+                              child_capacity, child_rate_per_tick)
+    p_ref = bm.refill_or_init(*_gather(parent, pslots, valid), now,
+                              parent_capacity, parent_rate_per_tick)
+    c_pre = bm.duplicate_prefix(cslots, counts, valid)
+    child_ok = valid & (c_ref >= c_pre + counts_f)
+    p_pre = bm.duplicate_prefix(pslots, torch.where(
+        child_ok, counts, torch.zeros_like(counts)), valid)
+    granted = child_ok & (p_ref >= p_pre + counts_f)
+    zero = torch.zeros_like(counts_f)
+    consumed = torch.where(granted, counts_f, zero)
+    c_rem = torch.where(valid, torch.clamp_min(c_ref - c_pre - consumed, 0.0),
+                        zero)
+    p_rem = torch.where(valid, torch.clamp_min(p_ref - p_pre - consumed, 0.0),
+                        zero)
+    _scatter(child, cslots, valid, c_ref, consumed, now)
+    _scatter(parent, pslots, valid, p_ref, consumed, now)
+    return child, parent, torch.stack([granted.to(torch.float32),
+                                       torch.minimum(c_rem, p_rem)])
+
+
+def debit_batch_packed(state: BucketState, packed, capacity,
+                       fill_rate_per_tick):
+    """Saturating bulk debit (tier-0 reconciliation): ``packed i32[3, B]`` —
+    row 0 slots, row 1 the float32 amounts bitcast, row 2 the tick — or
+    ``i32[4, B]`` with row 3 the float32 same-slot prefix of earlier
+    amounts, bitcast (the store computes it on the host,
+    :func:`bm.duplicate_prefix_float`; three rows compute it here).
+
+    Refill as a flush does, then subtract ``applied = min(amount,
+    max(refilled - prefix, 0))`` (a negative amount credits, unclamped).
+    Returns ``(state, out f32[2, B])``: row 0 the post-debit balance
+    ``avail - applied``, row 1 the shortfall ``amount - applied``."""
+    slots, now = packed[0], packed[2, 0]
+    amounts = packed[1].contiguous().view(torch.float32)
+    valid = _valid_slots(slots, slots >= 0, state.tokens.shape[0])
+    refilled = bm.refill_or_init(*_gather(state, slots, valid), now, capacity,
+                                 fill_rate_per_tick)
+    if packed.shape[0] > 3:
+        prefix = packed[3].contiguous().view(torch.float32)
+    else:
+        prefix = bm.duplicate_prefix_float(slots, amounts, valid)
+    zero = torch.zeros_like(refilled)
+    avail = torch.clamp_min(refilled - prefix, 0.0)
+    applied = torch.where(valid, torch.minimum(amounts, avail), zero)
+    shortfall = torch.where(valid, amounts - applied, zero)
+    remaining = torch.where(valid, avail - applied, zero)
+    _scatter(state, slots, valid, refilled, applied, now)
+    return state, torch.stack([remaining, shortfall])

@@ -32,13 +32,18 @@ client serves both ``async`` callers (from any event loop) and blocking
 callers (from any thread).
 
 Windows travel as ``OP_WINDOW`` / ``OP_FWINDOW`` frames (one per request)
-and, in bulk, as ``ACQUIRE_MANY`` frames of the window kinds.
+and, in bulk, as ``ACQUIRE_MANY`` frames of the window kinds. Semaphore
+ops are one ``OP_SEMA`` frame each. Two-level (tenant → key) admission is
+one ``OP_ACQUIRE_H`` frame per request and, in bulk, one set of
+``BULK_KIND_HBUCKET`` frames per tenant; against a server that does not
+speak the tenant extension ("unknown op" / "unknown bulk kind") the client
+latches, once, to flat child-only admission and counts every such decision
+(``resilience_stats()["hier_fallbacks"]``).
 
 Not ported yet: the live-config chase ("config moved" errors surface as
-:class:`wire.RemoteStoreError`), and the semaphore, hierarchical,
-reservation, federation, placement, config, metrics, traces and audit
-methods, which raise ``NotImplementedError`` as the port's ``BucketStore``
-does.
+:class:`wire.RemoteStoreError`), and the reservation, federation,
+placement, config, metrics, traces and audit methods, which raise
+``NotImplementedError`` as the port's ``BucketStore`` does.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from distributedratelimiting.redis_tpu_torch.runtime.store import (
     BulkAcquireResult,
     SyncResult,
     _not_ported,
+    check_hierarchical_args,
 )
 from distributedratelimiting.redis_tpu_torch.utils import log, tracing
 from distributedratelimiting.redis_tpu_torch.utils.resilience import (
@@ -187,6 +193,10 @@ class RemoteBucketStore(BucketStore):
         self._rng = random.Random(resilience_seed)
         self._retries = 0
         self._timeouts = 0
+        # Old-peer latch of the tenant extension (OP_ACQUIRE_H / HBUCKET):
+        # after the first "unknown op", hierarchical calls go flat.
+        self._peer_hier = True
+        self._hier_fallbacks = 0
 
         self._coalesce = coalesce_requests
         self._coalesce_max_batch = coalesce_max_batch
@@ -383,12 +393,13 @@ class RemoteBucketStore(BucketStore):
     async def _request_io(self, op: int, key: str, count: int,
                           a: float, b: float,
                           parent: "tracing.TraceContext | None" = None,
-                          timeout_s: "float | None" = None) -> tuple:
+                          timeout_s: "float | None" = None,
+                          hier=None) -> tuple:
         tracer = tracing.get_tracer()
         if not tracer.enabled:
             with self.profiler.span(wire.op_name(op), 1):
                 return await self._request_io_unprofiled(
-                    op, key, count, a, b, timeout_s=timeout_s)
+                    op, key, count, a, b, timeout_s=timeout_s, hier=hier)
         # The trace starts here (the client wire layer): `parent` is the
         # caller-side ambient context, captured before hopping onto the
         # I/O loop where contextvars do not follow.
@@ -398,7 +409,8 @@ class RemoteBucketStore(BucketStore):
             trace = span.context if self._peer_traces else None
             try:
                 vals = await self._request_io_unprofiled(
-                    op, key, count, a, b, trace, timeout_s=timeout_s)
+                    op, key, count, a, b, trace, timeout_s=timeout_s,
+                    hier=hier)
             except wire.RemoteStoreError as exc:
                 if trace is not None and "unknown op" in str(exc):
                     # Old peer: it routed an error but does not speak the
@@ -409,12 +421,13 @@ class RemoteBucketStore(BucketStore):
                     try:
                         vals = await self._request_io_unprofiled(
                             op, key, count, a, b, None,
-                            timeout_s=timeout_s)
+                            timeout_s=timeout_s, hier=hier)
                     except wire.RemoteStoreError as exc2:
                         if "unknown op" in str(exc2):
                             # The bare re-send was rejected too: the base
-                            # op is what the peer does not speak — undo
-                            # the latch before surfacing.
+                            # op is what the peer does not speak (OP_ACQUIRE_H
+                            # against an old server) — undo the latch before
+                            # surfacing.
                             self._peer_traces = True
                         raise
                 else:
@@ -426,8 +439,8 @@ class RemoteBucketStore(BucketStore):
     async def _request_io_unprofiled(self, op: int, key: str, count: int,
                                      a: float, b: float,
                                      trace=None, *,
-                                     timeout_s: "float | None" = None
-                                     ) -> tuple:
+                                     timeout_s: "float | None" = None,
+                                     hier=None) -> tuple:
         """Send one request with the at-most-once retry contract: a
         failure in the CONNECT phase provably never sent this request's
         frame, so any op may retry it; once :meth:`_send_once` is entered
@@ -452,7 +465,7 @@ class RemoteBucketStore(BucketStore):
                 sent = True  # past here the frame may be on the wire
                 return await self._send_once(op, key, count, a, b,
                                              trace, ddl, timeout,
-                                             attempt=atl)
+                                             attempt=atl, hier=hier)
             except wire.RemoteStoreError as exc:
                 if atl and "unknown op" in str(exc):
                     # Pre-attempt peer: it routed an error without
@@ -488,7 +501,8 @@ class RemoteBucketStore(BucketStore):
     async def _send_once(self, op: int, key: str, count: int,
                          a: float, b: float, trace,
                          deadline_s: "float | None",
-                         timeout: float, *, attempt: int = 0) -> tuple:
+                         timeout: float, *, attempt: int = 0,
+                         hier=None) -> tuple:
         if self._writer is None or self._io_loop is None:
             raise ConnectionError("store client is closed")
         self._seq = (self._seq + 1) & 0xFFFFFFFF
@@ -502,7 +516,7 @@ class RemoteBucketStore(BucketStore):
                     wire.encode_request(seq, op, key, count, a, b,
                                         trace=trace,
                                         deadline_s=deadline_s,
-                                        attempt=attempt),
+                                        attempt=attempt, hier=hier),
                 )
                 # Drain only under real buffer pressure.
                 if (self._writer.transport.get_write_buffer_size()
@@ -527,11 +541,13 @@ class RemoteBucketStore(BucketStore):
 
     async def _request(self, op: int, key: str = "", count: int = 0,
                        a: float = 0.0, b: float = 0.0,
-                       timeout_s: "float | None" = None) -> tuple:
+                       timeout_s: "float | None" = None,
+                       hier=None) -> tuple:
         # Capture the ambient trace context on the CALLER's side — the
         # coroutine body runs on the I/O loop thread.
         return await self._await_on_io(self._request_io(
-            op, key, count, a, b, tracing.current_context(), timeout_s))
+            op, key, count, a, b, tracing.current_context(), timeout_s,
+            hier))
 
     def _blocking_timeout(self, timeout_s: "float | None" = None) -> float:
         """Grace timeout for a blocking ``.result()`` wait: the request
@@ -544,10 +560,11 @@ class RemoteBucketStore(BucketStore):
 
     def _request_blocking(self, op: int, key: str = "", count: int = 0,
                           a: float = 0.0, b: float = 0.0,
-                          timeout_s: "float | None" = None) -> tuple:
+                          timeout_s: "float | None" = None,
+                          hier=None) -> tuple:
         return self._submit(self._request_io(
             op, key, count, a, b, tracing.current_context(),
-            timeout_s)).result(self._blocking_timeout(timeout_s))
+            timeout_s, hier)).result(self._blocking_timeout(timeout_s))
 
     async def _retry_sleep(self, attempt: int) -> None:
         """One retry's backoff: the policy's jittered delay, stretched to
@@ -587,7 +604,8 @@ class RemoteBucketStore(BucketStore):
                        profile: bool = True,
                        parent: "tracing.TraceContext | None" = None,
                        timeout_s: "float | None" = None,
-                       kind: int = wire.BULK_KIND_BUCKET) -> list[tuple]:
+                       kind: int = wire.BULK_KIND_BUCKET,
+                       hier=None) -> list[tuple]:
         """Send every chunk of one bulk call pipelined on the connection,
         then await all replies: one wire round trip (per ~MAX_FRAME of
         keys) carries thousands of decisions. Chunks after the first are
@@ -623,7 +641,7 @@ class RemoteBucketStore(BucketStore):
                                 seq, blob, offsets, klens, counts_np,
                                 start, end, capacity, fill_rate,
                                 with_remaining=with_remaining, kind=kind,
-                                chained=(i > 0), trace=trace))
+                                chained=(i > 0), trace=trace, hier=hier))
                     await self._writer.drain()
                 except Exception as exc:
                     self._drop_connection(
@@ -643,11 +661,13 @@ class RemoteBucketStore(BucketStore):
                     self._pending.pop(seq, None)
 
     @staticmethod
-    def _bulk_prepare(keys: Sequence[str], counts: Sequence[int]):
+    def _bulk_prepare(keys: Sequence[str], counts: Sequence[int],
+                      budget: "int | None" = None):
         """Whole-call key prep: ONE join + ONE encode for the all-ascii
         case, per-key encode only when non-ascii keys are present. Returns
         ``(blob, offsets, klens, counts_np, spans)`` — chunks encode by
-        slicing the blob (:func:`wire.encode_bulk_request_span`)."""
+        slicing the blob (:func:`wire.encode_bulk_request_span`), each
+        within ``budget`` bytes (default the wire's chunk budget)."""
         n = len(keys)
         counts_np = np.asarray(counts, np.uint32)
         joined = "".join(keys)
@@ -662,7 +682,7 @@ class RemoteBucketStore(BucketStore):
         offsets = np.zeros(n + 1, np.int64)
         np.cumsum(klens, out=offsets[1:])
         return (blob, offsets, klens, counts_np,
-                wire.bulk_chunk_spans(klens))
+                wire.bulk_chunk_spans(klens, budget))
 
     @staticmethod
     def _bulk_assemble(chunks: list[tuple],
@@ -897,13 +917,182 @@ class RemoteBucketStore(BucketStore):
             wire.OP_FWINDOW, key, count, limit, window_sec)
         return AcquireResult(granted, remaining)
 
+    # -- concurrency semaphore (OP_SEMA) ------------------------------------
+    async def concurrency_acquire(self, key: str, count: int,
+                                  limit: int) -> AcquireResult:
+        granted, active = await self._request(
+            wire.OP_SEMA, key, count, float(limit), 0.0)
+        return AcquireResult(granted, active)
+
+    def concurrency_acquire_blocking(self, key: str, count: int,
+                                     limit: int) -> AcquireResult:
+        granted, active = self._request_blocking(
+            wire.OP_SEMA, key, count, float(limit), 0.0)
+        return AcquireResult(granted, active)
+
+    async def concurrency_release(self, key: str, count: int) -> None:
+        await self._request(wire.OP_SEMA, key, -count, 0.0, 0.0)
+
+    def concurrency_release_blocking(self, key: str, count: int) -> None:
+        self._request_blocking(wire.OP_SEMA, key, -count, 0.0, 0.0)
+
+    # -- hierarchical tenant → key admission (OP_ACQUIRE_H / HBUCKET) -------
+    def _note_hier_fallback(self) -> None:
+        """Old-peer latch: log the degradation once per client (the tenant
+        level goes unenforced against this server), count every fallback
+        decision."""
+        if self._peer_hier:
+            self._peer_hier = False
+            log.error_evaluating_kernel(RuntimeError(
+                "server does not speak the tenant extension "
+                "(OP_ACQUIRE_H/HBUCKET); hierarchical calls fall back "
+                "to FLAT child-only admission — tenant budgets are NOT "
+                "enforced against this peer"))
+        self._hier_fallbacks += 1
+
+    @staticmethod
+    def _hier_unsupported(exc: Exception) -> bool:
+        msg = str(exc)
+        return "unknown op" in msg or "unknown bulk kind" in msg
+
+    async def acquire_hierarchical(self, tenant: str, key: str, count: int,
+                                   tenant_capacity: float,
+                                   tenant_fill_rate_per_sec: float,
+                                   capacity: float,
+                                   fill_rate_per_sec: float, *,
+                                   priority: int = 0,
+                                   timeout_s: "float | None" = None
+                                   ) -> AcquireResult:
+        """Two-level admission as ONE ``OP_ACQUIRE_H`` frame, decided
+        server-side in one store call; ``priority`` rides the tenant
+        extension."""
+        check_hierarchical_args(count, tenant_capacity,
+                                tenant_fill_rate_per_sec, capacity,
+                                fill_rate_per_sec)
+        if self._peer_hier:
+            try:
+                granted, remaining = await self._request(
+                    wire.OP_ACQUIRE_H, key, count, capacity,
+                    fill_rate_per_sec, timeout_s=timeout_s,
+                    hier=(tenant, tenant_capacity, tenant_fill_rate_per_sec,
+                          priority))
+                return AcquireResult(granted, remaining)
+            except wire.RemoteStoreError as exc:
+                if not self._hier_unsupported(exc):
+                    raise
+                self._note_hier_fallback()
+        else:
+            self._hier_fallbacks += 1
+        return await self.acquire(key, count, capacity, fill_rate_per_sec,
+                                  timeout_s=timeout_s)
+
+    def acquire_hierarchical_blocking(self, tenant: str, key: str,
+                                      count: int, tenant_capacity: float,
+                                      tenant_fill_rate_per_sec: float,
+                                      capacity: float,
+                                      fill_rate_per_sec: float, *,
+                                      priority: int = 0,
+                                      timeout_s: "float | None" = None
+                                      ) -> AcquireResult:
+        check_hierarchical_args(count, tenant_capacity,
+                                tenant_fill_rate_per_sec, capacity,
+                                fill_rate_per_sec)
+        if self._peer_hier:
+            try:
+                granted, remaining = self._request_blocking(
+                    wire.OP_ACQUIRE_H, key, count, capacity,
+                    fill_rate_per_sec, timeout_s=timeout_s,
+                    hier=(tenant, tenant_capacity, tenant_fill_rate_per_sec,
+                          priority))
+                return AcquireResult(granted, remaining)
+            except wire.RemoteStoreError as exc:
+                if not self._hier_unsupported(exc):
+                    raise
+                self._note_hier_fallback()
+        else:
+            self._hier_fallbacks += 1
+        return self.acquire_blocking(key, count, capacity, fill_rate_per_sec,
+                                     timeout_s=timeout_s)
+
+    @staticmethod
+    def _hier_tail_budget(tenant: str) -> int:
+        """Chunk budget of HBUCKET frames: the tenant extension rides every
+        chunk, so the spans leave room for it under the frame limit."""
+        tlen = len(tenant.encode("utf-8", "surrogateescape"))
+        return wire.BULK_CHUNK_BUDGET - (2 + tlen + wire.HIER_TAIL_LEN)
+
+    async def acquire_hierarchical_many(self, tenants, keys, counts,
+                                        tenant_capacity: float,
+                                        tenant_fill_rate_per_sec: float,
+                                        capacity: float,
+                                        fill_rate_per_sec: float, *,
+                                        with_remaining: bool = True,
+                                        priority: int = 0,
+                                        timeout_s: "float | None" = None
+                                        ) -> BulkAcquireResult:
+        """Bulk two-level admission over the wire: rows group by tenant
+        (one set of HBUCKET frames per distinct tenant, all in flight
+        together), results scatter back in row order."""
+        n = len(keys)
+        counts_np = np.asarray(counts, np.int64)
+        check_hierarchical_args(int(counts_np.min(initial=0)),
+                                tenant_capacity, tenant_fill_rate_per_sec,
+                                capacity, fill_rate_per_sec)
+        if n == 0:
+            return self._bulk_empty(with_remaining)
+        if not self._peer_hier:
+            self._hier_fallbacks += 1
+            return await self.acquire_many(
+                keys, counts, capacity, fill_rate_per_sec,
+                with_remaining=with_remaining, timeout_s=timeout_s)
+        by_tenant: dict[str, list[int]] = {}
+        for i, t in enumerate(tenants):
+            by_tenant.setdefault(t, []).append(i)
+        parent = tracing.current_context()
+
+        async def one_tenant(tenant: str, idx: list[int]):
+            sub_keys = [keys[i] for i in idx]
+            sub_counts = counts_np[idx]
+            if self._peer_hier:
+                blob, offsets, klens, c_np, spans = self._bulk_prepare(
+                    sub_keys, sub_counts, self._hier_tail_budget(tenant))
+                try:
+                    chunks = await self._await_on_io(self._bulk_io(
+                        blob, offsets, klens, c_np, spans, capacity,
+                        fill_rate_per_sec, with_remaining, parent=parent,
+                        timeout_s=timeout_s, kind=wire.BULK_KIND_HBUCKET,
+                        hier=(tenant, tenant_capacity,
+                              tenant_fill_rate_per_sec, priority)))
+                    return self._bulk_assemble(chunks, with_remaining)
+                except wire.RemoteStoreError as exc:
+                    if not self._hier_unsupported(exc):
+                        raise
+                    self._note_hier_fallback()
+            else:  # latched mid-call by a sibling tenant's frames
+                self._hier_fallbacks += 1
+            return await self.acquire_many(
+                sub_keys, sub_counts, capacity, fill_rate_per_sec,
+                with_remaining=with_remaining, timeout_s=timeout_s)
+
+        groups = list(by_tenant.items())
+        results = await asyncio.gather(
+            *(one_tenant(t, idx) for t, idx in groups))
+        granted = np.zeros(n, bool)
+        remaining = np.zeros(n, np.float32) if with_remaining else None
+        for (_, idx), res in zip(groups, results):
+            granted[idx] = res.granted
+            if remaining is not None:
+                remaining[idx] = res.remaining
+        return BulkAcquireResult(granted, remaining)
+
     async def ping(self, *, timeout_s: "float | None" = None) -> None:
         await self._request(wire.OP_PING, timeout_s=timeout_s)
 
     def resilience_stats(self) -> dict:
         """Client-side resilience counters: retries issued, request
-        timeouts, consecutive dial failures, and whether the reconnect
-        backoff window is currently open."""
+        timeouts, consecutive dial failures, whether the reconnect backoff
+        window is currently open, and the hierarchical decisions that fell
+        back to flat admission against an old peer."""
         loop = self._io_loop
         backing_off = (loop is not None
                        and self._backoff_until > loop.time())
@@ -912,6 +1101,7 @@ class RemoteBucketStore(BucketStore):
             "timeouts": self._timeouts,
             "connect_failures": self._connect_failures,
             "backing_off": backing_off,
+            "hier_fallbacks": self._hier_fallbacks,
         }
 
     async def save(self) -> None:
@@ -978,8 +1168,8 @@ class RemoteBucketStore(BucketStore):
 
 
 # The JAX client's other lanes: metrics/traces/audit exports, placement and
-# live-config control, and federation. (Semaphores, hierarchical admission
-# and reservations raise through BucketStore already.)
+# live-config control, and federation. (Reservations raise through
+# BucketStore already.)
 for _name in ("metrics", "traces", "audit", "placement_fetch",
               "placement_announce", "migrate_pull", "migrate_push",
               "config_fetch", "config_announce", "fed_lease", "fed_renew",

@@ -11,14 +11,19 @@ request is served as its own task and answers in completion order (the seq
 id matches replies to requests); bulk continuation chunks chain per
 connection so duplicate keys across a chunk boundary decide in chunk order.
 
-Served: ``OP_ACQUIRE``, ``OP_WINDOW``, ``OP_FWINDOW``, ``OP_ACQUIRE_MANY``
-(bucket, window and fixed-window kinds; keys resolve straight from the
-frame's bytes through ``wire.KeyBlob``), ``OP_PEEK``, ``OP_SYNC``,
-``OP_PING``, ``OP_SAVE``, ``OP_STATS`` and the ``OP_HELLO`` auth handshake,
-with the trace, deadline and attempt tails (deadline-expired work is shed
-unexecuted). An op the JAX server serves but this one does not yet
-(semaphores, hierarchical, reservations, placement, live config,
-federation, metrics, traces, audit) answers a routable error that
+Served: ``OP_ACQUIRE``, ``OP_WINDOW``, ``OP_FWINDOW``, ``OP_SEMA``
+(semaphore acquire, probe and release), ``OP_ACQUIRE_H`` (two-level tenant
+→ key admission), ``OP_ACQUIRE_MANY`` (bucket, window, fixed-window and
+hierarchical-bucket kinds; keys resolve straight from the frame's bytes
+through ``wire.KeyBlob``), ``OP_PEEK``, ``OP_SYNC``, ``OP_PING``,
+``OP_SAVE``, ``OP_STATS`` and the ``OP_HELLO`` auth handshake, with the
+trace, deadline and attempt tails (deadline-expired work is shed
+unexecuted). Granted hierarchical costs feed a per-tenant
+:class:`~.admission.TokenVelocity` (``OP_STATS`` ``token_velocity``). The
+JAX server's live-config, drain-envelope, placement and heavy-hitter gates
+on the hierarchical lanes are not ported (nor those subsystems). An op the
+JAX server serves but this one does not yet (reservations, placement, live
+config, federation, metrics, traces, audit) answers a routable error that
 names it as not served — never the "unknown op" / "unknown bulk kind" text,
 which a JAX client reads as an old peer and silently falls back from.
 
@@ -32,7 +37,9 @@ import asyncio
 import hmac
 import time
 
-from distributedratelimiting.redis_tpu_torch.runtime import wire
+import numpy as np
+
+from distributedratelimiting.redis_tpu_torch.runtime import admission, wire
 from distributedratelimiting.redis_tpu_torch.runtime.store import BucketStore
 from distributedratelimiting.redis_tpu_torch.utils import log, tracing
 from distributedratelimiting.redis_tpu_torch.utils.metrics import (
@@ -44,12 +51,13 @@ __all__ = ["BucketStoreServer", "main"]
 #: Ops the JAX server serves that this one does not yet. Each answers a
 #: routable error that never reads as "unknown op" (see the module doc).
 _UNPORTED_OPS = frozenset((
-    wire.OP_SEMA, wire.OP_METRICS, wire.OP_TRACES, wire.OP_PLACEMENT,
+    wire.OP_METRICS, wire.OP_TRACES, wire.OP_PLACEMENT,
     wire.OP_PLACEMENT_ANNOUNCE, wire.OP_MIGRATE_PULL, wire.OP_MIGRATE_PUSH,
-    wire.OP_CONFIG, wire.OP_ACQUIRE_H, wire.OP_RESERVE, wire.OP_SETTLE,
+    wire.OP_CONFIG, wire.OP_RESERVE, wire.OP_SETTLE,
     wire.OP_FED_LEASE, wire.OP_FED_RENEW, wire.OP_FED_RECLAIM,
     wire.OP_AUDIT))
-_UNPORTED_BULK_KINDS = {wire.BULK_KIND_HBUCKET: "hierarchical bucket"}
+#: Bulk kinds the JAX server serves that this one does not yet: none.
+_UNPORTED_BULK_KINDS: dict[int, str] = {}
 
 
 def _not_served(what: str) -> str:
@@ -107,6 +115,10 @@ class BucketStoreServer:
         # to the transport.
         self.serving_latency = LatencyHistogram()
         self.reply_latency = LatencyHistogram()
+        # Per-tenant tokens/s of the hierarchical lanes' GRANTED costs
+        # (OP_STATS "token_velocity"); None turns the feed off.
+        self.token_velocity: "admission.TokenVelocity | None" = (
+            admission.TokenVelocity())
         # Tracing rides the process-global tracer: True enables it with
         # defaults, a dict passes knobs through, None leaves it as is.
         if tracing_config is not None:
@@ -357,6 +369,9 @@ class BucketStoreServer:
                         seq, wire.RESP_ERROR, _not_served(
                             f"bulk kind {kind} "
                             f"({_UNPORTED_BULK_KINDS[kind]})"))
+                if kind == wire.BULK_KIND_HBUCKET:
+                    return await self._serve_bulk_hier(
+                        seq, body, keys, counts, a, b, with_rem)
                 if kind == wire.BULK_KIND_BUCKET:
                     res = await self.store.acquire_many(
                         keys, counts, a, b, with_remaining=with_rem)
@@ -368,12 +383,7 @@ class BucketStoreServer:
                 return wire.encode_bulk_response(seq, res.granted,
                                                  res.remaining)
             if len(body) >= 6 and body[5] == wire.OP_ACQUIRE_H:
-                # Strict decode first (a malformed frame answers its
-                # routable decode error), then the not-served answer.
-                seq = wire.decode_hierarchical_request(body)[0]
-                return wire.encode_response(
-                    seq, wire.RESP_ERROR,
-                    _not_served(wire.op_name(wire.OP_ACQUIRE_H)))
+                return await self._serve_hierarchical(body)
             try:
                 seq, op, key, count, a, b = wire.decode_request(body)
             except wire.RemoteStoreError:
@@ -401,6 +411,18 @@ class BucketStoreServer:
                 res = await self.store.fixed_window_acquire(key, count, a, b)
                 resp = wire.encode_response(
                     seq, wire.RESP_DECISION, res.granted, res.remaining)
+            elif op == wire.OP_SEMA:
+                # count >= 0 acquires (0 probes) against the limit in a;
+                # a negative count releases.
+                if count >= 0:
+                    res = await self.store.concurrency_acquire(key, count,
+                                                               int(a))
+                    resp = wire.encode_response(
+                        seq, wire.RESP_DECISION, res.granted, res.remaining)
+                else:
+                    await self.store.concurrency_release(key, -count)
+                    resp = wire.encode_response(seq, wire.RESP_DECISION,
+                                                True, 0.0)
             elif op == wire.OP_PEEK:
                 # peek_blocking can wait on the store lock and a device
                 # readback — off-loop, so one PEEK never stalls the other
@@ -445,6 +467,34 @@ class BucketStoreServer:
             resp = wire.encode_response(seq, wire.RESP_ERROR, repr(exc))
         return resp
 
+    async def _serve_hierarchical(self, body: bytes) -> bytes:
+        """One ``OP_ACQUIRE_H`` frame: two-level tenant → key weighted-cost
+        admission, one store call (one launch on a card store)."""
+        seq, key, count, a, b, tenant, ta, tb, priority = (
+            wire.decode_hierarchical_request(body))
+        res = await self.store.acquire_hierarchical(
+            tenant, key, count, ta, tb, a, b, priority=priority)
+        if res.granted and count > 0 and self.token_velocity is not None:
+            self.token_velocity.observe(tenant, float(count))
+        return wire.encode_response(seq, wire.RESP_DECISION, res.granted,
+                                    res.remaining)
+
+    async def _serve_bulk_hier(self, seq: int, body: bytes, keys, counts,
+                               a: float, b: float, with_rem: bool) -> bytes:
+        """One ``BULK_KIND_HBUCKET`` frame: one tenant's rows (the tenant
+        extension rides the frame's tail) decided two-level in one store
+        call."""
+        tenant, ta, tb, priority = wire.bulk_hier_tail(body)
+        counts_np = np.asarray(counts, np.int64)
+        res = await self.store.acquire_hierarchical_many(
+            [tenant] * len(keys), keys, counts_np, ta, tb, a, b,
+            with_remaining=with_rem, priority=priority)
+        if self.token_velocity is not None:
+            admitted = int(counts_np[np.asarray(res.granted, bool)].sum())
+            if admitted > 0:
+                self.token_velocity.observe(tenant, float(admitted))
+        return wire.encode_bulk_response(seq, res.granted, res.remaining)
+
     async def _save(self) -> None:
         """Checkpoint the store to the configured path off-loop.
         Concurrent SAVEs piggyback on the one in flight (BGSAVE semantics)
@@ -487,6 +537,9 @@ class BucketStoreServer:
                                 "samples": hist.total}
         if stages:
             payload["stages"] = stages
+        if (self.token_velocity is not None
+                and self.token_velocity.observed_tokens > 0):
+            payload["token_velocity"] = self.token_velocity.snapshot()
         if self.retry_attempts_seen:
             payload["retry"] = {"attempts_seen": self.retry_attempts_seen}
         return json.dumps(payload)

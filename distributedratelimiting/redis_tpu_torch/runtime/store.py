@@ -1,12 +1,14 @@
 """The bucket store — where rate-limit state lives and decisions execute.
 
-The exact-token-bucket, decaying-counter and window half of the JAX
-package's ``runtime/store.py``, on PyTorch:
+The JAX package's ``runtime/store.py`` on PyTorch, all but the
+reservation lane and the migration export:
 
-- :class:`BucketStore` — the storage seam (abstract). The bucket, counter
-  and window (sliding and fixed) methods are the contract; the semaphore,
-  hierarchical and reservation methods are not ported yet and raise
-  ``NotImplementedError``.
+- :class:`BucketStore` — the storage seam (abstract). The bucket, counter,
+  window (sliding and fixed) and semaphore methods are the contract; the
+  two-level (tenant → key) admission methods default to a sequential
+  compose; ``debit_many`` is for stores that host tier-0 replicas;
+  ``reserve``, ``settle`` and ``export_entries`` are not ported yet and
+  raise ``NotImplementedError``.
 - :class:`DeviceBucketStore` — per-key bucket state lives on the device
   as SoA tensors, one table per bucket configuration ``(capacity,
   fill_rate)``; ``acquire`` calls are micro-batched into one packed
@@ -16,9 +18,13 @@ package's ``runtime/store.py``, on PyTorch:
   is one ``i32[3, B]`` operand, one launch and one ``f32[2, B]`` readback.
   Window limiters (sliding, and fixed with no interpolation) live in one
   window table per ``(limit, window_ticks, fixed)`` with the same operands,
-  batching and bulk lane. The store's clock stamps every launch. Tables grow
-  by doubling and reclaim slots with TTL sweeps; every table resolves keys
-  through the native key directory when it builds.
+  batching and bulk lane. Concurrency semaphores live in one semaphore
+  table (``i32[4, B]`` operand, one launch a call or a 4096-row chunk);
+  two-level admission decides a key's bucket and its tenant's bucket in one
+  launch per ``max_batch`` rows; the tier-0 debit is one launch for all its
+  rows. The store's clock stamps every launch. Tables grow by doubling and
+  reclaim slots with TTL sweeps; every table resolves keys through the
+  native key directory when it builds.
 
 The store runs on ``cuda`` by default, where every decision, sync and sweep
 goes through the hand-written kernels of :mod:`..ops.cuda_kernels`. It runs on
@@ -61,7 +67,27 @@ __all__ = [
     "BucketStore",
     "DeviceBucketStore",
     "SyncResult",
+    "check_hierarchical_args",
 ]
+
+
+def check_hierarchical_args(count: int, tenant_capacity: float,
+                            tenant_fill_rate_per_sec: float,
+                            capacity: float,
+                            fill_rate_per_sec: float) -> None:
+    """The one validation of every hierarchical lane (in process, client,
+    server): costs are non-negative (a negative cost would mint tokens
+    through the refund), and the tenant and key configs differ (identical
+    ``(capacity, fill_rate)`` would alias both levels into one table — a
+    flat limiter spelled twice, not a hierarchy)."""
+    if count < 0:
+        raise ValueError("hierarchical acquire cost must be >= 0")
+    if (float(tenant_capacity), float(tenant_fill_rate_per_sec)) == \
+            (float(capacity), float(fill_rate_per_sec)):
+        raise ValueError(
+            "hierarchical acquire requires distinct tenant and key "
+            "configs (identical (capacity, fill_rate) would alias the "
+            "two levels into one table)")
 
 # Host tick value at which the store rebases its epoch (≪ int32 max), and
 # how much history the new epoch keeps (2^29 ticks, ~6 days).
@@ -217,6 +243,131 @@ class BucketStore(abc.ABC):
             np.fromiter((r.remaining for r in results), np.float32,
                         len(results)) if with_remaining else None)
 
+    # -- hierarchical tenant → key admission (runtime/admission.py) --------
+    async def acquire_hierarchical(self, tenant: str, key: str, count: int,
+                                   tenant_capacity: float,
+                                   tenant_fill_rate_per_sec: float,
+                                   capacity: float,
+                                   fill_rate_per_sec: float, *,
+                                   priority: int = 0) -> AcquireResult:
+        """Two-level weighted-cost admission: granted iff BOTH the key's
+        ``(capacity, fill_rate)`` bucket and its tenant's
+        ``(tenant_capacity, tenant_fill_rate)`` bucket admit ``count``
+        tokens, both debited or neither. ``remaining`` is ``min(child,
+        parent)``. ``priority`` (``admission.PRIORITY_*``) never changes a
+        decision here; wire stores stamp it on the frame.
+
+        Default: parent then child, with a refund of the parent through
+        :meth:`debit_many` (a negative amount) on a child deny where the
+        store has that lane — under-admission only, never over.
+        :class:`DeviceBucketStore` decides both levels in one launch;
+        ``RemoteBucketStore`` sends one ``OP_ACQUIRE_H`` frame."""
+        check_hierarchical_args(count, tenant_capacity,
+                                tenant_fill_rate_per_sec, capacity,
+                                fill_rate_per_sec)
+        parent = await self.acquire(tenant, count, tenant_capacity,
+                                    tenant_fill_rate_per_sec)
+        if not parent.granted:
+            return AcquireResult(False, parent.remaining)
+        child = await self.acquire(key, count, capacity, fill_rate_per_sec)
+        if child.granted:
+            return AcquireResult(True, min(child.remaining,
+                                           parent.remaining))
+        if count > 0 and type(self).debit_many is not BucketStore.debit_many:
+            # The refund can only under-credit: the next refill's capacity
+            # clamp bounds a transient overshoot.
+            await self.debit_many([tenant], [-float(count)],
+                                  tenant_capacity, tenant_fill_rate_per_sec)
+        return AcquireResult(False, child.remaining)
+
+    def acquire_hierarchical_blocking(self, tenant: str, key: str,
+                                      count: int, tenant_capacity: float,
+                                      tenant_fill_rate_per_sec: float,
+                                      capacity: float,
+                                      fill_rate_per_sec: float, *,
+                                      priority: int = 0) -> AcquireResult:
+        """Blocking compose. It has no refund lane: a child deny leaves the
+        parent debited (under-admission only)."""
+        check_hierarchical_args(count, tenant_capacity,
+                                tenant_fill_rate_per_sec, capacity,
+                                fill_rate_per_sec)
+        parent = self.acquire_blocking(tenant, count, tenant_capacity,
+                                       tenant_fill_rate_per_sec)
+        if not parent.granted:
+            return AcquireResult(False, parent.remaining)
+        child = self.acquire_blocking(key, count, capacity,
+                                      fill_rate_per_sec)
+        if child.granted:
+            return AcquireResult(True, min(child.remaining,
+                                           parent.remaining))
+        return AcquireResult(False, child.remaining)
+
+    async def acquire_hierarchical_many(self, tenants: Sequence[str],
+                                        keys: Sequence[str],
+                                        counts: Sequence[int],
+                                        tenant_capacity: float,
+                                        tenant_fill_rate_per_sec: float,
+                                        capacity: float,
+                                        fill_rate_per_sec: float, *,
+                                        with_remaining: bool = True,
+                                        priority: int = 0
+                                        ) -> BulkAcquireResult:
+        """Row ``i`` decides ``counts[i]`` tokens for ``(tenants[i],
+        keys[i])``; same-key and same-tenant rows serialize in request
+        order (conservatively on batched stores, on both axes). Default: a
+        loop over :meth:`acquire_hierarchical`."""
+        n = len(keys)
+        granted = np.empty(n, bool)
+        remaining = np.empty(n, np.float32) if with_remaining else None
+        for i in range(n):
+            r = await self.acquire_hierarchical(
+                tenants[i], keys[i], int(counts[i]), tenant_capacity,
+                tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+                priority=priority)
+            granted[i] = r.granted
+            if remaining is not None:
+                remaining[i] = r.remaining
+        return BulkAcquireResult(granted, remaining)
+
+    def acquire_hierarchical_many_blocking(self, tenants: Sequence[str],
+                                           keys: Sequence[str],
+                                           counts: Sequence[int],
+                                           tenant_capacity: float,
+                                           tenant_fill_rate_per_sec: float,
+                                           capacity: float,
+                                           fill_rate_per_sec: float, *,
+                                           with_remaining: bool = True,
+                                           priority: int = 0
+                                           ) -> BulkAcquireResult:
+        n = len(keys)
+        granted = np.empty(n, bool)
+        remaining = np.empty(n, np.float32) if with_remaining else None
+        for i in range(n):
+            r = self.acquire_hierarchical_blocking(
+                tenants[i], keys[i], int(counts[i]), tenant_capacity,
+                tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+                priority=priority)
+            granted[i] = r.granted
+            if remaining is not None:
+                remaining[i] = r.remaining
+        return BulkAcquireResult(granted, remaining)
+
+    # -- tier-0 reconciliation --------------------------------------------
+    async def debit_many(self, keys: Sequence[str],
+                         amounts: Sequence[float], capacity: float,
+                         fill_rate_per_sec: float
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """Saturating bulk debit — drain permits an edge cache already
+        granted out of the authoritative bucket table (refill, then
+        subtract clamped at zero; a negative amount credits). Returns
+        ``(remaining f64[n], shortfall f64[n])``: each key's post-debit
+        balance and the part of its amount that found no tokens. Callers
+        pre-aggregate per key. Stores that host no tier-0 replicas keep
+        this default, which raises."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support tier-0 replica "
+            "reconciliation (debit_many)")
+
     # -- sliding window ----------------------------------------------------
     @abc.abstractmethod
     async def window_acquire(self, key: str, count: int, limit: float,
@@ -264,6 +415,65 @@ class BucketStore(abc.ABC):
             periods[i] = res.period_ewma_ticks
         return scores, periods
 
+    # -- concurrency semaphore (held permits, returned on lease dispose) ---
+    @abc.abstractmethod
+    async def concurrency_acquire(self, key: str, count: int,
+                                  limit: int) -> AcquireResult:
+        """Atomically add ``count`` held permits iff ``active + count <=
+        limit``; ``remaining`` is the post-op active count. ``count == 0``
+        is a probe."""
+
+    @abc.abstractmethod
+    def concurrency_acquire_blocking(self, key: str, count: int,
+                                     limit: int) -> AcquireResult: ...
+
+    @abc.abstractmethod
+    async def concurrency_release(self, key: str, count: int) -> None:
+        """Return ``count`` held permits (clamped at zero held)."""
+
+    @abc.abstractmethod
+    def concurrency_release_blocking(self, key: str, count: int) -> None: ...
+
+    async def concurrency_acquire_many(self, keys: Sequence[str],
+                                       deltas: Sequence[int],
+                                       limit: "int | Sequence[int]"
+                                       ) -> BulkAcquireResult:
+        """Signed semaphore ops in one call: +n acquires (all-or-nothing
+        against the row's limit), -n releases (always, clamped at zero
+        held), 0 probes; ``limit`` is a scalar or one per row. Same-key rows
+        serialize in request order (acquire admission conservatively on
+        batched stores). Rows: ``granted`` (releases True) and
+        ``remaining``, the row's post-op active count (0.0 for releases,
+        as the scalar wire reply). Default: an in-order loop over the
+        per-key path."""
+        n = len(keys)
+        limits = self._sema_limits(limit, n)
+        granted = np.empty(n, bool)
+        remaining = np.empty(n, np.float32)
+        for i, (k, d) in enumerate(zip(keys, deltas)):
+            d = int(d)
+            if d >= 0:
+                r = await self.concurrency_acquire(k, d, int(limits[i]))
+                granted[i] = r.granted
+                remaining[i] = r.remaining
+            else:
+                await self.concurrency_release(k, -d)
+                granted[i] = True
+                remaining[i] = 0.0
+        return BulkAcquireResult(granted, remaining)
+
+    @staticmethod
+    def _sema_limits(limit, n: int) -> np.ndarray:
+        """Broadcast a scalar-or-per-row ``limit`` to ``i64[n]``."""
+        arr = np.asarray(limit, np.int64)
+        if arr.ndim == 0:
+            return np.full(n, int(arr), np.int64)
+        if arr.shape != (n,):
+            raise ValueError(
+                f"limit must be a scalar or one per row: got shape "
+                f"{arr.shape} for {n} rows")
+        return arr
+
     # -- lifecycle / ops ---------------------------------------------------
     @abc.abstractmethod
     async def aclose(self) -> None: ...
@@ -280,22 +490,14 @@ def _not_ported(name: str):
     def method(self, *args, **kwargs):
         raise NotImplementedError(
             f"{type(self).__name__}.{name} is not ported to the PyTorch "
-            "package yet (the exact token bucket, the decaying counters and "
-            "the windows are)")
+            "package yet")
 
     method.__name__ = name
     return method
 
 
-# The rest of the storage seam: semaphores, hierarchical admission,
-# reservations, tier-0 debits, migration export.
-for _name in ("debit_many", "concurrency_acquire",
-              "concurrency_acquire_blocking",
-              "concurrency_release", "concurrency_release_blocking",
-              "concurrency_acquire_many", "acquire_hierarchical",
-              "acquire_hierarchical_blocking", "acquire_hierarchical_many",
-              "acquire_hierarchical_many_blocking", "reserve", "settle",
-              "export_entries"):
+# The rest of the storage seam: reservations and the migration export.
+for _name in ("reserve", "settle", "export_entries"):
     setattr(BucketStore, _name, _not_ported(_name))
 
 
@@ -793,6 +995,37 @@ class _DeviceTable(_PackedLaunchMixin):
             self.capacity, self.rate_per_tick,
             with_remaining=with_remaining or b % 8 != 0)
 
+    def _debit_launch(self, keys: Sequence[str],
+                      amounts: Sequence[float]) -> torch.Tensor:
+        """One saturating-debit launch for all rows (tier-0
+        reconciliation): ``i32[4, B]`` operand, ``B`` padded to a power of
+        two ≥ 64, the float32 amounts bitcast into row 1 (exact) and, where
+        a slot repeats, the float32 same-slot prefix of earlier amounts
+        bitcast into row 3 (:func:`bm.duplicate_prefix_float`, one add at a
+        time in request order). Returns ``f32[2, B]`` (post-debit balance,
+        shortfall). Resolve and launch share one hold of the store lock."""
+        n = len(keys)
+        with self.store.profiler.span("debit_batch", n), self.store._lock:
+            slots = self.resolve_slots(list(keys))
+            b = _pad_size(n, floor=64)
+            now = self.store.now_ticks_checked()
+            amounts_np = np.asarray(amounts, np.float32)
+            packed = np.full((4, b), -1, np.int32)
+            packed[1] = 0
+            packed[3] = 0
+            packed[0, :n] = slots
+            packed[1, :n] = amounts_np.view(np.int32)
+            packed[2] = now
+            if n != len(np.unique(slots)):
+                prefix = bm.duplicate_prefix_float(
+                    torch.from_numpy(slots), torch.from_numpy(amounts_np),
+                    torch.ones(n, dtype=torch.bool))
+                packed[3, :n] = prefix.numpy().view(np.int32)
+            out = ck.debit_packed(self.state, self._upload(packed),
+                                  self.capacity, self.rate_per_tick)
+            self.store.metrics.record_launch(b, n)
+            return out
+
     def peek_blocking(self, key: str) -> float:
         with self.store._lock:
             slot = self.dir.lookup(key)
@@ -913,13 +1146,6 @@ class _DeviceWindowTable(_PackedLaunchMixin):
         self.dir.load(data["directory"], self.n_slots)
 
 
-def _live_rows(section) -> int:
-    """Live rows of a snapshot's semaphore section (0 if absent)."""
-    if not section:
-        return 0
-    return int(np.count_nonzero(np.asarray(section["exists"])))
-
-
 class DeviceBucketStore(BucketStore):
     """Device-resident store: tensor tables + micro-batched kernel launches.
 
@@ -970,6 +1196,10 @@ class DeviceBucketStore(BucketStore):
         # construction touches no device.
         self._counter_state: K.CounterState | None = None
         self._counter_dir = make_directory(counter_slots)
+        # The semaphore table, sized like the counter table and allocated
+        # at first use too.
+        self._sema_state: K.SemaState | None = None
+        self._sema_dir = make_directory(counter_slots)
         self._lock = threading.RLock()  # directory/slot allocation guard
         self._rebase_threshold = rebase_threshold_ticks
         self._connected = False
@@ -1010,6 +1240,8 @@ class DeviceBucketStore(BucketStore):
                 t.rebase(offset)
             if self._counter_state is not None:
                 K.rebase_counter_epoch(self._counter_state, offset)
+            if self._sema_state is not None:
+                K.rebase_sema_epoch(self._sema_state, offset)
 
     # -- table routing -----------------------------------------------------
     def _table(self, capacity: float, fill_rate_per_sec: float) -> _DeviceTable:
@@ -1218,15 +1450,297 @@ class DeviceBucketStore(BucketStore):
         return (out_np[0, :n].astype(np.float64),
                 out_np[1, :n].astype(np.float64))
 
+    # -- tier-0 debit -----------------------------------------------------
+    async def debit_many(self, keys: Sequence[str],
+                         amounts: Sequence[float], capacity: float,
+                         fill_rate_per_sec: float
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """Tier-0 reconciliation against the ``(capacity, fill_rate)``
+        bucket table: ONE saturating-debit launch for all rows (see
+        :func:`~..ops.kernels.debit_batch_packed`)."""
+        await self.connect()
+        n = len(keys)
+        out = self._table(capacity, fill_rate_per_sec)._debit_launch(
+            keys, amounts)
+        loop = asyncio.get_running_loop()
+        out_np = await loop.run_in_executor(None, _to_host, out)
+        return (out_np[0, :n].astype(np.float64),
+                out_np[1, :n].astype(np.float64))
+
+    # -- hierarchical tenant → key admission (one launch per chunk) --------
+    def _hier_dispatch(self, tenants: Sequence[str], keys: Sequence[str],
+                       counts_np: np.ndarray, tcap: float, trate: float,
+                       cap: float, rate: float) -> list[tuple]:
+        """Decide hierarchical rows with the two-level kernel: the key's
+        bucket table and the tenant's decide together, one launch per
+        ``max_batch`` rows (chunks in request order, so duplicates across
+        chunks serialize). Returns the per-chunk device results; no
+        readback."""
+        check_hierarchical_args(int(counts_np.min(initial=0)), tcap, trate,
+                                cap, rate)
+        n = len(keys)
+        ctable = self._table(cap, rate)
+        ptable = self._table(tcap, trate)
+        outs: list[tuple] = []
+        with self.profiler.span("acquire_hierarchical", n), self._lock:
+            # A server's KeyBlob resolves from the frame's bytes as it is.
+            cslots = ctable.resolve_slots(
+                keys if hasattr(keys, "blob") else list(keys))
+            pslots = ptable.resolve_slots(list(tenants))
+            now = self.now_ticks_checked()
+            b = self.max_batch
+            for pos in range(0, n, b):
+                take = min(b, n - pos)
+                packed = np.full((4, b), -1, np.int32)
+                packed[1] = 0
+                packed[0, :take] = cslots[pos:pos + take]
+                packed[1, :take] = np.minimum(counts_np[pos:pos + take],
+                                              2**31 - 1)
+                packed[2] = now
+                packed[3, :take] = pslots[pos:pos + take]
+                out = ck.acquire_hierarchical(
+                    ctable.state, ptable.state, ctable._upload(packed),
+                    ctable.capacity, ctable.rate_per_tick, ptable.capacity,
+                    ptable.rate_per_tick)
+                outs.append((out, take))
+                self.metrics.record_launch(b, take)
+        return outs
+
+    @staticmethod
+    def _hier_gather(outs: list[tuple], n: int,
+                     with_remaining: bool) -> BulkAcquireResult:
+        granted = np.empty(n, bool)
+        remaining = np.empty(n, np.float32) if with_remaining else None
+        pos = 0
+        for out, take in outs:
+            out_np = _to_host(out)  # one readback per chunk
+            granted[pos:pos + take] = out_np[0, :take] > 0.5
+            if remaining is not None:
+                remaining[pos:pos + take] = out_np[1, :take]
+            pos += take
+        return BulkAcquireResult(granted, remaining)
+
+    async def acquire_hierarchical(self, tenant, key, count,
+                                   tenant_capacity, tenant_fill_rate_per_sec,
+                                   capacity, fill_rate_per_sec, *,
+                                   priority=0) -> AcquireResult:
+        res = await self.acquire_hierarchical_many(
+            [tenant], [key], [int(count)], tenant_capacity,
+            tenant_fill_rate_per_sec, capacity, fill_rate_per_sec)
+        return res[0]
+
+    def acquire_hierarchical_blocking(self, tenant, key, count,
+                                      tenant_capacity,
+                                      tenant_fill_rate_per_sec, capacity,
+                                      fill_rate_per_sec, *,
+                                      priority=0) -> AcquireResult:
+        return self.acquire_hierarchical_many_blocking(
+            [tenant], [key], [int(count)], tenant_capacity,
+            tenant_fill_rate_per_sec, capacity, fill_rate_per_sec)[0]
+
+    async def acquire_hierarchical_many(self, tenants, keys, counts,
+                                        tenant_capacity,
+                                        tenant_fill_rate_per_sec, capacity,
+                                        fill_rate_per_sec, *,
+                                        with_remaining: bool = True,
+                                        priority: int = 0
+                                        ) -> BulkAcquireResult:
+        await self.connect()
+        counts_np = np.asarray(counts, np.int64)
+        outs = self._hier_dispatch(tenants, keys, counts_np, tenant_capacity,
+                                   tenant_fill_rate_per_sec, capacity,
+                                   fill_rate_per_sec)
+        loop = asyncio.get_running_loop()
+        res = await loop.run_in_executor(
+            None, self._hier_gather, outs, len(keys), with_remaining)
+        _grant_zero_probes(res.granted, counts_np)
+        return res
+
+    def acquire_hierarchical_many_blocking(self, tenants, keys, counts,
+                                           tenant_capacity,
+                                           tenant_fill_rate_per_sec,
+                                           capacity, fill_rate_per_sec, *,
+                                           with_remaining: bool = True,
+                                           priority: int = 0
+                                           ) -> BulkAcquireResult:
+        counts_np = np.asarray(counts, np.int64)
+        outs = self._hier_dispatch(tenants, keys, counts_np, tenant_capacity,
+                                   tenant_fill_rate_per_sec, capacity,
+                                   fill_rate_per_sec)
+        res = self._hier_gather(outs, len(keys), with_remaining)
+        _grant_zero_probes(res.granted, counts_np)
+        return res
+
+    # -- concurrency semaphore ---------------------------------------------
+    @property
+    def _semas(self) -> K.SemaState:
+        if self._sema_state is None:
+            self._sema_state = K.init_sema_state(self.counter_slots,
+                                                 self.device)
+        return self._sema_state
+
+    def _sweep_semas(self) -> None:
+        """Evict idle semaphore slots (none held, untouched for 86400 s)."""
+        with self.profiler.span("sweep_semas", self._semas.active.shape[0]):
+            mask, counts = ck.sweep_semas(self._semas,
+                                          self.clock.now_ticks())
+            if int(_to_host(counts).sum()) > 0:
+                dead = np.nonzero(_to_host(mask))[0].astype(np.int32)
+                self.metrics.slots_evicted += self._sema_dir.remove_slots(
+                    dead)
+            self.metrics.sweeps += 1
+
+    def _grow_semas(self) -> None:
+        """Double the semaphore table (old state copied, new half empty)."""
+        old_n = self._semas.active.shape[0]
+        grown = K.init_sema_state(old_n * 2, self.device)
+        for dst, src in zip(grown, self._semas):
+            dst[:old_n] = src
+        self._sema_state = grown
+        self._sema_dir.add_slots(old_n, old_n * 2)
+
+    def _resolve_semas(self, keys: list[str]) -> np.ndarray:
+        """Resolve-with-allocate for acquire rows: on exhaustion a sweep,
+        then a doubling if it freed nothing (the batch is re-resolved whole
+        before the launch, so nothing needs pinning)."""
+        return _resolve_with_reclaim(self._sema_dir, keys,
+                                     lambda pinned: self._sweep_semas(),
+                                     self._grow_semas)
+
+    def _sema_launch(self, slots, deltas, limits) -> torch.Tensor:
+        """One ``sema_packed`` launch of ``len(slots)`` rows, padded to a
+        power of two ≥ 8 (the caller holds the store lock)."""
+        n = len(slots)
+        b = _pad_size(n, floor=8)
+        packed = np.full((4, b), -1, np.int32)
+        packed[1] = 0
+        packed[2] = 0
+        packed[0, :n] = slots
+        packed[1, :n] = deltas
+        packed[2, :n] = limits
+        packed[3] = self.now_ticks_checked()
+        return ck.sema_packed(self._semas,
+                              torch.from_numpy(packed).to(self.device))
+
+    def _sema_dispatch(self, key: str, delta: int,
+                       limit: int) -> "torch.Tensor | None":
+        """One semaphore op (one launch). A probe or a release looks the key
+        up without allocating: an unknown key holds nothing, and ``None``
+        comes back without a launch."""
+        with self.profiler.span("sema"), self._lock:
+            if delta <= 0:
+                slot = self._sema_dir.lookup(key)
+                if slot is None:
+                    return None
+            else:
+                slot = int(self._resolve_semas([key])[0])
+            return self._sema_launch([slot], [delta], [limit])
+
+    async def concurrency_acquire(self, key: str, count: int,
+                                  limit: int) -> AcquireResult:
+        await self.connect()
+        out = self._sema_dispatch(key, count, limit)
+        if out is None:  # probe of an unknown key: zero permits held
+            return AcquireResult(True, 0.0)
+        loop = asyncio.get_running_loop()
+        out_np = await loop.run_in_executor(None, _to_host, out)
+        return AcquireResult(bool(out_np[0, 0] > 0.5), float(out_np[1, 0]))
+
+    def concurrency_acquire_blocking(self, key: str, count: int,
+                                     limit: int) -> AcquireResult:
+        out = self._sema_dispatch(key, count, limit)
+        if out is None:
+            return AcquireResult(True, 0.0)
+        out_np = _to_host(out)
+        return AcquireResult(bool(out_np[0, 0] > 0.5), float(out_np[1, 0]))
+
+    async def concurrency_release(self, key: str, count: int) -> None:
+        out = self._sema_dispatch(key, -count, 0)
+        if out is not None:  # an unknown key has nothing to release
+            loop = asyncio.get_running_loop()
+            await loop.run_in_executor(None, _to_host, out)
+
+    def concurrency_release_blocking(self, key: str, count: int) -> None:
+        out = self._sema_dispatch(key, -count, 0)
+        if out is not None:
+            _to_host(out)
+
+    async def concurrency_acquire_many(self, keys, deltas, limit
+                                       ) -> BulkAcquireResult:
+        """Bulk semaphore ops: one ``sema_packed`` launch per 4096-row chunk,
+        chunks in request order. Acquire rows resolve with allocation;
+        probe and release rows only look up — an unknown key answers
+        ``(True, 0.0)`` on the host and never allocates.
+
+        A slot whose rows mix a release with any other row runs those rows
+        one op at a time instead: the kernel clamps a slot's net delta at
+        zero, so an over-release could otherwise swallow a granted
+        acquire's permit. (The hazard is found on the resolved slots; the
+        JAX store finds it on the keys, which names the same rows.)"""
+        await self.connect()
+        n = len(keys)
+        deltas_np = np.asarray(deltas, np.int64)
+        limits_np = self._sema_limits(limit, n)
+        granted = np.zeros(n, bool)
+        remaining = np.zeros(n, np.float32)
+        slots = np.full(n, -1, np.int64)
+        acq_idx = np.nonzero(deltas_np > 0)[0]
+        outs = []
+        with self.profiler.span("sema_bulk", n), self._lock:
+            if len(acq_idx):
+                slots[acq_idx] = self._resolve_semas(
+                    [keys[i] for i in acq_idx.tolist()])
+            for i in np.nonzero(deltas_np <= 0)[0].tolist():
+                s = self._sema_dir.lookup(keys[i])
+                slots[i] = -1 if s is None else s
+            known = slots >= 0
+            granted[~known] = True  # unknown-key probe or release: a no-op
+            hazard = np.zeros(n, bool)
+            if (known & (deltas_np < 0)).any():
+                _, inv, cnt = np.unique(slots[known], return_inverse=True,
+                                        return_counts=True)
+                released = np.zeros(len(cnt), bool)
+                released[inv[deltas_np[known] < 0]] = True
+                hazard[known] = released[inv] & (cnt[inv] > 1)
+            batch = np.nonzero(known & ~hazard)[0]
+            for s0 in range(0, len(batch), ck.SEMA_MAX_BATCH):
+                sub = batch[s0:s0 + ck.SEMA_MAX_BATCH]
+                outs.append((sub, self._sema_launch(
+                    slots[sub], deltas_np[sub], limits_np[sub])))
+            for i in np.nonzero(known & hazard)[0].tolist():
+                d = int(deltas_np[i])
+                # As the scalar entry points: acquires and probes carry the
+                # row's limit, releases 0.
+                out = self._sema_dispatch(keys[i], d,
+                                          int(limits_np[i]) if d >= 0 else 0)
+                if out is None:
+                    # The key vanished since the lookup (an acquire row's
+                    # resolve swept its zero-held slot): a no-op, as on the
+                    # scalar path.
+                    granted[i] = True
+                else:
+                    outs.append((np.array([i]), out))
+        loop = asyncio.get_running_loop()
+        host = await loop.run_in_executor(
+            None, lambda: [_to_host(o) for _, o in outs])
+        for (sub, _), out_np in zip(outs, host):
+            m = len(sub)
+            granted[sub] = out_np[0, :m] > 0.5
+            remaining[sub] = np.where(deltas_np[sub] < 0, 0.0, out_np[1, :m])
+        return BulkAcquireResult(granted, remaining)
+
     # -- TTL maintenance ---------------------------------------------------
     def sweep_all(self) -> None:
-        """One TTL-eviction pass over every bucket and window table and the
-        counter table — the active expiry pass, so an idle store's memory
-        shrinks without waiting for the next allocation to force a sweep."""
+        """One TTL-eviction pass over every bucket and window table, the
+        counter table and (once allocated) the semaphore table — the active
+        expiry pass, so an idle store's memory shrinks without waiting for
+        the next allocation to force a sweep."""
         with self._lock:
             for t in (*self._tables.values(), *self._wtables.values()):
                 t._sweep()
             self._sweep_counters()
+            if self._sema_state is not None:
+                self._sweep_semas()
 
     def start_sweeper(self, period_s: float = 30.0) -> None:
         """Start the periodic active-expiry task on the running event loop
@@ -1255,6 +1769,7 @@ class DeviceBucketStore(BucketStore):
         clock epoch) can re-align every timestamp."""
         with self._lock:
             c = self._counters
+            sm = self._semas
             return {
                 "now_ticks": self.clock.now_ticks(),
                 "tables": {key: t.to_snap()
@@ -1268,19 +1783,21 @@ class DeviceBucketStore(BucketStore):
                     "last_ts": _to_host(c.last_ts).copy(),
                     "exists": _to_host(c.exists).copy(),
                 },
+                "sema_dir": self._sema_dir.to_dict(),
+                "semas": {
+                    "active": _to_host(sm.active).copy(),
+                    "last_ts": _to_host(sm.last_ts).copy(),
+                    "exists": _to_host(sm.exists).copy(),
+                },
             }
 
     def restore(self, snap: dict) -> None:
         """Restore a checkpoint — this store's own or one the JAX
         ``DeviceBucketStore.snapshot()`` wrote — re-aligning timestamps to
         this process's clock epoch (shift by ``now_here − now_at_snapshot``;
-        window indices by its whole windows). Live semaphore state cannot be
-        carried yet and raises ``NotImplementedError`` rather than being
-        dropped."""
-        if _live_rows(snap.get("semas")):
-            raise NotImplementedError(
-                "snapshot holds live semaphores, which the PyTorch store "
-                "does not port yet")
+        window indices by its whole windows). A checkpoint from before the
+        semaphores (no ``semas`` section) leaves the semaphore table as it
+        is."""
         with self._lock:
             shift = int(self.clock.now_ticks()) - int(snap["now_ticks"])
             for (cap, rate), data in snap["tables"].items():
@@ -1307,3 +1824,15 @@ class DeviceBucketStore(BucketStore):
                 )
                 self._counter_dir.load(snap["counter_dir"],
                                        len(c["value"]))
+            sm = snap.get("semas")
+            if sm is not None:
+                dev = self.device
+                self._sema_state = K.SemaState(
+                    active=torch.tensor(np.asarray(sm["active"], np.int32),
+                                        device=dev),
+                    last_ts=torch.tensor(_shift_ts(sm["last_ts"], shift),
+                                         device=dev),
+                    exists=torch.tensor(np.asarray(sm["exists"], bool),
+                                        device=dev),
+                )
+                self._sema_dir.load(snap["sema_dir"], len(sm["active"]))

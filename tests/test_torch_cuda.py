@@ -18,6 +18,17 @@ fixed order). Window kernels (sliding and fixed): grants, remaining, masks,
 ``curr_count`` too, since the counts are whole numbers (the flushes add
 duplicates' consumption with atomics in no fixed order, which for whole
 numbers below 2^24 gives the same sum).
+
+Semaphores: ``sema_packed`` replies and every state field (``active``,
+``last_ts``, ``exists``) equal bit for bit (whole counts, int64 prefixes,
+one writer per slot); ``sweep_semas`` masks, tile counts and ``exists``
+equal. Two-level admission: grants, ``last_ts`` and ``exists`` of both
+tables equal; remaining and tokens within atol 1e-4 (the flush's atomic
+consumption). Debit: with distinct slots every reply and state field equal
+bit for bit; with repeated slots (fractional and negative amounts, the
+host's float prefix) replies, ``last_ts`` and ``exists`` equal, and a
+slot's tokens within r float32 spacings of its largest partial sum for r
+atomic adds (a slot with one add equal).
 """
 
 import asyncio
@@ -512,3 +523,145 @@ def test_sweep_windows_kernel_matches_plain(cuda_device, now):
         np.testing.assert_array_equal(g.cpu().numpy(), wnt.numpy())
     _assert_windows_same(card, plain)
     assert 0 < int(want[1].sum()) < int(arrays[3].sum())
+
+
+def _semas(seed, n, device, now=50_000):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.integers(0, 6, n).astype(np.int32),
+              rng.integers(now - 3000, now + 50, n).astype(np.int32),
+              rng.random(n) < 0.6)
+    return [K.SemaState(*(torch.tensor(a, device=d) for a in arrays))
+            for d in ("cpu", device)]
+
+
+def _sema_operand(seed, b, n, now=50_000):
+    """Zipf slots (repeats), padding and out-of-range rows; acquires up to
+    3, releases, probes; limits 0 to 8."""
+    rng = np.random.default_rng(seed)
+    slots = np.minimum(rng.zipf(1.3, b) - 1, n - 1).astype(np.int32)
+    slots[rng.random(b) < 0.05] = -1
+    slots[rng.random(b) < 0.03] = n + 3
+    deltas = rng.integers(-2, 4, b).astype(np.int32)
+    limits = rng.integers(0, 9, b).astype(np.int32)
+    return torch.from_numpy(np.stack([slots, deltas, limits,
+                                      np.full(b, now, np.int32)]))
+
+
+def _assert_tables_equal(card, plain):
+    for c, p in zip(card, plain):
+        np.testing.assert_array_equal(c.cpu().numpy(), p.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 1000, 2048, 4096])
+def test_sema_kernel_matches_plain(cuda_device, b):
+    plain, card = _semas(b, 4096, cuda_device)
+    op = _sema_operand(b + 1, b, 4096)
+    before = dict(ck.launches)
+    want = ck.sema_packed(plain, op)
+    got = ck.sema_packed(card, op.to(cuda_device))
+    torch.cuda.synchronize()
+    assert ck.launches["sema_packed"] == before["sema_packed"] + 1
+    assert sum(ck.launches.values()) == sum(before.values()) + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_tables_equal(card, plain)
+    assert 0 < float(want[0].sum()) < b
+
+
+@pytest.mark.cuda
+def test_sweep_semas_kernel_matches_plain(cuda_device):
+    n, now = 2**20 + 5, 3 * 86400 * 1024
+    rng = np.random.default_rng(9)
+    arrays = (rng.integers(0, 2, n).astype(np.int32),
+              rng.integers(now - 2 * 86400 * 1024, now, n).astype(np.int32),
+              rng.random(n) < 0.5)
+    plain, card = [K.SemaState(*(torch.tensor(a, device=d) for a in arrays))
+                   for d in ("cpu", cuda_device)]
+    gmask, gcounts = ck.sweep_semas(card, now)
+    wmask, wcounts = ck.sweep_semas(plain, now)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(gmask.cpu().numpy(), wmask.numpy())
+    np.testing.assert_array_equal(gcounts.cpu().numpy(), wcounts.numpy())
+    _assert_tables_equal(card, plain)
+    held = arrays[0] > 0
+    assert not (wmask.numpy().astype(bool) & held).any()  # held: never swept
+    assert 0 < int(wcounts.sum()) < int(arrays[2].sum())
+
+
+def _bucket_pair(seed, n, device, cap, now=50_000):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.uniform(0, cap, n).astype(np.float32),
+              rng.integers(now - 3000, now + 50, n).astype(np.int32),
+              rng.random(n) < 0.6)
+    return [K.BucketState(*(torch.tensor(a, device=d) for a in arrays))
+            for d in ("cpu", device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [100, 4096])
+def test_hierarchical_kernel_matches_plain(cuda_device, b):
+    rng = np.random.default_rng(b)
+    cplain, ccard = _bucket_pair(1, 4096, cuda_device, 40.0)
+    pplain, pcard = _bucket_pair(2, 64, cuda_device, 300.0)
+    cs = np.minimum(rng.zipf(1.5, b) - 1, 4095).astype(np.int32)
+    ps = (rng.zipf(1.2, b) % 64).astype(np.int32)
+    cs[rng.random(b) < 0.03] = -1
+    ps[rng.random(b) < 0.03] = 70  # out of the parent table: padding
+    costs = rng.integers(0, 12, b).astype(np.int32)
+    op = torch.from_numpy(np.stack([cs, costs, np.full(b, 50_000, np.int32),
+                                    ps]))
+    args = (40.0, 0.01, 300.0, 0.05)
+    before = dict(ck.launches)
+    want = ck.acquire_hierarchical(cplain, pplain, op, *args)
+    got = ck.acquire_hierarchical(ccard, pcard, op.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    assert ck.launches["acquire_hierarchical"] == (
+        before["acquire_hierarchical"] + 1)
+    assert sum(ck.launches.values()) == sum(before.values()) + 1
+    _assert_same(ccard, cplain, got, want)
+    _assert_same_state(pcard, pplain)
+    assert 0 < float(want[0].sum()) < b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distinct", [True, False])
+def test_debit_kernel_matches_plain(cuda_device, distinct):
+    from distributedratelimiting.redis_tpu_torch.ops import bucket_math
+
+    b = 2**20 if distinct else 4096
+    n = 2 * b
+    rng = np.random.default_rng(b)
+    plain, card = _bucket_pair(3, n, cuda_device, CAP)
+    if distinct:
+        slots = rng.permutation(n)[:b].astype(np.int32)
+        amounts = rng.uniform(0, 12, b).astype(np.float32)
+    else:
+        slots = np.minimum(rng.zipf(1.3, b) - 1, n - 1).astype(np.int32)
+        amounts = rng.uniform(-4, 8, b).astype(np.float32)
+    slots[rng.random(b) < 0.02] = -1
+    t_slots = torch.from_numpy(slots)
+    prefix = bucket_math.duplicate_prefix_float(
+        t_slots, torch.from_numpy(amounts), t_slots >= 0)
+    op = torch.from_numpy(np.stack([
+        slots, amounts.view(np.int32), np.full(b, 50_000, np.int32),
+        prefix.numpy().view(np.int32)]))
+    before = ck.launches["debit_packed"]
+    want = ck.debit_packed(plain, op, CAP, 0.013)
+    got = ck.debit_packed(card, op.to(cuda_device), CAP, 0.013)
+    torch.cuda.synchronize()
+    assert ck.launches["debit_packed"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if distinct:
+        _assert_tables_equal(card, plain)
+        return
+    # A slot of r rows takes r atomic adds in no fixed order: each rounds by
+    # at most half a spacing of the largest partial sum, which is at most
+    # the slot's value plus the magnitudes of its amounts.
+    _assert_tables_equal(card[1:], plain[1:])
+    got, want = card.tokens.cpu().numpy(), plain.tokens.numpy()
+    ok = slots >= 0
+    reps = np.bincount(slots[ok], minlength=n)
+    mag = np.abs(want) + np.bincount(slots[ok], weights=np.abs(amounts[ok]),
+                                     minlength=n)
+    tol = np.where(reps > 1, reps, 0) * np.spacing(mag.astype(np.float32))
+    assert (np.abs(got.astype(np.float64) - want) <= tol).all()

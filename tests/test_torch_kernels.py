@@ -377,11 +377,23 @@ def test_launch_counts_untouched_on_cpu():
     ck.window_scan_packed(windows, torch.from_numpy(fused),
                           torch.from_numpy(nows), CAP, 1000)
     ck.sweep_windows(windows, 60_000, 1000)
+    semas = TK.init_sema_state(N)
+    sema_op = _packed4(2).copy()
+    sema_op[3] = 60_000
+    ck.sema_packed(semas, torch.from_numpy(sema_op))
+    ck.sweep_semas(semas, 60_000)
+    ck.acquire_hierarchical(_torch_state(s), TK.init_bucket_state(N),
+                            torch.from_numpy(_packed4(2)), CAP, 0.01,
+                            2 * CAP, 0.01)
+    ck.debit_packed(_torch_state(s), torch.from_numpy(_packed4(2)), CAP,
+                    0.01)
     assert set(ck.launches) == {"sweep_expired", "acquire_packed",
                                 "acquire_grouped", "acquire_scan",
                                 "sync_counters", "sweep_counters",
                                 "window_packed", "window_grouped",
-                                "window_scan", "sweep_windows"}
+                                "window_scan", "sweep_windows",
+                                "sema_packed", "sweep_semas",
+                                "acquire_hierarchical", "debit_packed"}
     assert all(v == 0 for v in ck.launches.values())
 
 

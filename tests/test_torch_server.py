@@ -335,21 +335,16 @@ async def _stats(address):
 def test_unported_ops_answer_without_the_old_peer_words():
     async def main():
         async with _Server("port") as srv:
+            # OP_SEMA, OP_ACQUIRE_H and every bulk kind (the hierarchical
+            # one too) are served since the semaphores and the two-level
+            # admission were ported.
+            assert not pserver._UNPORTED_BULK_KINDS
+            assert not {pw.OP_SEMA, pw.OP_ACQUIRE_H} & pserver._UNPORTED_OPS
             frames = []
             for op in sorted(pserver._UNPORTED_OPS):
-                if op == pw.OP_ACQUIRE_H:
-                    frames.append(pw.encode_request(
-                        op, op, "k", 1, 5.0, 1.0, hier=("t", 9.0, 1.0, 0)))
-                else:
-                    frames.append(pw.encode_request(
-                        op, op, "{}" if op in pw.TEXT_OPS else "k", 1, 5.0,
-                        1.0))
-            # The hierarchical bulk kind; the window kinds (1, 2) are
-            # served since the windows were ported.
-            frames.append(pw.encode_bulk_request(
-                103, [b"k"], [1], 5.0, 1.0, kind=pw.BULK_KIND_HBUCKET,
-                hier=("t", 9.0, 1.0, 0)))
-            frames.append(pw.encode_request(200, pw.OP_SEMA, "k", 1, 5.0,
+                frames.append(pw.encode_request(
+                    op, op, "{}" if op in pw.TEXT_OPS else "k", 1, 5.0, 1.0))
+            frames.append(pw.encode_request(200, pw.OP_RESERVE, "{}", 1, 5.0,
                                             1.0, trace=(1, 2, 3, 1)))
             frames.append(bytes([6, 0, 0, 0, 4, 99, 0, 0, 0, 30]))  # no such op
             replies, closed = await _raw(srv.address, *frames)
@@ -363,25 +358,29 @@ def test_unported_ops_answer_without_the_old_peer_words():
                 assert "unknown op" not in vals[0]
                 assert "unknown bulk kind" not in vals[0]
             assert len(replies) == len(frames)
-            # The JAX client meets a routable error, not an old peer: no
-            # silent flat fallback, no latch.
+            # The JAX client meets a routable error for the reservation
+            # lane, not an old peer: no silent fallback, no latch. Its
+            # hierarchical and semaphore calls are served (two-level, not
+            # the flat fallback).
             cli = JRemote(address=srv.address)
             with pytest.raises(jw.RemoteStoreError, match="not served"):
-                await w(cli.acquire_hierarchical("t", "k", 1, 9.0, 1.0,
-                                                 5.0, 1.0))
-            with pytest.raises(jw.RemoteStoreError, match="not served"):
-                await w(cli.acquire_hierarchical_many(
-                    ["t"], ["k"], [1], 9.0, 1.0, 5.0, 1.0))
-            with pytest.raises(jw.RemoteStoreError, match="not served"):
                 await w(cli.reserve("r1", "t", "k", 2.0, 9.0, 1.0, 5.0, 1.0))
-            with pytest.raises(jw.RemoteStoreError, match="not served"):
-                await w(cli.concurrency_acquire("k", 1, 5))
+            assert (await w(cli.acquire_hierarchical(
+                "t", "hk", 1, 9.0, 1.0, 5.0, 1.0))).granted
+            res = await w(cli.acquire_hierarchical_many(
+                ["t"], ["hk"], [1], 9.0, 1.0, 5.0, 1.0))
+            assert res.granted.tolist() == [True]
+            assert tuple(await w(cli.concurrency_acquire("k", 1, 5))) == (
+                True, 1.0)
             stats = cli.resilience_stats()
             assert stats["hier_fallbacks"] == stats["reserve_fallbacks"] == 0
             assert cli._peer_traces and cli._peer_hier
             await cli.aclose()
-            # The store was never touched by any of them.
+            # The unported ops never touched the store; the tenant's bucket
+            # and the key's each took the two granted costs.
             assert srv.store.peek_blocking("k", 5.0, 1.0) == 5.0
+            assert srv.store.peek_blocking("hk", 5.0, 1.0) == 3.0
+            assert srv.store.peek_blocking("t", 9.0, 1.0) == 7.0
 
     asyncio.run(main())
 

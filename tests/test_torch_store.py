@@ -140,9 +140,12 @@ def test_jax_snapshot_restores_into_port():
 
 
 def test_restore_refuses_live_window_state():
-    """Live window tables restore since the windows were ported (their
-    parity with JAX is tests/test_torch_window.py's); live semaphores are
-    still refused rather than dropped, also beside window tables."""
+    """Nothing live is refused any more: window tables restore since the
+    windows were ported (their parity with JAX is
+    tests/test_torch_window.py's), and a JAX snapshot that holds live
+    semaphores beside window tables restores them, held permits and idle
+    timestamps included (the semaphores' own parity is
+    tests/test_torch_concurrency.py's)."""
     port = _port(ManualClock(0))
     port.window_acquire_blocking("w", 2, 5.0, 1.0)
     wsnap = port.snapshot()
@@ -150,11 +153,27 @@ def test_restore_refuses_live_window_state():
     fresh.restore(wsnap)
     assert fresh.window_acquire_blocking("w", 3, 5.0, 1.0).granted
     assert not fresh.window_acquire_blocking("w", 1, 5.0, 1.0).granted
-    for wtables in ({}, wsnap["wtables"]):
-        snap = {"now_ticks": 0, "tables": {}, "wtables": wtables,
-                "semas": {"exists": np.array([False, True])}}
-        with pytest.raises(NotImplementedError, match="semaphores"):
-            _port(ManualClock(0)).restore(snap)
+    jclock = JClock(5_000)
+    jstore = _jax(jclock, counter_slots=64)
+    jstore.window_acquire_blocking("w", 2, 5.0, 1.0)
+    assert jstore.concurrency_acquire_blocking("sema", 3, 4).granted
+    assert jstore.concurrency_acquire_blocking("idle", 1, 4).granted
+    jstore.concurrency_release_blocking("idle", 1)
+    jsnap = jstore.snapshot()
+    assert int(np.count_nonzero(jsnap["semas"]["exists"])) == 2
+    restored = _port(ManualClock(900_000), counter_slots=64)
+    restored.restore(jsnap)
+    assert restored.concurrency_acquire_blocking("sema", 0, 4) == (True, 3.0)
+    assert not restored.concurrency_acquire_blocking("sema", 2, 4).granted
+    assert restored.concurrency_acquire_blocking("sema", 1, 4) == (True, 4.0)
+    assert restored.window_acquire_blocking("w", 3, 5.0, 1.0).granted
+    assert not restored.window_acquire_blocking("w", 1, 5.0, 1.0).granted
+    # The idle slot's timestamp shifted with the clock: it sweeps a day
+    # after its last touch, the held one never.
+    restored.clock.advance_seconds(86_400)
+    restored.sweep_all()
+    assert restored._sema_dir.lookup("idle") is None
+    assert restored._sema_dir.lookup("sema") is not None
 
 
 def test_blocking_and_single_bucket_paths():
@@ -168,13 +187,18 @@ def test_blocking_and_single_bucket_paths():
 
 
 def test_unported_methods_raise():
+    """Only the reservation lane and the migration export are left
+    unported; the semaphores, two-level admission and the debit work."""
     store = _port(ManualClock(0))
-    with pytest.raises(NotImplementedError, match="concurrency_acquire"):
-        store.concurrency_acquire_blocking("k", 1, 5)
-    with pytest.raises(NotImplementedError, match="acquire_hierarchical"):
-        store.acquire_hierarchical_blocking("t", "k", 1, 9.0, 1.0, 5.0, 1.0)
-    with pytest.raises(NotImplementedError, match="concurrency_release"):
-        store.concurrency_release_blocking("k", 1)
+    with pytest.raises(NotImplementedError, match="reserve"):
+        asyncio.run(store.reserve("r1", "t", "k", 2.0, 9.0, 1.0, 5.0, 1.0))
+    with pytest.raises(NotImplementedError, match="settle"):
+        asyncio.run(store.settle("r1", "t", 1.0))
+    with pytest.raises(NotImplementedError, match="export_entries"):
+        store.export_entries()
+    assert store.concurrency_acquire_blocking("k", 1, 5) == (True, 1.0)
+    assert store.acquire_hierarchical_blocking(
+        "t", "k", 1, 9.0, 1.0, 5.0, 1.0).granted
 
 
 def test_default_device_without_gpu_raises(monkeypatch):
