@@ -24,7 +24,16 @@ Phases (any failure raises, and the script exits non-zero):
    4096 with duplicates, ``window_scan_packed`` on one chunk of K = 32 x
    4096 (distinct and Zipf slots, the fused and the i32 lane, sliding and
    fixed, ticks crossing a window boundary), ``sweep_windows`` over 2^24
-   slots; the semaphore kernels ``sema_packed`` at B = 8 and B = 4096
+   slots; both bulk-lane scans (buckets; sliding and fixed windows) on
+   2^24-slot tables at the shapes the chunks above leave out: a chunk of
+   keys distinct in the whole chunk (the main path's bulk), one slot taking
+   all 32 x 4096 rows, 4,096 slots repeated in all 32 batches at a tick of
+   their own (one going back), and the coalescing lane's K = 1 launch of a
+   4096-row operand with three valid rows, each with its event ms, device
+   ms and bound (``--scan-bench`` runs these and the chunks above alone:
+   ``python3 chip_smoke.py --scan-bench``, or a copy of the script in
+   another checkout to time that checkout's kernels); the semaphore kernels
+   ``sema_packed`` at B = 8 and B = 4096
    (repeated slots, acquires, releases, probes, padding, out-of-range slots)
    over 2^20 slots and ``sweep_semas`` over 2^20 (held slots survive);
    ``acquire_hierarchical`` at B = 4096 on the LLM workload's rows, with its
@@ -467,6 +476,12 @@ def kernel_phase(torch, K, ck, dev):
     torch.cuda.empty_cache()
     res.update(window_cases(torch, K, ck, dev, rng))
     torch.cuda.empty_cache()
+    # Both scans at the shapes the chunks above do not cover; their rows
+    # ride on the two scans' entries of the kernels line.
+    for (name, shape), row in scan_shapes(
+            torch, K, ck, dev, shapes=SCAN_SHAPES_ADDED).items():
+        res[name].setdefault("shapes", {})[shape] = row
+    torch.cuda.empty_cache()
     res.update(admission_cases(torch, K, ck, dev, rng))
     return res
 
@@ -663,6 +678,191 @@ def _plain_window_scan(torch, K, ps, slots, counts, nows_d, limit, wt,
     if not with_remaining:
         return K.pack_grant_bits(granted)
     return torch.stack([granted.to(torch.float32), remaining], dim=1)
+
+
+#: The bulk-lane scan shapes of :func:`scan_shapes`: a chunk of slots
+#: distinct within each batch (a few repeat across batches), the main path's
+#: chunk of keys distinct in the whole chunk, the Zipf(1.2) chunk in its
+#: three operand forms, one slot taking every row of a chunk, one set of
+#: 4,096 slots repeated in every batch at a tick of its own, and the
+#: coalescing lane's K = 1 launch of a 4096-row operand with three valid
+#: rows, and with a Zipf(1.2) batch.
+SCAN_SHAPES = ("distinct (fused, bits)", "chunk-distinct (fused, bits)",
+               "Zipf (fused, bits)",
+               "Zipf (fused, f32)", "Zipf (i32, f32)", "hot slot (fused, bits)",
+               "cross-batch repeats (fused, f32)", "K=1 padding (fused, f32)",
+               "K=1 Zipf (fused, f32)")
+#: The shapes the full run adds to ``scan_case`` and ``window_cases``.
+SCAN_SHAPES_ADDED = ("chunk-distinct (fused, bits)", "hot slot (fused, bits)",
+                     "cross-batch repeats (fused, f32)",
+                     "K=1 padding (fused, f32)")
+
+
+def _scan_shape(K, rng, shape: str, n: int, now: int):
+    """One scan shape's inputs: ``(slots i32[K, B], counts, operand, nows
+    i32[K], with_remaining)``; counts u8 for the fused operand, i32 up to
+    1000 for the i32 one; 2% padding where the shape has any."""
+    k, b = SCAN_K, BATCH
+    if shape.startswith("K=1 Zipf"):
+        k = 1
+        slots = ((rng.zipf(1.2, (1, b)) - 1) % n).astype(np.int32)
+    elif shape.startswith("K=1"):
+        k = 1
+        slots = np.full((1, b), -1, np.int32)
+        slots[0, :3] = rng.choice(n, 3, replace=False)
+    elif shape.startswith("chunk-distinct"):
+        slots = rng.choice(n, k * b, replace=False).astype(
+            np.int32).reshape(k, b)
+    elif shape.startswith("distinct"):
+        slots = np.stack([rng.choice(n, b, replace=False)
+                          for _ in range(k)]).astype(np.int32)
+    elif shape.startswith("Zipf"):
+        slots = ((rng.zipf(1.2, (k, b)) - 1) % n).astype(np.int32)
+    elif shape.startswith("hot slot"):
+        slots = np.full((k, b), int(rng.integers(0, n)), np.int32)
+    else:  # cross-batch repeats: the same slots, permuted, in every batch
+        base = rng.choice(n, b, replace=False).astype(np.int32)
+        slots = np.stack([rng.permutation(base) for _ in range(k)])
+    if shape.startswith(("distinct", "chunk-distinct", "Zipf", "cross")):
+        slots[rng.random((k, b)) < 0.02] = -1
+    if shape.startswith("cross"):  # a tick of its own in every batch, one
+        nows = (now + 37 * np.arange(k)).astype(np.int32)  # going back
+        nows[k // 2] = nows[k // 2 - 1] - 100
+    else:
+        nows = np.repeat(np.array([now, now + 500, now + 900], np.int32),
+                         [11, 11, k - 22]) if k == SCAN_K else \
+            np.array([now], np.int32)
+    fused = "i32" not in shape
+    if fused:
+        counts = rng.integers(0, 40, (k, b)).astype(np.uint8)
+        op = K.pack_compact5(slots, counts)
+    else:
+        counts = rng.integers(0, 1001, (k, b)).astype(np.int32)
+        op = np.stack([slots, counts])
+    return slots, counts, op, nows, "f32" in shape
+
+
+def scan_shapes(torch, K, ck, dev, shapes=SCAN_SHAPES) -> dict:
+    """Both bulk-lane scans (``acquire_scan`` on a bucket table, and
+    ``window_scan`` on a window table, sliding and fixed) at each shape of
+    :data:`SCAN_SHAPES`, on 2^24-slot tables, against the plain per-batch
+    loop: grants, bits, ``last_ts``/``window_idx``, ``exists`` and every
+    window field equal; tokens and remaining within atol 1e-4. Prints and
+    returns, per scan and shape, the CUDA-event ms, the profiler's device
+    ms and the bound (the operand, ``nows`` and the result moved once, and
+    18 B (buckets) or 26 B (windows) per distinct slot of this chunk)."""
+    rng = np.random.default_rng(SEED + 7)
+    n = N_SLOTS
+    now = 2_000_000 + 300
+    cap, rate = 100.0, 10 / 1024
+    wt, limit = WINDOW_TICKS, float(WINDOW_LIMIT)
+    idx = (now // wt + rng.choice([-2, -1, 0, 0, 1], n)).astype(np.int32)
+    buckets = (torch.tensor(rng.uniform(0, cap, n).astype(np.float32),
+                            device=dev),
+               torch.tensor(rng.integers(now - 3000, now, n).astype(np.int32),
+                            device=dev),
+               torch.tensor(rng.random(n) < 0.7, device=dev))
+    windows = (torch.tensor(rng.integers(0, 60, n).astype(np.float32),
+                            device=dev),
+               torch.tensor(rng.integers(0, 60, n).astype(np.float32),
+                            device=dev),
+               torch.tensor(idx, device=dev),
+               torch.tensor(rng.random(n) < 0.7, device=dev))
+    res = {}
+    for shape in shapes:
+        slots, counts, op, nows, with_rem = _scan_shape(K, rng, shape, n, now)
+        k, b = slots.shape
+        valid = slots >= 0
+        d = len(np.unique(slots[valid]))
+        op_d = torch.from_numpy(op).to(dev)
+        nows_d = torch.from_numpy(nows).to(dev)
+        slots_d = torch.from_numpy(slots).to(dev)
+        counts_d = torch.from_numpy(counts.astype(np.int32)).to(dev)
+        out_bytes = k * 2 * b * 4 if with_rem else k * b // 8
+        # -- acquire_scan ----------------------------------------------------
+        ks = K.BucketState(*(x.clone() for x in buckets))
+        ps = K.BucketState(*(x.clone() for x in buckets))
+        got = ck.acquire_scan_packed(ks, op_d, nows_d, cap, rate,
+                                     with_remaining=with_rem)
+        _, pout = K.acquire_scan_packed(ps, slots_d, counts_d, nows_d, cap,
+                                        rate)
+        torch.cuda.synchronize()
+        what = f"acquire_scan {shape}"
+        err = _check_close(f"{what} tokens", ks.tokens, ps.tokens)
+        _check_equal(f"{what} last_ts", ks.last_ts, ps.last_ts)
+        _check_equal(f"{what} exists", ks.exists, ps.exists)
+        if with_rem:
+            _check_equal(f"{what} grants", got[:, 0], pout[:, 0])
+            err = max(err, _check_close(f"{what} remaining", got[:, 1],
+                                        pout[:, 1]))
+        else:
+            _check_equal(f"{what} bits", got,
+                         K.pack_grant_bits(pout[:, 0] > 0.5))
+        granted = int((pout[:, 0] > 0.5).sum())
+        if not 0 < granted <= int(valid.sum()):
+            raise AssertionError(f"{what}: granted {granted}")
+        call = (lambda: ck.acquire_scan_packed(ks, op_d, nows_d, cap, rate,
+                                               with_remaining=with_rem))
+        row = _scan_row(call, op.nbytes + 4 * k + out_bytes + 18 * d,
+                        15 * k * b, err)
+        res[("acquire_scan", shape)] = row
+        print(f"acquire_scan {shape} K={k} B={b} ({d} distinct slots, "
+              f"{granted} granted): equal to plain; {row['ms']:.4f} ms, "
+              f"device {row['device_ms']} ms, bound {row['bound_ms']:.6f} ms")
+        # -- window_scan, sliding (timed) and fixed ----------------------------
+        lim = limit if counts.dtype == np.uint8 else 500.0
+        for interpolate in (False, True):
+            kind = "sliding" if interpolate else "fixed"
+            kw = K.WindowState(*(x.clone() for x in windows))
+            pw = K.WindowState(*(x.clone() for x in windows))
+            got = ck.window_scan_packed(kw, op_d, nows_d, lim, wt,
+                                        interpolate=interpolate,
+                                        with_remaining=with_rem)
+            want = _plain_window_scan(torch, K, pw, slots, counts, nows_d,
+                                      lim, wt, interpolate, with_rem)
+            torch.cuda.synchronize()
+            _check_equal(f"window_scan {shape} ({kind}) out", got, want)
+            _check_windows(f"window_scan {shape} ({kind})", kw, pw)
+        call = (lambda: ck.window_scan_packed(kw, op_d, nows_d, lim, wt,
+                                              with_remaining=with_rem))
+        row = _scan_row(call, op.nbytes + 4 * k + out_bytes + 26 * d,
+                        30 * k * b, 0.0)
+        res[("window_scan", shape)] = row
+        print(f"window_scan {shape} K={k} B={b} ({d} distinct slots), "
+              f"sliding and fixed: equal to plain; {row['ms']:.4f} ms, "
+              f"device {row['device_ms']} ms, bound {row['bound_ms']:.6f} ms")
+    return res
+
+
+def _scan_row(call, nbytes, ops, err) -> dict:
+    ms = _median_ms(call, inner=5)
+    dev_ms = _device_ms(call, ["scan_kernel"])
+    bound_ms, bound_by = _bound_ms(nbytes, ops)
+    return dict(ms=ms, device_ms=dev_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err)
+
+
+def scan_bench() -> int:
+    """``python3 chip_smoke.py --scan-bench``: only :func:`scan_shapes`, on
+    the package beside this file (copy the script into another checkout to
+    time that checkout's kernels). Prints the card and one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+    from distributedratelimiting.redis_tpu_torch.ops import kernels as K
+
+    card = _card_line()
+    print(card)
+    ck.build(["acquire", "window"])
+    res = scan_shapes(torch, K, ck, torch.device("cuda"))
+    print(json.dumps({"card": card, "scan_shapes": [
+        {"kernel": kern, "shape": shape, **row}
+        for (kern, shape), row in res.items()]}))
+    return 0
 
 
 def _sync_packed(rng, b, n, now, distinct):
@@ -883,9 +1083,9 @@ def scan_case(torch, K, ck, dev, rng, table, now, cap, rate) -> dict:
               f"{granted} granted): equal to plain, max abs err {err:.3g}; "
               f"{ms:.4f} ms (plain {plain_ms:.4f} ms, device time {dev_ms} "
               f"ms)")
-    # Every row padding but two rows of one slot a batch: the sort, the scans
-    # and the barriers run, and next to no row gathers or writes. The
-    # difference to the Zipf chunk is what the gathers and writes cost.
+    # Every row padding but two rows of one slot a batch: the hash phases,
+    # the barriers and one slot's walk over 32 batches run, and next to no
+    # row gathers or writes.
     pad = np.full((k, b), -1, np.int32)
     pad[:, :2] = 7
     pad = torch.from_numpy(K.pack_compact5(pad, c8)).to(dev)
@@ -893,8 +1093,8 @@ def scan_case(torch, K, ck, dev, rng, table, now, cap, rate) -> dict:
     pad_ms = _median_ms(lambda: ck.acquire_scan_packed(
         ps, pad, nows_d, cap, rate, with_remaining=False), inner=5)
     print(f"acquire_scan (fused, bits) with every row padding but one "
-          f"repeated slot a batch: {pad_ms:.4f} ms (sort, scans and "
-          f"barriers; next to no gather or write)")
+          f"repeated slot a batch: {pad_ms:.4f} ms (hash phases, barriers "
+          f"and one slot's walk; next to no gather or write)")
     # The main path's bulk sends distinct keys.
     main = dict(out_res["fused, bits, distinct slots"])
     main["max_abs_err"] = max(r["max_abs_err"] for r in out_res.values())
@@ -2637,6 +2837,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"],
         })
+        if "shapes" in r:  # the scans at the added shapes
+            kernels[-1]["shapes"] = r["shapes"]
         if name in no_wire_op:
             kernels[-1]["server_path"] = ("exempt: no wire op reaches it "
                                           "until tier-0 is ported")
@@ -2664,4 +2866,6 @@ if __name__ == "__main__":
         print(json.dumps(asyncio.run(scalar_client(
             _pkg, (sys.argv[2], int(sys.argv[3])), int(sys.argv[4])))))
         sys.exit(0)
+    if sys.argv[1:2] == ["--scan-bench"]:
+        sys.exit(scan_bench())
     sys.exit(main())

@@ -24,15 +24,14 @@
 // Bound: a few flops a row and random 4-byte gathers/scatters of the 9-byte
 // slot state, so bytes: the operand read once, the result written once, and
 // 18 B per distinct slot. At B = 4096 that is well under a microsecond; what
-// a call really costs is launch latency and the dependent chain gather ->
-// decide -> write of every batch. There is no matrix product, so wgmma and the
-// tensor cores do not apply.
+// a flush really costs is launch latency and its dependent chain gather ->
+// decide -> write. There is no matrix product, so wgmma and the tensor cores
+// do not apply.
 //
-// Measured on the H100 (chip_smoke.py): in one block, a chunk of Zipf
-// batches spent ~84% of its time in the sort, scans and barriers, and a
-// chunk of ~4,000 random distinct slots a batch was bound by the one SM's
-// scattered gathers and writes; the repeat check removes the first where it
-// can, the 16 blocks spread the second.
+// Measured on the H100 (chip_smoke.py --scan-bench): a scan chunk in which
+// no key repeats costs the scattered gathers and commits of its slots; with
+// repeats, its longest slot's walk over the batches (a hot slot's batch
+// groups run one after another).
 //
 // Exactness: tokens + elapsed * rate is a multiply then an add
 // (__fmul_rn/__fadd_rn, and the build passes -fmad=false): a contracted FMA
@@ -91,9 +90,14 @@ struct BucketPolicy {
   static __device__ __forceinline__ void commit(const Table& t, int32_t s,
                                                 const Slot& r, int32_t now,
                                                 long long consumed) {
-    t.tokens[s] = __fsub_rn(r, __ll2float_rn(consumed));
-    t.last_ts[s] = now;
-    t.exists[s] = 1;
+    const Old o = carry(r, now, consumed);
+    t.tokens[s] = o.tokens;
+    t.last_ts[s] = o.ts;
+    t.exists[s] = o.exists;
+  }
+  static __device__ __forceinline__ Old carry(const Slot& r, int32_t now,
+                                              long long consumed) {
+    return Old{__fsub_rn(r, __ll2float_rn(consumed)), now, 1};
   }
 };
 
@@ -120,15 +124,20 @@ extern "C" int drl_acquire_grouped(float* tokens, int32_t* last_ts,
 }
 
 // Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], in a 4-byte
-// aligned allocation rounded up to whole 4-byte words) is non-null.
+// aligned allocation rounded up to whole 4-byte words) is non-null; scratch
+// holds drl_scan_scratch_bytes(n_batches, b) bytes.
 extern "C" int drl_acquire_scan(float* tokens, int32_t* last_ts,
                                 uint8_t* exists, int32_t n_slots,
                                 const void* operand, int32_t fused,
                                 const int32_t* nows_k, int32_t n_batches,
-                                int32_t b, int32_t sort_bits, float cap,
-                                float rate, float* out, uint8_t* bits,
+                                int32_t b, float cap, float rate, float* out,
+                                uint8_t* bits, void* scratch,
                                 cudaStream_t stream) {
   return drl::launch_scan_any<BucketPolicy>(
       {tokens, last_ts, exists}, n_slots, operand, fused, nows_k, n_batches, b,
-      sort_bits, {cap, rate}, out, bits, stream);
+      {cap, rate}, out, bits, scratch, stream);
+}
+
+extern "C" int64_t drl_scan_scratch_bytes(int32_t n_batches, int32_t b) {
+  return drl::scan_scratch_bytes(n_batches, b);
 }

@@ -23,7 +23,10 @@
 //              an atomic (after a barrier);
 //   P::commit(table, s, slot, now, consumed)  scan: the slot's one writer
 //              stores the advanced state with the int64 sum of its
-//              segment's consumption applied once.
+//              consumption in the batch applied once;
+//   P::carry(slot, now, consumed) -> Old     scan: the state commit would
+//              store, as the next gather would read it, so that one slot's
+//              batches chain in registers.
 //
 // Operands, as in the JAX package:
 //   flush    i32[4, B]: row 0 slots (< 0 or >= N: padding, skipped as JAX's
@@ -36,9 +39,7 @@
 // (0/1) or n_granted, row 1 remaining; or, for a verdict-only scan, the
 // grants bit-packed little-endian within each byte, u8[K, B / 8].
 //
-// Design. Every call is ONE launch, and no launch needs a grid-wide barrier:
-// all rows of a slot meet in one thread block, whose __syncthreads() makes
-// its global writes visible to the whole block.
+// Design. Every call is ONE launch.
 //   - Flush and grouped (host prefix, no sort): ONE block of 1024 threads,
 //     each holding up to 4 rows' gathers in flight at once. Every row
 //     gathers and decides, __syncthreads(), every row sets the advanced
@@ -50,47 +51,81 @@
 //     by slot over 16 blocks of 256 threads it took longer on the H100
 //     (fewer gathers in flight per thread, and every block reads every
 //     row's slot).
-//   - Scan (bulk lane): 16 blocks of 1024 threads; block p decides the rows
-//     whose slot is p mod 16 (a padding row, by its row index), so every
-//     slot has one block and the blocks never wait on each other. Each
-//     block runs the K batches one after another (they depend on each
-//     other through the table) over the whole batch operand, the other
-//     blocks' rows standing as padding. Per batch:
-//       1. one atomicCAS a row into a hash set in shared memory tells
-//          whether any of the block's slots repeats in the batch;
-//       2. if one does, the (slot, row) pairs are sorted with a stable block
-//          radix sort (cub::BlockRadixSort) over the low bit_length(N) bits
-//          (padding takes the key N, which sorts last), and an int64
-//          segmented inclusive scan (cub::BlockScan) gives each row the
-//          exact earlier same-slot demand, as the plain version's int64
-//          duplicate_prefix, converted to f32 where it converts it
-//          (__ll2float_rn); if none does, every row is its own segment with
-//          prefix 0, and the sort and both scans are skipped;
-//       3. one writer per distinct slot: the segment head gathers and
-//          advances once (P::Slot in shared memory), every row of the
-//          segment decides from that state, and the segment tail commits it
-//          with the segment's int64 consumption (a second segmented scan).
-//          No atomics on the table, and the state is deterministic.
-//   - While batch k decides, a 1-D TMA bulk copy (cp.async.bulk completing
-//     on an mbarrier) brings batch k+1's operand into the other half of a
-//     double buffer in shared memory. Where the operand is not 16-byte
-//     aligned (B % 16 != 0), the block copies it itself.
+//   - Scan (bulk lane): the chunk's K batches are decided slot-major, not
+//     batch by batch. What the plain version computes, per batch k in
+//     order, is: every row of slot s is granted iff fits(advance(state_s,
+//     now_k), pre, c), pre the int64 sum of the earlier rows of s in batch k;
+//     s then keeps that state with batch k's granted sum applied. So one
+//     slot's batches form a chain that no other slot touches: with the
+//     slot's rows in (k, row) order, one gather, a walk over its batch
+//     groups (advance, decide every row of the group from that state and its
+//     prefix, sum the grants, carry) and one commit give the same answers.
+//     The serial depth is per slot and at most K. ONE cooperative launch of
+//     as many resident blocks of 512 threads as the chunk has rows for (two
+//     an SM: a chunk of 32 x 4096 rows fills every SM), with grid.sync()
+//     between its phases; at the coalescing lane's K = 1 shape a one-block
+//     variant (hash set and operand in shared memory) was no faster on the
+//     H100, so small chunks take the same kernel on a small grid.
+//       1. empty the chunk's hash set (in scratch the wrapper allocates);
+//       2. every row inserts its slot (warp-aggregated: one atomic per slot a
+//          warp) and counts its rows;
+//       3. a row whose slot appears once in the chunk (the 10M-key bulk's
+//          every row) decides at once: gather, decide with prefix 0, commit,
+//          grant bits stored a 32-row word at a time; each slot that repeats
+//          takes a segment number and its range in the slot-major order from
+//          one 64-bit atomic (the count of segments and of rows in its two
+//          halves), and a class by its rows: short (<= 8), middling (<= 256)
+//          or long. A chunk in which no slot repeats (step 2 tells: a slot
+//          found already inserted, or twice in a warp) skips the count
+//          checks and ends here;
+//       4. every repeated slot's rows are placed in its range: a short or
+//          middling slot's in any order (one atomic a slot a warp), a long
+//          slot's in (k, row) order by one stable multisplit over the long
+//          slots (at most 510 in a chunk of 2^17 rows): a per-tile count, a
+//          grid.sync(), a scatter in which every tile of 2048 rows sorts its
+//          long rows with cub::BlockRadixSort (stable) and adds the earlier
+//          tiles' counts, and a grid.sync();
+//       5. every repeated slot is walked once. A short slot by one thread: a
+//          sorting network orders its rows in registers, and the chain runs
+//          there. A middling one by a warp: its rows are ranked in shared
+//          memory (rows are distinct), then 32 at a time each lane finds its
+//          batch group and its same-batch int64 prefix (a segmented warp
+//          scan), and the groups go in order, each deciding from its
+//          advanced state with a warp sum of its grants. A long one (a Zipf
+//          chunk's hottest slot holds ~18% of the rows) by a whole block, 2048
+//          rows at a time: one segmented cub::BlockScan gives every row its
+//          prefix and its batch group, and each group takes two barriers
+//          (decide, then a warp sum of its grants that warp 0 adds up). No
+//          monotonicity of the grants in the prefix is assumed: every row is
+//          tested.
+//     Each slot is gathered once and committed once per chunk, by one
+//     writer, so the table is deterministic and has no atomics. Grant bits
+//     of repeated slots are ORed into the words step 3 stored.
+//     Why not one grid-wide radix sort of every repeated row by slot: it
+//     needs bit_length(segments) / 8 passes of two barriers each, over rows
+//     that mostly belong to short slots; here only the long slots' rows are
+//     sorted (one pass), and a short or middling slot's few rows are ordered
+//     by their own walker without a barrier.
 //
 // Traps, each with a test:
 //   - Stale reads. The scan writes the table it reads, so no state pointer is
-//     const __restrict__ and none is read with __ldg: ld.global.nc could serve
-//     batch k+1 a value cached before batch k's write.
+//     const __restrict__ and none is read with __ldg; scratch that other
+//     blocks wrote before a grid.sync() is read with __ldcg (L2), never
+//     through a possibly stale L1 line.
 //   - Exactness. The policies round every product and sum on their own
 //     (__fmul_rn/__fadd_rn/__fdiv_rn, and the build passes -fmad=false): a
 //     contracted FMA flips grants at the grant boundary.
-//   - Counts above 2^24 (i32 operand): the prefix is summed in int64.
+//   - Counts above 2^24 (i32 operand): the prefix is summed in int64 and
+//     converted once (__ll2float_rn), where the plain version converts it.
 //   - Tables that grew: N need not be a power of two and may pass 2^24; the
-//     sort's bit range comes from N (the wrapper passes bit_length(N)).
+//     scan never sorts by slot (it hashes slots and sorts long-slot
+//     numbers), so N sets no bit range.
 //   - Bit order: grant of row 8q + i is bit i of byte q, as
 //     np.unpackbits(..., bitorder="little") reads it.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
@@ -98,11 +133,9 @@
 
 namespace drl {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 1024;
-// Blocks of the scan kernel: block p decides the rows of the slots = p mod
-// kScanBlocks, so a batch's scattered gathers and writes spread over as many
-// SMs.
-constexpr int kScanBlocks = 16;
 // Rows each flush thread stages per round, so that a thread has
 // kFlushRows independent gathers in flight.
 constexpr int kFlushRows = 4;
@@ -213,10 +246,10 @@ int launch_flush(typename P::Table T, int32_t n_slots, const int32_t* packed,
 }
 
 // ---------------------------------------------------------------------------
-// Scan: K batches in order.
+// Segmented int64 sums (the semaphore and two-level admission kernels' block
+// scans use them too): a running sum, and the position of the segment's
+// head (-1 on a non-head input element).
 
-// One element of the segmented scans: a running int64 sum, and the sorted
-// position of the segment's head (-1 on a non-head input element).
 struct Seg {
   long long sum;
   int head;
@@ -229,375 +262,889 @@ struct SegSum {
   }
 };
 
-template <int IPT>
-struct ScanTypes {
-  static constexpr int kRows = kThreads * IPT;  // rows a launch can hold
-  // The repeat check's hash set: twice as many entries as rows.
-  static constexpr int kHashBits = 11 + (IPT >= 2) + (IPT >= 4);
-  static constexpr int kHashSize = 1 << kHashBits;
-  static_assert(kHashSize == 2 * kRows, "hash set of 2 entries a row");
-  using Sort = cub::BlockRadixSort<uint32_t, kThreads, IPT, uint16_t>;
-  using Scan = cub::BlockScan<Seg, kThreads, cub::BLOCK_SCAN_WARP_SCANS>;
-  union Temp {
-    typename Sort::TempStorage sort;
-    typename Scan::TempStorage scan;
+// The same, also counting the heads up to each element: a block walk's
+// prefixes and batch groups from one scan.
+struct SegHeads {
+  long long sum;
+  int head;
+  int heads;
+};
+
+struct SegHeadsSum {
+  __device__ __forceinline__ SegHeads operator()(const SegHeads& a,
+                                                 const SegHeads& b) const {
+    return b.head >= 0 ? SegHeads{b.sum, b.head, a.heads + b.heads}
+                       : SegHeads{a.sum + b.sum, a.head, a.heads + b.heads};
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Scan: a chunk of K batches, decided slot-major on the whole grid.
+
+constexpr int kScanThreads = 512;
+constexpr int kScanIpt = 4;
+constexpr int kScanTile = kScanThreads * kScanIpt;  // rows a block holds
+// Rows a launch takes: K x B <= 32 x 4096, the store's largest chunk.
+constexpr int64_t kMaxRows = 131072;
+// A repeated slot with at most kThreadSeg rows in the chunk is short (one
+// thread walks it), with at most kWarpSeg middling (a warp), longer long (a
+// block). A chunk holds at most kMaxRows / (kWarpSeg + 1) < kLongBins long
+// slots.
+constexpr int kThreadSeg = 8;
+constexpr int kWarpSeg = 256;
+constexpr int kLongBins = 512;
+static_assert(kMaxRows / (kWarpSeg + 1) < kLongBins, "long slots fit");
+static_assert(kLongBins <= kScanThreads, "one bin a thread");
+// Rows (or hash entries) a thread loads at once in the row phases.
+constexpr int kRowsInFlight = 4;
+constexpr uint32_t kEmptyKey = 0xFFFFFFFFu;  // no slot is >= 2^31
+constexpr unsigned long long kEmptyEntry =
+    (unsigned long long)kEmptyKey << 32;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// The scan's scratch, carved from one allocation the wrapper makes (the
+// kernel allocates nothing). R = K * B rows; the hash set has H = 2^hbits
+// >= 4R entries (a load factor of at most 1/4 keeps linear probing's chains
+// of dependent CASes short: at 1/2, a chunk of distinct keys took ~5 us
+// longer on the H100, chip_smoke.py --scan-bench); at most R / 2 slots
+// repeat.
+struct ScanScratch {
+  // [H] an entry: its slot (kEmptyKey: none) << 32 | its rows in the chunk
+  unsigned long long* hent;
+  int32_t* dense;     // [H] a repeated entry's segment number d
+  int32_t* ent;       // [R] each row's entry, -1 for padding
+  int32_t* seg_slot;  // [R/2 + 1] per segment d: its slot,
+  int32_t* seg_base;  //   its first position in the sorted rows,
+  int32_t* seg_len;   //   its rows
+  int32_t* seg_bin;   //   its place among the long slots, or -1,
+  int32_t* cursor;    //   and its rows placed so far (short and middling)
+  int32_t* big;       // [kLongBins] the long slots' segments
+  int32_t* mid;       // [R/2 + 1] the middling slots' segments
+  int32_t* sorted;    // [R] the repeated slots' rows g = k * B + i, by slot
+  int32_t* hist;      // [kLongBins][tiles rounded up to 4] long rows a tile
+  unsigned long long* total;  // segments << 32 | rows of repeated slots
+  int32_t* counters;  // [8]: long and middling slots, three work cursors,
+                      // and whether any slot repeats
+  uint32_t hbits;
+  int64_t n_hash;
+};
+
+__host__ __device__ inline ScanScratch scan_scratch(void* base, int64_t rows,
+                                                    size_t* bytes) {
+  ScanScratch S;
+  uint32_t hbits = 6;
+  while ((int64_t(1) << hbits) < 4 * rows) ++hbits;
+  const int64_t h = int64_t(1) << hbits;
+  const int64_t half = rows / 2 + 1;
+  const int64_t tiles = ((rows + kScanTile - 1) / kScanTile + 3) & ~3;
+  unsigned char* p = static_cast<unsigned char*>(base);
+  size_t o = 0;
+  auto take = [&](size_t n) {
+    unsigned char* q = p == nullptr ? nullptr : p + o;
+    o += align16(n);
+    return q;
   };
-};
-
-// Dynamic shared memory of the scan kernel, in bytes from its base.
-struct ScanLayout {
-  size_t bar, buf0, buf1, key, ref, grant, hash, total;
-};
-
-template <class P, int IPT>
-__host__ __device__ ScanLayout scan_layout(int32_t b, bool fused) {
-  using T = ScanTypes<IPT>;
-  const size_t op = align16((size_t)b * (fused ? 5 : 8));
-  ScanLayout L;
-  size_t o = align16(sizeof(typename T::Temp));
-  L.bar = o;    o += 16;                       // two mbarriers
-  L.buf0 = o;   o += op;                       // batch operand, even k
-  L.buf1 = o;   o += op;                       // batch operand, odd k
-  L.key = o;    o += align16(4 * (size_t)T::kRows);  // sorted keys
-  // The advanced state per segment head.
-  L.ref = o;    o += align16(sizeof(typename P::Slot) * (size_t)T::kRows);
-  L.grant = o;  o += align16((size_t)T::kRows);      // grant per row
-  L.hash = o;   o += 4 * (size_t)T::kHashSize;       // repeat check
-  L.total = o;
-  return L;
+  S.hent = reinterpret_cast<unsigned long long*>(take(8 * h));
+  S.dense = reinterpret_cast<int32_t*>(take(4 * h));
+  S.ent = reinterpret_cast<int32_t*>(take(4 * rows));
+  S.seg_slot = reinterpret_cast<int32_t*>(take(4 * half));
+  S.seg_base = reinterpret_cast<int32_t*>(take(4 * half));
+  S.seg_len = reinterpret_cast<int32_t*>(take(4 * half));
+  S.seg_bin = reinterpret_cast<int32_t*>(take(4 * half));
+  S.cursor = reinterpret_cast<int32_t*>(take(4 * half));
+  S.big = reinterpret_cast<int32_t*>(take(4 * kLongBins));
+  S.mid = reinterpret_cast<int32_t*>(take(4 * half));
+  S.sorted = reinterpret_cast<int32_t*>(take(4 * rows));
+  S.hist = reinterpret_cast<int32_t*>(take(4 * kLongBins * tiles));
+  S.total = reinterpret_cast<unsigned long long*>(take(8));
+  S.counters = reinterpret_cast<int32_t*>(take(32));
+  S.hbits = hbits;
+  S.n_hash = h;
+  if (bytes != nullptr) *bytes = o;
+  return S;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase `parity` of the barrier to complete. A copy that never
-// lands would hang the card, so after ~2^26 polls the kernel traps instead.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (uint32_t spin = 0; !mbar_try_wait(bar, parity); ++spin) {
-    if (spin == (1u << 26)) __trap();
-  }
-}
-
-// One thread: arm the barrier for `bytes` and start the bulk copies.
-__device__ __forceinline__ void tma_batch(unsigned char* dst,
-                                          const unsigned char* src0,
-                                          const unsigned char* src1,
-                                          uint32_t half, uint64_t* bar) {
-  const uint32_t b = smem_addr(bar);
-  const uint32_t bytes = src1 != nullptr ? 2 * half : half;
-  // Earlier generic-proxy reads of this buffer come before the async write.
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(b), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src0), "r"(half), "r"(b)
-      : "memory");
-  if (src1 != nullptr) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst + half)),
-        "l"(src1), "r"(half), "r"(b)
-        : "memory");
-  }
-}
-
-// Row r's slot and count from a staged batch operand.
-__device__ __forceinline__ int32_t staged_slot(const unsigned char* buf,
-                                               bool fused, int r) {
+// Row g's slot and count: fused u8[K, B, 5] (bytes 0-3 the little-endian
+// slot, byte 4 the count) or i32[2, K, B] (slots, then counts).
+__device__ __forceinline__ int32_t op_slot(const unsigned char* op,
+                                           bool fused, int64_t g) {
   if (fused) {
-    const unsigned char* p = buf + 5 * r;
+    const unsigned char* p = op + 5 * g;
     return (int32_t)((uint32_t)p[0] | ((uint32_t)p[1] << 8) |
                      ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24));
   }
-  return reinterpret_cast<const int32_t*>(buf)[r];
+  return reinterpret_cast<const int32_t*>(op)[g];
 }
 
-__device__ __forceinline__ int32_t staged_count(const unsigned char* buf,
-                                                bool fused, int32_t b, int r) {
-  if (fused) return buf[5 * r + 4];
-  return reinterpret_cast<const int32_t*>(buf)[b + r];
+__device__ __forceinline__ int32_t op_count(const unsigned char* op,
+                                            bool fused, int64_t rows,
+                                            int64_t g) {
+  if (fused) return op[5 * g + 4];
+  return reinterpret_cast<const int32_t*>(op)[rows + g];
 }
 
-template <class P, int IPT>
-__global__ void __launch_bounds__(kThreads, 1)
-    scan_kernel(typename P::Table T, int32_t n_slots,
-                const unsigned char* __restrict__ operand, bool fused,
-                bool use_tma, const int32_t* __restrict__ nows_k,
-                int32_t n_batches, int32_t b, int sort_bits,
-                typename P::Params prm, float* __restrict__ out,
-                uint8_t* __restrict__ bits) {
-  using TT = ScanTypes<IPT>;
-  using Sort = typename TT::Sort;
-  using Scan = typename TT::Scan;
-  using Slot = typename P::Slot;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const ScanLayout L = scan_layout<P, IPT>(b, fused);
-  typename TT::Temp& temp = *reinterpret_cast<typename TT::Temp*>(smem);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
-  uint32_t* s_key = reinterpret_cast<uint32_t*>(smem + L.key);
-  Slot* s_ref = reinterpret_cast<Slot*>(smem + L.ref);
-  uint8_t* s_grant = smem + L.grant;
-  uint32_t* s_hash = reinterpret_cast<uint32_t*>(smem + L.hash);
+// Count n rows of slot s in the chunk's hash set (open addressing, linear
+// probing): a new slot's entry is claimed with its count in one 64-bit CAS;
+// a slot another warp inserted first (`present`) adds n to the count's half.
+// Returns the entry.
+__device__ __forceinline__ int32_t hash_count(unsigned long long* hent,
+                                              uint32_t hbits, uint32_t s,
+                                              uint32_t n, bool& present) {
+  const uint32_t mask = (1u << hbits) - 1;
+  uint32_t h = (s * 2654435761u) >> (32 - hbits);
+  for (;;) {
+    const unsigned long long cur = atomicCAS(
+        &hent[h], kEmptyEntry, ((unsigned long long)s << 32) | n);
+    present = (uint32_t)(cur >> 32) == s;
+    if (cur == kEmptyEntry) return (int32_t)h;
+    if (present) {
+      atomicAdd(&hent[h], (unsigned long long)n);
+      return (int32_t)h;
+    }
+    h = (h + 1) & mask;
+  }
+}
+
+__device__ __forceinline__ int32_t entry_rows(const unsigned long long* e) {
+  return (int32_t)(uint32_t)__ldcg(e);
+}
+
+// One row's results: out f32[K, 2, B] (grant, remaining), or its grant bit
+// g of the flat little-endian bit array (bit i of byte q is row 8q + i of
+// the chunk, as bit i of u8[K, B / 8]'s byte q of batch k is row 8q + i of
+// batch k when B % 8 == 0).
+__device__ __forceinline__ void emit(float* out, uint8_t* bits, int32_t b,
+                                     int64_t g, bool ok, float remaining) {
+  if (out != nullptr) {
+    const int64_t k = g / b;
+    const int64_t o = k * 2 * b + (g - k * b);
+    out[o] = ok ? 1.0f : 0.0f;
+    out[o + b] = remaining;
+  } else if (ok) {
+    atomicOr(reinterpret_cast<unsigned int*>(bits) + (g >> 5),
+             1u << (g & 31));
+  }
+}
+
+// Shared memory of the scan kernel; the sort's and the segment walk's
+// arrays are never live at once.
+template <class P>
+struct ScanShared {
+  using Sort = cub::BlockRadixSort<uint32_t, kScanThreads, kScanIpt,
+                                   uint16_t>;
+  using ScanSegHeads = cub::BlockScan<SegHeads, kScanThreads,
+                                      cub::BLOCK_SCAN_WARP_SCANS>;
+  using ScanInt = cub::BlockScan<int, kScanThreads,
+                                 cub::BLOCK_SCAN_WARP_SCANS>;
+  union Temp {
+    typename Sort::TempStorage sort;
+    typename ScanSegHeads::TempStorage seg;
+    typename ScanInt::TempStorage sint;
+  };
+  struct SortArrays {
+    int32_t row[kScanTile];
+    int32_t hist[kLongBins];
+    int32_t off[kLongBins];    // a long slot's first output position here
+    int32_t start[kLongBins];  // and its first position in the sorted tile
+  };
+  struct WalkArrays {
+    int32_t gk[kScanTile + 1];    // per group of a window: its batch
+    int32_t gnow[kScanTile + 1];  // and that batch's tick
+    int32_t lastk[kScanThreads];
+    long long part[kScanThreads / 32];  // a group's grants, per warp
+    typename P::Old old;
+    typename P::Slot sl;
+    long long run, consumed;
+    int32_t now, cur_k, first_head;
+  };
+  Temp temp;
+  union {
+    SortArrays sort;
+    WalkArrays walk;
+    int32_t warp[kScanThreads / 32][kWarpSeg];  // a middling slot's rows
+  } u;
+  int32_t item;
+};
+
+// What every walker reads: the table, the chunk's operand, ticks and
+// results, and the repeated slots' rows in slot-major order.
+template <class P>
+struct Chunk {
+  typename P::Table T;
+  const unsigned char* op;
+  bool fused;
+  int64_t rows;
+  const int32_t* nows_k;
+  int32_t b;
+  typename P::Params prm;
+  float* out;
+  uint8_t* bits;
+  const int32_t* sorted;
+
+  __device__ int32_t count(int64_t g) const {
+    return op_count(op, fused, rows, g);
+  }
+  __device__ void emit(int64_t g, bool ok, float remaining) const {
+    drl::emit(out, bits, b, g, ok, remaining);
+  }
+};
+
+// A short repeated slot (at most kThreadSeg rows), walked by one thread: its
+// rows load at once (placed in no order), a sorting network puts them in
+// (k, row) order, and the chain runs in registers.
+template <class P>
+__device__ void walk_short(const Chunk<P>& ch, int32_t slot, int32_t base,
+                           int32_t len) {
+  int32_t gs[kThreadSeg], cs[kThreadSeg];
+#pragma unroll
+  for (int j = 0; j < kThreadSeg; ++j) {
+    gs[j] = j < len ? __ldcg(&ch.sorted[base + j]) : 0x7FFFFFFF;
+  }
+#pragma unroll
+  for (int r = 0; r < kThreadSeg; ++r) {  // odd-even transposition sort
+#pragma unroll
+    for (int j = r & 1; j + 1 < kThreadSeg; j += 2) {
+      const int32_t lo = min(gs[j], gs[j + 1]);
+      gs[j + 1] = max(gs[j], gs[j + 1]);
+      gs[j] = lo;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kThreadSeg; ++j) {
+    if (j < len) cs[j] = ch.count(gs[j]);
+  }
+  typename P::Old old = P::gather(ch.T, slot);
+  typename P::Slot sl{};
+  int32_t cur_k = -1, now = 0;
+  long long run = 0, consumed = 0;
+#pragma unroll
+  for (int j = 0; j < kThreadSeg; ++j) {
+    if (j < len) {
+      const int32_t k = gs[j] / ch.b;
+      if (k != cur_k) {  // the slot's next batch: carry, then advance
+        if (cur_k >= 0) old = P::carry(sl, now, consumed);
+        now = ch.nows_k[k];
+        sl = P::advance(old, now, ch.prm);
+        run = 0;
+        consumed = 0;
+        cur_k = k;
+      }
+      const float pre = __ll2float_rn(run);
+      const float c = __int2float_rn(cs[j]);
+      const bool ok = P::fits(sl, now, ch.prm, pre, c);
+      ch.emit(gs[j], ok,
+              fmaxf(__fsub_rn(__fsub_rn(P::room(sl, now, ch.prm), pre),
+                              ok ? c : 0.0f),
+                    0.0f));
+      run += cs[j];
+      if (ok) consumed += cs[j];
+    }
+  }
+  P::commit(ch.T, slot, sl, now, consumed);
+}
+
+// The int64 sum over a warp.
+__device__ __forceinline__ long long warp_sum(long long v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFullMask, v, d);
+  return v;
+}
+
+// A middling repeated slot (at most kWarpSeg rows), walked by one warp. Its
+// rows were placed in no order: they load into the warp's buffer in shared
+// memory, and each lane ranks its rows among them (rows are distinct) and
+// stores each at its rank, which puts them in (k, row) order. Then 32 rows
+// at a time, one a lane: in each window the lanes find their batch group
+// (a head where the batch changes), take their same-batch int64 prefix from
+// a segmented warp scan, and the groups go in order: every lane computes the
+// group's advanced state (the same value), the group's lanes decide, and a
+// warp sum gives the group's grants.
+template <class P>
+__device__ void walk_warp(const Chunk<P>& ch, int32_t slot, int32_t base,
+                          int32_t len, int32_t* buf) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  constexpr int kPer = kWarpSeg / 32;
+  int32_t mine[kPer], rank[kPer];
+  __syncwarp();  // the last slot's walk has read the buffer
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int i = m * 32 + lane;
+    mine[m] = i < len ? __ldcg(&ch.sorted[base + i]) : 0x7FFFFFFF;
+    if (i < len) buf[i] = mine[m];
+    rank[m] = 0;
+  }
+  __syncwarp();
+  for (int i = 0; i < len; ++i) {
+    const int32_t v = buf[i];
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) rank[m] += v < mine[m];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    if (m * 32 + lane < len) buf[rank[m]] = mine[m];
+  }
+  __syncwarp();
+  typename P::Old old = P::gather(ch.T, slot);
+  typename P::Slot sl{};
+  int32_t cur_k = -1, now = 0;
+  long long run = 0, consumed = 0;
+  for (int32_t win = 0; win < len; win += 32) {
+    const bool in = win + lane < len;
+    const int32_t g = in ? buf[win + lane] : -1;
+    const int32_t k = in ? g / ch.b : 0x7FFFFFFF;
+    const int32_t c = in ? ch.count(g) : 0;
+    int32_t prev_k = __shfl_up_sync(kFullMask, k, 1);
+    if (lane == 0) prev_k = cur_k;
+    const bool head = in && k != prev_k;
+    const unsigned heads = __ballot_sync(kFullMask, head);
+    // The lane's group starts at the last head at or below it (lane 0 if
+    // none: the last window's group going on, which brings its demand).
+    const unsigned upto = heads & (below | (1u << lane));
+    const int start = upto ? 31 - __clz(upto) : 0;
+    long long incl = c + (lane == 0 && !head ? run : 0);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long up = __shfl_up_sync(kFullMask, incl, d);
+      if (lane - d >= start) incl += up;
+    }
+    const float pre = __ll2float_rn(incl - c);
+    const float cf = __int2float_rn(c);
+    unsigned left = __ballot_sync(kFullMask, in);
+    const int last = 31 - __clz(left);
+    while (left != 0) {
+      const int first = __ffs(left) - 1;
+      const int32_t kg = __shfl_sync(kFullMask, k, first);
+      if ((heads >> first) & 1) {  // the slot's next batch
+        if (cur_k >= 0) old = P::carry(sl, now, consumed);
+        now = ch.nows_k[kg];
+        sl = P::advance(old, now, ch.prm);
+        consumed = 0;
+        cur_k = kg;
+      }
+      const unsigned group = __ballot_sync(kFullMask, in && k == kg);
+      bool ok = false;
+      if ((group >> lane) & 1) {
+        ok = P::fits(sl, now, ch.prm, pre, cf);
+        ch.emit(g, ok,
+                fmaxf(__fsub_rn(__fsub_rn(P::room(sl, now, ch.prm), pre),
+                                ok ? cf : 0.0f),
+                      0.0f));
+      }
+      consumed += warp_sum(ok ? (long long)c : 0);
+      left &= ~group;
+    }
+    run = __shfl_sync(kFullMask, incl, last);
+  }
+  if (lane == 0) P::commit(ch.T, slot, sl, now, consumed);
+}
+
+// A long repeated slot (more than kWarpSeg rows, placed in (k, row) order),
+// walked by the whole block: windows of kScanTile rows; in each, one
+// segmented int64 scan gives every row its same-batch prefix and, counting
+// the group heads, its group; then the groups
+// go in order, each deciding its rows in parallel from its advanced state and
+// summing its grants per warp, which warp 0 adds up before thread 0 carries
+// the slot into the next group: two barriers a group.
+template <class P>
+__device__ void walk_long(ScanShared<P>& sh, const Chunk<P>& ch,
+                          int32_t slot, int32_t base, int32_t len) {
+  using Sh = ScanShared<P>;
+  auto& w = sh.u.walk;
   const int tid = threadIdx.x;
-  const uint32_t pad_key = (uint32_t)n_slots;  // sorts after every slot
-  constexpr uint32_t kEmpty = 0xFFFFFFFFu;     // no slot is >= 2^31
-  // Whether this block decides row r (slot s): by slot, or for a padding
-  // row by row index, so that every row has exactly one block.
-  auto owns = [&](int32_t s, int r) {
-    const bool valid = s >= 0 && s < n_slots;
-    return (uint32_t)(valid ? s : r) % gridDim.x == blockIdx.x;
-  };
-
-  // Batch k's operand: fused u8[K, B, 5], or i32[2, K, B] (slots, counts).
-  const uint32_t half = fused ? 5u * b : 4u * b;
-  auto src = [&](int k, int part) -> const unsigned char* {
-    return fused ? operand + (size_t)k * half
-                 : operand + ((size_t)part * n_batches + k) * half;
-  };
-  auto stage = [&](int k) {  // start batch k's copy into buffer k % 2
-    unsigned char* dst = smem + ((k & 1) ? L.buf1 : L.buf0);
-    tma_batch(dst, src(k, 0), fused ? nullptr : src(k, 1), half, &bar[k & 1]);
-  };
-
-  for (int i = tid; i < TT::kHashSize; i += kThreads) s_hash[i] = kEmpty;
-  if (use_tma && tid == 0) {
-    mbar_init(&bar[0]);
-    mbar_init(&bar[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    stage(0);
+  if (tid == 0) {
+    w.old = P::gather(ch.T, slot);
+    w.cur_k = -1;
+    w.run = 0;
+    w.consumed = 0;
+    w.now = 0;
   }
   __syncthreads();
-
-  for (int k = 0; k < n_batches; ++k) {
-    unsigned char* buf = smem + ((k & 1) ? L.buf1 : L.buf0);
-    if (use_tma) {
-      mbar_wait(&bar[k & 1], (k >> 1) & 1);
-      // Buffer (k+1) % 2 was last read in batch k-1, which every thread has
-      // left (the __syncthreads() that ends each batch).
-      if (tid == 0 && k + 1 < n_batches) stage(k + 1);
-    } else {
-      const int parts = fused ? 1 : 2;
-      for (int part = 0; part < parts; ++part) {
-        const unsigned char* s = src(k, part);
-        for (uint32_t i = tid; i < half; i += kThreads) {
-          buf[part * half + i] = s[i];
+  const int32_t end = base + len;
+  // The window's rows and counts; the next window's load while this one is
+  // decided.
+  int32_t g[kScanIpt], c[kScanIpt], nx_g[kScanIpt], nx_c[kScanIpt];
+  auto load_rows = [&](int32_t win, int32_t (&rg)[kScanIpt]) {
+#pragma unroll
+    for (int j = 0; j < kScanIpt; ++j) {
+      const int32_t idx = win + tid * kScanIpt + j;
+      rg[j] = idx < end ? __ldcg(&ch.sorted[idx]) : -1;
+    }
+  };
+  auto load_counts = [&](const int32_t (&rg)[kScanIpt],
+                         int32_t (&rc)[kScanIpt]) {
+#pragma unroll
+    for (int j = 0; j < kScanIpt; ++j) {
+      rc[j] = rg[j] >= 0 ? ch.count(rg[j]) : 0;
+    }
+  };
+  load_rows(base, g);
+  load_counts(g, c);
+  for (int32_t win = base; win < end; win += kScanTile) {
+    load_rows(win + kScanTile, nx_g);
+    int32_t k[kScanIpt];
+#pragma unroll
+    for (int j = 0; j < kScanIpt; ++j) {
+      k[j] = g[j] >= 0 ? g[j] / ch.b : 0x7FFFFFFF;
+    }
+    w.lastk[tid] = k[kScanIpt - 1];
+    const int32_t carried_k = w.cur_k;
+    const long long carried_run = w.run;
+    __syncthreads();
+    bool head[kScanIpt];
+    SegHeads seg[kScanIpt];
+#pragma unroll
+    for (int j = 0; j < kScanIpt; ++j) {
+      const int p = tid * kScanIpt + j;
+      const int32_t prev =
+          j > 0 ? k[j - 1] : (tid > 0 ? w.lastk[tid - 1] : carried_k);
+      head[j] = g[j] >= 0 && k[j] != prev;
+      // The window's first row, if it continues the last window's group,
+      // starts from that group's running demand.
+      seg[j] = SegHeads{c[j] + (p == 0 && !head[j] ? carried_run : 0),
+                        head[j] ? p : -1, head[j] ? 1 : 0};
+    }
+    SegHeads agg;
+    typename Sh::ScanSegHeads(sh.temp.seg).InclusiveScan(seg, seg,
+                                                          SegHeadsSum(), agg);
+    // seg[j].heads: the row's group (heads up to it); agg.heads: the
+    // window's heads.
+    const int n_heads = agg.heads;
+#pragma unroll
+    for (int j = 0; j < kScanIpt; ++j) {
+      if (head[j]) {
+        w.gk[seg[j].heads] = k[j];
+        w.gnow[seg[j].heads] = ch.nows_k[k[j]];
+      }
+    }
+    if (tid == 0) w.first_head = head[0];
+    load_counts(nx_g, nx_c);
+    __syncthreads();
+    // Group 0 is the last window's group going on (if the first row is not
+    // a head); group q >= 1 starts at the q-th head. Thread 0 carries the
+    // slot into each new group.
+    auto begin_group = [&](int q) {
+      if (w.cur_k >= 0) w.old = P::carry(w.sl, w.now, w.consumed);
+      w.now = w.gnow[q];
+      w.sl = P::advance(w.old, w.now, ch.prm);
+      w.consumed = 0;
+      w.cur_k = w.gk[q];
+    };
+    const int q0 = w.first_head;
+    if (tid == 0 && q0 == 1) begin_group(1);
+    for (int q = q0; q <= n_heads; ++q) {
+      __syncthreads();  // group q's state is set
+      const typename P::Slot sl = w.sl;
+      const int32_t now = w.now;
+      long long part = 0;
+#pragma unroll
+      for (int j = 0; j < kScanIpt; ++j) {
+        if (g[j] >= 0 && seg[j].heads == q) {
+          const float pre = __ll2float_rn(seg[j].sum - c[j]);
+          const float cf = __int2float_rn(c[j]);
+          const bool ok = P::fits(sl, now, ch.prm, pre, cf);
+          ch.emit(g[j], ok,
+                  fmaxf(__fsub_rn(__fsub_rn(P::room(sl, now, ch.prm), pre),
+                                  ok ? cf : 0.0f),
+                        0.0f));
+          if (ok) part += c[j];
         }
       }
+      part = warp_sum(part);
+      if ((tid & 31) == 0) w.part[tid >> 5] = part;
       __syncthreads();
+      if (tid < 32) {  // warp 0 adds the warps' sums
+        part = warp_sum(tid < kScanThreads / 32 ? w.part[tid] : 0);
+        if (tid == 0) {
+          w.consumed += part;
+          if (q < n_heads) begin_group(q + 1);
+        }
+      }
     }
-    const int32_t now = nows_k[k];
-
-    // This block's rows keep their slot as the key; every other row (and
-    // every padding row) takes the padding key.
-    uint32_t key[IPT];
-    uint16_t row[IPT];
+    // The last group's running demand, for a group that goes on in the next
+    // window.
+    if (tid == 0) w.run = agg.sum;
 #pragma unroll
-    for (int j = 0; j < IPT; ++j) {
-      const int r = tid * IPT + j;
-      const int32_t s = r < b ? staged_slot(buf, fused, r) : -1;
+    for (int j = 0; j < kScanIpt; ++j) {
+      g[j] = nx_g[j];
+      c[j] = nx_c[j];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) P::commit(ch.T, slot, w.sl, w.now, w.consumed);
+  __syncthreads();  // the walk arrays are free again
+}
+
+template <class P>
+__global__ void __launch_bounds__(kScanThreads, 2)
+    scan_kernel(typename P::Table T, int32_t n_slots,
+                const unsigned char* __restrict__ op, bool fused,
+                const int32_t* __restrict__ nows_k, int32_t n_batches,
+                int32_t b, typename P::Params prm, float* __restrict__ out,
+                uint8_t* __restrict__ bits, void* scratch) {
+  using Sh = ScanShared<P>;
+  __shared__ Sh sh;
+  const int64_t rows = (int64_t)n_batches * b;
+  const ScanScratch S = scan_scratch(scratch, rows, nullptr);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int64_t gtid = (int64_t)blockIdx.x * kScanThreads + tid;
+  const int64_t stride = (int64_t)gridDim.x * kScanThreads;
+  constexpr int kR = kRowsInFlight;
+
+  // 1. Empty the hash set and the counters (16 bytes, two entries, a store).
+  for (int64_t i = gtid; i < S.n_hash / 2; i += stride) {
+    reinterpret_cast<uint4*>(S.hent)[i] =
+        make_uint4(0, kEmptyKey, 0, kEmptyKey);
+  }
+  if (gtid == 0) {
+    *S.total = 0;
+    for (int i = 0; i < 8; ++i) S.counters[i] = 0;
+  }
+  cg::this_grid().sync();
+
+  // 2. Every valid row finds its slot's entry and counts itself; lanes of a
+  //    warp with one slot count together. (Each thread loads kR rows' slots
+  //    at once, here and below.)
+  for (int64_t w0 = gtid - lane; w0 < rows; w0 += kR * stride) {
+    int32_t sl[kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const int64_t g = w0 + j * stride + lane;
+      sl[j] = g < rows ? op_slot(op, fused, g) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const int64_t g = w0 + j * stride + lane;
+      if (g - lane >= rows) break;  // warp-uniform
+      const int32_t s = sl[j];
       const bool valid = s >= 0 && s < n_slots;
-      key[j] = valid && owns(s, r) ? (uint32_t)s : pad_key;
-      row[j] = (uint16_t)r;
+      const unsigned peers =
+          __match_any_sync(kFullMask, valid ? (uint32_t)s : kEmptyKey);
+      const int leader = __ffs(peers) - 1;
+      int32_t h = -1;
+      bool again = false;  // the slot has another row in the chunk
+      if (valid && lane == leader) {
+        h = hash_count(S.hent, S.hbits, (uint32_t)s, __popc(peers), again);
+        again |= peers != 1u << lane;
+      }
+      if (__any_sync(kFullMask, again) && lane == 0) S.counters[5] = 1;
+      h = __shfl_sync(kFullMask, h, leader);
+      if (g < rows) S.ent[g] = valid ? h : -1;
     }
+  }
+  cg::this_grid().sync();
+  const bool repeats = __ldcg(&S.counters[5]) != 0;
 
-    // 1. Does one of the block's slots repeat in the batch? One atomicCAS a
-    //    row into a shared-memory hash set. Without repeats there is no sort
-    //    and no scan: every row is its own segment and every prefix is 0.
-    int claimed[IPT];
-    bool repeat = false;
+  // 3. A slot with one row in the chunk decides it at once: one gather, one
+  //    commit, no prefix. Padding rows answer (0, 0). Grant bits of 32 rows
+  //    are one word, stored whole (a repeated slot's rows OR theirs in after
+  //    the next barrier). A chunk without repeats ends here. Otherwise every
+  //    repeated slot takes a segment number d and its range in the
+  //    slot-major order from one 64-bit atomic, so ranges and numbers ascend
+  //    together, and its class by its rows.
+  for (int64_t w0 = gtid - lane; w0 < rows; w0 += kR * stride) {
+    bool single[kR];
+    int32_t sl[kR];
+    typename P::Old old[kR];
 #pragma unroll
-    for (int j = 0; j < IPT; ++j) {
-      claimed[j] = -1;
-      if (key[j] == pad_key) continue;
-      uint32_t h = (key[j] * 2654435761u) >> (32 - TT::kHashBits);
-      for (;;) {
-        const uint32_t prev = atomicCAS(&s_hash[h], kEmpty, key[j]);
-        if (prev == kEmpty) {
-          claimed[j] = (int)h;
-          break;
-        }
-        if (prev == key[j]) {
-          repeat = true;
-          break;
-        }
-        h = (h + 1) & (TT::kHashSize - 1);
+    for (int j = 0; j < kR; ++j) {
+      const int64_t g = w0 + j * stride + lane;
+      const int32_t e = g < rows ? S.ent[g] : -1;
+      single[j] = e >= 0 && (!repeats || entry_rows(&S.hent[e]) == 1);
+      sl[j] = single[j] ? op_slot(op, fused, g) : -1;
+      if (out != nullptr && g < rows && e < 0) {
+        emit(out, nullptr, b, g, false, 0.0f);
       }
     }
-    const bool sorted = __syncthreads_or(repeat);
 #pragma unroll
-    for (int j = 0; j < IPT; ++j) {  // empty again for the next batch
-      if (claimed[j] >= 0) s_hash[claimed[j]] = kEmpty;
+    for (int j = 0; j < kR; ++j) {
+      if (single[j]) old[j] = P::gather(T, sl[j]);
     }
-    if (sorted) {
-      // Sort (key, row) by key: a stable radix sort keeps request order
-      // within each slot's segment.
-      Sort(temp.sort).Sort(key, row, 0, sort_bits);
 #pragma unroll
-      for (int j = 0; j < IPT; ++j) s_key[tid * IPT + j] = key[j];
-      __syncthreads();
-    }
-
-    // 2. Exact int64 prefix of earlier same-slot demand; each element also
-    //    learns its segment head's (sorted) position.
-    Seg seg[IPT];
-    int32_t cnt[IPT];
-    bool head[IPT], valid[IPT];
-#pragma unroll
-    for (int j = 0; j < IPT; ++j) {
-      const int p = tid * IPT + j;
-      valid[j] = key[j] != pad_key;
-      head[j] = !sorted || p == 0 || s_key[p - 1] != key[j];
-      cnt[j] = valid[j] ? staged_count(buf, fused, b, row[j]) : 0;
-      seg[j] = Seg{cnt[j], head[j] ? p : -1};
-    }
-    if (sorted) Scan(temp.scan).InclusiveScan(seg, seg, SegSum());
-
-    // 3. Each segment head gathers and advances its slot once.
-    {
-      typename P::Old old[IPT];
-#pragma unroll
-      for (int j = 0; j < IPT; ++j) {
-        if (head[j] && valid[j]) old[j] = P::gather(T, (int32_t)key[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < IPT; ++j) {
-        if (head[j] && valid[j]) {
-          s_ref[tid * IPT + j] = P::advance(old[j], now, prm);
+    for (int j = 0; j < kR; ++j) {
+      const int64_t g = w0 + j * stride + lane;
+      if (g - lane >= rows) break;  // warp-uniform
+      bool ok = false;
+      if (single[j]) {
+        const int32_t kk = (int32_t)(g / b);
+        const int32_t now = nows_k[kk];
+        const typename P::Slot st = P::advance(old[j], now, prm);
+        const int32_t cnt = op_count(op, fused, rows, g);
+        const float c = __int2float_rn(cnt);
+        ok = P::fits(st, now, prm, 0.0f, c);
+        if (out != nullptr) {
+          emit(out, nullptr, b, g, ok,
+               fmaxf(__fsub_rn(__fsub_rn(P::room(st, now, prm), 0.0f),
+                               ok ? c : 0.0f),
+                     0.0f));
         }
+        P::commit(T, sl[j], st, now, ok ? (long long)cnt : 0);
+      }
+      if (bits != nullptr) {
+        const unsigned word = __ballot_sync(kFullMask, ok);
+        if (lane == 0) {
+          reinterpret_cast<unsigned int*>(bits)[(g - lane) >> 5] = word;
+        }
+      }
+    }
+  }
+  if (!repeats) return;  // every row was its slot's only one
+  for (int64_t e0 = gtid - lane; e0 < S.n_hash; e0 += kR * stride) {
+    int32_t cnts[kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const int64_t e = e0 + j * stride + lane;
+      cnts[j] = e < S.n_hash ? entry_rows(&S.hent[e]) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const int64_t e = e0 + j * stride + lane;
+      const int32_t cnt = cnts[j];
+      const bool rep = cnt > 1;
+      const unsigned mask = __ballot_sync(kFullMask, rep);
+      if (mask == 0) continue;
+      const int32_t v = rep ? cnt : 0;
+      int32_t incl = v;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t up = __shfl_up_sync(kFullMask, incl, d);
+        if (lane >= d) incl += up;
+      }
+      unsigned long long first = 0;
+      if (lane == 31) {
+        first = atomicAdd(S.total, ((unsigned long long)__popc(mask) << 32) |
+                                       (unsigned long long)(uint32_t)incl);
+      }
+      first = __shfl_sync(kFullMask, first, 31);
+      if (rep) {
+        const int32_t d =
+            (int32_t)(first >> 32) + __popc(mask & ((1u << lane) - 1));
+        S.dense[e] = d;
+        S.seg_slot[d] = (int32_t)(__ldcg(&S.hent[e]) >> 32);
+        S.seg_base[d] = (int32_t)(uint32_t)first + incl - v;
+        S.seg_len[d] = cnt;
+        S.cursor[d] = 0;
+        int32_t bin = -1;
+        if (cnt > kWarpSeg) {
+          bin = atomicAdd(&S.counters[0], 1);
+          S.big[bin] = d;
+        } else if (cnt > kThreadSeg) {
+          S.mid[atomicAdd(&S.counters[1], 1)] = d;
+        }
+        S.seg_bin[d] = bin;
+      }
+    }
+  }
+  cg::this_grid().sync();
+  const unsigned long long total = __ldcg(S.total);
+  const int32_t n_seg = (int32_t)(total >> 32);
+
+  // 4. Place every repeated slot's rows in its range of the sorted order.
+  //    A short or middling slot's rows go anywhere in it (one atomic a
+  //    slot a warp); their walkers order them. A long slot's rows are
+  //    ordered here, by one stable multisplit: a per-tile count of each long
+  //    slot's rows, a barrier, and a scatter (every tile sorts its rows by
+  //    long slot with a block radix sort, stable, and adds the earlier
+  //    tiles' counts), so each long slot's rows land in chunk order, that
+  //    is (k, row) order. A row's entry becomes its long slot, or -1.
+  const int32_t n_big = __ldcg(&S.counters[0]);
+  const int32_t tiles = (int32_t)((rows + kScanTile - 1) / kScanTile);
+  const int32_t tstride = (tiles + 3) & ~3;  // 16-byte rows of counts
+  auto& sa = sh.u.sort;
+  for (int32_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int i = tid; i < n_big; i += kScanThreads) sa.hist[i] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kScanIpt; ++j) {
+      const int64_t g = (int64_t)t * kScanTile + j * kScanThreads + tid;
+      int32_t d = -1, bin = -1;
+      if (g < rows) {
+        const int32_t e = __ldcg(&S.ent[g]);
+        if (e >= 0 && entry_rows(&S.hent[e]) > 1) {
+          d = __ldcg(&S.dense[e]);
+          bin = __ldcg(&S.seg_bin[d]);
+        }
+        S.ent[g] = bin;
+      }
+      if (bin >= 0) atomicAdd(&sa.hist[bin], 1);
+      const int32_t place = bin < 0 ? d : -1;
+      const unsigned peers = __match_any_sync(kFullMask, (uint32_t)place);
+      const int leader = __ffs(peers) - 1;
+      int32_t at = 0;
+      if (place >= 0 && lane == leader) {
+        at = __ldcg(&S.seg_base[place]) +
+             atomicAdd(&S.cursor[place], __popc(peers));
+      }
+      at = __shfl_sync(kFullMask, at, leader);
+      if (place >= 0) S.sorted[at + __popc(peers & ((1u << lane) - 1))] = g;
+    }
+    __syncthreads();
+    for (int i = tid; i < n_big; i += kScanThreads) {
+      S.hist[(int64_t)i * tstride + t] = sa.hist[i];
+    }
+  }
+  cg::this_grid().sync();
+  const int wbits = n_big > 1 ? 32 - __clz(n_big - 1) : 1;
+  const uint32_t none = 1u << wbits;  // sorts after every long slot
+  for (int32_t t = blockIdx.x; n_big > 0 && t < tiles; t += gridDim.x) {
+    uint32_t dig[kScanIpt];
+    uint16_t val[kScanIpt];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kScanIpt; ++j) {
+      const int p = tid * kScanIpt + j;
+      const int64_t g = (int64_t)t * kScanTile + p;
+      const int32_t bin = g < rows ? __ldcg(&S.ent[g]) : -1;
+      dig[j] = bin >= 0 ? (uint32_t)bin : none;
+      val[j] = (uint16_t)p;
+      sa.row[p] = (int32_t)g;
+      any |= bin >= 0;
+    }
+    if (!__syncthreads_or(any)) continue;
+    // Per long slot: its rows in the earlier tiles and in this one.
+    int32_t before = 0, here = 0;
+    if (tid < n_big) {
+      const int4* h =
+          reinterpret_cast<const int4*>(S.hist + (int64_t)tid * tstride);
+      // 64 tiles' counts (a whole chunk's) per round, all loads in flight.
+      for (int32_t u0 = 0; u0 <= t; u0 += 64) {
+        int4 v[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          v[q] = u0 + 4 * q <= t ? __ldcg(&h[u0 / 4 + q])
+                                 : make_int4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int32_t x[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int32_t u = u0 + 4 * q + r;
+            if (u < t) before += x[r];
+            if (u == t) here = x[r];
+          }
+        }
+      }
+    }
+    int32_t start;
+    typename Sh::ScanInt(sh.temp.sint).ExclusiveSum(here, start);
+    if (tid < n_big) {
+      sa.off[tid] = __ldcg(&S.seg_base[__ldcg(&S.big[tid])]) + before;
+      sa.start[tid] = start;
+    }
+    __syncthreads();  // the scan's storage is the sort's
+    typename Sh::Sort(sh.temp.sort).Sort(dig, val, 0, wbits + 1);
+#pragma unroll
+    for (int j = 0; j < kScanIpt; ++j) {
+      if (dig[j] < none) {
+        const int p = tid * kScanIpt + j;
+        S.sorted[sa.off[dig[j]] + (p - sa.start[dig[j]])] = sa.row[val[j]];
       }
     }
     __syncthreads();
+  }
+  if (n_big > 0) cg::this_grid().sync();
+  const Chunk<P> ch{T, op, fused, rows, nows_k, b, prm, out, bits, S.sorted};
 
-    // 4. Decide every row from its head's advanced state; seg becomes the
-    //    input of the consumption scan.
-    Slot sl[IPT];
-#pragma unroll
-    for (int j = 0; j < IPT; ++j) {
-      const int p = tid * IPT + j;
-      sl[j] = valid[j] ? s_ref[seg[j].head] : Slot{};
-      const float pre = __ll2float_rn(seg[j].sum - cnt[j]);
-      const float c = __int2float_rn(cnt[j]);
-      const bool ok = valid[j] && P::fits(sl[j], now, prm, pre, c);
-      const float remaining =
-          valid[j]
-              ? fmaxf(__fsub_rn(__fsub_rn(P::room(sl[j], now, prm), pre),
-                                ok ? c : 0.0f),
-                      0.0f)
-              : 0.0f;
-      const int r = row[j];
-      if (r < b) {
-        const bool own = valid[j] || owns(staged_slot(buf, fused, r), r);
-        if (own && out != nullptr) {
-          out[(size_t)k * 2 * b + r] = ok ? 1.0f : 0.0f;
-          out[(size_t)k * 2 * b + b + r] = remaining;
-        }
-        s_grant[r] = ok;  // false for every row of another block
-      }
-      seg[j] = Seg{ok ? cnt[j] : 0, head[j] ? p : -1};
-    }
-    // (The __syncthreads() after step 3 separates the two uses of the
-    // scan's temporary storage.)
-    if (sorted) Scan(temp.scan).InclusiveScan(seg, seg, SegSum());
-
-    // 5. Each segment tail commits its slot once, with the segment's
-    //    consumption.
-#pragma unroll
-    for (int j = 0; j < IPT; ++j) {
-      const int p = tid * IPT + j;
-      const bool tail =
-          !sorted || p == TT::kRows - 1 || s_key[p + 1] != key[j];
-      if (tail && valid[j]) P::commit(T, (int32_t)key[j], sl[j], now,
-                                      seg[j].sum);
-    }
-    // Batch k's writes are visible to batch k+1's reads; shared memory is
-    // free for reuse.
+  // 5. Walk every repeated slot: the long ones a block each, taken from a
+  //    queue, then the middling ones a warp each, then the short ones a
+  //    thread each (a warp takes 32 segment numbers at a time). Each slot is
+  //    gathered once and committed once.
+  const int32_t n_mid = __ldcg(&S.counters[1]);
+  for (;;) {
+    if (tid == 0) sh.item = atomicAdd(&S.counters[2], 1);
     __syncthreads();
-
-    // A byte of grant bits holds rows of several blocks: each ORs its own
-    // into the 32-bit word around the byte (the launcher zeroed them all).
-    if (bits != nullptr) {
-      for (int q = tid; q < b / 8; q += kThreads) {
-        uint32_t byte = 0;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) byte |= (uint32_t)s_grant[8 * q + i] << i;
-        if (byte != 0) {
-          const size_t o = (size_t)k * (b / 8) + q;
-          atomicOr(reinterpret_cast<unsigned int*>(bits) + (o >> 2),
-                   byte << (8 * (o & 3)));
-        }
+    const int32_t i = sh.item;
+    __syncthreads();
+    if (i >= n_big) break;
+    const int32_t d = __ldcg(&S.big[i]);
+    walk_long<P>(sh, ch, __ldcg(&S.seg_slot[d]), __ldcg(&S.seg_base[d]),
+                 __ldcg(&S.seg_len[d]));
+  }
+  // From here every warp takes its own work: a warp segment, or 32 segment
+  // numbers whose short segments its lanes walk.
+  for (;;) {
+    int32_t i = 0;
+    if (lane == 0) i = atomicAdd(&S.counters[3], 1);
+    i = __shfl_sync(kFullMask, i, 0);
+    if (i >= n_mid) break;
+    const int32_t d = __ldcg(&S.mid[i]);
+    walk_warp<P>(ch, __ldcg(&S.seg_slot[d]), __ldcg(&S.seg_base[d]),
+                 __ldcg(&S.seg_len[d]), sh.u.warp[tid >> 5]);
+  }
+  for (;;) {
+    int32_t i = 0;
+    if (lane == 0) i = atomicAdd(&S.counters[4], 1);
+    const int64_t d = (int64_t)__shfl_sync(kFullMask, i, 0) * 32 + lane;
+    if (d - lane >= n_seg) break;
+    if (d < n_seg) {
+      const int32_t len = __ldcg(&S.seg_len[d]);
+      if (len <= kThreadSeg) {
+        walk_short<P>(ch, __ldcg(&S.seg_slot[d]), __ldcg(&S.seg_base[d]),
+                      len);
       }
     }
   }
 }
 
-template <class P, int IPT>
-int launch_scan(typename P::Table T, int32_t n_slots,
-                const unsigned char* operand, bool fused,
-                const int32_t* nows_k, int32_t n_batches, int32_t b,
-                int sort_bits, typename P::Params prm, float* out,
-                uint8_t* bits, cudaStream_t stream) {
-  const ScanLayout L = scan_layout<P, IPT>(b, fused);
-  // The bulk copy needs 16-byte aligned addresses and sizes.
-  const bool use_tma = b % 16 == 0 && (uintptr_t)operand % 16 == 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<P, IPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
+// Resident blocks of one scan kernel instantiation on the current device: a
+// cooperative grid may hold no more. Cached per device.
+template <class P>
+int scan_grid_limit(int* limit) {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (bits != nullptr) {  // the blocks OR their grants into whole words
-    const size_t words = ((size_t)n_batches * (b / 8) + 3) / 4;
-    err = cudaMemsetAsync(bits, 0, 4 * words, stream);
-    if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && cached[dev] > 0) {
+    *limit = cached[dev];
+    return 0;
   }
-  scan_kernel<P, IPT><<<kScanBlocks, kThreads, L.total, stream>>>(
-      T, n_slots, operand, fused, use_tma, nows_k, n_batches, b, sort_bits,
-      prm, out, bits);
-  return (int)cudaGetLastError();
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, scan_kernel<P>, kScanThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  *limit = sms * per_sm;
+  if (dev < 64) cached[dev] = *limit;
+  return 0;
 }
 
-// Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], in a 4-byte
-// aligned allocation rounded up to whole 4-byte words) is non-null.
+// Bytes of scratch a chunk of n_batches x b rows needs.
+inline int64_t scan_scratch_bytes(int32_t n_batches, int32_t b) {
+  size_t bytes = 0;
+  scan_scratch(nullptr, (int64_t)n_batches * b, &bytes);
+  return (int64_t)bytes;
+}
+
+// Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], B % 8 == 0, in
+// a 4-byte aligned allocation rounded up to whole 4-byte words) is
+// non-null; scratch holds scan_scratch_bytes(K, B) bytes.
 template <class P>
 int launch_scan_any(typename P::Table T, int32_t n_slots, const void* operand,
                     int32_t fused, const int32_t* nows_k, int32_t n_batches,
-                    int32_t b, int32_t sort_bits, typename P::Params prm,
-                    float* out, uint8_t* bits, cudaStream_t stream) {
+                    int32_t b, typename P::Params prm, float* out,
+                    uint8_t* bits, void* scratch, cudaStream_t stream) {
   if (b <= 0 || n_batches <= 0) return (int)cudaSuccess;
-  const auto* op = static_cast<const unsigned char*>(operand);
-  if (b <= ScanTypes<1>::kRows)
-    return launch_scan<P, 1>(T, n_slots, op, fused != 0, nows_k, n_batches, b,
-                             sort_bits, prm, out, bits, stream);
-  if (b <= ScanTypes<2>::kRows)
-    return launch_scan<P, 2>(T, n_slots, op, fused != 0, nows_k, n_batches, b,
-                             sort_bits, prm, out, bits, stream);
-  if (b <= ScanTypes<4>::kRows)
-    return launch_scan<P, 4>(T, n_slots, op, fused != 0, nows_k, n_batches, b,
-                             sort_bits, prm, out, bits, stream);
-  return (int)cudaErrorInvalidValue;
+  const int64_t rows = (int64_t)n_batches * b;
+  if (rows > kMaxRows) return (int)cudaErrorInvalidValue;
+  const unsigned char* op = static_cast<const unsigned char*>(operand);
+  bool f = fused != 0;
+  int limit = 0;
+  const int rc = scan_grid_limit<P>(&limit);
+  if (rc != 0) return rc;
+  if (limit <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  int64_t blocks = (rows + kScanThreads - 1) / kScanThreads;
+  if (blocks > limit) blocks = limit;
+  void* args[] = {&T, &n_slots, (void*)&op, &f, (void*)&nows_k, &n_batches,
+                  &b, &prm, &out, &bits, &scratch};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)scan_kernel<P>, dim3((unsigned)blocks),
+      dim3(kScanThreads), args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace drl

@@ -45,10 +45,10 @@
 // moves 5 B of operand and 8 B (or 1/8 B, verdict-only) of result, plus the
 // 26 B per distinct slot; ~30 operations a row, far below the card's
 // operations-per-byte balance. As for buckets, the flushes are latency-bound
-// (one block, the dependent chain gather -> decide -> write), and the scan is
-// bound by its sorts and by its 16 blocks' scattered gathers: the design
-// keeps a slot's rows in one block (no grid barrier), gathers each distinct
-// slot once, and skips the sort where no slot repeats (decide.cuh).
+// (one block, the dependent chain gather -> decide -> write); the scan
+// decides the chunk slot-major on every SM, gathers and commits each distinct
+// slot once per chunk, and sorts only the rows of slots that repeat
+// (decide.cuh).
 //
 // sweep_windows_kernel, per slot i < N:
 //   expired = exists && (int32)(idx_now - idx[i]) >= 2   (wrapping)
@@ -141,12 +141,17 @@ struct WindowPolicy {
     atomicAdd(&t.curr[i], consumed);
   }
   static __device__ __forceinline__ void commit(const Table& t, int32_t i,
-                                                const Slot& s, int32_t,
+                                                const Slot& s, int32_t now,
                                                 long long consumed) {
-    t.prev[i] = s.prev;
-    t.curr[i] = __fadd_rn(s.curr, __ll2float_rn(consumed));
-    t.idx[i] = s.idx;
-    t.exists[i] = 1;
+    const Old o = carry(s, now, consumed);
+    t.prev[i] = o.prev;
+    t.curr[i] = o.curr;
+    t.idx[i] = o.idx;
+    t.exists[i] = o.exists;
+  }
+  static __device__ __forceinline__ Old carry(const Slot& s, int32_t,
+                                              long long consumed) {
+    return Old{s.prev, __fadd_rn(s.curr, __ll2float_rn(consumed)), s.idx, 1};
   }
 };
 
@@ -202,19 +207,23 @@ extern "C" int drl_window_grouped(float* prev, float* curr, int32_t* idx,
 }
 
 // Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], in a 4-byte
-// aligned allocation rounded up to whole 4-byte words) is non-null.
+// aligned allocation rounded up to whole 4-byte words) is non-null; scratch
+// holds drl_scan_scratch_bytes(n_batches, b) bytes.
 extern "C" int drl_window_scan(float* prev, float* curr, int32_t* idx,
                                uint8_t* exists, int32_t n_slots,
                                const void* operand, int32_t fused,
                                const int32_t* nows_k, int32_t n_batches,
-                               int32_t b, int32_t sort_bits, float limit,
-                               int32_t window, int32_t interpolate,
-                               float* out, uint8_t* bits,
-                               cudaStream_t stream) {
+                               int32_t b, float limit, int32_t window,
+                               int32_t interpolate, float* out, uint8_t* bits,
+                               void* scratch, cudaStream_t stream) {
   if (window < 1) return (int)cudaErrorInvalidValue;
   return drl::launch_scan_any<WindowPolicy>(
       {prev, curr, idx, exists}, n_slots, operand, fused, nows_k, n_batches,
-      b, sort_bits, {limit, window, interpolate}, out, bits, stream);
+      b, {limit, window, interpolate}, out, bits, scratch, stream);
+}
+
+extern "C" int64_t drl_scan_scratch_bytes(int32_t n_batches, int32_t b) {
+  return drl::scan_scratch_bytes(n_batches, b);
 }
 
 extern "C" int drl_sweep_windows(const int32_t* idx, uint8_t* exists,

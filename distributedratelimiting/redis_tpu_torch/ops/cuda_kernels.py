@@ -49,9 +49,9 @@ The bucket and window decision kernels share their machinery
 (``csrc/decide.cuh``), whose segmented scan the semaphore and two-level
 admission kernels reuse; the bucket refill is ``csrc/bucket.cuh``'s. Each
 source's library is named by the hash of the source and of every header
-beside it. Every wrapper call on the card is one kernel launch; the bulk
-lane's K batches and their duplicate prefixes run inside that one launch,
-and a counter sync's or a debit's phases inside one cooperative launch.
+beside it. Every wrapper call on the card is one kernel launch; a bulk-lane
+chunk's K batches (decided slot-major), a counter sync's and a debit's
+phases each run inside one cooperative launch.
 """
 
 from __future__ import annotations
@@ -72,6 +72,7 @@ from distributedratelimiting.redis_tpu_torch.ops import kernels as K
 __all__ = [
     "TILE",
     "SCAN_MAX_BATCH",
+    "SCAN_MAX_ROWS",
     "FLUSH_MAX_BATCH",
     "NVCC_FLAGS",
     "launches",
@@ -98,8 +99,11 @@ __all__ = [
 
 #: Slots per expired-count tile, as the TPU kernel's (256 rows × 128 lanes).
 TILE = 32768
-#: Rows of one bulk-lane batch the scan kernel holds (1024 threads × 4).
+#: Rows of one bulk-lane batch: the card store's ``max_batch`` limit.
 SCAN_MAX_BATCH = 4096
+#: Rows of one bulk-lane launch, K × B: the store's largest chunk (32 ×
+#: 4096); the scan kernel sizes its long-slot multisplit by it.
+SCAN_MAX_ROWS = 32 * 4096
 #: Rows of one flush the flush kernels hold (8 B of shared memory a row).
 FLUSH_MAX_BATCH = 29_056
 #: Rows of one window flush (16 B of shared memory a row).
@@ -137,7 +141,8 @@ _SIGNATURES = {
         "drl_acquire_grouped": (_P, _P, _P, _I32, _P, _I32, _F32, _F32, _P,
                                 _P),
         "drl_acquire_scan": (_P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
-                             _I32, _F32, _F32, _P, _P, _P),
+                             _F32, _F32, _P, _P, _P, _P),
+        "drl_scan_scratch_bytes": (_I32, _I32),
     },
     "counter": {
         "drl_sync_counters": (_P, _P, _P, _P, _I64, _P, _I32, _F32, _P, _P),
@@ -149,7 +154,8 @@ _SIGNATURES = {
         "drl_window_grouped": (_P, _P, _P, _P, _I32, _P, _I32, _F32, _I32,
                                _I32, _P, _P),
         "drl_window_scan": (_P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
-                            _I32, _F32, _I32, _I32, _P, _P, _P),
+                            _F32, _I32, _I32, _P, _P, _P, _P),
+        "drl_scan_scratch_bytes": (_I32, _I32),
         "drl_sweep_windows": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
     },
     "sema": {
@@ -246,7 +252,9 @@ def _lib(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build([name])[name]["path"])
             for fn, argtypes in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = (ctypes.c_int64
+                                            if fn.endswith("_bytes")
+                                            else ctypes.c_int)
             _LIBS[name] = lib
         return _LIBS[name]
 
@@ -388,10 +396,38 @@ def acquire_grouped(state: K.BucketState, packed: torch.Tensor,
 
 
 def scan_sort_bits(n_slots: int) -> int:
-    """Key bits the bulk kernel's radix sort orders: every slot ``0 … N-1``
-    and the padding key ``N`` (which sorts after every slot) fit, and no
-    more — ``bit_length(N)``, whatever N a grown or restored table has."""
+    """Key bits the semaphore and two-level admission kernels' block radix
+    sorts order: every slot ``0 … N-1`` and the padding key ``N`` (which
+    sorts after every slot) fit, and no more — ``bit_length(N)``, whatever N
+    a grown or restored table has. (The bulk-lane scan sorts segment
+    numbers, not slots, and needs no such range.)"""
     return int(n_slots).bit_length()
+
+
+def _check_scan_size(name: str, k: int, b: int) -> None:
+    if b > SCAN_MAX_BATCH:
+        raise ValueError(f"{name}: a batch holds at most {SCAN_MAX_BATCH} "
+                         f"rows, got {b}")
+    if k * b > SCAN_MAX_ROWS:
+        raise ValueError(f"{name}: a launch holds at most {SCAN_MAX_ROWS} "
+                         f"rows (K x B), got {k} x {b}")
+
+
+def _scan_buffers(lib: ctypes.CDLL, dev, k: int, b: int,
+                  with_remaining: bool):
+    """The scan's result tensor and its scratch (the hash set, the sort's
+    buffers and the segment table, ``drl_scan_scratch_bytes(K, B)`` bytes),
+    allocated here: the kernel allocates nothing."""
+    if with_remaining:
+        out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
+    else:
+        # The kernel stores and ORs grants as whole 4-byte words.
+        n_bytes = k * (b // 8)
+        out = torch.empty((-(-n_bytes // 4) * 4,), dtype=torch.uint8,
+                          device=dev)[:n_bytes].view(k, b // 8)
+    scratch = torch.empty((int(lib.drl_scan_scratch_bytes(k, b)),),
+                          dtype=torch.uint8, device=dev)
+    return out, scratch
 
 
 def acquire_scan_packed(state: K.BucketState, operand: torch.Tensor,
@@ -404,7 +440,8 @@ def acquire_scan_packed(state: K.BucketState, operand: torch.Tensor,
     :func:`kernels.pack_compact5` (counts ≤ 255) or ``i32[2, K, B]`` (slots,
     then counts). Returns ``out f32[K, 2, B]`` (grants, remaining), or with
     ``with_remaining=False`` the grants bit-packed little-endian, ``u8[K,
-    B/8]`` (``B % 8 == 0``). On the card: one launch for the whole chunk."""
+    B/8]`` (``B % 8 == 0``). On the card: one cooperative launch for the
+    whole chunk."""
     fused = operand.dtype == torch.uint8
     k, b = operand.shape[:2] if fused else operand.shape[1:]
     if not with_remaining and b % 8:
@@ -423,23 +460,17 @@ def acquire_scan_packed(state: K.BucketState, operand: torch.Tensor,
     else:
         _check(operand, "operand", torch.int32, (2, k, b))
     _check(nows_k, "nows_k", torch.int32, (k,))
-    if b > SCAN_MAX_BATCH:
-        raise ValueError(f"acquire_scan: a batch holds at most "
-                         f"{SCAN_MAX_BATCH} rows, got {b}")
-    dev = state.tokens.device
-    if with_remaining:
-        out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
-    else:
-        # The kernel ORs grants into whole 4-byte words of the allocation.
-        n_bytes = k * (b // 8)
-        out = torch.empty((-(-n_bytes // 4) * 4,), dtype=torch.uint8,
-                          device=dev)[:n_bytes].view(k, b // 8)
-    rc = _lib("acquire").drl_acquire_scan(
+    _check_scan_size("acquire_scan", k, b)
+    lib = _lib("acquire")
+    out, scratch = _scan_buffers(lib, state.tokens.device, k, b,
+                                 with_remaining)
+    rc = lib.drl_acquire_scan(
         state.tokens.data_ptr(), state.last_ts.data_ptr(),
         state.exists.data_ptr(), n, operand.data_ptr(), int(fused),
-        nows_k.data_ptr(), k, b, scan_sort_bits(n), float(capacity),
-        float(fill_rate_per_tick), out.data_ptr() if with_remaining else None,
-        None if with_remaining else out.data_ptr(), _stream(state.tokens))
+        nows_k.data_ptr(), k, b, float(capacity), float(fill_rate_per_tick),
+        out.data_ptr() if with_remaining else None,
+        None if with_remaining else out.data_ptr(), scratch.data_ptr(),
+        _stream(state.tokens))
     _raise_on(rc, "acquire_scan")
     launches["acquire_scan"] += 1
     return out
@@ -571,7 +602,7 @@ def window_scan_packed(state: K.WindowState, operand: torch.Tensor,
     :func:`acquire_scan_packed` — the fused ``u8[K, B, 5]`` or ``i32[2, K,
     B]`` operand, ``nows_k i32[K]``; ``out f32[K, 2, B]`` or, with
     ``with_remaining=False``, bit-packed grants ``u8[K, B/8]``. On the card:
-    one launch for the whole chunk."""
+    one cooperative launch for the whole chunk."""
     fused = operand.dtype == torch.uint8
     k, b = operand.shape[:2] if fused else operand.shape[1:]
     if not with_remaining and b % 8:
@@ -594,23 +625,16 @@ def window_scan_packed(state: K.WindowState, operand: torch.Tensor,
     else:
         _check(operand, "operand", torch.int32, (2, k, b))
     _check(nows_k, "nows_k", torch.int32, (k,))
-    if b > SCAN_MAX_BATCH:
-        raise ValueError(f"window_scan: a batch holds at most "
-                         f"{SCAN_MAX_BATCH} rows, got {b}")
-    dev = state.prev_count.device
-    if with_remaining:
-        out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
-    else:
-        # The kernel ORs grants into whole 4-byte words of the allocation.
-        n_bytes = k * (b // 8)
-        out = torch.empty((-(-n_bytes // 4) * 4,), dtype=torch.uint8,
-                          device=dev)[:n_bytes].view(k, b // 8)
-    rc = _lib("window").drl_window_scan(
+    _check_scan_size("window_scan", k, b)
+    lib = _lib("window")
+    out, scratch = _scan_buffers(lib, state.prev_count.device, k, b,
+                                 with_remaining)
+    rc = lib.drl_window_scan(
         *_window_ptrs(state), n, operand.data_ptr(), int(fused),
-        nows_k.data_ptr(), k, b, scan_sort_bits(n), float(limit),
-        _window_ticks(window_ticks), int(bool(interpolate)),
-        out.data_ptr() if with_remaining else None,
-        None if with_remaining else out.data_ptr(), _stream(state.prev_count))
+        nows_k.data_ptr(), k, b, float(limit), _window_ticks(window_ticks),
+        int(bool(interpolate)), out.data_ptr() if with_remaining else None,
+        None if with_remaining else out.data_ptr(), scratch.data_ptr(),
+        _stream(state.prev_count))
     _raise_on(rc, "window_scan")
     launches["window_scan"] += 1
     return out

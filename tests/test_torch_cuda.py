@@ -665,3 +665,103 @@ def test_debit_kernel_matches_plain(cuda_device, distinct):
                                      minlength=n)
     tol = np.where(reps > 1, reps, 0) * np.spacing(mag.astype(np.float32))
     assert (np.abs(got.astype(np.float64) - want) <= tol).all()
+
+
+def _slot_major_case(shape, n, rng):
+    """Operands that stress the slot-major scan: ``(operand, nows)``.
+
+    - ``cross``: one set of B slots, permuted, in every batch, each batch at
+      a tick of its own and one tick going back (every slot chains K times);
+    - ``hot``: one slot takes every row of a 32 x 4096 chunk;
+    - ``k1``: K = 1, B = 4096 with three valid rows (the coalescing lane);
+    - ``grown``: N = 2^24 + 12,345, Zipf rows half near the top.
+    """
+    if shape == "cross":
+        base = rng.permutation(n)[:B].astype(np.int32)
+        slots = np.stack([rng.permutation(base) for _ in range(32)])
+        slots[rng.random(slots.shape) < 0.02] = -1
+        nows = 50_000 + 97 * np.arange(32)
+        nows[16] = nows[15] - 300
+    elif shape == "hot":
+        slots = np.full((32, 4096), 7, np.int32)
+        nows = 50_000 + 300 * (3 * np.arange(32) // 32)
+    elif shape == "k1":
+        slots = np.full((1, 4096), -1, np.int32)
+        slots[0, [5, 900, 4095]] = rng.choice(n, 3, replace=False)
+        nows = np.array([50_000])
+    else:
+        slots = np.minimum(rng.zipf(1.3, (4, 4096)) - 1, n - 1)
+        top = rng.random(slots.shape) < 0.5
+        slots[top] = n - 1 - (rng.zipf(1.3, int(top.sum())) - 1) % 20_000
+        slots = slots.astype(np.int32)
+        slots[rng.random(slots.shape) < 0.02] = -1
+        nows = 50_000 + 300 * (3 * np.arange(4) // 4)
+    counts = rng.integers(0, 4, slots.shape).astype(np.uint8)
+    return (torch.from_numpy(K.pack_compact5(slots, counts)),
+            torch.tensor(nows, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_remaining", [False, True])
+@pytest.mark.parametrize("shape", ["cross", "hot", "k1", "grown"])
+@pytest.mark.parametrize("kernel", ["bucket", "sliding", "fixed"])
+def test_scan_slot_major_shapes_match_plain(cuda_device, kernel, shape,
+                                            with_remaining):
+    """Both scans (buckets, sliding and fixed windows) at the shapes that
+    stress the slot-major decomposition, against the plain per-batch loop
+    on the same card tensors: one launch a call; grants, bits and every
+    state field equal (tokens and remaining within ATOL)."""
+    rng = np.random.default_rng(20)
+    n = 2**24 + 12_345 if shape == "grown" else N
+    operand, nows = _slot_major_case(shape, n, rng)
+    operand, nows = operand.to(cuda_device), nows.to(cuda_device)
+    if kernel == "bucket":
+        arrays = (rng.uniform(0, CAP, n).astype(np.float32),
+                  rng.integers(47_000, 50_050, n).astype(np.int32),
+                  rng.random(n) < 0.6)
+        card = K.BucketState(*(torch.tensor(a, device=cuda_device)
+                               for a in arrays))
+        plain = K.BucketState(*(t.clone() for t in card))
+        name = "acquire_scan"
+        before = dict(ck.launches)
+        got = ck.acquire_scan_packed(card, operand, nows, CAP, 0.013,
+                                     with_remaining=with_remaining)
+        fn = (K.acquire_scan_fused_packed if with_remaining
+              else K.acquire_scan_fused_bits)
+        _, want = fn(plain, operand, nows, CAP, 0.013)
+    else:
+        interpolate = kernel == "sliding"
+        idx = 50_000 // W_TICKS + rng.choice([-2, -1, 0, 0, 1], n)
+        arrays = (rng.integers(0, 9, n).astype(np.float32),
+                  rng.integers(0, 9, n).astype(np.float32),
+                  idx.astype(np.int32), rng.random(n) < 0.6)
+        card = K.WindowState(*(torch.tensor(a, device=cuda_device)
+                               for a in arrays))
+        plain = K.WindowState(*(t.clone() for t in card))
+        name = "window_scan"
+        before = dict(ck.launches)
+        got = ck.window_scan_packed(card, operand, nows, W_LIMIT, W_TICKS,
+                                    interpolate=interpolate,
+                                    with_remaining=with_remaining)
+        fn = (K.window_acquire_scan_fused_packed if with_remaining
+              else K.window_acquire_scan_fused_bits)
+        _, want = fn(plain, operand, nows, W_LIMIT, W_TICKS,
+                     interpolate=interpolate)
+    torch.cuda.synchronize()
+    assert ck.launches[name] == before[name] + 1
+    assert sum(ck.launches.values()) == sum(before.values()) + 1
+    if with_remaining and kernel == "bucket":
+        np.testing.assert_array_equal(got[:, 0].cpu().numpy(),
+                                      want[:, 0].cpu().numpy())
+        np.testing.assert_allclose(got[:, 1].cpu().numpy(),
+                                   want[:, 1].cpu().numpy(), atol=ATOL,
+                                   rtol=0)
+    else:
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if kernel == "bucket":
+        _assert_same_state(card, plain)
+    else:
+        _assert_windows_same(card, plain)
+    grants = (want[:, 0] > 0.5 if with_remaining else torch.from_numpy(
+        np.unpackbits(want.cpu().numpy(), axis=-1, bitorder="little")))
+    assert 0 < int(grants.sum()) < grants.numel()
