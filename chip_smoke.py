@@ -865,6 +865,183 @@ def scan_bench() -> int:
     return 0
 
 
+#: The semaphore and two-level kernels' names in a profile (their warp and
+#: block forms).
+SEMA_KERNELS = ["sema_"]
+HIER_KERNELS = ["hier_"]
+#: The shapes of :func:`admission_shapes`, as the paths launch them.
+SEMA_SHAPES = ("1 valid row (B=8)", "32 rows, Zipf (B=32)",
+               "4096 distinct", "4096 repeats, releases, probes, padding",
+               "4096 on one hot slot")
+HIER_SHAPES = ("1 valid row (B=4096, as the parent's store pads)",
+               "1 valid row (B=8)", "32 rows of one tenant (B=32)",
+               "64 LLM rows (B=64)", "4096 LLM rows",
+               "4096 rows of one tenant", "4096 distinct keys and tenants")
+
+
+def _sema_shape(rng, shape: str, n: int, now: int) -> np.ndarray:
+    """One semaphore shape's operand ``i32[4, B]``."""
+    b = 8 if shape.startswith("1 valid") else (
+        32 if shape.startswith("32") else BATCH)
+    deltas = rng.integers(-2, 4, b).astype(np.int32)
+    limits = rng.integers(0, 9, b).astype(np.int32)
+    if shape.startswith("1 valid"):
+        slots = np.full(b, -1, np.int32)
+        slots[0] = rng.integers(0, n)
+        deltas[0] = 1
+    elif shape.startswith("32"):
+        slots = ((rng.zipf(1.2, b) - 1) % n).astype(np.int32)
+    elif shape == "4096 distinct":  # the bulk lane: one permit a key
+        slots = rng.choice(n, b, replace=False).astype(np.int32)
+        deltas[:] = 1
+        limits[:] = 5
+    elif shape.startswith("4096 on one hot"):
+        slots = np.full(b, int(rng.integers(0, n)), np.int32)
+        deltas = rng.integers(0, 3, b).astype(np.int32)
+        limits[:] = 1000
+    else:  # as admission_cases' B = 4096
+        slots = ((rng.zipf(1.2, b) - 1) % n).astype(np.int32)
+        slots[: b // 4] = slots[b // 4]
+        slots[rng.permutation(b)[: b // 32]] = -1
+        slots[rng.permutation(b)[: b // 64]] = n + 7
+        deltas[:3] = (1, -1, 0)
+    return np.stack([slots, deltas, limits, np.full(b, now, np.int32)])
+
+
+def _hier_shape(rng, shape: str, nc: int, np_: int, now: int) -> np.ndarray:
+    """One two-level shape's operand ``i32[4, B]``: child slots are the LLM
+    workload's keys (dense ids spread over the child table), parents its
+    tenants."""
+    b = {"1 valid row (B=8)": 8, "32 rows of one tenant (B=32)": 32,
+         "64 LLM rows (B=64)": 64}.get(shape, BATCH)
+    tenants, keys, costs = _llm_workload(LLM_SEED, b)
+    spread = np.int64(2654435761)
+    cs = (_dense_ids(keys).astype(np.int64) * spread % nc).astype(np.int32)
+    ps = (_dense_ids(tenants).astype(np.int64) * 7919 % np_).astype(np.int32)
+    if shape.startswith("1 valid"):
+        cs[1:] = ps[1:] = -1
+    elif "one tenant" in shape:
+        ps[:] = ps[0]
+    elif shape.startswith("4096 distinct"):
+        cs = rng.choice(nc, b, replace=False).astype(np.int32)
+        ps = rng.choice(np_, b, replace=False).astype(np.int32)
+    return np.stack([cs, costs.astype(np.int32), np.full(b, now, np.int32),
+                     ps])
+
+
+def _shape_row(call, names, nbytes, ops) -> dict:
+    """Times of one shape."""
+    bound_ms, bound_by = _bound_ms(nbytes, ops)
+    return dict(ms=_median_ms(call, inner=20),
+                device_ms=_device_ms(call, names), bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def admission_shapes(torch, K, ck, dev) -> list:
+    """``sema_packed`` on a 2^20-slot table and ``acquire_hierarchical`` on
+    a 2^24-slot child and a 2^18-slot parent table at each shape of
+    :data:`SEMA_SHAPES` and :data:`HIER_SHAPES`, against the plain versions:
+    replies and every integer state field equal, tokens within atol 1e-4.
+    Prints and returns, per shape, the CUDA-event ms, the profiler's device
+    ms and the bound (the 16 B operand row and 8 B reply of each of the B
+    rows, 18 B per distinct slot of each table)."""
+    rng = np.random.default_rng(SEED + 8)
+    now = 3_000_000
+    out = []
+    n = SEMA_SLOTS
+    sema = (torch.tensor(rng.integers(0, 6, n).astype(np.int32), device=dev),
+            torch.tensor(rng.integers(now - 3000, now, n).astype(np.int32),
+                         device=dev),
+            torch.tensor(rng.random(n) < 0.6, device=dev))
+    for shape in SEMA_SHAPES:
+        packed = _sema_shape(rng, shape, n, now)
+        b = packed.shape[1]
+        op = torch.from_numpy(packed).to(dev)
+        _, want = K.sema_batch_packed(
+            ps := K.SemaState(*(x.clone() for x in sema)), op)
+        ks = K.SemaState(*(x.clone() for x in sema))
+        got = ck.sema_packed(ks, op)
+        torch.cuda.synchronize()
+        _check_equal(f"sema_packed {shape} replies", got, want)
+        for name in ("active", "last_ts", "exists"):
+            _check_equal(f"sema_packed {shape} {name}", getattr(ks, name),
+                         getattr(ps, name))
+        slots = packed[0]
+        d = len(np.unique(slots[(slots >= 0) & (slots < n)]))
+        row = _shape_row(lambda: ck.sema_packed(ks, op), SEMA_KERNELS,
+                         24 * b + 18 * d, 12 * b)
+        out.append({"kernel": "sema_packed", "shape": shape, "b": b,
+                    "distinct": d, "granted": int(want[0].sum()),
+                    "max_abs_err": 0.0, **row})
+        print(f"sema_packed {shape} (B={b}, {d} distinct slots, "
+              f"{int(want[0].sum())} ok): equal to plain; {row['ms']:.5f} ms, "
+              f"device {row['device_ms']} ms, bound {row['bound_ms']:.7f} ms")
+    del sema, ks, ps
+    nc, np_ = N_SLOTS, LLM_SLOTS
+    ccap, pcap = LLM_BUDGETS
+    per_tick = LLM_RATE / 1024
+
+    def bucket(m, cap):
+        return (torch.tensor(rng.uniform(cap / 2, cap, m).astype(np.float32),
+                             device=dev),
+                torch.tensor(rng.integers(now - 3000, now, m).astype(
+                    np.int32), device=dev),
+                torch.tensor(rng.random(m) < 0.6, device=dev))
+    ctab, ptab = bucket(nc, ccap), bucket(np_, pcap)
+    args = (ccap, per_tick, pcap, per_tick)
+    for shape in HIER_SHAPES:
+        packed = _hier_shape(rng, shape, nc, np_, now)
+        b = packed.shape[1]
+        op = torch.from_numpy(packed).to(dev)
+        pc, pp = (K.BucketState(*(x.clone() for x in t)) for t in (ctab, ptab))
+        _, _, want = K.acquire_hierarchical_packed(pc, pp, op, *args)
+        kc, kp = (K.BucketState(*(x.clone() for x in t)) for t in (ctab, ptab))
+        got = ck.acquire_hierarchical(kc, kp, op, *args)
+        torch.cuda.synchronize()
+        what = f"acquire_hierarchical {shape}"
+        _check_equal(f"{what} grants", got[0], want[0])
+        err = _check_close(f"{what} remaining", got[1], want[1])
+        for name, kt, pt in (("child", kc, pc), ("parent", kp, pp)):
+            err = max(err, _check_close(f"{what} {name} tokens", kt.tokens,
+                                        pt.tokens))
+            _check_equal(f"{what} {name} last_ts", kt.last_ts, pt.last_ts)
+            _check_equal(f"{what} {name} exists", kt.exists, pt.exists)
+        ok = (packed[0] >= 0) & (packed[3] >= 0)
+        d = (len(np.unique(packed[0][ok])) + len(np.unique(packed[3][ok])))
+        row = _shape_row(lambda: ck.acquire_hierarchical(kc, kp, op, *args),
+                         HIER_KERNELS, 24 * b + 18 * d, 30 * b)
+        out.append({"kernel": "acquire_hierarchical", "shape": shape,
+                    "b": b, "distinct": d, "granted": int(want[0].sum()),
+                    "max_abs_err": err, **row})
+        print(f"acquire_hierarchical {shape} (B={b}, {d} distinct slots, "
+              f"{int(want[0].sum())} granted): equal to plain, max abs err "
+              f"{err!r}; {row['ms']:.5f} ms, device {row['device_ms']} ms, "
+              f"bound {row['bound_ms']:.7f} ms")
+    return out
+
+
+def admission_bench() -> int:
+    """``python3 chip_smoke.py --admission-bench``: only
+    :func:`admission_shapes`, on the package beside this file (copy the
+    script into another checkout to time that checkout's kernels). Prints
+    the card and one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+    from distributedratelimiting.redis_tpu_torch.ops import kernels as K
+
+    card = _card_line()
+    print(card)
+    ck.build(["sema", "admission"])
+    rows = admission_shapes(torch, K, ck, torch.device("cuda"))
+    print(json.dumps({"card": card, "admission_shapes": rows}))
+    return 0
+
+
 def _sync_packed(rng, b, n, now, distinct):
     """A counter-sync operand ``i32[3, B]``: Zipf(1.1) slots (duplicates) or
     distinct ones, 2% padding, float counts bitcast, the tick."""
@@ -2267,7 +2444,7 @@ def admission_cases(torch, K, ck, dev, rng) -> dict:
         ms = _median_ms(lambda: ck.sema_packed(ks, op), inner=20)
         plain_ms = _median_ms(lambda: K.sema_batch_packed(ps, op), reps=5,
                               warmup=1)
-        dev_ms = _device_ms(lambda: ck.sema_packed(ks, op), ["sema_kernel"])
+        dev_ms = _device_ms(lambda: ck.sema_packed(ks, op), SEMA_KERNELS)
         distinct = len(np.unique(slots[(slots >= 0) & (slots < n)]))
         # Bytes: the 16 B operand row and 8 B reply, 9 B of state read and
         # written per distinct slot. ~12 operations a row.
@@ -2380,7 +2557,7 @@ def admission_cases(torch, K, ck, dev, rng) -> dict:
                 pc, pp, op, *args), reps=5, warmup=1)
             dev_ms = _device_ms(lambda: ck.acquire_hierarchical(kc, kp, op,
                                                                 *args),
-                                ["hier_kernel"])
+                                HIER_KERNELS)
             distinct = len(set(keys)) + len(set(tenants))
             # Bytes: the 16 B operand row and 8 B reply, 18 B per distinct
             # slot of either table. ~30 operations a row.
@@ -2868,4 +3045,6 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--scan-bench"]:
         sys.exit(scan_bench())
+    if sys.argv[1:2] == ["--admission-bench"]:
+        sys.exit(admission_bench())
     sys.exit(main())

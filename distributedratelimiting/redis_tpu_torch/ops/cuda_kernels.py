@@ -47,7 +47,9 @@ The wrappers, their sources, and what each replaces in the JAX package:
 
 The bucket and window decision kernels share their machinery
 (``csrc/decide.cuh``), whose segmented scan the semaphore and two-level
-admission kernels reuse; the bucket refill is ``csrc/bucket.cuh``'s. Each
+admission kernels reuse through ``csrc/batch.cuh`` (their same-slot
+prefixes: a warp for up to 32 rows, else a block that sorts only the rows
+of slots that repeat); the bucket refill is ``csrc/bucket.cuh``'s. Each
 source's library is named by the hash of the source and of every header
 beside it. Every wrapper call on the card is one kernel launch; a bulk-lane
 chunk's K batches (decided slot-major), a counter sync's and a debit's
@@ -81,7 +83,6 @@ __all__ = [
     "sweep_expired",
     "acquire_packed",
     "acquire_grouped",
-    "scan_sort_bits",
     "acquire_scan_packed",
     "sync_counters",
     "sweep_counters",
@@ -108,8 +109,9 @@ SCAN_MAX_ROWS = 32 * 4096
 FLUSH_MAX_BATCH = 29_056
 #: Rows of one window flush (16 B of shared memory a row).
 WINDOW_FLUSH_MAX_BATCH = 14_528
-#: Rows of one semaphore batch or two-level admission batch: one block of
-#: 1024 threads × 4 rows.
+#: Rows of one semaphore batch or two-level admission batch: one warp up to
+#: 32 rows, else blocks sized by the rows (at most 1024 threads × 4 rows;
+#: above 256 rows up to 64 of them).
 SEMA_MAX_BATCH = 4096
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -159,13 +161,13 @@ _SIGNATURES = {
         "drl_sweep_windows": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
     },
     "sema": {
-        "drl_sema_packed": (_P, _P, _P, _I32, _P, _I32, _I32, _P, _P),
+        "drl_sema_packed": (_P, _P, _P, _I32, _P, _I32, _P, _P),
         "drl_sweep_semas": (_P, _P, _P, _P, _P, _I64, _I32, _I64, _P),
     },
     "admission": {
         "drl_acquire_hierarchical": (_P, _P, _P, _I32, _F32, _F32, _P, _P,
-                                     _P, _I32, _F32, _F32, _P, _I32, _I32,
-                                     _I32, _P, _P),
+                                     _P, _I32, _F32, _F32, _P, _I32, _P,
+                                     _P),
         "drl_debit_packed": (_P, _P, _P, _I64, _P, _I32, _F32, _F32, _P, _P),
     },
 }
@@ -393,15 +395,6 @@ def acquire_grouped(state: K.BucketState, packed: torch.Tensor,
                                               fill_rate_per_tick)[1]
     return _flush("acquire_grouped", state, packed, 5, capacity,
                   fill_rate_per_tick)
-
-
-def scan_sort_bits(n_slots: int) -> int:
-    """Key bits the semaphore and two-level admission kernels' block radix
-    sorts order: every slot ``0 … N-1`` and the padding key ``N`` (which
-    sorts after every slot) fit, and no more — ``bit_length(N)``, whatever N
-    a grown or restored table has. (The bulk-lane scan sorts segment
-    numbers, not slots, and needs no such range.)"""
-    return int(n_slots).bit_length()
 
 
 def _check_scan_size(name: str, k: int, b: int) -> None:
@@ -690,8 +683,8 @@ def sema_packed(state: K.SemaState, packed: torch.Tensor) -> torch.Tensor:
     out = torch.empty((2, b), dtype=torch.float32, device=state.active.device)
     rc = _lib("sema").drl_sema_packed(
         state.active.data_ptr(), state.last_ts.data_ptr(),
-        state.exists.data_ptr(), n, packed.data_ptr(), b, scan_sort_bits(n),
-        out.data_ptr(), _stream(state.active))
+        state.exists.data_ptr(), n, packed.data_ptr(), b, out.data_ptr(),
+        _stream(state.active))
     _raise_on(rc, "sema_packed")
     launches["sema_packed"] += 1
     return out
@@ -753,8 +746,7 @@ def acquire_hierarchical(child: K.BucketState, parent: K.BucketState,
         float(child_rate_per_tick), parent.tokens.data_ptr(),
         parent.last_ts.data_ptr(), parent.exists.data_ptr(), n_p,
         float(parent_capacity), float(parent_rate_per_tick),
-        packed.data_ptr(), b, scan_sort_bits(n_c), scan_sort_bits(n_p),
-        out.data_ptr(), _stream(child.tokens))
+        packed.data_ptr(), b, out.data_ptr(), _stream(child.tokens))
     _raise_on(rc, "acquire_hierarchical")
     launches["acquire_hierarchical"] += 1
     return out

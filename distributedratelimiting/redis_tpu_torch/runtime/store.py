@@ -1474,8 +1474,10 @@ class DeviceBucketStore(BucketStore):
         """Decide hierarchical rows with the two-level kernel: the key's
         bucket table and the tenant's decide together, one launch per
         ``max_batch`` rows (chunks in request order, so duplicates across
-        chunks serialize). Returns the per-chunk device results; no
-        readback."""
+        chunks serialize), each padded only to a power of two ≥ 8, as
+        :meth:`_sema_launch` pads (a one-row request launches 8 rows, which
+        the kernel decides in one warp). Returns the per-chunk device
+        results; no readback."""
         check_hierarchical_args(int(counts_np.min(initial=0)), tcap, trate,
                                 cap, rate)
         n = len(keys)
@@ -1488,9 +1490,9 @@ class DeviceBucketStore(BucketStore):
                 keys if hasattr(keys, "blob") else list(keys))
             pslots = ptable.resolve_slots(list(tenants))
             now = self.now_ticks_checked()
-            b = self.max_batch
-            for pos in range(0, n, b):
-                take = min(b, n - pos)
+            for pos in range(0, n, self.max_batch):
+                take = min(self.max_batch, n - pos)
+                b = _pad_size(take, floor=8)
                 packed = np.full((4, b), -1, np.int32)
                 packed[1] = 0
                 packed[0, :take] = cslots[pos:pos + take]

@@ -22,9 +22,10 @@ numbers below 2^24 gives the same sum).
 Semaphores: ``sema_packed`` replies and every state field (``active``,
 ``last_ts``, ``exists``) equal bit for bit (whole counts, int64 prefixes,
 one writer per slot); ``sweep_semas`` masks, tile counts and ``exists``
-equal. Two-level admission: grants, ``last_ts`` and ``exists`` of both
-tables equal; remaining and tokens within atol 1e-4 (the flush's atomic
-consumption). Debit: with distinct slots every reply and state field equal
+equal. Two-level admission: replies and every state field of both tables
+equal bit for bit (whole costs below 2^24: each slot's one writer subtracts
+its int64 consumption once, which equals the plain version's row-by-row
+subtraction). Debit: with distinct slots every reply and state field equal
 bit for bit; with repeated slots (fractional and negative amounts, the
 host's float prefix) replies, ``last_ts`` and ``exists`` equal, and a
 slot's tokens within r float32 spacings of its largest partial sum for r
@@ -534,15 +535,25 @@ def _semas(seed, n, device, now=50_000):
             for d in ("cpu", device)]
 
 
-def _sema_operand(seed, b, n, now=50_000):
+def _sema_operand(seed, b, n, now=50_000, shape="zipf"):
     """Zipf slots (repeats), padding and out-of-range rows; acquires up to
-    3, releases, probes; limits 0 to 8."""
+    3, releases, probes; limits 0 to 8. ``shape`` "distinct": no slot
+    repeats, no padding; "hot": every row one slot (acquires and probes,
+    limit 40)."""
     rng = np.random.default_rng(seed)
-    slots = np.minimum(rng.zipf(1.3, b) - 1, n - 1).astype(np.int32)
-    slots[rng.random(b) < 0.05] = -1
-    slots[rng.random(b) < 0.03] = n + 3
+    if shape == "distinct":
+        slots = rng.choice(n, b, replace=False).astype(np.int32)
+    elif shape == "hot":
+        slots = np.full(b, 11, np.int32)
+    else:
+        slots = np.minimum(rng.zipf(1.3, b) - 1, n - 1).astype(np.int32)
+        slots[rng.random(b) < 0.05] = -1
+        slots[rng.random(b) < 0.03] = n + 3
     deltas = rng.integers(-2, 4, b).astype(np.int32)
     limits = rng.integers(0, 9, b).astype(np.int32)
+    if shape == "hot":
+        deltas = rng.integers(0, 4, b).astype(np.int32)
+        limits[:] = 40
     return torch.from_numpy(np.stack([slots, deltas, limits,
                                       np.full(b, now, np.int32)]))
 
@@ -552,11 +563,22 @@ def _assert_tables_equal(card, plain):
         np.testing.assert_array_equal(c.cpu().numpy(), p.cpu().numpy())
 
 
+#: The semaphore kernel's shapes: the warp path (B <= 32) and the block
+#: path, with repeats (Zipf), with none, and one hot slot.
+SEMA_SHAPES = [("zipf", 8), ("zipf", 1000), ("zipf", 2048), ("zipf", 4096),
+               ("zipf", 1), ("zipf", 32), ("zipf", 33), ("distinct", 8),
+               ("distinct", 33), ("distinct", 4096), ("hot", 32),
+               ("hot", 1000), ("hot", 4096)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [8, 1000, 2048, 4096])
-def test_sema_kernel_matches_plain(cuda_device, b):
+@pytest.mark.parametrize("shape,b", SEMA_SHAPES)
+def test_sema_kernel_matches_plain(cuda_device, shape, b):
     plain, card = _semas(b, 4096, cuda_device)
-    op = _sema_operand(b + 1, b, 4096)
+    if shape == "hot":  # the hot slot starts empty
+        for t in (plain, card):
+            t.active[11] = 0
+    op = _sema_operand(b + 1, b, 4096, shape=shape)
     before = dict(ck.launches)
     want = ck.sema_packed(plain, op)
     got = ck.sema_packed(card, op.to(cuda_device))
@@ -565,7 +587,8 @@ def test_sema_kernel_matches_plain(cuda_device, b):
     assert sum(ck.launches.values()) == sum(before.values()) + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     _assert_tables_equal(card, plain)
-    assert 0 < float(want[0].sum()) < b
+    if b > 1:  # one row cannot both grant and deny
+        assert 0 < float(want[0].sum()) < b
 
 
 @pytest.mark.cuda
@@ -597,19 +620,51 @@ def _bucket_pair(seed, n, device, cap, now=50_000):
             for d in ("cpu", device)]
 
 
+#: The two-level kernel's shapes: the warp path (B <= 32) and the block
+#: path; Zipf keys and tenants (a key's rows under several tenants: one
+#: block decides a large batch), distinct keys and tenants, one hot key of
+#: one tenant, distinct keys of one tenant, and Zipf keys scoped to their
+#: Zipf tenant (a large batch spread over blocks by tenant, with repeats at
+#: both levels).
+HIER_SHAPES = [("zipf", 100), ("zipf", 4096), ("zipf", 1), ("zipf", 8),
+               ("zipf", 32), ("zipf", 33), ("distinct", 8),
+               ("distinct", 33), ("distinct", 4096), ("hot", 32),
+               ("hot", 4096), ("one_tenant", 32), ("one_tenant", 1000),
+               ("one_tenant", 4096), ("scoped", 1000), ("scoped", 4096)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [100, 4096])
-def test_hierarchical_kernel_matches_plain(cuda_device, b):
+@pytest.mark.parametrize("shape,b", HIER_SHAPES)
+def test_hierarchical_kernel_matches_plain(cuda_device, shape, b):
+    """Tokens equal bit for bit too: whole costs below 2^24, where the
+    kernel's one subtraction of a slot's int64 consumption equals the
+    plain version's row by row."""
     rng = np.random.default_rng(b)
     cplain, ccard = _bucket_pair(1, 4096, cuda_device, 40.0)
     pplain, pcard = _bucket_pair(2, 64, cuda_device, 300.0)
-    cs = np.minimum(rng.zipf(1.5, b) - 1, 4095).astype(np.int32)
-    ps = (rng.zipf(1.2, b) % 64).astype(np.int32)
-    cs[rng.random(b) < 0.03] = -1
-    ps[rng.random(b) < 0.03] = 70  # out of the parent table: padding
-    costs = rng.integers(0, 12, b).astype(np.int32)
-    op = torch.from_numpy(np.stack([cs, costs, np.full(b, 50_000, np.int32),
-                                    ps]))
+    if shape == "distinct":
+        cs = rng.choice(4096, b, replace=False).astype(np.int32)
+        ps = (np.arange(b) % 64).astype(np.int32)
+    elif shape == "hot":
+        cs, ps = np.full(b, 5, np.int32), np.full(b, 6, np.int32)
+    elif shape == "one_tenant":
+        cs = rng.choice(4096, b, replace=False).astype(np.int32)
+        ps = np.full(b, 6, np.int32)
+    elif shape == "scoped":
+        ps = (rng.zipf(1.2, b) % 64).astype(np.int32)
+        cs = (ps * 64 + rng.zipf(1.5, b) % 64).astype(np.int32)
+    else:
+        cs = np.minimum(rng.zipf(1.5, b) - 1, 4095).astype(np.int32)
+        ps = (rng.zipf(1.2, b) % 64).astype(np.int32)
+        cs[rng.random(b) < 0.03] = -1
+        ps[rng.random(b) < 0.03] = 70  # out of the parent table: padding
+    # Distinct keys, and warp batches but the hot key's (few rows a key),
+    # take costs up to 47, beyond a 40-token child, so that some rows are
+    # denied.
+    big = shape == "distinct" or (b <= 32 and shape != "hot")
+    costs = rng.integers(0, 48 if big else 12, b)
+    op = torch.from_numpy(np.stack([cs, costs.astype(np.int32),
+                                    np.full(b, 50_000, np.int32), ps]))
     args = (40.0, 0.01, 300.0, 0.05)
     before = dict(ck.launches)
     want = ck.acquire_hierarchical(cplain, pplain, op, *args)
@@ -620,7 +675,11 @@ def test_hierarchical_kernel_matches_plain(cuda_device, b):
     assert sum(ck.launches.values()) == sum(before.values()) + 1
     _assert_same(ccard, cplain, got, want)
     _assert_same_state(pcard, pplain)
-    assert 0 < float(want[0].sum()) < b
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_tables_equal(ccard, cplain)
+    _assert_tables_equal(pcard, pplain)
+    if b > 1:  # one row cannot both grant and deny
+        assert 0 < float(want[0].sum()) < b
 
 
 @pytest.mark.cuda

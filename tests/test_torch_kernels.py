@@ -269,17 +269,6 @@ def test_scan_bits_need_whole_bytes():
                                with_remaining=False)
 
 
-@pytest.mark.parametrize("n", [1, 64, 2**24, 2**24 + 12_345, 2**25,
-                               2**25 + 1])
-def test_scan_sort_bits_cover_table_and_padding_key(n):
-    """The radix sort's bit range follows N (a grown or restored table need
-    not be a power of two): slots 0 … N-1 and the padding key N fit, and
-    one bit fewer would not hold the padding key."""
-    bits = ck.scan_sort_bits(n)
-    assert n < 2**bits            # slots 0 … N-1 and the padding key N
-    assert n >= 2 ** (bits - 1)   # no wasted radix pass
-
-
 def test_padding_rows_never_touch_state():
     s = _state_np(N, 9)
     packed = np.stack([np.array([-1, -7, N, N + 100], np.int32),
