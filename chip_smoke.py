@@ -19,7 +19,8 @@ Phases (any failure raises, and the script exits non-zero):
    (the main path's bulk); the counter kernels ``sync_counters`` at B = 2^20
    (Zipf(1.1) slots with duplicates, 2% padding, half the counters live,
    ticks on both sides of the stored ones; distinct slots) and B = 8, and
-   ``sweep_counters`` over 2^20 counters; the window kernels on a window
+   ``sweep_counters`` over 2^20 counters (each sync shape's times ride on
+   the kernels line); the window kernels on a window
    table of 2^24 slots: ``window_packed`` and ``window_grouped`` at B =
    4096 with duplicates, ``window_scan_packed`` on one chunk of K = 32 x
    4096 (distinct and Zipf slots, the fused and the i32 lane, sliding and
@@ -33,6 +34,13 @@ Phases (any failure raises, and the script exits non-zero):
    ms and bound (``--scan-bench`` runs these and the chunks above alone:
    ``python3 chip_smoke.py --scan-bench``, or a copy of the script in
    another checkout to time that checkout's kernels); the semaphore kernels
+   the four flush kernels (``acquire_packed``, ``acquire_grouped``,
+   ``window_packed``, ``window_grouped``) on 2^24-slot tables at the
+   shapes the store launches: one valid row at B = 8 (and at B = 4096, as
+   the parent's store padded it), 12, 32, 64, 256 and 2,048 Zipf rows,
+   4,096 Zipf rows and 4,096 distinct slots, each with its
+   event ms, device ms and bound (``--flush-bench`` runs these alone, as
+   ``--scan-bench`` does its shapes); the semaphore kernels
    ``sema_packed`` at B = 8 and B = 4096
    (repeated slots, acquires, releases, probes, padding, out-of-range slots)
    over 2^20 slots and ``sweep_semas`` over 2^20 (held slots survive);
@@ -40,8 +48,10 @@ Phases (any failure raises, and the script exits non-zero):
    own budgets and with both budgets binding; ``debit_packed`` at B = 2^20
    distinct slots of a 2^24 table and at B = 4096 with repeats, fractional
    and negative amounts. Grants, bits, masks, ``exists``,
-   ``last_ts``, counter replies and periods must be equal; remaining and
-   tokens within atol 1e-4, counter values equal for distinct slots and,
+   ``last_ts``, counter replies and periods must be equal; every flush
+   result and state field equal (one writer a slot applies its int64
+   consumption once); elsewhere remaining and tokens within atol 1e-4,
+   counter values equal for distinct slots and,
    where a slot takes r > 1 adds, within r spacings of its float32 value
    (atomic adds in no fixed order); every window result and state field
    equal (whole-number counts). Time each
@@ -79,6 +89,9 @@ Phases (any failure raises, and the script exits non-zero):
    ``window_grouped``), every key's grants held to a host float32 serial
    oracle of the sliding-window rule; cap-5 x 32 -> 5 and readmission after
    roll-off, sliding and fixed; ``sweep_all`` evicting exactly every slot.
+   ``python3 chip_smoke.py --window-traffic [--gc-freeze]`` runs this path
+   alone (the arrivals' collector passes counted by generation;
+   ``--gc-freeze`` freezes the older objects before the arrivals).
 6. The admission path, on a store of its own (2^18 bucket slots, 2^20
    semaphore slots): ``concurrency_acquire_many`` of 1 permit on 1,000,000
    distinct keys and their release (one ``sema_packed`` launch per 4,096
@@ -126,8 +139,10 @@ Phases (any failure raises, and the script exits non-zero):
    and read after it; > 0 on the path the kernel serves, and every kernel
    that a wire op reaches > 0 on the server path — all but
    ``debit_packed``, which no wire op reaches until tier-0 and the
-   reservations are ported) and their sum (``launches``), the error against
-   the plain version, and its times; before it, each phase's wall seconds.
+   reservations are ported) and their sum (``launches``), the flushes' and
+   counter syncs' launches on those paths by operand width
+   (``launch_sizes``), the error against the plain version, and its times;
+   before it, each phase's wall seconds.
 10. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
@@ -136,6 +151,7 @@ It needs a CUDA device and the rest of the repository beside it.
 from __future__ import annotations
 
 import asyncio
+import functools
 import gc
 import json
 import os
@@ -274,12 +290,13 @@ def _time_calls(obj, name: str, acc: list) -> None:
 
 
 class _GcClock:
-    """Wall time spent in Python's cyclic garbage collector (a
-    ``gc.callbacks`` entry)."""
+    """Wall time spent in Python's cyclic garbage collector, and its passes
+    by generation (a ``gc.callbacks`` entry)."""
 
     def __init__(self) -> None:
         self.total = 0.0
         self.longest = 0.0  # the longest single collection
+        self.passes = [0, 0, 0]
         self._start = 0.0
 
     def __call__(self, phase: str, info: dict) -> None:
@@ -289,6 +306,7 @@ class _GcClock:
             pause = time.perf_counter() - self._start
             self.total += pause
             self.longest = max(self.longest, pause)
+            self.passes[info["generation"]] += 1
 
 
 def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -450,24 +468,25 @@ def kernel_phase(torch, K, ck, dev):
         out = kernel(ks, op_d, cap, rate)
         _, pout = plain_fn(ps, op_d, cap, rate)
         torch.cuda.synchronize()
-        _check_equal(f"{name} grants", out[0], pout[0])
-        err = max(_check_close(f"{name} remaining", out[1], pout[1]),
-                  _check_close(f"{name} tokens", ks.tokens, ps.tokens))
-        _check_equal(f"{name} last_ts", ks.last_ts, ps.last_ts)
-        _check_equal(f"{name} exists", ks.exists, ps.exists)
+        # One writer a slot: results and every state field exact.
+        _check_equal(f"{name} out", out, pout)
+        for field in ks._fields:
+            _check_equal(f"{name} {field}", getattr(ks, field),
+                         getattr(ps, field))
+        err = 0.0
         granted = float(out[0].sum())
         if not 0 < granted:
             raise AssertionError(f"{name}: nothing granted")
         ms = _median_ms(lambda: kernel(ks, op_d, cap, rate), inner=20)
         plain_ms = _median_ms(lambda: plain_fn(ps, op_d, cap, rate))
         dev_ms = _device_ms(lambda: kernel(ks, op_d, cap, rate),
-                            ["flush_kernel"])
+                            FLUSH_KERNELS)
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bytes=nbytes, ops=ops,
                          device_ms=dev_ms)
-        print(f"{name} B={BATCH} ({d_uniq} distinct slots): grants equal, "
-              f"max abs err {err:.3g}; {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"device time {dev_ms} ms)")
+        print(f"{name} B={BATCH} ({d_uniq} distinct slots): out and every "
+              f"state field equal to plain; {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, device time {dev_ms} ms)")
     res["acquire_scan"] = scan_case(torch, K, ck, dev, rng, table, now, cap,
                                     rate)
     del table, tokens, last_ts, exists0, state, plain, sat
@@ -481,6 +500,11 @@ def kernel_phase(torch, K, ck, dev):
     for (name, shape), row in scan_shapes(
             torch, K, ck, dev, shapes=SCAN_SHAPES_ADDED).items():
         res[name].setdefault("shapes", {})[shape] = row
+    torch.cuda.empty_cache()
+    # The flushes at the shapes the store launches; their rows ride on the
+    # four flush kernels' entries of the kernels line.
+    for row in flush_shapes(torch, K, ck, dev):
+        res[row["kernel"]].setdefault("shapes", {})[row["shape"]] = row
     torch.cuda.empty_cache()
     res.update(admission_cases(torch, K, ck, dev, rng))
     return res
@@ -560,7 +584,7 @@ def window_cases(torch, K, ck, dev, rng) -> dict:
         ms = _median_ms(lambda: kernel(ks, op_d, limit, wt), inner=20)
         plain_ms = _median_ms(lambda: plain_fn(ps, op_d, limit, wt))
         dev_ms = _device_ms(lambda: kernel(ks, op_d, limit, wt),
-                            ["flush_kernel"])
+                            FLUSH_KERNELS)
         res[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bytes=nbytes, ops=30 * BATCH,
                          device_ms=dev_ms)
@@ -1042,6 +1066,191 @@ def admission_bench() -> int:
     return 0
 
 
+#: The flush kernels' names in a profile (warp, block and wide forms; the
+#: parent's one ``flush_kernel``).
+FLUSH_KERNELS = ["flush_"]
+#: The shapes of :func:`flush_shapes`, as the store launches them (it pads a
+#: flush to a power of two >= 8 rows; the parent's store padded to 4096).
+FLUSH_SHAPES = ("1 valid row (B=8)",
+                "1 valid row (B=4096, as the parent's store pads)",
+                "12 Zipf rows (B=16)", "32 Zipf rows (B=32)",
+                "64 Zipf rows (B=64)", "256 Zipf rows (B=256)",
+                "2048 Zipf rows (B=2048)", "4096 Zipf rows", "4096 distinct")
+
+
+def _flush_rows(rng, shape: str, n: int):
+    """One flush shape's requests: ``(slots, counts)``, padding -1."""
+    b = int(re.search(r"B=(\d+)", shape).group(1)) if "B=" in shape \
+        else BATCH
+    valid = 1 if shape.startswith("1 valid") else int(shape.split()[0])
+    slots = np.full(b, -1, np.int32)
+    if shape.endswith("distinct"):
+        slots[:valid] = rng.choice(n, valid, replace=False)
+    else:
+        slots[:valid] = (rng.zipf(1.2, valid) - 1) % n
+    counts = np.zeros(b, np.int32)
+    counts[:valid] = rng.integers(1, 6, valid)
+    return slots, counts
+
+
+def _flush_operands(slots, counts, now):
+    """The store's two operands for the same requests: ``i32[4, B]`` with
+    the host's same-slot prefix, and the coalesced ``i32[5, B]`` (one group
+    a slot, n its requests, prefix 0)."""
+    from distributedratelimiting.redis_tpu_torch.runtime.store import (
+        _duplicate_prefix_host,
+    )
+
+    b = len(slots)
+    valid = slots >= 0
+    packed = np.zeros((4, b), np.int32)
+    packed[0], packed[1], packed[2] = slots, counts, now
+    packed[3][valid] = _duplicate_prefix_host(slots[valid], counts[valid])
+    uniq, first, sizes = np.unique(slots[valid], return_index=True,
+                                   return_counts=True)
+    packed5 = np.zeros((5, b), np.int32)
+    packed5[0] = -1
+    g = len(uniq)
+    packed5[0, :g], packed5[2] = uniq, now
+    packed5[1, :g] = counts[valid][first]
+    packed5[4, :g] = sizes
+    return packed, packed5
+
+
+def flush_shapes(torch, K, ck, dev, exact=True) -> list:
+    """``acquire_packed``, ``acquire_grouped``, ``window_packed`` and
+    ``window_grouped`` (sliding) on 2^24-slot tables at each shape of
+    :data:`FLUSH_SHAPES`, against the plain versions: out and every state
+    field equal (``exact``; else remaining and tokens within atol 1e-4, as
+    a parent's atomic adds leave them).
+    Prints and returns, per shape, the CUDA-event ms, the profiler's device
+    ms and the bound (16 B a row of the operand, 20 B grouped, and 8 B of
+    reply; 18 B per distinct bucket slot, 26 B per window slot)."""
+    rng = np.random.default_rng(SEED + 9)
+    n, now, cap, rate = N_SLOTS, 3_000_000, 100.0, 10 / 1024
+    wt, limit = WINDOW_TICKS, float(WINDOW_LIMIT)
+    wnow = now + 300
+    bucket = (torch.tensor(rng.uniform(0, cap, n).astype(np.float32),
+                           device=dev),
+              torch.tensor(rng.integers(now - 3000, now, n).astype(np.int32),
+                           device=dev),
+              torch.tensor(rng.random(n) < 0.7, device=dev))
+    idx = (wnow // wt + rng.choice([-2, -1, 0, 0, 1], n)).astype(np.int32)
+    window = (torch.tensor(rng.integers(0, 60, n).astype(np.float32),
+                           device=dev),
+              torch.tensor(rng.integers(0, 60, n).astype(np.float32),
+                           device=dev),
+              torch.tensor(idx, device=dev),
+              torch.tensor(rng.random(n) < 0.7, device=dev))
+    kernels = {
+        "acquire_packed": (K.BucketState, bucket, K.acquire_batch_packed,
+                           (cap, rate), 4, 18, 15),
+        "acquire_grouped": (K.BucketState, bucket,
+                            K.acquire_batch_packed_grouped, (cap, rate), 5,
+                            18, 18),
+        "window_packed": (K.WindowState, window,
+                          K.window_acquire_batch_packed, (limit, wt), 4, 26,
+                          30),
+        "window_grouped": (K.WindowState, window,
+                           K.window_acquire_batch_packed_grouped,
+                           (limit, wt), 5, 26, 30),
+    }
+    out = []
+    for shape in FLUSH_SHAPES:
+        slots, counts = _flush_rows(rng, shape, n)
+        packed, packed5 = _flush_operands(slots, counts, now)
+        for name, (cls, table, plain_fn, args, rows, slot_b, ops) in \
+                kernels.items():
+            op = packed5 if rows == 5 else packed
+            window = name.startswith("window")
+            if window:
+                op = op.copy()
+                op[2] = wnow
+            op_d = torch.from_numpy(op).to(dev)
+            ks = cls(*(x.clone() for x in table))
+            ps = cls(*(x.clone() for x in table))
+            call = functools.partial(getattr(ck, name), ks, op_d, *args)
+            got = call()
+            _, want = plain_fn(ps, op_d, *args)
+            torch.cuda.synchronize()
+            what = f"{name} {shape}"
+            _check_equal(f"{what} grants", got[0], want[0])
+            err = 0.0
+            float_fields = ("tokens", "curr_count")
+            for field in ks._fields:
+                if exact or field not in float_fields:
+                    _check_equal(f"{what} {field}", getattr(ks, field),
+                                 getattr(ps, field))
+                else:
+                    err = max(err, _check_close(f"{what} {field}",
+                                                getattr(ks, field),
+                                                getattr(ps, field)))
+            if exact:
+                _check_equal(f"{what} remaining", got[1], want[1])
+            else:
+                err = max(err, _check_close(f"{what} remaining", got[1],
+                                            want[1]))
+            valid = op[0] >= 0
+            d = len(np.unique(op[0][valid]))
+            row = _shape_row(call, FLUSH_KERNELS,
+                             (4 * rows + 8) * op.shape[1] + slot_b * d,
+                             ops * op.shape[1])
+            out.append({"kernel": name, "shape": shape,
+                        "b": int(op.shape[1]), "distinct": d,
+                        "granted": float(want[0].sum()), "max_abs_err": err,
+                        **row})
+            print(f"{what} (B={op.shape[1]}, {d} distinct slots, "
+                  f"{float(want[0].sum())} granted): equal to plain, max abs "
+                  f"err {err!r}; {row['ms']:.5f} ms, device "
+                  f"{row['device_ms']} ms, bound {row['bound_ms']:.7f} ms")
+    return out
+
+
+def window_traffic() -> int:
+    """``python3 chip_smoke.py --window-traffic [--gc-freeze]``: only
+    :func:`window_path`, on the package beside this file (copy the script
+    into another checkout to run that checkout's); ``--gc-freeze`` freezes
+    the collector's generations before the arrivals. Prints the card and
+    the path's lines."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import distributedratelimiting.redis_tpu_torch as pkg
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+
+    card = _card_line()
+    print(card)
+    ck.build(["window"])
+    asyncio.run(window_path(torch, ck, pkg, card,
+                            freeze_gc="--gc-freeze" in sys.argv[2:]))
+    return 0
+
+
+def flush_bench() -> int:
+    """``python3 chip_smoke.py --flush-bench``: only :func:`flush_shapes`,
+    on the package beside this file (copy the script into another checkout
+    to time that checkout's kernels: there remaining and tokens are held
+    within atol 1e-4). Prints the card and one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+    from distributedratelimiting.redis_tpu_torch.ops import kernels as K
+
+    card = _card_line()
+    print(card)
+    ck.build(["acquire", "window"])
+    rows = flush_shapes(torch, K, ck, torch.device("cuda"), exact=False)
+    print(json.dumps({"card": card, "flush_shapes": rows}))
+    return 0
+
+
 def _sync_packed(rng, b, n, now, distinct):
     """A counter-sync operand ``i32[3, B]``: Zipf(1.1) slots (duplicates) or
     distinct ones, 2% padding, float counts bitcast, the tick."""
@@ -1069,6 +1278,7 @@ def counter_cases(torch, K, ck, dev, rng) -> dict:
              torch.tensor(rng.random(n) < 0.5, device=dev))
     res = {}
     sync = {}
+    shapes = {}
     for label, b, distinct in (("Zipf(1.1)", n, False),
                                ("distinct", n, True), ("B = 8", 8, False)):
         packed = _sync_packed(rng, b, n, now, distinct)
@@ -1104,6 +1314,10 @@ def counter_cases(torch, K, ck, dev, rng) -> dict:
         sync[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            library_ms=None, bytes=20 * b + 26 * len(uniq),
                            ops=12 * b, device_ms=dev_ms)
+        bound_ms, bound_by = _bound_ms(sync[label]["bytes"], 12 * b)
+        shapes[f"{label} (B={b})"] = dict(
+            ms=ms, device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=err)
         print(f"sync_counters ({label}) B={b} ({len(uniq)} distinct slots, "
               f"max repeat {reps.max()}): replies, period, last_ts, exists "
               f"equal to plain, value max abs err {err!r} (that slot's limit "
@@ -1111,7 +1325,7 @@ def counter_cases(torch, K, ck, dev, rng) -> dict:
               f"{dev_ms} ms)")
     # The fleet sync of the main path sends distinct keys.
     res["sync_counters"] = dict(sync["distinct"], max_abs_err=max(
-        r["max_abs_err"] for r in sync.values()))
+        r["max_abs_err"] for r in sync.values()), shapes=shapes)
     exact_sums_case(torch, K, ck, dev, rng, table, now, rate)
 
     # sweep_counters over the table: last touches up to two days back.
@@ -1707,10 +1921,14 @@ class _WindowOracle:
         return granted
 
 
-async def window_path(torch, ck, pkg, card: str) -> dict:
+async def window_path(torch, ck, pkg, card: str,
+                      freeze_gc: bool = False) -> dict:
     """BASELINE config 4, the sliding-window counter at 10M keys with bursty
     Poisson arrivals, on a store of its own (2^24 window slots, ~218 MB);
-    returns the kernel launches it made."""
+    returns the kernel launches it made. ``freeze_gc``: move every object
+    alive before the arrivals into the collector's permanent generation
+    (``gc.freeze()``), so that its passes walk only what the arrivals
+    make."""
     from distributedratelimiting.redis_tpu_torch.utils.tracing import (
         ProfilingSession,
     )
@@ -1765,6 +1983,9 @@ async def window_path(torch, ck, pkg, card: str) -> dict:
     gc0 = gc_clock.total
     gc_clock.longest = 0.0
     tracked = len(gc.get_objects())  # what a full collection walks
+    if freeze_gc:
+        gc.freeze()
+    passes0 = list(gc_clock.passes)
     n_req = n_granted = 0
     wall = 0.0
     for step in range(WINDOW_STEPS):
@@ -1806,8 +2027,12 @@ async def window_path(torch, ck, pkg, card: str) -> dict:
           f"{store.metrics.flush_latency.p50 * 1e3:.3f} ms, p99 "
           f"{store.metrics.flush_latency.p99 * 1e3:.3f} ms, garbage "
           f"collector {gc_clock.total - gc0:.3f} s (longest pause "
-          f"{gc_clock.longest:.3f} s; {tracked} objects tracked at the "
-          f"start)")
+          f"{gc_clock.longest:.3f} s; passes by generation "
+          f"{[a - b for a, b in zip(gc_clock.passes, passes0)]}; {tracked} "
+          f"objects tracked at the start"
+          f"{', frozen' if freeze_gc else ''})")
+    if freeze_gc:
+        gc.unfreeze()
     if not 0 < n_granted < n_req:
         raise AssertionError("window traffic: no mix of grants and denials")
 
@@ -2898,6 +3123,28 @@ async def admission_path(torch, ck, pkg, card: str) -> dict:
     return counts
 
 
+#: Wrappers whose launches :func:`_record_sizes` counts by operand width.
+SIZED_KERNELS = ("acquire_packed", "acquire_grouped", "window_packed",
+                 "window_grouped", "sync_counters")
+
+
+def _record_sizes(ck, sizes: dict) -> None:
+    """Wrap each of :data:`SIZED_KERNELS` in ``ck`` so that a call on a
+    CUDA operand (second argument) counts its width B in ``sizes[name]``."""
+    for name in SIZED_KERNELS:
+        fn = getattr(ck, name)
+        counts = sizes.setdefault(name, {})
+
+        def recorded(state, packed, *args, _fn=fn, _counts=counts,
+                     **kwargs):
+            if packed.device.type == "cuda":
+                b = int(packed.shape[-1])
+                _counts[b] = _counts.get(b, 0) + 1
+            return _fn(state, packed, *args, **kwargs)
+
+        setattr(ck, name, recorded)
+
+
 def main() -> int:
     import torch
 
@@ -2927,6 +3174,8 @@ def main() -> int:
     # Each path resets the counts just before it runs and reads them just
     # after; a kernel's launches are its count summed over the paths, and
     # it must have launched on the path it serves.
+    sizes: dict = {}
+    _record_sizes(ck, sizes)
     by_path = {}
     for name, path in (("exact", main_path), ("approximate", approximate_path),
                        ("window", window_path), ("admission", admission_path),
@@ -3014,8 +3263,11 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": r["library_ms"],
         })
-        if "shapes" in r:  # the scans at the added shapes
+        if "shapes" in r:  # the kernels at the added shapes
             kernels[-1]["shapes"] = r["shapes"]
+        if name in sizes:  # launches on the paths by operand width B
+            kernels[-1]["launch_sizes"] = {
+                str(b): c for b, c in sorted(sizes[name].items())}
         if name in no_wire_op:
             kernels[-1]["server_path"] = ("exempt: no wire op reaches it "
                                           "until tier-0 is ported")
@@ -3047,4 +3299,8 @@ if __name__ == "__main__":
         sys.exit(scan_bench())
     if sys.argv[1:2] == ["--admission-bench"]:
         sys.exit(admission_bench())
+    if sys.argv[1:2] == ["--flush-bench"]:
+        sys.exit(flush_bench())
+    if sys.argv[1:2] == ["--window-traffic"]:
+        sys.exit(window_traffic())
     sys.exit(main())

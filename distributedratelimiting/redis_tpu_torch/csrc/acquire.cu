@@ -25,10 +25,13 @@
 // slot state, so bytes: the operand read once, the result written once, and
 // 18 B per distinct slot. At B = 4096 that is well under a microsecond; what
 // a flush really costs is launch latency and its dependent chain gather ->
-// decide -> write. There is no matrix product, so wgmma and the tensor cores
-// do not apply.
+// decide -> write, so a flush is sized by its rows: a warp up to 32 rows,
+// blocks by the rows above (decide.cuh). There is no matrix product, so
+// wgmma and the tensor cores do not apply.
 //
-// Measured on the H100 (chip_smoke.py --scan-bench): a scan chunk in which
+// Measured on the H100 (chip_smoke.py --flush-bench, --scan-bench): a flush
+// of one valid row costs one warp's launch and its gather and write; a scan
+// chunk in which
 // no key repeats costs the scattered gathers and commits of its slots; with
 // repeats, its longest slot's walk over the batches (a hot slot's batch
 // groups run one after another).
@@ -77,16 +80,6 @@ struct BucketPolicy {
                                               float c) {
     return r >= __fadd_rn(pre, c);
   }
-  static __device__ __forceinline__ void set(const Table& t, int32_t s,
-                                             const Slot& r, int32_t now) {
-    t.tokens[s] = r;
-    t.last_ts[s] = now;
-    t.exists[s] = 1;
-  }
-  static __device__ __forceinline__ void add(const Table& t, int32_t s,
-                                             float consumed) {
-    atomicAdd(&t.tokens[s], -consumed);
-  }
   static __device__ __forceinline__ void commit(const Table& t, int32_t s,
                                                 const Slot& r, int32_t now,
                                                 long long consumed) {
@@ -105,22 +98,29 @@ struct BucketPolicy {
 
 using drl_bucket::BucketPolicy;
 
+// scratch holds drl_flush_scratch_bytes(b) bytes (none up to 4096 rows).
 extern "C" int drl_acquire_packed(float* tokens, int32_t* last_ts,
                                   uint8_t* exists, int32_t n_slots,
                                   const int32_t* packed, int32_t b, float cap,
-                                  float rate, float* out,
+                                  float rate, float* out, void* scratch,
                                   cudaStream_t stream) {
   return drl::launch_flush<BucketPolicy, false>(
-      {tokens, last_ts, exists}, n_slots, packed, b, {cap, rate}, out, stream);
+      {tokens, last_ts, exists}, n_slots, packed, b, {cap, rate}, out,
+      scratch, stream);
 }
 
 extern "C" int drl_acquire_grouped(float* tokens, int32_t* last_ts,
                                    uint8_t* exists, int32_t n_slots,
                                    const int32_t* packed, int32_t b, float cap,
-                                   float rate, float* out,
+                                   float rate, float* out, void* scratch,
                                    cudaStream_t stream) {
   return drl::launch_flush<BucketPolicy, true>(
-      {tokens, last_ts, exists}, n_slots, packed, b, {cap, rate}, out, stream);
+      {tokens, last_ts, exists}, n_slots, packed, b, {cap, rate}, out,
+      scratch, stream);
+}
+
+extern "C" int64_t drl_flush_scratch_bytes(int32_t b) {
+  return drl::flush_scratch_bytes(b);
 }
 
 // Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], in a 4-byte

@@ -302,7 +302,8 @@ __global__ void __launch_bounds__(kT, 1)
       all = true;
     }
   }
-  const int m = drl_batch::own_rows<kT, kIpt>(sh.batch, b, all, key);
+  const int m = drl_batch::own_rows<kT, kIpt>(sh.batch.temp.count,
+                                              sh.batch.sub, b, all, key);
   if (m == 0) return;  // none of the batch's slots is this block's
   auto row_at = [&](int i) {
     return i >= m ? b : all ? i : (int)sh.batch.sub[i];

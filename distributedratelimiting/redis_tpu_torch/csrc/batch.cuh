@@ -1,6 +1,9 @@
 // Same-slot prefixes inside one batch of at most 4096 rows, for the
 // semaphore (sema.cu) and two-level admission (admission.cu) kernels: a
-// launch costs what its rows need, not a block-wide sort of 4096 keys.
+// launch costs what its rows need, not a block-wide sort of 4096 keys. The
+// bucket and window flushes (decide.cuh) take the same warp and block
+// partition, the hash set and peer_sum; with the host's prefix they need no
+// sort, only one writer a slot.
 //
 // Both kernels need, per row, the int64 sum of a demand over the EARLIER
 // rows of the same slot (request order), and per slot one writer. Two
@@ -29,15 +32,40 @@
 //     and writes its own slot. Otherwise each repeated slot takes a compact
 //     id below the block's rows / 2, rows are sorted stably by that id (the
 //     others, each alone, after them) with cub::BlockRadixSort over
-//     bit_length(ids) <= 12 bits, and int64 segmented scans (decide.cuh's
-//     Seg/SegSum) run in that order.
+//     bit_length(ids) <= 12 bits, and int64 segmented scans (Seg/SegSum,
+//     below) run in that order.
 //
 // Both paths read the slot as the row's 32-bit key; padding rows use
 // kEmptyKey (no slot is >= 2^31), so no table size sets a bit range.
 
 #pragma once
 
-#include "decide.cuh"
+#include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace drl {
+
+constexpr uint32_t kEmptyKey = 0xFFFFFFFFu;  // no slot is >= 2^31
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// Segmented int64 sums (the block paths' and the scan's block walks): a
+// running sum, and the position of the segment's head (-1 on a non-head
+// input element).
+struct Seg {
+  long long sum;
+  int head;
+};
+
+struct SegSum {
+  __device__ __forceinline__ Seg operator()(const Seg& a,
+                                            const Seg& b) const {
+    return b.head >= 0 ? b : Seg{a.sum + b.sum, a.head};
+  }
+};
+
+}  // namespace drl
 
 namespace drl_batch {
 
@@ -58,6 +86,16 @@ __device__ __forceinline__ void lane_sums(unsigned below, unsigned all,
     if ((below >> j) & 1u) s_below += x;
     if ((all >> j) & 1u) s_all += x;
   }
+}
+
+// The int64 sum of the values the lanes of `peers` left in their slots of
+// the warp's buffer buf (buf[lane], then a __syncwarp): one lane reads its
+// peers' values, where a warp-wide shuffle sum takes 32 shuffles.
+__device__ __forceinline__ long long peer_sum(const long long* buf,
+                                              unsigned peers) {
+  long long s = 0;
+  for (unsigned m = peers; m != 0; m &= m - 1) s += buf[__ffs(m) - 1];
+  return s;
 }
 
 // Block path: the shared memory of a batch of kT x kIpt rows. The kernels
@@ -120,12 +158,14 @@ __device__ __forceinline__ bool one_block(uint32_t first,
 
 // The rows this block decides: every row of the batch (`all`), or, in a
 // launch of several blocks, those with block_of(key, r) == blockIdx.x, in
-// request order, in sh.sub. key[j] is row r = threadIdx.x * kIpt + j's
-// slot (kEmptyKey: padding or r >= b). Returns their number m; position
-// i < m is row (all ? i : sh.sub[i]).
+// request order, in sub (kT x kIpt entries; temp is the count's scan
+// storage). key[j] is row r = threadIdx.x * kIpt + j's slot (kEmptyKey:
+// padding or r >= b). Returns their number m; position i < m is row
+// (all ? i : sub[i]).
 template <int kT, int kIpt>
-__device__ int own_rows(typename Block<kT, kIpt>::Shared& sh, int32_t b,
-                        bool all, const uint32_t (&key)[kIpt]) {
+__device__ int own_rows(typename Block<kT, kIpt>::Count::TempStorage& temp,
+                        uint16_t* sub, int32_t b, bool all,
+                        const uint32_t (&key)[kIpt]) {
   if (all) return b;
   const int tid = threadIdx.x;
   int flag[kIpt], pos[kIpt];
@@ -136,10 +176,10 @@ __device__ int own_rows(typename Block<kT, kIpt>::Shared& sh, int32_t b,
   }
   int m;
   __syncthreads();  // the last use of the scan's storage is over
-  typename Block<kT, kIpt>::Count(sh.temp.count).ExclusiveSum(flag, pos, m);
+  typename Block<kT, kIpt>::Count(temp).ExclusiveSum(flag, pos, m);
 #pragma unroll
   for (int j = 0; j < kIpt; ++j) {
-    if (flag[j]) sh.sub[pos[j]] = (uint16_t)(tid * kIpt + j);
+    if (flag[j]) sub[pos[j]] = (uint16_t)(tid * kIpt + j);
   }
   __syncthreads();
   return m;

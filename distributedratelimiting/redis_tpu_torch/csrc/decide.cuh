@@ -1,5 +1,5 @@
 // The decision machinery shared by the bucket and window kernels, for Hopper
-// (sm_90a): the one-block flush (plain and grouped) and the bulk lane's scan.
+// (sm_90a): the flush (plain and grouped) and the bulk lane's scan.
 // acquire.cu instantiates it with the token bucket's rule, window.cu with the
 // sliding/fixed window's. What differs between the two is only the rule for
 // one slot, so every kernel here is a template on a policy P that holds it:
@@ -17,13 +17,10 @@
 //              the batch's demand: a row's remaining is
 //              max((room - pre) - consumed, 0), and the grouped rule grants
 //              clamp(floor((room - pre) / max(c, 1)), 0, n) members;
-//   P::set(table, s, slot, now)         flush: every duplicate sets the same
-//              advanced state ...
-//   P::add(table, s, consumed)          ... then adds its consumption with
-//              an atomic (after a barrier);
-//   P::commit(table, s, slot, now, consumed)  scan: the slot's one writer
-//              stores the advanced state with the int64 sum of its
-//              consumption in the batch applied once;
+//   P::commit(table, s, slot, now, consumed)  the slot's one writer stores
+//              the advanced state with the int64 sum of its consumption in
+//              the batch (flush) or the chunk's last batch group (scan)
+//              applied once;
 //   P::carry(slot, now, consumed) -> Old     scan: the state commit would
 //              store, as the next gather would read it, so that one slot's
 //              batches chain in registers.
@@ -40,17 +37,40 @@
 // grants bit-packed little-endian within each byte, u8[K, B / 8].
 //
 // Design. Every call is ONE launch.
-//   - Flush and grouped (host prefix, no sort): ONE block of 1024 threads,
-//     each holding up to 4 rows' gathers in flight at once. Every row
-//     gathers and decides, __syncthreads(), every row sets the advanced
-//     state (all duplicates of a slot write the same value),
-//     __syncthreads(), then duplicates' consumption is added with
-//     atomicAdd. Grants never depend on the atomics' order; a slot's float
-//     may differ from a serial sum by rounding (integer counts below 2^24
-//     make it exact). The flush is latency-bound, not bandwidth-bound: split
-//     by slot over 16 blocks of 256 threads it took longer on the H100
-//     (fewer gathers in flight per thread, and every block reads every
-//     row's slot).
+//   - Flush and grouped (host prefix, no sort): a launch sized by its rows,
+//     on batch.cuh's machinery. Every row decides from its slot's state as
+//     gathered and the host's prefix; what the kernel must do besides is
+//     give each slot one writer, which stores the advanced state with the
+//     int64 sum of the slot's consumption (c a granted row, n_granted x c a
+//     group) through P::commit. No float atomics: tokens and window counts
+//     are deterministic, and equal to the plain version's row-by-row
+//     arithmetic bit for bit for whole counts below 2^24 (a bucket's refilled
+//     balance may be fractional; where the host's prefix covers the slot's
+//     earlier demand, as the store's does, the granted consumption is at
+//     most the balance and each subtraction of a whole count is exact).
+//       B <= 32 (the server's scalar lane: nearly every launch): one warp,
+//     row = lane; __match_any_sync gives each row its slot's peers, the
+//     highest peer writes with their sum (peer_sum, from a 32-entry buffer;
+//     skipped where no slot repeats). No block barrier, no atomics.
+//       33 <= B <= 4096: blocks sized by B (64 x 1 ... 1024 x 4 rows), and
+//     above 256 rows min(64, B / 64) of them, each taking the rows of its
+//     share of the slots (own_rows: a hash of the slot), so that a slot's
+//     rows meet in one block and no block waits for another. A block's rows
+//     spread over all its warps first (position j * kT + thread). In a block
+//     the lanes of one slot in a warp add their consumption together (the
+//     lowest lane sums them with peer_sum) into the slot's entry of a hash
+//     set in shared memory, an int64 accumulator whose sum does not depend
+//     on the atomics' order; the row that claimed the entry writes the slot
+//     after one barrier. Two barriers a block; no sort, since no prefix is
+//     computed.
+//       B > 4096 (the kernels' cap, FLUSH_MAX_BATCH rows; no store path sends
+//     one, a card store takes max_batch <= 4096): one block of 1024 threads
+//     in rounds of 4096 rows, the same hash set in scratch the wrapper
+//     allocates (2^k >= 2B entries of 12 B), then each entry re-gathers its
+//     slot (nothing has written it) and commits it once.
+//     The flush is latency-bound, not bandwidth-bound: at B = 4096 its bytes
+//     take well under a microsecond, and what it costs is the launch, the
+//     barriers and one SM's scattered gathers and writes (hence the spread).
 //   - Scan (bulk lane): the chunk's K batches are decided slot-major, not
 //     batch by batch. What the plain version computes, per batch k in
 //     order, is: every row of slot s is granted iff fits(advance(state_s,
@@ -108,6 +128,10 @@
 //     by their own walker without a barrier.
 //
 // Traps, each with a test:
+//   - Warp collectives: every lane reaches every __match_any_sync and
+//     __shfl_sync (a padding lane carries kEmptyKey and adds 0), none stands
+//     to the right of && or in a branch a lane may skip: a lane that misses
+//     one hangs the warp.
 //   - Stale reads. The scan writes the table it reads, so no state pointer is
 //     const __restrict__ and none is read with __ldg; scratch that other
 //     blocks wrote before a grid.sync() is read with __ldcg (L2), never
@@ -126,144 +150,383 @@
 #pragma once
 
 #include <cooperative_groups.h>
-#include <cub/block/block_radix_sort.cuh>
-#include <cub/block/block_scan.cuh>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "batch.cuh"
 
 namespace drl {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 1024;
-// Rows each flush thread stages per round, so that a thread has
-// kFlushRows independent gathers in flight.
-constexpr int kFlushRows = 4;
-
 __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
-// Dynamic shared memory of a flush: the advanced state and the consumption
-// of every row.
-template <class P>
-__host__ __device__ size_t flush_smem(int32_t b) {
-  return align16(sizeof(typename P::Slot) * (size_t)b) +
-         sizeof(float) * (size_t)b;
-}
+// Rows a flush block takes (1024 threads x 4); a larger flush is wide.
+constexpr int kFlushBlockRows = 4096;
+// The wide flush: one block of kWideThreads threads, each staging kWideRows
+// rows a round, so that a thread has kWideRows gathers in flight.
+constexpr int kWideThreads = 1024;
+constexpr int kWideRows = 4;
 
 // ---------------------------------------------------------------------------
-// Flush and grouped flush: one block, rows strided over the threads.
+// Flush and grouped flush: a launch sized by its rows.
 
+// One row's result: its grant (0/1, or the members granted), its remaining,
+// and its consumption in int64 (c, or n_granted x c).
+struct FlushRow {
+  float granted, remaining;
+  long long used;
+};
+
+// Row r's operand: its count, the host's same-slot prefix (row 3) and, for
+// a group, its size (row 4). Loaded with the slot, before any barrier, so
+// that its latency hides behind the gathers'.
+struct FlushIn {
+  int32_t cnt, pre, n;
+};
+
+template <bool kGrouped>
+__device__ __forceinline__ FlushIn load_row(const int32_t* packed, int32_t b,
+                                            int r) {
+  return FlushIn{packed[b + r], packed[3 * b + r],
+                 kGrouped ? packed[4 * b + r] : 0};
+}
+
+// A row's decision from its slot's advanced state sl (Slot{} for padding)
+// and its operand.
 template <class P, bool kGrouped>
-__global__ void __launch_bounds__(kThreads, 1)
-    flush_kernel(typename P::Table T, int32_t n_slots,
-                 const int32_t* __restrict__ packed, int32_t b,
-                 typename P::Params prm, float* __restrict__ out) {
-  using Slot = typename P::Slot;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Slot* s_slot = reinterpret_cast<Slot*>(smem);
-  float* s_consumed = reinterpret_cast<float*>(
-      smem + align16(sizeof(Slot) * (size_t)b));
-  const int32_t now = packed[2 * b];
+__device__ __forceinline__ FlushRow decide_row(const typename P::Slot& sl,
+                                               bool valid, int32_t now,
+                                               const typename P::Params& prm,
+                                               const FlushIn& in) {
+  const int32_t cnt = in.cnt;
+  const float c = __int2float_rn(cnt);
+  const float pre = __int2float_rn(in.pre);
+  if (kGrouped) {
+    const float n = __int2float_rn(in.n);
+    const float avail = __fsub_rn(P::room(sl, now, prm), pre);
+    float ng;
+    if (c > 0.0f) {
+      ng = fminf(fmaxf(floorf(__fdiv_rn(avail, fmaxf(c, 1.0f))), 0.0f), n);
+    } else {
+      ng = avail >= 0.0f ? n : 0.0f;
+    }
+    const float granted = valid ? ng : 0.0f;
+    const float consumed = __fmul_rn(granted, c);
+    return FlushRow{granted,
+                    valid ? fmaxf(__fsub_rn(avail, consumed), 0.0f) : 0.0f,
+                    (long long)granted * cnt};
+  }
+  const bool ok = valid && P::fits(sl, now, prm, pre, c);
+  const float room = P::room(sl, now, prm);
+  return FlushRow{
+      ok ? 1.0f : 0.0f,
+      valid ? fmaxf(__fsub_rn(__fsub_rn(room, pre), ok ? c : 0.0f), 0.0f)
+            : 0.0f,
+      ok ? (long long)cnt : 0};
+}
 
-  for (int base = 0; base < b; base += kThreads * kFlushRows) {
-    int32_t slot[kFlushRows];
-    typename P::Old old[kFlushRows];
+// B <= 32: row = lane. The highest lane of a slot's peers writes it once
+// with the int64 sum of their consumption.
+template <class P, bool kGrouped>
+__global__ void __launch_bounds__(32, 1)
+    flush_warp_kernel(typename P::Table T, int32_t n_slots,
+                      const int32_t* __restrict__ packed, int32_t b,
+                      typename P::Params prm, float* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const int32_t now = packed[2 * b];
+  const int32_t s = lane < b ? packed[lane] : -1;
+  FlushIn in{0, 0, 0};
+  if (lane < b) in = load_row<kGrouped>(packed, b, lane);
+  const bool valid = s >= 0 && s < n_slots;
+  typename P::Slot sl{};
+  if (valid) sl = P::advance(P::gather(T, s), now, prm);
+  FlushRow row{0.0f, 0.0f, 0};
+  if (lane < b) {
+    row = decide_row<P, kGrouped>(sl, valid, now, prm, in);
+    out[lane] = row.granted;
+    out[b + lane] = row.remaining;
+  }
+  const unsigned me = 1u << lane;
+  const unsigned peers =
+      __match_any_sync(kFullMask, valid ? (uint32_t)s : kEmptyKey);
+  const bool writer = valid && lane == 31 - __clz(peers);
+  long long used = row.used;
+  if (!__all_sync(kFullMask, !valid || peers == me)) {
+    __shared__ long long buf[32];
+    buf[lane] = row.used;
+    __syncwarp();
+    if (writer) used = drl_batch::peer_sum(buf, peers);
+  }
+  __syncwarp();  // every row has read its slot
+  if (writer) P::commit(T, s, sl, now, used);
+}
+
+// Add each lane's consumption to its slot's entry in a hash set of 2^bits
+// entries (keys hkey, int64 sums sum; kEmptyKey: padding, which adds
+// nothing), the lanes of one slot together: the lowest sums their values
+// (through buf, the warp's 32 slots of a buffer) and finds or claims the
+// entry. Returns the entry (-1 on the other lanes) and, in `owner`, whether
+// this lane claimed it: the slot's one writer. Every lane of the warp calls
+// it.
+__device__ __forceinline__ int32_t add_to_set(uint32_t* hkey,
+                                              unsigned long long* sum,
+                                              long long* buf, int bits,
+                                              uint32_t key, long long used,
+                                              bool& owner) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFullMask, key);
+  const bool lead = key != kEmptyKey && lane == __ffs(peers) - 1;
+  long long total = used;
+  if (__any_sync(kFullMask, key != kEmptyKey && peers != (1u << lane))) {
+    buf[lane] = used;
+    __syncwarp();
+    if (lead) total = drl_batch::peer_sum(buf, peers);
+    __syncwarp();  // the buffer is read before its next use
+  }
+  owner = false;
+  int32_t e = -1;
+  if (lead) {
+    e = (int32_t)drl_batch::set_entry(hkey, bits, key, owner);
+    if (total != 0) atomicAdd(&sum[e], (unsigned long long)total);
+  }
+  return e;
+}
+
+// A flush block's shared memory: batch.cuh's partition (own_rows) and a
+// hash set of keys with int64 sums; none of the admission kernels' sort.
+template <int kT, int kIpt>
+struct FlushShared {
+  using Blk = drl_batch::Block<kT, kIpt>;
+  typename Blk::Count::TempStorage count;  // own_rows'
+  alignas(16) uint32_t hkey[Blk::kHash];   // an entry's slot
+  alignas(16) unsigned long long sum[Blk::kHash];
+  uint16_t sub[Blk::kRows];  // several blocks: the block's rows, in order
+  long long buf[kT];         // add_to_set's, a warp's 32 at a time
+};
+
+// 33 <= B <= kT x kIpt, on G blocks: each decides the rows of its share of
+// the slots (batch.cuh's own_rows), position i = j * kT + threadIdx.x of its
+// m rows: a block's rows spread over all its warps before any warp takes a
+// second (one slot's 700 rows of a Zipf batch take 22 warps, not 6).
+template <class P, bool kGrouped, int kT, int kIpt>
+__global__ void __launch_bounds__(kT, 1)
+    flush_block_kernel(typename P::Table T, int32_t n_slots,
+                       const int32_t* __restrict__ packed, int32_t b,
+                       typename P::Params prm, float* __restrict__ out) {
+  using Sh = FlushShared<kT, kIpt>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Sh& sh = *reinterpret_cast<Sh*>(smem);
+  const int tid = threadIdx.x;
+  const bool all = gridDim.x == 1;
+  const int32_t now = packed[2 * b];
+  auto slot_key = [&](int r) {
+    const int32_t s = r < b ? packed[r] : -1;
+    return s >= 0 && s < n_slots ? (uint32_t)s : kEmptyKey;
+  };
+  uint32_t key[kIpt];
+  if (!all) {
 #pragma unroll
-    for (int q = 0; q < kFlushRows; ++q) {
-      const int i = base + q * kThreads + threadIdx.x;
-      slot[q] = i < b ? packed[i] : -1;
-      if (slot[q] >= 0 && slot[q] < n_slots) old[q] = P::gather(T, slot[q]);
-    }
+    for (int j = 0; j < kIpt; ++j) key[j] = slot_key(tid * kIpt + j);
+  }
+  const int m =
+      drl_batch::own_rows<kT, kIpt>(sh.count, sh.sub, b, all, key);
+  if (m == 0) return;  // none of the batch's slots is this block's
+  // Row steps j whose positions of this warp all lie at or past m are idle
+  // (warp-uniform; every later step too).
+  const int steps = (m - (tid & ~31) + kT - 1) / kT;
+
+  // 1. Each row's slot, operand and state, the loads in flight while the
+  //    set is emptied.
+  int r[kIpt];
+  FlushIn in[kIpt];
+  typename P::Old old[kIpt];
 #pragma unroll
-    for (int q = 0; q < kFlushRows; ++q) {
-      const int i = base + q * kThreads + threadIdx.x;
-      if (i >= b) continue;
-      const bool valid = slot[q] >= 0 && slot[q] < n_slots;
-      // A padding row's state is never read: its results are masked.
-      const Slot sl = valid ? P::advance(old[q], now, prm) : Slot{};
-      const float c = __int2float_rn(packed[b + i]);
-      const float pre = __int2float_rn(packed[3 * b + i]);
-      float granted, consumed, remaining;
-      if (kGrouped) {
-        const float n = __int2float_rn(packed[4 * b + i]);
-        const float avail = __fsub_rn(P::room(sl, now, prm), pre);
-        float ng;
-        if (c > 0.0f) {
-          ng = fminf(fmaxf(floorf(__fdiv_rn(avail, fmaxf(c, 1.0f))), 0.0f),
-                     n);
-        } else {
-          ng = avail >= 0.0f ? n : 0.0f;
-        }
-        granted = valid ? ng : 0.0f;
-        consumed = __fmul_rn(granted, c);
-        remaining = valid ? fmaxf(__fsub_rn(avail, consumed), 0.0f) : 0.0f;
-      } else {
-        const bool ok = valid && P::fits(sl, now, prm, pre, c);
-        granted = ok ? 1.0f : 0.0f;
-        consumed = ok ? c : 0.0f;
-        remaining =
-            valid ? fmaxf(__fsub_rn(__fsub_rn(P::room(sl, now, prm), pre),
-                                    consumed),
-                          0.0f)
-                  : 0.0f;
+  for (int j = 0; j < kIpt; ++j) {
+    const int i = j * kT + tid;
+    r[j] = i >= m ? b : all ? i : (int)sh.sub[i];
+    key[j] = slot_key(r[j]);
+    if (r[j] < b) in[j] = load_row<kGrouped>(packed, b, r[j]);
+    if (key[j] != kEmptyKey) old[j] = P::gather(T, (int32_t)key[j]);
+  }
+  const int bits = drl_batch::hash_bits(m);
+  for (int i = tid; i < (1 << bits) / 4; i += kT) {
+    reinterpret_cast<uint4*>(sh.hkey)[i] =
+        make_uint4(kEmptyKey, kEmptyKey, kEmptyKey, kEmptyKey);
+  }
+  for (int i = tid; i < (1 << bits) / 2; i += kT) {
+    reinterpret_cast<uint4*>(sh.sum)[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  // 2. Decide and reply; each slot's consumption goes to its entry.
+  typename P::Slot sl[kIpt];
+  int32_t e[kIpt];
+  bool owner[kIpt];
+#pragma unroll
+  for (int j = 0; j < kIpt; ++j) {
+    owner[j] = false;
+    if (j < steps) {
+      const bool valid = key[j] != kEmptyKey;
+      sl[j] = valid ? P::advance(old[j], now, prm) : typename P::Slot{};
+      FlushRow row{0.0f, 0.0f, 0};
+      if (r[j] < b) {
+        row = decide_row<P, kGrouped>(sl[j], valid, now, prm, in[j]);
+        out[r[j]] = row.granted;
+        out[b + r[j]] = row.remaining;
       }
-      out[i] = granted;
-      out[b + i] = remaining;
-      s_slot[i] = sl;
-      s_consumed[i] = consumed;
+      e[j] = add_to_set(sh.hkey, sh.sum, sh.buf + (tid & ~31), bits,
+                        key[j], row.used, owner[j]);
     }
   }
-  __syncthreads();  // every row has read the old state
-  for (int i = threadIdx.x; i < b; i += kThreads) {
-    const int32_t s = packed[i];
-    if (s < 0 || s >= n_slots) continue;
-    P::set(T, s, s_slot[i], now);
-  }
-  __syncthreads();  // every duplicate has set the same advanced state
-  for (int i = threadIdx.x; i < b; i += kThreads) {
-    const int32_t s = packed[i];
-    if (s < 0 || s >= n_slots) continue;
-    const float c = s_consumed[i];
-    if (c != 0.0f) P::add(T, s, c);
+  __syncthreads();  // every row has read its slot and added to its entry
+
+  // 3. Each slot's one writer: the row that claimed its entry.
+#pragma unroll
+  for (int j = 0; j < kIpt; ++j) {
+    if (owner[j]) {
+      P::commit(T, (int32_t)key[j], sl[j], now, (long long)sh.sum[e[j]]);
+    }
   }
 }
 
+// Bits of the wide flush's hash set: 2^bits >= 2B entries (load <= 1/2).
+__host__ __device__ inline int wide_bits(int32_t b) {
+  int bits = 6;
+  while ((1 << bits) < 2 * b) ++bits;
+  return bits;
+}
+
+// Bytes of scratch a flush of b rows needs: the wide flush's hash set (an
+// int64 sum and a key an entry), none at b <= kFlushBlockRows.
+inline int64_t flush_scratch_bytes(int32_t b) {
+  return b > kFlushBlockRows ? (int64_t)12 << wide_bits(b) : 0;
+}
+
+// B > kFlushBlockRows (no store path sends one): one block; every row
+// decides from the state as gathered and adds its consumption to its slot's
+// entry of a hash set in scratch (int64 atomics, whose sum does not depend
+// on their order), then after a barrier each entry gathers its slot again
+// (no row has written it) and commits it once.
 template <class P, bool kGrouped>
-int launch_flush(typename P::Table T, int32_t n_slots, const int32_t* packed,
-                 int32_t b, typename P::Params prm, float* out,
-                 cudaStream_t stream) {
-  if (b <= 0) return (int)cudaSuccess;
-  const size_t smem = flush_smem<P>(b);
-  cudaError_t err = cudaFuncSetAttribute(
-      flush_kernel<P, kGrouped>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  flush_kernel<P, kGrouped><<<1, kThreads, smem, stream>>>(T, n_slots, packed,
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flush_wide_kernel(typename P::Table T, int32_t n_slots,
+                      const int32_t* __restrict__ packed, int32_t b,
+                      typename P::Params prm, float* __restrict__ out,
+                      void* scratch) {
+  const int tid = threadIdx.x;
+  const int bits = wide_bits(b);
+  unsigned long long* sum = static_cast<unsigned long long*>(scratch);
+  uint32_t* hkey = reinterpret_cast<uint32_t*>(sum + (1 << bits));
+  const int32_t now = packed[2 * b];
+  __shared__ long long buf[kWideThreads];  // add_to_set's
+  for (int i = tid; i < (1 << bits); i += kWideThreads) {
+    sum[i] = 0;
+    hkey[i] = kEmptyKey;
+  }
+  __syncthreads();
+  for (int base = 0; base < b; base += kWideThreads * kWideRows) {
+    int32_t s[kWideRows];
+    FlushIn in[kWideRows];
+    typename P::Old old[kWideRows];
+#pragma unroll
+    for (int q = 0; q < kWideRows; ++q) {
+      const int i = base + q * kWideThreads + tid;
+      s[q] = i < b ? packed[i] : -1;
+      if (i < b) in[q] = load_row<kGrouped>(packed, b, i);
+      if (s[q] >= 0 && s[q] < n_slots) old[q] = P::gather(T, s[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kWideRows; ++q) {
+      const int i = base + q * kWideThreads + tid;
+      const bool valid = s[q] >= 0 && s[q] < n_slots;
+      const typename P::Slot sl =
+          valid ? P::advance(old[q], now, prm) : typename P::Slot{};
+      FlushRow row{0.0f, 0.0f, 0};
+      if (i < b) {
+        row = decide_row<P, kGrouped>(sl, valid, now, prm, in[q]);
+        out[i] = row.granted;
+        out[b + i] = row.remaining;
+      }
+      bool owner;
+      add_to_set(hkey, sum, buf + (tid & ~31), bits,
+                 valid ? (uint32_t)s[q] : kEmptyKey, row.used, owner);
+    }
+  }
+  __syncthreads();  // every row has read its slot and added to its entry
+  for (int i = tid; i < (1 << bits); i += kWideThreads) {
+    const uint32_t key = __ldcg(&hkey[i]);
+    if (key == kEmptyKey) continue;
+    const typename P::Slot sl =
+        P::advance(P::gather(T, (int32_t)key), now, prm);
+    P::commit(T, (int32_t)key, sl, now, (long long)__ldcg(&sum[i]));
+  }
+}
+
+template <class P, bool kGrouped, int kT, int kIpt>
+int launch_flush_block(typename P::Table T, int32_t n_slots,
+                       const int32_t* packed, int32_t b,
+                       typename P::Params prm, float* out,
+                       cudaStream_t stream) {
+  constexpr size_t kSmem = sizeof(FlushShared<kT, kIpt>);
+  static_assert(kSmem <= 232448, "fits in an SM's shared memory");
+  if constexpr (kSmem > 48 * 1024) {
+    // Past 48 KB of dynamic shared memory the kernel must be allowed it:
+    // once per device, not per launch.
+    static bool allowed[64] = {false};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 64 || !allowed[dev]) {
+      err = cudaFuncSetAttribute(flush_block_kernel<P, kGrouped, kT, kIpt>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kSmem);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < 64) allowed[dev] = true;
+    }
+  }
+  flush_block_kernel<P, kGrouped, kT, kIpt>
+      <<<drl_batch::launch_blocks(b), kT, kSmem, stream>>>(T, n_slots, packed,
                                                            b, prm, out);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Segmented int64 sums (the semaphore and two-level admission kernels' block
-// scans use them too): a running sum, and the position of the segment's
-// head (-1 on a non-head input element).
-
-struct Seg {
-  long long sum;
-  int head;
-};
-
-struct SegSum {
-  __device__ __forceinline__ Seg operator()(const Seg& a,
-                                            const Seg& b) const {
-    return b.head >= 0 ? b : Seg{a.sum + b.sum, a.head};
+// scratch holds flush_scratch_bytes(b) bytes.
+template <class P, bool kGrouped>
+int launch_flush(typename P::Table T, int32_t n_slots, const int32_t* packed,
+                 int32_t b, typename P::Params prm, float* out, void* scratch,
+                 cudaStream_t stream) {
+  if (b <= 0) return (int)cudaSuccess;
+  if (b <= drl_batch::kWarpRows) {
+    flush_warp_kernel<P, kGrouped><<<1, 32, 0, stream>>>(T, n_slots, packed,
+                                                         b, prm, out);
+    return (int)cudaGetLastError();
   }
-};
+  if (b > kFlushBlockRows) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    flush_wide_kernel<P, kGrouped><<<1, kWideThreads, 0, stream>>>(
+        T, n_slots, packed, b, prm, out, scratch);
+    return (int)cudaGetLastError();
+  }
+  if (b <= 64)
+    return launch_flush_block<P, kGrouped, 64, 1>(T, n_slots, packed, b, prm,
+                                                  out, stream);
+  if (b <= 256)
+    return launch_flush_block<P, kGrouped, 256, 1>(T, n_slots, packed, b,
+                                                   prm, out, stream);
+  if (b <= 1024)
+    return launch_flush_block<P, kGrouped, 1024, 1>(T, n_slots, packed, b,
+                                                    prm, out, stream);
+  if (b <= 2048)
+    return launch_flush_block<P, kGrouped, 1024, 2>(T, n_slots, packed, b,
+                                                    prm, out, stream);
+  return launch_flush_block<P, kGrouped, 1024, 4>(T, n_slots, packed, b, prm,
+                                                  out, stream);
+}
 
-// The same, also counting the heads up to each element: a block walk's
-// prefixes and batch groups from one scan.
+// ---------------------------------------------------------------------------
+// Segmented int64 sums (batch.cuh's Seg), also counting the heads up to each
+// element: a block walk's prefixes and batch groups from one scan.
 struct SegHeads {
   long long sum;
   int head;
@@ -297,10 +560,8 @@ static_assert(kMaxRows / (kWarpSeg + 1) < kLongBins, "long slots fit");
 static_assert(kLongBins <= kScanThreads, "one bin a thread");
 // Rows (or hash entries) a thread loads at once in the row phases.
 constexpr int kRowsInFlight = 4;
-constexpr uint32_t kEmptyKey = 0xFFFFFFFFu;  // no slot is >= 2^31
 constexpr unsigned long long kEmptyEntry =
     (unsigned long long)kEmptyKey << 32;
-constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 // The scan's scratch, carved from one allocation the wrapper makes (the
 // kernel allocates nothing). R = K * B rows; the hash set has H = 2^hbits

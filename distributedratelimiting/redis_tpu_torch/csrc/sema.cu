@@ -169,7 +169,8 @@ __global__ void __launch_bounds__(kT, 1)
 #pragma unroll
     for (int j = 0; j < kIpt; ++j) key[j] = slot_key(tid * kIpt + j);
   }
-  const int m = drl_batch::own_rows<kT, kIpt>(sh, b, all, key);
+  const int m =
+      drl_batch::own_rows<kT, kIpt>(sh.temp.count, sh.sub, b, all, key);
   if (m == 0) return;  // none of the batch's slots is this block's
   auto row_at = [&](int i) { return i >= m ? b : all ? i : (int)sh.sub[i]; };
 

@@ -45,7 +45,8 @@
 // moves 5 B of operand and 8 B (or 1/8 B, verdict-only) of result, plus the
 // 26 B per distinct slot; ~30 operations a row, far below the card's
 // operations-per-byte balance. As for buckets, the flushes are latency-bound
-// (one block, the dependent chain gather -> decide -> write); the scan
+// (the dependent chain gather -> decide -> write, in a warp up to 32 rows and
+// in blocks sized by the rows above); the scan
 // decides the chunk slot-major on every SM, gathers and commits each distinct
 // slot once per chunk, and sorts only the rows of slots that repeat
 // (decide.cuh).
@@ -129,17 +130,6 @@ struct WindowPolicy {
                                               float c) {
     return __fadd_rn(__fadd_rn(estimate(s, now, p), pre), c) <= p.limit;
   }
-  static __device__ __forceinline__ void set(const Table& t, int32_t i,
-                                             const Slot& s, int32_t) {
-    t.prev[i] = s.prev;
-    t.curr[i] = s.curr;
-    t.idx[i] = s.idx;
-    t.exists[i] = 1;
-  }
-  static __device__ __forceinline__ void add(const Table& t, int32_t i,
-                                             float consumed) {
-    atomicAdd(&t.curr[i], consumed);
-  }
   static __device__ __forceinline__ void commit(const Table& t, int32_t i,
                                                 const Slot& s, int32_t now,
                                                 long long consumed) {
@@ -183,15 +173,17 @@ __global__ void sweep_windows_kernel(const int32_t* idx, uint8_t* exists,
 
 using drl_window::WindowPolicy;
 
+// scratch holds drl_flush_scratch_bytes(b) bytes (none up to 4096 rows).
 extern "C" int drl_window_packed(float* prev, float* curr, int32_t* idx,
                                  uint8_t* exists, int32_t n_slots,
                                  const int32_t* packed, int32_t b, float limit,
                                  int32_t window, int32_t interpolate,
-                                 float* out, cudaStream_t stream) {
+                                 float* out, void* scratch,
+                                 cudaStream_t stream) {
   if (window < 1) return (int)cudaErrorInvalidValue;
   return drl::launch_flush<WindowPolicy, false>(
       {prev, curr, idx, exists}, n_slots, packed, b,
-      {limit, window, interpolate}, out, stream);
+      {limit, window, interpolate}, out, scratch, stream);
 }
 
 extern "C" int drl_window_grouped(float* prev, float* curr, int32_t* idx,
@@ -199,11 +191,15 @@ extern "C" int drl_window_grouped(float* prev, float* curr, int32_t* idx,
                                   const int32_t* packed, int32_t b,
                                   float limit, int32_t window,
                                   int32_t interpolate, float* out,
-                                  cudaStream_t stream) {
+                                  void* scratch, cudaStream_t stream) {
   if (window < 1) return (int)cudaErrorInvalidValue;
   return drl::launch_flush<WindowPolicy, true>(
       {prev, curr, idx, exists}, n_slots, packed, b,
-      {limit, window, interpolate}, out, stream);
+      {limit, window, interpolate}, out, scratch, stream);
+}
+
+extern "C" int64_t drl_flush_scratch_bytes(int32_t b) {
+  return drl::flush_scratch_bytes(b);
 }
 
 // Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], in a 4-byte

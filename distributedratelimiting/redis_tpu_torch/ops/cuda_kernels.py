@@ -46,10 +46,11 @@ The wrappers, their sources, and what each replaces in the JAX package:
   ``kernels.debit_batch_packed``.
 
 The bucket and window decision kernels share their machinery
-(``csrc/decide.cuh``), whose segmented scan the semaphore and two-level
-admission kernels reuse through ``csrc/batch.cuh`` (their same-slot
-prefixes: a warp for up to 32 rows, else a block that sorts only the rows
-of slots that repeat); the bucket refill is ``csrc/bucket.cuh``'s. Each
+(``csrc/decide.cuh``) on ``csrc/batch.cuh``, which the semaphore and
+two-level admission kernels use too: a warp for up to 32 rows, else blocks
+sized by the rows, one writer a slot (the admission kernels sort only the
+rows of slots that repeat, for their in-kernel prefixes); the bucket refill
+is ``csrc/bucket.cuh``'s. Each
 source's library is named by the hash of the source and of every header
 beside it. Every wrapper call on the card is one kernel launch; a bulk-lane
 chunk's K batches (decided slot-major), a counter sync's and a debit's
@@ -105,9 +106,11 @@ SCAN_MAX_BATCH = 4096
 #: Rows of one bulk-lane launch, K × B: the store's largest chunk (32 ×
 #: 4096); the scan kernel sizes its long-slot multisplit by it.
 SCAN_MAX_ROWS = 32 * 4096
-#: Rows of one flush the flush kernels hold (8 B of shared memory a row).
+#: Rows of one flush (a store sends at most 4096: a warp up to 32 rows,
+#: blocks sized by the rows up to 4096, and above that one block over a hash
+#: set in scratch the wrapper allocates).
 FLUSH_MAX_BATCH = 29_056
-#: Rows of one window flush (16 B of shared memory a row).
+#: Rows of one window flush.
 WINDOW_FLUSH_MAX_BATCH = 14_528
 #: Rows of one semaphore batch or two-level admission batch: one warp up to
 #: 32 rows, else blocks sized by the rows (at most 1024 threads × 4 rows;
@@ -139,9 +142,10 @@ _SIGNATURES = {
     },
     "acquire": {
         "drl_acquire_packed": (_P, _P, _P, _I32, _P, _I32, _F32, _F32, _P,
-                               _P),
+                               _P, _P),
         "drl_acquire_grouped": (_P, _P, _P, _I32, _P, _I32, _F32, _F32, _P,
-                                _P),
+                                _P, _P),
+        "drl_flush_scratch_bytes": (_I32,),
         "drl_acquire_scan": (_P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
                              _F32, _F32, _P, _P, _P, _P),
         "drl_scan_scratch_bytes": (_I32, _I32),
@@ -152,9 +156,10 @@ _SIGNATURES = {
     },
     "window": {
         "drl_window_packed": (_P, _P, _P, _P, _I32, _P, _I32, _F32, _I32,
-                              _I32, _P, _P),
+                              _I32, _P, _P, _P),
         "drl_window_grouped": (_P, _P, _P, _P, _I32, _P, _I32, _F32, _I32,
-                               _I32, _P, _P),
+                               _I32, _P, _P, _P),
+        "drl_flush_scratch_bytes": (_I32,),
         "drl_window_scan": (_P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
                             _F32, _I32, _I32, _P, _P, _P, _P),
         "drl_scan_scratch_bytes": (_I32, _I32),
@@ -351,6 +356,14 @@ def sweep_expired(state: K.BucketState, now: int, capacity: float,
     return mask, counts
 
 
+def _flush_scratch(lib: ctypes.CDLL, dev, b: int):
+    """Scratch of a flush above 4096 rows (its hash set), else ``None``:
+    the kernel allocates nothing itself."""
+    nbytes = lib.drl_flush_scratch_bytes(b)
+    return (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+            if nbytes else None)
+
+
 def _flush(name: str, state: K.BucketState, packed: torch.Tensor,
            rows: int, capacity: float,
            fill_rate_per_tick: float) -> torch.Tensor:
@@ -362,11 +375,16 @@ def _flush(name: str, state: K.BucketState, packed: torch.Tensor,
     if b > FLUSH_MAX_BATCH:
         raise ValueError(f"{name}: a flush holds at most {FLUSH_MAX_BATCH} "
                          f"rows, got {b}")
-    out = torch.empty((2, b), dtype=torch.float32, device=state.tokens.device)
-    rc = getattr(_lib("acquire"), f"drl_{name}")(
+    lib = _lib("acquire")
+    dev = state.tokens.device
+    out = torch.empty((2, b), dtype=torch.float32, device=dev)
+    scratch = _flush_scratch(lib, dev, b)
+    rc = getattr(lib, f"drl_{name}")(
         state.tokens.data_ptr(), state.last_ts.data_ptr(),
         state.exists.data_ptr(), n, packed.data_ptr(), b, float(capacity),
-        float(fill_rate_per_tick), out.data_ptr(), _stream(state.tokens))
+        float(fill_rate_per_tick), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        _stream(state.tokens))
     _raise_on(rc, name)
     launches[name] += 1
     return out
@@ -548,11 +566,14 @@ def _window_flush(name: str, state: K.WindowState, packed: torch.Tensor,
     if b > WINDOW_FLUSH_MAX_BATCH:
         raise ValueError(f"{name}: a window flush holds at most "
                          f"{WINDOW_FLUSH_MAX_BATCH} rows, got {b}")
-    out = torch.empty((2, b), dtype=torch.float32,
-                      device=state.prev_count.device)
-    rc = getattr(_lib("window"), f"drl_{name}")(
+    lib = _lib("window")
+    dev = state.prev_count.device
+    out = torch.empty((2, b), dtype=torch.float32, device=dev)
+    scratch = _flush_scratch(lib, dev, b)
+    rc = getattr(lib, f"drl_{name}")(
         *_window_ptrs(state), n, packed.data_ptr(), b, float(limit),
         _window_ticks(window_ticks), int(bool(interpolate)), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         _stream(state.prev_count))
     _raise_on(rc, name)
     launches[name] += 1

@@ -712,7 +712,7 @@ class _PackedLaunchMixin:
         with self.store.profiler.span("acquire_batch_grouped",
                                       len(groups)), self.store._lock:
             slots = self.resolve_slots([g[0] for g in groups])
-            b = self.store.max_batch
+            b = _pad_size(len(groups), floor=8)
             now = self.store.now_ticks_checked()
             packed = np.full((5, b), -1, np.int32)
             packed[1] = 0
@@ -742,8 +742,10 @@ class _PackedLaunchMixin:
         with self.store.profiler.span(self._FLUSH_SPAN, len(reqs)), \
                 self.store._lock:
             slots = self.resolve_slots([r.key for r in reqs])
-            # Fixed pad width: every flush has the same shape.
-            b = self.store.max_batch
+            # Padded to its rows (a power of two >= 8): the kernel's launch
+            # is sized by them; the JAX store pads to max_batch for one
+            # compiled program.
+            b = _pad_size(len(reqs), floor=8)
             now = self.store.now_ticks_checked()
             packed = _build_packed(reqs, slots, b, now)
             out = self._launch_packed(self._upload(packed))
@@ -867,7 +869,8 @@ class _PackedLaunchMixin:
         outs: list[tuple] = []
         for pos in range(0, len(gslots), b):
             m = min(b, len(gslots) - pos)
-            packed = np.full((5, b), -1, np.int32)
+            # Full chunks of max_batch groups; the last padded to its rows.
+            packed = np.full((5, min(b, _pad_size(m, floor=8))), -1, np.int32)
             packed[1] = 0
             packed[3] = 0  # one group per slot per call ⇒ prefix 0
             packed[4] = 0
@@ -877,7 +880,7 @@ class _PackedLaunchMixin:
             packed[4, :m] = np.minimum(lengths[pos:pos + m], 2**31 - 1)
             out = self._launch_grouped(self._upload(packed))
             outs.append((out, m))
-            self.store.metrics.record_launch(b, m)
+            self.store.metrics.record_launch(packed.shape[1], m)
         self.store.metrics.rows_coalesced += n - len(gslots)
 
         def gather() -> BulkAcquireResult:

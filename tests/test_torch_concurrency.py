@@ -311,6 +311,15 @@ async def _parked(lim, n):
         await asyncio.sleep(0.001)
 
 
+async def _finished(tasks, n):
+    """Wait until n of ``tasks`` are done: under load a rejected acquire can
+    still be finishing after the queue has filled."""
+    deadline = time.monotonic() + LIMIT_S
+    while sum(t.done() for t in tasks) < n:
+        assert time.monotonic() < deadline, "tasks never finished"
+        await asyncio.sleep(0.001)
+
+
 async def limiter_cap5(kit, store):
     """permit_limit 5 and 32 concurrent acquires: exactly 5 leases, the
     queued waiters drained by releases and failed by dispose; a second
@@ -321,6 +330,7 @@ async def limiter_cap5(kit, store):
     log = []
     tasks = [asyncio.ensure_future(lim.acquire_async(1)) for _ in range(32)]
     await _parked(lim, 8)
+    await _finished(tasks, 24)  # 5 leases and 19 rejected past the queue
     done = [t for t in tasks if t.done()]
     leases = [t.result() for t in done]
     log.append(sorted(bool(x) for x in leases))

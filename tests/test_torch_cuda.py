@@ -7,17 +7,19 @@ it runs on a machine without JAX; there, skip the repository's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances as in ``test_torch_kernels.py``: grants, bits, masks, ``exists``
-and ``last_ts`` equal; remaining and tokens within atol 1e-4 (the flush
-kernels add duplicates' consumption with atomics in no fixed order; the scan
-kernel subtracts each slot's int64 sum once, where the plain version
-subtracts row by row). Counter syncs: replies, period, ``last_ts`` and
+and ``last_ts`` equal; in the scans remaining and tokens within atol 1e-4
+(the scan kernel subtracts each slot's int64 sum once, where the plain
+version subtracts row by row). The flush kernels (bucket and window, plain
+and grouped) equal their plain versions bit for bit, results and every
+state field: whole counts, and each slot's one writer applies the int64 sum
+of its consumption once, which equals the plain version's row-by-row float
+arithmetic where every partial result is exact. Counter syncs: replies,
+period, ``last_ts`` and
 ``exists`` equal; value equal where slots are distinct and, for a slot that
 takes r > 1 adds, within r spacings of its float32 value (atomic adds in no
 fixed order). Window kernels (sliding and fixed): grants, remaining, masks,
 ``prev_count``, ``window_idx`` and ``exists`` equal bit for bit;
-``curr_count`` too, since the counts are whole numbers (the flushes add
-duplicates' consumption with atomics in no fixed order, which for whole
-numbers below 2^24 gives the same sum).
+``curr_count`` too, since the counts are whole numbers below 2^24.
 
 Semaphores: ``sema_packed`` replies and every state field (``active``,
 ``last_ts``, ``exists``) equal bit for bit (whole counts, int64 prefixes,
@@ -98,18 +100,38 @@ def _assert_same_state(card, plain):
                                   plain.exists.cpu().numpy())
 
 
+def _assert_exact(card, plain, card_out, plain_out):
+    """A flush: results and every state field equal bit for bit."""
+    np.testing.assert_array_equal(card_out.cpu().numpy(),
+                                  plain_out.cpu().numpy())
+    for name in plain._fields:
+        np.testing.assert_array_equal(getattr(card, name).cpu().numpy(),
+                                      getattr(plain, name).cpu().numpy(),
+                                      err_msg=name)
+
+
+#: The flushes' shapes: the warp path (B <= 32), every block form
+#: launch_flush picks (64 x 1 at 33-64 rows, 256 x 1 at 65-256, both one
+#: block; 1024 x 1 at 257-1024, 1024 x 2 at 1025-2048 and 1024 x 4 at
+#: 2049-4096, spread over blocks), and past 4096 rows the one-block path
+#: over a hash set in scratch, up to the kernels' cap ("cap").
+FLUSH_SIZES = [B, 5000, 1, 8, 12, 32, 33, 64, 128, 256, 257, 2048, 4096,
+               "cap"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [B, 5000])  # one round of rows, and two
+@pytest.mark.parametrize("b", FLUSH_SIZES)
 @pytest.mark.parametrize("rows,wrapper", [(4, ck.acquire_packed),
                                           (5, ck.acquire_grouped)])
 def test_acquire_kernels_match_plain(cuda_device, rows, wrapper, b):
+    b = ck.FLUSH_MAX_BATCH if b == "cap" else b
     plain, card = _state(1, cuda_device)
     op = _operand(2, rows, b)
     before = dict(ck.launches)
     want = wrapper(plain, op, CAP, 0.013)
     got = wrapper(card, op.to(cuda_device), CAP, 0.013)
     torch.cuda.synchronize()
-    _assert_same(card, plain, got, want)
+    _assert_exact(card, plain, got, want)
     name = "acquire_packed" if rows == 4 else "acquire_grouped"
     assert ck.launches[name] == before[name] + 1  # one launch per call
     assert sum(ck.launches.values()) == sum(before.values()) + 1
@@ -412,11 +434,12 @@ def _assert_windows_same(card, plain):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("interpolate", [True, False])
-@pytest.mark.parametrize("b", [B, 5000])
+@pytest.mark.parametrize("b", FLUSH_SIZES)
 @pytest.mark.parametrize("rows,wrapper", [(4, ck.window_packed),
                                           (5, ck.window_grouped)])
 def test_window_flush_kernels_match_plain(cuda_device, rows, wrapper, b,
                                           interpolate):
+    b = ck.WINDOW_FLUSH_MAX_BATCH if b == "cap" else b
     plain, card = _windows(7, cuda_device)
     op = _operand(8, rows, b, now=50_377)
     before = dict(ck.launches)
@@ -429,7 +452,40 @@ def test_window_flush_kernels_match_plain(cuda_device, rows, wrapper, b,
     name = "window_packed" if rows == 4 else "window_grouped"
     assert ck.launches[name] == before[name] + 1
     assert sum(ck.launches.values()) == sum(before.values()) + 1
-    assert 0 < float(want[0].sum()) and float(want[1].max()) > 0
+    if b >= 32:
+        assert 0 < float(want[0].sum()) and float(want[1].max()) > 0
+
+
+def _one_valid_row(rows, b=8, now=50_000):
+    """The server's scalar flush: one request, padded to 8 rows."""
+    op = np.zeros((rows, b), np.int32)
+    op[0] = -1
+    op[0, 0], op[1, 0], op[2] = 77, 2, now
+    if rows == 5:
+        op[4, 0] = 3
+    return torch.from_numpy(op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["acquire_packed", "acquire_grouped",
+                                     "window_packed", "window_grouped"])
+def test_flush_one_valid_row_matches_plain(cuda_device, wrapper):
+    fn = getattr(ck, wrapper)
+    rows = 5 if wrapper.endswith("grouped") else 4
+    op = _one_valid_row(rows)
+    if wrapper.startswith("acquire"):
+        plain, card = _state(3, cuda_device)
+        args = (CAP, 0.013)
+    else:
+        plain, card = _windows(4, cuda_device)
+        args = (W_LIMIT, W_TICKS)
+    for t in (plain, card):  # the row's slot starts empty
+        t.exists[77] = False
+    want = fn(plain, op, *args)
+    got = fn(card, op.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    _assert_exact(card, plain, got, want)
+    assert float(want[1, 0]) > 0 and float(want[1, 1:].abs().sum()) == 0
 
 
 @pytest.mark.cuda

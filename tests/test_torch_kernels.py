@@ -567,3 +567,40 @@ def test_rebase_counter_epoch_matches():
     for name in ("value", "period", "last_ts", "exists"):
         np.testing.assert_array_equal(getattr(tstate, name).numpy(),
                                       np.asarray(getattr(jstate, name)))
+
+
+def _c_entry_points():
+    """Every ``extern "C"`` function of the kernel sources: ``{library:
+    {name: [ctypes type per argument]}}``, read from the C prototypes."""
+    import ctypes
+    import re
+
+    kinds = {"int64_t": ctypes.c_int64, "int32_t": ctypes.c_int32,
+             "int": ctypes.c_int32, "float": ctypes.c_float}
+    out = {}
+    for lib, src in ck._SOURCES.items():
+        text = (ck.CSRC / src).read_text()
+        for name, args in re.findall(
+                r'extern "C" \w+ (drl_\w+)\(([^)]*)\)', text):
+            types = []
+            for arg in args.split(","):
+                decl = arg.strip().rsplit(" ", 1)[0]
+                types.append(ctypes.c_void_p
+                             if "*" in arg or "cudaStream_t" in decl
+                             else kinds[decl.replace("const ", "")])
+            out.setdefault(lib, {})[name] = types
+    return out
+
+
+def test_bindings_match_the_c_prototypes():
+    """Each library's ``ctypes`` signatures name every entry point of its
+    source, with the prototype's argument count and kinds (a pointer or the
+    stream as ``c_void_p``, ``int32_t`` / ``int64_t`` / ``float`` by
+    width): a mismatch would pass a cut pointer or a shifted argument on
+    the card, where no compiler sees both sides."""
+    protos = _c_entry_points()
+    assert set(protos) == set(ck._SIGNATURES)
+    for lib, fns in ck._SIGNATURES.items():
+        assert set(fns) == set(protos[lib]), lib
+        for fn, argtypes in fns.items():
+            assert list(argtypes) == protos[lib][fn], fn
