@@ -18,9 +18,15 @@ Phases (any failure raises, and the script exits non-zero):
    (counts up to 1000), and on a chunk of distinct slots within each batch
    (the main path's bulk); the counter kernels ``sync_counters`` at B = 2^20
    (Zipf(1.1) slots with duplicates, 2% padding, half the counters live,
-   ticks on both sides of the stored ones; distinct slots) and B = 8, and
+   ticks on both sides of the stored ones; distinct slots), B = 8, 32, 33,
+   4,096 and 2^17 Zipf rows, slot 0 both a real slot and the padding rows'
+   read (B = 4,096 and 2^17), whole-number sums at B = 4,096, 2^17 and
+   2^20, each shape launched twice on clones of the table (bit-equal), and
    ``sweep_counters`` over 2^20 counters (each sync shape's times ride on
-   the kernels line); the window kernels on a window
+   the kernels line; ``--sync-bench`` times the sync and the debit at the
+   store's shapes, warm and with the L2 flushed, on the package beside the
+   script: ``python3 chip_smoke.py --sync-bench``); the window kernels on a
+   window
    table of 2^24 slots: ``window_packed`` and ``window_grouped`` at B =
    4096 with duplicates, ``window_scan_packed`` on one chunk of K = 32 x
    4096 (distinct and Zipf slots, the fused and the i32 lane, sliding and
@@ -46,15 +52,18 @@ Phases (any failure raises, and the script exits non-zero):
    over 2^20 slots and ``sweep_semas`` over 2^20 (held slots survive);
    ``acquire_hierarchical`` at B = 4096 on the LLM workload's rows, with its
    own budgets and with both budgets binding; ``debit_packed`` at B = 2^20
-   distinct slots of a 2^24 table and at B = 4096 with repeats, fractional
-   and negative amounts. Grants, bits, masks, ``exists``,
-   ``last_ts``, counter replies and periods must be equal; every flush
-   result and state field equal (one writer a slot applies its int64
-   consumption once); elsewhere remaining and tokens within atol 1e-4,
-   counter values equal for distinct slots and,
-   where a slot takes r > 1 adds, within r spacings of its float32 value
-   (atomic adds in no fixed order); every window result and state field
-   equal (whole-number counts). Time each
+   distinct slots of a 2^24 table, at B = 4096 with repeats, fractional and
+   negative amounts, with whole-number repeats at 4,096 and 2^17, and one
+   valid row at B = 8, each launched twice on clones (bit-equal). Grants,
+   bits, masks, ``exists``, ``last_ts``, counter replies and periods and
+   debit replies must be equal; every flush result and state field equal
+   (one writer a slot applies its int64 consumption once); elsewhere
+   remaining and tokens within atol 1e-4; counter values and debit tokens
+   equal for distinct slots and whole numbers and, where a slot takes r > 1
+   fractional adds, within r spacings of its float32 value (the plain
+   version's adds on the card are atomic; the kernels round each slot's
+   exact sum once); every window result and state field equal
+   (whole-number counts). Time each
    (median of CUDA-event timings, and device time from ``torch.profiler``)
    beside the plain version and the bound.
 3. The main path at full size: ``PartitionedRateLimiter`` over
@@ -139,8 +148,8 @@ Phases (any failure raises, and the script exits non-zero):
    and read after it; > 0 on the path the kernel serves, and every kernel
    that a wire op reaches > 0 on the server path — all but
    ``debit_packed``, which no wire op reaches until tier-0 and the
-   reservations are ported) and their sum (``launches``), the flushes' and
-   counter syncs' launches on those paths by operand width
+   reservations are ported) and their sum (``launches``), the flushes',
+   counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
 10. Last line: ``{"ok": true, "device": {...}}``.
@@ -339,11 +348,12 @@ def _check_close(what, got, want) -> float:
 
 def _check_repeated_adds(what, slots, got, want) -> tuple[float, float]:
     """Counter values after a sync whose slots repeat, each slot against its
-    own limit. A sync sets every touched slot to its decayed value, then
-    slot s takes r_s adds in an order the atomics choose. Decayed values and
+    own limit. The plain version on the card sets every touched slot to its
+    decayed value, then adds slot s's r_s counts in an order its atomics
+    choose; the kernel rounds their exact sum once. Decayed values and
     counts are >= 0 here, so every partial sum lies within the final one and
-    each add rounds by at most half a spacing of max(|got_s|, |want_s|): two
-    orders differ by at most r_s such spacings. A slot with one add or none
+    each rounding is at most half a spacing of max(|got_s|, |want_s|): the
+    two differ by at most r_s such spacings. A slot with one add or none
     must be equal. ``slots`` indexes ``got`` and ``want`` (out-of-range rows
     dropped). Returns the largest error and the limit of that slot."""
     n = len(got)
@@ -1251,23 +1261,236 @@ def flush_bench() -> int:
     return 0
 
 
-def _sync_packed(rng, b, n, now, distinct):
+#: The counter sync's and the debit's kernels in a profile: ``csrc/
+#: tally.cuh``'s warp, block and grid kernels by their policy, the fill of
+#: the grid path's int32 claim words (``torch.zeros``: a memset or a
+#: ``FillFunctor<int>``), and a parent's ``sync_kernel`` / ``debit_kernel``.
+SYNC_KERNELS = ["SyncPolicy", "sync_kernel", "FillFunctor<int>", "Memset"]
+DEBIT_KERNELS = ["DebitPolicy", "debit_kernel", "FillFunctor<int>", "Memset"]
+
+
+def _launched(fn) -> list:
+    """The device activities of one call of ``fn``, by name, each with its
+    device µs (a profile of one call after a warm one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key[:80], round(getattr(e, "self_device_time_total", 0.0), 2))
+            for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0.0) > 0]
+
+
+#: The shapes of :func:`tally_shapes`: the sync's and the debit's launches
+#: as the store sends them (the parent's store padded a debit to >= 64); a
+#: fleet of 33 to 4,096 keys sends 64 to 4,096 rows.
+SYNC_SHAPES = ("sync: 1 valid row (B=8)", "sync: 12 Zipf rows (B=16)",
+               "sync: 64 Zipf rows (B=64)", "sync: 256 Zipf rows (B=256)",
+               "sync: 1024 Zipf rows (B=1024)",
+               "sync: 4096 Zipf rows (B=4096)",
+               "sync: 4096 distinct (B=4096)",
+               "sync: 2^17 Zipf(1.1) rows", "sync: 2^18 Zipf(1.1) rows",
+               "sync: 2^20 Zipf(1.1) rows",
+               "sync: 2^20 distinct", "sync: 2^20 distinct, L2 flushed",
+               "debit: 1 valid row (B=8)",
+               "debit: 1 valid row (B=64, as the parent's store pads)",
+               "debit: 64 rows, repeats (B=64)",
+               "debit: 1024 rows, repeats (B=1024)",
+               "debit: 4096 rows, repeats (B=4096)",
+               "debit: 4096 distinct (B=4096)",
+               "debit: 2^20 distinct of 2^24",
+               "debit: 2^20 distinct of 2^24, L2 flushed")
+
+
+def _device_ms_flushed(fn, kernel_names, flush, reps=20):
+    """:func:`_device_ms` with the L2 written over (``flush``, 64 MB) before
+    every call; the flush's own kernel is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages()
+             if any(k in e.key for k in kernel_names))
+    return us / 1e3 / reps if us > 0 else None
+
+
+def tally_shapes(torch, K, ck, dev) -> list:
+    """``sync_counters`` (2^20 counters) and ``debit_packed`` (2^24 slots)
+    at each shape of :data:`SYNC_SHAPES`, on the package beside the script:
+    the profiler's device ms (warm, or with the L2 flushed before every
+    launch), the bound, and the max abs error of replies and values or
+    tokens against the plain version on the card (r rounded adds a repeated
+    slot: the plain version's are atomic)."""
+    from distributedratelimiting.redis_tpu_torch.ops import bucket_math as bm
+
+    rng = np.random.default_rng(SEED + 10)
+    now, rate = 3_000_000, DECAY_PER_S / 1024
+    cap, frate = 100.0, 10 / 1024
+    nc, nb = COUNTER_SLOTS, N_SLOTS
+    counters = (torch.tensor(rng.uniform(0, 1000, nc).astype(np.float32),
+                             device=dev),
+                torch.tensor(rng.uniform(0, 5000, nc).astype(np.float32),
+                             device=dev),
+                torch.tensor(rng.integers(now - 3000, now + 300, nc).astype(
+                    np.int32), device=dev),
+                torch.tensor(rng.random(nc) < 0.5, device=dev))
+    buckets = (torch.tensor(rng.uniform(0, cap, nb).astype(np.float32),
+                            device=dev),
+               torch.tensor(rng.integers(now - 3000, now, nb).astype(
+                   np.int32), device=dev),
+               torch.tensor(rng.random(nb) < 0.6, device=dev))
+    flush = torch.empty(2**26, dtype=torch.uint8, device=dev)
+    rows = []
+    for shape in SYNC_SHAPES:
+        kind, rest = shape.split(": ")
+        b = (int(re.search(r"B=(\d+)", rest).group(1)) if "B=" in rest
+             else 2 ** int(re.search(r"2\^(\d+)", rest).group(1)))
+        if kind == "sync":
+            n = nc
+            distinct = "distinct" in rest
+            valid = (1 if rest.startswith("1 valid")
+                     else 12 if rest.startswith("12 ") else None)
+            packed = _sync_packed(rng, b, n, now, distinct, valid=valid)
+            cls, tab, names = K.CounterState, counters, SYNC_KERNELS
+            plain = functools.partial(K.sync_batch_packed,
+                                      decay_rate_per_tick=rate)
+            call = functools.partial(ck.sync_counters,
+                                     decay_rate_per_tick=rate)
+            field, row_b, slot_b = "value", 20, 26
+        else:
+            n = nb
+            if "distinct" in rest:
+                slots = rng.choice(n, b, replace=False).astype(np.int32)
+                amounts = rng.uniform(0, 120, b).astype(np.float32)
+            else:
+                slots = ((rng.zipf(1.2, b) - 1) % n).astype(np.int32)
+                amounts = rng.uniform(-20, 60, b).astype(np.float32)
+            if rest.startswith("1 valid"):
+                slots[1:] = -1
+            t = torch.from_numpy(slots)
+            pre = bm.duplicate_prefix_float(t, torch.from_numpy(amounts),
+                                            t >= 0)
+            packed = np.stack([slots, amounts.view(np.int32),
+                               np.full(b, now, np.int32),
+                               pre.numpy().view(np.int32)])
+            cls, tab, names = K.BucketState, buckets, DEBIT_KERNELS
+            plain = functools.partial(K.debit_batch_packed, capacity=cap,
+                                      fill_rate_per_tick=frate)
+            call = functools.partial(ck.debit_packed, capacity=cap,
+                                     fill_rate_per_tick=frate)
+            field, row_b, slot_b = "tokens", 24, 18
+        op = torch.from_numpy(packed).to(dev)
+        ok = (packed[0] >= 0) & (packed[0] < n)
+        d = len(np.unique(packed[0][ok]))
+        bound_ms, bound_by = _bound_ms(row_b * b + slot_b * d, 12 * b)
+        ks = cls(*(x.clone() for x in tab))
+        ps = cls(*(x.clone() for x in tab))
+        got = call(ks, op)
+        _, want = plain(ps, op)
+        torch.cuda.synchronize()
+        err = max(_max_err(got, want),
+                  _max_err(getattr(ks, field), getattr(ps, field)))
+        del ps
+        fn = functools.partial(call, ks, op)
+        dev_ms = (_device_ms_flushed(fn, names, flush)
+                  if "flushed" in rest else _device_ms(fn, names))
+        rows.append({"shape": shape, "b": b, "distinct": d,
+                     "device_ms": dev_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err})
+        print(f"{shape} (B={b}, {d} distinct slots): device {dev_ms} ms, "
+              f"bound {bound_ms:.7f} ms ({bound_by}), max abs err {err!r}")
+        del ks
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sync_bench() -> int:
+    """``python3 chip_smoke.py --sync-bench``: only :func:`tally_shapes`, on
+    the package beside this file (copy the script into another checkout to
+    time that checkout's kernels). Prints the card, one JSON line of the
+    shapes, and the device line of the default run last."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+    from distributedratelimiting.redis_tpu_torch.ops import kernels as K
+
+    card = _card_line()
+    print(card)
+    ck.build(["counter", "admission"])
+    rows = tally_shapes(torch, K, ck, torch.device("cuda"))
+    # What one slot-major launch runs on the card, the claim words' fill
+    # included (the names above must cover all of it).
+    dev = torch.device("cuda")
+    n = COUNTER_SLOTS
+    st = K.CounterState(torch.zeros(n, device=dev), torch.zeros(n, device=dev),
+                        torch.zeros(n, dtype=torch.int32, device=dev),
+                        torch.zeros(n, dtype=torch.bool, device=dev))
+    op = torch.from_numpy(_sync_packed(np.random.default_rng(SEED), n, n, 1,
+                                       True)).to(dev)
+    print("one 2^20-row sync launches:",
+          _launched(lambda: ck.sync_counters(st, op, 0.001)))
+    print(json.dumps({"card": card, "sync_shapes": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _sync_packed(rng, b, n, now, distinct, slot0=False, valid=None):
     """A counter-sync operand ``i32[3, B]``: Zipf(1.1) slots (duplicates) or
-    distinct ones, 2% padding, float counts bitcast, the tick."""
+    distinct ones, 2% padding (``slot0``: 30% padding and out-of-range rows
+    and slot 0 a real slot of ~5% of the rows; ``valid``: only the first
+    ``valid`` rows), float counts bitcast, the tick."""
     if distinct:
         slots = rng.permutation(n)[:b].astype(np.int32)
     else:
         slots = ((rng.zipf(ZIPF_S, b) - 1) % n).astype(np.int32)
     slots[rng.random(b) < 0.02] = -1
+    if slot0:
+        slots[rng.random(b) < 0.2] = -1
+        slots[rng.random(b) < 0.1] = n + 5
+        slots[rng.random(b) < 0.05] = 0
+        slots[0] = 0
+    if valid is not None:
+        slots[valid:] = -1
     counts = rng.uniform(0, 50, b).astype(np.float32)
     counts[slots < 0] = 0.0
     return np.stack([slots, counts.view(np.int32), np.full(b, now, np.int32)])
 
 
+def _check_twice(what, call, states) -> None:
+    """Run ``call`` on each of two clones of one table: replies and every
+    state field equal bit for bit (one writer a slot, no float atomics)."""
+    import torch
+
+    outs = [call(st) for st in states]
+    torch.cuda.synchronize()
+    _check_equal(f"{what} twice: replies", outs[0], outs[1])
+    for field in states[0]._fields:
+        _check_equal(f"{what} twice: {field}", getattr(states[0], field),
+                     getattr(states[1], field))
+
+
 def counter_cases(torch, K, ck, dev, rng) -> dict:
     """``sync_counters`` and ``sweep_counters`` against their plain versions
     on a counter table of 2^20 slots: half live, stored ticks on both sides
-    of ``now`` (a clock behind some of them)."""
+    of ``now`` (a clock behind some of them). Every sync shape also runs
+    twice on clones of the table, which must agree bit for bit."""
     n, now, rate = COUNTER_SLOTS, 3_000_000, DECAY_PER_S / 1024
     table = (torch.tensor(rng.uniform(0, 1000, n).astype(np.float32),
                           device=dev),
@@ -1279,10 +1502,16 @@ def counter_cases(torch, K, ck, dev, rng) -> dict:
     res = {}
     sync = {}
     shapes = {}
-    for label, b, distinct in (("Zipf(1.1)", n, False),
-                               ("distinct", n, True), ("B = 8", 8, False)):
-        packed = _sync_packed(rng, b, n, now, distinct)
-        valid = packed[0] >= 0
+    for label, b, distinct, slot0 in (
+            ("Zipf(1.1)", n, False, False), ("distinct", n, True, False),
+            ("B = 8", 8, False, False), ("B = 32", 32, False, False),
+            ("B = 33", 33, False, False), ("B = 4096", 4096, False, False),
+            ("2^17 Zipf(1.1)", 2**17, False, False),
+            ("2^22 + 1 Zipf(1.1)", 2**22 + 1, False, False),
+            ("slot 0 and padding, B = 4096", 4096, False, True),
+            ("slot 0 and padding, B = 2^17", 2**17, False, True)):
+        packed = _sync_packed(rng, b, n, now, distinct, slot0)
+        valid = (packed[0] >= 0) & (packed[0] < n)
         uniq, reps = np.unique(packed[0][valid], return_counts=True)
         op = torch.from_numpy(packed).to(dev)
         ks = K.CounterState(*(x.clone() for x in table))
@@ -1290,25 +1519,30 @@ def counter_cases(torch, K, ck, dev, rng) -> dict:
         got = ck.sync_counters(ks, op, rate)
         _, want = K.sync_batch_packed(ps, op, rate)
         torch.cuda.synchronize()
+        # Padding rows' replies read slot 0 as it was before the launch.
         _check_equal(f"sync {label} replies", got, want)
         _check_equal(f"sync {label} period", ks.period, ps.period)
         _check_equal(f"sync {label} last_ts", ks.last_ts, ps.last_ts)
         _check_equal(f"sync {label} exists", ks.exists, ps.exists)
         if (reps > 1).any():
-            # Duplicates' adds land in atomic order (the plain version's
-            # index_add_ on the card is atomic too).
+            # The plain version's index_add_ on the card adds duplicates in
+            # atomic order; the kernel rounds each slot's sum once.
             err, tol = _check_repeated_adds(
                 f"sync {label} value", packed[0], ks.value.cpu().numpy(),
                 ps.value.cpu().numpy())
         else:
             _check_equal(f"sync {label} value", ks.value, ps.value)
             err, tol = 0.0, 0.0
+        _check_twice(f"sync {label}", lambda st: ck.sync_counters(st, op,
+                                                                  rate),
+                     [K.CounterState(*(x.clone() for x in table))
+                      for _ in range(2)])
         ms = _median_ms(lambda: ck.sync_counters(ks, op, rate),
                         inner=5 if b > 8 else 20)
         plain_ms = _median_ms(lambda: K.sync_batch_packed(ps, op, rate),
                               reps=5, warmup=1)
         dev_ms = _device_ms(lambda: ck.sync_counters(ks, op, rate),
-                            ["sync_kernel"])
+                            SYNC_KERNELS)
         # Bytes: the operand and the reply (20 B a row), 13 B of state read
         # and 13 B written per distinct slot. ~12 operations a row.
         sync[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1321,8 +1555,8 @@ def counter_cases(torch, K, ck, dev, rng) -> dict:
         print(f"sync_counters ({label}) B={b} ({len(uniq)} distinct slots, "
               f"max repeat {reps.max()}): replies, period, last_ts, exists "
               f"equal to plain, value max abs err {err!r} (that slot's limit "
-              f"{tol!r}); {ms:.4f} ms (plain {plain_ms:.4f} ms, device time "
-              f"{dev_ms} ms)")
+              f"{tol!r}), two launches bit-equal; {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, device time {dev_ms} ms)")
     # The fleet sync of the main path sends distinct keys.
     res["sync_counters"] = dict(sync["distinct"], max_abs_err=max(
         r["max_abs_err"] for r in sync.values()), shapes=shapes)
@@ -1363,12 +1597,13 @@ def counter_cases(torch, K, ck, dev, rng) -> dict:
 
 
 def exact_sums_case(torch, K, ck, dev, rng, table, now, rate) -> None:
-    """``sync_counters`` at B = 2^20 with Zipf(1.1) duplicates on sums that
-    float32 holds exactly: whole-number values and counts (1 to 8), stored
-    ticks on a 1024-tick grid around ``now`` so the decay subtracts a whole
-    number (``rate`` · 1024 is one). Every order of the atomic adds then
-    gives the same value, so every slot, the hottest included, must equal
-    the plain version: an add lost to a set that landed after it shows."""
+    """``sync_counters`` at B = 4096, 2^17 and 2^20 with Zipf(1.1)
+    duplicates on sums that float32 holds exactly: whole-number values and
+    counts (1 to 8), stored ticks on a 1024-tick grid around ``now`` so the
+    decay subtracts a whole number (``rate`` · 1024 is one). No order of the
+    adds rounds, so the kernel's one rounding of each slot's sum and the
+    plain version's atomic adds give the same value on every slot, the
+    hottest included: a count lost or added twice shows."""
     n = table[0].numel()
     if float(np.float32(rate) * 1024) != float(DECAY_PER_S):
         raise AssertionError("the decay per 1024 ticks is not whole")
@@ -1376,27 +1611,29 @@ def exact_sums_case(torch, K, ck, dev, rng, table, now, rate) -> None:
     itable = (torch.tensor(rng.integers(0, 1000, n).astype(np.float32),
                            device=dev),
               table[1], torch.tensor(grid, device=dev), table[3])
-    packed = _sync_packed(rng, n, n, now, distinct=False)
-    counts = rng.integers(1, 9, n).astype(np.float32)
-    counts[packed[0] < 0] = 0.0
-    packed[1] = counts.view(np.int32)
-    reps = np.bincount(packed[0][packed[0] >= 0], minlength=n)
-    # Largest partial sum: a value below 1000 plus every count of the slot.
-    if 1000 + 8 * int(reps.max()) >= 2**24:
-        raise AssertionError("a slot's sum passes 2^24: not exact")
-    op = torch.from_numpy(packed).to(dev)
-    ks = K.CounterState(*(x.clone() for x in itable))
-    ps = K.CounterState(*(x.clone() for x in itable))
-    got = ck.sync_counters(ks, op, rate)
-    _, want = K.sync_batch_packed(ps, op, rate)
-    torch.cuda.synchronize()
-    _check_equal("sync exact sums replies", got, want)
-    for name in ("value", "period", "last_ts", "exists"):
-        _check_equal(f"sync exact sums {name}", getattr(ks, name),
-                     getattr(ps, name))
-    print(f"sync_counters (Zipf(1.1), exact sums) B={n} (max repeat "
-          f"{reps.max()}): replies and every slot's value, period, last_ts, "
-          f"exists equal to plain")
+    for b in (4096, 2**17, n):
+        packed = _sync_packed(rng, b, n, now, distinct=False)
+        counts = rng.integers(1, 9, b).astype(np.float32)
+        counts[packed[0] < 0] = 0.0
+        packed[1] = counts.view(np.int32)
+        reps = np.bincount(packed[0][packed[0] >= 0], minlength=n)
+        # Largest partial sum: a value below 1000 plus every count of the
+        # slot.
+        if 1000 + 8 * int(reps.max()) >= 2**24:
+            raise AssertionError("a slot's sum passes 2^24: not exact")
+        op = torch.from_numpy(packed).to(dev)
+        ks = K.CounterState(*(x.clone() for x in itable))
+        ps = K.CounterState(*(x.clone() for x in itable))
+        got = ck.sync_counters(ks, op, rate)
+        _, want = K.sync_batch_packed(ps, op, rate)
+        torch.cuda.synchronize()
+        _check_equal("sync exact sums replies", got, want)
+        for name in ("value", "period", "last_ts", "exists"):
+            _check_equal(f"sync exact sums {name}", getattr(ks, name),
+                         getattr(ps, name))
+        print(f"sync_counters (Zipf(1.1), exact sums) B={b} (max repeat "
+              f"{reps.max()}): replies and every slot's value, period, "
+              f"last_ts, exists equal to plain")
 
 
 def scan_case(torch, K, ck, dev, rng, table, now, cap, rate) -> dict:
@@ -2798,21 +3035,39 @@ def admission_cases(torch, K, ck, dev, rng) -> dict:
     torch.cuda.empty_cache()
 
     # -- debit_packed: 2^20 distinct slots of a 2^24 table; 4096 with
-    #    repeats, fractional and negative amounts -----------------------------
+    #    repeats, fractional and negative amounts; whole numbers with repeats
+    #    at 4096 and 2^17 (tokens exact); one valid row ----------------------
     n, cap, rate = N_SLOTS, 100.0, 10 / 1024
     table = (torch.tensor(rng.uniform(0, cap, n).astype(np.float32),
                           device=dev),
              torch.tensor(rng.integers(now - 3000, now, n).astype(np.int32),
                           device=dev),
              torch.tensor(rng.random(n) < 0.6, device=dev))
-    for label, b in (("distinct", min(2**20, n // 2)), ("repeats", BATCH)):
+    # Whole balances, ticks on a 1024-tick grid (the refill adds a whole 10
+    # a grid step): every partial sum of a whole-number debit is exact.
+    whole = (torch.tensor(rng.integers(0, 100, n).astype(np.float32),
+                          device=dev),
+             torch.tensor((now - 1024 * rng.integers(0, 4, n)).astype(
+                 np.int32), device=dev),
+             table[2])
+    shapes = {}
+    for label, b, tab in (("distinct", min(2**20, n // 2), table),
+                          ("repeats", BATCH, table),
+                          ("whole repeats", BATCH, whole),
+                          ("whole Zipf", 2**17, whole),
+                          ("one valid row", 8, table)):
         if label == "distinct":
             slots = rng.choice(n, b, replace=False).astype(np.int32)
             amounts = rng.uniform(0, 120, b).astype(np.float32)
+        elif label.startswith("whole"):
+            slots = ((rng.zipf(1.2, b) - 1) % n).astype(np.int32)
+            amounts = rng.integers(-6, 15, b).astype(np.float32)
         else:
             slots = ((rng.zipf(1.2, b) - 1) % n).astype(np.int32)
             amounts = rng.uniform(-20, 60, b).astype(np.float32)
         slots[rng.permutation(b)[:b // 64]] = -1
+        if label == "one valid row":
+            slots[1:] = -1
         t_slots = torch.from_numpy(slots)
         prefix = bm.duplicate_prefix_float(t_slots, torch.from_numpy(amounts),
                                            t_slots >= 0)
@@ -2820,8 +3075,8 @@ def admission_cases(torch, K, ck, dev, rng) -> dict:
                            np.full(b, now, np.int32),
                            prefix.numpy().view(np.int32)])
         op = torch.from_numpy(packed).to(dev)
-        ks = K.BucketState(*(x.clone() for x in table))
-        ps = K.BucketState(*(x.clone() for x in table))
+        ks = K.BucketState(*(x.clone() for x in tab))
+        ps = K.BucketState(*(x.clone() for x in tab))
         got = ck.debit_packed(ks, op, cap, rate)
         _, want = K.debit_batch_packed(ps, op, cap, rate)
         torch.cuda.synchronize()
@@ -2829,15 +3084,16 @@ def admission_cases(torch, K, ck, dev, rng) -> dict:
         _check_equal(f"debit_packed ({label}) last_ts", ks.last_ts,
                      ps.last_ts)
         _check_equal(f"debit_packed ({label}) exists", ks.exists, ps.exists)
-        if label == "distinct":
-            _check_equal("debit_packed (distinct) tokens", ks.tokens,
+        ok = slots >= 0
+        reps = np.bincount(slots[ok], minlength=n)
+        if label != "repeats":  # distinct slots, or whole numbers
+            _check_equal(f"debit_packed ({label}) tokens", ks.tokens,
                          ps.tokens)
             derr = 0.0
         else:
-            # r atomic adds on a slot round by at most r spacings of its
-            # largest partial sum (its value plus its amounts' magnitudes).
-            ok = slots >= 0
-            reps = np.bincount(slots[ok], minlength=n)
+            # The plain version's r atomic adds on a slot round by at most r
+            # spacings of its largest partial sum (its value plus its
+            # amounts' magnitudes); the kernel rounds the exact sum once.
             g, wt = ks.tokens.cpu().numpy(), ps.tokens.cpu().numpy()
             mag = np.abs(wt) + np.bincount(slots[ok], np.abs(amounts[ok]),
                                            minlength=n)
@@ -2847,26 +3103,37 @@ def admission_cases(torch, K, ck, dev, rng) -> dict:
             if not (np.abs(g.astype(np.float64) - wt) <= tol).all():
                 raise AssertionError("debit_packed (repeats): a slot's "
                                      "tokens past its rounding limit")
+        _check_twice(f"debit_packed ({label})",
+                     lambda st: ck.debit_packed(st, op, cap, rate),
+                     [K.BucketState(*(x.clone() for x in tab))
+                      for _ in range(2)])
         short = float(want[1].sum())
-        print(f"debit_packed B={b} ({label}): replies, last_ts and exists "
-              f"equal to plain, tokens max abs err {derr!r}; shortfall "
-              f"{short:.1f} tokens")
+        ms = _median_ms(lambda: ck.debit_packed(ks, op, cap, rate),
+                        inner=5 if b > BATCH else 20)
+        dev_ms = _device_ms(lambda: ck.debit_packed(ks, op, cap, rate),
+                            DEBIT_KERNELS)
+        d = int((reps > 0).sum())
+        # Bytes: the 16 B operand row and 8 B reply, 18 B per distinct
+        # slot. ~12 operations a row.
+        bound_ms, bound_by = _bound_ms(24 * b + 18 * d, 12 * b)
+        shapes[f"{label} (B={b})"] = dict(
+            ms=ms, device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=derr)
+        print(f"debit_packed B={b} ({label}, {d} distinct slots, max repeat "
+              f"{reps.max()}): replies, last_ts and exists equal to plain, "
+              f"tokens max abs err {derr!r}, two launches bit-equal; "
+              f"shortfall {short:.1f} tokens; {ms:.4f} ms (device time "
+              f"{dev_ms} ms)")
         if label == "distinct":
-            ms = _median_ms(lambda: ck.debit_packed(ks, op, cap, rate),
-                            inner=5)
             plain_ms = _median_ms(lambda: K.debit_batch_packed(
                 ps, op, cap, rate), reps=5, warmup=1)
-            dev_ms = _device_ms(lambda: ck.debit_packed(ks, op, cap, rate),
-                                ["debit_kernel"])
-            # Bytes: the 16 B operand row and 8 B reply, 18 B per distinct
-            # slot. ~12 operations a row.
             res["debit_packed"] = dict(
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bytes=24 * b + 18 * b, ops=12 * b, device_ms=dev_ms)
-            print(f"debit_packed B={b}: {ms:.4f} ms (plain {plain_ms:.4f} "
-                  f"ms, device time {dev_ms} ms)")
         else:
-            res["debit_packed"]["max_abs_err"] = derr
+            res["debit_packed"]["max_abs_err"] = max(
+                res["debit_packed"]["max_abs_err"], derr)
+    res["debit_packed"]["shapes"] = shapes
     return res
 
 
@@ -3125,7 +3392,7 @@ async def admission_path(torch, ck, pkg, card: str) -> dict:
 
 #: Wrappers whose launches :func:`_record_sizes` counts by operand width.
 SIZED_KERNELS = ("acquire_packed", "acquire_grouped", "window_packed",
-                 "window_grouped", "sync_counters")
+                 "window_grouped", "sync_counters", "debit_packed")
 
 
 def _record_sizes(ck, sizes: dict) -> None:
@@ -3301,6 +3568,8 @@ if __name__ == "__main__":
         sys.exit(admission_bench())
     if sys.argv[1:2] == ["--flush-bench"]:
         sys.exit(flush_bench())
+    if sys.argv[1:2] == ["--sync-bench"]:
+        sys.exit(sync_bench())
     if sys.argv[1:2] == ["--window-traffic"]:
         sys.exit(window_traffic())
     sys.exit(main())

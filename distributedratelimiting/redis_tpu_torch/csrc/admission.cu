@@ -6,7 +6,7 @@
 //     acquire_hierarchical_packed -> hier_warp_kernel (B <= 32) and
 //     hier_block_kernel;
 //   distributedratelimiting/redis_tpu/ops/kernels.py, debit_batch_packed
-//     -> debit_kernel.
+//     -> tally.cuh's warp, block and grid kernels with DebitPolicy.
 //
 // Both work on the token bucket's SoA table (tokens f32, last_ts i32, exists
 // u8: 9 B a slot) and advance a slot with bucket.cuh's refill_or_init, the
@@ -60,30 +60,36 @@
 // of either table); at B = 4096 well under a microsecond, so a call costs
 // its launch, its barriers and its scattered gathers and writes.
 //
-// debit_kernel, per row i < B of packed i32[4, B] (row 0 slots, row 1 the
+// debit_packed, per row i < B of packed i32[4, B] (row 0 slots, row 1 the
 // float32 amounts bitcast, row 2 the tick, row 3 the float32 same-slot
 // prefix of earlier amounts bitcast, computed on the host):
 //   ref = refill_or_init(slot); avail = max(ref - pre, 0)
 //   applied = min(amount, avail)   (a negative amount credits)
-//   out[0][i] = avail - applied; out[1][i] = amount - applied   (valid rows)
-// and per valid row, in this order across the whole grid: 1. tokens = ref,
-// last_ts = now, exists = 1; 2. tokens += -applied. The debit is one launch
-// for all n rows (1M at full size), so a slot's rows may lie in different
-// blocks: as counter.cu's sync, the kernel is one cooperative launch with
-// grid.sync() between reading the state, setting it, and adding, and the
-// grid sized so that every block is resident. With distinct slots every
-// result equals the plain version bit for bit; where a slot repeats, the
-// atomics add in no fixed order. Bound: memory; a row moves its 16 B operand
-// and 8 B reply, and each distinct slot reads and writes its 9 B.
+//   out[0][i] = avail - applied; out[1][i] = amount - applied   (valid rows;
+//   padding rows 0, 0)
+// and each slot of the valid rows, once: tokens = ref - the sum of its rows'
+// applied amounts, last_ts = now, exists = 1 (the plain version sets every
+// duplicate to ref, then subtracts row by row). Design (tally.cuh, with
+// DebitPolicy below): a warp up to 32 rows, blocks sized by the rows up to
+// 4096, every SM slot-major above (the store's 1M-key debit of distinct
+// keys: one grid barrier). Each slot has one writer, which stores ref less
+// its applied amounts rounded once (in lane order in the warp path): tokens
+// are deterministic, equal to the plain version bit for bit wherever every
+// partial sum is exact in float32 (whole amounts and balances below 2^24),
+// and replies, last_ts and exists equal it always. Bound: memory; a row
+// moves its 16 B operand and 8 B reply, and each distinct slot reads and
+// writes its 9 B. What is reached at 2^20 distinct slots of a 2^24 table
+// (144 MB, past the L2) is set by the state's scattered sectors, read and
+// written back, not the 18 B a slot of the bound: the launch walks the
+// claimed slots in slot order, so that neighbours share sectors, reads a
+// missing slot's flag alone (it refills to cap), and stores exists only
+// where it was clear.
 // No state pointer is const __restrict__ or read through __ldg: the kernels
 // write what they read.
 
-#include <cooperative_groups.h>
-
 #include "batch.cuh"
 #include "bucket.cuh"
-
-namespace cg = cooperative_groups;
+#include "tally.cuh"
 
 namespace {
 
@@ -403,77 +409,78 @@ int launch_hier(const Table& C, const Table& P, const int32_t* packed,
   return (int)cudaGetLastError();
 }
 
-constexpr int kDebitThreads = 256;
+// The debit's rule for tally.cuh: base the refilled balance, x the row's
+// applied amount negated. Padding rows read nothing and reply 0.
+struct DebitPolicy {
+  struct Table {
+    float* tokens;
+    int32_t* last_ts;
+    uint8_t* exists;
+    int64_t n;
+    float cap;
+    float rate;
+  };
+  struct In {
+    float tokens, amount, pre;
+    int32_t last_ts;
+    uint8_t exists;
+  };
+  struct Row {
+    float base, aux, x;
+    bool existed;
+  };
+  static constexpr bool kPadReadsSlot0 = false;
+  static constexpr int64_t kSlotBytes = 9;  // its state's bytes
 
-__global__ void debit_kernel(float* tokens, int32_t* last_ts,
-                             uint8_t* exists, int64_t n,
-                             const int32_t* packed, int32_t b, float cap,
-                             float rate, float* out) {
-  cg::grid_group grid = cg::this_grid();
-  const int32_t now = packed[2 * (int64_t)b];  // row 2, column 0
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-
-  // Phase 1: read the state, stage the refilled balance in out[0].
-  for (int64_t i = first; i < b; i += stride) {
-    const int32_t s = packed[i];
-    if (s >= 0 && s < n) {
-      out[i] = refill_or_init(tokens[s], last_ts[s], exists[s], now, cap,
-                              rate);
+  static __device__ __forceinline__ In load(const Table& t,
+                                            const int32_t* packed, int32_t b,
+                                            int64_t i, int64_t g,
+                                            bool reads) {
+    In in{0.0f, 0.0f, 0.0f, 0, 0};
+    if (i >= 0) {
+      in.amount = __int_as_float(packed[b + i]);
+      in.pre = __int_as_float(packed[3 * (int64_t)b + i]);
     }
-  }
-  grid.sync();
-
-  // Phase 2: every valid row sets its slot (duplicates write equal values).
-  for (int64_t i = first; i < b; i += stride) {
-    const int32_t s = packed[i];
-    if (s >= 0 && s < n) {
-      tokens[s] = out[i];
-      last_ts[s] = now;
-      exists[s] = 1;
+    if (reads) {  // a missing slot refills to cap: its tokens are not read
+      in.exists = t.exists[g];
+      if (in.exists) {
+        in.tokens = t.tokens[g];
+        in.last_ts = t.last_ts[g];
+      }
     }
+    return in;
   }
-  grid.sync();
-
-  // Phase 3: subtract what applied, and reply.
-  for (int64_t i = first; i < b; i += stride) {
-    const int32_t s = packed[i];
-    if (s < 0 || s >= n) {
+  static __device__ __forceinline__ Row advance(const Table& t, const In& in,
+                                                int32_t now) {
+    return Row{refill_or_init(in.tokens, in.last_ts, in.exists, now, t.cap,
+                              t.rate),
+               0.0f, 0.0f, in.exists != 0};
+  }
+  static __device__ __forceinline__ Row decide(const Table& t, const In& in,
+                                               int32_t b, int64_t i,
+                                               bool valid, int32_t now,
+                                               float* out) {
+    if (!valid) {
       out[i] = 0.0f;
       out[b + i] = 0.0f;
-      continue;
+      return Row{0.0f, 0.0f, 0.0f, false};
     }
-    const float amount = __int_as_float(packed[b + i]);
-    const float pre = __int_as_float(packed[3 * (int64_t)b + i]);
-    const float avail = fmaxf(__fsub_rn(out[i], pre), 0.0f);
-    const float applied = fminf(amount, avail);
+    const Row r = advance(t, in, now);
+    const float ref = r.base;
+    const float avail = fmaxf(__fsub_rn(ref, in.pre), 0.0f);
+    const float applied = fminf(in.amount, avail);
     out[i] = __fsub_rn(avail, applied);
-    out[b + i] = __fsub_rn(amount, applied);
-    if (applied != 0.0f) atomicAdd(&tokens[s], -applied);
+    out[b + i] = __fsub_rn(in.amount, applied);
+    return Row{ref, 0.0f, -applied, r.existed};
   }
-}
-
-// Resident blocks of debit_kernel on the current device (a cooperative grid
-// may hold no more), cached per device.
-int debit_grid_limit(int* limit) {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 64 && cached[dev] > 0) {
-    *limit = cached[dev];
-    return 0;
+  static __device__ __forceinline__ void commit(const Table& t, int32_t s,
+                                                float value, float,
+                                                int32_t now, bool existed) {
+    t.tokens[s] = value;
+    t.last_ts[s] = now;
+    if (!existed) t.exists[s] = 1;
   }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, debit_kernel,
-                                                      kDebitThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  *limit = sms * per_sm;
-  if (dev < 64) cached[dev] = *limit;
-  return 0;
-}
+};
 
 }  // namespace
 
@@ -502,23 +509,23 @@ extern "C" int drl_acquire_hierarchical(
   return (int)cudaErrorInvalidValue;
 }
 
-// packed i32[4, B] (any B); out f32[2, B].
+// packed i32[4, B] (any int32 B); out f32[2, B]. Past 4096 rows: claim and
+// scratch as drl_sync_counters takes them.
 extern "C" int drl_debit_packed(float* tokens, int32_t* last_ts,
                                 uint8_t* exists, int64_t n,
                                 const int32_t* packed, int32_t b, float cap,
-                                float rate, float* out, cudaStream_t stream) {
-  if (b <= 0) return (int)cudaSuccess;
-  int limit = 0;
-  const int rc = debit_grid_limit(&limit);
-  if (rc != 0) return rc;
-  if (limit <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-  int64_t blocks = ((int64_t)b + kDebitThreads - 1) / kDebitThreads;
-  if (blocks > limit) blocks = limit;
-  void* args[] = {&tokens, &last_ts, &exists, &n, (void*)&packed,
-                  &b, &cap, &rate, &out};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)debit_kernel, dim3((unsigned)blocks), dim3(kDebitThreads),
-      args, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                                float rate, float* out, void* claim,
+                                void* scratch, cudaStream_t stream) {
+  const DebitPolicy::Table T{tokens, last_ts, exists, n, cap, rate};
+  return drl_tally::launch<DebitPolicy>(
+      T, packed, b, out, static_cast<uint32_t*>(claim), scratch,
+      stream);
+}
+
+extern "C" int64_t drl_tally_scratch_bytes(int64_t n, int32_t b) {
+  return drl_tally::scratch_bytes<DebitPolicy>(n, b);
+}
+
+extern "C" int64_t drl_tally_claim_words(int64_t n, int32_t b) {
+  return drl_tally::claim_words<DebitPolicy>(n, b);
 }

@@ -49,12 +49,14 @@ The bucket and window decision kernels share their machinery
 (``csrc/decide.cuh``) on ``csrc/batch.cuh``, which the semaphore and
 two-level admission kernels use too: a warp for up to 32 rows, else blocks
 sized by the rows, one writer a slot (the admission kernels sort only the
-rows of slots that repeat, for their in-kernel prefixes); the bucket refill
-is ``csrc/bucket.cuh``'s. Each
+rows of slots that repeat, for their in-kernel prefixes); the counter sync
+and the debit share ``csrc/tally.cuh`` (the same warp and blocks, every SM
+slot-major past 4096 rows, each slot's sum rounded once); the bucket
+refill is ``csrc/bucket.cuh``'s. Each
 source's library is named by the hash of the source and of every header
 beside it. Every wrapper call on the card is one kernel launch; a bulk-lane
-chunk's K batches (decided slot-major), a counter sync's and a debit's
-phases each run inside one cooperative launch.
+chunk's K batches (decided slot-major) run inside one cooperative launch,
+as do a counter sync's and a debit's passes past 4096 rows.
 """
 
 from __future__ import annotations
@@ -93,6 +95,7 @@ __all__ = [
     "window_scan_packed",
     "sweep_windows",
     "SEMA_MAX_BATCH",
+    "TALLY_MAX_BATCH",
     "sema_packed",
     "sweep_semas",
     "acquire_hierarchical",
@@ -116,6 +119,10 @@ WINDOW_FLUSH_MAX_BATCH = 14_528
 #: 32 rows, else blocks sized by the rows (at most 1024 threads × 4 rows;
 #: above 256 rows up to 64 of them).
 SEMA_MAX_BATCH = 4096
+#: Rows of one counter sync or debit: the C interface's int32 B (the exact
+#: sums of ``csrc/tally.cuh`` hold fewer than 2^31 rows; past 4096 rows its
+#: scratch takes about 50 B a row).
+TALLY_MAX_BATCH = 2**31 - 1
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -151,7 +158,10 @@ _SIGNATURES = {
         "drl_scan_scratch_bytes": (_I32, _I32),
     },
     "counter": {
-        "drl_sync_counters": (_P, _P, _P, _P, _I64, _P, _I32, _F32, _P, _P),
+        "drl_sync_counters": (_P, _P, _P, _P, _I64, _P, _I32, _F32, _P, _P,
+                              _P, _P),
+        "drl_tally_scratch_bytes": (_I64, _I32),
+        "drl_tally_claim_words": (_I64, _I32),
         "drl_sweep_counters": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
     },
     "window": {
@@ -173,7 +183,10 @@ _SIGNATURES = {
         "drl_acquire_hierarchical": (_P, _P, _P, _I32, _F32, _F32, _P, _P,
                                      _P, _I32, _F32, _F32, _P, _I32, _P,
                                      _P),
-        "drl_debit_packed": (_P, _P, _P, _I64, _P, _I32, _F32, _F32, _P, _P),
+        "drl_debit_packed": (_P, _P, _P, _I64, _P, _I32, _F32, _F32, _P, _P,
+                             _P, _P),
+        "drl_tally_scratch_bytes": (_I64, _I32),
+        "drl_tally_claim_words": (_I64, _I32),
     },
 }
 
@@ -487,24 +500,54 @@ def acquire_scan_packed(state: K.BucketState, operand: torch.Tensor,
     return out
 
 
+def _tally_args(lib, dev, b: int, n: int):
+    """The claim words and the scratch of a sync or debit launch of ``b``
+    rows on a table of ``n`` slots: none up to 4096 rows; past it int32
+    words from ``torch.zeros`` (a counter, then a word a slot or a hash
+    set's entries) and the scratch from ``torch.empty``."""
+    need = lib.drl_tally_claim_words(n, b)
+    if need == 0:
+        return None, None
+    words = torch.zeros((need,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((lib.drl_tally_scratch_bytes(n, b),),
+                          dtype=torch.uint8, device=dev)
+    return words, scratch
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_tally_size(name: str, b: int) -> None:
+    if b > TALLY_MAX_BATCH:
+        raise ValueError(f"{name}: a launch holds at most {TALLY_MAX_BATCH} "
+                         f"rows, got {b}")
+
+
 def sync_counters(state: K.CounterState, packed: torch.Tensor,
                   decay_rate_per_tick: float) -> torch.Tensor:
     """One decaying-counter sync against the counter table (updated in
     place): ``packed i32[3, B]`` as :func:`kernels.sync_batch_packed` takes
-    it (slots, float32 counts bitcast, tick). Returns ``out f32[2, B]``: the
-    global scores and the period EWMAs. On the card: one cooperative
-    launch."""
+    it (slots, float32 counts bitcast, tick), ``B <=``
+    :data:`TALLY_MAX_BATCH`. Returns ``out f32[2, B]``: the global scores
+    and the period EWMAs. On the card: one launch sized by B (a warp, blocks,
+    or past 4096 rows every SM in one cooperative launch)."""
     if _on_cpu(state):
         return K.sync_batch_packed(state, packed, decay_rate_per_tick)[1]
     n = _check_counters(state)
     b = packed.shape[-1]
     _check(packed, "packed", torch.int32, (3, b))
-    out = torch.empty((2, b), dtype=torch.float32, device=state.value.device)
-    rc = _lib("counter").drl_sync_counters(
+    _check_tally_size("sync_counters", b)
+    dev = state.value.device
+    lib = _lib("counter")
+    stream = _stream(state.value)
+    words, scratch = _tally_args(lib, dev, b, n)
+    out = torch.empty((2, b), dtype=torch.float32, device=dev)
+    rc = lib.drl_sync_counters(
         state.value.data_ptr(), state.period.data_ptr(),
         state.last_ts.data_ptr(), state.exists.data_ptr(), n,
         packed.data_ptr(), b, float(decay_rate_per_tick), out.data_ptr(),
-        _stream(state.value))
+        _ptr(words), _ptr(scratch), stream)
     _raise_on(rc, "sync_counters")
     launches["sync_counters"] += 1
     return out
@@ -779,19 +822,26 @@ def debit_packed(state: K.BucketState, packed: torch.Tensor,
     place), all rows in one call: ``packed i32[4, B]`` — slots, float32
     amounts bitcast, tick, and the host's float32 same-slot prefix bitcast
     (:func:`bucket_math.duplicate_prefix_float`); the plain version also
-    takes JAX's ``i32[3, B]``. Returns ``out f32[2, B]``: remaining and
-    shortfall. On the card: one cooperative launch."""
+    takes JAX's ``i32[3, B]``. ``B <=`` :data:`TALLY_MAX_BATCH`. Returns
+    ``out f32[2, B]``: remaining and shortfall. On the card: one launch
+    sized by B, as :func:`sync_counters`."""
     if _on_cpu(state):
         return K.debit_batch_packed(state, packed, capacity,
                                     fill_rate_per_tick)[1]
     n = _check_state(state)
     b = packed.shape[-1]
     _check(packed, "packed", torch.int32, (4, b))
-    out = torch.empty((2, b), dtype=torch.float32, device=state.tokens.device)
-    rc = _lib("admission").drl_debit_packed(
+    _check_tally_size("debit_packed", b)
+    dev = state.tokens.device
+    lib = _lib("admission")
+    stream = _stream(state.tokens)
+    words, scratch = _tally_args(lib, dev, b, n)
+    out = torch.empty((2, b), dtype=torch.float32, device=dev)
+    rc = lib.drl_debit_packed(
         state.tokens.data_ptr(), state.last_ts.data_ptr(),
         state.exists.data_ptr(), n, packed.data_ptr(), b, float(capacity),
-        float(fill_rate_per_tick), out.data_ptr(), _stream(state.tokens))
+        float(fill_rate_per_tick), out.data_ptr(), _ptr(words),
+        _ptr(scratch), stream)
     _raise_on(rc, "debit_packed")
     launches["debit_packed"] += 1
     return out

@@ -1002,7 +1002,8 @@ class _DeviceTable(_PackedLaunchMixin):
                       amounts: Sequence[float]) -> torch.Tensor:
         """One saturating-debit launch for all rows (tier-0
         reconciliation): ``i32[4, B]`` operand, ``B`` padded to a power of
-        two ≥ 64, the float32 amounts bitcast into row 1 (exact) and, where
+        two ≥ 8 (a small debit takes the kernel's one-warp path), the
+        float32 amounts bitcast into row 1 (exact) and, where
         a slot repeats, the float32 same-slot prefix of earlier amounts
         bitcast into row 3 (:func:`bm.duplicate_prefix_float`, one add at a
         time in request order). Returns ``f32[2, B]`` (post-debit balance,
@@ -1010,7 +1011,7 @@ class _DeviceTable(_PackedLaunchMixin):
         n = len(keys)
         with self.store.profiler.span("debit_batch", n), self.store._lock:
             slots = self.resolve_slots(list(keys))
-            b = _pad_size(n, floor=64)
+            b = _pad_size(n, floor=8)
             now = self.store.now_ticks_checked()
             amounts_np = np.asarray(amounts, np.float32)
             packed = np.full((4, b), -1, np.int32)

@@ -15,9 +15,11 @@ state field: whole counts, and each slot's one writer applies the int64 sum
 of its consumption once, which equals the plain version's row-by-row float
 arithmetic where every partial result is exact. Counter syncs: replies,
 period, ``last_ts`` and
-``exists`` equal; value equal where slots are distinct and, for a slot that
-takes r > 1 adds, within r spacings of its float32 value (atomic adds in no
-fixed order). Window kernels (sliding and fixed): grants, remaining, masks,
+``exists`` equal; value equal where slots are distinct, at B <= 32 (the
+warp adds a slot's counts in the plain version's order) and on whole
+numbers; elsewhere a slot that takes r > 1 adds lies within r spacings of
+its float32 value (the kernel rounds each slot's exact sum once, the plain
+version each add). Window kernels (sliding and fixed): grants, remaining, masks,
 ``prev_count``, ``window_idx`` and ``exists`` equal bit for bit;
 ``curr_count`` too, since the counts are whole numbers below 2^24.
 
@@ -27,11 +29,12 @@ one writer per slot); ``sweep_semas`` masks, tile counts and ``exists``
 equal. Two-level admission: replies and every state field of both tables
 equal bit for bit (whole costs below 2^24: each slot's one writer subtracts
 its int64 consumption once, which equals the plain version's row-by-row
-subtraction). Debit: with distinct slots every reply and state field equal
-bit for bit; with repeated slots (fractional and negative amounts, the
+subtraction). Debit: with distinct slots, or whole numbers, every reply and state field
+equal bit for bit; with repeated slots (fractional and negative amounts, the
 host's float prefix) replies, ``last_ts`` and ``exists`` equal, and a
 slot's tokens within r float32 spacings of its largest partial sum for r
-atomic adds (a slot with one add equal).
+rounded adds (a slot with one add equal). The sync and the debit are
+deterministic: two launches on clones of a table give equal bits.
 """
 
 import asyncio
@@ -329,7 +332,7 @@ def _assert_counters_same(card, plain, packed, exact):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("distinct", [True, False])
-@pytest.mark.parametrize("b", [8, 4096, 2**20])
+@pytest.mark.parametrize("b", [8, 32, 33, 256, 4096, 4097, 2**17, 2**20])
 def test_sync_kernel_matches_plain(cuda_device, b, distinct):
     n = max(2 * b, 64)
     plain, card = _counters(b, n, cuda_device)
@@ -343,16 +346,17 @@ def test_sync_kernel_matches_plain(cuda_device, b, distinct):
     # Replies are per row (decayed + own count): bit-exact even with
     # duplicates, padding and out-of-range rows.
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
-    _assert_counters_same(card, plain, packed, exact=distinct)
+    # A warp (B <= 32) adds a slot's counts in the plain version's order.
+    _assert_counters_same(card, plain, packed, exact=distinct or b <= 32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [4096, 2**20])
+@pytest.mark.parametrize("b", [33, 4096, 2**17, 2**20])
 def test_sync_kernel_exact_sums_with_duplicates(cuda_device, b):
     """Whole-number values and counts, stored ticks on a 1024-tick grid (the
-    decay subtracts a whole number): float32 holds every partial sum, so any
-    order of the atomic adds gives the plain value on every slot, the
-    hottest included. A duplicate's add lost to a late set shows here."""
+    decay subtracts a whole number): float32 holds every partial sum, so the
+    kernel's one rounding of each slot's sum gives the plain value on every
+    slot, the hottest included. A count lost or added twice shows here."""
     n, now = max(2 * b, 64), 50_000
     rng = np.random.default_rng(b)
     arrays = (rng.integers(0, 1000, n).astype(np.float32),
@@ -369,6 +373,186 @@ def test_sync_kernel_exact_sums_with_duplicates(cuda_device, b):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     _assert_counters_same(card, plain, packed, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [32, 4096, 2**17])
+def test_sync_slot_zero_and_padding_match_plain(cuda_device, b):
+    """Slot 0 is a real slot of the batch and the slot every padding and
+    out-of-range row reads for its reply: those replies are slot 0's state
+    before the launch, bit for bit, in the warp, the spread blocks and the
+    slot-major path."""
+    n = 2 * b
+    plain, card = _counters(b + 1, n, cuda_device)
+    packed = _sync_operand(b + 1, b, n, distinct=False)
+    rng = np.random.default_rng(b)
+    packed[0][rng.random(b) < 0.3] = -1
+    packed[0][rng.random(b) < 0.1] = n + 7
+    packed[0][rng.random(b) < 0.05] = 0
+    packed[0][0] = 0
+    op = torch.from_numpy(packed)
+    got = ck.sync_counters(card, op.to(cuda_device), 3 / 1024)
+    want = ck.sync_counters(plain, op, 3 / 1024)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_counters_same(card, plain, packed, exact=b <= 32)
+
+
+def _debit_case(b, n, whole, seed, distinct=False):
+    """``(state arrays, packed i32[4, B])``: Zipf(1.3) slots (``distinct``:
+    distinct ones), 2% padding; whole numbers (balances, a refill of 13 a
+    1024-tick step, amounts) or fractional and negative amounts."""
+    rng = np.random.default_rng(seed)
+    now = 50_000
+    if whole:
+        arrays = (rng.integers(0, 50, n).astype(np.float32),
+                  (now - 1024 * rng.integers(0, 3, n)).astype(np.int32),
+                  rng.random(n) < 0.6)
+        amounts = rng.integers(-6, 15, b).astype(np.float32)
+    else:
+        arrays = (rng.uniform(0, CAP, n).astype(np.float32),
+                  rng.integers(now - 3000, now + 50, n).astype(np.int32),
+                  rng.random(n) < 0.6)
+        amounts = rng.uniform(-4, 8, b).astype(np.float32)
+    if distinct:
+        slots = rng.choice(n, b, replace=False).astype(np.int32)
+    else:
+        slots = np.minimum(rng.zipf(1.3, b) - 1, n - 1).astype(np.int32)
+    slots[rng.random(b) < 0.02] = -1
+    t = torch.from_numpy(slots)
+    prefix = bm.duplicate_prefix_float(t, torch.from_numpy(amounts), t >= 0)
+    return arrays, np.stack([slots, amounts.view(np.int32),
+                             np.full(b, now, np.int32),
+                             prefix.numpy().view(np.int32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(33, 66), (4096, 8192), (2**17, 2**18),
+                                 (2**20, 2**24)])
+def test_debit_whole_number_duplicates_exact_on_card(cuda_device, b, n):
+    """Whole balances, a whole refill (13 tokens a 1024-tick step) and whole
+    amounts, slots repeated: every partial sum is exact in float32, so each
+    slot's tokens equal the plain version's bit for bit, debits and credits
+    alike. The last case's table is larger than the L2: the slot-major
+    launch walks its words in slot order."""
+    arrays, packed = _debit_case(b, n, True, b)
+    plain, card = [K.BucketState(*(torch.tensor(a, device=d)
+                                   for a in arrays))
+                   for d in ("cpu", cuda_device)]
+    op = torch.from_numpy(packed)
+    want = ck.debit_packed(plain, op, 60.0, 13 / 1024)
+    got = ck.debit_packed(card, op.to(cuda_device), 60.0, 13 / 1024)
+    torch.cuda.synchronize()
+    assert np.bincount(packed[0][packed[0] >= 0]).max() > 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_tables_equal(card, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sync", "debit"])
+def test_tally_rows_pass_on_a_large_table_matches_plain(cuda_device, kind):
+    """Past 32 table slots a row, the slot-major launch finds each slot's
+    first row by the rows, not by walking the table: 8,192 Zipf rows with
+    padding on a 2^20-slot table, whole numbers, equal bit for bit; the
+    launch after it (on the table the first left) too."""
+    b, n = 8192, 2**20
+    if kind == "sync":
+        plain, card = _counters(5, n, cuda_device)
+        packed = _sync_operand(5, b, n, distinct=False)
+        rng = np.random.default_rng(5)
+        packed[1] = rng.integers(0, 9, b).astype(np.float32).view(np.int32)
+        plain.value.copy_(torch.floor(plain.value))
+        card.value.copy_(plain.value.to(cuda_device))
+        plain.last_ts.copy_(50_000 - 1024 * (plain.last_ts % 3))
+        card.last_ts.copy_(plain.last_ts.to(cuda_device))
+
+        def run(st, op):
+            return ck.sync_counters(st, op, 1 / 1024)
+    else:
+        arrays, packed = _debit_case(b, n, True, 5)
+        plain, card = [K.BucketState(*(torch.tensor(a, device=d)
+                                       for a in arrays))
+                       for d in ("cpu", cuda_device)]
+
+        def run(st, op):
+            return ck.debit_packed(st, op, 60.0, 13 / 1024)
+    op = torch.from_numpy(packed)
+    for _ in range(2):
+        want = run(plain, op)
+        got = run(card, op.to(cuda_device))
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        _assert_tables_equal(card, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [32, 4096, 2**17, 2**20])
+@pytest.mark.parametrize("kind", ["sync", "debit"])
+def test_tally_kernels_are_deterministic(cuda_device, kind, b):
+    """Fractional counts and amounts on repeated slots: two launches on
+    clones of one table give equal bits, replies and every state field."""
+    n = 2 * b
+    if kind == "sync":
+        arrays = [a.numpy() for a in _counters(b, n, "cpu")[0]]
+        packed = _sync_operand(b, b, n, distinct=False)
+        cls, call = K.CounterState, lambda st, op: ck.sync_counters(
+            st, op, 3 / 1024)
+    else:
+        arrays, packed = _debit_case(b, n, False, b)
+        cls, call = K.BucketState, lambda st, op: ck.debit_packed(
+            st, op, CAP, 0.013)
+    op = torch.from_numpy(packed).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        st = cls(*(torch.tensor(a, device=cuda_device) for a in arrays))
+        out = call(st, op)
+        torch.cuda.synchronize()
+        runs.append([out.cpu().numpy()] + [t.cpu().numpy() for t in st])
+    for other in runs[1:]:
+        for a, b_ in zip(runs[0], other):
+            np.testing.assert_array_equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,distinct", [(2**23, True), (2**28, False)])
+@pytest.mark.parametrize("kind", ["sync", "debit"])
+def test_tally_one_launch_past_2_22_rows_matches_plain(cuda_device, kind, n,
+                                                      distinct):
+    """2^22 + 1 rows in one launch, as a store's fleet sync or debit of that
+    many keys sends them: distinct slots of a 2^23 table (the direct words)
+    and Zipf slots of a 2^28 table (the hash set). Whole numbers: replies
+    and every state field equal the plain version's bit for bit."""
+    b, now = 2**22 + 1, 50_000
+    if kind == "sync":
+        rng = np.random.default_rng(b)
+        arrays = (rng.integers(0, 1000, n).astype(np.float32),
+                  rng.uniform(0, 5000, n).astype(np.float32),
+                  (now - 1024 * rng.integers(-1, 4, n)).astype(np.int32),
+                  rng.random(n) < 0.5)
+        if distinct:
+            slots = rng.choice(n, b, replace=False).astype(np.int32)
+        else:
+            slots = ((rng.zipf(1.1, b) - 1) % n).astype(np.int32)
+        slots[rng.random(b) < 0.02] = -1
+        slots[rng.random(b) < 0.01] = n + 5
+        packed = np.stack([slots, rng.integers(1, 9, b).astype(
+            np.float32).view(np.int32), np.full(b, now, np.int32)])
+        cls, call = K.CounterState, lambda st, op: ck.sync_counters(
+            st, op, 1 / 1024)
+    else:
+        arrays, packed = _debit_case(b, n, True, b, distinct=distinct)
+        cls, call = K.BucketState, lambda st, op: ck.debit_packed(
+            st, op, 60.0, 13 / 1024)
+    live = packed[0][(packed[0] >= 0) & (packed[0] < n)]
+    assert (np.bincount(live).max() > 1) != distinct
+    plain, card = [cls(*(torch.tensor(a, device=d) for a in arrays))
+                   for d in ("cpu", cuda_device)]
+    op = torch.from_numpy(packed)
+    want = call(plain, op)
+    got = call(card, op.to(cuda_device))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _assert_tables_equal(card, plain)
 
 
 @pytest.mark.cuda
