@@ -24,8 +24,10 @@ Phases (any failure raises, and the script exits non-zero):
    2^20, each shape launched twice on clones of the table (bit-equal), and
    ``sweep_counters`` over 2^20 counters (each sync shape's times ride on
    the kernels line; ``--sync-bench`` times the sync and the debit at the
-   store's shapes, warm and with the L2 flushed, on the package beside the
-   script: ``python3 chip_smoke.py --sync-bench``); the window kernels on a
+   store's shapes, warm and with the L2 flushed, and ``sweep_counters``,
+   the whole function, at 1 to 2^20 + 7 counters held to its plain version,
+   on the package beside the script: ``python3 chip_smoke.py
+   --sync-bench``); the window kernels on a
    window
    table of 2^24 slots: ``window_packed`` and ``window_grouped`` at B =
    4096 with duplicates, ``window_scan_packed`` on one chunk of K = 32 x
@@ -37,9 +39,13 @@ Phases (any failure raises, and the script exits non-zero):
    all 32 x 4096 rows, 4,096 slots repeated in all 32 batches at a tick of
    their own (one going back), and the coalescing lane's K = 1 launch of a
    4096-row operand with three valid rows, each with its event ms, device
-   ms and bound (``--scan-bench`` runs these and the chunks above alone:
-   ``python3 chip_smoke.py --scan-bench``, or a copy of the script in
-   another checkout to time that checkout's kernels); the semaphore kernels
+   ms and bound (``--scan-bench`` runs these and the chunks above alone,
+   after the bulk lane's one-batch chunks on their three routes — the scan
+   padded to 4,096 rows, the scan padded to its rows, and the flush the
+   store sends them to — at 8 to 4,096 distinct and Zipf(1.2) rows, bucket
+   and window, each against its plain version: ``python3 chip_smoke.py
+   --scan-bench``, or a copy of the script in another checkout to time
+   that checkout's kernels); the semaphore kernels
    the four flush kernels (``acquire_packed``, ``acquire_grouped``,
    ``window_packed``, ``window_grouped``) on 2^24-slot tables at the
    shapes the store launches: one valid row at B = 8 (and at B = 4096, as
@@ -138,7 +144,9 @@ Phases (any failure raises, and the script exits non-zero):
    periodic sweeper (0.5 s) evicting exactly every bucket, window, the
    counter and every idle semaphore a day later. Prints the wire rates,
    latencies (client and server), frames, and the server's key-blob
-   resolve beside the in-process string resolve.
+   resolve beside the in-process string resolve; then the path's launches
+   by width, and fails if a scan held a single batch (every bulk frame of
+   at most 4,096 rows is one flush of its rows).
 8. The console entry point on the card: ``python -m
    distributedratelimiting.redis_tpu_torch.runtime.server --port 0 --slots
    1048576 --sweep-period 1`` as a subprocess: its listening line, ping,
@@ -876,10 +884,140 @@ def _scan_row(call, nbytes, ops, err) -> dict:
                 bound_by=bound_by, max_abs_err=err)
 
 
+#: The bulk lane's one-batch chunks (K = 1) at the widths a store sends, as
+#: :func:`route_shapes` times them.
+ROUTE_WIDTHS = (8, 16, 32, 64, 256, 1024, 4096)
+#: The three routes of a K = 1 chunk: the scan padded to ``max_batch`` (as
+#: the JAX store launches it), the scan padded to its rows, and the flush
+#: with the host's same-slot prefix (the port's store).
+ROUTES = ("scan at 4096", "scan at its rows", "flush")
+
+
+def _route_operand(K, route, slots, counts, now):
+    """One route's operand for ``rows`` valid rows: the fused ``u8[1, B,
+    5]`` scan operand (B = 4096, or the rows padded to a power of two >= 8),
+    or the flush's ``i32[4, B]`` with the host's prefix."""
+    from distributedratelimiting.redis_tpu_torch.runtime.store import (
+        _duplicate_prefix_host,
+        _pad_size,
+    )
+
+    rows = len(slots)
+    b = BATCH if route == "scan at 4096" else _pad_size(rows, floor=8)
+    s = np.full(b, -1, np.int32)
+    s[:rows] = slots
+    c = np.zeros(b, np.int32)
+    c[:rows] = counts
+    if route != "flush":
+        return K.pack_compact5(s[None], c.astype(np.uint8)[None]), s, c
+    packed = np.zeros((4, b), np.int32)
+    packed[0], packed[1], packed[2] = s, c, now
+    packed[3, :rows] = _duplicate_prefix_host(s[:rows], c[:rows])
+    return packed, s, c
+
+
+def route_shapes(torch, K, ck, dev) -> list:
+    """The bulk lane's K = 1 chunk on its three routes (:data:`ROUTES`), at
+    each of :data:`ROUTE_WIDTHS` valid rows with distinct and with
+    Zipf(1.2) slots, on 2^24-slot bucket and sliding-window tables: each
+    against its plain version (the scan's per-batch loop, the flush's
+    ``acquire_batch_packed`` / ``window_acquire_batch_packed``: grants,
+    ``exists`` and ``last_ts`` / ``window_idx`` equal, remaining and tokens
+    within atol 1e-4, every window field equal), with its CUDA-event ms, its
+    device ms and the bound of its valid rows (16 B of operand and 8 B of
+    reply a row, 18 or 26 B a distinct slot)."""
+    rng = np.random.default_rng(SEED + 11)
+    n, now = N_SLOTS, 2_000_000 + 300
+    cap, rate = 100.0, 10 / 1024
+    wt, limit = WINDOW_TICKS, float(WINDOW_LIMIT)
+    idx = (now // wt + rng.choice([-2, -1, 0, 0, 1], n)).astype(np.int32)
+    tables = {
+        "bucket": (K.BucketState, (
+            torch.tensor(rng.uniform(0, cap, n).astype(np.float32),
+                         device=dev),
+            torch.tensor(rng.integers(now - 3000, now, n).astype(np.int32),
+                         device=dev),
+            torch.tensor(rng.random(n) < 0.7, device=dev))),
+        "window": (K.WindowState, (
+            torch.tensor(rng.integers(0, 60, n).astype(np.float32),
+                         device=dev),
+            torch.tensor(rng.integers(0, 60, n).astype(np.float32),
+                         device=dev),
+            torch.tensor(idx, device=dev),
+            torch.tensor(rng.random(n) < 0.7, device=dev))),
+    }
+    out = []
+    for rows in ROUTE_WIDTHS:
+        for dist in ("distinct", "Zipf(1.2)"):
+            slots = (rng.choice(n, rows, replace=False) if dist == "distinct"
+                     else (rng.zipf(1.2, rows) - 1) % n).astype(np.int32)
+            counts = rng.integers(1, 40, rows).astype(np.int32)
+            d = len(np.unique(slots))
+            for kind, (cls, table) in tables.items():
+                for route in ROUTES:
+                    op, s, c = _route_operand(K, route, slots, counts, now)
+                    op_d = torch.from_numpy(op).to(dev)
+                    nows_d = torch.tensor([now], dtype=torch.int32,
+                                          device=dev)
+                    ks = cls(*(x.clone() for x in table))
+                    ps = cls(*(x.clone() for x in table))
+                    if kind == "bucket" and route == "flush":
+                        call = functools.partial(ck.acquire_packed, ks, op_d,
+                                                 cap, rate)
+                        want = K.acquire_batch_packed(ps, op_d, cap, rate)[1]
+                    elif kind == "bucket":
+                        call = functools.partial(ck.acquire_scan_packed, ks,
+                                                 op_d, nows_d, cap, rate)
+                        want = K.acquire_scan_packed(
+                            ps, torch.from_numpy(s[None]).to(dev),
+                            torch.from_numpy(c[None]).to(dev), nows_d, cap,
+                            rate)[1][0]
+                    elif route == "flush":
+                        call = functools.partial(ck.window_packed, ks, op_d,
+                                                 limit, wt)
+                        want = K.window_acquire_batch_packed(
+                            ps, op_d, limit, wt)[1]
+                    else:
+                        call = functools.partial(ck.window_scan_packed, ks,
+                                                 op_d, nows_d, limit, wt)
+                        want = _plain_window_scan(torch, K, ps, s[None],
+                                                  c[None], nows_d, limit, wt,
+                                                  True, True)[0]
+                    got = call()
+                    got = got if route == "flush" else got[0]
+                    torch.cuda.synchronize()
+                    what = f"{kind} K=1 {route}, {rows} {dist} rows"
+                    _check_equal(f"{what} grants", got[0], want[0])
+                    err = _check_close(f"{what} remaining", got[1], want[1])
+                    for field in ks._fields:
+                        if field == "tokens":
+                            err = max(err, _check_close(f"{what} tokens",
+                                                        ks.tokens, ps.tokens))
+                        else:
+                            _check_equal(f"{what} {field}",
+                                         getattr(ks, field),
+                                         getattr(ps, field))
+                    slot_b = 18 if kind == "bucket" else 26
+                    names = FLUSH_KERNELS if route == "flush" else \
+                        ["scan_kernel"]
+                    row = _shape_row(call, names, 24 * rows + slot_b * d,
+                                     15 * rows)
+                    out.append({"table": kind, "route": route, "rows": rows,
+                                "slots": dist, "b": len(s), "distinct": d,
+                                "max_abs_err": err, **row})
+                    print(f"{what} (B={len(s)}, {d} distinct slots): "
+                          f"equal to plain, max abs err {err!r}; "
+                          f"{row['ms']:.5f} ms, device {row['device_ms']} "
+                          f"ms, bound {row['bound_ms']:.7f} ms")
+                    del ks, ps
+    return out
+
+
 def scan_bench() -> int:
-    """``python3 chip_smoke.py --scan-bench``: only :func:`scan_shapes`, on
-    the package beside this file (copy the script into another checkout to
-    time that checkout's kernels). Prints the card and one JSON line."""
+    """``python3 chip_smoke.py --scan-bench``: only :func:`route_shapes`
+    and :func:`scan_shapes`, on the package beside this file (copy the
+    script into another checkout to time that checkout's kernels). Prints
+    the card and one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -892,8 +1030,9 @@ def scan_bench() -> int:
     card = _card_line()
     print(card)
     ck.build(["acquire", "window"])
+    routes = route_shapes(torch, K, ck, torch.device("cuda"))
     res = scan_shapes(torch, K, ck, torch.device("cuda"))
-    print(json.dumps({"card": card, "scan_shapes": [
+    print(json.dumps({"card": card, "route_shapes": routes, "scan_shapes": [
         {"kernel": kern, "shape": shape, **row}
         for (kern, shape), row in res.items()]}))
     return 0
@@ -1415,11 +1554,64 @@ def tally_shapes(torch, K, ck, dev) -> list:
     return rows
 
 
+#: ``sweep_counters``'s device activities in a profile: its kernel and, in
+#: a checkout whose wrapper zeroes the tile counts first, that zeroing (a
+#: memset or a ``FillFunctor<int>``).
+SWEEP_COUNTER_KERNELS = ["sweep_counters", "FillFunctor<int>", "Memset"]
+#: The counter sweep's sizes: tails shorter than a thread's 16 slots, a
+#: table smaller than a tile, one tile, a last partial tile, and the
+#: approximate path's 2^20 counters.
+SWEEP_SIZES = (1, 15, 16, 17, 4101, 32768, 2**16 + 3, 2**20, 2**20 + 7)
+
+
+def sweep_counter_shapes(torch, K, ck, dev) -> list:
+    """``sweep_counters`` at each of :data:`SWEEP_SIZES`, on the package
+    beside the script: mask, tile counts and ``exists`` equal to the plain
+    version's on the card (``last_ts`` over two days either side of the
+    86400 s TTL, half the counters live), and the whole function's device
+    ms (every launch the wrapper makes, a zeroing of the counts too), warm,
+    with its bound (7 B a slot and 4 B a tile)."""
+    rng = np.random.default_rng(SEED + 12)
+    now, ttl = 200_000_000, 86400 * 1024
+    rows = []
+    for n in SWEEP_SIZES:
+        z = torch.zeros(n, device=dev)
+        last = torch.tensor(rng.integers(now - 2 * ttl, now + 300,
+                                         n).astype(np.int32), device=dev)
+        exists0 = torch.tensor(rng.random(n) < 0.5, device=dev)
+        ks = K.CounterState(z, z, last, exists0.clone())
+        ps = K.CounterState(z, z, last, exists0.clone())
+        mask, counts = ck.sweep_counters(ks, now)
+        _, expired = K.sweep_counters(ps, now)
+        torch.cuda.synchronize()
+        _check_equal(f"sweep_counters N={n} mask", mask.bool(), expired)
+        _check_equal(f"sweep_counters N={n} exists", ks.exists, ps.exists)
+        want = torch.nn.functional.pad(
+            expired.int(), (0, counts.numel() * ck.TILE - n)).view(
+                -1, ck.TILE).sum(1)
+        _check_equal(f"sweep_counters N={n} tile counts", counts, want.int())
+
+        def call(ks=ks, exists0=exists0):
+            ks.exists.copy_(exists0)  # a Memcpy DtoD: not counted
+            return ck.sweep_counters(ks, now)
+
+        dev_ms = _device_ms(call, SWEEP_COUNTER_KERNELS)
+        bound_ms, bound_by = _bound_ms(7 * n + 4 * counts.numel(), 4 * n)
+        rows.append({"n": n, "expired": int(counts.sum()),
+                     "device_ms": dev_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": 0.0})
+        print(f"sweep_counters N={n}: expired {int(counts.sum())}, equal to "
+              f"plain; device {dev_ms} ms (whole function), bound "
+              f"{bound_ms:.7f} ms ({bound_by})")
+    return rows
+
+
 def sync_bench() -> int:
-    """``python3 chip_smoke.py --sync-bench``: only :func:`tally_shapes`, on
-    the package beside this file (copy the script into another checkout to
-    time that checkout's kernels). Prints the card, one JSON line of the
-    shapes, and the device line of the default run last."""
+    """``python3 chip_smoke.py --sync-bench``: only
+    :func:`sweep_counter_shapes` and :func:`tally_shapes`, on the package
+    beside this file (copy the script into another checkout to time that
+    checkout's kernels). Prints the card, one JSON line of the shapes, and
+    the device line of the default run last."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1432,6 +1624,7 @@ def sync_bench() -> int:
     card = _card_line()
     print(card)
     ck.build(["counter", "admission"])
+    sweeps = sweep_counter_shapes(torch, K, ck, torch.device("cuda"))
     rows = tally_shapes(torch, K, ck, torch.device("cuda"))
     # What one slot-major launch runs on the card, the claim words' fill
     # included (the names above must cover all of it).
@@ -1444,7 +1637,10 @@ def sync_bench() -> int:
                                        True)).to(dev)
     print("one 2^20-row sync launches:",
           _launched(lambda: ck.sync_counters(st, op, 0.001)))
-    print(json.dumps({"card": card, "sync_shapes": rows}))
+    print("one 2^20-counter sweep launches:",
+          _launched(lambda: ck.sweep_counters(st, 1)))
+    print(json.dumps({"card": card, "sync_shapes": rows,
+                      "sweep_counter_shapes": sweeps}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1585,7 +1781,7 @@ def counter_cases(torch, K, ck, dev, rng) -> dict:
     plain_ms = _median_ms(lambda: K.sweep_counters(ps, now),
                           setup=lambda: ps.exists.copy_(exists0))
     dev_ms = _device_ms(lambda: ck.sweep_counters(ks, now),
-                        ["sweep_counters_kernel"])
+                        SWEEP_COUNTER_KERNELS)
     # 7 B a slot (last_ts and exists read, exists and mask written) and the
     # tile counts; ~4 operations a slot (sub, max, compare, and).
     res["sweep_counters"] = dict(
@@ -3390,26 +3586,49 @@ async def admission_path(torch, ck, pkg, card: str) -> dict:
     return counts
 
 
-#: Wrappers whose launches :func:`_record_sizes` counts by operand width.
-SIZED_KERNELS = ("acquire_packed", "acquire_grouped", "window_packed",
-                 "window_grouped", "sync_counters", "debit_packed")
+#: Wrappers whose launches :func:`_record_sizes` counts by operand width,
+#: by the kernel's name: B for a flush, a sync or a debit; K x B rows for a
+#: bulk-lane scan.
+SIZED_KERNELS = {"acquire_packed": "acquire_packed",
+                 "acquire_grouped": "acquire_grouped",
+                 "window_packed": "window_packed",
+                 "window_grouped": "window_grouped",
+                 "sync_counters": "sync_counters",
+                 "debit_packed": "debit_packed",
+                 "acquire_scan_packed": "acquire_scan",
+                 "window_scan_packed": "window_scan"}
 
 
 def _record_sizes(ck, sizes: dict) -> None:
     """Wrap each of :data:`SIZED_KERNELS` in ``ck`` so that a call on a
-    CUDA operand (second argument) counts its width B in ``sizes[name]``."""
-    for name in SIZED_KERNELS:
-        fn = getattr(ck, name)
+    CUDA operand (second argument) counts its rows in ``sizes[kernel]``."""
+    for wrapper, name in SIZED_KERNELS.items():
+        fn = getattr(ck, wrapper)
         counts = sizes.setdefault(name, {})
 
         def recorded(state, packed, *args, _fn=fn, _counts=counts,
-                     **kwargs):
+                     _scan=wrapper.endswith("_scan_packed"), **kwargs):
             if packed.device.type == "cuda":
-                b = int(packed.shape[-1])
+                # A scan's u8[K, B, 5] or i32[2, K, B] operand: K x B rows.
+                b = (packed.numel() // (5 if packed.element_size() == 1
+                                        else 2)
+                     if _scan else int(packed.shape[-1]))
                 _counts[b] = _counts.get(b, 0) + 1
             return _fn(state, packed, *args, **kwargs)
 
-        setattr(ck, name, recorded)
+        setattr(ck, wrapper, recorded)
+
+
+def _sizes_since(sizes: dict, before: dict) -> dict:
+    """The launches by width made since ``before`` (a copy of ``sizes``)."""
+    out = {}
+    for name, counts in sizes.items():
+        was = before.get(name, {})
+        new = {b: c - was.get(b, 0) for b, c in counts.items()
+               if c > was.get(b, 0)}
+        if new:
+            out[name] = dict(sorted(new.items()))
+    return out
 
 
 def main() -> int:
@@ -3444,12 +3663,27 @@ def main() -> int:
     sizes: dict = {}
     _record_sizes(ck, sizes)
     by_path = {}
+    sizes_by_path = {}
     for name, path in (("exact", main_path), ("approximate", approximate_path),
                        ("window", window_path), ("admission", admission_path),
                        ("server", server_path)):
         t = time.perf_counter()
+        before = {k: dict(v) for k, v in sizes.items()}
         by_path[name] = asyncio.run(path(torch, ck, pkg, card))
+        sizes_by_path[name] = _sizes_since(sizes, before)
         phases[name] = time.perf_counter() - t
+    # The server's launches by width: every bulk frame of at most max_batch
+    # rows (the coalescing client's frames) is one flush of its rows, and
+    # no scan launch holds a single batch.
+    server_sizes = sizes_by_path["server"]
+    print(f"server launches by width ({card}): "
+          + json.dumps({k: {str(b): c for b, c in v.items()}
+                        for k, v in server_sizes.items()}))
+    one_batch = {k: {b: c for b, c in server_sizes.get(k, {}).items()
+                     if b <= BATCH}
+                 for k in ("acquire_scan", "window_scan")}
+    if any(one_batch.values()):
+        raise AssertionError(f"server path: scans of one batch {one_batch}")
     t = time.perf_counter()
     cli_server(pkg)
     phases["console server"] = time.perf_counter() - t

@@ -98,29 +98,25 @@ struct BucketPolicy {
 
 using drl_bucket::BucketPolicy;
 
-// scratch holds drl_flush_scratch_bytes(b) bytes (none up to 4096 rows).
+// b <= 4096 rows; a wider flush returns cudaErrorInvalidValue.
 extern "C" int drl_acquire_packed(float* tokens, int32_t* last_ts,
                                   uint8_t* exists, int32_t n_slots,
                                   const int32_t* packed, int32_t b, float cap,
-                                  float rate, float* out, void* scratch,
+                                  float rate, float* out,
                                   cudaStream_t stream) {
   return drl::launch_flush<BucketPolicy, false>(
       {tokens, last_ts, exists}, n_slots, packed, b, {cap, rate}, out,
-      scratch, stream);
+      stream);
 }
 
 extern "C" int drl_acquire_grouped(float* tokens, int32_t* last_ts,
                                    uint8_t* exists, int32_t n_slots,
                                    const int32_t* packed, int32_t b, float cap,
-                                   float rate, float* out, void* scratch,
+                                   float rate, float* out,
                                    cudaStream_t stream) {
   return drl::launch_flush<BucketPolicy, true>(
       {tokens, last_ts, exists}, n_slots, packed, b, {cap, rate}, out,
-      scratch, stream);
-}
-
-extern "C" int64_t drl_flush_scratch_bytes(int32_t b) {
-  return drl::flush_scratch_bytes(b);
+      stream);
 }
 
 // Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], in a 4-byte

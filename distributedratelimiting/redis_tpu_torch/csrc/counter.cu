@@ -43,11 +43,32 @@
 // sweep_counters_kernel, per slot i < N:
 //   expired = exists && max(0, now - last_ts) >= 86400 * 1024
 //   exists[i] = exists && !expired   (IN PLACE)
-//   mask[i] = expired; tile_counts[i / tile] += expired
-// with the layout and contract of sweep.cu (256 consecutive slots a pass lie
-// in one tile; the caller zeroes tile_counts). Bound: memory, 7 B a slot
-// (last_ts 4 + exists 1 read, exists 1 + mask 1 written).
+//   mask[i] = expired; tile_counts[t] = the expired slots of tile t
+// with the contract of sweep.cu (tiles of 32,768 slots).
+// Bound: memory, 7 B a slot (last_ts 4 + exists 1 read, exists 1 + mask 1
+// written): 0.00219 ms at 2^20 counters on an H100's 3.35 TB/s.
+//
+// Design: ONE launch, no memset, no global atomics. A thread block cluster
+// of 8 blocks owns one tile; each block 4,096 slots, each thread 16: its
+// exists bytes in one 16-byte load, its last_ts in four, its mask bytes in
+// one 16-byte store, and its exists word written back only where a slot
+// expired. The warp sums its counts with __reduce_add_sync, the block
+// through shared memory, and every block stores its sum into the cluster
+// leader's shared memory (distributed shared memory); after the cluster's
+// barrier the leader writes the tile's count with a plain store, so
+// tile_counts needs no zeroing launch. The cluster's first barrier is split:
+// every thread arrives (relaxed) before its loads and waits after them, so
+// that the leader's shared memory is known to be live before it is written
+// without stalling the loads. A thread whose 16 slots run past N (a tail
+// of fewer than 16, a table smaller than a tile, a last partial tile), or
+// pointers not 16-byte aligned, takes a scalar path over the same slots in
+// the same kernel. A cluster of 8 blocks x 256 threads fits any GPC.
+// Measured on an H100 (chip_smoke.py --sync-bench, 700 W), 2^20 counters,
+// the whole function: 0.0032 ms of device time, 68% of the bound. A
+// vectorised grid-stride kernel with one atomic a block takes 0.0023 alone
+// but 0.0034 with the zeroing launch it needs, hence the cluster.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,7 +76,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 // bucket_math.GLOBAL_COUNTER_TTL_TICKS: 86400 s at 1024 ticks a second.
 constexpr int32_t kCounterTtlTicks = 86400 * 1024;
 // float32 of JAX's (1.0 - PERIOD_EWMA_ALPHA) and PERIOD_EWMA_ALPHA.
@@ -129,24 +149,102 @@ struct SyncPolicy {
   }
 };
 
-__global__ void sweep_counters_kernel(const int32_t* last_ts,
-                                      uint8_t* exists, int8_t* mask,
-                                      int32_t* tile_counts, int64_t n,
-                                      int32_t now, int64_t tile) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t base = (int64_t)blockIdx.x * kThreads; base < n;
-       base += stride) {
-    const int64_t i = base + threadIdx.x;
-    int expired = 0;
-    if (i < n) {
-      expired = exists[i] != 0 && elapsed(now, last_ts[i]) >= kCounterTtlTicks;
-      if (expired) exists[i] = 0;
-      mask[i] = (int8_t)expired;
+// The sweep: a cluster of kSweepBlocks blocks a tile of kSweepTile slots,
+// kSweepSlots slots a thread.
+constexpr int kSweepThreads = 256;
+constexpr int kSweepSlots = 16;
+constexpr int kSweepBlocks = 8;
+constexpr int64_t kSweepTile =
+    (int64_t)kSweepBlocks * kSweepThreads * kSweepSlots;
+static_assert(kSweepTile == 32768, "a cluster owns one TILE of slots");
+
+__device__ __forceinline__ bool counter_expired(uint32_t ex, int32_t last,
+                                                int32_t now) {
+  return ex != 0 && elapsed(now, last) >= kCounterTtlTicks;
+}
+
+// The cluster barrier's two halves (PTX barrier.cluster): every thread of
+// every block of the cluster arrives, then waits.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__global__ void __cluster_dims__(kSweepBlocks, 1, 1)
+    __launch_bounds__(kSweepThreads)
+    sweep_counters_kernel(const int32_t* __restrict__ last_ts,
+                          uint8_t* exists, int8_t* __restrict__ mask,
+                          int32_t* __restrict__ tile_counts, int64_t n,
+                          int32_t now, int vec) {
+  namespace cgr = cooperative_groups;
+  __shared__ int32_t warp_sums[kSweepThreads / 32];
+  __shared__ int32_t block_sums[kSweepBlocks];  // the leader's, a block each
+  cluster_arrive_relaxed();  // this block runs (waited for below)
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int64_t tile = blockIdx.x / kSweepBlocks;
+  const int64_t base = tile * kSweepTile +
+                       ((int64_t)rank * kSweepThreads + threadIdx.x) *
+                           kSweepSlots;
+  int count = 0;
+  if (vec && base + kSweepSlots <= n) {
+    const uint4 ex = *reinterpret_cast<const uint4*>(exists + base);
+    int4 ts[kSweepSlots / 4];
+#pragma unroll
+    for (int q = 0; q < kSweepSlots / 4; ++q) {
+      ts[q] = reinterpret_cast<const int4*>(last_ts + base)[q];
     }
-    const int count = __syncthreads_count(expired);
-    if (threadIdx.x == 0 && count > 0) {
-      atomicAdd(&tile_counts[base / tile], count);
+    const uint32_t exw[4] = {ex.x, ex.y, ex.z, ex.w};
+    uint32_t mw[4], keep[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // Word q holds slots 4q..4q+3, a byte each (little-endian), as ts[q].
+      const int32_t t[4] = {ts[q].x, ts[q].y, ts[q].z, ts[q].w};
+      mw[q] = 0;
+      keep[q] = exw[q];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (counter_expired((exw[q] >> (8 * j)) & 0xFFu, t[j], now)) {
+          mw[q] |= 1u << (8 * j);
+          keep[q] &= ~(0xFFu << (8 * j));
+        }
+      }
+      count += __popc(mw[q]);
     }
+    *reinterpret_cast<uint4*>(mask + base) =
+        make_uint4(mw[0], mw[1], mw[2], mw[3]);
+    if ((mw[0] | mw[1] | mw[2] | mw[3]) != 0) {
+      *reinterpret_cast<uint4*>(exists + base) =
+          make_uint4(keep[0], keep[1], keep[2], keep[3]);
+    }
+  } else {
+    for (int j = 0; j < kSweepSlots; ++j) {
+      const int64_t i = base + j;
+      if (i >= n) break;
+      const bool e = counter_expired(exists[i], last_ts[i], now);
+      if (e) exists[i] = 0;
+      mask[i] = (int8_t)e;
+      count += e;
+    }
+  }
+  count = __reduce_add_sync(0xFFFFFFFFu, count);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x / 32] = count;
+  __syncthreads();
+  cluster_wait();  // every block of the cluster runs: the leader's too
+  if (threadIdx.x == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kSweepThreads / 32; ++w) sum += warp_sums[w];
+    cluster.map_shared_rank(block_sums, 0)[rank] = sum;
+  }
+  cluster.sync();  // the blocks' sums have landed in the leader's memory
+  if (rank == 0 && threadIdx.x == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int r = 0; r < kSweepBlocks; ++r) sum += block_sums[r];
+    tile_counts[tile] = sum;
   }
 }
 
@@ -174,14 +272,21 @@ extern "C" int64_t drl_tally_claim_words(int64_t n, int32_t b) {
   return drl_tally::claim_words<SyncPolicy>(n, b);
 }
 
+// tile_counts i32[ceil(N / tile)] is written whole (no zeroing needed);
+// tile must be 32768.
 extern "C" int drl_sweep_counters(const int32_t* last_ts, uint8_t* exists,
                                   int8_t* mask, int32_t* tile_counts,
                                   int64_t n, int32_t now, int64_t tile,
                                   cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  sweep_counters_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      last_ts, exists, mask, tile_counts, n, now, tile);
+  if (tile != kSweepTile) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (n + kSweepTile - 1) / kSweepTile;
+  const int vec = ((reinterpret_cast<uintptr_t>(last_ts) |
+                    reinterpret_cast<uintptr_t>(exists) |
+                    reinterpret_cast<uintptr_t>(mask)) &
+                   15) == 0;
+  sweep_counters_kernel<<<(unsigned)(tiles * kSweepBlocks), kSweepThreads, 0,
+                          stream>>>(last_ts, exists, mask, tile_counts, n,
+                                    now, vec);
   return (int)cudaGetLastError();
 }

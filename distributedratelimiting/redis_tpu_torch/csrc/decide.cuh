@@ -63,11 +63,9 @@
 //     on the atomics' order; the row that claimed the entry writes the slot
 //     after one barrier. Two barriers a block; no sort, since no prefix is
 //     computed.
-//       B > 4096 (the kernels' cap, FLUSH_MAX_BATCH rows; no store path sends
-//     one, a card store takes max_batch <= 4096): one block of 1024 threads
-//     in rounds of 4096 rows, the same hash set in scratch the wrapper
-//     allocates (2^k >= 2B entries of 12 B), then each entry re-gathers its
-//     slot (nothing has written it) and commits it once.
+//       B > 4096 is refused (cudaErrorInvalidValue; the wrappers raise
+//     first): a card store takes max_batch <= 4096, and its flushes, grouped
+//     flushes and the bulk lane's one-batch chunks are at most that wide.
 //     The flush is latency-bound, not bandwidth-bound: at B = 4096 its bytes
 //     take well under a microsecond, and what it costs is the launch, the
 //     barriers and one SM's scattered gathers and writes (hence the spread).
@@ -83,9 +81,11 @@
 //     The serial depth is per slot and at most K. ONE cooperative launch of
 //     as many resident blocks of 512 threads as the chunk has rows for (two
 //     an SM: a chunk of 32 x 4096 rows fills every SM), with grid.sync()
-//     between its phases; at the coalescing lane's K = 1 shape a one-block
-//     variant (hash set and operand in shared memory) was no faster on the
-//     H100, so small chunks take the same kernel on a small grid.
+//     between its phases. A store sends a chunk of one batch (K = 1, the
+//     coalescing lane's frames) to the flush instead, with the host's
+//     prefix: the same policy (P::fits, P::room) decides the same rows, and
+//     the flush's launch is sized by the rows, not by max_batch. The scan
+//     takes any K all the same.
 //       1. empty the chunk's hash set (in scratch the wrapper allocates);
 //       2. every row inserts its slot (warp-aggregated: one atomic per slot a
 //          warp) and counts its rows;
@@ -161,12 +161,8 @@ __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
-// Rows a flush block takes (1024 threads x 4); a larger flush is wide.
+// Rows a flush block takes (1024 threads x 4): the widest flush.
 constexpr int kFlushBlockRows = 4096;
-// The wide flush: one block of kWideThreads threads, each staging kWideRows
-// rows a round, so that a thread has kWideRows gathers in flight.
-constexpr int kWideThreads = 1024;
-constexpr int kWideRows = 4;
 
 // ---------------------------------------------------------------------------
 // Flush and grouped flush: a launch sized by its rows.
@@ -390,79 +386,6 @@ __global__ void __launch_bounds__(kT, 1)
   }
 }
 
-// Bits of the wide flush's hash set: 2^bits >= 2B entries (load <= 1/2).
-__host__ __device__ inline int wide_bits(int32_t b) {
-  int bits = 6;
-  while ((1 << bits) < 2 * b) ++bits;
-  return bits;
-}
-
-// Bytes of scratch a flush of b rows needs: the wide flush's hash set (an
-// int64 sum and a key an entry), none at b <= kFlushBlockRows.
-inline int64_t flush_scratch_bytes(int32_t b) {
-  return b > kFlushBlockRows ? (int64_t)12 << wide_bits(b) : 0;
-}
-
-// B > kFlushBlockRows (no store path sends one): one block; every row
-// decides from the state as gathered and adds its consumption to its slot's
-// entry of a hash set in scratch (int64 atomics, whose sum does not depend
-// on their order), then after a barrier each entry gathers its slot again
-// (no row has written it) and commits it once.
-template <class P, bool kGrouped>
-__global__ void __launch_bounds__(kWideThreads, 1)
-    flush_wide_kernel(typename P::Table T, int32_t n_slots,
-                      const int32_t* __restrict__ packed, int32_t b,
-                      typename P::Params prm, float* __restrict__ out,
-                      void* scratch) {
-  const int tid = threadIdx.x;
-  const int bits = wide_bits(b);
-  unsigned long long* sum = static_cast<unsigned long long*>(scratch);
-  uint32_t* hkey = reinterpret_cast<uint32_t*>(sum + (1 << bits));
-  const int32_t now = packed[2 * b];
-  __shared__ long long buf[kWideThreads];  // add_to_set's
-  for (int i = tid; i < (1 << bits); i += kWideThreads) {
-    sum[i] = 0;
-    hkey[i] = kEmptyKey;
-  }
-  __syncthreads();
-  for (int base = 0; base < b; base += kWideThreads * kWideRows) {
-    int32_t s[kWideRows];
-    FlushIn in[kWideRows];
-    typename P::Old old[kWideRows];
-#pragma unroll
-    for (int q = 0; q < kWideRows; ++q) {
-      const int i = base + q * kWideThreads + tid;
-      s[q] = i < b ? packed[i] : -1;
-      if (i < b) in[q] = load_row<kGrouped>(packed, b, i);
-      if (s[q] >= 0 && s[q] < n_slots) old[q] = P::gather(T, s[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < kWideRows; ++q) {
-      const int i = base + q * kWideThreads + tid;
-      const bool valid = s[q] >= 0 && s[q] < n_slots;
-      const typename P::Slot sl =
-          valid ? P::advance(old[q], now, prm) : typename P::Slot{};
-      FlushRow row{0.0f, 0.0f, 0};
-      if (i < b) {
-        row = decide_row<P, kGrouped>(sl, valid, now, prm, in[q]);
-        out[i] = row.granted;
-        out[b + i] = row.remaining;
-      }
-      bool owner;
-      add_to_set(hkey, sum, buf + (tid & ~31), bits,
-                 valid ? (uint32_t)s[q] : kEmptyKey, row.used, owner);
-    }
-  }
-  __syncthreads();  // every row has read its slot and added to its entry
-  for (int i = tid; i < (1 << bits); i += kWideThreads) {
-    const uint32_t key = __ldcg(&hkey[i]);
-    if (key == kEmptyKey) continue;
-    const typename P::Slot sl =
-        P::advance(P::gather(T, (int32_t)key), now, prm);
-    P::commit(T, (int32_t)key, sl, now, (long long)__ldcg(&sum[i]));
-  }
-}
-
 template <class P, bool kGrouped, int kT, int kIpt>
 int launch_flush_block(typename P::Table T, int32_t n_slots,
                        const int32_t* packed, int32_t b,
@@ -491,21 +414,16 @@ int launch_flush_block(typename P::Table T, int32_t n_slots,
   return (int)cudaGetLastError();
 }
 
-// scratch holds flush_scratch_bytes(b) bytes.
+// b <= kFlushBlockRows; a wider flush is refused.
 template <class P, bool kGrouped>
 int launch_flush(typename P::Table T, int32_t n_slots, const int32_t* packed,
-                 int32_t b, typename P::Params prm, float* out, void* scratch,
+                 int32_t b, typename P::Params prm, float* out,
                  cudaStream_t stream) {
   if (b <= 0) return (int)cudaSuccess;
+  if (b > kFlushBlockRows) return (int)cudaErrorInvalidValue;
   if (b <= drl_batch::kWarpRows) {
     flush_warp_kernel<P, kGrouped><<<1, 32, 0, stream>>>(T, n_slots, packed,
                                                          b, prm, out);
-    return (int)cudaGetLastError();
-  }
-  if (b > kFlushBlockRows) {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    flush_wide_kernel<P, kGrouped><<<1, kWideThreads, 0, stream>>>(
-        T, n_slots, packed, b, prm, out, scratch);
     return (int)cudaGetLastError();
   }
   if (b <= 64)

@@ -173,17 +173,16 @@ __global__ void sweep_windows_kernel(const int32_t* idx, uint8_t* exists,
 
 using drl_window::WindowPolicy;
 
-// scratch holds drl_flush_scratch_bytes(b) bytes (none up to 4096 rows).
+// b <= 4096 rows; a wider flush returns cudaErrorInvalidValue.
 extern "C" int drl_window_packed(float* prev, float* curr, int32_t* idx,
                                  uint8_t* exists, int32_t n_slots,
                                  const int32_t* packed, int32_t b, float limit,
                                  int32_t window, int32_t interpolate,
-                                 float* out, void* scratch,
-                                 cudaStream_t stream) {
+                                 float* out, cudaStream_t stream) {
   if (window < 1) return (int)cudaErrorInvalidValue;
   return drl::launch_flush<WindowPolicy, false>(
       {prev, curr, idx, exists}, n_slots, packed, b,
-      {limit, window, interpolate}, out, scratch, stream);
+      {limit, window, interpolate}, out, stream);
 }
 
 extern "C" int drl_window_grouped(float* prev, float* curr, int32_t* idx,
@@ -191,15 +190,11 @@ extern "C" int drl_window_grouped(float* prev, float* curr, int32_t* idx,
                                   const int32_t* packed, int32_t b,
                                   float limit, int32_t window,
                                   int32_t interpolate, float* out,
-                                  void* scratch, cudaStream_t stream) {
+                                  cudaStream_t stream) {
   if (window < 1) return (int)cudaErrorInvalidValue;
   return drl::launch_flush<WindowPolicy, true>(
       {prev, curr, idx, exists}, n_slots, packed, b,
-      {limit, window, interpolate}, out, scratch, stream);
-}
-
-extern "C" int64_t drl_flush_scratch_bytes(int32_t b) {
-  return drl::flush_scratch_bytes(b);
+      {limit, window, interpolate}, out, stream);
 }
 
 // Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], in a 4-byte

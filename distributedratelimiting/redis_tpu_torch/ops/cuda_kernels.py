@@ -109,12 +109,12 @@ SCAN_MAX_BATCH = 4096
 #: Rows of one bulk-lane launch, K × B: the store's largest chunk (32 ×
 #: 4096); the scan kernel sizes its long-slot multisplit by it.
 SCAN_MAX_ROWS = 32 * 4096
-#: Rows of one flush (a store sends at most 4096: a warp up to 32 rows,
-#: blocks sized by the rows up to 4096, and above that one block over a hash
-#: set in scratch the wrapper allocates).
-FLUSH_MAX_BATCH = 29_056
+#: Rows of one flush (a warp up to 32 rows, blocks sized by the rows up to
+#: 4096): a card store's ``max_batch`` at most, and the bulk lane's
+#: one-batch chunks.
+FLUSH_MAX_BATCH = 4096
 #: Rows of one window flush.
-WINDOW_FLUSH_MAX_BATCH = 14_528
+WINDOW_FLUSH_MAX_BATCH = 4096
 #: Rows of one semaphore batch or two-level admission batch: one warp up to
 #: 32 rows, else blocks sized by the rows (at most 1024 threads × 4 rows;
 #: above 256 rows up to 64 of them).
@@ -149,10 +149,9 @@ _SIGNATURES = {
     },
     "acquire": {
         "drl_acquire_packed": (_P, _P, _P, _I32, _P, _I32, _F32, _F32, _P,
-                               _P, _P),
+                               _P),
         "drl_acquire_grouped": (_P, _P, _P, _I32, _P, _I32, _F32, _F32, _P,
-                                _P, _P),
-        "drl_flush_scratch_bytes": (_I32,),
+                                _P),
         "drl_acquire_scan": (_P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
                              _F32, _F32, _P, _P, _P, _P),
         "drl_scan_scratch_bytes": (_I32, _I32),
@@ -166,10 +165,9 @@ _SIGNATURES = {
     },
     "window": {
         "drl_window_packed": (_P, _P, _P, _P, _I32, _P, _I32, _F32, _I32,
-                              _I32, _P, _P, _P),
+                              _I32, _P, _P),
         "drl_window_grouped": (_P, _P, _P, _P, _I32, _P, _I32, _F32, _I32,
-                               _I32, _P, _P, _P),
-        "drl_flush_scratch_bytes": (_I32,),
+                               _I32, _P, _P),
         "drl_window_scan": (_P, _P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
                             _F32, _I32, _I32, _P, _P, _P, _P),
         "drl_scan_scratch_bytes": (_I32, _I32),
@@ -369,14 +367,6 @@ def sweep_expired(state: K.BucketState, now: int, capacity: float,
     return mask, counts
 
 
-def _flush_scratch(lib: ctypes.CDLL, dev, b: int):
-    """Scratch of a flush above 4096 rows (its hash set), else ``None``:
-    the kernel allocates nothing itself."""
-    nbytes = lib.drl_flush_scratch_bytes(b)
-    return (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
-            if nbytes else None)
-
-
 def _flush(name: str, state: K.BucketState, packed: torch.Tensor,
            rows: int, capacity: float,
            fill_rate_per_tick: float) -> torch.Tensor:
@@ -388,16 +378,11 @@ def _flush(name: str, state: K.BucketState, packed: torch.Tensor,
     if b > FLUSH_MAX_BATCH:
         raise ValueError(f"{name}: a flush holds at most {FLUSH_MAX_BATCH} "
                          f"rows, got {b}")
-    lib = _lib("acquire")
-    dev = state.tokens.device
-    out = torch.empty((2, b), dtype=torch.float32, device=dev)
-    scratch = _flush_scratch(lib, dev, b)
-    rc = getattr(lib, f"drl_{name}")(
+    out = torch.empty((2, b), dtype=torch.float32, device=state.tokens.device)
+    rc = getattr(_lib("acquire"), f"drl_{name}")(
         state.tokens.data_ptr(), state.last_ts.data_ptr(),
         state.exists.data_ptr(), n, packed.data_ptr(), b, float(capacity),
-        float(fill_rate_per_tick), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        _stream(state.tokens))
+        float(fill_rate_per_tick), out.data_ptr(), _stream(state.tokens))
     _raise_on(rc, name)
     launches[name] += 1
     return out
@@ -557,7 +542,8 @@ def sweep_counters(state: K.CounterState, now: int):
     """TTL sweep of the counter table (the fixed 86400 s TTL): clears
     ``state.exists`` in place for expired counters and returns ``(mask
     i8[N], tile_counts i32[T])`` with the contract of
-    :func:`sweep_expired`."""
+    :func:`sweep_expired`. On the card: one launch, a thread block cluster
+    a tile, which writes every tile's count (no zeroing launch)."""
     n = state.value.shape[0]
     if _on_cpu(state):
         _, expired = K.sweep_counters(state, now)
@@ -566,7 +552,7 @@ def sweep_counters(state: K.CounterState, now: int):
     _check_counters(state)
     dev = state.value.device
     mask = torch.empty((n,), dtype=torch.int8, device=dev)
-    counts = torch.zeros((-(-n // TILE),), dtype=torch.int32, device=dev)
+    counts = torch.empty((-(-n // TILE),), dtype=torch.int32, device=dev)
     rc = _lib("counter").drl_sweep_counters(
         state.last_ts.data_ptr(), state.exists.data_ptr(), mask.data_ptr(),
         counts.data_ptr(), n, int(now), TILE, _stream(state.value))
@@ -609,14 +595,11 @@ def _window_flush(name: str, state: K.WindowState, packed: torch.Tensor,
     if b > WINDOW_FLUSH_MAX_BATCH:
         raise ValueError(f"{name}: a window flush holds at most "
                          f"{WINDOW_FLUSH_MAX_BATCH} rows, got {b}")
-    lib = _lib("window")
-    dev = state.prev_count.device
-    out = torch.empty((2, b), dtype=torch.float32, device=dev)
-    scratch = _flush_scratch(lib, dev, b)
-    rc = getattr(lib, f"drl_{name}")(
+    out = torch.empty((2, b), dtype=torch.float32,
+                      device=state.prev_count.device)
+    rc = getattr(_lib("window"), f"drl_{name}")(
         *_window_ptrs(state), n, packed.data_ptr(), b, float(limit),
         _window_ticks(window_ticks), int(bool(interpolate)), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
         _stream(state.prev_count))
     _raise_on(rc, name)
     launches[name] += 1

@@ -776,7 +776,8 @@ class _PackedLaunchMixin:
         returns per-dispatch device results (no readback — callers overlap
         it). Counts that fit a byte ride the fused 5-bytes/decision operand;
         larger counts travel as one ``i32[2, K, B]`` operand (slots, then
-        counts). The caller holds the store lock."""
+        counts). A chunk of one batch is a flush instead. The caller holds
+        the store lock."""
         n = len(slots)
         b = self.store.max_batch
         outs: list[tuple] = []
@@ -789,6 +790,17 @@ class _PackedLaunchMixin:
             while k < rows and k < self._BULK_MAX_K:
                 k *= 2
             take = min(k * b, n - pos)
+            # One batch: a flush of its rows, not a scan of max_batch rows
+            # (on the H100 the faster route at every width from 8 to 4,096
+            # rows: PERF.md §6, chip_smoke.py --scan-bench).
+            out = (self._bulk_flush(slots[pos:pos + take],
+                                    counts_np[pos:pos + take], now)
+                   if k == 1 else None)
+            if out is not None:
+                outs.append((out, take))
+                self.store.metrics.record_launch(out.shape[-1], take)
+                pos += take
+                continue
             s = np.full((k * b,), -1, np.int32)
             s[:take] = slots[pos:pos + take]
             c = np.zeros((k * b,), np.uint8 if compact else np.int32)
@@ -801,6 +813,31 @@ class _PackedLaunchMixin:
             self.store.metrics.record_launch(k * b, take)
             pos += take
         return outs
+
+    def _bulk_flush(self, slots: np.ndarray, counts_np: np.ndarray,
+                    now: int) -> torch.Tensor | None:
+        """One batch of the bulk lane decided by the table's flush
+        (``_launch_packed``): ONE ``i32[4, b]`` operand, ``b`` the rows
+        padded to a power of two >= 8, built in one vectorised pass — slots,
+        counts saturated to 2^31 - 1, the tick, and the host's same-slot
+        prefix (saturated) only where a slot repeats, as
+        :func:`_build_packed`. The scan's K = 1 rule is the flush's (JAX
+        decides both with ``acquire_core``). Returns ``f32[1, 2, b]``, or
+        ``None`` when a prefix passes 2^31: saturated, it would round to
+        another float32 than the scan's int64 prefix, so the caller scans."""
+        m = len(slots)
+        packed = np.zeros((4, _pad_size(m, floor=8)), np.int32)
+        packed[0] = -1
+        packed[0, :m] = slots
+        counts = np.minimum(counts_np, 2**31 - 1)
+        packed[1, :m] = counts
+        packed[2] = now
+        if len(np.unique(slots)) != m:
+            prefix = _duplicate_prefix_host(slots, counts)
+            if prefix.max() > 2**31:
+                return None
+            packed[3, :m] = np.minimum(prefix, 2**31 - 1)
+        return self._launch_packed(self._upload(packed))[None]
 
     @staticmethod
     def _gather_bulk(outs: list[tuple], n: int,

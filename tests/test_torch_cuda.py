@@ -113,13 +113,11 @@ def _assert_exact(card, plain, card_out, plain_out):
                                       err_msg=name)
 
 
-#: The flushes' shapes: the warp path (B <= 32), every block form
+#: The flushes' shapes: the warp path (B <= 32) and every block form
 #: launch_flush picks (64 x 1 at 33-64 rows, 256 x 1 at 65-256, both one
 #: block; 1024 x 1 at 257-1024, 1024 x 2 at 1025-2048 and 1024 x 4 at
-#: 2049-4096, spread over blocks), and past 4096 rows the one-block path
-#: over a hash set in scratch, up to the kernels' cap ("cap").
-FLUSH_SIZES = [B, 5000, 1, 8, 12, 32, 33, 64, 128, 256, 257, 2048, 4096,
-               "cap"]
+#: 2049-4096, spread over blocks). 4096 is the widest flush.
+FLUSH_SIZES = [B, 1, 8, 12, 32, 33, 64, 128, 256, 257, 2048, 4096]
 
 
 @pytest.mark.cuda
@@ -127,7 +125,6 @@ FLUSH_SIZES = [B, 5000, 1, 8, 12, 32, 33, 64, 128, 256, 257, 2048, 4096,
 @pytest.mark.parametrize("rows,wrapper", [(4, ck.acquire_packed),
                                           (5, ck.acquire_grouped)])
 def test_acquire_kernels_match_plain(cuda_device, rows, wrapper, b):
-    b = ck.FLUSH_MAX_BATCH if b == "cap" else b
     plain, card = _state(1, cuda_device)
     op = _operand(2, rows, b)
     before = dict(ck.launches)
@@ -138,6 +135,75 @@ def test_acquire_kernels_match_plain(cuda_device, rows, wrapper, b):
     name = "acquire_packed" if rows == 4 else "acquire_grouped"
     assert ck.launches[name] == before[name] + 1  # one launch per call
     assert sum(ck.launches.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.cuda
+def test_flush_past_4096_rows_raises(cuda_device):
+    """4096 rows is the widest flush: each of the four flush wrappers raises
+    at 4,097 rows, and nothing is launched."""
+    assert ck.FLUSH_MAX_BATCH == ck.WINDOW_FLUSH_MAX_BATCH == 4096
+    _, buckets = _state(1, cuda_device)
+    _, windows = _windows(7, cuda_device)
+    before = dict(ck.launches)
+    for rows, wrapper, table, args in (
+            (4, ck.acquire_packed, buckets, (CAP, 0.013)),
+            (5, ck.acquire_grouped, buckets, (CAP, 0.013)),
+            (4, ck.window_packed, windows, (W_LIMIT, W_TICKS)),
+            (5, ck.window_grouped, windows, (W_LIMIT, W_TICKS))):
+        op = _operand(2, rows, 4097).to(cuda_device)
+        with pytest.raises(ValueError, match="at most 4096 rows"):
+            wrapper(table, op, *args)
+    torch.cuda.synchronize()
+    assert ck.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bucket", "window"])
+@pytest.mark.parametrize("rows", [1, 11, 64, 4096])
+def test_bulk_chunk_of_one_batch_is_one_flush(cuda_device, kind, rows):
+    """A card store decides a bulk call of at most ``max_batch`` rows as ONE
+    flush of its rows (no scan), and its grants, remaining and later state
+    equal a CPU store's on the same clock (whole counts: the flush equals
+    its plain version bit for bit)."""
+    from distributedratelimiting.redis_tpu_torch import (
+        DeviceBucketStore,
+        ManualClock,
+    )
+
+    rng = np.random.default_rng(rows)
+    keys = [f"k{i}" for i in range(rows)]
+    for i in rng.choice(rows, rows // 6, replace=False):
+        keys[i] = keys[int(rng.integers(0, rows))]
+    results = []
+    for device in ("cpu", cuda_device):
+        store = DeviceBucketStore(device=device, clock=ManualClock(10_000),
+                                  n_slots=2**14)
+        before = dict(ck.launches)
+        out = []
+        for r in range(2):
+            counts = np.random.default_rng([rows, r]).integers(1, 41, rows)
+            if kind == "bucket":
+                res = store.acquire_many_blocking(keys, counts, 40.0, 64.0)
+            else:
+                res = store.window_acquire_many_blocking(keys, counts, 40.0,
+                                                         1.0)
+            out.append((res.granted.tolist(), res.remaining.tolist()))
+            store.clock.advance_ticks(300)
+        table = (store._tables if kind == "bucket" else store._wtables)
+        out.append([[t.cpu().numpy().tolist() for t in tab.state]
+                    for tab in table.values()])
+        results.append(out)
+        if device != "cpu":
+            flush = "acquire_packed" if kind == "bucket" else "window_packed"
+            scan = "acquire_scan" if kind == "bucket" else "window_scan"
+            assert ck.launches[flush] == before[flush] + 2
+            assert ck.launches[scan] == before[scan]
+            pad = max(8, 1 << (rows - 1).bit_length())
+            assert store.metrics.rows_processed == 2 * pad
+    assert results[0] == results[1]
+    granted = results[0][0][0] + results[0][1][0]
+    if rows >= 11:
+        assert 0 < sum(granted) < len(granted)
 
 
 def _scan_operand(rng, k, b, n, fused, distinct=False):
@@ -591,6 +657,90 @@ def test_sweep_counters_after_grow_matches_plain(cuda_device):
     assert len(store._counter_dir) == 3_000
 
 
+#: ``sweep_counters``'s card cases: a tail shorter than a thread's 16 slots,
+#: one thread exactly, a table smaller than a tile of 32,768, one tile, a
+#: last partial tile, and the approximate path's 2^20 counters and more.
+SWEEP_SIZES = [1, 15, 16, 17, 4101, 32768, 2**16 + 3, 2**20 + 7]
+
+
+def _device_kernels(fn) -> dict:
+    """The device activities of one call of ``fn``: name -> launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0.0) > 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SWEEP_SIZES)
+def test_sweep_counters_is_one_launch_and_matches_plain(cuda_device, n):
+    """The mask, ``exists`` and the tile counts equal the plain version's,
+    from ONE kernel launch a call (no memset or fill of ``tile_counts``
+    beside it); called directly on tile counts filled with garbage, the
+    kernel writes every tile. ``last_ts`` spans two days either side of
+    the 86400 s TTL."""
+    now = 200_000_000
+    ttl = 86400 * 1024
+    rng = np.random.default_rng(n)
+    arrays = (np.zeros(n, np.float32), np.zeros(n, np.float32),
+              rng.integers(now - 2 * ttl, now + 300, n).astype(np.int32),
+              rng.random(n) < 0.5)
+    plain, card, direct = [
+        K.CounterState(*(torch.tensor(a, device=d) for a in arrays))
+        for d in ("cpu", cuda_device, cuda_device)]
+    want_mask, want_counts = ck.sweep_counters(plain, now)
+    before = dict(ck.launches)
+    got = []
+    kernels = _device_kernels(lambda: got.extend(ck.sweep_counters(card,
+                                                                   now)))
+    assert ck.launches["sweep_counters"] == before["sweep_counters"] + 1
+    assert sum(ck.launches.values()) == sum(before.values()) + 1
+    assert len(kernels) == 1 and sum(kernels.values()) == 1, kernels
+    assert "sweep_counters" in next(iter(kernels)), kernels
+    mask, counts = got
+    np.testing.assert_array_equal(mask.cpu().numpy(), want_mask.numpy())
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_counts.numpy())
+    np.testing.assert_array_equal(card.exists.cpu().numpy(),
+                                  plain.exists.numpy())
+    # The kernel alone, on garbage tile counts.
+    counts = torch.full_like(counts, -12345)
+    mask = torch.full_like(mask, 7)
+    rc = ck._lib("counter").drl_sweep_counters(
+        direct.last_ts.data_ptr(), direct.exists.data_ptr(), mask.data_ptr(),
+        counts.data_ptr(), n, now, ck.TILE,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    np.testing.assert_array_equal(mask.cpu().numpy(), want_mask.numpy())
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_counts.numpy())
+    np.testing.assert_array_equal(direct.exists.cpu().numpy(),
+                                  plain.exists.numpy())
+
+
+@pytest.mark.cuda
+def test_sweep_counters_unaligned_table_takes_the_scalar_path(cuda_device):
+    """Views one slot into their tensors (pointers not 16-byte aligned):
+    the kernel's scalar path gives the plain version's answer."""
+    now, ttl, n = 200_000_000, 86400 * 1024, 40_000
+    rng = np.random.default_rng(5)
+    arrays = (np.zeros(n + 1, np.float32), np.zeros(n + 1, np.float32),
+              rng.integers(now - 2 * ttl, now + 300, n + 1).astype(np.int32),
+              rng.random(n + 1) < 0.5)
+    plain, card = [
+        K.CounterState(*(torch.tensor(a, device=d)[1:] for a in arrays))
+        for d in ("cpu", cuda_device)]
+    want_mask, want_counts = ck.sweep_counters(plain, now)
+    mask, counts = ck.sweep_counters(card, now)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(mask.cpu().numpy(), want_mask.numpy())
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_counts.numpy())
+    np.testing.assert_array_equal(card.exists.cpu().numpy(),
+                                  plain.exists.numpy())
+
+
 # -- windows --------------------------------------------------------------------
 
 W_LIMIT = 20.0
@@ -623,7 +773,6 @@ def _assert_windows_same(card, plain):
                                           (5, ck.window_grouped)])
 def test_window_flush_kernels_match_plain(cuda_device, rows, wrapper, b,
                                           interpolate):
-    b = ck.WINDOW_FLUSH_MAX_BATCH if b == "cap" else b
     plain, card = _windows(7, cuda_device)
     op = _operand(8, rows, b, now=50_377)
     before = dict(ck.launches)

@@ -1,7 +1,7 @@
 """The bucket and window flush kernels' decomposition, on the CPU.
 
-The card's flush kernels (``csrc/decide.cuh``: ``flush_warp_kernel``,
-``flush_block_kernel`` and ``flush_wide_kernel``, instantiated by
+The card's flush kernels (``csrc/decide.cuh``: ``flush_warp_kernel`` and
+``flush_block_kernel``, instantiated by
 ``csrc/acquire.cu`` and ``csrc/window.cu``) decide every row from its slot's
 state as gathered and the host's same-slot prefix (operand row 3), as the
 plain versions (``K.acquire_batch_packed`` and its grouped and window forms)
@@ -20,17 +20,16 @@ state with the int64 sum of the slot's consumption (``c`` a granted row,
   rows, claimed in whatever order the hardware's atomics give: emulated here
   by a seeded permutation of the warps' insert steps), and the row that
   claimed the entry writes the slot;
-- wide (B > 4096, up to the kernels' cap): one block over one hash set for
-  all rows, in scratch; each entry gathers its slot again and writes it.
+- past 4096 rows the kernels refuse a flush (``FLUSH_MAX_BATCH``).
 
 This file emulates that decomposition in numpy and holds it against the
 plain versions and against the JAX package's ``acquire_batch_packed``,
 ``acquire_batch_packed_grouped``, ``window_acquire_batch_packed`` and
 ``window_acquire_batch_packed_grouped`` (sliding and fixed) on seeded
-inputs: B in {1, 8, 12, 32, 33, 64, 256, 257, 4096} (and the wide path at
-5000), over distinct slots, Zipf slots, one hot slot, padding and
-out-of-range slots, zero-count probes, mixed-count groups with nonzero
-row-3 prefixes, and i32 counts above 2^24.
+inputs: B in {1, 8, 12, 32, 33, 64, 256, 257, 4096}, over distinct slots,
+Zipf slots, one hot slot, padding and out-of-range slots, zero-count
+probes, mixed-count groups with nonzero row-3 prefixes, and i32 counts
+above 2^24.
 
 Tolerance. Grants, remaining, ``last_ts`` / ``window_idx``, ``exists`` and
 ``prev_count`` are equal bit for bit. Tokens and ``curr_count`` are equal
@@ -72,7 +71,7 @@ torch.set_num_threads(1)
 
 EMPTY = 2**32 - 1  # the padding key: no slot is >= 2^31
 WARP_ROWS = 32
-BLOCK_ROWS = 4096  # rows a flush block takes; above, the wide path
+BLOCK_ROWS = 4096  # rows a flush block takes: the widest flush
 N = 2**14
 NOW = 50_000
 W = 1024  # window ticks
@@ -196,15 +195,6 @@ def block_steps(m, kt, ipt):
             for w in range(kt // 32) for j in range(ipt)]
 
 
-def wide_steps(b):
-    """The wide flush's insert steps: per round of 1024 x 4 rows, row q of a
-    thread and warp w, the rows base + q * 1024 + t of the warp's lanes."""
-    return [[i for i in range(base + q * 1024 + 32 * w,
-                              base + q * 1024 + 32 * w + 32) if i < b]
-            for base in range(0, b, 4096) for q in range(4)
-            for w in range(32)]
-
-
 def hash_set(keys, used, bits, steps, rng):
     """A hash set of 2^bits entries over ``keys`` (EMPTY for padding):
     at each insert step (a warp's lanes, ``steps``) the lanes of one slot
@@ -247,8 +237,8 @@ def writers(keys, used, rng):
                 peers = keys == keys[lane]
                 out[int(keys[lane])] = (lane, int(used[peers].sum()))
         return out
-    if b > BLOCK_ROWS:  # one set over every row; entries gather again
-        return hash_set(keys, used, hash_bits(b), wide_steps(b), rng)
+    if b > BLOCK_ROWS:
+        raise ValueError(f"a flush holds at most {BLOCK_ROWS} rows, got {b}")
     part = block_of(keys, spread(b))
     kt, ipt = block_config(b)
     out = {}
@@ -464,10 +454,15 @@ def test_flush_decomposition_matches_plain_and_jax(case, b):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("case", ["zipf", "hot", "past_2_24"])
 def test_wide_flush_matches_plain_and_jax(kind, case):
-    """Past 4096 rows (no store sends one): one hash set over every row,
-    each entry gathering its slot again."""
+    """The widest flush, 4096 rows (the store's bulk chunk of one batch at
+    ``max_batch`` 4096: 64 blocks of 1024 x 4), against the plain versions
+    and JAX; past it the kernels take no flush, and neither does the
+    emulation."""
     for grouped in (False, True):
-        _check(kind, case, 5000, grouped)
+        _check(kind, case, BLOCK_ROWS, grouped)
+    keys = np.arange(BLOCK_ROWS + 1, dtype=np.int64)
+    with pytest.raises(ValueError):
+        writers(keys, np.ones_like(keys), np.random.default_rng(0))
 
 
 def test_partition_spreads_and_meets():

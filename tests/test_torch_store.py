@@ -243,7 +243,8 @@ def test_bulk_chunk_is_one_scan_wrapper_call(monkeypatch, max_count,
                                              with_remaining):
     """The scanned bulk lane hands each chunk's whole operand to the scan
     wrapper in one call (fused u8 for counts ≤ 255, else i32[2, K, B]) and
-    computes no duplicate prefix itself."""
+    computes no duplicate prefix itself; the last chunk, of one batch, is
+    one flush of its 10 rows padded to 16 (``i32[4, 16]``)."""
     calls = []
 
     def scan(state, operand, nows_k, capacity, rate, *, with_remaining):
@@ -255,14 +256,19 @@ def test_bulk_chunk_is_one_scan_wrapper_call(monkeypatch, max_count,
             return torch.ones((k, 2, b))
         return torch.full((k, b // 8), 255, dtype=torch.uint8)
 
+    def flush(state, packed, capacity, rate):
+        calls.append((packed.dtype, tuple(packed.shape)))
+        return torch.ones((2, packed.shape[1]))
+
     def no_prefix(*args, **kwargs):
         raise AssertionError("the bulk lane computed a duplicate prefix")
 
     monkeypatch.setattr(ck, "acquire_scan_packed", scan)
+    monkeypatch.setattr(ck, "acquire_packed", flush)
     monkeypatch.setattr(tbm, "duplicate_prefix", no_prefix)
     store = _port(ManualClock(0), n_slots=2**14, max_batch=64,
                   coalesce_duplicates=False)
-    n = 2 * 32 * 64 + 10  # two K = 32 chunks and a K = 1 tail
+    n = 2 * 32 * 64 + 10  # two K = 32 chunks and a one-batch tail
     counts = np.random.default_rng(0).integers(1, max_count + 1, n)
     res = store.acquire_many_blocking([f"k{i}" for i in range(n)], counts,
                                       10.0, 1.0,
@@ -272,7 +278,7 @@ def test_bulk_chunk_is_one_scan_wrapper_call(monkeypatch, max_count,
     dtype = torch.uint8 if fused else torch.int32
     assert calls == [
         (dtype, (k, 64, 5) if fused else (2, k, 64), (k,), with_remaining)
-        for k in (32, 32, 1)]
+        for k in (32, 32)] + [(torch.int32, (4, 16))]
 
 
 # -- decaying counters -------------------------------------------------------
