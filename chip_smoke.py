@@ -69,9 +69,18 @@ Phases (any failure raises, and the script exits non-zero):
    fractional adds, within r spacings of its float32 value (the plain
    version's adds on the card are atomic; the kernels round each slot's
    exact sum once); every window result and state field equal
-   (whole-number counts). Time each
-   (median of CUDA-event timings, and device time from ``torch.profiler``)
-   beside the plain version and the bound.
+   (whole-number counts). The bench's kernels at its widths, each against
+   its plain version on a CPU copy of the same 10M-slot table:
+   ``acquire_scan_packed24`` at 32 x 8192 (two launches; uniform slots as
+   the bench sends, and Zipf(1.2); 2% ``SLOT24_PAD``, 1% ids >= N),
+   ``acquire_scan_compact_fused`` at 16 x 8192 (one launch; count 1, and
+   Zipf with counts 0-3), ``acquire_batch`` at B = 8192 and at B = 8 and 64
+   with Zipf repeats, with and without the duplicate serialization (the
+   latter beside the flush on the same rows with prefix 0, which must
+   decide alike): grants, remaining and integer state equal, tokens equal
+   (without the serialization within r spacings for r rows of a slot).
+   Time each (median of CUDA-event timings, and device time from
+   ``torch.profiler``) beside the plain version and the bound.
 3. The main path at full size: ``PartitionedRateLimiter`` over
    ``DeviceBucketStore(device="cuda", n_slots=2**24)`` — ``acquire_many``
    over 10,000,000 distinct keys, one more bulk chunk under
@@ -151,16 +160,21 @@ Phases (any failure raises, and the script exits non-zero):
    distributedratelimiting.redis_tpu_torch.runtime.server --port 0 --slots
    1048576 --sweep-period 1`` as a subprocess: its listening line, ping,
    cap-5 × 32 → 5, ``OP_STATS`` keys, SIGTERM → exit 0.
-9. Print ``{"kernels": [...]}``: per kernel (14) its launches on each path
-   of phases 3–7 (``launches_by_path``; counts set to 0 before each path
-   and read after it; > 0 on the path the kernel serves, and every kernel
-   that a wire op reaches > 0 on the server path — all but
+9. The bench path: ``redis_tpu_torch/bench.py``'s headline, compact and
+   single-batch sections at their full widths (10M slots, 32 x 8192, 16 x
+   8192, B = 8192), five timed dispatches each; the launches must be the
+   sections' dispatches exactly, and the table sane after them.
+10. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
+   of phases 3–7 and 9 (``launches_by_path``; counts set to 0 before each
+   path and read after it; > 0 on the path the kernel serves, and every
+   kernel that a wire op reaches > 0 on the server path — all but
    ``debit_packed``, which no wire op reaches until tier-0 and the
-   reservations are ported) and their sum (``launches``), the flushes',
+   reservations are ported, and the bench's ``acquire_scan24`` and
+   ``acquire_batch``) and their sum (``launches``), the flushes',
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-10. Last line: ``{"ok": true, "device": {...}}``.
+11. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -525,6 +539,11 @@ def kernel_phase(torch, K, ck, dev):
         res[row["kernel"]].setdefault("shapes", {})[row["shape"]] = row
     torch.cuda.empty_cache()
     res.update(admission_cases(torch, K, ck, dev, rng))
+    torch.cuda.empty_cache()
+    bench_res = bench_cases(torch, K, ck, dev, rng)
+    res["acquire_scan"].setdefault("shapes", {}).update(
+        bench_res.pop("compact_shapes"))
+    res.update(bench_res)
     return res
 
 
@@ -3586,6 +3605,276 @@ async def admission_path(torch, ck, pkg, card: str) -> dict:
     return counts
 
 
+#: The bench's shapes (``redis_tpu_torch/bench.py``): a 10M-slot table, K =
+#: 32 batches of 8192 in the 3-byte operand (two scan launches), K = 16 in
+#: the 5-byte operand (one), and one batch of 8192 for ``acquire_batch``.
+BENCH_N_SLOTS = 10_000_000
+BENCH_BATCH = 8192
+BENCH_SCAN_K = 32
+BENCH_COMPACT_K = 16
+#: Timed dispatches of each bench section on the bench path (one window).
+BENCH_ITERS = 5
+#: The smaller widths ``acquire_batch`` is held at, with Zipf repeats, and
+#: timed beside the flush the store would take at them (prefix 0).
+BENCH_SMALL_B = (8, 64)
+
+
+def _check_within_adds(what, slots, got, want) -> float:
+    """Tokens after ``acquire_batch`` without the duplicate serialization: a
+    slot's rows all decide from its refilled balance; the kernel subtracts
+    their int64 consumption once, the plain version row by row, so a
+    balance driven far below zero may round differently. Each slot within
+    r float32 spacings for r rows; a slot with one row equal. Returns the
+    largest error."""
+    n = len(got)
+    slots = slots[(slots >= 0) & (slots < n)]
+    reps = np.bincount(slots, minlength=n)
+    mag = np.maximum(np.abs(got), np.abs(want)).astype(np.float32)
+    tol = np.where(reps > 1, reps, 0) * np.spacing(mag).astype(np.float64)
+    err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    if (err > tol).any():
+        raise AssertionError(f"{what}: {int((err > tol).sum())} slots past "
+                             f"r spacings")
+    return float(err.max())
+
+
+def bench_cases(torch, K, ck, dev, rng) -> dict:
+    """The bench's kernels against their plain versions, each run on a CPU
+    copy of the same state, at the bench's widths: ``acquire_scan_packed24``
+    (32 x 8192 on 10M slots: two launches), ``acquire_scan_compact_fused``
+    (16 x 8192, a shape of ``acquire_scan``), ``acquire_batch`` at B = 8192
+    with both ``handle_duplicates`` and at B = 8 and 64 with Zipf repeats,
+    the last beside the flush on the same rows with prefix 0. Grants,
+    remaining and integer state bit-equal; tokens bit-equal with the
+    duplicate serialization (whole counts below 2^24 of demand), within r
+    spacings without it."""
+    res = {}
+    n, now, cap, rate = BENCH_N_SLOTS, 5_000_000, 100.0, 50.0 / 1024
+    arrays = (rng.uniform(0, cap, n).astype(np.float32),
+              rng.integers(now - 3000, now, n).astype(np.int32),
+              rng.random(n) < 0.7)
+
+    def tables():
+        return (K.BucketState(*(torch.tensor(a) for a in arrays)),
+                K.BucketState(*(torch.tensor(a, device=dev) for a in arrays)))
+
+    def same_state(what, card, plain):
+        for field in plain._fields:
+            _check_equal(f"{what} {field}", getattr(card, field),
+                         getattr(plain, field))
+
+    k, b = BENCH_SCAN_K, BENCH_BATCH
+    nows = torch.tensor([now + 7 * (i // 4) for i in range(k)],
+                        dtype=torch.int32)
+    nows_d = nows.to(dev)
+
+    # -- acquire_scan_packed24 at 32 x 8192 (the bench's uniform slots) and
+    # Zipf(1.2) slots; 2% SLOT24_PAD, 1% ids >= N ---------------------------
+    for label in ("uniform (the bench)", "Zipf(1.2)"):
+        if label.startswith("uniform"):
+            slots = rng.integers(0, n, (k, b))
+        else:
+            slots = np.minimum(rng.zipf(1.2, (k, b)) - 1, n - 1)
+        slots[rng.random((k, b)) < 0.02] = K.SLOT24_PAD
+        slots[rng.random((k, b)) < 0.01] = n + 3
+        op = torch.from_numpy(K.pack_slots24(slots))
+        op_d = op.to(dev)
+        ps, ks = tables()
+        before = ck.launches["acquire_scan24"]
+        got = ck.acquire_scan_packed24(ks, op_d, nows_d, cap, rate)
+        if ck.launches["acquire_scan24"] != before + 2:
+            raise AssertionError("acquire_scan_packed24 at 32 x 8192: not "
+                                 "two launches")
+        want = ck.acquire_scan_packed24(ps, op, nows, cap, rate)
+        torch.cuda.synchronize()
+        _check_equal(f"acquire_scan24 {label} out", got, want)
+        same_state(f"acquire_scan24 {label}", ks, ps)
+        granted = int(want[:, 0].sum())
+        if not 0 < granted < k * b:
+            raise AssertionError(f"acquire_scan24 {label}: {granted} granted")
+        live = slots[slots < n]
+        d = len(np.unique(live))
+        call = functools.partial(ck.acquire_scan_packed24, ks, op_d, nows_d,
+                                 cap, rate)
+        nbytes, ops = 3 * k * b + 4 * k + 8 * k * b + 18 * d, 15 * k * b
+        row = _scan_row(call, nbytes, ops, 0.0)
+        if label.startswith("uniform"):
+            pc = K.BucketState(*(torch.tensor(a, device=dev)
+                                 for a in arrays))
+            row["plain_ms"] = _median_ms(functools.partial(
+                K.acquire_scan_packed24, pc, op_d, nows_d, cap, rate),
+                reps=3, warmup=1)
+            res["acquire_scan24"] = dict(row, library_ms=None, bytes=nbytes,
+                                         ops=ops)
+            del pc
+        else:
+            res["acquire_scan24"]["shapes"] = {label: row}
+        print(f"acquire_scan_packed24 K={k} B={b} on {n} slots, {label} "
+              f"({d} distinct slots, {granted} granted): two launches, equal "
+              f"to plain; {row['ms']:.4f} ms (device time {row['device_ms']} "
+              f"ms, bound {row['bound_ms']:.5f})")
+        del ps, ks
+    torch.cuda.empty_cache()
+
+    # -- acquire_scan_compact_fused at 16 x 8192 (a shape of acquire_scan) --
+    kc = BENCH_COMPACT_K
+    for label, counts in (("uniform, count 1 (the bench)", None),
+                          ("Zipf(1.2), counts 0-3", "zipf")):
+        if counts is None:
+            slots = rng.integers(0, n, (kc, b)).astype(np.int32)
+            cnt = np.ones((kc, b), np.uint8)
+        else:
+            slots = np.minimum(rng.zipf(1.2, (kc, b)) - 1, n - 1).astype(
+                np.int32)
+            cnt = rng.integers(0, 4, (kc, b)).astype(np.uint8)
+        slots[rng.random((kc, b)) < 0.02] = -1
+        op = torch.from_numpy(K.pack_compact5(slots, cnt))
+        op_d = op.to(dev)
+        ps, ks = tables()
+        before = ck.launches["acquire_scan"]
+        got = ck.acquire_scan_compact_fused(ks, op_d, nows_d[:kc], cap, rate)
+        if ck.launches["acquire_scan"] != before + 1:
+            raise AssertionError("acquire_scan_compact_fused at 16 x 8192: "
+                                 "not one launch")
+        want = ck.acquire_scan_compact_fused(ps, op, nows[:kc], cap, rate)
+        torch.cuda.synchronize()
+        _check_equal(f"compact_fused {label} out", got, want)
+        same_state(f"compact_fused {label}", ks, ps)
+        d = len(np.unique(slots[slots >= 0]))
+        row = _scan_row(functools.partial(
+            ck.acquire_scan_compact_fused, ks, op_d, nows_d[:kc], cap, rate),
+            5 * kc * b + 4 * kc + 8 * kc * b + 18 * d, 15 * kc * b, 0.0)
+        res.setdefault("compact_shapes", {})[
+            f"compact_fused {kc} x {b}, {label}"] = row
+        print(f"acquire_scan_compact_fused K={kc} B={b}, {label}: one "
+              f"launch, equal to plain; {row['ms']:.4f} ms (device time "
+              f"{row['device_ms']} ms)")
+        del ps, ks
+    torch.cuda.empty_cache()
+
+    # -- acquire_batch: B = 8192 (the bench's slots), both flags; B = 8 and
+    # 64 with Zipf repeats, both flags, beside the flush ---------------------
+    shapes = {}
+    for bb, label in ((b, "uniform"), *((x, "Zipf(1.2)")
+                                        for x in BENCH_SMALL_B)):
+        if label == "uniform":
+            slots = rng.integers(0, n, bb).astype(np.int32)
+            cnt = np.ones(bb, np.int32)
+        else:
+            slots = (np.minimum(rng.zipf(1.2, bb) - 1, 50)
+                     * 1009).astype(np.int32)
+            cnt = rng.integers(0, 4, bb).astype(np.int32)
+        valid = rng.random(bb) < 0.97
+        args = [torch.from_numpy(a) for a in (slots, cnt, valid)]
+        args_d = [a.to(dev) for a in args]
+        for dup in (False, True):
+            ps, ks = tables()
+            before = ck.launches["acquire_batch"]
+            got = ck.acquire_batch(ks, *args_d, now, cap, rate,
+                                   handle_duplicates=dup)
+            if ck.launches["acquire_batch"] != before + 1:
+                raise AssertionError("acquire_batch: not one launch")
+            want = ck.acquire_batch(ps, *args, now, cap, rate,
+                                    handle_duplicates=dup)
+            torch.cuda.synchronize()
+            what = f"acquire_batch B={bb} {label} dup={dup}"
+            _check_equal(f"{what} out", got, want)
+            for field in ("last_ts", "exists"):
+                _check_equal(f"{what} {field}", getattr(ks, field),
+                             getattr(ps, field))
+            if dup:
+                _check_equal(f"{what} tokens", ks.tokens, ps.tokens)
+                err = 0.0
+            else:
+                err = _check_within_adds(what, slots[valid],
+                                         ks.tokens.cpu().numpy(),
+                                         ps.tokens.numpy())
+            flush_ms = None
+            if not dup and bb <= ck.FLUSH_MAX_BATCH:
+                # The flush on the same rows with prefix 0 decides alike:
+                # its time is what a row-sized route would cost.
+                packed = np.zeros((4, bb), np.int32)
+                packed[0] = np.where(valid, slots, -1)
+                packed[1], packed[2] = cnt, now
+                packed_d = torch.from_numpy(packed).to(dev)
+                fs = K.BucketState(*(torch.tensor(a, device=dev)
+                                     for a in arrays))
+                fout = ck.acquire_packed(fs, packed_d, cap, rate)
+                torch.cuda.synchronize()
+                _check_equal(f"{what} flush route out", fout, got)
+                _check_equal(f"{what} flush route tokens", fs.tokens,
+                             ks.tokens)
+                flush_ms = _device_ms(functools.partial(
+                    ck.acquire_packed, fs, packed_d, cap, rate),
+                    FLUSH_KERNELS)
+                del fs
+            d = len(np.unique(slots[valid]))
+            call = functools.partial(ck.acquire_batch, ks, *args_d, now, cap,
+                                     rate, handle_duplicates=dup)
+            row = _scan_row(call, 13 * bb + 8 * bb + 18 * d, 15 * bb, err)
+            shape = f"B={bb}, {label}, handle_duplicates={dup}"
+            if flush_ms is not None:
+                row["flush_route_device_ms"] = flush_ms
+            if bb == b and not dup:
+                pc = K.BucketState(*(torch.tensor(a, device=dev)
+                                     for a in arrays))
+                plain_ms = _median_ms(functools.partial(
+                    K.acquire_batch, pc, *args_d, now, cap, rate,
+                    handle_duplicates=False), reps=5, warmup=1)
+                del pc
+                res["acquire_batch"] = dict(
+                    row, plain_ms=plain_ms, library_ms=None,
+                    bytes=13 * bb + 8 * bb + 18 * d, ops=15 * bb)
+            else:
+                shapes[shape] = row
+            print(f"{what}: one launch, equal to plain (tokens max err "
+                  f"{err:.3g}); {row['ms']:.4f} ms (device time "
+                  f"{row['device_ms']} ms; flush route "
+                  f"{row.get('flush_route_device_ms', 'n/a')} ms)")
+            del ps, ks
+    res["acquire_batch"]["shapes"] = shapes
+    torch.cuda.empty_cache()
+    return res
+
+
+async def bench_path(torch, ck, pkg, card: str) -> dict:
+    """The port's bench (``redis_tpu_torch/bench.py``), its headline,
+    compact and single-batch sections at their full widths on the 10M-slot
+    table, ``BENCH_ITERS`` dispatches each in one window; returns the kernel
+    launches they made."""
+    from distributedratelimiting.redis_tpu_torch import bench
+
+    dev = torch.device("cuda")
+    clock = pkg.MonotonicClock()
+    ck.reset_launches()
+    rate, state, detail = bench.bench_kernel_throughput(
+        dev, clock, iters=BENCH_ITERS, windows=1)
+    compact = bench.bench_compact_throughput(state, dev, clock,
+                                             iters=BENCH_ITERS, windows=1)
+    single = bench.bench_single_batch(state, dev, clock, iters=BENCH_ITERS,
+                                      windows=1)
+    torch.cuda.synchronize()
+    counts = dict(ck.launches)
+    # Warm-up, the timed window and the headline's profiled dispatches.
+    want = {"acquire_scan24": 2 * (1 + BENCH_ITERS + detail["profiled"]),
+            "acquire_scan": 1 + BENCH_ITERS,
+            "acquire_batch": 1 + BENCH_ITERS}
+    got = {name: counts[name] for name in want}
+    if got != want or sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"bench path launches {counts}, want {want}")
+    tokens = state.tokens
+    live = int(state.exists.sum())
+    if not (bool(torch.isfinite(tokens).all())
+            and float(tokens.max()) <= bench.CAPACITY and live > 0):
+        raise AssertionError("bench path: table not sane after the sections")
+    print(f"bench path ({card}), {BENCH_ITERS} dispatches a section: "
+          f"headline {rate:.0f} decisions/s, compact {compact:.0f}, single "
+          f"batch {single:.0f}; headline {detail}; {live} live slots")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
 #: Wrappers whose launches :func:`_record_sizes` counts by operand width,
 #: by the kernel's name: B for a flush, a sync or a debit; K x B rows for a
 #: bulk-lane scan.
@@ -3666,7 +3955,7 @@ def main() -> int:
     sizes_by_path = {}
     for name, path in (("exact", main_path), ("approximate", approximate_path),
                        ("window", window_path), ("admission", admission_path),
-                       ("server", server_path)):
+                       ("server", server_path), ("bench", bench_path)):
         t = time.perf_counter()
         before = {k: dict(v) for k, v in sizes.items()}
         by_path[name] = asyncio.run(path(torch, ck, pkg, card))
@@ -3695,10 +3984,12 @@ def main() -> int:
               "window_packed": "window", "window_grouped": "window",
               "window_scan": "window", "sweep_windows": "window",
               "sema_packed": "admission", "sweep_semas": "admission",
-              "acquire_hierarchical": "admission", "debit_packed": "exact"}
+              "acquire_hierarchical": "admission", "debit_packed": "exact",
+              "acquire_scan24": "bench", "acquire_batch": "bench"}
     # No wire op reaches the debit until tier-0 and the reservations are
-    # ported: it is exempt from the server-path rule.
-    no_wire_op = {"debit_packed"}
+    # ported, nor the bench's two kernels: they are exempt from the
+    # server-path rule.
+    no_wire_op = {"debit_packed", "acquire_scan24", "acquire_batch"}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
@@ -3713,7 +4004,9 @@ def main() -> int:
                "sema_packed": "csrc/sema.cu",
                "sweep_semas": "csrc/sema.cu",
                "acquire_hierarchical": "csrc/admission.cu",
-               "debit_packed": "csrc/admission.cu"}
+               "debit_packed": "csrc/admission.cu",
+               "acquire_scan24": "csrc/acquire.cu",
+               "acquire_batch": "csrc/acquire.cu"}
     replaces = {
         "sweep_expired":
             "distributedratelimiting/redis_tpu/ops/pallas_kernels.py:80",
@@ -3748,6 +4041,12 @@ def main() -> int:
             "distributedratelimiting/redis_tpu/ops/kernels.py:945",
         "debit_packed":
             "distributedratelimiting/redis_tpu/ops/kernels.py:1033",
+        # The scan's 3-byte operand (the bench's headline).
+        "acquire_scan24":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:573",
+        # core acquire_core (:153); the scan at K = 1 over separate arrays.
+        "acquire_batch":
+            "distributedratelimiting/redis_tpu/ops/kernels.py:197",
     }
     kernels = []
     for name, r in res.items():
@@ -3770,8 +4069,10 @@ def main() -> int:
             kernels[-1]["launch_sizes"] = {
                 str(b): c for b, c in sorted(sizes[name].items())}
         if name in no_wire_op:
-            kernels[-1]["server_path"] = ("exempt: no wire op reaches it "
-                                          "until tier-0 is ported")
+            kernels[-1]["server_path"] = (
+                "exempt: the bench's kernel, no wire op" if serves[name] ==
+                "bench" else "exempt: no wire op reaches it until tier-0 is "
+                "ported")
     print(json.dumps({"kernels": kernels}))
     # Each kernel launched on the path it serves, and the server path drives
     # every kernel that a wire op reaches.

@@ -5,11 +5,30 @@
 //   drl_acquire_packed  <- acquire_batch_packed (one serving flush);
 //   drl_acquire_grouped <- acquire_batch_packed_grouped (coalesced flush);
 //   drl_acquire_scan    <- acquire_scan_fused_packed / acquire_scan_fused_bits
-//                          (fused u8[K, B, 5] operand) and
-//                          acquire_scan_compact_packed (i32 counts): the bulk
+//                          and acquire_scan_compact_fused (fused u8[K, B, 5]
+//                          operand), acquire_scan_compact_packed (i32
+//                          counts) and acquire_scan_packed24 (u8[K, B, 3]
+//                          unit requests, the bench's headline): the bulk
 //                          lane's K batches decided in order, each with its
 //                          in-batch duplicate prefix, as the JAX lax.scan of
-//                          acquire_core does.
+//                          acquire_core does;
+//   drl_acquire_batch   <- acquire_batch (core acquire_core): one batch from
+//                          separate slots, counts and valid arrays and a
+//                          by-value tick, with or without the in-batch
+//                          duplicate prefix (handle_duplicates).
+//
+// acquire_batch's design. It takes B <= 8192 (the bench's single batch), and
+// with handle_duplicates it needs the in-batch prefix, which the flush takes
+// from the host: so it is the scan at K = 1 over the separate arrays (format
+// kOpArrays), one cooperative launch, whose grid-wide hash set meets a slot's
+// rows wherever they lie. The flush cannot take it: a slot's rows must meet
+// in one block, and one block holds 4096 rows (1024 threads of 4; 8 rows a
+// thread would need more than the 64 registers a thread of 1024 may have).
+// Without handle_duplicates every row's prefix is 0 (the scan's dup flag):
+// a slot's rows all decide from its refilled balance, and its one writer
+// applies the int64 sum of every granted count once, so the balance may go
+// below zero, as in JAX. The price is the scan's fixed phases at small B
+// (PERF.md: a K = 1 scan of 8 rows ~0.006 ms against a flush's ~0.0016).
 //
 // The kernels, their operands and their design are decide.cuh's, shared with
 // the window kernels (window.cu); this file holds the token bucket's rule for
@@ -120,18 +139,44 @@ extern "C" int drl_acquire_grouped(float* tokens, int32_t* last_ts,
 }
 
 // Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], in a 4-byte
-// aligned allocation rounded up to whole 4-byte words) is non-null; scratch
-// holds drl_scan_scratch_bytes(n_batches, b) bytes.
+// aligned allocation rounded up to whole 4-byte words) is non-null; fmt is
+// decide.cuh's kOpI32 (0), kOpFused5 (1) or kOpSlots24 (2); scratch holds
+// drl_scan_scratch_bytes(n_batches, b) bytes.
 extern "C" int drl_acquire_scan(float* tokens, int32_t* last_ts,
                                 uint8_t* exists, int32_t n_slots,
-                                const void* operand, int32_t fused,
+                                const void* operand, int32_t fmt,
                                 const int32_t* nows_k, int32_t n_batches,
                                 int32_t b, float cap, float rate, float* out,
                                 uint8_t* bits, void* scratch,
                                 cudaStream_t stream) {
+  if (fmt == drl::kOpSlots24) {  // the bench's operand: the wide kernel
+    const drl::ScanOp op{static_cast<const unsigned char*>(operand), nullptr,
+                         nullptr, fmt, 0};
+    return drl::launch_scan<BucketPolicy, true>(
+        {tokens, last_ts, exists}, n_slots, op, true, nows_k, n_batches, b,
+        {cap, rate}, out, bits, scratch, stream);
+  }
   return drl::launch_scan_any<BucketPolicy>(
-      {tokens, last_ts, exists}, n_slots, operand, fused, nows_k, n_batches, b,
+      {tokens, last_ts, exists}, n_slots, operand, fmt, nows_k, n_batches, b,
       {cap, rate}, out, bits, scratch, stream);
+}
+
+// One batch of b rows (slots i32[b], counts i32[b], valid bool[b]) at tick
+// now; dup != 0 serializes a slot's rows by their in-batch prefix. out is
+// f32[2, b] (grants, remaining); scratch holds drl_scan_scratch_bytes(1, b)
+// bytes.
+extern "C" int drl_acquire_batch(float* tokens, int32_t* last_ts,
+                                 uint8_t* exists, int32_t n_slots,
+                                 const int32_t* slots, const int32_t* counts,
+                                 const uint8_t* valid, int32_t now, int32_t b,
+                                 int32_t dup, float cap, float rate,
+                                 float* out, void* scratch,
+                                 cudaStream_t stream) {
+  const drl::ScanOp op{reinterpret_cast<const unsigned char*>(slots), counts,
+                       valid, drl::kOpArrays, now};
+  return drl::launch_scan<BucketPolicy, true>(
+      {tokens, last_ts, exists}, n_slots, op, dup != 0, nullptr, 1, b,
+      {cap, rate}, out, nullptr, scratch, stream);
 }
 
 extern "C" int64_t drl_scan_scratch_bytes(int32_t n_batches, int32_t b) {

@@ -31,7 +31,10 @@
 //            read), row 3 the host's same-slot demand prefix;
 //   grouped  i32[5, B]: rows 0-3 as above, row 4 the group size n;
 //   scan     u8[K, B, 5] (bytes 0-3 the little-endian slot, byte 4 the
-//            count) or i32[2, K, B] (slots, counts), and nows i32[K].
+//            count), i32[2, K, B] (slots, counts), u8[K, B, 3] (a 24-bit
+//            little-endian slot, count 1, 0xFFFFFF padding) or separate
+//            slots, counts and valid arrays (ScanOp, below), and nows i32[K];
+//            with dup false every row's same-batch prefix is 0.
 // Results: f32[2, B] (flush, grouped) or f32[K, 2, B] (scan): row 0 the grant
 // (0/1) or n_granted, row 1 remaining; or, for a verdict-only scan, the
 // grants bit-packed little-endian within each byte, u8[K, B / 8].
@@ -543,23 +546,88 @@ __host__ __device__ inline ScanScratch scan_scratch(void* base, int64_t rows,
   return S;
 }
 
-// Row g's slot and count: fused u8[K, B, 5] (bytes 0-3 the little-endian
-// slot, byte 4 the count) or i32[2, K, B] (slots, then counts).
-__device__ __forceinline__ int32_t op_slot(const unsigned char* op,
-                                           bool fused, int64_t g) {
-  if (fused) {
-    const unsigned char* p = op + 5 * g;
-    return (int32_t)((uint32_t)p[0] | ((uint32_t)p[1] << 8) |
-                     ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24));
-  }
-  return reinterpret_cast<const int32_t*>(op)[g];
+// A chunk's operand, in one of four formats (the entry points pass the
+// format's number):
+//   kOpI32     i32[2, K, B]: slots, then counts;
+//   kOpFused5  u8[K, B, 5]: bytes 0-3 the little-endian slot, byte 4 the
+//              count;
+//   kOpSlots24 u8[K, B, 3]: the little-endian 24-bit slot, count 1; the id
+//              0xFFFFFF (SLOT24_PAD) is padding and reads as -1;
+//   kOpArrays  separate i32 slots (op), i32 counts and bool valid, each
+//              [K * B]: an invalid row reads slot -1.
+// Each batch's tick is nows_k[k], or, where nows_k is null, the operand's
+// `now` (one batch whose tick the host passes by value).
+// A slot < 0 or >= N is padding: it is denied and touches no state.
+// The scan kernel is compiled twice per policy, by kWide: the store's bulk
+// lane (kOpI32 or kOpFused5, nows_k, the duplicate prefix) as it always was,
+// and a wide form that takes every format, a by-value tick and dup false.
+// The bench's formats take the wide one, so the store's scan keeps its
+// registers (one kernel over all four spilled ~5x more bytes in the window
+// scan, chip_smoke.py's nvcc.log).
+enum : int32_t { kOpI32 = 0, kOpFused5 = 1, kOpSlots24 = 2, kOpArrays = 3 };
+
+struct ScanOp {
+  const unsigned char* op;
+  const int32_t* counts;  // kOpArrays only
+  const uint8_t* valid;   // kOpArrays only
+  int32_t fmt;
+  int32_t now;  // the tick where nows_k is null
+};
+
+template <bool kWide>
+__device__ __forceinline__ int32_t tick_of(const ScanOp& o,
+                                           const int32_t* nows_k, int32_t k) {
+  if constexpr (!kWide) return nows_k[k];
+  return nows_k != nullptr ? nows_k[k] : o.now;
 }
 
-__device__ __forceinline__ int32_t op_count(const unsigned char* op,
-                                            bool fused, int64_t rows,
+// Row g's slot and count (rows = K * B).
+template <bool kWide>
+__device__ __forceinline__ int32_t op_slot(const ScanOp& o, int64_t g) {
+  if constexpr (!kWide) {
+    if (o.fmt == kOpFused5) {
+      const unsigned char* p = o.op + 5 * g;
+      return (int32_t)((uint32_t)p[0] | ((uint32_t)p[1] << 8) |
+                       ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24));
+    }
+    return reinterpret_cast<const int32_t*>(o.op)[g];
+  }
+  switch (o.fmt) {
+    case kOpFused5: {
+      const unsigned char* p = o.op + 5 * g;
+      return (int32_t)((uint32_t)p[0] | ((uint32_t)p[1] << 8) |
+                       ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24));
+    }
+    case kOpSlots24: {
+      const unsigned char* p = o.op + 3 * g;
+      const uint32_t s = (uint32_t)p[0] | ((uint32_t)p[1] << 8) |
+                         ((uint32_t)p[2] << 16);
+      return s == 0xFFFFFFu ? -1 : (int32_t)s;
+    }
+    case kOpArrays:
+      return o.valid[g] ? reinterpret_cast<const int32_t*>(o.op)[g] : -1;
+    default:
+      return reinterpret_cast<const int32_t*>(o.op)[g];
+  }
+}
+
+template <bool kWide>
+__device__ __forceinline__ int32_t op_count(const ScanOp& o, int64_t rows,
                                             int64_t g) {
-  if (fused) return op[5 * g + 4];
-  return reinterpret_cast<const int32_t*>(op)[rows + g];
+  if constexpr (!kWide) {
+    if (o.fmt == kOpFused5) return o.op[5 * g + 4];
+    return reinterpret_cast<const int32_t*>(o.op)[rows + g];
+  }
+  switch (o.fmt) {
+    case kOpFused5:
+      return o.op[5 * g + 4];
+    case kOpSlots24:
+      return 1;
+    case kOpArrays:
+      return o.counts[g];
+    default:
+      return reinterpret_cast<const int32_t*>(o.op)[rows + g];
+  }
 }
 
 // Count n rows of slot s in the chunk's hash set (open addressing, linear
@@ -647,11 +715,11 @@ struct ScanShared {
 
 // What every walker reads: the table, the chunk's operand, ticks and
 // results, and the repeated slots' rows in slot-major order.
-template <class P>
+template <class P, bool kWide>
 struct Chunk {
   typename P::Table T;
-  const unsigned char* op;
-  bool fused;
+  ScanOp op;
+  bool dup;  // false (kWide only): every row's same-batch prefix is 0
   int64_t rows;
   const int32_t* nows_k;
   int32_t b;
@@ -661,7 +729,16 @@ struct Chunk {
   const int32_t* sorted;
 
   __device__ int32_t count(int64_t g) const {
-    return op_count(op, fused, rows, g);
+    return op_count<kWide>(op, rows, g);
+  }
+  __device__ int32_t tick(int32_t k) const {
+    return tick_of<kWide>(op, nows_k, k);
+  }
+  // A row's prefix: its same-batch earlier demand, or 0 without the
+  // duplicate serialization.
+  __device__ float pre(long long demand) const {
+    if constexpr (!kWide) return __ll2float_rn(demand);
+    return dup ? __ll2float_rn(demand) : 0.0f;
   }
   __device__ void emit(int64_t g, bool ok, float remaining) const {
     drl::emit(out, bits, b, g, ok, remaining);
@@ -671,8 +748,8 @@ struct Chunk {
 // A short repeated slot (at most kThreadSeg rows), walked by one thread: its
 // rows load at once (placed in no order), a sorting network puts them in
 // (k, row) order, and the chain runs in registers.
-template <class P>
-__device__ void walk_short(const Chunk<P>& ch, int32_t slot, int32_t base,
+template <class P, bool kW>
+__device__ void walk_short(const Chunk<P, kW>& ch, int32_t slot, int32_t base,
                            int32_t len) {
   int32_t gs[kThreadSeg], cs[kThreadSeg];
 #pragma unroll
@@ -702,13 +779,13 @@ __device__ void walk_short(const Chunk<P>& ch, int32_t slot, int32_t base,
       const int32_t k = gs[j] / ch.b;
       if (k != cur_k) {  // the slot's next batch: carry, then advance
         if (cur_k >= 0) old = P::carry(sl, now, consumed);
-        now = ch.nows_k[k];
+        now = ch.tick(k);
         sl = P::advance(old, now, ch.prm);
         run = 0;
         consumed = 0;
         cur_k = k;
       }
-      const float pre = __ll2float_rn(run);
+      const float pre = ch.pre(run);
       const float c = __int2float_rn(cs[j]);
       const bool ok = P::fits(sl, now, ch.prm, pre, c);
       ch.emit(gs[j], ok,
@@ -738,8 +815,8 @@ __device__ __forceinline__ long long warp_sum(long long v) {
 // a segmented warp scan, and the groups go in order: every lane computes the
 // group's advanced state (the same value), the group's lanes decide, and a
 // warp sum gives the group's grants.
-template <class P>
-__device__ void walk_warp(const Chunk<P>& ch, int32_t slot, int32_t base,
+template <class P, bool kW>
+__device__ void walk_warp(const Chunk<P, kW>& ch, int32_t slot, int32_t base,
                           int32_t len, int32_t* buf) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1;
@@ -788,7 +865,7 @@ __device__ void walk_warp(const Chunk<P>& ch, int32_t slot, int32_t base,
       const long long up = __shfl_up_sync(kFullMask, incl, d);
       if (lane - d >= start) incl += up;
     }
-    const float pre = __ll2float_rn(incl - c);
+    const float pre = ch.pre(incl - c);
     const float cf = __int2float_rn(c);
     unsigned left = __ballot_sync(kFullMask, in);
     const int last = 31 - __clz(left);
@@ -797,7 +874,7 @@ __device__ void walk_warp(const Chunk<P>& ch, int32_t slot, int32_t base,
       const int32_t kg = __shfl_sync(kFullMask, k, first);
       if ((heads >> first) & 1) {  // the slot's next batch
         if (cur_k >= 0) old = P::carry(sl, now, consumed);
-        now = ch.nows_k[kg];
+        now = ch.tick(kg);
         sl = P::advance(old, now, ch.prm);
         consumed = 0;
         cur_k = kg;
@@ -826,8 +903,8 @@ __device__ void walk_warp(const Chunk<P>& ch, int32_t slot, int32_t base,
 // go in order, each deciding its rows in parallel from its advanced state and
 // summing its grants per warp, which warp 0 adds up before thread 0 carries
 // the slot into the next group: two barriers a group.
-template <class P>
-__device__ void walk_long(ScanShared<P>& sh, const Chunk<P>& ch,
+template <class P, bool kW>
+__device__ void walk_long(ScanShared<P>& sh, const Chunk<P, kW>& ch,
                           int32_t slot, int32_t base, int32_t len) {
   using Sh = ScanShared<P>;
   auto& w = sh.u.walk;
@@ -894,7 +971,7 @@ __device__ void walk_long(ScanShared<P>& sh, const Chunk<P>& ch,
     for (int j = 0; j < kScanIpt; ++j) {
       if (head[j]) {
         w.gk[seg[j].heads] = k[j];
-        w.gnow[seg[j].heads] = ch.nows_k[k[j]];
+        w.gnow[seg[j].heads] = ch.tick(k[j]);
       }
     }
     if (tid == 0) w.first_head = head[0];
@@ -920,7 +997,7 @@ __device__ void walk_long(ScanShared<P>& sh, const Chunk<P>& ch,
 #pragma unroll
       for (int j = 0; j < kScanIpt; ++j) {
         if (g[j] >= 0 && seg[j].heads == q) {
-          const float pre = __ll2float_rn(seg[j].sum - c[j]);
+          const float pre = ch.pre(seg[j].sum - c[j]);
           const float cf = __int2float_rn(c[j]);
           const bool ok = P::fits(sl, now, ch.prm, pre, cf);
           ch.emit(g[j], ok,
@@ -955,10 +1032,9 @@ __device__ void walk_long(ScanShared<P>& sh, const Chunk<P>& ch,
   __syncthreads();  // the walk arrays are free again
 }
 
-template <class P>
+template <class P, bool kWide>
 __global__ void __launch_bounds__(kScanThreads, 2)
-    scan_kernel(typename P::Table T, int32_t n_slots,
-                const unsigned char* __restrict__ op, bool fused,
+    scan_kernel(typename P::Table T, int32_t n_slots, ScanOp op, bool dup,
                 const int32_t* __restrict__ nows_k, int32_t n_batches,
                 int32_t b, typename P::Params prm, float* __restrict__ out,
                 uint8_t* __restrict__ bits, void* scratch) {
@@ -991,7 +1067,7 @@ __global__ void __launch_bounds__(kScanThreads, 2)
 #pragma unroll
     for (int j = 0; j < kR; ++j) {
       const int64_t g = w0 + j * stride + lane;
-      sl[j] = g < rows ? op_slot(op, fused, g) : -1;
+      sl[j] = g < rows ? op_slot<kWide>(op, g) : -1;
     }
 #pragma unroll
     for (int j = 0; j < kR; ++j) {
@@ -1032,7 +1108,7 @@ __global__ void __launch_bounds__(kScanThreads, 2)
       const int64_t g = w0 + j * stride + lane;
       const int32_t e = g < rows ? S.ent[g] : -1;
       single[j] = e >= 0 && (!repeats || entry_rows(&S.hent[e]) == 1);
-      sl[j] = single[j] ? op_slot(op, fused, g) : -1;
+      sl[j] = single[j] ? op_slot<kWide>(op, g) : -1;
       if (out != nullptr && g < rows && e < 0) {
         emit(out, nullptr, b, g, false, 0.0f);
       }
@@ -1048,9 +1124,9 @@ __global__ void __launch_bounds__(kScanThreads, 2)
       bool ok = false;
       if (single[j]) {
         const int32_t kk = (int32_t)(g / b);
-        const int32_t now = nows_k[kk];
+        const int32_t now = tick_of<kWide>(op, nows_k, kk);
         const typename P::Slot st = P::advance(old[j], now, prm);
-        const int32_t cnt = op_count(op, fused, rows, g);
+        const int32_t cnt = op_count<kWide>(op, rows, g);
         const float c = __int2float_rn(cnt);
         ok = P::fits(st, now, prm, 0.0f, c);
         if (out != nullptr) {
@@ -1225,7 +1301,8 @@ __global__ void __launch_bounds__(kScanThreads, 2)
     __syncthreads();
   }
   if (n_big > 0) cg::this_grid().sync();
-  const Chunk<P> ch{T, op, fused, rows, nows_k, b, prm, out, bits, S.sorted};
+  const Chunk<P, kWide> ch{T, op, dup, rows, nows_k, b, prm, out, bits,
+                           S.sorted};
 
   // 5. Walk every repeated slot: the long ones a block each, taken from a
   //    queue, then the middling ones a warp each, then the short ones a
@@ -1239,8 +1316,8 @@ __global__ void __launch_bounds__(kScanThreads, 2)
     __syncthreads();
     if (i >= n_big) break;
     const int32_t d = __ldcg(&S.big[i]);
-    walk_long<P>(sh, ch, __ldcg(&S.seg_slot[d]), __ldcg(&S.seg_base[d]),
-                 __ldcg(&S.seg_len[d]));
+    walk_long<P, kWide>(sh, ch, __ldcg(&S.seg_slot[d]),
+                        __ldcg(&S.seg_base[d]), __ldcg(&S.seg_len[d]));
   }
   // From here every warp takes its own work: a warp segment, or 32 segment
   // numbers whose short segments its lanes walk.
@@ -1250,8 +1327,8 @@ __global__ void __launch_bounds__(kScanThreads, 2)
     i = __shfl_sync(kFullMask, i, 0);
     if (i >= n_mid) break;
     const int32_t d = __ldcg(&S.mid[i]);
-    walk_warp<P>(ch, __ldcg(&S.seg_slot[d]), __ldcg(&S.seg_base[d]),
-                 __ldcg(&S.seg_len[d]), sh.u.warp[tid >> 5]);
+    walk_warp<P, kWide>(ch, __ldcg(&S.seg_slot[d]), __ldcg(&S.seg_base[d]),
+                        __ldcg(&S.seg_len[d]), sh.u.warp[tid >> 5]);
   }
   for (;;) {
     int32_t i = 0;
@@ -1261,8 +1338,8 @@ __global__ void __launch_bounds__(kScanThreads, 2)
     if (d < n_seg) {
       const int32_t len = __ldcg(&S.seg_len[d]);
       if (len <= kThreadSeg) {
-        walk_short<P>(ch, __ldcg(&S.seg_slot[d]), __ldcg(&S.seg_base[d]),
-                      len);
+        walk_short<P, kWide>(ch, __ldcg(&S.seg_slot[d]),
+                             __ldcg(&S.seg_base[d]), len);
       }
     }
   }
@@ -1270,7 +1347,7 @@ __global__ void __launch_bounds__(kScanThreads, 2)
 
 // Resident blocks of one scan kernel instantiation on the current device: a
 // cooperative grid may hold no more. Cached per device.
-template <class P>
+template <class P, bool kWide>
 int scan_grid_limit(int* limit) {
   static int cached[64] = {0};
   int dev = 0;
@@ -1284,7 +1361,7 @@ int scan_grid_limit(int* limit) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, scan_kernel<P>, kScanThreads, 0);
+      &per_sm, scan_kernel<P, kWide>, kScanThreads, 0);
   if (err != cudaSuccess) return (int)err;
   *limit = sms * per_sm;
   if (dev < 64) cached[dev] = *limit;
@@ -1300,30 +1377,51 @@ inline int64_t scan_scratch_bytes(int32_t n_batches, int32_t b) {
 
 // Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], B % 8 == 0, in
 // a 4-byte aligned allocation rounded up to whole 4-byte words) is
-// non-null; scratch holds scan_scratch_bytes(K, B) bytes.
-template <class P>
-int launch_scan_any(typename P::Table T, int32_t n_slots, const void* operand,
-                    int32_t fused, const int32_t* nows_k, int32_t n_batches,
-                    int32_t b, typename P::Params prm, float* out,
-                    uint8_t* bits, void* scratch, cudaStream_t stream) {
+// non-null; scratch holds scan_scratch_bytes(K, B) bytes. The narrow kernel
+// (kWide false) takes kOpI32 or kOpFused5, nows_k and dup true; the wide
+// one every format, a null nows_k (the operand's tick) and dup false, which
+// gives every row prefix 0 (rows of one slot then all decide from its
+// state).
+template <class P, bool kWide>
+int launch_scan(typename P::Table T, int32_t n_slots, const ScanOp& op,
+                bool dup, const int32_t* nows_k, int32_t n_batches, int32_t b,
+                typename P::Params prm, float* out, uint8_t* bits,
+                void* scratch, cudaStream_t stream) {
   if (b <= 0 || n_batches <= 0) return (int)cudaSuccess;
   const int64_t rows = (int64_t)n_batches * b;
   if (rows > kMaxRows) return (int)cudaErrorInvalidValue;
-  const unsigned char* op = static_cast<const unsigned char*>(operand);
-  bool f = fused != 0;
+  const int32_t last = kWide ? kOpArrays : kOpFused5;
+  if (op.fmt < kOpI32 || op.fmt > last) return (int)cudaErrorInvalidValue;
+  if (!kWide && (nows_k == nullptr || !dup)) {
+    return (int)cudaErrorInvalidValue;
+  }
   int limit = 0;
-  const int rc = scan_grid_limit<P>(&limit);
+  const int rc = scan_grid_limit<P, kWide>(&limit);
   if (rc != 0) return rc;
   if (limit <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   int64_t blocks = (rows + kScanThreads - 1) / kScanThreads;
   if (blocks > limit) blocks = limit;
-  void* args[] = {&T, &n_slots, (void*)&op, &f, (void*)&nows_k, &n_batches,
+  ScanOp o = op;
+  void* args[] = {&T, &n_slots, &o, &dup, (void*)&nows_k, &n_batches,
                   &b, &prm, &out, &bits, &scratch};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)scan_kernel<P>, dim3((unsigned)blocks),
+      (const void*)scan_kernel<P, kWide>, dim3((unsigned)blocks),
       dim3(kScanThreads), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The bulk lane: one operand array, kOpI32 or kOpFused5 (the narrow
+// kernel), each batch with its duplicate serialization.
+template <class P>
+int launch_scan_any(typename P::Table T, int32_t n_slots, const void* operand,
+                    int32_t fmt, const int32_t* nows_k, int32_t n_batches,
+                    int32_t b, typename P::Params prm, float* out,
+                    uint8_t* bits, void* scratch, cudaStream_t stream) {
+  const ScanOp op{static_cast<const unsigned char*>(operand), nullptr,
+                  nullptr, fmt, 0};
+  return launch_scan<P, false>(T, n_slots, op, true, nows_k, n_batches, b,
+                               prm, out, bits, scratch, stream);
 }
 
 }  // namespace drl

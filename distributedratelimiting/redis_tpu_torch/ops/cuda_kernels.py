@@ -24,7 +24,13 @@ The wrappers, their sources, and what each replaces in the JAX package:
   ``kernels.acquire_batch_packed_grouped``;
 - ``acquire_scan_packed`` (``csrc/acquire.cu``) replaces
   ``kernels.acquire_scan_fused_packed``, ``acquire_scan_fused_bits`` and
-  ``acquire_scan_compact_packed``;
+  ``acquire_scan_compact_packed``; ``acquire_scan_compact_fused`` (the
+  same kernel, in whole-batch pieces) replaces
+  ``kernels.acquire_scan_compact_fused``;
+- ``acquire_scan_packed24`` (``csrc/acquire.cu``, the scan's 3-byte
+  operand) replaces ``kernels.acquire_scan_packed24``;
+- ``acquire_batch`` (``csrc/acquire.cu``, the scan at K = 1 over separate
+  arrays) replaces ``kernels.acquire_batch``;
 - ``sync_counters`` (``csrc/counter.cu``) replaces
   ``kernels.sync_batch_packed``;
 - ``sweep_counters`` (``csrc/counter.cu``) replaces
@@ -56,7 +62,11 @@ refill is ``csrc/bucket.cuh``'s. Each
 source's library is named by the hash of the source and of every header
 beside it. Every wrapper call on the card is one kernel launch; a bulk-lane
 chunk's K batches (decided slot-major) run inside one cooperative launch,
-as do a counter sync's and a debit's passes past 4096 rows.
+as do a counter sync's and a debit's passes past 4096 rows. The bench's
+scans (``acquire_scan_packed24``, ``acquire_scan_compact_fused``) take more
+rows than one launch holds: they run as consecutive launches of whole
+batches, at most :data:`SCAN_MAX_ROWS` rows each, on one stream, which
+decides the batches in order as one scan would.
 """
 
 from __future__ import annotations
@@ -87,6 +97,9 @@ __all__ = [
     "acquire_packed",
     "acquire_grouped",
     "acquire_scan_packed",
+    "acquire_scan_compact_fused",
+    "acquire_scan_packed24",
+    "acquire_batch",
     "sync_counters",
     "sweep_counters",
     "WINDOW_FLUSH_MAX_BATCH",
@@ -104,15 +117,19 @@ __all__ = [
 
 #: Slots per expired-count tile, as the TPU kernel's (256 rows × 128 lanes).
 TILE = 32768
-#: Rows of one bulk-lane batch: the card store's ``max_batch`` limit.
-SCAN_MAX_BATCH = 4096
-#: Rows of one bulk-lane launch, K × B: the store's largest chunk (32 ×
-#: 4096); the scan kernel sizes its long-slot multisplit by it.
+#: Rows of one scan batch: the bench's B (8192); a card store's bulk lane
+#: takes ``max_batch <= FLUSH_MAX_BATCH``.
+SCAN_MAX_BATCH = 8192
+#: Rows of one scan launch, K × B: the store's largest chunk (32 × 4096);
+#: the scan kernel sizes its long-slot multisplit by it.
 SCAN_MAX_ROWS = 32 * 4096
 #: Rows of one flush (a warp up to 32 rows, blocks sized by the rows up to
 #: 4096): a card store's ``max_batch`` at most, and the bulk lane's
 #: one-batch chunks.
 FLUSH_MAX_BATCH = 4096
+# The scan's operand formats (csrc/decide.cuh's kOpI32, kOpFused5,
+# kOpSlots24).
+_OP_I32, _OP_FUSED5, _OP_SLOTS24 = 0, 1, 2
 #: Rows of one window flush.
 WINDOW_FLUSH_MAX_BATCH = 4096
 #: Rows of one semaphore batch or two-level admission batch: one warp up to
@@ -154,6 +171,8 @@ _SIGNATURES = {
                                 _P),
         "drl_acquire_scan": (_P, _P, _P, _I32, _P, _I32, _P, _I32, _I32,
                              _F32, _F32, _P, _P, _P, _P),
+        "drl_acquire_batch": (_P, _P, _P, _I32, _P, _P, _P, _I32, _I32,
+                              _I32, _F32, _F32, _P, _P, _P),
         "drl_scan_scratch_bytes": (_I32, _I32),
     },
     "counter": {
@@ -191,7 +210,8 @@ _SIGNATURES = {
 #: Kernel launches per wrapper — plain ints, incremented only where a wrapper
 #: launches its kernel on the card (never for the CPU's plain version).
 launches = {"sweep_expired": 0, "acquire_packed": 0, "acquire_grouped": 0,
-            "acquire_scan": 0, "sync_counters": 0, "sweep_counters": 0,
+            "acquire_scan": 0, "acquire_scan24": 0, "acquire_batch": 0,
+            "sync_counters": 0, "sweep_counters": 0,
             "window_packed": 0, "window_grouped": 0, "window_scan": 0,
             "sweep_windows": 0, "sema_packed": 0, "sweep_semas": 0,
             "acquire_hierarchical": 0, "debit_packed": 0}
@@ -475,13 +495,129 @@ def acquire_scan_packed(state: K.BucketState, operand: torch.Tensor,
                                  with_remaining)
     rc = lib.drl_acquire_scan(
         state.tokens.data_ptr(), state.last_ts.data_ptr(),
-        state.exists.data_ptr(), n, operand.data_ptr(), int(fused),
-        nows_k.data_ptr(), k, b, float(capacity), float(fill_rate_per_tick),
+        state.exists.data_ptr(), n, operand.data_ptr(),
+        _OP_FUSED5 if fused else _OP_I32, nows_k.data_ptr(), k, b,
+        float(capacity), float(fill_rate_per_tick),
         out.data_ptr() if with_remaining else None,
         None if with_remaining else out.data_ptr(), scratch.data_ptr(),
         _stream(state.tokens))
     _raise_on(rc, "acquire_scan")
     launches["acquire_scan"] += 1
+    return out
+
+
+def _pieces(k: int, b: int) -> list[tuple[int, int]]:
+    """Whole-batch pieces ``[k0, k1)`` of a K x B scan, at most
+    :data:`SCAN_MAX_ROWS` rows each (read when called, so that a test can
+    set it small)."""
+    if b > SCAN_MAX_BATCH:
+        raise ValueError(f"a batch holds at most {SCAN_MAX_BATCH} rows, "
+                         f"got {b}")
+    step = max(1, SCAN_MAX_ROWS // max(b, 1))
+    return [(k0, min(k, k0 + step)) for k0 in range(0, k, step)]
+
+
+def _scan_pieces(name: str, fmt: int, width: int, plain, state, operand,
+                 nows_k, capacity, fill_rate_per_tick) -> torch.Tensor:
+    """A bench scan, ``operand u8[K, B, width]`` in format ``fmt``, as
+    consecutive launches of whole batches (one stream: batch order kept).
+    On the CPU, ``plain`` decides each piece. Returns ``out f32[K, 2, B]``
+    (grants, remaining)."""
+    k, b = operand.shape[:2]
+    pieces = _pieces(k, b)
+    if _on_cpu(state):
+        outs = []
+        for k0, k1 in pieces:
+            _, granted, remaining = plain(state, operand[k0:k1],
+                                          nows_k[k0:k1], capacity,
+                                          fill_rate_per_tick)
+            outs.append(torch.stack([granted.to(torch.float32), remaining],
+                                    dim=1))
+        return torch.cat(outs) if outs else torch.empty((0, 2, b))
+    n = _check_state(state)
+    _check(operand, "operand", torch.uint8, (k, b, width))
+    _check(nows_k, "nows_k", torch.int32, (k,))
+    lib = _lib("acquire")
+    dev = state.tokens.device
+    out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
+    rows = max((k1 - k0 for k0, k1 in pieces), default=0)
+    scratch = torch.empty((int(lib.drl_scan_scratch_bytes(rows, b)),),
+                          dtype=torch.uint8, device=dev)
+    stream = _stream(state.tokens)
+    for k0, k1 in pieces:
+        rc = lib.drl_acquire_scan(
+            state.tokens.data_ptr(), state.last_ts.data_ptr(),
+            state.exists.data_ptr(), n, operand[k0].data_ptr(), fmt,
+            nows_k[k0:].data_ptr(), k1 - k0, b, float(capacity),
+            float(fill_rate_per_tick), out[k0].data_ptr(), None,
+            scratch.data_ptr(), stream)
+        _raise_on(rc, name)
+        launches[name] += 1
+    return out
+
+
+def acquire_scan_compact_fused(state: K.BucketState, fused: torch.Tensor,
+                               nows_k: torch.Tensor, capacity: float,
+                               fill_rate_per_tick: float) -> torch.Tensor:
+    """The bench's mixed-count scan: ``fused u8[K, B, 5]``
+    (:func:`kernels.pack_compact5`), ``B <=`` :data:`SCAN_MAX_BATCH`, K
+    batches decided in order against the table (updated in place), each at
+    its tick ``nows_k i32[K]``. Returns ``out f32[K, 2, B]`` (grants,
+    remaining: JAX's two results, stacked). On the card: one launch of the
+    scan per piece of at most :data:`SCAN_MAX_ROWS` rows."""
+    return _scan_pieces("acquire_scan", _OP_FUSED5, 5,
+                        K.acquire_scan_compact_fused, state, fused, nows_k,
+                        capacity, fill_rate_per_tick)
+
+
+def acquire_scan_packed24(state: K.BucketState, packed: torch.Tensor,
+                          nows_k: torch.Tensor, capacity: float,
+                          fill_rate_per_tick: float) -> torch.Tensor:
+    """The bench's headline: K batches of unit requests, ``packed u8[K, B,
+    3]`` (:func:`kernels.pack_slots24`; :data:`kernels.SLOT24_PAD` or an id
+    >= N is padding), as :func:`acquire_scan_compact_fused`. Returns ``out
+    f32[K, 2, B]``. On the card: one launch per piece of at most
+    :data:`SCAN_MAX_ROWS` rows (two for the bench's 32 x 8192)."""
+    return _scan_pieces("acquire_scan24", _OP_SLOTS24, 3,
+                        K.acquire_scan_packed24, state, packed, nows_k,
+                        capacity, fill_rate_per_tick)
+
+
+def acquire_batch(state: K.BucketState, slots: torch.Tensor,
+                  counts: torch.Tensor, valid: torch.Tensor, now: int,
+                  capacity: float, fill_rate_per_tick: float, *,
+                  handle_duplicates: bool = True) -> torch.Tensor:
+    """One batch from separate operands against the table (updated in
+    place): ``slots i32[B]``, ``counts i32[B]``, ``valid bool[B]``, ``B <=``
+    :data:`SCAN_MAX_BATCH`, at tick ``now``, with
+    :func:`kernels.acquire_batch`'s ``handle_duplicates``. Returns ``out
+    f32[2, B]`` (grants, remaining). On the card: one launch."""
+    b = slots.shape[0]
+    if b > SCAN_MAX_BATCH:
+        raise ValueError(f"acquire_batch: a batch holds at most "
+                         f"{SCAN_MAX_BATCH} rows, got {b}")
+    if _on_cpu(state):
+        _, granted, remaining = K.acquire_batch(
+            state, slots, counts, valid, now, capacity, fill_rate_per_tick,
+            handle_duplicates=handle_duplicates)
+        return torch.stack([granted.to(torch.float32), remaining])
+    n = _check_state(state)
+    _check(slots, "slots", torch.int32, (b,))
+    _check(counts, "counts", torch.int32, (b,))
+    _check(valid, "valid", torch.bool, (b,))
+    lib = _lib("acquire")
+    dev = state.tokens.device
+    out = torch.empty((2, b), dtype=torch.float32, device=dev)
+    scratch = torch.empty((int(lib.drl_scan_scratch_bytes(1, b)),),
+                          dtype=torch.uint8, device=dev)
+    rc = lib.drl_acquire_batch(
+        state.tokens.data_ptr(), state.last_ts.data_ptr(),
+        state.exists.data_ptr(), n, slots.data_ptr(), counts.data_ptr(),
+        valid.data_ptr(), int(now), b, int(bool(handle_duplicates)),
+        float(capacity), float(fill_rate_per_tick), out.data_ptr(),
+        scratch.data_ptr(), _stream(state.tokens))
+    _raise_on(rc, "acquire_batch")
+    launches["acquire_batch"] += 1
     return out
 
 

@@ -42,6 +42,7 @@ __all__ = [
     "BucketState",
     "init_bucket_state",
     "acquire_core",
+    "acquire_batch",
     "acquire_batch_packed",
     "acquire_batch_packed_grouped",
     "acquire_scan_packed",
@@ -49,6 +50,10 @@ __all__ = [
     "acquire_scan_fused_bits",
     "pack_compact5",
     "pack_grant_bits",
+    "SLOT24_PAD",
+    "pack_slots24",
+    "acquire_scan_compact_fused",
+    "acquire_scan_packed24",
     "sweep_expired",
     "peek_batch_packed",
     "rebase_bucket_epoch",
@@ -188,6 +193,19 @@ def acquire_core(state: BucketState, slots, counts, valid, now, capacity,
     return state, granted, remaining
 
 
+def acquire_batch(state: BucketState, slots, counts, valid, now, capacity,
+                  fill_rate_per_tick, *, handle_duplicates: bool = True):
+    """One batch from separate operands: ``slots i32[B]`` (out of range ⇒
+    padding), ``counts i32[B]``, ``valid bool[B]``, ``now`` the batch tick.
+    ``handle_duplicates=False`` gives every row prefix 0 and then applies
+    every granted row's count, as JAX does: rows of one slot may then all be
+    granted from the same balance, which can go below zero. Returns ``(state,
+    granted bool[B], remaining f32[B])``, the state updated in place."""
+    return acquire_core(state, slots, counts, valid, now, capacity,
+                        fill_rate_per_tick,
+                        handle_duplicates=handle_duplicates)
+
+
 def _unpack_requests(packed):
     """Split the packed ``i32[4, B]`` flush operand: row 0 slots (negative ⇒
     padding), row 1 counts, row 2 the broadcast batch tick, row 3 the
@@ -302,6 +320,56 @@ def pack_compact5(slots, counts) -> np.ndarray:
     out[..., :4] = slots.astype("<i4").view(np.uint8).reshape(*slots.shape, 4)
     out[..., 4] = counts
     return out
+
+
+#: Padding id of the 3-byte slot operand (all 24 bits set).
+SLOT24_PAD = (1 << 24) - 1
+
+
+def pack_slots24(slots) -> np.ndarray:
+    """Host-side packing for :func:`acquire_scan_packed24`: slot ids (or
+    :data:`SLOT24_PAD` for padding) → little-endian ``u8[..., 3]``. Raises
+    ``ValueError`` on an id outside ``[0, SLOT24_PAD]``, which would
+    otherwise truncate to some other slot."""
+    slots = np.asarray(slots)
+    if slots.size and (slots.min() < 0 or slots.max() > SLOT24_PAD):
+        raise ValueError(
+            f"slot ids must be within [0, {SLOT24_PAD}] (SLOT24_PAD = "
+            "padding); use acquire_scan_compact for larger tables")
+    out = np.empty((*slots.shape, 3), np.uint8)
+    out[..., 0] = slots & 0xFF
+    out[..., 1] = (slots >> 8) & 0xFF
+    out[..., 2] = (slots >> 16) & 0xFF
+    return out
+
+
+def _unpack_slots24(packed):
+    """The 3-byte operand's slots as int32, :data:`SLOT24_PAD` as -1."""
+    p = packed.to(torch.int32)
+    slots = p[..., 0] | (p[..., 1] << 8) | (p[..., 2] << 16)
+    return torch.where(slots == SLOT24_PAD, -1, slots)
+
+
+def acquire_scan_compact_fused(state: BucketState, fused, nows_k, capacity,
+                               fill_rate_per_tick):
+    """The scan over the fused ``u8[K, B, 5]`` operand with JAX's results:
+    returns ``(state, granted bool[K, B], remaining f32[K, B])``."""
+    state, out = acquire_scan_fused_packed(state, fused, nows_k, capacity,
+                                           fill_rate_per_tick)
+    return state, out[:, 0] > 0.5, out[:, 1]
+
+
+def acquire_scan_packed24(state: BucketState, packed, nows_k, capacity,
+                          fill_rate_per_tick):
+    """K batches of unit requests, 3 bytes a request: ``packed u8[K, B, 3]``
+    from :func:`pack_slots24` (:data:`SLOT24_PAD` or an id ≥ N is padding),
+    each batch at its tick ``nows_k i32[K]`` with the in-batch duplicate
+    prefix. Returns ``(state, granted bool[K, B], remaining f32[K, B])``."""
+    slots_k = _unpack_slots24(packed)
+    state, out = acquire_scan_packed(state, slots_k,
+                                     torch.ones_like(slots_k), nows_k,
+                                     capacity, fill_rate_per_tick)
+    return state, out[:, 0] > 0.5, out[:, 1]
 
 
 def sweep_expired(state: BucketState, now, capacity, fill_rate_per_tick):

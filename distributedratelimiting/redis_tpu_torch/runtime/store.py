@@ -1214,10 +1214,11 @@ class DeviceBucketStore(BucketStore):
                     "DeviceBucketStore: no CUDA device is available; pass "
                     "device='cpu' to run the plain PyTorch versions on the "
                     "CPU")
-            if max_batch > ck.SCAN_MAX_BATCH:
+            if max_batch > ck.FLUSH_MAX_BATCH:
                 raise ValueError(
-                    f"max_batch {max_batch} > {ck.SCAN_MAX_BATCH}: the card's "
-                    "bulk-lane kernel holds one batch in one thread block")
+                    f"max_batch {max_batch} > {ck.FLUSH_MAX_BATCH}: a card "
+                    "store's flushes, one-batch bulk chunks included, hold "
+                    "a slot's rows in one thread block")
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
         self.clock = clock or MonotonicClock()

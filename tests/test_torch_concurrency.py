@@ -311,6 +311,14 @@ async def _parked(lim, n):
         await asyncio.sleep(0.001)
 
 
+async def _until(cond, what):
+    """Wait for ``cond()``: a fixed sleep can be too short under load."""
+    deadline = time.monotonic() + LIMIT_S
+    while not cond():
+        assert time.monotonic() < deadline, what
+        await asyncio.sleep(0.001)
+
+
 async def _finished(tasks, n):
     """Wait until n of ``tasks`` are done: under load a rejected acquire can
     still be finishing after the queue has filled."""
@@ -376,11 +384,12 @@ async def limiter_contract(kit, store):
     second = asyncio.ensure_future(lim.acquire_async(2))
     await _parked(lim, 2)
     third = asyncio.ensure_future(lim.acquire_async(1))  # evicts `first`
-    await asyncio.sleep(0.01)
+    await _until(first.done, "the evicted waiter never finished")
     log.append((first.done() and not first.result().is_acquired,
                 len(lim._queue)))
     third.cancel()
-    await asyncio.sleep(0.01)
+    await _until(lambda: len(lim._queue) == 1,
+                 "the cancelled waiter never left the queue")
     big.dispose()
     got = await w(second)
     log += [bool(got), bool(await w(lim.acquire_async(0))),

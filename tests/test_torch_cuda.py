@@ -1213,3 +1213,145 @@ def test_scan_slot_major_shapes_match_plain(cuda_device, kernel, shape,
     grants = (want[:, 0] > 0.5 if with_remaining else torch.from_numpy(
         np.unpackbits(want.cpu().numpy(), axis=-1, bitorder="little")))
     assert 0 < int(grants.sum()) < grants.numel()
+
+
+# -- The bench's kernels: the 3-byte scan, the fused scan at B = 8192, and
+# acquire_batch (the scan at K = 1 over separate arrays) -----------------------
+
+def _bench_slots(rng, shape, n, pad, distinct=False):
+    """Zipf(1.3) slots (repeats within and across batches, hot slots past
+    the capacity), or slots distinct within each batch; ~2% padding
+    ``pad`` and ~1% ids >= n."""
+    if distinct:
+        slots = np.stack([rng.permutation(n)[:shape[-1]]
+                          for _ in range(int(np.prod(shape[:-1])))]
+                         ).reshape(shape).astype(np.int64)
+    else:
+        slots = np.minimum(rng.zipf(1.3, shape) - 1, n - 1).astype(np.int64)
+    slots[rng.random(shape) < 0.02] = pad
+    slots[rng.random(shape) < 0.01] = n + 3
+    return slots
+
+
+def _exact_state(card, plain):
+    for name in plain._fields:
+        np.testing.assert_array_equal(getattr(card, name).cpu().numpy(),
+                                      getattr(plain, name).cpu().numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b,distinct", [(3, 100, False), (32, 8192, False),
+                                          (32, 8192, True), (17, 8192, False),
+                                          (40, 4096, False)])
+@pytest.mark.parametrize("width", [3, 5])
+def test_bench_scans_match_plain(cuda_device, k, b, distinct, width):
+    """Both bench scans against their plain versions on a CPU copy: grants,
+    remaining and every state field bit for bit (whole counts, one writer a
+    slot, demand far below 2^24); one launch per piece of at most 2^17
+    rows, in order."""
+    rng = np.random.default_rng(k * b + width)
+    n = 2**20 if distinct else N
+    plain, card = _state(11, cuda_device, n=n)
+    nows = _nows(k)
+    if width == 3:
+        op = torch.from_numpy(K.pack_slots24(
+            _bench_slots(rng, (k, b), n, K.SLOT24_PAD, distinct)))
+        wrapper, name = ck.acquire_scan_packed24, "acquire_scan24"
+    else:
+        op = torch.from_numpy(K.pack_compact5(
+            _bench_slots(rng, (k, b), n, -1, distinct).astype(np.int32),
+            rng.integers(0, 4, (k, b)).astype(np.uint8)))
+        wrapper, name = ck.acquire_scan_compact_fused, "acquire_scan"
+    before = dict(ck.launches)
+    want = wrapper(plain, op, nows, CAP, 0.013)
+    got = wrapper(card, op.to(cuda_device), nows.to(cuda_device), CAP, 0.013)
+    torch.cuda.synchronize()
+    launched = len(ck._pieces(k, b))
+    assert launched == -(-k * b // ck.SCAN_MAX_ROWS)
+    assert ck.launches[name] == before[name] + launched
+    assert sum(ck.launches.values()) == sum(before.values()) + launched
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _exact_state(card, plain)
+    assert 0 < int(want[:, 0].sum()) < want[:, 0].numel()
+
+
+@pytest.mark.cuda
+def test_packed24_padding_and_far_ids_touch_nothing(cuda_device):
+    """SLOT24_PAD and ids >= N are denied, answer remaining 0 and leave the
+    table as it was."""
+    plain, card = _state(12, cuda_device)
+    slots = np.array([[K.SLOT24_PAD, N, N + 1, K.SLOT24_PAD - 1] * 16],
+                     np.int64)
+    op = torch.from_numpy(K.pack_slots24(slots)).to(cuda_device)
+    got = ck.acquire_scan_packed24(card, op, _nows(1).to(cuda_device), CAP,
+                                   0.013)
+    torch.cuda.synchronize()
+    assert not got.any()
+    _exact_state(card, plain)
+
+
+def _assert_slots_within_adds(card, plain, slots, valid, n):
+    """Tokens after a batch without the duplicate serialization: a slot's
+    rows all decide from its refilled balance, and the kernel subtracts
+    their int64 consumption once where the plain version subtracts row by
+    row, so a balance driven far below zero may round differently: each
+    slot within r float32 spacings for r rows (a slot with one row equal)."""
+    got = card.tokens.cpu().numpy().astype(np.float64)
+    want = plain.tokens.numpy().astype(np.float64)
+    s = slots[valid & (slots >= 0) & (slots < n)]
+    reps = np.bincount(s, minlength=n)
+    mag = np.maximum(np.abs(got), np.abs(want)).astype(np.float32)
+    tol = np.where(reps > 1, reps, 0) * np.spacing(mag).astype(np.float64)
+    assert (np.abs(got - want) <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 33, 64, 4096, 8192])
+@pytest.mark.parametrize("handle_duplicates", [True, False])
+@pytest.mark.parametrize("zipf", [True, False])
+def test_acquire_batch_matches_plain(cuda_device, b, handle_duplicates, zipf):
+    """acquire_batch against its plain version on a CPU copy: grants and
+    remaining equal, last_ts and exists equal; tokens bit for bit with the
+    duplicate serialization (the granted consumption never passes the
+    balance), and within r spacings without it. One launch."""
+    rng = np.random.default_rng(b + 2 * handle_duplicates + zipf)
+    n = 2**14
+    plain, card = _state(13, cuda_device, n=n)
+    slots = _bench_slots(rng, (b,), n, -1, distinct=not zipf).astype(np.int32)
+    counts = rng.integers(0, 4, b).astype(np.int32)
+    valid = rng.random(b) < 0.95
+    args = [torch.from_numpy(a) for a in (slots, counts, valid)]
+    before = dict(ck.launches)
+    want = ck.acquire_batch(plain, *args, 50_100, CAP, 0.013,
+                            handle_duplicates=handle_duplicates)
+    got = ck.acquire_batch(card, *(a.to(cuda_device) for a in args), 50_100,
+                           CAP, 0.013, handle_duplicates=handle_duplicates)
+    torch.cuda.synchronize()
+    assert ck.launches["acquire_batch"] == before["acquire_batch"] + 1
+    assert sum(ck.launches.values()) == sum(before.values()) + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    for name in ("last_ts", "exists"):
+        np.testing.assert_array_equal(getattr(card, name).cpu().numpy(),
+                                      getattr(plain, name).numpy())
+    if handle_duplicates:
+        np.testing.assert_array_equal(card.tokens.cpu().numpy(),
+                                      plain.tokens.numpy())
+    else:
+        _assert_slots_within_adds(card, plain, slots, valid, n)
+    if zipf and b >= 64 and not handle_duplicates:
+        assert (plain.tokens < 0).any()  # JAX's semantics: below zero
+
+
+@pytest.mark.cuda
+def test_scan_formats_refuse_past_their_widths(cuda_device):
+    _, card = _state(14, cuda_device)
+    with pytest.raises(ValueError, match="at most 8192"):
+        ck.acquire_scan_packed24(
+            card, torch.zeros((1, 8193, 3), dtype=torch.uint8,
+                              device=cuda_device),
+            torch.zeros(1, dtype=torch.int32, device=cuda_device), CAP, 0.1)
+    with pytest.raises(ValueError, match="at most 8192"):
+        ck.acquire_batch(card, *(torch.zeros(8193, dtype=d, device=cuda_device)
+                                 for d in (torch.int32, torch.int32,
+                                           torch.bool)), 0, CAP, 0.1)

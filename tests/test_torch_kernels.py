@@ -376,8 +376,18 @@ def test_launch_counts_untouched_on_cpu():
                             2 * CAP, 0.01)
     ck.debit_packed(_torch_state(s), torch.from_numpy(_packed4(2)), CAP,
                     0.01)
+    ck.acquire_scan_compact_fused(_torch_state(s), torch.from_numpy(fused),
+                                  torch.from_numpy(nows), CAP, 0.01)
+    ck.acquire_scan_packed24(
+        _torch_state(s),
+        torch.from_numpy(TK.pack_slots24(np.arange(8 * nows.size).reshape(
+            nows.size, 8))), torch.from_numpy(nows), CAP, 0.01)
+    slots = torch.from_numpy(_packed4(2)[0])
+    ck.acquire_batch(_torch_state(s), slots, torch.ones_like(slots),
+                     slots >= 0, 60_000, CAP, 0.01, handle_duplicates=False)
     assert set(ck.launches) == {"sweep_expired", "acquire_packed",
                                 "acquire_grouped", "acquire_scan",
+                                "acquire_scan24", "acquire_batch",
                                 "sync_counters", "sweep_counters",
                                 "window_packed", "window_grouped",
                                 "window_scan", "sweep_windows",

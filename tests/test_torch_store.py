@@ -210,8 +210,8 @@ def test_default_device_without_gpu_raises(monkeypatch):
 def test_card_store_refuses_batches_the_scan_kernel_cannot_hold(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="max_batch 4097"):
-        DeviceBucketStore(max_batch=ck.SCAN_MAX_BATCH + 1)
-    DeviceBucketStore(max_batch=ck.SCAN_MAX_BATCH)  # touches no device yet
+        DeviceBucketStore(max_batch=ck.FLUSH_MAX_BATCH + 1)
+    DeviceBucketStore(max_batch=ck.FLUSH_MAX_BATCH)  # touches no device yet
 
 
 def test_port_serves_with_jax_blocked():
