@@ -57,7 +57,8 @@ Phases (any failure raises, and the script exits non-zero):
    (repeated slots, acquires, releases, probes, padding, out-of-range slots)
    over 2^20 slots and ``sweep_semas`` over 2^20 (held slots survive);
    ``acquire_hierarchical`` at B = 4096 on the LLM workload's rows, with its
-   own budgets and with both budgets binding; ``debit_packed`` at B = 2^20
+   own budgets and with both budgets binding, and at one valid row of B = 8
+   (a reserve's shape); ``debit_packed`` at B = 2^20
    distinct slots of a 2^24 table, at B = 4096 with repeats, fractional and
    negative amounts, with whole-number repeats at 4,096 and 2^17, and one
    valid row at B = 8, each launched twice on clones (bit-equal). Grants,
@@ -132,7 +133,25 @@ Phases (any failure raises, and the script exits non-zero):
    budget plus refill, and ``AdmissionPolicy.acquire`` on 2,048 rows; all
    grants equal, row by row, to the port's CPU store on the same clock
    schedule, and the rows within float rounding of a threshold counted.
-7. The shared store server (README "Multi-host", BASELINE config 2's
+7. The reservation path (the estimate-reserve-settle lane,
+   ``runtime/reservations.py``) at ``benchmarks/recapture.py:174-214``'s
+   size: 8,192 LLM-workload rows reserved at cost x LogNormal(0, 0.55)
+   estimates and settled at their costs, serially through the ledger of a
+   2^16-slot card store (``max_batch`` 1024; one ``acquire_hierarchical``
+   launch a reserve, ``debit_packed`` launches for refunds, overages and
+   debt), one tick a row; pairs/s, settled tokens/s, refund and debt
+   ratios, where a pair's time goes (store awaits, host dispatch,
+   readback, the ledger) and, from a profiled sample, its device time;
+   the same schedule on the port's CPU store (grants, outcomes, counters
+   and debtors equal, floats within 2 float32 spacings of the tenant
+   budget); the zero-fill audit arm (``benchmarks/llm_workload.py:
+   325-362``: 8,000 rows, tenant budget 20,000, fill 1e-9; ``net_drift``
+   <= 0.01 and the perfect-estimate oracle's bound); 1,000 pairs through
+   ``BucketStoreServer`` and the port's ``RemoteBucketStore`` (retried
+   reserves and settles debit nothing twice, an unknown rid, ``OP_STATS``'
+   section equal to the server's ledger); a TTL auto-settle on an injected
+   ledger clock.
+8. The shared store server (README "Multi-host", BASELINE config 2's
    shape): ``BucketStoreServer`` over a third ``DeviceBucketStore`` (2^24
    slots, 2^20 counters, a ManualClock) on 127.0.0.1, limiters on
    ``RemoteBucketStore`` clients. ``acquire_many`` over 10,000,000 distinct
@@ -144,8 +163,9 @@ Phases (any failure raises, and the script exits non-zero):
    every round grants all, then denies all; each key grants exactly 5);
    cap-5 × 32 → 5 on both lanes; windows over the wire (1M keys as
    ``BULK_KIND_WINDOW`` frames, 4,000 ``OP_WINDOW`` / ``OP_FWINDOW``
-   requests, cap-5 × 32 → 5) and ``OP_RESERVE`` (still unported) answering
-   "not served by this server yet"; 4,000 ``OP_SEMA`` acquires (cap-5 × 32
+   requests, cap-5 × 32 → 5), ``OP_CONFIG`` (still unported) answering
+   "not served by this server yet" and raw ``OP_RESERVE`` / ``OP_SETTLE``
+   frames (a hold of 10 settled at 4); 4,000 ``OP_SEMA`` acquires (cap-5 × 32
    → 5 a round) and their releases; 4,000 ``OP_ACQUIRE_H`` requests on the
    LLM rows and the 2^16 rows as ``BULK_KIND_HBUCKET`` frames (one per
    tenant in each 2,048-row window), grants equal to the port's CPU store;
@@ -156,25 +176,25 @@ Phases (any failure raises, and the script exits non-zero):
    resolve beside the in-process string resolve; then the path's launches
    by width, and fails if a scan held a single batch (every bulk frame of
    at most 4,096 rows is one flush of its rows).
-8. The console entry point on the card: ``python -m
+9. The console entry point on the card: ``python -m
    distributedratelimiting.redis_tpu_torch.runtime.server --port 0 --slots
    1048576 --sweep-period 1`` as a subprocess: its listening line, ping,
    cap-5 × 32 → 5, ``OP_STATS`` keys, SIGTERM → exit 0.
-9. The bench path: ``redis_tpu_torch/bench.py``'s headline, compact and
+10. The bench path: ``redis_tpu_torch/bench.py``'s headline, compact and
    single-batch sections at their full widths (10M slots, 32 x 8192, 16 x
    8192, B = 8192), five timed dispatches each; the launches must be the
    sections' dispatches exactly, and the table sane after them.
-10. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
-   of phases 3–7 and 9 (``launches_by_path``; counts set to 0 before each
-   path and read after it; > 0 on the path the kernel serves, and every
-   kernel that a wire op reaches > 0 on the server path — all but
-   ``debit_packed``, which no wire op reaches until tier-0 and the
-   reservations are ported, and the bench's ``acquire_scan24`` and
-   ``acquire_batch``) and their sum (``launches``), the flushes',
+11. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
+   of phases 3–8 and 10 (``launches_by_path``; counts set to 0 before each
+   path and read after it; > 0 on the path the kernel serves, the
+   two-level kernel and the debit > 0 on the reservation path, and every
+   kernel that a wire op reaches > 0 on the server path — all but the
+   bench's ``acquire_scan24`` and ``acquire_batch``) and their sum
+   (``launches``), the flushes',
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-11. Last line: ``{"ok": true, "device": {...}}``.
+12. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -1106,7 +1126,7 @@ def _hier_shape(rng, shape: str, nc: int, np_: int, now: int) -> np.ndarray:
     tenants."""
     b = {"1 valid row (B=8)": 8, "32 rows of one tenant (B=32)": 32,
          "64 LLM rows (B=64)": 64}.get(shape, BATCH)
-    tenants, keys, costs = _llm_workload(LLM_SEED, b)
+    tenants, keys, costs, _ = _llm_workload(LLM_SEED, b)
     spread = np.int64(2654435761)
     cs = (_dense_ids(keys).astype(np.int64) * spread % nc).astype(np.int32)
     ps = (_dense_ids(tenants).astype(np.int64) * 7919 % np_).astype(np.int32)
@@ -2815,11 +2835,33 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
     from distributedratelimiting.redis_tpu_torch.runtime import wire
 
     _, kind, vals = await _raw_request(addr, wire.encode_request(
-        77, wire.OP_RESERVE, "{}", 1, 5.0, 0.0))
+        77, wire.OP_CONFIG, "{}", 1, 5.0, 0.0))
     if kind != wire.RESP_ERROR or "not served by this server yet" \
             not in vals[0]:
-        raise AssertionError(f"OP_RESERVE answered {kind} {vals}")
-    print(f"server OP_RESERVE (still unported): {vals[0]!r}")
+        raise AssertionError(f"OP_CONFIG answered {kind} {vals}")
+    print(f"server OP_CONFIG (still unported): {vals[0]!r}")
+    # OP_RESERVE / OP_SETTLE as raw JSON frames: a hold of 10, settled at
+    # 4 (the refund of 6 is one debit launch a level).
+    replies = []
+    for seq, op, body in (
+            (78, wire.OP_RESERVE, {"rid": "raw1", "tenant": "rt", "key": "rk",
+                                   "estimate": 10.0, "a": 50.0, "b": 1.0,
+                                   "ta": 90.0, "tb": 1.0}),
+            (79, wire.OP_SETTLE, {"rid": "raw1", "tenant": "rt",
+                                  "actual": 4.0})):
+        _, kind, vals = await _raw_request(addr, wire.encode_request(
+            seq, op, json.dumps(body), 0, 0.0, 0.0))
+        if kind != wire.RESP_TEXT:
+            raise AssertionError(f"{wire.op_name(op)} answered {kind} {vals}")
+        replies.append(json.loads(vals[0]))
+    if not (replies[0]["granted"] and replies[0]["reserved"] == 10.0
+            and replies[1] == {"outcome": "settled", "delta": -6.0,
+                               "refunded": 6.0, "debt": 0.0}
+            and store.peek_blocking("rt", 90.0, 1.0) == 86.0
+            and store.peek_blocking("rk", 50.0, 1.0) == 46.0):
+        raise AssertionError(f"raw OP_RESERVE / OP_SETTLE: {replies}")
+    print(f"server OP_RESERVE / OP_SETTLE frames: {replies[0]}, "
+          f"{replies[1]}; both levels hold 4 tokens less")
 
     # Semaphores over the wire: OP_SEMA frames, rounds of 32 concurrent
     # acquires on a cap-5 key (exactly 5 granted), then the 5 releases.
@@ -2843,7 +2885,7 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
     # the port's CPU store on the same clock schedule: OP_ACQUIRE_H, one
     # frame a request, then the 2^16 rows as HBUCKET frames, one per tenant
     # in each 2,048-row window (benchmarks/llm_workload.py:111-131).
-    tenants, hkeys, costs = _llm_workload(LLM_SEED, LLM_ROWS)
+    tenants, hkeys, costs, _ = _llm_workload(LLM_SEED, LLM_ROWS)
     ccap, tcap, rate = LLM_BUDGETS[0], LLM_BINDING_TENANT, LLM_RATE
     oracle = pkg.DeviceBucketStore(device="cpu", n_slots=LLM_SLOTS,
                                    max_batch=BATCH,
@@ -2930,8 +2972,9 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
     # s) evicts exactly them.
     _check_native(store)
     live = sum(len(t.dir) for t in store._tables.values())
+    # The last 2: the raw reserve's tenant and key.
     want_live = (N_KEYS + N_SCALAR_KEYS + 2 + len(set(hkeys))
-                 + len(set(tenants)))
+                 + len(set(tenants)) + 2)
     if live != want_live:
         raise AssertionError(f"server holds {live} buckets, not {want_live}")
     wlive = sum(len(t.dir) for t in store._wtables.values())
@@ -3036,16 +3079,17 @@ def _llm_workload(seed: int, n_rows: int):
     ``benchmarks/llm_workload.py:63-91`` (``gen_workload``; the script
     imports nothing of the benchmarks): 64 tenants Zipf(1.2), keys
     ``t{t}/u{zipf(1.5) % 200}``, costs LogNormal(4.0, 1.3) clamped to [1,
-    8192], priorities 60/30/10 (drawn to keep the generator's stream).
-    Returns ``(tenants, keys, costs i64[n])``."""
+    8192], priorities 60/30/10 interactive / batch / scavenger. Returns
+    ``(tenants, keys, costs i64[n], priorities i8[n])``."""
     rng = np.random.default_rng(seed)
     t_idx = rng.zipf(1.2, n_rows) % 64
     costs = np.minimum(np.maximum(rng.lognormal(4.0, 1.3, n_rows), 1.0),
                        8192).astype(np.int64)
-    rng.random(n_rows)  # the priority mix
+    u = rng.random(n_rows)
+    prios = np.where(u < 0.6, 0, np.where(u < 0.9, 1, 2)).astype(np.int8)
     keys = [f"t{t}/u{rng.zipf(1.5) % 200}" for t in t_idx]
     tenants = [f"tenant:{t}" for t in t_idx]
-    return tenants, keys, costs
+    return tenants, keys, costs, prios
 
 
 def _dense_ids(names) -> np.ndarray:
@@ -3174,7 +3218,7 @@ def admission_cases(torch, K, ck, dev, rng) -> dict:
     torch.cuda.empty_cache()
 
     # -- acquire_hierarchical at B = 4096 on the LLM workload's rows ---------
-    tenants, keys, costs = _llm_workload(LLM_SEED, BATCH)
+    tenants, keys, costs, _ = _llm_workload(LLM_SEED, BATCH)
     cs, ps_ = _dense_ids(keys), _dense_ids(tenants)
     cs[rng.permutation(BATCH)[:40]] = -1
     m, now = LLM_SLOTS, 3_000_000
@@ -3245,7 +3289,42 @@ def admission_cases(torch, K, ck, dev, rng) -> dict:
             line += (f"; {ms:.4f} ms (plain {plain_ms:.4f} ms, device time "
                      f"{dev_ms} ms)")
         print(line)
-    res["acquire_hierarchical"]["max_abs_err"] = err
+    # One valid row at B = 8, the shape of every reserve on the reservation
+    # path (the store pads a one-row two-level call to 8 rows).
+    one = np.full((4, 8), -1, np.int32)
+    one[1] = 0
+    one[2] = now
+    one[:, 0] = (max(int(cs[0]), 0), int(costs[0]), now, int(ps_[0]))
+    op1 = torch.from_numpy(one).to(dev)
+    kc, kp = (K.BucketState(*(x.clone() for x in t)) for t in (ctab, ptab))
+    pc, pp = (K.BucketState(*(x.clone() for x in t)) for t in (ctab, ptab))
+    got = ck.acquire_hierarchical(kc, kp, op1, *args)
+    _, _, want = K.acquire_hierarchical_packed(pc, pp, op1, *args)
+    torch.cuda.synchronize()
+    _check_equal("acquire_hierarchical (one valid row) grants", got[0],
+                 want[0])
+    err1 = _check_close("acquire_hierarchical (one valid row) remaining",
+                        got[1], want[1])
+    for name, kt, pt in (("child", kc, pc), ("parent", kp, pp)):
+        _check_equal(f"acquire_hierarchical (one valid row) {name} tokens",
+                     kt.tokens, pt.tokens)
+        _check_equal(f"acquire_hierarchical (one valid row) {name} last_ts",
+                     kt.last_ts, pt.last_ts)
+        _check_equal(f"acquire_hierarchical (one valid row) {name} exists",
+                     kt.exists, pt.exists)
+    ms = _median_ms(lambda: ck.acquire_hierarchical(kc, kp, op1, *args),
+                    inner=20)
+    dev_ms = _device_ms(lambda: ck.acquire_hierarchical(kc, kp, op1, *args),
+                        HIER_KERNELS)
+    bound_ms, bound_by = _bound_ms(24 * 8 + 18 * 2, 30 * 8)
+    res["acquire_hierarchical"]["shapes"] = {"one valid row (B=8)": dict(
+        ms=ms, device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by,
+        max_abs_err=err1)}
+    print(f"acquire_hierarchical B=8 (one valid row, the reservation "
+          f"path's reserve): grants, tokens and state equal to plain, "
+          f"remaining max abs err {err1!r}; {ms:.4f} ms (device time "
+          f"{dev_ms} ms)")
+    res["acquire_hierarchical"]["max_abs_err"] = max(err, err1)
     del kc, kp, pc, pp, ctab, ptab
     torch.cuda.empty_cache()
 
@@ -3503,7 +3582,7 @@ async def admission_path(torch, ck, pkg, card: str) -> dict:
 
     # 2. Two-level admission on the LLM workload (benchmarks/llm_workload.py,
     # recapture.py's device size): 2^16 rows, 2^18 slots, max_batch 4096.
-    tenants, keys, costs = _llm_workload(LLM_SEED, LLM_ROWS)
+    tenants, keys, costs, _ = _llm_workload(LLM_SEED, LLM_ROWS)
     tokens = int(costs.sum())
     oracle = pkg.DeviceBucketStore(device="cpu", n_slots=LLM_SLOTS,
                                    max_batch=BATCH,
@@ -3602,6 +3681,349 @@ async def admission_path(torch, ck, pkg, card: str) -> dict:
     counts = dict(ck.launches)
     await store.aclose()
     await oracle.aclose()
+    return counts
+
+
+#: The reservation path at the JAX package's device debt for the lane
+#: (``benchmarks/recapture.py:174-214``): 2^13 rows of the LLM workload on a
+#: 2^16-slot store, ``max_batch`` 1024, estimates cost x LogNormal(0, 0.55)
+#: from their own seed (``benchmarks/llm_workload.py:263-271``); the
+#: zero-fill audit arm (``benchmarks/llm_workload.py:325-362``): 8,000 rows,
+#: tenant budget 20,000 tokens, fill 1e-9.
+RESV_ROWS = 8192
+RESV_SLOTS = 2**16
+RESV_MAX_BATCH = 1024
+RESV_EST_SIGMA = 0.55
+RESV_ERR_SEED = 0x5E771E
+RESV_AUDIT_ROWS = 8000
+RESV_AUDIT_TENANT = 20_000.0
+RESV_AUDIT_FILL = 1e-9
+#: Reserve/settle pairs over the wire, and the TTL arm's hold TTL.
+N_WIRE_RESV = 1000
+RESV_TTL_S = 5.0
+#: Pairs profiled for the device time of a reserve + settle.
+RESV_PROFILED = 256
+
+
+def _time_async(obj, name: str, acc: list) -> None:
+    """Wrap the coroutine method ``obj.name`` so that its awaited wall time
+    accrues to ``acc[0]``."""
+    fn = getattr(obj, name)
+
+    async def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return await fn(*args, **kwargs)
+        finally:
+            acc[0] += time.perf_counter() - t
+
+    setattr(obj, name, timed)
+
+
+async def _drive_reservations(store, tenants, keys, costs, estimates, prios,
+                              tcap, trate, prefix, clock=None):
+    """Reserve, then settle at its cost, every row serially through the
+    store's ledger (``benchmarks/llm_workload.py:279-300``); ``clock``,
+    when given, advances one tick before each row. Returns ``(settled rows,
+    settled tokens, [(ReserveResult, SettleResult or None)], ledger)``."""
+    led = store.reservation_ledger()
+    ccap, crate = LLM_BUDGETS[0], LLM_RATE
+    granted = settled = 0
+    rows = []
+    for i in range(len(keys)):
+        if clock is not None:
+            clock.advance_ticks(1)
+        r = await led.reserve(f"{prefix}{i}", tenants[i], keys[i],
+                              float(estimates[i]), tcap, trate, ccap, crate,
+                              priority=int(prios[i]))
+        s = None
+        if r.granted:
+            s = await led.settle(f"{prefix}{i}", tenants[i], float(costs[i]))
+            if s.outcome == "settled":
+                granted += 1
+                settled += int(costs[i])
+        rows.append((r, s))
+    return granted, settled, rows, led
+
+
+def _resv_compare(what, got, want, tol) -> float:
+    """Hold one run's reservation rows and ledger to another's: grants,
+    outcomes, flags and integer counters equal; float fields, balances and
+    debts within ``tol``. Returns the largest float difference."""
+    (g_rows, g_led), (w_rows, w_led) = got, want
+    err = 0.0
+    for i, ((gr, gs), (wr, ws)) in enumerate(zip(g_rows, w_rows,
+                                                 strict=True)):
+        if gr.granted != wr.granted or gr[4:] != wr[4:] or \
+                (gs is None) != (ws is None) or \
+                (gs is not None and gs.outcome != ws.outcome):
+            raise AssertionError(f"{what}: row {i} {gr} {gs} vs {wr} {ws}")
+        pairs = list(zip(gr[1:4], wr[1:4]))
+        if gs is not None:
+            pairs += list(zip(gs[1:], ws[1:]))
+        for a, b in pairs:
+            err = max(err, abs(a - b))
+    gs_, ws_ = g_led.numeric_stats(), w_led.numeric_stats()
+    for k, v in gs_.items():
+        if isinstance(v, int) and v != ws_[k]:
+            raise AssertionError(f"{what}: counter {k} {v} vs {ws_[k]}")
+        err = max(err, abs(v - ws_[k]))
+    gd, wd = g_led.debts(), w_led.debts()
+    if gd.keys() != wd.keys():
+        raise AssertionError(f"{what}: debtors {sorted(gd)} vs {sorted(wd)}")
+    err = max([err] + [abs(v - wd[t]) for t, v in gd.items()])
+    if err > tol:
+        raise AssertionError(f"{what}: a float field differs by {err}")
+    return err
+
+
+async def reservation_path(torch, ck, pkg, card: str) -> dict:
+    """The estimate-reserve-settle lane on the card: the LLM workload
+    reserved at its estimates and settled at its costs through the store's
+    ledger (one ``acquire_hierarchical`` launch a reserve, one or two
+    ``debit_packed`` launches a settle or a debt collection), held to the
+    port's CPU store on the same clock schedule; the zero-fill audit arm;
+    the lane over the wire; the TTL auto-settle. Returns the kernel
+    launches the path made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        reservations,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import store as smod
+
+    ccap, tcap = LLM_BUDGETS
+    rate = LLM_RATE
+    tenants, keys, costs, prios = _llm_workload(LLM_SEED, RESV_ROWS)
+    rng = np.random.default_rng(RESV_ERR_SEED)
+    estimates = np.maximum(costs * rng.lognormal(0.0, RESV_EST_SIGMA,
+                                                 RESV_ROWS), 1.0)
+
+    def card_store(clock):
+        return pkg.DeviceBucketStore(device="cuda", n_slots=RESV_SLOTS,
+                                     max_batch=RESV_MAX_BATCH, clock=clock)
+
+    clock = pkg.ManualClock(1_000_000)
+    store = card_store(clock)
+    await store.connect()
+    ck.reset_launches()
+
+    # 1. Throughput at the device debt's size: 8,192 pairs, serially, one
+    # tick a row. The store's awaits and their host dispatch are timed.
+    t_hier, t_debit, t_hdisp, t_ddisp = [0.0], [0.0], [0.0], [0.0]
+    _time_async(store, "acquire_hierarchical", t_hier)
+    _time_async(store, "debit_many", t_debit)
+    _time_calls(store, "_hier_dispatch", t_hdisp)
+    real_launch = smod._DeviceTable._debit_launch
+    _time_calls(smod._DeviceTable, "_debit_launch", t_ddisp)
+    h0, d0 = ck.launches["acquire_hierarchical"], ck.launches["debit_packed"]
+    try:
+        t0 = time.perf_counter()
+        granted, settled, rows, led = await _drive_reservations(
+            store, tenants, keys, costs, estimates, prios, tcap, rate, "r",
+            clock)
+        wall = time.perf_counter() - t0
+    finally:
+        smod._DeviceTable._debit_launch = real_launch
+    n_hier = ck.launches["acquire_hierarchical"] - h0
+    n_debit = ck.launches["debit_packed"] - d0
+    if n_hier != RESV_ROWS:
+        raise AssertionError(f"reservations: {n_hier} two-level launches for "
+                             f"{RESV_ROWS} reserves")
+    refund_ratio = led.refunded_tokens / max(settled, 1)
+    debt_ratio = led.debt_tokens_created / max(settled, 1)
+    cons = led.conservation()
+    if abs(cons["residue"]) > 1e-6 * max(cons["inflow"], 1.0):
+        raise AssertionError(f"reservations: conservation residue {cons}")
+    store_s = t_hier[0] + t_debit[0]
+    disp_s = t_hdisp[0] + t_ddisp[0]
+    print(f"reservations (LLM workload, {RESV_ROWS} rows, estimates cost x "
+          f"LogNormal(0, {RESV_EST_SIGMA}); tenant {tcap:g} and key "
+          f"{ccap:g} tokens at {rate:g}/s; {int(costs.sum())} tokens of "
+          f"cost as numpy {np.__version__} draws them; a {RESV_SLOTS}-slot "
+          f"store, max_batch {RESV_MAX_BATCH}): {granted} pairs settled in "
+          f"{wall:.3f} s = {RESV_ROWS / wall:.0f} pairs/s, "
+          f"{settled / wall:.0f} settled tokens/s ({card}); refund_ratio "
+          f"{refund_ratio:.4f}, debt_ratio {debt_ratio:.4f}; "
+          f"{n_hier} acquire_hierarchical and {n_debit} debit_packed "
+          f"launches; conservation residue {cons['residue']!r}")
+    print(f"reservations, where a pair's {wall / RESV_ROWS * 1e3:.4f} ms "
+          f"goes: store awaits {store_s / RESV_ROWS * 1e3:.4f} ms "
+          f"(two-level {t_hier[0] / RESV_ROWS * 1e3:.4f}, debits "
+          f"{t_debit[0] / RESV_ROWS * 1e3:.4f}), of which host dispatch "
+          f"(resolve, operand, launch) {disp_s / RESV_ROWS * 1e3:.4f} ms "
+          f"and the readback with its executor hop "
+          f"{(store_s - disp_s) / RESV_ROWS * 1e3:.4f} ms; the ledger's "
+          f"own host work (lock, expiry, dicts) "
+          f"{(wall - store_s) / RESV_ROWS * 1e3:.4f} ms")
+    # 2. The same schedule on the port's CPU store: grants, outcomes and
+    # integer counters equal; floats within 2 float32 spacings of the
+    # tenant budget (the tests' tolerance for balances).
+    oclock = pkg.ManualClock(1_000_000)
+    oracle = pkg.DeviceBucketStore(device="cpu", n_slots=RESV_SLOTS,
+                                   max_batch=RESV_MAX_BATCH, clock=oclock)
+    t0 = time.perf_counter()
+    _g, o_settled, o_rows, o_led = await _drive_reservations(
+        oracle, tenants, keys, costs, estimates, prios, tcap, rate, "r",
+        oclock)
+    cpu_s = time.perf_counter() - t0
+    tol = 2 * float(np.spacing(np.float32(tcap)))
+    err = _resv_compare("reservations vs the CPU store", (rows, led),
+                        (o_rows, o_led), tol)
+    if o_settled != settled:
+        raise AssertionError(f"reservations: settled {settled} vs the CPU "
+                             f"store's {o_settled}")
+    print(f"reservations vs the port's CPU store on the same clock "
+          f"schedule: every grant, outcome, integer counter and debtor "
+          f"equal; float fields max abs diff {err!r} (limit {tol:g}); the "
+          f"CPU store's plain versions took {cpu_s:.3f} s = "
+          f"{RESV_ROWS / cpu_s:.0f} pairs/s")
+    await oracle.aclose()
+
+    # Device time of a pair: a profiled sample past the timed run.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        await _drive_reservations(
+            store, tenants[:RESV_PROFILED], keys[:RESV_PROFILED],
+            costs[:RESV_PROFILED], estimates[:RESV_PROFILED],
+            prios[:RESV_PROFILED], tcap, rate, "p", clock)
+        torch.cuda.synchronize()
+    dev_us = {name: sum(getattr(e, "self_device_time_total", 0.0)
+                        for e in prof.key_averages()
+                        if any(k in e.key for k in kern))
+              for name, kern in (("two-level", HIER_KERNELS),
+                                 ("debit", DEBIT_KERNELS))}
+    dev_ms = sum(dev_us.values()) / 1e3 / RESV_PROFILED
+    print(f"reservations, device time a pair ({RESV_PROFILED} pairs "
+          f"profiled): {dev_ms:.5f} ms (two-level "
+          f"{dev_us['two-level'] / 1e3 / RESV_PROFILED:.5f}, debits "
+          f"{dev_us['debit'] / 1e3 / RESV_PROFILED:.5f}), "
+          f"{dev_ms / (wall / RESV_ROWS * 1e3):.2%} of a pair's wall "
+          f"time")
+
+    # 3. The zero-fill audit arm: store-observed spend per tenant against
+    # the ledger's accounting, and the perfect-estimate oracle's bound.
+    m = RESV_AUDIT_ROWS
+    a_store = card_store(pkg.ManualClock(1_000_000))
+    _g, a_settled, _rows, a_led = await _drive_reservations(
+        a_store, tenants[:m], keys[:m], costs[:m], estimates[:m], prios[:m],
+        RESV_AUDIT_TENANT, RESV_AUDIT_FILL, "a")
+    spend = sum(RESV_AUDIT_TENANT - a_store.peek_blocking(
+        t, RESV_AUDIT_TENANT, RESV_AUDIT_FILL) for t in set(tenants[:m]))
+    debt_out = sum(a_led.debts().values())
+    drift = (abs(spend - (a_settled - debt_out)) / a_settled
+             if a_settled else 0.0)
+    p_store = card_store(pkg.ManualClock(1_000_000))
+    _g, o_settled, _rows, _led = await _drive_reservations(
+        p_store, tenants[:m], keys[:m], costs[:m], costs[:m], prios[:m],
+        RESV_AUDIT_TENANT, RESV_AUDIT_FILL, "o")
+    epsilon = a_led.debt_tokens_created + 0.01 * o_settled
+    bound_ok = a_settled <= o_settled + epsilon
+    print(f"reservations, zero-fill audit ({m} rows, tenant "
+          f"{RESV_AUDIT_TENANT:g} tokens, fill {RESV_AUDIT_FILL:g}): settled "
+          f"{a_settled}, store-observed spend {spend:.1f}, debt created "
+          f"{a_led.debt_tokens_created:.1f} and outstanding {debt_out:.1f}, "
+          f"net_drift {drift!r}; the perfect-estimate oracle settled "
+          f"{o_settled}, bound_ok {bound_ok} ({a_led.debt_denials} debt "
+          f"denials, {a_led.reserve_denied} denials)")
+    if not (drift <= 0.01 and bound_ok):
+        raise AssertionError(f"reservation audit: net_drift {drift}, "
+                             f"bound_ok {bound_ok}")
+    await p_store.aclose()
+
+    # 4. The wire: a server over a card store, the port's client, 1,000
+    # pairs; retried reserves and settles debit nothing twice; an unknown
+    # rid; OP_STATS' section against the server's ledger.
+    w_store = card_store(pkg.ManualClock(1_000_000))
+    server = pkg.BucketStoreServer(w_store, host="127.0.0.1", port=0)
+    addr = await server.start()
+    cli = pkg.RemoteBucketStore(address=addr, coalesce_requests=False)
+    try:
+        n = N_WIRE_RESV
+        lat, w_granted = [], 0
+        t0 = time.perf_counter()
+        for i in range(n):
+            t1 = time.perf_counter()
+            r = await cli.reserve(f"w{i}", tenants[i], keys[i],
+                                  float(estimates[i]), tcap, rate, ccap,
+                                  rate, priority=int(prios[i]))
+            if r.granted:
+                w_granted += 1
+                await cli.settle(f"w{i}", tenants[i], float(costs[i]))
+            lat.append(time.perf_counter() - t1)
+        w_wall = time.perf_counter() - t0
+        w_led = server.reservations
+        if w_granted != n or w_led.settles != n:
+            raise AssertionError(f"wire reservations: {w_granted} granted, "
+                                 f"{w_led.settles} settled of {n}")
+        t, k = tenants[0], keys[0]
+
+        def balances():
+            return (w_store.peek_blocking(t, tcap, rate),
+                    w_store.peek_blocking(k, ccap, rate))
+
+        hold = await cli.reserve("dup", t, k, 500.0, tcap, rate, ccap, rate)
+        before = balances()
+        again = await cli.reserve("dup", t, k, 500.0, tcap, rate, ccap, rate)
+        if not (hold.granted and again.granted and again.duplicate) or \
+                balances() != before:
+            raise AssertionError(f"wire reserve retry: {hold} {again} "
+                                 f"{before} -> {balances()}")
+        s1 = await cli.settle("dup", t, 200.0)
+        after_settle = balances()
+        s2 = await cli.settle("dup", t, 200.0)
+        ghost = await cli.settle("ghost", t, 5.0)
+        if s1.outcome != "settled" or s1.refunded != 300.0 or \
+                s2.outcome != "duplicate" or balances() != after_settle or \
+                ghost.outcome != "unknown":
+            raise AssertionError(f"wire settle retry: {s1} {s2} {ghost}")
+        stats = await cli.stats()
+        section = stats["reservations"]
+        mine = w_led.numeric_stats()
+        if {k_: section[k_] for k_ in mine} != mine:
+            raise AssertionError(f"OP_STATS reservations {section} vs the "
+                                 f"server's ledger {mine}")
+        print(f"reservations over the wire: {n} reserve/settle pairs in "
+              f"{w_wall:.3f} s = {n / w_wall:.0f} pairs/s ({card}), client "
+              f"p50 {_pct(lat, 50) * 1e3:.3f} ms, p99 "
+              f"{_pct(lat, 99) * 1e3:.3f} ms a pair; a retried reserve "
+              f"answered duplicate and a retried settle "
+              f"{s2.outcome!r}, balances unchanged {before} -> "
+              f"{after_settle} (the refund of 300); an unknown rid "
+              f"{ghost.outcome!r}; OP_STATS' reservations section equal to "
+              f"the server's ledger ({mine['reserves']} reserves, "
+              f"{mine['settles']} settles)")
+    finally:
+        await cli.aclose()
+        await server.aclose()
+
+    # 5. TTL: an in-process ledger on an injected clock auto-settles an
+    # unsettled hold at its estimate; a later settle replays that record.
+    now = [0.0]
+    t_led = reservations.ReservationLedger(
+        w_store, clock=lambda: now[0], default_ttl_s=RESV_TTL_S)
+    t, k = "tenant:ttl", "ttl/u0"
+    r = await t_led.reserve("ttl1", t, k, 100.0, tcap, rate, ccap, rate)
+    held = w_store.peek_blocking(t, tcap, rate)
+    now[0] = RESV_TTL_S + 1.0
+    expired = t_led.expire()
+    record = t_led._settled.get("ttl1")
+    replay = await t_led.settle("ttl1", t, 40.0)
+    if not (r.granted and expired == 1 and t_led.ttl_expired == 1
+            and record is not None and record.outcome == "expired"
+            and replay.outcome == "duplicate" and replay.refunded == 0.0
+            and t_led.outstanding_count() == 0
+            and w_store.peek_blocking(t, tcap, rate) == held):
+        raise AssertionError(f"reservation TTL: {r} {expired} {record} "
+                             f"{replay}")
+    print(f"reservation TTL ({RESV_TTL_S:g} s on the ledger's clock): the "
+          f"unsettled hold of 100 auto-settled at its estimate "
+          f"(ttl_expired {t_led.ttl_expired}, recorded outcome "
+          f"{record.outcome!r}); a later settle replayed it "
+          f"({replay.outcome!r}, refunded {replay.refunded}), the tenant's "
+          f"balance unchanged at {held}")
+    counts = dict(ck.launches)
+    for st in (store, a_store, w_store):
+        await st.aclose()
     return counts
 
 
@@ -3955,6 +4377,7 @@ def main() -> int:
     sizes_by_path = {}
     for name, path in (("exact", main_path), ("approximate", approximate_path),
                        ("window", window_path), ("admission", admission_path),
+                       ("reservation", reservation_path),
                        ("server", server_path), ("bench", bench_path)):
         t = time.perf_counter()
         before = {k: dict(v) for k, v in sizes.items()}
@@ -3986,10 +4409,11 @@ def main() -> int:
               "sema_packed": "admission", "sweep_semas": "admission",
               "acquire_hierarchical": "admission", "debit_packed": "exact",
               "acquire_scan24": "bench", "acquire_batch": "bench"}
-    # No wire op reaches the debit until tier-0 and the reservations are
-    # ported, nor the bench's two kernels: they are exempt from the
-    # server-path rule.
-    no_wire_op = {"debit_packed", "acquire_scan24", "acquire_batch"}
+    # No wire op reaches the bench's two kernels: they are exempt from the
+    # server-path rule (OP_SETTLE reaches the debit).
+    no_wire_op = {"acquire_scan24", "acquire_batch"}
+    # The reservation path runs on the two-level kernel and the debit.
+    also_serves = {"reservation": ("acquire_hierarchical", "debit_packed")}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
@@ -4069,10 +4493,8 @@ def main() -> int:
             kernels[-1]["launch_sizes"] = {
                 str(b): c for b, c in sorted(sizes[name].items())}
         if name in no_wire_op:
-            kernels[-1]["server_path"] = (
-                "exempt: the bench's kernel, no wire op" if serves[name] ==
-                "bench" else "exempt: no wire op reaches it until tier-0 is "
-                "ported")
+            kernels[-1]["server_path"] = "exempt: the bench's kernel, no " \
+                "wire op"
     print(json.dumps({"kernels": kernels}))
     # Each kernel launched on the path it serves, and the server path drives
     # every kernel that a wire op reaches.
@@ -4080,6 +4502,8 @@ def main() -> int:
             if by_path[path][name] <= 0]
     idle += [f"{name} (server path)" for name in serves
              if name not in no_wire_op and by_path["server"][name] <= 0]
+    idle += [f"{name} ({path} path)" for path, names in also_serves.items()
+             for name in names if by_path[path][name] <= 0]
     if idle:
         raise AssertionError(f"never launched: {idle}")
     print(json.dumps({"ok": True, "device": {

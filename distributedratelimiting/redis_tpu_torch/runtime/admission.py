@@ -20,10 +20,11 @@ admission plane:
   (:func:`shed_allows`, the one shared gate).
 - **Token velocity** — per-tenant tokens/s as an exponentially decayed rate
   (:class:`TokenVelocity`), exported through ``OP_STATS``.
-
-Not ported yet: the reservation lane (``AdmissionPolicy.next_rid``,
-``reserve``, ``settle``), which needs the reservation ledger; each raises
-``NotImplementedError``.
+- **Streaming reservations** — ``AdmissionPolicy.reserve`` admits an
+  estimated cost and ``settle`` reconciles the actual one through the
+  store's reservation ledger (:mod:`~.reservations`); the policy keeps its
+  own :class:`~.reservations.EstimatePrior` for reserves sent without an
+  estimate.
 
 Contract: a hierarchical decision changes state
 both-or-neither — a denied request leaves both buckets exactly as a
@@ -42,6 +43,10 @@ from typing import Callable, Mapping
 
 from distributedratelimiting.redis_tpu_torch.models.approximate import (
     headroom_budget,
+)
+from distributedratelimiting.redis_tpu_torch.runtime.reservations import (
+    EstimatePrior,
+    ReserveResult,
 )
 
 __all__ = [
@@ -258,6 +263,10 @@ class AdmissionPolicy:
         self.key_config = (float(key_config[0]), float(key_config[1]))
         self._tenants: dict[str, TenantBudget] = dict(tenants or {})
         self.velocity = TokenVelocity(velocity_tau_s, clock=clock)
+        # Streaming reservations: this gateway's own estimate prior (fed
+        # by settles) and its rid sequence.
+        self.prior = EstimatePrior()
+        self._rid_seq = 0
         self.shed_level: "int | None" = None
         # Visible counters (stats()).
         self.decisions = 0
@@ -373,21 +382,66 @@ class AdmissionPolicy:
             self.velocity.observe(tenant, float(cost))
         return res
 
-    # -- streaming reservations: not ported yet -----------------------------
+    # -- streaming reservations (runtime/reservations.py) --------------------
     def next_rid(self, tenant: str) -> str:
-        raise NotImplementedError(
-            "AdmissionPolicy.next_rid (the reservation lane) is not ported "
-            "to the PyTorch package yet")
+        """A per-gateway reservation id: tenant-scoped + monotonic.
+        Unique across gateways only when each gateway's ids carry a
+        distinct prefix — callers with several gateways pass their own
+        rids instead (the seeded tests do, for determinism)."""
+        self._rid_seq += 1
+        return f"{tenant}#{id(self) & 0xFFFFFF:x}#{self._rid_seq}"
 
-    async def reserve(self, tenant: str, key: str, **kwargs):
-        raise NotImplementedError(
-            "AdmissionPolicy.reserve (the reservation lane) is not ported "
-            "to the PyTorch package yet")
+    async def reserve(self, tenant: str, key: str, *,
+                      estimate: "float | None" = None,
+                      priority: int = PRIORITY_INTERACTIVE,
+                      rid: "str | None" = None,
+                      ttl_s: "float | None" = None,
+                      attempt: int = 0,
+                      deadline_s: "float | None" = None):
+        """Phase 1 of a streaming request: admit an ESTIMATED cost and
+        hold it against the tenant → key budgets. With no ``estimate``
+        the gateway's own prior supplies one (interactive → p99,
+        batch/scavenger → mean — the server-side prior applies the same
+        rule when the estimate is omitted on the wire). Returns the
+        store's ReserveResult; pass the rid (yours or :meth:`next_rid`'s)
+        to :meth:`settle` when the stream ends."""
+        self.decisions += 1
+        self._note_attempt(tenant, attempt)
+        if self.retry_shed and attempt:
+            self.retries_shed += 1
+            self.shed += 1
+            return ReserveResult(False, 0.0, 0.0, 0.0)
+        if self.shed_level is not None and priority >= self.shed_level:
+            self.shed += 1
+            return ReserveResult(False, 0.0, 0.0, 0.0)
+        budget = self.tenant(tenant)
+        cap, rate = self.key_config
+        if estimate is None:
+            estimate = self.prior.estimate(tenant, priority)
+        res = await self.store.reserve(
+            rid if rid is not None else self.next_rid(tenant),
+            tenant, key, estimate, budget.capacity,
+            budget.fill_rate_per_sec, cap, rate, priority=priority,
+            ttl_s=ttl_s, attempt=attempt, deadline_s=deadline_s)
+        if res.granted:
+            self.granted += 1
+            self.reserves += 1
+            self.reserved_tokens += res.reserved
+        return res
 
-    async def settle(self, rid: str, tenant: str, actual: float, **kwargs):
-        raise NotImplementedError(
-            "AdmissionPolicy.settle (the reservation lane) is not ported "
-            "to the PyTorch package yet")
+    async def settle(self, rid: str, tenant: str, actual: float, *,
+                     priority: int = PRIORITY_INTERACTIVE):
+        """Phase 3: reconcile the actual cost. Feeds the gateway's
+        velocity (at the TRUE spend) and its estimate prior."""
+        res = await self.store.settle(rid, tenant, actual)
+        if res.outcome in ("settled", "fallback", "expired"):
+            self.settles += 1
+            self.settled_tokens += actual
+            self.admitted_tokens += actual
+            if actual > 0:
+                self.velocity.observe(tenant, float(actual))
+            self.prior.observe(tenant, priority, float(actual))
+        return res
 
     def envelope_budget(self, tenant: str, *,
                         fraction: float = 0.5) -> float:

@@ -40,22 +40,33 @@ speak the tenant extension ("unknown op" / "unknown bulk kind") the client
 latches, once, to flat child-only admission and counts every such decision
 (``resilience_stats()["hier_fallbacks"]``).
 
+Streaming reservations are one ``OP_RESERVE`` / ``OP_SETTLE`` frame each,
+the ledger living server-side; against a server that answers "unknown op"
+the client latches, once, to charging the estimate through the two-level
+lane (``resilience_stats()["reserve_fallbacks"]``), and a "route-to-pool"
+redirect is chased once (``reserves_routed``).
+
 Not ported yet: the live-config chase ("config moved" errors surface as
-:class:`wire.RemoteStoreError`), and the reservation, federation,
-placement, config, metrics, traces and audit methods, which raise
-``NotImplementedError`` as the port's ``BucketStore`` does.
+:class:`wire.RemoteStoreError`, and a reserve sends the caller's configs
+as given), and the federation, placement, config, metrics, traces and
+audit methods, which raise ``NotImplementedError`` as the port's
+``BucketStore`` does.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import random
 import threading
 from typing import Awaitable, Callable, Sequence
 
 import numpy as np
 
-from distributedratelimiting.redis_tpu_torch.runtime import wire
+from distributedratelimiting.redis_tpu_torch.runtime import (
+    reservations,
+    wire,
+)
 from distributedratelimiting.redis_tpu_torch.runtime.clock import (
     Clock,
     MonotonicClock,
@@ -197,6 +208,13 @@ class RemoteBucketStore(BucketStore):
         # after the first "unknown op", hierarchical calls go flat.
         self._peer_hier = True
         self._hier_fallbacks = 0
+        # Reservation-lane latch (OP_RESERVE/OP_SETTLE): an old server
+        # answers "unknown op"; reserves then charge the estimate through
+        # the two-level lane and settles are client-side no-ops.
+        self._peer_reserve = True
+        self._reserve_fallbacks = 0
+        # OP_RESERVE route-to-pool redirects chased (once each).
+        self._reserves_routed = 0
 
         self._coalesce = coalesce_requests
         self._coalesce_max_batch = coalesce_max_batch
@@ -1085,14 +1103,157 @@ class RemoteBucketStore(BucketStore):
                 remaining[idx] = res.remaining
         return BulkAcquireResult(granted, remaining)
 
+    # -- estimate-reserve-settle (OP_RESERVE / OP_SETTLE) --------------------
+    #: The ledger lives SERVER-side; None (not a method) so a
+    #: ``callable(...)`` probe (the server's, fronting this client) mints
+    #: no local ledger nothing would serve.
+    reservation_ledger = None
+
+    def _note_reserve_fallback(self) -> None:
+        if self._peer_reserve:
+            self._peer_reserve = False
+            log.error_evaluating_kernel(RuntimeError(
+                "server does not speak the reservation lane "
+                "(OP_RESERVE/OP_SETTLE); reserve falls back to plain "
+                "acquire_hierarchical at the estimate — over-estimate "
+                "refunds are NOT issued against this peer"))
+        self._reserve_fallbacks += 1
+
+    async def _reserve_fallback(self, tenant: str, key: str,
+                                estimate: "float | None",
+                                tenant_capacity: float,
+                                tenant_fill_rate_per_sec: float,
+                                capacity: float,
+                                fill_rate_per_sec: float,
+                                priority: int,
+                                timeout_s: "float | None"):
+        """Old-peer path: charge the estimate through the hierarchical
+        lane (which itself degrades to flat child-only admission against
+        even older peers). No hold exists anywhere — the later settle is
+        a client-side no-op."""
+        charge = reservations.fallback_charge(estimate)
+        res = await self.acquire_hierarchical(
+            tenant, key, charge, tenant_capacity,
+            tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+            priority=priority, timeout_s=timeout_s)
+        return reservations.ReserveResult(
+            res.granted, float(charge) if res.granted else 0.0,
+            res.remaining, 0.0, fallback=True)
+
+    async def reserve(self, rid: str, tenant: str, key: str,
+                      estimate: "float | None",
+                      tenant_capacity: float,
+                      tenant_fill_rate_per_sec: float,
+                      capacity: float, fill_rate_per_sec: float, *,
+                      priority: int = 0,
+                      ttl_s: "float | None" = None,
+                      timeout_s: "float | None" = None,
+                      attempt: int = 0,
+                      deadline_s: "float | None" = None):
+        """One ``OP_RESERVE`` frame: admission at the estimate + a TTL'd
+        server-side hold (:mod:`~.reservations`). Post-send retries are
+        safe — the server dedups by ``rid``. The configs go as given (the
+        client does not chase "config moved").
+
+        ``attempt``/``deadline_s`` ride as JSON fields (not binary tails —
+        old servers ignore unknown keys, so no latch). A "route-to-pool"
+        answer (budget-aware pool routing) is chased ONCE: the re-send
+        carries the redirect's pool config and the result reports
+        ``routed=True``."""
+        if not self._peer_reserve:
+            self._reserve_fallbacks += 1
+            return await self._reserve_fallback(
+                tenant, key, estimate, tenant_capacity,
+                tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+                priority, timeout_s)
+
+        async def call(ta, tb, *, _tenant=tenant, _priority=int(priority),
+                       _route=True):
+            payload: dict = {"rid": rid, "tenant": _tenant, "key": key,
+                             "a": capacity, "b": fill_rate_per_sec,
+                             "ta": ta, "tb": tb, "priority": _priority}
+            if estimate is not None:
+                payload["estimate"] = float(estimate)
+            if ttl_s is not None:
+                payload["ttl_s"] = float(ttl_s)
+            if attempt:
+                payload["attempt"] = int(attempt)
+            if deadline_s is not None:
+                payload["deadline_s"] = float(deadline_s)
+            try:
+                (text,) = await self._request(
+                    wire.OP_RESERVE, json.dumps(payload),
+                    timeout_s=timeout_s)
+            except wire.RemoteStoreError as exc:
+                route = (reservations.parse_route(str(exc))
+                         if _route else None)
+                if route is None:
+                    raise
+                # Chase the redirect once: re-send against the pool the
+                # server named — the POOL is the tenant-bucket key, so
+                # the hold lands in the pool's own budget, not the
+                # exhausted interactive one. A second redirect surfaces
+                # as the error — no routing loops.
+                self._reserves_routed += 1
+                pool_name = str(route["pool"])
+                routed = await call(
+                    float(route["ta"]), float(route["tb"]),
+                    _tenant=pool_name,
+                    _priority=int(route.get("priority", _priority)),
+                    _route=False)
+                return routed._replace(routed=True, pool=pool_name)
+            d = json.loads(text)
+            return reservations.ReserveResult(
+                bool(d.get("granted")), float(d.get("reserved", 0.0)),
+                float(d.get("remaining", 0.0)), float(d.get("debt", 0.0)),
+                bool(d.get("duplicate", False)))
+
+        try:
+            return await call(tenant_capacity, tenant_fill_rate_per_sec)
+        except wire.RemoteStoreError as exc:
+            if "unknown op" not in str(exc):
+                raise
+            self._note_reserve_fallback()
+            return await self._reserve_fallback(
+                tenant, key, estimate, tenant_capacity,
+                tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+                priority, timeout_s)
+
+    async def settle(self, rid: str, tenant: str, actual: float, *,
+                     timeout_s: "float | None" = None):
+        """One ``OP_SETTLE`` frame (idempotent by rid — post-send-retry-
+        safe). Against a latched old peer this is a counted client-side
+        no-op: the fallback reserve charged the estimate outright, and
+        there is no server-side hold to reconcile."""
+        if not self._peer_reserve:
+            self._reserve_fallbacks += 1
+            return reservations.SettleResult("fallback", 0.0, 0.0, 0.0)
+        try:
+            (text,) = await self._request(
+                wire.OP_SETTLE,
+                json.dumps({"rid": rid, "tenant": tenant,
+                            "actual": float(actual)}),
+                timeout_s=timeout_s)
+        except wire.RemoteStoreError as exc:
+            if "unknown op" not in str(exc):
+                raise
+            self._note_reserve_fallback()
+            return reservations.SettleResult("fallback", 0.0, 0.0, 0.0)
+        d = json.loads(text)
+        return reservations.SettleResult(
+            str(d.get("outcome", "settled")), float(d.get("delta", 0.0)),
+            float(d.get("refunded", 0.0)), float(d.get("debt", 0.0)))
+
     async def ping(self, *, timeout_s: "float | None" = None) -> None:
         await self._request(wire.OP_PING, timeout_s=timeout_s)
 
     def resilience_stats(self) -> dict:
         """Client-side resilience counters: retries issued, request
         timeouts, consecutive dial failures, whether the reconnect backoff
-        window is currently open, and the hierarchical decisions that fell
-        back to flat admission against an old peer."""
+        window is currently open, the hierarchical decisions that fell
+        back to flat admission against an old peer, the reservation calls
+        that fell back (``reserve_fallbacks``) and the route-to-pool
+        redirects chased (``reserves_routed``)."""
         loop = self._io_loop
         backing_off = (loop is not None
                        and self._backoff_until > loop.time())
@@ -1102,6 +1263,8 @@ class RemoteBucketStore(BucketStore):
             "connect_failures": self._connect_failures,
             "backing_off": backing_off,
             "hier_fallbacks": self._hier_fallbacks,
+            "reserve_fallbacks": self._reserve_fallbacks,
+            "reserves_routed": self._reserves_routed,
         }
 
     async def save(self) -> None:
@@ -1115,8 +1278,6 @@ class RemoteBucketStore(BucketStore):
         """Server + store metrics as a dict. ``reset=True`` asks the server
         to start a fresh serving/stage-latency window after the snapshot;
         ``dump_flight=True`` asks a JAX server for a flight-recorder dump."""
-        import json
-
         flags = ((wire.STATS_FLAG_RESET if reset else 0)
                  | (wire.STATS_FLAG_FLIGHT_DUMP if dump_flight else 0))
         (text,) = await self._request(wire.OP_STATS, count=flags)
@@ -1168,8 +1329,7 @@ class RemoteBucketStore(BucketStore):
 
 
 # The JAX client's other lanes: metrics/traces/audit exports, placement and
-# live-config control, and federation. (Reservations raise through
-# BucketStore already.)
+# live-config control, and federation.
 for _name in ("metrics", "traces", "audit", "placement_fetch",
               "placement_announce", "migrate_pull", "migrate_push",
               "config_fetch", "config_announce", "fed_lease", "fed_renew",

@@ -15,17 +15,21 @@ Served: ``OP_ACQUIRE``, ``OP_WINDOW``, ``OP_FWINDOW``, ``OP_SEMA``
 (semaphore acquire, probe and release), ``OP_ACQUIRE_H`` (two-level tenant
 → key admission), ``OP_ACQUIRE_MANY`` (bucket, window, fixed-window and
 hierarchical-bucket kinds; keys resolve straight from the frame's bytes
-through ``wire.KeyBlob``), ``OP_PEEK``, ``OP_SYNC``, ``OP_PING``,
-``OP_SAVE``, ``OP_STATS`` and the ``OP_HELLO`` auth handshake, with the
-trace, deadline and attempt tails (deadline-expired work is shed
-unexecuted). Granted hierarchical costs feed a per-tenant
-:class:`~.admission.TokenVelocity` (``OP_STATS`` ``token_velocity``). The
-JAX server's live-config, drain-envelope, placement and heavy-hitter gates
-on the hierarchical lanes are not ported (nor those subsystems). An op the
-JAX server serves but this one does not yet (reservations, placement, live
-config, federation, metrics, traces, audit) answers a routable error that
-names it as not served — never the "unknown op" / "unknown bulk kind" text,
-which a JAX client reads as an old peer and silently falls back from.
+through ``wire.KeyBlob``), ``OP_RESERVE`` / ``OP_SETTLE`` (the
+estimate-reserve-settle lane, through the store's one
+:class:`~.reservations.ReservationLedger`), ``OP_PEEK``, ``OP_SYNC``,
+``OP_PING``, ``OP_SAVE``, ``OP_STATS`` and the ``OP_HELLO`` auth
+handshake, with the trace, deadline and attempt tails (deadline-expired
+work is shed unexecuted). Granted hierarchical costs and settled actuals
+feed a per-tenant :class:`~.admission.TokenVelocity` (``OP_STATS``
+``token_velocity``). The JAX server's live-config, drain-envelope,
+placement, retry-shed, doomed-work, overflow-pool and heavy-hitter gates
+on the hierarchical and reservation lanes are not ported (nor those
+subsystems). An op the JAX server serves but this one does not yet
+(placement, live config, federation, metrics, traces, audit) answers a
+routable error that names it as not served — never the "unknown op" /
+"unknown bulk kind" text, which a JAX client reads as an old peer and
+silently falls back from.
 
 Run it with ``python -m distributedratelimiting.redis_tpu_torch.runtime.server``
 (on ``cuda`` unless ``--device cpu`` is given).
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import asyncio
 import hmac
+import json
 import time
 
 import numpy as np
@@ -53,8 +58,7 @@ __all__ = ["BucketStoreServer", "main"]
 _UNPORTED_OPS = frozenset((
     wire.OP_METRICS, wire.OP_TRACES, wire.OP_PLACEMENT,
     wire.OP_PLACEMENT_ANNOUNCE, wire.OP_MIGRATE_PULL, wire.OP_MIGRATE_PUSH,
-    wire.OP_CONFIG, wire.OP_RESERVE, wire.OP_SETTLE,
-    wire.OP_FED_LEASE, wire.OP_FED_RENEW, wire.OP_FED_RECLAIM,
+    wire.OP_CONFIG, wire.OP_FED_LEASE, wire.OP_FED_RENEW, wire.OP_FED_RECLAIM,
     wire.OP_AUDIT))
 #: Bulk kinds the JAX server serves that this one does not yet: none.
 _UNPORTED_BULK_KINDS: dict[int, str] = {}
@@ -119,6 +123,16 @@ class BucketStoreServer:
         # (OP_STATS "token_velocity"); None turns the feed off.
         self.token_velocity: "admission.TokenVelocity | None" = (
             admission.TokenVelocity())
+        # The estimate-reserve-settle ledger: the STORE-attached one, so a
+        # store re-fronted by a new server keeps its holds and debts;
+        # wired to this server's velocity (settles feed it the actual
+        # spend). A client store (no ledger of its own) serves no
+        # reservations.
+        if callable(getattr(store, "reservation_ledger", None)):
+            self.reservations = store.reservation_ledger()
+            self.reservations.velocity = self.token_velocity
+        else:
+            self.reservations = None
         # Tracing rides the process-global tracer: True enables it with
         # defaults, a dict passes knobs through, None leaves it as is.
         if tracing_config is not None:
@@ -435,6 +449,10 @@ class BucketStoreServer:
                 resp = wire.encode_response(
                     seq, wire.RESP_PAIR, res.global_score,
                     res.period_ewma_ticks)
+            elif op == wire.OP_RESERVE:
+                resp = await self._serve_reserve(seq, json.loads(key))
+            elif op == wire.OP_SETTLE:
+                resp = await self._serve_settle(seq, json.loads(key))
             elif op == wire.OP_PING:
                 resp = wire.encode_response(seq, wire.RESP_EMPTY)
             elif op == wire.OP_SAVE:
@@ -495,6 +513,73 @@ class BucketStoreServer:
                 self.token_velocity.observe(tenant, float(admitted))
         return wire.encode_bulk_response(seq, res.granted, res.remaining)
 
+    # -- estimate-reserve-settle (runtime/reservations.py) --------------------
+    async def _serve_reserve(self, seq: int, req: dict) -> bytes:
+        """One ``OP_RESERVE`` frame: admission at the estimate + a TTL'd
+        ledger hold, the same JSON reply as the JAX server's. The decision
+        is the store's two-level one (one launch on a card store)."""
+        rid = str(req.get("rid") or "")
+        tenant = str(req.get("tenant") or "")
+        key = str(req.get("key") or "")
+        if not rid or not tenant or not key:
+            return wire.encode_response(
+                seq, wire.RESP_ERROR,
+                "reserve requires rid, tenant, and key")
+        estimate = req.get("estimate")
+        a, b = float(req.get("a", 0.0)), float(req.get("b", 0.0))
+        ta, tb = float(req.get("ta", 0.0)), float(req.get("tb", 0.0))
+        priority = int(req.get("priority", 0))
+        ttl_s = req.get("ttl_s")
+        attempt = int(req.get("attempt", 0) or 0)
+        try:
+            deadline_s = (float(req["deadline_s"])
+                          if req.get("deadline_s") is not None else None)
+        except (TypeError, ValueError):
+            deadline_s = None
+        # Not ported here, as the subsystems behind them are not: the
+        # live-config gate on both levels, the drain envelope, and the
+        # placement MOVED / envelope answers keyed on the tenant.
+        led = self.reservations
+        if led is None:
+            return wire.encode_response(
+                seq, wire.RESP_ERROR,
+                "this server has no reservation ledger")
+        if attempt:
+            self.retry_attempts_seen += 1
+        # Not ported here: the retry-shed and doomed-work answers, the
+        # overflow-pool route-to-pool redirect and the heavy-hitter offer.
+        res = await led.reserve(rid, tenant, key, estimate, ta, tb,
+                                a, b, priority=priority, ttl_s=ttl_s,
+                                attempt=attempt, deadline_s=deadline_s)
+        return wire.encode_response(seq, wire.RESP_TEXT, json.dumps(
+            {"granted": res.granted, "reserved": res.reserved,
+             "remaining": res.remaining, "debt": res.debt,
+             "duplicate": res.duplicate}))
+
+    async def _serve_settle(self, seq: int, req: dict) -> bytes:
+        """One ``OP_SETTLE`` frame: reconcile a reservation's actual cost
+        (idempotent by rid: a retry replays the recorded result)."""
+        rid = str(req.get("rid") or "")
+        tenant = str(req.get("tenant") or "")
+        if not rid or not tenant:
+            return wire.encode_response(
+                seq, wire.RESP_ERROR,
+                "settle requires rid and tenant")
+        try:
+            actual = float(req.get("actual", 0.0))
+        except (TypeError, ValueError):
+            return wire.encode_response(seq, wire.RESP_ERROR,
+                                        "settle actual must be a number")
+        # Not ported here: the drain relay to a successor and the
+        # placement deferral / MOVED answers.
+        if self.reservations is None:
+            return wire.encode_response(
+                seq, wire.RESP_ERROR,
+                "this server has no reservation ledger")
+        res = await self.reservations.settle(rid, tenant, actual)
+        return wire.encode_response(seq, wire.RESP_TEXT,
+                                    json.dumps(res._asdict()))
+
     async def _save(self) -> None:
         """Checkpoint the store to the configured path off-loop.
         Concurrent SAVEs piggyback on the one in flight (BGSAVE semantics)
@@ -510,8 +595,6 @@ class BucketStoreServer:
 
     def _stats_json(self) -> str:
         """OP_STATS body: the JAX server's asyncio-path keys."""
-        import json
-
         payload = {
             "connections_served": self.connections_served,
             "requests_served": self.requests_served,
@@ -540,6 +623,10 @@ class BucketStoreServer:
         if (self.token_velocity is not None
                 and self.token_velocity.observed_tokens > 0):
             payload["token_velocity"] = self.token_velocity.snapshot()
+        if self.reservations is not None and self.reservations.active:
+            # stats() piggybacks one TTL-expiry pass — a scraped-but-idle
+            # server still auto-settles dead clients' holds.
+            payload["reservations"] = self.reservations.stats()
         if self.retry_attempts_seen:
             payload["retry"] = {"attempts_seen": self.retry_attempts_seen}
         return json.dumps(payload)

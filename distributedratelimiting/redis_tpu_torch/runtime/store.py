@@ -1,14 +1,15 @@
 """The bucket store — where rate-limit state lives and decisions execute.
 
-The JAX package's ``runtime/store.py`` on PyTorch, all but the
-reservation lane and the migration export:
+The JAX package's ``runtime/store.py`` on PyTorch, all but the migration
+export:
 
 - :class:`BucketStore` — the storage seam (abstract). The bucket, counter,
   window (sliding and fixed) and semaphore methods are the contract; the
   two-level (tenant → key) admission methods default to a sequential
   compose; ``debit_many`` is for stores that host tier-0 replicas;
-  ``reserve``, ``settle`` and ``export_entries`` are not ported yet and
-  raise ``NotImplementedError``.
+  ``reserve`` and ``settle`` go through the store's one
+  :class:`~.reservations.ReservationLedger`; ``export_entries`` is not
+  ported yet and raises ``NotImplementedError``.
 - :class:`DeviceBucketStore` — per-key bucket state lives on the device
   as SoA tensors, one table per bucket configuration ``(capacity,
   fill_rate)``; ``acquire`` calls are micro-batched into one packed
@@ -352,6 +353,56 @@ class BucketStore(abc.ABC):
                 remaining[i] = r.remaining
         return BulkAcquireResult(granted, remaining)
 
+    # -- estimate-reserve-settle (runtime/reservations.py) -----------------
+    def reservation_ledger(self, **kwargs):
+        """Get-or-create this store's :class:`~.reservations.
+        ReservationLedger` — ONE ledger per store, shared by every consumer
+        (the server's OP_RESERVE/OP_SETTLE dispatch, in-process callers),
+        so a hold taken by one is settled by another. ``kwargs`` configure
+        the ledger on FIRST creation only; later callers get the existing
+        instance. The ledger's ``asyncio.Lock`` binds to the first event
+        loop that uses it: drive one store's ledger from one loop."""
+        led = getattr(self, "_reservations", None)
+        if led is None:
+            from distributedratelimiting.redis_tpu_torch.runtime import (
+                reservations,
+            )
+
+            led = self._reservations = reservations.ReservationLedger(
+                self, **kwargs)
+        return led
+
+    async def reserve(self, rid: str, tenant: str, key: str,
+                      estimate: "float | None",
+                      tenant_capacity: float,
+                      tenant_fill_rate_per_sec: float,
+                      capacity: float, fill_rate_per_sec: float, *,
+                      priority: int = 0,
+                      ttl_s: "float | None" = None,
+                      attempt: int = 0,
+                      deadline_s: "float | None" = None):
+        """Admit an ESTIMATED cost against the tenant → key budgets and
+        hold a TTL'd reservation (:mod:`~.reservations` — the streaming
+        lane for costs unknown until generation ends). Default: the
+        store-attached ledger, whose decision is this store's
+        :meth:`acquire_hierarchical` (one two-level launch on a card
+        store, both levels debited or neither); ``RemoteBucketStore``
+        overrides with one ``OP_RESERVE`` frame so the ledger lives
+        server-side. ``attempt``/``deadline_s`` feed the ledger's
+        retry and settle-vs-deadline counters."""
+        return await self.reservation_ledger().reserve(
+            rid, tenant, key, estimate, tenant_capacity,
+            tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+            priority=priority, ttl_s=ttl_s, attempt=attempt,
+            deadline_s=deadline_s)
+
+    async def settle(self, rid: str, tenant: str, actual: float):
+        """Reconcile a reservation's actual cost: refund over-estimates
+        through the saturating negative-debit lane, carry under-estimates
+        as per-tenant debt (idempotent by rid — see
+        :meth:`~.reservations.ReservationLedger.settle`)."""
+        return await self.reservation_ledger().settle(rid, tenant, actual)
+
     # -- tier-0 reconciliation --------------------------------------------
     async def debit_many(self, keys: Sequence[str],
                          amounts: Sequence[float], capacity: float,
@@ -496,9 +547,8 @@ def _not_ported(name: str):
     return method
 
 
-# The rest of the storage seam: reservations and the migration export.
-for _name in ("reserve", "settle", "export_entries"):
-    setattr(BucketStore, _name, _not_ported(_name))
+# The rest of the storage seam: the migration export.
+BucketStore.export_entries = _not_ported("export_entries")
 
 
 def start_periodic_sweeper(sweep_all: Callable[[], None],

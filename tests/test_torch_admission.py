@@ -372,16 +372,6 @@ def test_admission_policy_matches_jax():
     assert 0 < stats["granted"] < stats["decisions"]
 
 
-def test_admission_reservation_lane_is_not_ported():
-    pol = padm.AdmissionPolicy(None, key_config=(5.0, 1.0))
-    with pytest.raises(NotImplementedError, match="next_rid"):
-        pol.next_rid("t")
-    with pytest.raises(NotImplementedError, match="reserve"):
-        asyncio.run(pol.reserve("t", "k", estimate=3.0))
-    with pytest.raises(NotImplementedError, match="settle"):
-        asyncio.run(pol.settle("r", "t", 1.0))
-
-
 def test_admission_helpers_match_jax():
     for prio in range(4):
         assert padm.priority_name(prio) == jadm.priority_name(prio)

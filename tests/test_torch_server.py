@@ -344,7 +344,7 @@ def test_unported_ops_answer_without_the_old_peer_words():
             for op in sorted(pserver._UNPORTED_OPS):
                 frames.append(pw.encode_request(
                     op, op, "{}" if op in pw.TEXT_OPS else "k", 1, 5.0, 1.0))
-            frames.append(pw.encode_request(200, pw.OP_RESERVE, "{}", 1, 5.0,
+            frames.append(pw.encode_request(200, pw.OP_CONFIG, "{}", 1, 5.0,
                                             1.0, trace=(1, 2, 3, 1)))
             frames.append(bytes([6, 0, 0, 0, 4, 99, 0, 0, 0, 30]))  # no such op
             replies, closed = await _raw(srv.address, *frames)
@@ -358,13 +358,14 @@ def test_unported_ops_answer_without_the_old_peer_words():
                 assert "unknown op" not in vals[0]
                 assert "unknown bulk kind" not in vals[0]
             assert len(replies) == len(frames)
-            # The JAX client meets a routable error for the reservation
-            # lane, not an old peer: no silent fallback, no latch. Its
-            # hierarchical and semaphore calls are served (two-level, not
-            # the flat fallback).
+            # The JAX client's reservation lane, hierarchical and
+            # semaphore calls are served: no silent fallback, no latch
+            # (two-level, not the flat fallback).
+            assert not {pw.OP_RESERVE, pw.OP_SETTLE} & pserver._UNPORTED_OPS
             cli = JRemote(address=srv.address)
-            with pytest.raises(jw.RemoteStoreError, match="not served"):
-                await w(cli.reserve("r1", "t", "k", 2.0, 9.0, 1.0, 5.0, 1.0))
+            res = await w(cli.reserve("r1", "t", "k", 2.0, 9.0, 1.0, 5.0,
+                                      1.0))
+            assert res.granted and not res.fallback and res.reserved == 2.0
             assert (await w(cli.acquire_hierarchical(
                 "t", "hk", 1, 9.0, 1.0, 5.0, 1.0))).granted
             res = await w(cli.acquire_hierarchical_many(
@@ -377,10 +378,11 @@ def test_unported_ops_answer_without_the_old_peer_words():
             assert cli._peer_traces and cli._peer_hier
             await cli.aclose()
             # The unported ops never touched the store; the tenant's bucket
-            # and the key's each took the two granted costs.
-            assert srv.store.peek_blocking("k", 5.0, 1.0) == 5.0
+            # took the reserve's 2 and the two granted costs, the keys'
+            # theirs.
+            assert srv.store.peek_blocking("k", 5.0, 1.0) == 3.0
             assert srv.store.peek_blocking("hk", 5.0, 1.0) == 3.0
-            assert srv.store.peek_blocking("t", 9.0, 1.0) == 7.0
+            assert srv.store.peek_blocking("t", 9.0, 1.0) == 5.0
 
     asyncio.run(main())
 

@@ -187,15 +187,22 @@ def test_blocking_and_single_bucket_paths():
 
 
 def test_unported_methods_raise():
-    """Only the reservation lane and the migration export are left
-    unported; the semaphores, two-level admission and the debit work."""
+    """Only the migration export is left unported; the reservation lane,
+    the semaphores, two-level admission and the debit work."""
     store = _port(ManualClock(0))
-    with pytest.raises(NotImplementedError, match="reserve"):
-        asyncio.run(store.reserve("r1", "t", "k", 2.0, 9.0, 1.0, 5.0, 1.0))
-    with pytest.raises(NotImplementedError, match="settle"):
-        asyncio.run(store.settle("r1", "t", 1.0))
     with pytest.raises(NotImplementedError, match="export_entries"):
         store.export_entries()
+
+    async def lane():
+        r = await store.reserve("r1", "t", "k", 2.0, 9.0, 1.0, 5.0, 1.0)
+        s = await store.settle("r1", "t", 1.0)
+        return r, s
+
+    r, s = asyncio.run(lane())
+    assert r.granted and r.reserved == 2.0
+    assert tuple(s) == ("settled", -1.0, 1.0, 0.0)
+    assert store.peek_blocking("t", 9.0, 1.0) == 8.0
+    assert store.peek_blocking("k", 5.0, 1.0) == 4.0
     assert store.concurrency_acquire_blocking("k", 1, 5) == (True, 1.0)
     assert store.acquire_hierarchical_blocking(
         "t", "k", 1, 9.0, 1.0, 5.0, 1.0).granted
