@@ -151,7 +151,33 @@ Phases (any failure raises, and the script exits non-zero):
    reserves and settles debit nothing twice, an unknown rid, ``OP_STATS``'
    section equal to the server's ledger); a TTL auto-settle on an injected
    ledger clock.
-8. The shared store server (README "Multi-host", BASELINE config 2's
+8. The checkpoint path (the serial store and incremental checkpoints; at
+   BASELINE size): the serial ``InProcessBucketStore`` and a card
+   ``DeviceBucketStore`` of 2^24 slots on one ManualClock schedule —
+   1,000,000 Zipf(1.1) bucket draws in 8 bulk calls (limit 100, 10 tokens/s,
+   one count a call), 4,096 ``acquire_async``, 65,536 two-level rows (calls
+   of 4,096 distinct tenants and keys), a ``debit_many`` of 2^16 keys, 2^16
+   fixed-window draws: grants equal, ``remaining`` and the debit's replies
+   equal (a denied row after an earlier denied row of its key in one
+   decision may read the card's conservative 0), every entry's state equal;
+   then a ``BucketStoreServer(snapshot_incremental=True)`` over a card store
+   of 2^24 slots holding 10,000,000 bucket keys, 1,000,000 sliding-window
+   keys, 2^16 counters and 2^16 held semaphores: ``OP_SAVE`` (a base), 500,000
+   keys again and 10,000 new ones (``dirty_stats`` 510,000), ``OP_SAVE``
+   (delta 1, under a tenth of the base), ``OP_SAVE`` (dirty 0; an empty
+   delta 2), the chain restored into a fresh card store equal to the saving
+   store array for array and key for key, cap-5 x 32 -> 5 on a restored
+   drained key; a day later ``sweep_all`` and ``OP_SAVE`` (a delta or a
+   compacting base, printed), restored equal again. Each save's seconds and
+   bytes, the store lock's longest hold during it, the load's seconds. The
+   console entry point with ``--snapshot-incremental`` on ``--backend
+   inprocess`` and ``--backend device``, the latter restarted on its chain
+   (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
+   ``serving_p99_instant`` sections once each with short windows (no key
+   null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
+   alone (``--paths`` takes any of the paths of phases 3–9 and 11, comma-
+   separated).
+9. The shared store server (README "Multi-host", BASELINE config 2's
    shape): ``BucketStoreServer`` over a third ``DeviceBucketStore`` (2^24
    slots, 2^20 counters, a ManualClock) on 127.0.0.1, limiters on
    ``RemoteBucketStore`` clients. ``acquire_many`` over 10,000,000 distinct
@@ -176,25 +202,26 @@ Phases (any failure raises, and the script exits non-zero):
    resolve beside the in-process string resolve; then the path's launches
    by width, and fails if a scan held a single batch (every bulk frame of
    at most 4,096 rows is one flush of its rows).
-9. The console entry point on the card: ``python -m
+10. The console entry point on the card: ``python -m
    distributedratelimiting.redis_tpu_torch.runtime.server --port 0 --slots
    1048576 --sweep-period 1`` as a subprocess: its listening line, ping,
    cap-5 × 32 → 5, ``OP_STATS`` keys, SIGTERM → exit 0.
-10. The bench path: ``redis_tpu_torch/bench.py``'s headline, compact and
+11. The bench path: ``redis_tpu_torch/bench.py``'s headline, compact and
    single-batch sections at their full widths (10M slots, 32 x 8192, 16 x
    8192, B = 8192), five timed dispatches each; the launches must be the
    sections' dispatches exactly, and the table sane after them.
-11. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
-   of phases 3–8 and 10 (``launches_by_path``; counts set to 0 before each
+12. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
+   of phases 3–9 and 11 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
-   two-level kernel and the debit > 0 on the reservation path, and every
+   two-level kernel and the debit > 0 on the reservation path, every
+   store kernel but the window flushes > 0 on the checkpoint path, and every
    kernel that a wire op reaches > 0 on the server path — all but the
    bench's ``acquire_scan24`` and ``acquire_batch``) and their sum
    (``launches``), the flushes',
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-12. Last line: ``{"ok": true, "device": {...}}``.
+13. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -4027,6 +4054,542 @@ async def reservation_path(torch, ck, pkg, card: str) -> dict:
     return counts
 
 
+#: The checkpoint path: the serial oracle's schedule (1M Zipf(1.1) bucket
+#: draws in calls of CKPT_CALL_ROWS, one count a call; 4,096 acquire_async;
+#: 65,536 two-level rows in calls of 4,096 distinct tenants and keys; a debit
+#: of 2^16 keys; 2^16 fixed-window draws), then the chain at the main path's
+#: size (10M bucket keys, 1M sliding-window keys, 2^16 counters, 2^16 held
+#: semaphores), its delta of 500,000 re-acquired and 10,000 new keys.
+CKPT_SEED = 1414
+CKPT_DRAWS = 1_000_000
+CKPT_CALL_ROWS = 125_000
+CKPT_ASYNC = 4096
+CKPT_HIER_ROWS = 2**16
+CKPT_HIER_CALL = 4096
+CKPT_HIER_POOL = 6000
+CKPT_DEBIT_KEYS = 2**16
+CKPT_FWINDOW_DRAWS = 2**16
+CKPT_FWINDOW_CALL = 8192
+CKPT_LIMIT, CKPT_RATE = 100.0, 10.0  # integer rates: 2^-10 multiples a tick
+CKPT_HIER = ((24.0, 2.0), (12.0, 1.0))  # (tenant, key) budgets and rates
+CKPT_FWINDOW = (8.0, 1.0)  # fixed window: limit, seconds
+CKPT_WINDOW_KEYS = 1_000_000
+CKPT_COUNTERS = 2**16
+CKPT_SEMAS = 2**16
+CKPT_REACQUIRE = 500_000
+CKPT_NEW_KEYS = 10_000
+CKPT_FILL_CALL = 1_000_000
+#: The bench's child sections, once each with a short window.
+CKPT_BENCH = {
+    "nproc": {"clients": 4, "workers": 64, "reqs": 40, "warm_workers": 32,
+              "warm_reqs": 10},
+    "serving_p99_colocated": {"samples": 2048, "min_reqs": 32,
+                              "warm_reqs": 10},
+    "serving_p99_instant": {"samples": 2048, "min_reqs": 32,
+                            "warm_reqs": 10},
+}
+
+
+def _oracle_rows(what, keys, got, want, count) -> int:
+    """Hold one card call to the serial store's answers for the same rows:
+    grants equal on every row; ``remaining`` equal on every row but a denied
+    row after an earlier denied row of its key in one decision, where the
+    card's conservative same-key prefix (a denied row's demand still reserves
+    ahead of later ones) reports 0 and the serial store the balance, which
+    is below ``count``: there either value is exact. Returns how many rows
+    reported the conservative 0."""
+    g_ok = np.asarray(got.granted, bool)
+    if not np.array_equal(g_ok, np.asarray(want.granted, bool)):
+        bad = np.nonzero(g_ok != np.asarray(want.granted, bool))[0]
+        raise AssertionError(f"{what}: grants differ at {bad.size} rows, "
+                             f"first {keys[bad[0]]!r}")
+    _, code = np.unique(np.asarray(keys, dtype=object).astype(str),
+                        return_inverse=True)
+    order = np.argsort(code, kind="stable")
+    c = code[order]
+    start = np.r_[True, c[1:] != c[:-1]]
+    seg = np.cumsum(start) - 1
+    first = np.nonzero(start)[0]
+    rank = np.arange(len(c)) - first[seg]
+    g = g_ok[order].astype(np.int64)
+    before = np.cumsum(g) - g
+    before -= before[first][seg]
+    later = np.empty(len(c), bool)
+    later[order] = (g == 0) & (rank > before)
+    gr, wr = np.asarray(got.remaining), np.asarray(want.remaining)
+    same = gr == wr
+    if not same[~later].all():
+        i = np.nonzero(~same & ~later)[0][0]
+        raise AssertionError(f"{what}: remaining {gr[i]} vs {wr[i]} at "
+                             f"{keys[i]!r}")
+    cons = later & ~same
+    if not ((gr[cons] == 0.0) & (wr[cons] < count)).all():
+        raise AssertionError(f"{what}: a later denied row is neither the "
+                             "serial balance nor the conservative 0")
+    return int(cons.sum())
+
+
+def _states_equal(what, card, serial) -> int:
+    """Every bucket and fixed-window entry of the serial store against the
+    card store's slot of its key: tokens and timestamps, window counts and
+    indices, equal. Returns the entries compared."""
+    snap = card.snapshot()
+    n = 0
+    by_cfg: dict = {}
+    for (key, cap, rate), entry in serial._buckets.items():
+        by_cfg.setdefault((cap, rate), []).append((key, entry))
+    for cfg, rows in by_cfg.items():
+        t = snap["tables"][cfg]
+        d = t["directory"]
+        slots = np.array([d[k] for k, _ in rows])
+        tokens = np.array([e[0] for _, e in rows], np.float32)
+        ts = np.array([e[1] for _, e in rows], np.int64)
+        if not (np.array_equal(t["tokens"][slots], tokens)
+                and np.array_equal(t["last_ts"][slots].astype(np.int64), ts)
+                and t["exists"][slots].all() and len(d) == len(rows)):
+            raise AssertionError(f"{what}: bucket table {cfg} differs")
+        n += len(rows)
+    for (key, limit, wt, interp), (prev, curr, idx) in \
+            serial._windows.items():
+        t = snap["wtables"][(limit, wt, not interp)]
+        s = t["directory"][key]
+        if (t["prev_count"][s], t["curr_count"][s],
+                int(t["window_idx"][s])) != (prev, curr, idx):
+            raise AssertionError(f"{what}: window {key!r} differs")
+        n += 1
+    return n
+
+
+async def serial_oracle(pkg, card: str) -> None:
+    """The serial ``InProcessBucketStore`` and a card ``DeviceBucketStore``
+    of 2^24 slots on one ManualClock schedule, grants and balances held
+    exactly (integer rates per second make a tick's refill a multiple of
+    2^-10, exact in float32 below 2^14 tokens)."""
+    rng = np.random.default_rng(CKPT_SEED)
+    clock = pkg.ManualClock(1_000_000)
+    dev = pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS, clock=clock)
+    ser = pkg.InProcessBucketStore(clock=clock)
+    await dev.connect()
+    t_ser, t_dev, conservative = [0.0], [0.0], 0
+    _time_async(ser, "acquire_many", t_ser)
+    _time_async(dev, "acquire_many", t_dev)
+    draws = rng.zipf(1.1, CKPT_DRAWS)
+    keys_all = [f"z{v}" for v in draws]
+    for pos in range(0, CKPT_DRAWS, CKPT_CALL_ROWS):
+        keys = keys_all[pos:pos + CKPT_CALL_ROWS]
+        count = int(rng.integers(1, 4))
+        counts = [count] * len(keys)
+        got = await dev.acquire_many(keys, counts, CKPT_LIMIT, CKPT_RATE)
+        want = await ser.acquire_many(keys, counts, CKPT_LIMIT, CKPT_RATE)
+        conservative += _oracle_rows(f"oracle bulk at {pos}", keys, got,
+                                     want, count)
+        clock.advance_ticks(int(rng.integers(1, 3000)))
+    # 4,096 concurrent acquire_async through the card's batcher.
+    keys = [f"z{v}" for v in rng.zipf(1.1, CKPT_ASYNC)]
+    got = await asyncio.gather(*(dev.acquire(k, 1, CKPT_LIMIT, CKPT_RATE)
+                                 for k in keys))
+    want = [await ser.acquire(k, 1, CKPT_LIMIT, CKPT_RATE) for k in keys]
+
+    class _Rows:
+        def __init__(self, rs):
+            self.granted = np.array([r.granted for r in rs])
+            self.remaining = np.array([r.remaining for r in rs], np.float32)
+
+    conservative += _oracle_rows("oracle acquire_async", keys, _Rows(got),
+                                 _Rows(want), 1)
+    n_async_granted = sum(r.granted for r in got)
+    # Two-level rows: distinct tenants and keys within each call (the card
+    # serializes same-key and same-tenant rows conservatively on both
+    # levels), repeats across calls.
+    (tcap, trate), (kcap, krate) = CKPT_HIER
+    tenants_pool = [f"tenant{i}" for i in range(CKPT_HIER_CALL)]
+    h_granted = 0
+    for _ in range(CKPT_HIER_ROWS // CKPT_HIER_CALL):
+        clock.advance_ticks(int(rng.integers(1, 2048)))
+        tenants = [tenants_pool[i] for i in rng.permutation(CKPT_HIER_CALL)]
+        keys = [f"h{i}" for i in rng.choice(CKPT_HIER_POOL, CKPT_HIER_CALL,
+                                            replace=False)]
+        counts = rng.integers(1, 9, CKPT_HIER_CALL)
+        got = await dev.acquire_hierarchical_many(tenants, keys, counts,
+                                                  tcap, trate, kcap, krate)
+        want = await ser.acquire_hierarchical_many(tenants, keys, counts,
+                                                   tcap, trate, kcap, krate)
+        if not (np.array_equal(got.granted, want.granted)
+                and np.array_equal(got.remaining, want.remaining)):
+            raise AssertionError("oracle two-level rows differ")
+        h_granted += int(got.granted.sum())
+    # One debit of 2^16 distinct keys (of the bulk's and new ones), halves
+    # and credits included.
+    distinct = list(dict.fromkeys(keys_all))
+    dkeys = distinct[:CKPT_DEBIT_KEYS - 1000] + [f"d{i}" for i in range(1000)]
+    amounts = rng.integers(-8, 40, len(dkeys)) * 0.5
+    clock.advance_ticks(int(rng.integers(1, 2048)))
+    g_rem, g_short = await dev.debit_many(dkeys, amounts, CKPT_LIMIT,
+                                          CKPT_RATE)
+    w_rem, w_short = await ser.debit_many(dkeys, amounts, CKPT_LIMIT,
+                                          CKPT_RATE)
+    if not (np.array_equal(g_rem, w_rem) and np.array_equal(g_short,
+                                                            w_short)):
+        raise AssertionError("oracle debit: remaining or shortfall differ")
+    # Fixed-window draws across window boundaries.
+    limit, wsec = CKPT_FWINDOW
+    fw_granted = 0
+    wdraws = [f"w{v}" for v in rng.zipf(1.1, CKPT_FWINDOW_DRAWS)]
+    for pos in range(0, CKPT_FWINDOW_DRAWS, CKPT_FWINDOW_CALL):
+        keys = wdraws[pos:pos + CKPT_FWINDOW_CALL]
+        got = await dev.window_acquire_many(keys, [1] * len(keys), limit,
+                                            wsec, fixed=True)
+        want = await ser.window_acquire_many(keys, [1] * len(keys), limit,
+                                             wsec, fixed=True)
+        if not (np.array_equal(got.granted, want.granted)
+                and np.array_equal(got.remaining, want.remaining)):
+            raise AssertionError(f"oracle fixed windows differ at {pos}")
+        fw_granted += int(got.granted.sum())
+        clock.advance_ticks(int(rng.integers(0, 700)))
+    n_state = _states_equal("oracle state", dev, ser)
+    print(f"serial oracle ({card}): {CKPT_DRAWS} Zipf(1.1) bucket draws over "
+          f"{len(distinct)} keys in {CKPT_DRAWS // CKPT_CALL_ROWS} bulk calls "
+          f"(limit {CKPT_LIMIT:g}, {CKPT_RATE:g}/s), {CKPT_ASYNC} "
+          f"acquire_async ({n_async_granted} granted), {CKPT_HIER_ROWS} "
+          f"two-level rows ({h_granted} granted), a debit of {len(dkeys)} "
+          f"keys, {CKPT_FWINDOW_DRAWS} fixed-window draws ({fw_granted} "
+          f"granted): grants and remaining equal (conservative 0 on "
+          f"{conservative} later denied same-key rows, the serial balance "
+          f"below the count there), debit remaining/shortfall equal, and "
+          f"{n_state} entries' state equal; bulk {CKPT_DRAWS} rows: serial "
+          f"{t_ser[0]:.2f} s ({CKPT_DRAWS / t_ser[0]:.0f} decisions/s), card "
+          f"{t_dev[0]:.2f} s ({CKPT_DRAWS / t_dev[0]:.0f} decisions/s)")
+    await dev.aclose()
+
+
+class _HoldTimer:
+    """Stands in for a store's ``RLock`` and times its outermost holds."""
+
+    def __init__(self, lock) -> None:
+        self._lock = lock
+        self._depth = 0
+        self._t0 = 0.0
+        self.longest = 0.0
+
+    def __enter__(self):
+        self._lock.acquire()
+        if self._depth == 0:
+            self._t0 = time.perf_counter()
+        self._depth += 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._depth -= 1
+        if self._depth == 0:
+            self.longest = max(self.longest, time.perf_counter() - self._t0)
+        self._lock.release()
+
+
+def _snapshots_equal(what, a, b) -> None:
+    """Two snapshots equal key for key and array for array (a mapping of
+    plain values, such as a key directory, compares in one ``==``)."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            raise AssertionError(f"{what}: keys differ")
+        if not any(isinstance(v, (dict, np.ndarray)) for v in a.values()):
+            if a != b:
+                raise AssertionError(f"{what}: values differ")
+            return
+        for k in a:
+            _snapshots_equal(f"{what}[{k!r}]", a[k], b[k])
+    elif isinstance(a, np.ndarray):
+        if not (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b)):
+            raise AssertionError(f"{what}: arrays differ")
+    elif a != b:
+        raise AssertionError(f"{what}: {a!r} != {b!r}")
+
+
+async def chain_at_size(pkg, card: str, tmp: str) -> None:
+    """A ``BucketStoreServer(snapshot_incremental=True)`` over a card store
+    of 2^24 slots holding 10M bucket keys, 1M sliding-window keys, 2^16
+    counters and 2^16 held semaphores: a base, a delta of 510,000 slots, an
+    empty delta, and the save after a day's sweep; the chain restored into
+    fresh card stores equals the saving store."""
+    from distributedratelimiting.redis_tpu_torch.runtime import checkpoint
+
+    def card_store(clock):
+        return pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                     counter_slots=2 * CKPT_COUNTERS,
+                                     clock=clock)
+
+    path = os.path.join(tmp, "chain.snap")
+    clock = pkg.ManualClock(1_000_000)
+    store = card_store(clock)
+    server = pkg.BucketStoreServer(store, host="127.0.0.1", port=0,
+                                   snapshot_path=path,
+                                   snapshot_incremental=True)
+    addr = await server.start()
+    cli = pkg.RemoteBucketStore(address=addr, request_timeout_s=900.0)
+    t0 = time.perf_counter()
+    for pos in range(0, N_KEYS, CKPT_FILL_CALL):
+        keys = [f"ck{i}" for i in range(pos, min(pos + CKPT_FILL_CALL,
+                                                 N_KEYS))]
+        res = await store.acquire_many(keys, [1] * len(keys), CKPT_LIMIT,
+                                       CKPT_RATE, with_remaining=False)
+        if res.granted_count != len(keys):
+            raise AssertionError("chain fill: a fresh key was denied")
+    wkeys = [f"cw{i}" for i in range(CKPT_WINDOW_KEYS)]
+    await store.window_acquire_many(wkeys, [1] * len(wkeys), WINDOW_LIMIT,
+                                    1.0)
+    ckeys = [f"cc{i}" for i in range(CKPT_COUNTERS)]
+    await store.sync_counters_many(ckeys, [1.0] * CKPT_COUNTERS,
+                                   DECAY_PER_S)
+    skeys = [f"cs{i}" for i in range(CKPT_SEMAS)]
+    res = await store.concurrency_acquire_many(skeys, [1] * CKPT_SEMAS, 5)
+    if not res.granted.all():
+        raise AssertionError("chain fill: a semaphore was refused")
+    drained = await asyncio.gather(*(store.acquire("five", 1, 5.0, 1.0)
+                                     for _ in range(5)))
+    if not all(r.granted for r in drained):
+        raise AssertionError("chain fill: the cap-5 key did not drain")
+    fill_s = time.perf_counter() - t0
+    timer = store._lock = _HoldTimer(store._lock)
+    saves = []
+
+    async def save(label):
+        timer.longest = 0.0
+        t = time.perf_counter()
+        await cli.save()
+        wall, hold = time.perf_counter() - t, timer.longest
+        st = (await cli.stats())["snapshot_chain"]
+        kind = "delta" if st["chain_len"] else "full base"
+        nbytes = (st["last_delta_bytes"] if st["chain_len"]
+                  else st["base_bytes"])
+        saves.append((label, kind, wall, nbytes, hold))
+        return st
+
+    st = await save("base")
+    base_bytes = st["base_bytes"]
+    # Delta 1: 500,000 of the keys again and 10,000 new ones.
+    again = [f"ck{i}" for i in range(0, N_KEYS, N_KEYS // CKPT_REACQUIRE)]
+    new = [f"cn{i}" for i in range(CKPT_NEW_KEYS)]
+    clock.advance_ticks(512)
+    for keys in (again, new):
+        await store.acquire_many(keys, [1] * len(keys), CKPT_LIMIT,
+                                 CKPT_RATE, with_remaining=False)
+    dirty1 = store.dirty_stats()
+    if dirty1["dirty"] != CKPT_REACQUIRE + CKPT_NEW_KEYS:
+        raise AssertionError(f"dirty before delta 1: {dirty1}")
+    st = await save("delta 1")
+    if st["chain_len"] != 1 or st["last_delta_bytes"] * 10 >= base_bytes:
+        raise AssertionError(f"delta 1: {st}")
+    dirty2 = store.dirty_stats()
+    if dirty2["dirty"] != 0:
+        raise AssertionError(f"dirty before delta 2: {dirty2}")
+    st = await save("delta 2 (empty)")
+    if st["chain_len"] != 2:
+        raise AssertionError(f"delta 2: {st}")
+    # Restore base + 2 deltas into a fresh card store at the save's tick.
+    t = time.perf_counter()
+    fresh = card_store(pkg.ManualClock(clock.now_ticks()))
+    n_deltas = checkpoint.load_snapshot_chain(fresh, path)
+    load_s = time.perf_counter() - t
+    # The saving store's snapshot at delta 2, kept by the chain as the next
+    # diff's base (nothing wrote since): one 10M-key pull fewer.
+    t = time.perf_counter()
+    _snapshots_equal("chain restore", fresh.snapshot(),
+                     server._snapshot_chain._prev_snap)
+    compare_s = time.perf_counter() - t
+    if n_deltas != 2:
+        raise AssertionError(f"chain restore applied {n_deltas} deltas")
+    if fresh.peek_blocking("five", 5.0, 1.0) != 0.0:
+        raise AssertionError("restored cap-5 key is not drained")
+    fresh.clock.advance_seconds(5.0)
+    res = await asyncio.gather(*(fresh.acquire("five", 1, 5.0, 1.0)
+                                 for _ in range(32)))
+    if sum(r.granted for r in res) != 5:
+        raise AssertionError("restored cap-5 key: not 5 of 32")
+    # A key of the fill, full again after the 5.5 s since it took 1.
+    one = fresh.acquire_blocking("ck1", 1, CKPT_LIMIT, CKPT_RATE)
+    if not (one.granted and one.remaining == CKPT_LIMIT - 1):
+        raise AssertionError(f"restored key ck1: {one}")
+    await fresh.aclose()
+    del fresh
+    # A day later: the sweep evicts every bucket, window and counter.
+    clock.advance_seconds(86_400)
+    t = time.perf_counter()
+    store.sweep_all()
+    sweep_s = time.perf_counter() - t
+    st = await save("after sweep_all")
+    after = saves[-1][1]
+    fresh = card_store(pkg.ManualClock(clock.now_ticks()))
+    n_after = checkpoint.load_snapshot_chain(fresh, path)
+    _snapshots_equal("chain restore after the sweep", fresh.snapshot(),
+                     store.snapshot())
+    if n_after != (3 if after == "delta" else 0):
+        raise AssertionError(f"after the sweep: {n_after} deltas")
+    held = fresh.snapshot()["semas"]["active"].sum()
+    await fresh.aclose()
+    stats = await cli.stats()
+    await cli.aclose()
+    await server.aclose()
+    await store.aclose()
+    print(f"checkpoint chain ({card}): {N_KEYS} bucket keys, "
+          f"{CKPT_WINDOW_KEYS} sliding-window keys, {CKPT_COUNTERS} counters,"
+          f" {CKPT_SEMAS} held semaphores on {N_SLOTS} slots, filled in "
+          f"{fill_s:.1f} s; dirty before delta 1 {dirty1}, before delta 2 "
+          f"{dirty2}; saves (OP_SAVE wall s, bytes, the store lock's longest "
+          "hold s): " + "; ".join(
+              f"{lbl}: {kind} {wall:.2f} s {nb} B lock {hold:.3f} s"
+              for lbl, kind, wall, nb, hold in saves)
+          + f"; delta 1 / base {saves[1][3] / base_bytes:.4f}; restore of "
+          f"base + {n_deltas} deltas {load_s:.2f} s, equal to the saving "
+          f"store (compared in {compare_s:.2f} s), cap-5 x 32 -> 5 on the "
+          f"restored drained key after 5 s; sweep_all {sweep_s:.2f} s, then "
+          f"a {after} (restored equal, {int(held)} permits held); OP_STATS "
+          f"snapshot_chain {stats['snapshot_chain']}")
+
+
+def console_chain(pkg, tmp: str) -> None:
+    """The console entry point with ``--snapshot-incremental``: on the
+    serial backend (ping, cap-5 x 32 -> 5, OP_SAVE twice, SIGTERM -> exit
+    0), and on the card, restarted on the chain it left (``(+N deltas)``)."""
+    import select
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def start(args):
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "distributedratelimiting.redis_tpu_torch.runtime.server",
+             "--port", "0", *args], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        lines = []
+        while True:
+            ready, _, _ = select.select([proc.stdout], [], [], 120)
+            line = proc.stdout.readline() if ready else ""
+            if line.startswith("bucket-store server listening on "):
+                host, port = line.split()[-1].rsplit(":", 1)
+                return proc, (host, int(port)), lines
+            if not line:
+                proc.kill()
+                raise AssertionError(
+                    f"console server {args}: {lines}; stderr "
+                    f"{proc.communicate()[1][-2000:]!r}")
+            lines.append(line.strip())
+
+    def stop(proc):
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+        if proc.returncode != 0 or "final checkpoint" not in out:
+            raise AssertionError(f"console server: rc {proc.returncode} "
+                                 f"{out[-500:]!r} {err[-2000:]!r}")
+
+    async def drive(addr, key, saves, want):
+        cli = pkg.RemoteBucketStore(address=addr)
+        await cli.ping()
+        await cli.acquire_many([f"bulk{i}" for i in range(2000)],
+                               [1] * 2000, 10.0, 1e-6)
+        res = await asyncio.gather(*(cli.acquire(key, 1, 5.0, 1e-6)
+                                     for _ in range(32)))
+        for _ in range(saves):
+            await cli.save()
+        stats = await cli.stats()
+        await cli.aclose()
+        if sum(r.granted for r in res) != want:
+            raise AssertionError(f"console {key}: not {want} of 32")
+        return stats["snapshot_chain"]
+
+    out = []
+    for backend, extra in (("inprocess", []),
+                           ("device", ["--slots", "1048576",
+                                       *CLI_EXTRA_ARGS])):
+        path = os.path.join(tmp, f"console-{backend}.snap")
+        args = ["--backend", backend, "--snapshot-path", path,
+                "--snapshot-incremental", *extra]
+        t = time.perf_counter()
+        proc, addr, _ = start(args)
+        try:
+            chain = asyncio.run(drive(addr, "five", 2, 5))
+            stop(proc)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        links = sorted(q for q in os.listdir(tmp)
+                       if q.startswith(f"console-{backend}.snap"))
+        msg = (f"--backend {backend} --snapshot-incremental: cap-5 x 32 -> "
+               f"5, OP_SAVE x2 ({chain['full_saves']} full, "
+               f"{chain['delta_saves']} delta), SIGTERM -> exit 0, files "
+               f"{links}")
+        if backend == "device":
+            proc, addr, lines = start(args)
+            try:
+                # The restored key holds what it had: none of 32 granted.
+                asyncio.run(drive(addr, "five", 0, 0))
+                stop(proc)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if not any("deltas)" in ln for ln in lines):
+                raise AssertionError(f"console restart: {lines}")
+            msg += f"; restarted: {lines[-1]!r}, cap-5 x 32 -> 0"
+        out.append(f"{msg} ({time.perf_counter() - t:.1f} s)")
+    print("console chain: " + " | ".join(out))
+
+
+async def checkpoint_path(torch, ck, pkg, card: str) -> dict:
+    """The serial store and incremental checkpoints on the card: the serial
+    oracle, the chain at the main path's size, the console entry point with
+    ``--snapshot-incremental`` on both backends, and the bench's child
+    sections. Returns the kernel launches the path made."""
+    import shutil
+    import tempfile
+
+    from distributedratelimiting.redis_tpu_torch import bench
+
+    ck.reset_launches()
+    walls = {}
+    t = time.perf_counter()
+    await serial_oracle(pkg, card)
+    walls["oracle"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="drl-chain-")
+    try:
+        t = time.perf_counter()
+        await chain_at_size(pkg, card, tmp)
+        walls["chain"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        await asyncio.to_thread(console_chain, pkg, tmp)
+        walls["console"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dev = torch.device("cuda")
+    keys = dict(bench.SECTIONS)
+    values = {}
+    for name in ("nproc", "serving_p99_colocated", "serving_p99_instant"):
+        t = time.perf_counter()
+        if name == "nproc":
+            vals = await bench.bench_nproc(dev, **CKPT_BENCH[name])
+        else:
+            vals = await asyncio.to_thread(
+                bench.serving_section, dev,
+                "device" if name.endswith("colocated") else "instant",
+                **CKPT_BENCH[name])
+        walls[name] = time.perf_counter() - t
+        values.update(zip(keys[name], vals, strict=True))
+    nulls = [k for k, v in values.items() if v is None]
+    if nulls:
+        raise AssertionError(f"bench sections: null keys {nulls}")
+    p99 = values["serving_p99_colocated_ms"] - values["serving_p99_instant_ms"]
+    print(f"bench child sections ({card}; short windows {CKPT_BENCH}): "
+          + json.dumps(values) + f"; colocated - instant p99 at depth 64: "
+          f"{p99:.3f} ms")
+    print("checkpoint path walls (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()))
+    return dict(ck.launches)
+
+
 #: The bench's shapes (``redis_tpu_torch/bench.py``): a 10M-slot table, K =
 #: 32 batches of 8192 in the 3-byte operand (two scan launches), K = 16 in
 #: the 5-byte operand (one), and one batch of 8192 for ``acquire_batch``.
@@ -4342,6 +4905,46 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
     return out
 
 
+def _paths() -> tuple:
+    """The paths of phases 3–9 and 11, in the order :func:`main` runs them."""
+    return (("exact", main_path), ("approximate", approximate_path),
+            ("window", window_path), ("admission", admission_path),
+            ("reservation", reservation_path),
+            ("checkpoint", checkpoint_path),
+            ("server", server_path), ("bench", bench_path))
+
+
+def paths_only(names: list) -> int:
+    """``python3 chip_smoke.py --paths NAME[,NAME...]``: only the named
+    paths of :func:`_paths`, in that order, on the package beside this file
+    (copy the script into another checkout to run that checkout's). Prints
+    the card, each path's lines, wall and launches."""
+    import torch
+
+    paths = dict(_paths())
+    unknown = [n for n in names if n not in paths]
+    if unknown:
+        print(f"chip_smoke: unknown paths {unknown}; known: {list(paths)}",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import distributedratelimiting.redis_tpu_torch as pkg
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+
+    card = _card_line()
+    print(card)
+    ck.build()
+    for name in names:
+        t = time.perf_counter()
+        counts = asyncio.run(paths[name](torch, ck, pkg, card))
+        print(f"{name} path: {time.perf_counter() - t:.1f} s, launches "
+              + json.dumps({k: v for k, v in counts.items() if v}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4375,10 +4978,7 @@ def main() -> int:
     _record_sizes(ck, sizes)
     by_path = {}
     sizes_by_path = {}
-    for name, path in (("exact", main_path), ("approximate", approximate_path),
-                       ("window", window_path), ("admission", admission_path),
-                       ("reservation", reservation_path),
-                       ("server", server_path), ("bench", bench_path)):
+    for name, path in _paths():
         t = time.perf_counter()
         before = {k: dict(v) for k, v in sizes.items()}
         by_path[name] = asyncio.run(path(torch, ck, pkg, card))
@@ -4412,8 +5012,17 @@ def main() -> int:
     # No wire op reaches the bench's two kernels: they are exempt from the
     # server-path rule (OP_SETTLE reaches the debit).
     no_wire_op = {"acquire_scan24", "acquire_batch"}
-    # The reservation path runs on the two-level kernel and the debit.
-    also_serves = {"reservation": ("acquire_hierarchical", "debit_packed")}
+    # The reservation path runs on the two-level kernel and the debit; the
+    # checkpoint path (its oracle's traffic, the chain's fill and the day-
+    # later sweep between saves) on every bucket, counter and semaphore
+    # kernel of the store, the window scan and the window sweep.
+    also_serves = {"reservation": ("acquire_hierarchical", "debit_packed"),
+                   "checkpoint": ("sweep_expired", "acquire_packed",
+                                  "acquire_grouped", "acquire_scan",
+                                  "window_scan", "sync_counters",
+                                  "sema_packed", "acquire_hierarchical",
+                                  "debit_packed", "sweep_windows",
+                                  "sweep_counters", "sweep_semas")}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
@@ -4531,4 +5140,6 @@ if __name__ == "__main__":
         sys.exit(sync_bench())
     if sys.argv[1:2] == ["--window-traffic"]:
         sys.exit(window_traffic())
+    if sys.argv[1:2] == ["--paths"] and len(sys.argv) == 3:
+        sys.exit(paths_only(sys.argv[2].split(",")))
     sys.exit(main())

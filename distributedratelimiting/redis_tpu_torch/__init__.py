@@ -16,7 +16,10 @@ façade over the two-level lane, and ``ServiceRegistry`` with the
 through the native key directory (``native/directory.cc``). A
 ``BucketStoreServer`` serves such a store over TCP, byte-compatible with
 the JAX package's server, and ``RemoteBucketStore`` is its client: limiters
-on other hosts share one card through it. Module and
+on other hosts share one card through it. ``InProcessBucketStore`` is the
+serial pure-Python store with the same semantics (the differential oracle
+and the kernel-free serving backing), used only where a caller names it.
+Module and
 class names follow the JAX package so each counterpart is easy to find.
 This package imports PyTorch and numpy only.
 """
@@ -82,6 +85,7 @@ from distributedratelimiting.redis_tpu_torch.runtime.store import (
     BucketStore,
     BulkAcquireResult,
     DeviceBucketStore,
+    InProcessBucketStore,
     SyncResult,
 )
 from distributedratelimiting.redis_tpu_torch.utils.registry import (
@@ -120,6 +124,7 @@ __all__ = [
     "BucketStore",
     "BucketStoreServer",
     "DeviceBucketStore",
+    "InProcessBucketStore",
     "RemoteBucketStore",
     "StoreTimeoutError",
     "ManualClock",

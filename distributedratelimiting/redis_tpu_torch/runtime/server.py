@@ -18,7 +18,8 @@ hierarchical-bucket kinds; keys resolve straight from the frame's bytes
 through ``wire.KeyBlob``), ``OP_RESERVE`` / ``OP_SETTLE`` (the
 estimate-reserve-settle lane, through the store's one
 :class:`~.reservations.ReservationLedger`), ``OP_PEEK``, ``OP_SYNC``,
-``OP_PING``, ``OP_SAVE``, ``OP_STATS`` and the ``OP_HELLO`` auth
+``OP_PING``, ``OP_SAVE`` (a full file, or with ``snapshot_incremental`` a
+v4 delta against the previous save), ``OP_STATS`` and the ``OP_HELLO`` auth
 handshake, with the trace, deadline and attempt tails (deadline-expired
 work is shed unexecuted). Granted hierarchical costs and settled actuals
 feed a per-tenant :class:`~.admission.TokenVelocity` (``OP_STATS``
@@ -32,7 +33,8 @@ routable error that names it as not served — never the "unknown op" /
 silently falls back from.
 
 Run it with ``python -m distributedratelimiting.redis_tpu_torch.runtime.server``
-(on ``cuda`` unless ``--device cpu`` is given).
+(a ``DeviceBucketStore`` on ``cuda`` unless ``--device cpu`` is given, or the
+serial ``InProcessBucketStore`` with ``--backend inprocess``).
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ class BucketStoreServer:
     def __init__(self, store: BucketStore, *, host: str = "127.0.0.1",
                  port: int = 0, snapshot_path: str | None = None,
                  auth_token: str | None = None,
-                 tracing_config: "bool | dict | None" = None) -> None:
+                 tracing_config: "bool | dict | None" = None,
+                 snapshot_incremental: bool = False) -> None:
         self.store = store
         self.host = host
         self.port = port
@@ -98,6 +101,19 @@ class BucketStoreServer:
         # BGSAVE writing its configured dump file — clients never supply
         # paths, so the wire cannot be used to write arbitrary files).
         self.snapshot_path = snapshot_path
+        # Incremental checkpoints: OP_SAVE then writes a v4 delta against
+        # the previous save instead of a full v3 file; the chain owns base
+        # retention, integrity chaining and compaction (checkpoint.py).
+        self._snapshot_chain = None
+        if snapshot_incremental and snapshot_path is not None:
+            from distributedratelimiting.redis_tpu_torch.runtime import (
+                checkpoint,
+            )
+
+            self._snapshot_chain = checkpoint.SnapshotChain(snapshot_path)
+            dirty = getattr(store, "enable_dirty_tracking", None)
+            if callable(dirty):
+                dirty()  # arm the store's dirty accounting (OP_STATS)
         # Shared-secret auth: when set, a connection's first frame must be
         # a HELLO carrying this token.
         self.auth_token = auth_token
@@ -581,16 +597,24 @@ class BucketStoreServer:
                                     json.dumps(res._asdict()))
 
     async def _save(self) -> None:
-        """Checkpoint the store to the configured path off-loop.
-        Concurrent SAVEs piggyback on the one in flight (BGSAVE semantics)
-        instead of queueing redundant full-state pulls."""
+        """Checkpoint the store to the configured path off-loop: through
+        the delta chain when the server holds one (it compacts into a full
+        base on its own thresholds), else a full file. Concurrent SAVEs
+        piggyback on the one in flight (BGSAVE semantics) instead of
+        queueing redundant state pulls; a chain's links therefore never
+        interleave."""
         from distributedratelimiting.redis_tpu_torch.runtime import (
             checkpoint,
         )
 
         if self._save_task is None or self._save_task.done():
-            self._save_task = asyncio.ensure_future(asyncio.to_thread(
-                checkpoint.save_snapshot, self.store, self.snapshot_path))
+            if self._snapshot_chain is not None:
+                self._save_task = asyncio.ensure_future(asyncio.to_thread(
+                    self._snapshot_chain.save, self.store))
+            else:
+                self._save_task = asyncio.ensure_future(asyncio.to_thread(
+                    checkpoint.save_snapshot, self.store,
+                    self.snapshot_path))
         await asyncio.shield(self._save_task)
 
     def _stats_json(self) -> str:
@@ -629,6 +653,11 @@ class BucketStoreServer:
             payload["reservations"] = self.reservations.stats()
         if self.retry_attempts_seen:
             payload["retry"] = {"attempts_seen": self.retry_attempts_seen}
+        if self._snapshot_chain is not None:
+            payload["snapshot_chain"] = self._snapshot_chain.stats()
+            dirty = getattr(self.store, "dirty_stats", None)
+            if callable(dirty):
+                payload["snapshot_chain"]["dirty"] = dirty()
         return json.dumps(payload)
 
     async def aclose(self) -> None:
@@ -661,12 +690,19 @@ def main(argv: list[str] | None = None) -> None:
         python -m distributedratelimiting.redis_tpu_torch.runtime.server --port 6380
 
     SIGTERM or SIGINT closes it cleanly (after a final checkpoint when
-    ``--snapshot-path`` is set) and the process exits 0."""
+    ``--snapshot-path`` is set, through the delta chain with
+    ``--snapshot-incremental``) and the process exits 0."""
     import argparse
 
     parser = argparse.ArgumentParser(description="GPU bucket-store server")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6380)
+    parser.add_argument("--backend", choices=("device", "inprocess"),
+                        default="device",
+                        help="device = DeviceBucketStore (the card's "
+                        "tables and kernels); inprocess = the serial "
+                        "pure-Python InProcessBucketStore (the kernel-free "
+                        "baseline and test backing)")
     parser.add_argument("--slots", type=int, default=2**17,
                         help="slots per bucket table")
     parser.add_argument("--device", default="cuda",
@@ -676,7 +712,13 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--snapshot-path", default=None,
                         help="checkpoint file for OP_SAVE (≙ Redis BGSAVE "
                         "dump path); if it exists at startup the store "
-                        "restores from it, and SIGTERM writes a final one")
+                        "restores from it (any .delta.* chain beside it is "
+                        "applied too), and SIGTERM writes a final one")
+    parser.add_argument("--snapshot-incremental", action="store_true",
+                        help="OP_SAVE writes v4 delta checkpoints against "
+                        "the previous save instead of full files (base + "
+                        "bounded chain + compaction); requires "
+                        "--snapshot-path")
     parser.add_argument("--sweep-period", type=float, default=0.0,
                         help="active TTL-expiry period in seconds "
                         "(0 = on-demand sweeps only)")
@@ -697,6 +739,9 @@ def main(argv: list[str] | None = None) -> None:
                         help="bounded in-memory kept-trace buffer (oldest "
                         "evicted first)")
     args = parser.parse_args(argv)
+    if args.snapshot_incremental and not args.snapshot_path:
+        parser.error("--snapshot-incremental requires --snapshot-path "
+                     "(there is no chain without a base file)")
 
     async def serve() -> None:
         import signal
@@ -706,25 +751,34 @@ def main(argv: list[str] | None = None) -> None:
         )
         from distributedratelimiting.redis_tpu_torch.runtime.store import (
             DeviceBucketStore,
+            InProcessBucketStore,
         )
 
-        store = DeviceBucketStore(n_slots=args.slots, device=args.device)
+        if args.backend == "inprocess":
+            store: BucketStore = InProcessBucketStore()
+        else:
+            store = DeviceBucketStore(n_slots=args.slots, device=args.device)
         if args.snapshot_path:
             import os
 
             if os.path.exists(args.snapshot_path):
                 try:
-                    checkpoint.load_snapshot(store, args.snapshot_path)
+                    # Chain-aware: applies any .delta.* files beside the
+                    # base (exactly load_snapshot when there are none).
+                    deltas = checkpoint.load_snapshot_chain(
+                        store, args.snapshot_path)
                 except checkpoint.SnapshotCorruptError as exc:
-                    # Init-on-miss: a torn snapshot must not keep the store
-                    # down — serve fresh (state self-heals) and say so.
+                    # Init-on-miss: a torn snapshot or a broken chain
+                    # (SnapshotChainError) must not keep the store down —
+                    # serve fresh (state self-heals) and say so.
                     print(f"WARNING: ignoring corrupt snapshot: {exc}\n"
                           "starting with empty state (init-on-miss)",
                           flush=True)
                 else:
-                    print(f"restored snapshot from {args.snapshot_path}",
+                    print(f"restored snapshot from {args.snapshot_path}"
+                          + (f" (+{deltas} deltas)" if deltas else ""),
                           flush=True)
-        if args.sweep_period > 0:
+        if args.sweep_period > 0 and hasattr(store, "start_sweeper"):
             store.start_sweeper(args.sweep_period)
         server = BucketStoreServer(
             store, host=args.host, port=args.port,
@@ -734,7 +788,8 @@ def main(argv: list[str] | None = None) -> None:
                 "sample_rate": args.trace_sample,
                 "latency_threshold_s": args.trace_latency_ms / 1e3,
                 "max_traces": args.trace_buffer,
-            } if args.trace else None)
+            } if args.trace else None,
+            snapshot_incremental=args.snapshot_incremental)
         host, port = await server.start()
         print(f"bucket-store server listening on {host}:{port}", flush=True)
         term = asyncio.Event()

@@ -10,6 +10,11 @@ export:
   ``reserve`` and ``settle`` go through the store's one
   :class:`~.reservations.ReservationLedger`; ``export_entries`` is not
   ported yet and raises ``NotImplementedError``.
+- :class:`InProcessBucketStore` — the serial, pure-Python store with the
+  same semantics, one "script" per request and no batching, in Python
+  floats: the differential oracle of the device store and the bench's
+  kernel-free backing. Only a caller who names it gets it; nothing
+  constructs it in place of a :class:`DeviceBucketStore`.
 - :class:`DeviceBucketStore` — per-key bucket state lives on the device
   as SoA tensors, one table per bucket configuration ``(capacity,
   fill_rate)``; ``acquire`` calls are micro-batched into one packed
@@ -25,7 +30,9 @@ export:
   launch per ``max_batch`` rows; the tier-0 debit is one launch for all its
   rows. The store's clock stamps every launch. Tables grow by doubling and
   reclaim slots with TTL sweeps; every table resolves keys through the
-  native key directory when it builds.
+  native key directory when it builds. With ``enable_dirty_tracking`` the
+  tables count the slots they resolve between two checkpoint saves (host
+  bookkeeping for the incremental chain's gauge, :mod:`.checkpoint`).
 
 The store runs on ``cuda`` by default, where every decision, sync and sweep
 goes through the hand-written kernels of :mod:`..ops.cuda_kernels`. It runs on
@@ -67,6 +74,7 @@ __all__ = [
     "BulkAcquireResult",
     "BucketStore",
     "DeviceBucketStore",
+    "InProcessBucketStore",
     "SyncResult",
     "check_hierarchical_args",
 ]
@@ -657,6 +665,16 @@ class _PackedLaunchMixin:
     prefixes. Also the slot plumbing every table shares: its directory,
     batcher, resolution with reclaim, eviction and doubling."""
 
+    #: Dirty-slot accounting for incremental checkpoints: ``None`` (one
+    #: ``is not None`` check a resolve) until the owning store's
+    #: ``enable_dirty_tracking()`` arms it with a set. Every slot a launch
+    #: resolves lands here (slightly over-inclusive: a denied request still
+    #: refreshes its slot's refill timestamp, so resolved ≈ written), giving
+    #: OP_STATS the dirty/total ratio that predicts the next delta's size.
+    #: The delta itself is a structural diff, not this set: a missed site
+    #: can only misreport the gauge, never corrupt a checkpoint.
+    dirty_slots: "set[int] | None" = None
+
     # -- slot management ---------------------------------------------------
     def _init_slots(self, store: "DeviceBucketStore", state,
                     n_slots: int) -> None:
@@ -674,9 +692,13 @@ class _PackedLaunchMixin:
         )
 
     def resolve_slots(self, keys: list[str]) -> np.ndarray:
-        """Batch key→slot resolution (the host hot path)."""
-        return _resolve_with_reclaim(self.dir, keys, self._sweep, self._grow,
-                                     min_free=self.n_slots // 16)
+        """Batch key→slot resolution (the host hot path); every decision,
+        bulk, two-level and debit launch of a table resolves here."""
+        slots = _resolve_with_reclaim(self.dir, keys, self._sweep, self._grow,
+                                      min_free=self.n_slots // 16)
+        if self.dirty_slots is not None:
+            self.dirty_slots.update(slots.tolist())
+        return slots
 
     def _evict(self, mask: torch.Tensor, counts: torch.Tensor,
                pinned: set[int] | None) -> None:
@@ -1031,6 +1053,23 @@ class _PackedLaunchMixin:
         return self._grant_probes(res, counts_np)
 
 
+def _arm_dirty(table: _PackedLaunchMixin) -> None:
+    """Arm one table's dirty accounting (idempotent): the exact
+    host-resolved slot set. (The JAX package's fingerprint tables count
+    dispatched rows instead; they come with the fingerprint store.)"""
+    if table.dirty_slots is None:
+        table.dirty_slots = set()
+
+
+def _dirty_clear(table: _PackedLaunchMixin) -> None:
+    if table.dirty_slots is not None:
+        table.dirty_slots.clear()
+
+
+def _dirty_count(table: _PackedLaunchMixin) -> int:
+    return len(table.dirty_slots) if table.dirty_slots is not None else 0
+
+
 class _DeviceTable(_PackedLaunchMixin):
     """One homogeneous-config bucket table: device tensors + host directory."""
 
@@ -1297,6 +1336,9 @@ class DeviceBucketStore(BucketStore):
         self._connected = False
         self._connect_gate = asyncio.Lock()
         self._sweeper_task: asyncio.Task | None = None
+        # Dirty-slot accounting (incremental checkpoints; see
+        # enable_dirty_tracking): off by default, no serving cost.
+        self._dirty_tracking = False
 
     # -- connection lifecycle (lazy, idempotent) ---------------------------
     async def connect(self) -> None:
@@ -1343,6 +1385,8 @@ class DeviceBucketStore(BucketStore):
             if table is None:
                 table = _DeviceTable(self, capacity, fill_rate_per_sec,
                                      self.n_slots_default)
+                if self._dirty_tracking:
+                    _arm_dirty(table)
                 self._tables[key] = table
             return table
 
@@ -1355,6 +1399,8 @@ class DeviceBucketStore(BucketStore):
             if table is None:
                 table = _DeviceWindowTable(self, limit, wt,
                                            self.n_slots_default, fixed=fixed)
+                if self._dirty_tracking:
+                    _arm_dirty(table)
                 self._wtables[key] = table
             return table
 
@@ -1857,6 +1903,34 @@ class DeviceBucketStore(BucketStore):
         for t in (*self._tables.values(), *self._wtables.values()):
             await t.batcher.aclose()
 
+    # -- dirty accounting (incremental checkpoints, runtime/checkpoint.py) --
+    def enable_dirty_tracking(self) -> None:
+        """Arm per-table dirty accounting: between two saves every slot a
+        launch resolves is counted, so OP_STATS can report the dirty/total
+        ratio that predicts the next delta's size. Observability only: the
+        delta itself is a structural diff, correct with or without this.
+        The counter and semaphore tables stay untracked, as in the JAX
+        store: a handful of fixed arrays beside the key tables."""
+        with self._lock:
+            self._dirty_tracking = True
+            for t in (*self._tables.values(), *self._wtables.values()):
+                _arm_dirty(t)
+
+    def mark_snapshot_base(self) -> None:
+        """Start a fresh dirty window (the checkpoint chain calls it at
+        every save: the window is save to save)."""
+        with self._lock:
+            for t in (*self._tables.values(), *self._wtables.values()):
+                _dirty_clear(t)
+
+    def dirty_stats(self) -> dict:
+        with self._lock:
+            dirty = total = 0
+            for t in (*self._tables.values(), *self._wtables.values()):
+                dirty += _dirty_count(t)
+                total += t.n_slots
+            return {"dirty": dirty, "total": total}
+
     def snapshot(self) -> dict:
         """Pull all live state to the host, in the JAX store's schema.
         ``now_ticks`` is captured so a restore into another process (fresh
@@ -1930,3 +2004,406 @@ class DeviceBucketStore(BucketStore):
                                         device=dev),
                 )
                 self._sema_dir.load(snap["sema_dir"], len(sm["active"]))
+
+
+class InProcessBucketStore(BucketStore):
+    """Pure-Python store with the device store's semantics, executed
+    serially per request — the differential oracle, the test fake and the
+    Redis-class CPU baseline (one 'script' per op, no batching). Its
+    arithmetic is Python floats, as the JAX package's is, so the two
+    packages' serial stores agree field for field. A named store only:
+    nothing constructs it in place of a :class:`DeviceBucketStore`."""
+
+    def __init__(self, clock: Clock | None = None) -> None:
+        self.clock = clock or MonotonicClock()
+        self._buckets: dict[tuple, tuple[float, int]] = {}   # (tokens, ts)
+        self._counters: dict[str, tuple[float, float, int]] = {}  # (v, p, ts)
+        self._windows: dict[tuple, tuple[float, float, int]] = {}
+        self._semas: dict[str, int] = {}                     # active permits
+        self._connected = False
+        # Dirty-key accounting for incremental checkpoints — None (one
+        # check per write) until armed.
+        self._dirty: "set | None" = None
+
+    async def connect(self) -> None:
+        self._connected = True
+
+    def _acquire_core(self, key, count, capacity, rate_per_sec) -> AcquireResult:
+        now = self.clock.now_ticks()
+        rate = _rate_per_tick(rate_per_sec)
+        bkey = (key, float(capacity), float(rate_per_sec))
+        entry = self._buckets.get(bkey)
+        if entry is None:
+            refilled = float(capacity)
+        else:
+            tokens, ts = entry
+            refilled = min(float(capacity), tokens + max(0, now - ts) * rate)
+        granted = refilled >= count
+        self._buckets[bkey] = (refilled - (count if granted else 0), now)
+        if self._dirty is not None:
+            self._dirty.add(bkey)
+        return AcquireResult(granted, self._buckets[bkey][0])
+
+    async def acquire(self, key, count, capacity, fill_rate_per_sec):
+        await self.connect()
+        return self._acquire_core(key, count, capacity, fill_rate_per_sec)
+
+    def acquire_blocking(self, key, count, capacity, fill_rate_per_sec):
+        return self._acquire_core(key, count, capacity, fill_rate_per_sec)
+
+    async def acquire_many(self, keys, counts, capacity, fill_rate_per_sec,
+                           *, with_remaining: bool = True):
+        """Serial-core bulk: one in-order pass over the batch with NO
+        task-per-key (the base class's gather spends ~10µs/key on task
+        scheduling — measurable when this store backs the native front-end
+        as the zero-cost-kernel stand-in). Still awaits ``self.acquire``
+        per key: the per-key method stays the single override point for
+        test fakes and subclasses, and awaiting a non-suspending
+        coroutine costs no loop round trip."""
+        await self.connect()
+        n = len(keys)
+        granted = np.empty(n, bool)
+        remaining = np.empty(n, np.float32) if with_remaining else None
+        # Direct-core loop only when per-key acquire is NOT overridden:
+        # subclasses/test fakes that intercept acquire() must see every
+        # bulk key too (a coroutine frame per key costs ~20% on the
+        # native-front-end stand-in, so the unsubclassed store skips it).
+        direct = type(self).acquire is InProcessBucketStore.acquire
+        for i, (k, c) in enumerate(zip(keys, counts)):
+            r = (self._acquire_core(k, int(c), capacity, fill_rate_per_sec)
+                 if direct else
+                 await self.acquire(k, int(c), capacity, fill_rate_per_sec))
+            granted[i] = r.granted
+            if remaining is not None:
+                remaining[i] = r.remaining
+        return BulkAcquireResult(granted, remaining)
+
+    async def window_acquire_many(self, keys, counts, limit, window_sec, *,
+                                  fixed: bool = False,
+                                  with_remaining: bool = True):
+        await self.connect()
+        op = (self.fixed_window_acquire if fixed else self.window_acquire)
+        n = len(keys)
+        granted = np.empty(n, bool)
+        remaining = np.empty(n, np.float32) if with_remaining else None
+        for i, (k, c) in enumerate(zip(keys, counts)):
+            r = await op(k, int(c), limit, window_sec)
+            granted[i] = r.granted
+            if remaining is not None:
+                remaining[i] = r.remaining
+        return BulkAcquireResult(granted, remaining)
+
+    def peek_blocking(self, key, capacity, fill_rate_per_sec):
+        now = self.clock.now_ticks()
+        bkey = (key, float(capacity), float(fill_rate_per_sec))
+        entry = self._buckets.get(bkey)
+        if entry is None:
+            return float(np.floor(capacity))
+        tokens, ts = entry
+        rate = _rate_per_tick(fill_rate_per_sec)
+        return float(np.floor(min(float(capacity), tokens + max(0, now - ts) * rate)))
+
+    async def debit_many(self, keys, amounts, capacity, fill_rate_per_sec):
+        """Serial saturating debit — the device kernel's semantics
+        (:func:`~..ops.kernels.debit_batch_packed`): refill, then subtract
+        clamped at zero, reporting the clamped shortfall."""
+        now = self.clock.now_ticks()
+        rate = _rate_per_tick(fill_rate_per_sec)
+        n = len(keys)
+        remaining = np.empty(n, np.float64)
+        shortfall = np.empty(n, np.float64)
+        for i, (k, amt) in enumerate(zip(keys, amounts)):
+            amt = float(amt)
+            bkey = (k, float(capacity), float(fill_rate_per_sec))
+            entry = self._buckets.get(bkey)
+            if entry is None:
+                refilled = float(capacity)
+            else:
+                tokens, ts = entry
+                refilled = min(float(capacity),
+                               tokens + max(0, now - ts) * rate)
+            applied = min(amt, max(refilled, 0.0))
+            self._buckets[bkey] = (refilled - applied, now)
+            if self._dirty is not None:
+                self._dirty.add(bkey)
+            remaining[i] = refilled - applied
+            shortfall[i] = amt - applied
+        return remaining, shortfall
+
+    # -- hierarchical tenant → key admission (exact serial core) -----------
+    def _hier_refill(self, bkey: tuple, capacity: float,
+                     rate_per_sec: float, now: int) -> float:
+        entry = self._buckets.get(bkey)
+        if entry is None:
+            return float(capacity)
+        tokens, ts = entry
+        rate = _rate_per_tick(rate_per_sec)
+        return min(float(capacity), tokens + max(0, now - ts) * rate)
+
+    def _hier_core(self, tenant, key, count, tcap, trate, cap, rate
+                   ) -> AcquireResult:
+        """Atomic two-level decision — the serial reference the two-level
+        kernel (:func:`~..ops.kernels.acquire_hierarchical_packed`) is
+        differential-tested against: refill both levels, grant iff
+        both cover ``count``, debit both-or-neither, advance BOTH
+        timestamps either way (a denied request leaves each bucket
+        exactly as a refill-only touch would — the refund contract,
+        closed algebraically)."""
+        check_hierarchical_args(count, tcap, trate, cap, rate)
+        now = self.clock.now_ticks()
+        ckey = (key, float(cap), float(rate))
+        pkey = (tenant, float(tcap), float(trate))
+        c_ref = self._hier_refill(ckey, cap, rate, now)
+        p_ref = self._hier_refill(pkey, tcap, trate, now)
+        granted = c_ref >= count and p_ref >= count
+        spend = count if granted else 0
+        self._buckets[ckey] = (c_ref - spend, now)
+        self._buckets[pkey] = (p_ref - spend, now)
+        if self._dirty is not None:
+            self._dirty.add(ckey)
+            self._dirty.add(pkey)
+        return AcquireResult(granted,
+                             min(c_ref - spend, p_ref - spend))
+
+    async def acquire_hierarchical(self, tenant, key, count,
+                                   tenant_capacity,
+                                   tenant_fill_rate_per_sec, capacity,
+                                   fill_rate_per_sec, *, priority=0):
+        await self.connect()
+        return self._hier_core(tenant, key, int(count), tenant_capacity,
+                               tenant_fill_rate_per_sec, capacity,
+                               fill_rate_per_sec)
+
+    def acquire_hierarchical_blocking(self, tenant, key, count,
+                                      tenant_capacity,
+                                      tenant_fill_rate_per_sec, capacity,
+                                      fill_rate_per_sec, *, priority=0):
+        return self._hier_core(tenant, key, int(count), tenant_capacity,
+                               tenant_fill_rate_per_sec, capacity,
+                               fill_rate_per_sec)
+
+    async def acquire_hierarchical_many(self, tenants, keys, counts,
+                                        tenant_capacity,
+                                        tenant_fill_rate_per_sec,
+                                        capacity, fill_rate_per_sec, *,
+                                        with_remaining: bool = True,
+                                        priority: int = 0):
+        """Serial-core bulk: one in-order pass, no per-row coroutine —
+        one extra dict round a row over the flat serial core."""
+        await self.connect()
+        return self.acquire_hierarchical_many_blocking(
+            tenants, keys, counts, tenant_capacity,
+            tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+            with_remaining=with_remaining, priority=priority)
+
+    def acquire_hierarchical_many_blocking(self, tenants, keys, counts,
+                                           tenant_capacity,
+                                           tenant_fill_rate_per_sec,
+                                           capacity, fill_rate_per_sec,
+                                           *, with_remaining: bool = True,
+                                           priority: int = 0):
+        n = len(keys)
+        granted = np.empty(n, bool)
+        remaining = np.empty(n, np.float32) if with_remaining else None
+        core = self._hier_core
+        for i in range(n):
+            r = core(tenants[i], keys[i], int(counts[i]),
+                     tenant_capacity, tenant_fill_rate_per_sec,
+                     capacity, fill_rate_per_sec)
+            granted[i] = r.granted
+            if remaining is not None:
+                remaining[i] = r.remaining
+        return BulkAcquireResult(granted, remaining)
+
+    async def sync_counter(self, key, local_count, decay_rate_per_sec):
+        return self.sync_counter_blocking(key, local_count, decay_rate_per_sec)
+
+    def sync_counter_blocking(self, key, local_count, decay_rate_per_sec):
+        now = self.clock.now_ticks()
+        rate = _rate_per_tick(decay_rate_per_sec)
+        entry = self._counters.get(key)
+        if entry is None:
+            v, p = float(local_count), float(now)
+        else:
+            v0, p0, ts = entry
+            delta = max(0, now - ts)
+            v = max(0.0, v0 - delta * rate) + local_count
+            p = (1 - bm.PERIOD_EWMA_ALPHA) * p0 + bm.PERIOD_EWMA_ALPHA * delta
+        self._counters[key] = (v, p, now)
+        if self._dirty is not None:
+            self._dirty.add(key)
+        return SyncResult(v, p)
+
+    async def concurrency_acquire(self, key, count, limit):
+        return self.concurrency_acquire_blocking(key, count, limit)
+
+    def concurrency_acquire_blocking(self, key, count, limit):
+        active = self._semas.get(key, 0)
+        if active + count <= limit:
+            if count > 0:  # count == 0 is a read-only probe
+                self._semas[key] = active + count
+                if self._dirty is not None:
+                    self._dirty.add(key)
+            return AcquireResult(True, float(active + count))
+        return AcquireResult(False, float(active))
+
+    async def concurrency_release(self, key, count):
+        self.concurrency_release_blocking(key, count)
+
+    def concurrency_release_blocking(self, key, count):
+        if key not in self._semas:
+            return  # unknown key: nothing to release, create nothing
+        self._semas[key] = max(0, self._semas[key] - count)
+        if self._dirty is not None:
+            self._dirty.add(key)
+
+    async def window_acquire(self, key, count, limit, window_sec):
+        return self.window_acquire_blocking(key, count, limit, window_sec)
+
+    def window_acquire_blocking(self, key, count, limit, window_sec):
+        return self._window_core(key, count, limit, window_sec,
+                                 interpolate=True)
+
+    async def fixed_window_acquire(self, key, count, limit, window_sec):
+        return self._window_core(key, count, limit, window_sec,
+                                 interpolate=False)
+
+    def fixed_window_acquire_blocking(self, key, count, limit, window_sec):
+        return self._window_core(key, count, limit, window_sec,
+                                 interpolate=False)
+
+    def _window_core(self, key, count, limit, window_sec, *, interpolate):
+        now = self.clock.now_ticks()
+        wt = int(window_sec * bm.TICKS_PER_SECOND)
+        wkey = (key, float(limit), wt, interpolate)
+        entry = self._windows.get(wkey)
+        idx_now = now // wt
+        if entry is None:
+            prev = curr = 0.0
+        else:
+            prev, curr, idx = entry
+            steps = idx_now - idx
+            if steps == 1:
+                prev, curr = curr, 0.0
+            elif steps >= 2:
+                prev = curr = 0.0
+        if interpolate:
+            frac = (now - idx_now * wt) / wt
+            est = curr + prev * (1.0 - frac)
+        else:
+            est = curr
+        granted = est + count <= limit
+        if granted:
+            curr += count
+        self._windows[wkey] = (prev, curr, idx_now)
+        if self._dirty is not None:
+            self._dirty.add(wkey)
+        return AcquireResult(granted, max(0.0, limit - est - (count if granted else 0)))
+
+    async def aclose(self) -> None:
+        pass
+
+    async def import_entries(self, entries: dict) -> int:
+        """Exact merge lane for migration handoffs (the JAX package's
+        generic replay in ``placement.import_entries`` is for stores whose
+        state only the kernels can write). Conservative on collisions — a
+        re-pushed batch or pre-existing local state must never inflate
+        a budget: buckets keep the smaller balance, windows sum their
+        counts (clamped to the limit), counters and semaphores keep the
+        larger value."""
+        now = self.clock.now_ticks()
+        n = 0
+        for key, cap, rate, tokens, age in entries.get("buckets", ()):
+            bkey = (key, float(cap), float(rate))
+            ts = now - int(age)
+            entry = self._buckets.get(bkey)
+            if entry is None:
+                self._buckets[bkey] = (float(tokens), ts)
+            else:
+                self._buckets[bkey] = (min(entry[0], float(tokens)),
+                                       max(entry[1], ts))
+            if self._dirty is not None:
+                self._dirty.add(bkey)
+            n += 1
+        for key, limit, wt, interp, prev, curr, behind in \
+                entries.get("windows", ()):
+            wkey = (key, float(limit), int(wt), bool(interp))
+            idx = now // int(wt) - int(behind)
+            entry = self._windows.get(wkey)
+            if entry is None or entry[2] < idx:
+                # no local state, or the LOCAL entry is the stale one
+                # (an earlier epoch's leftovers): the push wins outright
+                self._windows[wkey] = (float(prev), float(curr), idx)
+            elif entry[2] == idx:
+                self._windows[wkey] = (
+                    min(float(limit), entry[0] + float(prev)),
+                    min(float(limit), entry[1] + float(curr)), idx)
+            # a stale PUSHED window (older idx) carries no usage to keep
+            if self._dirty is not None:
+                self._dirty.add(wkey)
+            n += 1
+        for key, value, period, age in entries.get("counters", ()):
+            entry = self._counters.get(key)
+            if entry is None or entry[0] < value:
+                self._counters[key] = (float(value), float(period),
+                                       now - int(age))
+            if self._dirty is not None:
+                self._dirty.add(key)
+            n += 1
+        for key, active in entries.get("semas", ()):
+            self._semas[key] = max(self._semas.get(key, 0), int(active))
+            if self._dirty is not None:
+                self._dirty.add(key)
+            n += 1
+        return n
+
+    # -- dirty accounting (incremental checkpoints, runtime/checkpoint.py) --
+    def enable_dirty_tracking(self) -> None:
+        """Arm exact per-entry dirty accounting (the device store's
+        counterpart tracks slots): between two saves every written entry
+        key is counted, so OP_STATS reports the dirty/total ratio that
+        predicts the next v4 delta's size. Observability only — the
+        delta is a structural diff either way."""
+        if self._dirty is None:
+            self._dirty = set()
+
+    def mark_snapshot_base(self) -> None:
+        if self._dirty is not None:
+            self._dirty.clear()
+
+    def dirty_stats(self) -> dict:
+        return {"dirty": len(self._dirty or ()),
+                "total": (len(self._buckets) + len(self._windows)
+                          + len(self._counters) + len(self._semas))}
+
+    def snapshot(self) -> dict:
+        return {
+            "now_ticks": self.clock.now_ticks(),
+            "buckets": dict(self._buckets),
+            "counters": dict(self._counters),
+            "windows": dict(self._windows),
+            "semas": dict(self._semas),
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Same clock-epoch re-alignment as the device store: stored
+        timestamps shift by ``now_here − now_at_snapshot`` so elapsed time
+        (refill/decay) survives a restore into a fresh process."""
+        # Snapshots from before the epoch field behave as same-process.
+        shift = (int(self.clock.now_ticks()) - int(snap["now_ticks"])
+                 if "now_ticks" in snap else 0)
+        self._buckets = {
+            k: (tokens, ts + shift)
+            for k, (tokens, ts) in snap["buckets"].items()
+        }
+        self._counters = {
+            k: (v, p, ts + shift)
+            for k, (v, p, ts) in snap["counters"].items()
+        }
+        # Pre-fixed-window snapshots carry 3-tuple window keys (sliding);
+        # normalize to the 4-tuple (key, limit, wt, interpolate=True).
+        self._windows = {
+            (k if len(k) == 4 else (*k, True)): (prev, curr, idx + shift // k[2])
+            for k, (prev, curr, idx) in snap["windows"].items()
+        }
+        self._semas = dict(snap.get("semas", {}))  # counts are epoch-free

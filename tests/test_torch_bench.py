@@ -23,8 +23,14 @@
 - The bench (``python -m distributedratelimiting.redis_tpu_torch.bench``)
   on ``--device cpu`` at tiny sizes: its JSON lines, its ported and
   unported keys, a failing section, and its refusal to run without a card.
+  Its child-process sections (``nproc``, ``serving_p99_colocated``,
+  ``serving_p99_instant``) run there against stub children (a few lines of
+  Python that answer as the real ones do), which also fail on purpose: a
+  failed child is an error naming its stderr, with null keys, never a zero.
+  One test runs the real children at tiny sizes.
 """
 
+import asyncio
 import io
 import json
 import subprocess
@@ -283,8 +289,41 @@ TINY = {
                   "low_reqs": 8, "keys": 100},
     "serving_p99": {"n_slots": 4096, "max_batch": 64, "depth": 8, "reqs": 8,
                     "warm_reqs": 2, "depth_low": 2, "keys": 100},
+    "nproc": {"clients": 2, "workers": 4, "reqs": 5, "warm_workers": 2,
+              "warm_reqs": 2},
+    "serving_p99_colocated": {"samples": 64, "min_reqs": 2, "warm_reqs": 1},
+    "serving_p99_instant": {"samples": 64, "min_reqs": 2, "warm_reqs": 1},
     "sweep_ok": {"n_slots": 256},
 }
+
+#: A stand-in for the bench's children: the same flags and result lines,
+#: without their stores. ``STUB_FAIL`` names a flag whose child fails.
+STUB_CHILD = r"""
+import json, os, sys
+flag = sys.argv[1]
+if os.environ.get("STUB_FAIL") == flag:
+    print("stub child went wrong on purpose", file=sys.stderr)
+    sys.exit(3)
+if flag == "--serving-server-child":
+    print(json.dumps({"host": "127.0.0.1", "port": 9}), flush=True)
+    sys.stdin.read()
+elif flag == "--serving-load-child":
+    d = {"p99_ms": 1.5, "p50_ms": 0.5, "samples": 10, "flush_p99_ms": 0.25,
+         "flush_p50_ms": 0.125}
+    print(json.dumps({"d4": dict(d, p99_ms=0.75), "d16": dict(d, p99_ms=1.0),
+                      "d64": d}))
+elif flag == "--nproc-client":
+    if os.environ.get("STUB_FAIL") == "silent":
+        sys.exit(0)  # no result line
+    print(json.dumps({"rate": 100.0 + int(sys.argv[4])}))
+"""
+
+
+@pytest.fixture(autouse=True)
+def stub_children(monkeypatch):
+    """Every bench child runs :data:`STUB_CHILD` unless a test lifts it."""
+    monkeypatch.setattr(bench, "_child_cmd", lambda *args: [
+        sys.executable, "-c", STUB_CHILD, *args])
 
 PORTED_KEYS = [k for _, keys in bench.SECTIONS for k in keys] + [
     "vs_baseline", "e2e_async_link_rtt_ms", "headline_wall_ms_per_dispatch"]
@@ -310,12 +349,25 @@ def test_bench_on_cpu_prints_every_section():
     assert result["pallas_sweep_ok"] is True
     assert result["serving_p99_samples"] == 8 * 8
     assert result["serving_p99_d4_samples"] == 2 * 8
+    # The stub children's answers, in their keys: a client's rate each.
+    assert result["e2e_async_nproc_decisions_per_sec"] == 100.0 + 101.0
+    assert result["e2e_async_nproc_clients"] == 2
+    assert (result["serving_p99_colocated_ms"],
+            result["serving_p50_colocated_ms"],
+            result["serving_p99_colocated_d4_ms"],
+            result["serving_p99_colocated_d16_ms"],
+            result["flush_p99_colocated_ms"],
+            result["flush_p50_colocated_ms"]) == (1.5, 0.5, 0.75, 1.0, 0.25,
+                                                  0.125)
+    assert result["serving_p99_instant_d16_ms"] == 1.0
     for name, _ in bench.SECTIONS:
         assert result["section_status"][name] == "ok"
     for name, (item, keys) in bench.NOT_PORTED.items():
         assert result["section_status"][name] == (
             f"not_ported: ROADMAP Queue {item}")
         assert all(result[k] is None for k in keys)
+    assert {item for item, _ in bench.NOT_PORTED.values()} == {"A5", "A6",
+                                                               "A12"}
     assert result["reduced"]["sizes"] == TINY
     assert "e2e_bulk.max_batch" in result["reduced"]
     # A section's keys are set in the line that reports it "ok".
@@ -336,6 +388,73 @@ def test_bench_section_error_exits_1_after_the_last_line(monkeypatch):
     assert status["e2e_bulk"] == "error: RuntimeError: forced"
     assert result["e2e_bulk_decisions_per_sec"] is None
     assert status["remote_bulk"] == status["sweep_ok"] == "ok"
+
+
+@pytest.mark.parametrize("flag,section", [
+    ("--nproc-client", "nproc"),
+    ("silent", "nproc"),
+    ("--serving-server-child", "serving_p99_colocated"),
+    ("--serving-load-child", "serving_p99_colocated"),
+])
+def test_a_failed_child_fails_its_section_with_null_keys(monkeypatch, flag,
+                                                          section):
+    """A child that exits non-zero, prints no result or never prints its
+    address fails its section: an error naming the child (and its stderr's
+    tail), the section's keys null and exit code 1 — never a rate of 0."""
+    monkeypatch.setenv("STUB_FAIL", flag)
+    result, rc, lines = _run_tiny()
+    assert rc == 1 and lines[-1]["partial"] is False
+    status = result["section_status"]
+    failed = {name for name, st in status.items() if st.startswith("error")}
+    want = ({section, "serving_p99_instant"}
+            if section == "serving_p99_colocated" else {section})
+    assert failed == want
+    assert "child" in status[section]
+    if flag != "silent":
+        assert "wrong on purpose" in status[section]
+    keys = dict(bench.SECTIONS)[section]
+    assert all(result[k] is None for k in keys)
+    assert status["sweep_ok"] == "ok"
+
+
+def test_the_real_children_run_on_the_cpu(monkeypatch):
+    """The children themselves (no stub), at tiny sizes: the serial and the
+    device store behind a server child, and two nproc clients."""
+    monkeypatch.undo()  # the autouse stub
+    dev = torch.device("cpu")
+    instant = bench.bench_serving_children(
+        dev, "instant", **TINY["serving_p99_instant"])
+    device = bench.bench_serving_children(
+        dev, "device", **TINY["serving_p99_colocated"])
+    for out in (instant, device):
+        assert sorted(out) == ["d16", "d4", "d64"]
+        # samples: the measured requests plus the closing stats request
+        assert out["d64"]["samples"] == 64 * 2 + 1
+        assert out["d4"]["p99_ms"] > 0
+    assert instant["d64"]["flush_p99_ms"] is None
+    assert device["d64"]["flush_p99_ms"] > 0
+    rate, n = asyncio.run(bench.bench_nproc(dev, **TINY["nproc"]))
+    assert n == 2 and rate > 0
+
+
+def test_child_flags_parse(monkeypatch, capsys):
+    seen = {}
+    monkeypatch.setattr(bench, "_serving_load_child",
+                        lambda *a: seen.setdefault("load", a) and {"x": 1})
+    monkeypatch.setattr(bench, "_nproc_client",
+                        lambda *a: seen.setdefault("nproc", a) and {"y": 2})
+    monkeypatch.setattr(bench, "_serving_server_child",
+                        lambda *a: seen.setdefault("server", a))
+    assert bench.main(["--serving-load-child", "h", "7", "64", "2",
+                       "1"]) == 0
+    assert bench.main(["--nproc-client", "h", "7", "3", "4", "5", "2",
+                       "2"]) == 0
+    assert bench.main(["--serving-server-child", "device", "--device",
+                       "cpu"]) == 0
+    assert seen == {"load": ("h", 7, 64, 2, 1),
+                    "nproc": ("h", 7, "3", 4, 5, 2, 2),
+                    "server": ("device", "cpu")}
+    assert capsys.readouterr().out.splitlines() == ['{"x": 1}', '{"y": 2}']
 
 
 def test_bench_budget_skips_sections(monkeypatch):

@@ -417,6 +417,173 @@ def test_op_save_restores_into_the_other_package(tmp_path, writer):
     asyncio.run(store.aclose())
 
 
+@pytest.mark.parametrize("client", ["port", "jax"])
+def test_incremental_op_save_writes_a_base_then_deltas(tmp_path, client):
+    """``snapshot_incremental``: OP_SAVE twice → one base and one delta;
+    OP_STATS carries the chain's stats with the store's dirty/total, whose
+    window is save to save (as the JAX server's)."""
+    path = str(tmp_path / "snap.pkl")
+
+    async def main():
+        async with _Server("port", snapshot_path=path,
+                           snapshot_incremental=True) as srv:
+            cli = _client(client, srv.address)
+            await w(cli.acquire_many([f"k{i}" for i in range(20)],
+                                     [1] * 20, 30.0, 1.0))
+            stats = await w(cli.stats())
+            assert stats["snapshot_chain"]["dirty"] == {"dirty": 20,
+                                                       "total": 256}
+            await w(cli.save())
+            stats = await w(cli.stats())
+            assert stats["snapshot_chain"]["dirty"]["dirty"] == 0
+            assert stats["snapshot_chain"]["full_saves"] == 1
+            await w(cli.acquire_many(["k1", "k2", "new"], [2, 2, 2],
+                                     30.0, 1.0))
+            assert (await w(cli.stats()))["snapshot_chain"]["dirty"][
+                "dirty"] == 3
+            await w(cli.save())
+            stats = await w(cli.stats())
+            await cli.aclose()
+            return stats, srv.store.snapshot()
+
+    stats, snap = asyncio.run(main())
+    chain = stats["snapshot_chain"]
+    assert chain["chain_len"] == 1 and chain["delta_saves"] == 1
+    assert 0 < chain["last_delta_bytes"] < chain["base_bytes"]
+    assert sorted(os.listdir(tmp_path)) == ["snap.pkl", "snap.pkl.delta.1"]
+    # Both packages restore the chain to the saving store's state.
+    store = DeviceBucketStore(device="cpu", clock=ManualClock(START),
+                              n_slots=256)
+    assert pcp.load_snapshot_chain(store, path) == 1
+    jstore = JStore(clock=JClock(START), n_slots=256)
+    assert jcp.load_snapshot_chain(jstore, path) == 1
+    for st in (store, jstore):
+        assert [st.peek_blocking(k, 30.0, 1.0) for k in ("k0", "k1", "new")
+                ] == [29.0, 27.0, 28.0]
+    np.testing.assert_array_equal(
+        store.snapshot()["tables"][(30.0, 1.0)]["tokens"],
+        snap["tables"][(30.0, 1.0)]["tokens"])
+    asyncio.run(store.aclose())
+
+
+def test_a_full_save_server_reports_no_chain(tmp_path):
+    async def main():
+        async with _Server("port", snapshot_path=str(tmp_path / "s")) as srv:
+            cli = _client("port", srv.address)
+            await w(cli.save())
+            stats = await w(cli.stats())
+            await cli.aclose()
+            assert all(t.dirty_slots is None
+                       for t in srv.store._tables.values())
+            return stats
+
+    assert "snapshot_chain" not in asyncio.run(main())
+    assert os.listdir(tmp_path) == ["s"]
+
+
+def _console(*args):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.Popen(
+        [sys.executable, "-m",
+         "distributedratelimiting.redis_tpu_torch.runtime.server",
+         "--port", "0", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+
+
+def _console_address(proc):
+    """The console server's address, and the lines it printed before its
+    listening line (the restore's)."""
+    before = []
+    line = proc.stdout.readline()
+    while line.startswith(("restored", "WARNING", "starting")):
+        before.append(line)
+        line = proc.stdout.readline()
+    assert line.startswith("bucket-store server listening on "), (
+        line, proc.stderr.read() if proc.poll() is not None else "")
+    host, port = line.rsplit(" ", 1)[1].strip().rsplit(":", 1)
+    return before, (host, int(port))
+
+
+def _stop(proc) -> str:
+    proc.send_signal(signal.SIGTERM)
+    assert proc.wait(timeout=20) == 0
+    return proc.stdout.read()
+
+
+@pytest.mark.parametrize("backend", ["inprocess", "device"])
+def test_console_server_restarts_on_its_chain(tmp_path, backend):
+    """``--snapshot-incremental``: two OP_SAVEs and SIGTERM's final save
+    leave a base and two deltas; a restart applies them (``(+2 deltas)``)
+    and serves the saved balances. ``--backend inprocess`` serves the serial
+    store."""
+    path = str(tmp_path / "snap.pkl")
+    args = ["--backend", backend, "--snapshot-path", path,
+            "--snapshot-incremental"]
+    if backend == "device":
+        args += ["--device", "cpu", "--slots", "1024"]
+
+    async def first(addr):
+        cli = JRemote(address=addr)
+        await w(cli.ping())
+        res = await w(asyncio.gather(*(cli.acquire("five", 1, 5.0, 1e-6)
+                                       for _ in range(32))))
+        assert sum(r.granted for r in res) == 5
+        # A base large enough that a two-key delta stays under half its size
+        # (a larger delta compacts into a new base).
+        await w(cli.acquire_many([f"bulk{i}" for i in range(200)],
+                                 [1] * 200, 10.0, 1e-6))
+        await w(cli.save())
+        await w(cli.acquire_many(["a", "b"], [3, 4], 10.0, 1e-6))
+        await w(cli.save())
+        stats = await w(cli.stats())
+        await w(cli.acquire("c", 2, 10.0, 1e-6))  # saved by SIGTERM only
+        await cli.aclose()
+        return stats
+
+    async def second(addr):
+        cli = RemoteBucketStore(address=addr)
+        out = [await w(asyncio.to_thread(cli.peek_blocking, k, cap, 1e-6))
+               for k, cap in (("five", 5.0), ("a", 10.0), ("b", 10.0),
+                              ("c", 10.0))]
+        await cli.aclose()
+        return out
+
+    proc = _console(*args)
+    try:
+        _, addr = _console_address(proc)
+        stats = asyncio.run(first(addr))
+        assert stats["snapshot_chain"]["chain_len"] == 1
+        assert "store" in stats or backend == "inprocess"
+        if backend == "inprocess":
+            assert stats["snapshot_chain"]["dirty"] == {"dirty": 0,
+                                                        "total": 203}
+        assert "final checkpoint" in _stop(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert sorted(os.listdir(tmp_path)) == [
+        "snap.pkl", "snap.pkl.delta.1", "snap.pkl.delta.2"]
+    proc = _console(*args)
+    try:
+        before, addr = _console_address(proc)
+        assert before == [f"restored snapshot from {path} (+2 deltas)\n"]
+        assert asyncio.run(second(addr)) == [0.0, 7.0, 6.0, 8.0]
+        _stop(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_console_refuses_incremental_without_a_path():
+    proc = _console("--snapshot-incremental", "--device", "cpu")
+    _, err = proc.communicate(timeout=60)
+    assert proc.returncode == 2
+    assert "--snapshot-incremental requires --snapshot-path" in err
+
+
 def test_checkpoint_errors_are_typed(tmp_path):
     store = DeviceBucketStore(device="cpu", clock=ManualClock(START))
     path = str(tmp_path / "s.pkl")
