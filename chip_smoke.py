@@ -175,9 +175,38 @@ Phases (any failure raises, and the script exits non-zero):
    (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
    ``serving_p99_instant`` sections once each with short windows (no key
    null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
-   alone (``--paths`` takes any of the paths of phases 3–9 and 11, comma-
+   alone (``--paths`` takes any of the paths of phases 3–10 and 12, comma-
    separated).
-9. The shared store server (README "Multi-host", BASELINE config 2's
+9. The observability and overload plane (``--paths observability``), at
+   the server cell's size: ``BucketStoreServer(observability=True,
+   metrics_port=0, flight_dir=<tmp>, audit=AuditConfig(tick_s=0.05),
+   overflow_pool=...)`` over a card ``DeviceBucketStore`` of 2^24 slots.
+   From a client process of its own (``chip_smoke.py --obs-client``),
+   100,000 ``acquire``s, one frame each, 64 tasks, Zipf(1.1) over 1M keys;
+   the heavy-hitter sketch's top 64 (``OP_METRICS``'s ``hot_key_*``
+   families, ``OP_STATS``' top 10 their head) held to the stream's exact
+   counts (``count - error <= true`` for all 64; present, and ``true <=
+   count``, for every key above N/64); then the 10M-key bulk as
+   ``ACQUIRE_MANY`` frames, ``/metrics`` scraped every 0.5 s all the while
+   and parsed; ``OP_METRICS`` after it equal to the server's own counters
+   (requests, connections, shed, store launches and rows, retries, the
+   sketch's weight, the serving histogram's count). ``OP_TRACES`` at sample
+   1.0 for 200 requests: Chrome JSON with ``server.*`` spans under their
+   client's trace ids. ``start_device_trace`` / ``stop_device_trace``
+   around a 1M-key bulk on a card store, in a process of its own
+   (``chip_smoke.py --obs-device-trace``): ``drl/`` ranges, and every
+   kernel in the trace launched inside one. One flush failure injected at the
+   ``store.flush`` seam: exactly one ``flush_error`` dump, JSONL holding
+   the flush frames. The audit: no breach over 20 ticks and more of the
+   traffic above; the JAX test's seeded leak soak on a card store: one
+   bundle within three ticks. The doomed-work and retry-shed gates armed
+   (JAX's words; the store untouched) and the overflow-pool redirect of
+   ``OP_RESERVE``. A seeded storm (``storm_schedule``) with faults on the
+   client's and the server's seams: cap-5 x 32 -> 5, every rid held and
+   settled once. The plane's cost: the same 100,000 requests in ABBA
+   blocks against this server and one with ``observability=False`` over a
+   store of its own: requests/s and p99 each way, printed, not asserted.
+10. The shared store server (README "Multi-host", BASELINE config 2's
    shape): ``BucketStoreServer`` over a third ``DeviceBucketStore`` (2^24
    slots, 2^20 counters, a ManualClock) on 127.0.0.1, limiters on
    ``RemoteBucketStore`` clients. ``acquire_many`` over 10,000,000 distinct
@@ -202,26 +231,28 @@ Phases (any failure raises, and the script exits non-zero):
    resolve beside the in-process string resolve; then the path's launches
    by width, and fails if a scan held a single batch (every bulk frame of
    at most 4,096 rows is one flush of its rows).
-10. The console entry point on the card: ``python -m
+11. The console entry point on the card: ``python -m
    distributedratelimiting.redis_tpu_torch.runtime.server --port 0 --slots
    1048576 --sweep-period 1`` as a subprocess: its listening line, ping,
    cap-5 × 32 → 5, ``OP_STATS`` keys, SIGTERM → exit 0.
-11. The bench path: ``redis_tpu_torch/bench.py``'s headline, compact and
+12. The bench path: ``redis_tpu_torch/bench.py``'s headline, compact and
    single-batch sections at their full widths (10M slots, 32 x 8192, 16 x
    8192, B = 8192), five timed dispatches each; the launches must be the
    sections' dispatches exactly, and the table sane after them.
-12. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
-   of phases 3–9 and 11 (``launches_by_path``; counts set to 0 before each
+13. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
+   of phases 3–10 and 12 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
    two-level kernel and the debit > 0 on the reservation path, every
-   store kernel but the window flushes > 0 on the checkpoint path, and every
+   store kernel but the window flushes > 0 on the checkpoint path, the
+   bucket flushes, the bucket scan, the two-level kernel and the debit > 0
+   on the observability path, and every
    kernel that a wire op reaches > 0 on the server path — all but the
    bench's ``acquire_scan24`` and ``acquire_batch``) and their sum
    (``launches``), the flushes',
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-13. Last line: ``{"ok": true, "device": {...}}``.
+14. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -4590,6 +4621,785 @@ async def checkpoint_path(torch, ck, pkg, card: str) -> dict:
     return dict(ck.launches)
 
 
+OBS_SEED = 1515
+#: The client process's traffic: Zipf(1.1) over 1M keys, 100,000
+#: ``acquire``s one frame each, 64 tasks (the server cell's scalar shape).
+OBS_ZIPF_KEYS = 1_000_000
+OBS_REQUESTS = 100_000
+OBS_TASKS = 64
+#: The heavy-hitter sketch's K (the server's default) and the traced
+#: window's requests.
+OBS_TOP = 64
+OBS_TRACED = 200
+#: The device trace's bulk, and its store's device.
+OBS_TRACE_KEYS = 1_000_000
+OBS_TRACE_DEVICE = "cuda"
+#: The plane's cost: the same 100,000 requests split over ABBA blocks of
+#: windows (on, off, off, on), each window this many requests.
+OBS_COST_BLOCKS = 2
+OBS_COST_WINDOW = 12_500
+#: A bucket no traffic here exhausts: every scalar request is granted.
+OBS_CAP, OBS_RATE = 1e9, 1e9
+#: The chaos phase's storm (``utils/faults.storm_schedule``).
+OBS_STORM_SEED = 24
+OBS_STORM_REQUESTS = 200
+
+
+def _obs_zipf(n: int, n_keys: int, seed: int) -> np.ndarray:
+    """``n`` seeded Zipf(1.1) key ids in ``[0, n_keys)`` (rejection of the
+    tail past ``n_keys``, so the head's shares are Zipf's)."""
+    rng = np.random.default_rng(seed)
+    out = np.empty(0, np.int64)
+    while len(out) < n:
+        d = rng.zipf(ZIPF_S, 2 * n)
+        out = np.concatenate([out, d[d <= n_keys] - 1])
+    return out[:n]
+
+
+async def _obs_window(store, keys, workers: int) -> tuple:
+    """Closed-loop per-request ``acquire``s of ``keys`` by ``workers``
+    tasks: (requests/s, per-request latencies in s, grants)."""
+    it = iter(keys)
+    lat: list = []
+    granted = [0]
+
+    async def worker():
+        for k in it:
+            t = time.perf_counter()
+            res = await store.acquire(k, 1, OBS_CAP, OBS_RATE)
+            lat.append(time.perf_counter() - t)
+            granted[0] += res.granted
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(worker() for _ in range(workers)))
+    return len(keys) / (time.perf_counter() - t0), lat, granted[0]
+
+
+async def obs_client(pkg, host: str, ports: list, mode: str, n: int,
+                     n_keys: int, window: int) -> dict:
+    """The observability path's client process (``python3 chip_smoke.py
+    --obs-client HOST PORT[,PORT] zipf|cost N NKEYS WINDOW``): ``zipf``
+    sends the seeded Zipf(1.1) traffic (``N`` requests over ``NKEYS`` keys)
+    to one server; ``cost`` sends uniform requests to two servers (plane
+    on, plane off) in ABBA blocks of ``WINDOW``-request windows. One frame
+    a request, 64 tasks."""
+    stores = [pkg.RemoteBucketStore(address=(host, p),
+                                    coalesce_requests=False,
+                                    request_timeout_s=120.0) for p in ports]
+    try:
+        if mode == "zipf":
+            ids = _obs_zipf(n, n_keys, OBS_SEED)
+            rate, lat, granted = await _obs_window(
+                stores[0], [f"z{i}" for i in ids.tolist()], OBS_TASKS)
+            return {"requests": len(ids), "granted": granted,
+                    "rate": rate, "p50_ms": _pct(lat, 50) * 1e3,
+                    "p99_ms": _pct(lat, 99) * 1e3}
+        rng = np.random.default_rng(OBS_SEED + 1)
+        for st in stores:  # warm both sides (the off store's first table)
+            await _obs_window(st, [f"c{i}" for i in rng.integers(
+                0, n_keys, window // 5).tolist()], OBS_TASKS)
+        sides = {"on": {"lat": [], "rates": []},
+                 "off": {"lat": [], "rates": []}}
+        blocks = []
+        for _ in range(OBS_COST_BLOCKS):
+            block = {}
+            for side in ("on", "off", "off", "on"):
+                keys = [f"c{i}" for i in rng.integers(
+                    0, n_keys, window).tolist()]
+                rate, lat, granted = await _obs_window(
+                    stores[0 if side == "on" else 1], keys, OBS_TASKS)
+                if granted != len(keys):
+                    raise AssertionError(f"cost window ({side}): "
+                                         f"{granted}/{len(keys)} granted")
+                sides[side]["lat"] += lat
+                sides[side]["rates"].append(rate)
+                block.setdefault(side, []).append(rate)
+            blocks.append({s: sum(r) / 2 for s, r in block.items()})
+        out = {s: {"rates": v["rates"], "p50_ms": _pct(v["lat"], 50) * 1e3,
+                   "p99_ms": _pct(v["lat"], 99) * 1e3,
+                   "requests": len(v["lat"])} for s, v in sides.items()}
+        out["blocks"] = blocks
+        return out
+    finally:
+        for st in stores:
+            await st.aclose()
+
+
+async def _obs_run_client(host: str, ports: list, mode: str) -> dict:
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, os.path.abspath(__file__), "--obs-client", host,
+        ",".join(map(str, ports)), mode, str(OBS_REQUESTS),
+        str(OBS_ZIPF_KEYS), str(OBS_COST_WINDOW),
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), 600)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await asyncio.wait_for(proc.wait(), 30)
+    if proc.returncode != 0:
+        raise AssertionError(f"observability client ({mode}) exited "
+                             f"{proc.returncode}: {err.decode()[-3000:]}")
+    return json.loads(out.decode().strip().splitlines()[-1])
+
+
+async def _obs_http(host: str, port: int, path: str,
+                    accept: str = "") -> tuple:
+    """One GET on the server's metrics listener: (status line, headers,
+    body bytes)."""
+    reader, writer = await asyncio.open_connection(host, port)
+    try:
+        hdr = f"Accept: {accept}\r\n" if accept else ""
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n{hdr}\r\n"
+                     .encode())
+        await writer.drain()
+        data = await asyncio.wait_for(reader.read(), 60)
+    finally:
+        writer.close()
+    head, _, body = data.partition(b"\r\n\r\n")
+    status, *headers = head.decode("latin-1").split("\r\n")
+    return status, headers, body
+
+
+def _obs_samples(text: str, metrics) -> dict:
+    """``{(name, labels): value}`` of an OpenMetrics text."""
+    _, samples = metrics.parse_openmetrics(text)
+    return {(n, labels): v for n, labels, v in samples}
+
+
+def _obs_hot_keys(samples: dict) -> dict:
+    """The sketch's entries from the hot-key families: key → (count,
+    error)."""
+    out: dict = {}
+    for (name, labels), v in samples.items():
+        if name in ("drl_hot_key_count", "drl_hot_key_error"):
+            key = dict(labels)["key"]
+            c, e = out.get(key, (None, None))
+            out[key] = (v, e) if name.endswith("count") else (c, v)
+    return out
+
+
+def _obs_check_heavy_hitters(samples: dict, stats: dict, ids) -> str:
+    """The top 64 of ``OP_METRICS`` against the exact counts of the Zipf
+    traffic (its keys' only feed): Space-Saving's ``count - error <= true``
+    for every entry, ``true <= count`` and presence for every key above
+    N/64; ``OP_STATS``'s top 10 is the head of the same list. The
+    buffered feed merges each 1,024-request buffer's top 128 keys only (the
+    JAX design, kept): a tail entry may miss some of its requests and read
+    below its true count, and that is counted, not failed."""
+    from collections import Counter
+
+    true = Counter(f"z{i}" for i in ids.tolist())
+    hot = _obs_hot_keys(samples)
+    if len(hot) != OBS_TOP:
+        raise AssertionError(f"heavy hitters: {len(hot)} entries, not "
+                             f"{OBS_TOP}")
+    bad_low = [(k, c, e, true.get(k, 0)) for k, (c, e) in hot.items()
+               if c - e > true.get(k, 0)]
+    if bad_low:
+        raise AssertionError(f"heavy hitters: count - error above the true "
+                             f"count {bad_low[:5]}")
+    n = len(ids)
+    heavy = [k for k, v in true.items() if v > n / OBS_TOP]
+    missing = [k for k in heavy if k not in hot]
+    over = [(k, hot[k][0], true[k]) for k in heavy
+            if k in hot and true[k] > hot[k][0]]
+    if missing or over or not heavy:
+        raise AssertionError(f"heavy hitters: keys above N/{OBS_TOP} "
+                             f"({len(heavy)}) missing {missing}, "
+                             f"undercounted {over}")
+    tail_under = [(k, c, true.get(k, 0)) for k, (c, e) in hot.items()
+                  if true.get(k, 0) > c]
+    top10 = [(t["key"], t["count"]) for t in stats["hot_keys"]["top"]]
+    ranked = sorted(((k, c) for k, (c, _) in hot.items()),
+                    key=lambda kc: -kc[1])
+    if [c for _, c in top10] != [c for _, c in ranked[:10]] or any(
+            hot[k][0] != c for k, c in top10):
+        raise AssertionError(f"OP_STATS top 10 {top10} is not the head of "
+                             f"the metrics' top {ranked[:10]}")
+    return (f"{len(heavy)} keys above N/{OBS_TOP} all present with "
+            f"count - error <= true <= count; all {OBS_TOP} entries "
+            f"count - error <= true; {len(tail_under)} tail entries read "
+            f"below their true count (by at most "
+            f"{max([t - c for _, c, t in tail_under], default=0):.0f}: the "
+            f"buffered feed's per-buffer top)")
+
+
+def _obs_check_device_trace(path: str, scans: int) -> str:
+    """The device trace holds ``drl/`` ranges, and every kernel in it was
+    launched inside one: its CUDA runtime launch (matched by correlation
+    id) lies within a ``drl/`` range of the launching thread."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("ph") == "X"
+              and str(e.get("name", "")).startswith("drl/")
+              and e.get("cat") == "user_annotation"]
+    if not ranges:
+        raise AssertionError("device trace: no drl/ range")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    outside = []
+    for k in kernels:
+        rt = launch.get(k.get("args", {}).get("correlation"))
+        if rt is None or not any(
+                r["tid"] == rt["tid"] and r["ts"] <= rt["ts"]
+                and rt["ts"] + rt.get("dur", 0) <= r["ts"] + r["dur"]
+                for r in ranges):
+            outside.append(k["name"][:60])
+    scan_kernels = [k for k in kernels if "scan" in k["name"]]
+    if outside or len(scan_kernels) < scans:
+        from collections import Counter
+
+        import torch
+
+        cats = Counter(str(e.get("cat")) for e in events)
+        free, total = torch.cuda.mem_get_info()
+        raise AssertionError(f"device trace: {len(outside)} kernels "
+                             f"launched outside a drl/ range {outside[:3]}; "
+                             f"{len(scan_kernels)} scan kernels for {scans} "
+                             f"acquire_scan launches; events by category "
+                             f"{dict(cats)}; card memory free {free} of "
+                             f"{total}, reserved "
+                             f"{torch.cuda.memory_reserved()}")
+    names = sorted({r["name"] for r in ranges})
+    return (f"{len(ranges)} drl/ ranges {names}; {len(kernels)} kernels, "
+            f"each launched inside one ({len(scan_kernels)} scans)")
+
+
+async def obs_device_trace(pkg, device: str, n_slots: int, n_keys: int,
+                           logdir: str) -> dict:
+    """The observability path's device trace (``python3 chip_smoke.py
+    --obs-device-trace DEVICE NSLOTS NKEYS DIR``): ``start_device_trace`` /
+    ``stop_device_trace`` around an ``acquire_many`` of ``n_keys`` new keys
+    on a card store, then :func:`_obs_check_device_trace`. A process of
+    its own: in one that had taken the earlier paths' profiles, a later
+    ``torch.profiler`` session recorded the CUDA runtime calls but no
+    device activity (seen on the card; PERF.md §7), where a fresh process
+    records both."""
+    import torch
+
+    from distributedratelimiting.redis_tpu_torch.ops import (
+        cuda_kernels as ck,
+    )
+    from distributedratelimiting.redis_tpu_torch.utils import tracing
+
+    store = pkg.DeviceBucketStore(device=device, n_slots=n_slots)
+    lim = pkg.PartitionedRateLimiter(pkg.TokenBucketOptions(
+        token_limit=100, tokens_per_period=10, replenishment_period_s=1.0,
+        instance_name="obs-trace"), store)
+    await lim.acquire_many(range(n_keys, n_keys + 1000), permits=1)  # warm
+    scans0 = ck.launches["acquire_scan"]
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    tracing.start_device_trace(logdir)
+    try:
+        t = time.perf_counter()
+        res = await lim.acquire_many(range(n_keys), permits=1,
+                                     with_remaining=False)
+        if cuda:
+            torch.cuda.synchronize()
+        bulk_s = time.perf_counter() - t
+    finally:
+        path = tracing.stop_device_trace()
+    await store.aclose()
+    if res.granted_count != n_keys:
+        raise AssertionError("device-trace bulk: not every key granted")
+    line = _obs_check_device_trace(path, ck.launches["acquire_scan"] - scans0)
+    return {"line": line, "bulk_s": bulk_s, "bytes": os.path.getsize(path)}
+
+
+async def _obs_leak_soak(pkg, seed: int) -> dict:
+    """The JAX package's seeded leak soak (``tests/test_audit.py``
+    ``_leak_soak``) on a card store: an ``audit.leak`` fault flips denies
+    into granted replies with no store debit; one bundle within three
+    ticks, exactly one after four more."""
+    from distributedratelimiting.redis_tpu_torch.runtime.audit import (
+        AuditConfig,
+    )
+    from distributedratelimiting.redis_tpu_torch.utils import faults, tracing
+    from distributedratelimiting.redis_tpu_torch.utils.slo import SLOConfig
+
+    tracing.configure(enabled=True, sample_rate=1.0, keep_rate=1.0,
+                      latency_threshold_s=10.0)
+    tracing.get_tracer().reset()
+    srv = pkg.BucketStoreServer(
+        pkg.DeviceBucketStore(device="cuda", n_slots=1 << 16),
+        audit=AuditConfig(slo=SLOConfig(fast_ticks=2, slow_ticks=6,
+                                        trip_streak=1, clear_streak=2)))
+    await srv.start()
+    srv._audit_task.cancel()  # the soak owns every tick
+    try:
+        await srv._audit_task
+    except asyncio.CancelledError:
+        pass
+    srv._audit_task = None
+    st = pkg.RemoteBucketStore(address=(srv.host, srv.port),
+                               coalesce_requests=False)
+    try:
+        for i in range(30):
+            await st.acquire(f"warm{i % 5}", 1, 1e6, 1e6)
+        for _ in range(3):
+            out = srv.auditor.tick()
+            if out["breaches"] or out["alerts"]:
+                raise AssertionError(f"leak soak warm-up alarmed: {out}")
+        inj = faults.FaultInjector(seed, {"audit.leak": (
+            faults.FaultRule(kind="error", probability=1.0),)})
+        faults.install(inj)
+        try:
+            for _ in range(30):
+                await st.acquire("hot", 50, 100.0, 0.0)
+        finally:
+            faults.uninstall()
+        detect = None
+        for i in range(3):
+            out = srv.auditor.tick()
+            if out["breaches"]:
+                detect = i + 1
+                if out["breaches"] != ["reply_witness"]:
+                    raise AssertionError(f"leak soak: {out['breaches']}")
+                break
+        if detect is None:
+            raise AssertionError("leak soak: no breach within 3 ticks")
+        for _ in range(4):
+            srv.auditor.tick()
+        if srv.auditor.bundles_assembled != 1:
+            raise AssertionError(f"leak soak: {srv.auditor.bundles_assembled}"
+                                 " bundles, not 1")
+        (bundle,) = srv.auditor.bundles
+        snap = await st.audit(bundles=4)
+        if [b["id"] for b in snap["bundles"]] != [bundle["id"]]:
+            raise AssertionError("leak soak: OP_AUDIT ships another bundle")
+        return {"injected": len(inj.events), "detect_ticks": detect,
+                "bundle": bundle["id"], "reasons": bundle["reasons"],
+                "residue": bundle["residues"]["reply_witness"],
+                "alerts": len(srv.auditor.watchdog.alert_log)}
+    finally:
+        await st.aclose()
+        await srv.aclose()
+        await srv.store.aclose()
+        tracing.configure(enabled=False)
+        tracing.get_tracer().reset()
+
+
+async def _obs_gates(pkg, server, addr) -> str:
+    """Armed doomed-work and retry-shed gates and the overflow-pool
+    redirect, by raw frames: JAX's words, and the store untouched."""
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    key, cap, rate = "gate-key", 5.0, 1e-9
+
+    def peek():
+        return server.store.peek_blocking(key, cap, rate)
+
+    await _raw_request(addr, wire.encode_request(1, wire.OP_ACQUIRE, key, 1,
+                                                 cap, rate))
+    before = await asyncio.to_thread(peek)
+    # A budget past the frame's wait in the server (tens of µs) and under
+    # its serving p99: the doomed gate's case, not the plain deadline shed.
+    p99 = server.serving_latency.p99
+    if p99 < 2e-3:
+        raise AssertionError(f"gates: serving p99 {p99 * 1e3:.3f} ms too "
+                             "short to find a doomed budget under it")
+    ddl = p99 / 2
+    server.set_doomed_gate(True)
+    server.set_retry_shed(True)
+    try:
+        answers = []
+        for seq, kw in ((2, {"deadline_s": ddl}), (3, {"attempt": 1}),
+                        (4, {"deadline_s": ddl, "attempt": 2})):
+            _, kind, vals = await _raw_request(addr, wire.encode_request(
+                seq, wire.OP_ACQUIRE, key, 1, cap, rate, **kw))
+            answers.append((kind, vals[0]))
+        resv = []
+        for seq, extra in ((5, {"attempt": 1}), (6, {"deadline_s": ddl})):
+            req = {"rid": f"gate-r{seq}", "tenant": "gate-t", "key": key,
+                   "estimate": 2, "a": cap, "b": rate, "ta": 50.0,
+                   "tb": rate, **extra}
+            _, kind, vals = await _raw_request(addr, wire.encode_request(
+                seq, wire.OP_RESERVE, json.dumps(req)))
+            resv.append(json.loads(vals[0]))
+    finally:
+        server.set_doomed_gate(False)
+        server.set_retry_shed(False)
+    after = await asyncio.to_thread(peek)
+    if after != before:
+        raise AssertionError(f"gates: the store moved {before} -> {after}")
+    (k1, doomed), (k2, shed), (k3, both) = answers
+    if not (k1 == k2 == k3 == wire.RESP_ERROR
+            and doomed.startswith(f"doomed: {ddl * 1e3:.1f}ms budget "
+                                  "cannot cover p99 ")
+            and doomed.endswith("ms at admit (shed unexecuted)")
+            and shed == ("retry shed: attempt 1 denied while the "
+                         "retry-storm defense is armed")
+            and both.startswith("doomed: ")):
+        raise AssertionError(f"gates: answers {answers}")
+    if [r.get("shed") for r in resv] != ["retry", "doomed"] or any(
+            r["granted"] for r in resv):
+        raise AssertionError(f"gates: reserve answers {resv}")
+    # The overflow-pool redirect: an interactive reserve whose estimate the
+    # tenant's balance cannot cover within its deadline.
+    req = {"rid": "gate-route", "tenant": "gate-t", "key": key,
+           "estimate": 500, "a": cap, "b": rate, "ta": 50.0, "tb": rate,
+           "priority": 0, "deadline_s": 1.0}
+    _, kind, vals = await _raw_request(addr, wire.encode_request(
+        7, wire.OP_RESERVE, json.dumps(req)))
+    route = vals[0]
+    if kind != wire.RESP_ERROR or not route.startswith("route-to-pool ") \
+            or json.loads(route[len("route-to-pool "):]) != \
+            server.overflow_pool:
+        raise AssertionError(f"gates: overflow redirect {kind} {route}")
+    return (f"doomed '{doomed}'; retry-shed '{shed}'; reserve answers "
+            f"{[r['shed'] for r in resv]}; redirect '{route}'; store "
+            f"{before} before and after")
+
+
+async def _obs_chaos(pkg, server, addr) -> str:
+    """A seeded storm on the client's and the server's seams: cap-5 x 32
+    -> 5, and the storm's reserves (every retry under its rid) and their
+    settles, retried, debit each rid once."""
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+    from distributedratelimiting.redis_tpu_torch.utils import faults
+
+    rules = {
+        "server.dispatch": (
+            faults.FaultRule(kind="delay", probability=0.3, delay_s=0.001,
+                             jitter_s=0.003),
+            faults.FaultRule(kind="error", probability=0.05)),
+        "client.connect": (faults.FaultRule(kind="reset", probability=1.0,
+                                            max_faults=1),),
+        "client.write": (faults.FaultRule(kind="reset", probability=0.05,
+                                          after=40, max_faults=4),),
+    }
+    storm = faults.storm_schedule(OBS_STORM_SEED,
+                                  n_requests=OBS_STORM_REQUESTS)
+    tenants = sorted({e.tenant for e in storm})
+    cli = pkg.RemoteBucketStore(address=addr, coalesce_requests=False)
+    inj = faults.FaultInjector(OBS_STORM_SEED, rules)
+    faults.install(inj)
+    try:
+        outs = await asyncio.gather(*(cli.acquire("chaos-cap5", 1, 5.0, 1e-9)
+                                      for _ in range(32)),
+                                    return_exceptions=True)
+        granted: dict = {}
+        errors = 0
+        for e in storm:
+            try:
+                res = await cli.reserve(e.rid, e.tenant, "storm-key",
+                                        float(e.cost), 1e6, 1e-9, 1e5, 1e-9,
+                                        attempt=e.attempt)
+            except wire.RemoteStoreError:
+                errors += 1
+                continue
+            if res.granted and not res.duplicate:
+                if e.rid in granted:
+                    raise AssertionError(f"storm: {e.rid} held twice")
+                granted[e.rid] = (e.tenant, e.cost)
+    finally:
+        faults.uninstall()
+    decided = [o for o in outs if not isinstance(o, BaseException)]
+    if sum(o.granted for o in decided) != 5 or len(decided) < 5:
+        raise AssertionError(f"chaos cap-5: {sum(o.granted for o in decided)}"
+                             f" granted of {len(decided)} decided")
+    # Each stream spent one token over its estimate: the settle debits the
+    # overage once, its retry answers the recorded result.
+    for rid, (tenant, cost) in granted.items():
+        for i in range(2):
+            res = await cli.settle(rid, tenant, float(cost + 1))
+            if res.outcome != ("settled", "duplicate")[i]:
+                raise AssertionError(f"storm settle {rid}: {res}")
+    spent = {t: sum(c + 1 for tt, c in granted.values() if tt == t)
+             for t in tenants}
+    bal = {t: await asyncio.to_thread(server.store.peek_blocking, t, 1e6,
+                                      1e-9) for t in tenants}
+    if any(bal[t] != 1e6 - spent[t] for t in tenants):
+        raise AssertionError(f"storm: tenant balances {bal}, spent {spent}")
+    stats = cli.resilience_stats()
+    await cli.aclose()
+    kinds: dict = {}
+    for ev in inj.events:
+        kinds[f"{ev.seam}:{ev.kind}"] = kinds.get(f"{ev.seam}:{ev.kind}",
+                                                  0) + 1
+    return (f"cap-5 x 32: 5 granted of {len(decided)} decided "
+            f"({32 - len(decided)} failed by injected faults); storm seed "
+            f"{OBS_STORM_SEED}: {len(storm)} attempts of "
+            f"{OBS_STORM_REQUESTS} requests, {len(granted)} rids held once, "
+            f"{errors} attempts failed, settled twice each, tenant balances "
+            f"exact; faults {kinds}; client retries {stats['retries']}")
+
+
+async def observability_path(torch, ck, pkg, card: str) -> dict:
+    """The server's observability and overload plane on the card, at the
+    server cell's size. Returns the kernel launches the path made."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from distributedratelimiting.redis_tpu_torch.runtime.audit import (
+        AuditConfig,
+    )
+    from distributedratelimiting.redis_tpu_torch.utils import (
+        faults,
+        tracing,
+    )
+    from distributedratelimiting.redis_tpu_torch.utils import (
+        metrics as M,
+    )
+
+    flight_dir = tempfile.mkdtemp(prefix="drl-flight-")
+    pool = {"pool": "batch", "ta": 500.0, "tb": 5.0, "priority": 1}
+    store = pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                  max_batch=BATCH)
+    server = pkg.BucketStoreServer(
+        store, host="127.0.0.1", port=0, observability=True,
+        metrics_port=0, flight_dir=flight_dir,
+        audit=AuditConfig(tick_s=0.05), overflow_pool=pool)
+    store_off = pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                      max_batch=BATCH)
+    server_off = pkg.BucketStoreServer(store_off, host="127.0.0.1", port=0,
+                                       observability=False)
+    host, port = await server.start()
+    _, port_off = await server_off.start()
+    addr = (host, port)
+    cli = pkg.RemoteBucketStore(address=addr, request_timeout_s=600.0)
+    walls: dict = {}
+    ck.reset_launches()
+    try:
+        # 1. The client process's Zipf traffic, then the 10M-key bulk as
+        # ACQUIRE_MANY frames, /metrics scraped all the while. The sketch
+        # is checked between them: the bulk lane feeds it too (sampled
+        # weights), so the exact counts are the Zipf stream's alone.
+        t = time.perf_counter()
+        served0 = server.requests_served
+        scrapes: list = []
+        done = asyncio.Event()
+
+        async def scraper():
+            while not done.is_set():
+                s0 = time.perf_counter()
+                status, _, body = await _obs_http(
+                    host, server.metrics_port, "/metrics",
+                    "application/openmetrics-text")
+                if not status.endswith("200 OK") or not body.endswith(
+                        b"# EOF\n"):
+                    raise AssertionError(f"/metrics: {status}")
+                M.parse_openmetrics(body.decode())
+                scrapes.append((time.perf_counter() - s0, len(body)))
+                await asyncio.sleep(0.5)
+
+        scrape_task = asyncio.ensure_future(scraper())
+        try:
+            zipf = await _obs_run_client(host, [port], "zipf")
+            walls["zipf traffic"] = time.perf_counter() - t
+            if zipf["granted"] != OBS_REQUESTS:
+                raise AssertionError(f"zipf traffic: {zipf}")
+            ids = _obs_zipf(OBS_REQUESTS, OBS_ZIPF_KEYS, OBS_SEED)
+            stats = await cli.stats()
+            hh_text = await cli.metrics()
+            hh_line = _obs_check_heavy_hitters(_obs_samples(hh_text, M),
+                                               stats, ids)
+            t = time.perf_counter()
+            lim = pkg.PartitionedRateLimiter(pkg.TokenBucketOptions(
+                token_limit=100, tokens_per_period=10,
+                replenishment_period_s=1.0, instance_name="obs"), cli)
+            res = await lim.acquire_many(range(N_KEYS), permits=1,
+                                         with_remaining=False)
+            if res.granted_count != N_KEYS:
+                raise AssertionError("observability bulk: not every key "
+                                     "granted")
+            walls["bulk"] = time.perf_counter() - t
+        finally:
+            done.set()
+            await scrape_task
+        if not scrapes:
+            raise AssertionError("no /metrics scrape during the traffic")
+        text = await cli.metrics()
+        served = server.requests_served
+        want = {
+            ("drl_requests_served_total", ()): served - 1,
+            ("drl_connections_served_total", ()): server.connections_served,
+            ("drl_requests_shed_total", ()): server.requests_shed,
+            ("drl_store_launches_total", ()): store.metrics.launches,
+            ("drl_store_rows_valid_total", ()): store.metrics.rows_valid,
+            ("drl_retry_attempts_seen_total", ()):
+                server.retry_attempts_seen,
+            ("drl_hot_keys_offered", ()): server.heavy_hitters.offered,
+            ("drl_serving_latency_seconds_count", ()):
+                server.serving_latency.total - 1,
+        }
+        samples = _obs_samples(text, M)
+        off = {k: (samples.get(k), v) for k, v in want.items()
+               if samples.get(k) != v}
+        if off or served - served0 < OBS_REQUESTS:
+            raise AssertionError(f"OP_METRICS disagrees with the server: "
+                                 f"{off}; served {served - served0}")
+        print(f"observability zipf traffic ({card}): {OBS_REQUESTS} "
+              f"acquires over {OBS_ZIPF_KEYS} keys, {OBS_TASKS} tasks, one "
+              f"frame each: {zipf['rate']:.0f} requests/s, client p50 "
+              f"{zipf['p50_ms']:.3f} ms, p99 {zipf['p99_ms']:.3f} ms; then "
+              f"{N_KEYS} keys as ACQUIRE_MANY frames in {walls['bulk']:.3f} "
+              f"s = {N_KEYS / walls['bulk']:.0f} decisions/s; "
+              f"{len(scrapes)} /metrics scrapes meanwhile, median "
+              f"{statistics.median(s for s, _ in scrapes) * 1e3:.1f} ms, "
+              f"last {scrapes[-1][1]} bytes; OP_METRICS equals the server's "
+              f"counters ({len(samples)} samples)")
+        print(f"observability heavy hitters: {hh_line}; top 3 "
+              f"{[(t['key'], t['count'], t['error']) for t in stats['hot_keys']['top'][:3]]}"
+              f" (exact {Counter(ids.tolist()).most_common(3)})")
+
+        # 3. Traces: sample 1.0 for a short window.
+        t = time.perf_counter()
+        tracing.configure(enabled=True, sample_rate=1.0, keep_rate=1.0)
+        tracing.get_tracer().reset()
+        solo = pkg.RemoteBucketStore(address=addr, coalesce_requests=False)
+        try:
+            await asyncio.gather(*(solo.acquire(f"traced{i % 16}", 1, OBS_CAP,
+                                                OBS_RATE)
+                                   for i in range(OBS_TRACED)))
+            chrome = await solo.traces(drain=True)
+        finally:
+            tracing.configure(enabled=False)
+            tracing.get_tracer().reset()
+            await solo.aclose()
+        spans = [e for e in chrome["traceEvents"] if e.get("ph") == "X"]
+        by_trace: dict = {}
+        for e in spans:
+            by_trace.setdefault(e["args"]["trace_id"], set()).add(
+                e["name"].split(".")[0])
+        server_traces = [k for k, v in by_trace.items() if "server" in v]
+        if len(server_traces) < OBS_TRACED or any(
+                "client" not in by_trace[k] for k in server_traces):
+            raise AssertionError(f"traces: {len(server_traces)} traces with "
+                                 "server spans, or one without its client's")
+        walls["traces"] = time.perf_counter() - t
+        print(f"observability traces: OP_TRACES Chrome JSON, {len(spans)} "
+              f"spans in {len(by_trace)} traces; {len(server_traces)} carry "
+              f"server.* spans, each under its client's trace id "
+              f"({sorted({e['name'] for e in spans})})")
+
+        # 4. A device trace around a 1M-key bulk, in a process of its own
+        # (see obs_device_trace).
+        t = time.perf_counter()
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, os.path.abspath(__file__), "--obs-device-trace",
+            OBS_TRACE_DEVICE, str(N_SLOTS), str(OBS_TRACE_KEYS), flight_dir,
+            stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+        try:
+            out, err = await asyncio.wait_for(proc.communicate(), 300)
+        finally:
+            if proc.returncode is None:
+                proc.kill()
+                await asyncio.wait_for(proc.wait(), 30)
+        if proc.returncode != 0:
+            raise AssertionError(f"device trace process exited "
+                                 f"{proc.returncode}: {err.decode()[-3000:]}")
+        dt = json.loads(out.decode().strip().splitlines()[-1])
+        walls["device trace"] = time.perf_counter() - t
+        print(f"observability device trace ({card}; a process of its own): "
+              f"{OBS_TRACE_KEYS} keys in {dt['bulk_s']:.3f} s under the "
+              f"profiler; {dt['line']}; {dt['bytes']} bytes")
+
+        # 5. One forced flush failure through the store.flush seam.
+        t = time.perf_counter()
+        for f in os.listdir(flight_dir):
+            if f.endswith(".jsonl"):
+                raise AssertionError(f"flight dump before the fault: {f}")
+        faults.install(faults.FaultInjector(OBS_SEED, {"store.flush": (
+            faults.FaultRule(kind="error", probability=1.0,
+                             max_faults=1),)}))
+        solo = pkg.RemoteBucketStore(address=addr, coalesce_requests=False)
+        try:
+            outs = await asyncio.gather(*(solo.acquire(f"flush{i}", 1, OBS_CAP,
+                                                       OBS_RATE)
+                                          for i in range(16)),
+                                        return_exceptions=True)
+            for i in range(8):  # healthy again
+                await solo.acquire(f"after{i}", 1, OBS_CAP, OBS_RATE)
+        finally:
+            faults.uninstall()
+            await solo.aclose()
+        failed = [o for o in outs if isinstance(o, BaseException)]
+        dumps = [f for f in os.listdir(flight_dir) if f.endswith(".jsonl")]
+        if len(dumps) != 1 or "flush_error" not in dumps[0] or not failed:
+            raise AssertionError(f"flight recorder: dumps {dumps}, "
+                                 f"{len(failed)} failed requests")
+        with open(os.path.join(flight_dir, dumps[0])) as f:
+            header, *frames = [json.loads(line) for line in f]
+        flushes = [fr for fr in frames if fr["kind"] == "flush"]
+        bad = [fr for fr in flushes if fr["error"]]
+        if (header["reason"] != "flush_error" or len(bad) != 1
+                or bad[0]["n"] != len(failed)
+                or "store.flush" not in header["error"]):
+            raise AssertionError(f"flight dump: {header}, {bad}")
+        status, _, body = await _obs_http(host, server.metrics_port,
+                                          "/flight")
+        walls["flight"] = time.perf_counter() - t
+        print(f"observability flight recorder: one injected flush failure "
+              f"({len(failed)} requests failed) gave exactly one "
+              f"flush_error dump of {len(frames)} frames ({len(flushes)} "
+              f"flushes, the failed one n={bad[0]['n']}); /flight within "
+              f"the rate limit: {body.decode()}")
+
+        # 6. The audit: clean so far, 20 ticks and more; then the leak soak.
+        t = time.perf_counter()
+        while server.auditor.ticks < 20:
+            await asyncio.sleep(0.05)
+        audit = await cli.audit()
+        if audit["breaches"] or audit["tick_failures"] or audit["bundle_ids"]:
+            raise AssertionError(f"clean traffic audit: {audit}")
+        soak = await _obs_leak_soak(pkg, OBS_SEED)
+        walls["audit"] = time.perf_counter() - t
+        print(f"observability audit: clean traffic {audit['ticks']} ticks, "
+              f"0 breaches, residues {audit['residues']}; leak soak on a "
+              f"card store: {soak}")
+
+        # 7. The overload gates and the overflow-pool redirect.
+        t = time.perf_counter()
+        gates = await _obs_gates(pkg, server, addr)
+        walls["gates"] = time.perf_counter() - t
+        print(f"observability gates: {gates}")
+
+        # 8. Chaos: a seeded storm on both sides' seams.
+        t = time.perf_counter()
+        chaos = await _obs_chaos(pkg, server, addr)
+        walls["chaos"] = time.perf_counter() - t
+        print(f"observability chaos: {chaos}")
+
+        # 9. The plane's cost: the same requests, plane on and off, ABBA.
+        t = time.perf_counter()
+        await cli.stats(reset=True)
+        off_cli = pkg.RemoteBucketStore(address=(host, port_off))
+        await off_cli.stats(reset=True)
+        cost = await _obs_run_client(host, [port, port_off], "cost")
+        on_stats = await cli.stats()
+        off_stats = await off_cli.stats()
+        await off_cli.aclose()
+        walls["cost"] = time.perf_counter() - t
+        deltas = sorted((b["off"] - b["on"]) / b["off"]
+                        for b in cost["blocks"])
+        print(f"observability cost ({card}; {OBS_COST_BLOCKS} ABBA blocks "
+              f"of {OBS_COST_WINDOW}-request windows, {OBS_TASKS} tasks, one "
+              f"frame each): on {statistics.mean(cost['on']['rates']):.0f} "
+              f"requests/s, client p99 {cost['on']['p99_ms']:.3f} ms, server "
+              f"p99 {on_stats['serving_p99_ms']:.3f} ms; off "
+              f"{statistics.mean(cost['off']['rates']):.0f} requests/s, "
+              f"client p99 {cost['off']['p99_ms']:.3f} ms, server p99 "
+              f"{off_stats['serving_p99_ms']:.3f} ms; paired block deltas "
+              f"{[round(d * 100, 2) for d in deltas]} % (not asserted)")
+    finally:
+        await cli.aclose()
+        await server.aclose()
+        await server_off.aclose()
+        await store.aclose()
+        await store_off.aclose()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    print("observability path walls (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()))
+    return dict(ck.launches)
+
+
 #: The bench's shapes (``redis_tpu_torch/bench.py``): a 10M-slot table, K =
 #: 32 batches of 8192 in the 3-byte operand (two scan launches), K = 16 in
 #: the 5-byte operand (one), and one batch of 8192 for ``acquire_batch``.
@@ -4906,11 +5716,13 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
 
 
 def _paths() -> tuple:
-    """The paths of phases 3–9 and 11, in the order :func:`main` runs them."""
+    """The paths of phases 3–10 and 12, in the order :func:`main` runs
+    them."""
     return (("exact", main_path), ("approximate", approximate_path),
             ("window", window_path), ("admission", admission_path),
             ("reservation", reservation_path),
             ("checkpoint", checkpoint_path),
+            ("observability", observability_path),
             ("server", server_path), ("bench", bench_path))
 
 
@@ -5022,7 +5834,13 @@ def main() -> int:
                                   "window_scan", "sync_counters",
                                   "sema_packed", "acquire_hierarchical",
                                   "debit_packed", "sweep_windows",
-                                  "sweep_counters", "sweep_semas")}
+                                  "sweep_counters", "sweep_semas"),
+                   # The plane's traffic: per-request flushes (Zipf hot
+                   # keys repeat in one), bulk frames and the device
+                   # trace's bulk, reserves and their settles.
+                   "observability": ("acquire_packed", "acquire_grouped",
+                                     "acquire_scan", "acquire_hierarchical",
+                                     "debit_packed")}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
@@ -5129,6 +5947,24 @@ if __name__ == "__main__":
 
         print(json.dumps(asyncio.run(scalar_client(
             _pkg, (sys.argv[2], int(sys.argv[3])), int(sys.argv[4])))))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--obs-client"]:
+        # A client process of the observability path (see obs_client).
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import distributedratelimiting.redis_tpu_torch as _pkg
+
+        print(json.dumps(asyncio.run(obs_client(
+            _pkg, sys.argv[2], [int(p) for p in sys.argv[3].split(",")],
+            sys.argv[4], *map(int, sys.argv[5:8])))))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--obs-device-trace"]:
+        # The observability path's device trace (see obs_device_trace).
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import distributedratelimiting.redis_tpu_torch as _pkg
+
+        print(json.dumps(asyncio.run(obs_device_trace(
+            _pkg, sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+            sys.argv[5]))))
         sys.exit(0)
     if sys.argv[1:2] == ["--scan-bench"]:
         sys.exit(scan_bench())

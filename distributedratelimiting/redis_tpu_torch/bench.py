@@ -46,6 +46,19 @@ seeds and method, on the port's store and hand kernels:
   histogram after a stats reset, and ``colocated`` also reports the store's
   flush histogram at depth 64. ``colocated − instant`` is what the card's
   flush adds to a request's p99;
+- ``serving_metrics_overhead``: the observability plane's whole cost. Two
+  closed-loop per-request rigs (``BucketStoreServer`` over the serial
+  ``InProcessBucketStore``, so the card contributes nothing; 32 workers of
+  150 ``acquire``s a window over 512 keys, ``coalesce_requests=False``),
+  the plane on (heavy hitters, flight recorder, audit, ``/metrics`` up and
+  scraped once) and ``observability=False``, in 4 ABBA blocks of windows
+  (on, off, off, on) after a warm-up; the median of the paired per-block
+  deltas is ``serving_metrics_overhead_pct``. A third arm toggles the
+  process tracer (sample 1%, keep 10%) around ABBA blocks on the plane's
+  rig (``serving_tracing_overhead_pct``);
+- ``audit_overhead``: the same rigs and blocks, the auditor ticking every
+  0.05 s against ``audit=False`` (``serving_audit_overhead_pct``, and the
+  ticks it took, ``serving_audit_ticks``);
 - ``sweep_ok`` (``pallas_sweep_ok``, the key kept): 64 reclaimable slots
   evicted by the CUDA sweep (``metrics.slots_evicted >= 64``).
 
@@ -165,13 +178,6 @@ NOT_PORTED = {
         "serving_native_uring_syscall_reduction_s4",
         "serving_native_uring_rows_per_s_uring_s4",
         "serving_native_uring_p99_uring_s4_ms"]),
-    "serving_metrics_overhead": ("A5", [
-        "serving_metrics_on_req_per_s", "serving_metrics_off_req_per_s",
-        "serving_metrics_overhead_pct", "serving_metrics_scrape_bytes",
-        "serving_tracing_on_req_per_s", "serving_tracing_overhead_pct"]),
-    "audit_overhead": ("A5", [
-        "serving_audit_on_req_per_s", "serving_audit_off_req_per_s",
-        "serving_audit_overhead_pct", "serving_audit_ticks"]),
 }
 
 #: The ported sections, in the order they run, and the keys each fills.
@@ -197,6 +203,13 @@ SECTIONS = (
     ("serving_p99_instant", [
         "serving_p99_instant_ms", "serving_p50_instant_ms",
         "serving_p99_instant_d4_ms", "serving_p99_instant_d16_ms"]),
+    ("serving_metrics_overhead", [
+        "serving_metrics_on_req_per_s", "serving_metrics_off_req_per_s",
+        "serving_metrics_overhead_pct", "serving_metrics_scrape_bytes",
+        "serving_tracing_on_req_per_s", "serving_tracing_overhead_pct"]),
+    ("audit_overhead", [
+        "serving_audit_on_req_per_s", "serving_audit_off_req_per_s",
+        "serving_audit_overhead_pct", "serving_audit_ticks"]),
     ("sweep_ok", ["pallas_sweep_ok"]),
 )
 
@@ -888,6 +901,121 @@ def _child_main(argv: list[str]) -> int:
     return 0
 
 
+async def _abba_rigs(make_on, make_off, *, depth: int, reqs: int,
+                     warm_depth: int, warm_reqs: int, blocks: int,
+                     between=None):
+    """The overhead sections' method (JAX bench.py's): two closed-loop
+    rigs, a warm-up window each, then ``blocks`` ABBA blocks of windows
+    (on, off, off, on). ``between(srv_on)`` runs once after the blocks, on
+    the live rigs. Returns (best on rate, best off rate, median paired
+    delta in %, the on server, what ``between`` returned)."""
+
+    async def window(store, depth=depth, reqs=reqs) -> float:
+        async def worker(w: int) -> None:
+            for j in range(reqs):
+                await store.acquire(f"user{(w * 13 + j) % 512}", 1,
+                                    1e7, 1e7)
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(worker(w) for w in range(depth)))
+        return depth * reqs / (time.perf_counter() - t0)
+
+    srv_on, store_on = await make_on()
+    srv_off, store_off = await make_off()
+    try:
+        await window(store_on, warm_depth, warm_reqs)
+        await window(store_off, warm_depth, warm_reqs)
+        pairs = []
+        for _ in range(blocks):
+            a1 = await window(store_on)
+            b1 = await window(store_off)
+            b2 = await window(store_off)
+            a2 = await window(store_on)
+            pairs.append(((a1 + a2) / 2, (b1 + b2) / 2))
+        extra = (await between(srv_on, store_on, window)
+                 if between is not None else None)
+        deltas = sorted((b - a) / b for a, b in pairs)
+        return (max(a for a, _ in pairs), max(b for _, b in pairs),
+                deltas[len(deltas) // 2] * 100.0, srv_on, extra)
+    finally:
+        await store_on.aclose()
+        await store_off.aclose()
+        await srv_on.aclose()
+        await srv_off.aclose()
+
+
+async def _instant_rig(**server_kwargs):
+    srv = BucketStoreServer(InProcessBucketStore(), **server_kwargs)
+    await srv.start()
+    return srv, RemoteBucketStore(address=(srv.host, srv.port),
+                                  coalesce_requests=False)
+
+
+async def bench_metrics_overhead(*, depth=32, reqs=150, warm_depth=16,
+                                 warm_reqs=40, blocks=4) -> tuple:
+    """``serving_metrics_overhead`` (module doc). Returns (on rate, off
+    rate, overhead %, scrape bytes, tracing-on rate, tracing overhead %).
+    The documented contract is < 3% with the plane on."""
+    from distributedratelimiting.redis_tpu_torch.utils import tracing
+
+    async def scrape_and_trace(srv_on, store_on, window):
+        # One scrape proves the plane was live and bills the exposition to
+        # the enabled side.
+        reader, writer = await asyncio.open_connection(srv_on.host,
+                                                       srv_on.metrics_port)
+        writer.write(b"GET /metrics HTTP/1.1\r\nHost: bench\r\n\r\n")
+        await writer.drain()
+        data = await asyncio.wait_for(reader.read(), 30.0)
+        writer.close()
+        # Tracing arm: ABBA around window blocks on the SAME rig (both
+        # rigs share the process-global tracer).
+        pairs = []
+        try:
+            for _ in range(blocks):
+                tracing.configure(enabled=True, sample_rate=0.01,
+                                  keep_rate=0.1)
+                a1 = await window(store_on)
+                tracing.configure(enabled=False)
+                b1 = await window(store_on)
+                b2 = await window(store_on)
+                tracing.configure(enabled=True, sample_rate=0.01,
+                                  keep_rate=0.1)
+                a2 = await window(store_on)
+                tracing.configure(enabled=False)
+                pairs.append(((a1 + a2) / 2, (b1 + b2) / 2))
+        finally:
+            tracing.configure(enabled=False)
+            tracing.get_tracer().reset()
+        deltas = sorted((b - a) / b for a, b in pairs)
+        return (len(data), max(a for a, _ in pairs),
+                deltas[len(deltas) // 2] * 100.0)
+
+    on, off, pct, _, (nbytes, trace_rate, trace_pct) = await _abba_rigs(
+        lambda: _instant_rig(observability=True, metrics_port=0),
+        lambda: _instant_rig(observability=False),
+        depth=depth, reqs=reqs, warm_depth=warm_depth, warm_reqs=warm_reqs,
+        blocks=blocks, between=scrape_and_trace)
+    return on, off, pct, nbytes, trace_rate, trace_pct
+
+
+async def bench_audit_overhead(*, depth=32, reqs=150, warm_depth=16,
+                               warm_reqs=40, blocks=4) -> tuple:
+    """``audit_overhead`` (module doc): the auditor at 10x the default
+    cadence (tick 0.05 s) against ``audit=False``. Returns (on rate, off
+    rate, overhead %, the on rig's ticks). The hot-path cost is two float
+    adds per scalar grant; the rest rides the background tick."""
+    from distributedratelimiting.redis_tpu_torch.runtime.audit import (
+        AuditConfig,
+    )
+
+    on, off, pct, srv_on, _ = await _abba_rigs(
+        lambda: _instant_rig(audit=AuditConfig(tick_s=0.05)),
+        lambda: _instant_rig(audit=False),
+        depth=depth, reqs=reqs, warm_depth=warm_depth, warm_reqs=warm_reqs,
+        blocks=blocks)
+    return on, off, pct, srv_on.auditor.ticks
+
+
 def bench_sweep(device, *, n_slots=1024, n_keys=64) -> bool:
     """The TTL sweep evicts ``n_keys`` reclaimable slots (on the card, the
     CUDA sweep kernel)."""
@@ -1000,6 +1128,18 @@ def run(device: torch.device, sizes: dict | None = None, *,
         return serving_section(device, "instant",
                                **sizes.get("serving_p99_instant", {}))
 
+    def sec_metrics_overhead():
+        on, off, pct, nbytes, trace_rate, trace_pct = asyncio.run(
+            bench_metrics_overhead(
+                **sizes.get("serving_metrics_overhead", {})))
+        return (round(on), round(off), round(pct, 2), nbytes,
+                round(trace_rate), round(trace_pct, 2))
+
+    def sec_audit_overhead():
+        on, off, pct, ticks = asyncio.run(bench_audit_overhead(
+            **sizes.get("audit_overhead", {})))
+        return round(on), round(off), round(pct, 2), ticks
+
     def sec_sweep():
         return bench_sweep(device, **sizes.get("sweep_ok", {}))
 
@@ -1009,7 +1149,9 @@ def run(device: torch.device, sizes: dict | None = None, *,
            "remote_bulk": sec_remote_bulk, "e2e_async": sec_e2e_async,
            "serving_p99": sec_serving_p99, "nproc": sec_nproc,
            "serving_p99_colocated": sec_colocated,
-           "serving_p99_instant": sec_instant, "sweep_ok": sec_sweep}
+           "serving_p99_instant": sec_instant,
+           "serving_metrics_overhead": sec_metrics_overhead,
+           "audit_overhead": sec_audit_overhead, "sweep_ok": sec_sweep}
     emit()
     for name, keys in SECTIONS:
         if BUDGET_S - (time.monotonic() - t_start) < 20.0:

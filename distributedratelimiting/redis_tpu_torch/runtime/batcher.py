@@ -42,6 +42,7 @@ class MicroBatcher(Generic[TReq, TRes]):
         max_inflight: int = 8,
         flush_latency=None,
         queue_latency=None,
+        flush_observer=None,
     ) -> None:
         if max_batch <= 0:
             raise ValueError("max_batch must be positive")
@@ -58,6 +59,11 @@ class MicroBatcher(Generic[TReq, TRes]):
         # request on the hot path; the oldest member's wait bounds them
         # all and is what drives the p99).
         self._queue_latency = queue_latency
+        # Optional callable(n_requests, wall_s, error_repr | None,
+        # trace_id | None), fired once per completed flush — the
+        # flight-recorder feed (trace_id cross-references the frame to
+        # its exported trace).
+        self._flush_observer = flush_observer
         # (request, future, enqueue_stamp, trace_ctx). The trace ctx is
         # None on every untraced request — captured only because the
         # flush runs in its own task, where the submitter's context
@@ -171,10 +177,26 @@ class MicroBatcher(Generic[TReq, TRes]):
                 for _, fut, _, _ in batch:
                     if not fut.done():
                         fut.set_exception(exc)
+                if self._flush_observer is not None:
+                    try:
+                        self._flush_observer(len(batch),
+                                             time.perf_counter() - t0,
+                                             repr(exc), trace_id)
+                    # observer bugs must not mask the flush failure
+                    # drl-check: ok(swallowed-exception)
+                    except Exception:  # noqa: BLE001
+                        pass
                 return
             dt = time.perf_counter() - t0
             if self._flush_latency is not None:
                 self._flush_latency.record(dt, trace_id=trace_id)
+            if self._flush_observer is not None:
+                try:
+                    self._flush_observer(len(batch), dt, None, trace_id)
+                # an observer bug must never fail a flush that succeeded
+                # drl-check: ok(swallowed-exception)
+                except Exception:  # noqa: BLE001
+                    pass
             for (_, fut, _, _), res in zip(batch, results):
                 if not fut.done():  # caller may have cancelled while queued
                     fut.set_result(res)

@@ -46,11 +46,16 @@ the client latches, once, to charging the estimate through the two-level
 lane (``resilience_stats()["reserve_fallbacks"]``), and a "route-to-pool"
 redirect is chased once (``reserves_routed``).
 
+The observability plane reads over the wire: ``metrics()`` (``OP_METRICS``,
+OpenMetrics text), ``traces()`` (``OP_TRACES``, Chrome-trace JSON) and
+``audit()`` (``OP_AUDIT``). The chaos seams of :mod:`..utils.faults` sit at
+the dial (``client.connect``, and the wrapped transport's ``client.read`` /
+``client.write``) and before each retry (``client.retry``).
+
 Not ported yet: the live-config chase ("config moved" errors surface as
 :class:`wire.RemoteStoreError`, and a reserve sends the caller's configs
-as given), and the federation, placement, config, metrics, traces and
-audit methods, which raise ``NotImplementedError`` as the port's
-``BucketStore`` does.
+as given), and the federation, placement and config methods, which raise
+``NotImplementedError`` as the port's ``BucketStore`` does.
 """
 
 from __future__ import annotations
@@ -79,7 +84,11 @@ from distributedratelimiting.redis_tpu_torch.runtime.store import (
     _not_ported,
     check_hierarchical_args,
 )
-from distributedratelimiting.redis_tpu_torch.utils import log, tracing
+from distributedratelimiting.redis_tpu_torch.utils import (
+    faults,
+    log,
+    tracing,
+)
 from distributedratelimiting.redis_tpu_torch.utils.resilience import (
     RetryPolicy,
 )
@@ -333,6 +342,8 @@ class RemoteBucketStore(BucketStore):
                     f"{self._backoff_until - now:.2f}s "
                     f"({self._connect_failures} failed dials)")
             try:
+                if faults._INJECTOR is not None:  # chaos seam; no-op in prod
+                    await faults._INJECTOR.on_event("client.connect")
                 if self._factory is not None:
                     reader, writer = await self._factory()
                 else:
@@ -340,6 +351,9 @@ class RemoteBucketStore(BucketStore):
                     reader, writer = await asyncio.open_connection(
                         self._address[0], self._address[1]
                     )
+                if faults._INJECTOR is not None:
+                    reader, writer = faults._INJECTOR.wrap_connection(
+                        reader, writer)
             except Exception as exc:
                 self._dial_failed(exc)
                 raise
@@ -415,7 +429,7 @@ class RemoteBucketStore(BucketStore):
                           hier=None) -> tuple:
         tracer = tracing.get_tracer()
         if not tracer.enabled:
-            with self.profiler.span(wire.op_name(op), 1):
+            with self.profiler.span(wire.op_name(op), 1, annotate=False):
                 return await self._request_io_unprofiled(
                     op, key, count, a, b, timeout_s=timeout_s, hier=hier)
         # The trace starts here (the client wire layer): `parent` is the
@@ -423,7 +437,8 @@ class RemoteBucketStore(BucketStore):
         # I/O loop where contextvars do not follow.
         span = tracer.start_span(f"client.{wire.op_name(op)}",
                                  parent=parent)
-        with span, self.profiler.span(wire.op_name(op), 1):
+        with span, self.profiler.span(wire.op_name(op), 1,
+                                      annotate=False):
             trace = span.context if self._peer_traces else None
             try:
                 vals = await self._request_io_unprofiled(
@@ -541,6 +556,9 @@ class RemoteBucketStore(BucketStore):
                         > 256 * 1024):
                     await self._writer.drain()
             except Exception as exc:
+                # This request raises here: its own future must not be
+                # failed by the drop below and left unretrieved.
+                self._pending.pop(seq, None)
                 self._drop_connection(
                     exc if isinstance(exc, ConnectionError)
                     else ConnectionError(str(exc))
@@ -589,6 +607,8 @@ class RemoteBucketStore(BucketStore):
         at least the reconnect-backoff window's remainder. Counts the
         retry."""
         self._retries += 1
+        if faults._INJECTOR is not None:  # chaos seam; no-op in prod
+            await faults._INJECTOR.on_event("client.retry")
         delay = self._retry_policy.delay_s(attempt, self._rng)
         remaining = (self._backoff_until
                      - asyncio.get_running_loop().time())
@@ -640,7 +660,7 @@ class RemoteBucketStore(BucketStore):
         timeout = (self._request_timeout_s if timeout_s is None
                    else timeout_s)
         with tspan, self.profiler.span("acquire_many", len(klens),
-                                       enabled=profile):
+                                       annotate=False, enabled=profile):
             trace = tspan.context if self._peer_traces else None
             await self._connect_with_retry()
             if self._writer is None or self._io_loop is None:
@@ -852,7 +872,8 @@ class RemoteBucketStore(BucketStore):
         tracer = tracing.get_tracer()
         tspan = (tracer.start_span("client.acquire", parent=parent)
                  if tracer.enabled else tracing._NULL_SPAN)
-        with tspan, self.profiler.span(wire.op_name(wire.OP_ACQUIRE), 1):
+        with tspan, self.profiler.span(wire.op_name(wire.OP_ACQUIRE), 1,
+                                       annotate=False):
             res = await batcher.submit((key, count))
             if not res.granted:
                 tspan.set_status("denied")
@@ -1277,10 +1298,36 @@ class RemoteBucketStore(BucketStore):
                     dump_flight: bool = False) -> dict:
         """Server + store metrics as a dict. ``reset=True`` asks the server
         to start a fresh serving/stage-latency window after the snapshot;
-        ``dump_flight=True`` asks a JAX server for a flight-recorder dump."""
+        ``dump_flight=True`` asks the server for a flight-recorder dump
+        first (its path lands in the payload's ``flight_recorder``)."""
         flags = ((wire.STATS_FLAG_RESET if reset else 0)
                  | (wire.STATS_FLAG_FLIGHT_DUMP if dump_flight else 0))
         (text,) = await self._request(wire.OP_STATS, count=flags)
+        return json.loads(text)
+
+    async def metrics(self) -> str:
+        """The server's OpenMetrics text exposition (``OP_METRICS``) — the
+        same bytes its HTTP ``/metrics`` endpoint serves."""
+        (text,) = await self._request(wire.OP_METRICS)
+        return text
+
+    async def traces(self, drain: bool = False) -> dict:
+        """The server's kept traces as Chrome-trace-event JSON
+        (``OP_TRACES``) — the payload of its HTTP ``/traces`` endpoint.
+        ``drain=True`` empties the server's buffer after export
+        (size-capped at MAX_FRAME; the newest traces win)."""
+        (text,) = await self._request(wire.OP_TRACES,
+                                      count=1 if drain else 0)
+        return json.loads(text)
+
+    async def audit(self, bundles: int = 0) -> dict:
+        """The server's conservation-audit snapshot (``OP_AUDIT``):
+        identity residues, ε-budget utilization per source, the burn-rate
+        watchdog's state and alert log. ``bundles=N`` ships the newest N
+        black-box incident bundles along, as ``GET /audit?bundles=N``
+        does."""
+        payload = json.dumps({"bundles": bundles}) if bundles else ""
+        (text,) = await self._request(wire.OP_AUDIT, payload)
         return json.loads(text)
 
     # -- lifecycle ----------------------------------------------------------
@@ -1328,9 +1375,9 @@ class RemoteBucketStore(BucketStore):
         )
 
 
-# The JAX client's other lanes: metrics/traces/audit exports, placement and
-# live-config control, and federation.
-for _name in ("metrics", "traces", "audit", "placement_fetch",
+# The JAX client's other lanes: placement and live-config control, and
+# federation.
+for _name in ("placement_fetch",
               "placement_announce", "migrate_pull", "migrate_push",
               "config_fetch", "config_announce", "fed_lease", "fed_renew",
               "fed_reclaim"):

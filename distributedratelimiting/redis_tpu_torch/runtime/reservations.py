@@ -51,9 +51,10 @@ tenant's real overdraft went untracked.
 
 The migration rows (``export_rows``, ``drop_rids``, ``restore_rows``)
 and the ``liveconfig`` and ``flight_recorder`` hooks are here as in the
-JAX package; the port has no placement, live-config or flight-recorder
-subsystem yet, so nothing sets those hooks and the store's
-``export_entries`` still raises. ``stats(reset=True)`` on a server never
+JAX package; the server sets ``flight_recorder`` (its observability
+plane's), while the port has no placement or live-config subsystem yet,
+so nothing sets ``liveconfig`` and the store's ``export_entries`` still
+raises. ``stats(reset=True)`` on a server never
 touches the ledger (the monotonic-counter contract)."""
 
 from __future__ import annotations
@@ -309,6 +310,11 @@ class ReservationLedger:
         self._debts: dict[str, float] = {}
         #: tenant → outstanding reserved tokens (maintained O(1)).
         self._outstanding: dict[str, float] = {}
+        #: Holds of the settles in flight: dropped from their entry, their
+        #: settled/refund/overage flows not recorded yet. Counted as
+        #: outstanding, so the flow identity closes at every await of a
+        #: settle (the conservation auditor ticks between them).
+        self._settling = 0.0
         self.prior = EstimatePrior()
         self._lock = asyncio.Lock()
         # Visible counters (OP_STATS "reservations" + drl_reservation_*).
@@ -391,7 +397,9 @@ class ReservationLedger:
         return len(self._entries)
 
     def outstanding_tokens(self) -> float:
-        return sum(self._outstanding.values())
+        """Tokens held: the outstanding reserves' holds, and those of the
+        settles still in flight (see :meth:`settle`)."""
+        return sum(self._outstanding.values()) + self._settling
 
     def outstanding_by_tenant(self) -> dict[str, float]:
         return dict(self._outstanding)
@@ -617,7 +625,13 @@ class ReservationLedger:
                     self.settled_late += 1
                 else:
                     self.settled_in_deadline += 1
-            result = await self._settle_entry(entry, float(actual))
+            self._settling += entry.reserved
+            try:
+                result = await self._settle_entry(entry, float(actual))
+            finally:
+                # Same step as _settle_entry's last bookkeeping: no await
+                # lies between them.
+                self._settling -= entry.reserved
             self._record_settled(rid, result)
             return result
 

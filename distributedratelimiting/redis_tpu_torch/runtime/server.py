@@ -23,11 +23,30 @@ v4 delta against the previous save), ``OP_STATS`` and the ``OP_HELLO`` auth
 handshake, with the trace, deadline and attempt tails (deadline-expired
 work is shed unexecuted). Granted hierarchical costs and settled actuals
 feed a per-tenant :class:`~.admission.TokenVelocity` (``OP_STATS``
-``token_velocity``). The JAX server's live-config, drain-envelope,
-placement, retry-shed, doomed-work, overflow-pool and heavy-hitter gates
-on the hierarchical and reservation lanes are not ported (nor those
-subsystems). An op the JAX server serves but this one does not yet
-(placement, live config, federation, metrics, traces, audit) answers a
+``token_velocity``).
+
+The observability and overload plane (``observability=True``, the
+default): a space-saving heavy-hitter sketch fed by every admission lane,
+weighted in tokens (``OP_STATS`` ``hot_keys``); a flight recorder fed one
+frame per store flush, reservation event, audit breach and SLO alert, which
+dumps itself to JSONL on a flush failure (the store's degraded-mode entry)
+or on request; the OpenMetrics registry behind ``OP_METRICS`` and the HTTP
+listener (``metrics_port``: ``/metrics``, ``/flight``, ``/audit``,
+``/traces``); the tracer's Chrome-trace export behind ``OP_TRACES``; the
+conservation auditor and its burn-rate watchdog behind ``OP_AUDIT``
+(:mod:`~.audit`). Two overload gates, disarmed until their setters arm
+them: the doomed-work gate denies deadline-stamped work that the current
+p99 serving latency says cannot finish in its budget, the retry-shed gate
+denies retry-stamped frames; ``overflow_pool`` redirects an interactive
+reserve whose estimate the tenant's balance cannot cover in its deadline
+to the named pool. The chaos seams of :mod:`..utils.faults` sit at
+dispatch (``server.dispatch``) and at the scalar decision site
+(``audit.leak``). The plane's per-request hooks are host bookkeeping: none
+touches the card; a scrape may read it.
+
+The JAX server's live-config, drain-envelope and placement gates are not
+ported (nor those subsystems). An op the JAX server serves but this one
+does not yet (placement, migration, live config, federation) answers a
 routable error that names it as not served — never the "unknown op" /
 "unknown bulk kind" text, which a JAX client reads as an old peer and
 silently falls back from.
@@ -46,11 +65,26 @@ import time
 
 import numpy as np
 
-from distributedratelimiting.redis_tpu_torch.runtime import admission, wire
+from distributedratelimiting.redis_tpu_torch.runtime import (
+    admission,
+    reservations,
+    wire,
+)
+from distributedratelimiting.redis_tpu_torch.runtime.audit import (
+    AuditConfig,
+    ConservationAuditor,
+)
 from distributedratelimiting.redis_tpu_torch.runtime.store import BucketStore
-from distributedratelimiting.redis_tpu_torch.utils import log, tracing
+from distributedratelimiting.redis_tpu_torch.utils import faults, log, tracing
+from distributedratelimiting.redis_tpu_torch.utils.flight_recorder import (
+    FlightRecorder,
+)
+from distributedratelimiting.redis_tpu_torch.utils.heavy_hitters import (
+    HeavyHitters,
+)
 from distributedratelimiting.redis_tpu_torch.utils.metrics import (
     LatencyHistogram,
+    MetricsRegistry,
 )
 
 __all__ = ["BucketStoreServer", "main"]
@@ -58,10 +92,14 @@ __all__ = ["BucketStoreServer", "main"]
 #: Ops the JAX server serves that this one does not yet. Each answers a
 #: routable error that never reads as "unknown op" (see the module doc).
 _UNPORTED_OPS = frozenset((
-    wire.OP_METRICS, wire.OP_TRACES, wire.OP_PLACEMENT,
-    wire.OP_PLACEMENT_ANNOUNCE, wire.OP_MIGRATE_PULL, wire.OP_MIGRATE_PUSH,
-    wire.OP_CONFIG, wire.OP_FED_LEASE, wire.OP_FED_RENEW, wire.OP_FED_RECLAIM,
-    wire.OP_AUDIT))
+    wire.OP_PLACEMENT, wire.OP_PLACEMENT_ANNOUNCE, wire.OP_MIGRATE_PULL,
+    wire.OP_MIGRATE_PUSH, wire.OP_CONFIG, wire.OP_FED_LEASE,
+    wire.OP_FED_RENEW, wire.OP_FED_RECLAIM))
+#: Scalar keyed admission ops fed to the heavy-hitter sketch. A module
+#: constant: an inline tuple would rebuild from four global lookups on
+#: every request.
+_HOT_KEYED_OPS = frozenset(
+    (wire.OP_ACQUIRE, wire.OP_WINDOW, wire.OP_FWINDOW, wire.OP_SEMA))
 #: Bulk kinds the JAX server serves that this one does not yet: none.
 _UNPORTED_BULK_KINDS: dict[int, str] = {}
 
@@ -92,8 +130,15 @@ class BucketStoreServer:
     def __init__(self, store: BucketStore, *, host: str = "127.0.0.1",
                  port: int = 0, snapshot_path: str | None = None,
                  auth_token: str | None = None,
+                 metrics_port: int | None = None,
+                 observability: bool = True,
+                 heavy_hitters_k: int = 64,
+                 flight_dir: str | None = None,
+                 flight_capacity: int = 512,
                  tracing_config: "bool | dict | None" = None,
-                 snapshot_incremental: bool = False) -> None:
+                 audit: "bool | AuditConfig | None" = None,
+                 snapshot_incremental: bool = False,
+                 overflow_pool: "dict | None" = None) -> None:
         self.store = store
         self.host = host
         self.port = port
@@ -126,27 +171,62 @@ class BucketStoreServer:
         # (wire DEADLINE_FLAG tail) expired while the frame sat in this
         # server's own queueing.
         self.requests_shed = 0
+        # Goodput under overload: the two gates are DISARMED by default
+        # (an operator, or the controller once it is ported, arms them);
+        # a healthy server's serving path is the ungated one.
+        #: Requests denied by the doomed-work gate: their propagated
+        #: deadline cannot be met given the current p99 serving latency.
+        self.requests_doomed = 0
         #: Frames that arrived stamped attempt >= 1 (wire ATTEMPT_FLAG
         #: tail / bulk deadline tail): retries reaching this server.
         self.retry_attempts_seen = 0
+        #: Retry-stamped frames denied while retry-shed was armed.
+        self.retries_shed = 0
+        #: OP_RESERVE requests answered with a route-to-pool redirect.
+        self.reserves_routed = 0
+        #: Armed: deny attempt >= 1 frames before the store is touched.
+        self.retry_shed_enabled = False
+        #: Armed: deny deadline-stamped work that current p99 says cannot
+        #: finish inside its budget.
+        self.doomed_gate_enabled = False
+        #: Budget-aware routing: ``{"pool", "ta", "tb", "priority"}`` naming
+        #: the pool OP_RESERVE redirects doomed-at-admit interactive
+        #: requests to (None disables routing).
+        self.overflow_pool = dict(overflow_pool) if overflow_pool else None
         # Serving latency: request read (arrival) → result ready, the
         # latency the server is accountable for (OP_STATS serving_p50_ms /
         # serving_p99_ms); the reply stage is result ready → reply handed
         # to the transport.
         self.serving_latency = LatencyHistogram()
         self.reply_latency = LatencyHistogram()
+        # The observability plane: heavy-hitter key telemetry, the flight
+        # recorder, per-tenant token velocity and the OpenMetrics registry
+        # behind OP_METRICS and /metrics. Pull-only; observability=False
+        # is the ablation the bench's serving_metrics_overhead compares
+        # against.
+        self.observability = observability
+        self.heavy_hitters = (HeavyHitters(heavy_hitters_k)
+                              if observability and heavy_hitters_k > 0
+                              else None)
         # Per-tenant tokens/s of the hierarchical lanes' GRANTED costs
-        # (OP_STATS "token_velocity"); None turns the feed off.
+        # (OP_STATS "token_velocity", drl_token_velocity{tenant=…}).
         self.token_velocity: "admission.TokenVelocity | None" = (
-            admission.TokenVelocity())
+            admission.TokenVelocity() if observability else None)
+        self.flight_recorder = (FlightRecorder(flight_capacity,
+                                               dump_dir=flight_dir)
+                                if observability else None)
+        self.metrics_port = metrics_port
+        self._metrics_server: asyncio.AbstractServer | None = None
+        self._registry: MetricsRegistry | None = None
         # The estimate-reserve-settle ledger: the STORE-attached one, so a
         # store re-fronted by a new server keeps its holds and debts;
-        # wired to this server's velocity (settles feed it the actual
-        # spend). A client store (no ledger of its own) serves no
-        # reservations.
+        # (re)wired to THIS server's plane (settles feed the velocity the
+        # actual spend, reserve events land in the flight recorder). A
+        # client store (no ledger of its own) serves no reservations.
         if callable(getattr(store, "reservation_ledger", None)):
             self.reservations = store.reservation_ledger()
             self.reservations.velocity = self.token_velocity
+            self.reservations.flight_recorder = self.flight_recorder
         else:
             self.reservations = None
         # Tracing rides the process-global tracer: True enables it with
@@ -157,17 +237,353 @@ class BucketStoreServer:
             else:
                 tracing.configure(enabled=bool(tracing_config))
         self.tracer = tracing.get_tracer()
+        # Conservation audit plane (runtime/audit.py): the witness pair is
+        # the reply/witness identity's raw material — tokens this server
+        # TOLD clients it granted vs tokens the store actually debited,
+        # incremented adjacently at the scalar decision site. Monotonic
+        # Python floats, never reset.
+        self.audit_replied_tokens = 0.0
+        self.audit_witnessed_tokens = 0.0
+        # audit=None follows the observability switch; an AuditConfig
+        # passes knobs through; False is the ablation the bench's
+        # audit_overhead section compares against.
+        if audit is None:
+            audit = observability
+        self.auditor = (ConservationAuditor(
+            self, audit if isinstance(audit, AuditConfig) else None)
+            if audit else None)
+        self._audit_task: "asyncio.Task | None" = None
+
+    def set_retry_shed(self, enabled: bool) -> None:
+        """Arm/disarm the server-side retry-shed gate (the same name
+        :meth:`AdmissionPolicy.set_retry_shed` answers on the gateway
+        side)."""
+        self.retry_shed_enabled = bool(enabled)
+
+    def set_doomed_gate(self, enabled: bool) -> None:
+        """Arm/disarm the doomed-work gate: deadline-stamped requests whose
+        budget cannot be met given the current p99 serving latency are
+        denied at admit instead of granted tokens they will burn
+        uselessly."""
+        self.doomed_gate_enabled = bool(enabled)
 
     async def start(self) -> tuple[str, int]:
         """Bind and listen; returns the bound ``(host, port)`` (port 0 in
         the constructor picks a free one)."""
         await self.store.connect()
+        metrics = getattr(self.store, "metrics", None)
+        if (self.flight_recorder is not None and metrics is not None
+                and hasattr(metrics, "flight_recorder")):
+            # The store's flush observer feeds the ring (one frame per
+            # flush) and fires the degraded-entry auto-dump on a flush
+            # error — see DeviceBucketStore._flush_observer.
+            metrics.flight_recorder = self.flight_recorder
+        if self.auditor is not None and self._audit_task is None:
+            # The ε-ledger's pacer, ticking before the listener binds.
+            self._audit_task = asyncio.create_task(self.auditor.run())
         self._server = await asyncio.start_server(
             self._serve_connection, self.host, self.port
         )
         sock = self._server.sockets[0]
         self.host, self.port = sock.getsockname()[:2]
+        await self._start_metrics_http()
         return self.host, self.port
+
+    # -- /metrics HTTP exposition -------------------------------------------
+    async def _start_metrics_http(self) -> None:
+        """Bind the stdlib-asyncio HTTP listener when ``metrics_port`` is
+        set (0 = ephemeral; the bound port lands back in
+        ``self.metrics_port``)."""
+        if self.metrics_port is None:
+            return
+        self._metrics_server = await asyncio.start_server(
+            self._serve_metrics_http, self.host, self.metrics_port)
+        self.metrics_port = (
+            self._metrics_server.sockets[0].getsockname()[1])
+
+    #: Content type served when the scraper did NOT Accept openmetrics:
+    #: the Prometheus text 0.0.4 format (same sample lines, exemplar
+    #: annotations suppressed — they are an OpenMetrics-only construct).
+    PLAIN_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+    async def _serve_metrics_http(self, reader: asyncio.StreamReader,
+                                  writer: asyncio.StreamWriter) -> None:
+        """Minimal one-shot HTTP/1.1 responder: GET /metrics → the
+        exposition (content negotiated on ``Accept:`` — scrapers asking for
+        ``application/openmetrics-text`` get OpenMetrics with exemplars,
+        everyone else Prometheus text 0.0.4); GET /flight → a
+        (rate-limited) flight-recorder dump, answering its path; GET
+        /audit[?bundles=N] → the conservation snapshot; GET
+        /traces[?drain=1] → Chrome-trace-event JSON of the kept traces.
+        It exists so ``curl``/Prometheus reach the plane with zero
+        dependencies."""
+        from urllib.parse import parse_qs
+
+        try:
+            request_line = await asyncio.wait_for(reader.readline(), 10.0)
+            parts = request_line.split()
+            path = parts[1].decode("latin-1") if len(parts) >= 2 else "/"
+            accept = ""
+            while True:  # drain headers (Accept drives negotiation)
+                line = await asyncio.wait_for(reader.readline(), 10.0)
+                if line in (b"\r\n", b"\n", b""):
+                    break
+                if line[:7].lower() == b"accept:":
+                    accept = line[7:].decode("latin-1", "replace").strip()
+            route, _, query = path.partition("?")
+            if route in ("/metrics", "/"):
+                openmetrics = "application/openmetrics-text" in accept
+                body = self.registry.render(
+                    exemplars=openmetrics).encode("utf-8")
+                status = "200 OK"
+                ctype = (MetricsRegistry.CONTENT_TYPE if openmetrics
+                         else self.PLAIN_CONTENT_TYPE)
+            elif route == "/traces":
+                # A proper parameter parse: the drain is destructive, so
+                # ?nodrain=1 or ?drain=10 must not trigger it.
+                drain = parse_qs(query).get("drain", ["0"])[-1] == "1"
+                body = self.tracer.export_chrome_json(
+                    drain=drain).encode("utf-8")
+                status, ctype = "200 OK", "application/json"
+            elif route == "/flight" and self.flight_recorder is not None:
+                # Rate-limited on purpose: this listener carries no auth
+                # (unlike OP_STATS behind HELLO), so an unthrottled dump
+                # would let any peer that reaches the port fill the disk.
+                dump_path = self.flight_recorder.auto_dump("http_trigger")
+                body = json.dumps({"dumped": dump_path,
+                                   "suppressed": dump_path is None}
+                                  ).encode()
+                status, ctype = "200 OK", "application/json"
+            elif route == "/audit":
+                try:
+                    n = int(parse_qs(query).get("bundles", ["0"])[-1])
+                except ValueError:
+                    n = 0
+                body = self._audit_json({"bundles": n}).encode("utf-8")
+                status, ctype = "200 OK", "application/json"
+            else:
+                body, status, ctype = (b"not found\n", "404 Not Found",
+                                       "text/plain")
+            writer.write(
+                (f"HTTP/1.1 {status}\r\nContent-Type: {ctype}\r\n"
+                 f"Content-Length: {len(body)}\r\n"
+                 f"Connection: close\r\n\r\n").encode("latin-1") + body)
+            await writer.drain()
+        except (asyncio.TimeoutError, ConnectionResetError,
+                BrokenPipeError):
+            pass
+        finally:
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except (ConnectionResetError, BrokenPipeError):
+                pass
+
+    @property
+    def registry(self) -> MetricsRegistry:
+        """The server's OpenMetrics registry (built lazily — families read
+        live counters through callables, so construction order does not
+        matter)."""
+        if self._registry is None:
+            self._registry = self._build_registry()
+        return self._registry
+
+    def _goodput_numeric_stats(self) -> "dict[str, float]":
+        """drl_goodput_* family: deadline outcomes from the reservation
+        ledger plus the server-side doomed/route gate work. Always renders
+        (zeros before any deadline-stamped traffic)."""
+        led = self.reservations
+        return {
+            "settled_in_deadline": (led.settled_in_deadline
+                                    if led is not None else 0),
+            "settled_late": led.settled_late if led is not None else 0,
+            "deadline_expired_grants": (led.deadline_expired_grants
+                                        if led is not None else 0),
+            "first_attempt_grants": (led.first_attempt_grants
+                                     if led is not None else 0),
+            "requests_doomed": self.requests_doomed,
+            "reserves_routed": self.reserves_routed,
+            "doomed_gate_enabled": 1.0 if self.doomed_gate_enabled
+            else 0.0,
+        }
+
+    def _retry_numeric_stats(self) -> "dict[str, float]":
+        """drl_retry_* family: attempt-tail observations and the
+        retry-shed gate (scalar + reserve lanes)."""
+        led = self.reservations
+        return {
+            "attempts_seen": self.retry_attempts_seen,
+            "shed": self.retries_shed,
+            "grants": led.retry_grants if led is not None else 0,
+            "reserves": led.retry_reserves if led is not None else 0,
+            "shed_enabled": 1.0 if self.retry_shed_enabled else 0.0,
+        }
+
+    def _build_registry(self) -> MetricsRegistry:
+        """The JAX server's families, in its order and with its names and
+        help text, less the ones over state the port has not got (ROADMAP
+        Queue C): the native front-end's and tier-0's (``batches_flushed``,
+        ``native_*``, the native stage histograms, ``tier0``,
+        ``native_bulk``), and placement, live config, federation and the
+        controller. They are left out, not rendered as zeros."""
+        reg = MetricsRegistry()
+        reg.counter("connections_served", "Accepted TCP connections",
+                    lambda: self.connections_served)
+        reg.counter("requests_served", "Requests answered on any lane",
+                    lambda: self.requests_served)
+        reg.counter("requests_shed",
+                    "Requests dropped unexecuted: client deadline "
+                    "expired in server queueing",
+                    lambda: self.requests_shed)
+        reg.histogram("serving_latency_seconds",
+                      "Request arrival to result ready",
+                      lambda: self.serving_latency)
+        # Per-stage decomposition: serving ≈ queue + flush + reply.
+        metrics = getattr(self.store, "metrics", None)
+        reg.histogram("stage_latency_seconds",
+                      "Per-stage share of the serving span",
+                      lambda: getattr(metrics, "queue_latency", None),
+                      labels={"stage": "queue"})
+        reg.histogram("stage_latency_seconds",
+                      "Per-stage share of the serving span",
+                      lambda: getattr(metrics, "flush_latency", None),
+                      labels={"stage": "flush"})
+        reg.histogram("stage_latency_seconds",
+                      "Per-stage share of the serving span",
+                      lambda: self.reply_latency,
+                      labels={"stage": "reply"})
+        reg.register_numeric_dict(
+            "store", "store metrics",
+            lambda: metrics.snapshot() if metrics is not None else None,
+            counters={"launches", "rows_processed", "rows_valid", "sweeps",
+                      "slots_evicted", "rows_coalesced"})
+        if self.heavy_hitters is not None:
+            hh = self.heavy_hitters
+            reg.gauge("hot_keys_offered",
+                      "Total admission weight offered to the top-K sketch",
+                      lambda: hh.offered)
+            reg.labeled_gauges(
+                "hot_key_count",
+                "Top-K admission weight per key (space-saving sketch; "
+                "count may overshoot by at most hot_key_error)",
+                lambda: [({"key": k}, c) for k, c, _ in hh.top()])
+            reg.labeled_gauges(
+                "hot_key_error",
+                "Space-saving overcount bound per tracked key",
+                lambda: [({"key": k}, e) for k, _, e in hh.top()])
+        if self.token_velocity is not None:
+            tv = self.token_velocity
+            reg.counter("admitted_tokens",
+                        "Tokens admitted through the hierarchical "
+                        "(tenant-budgeted) lanes",
+                        lambda: tv.observed_tokens)
+            reg.labeled_gauges(
+                "token_velocity",
+                "Per-tenant admitted tokens/sec (exponentially decayed "
+                "rate, tau=token_velocity tau_s) — the autoscaling / "
+                "resharding signal",
+                lambda: [({"tenant": t}, r)
+                         for t, r in tv.rates().items()])
+        if self.reservations is not None:
+            led = self.reservations
+            reg.labeled_gauges(
+                "reservations_outstanding",
+                "Outstanding reserved tokens per tenant (reserve "
+                "issued, settle pending) — the unsettled-load signal "
+                "the controller's shed ladder folds into its pressure "
+                "sensor",
+                lambda: [({"tenant": t}, v)
+                         for t, v in led.outstanding_by_tenant()
+                         .items()])
+            reg.labeled_gauges(
+                "reservation_debt",
+                "Per-tenant unsettled under-estimate debt (tokens the "
+                "budget must cover before the next reserve admits)",
+                lambda: [({"tenant": t}, v)
+                         for t, v in led.debts().items()])
+            reg.register_numeric_dict(
+                "reservation", "estimate-reserve-settle ledger",
+                lambda: (led.numeric_stats() if led.active else None),
+                counters={"reserves", "reserve_denied",
+                          "reserve_duplicates", "ledger_full_denials",
+                          "debt_denials", "settles",
+                          "settle_duplicates", "settle_unknown",
+                          "ttl_expired", "refunds", "refunded_tokens",
+                          "debts_created", "debt_tokens_created",
+                          "debt_tokens_collected", "rehomed",
+                          "reserved_tokens_total",
+                          "settled_tokens_total",
+                          "extra_debited_tokens",
+                          "exported_tokens_out", "restored_tokens_in",
+                          "dropped_tokens", "forfeited_tokens"})
+            # Settle-error magnitude histograms, recorded at tokens x 1e-6
+            # (bucket bounds read as micro-tokens).
+            reg.histogram("reservation_refund_tokens",
+                          "Over-estimate refund magnitudes "
+                          "(bucket unit: tokens x 1e-6)",
+                          lambda: led.refund_hist)
+            reg.histogram("reservation_debt_tokens",
+                          "Under-estimate overage magnitudes "
+                          "(bucket unit: tokens x 1e-6)",
+                          lambda: led.debt_hist)
+        # Goodput under overload: drl_goodput_* folds the ledger's
+        # deadline outcomes with the doomed/route gates; drl_retry_* the
+        # retry-storm posture. Both render with the gates disarmed, so a
+        # storm can be watched building before anyone arms them.
+        reg.register_numeric_dict(
+            "goodput", "goodput sensor (deadline-outcome ledger + "
+            "doomed-work and pool-routing gates)",
+            lambda: self._goodput_numeric_stats(),
+            counters={"settled_in_deadline", "settled_late",
+                      "deadline_expired_grants", "first_attempt_grants",
+                      "requests_doomed", "reserves_routed"})
+        reg.register_numeric_dict(
+            "retry", "retry-storm defense (attempt-tail admissions "
+            "and the retry-shed gate)",
+            lambda: self._retry_numeric_stats(),
+            counters={"attempts_seen", "shed", "grants", "reserves"})
+        if self.flight_recorder is not None:
+            reg.register_numeric_dict(
+                "flight", "flight recorder",
+                self.flight_recorder.snapshot,
+                counters={"frames_recorded", "dumps_written",
+                          "dumps_suppressed"})
+        reg.register_numeric_dict(
+            "snapshot_chain", "incremental checkpoint chain",
+            lambda: (self._snapshot_chain.stats()
+                     if self._snapshot_chain is not None else None),
+            counters={"full_saves", "delta_saves"})
+        reg.register_numeric_dict(
+            "trace", "distributed tracer",
+            lambda: (self.tracer.snapshot()
+                     if self.tracer.enabled else None),
+            counters={"spans_recorded", "traces_kept", "traces_dropped",
+                      "traces_evicted"})
+        # Conservation audit plane: drl_audit_overadmitted_tokens is the
+        # SLI numerator utils/slo.py's SLO_SERIES names.
+        reg.register_numeric_dict(
+            "audit", "conservation audit plane (epsilon ledger)",
+            lambda: (self.auditor.numeric_stats()
+                     if self.auditor is not None else None),
+            counters={"ticks", "tick_failures", "breaches",
+                      "overadmitted_tokens", "bundles_assembled"})
+        reg.register_numeric_dict(
+            "slo", "multi-window burn-rate watchdog (utils/slo.py)",
+            lambda: (self.auditor.watchdog.numeric_stats()
+                     if self.auditor is not None else None),
+            counters={"ticks", "alerts", "trips", "clears"})
+        reg.labeled_gauges(
+            "epsilon_budget_used_ratio",
+            "Fraction of each documented epsilon allowance consumed "
+            "(source=tier0|shard|envelope|federation; 1.0 = realized "
+            "drift ate the whole budget — see DESIGN.md §22)",
+            lambda: (self.auditor.epsilon_series()
+                     if self.auditor is not None else []))
+        reg.counter("stats_resets",
+                    "Destructive serving-window resets, any trigger "
+                    "(the shared-window tripwire, utils/metrics.py)",
+                    lambda: self.serving_latency.resets)
+        return reg
 
     async def _serve_connection(self, reader: asyncio.StreamReader,
                                 writer: asyncio.StreamWriter) -> None:
@@ -287,6 +703,15 @@ class BucketStoreServer:
             # Per-connection bulk ordering (see _serve_connection). The
             # predecessor's own failure was already replied there.
             await asyncio.gather(after, return_exceptions=True)
+        if faults._INJECTOR is not None:  # chaos seam; no-op in prod
+            try:
+                await faults._INJECTOR.on_event("server.dispatch")
+            except faults.BlackholeFault:
+                return  # no reply: the client's timeout owns this one
+            except Exception as exc:
+                await self._reply(writer, write_lock, wire.encode_response(
+                    _recover_seq(body), wire.RESP_ERROR, repr(exc)))
+                return
         resp = await self.handle_frame_body(body, arrival_s=t_arrival)
         self.requests_served += 1
         t_ready = time.perf_counter()
@@ -307,8 +732,11 @@ class BucketStoreServer:
         reply (denied decision / error). Deadline-stamped frames are
         stripped next: when this server's own queueing already consumed
         the client's budget, the request is SHED — a routable "deadline
-        exceeded" error, the store untouched. Attempt-stamped retries are
-        counted."""
+        exceeded" error, the store untouched. Then the two overload gates,
+        when armed: the doomed-work gate denies deadline-stamped work whose
+        remaining budget cannot cover the current p99 serving latency, the
+        retry-shed gate denies attempt-stamped retries — each a routable
+        error, the store untouched. Attempt-stamped retries are counted."""
         tctx = None
         deadline_s = None
         attempt = 0
@@ -358,6 +786,31 @@ class BucketStoreServer:
                     f"deadline exceeded: request waited "
                     f"{waited * 1e3:.1f}ms against a "
                     f"{deadline_s * 1e3:.1f}ms budget (shed unexecuted)")
+            if self.doomed_gate_enabled:
+                # Doomed-work gate: the remaining budget cannot cover this
+                # server's current p99 serving latency — deny at admit,
+                # store untouched, instead of granting tokens the client
+                # will never collect.
+                p99 = (self.serving_latency.p99
+                       if self.serving_latency.total else 0.0)
+                if waited + p99 > deadline_s:
+                    self.requests_doomed += 1
+                    self.requests_shed += 1
+                    return wire.encode_response(
+                        _recover_seq(body), wire.RESP_ERROR,
+                        f"doomed: {deadline_s * 1e3:.1f}ms budget "
+                        f"cannot cover p99 {p99 * 1e3:.1f}ms at admit "
+                        "(shed unexecuted)")
+        if attempt and self.retry_shed_enabled:
+            # Retry-shed gate: retries shed FIRST, before any priority
+            # class — a granted retry burns budget a first attempt could
+            # have turned into goodput.
+            self.retries_shed += 1
+            self.requests_shed += 1
+            return wire.encode_response(
+                _recover_seq(body), wire.RESP_ERROR,
+                f"retry shed: attempt {attempt} denied while the "
+                "retry-storm defense is armed")
         if tctx is None or not self.tracer.enabled:
             return await self._handle_frame_inner(body,
                                                   flagged_op=flagged_op)
@@ -382,6 +835,14 @@ class BucketStoreServer:
                 if granted < n:
                     span.set_status("denied")
                     span.set_attr("denied_rows", n - granted)
+            if span.context is not None:
+                # Exemplar on the serving histogram: the span's own
+                # duration is (within µs) this request's serving stage —
+                # the jump from a histogram bucket to the exported trace
+                # that filled it.
+                self.serving_latency.exemplar(
+                    time.perf_counter() - span.start_s,
+                    span.context.trace_id)
         return resp
 
     async def _handle_frame_inner(self, body: bytes, *,
@@ -402,6 +863,7 @@ class BucketStoreServer:
                 if kind == wire.BULK_KIND_HBUCKET:
                     return await self._serve_bulk_hier(
                         seq, body, keys, counts, a, b, with_rem)
+                self._offer_bulk_hot(keys, counts)
                 if kind == wire.BULK_KIND_BUCKET:
                     res = await self.store.acquire_many(
                         keys, counts, a, b, with_remaining=with_rem)
@@ -426,13 +888,38 @@ class BucketStoreServer:
                     raise wire.RemoteStoreError(
                         f"unknown op {flagged_op}") from exc
                 raise
+            hh = self.heavy_hitters
+            if hh is not None and count > 0 and op in _HOT_KEYED_OPS:
+                # Hot-key telemetry, scalar lane: count > 0 gates out SEMA
+                # releases (signed delta < 0) and zero-permit probes —
+                # neither is admission demand. Unit-weight requests (the
+                # common shape) stage through the buffered feed: one list
+                # append here, the sketch merge amortized.
+                if count > 1:
+                    hh.offer(key, count)
+                else:
+                    hh.offer_buffered(key)
             if op in _UNPORTED_OPS:
                 resp = wire.encode_response(
                     seq, wire.RESP_ERROR, _not_served(wire.op_name(op)))
             elif op == wire.OP_ACQUIRE:
                 res = await self.store.acquire(key, count, a, b)
+                granted = res.granted
+                if granted:
+                    # Witnessed: the store ACTUALLY debited this grant.
+                    self.audit_witnessed_tokens += count
+                if faults._INJECTOR is not None and not granted:
+                    # audit.leak (utils/faults.py): flip a deny into a
+                    # grant WITHOUT the store debit — a deliberate token
+                    # leak between the two witness counters, so a seeded
+                    # soak can prove the conservation auditor catches it.
+                    if faults._INJECTOR.decide("audit.leak") is not None:
+                        granted = True
+                if granted:
+                    # Replied: what the CLIENT was told.
+                    self.audit_replied_tokens += count
                 resp = wire.encode_response(
-                    seq, wire.RESP_DECISION, res.granted, res.remaining)
+                    seq, wire.RESP_DECISION, granted, res.remaining)
             elif op == wire.OP_WINDOW:
                 res = await self.store.window_acquire(key, count, a, b)
                 resp = wire.encode_response(
@@ -480,6 +967,11 @@ class BucketStoreServer:
                     await self._save()
                     resp = wire.encode_response(seq, wire.RESP_EMPTY)
             elif op == wire.OP_STATS:
+                if (count & wire.STATS_FLAG_FLIGHT_DUMP
+                        and self.flight_recorder is not None):
+                    # Explicit operator trigger: dump BEFORE the snapshot
+                    # so the payload carries the fresh path.
+                    self.flight_recorder.dump("stats_trigger")
                 resp = wire.encode_response(
                     seq, wire.RESP_TEXT, self._stats_json())
                 if count & wire.STATS_FLAG_RESET:
@@ -491,6 +983,20 @@ class BucketStoreServer:
                     if metrics is not None:
                         metrics.flush_latency.reset()
                         metrics.queue_latency.reset()
+            elif op == wire.OP_METRICS:
+                resp = wire.encode_response(
+                    seq, wire.RESP_TEXT, self.registry.render())
+            elif op == wire.OP_TRACES:
+                # Chrome-trace JSON capped under MAX_FRAME (newest traces
+                # win); flag bit 0 drains the buffer after export.
+                resp = wire.encode_response(
+                    seq, wire.RESP_TEXT, self.tracer.export_chrome_json(
+                        max_bytes=wire.MAX_FRAME - 256,
+                        drain=bool(count & 1)))
+            elif op == wire.OP_AUDIT:
+                resp = wire.encode_response(
+                    seq, wire.RESP_TEXT,
+                    self._audit_json(json.loads(key) if key else {}))
             else:  # HELLO past the connection gate
                 resp = wire.encode_response(
                     seq, wire.RESP_ERROR, f"unknown op {op}")
@@ -506,6 +1012,14 @@ class BucketStoreServer:
         admission, one store call (one launch on a card store)."""
         seq, key, count, a, b, tenant, ta, tb, priority = (
             wire.decode_hierarchical_request(body))
+        hh = self.heavy_hitters
+        if hh is not None and count > 0:
+            # Cost-weighted: an N-token admission weighs N in the sketch,
+            # so hot-COST keys surface as split candidates.
+            if count > 1:
+                hh.offer(key, count)
+            else:
+                hh.offer_buffered(key)
         res = await self.store.acquire_hierarchical(
             tenant, key, count, ta, tb, a, b, priority=priority)
         if res.granted and count > 0 and self.token_velocity is not None:
@@ -520,6 +1034,7 @@ class BucketStoreServer:
         call."""
         tenant, ta, tb, priority = wire.bulk_hier_tail(body)
         counts_np = np.asarray(counts, np.int64)
+        self._offer_bulk_hot(keys, counts_np)
         res = await self.store.acquire_hierarchical_many(
             [tenant] * len(keys), keys, counts_np, ta, tb, a, b,
             with_remaining=with_rem, priority=priority)
@@ -528,6 +1043,18 @@ class BucketStoreServer:
             if admitted > 0:
                 self.token_velocity.observe(tenant, float(admitted))
         return wire.encode_bulk_response(seq, res.granted, res.remaining)
+
+    def _offer_bulk_hot(self, keys, counts) -> None:
+        """Cost-weighted heavy-hitter feed for the bulk lane: ``offer_blob``
+        aggregates straight off the frame's byte blob (a bounded sample and
+        a top-K merge, no string per key), weighted in tokens."""
+        hh = self.heavy_hitters
+        if hh is None:
+            return
+        if isinstance(keys, wire.KeyBlob):
+            hh.offer_blob(keys.blob, keys.offsets, counts)
+        else:
+            hh.offer_many(keys, np.asarray(counts, np.float64))
 
     # -- estimate-reserve-settle (runtime/reservations.py) --------------------
     async def _serve_reserve(self, seq: int, req: dict) -> bytes:
@@ -560,10 +1087,71 @@ class BucketStoreServer:
             return wire.encode_response(
                 seq, wire.RESP_ERROR,
                 "this server has no reservation ledger")
+        est = float(estimate) if estimate else None
+        if est is None:
+            est = led.prior.estimate(tenant, priority)
+            if est is None:
+                est = led.default_estimate
+        # fallback_charge floors an estimate-less charge at the ledger's
+        # DEFAULT_ESTIMATE (the charge the sketch and the pool route see).
+        charge = reservations.fallback_charge(est)
         if attempt:
             self.retry_attempts_seen += 1
-        # Not ported here: the retry-shed and doomed-work answers, the
-        # overflow-pool route-to-pool redirect and the heavy-hitter offer.
+            if self.retry_shed_enabled:
+                # The reservation lane's retry-shed answer is a plain deny
+                # (granted False) — terminal to the client, the posture a
+                # storm needs; a routable error would invite another retry.
+                self.retries_shed += 1
+                self.requests_shed += 1
+                return wire.encode_response(
+                    seq, wire.RESP_TEXT, json.dumps(
+                        {"granted": False, "reserved": 0.0,
+                         "remaining": 0.0, "debt": 0.0,
+                         "duplicate": False, "shed": "retry"}))
+        if self.doomed_gate_enabled and deadline_s is not None:
+            p99 = (self.serving_latency.p99
+                   if self.serving_latency.total else 0.0)
+            if p99 > deadline_s:
+                self.requests_doomed += 1
+                self.requests_shed += 1
+                return wire.encode_response(
+                    seq, wire.RESP_TEXT, json.dumps(
+                        {"granted": False, "reserved": 0.0,
+                         "remaining": 0.0, "debt": 0.0,
+                         "duplicate": False, "shed": "doomed"}))
+        pool = self.overflow_pool
+        if (pool is not None and deadline_s is not None
+                and priority == admission.PRIORITY_INTERACTIVE):
+            # Budget-aware pool routing: when the estimate will not fit
+            # the interactive pool's remaining tenant budget inside the
+            # client's deadline, answer the routable route-to-pool
+            # redirect (the client chases it once) — never a grant the
+            # budget cannot honor in time. The peek reads the card (one
+            # slot) on a card store.
+            peek = getattr(self.store, "peek_blocking", None)
+            balance = None
+            if callable(peek):
+                try:
+                    balance = peek(tenant, ta, tb)
+                except Exception:  # drl-check: ok(swallowed-exception)
+                    # — a backing without a sync peek lane degrades to
+                    # routing-off; the reserve itself still runs and is
+                    # the visible outcome.
+                    balance = None
+            if (balance is not None
+                    and charge > balance + tb * max(0.0, deadline_s)):
+                self.reserves_routed += 1
+                return wire.encode_response(
+                    seq, wire.RESP_ERROR,
+                    reservations.route_message(
+                        str(pool.get("pool", "overflow")),
+                        float(pool.get("ta", ta)),
+                        float(pool.get("tb", tb)),
+                        int(pool.get("priority",
+                                     admission.PRIORITY_BATCH))))
+        hh = self.heavy_hitters
+        if hh is not None and charge > 1:
+            hh.offer(key, charge)
         res = await led.reserve(rid, tenant, key, estimate, ta, tb,
                                 a, b, priority=priority, ttl_s=ttl_s,
                                 attempt=attempt, deadline_s=deadline_s)
@@ -644,6 +1232,13 @@ class BucketStoreServer:
                                 "samples": hist.total}
         if stages:
             payload["stages"] = stages
+        if self._snapshot_chain is not None:
+            payload["snapshot_chain"] = self._snapshot_chain.stats()
+            dirty = getattr(self.store, "dirty_stats", None)
+            if callable(dirty):
+                payload["snapshot_chain"]["dirty"] = dirty()
+        if self.heavy_hitters is not None:
+            payload["hot_keys"] = self.heavy_hitters.snapshot()
         if (self.token_velocity is not None
                 and self.token_velocity.observed_tokens > 0):
             payload["token_velocity"] = self.token_velocity.snapshot()
@@ -651,16 +1246,48 @@ class BucketStoreServer:
             # stats() piggybacks one TTL-expiry pass — a scraped-but-idle
             # server still auto-settles dead clients' holds.
             payload["reservations"] = self.reservations.stats()
-        if self.retry_attempts_seen:
-            payload["retry"] = {"attempts_seen": self.retry_attempts_seen}
-        if self._snapshot_chain is not None:
-            payload["snapshot_chain"] = self._snapshot_chain.stats()
-            dirty = getattr(self.store, "dirty_stats", None)
-            if callable(dirty):
-                payload["snapshot_chain"]["dirty"] = dirty()
+        # Goodput under overload: emitted once deadline/attempt-stamped
+        # traffic or a gate has left a mark (or a gate is armed), so the
+        # idle OP_STATS shape is untouched.
+        goodput = self._goodput_numeric_stats()
+        retry = self._retry_numeric_stats()
+        if any(goodput.values()) or self.doomed_gate_enabled:
+            payload["goodput"] = goodput
+        if any(retry.values()) or self.retry_shed_enabled:
+            payload["retry"] = retry
+        if self.flight_recorder is not None:
+            payload["flight_recorder"] = self.flight_recorder.snapshot()
+        if self.tracer.enabled:
+            payload["tracing"] = self.tracer.snapshot()
+        if self.auditor is not None:
+            payload["audit"] = self.auditor.snapshot()
         return json.dumps(payload)
 
+    def _audit_json(self, req: "dict | None" = None) -> str:
+        """OP_AUDIT / ``GET /audit`` body: the conservation snapshot, plus
+        the newest ``req["bundles"]`` black-box incident bundles when asked
+        (bundles carry whole flight/trace windows — heavy, so they ship
+        only on request)."""
+        out: dict = {"enabled": self.auditor is not None}
+        if self.auditor is not None:
+            out.update(self.auditor.snapshot())
+            n = int((req or {}).get("bundles", 0) or 0)
+            if n > 0:
+                out["bundles"] = list(self.auditor.bundles)[-n:]
+        return json.dumps(out, default=repr)
+
     async def aclose(self) -> None:
+        if self._audit_task is not None:
+            self._audit_task.cancel()
+            try:
+                await self._audit_task
+            except asyncio.CancelledError:
+                pass
+            self._audit_task = None
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            await self._metrics_server.wait_closed()
+            self._metrics_server = None
         if self._server is not None:
             self._server.close()
         # Cancel live connection handlers BEFORE wait_closed(): since
@@ -725,10 +1352,24 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--auth-token", default=None,
                         help="shared secret; when set, clients must HELLO "
                         "with it before any other op (≙ Redis AUTH)")
+    parser.add_argument("--metrics-port", type=int, default=None,
+                        help="serve the OpenMetrics exposition over HTTP "
+                        "on this port (GET /metrics, /flight, /audit, "
+                        "/traces; 0 picks a free port). The same text is "
+                        "always available on the wire as OP_METRICS.")
+    parser.add_argument("--flight-dir", default=None,
+                        help="flight-recorder dump directory (default "
+                        "$DRL_TPU_FLIGHT_DIR or the system tempdir)")
+    parser.add_argument("--no-observability", action="store_true",
+                        help="disable the observability plane (heavy-"
+                        "hitter telemetry, flight recorder, token "
+                        "velocity, conservation audit); stage latency "
+                        "stamps and OP_STATS remain")
     parser.add_argument("--trace", action="store_true",
                         help="enable distributed tracing: sampled requests "
                         "record span trees (client wire, server dispatch, "
-                        "batcher, kernel launch)")
+                        "batcher, kernel launch), exported as Perfetto-"
+                        "loadable JSON on GET /traces and OP_TRACES")
     parser.add_argument("--trace-sample", type=float, default=0.01,
                         help="head-sampling rate: fraction of new traces "
                         "recorded at all")
@@ -783,6 +1424,9 @@ def main(argv: list[str] | None = None) -> None:
         server = BucketStoreServer(
             store, host=args.host, port=args.port,
             snapshot_path=args.snapshot_path, auth_token=args.auth_token,
+            metrics_port=args.metrics_port,
+            observability=not args.no_observability,
+            flight_dir=args.flight_dir,
             tracing_config={
                 "enabled": True,
                 "sample_rate": args.trace_sample,
@@ -792,6 +1436,10 @@ def main(argv: list[str] | None = None) -> None:
             snapshot_incremental=args.snapshot_incremental)
         host, port = await server.start()
         print(f"bucket-store server listening on {host}:{port}", flush=True)
+        if server.metrics_port is not None:
+            print(f"metrics exposition on "
+                  f"http://{host}:{server.metrics_port}/metrics",
+                  flush=True)
         term = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGTERM, signal.SIGINT):

@@ -62,7 +62,7 @@ from distributedratelimiting.redis_tpu_torch.runtime.clock import (
 from distributedratelimiting.redis_tpu_torch.runtime.directory import (
     make_directory,
 )
-from distributedratelimiting.redis_tpu_torch.utils import log
+from distributedratelimiting.redis_tpu_torch.utils import faults, log
 from distributedratelimiting.redis_tpu_torch.utils.metrics import StoreMetrics
 from distributedratelimiting.redis_tpu_torch.utils.tracing import (
     Profiler,
@@ -689,6 +689,7 @@ class _PackedLaunchMixin:
             max_inflight=store.max_inflight,
             flush_latency=store.metrics.flush_latency,
             queue_latency=store.metrics.queue_latency,
+            flush_observer=store._flush_observer,
         )
 
     def resolve_slots(self, keys: list[str]) -> np.ndarray:
@@ -726,6 +727,8 @@ class _PackedLaunchMixin:
         self.n_slots = 2 * old_n
 
     async def _flush(self, reqs: Sequence[_AcquireReq]) -> list[AcquireResult]:
+        if faults._INJECTOR is not None:  # chaos seam; no-op in prod
+            await faults._INJECTOR.on_event("store.flush")
         groups = (self._coalesce(reqs)
                   if self.store.coalesce_duplicates else None)
         loop = asyncio.get_running_loop()
@@ -1311,7 +1314,8 @@ class DeviceBucketStore(BucketStore):
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
         self.clock = clock or MonotonicClock()
-        self.profiler = Profiler(profiling_session)
+        self.profiler = Profiler(profiling_session,
+                                 nvtx=self.device.type == "cuda")
         # Flush-level same-key coalescing (False = every request is its own
         # launch row, serialized by the host prefix).
         self.coalesce_duplicates = coalesce_duplicates
@@ -1351,6 +1355,26 @@ class DeviceBucketStore(BucketStore):
             # hot-path acquire.
             torch.zeros((8,), device=self.device).sum().item()
             self._connected = True
+
+    def _flush_observer(self, n: int, wall_s: float,
+                        error: str | None,
+                        trace_id: str | None = None) -> None:
+        """Per-flush flight-recorder feed (MicroBatcher ``flush_observer``).
+        One attribute check per flush when no recorder is attached; a
+        flush FAILURE is the store's degraded-mode entry, so it also fires
+        a rate-limited auto-dump — the outage window's lead-in frames land
+        on disk while they still exist. ``trace_id`` (the flush's elected
+        trace, when any member was sampled) stamps the frame so a flight
+        dump cross-references its exported trace. Host bookkeeping only:
+        it never touches the card."""
+        rec = self.metrics.flight_recorder
+        if rec is None:
+            return
+        rec.record("flush", n=n, wall_ms=round(wall_s * 1e3, 3),
+                   error=error, trace_id=trace_id)
+        if error is not None:
+            rec.auto_dump("flush_error", {"error": error,
+                                          "trace_id": trace_id})
 
     def now_ticks_checked(self) -> int:
         """Read the store clock; rebase every table's epoch before int32

@@ -1,26 +1,45 @@
 """Tracing — the per-command profiling seam and request-scoped spans.
 
-The part of the JAX package's ``utils/tracing.py`` that the micro-batcher
-and the store use:
+The JAX package's ``utils/tracing.py`` on PyTorch:
 
 1. The reference's ``ProfilingSession`` seam (StackExchange.Redis): a
    factory returns the session that per-command timings accrue to. Here the
    "commands" are kernel launches — :class:`ProfilingSession` /
    :class:`Profiler` below are that seam.
 2. :class:`Tracer`: a :class:`TraceContext` (128-bit trace id, 64-bit span
-   id, sampled flag) re-parents the micro-batcher's queue/flush spans and
-   the store's launch spans; completed traces land in a bounded buffer,
-   tail-sampled (traces ending ``denied``/``queued``/``error``/``degraded``
-   or exceeding a latency threshold are always kept).
+   id, sampled flag — the W3C ``traceparent`` triple) starts at the client
+   wire layer, rides every frame as a version-gated optional tail, and
+   re-parents each hop's spans: server dispatch → micro-batcher
+   queue/flush → store kernel launch. Completed traces land in a bounded
+   buffer, tail-sampled (traces ending ``denied``/``queued``/``error``/
+   ``degraded`` or exceeding a latency threshold are always kept), and
+   export as Chrome-trace-event JSON loadable in Perfetto /
+   chrome://tracing (``OP_TRACES``, ``GET /traces``).
+3. The device seam: every timed store dispatch is also a range named
+   ``drl/<command>`` — a ``torch.profiler.record_function`` (seen by a
+   torch.profiler trace, on the host and beside the card's kernels) and,
+   on a CUDA store, an NVTX range (seen by Nsight Systems).
+   :func:`start_device_trace` / :func:`stop_device_trace` take one
+   ``torch.profiler`` trace of the host and the card and write it as a
+   Chrome trace. Ranges must nest strictly per thread, so spans that wrap
+   ``await``s (which interleave on one event loop) pass
+   ``annotate=False``.
 
-The default (tracer disabled, no profiling factory) path is
-allocation-free: ``span``/``start_span`` return a shared no-op context
-manager. Chrome-trace export and device-trace annotations are not ported
-yet.
+Sampling model (the <3% serving-overhead contract, audited by the bench's
+``serving_metrics_overhead`` section): a head-sampling coin at trace start
+decides whether the request records at all — a non-sampled request takes
+the shared :data:`_NULL_SPAN` everywhere, no allocation, no wire tail; among
+recorded traces any status other than ``ok`` or any span at or above
+``latency_threshold_s`` keeps the trace, boring ones survive with
+``keep_rate``. The default (tracer disabled, no profiling factory, no device
+trace) path is allocation-free: ``span``/``start_span`` return a shared
+no-op context manager.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import random
 import threading
 import time
@@ -39,6 +58,10 @@ __all__ = [
     "get_tracer",
     "configure",
     "current_context",
+    "current_span",
+    "mark",
+    "start_device_trace",
+    "stop_device_trace",
 ]
 
 
@@ -238,6 +261,9 @@ class Tracer:
         self.traces_kept = 0
         self.traces_dropped = 0
         self.traces_evicted = 0
+        # Wall-clock anchor for export: span stamps are perf_counter
+        # (CLOCK_MONOTONIC), one shared offset maps them to epoch µs.
+        self._wall_base = time.time() - time.perf_counter()
 
     def configure(self, **kw) -> None:
         """Update knobs in place (the module-level :func:`configure`
@@ -379,7 +405,7 @@ class Tracer:
             "spans": spans,
         })
 
-    # -- read-out -----------------------------------------------------------
+    # -- export -------------------------------------------------------------
     def traces(self, drain: bool = False) -> list[dict]:
         """Finished (kept) traces, newest last, entries with one trace id
         merged. ``drain=True`` empties the buffer."""
@@ -396,6 +422,91 @@ class Tracer:
             else:
                 tgt["spans"].extend(e["spans"])
         return list(merged.values())
+
+    def export_chrome(self, drain: bool = False,
+                      max_traces: int | None = None) -> dict:
+        """Chrome-trace-event JSON (the ``traceEvents`` array form) —
+        loadable directly in Perfetto / chrome://tracing. One complete
+        (``ph: "X"``) event per span; each trace renders as its own
+        thread row; span/parent/trace ids and status travel in
+        ``args`` so the UI's selection pane cross-references the
+        exemplar and flight-recorder ids."""
+        traces = self.traces(drain=drain)
+        if max_traces is not None:
+            traces = traces[-max_traces:]
+        return self._chrome_export(traces)
+
+    def _chrome_export(self, traces: list[dict]) -> dict:
+        events: list[dict] = [
+            {"ph": "M", "pid": 1, "tid": 0, "name": "process_name",
+             "args": {"name": self.service}},
+        ]
+        for tid, trace in enumerate(traces, start=1):
+            events.append({"ph": "M", "pid": 1, "tid": tid,
+                           "name": "thread_name",
+                           "args": {"name": trace["trace_id"]}})
+            for s in trace["spans"]:
+                ev = {
+                    "ph": "X",
+                    "pid": 1,
+                    "tid": tid,
+                    "name": s["name"],
+                    "cat": s["status"],
+                    "ts": (self._wall_base + s["start_s"]) * 1e6,
+                    "dur": s["dur_s"] * 1e6,
+                    "args": {
+                        "trace_id": trace["trace_id"],
+                        "span_id": f"{s['span_id']:016x}",
+                        "parent_span_id": f"{s['parent_id']:016x}",
+                        "status": s["status"],
+                    },
+                }
+                if s.get("attrs"):
+                    ev["args"].update(s["attrs"])
+                events.append(ev)
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def export_chrome_json(self, max_bytes: int | None = None,
+                           drain: bool = False) -> str:
+        """Serialized :meth:`export_chrome`, optionally size-capped for
+        transports with a frame bound (the ``OP_TRACES`` wire op): the
+        newest traces that fit ``max_bytes`` survive. The buffer is
+        read (and, when asked, drained) exactly ONCE — the size cap
+        halves a snapshot, so capping never costs traces beyond those
+        it drops from the oversized export itself."""
+        traces = self.traces(drain=drain)
+        while True:
+            text = json.dumps(self._chrome_export(traces),
+                              separators=(",", ":"))
+            if max_bytes is None or len(text) <= max_bytes or not traces:
+                return text
+            # Keep the newest half; a single oversized trace drops to
+            # the bare metadata export rather than looping forever.
+            traces = (traces[-(len(traces) // 2):]
+                      if len(traces) > 1 else [])
+
+    def snapshot(self) -> dict:
+        """Counters for OP_STATS / the metrics registry."""
+        with self._lock:
+            return {
+                "enabled": self.enabled,
+                "sample_rate": self.sample_rate,
+                "spans_recorded": self.spans_recorded,
+                "traces_kept": self.traces_kept,
+                "traces_dropped": self.traces_dropped,
+                "traces_evicted": self.traces_evicted,
+                "traces_buffered": len(self._finished),
+                "traces_active": len(self._active),
+            }
+
+    def reset(self) -> None:
+        with self._lock:
+            self._active.clear()
+            self._finished.clear()
+            self.spans_recorded = 0
+            self.traces_kept = 0
+            self.traces_dropped = 0
+            self.traces_evicted = 0
 
 
 #: Process-global tracer: every layer references it at call time, so one
@@ -415,6 +526,10 @@ def configure(**kw) -> Tracer:
     return _GLOBAL_TRACER
 
 
+def current_span() -> "Span | None":
+    return _CURRENT.get()
+
+
 def current_context() -> TraceContext | None:
     """The ambient span's wire-propagatable context (``None`` untraced) —
     what callers capture BEFORE hopping threads/loops, where the context
@@ -423,45 +538,77 @@ def current_context() -> TraceContext | None:
     return None if span is None else span.context
 
 
+def mark(status: str) -> None:
+    """Set the ambient span's status (``queued``, ``degraded``, …) — the
+    hook non-wire layers use to make the tail sampler keep a trace."""
+    span = _CURRENT.get()
+    if span is not None:
+        span.set_status(status)
+
+
 class Profiler:
     """Per-store profiler facade. ``session_factory`` may return ``None``
     to skip recording a given command (the StackExchange contract).
     When the global tracer has an ambient trace, every profiled span is
     ALSO recorded as a child span named ``store.<command>`` — the
     existing dispatch sites double as the kernel-launch layer of the
-    distributed trace."""
+    distributed trace.
 
-    __slots__ = ("session_factory",)
+    A timed dispatch is also a ``drl/<command>`` range (module docstring):
+    a ``torch.profiler.record_function``, and with ``nvtx`` (the store's
+    tensors are on a CUDA device) an NVTX range. Dispatches are timed when
+    a session factory is registered, an ambient trace is active, or a
+    device trace (:func:`start_device_trace`) is running."""
+
+    __slots__ = ("session_factory", "nvtx")
 
     def __init__(
         self,
         session_factory: Callable[[], ProfilingSession | None] | None = None,
+        *, nvtx: bool = False,
     ) -> None:
         self.session_factory = session_factory
+        self.nvtx = nvtx
 
     @property
     def enabled(self) -> bool:
         return self.session_factory is not None
 
-    def span(self, command: str, rows: int = 1, *, enabled: bool = True):
+    def span(self, command: str, rows: int = 1, *, annotate: bool = True,
+             enabled: bool = True):
         """Context manager timing one dispatch. No-op (shared, allocation
-        free) unless a session factory is registered or an ambient trace
-        is active. ``enabled=False`` forces the no-op — for inner
-        dispatches whose rows an outer span already counted."""
+        free) unless a session factory is registered, an ambient trace is
+        active or a device trace is running.
+
+        ``annotate=False`` skips the ``drl/`` range: ranges must nest
+        strictly per thread, so spans that wrap ``await``s which
+        interleave on one event loop (the remote client's wire
+        round-trips) record timings only. ``enabled=False`` forces the
+        no-op — for inner dispatches whose rows an outer span already
+        counted (the coalesced-acquire flush would double-count its
+        requests otherwise)."""
         if not enabled:
             return _NULL_SPAN
         traced = _GLOBAL_TRACER.enabled and _CURRENT.get() is not None
-        if self.session_factory is None and not traced:
+        if (self.session_factory is None and not traced
+                and _DEVICE_TRACE is None):
             return _NULL_SPAN
-        return self._timed_span(command, rows, traced)
+        return self._timed_span(command, rows, annotate, traced)
 
     @contextmanager
-    def _timed_span(self, command: str, rows: int,
+    def _timed_span(self, command: str, rows: int, annotate: bool,
                     traced: bool = False) -> Iterator[None]:
         session = self.session_factory() if self.session_factory else None
         tspan = (_GLOBAL_TRACER.start_span(f"store.{command}",
                                            attrs={"rows": rows})
                  if traced else _NULL_SPAN)
+        if annotate:
+            record_function, push, pop = _annotations()
+            name = f"drl/{command}"
+            rf = record_function(name)
+            rf.__enter__()
+            if self.nvtx:
+                push(name)
         start = time.perf_counter()
         try:
             yield
@@ -469,8 +616,70 @@ class Profiler:
             tspan.set_status("error")
             raise
         finally:
+            if annotate:
+                if self.nvtx:
+                    pop()
+                rf.__exit__(None, None, None)
             tspan.end()
             if session is not None:
                 session.record(ProfiledCommand(
                     command, start, time.perf_counter() - start, rows,
                 ))
+
+
+#: ``(torch.profiler.record_function, nvtx.range_push, nvtx.range_pop)``,
+#: resolved once: an annotated dispatch must not re-run the ``import
+#: torch`` machinery inside every span. Resolved lazily, so importing this
+#: module never imports torch (pure-wire clients import it via remote.py).
+_ANNOTATIONS = None
+#: The running :func:`start_device_trace` profile and its directory.
+_DEVICE_TRACE = None
+_DEVICE_TRACE_DIR: "str | None" = None
+
+
+def _annotations():
+    global _ANNOTATIONS
+    if _ANNOTATIONS is None:
+        import torch
+
+        _ANNOTATIONS = (torch.profiler.record_function,
+                        torch.cuda.nvtx.range_push,
+                        torch.cuda.nvtx.range_pop)
+    return _ANNOTATIONS
+
+
+def start_device_trace(logdir: str) -> None:
+    """Begin one ``torch.profiler`` trace of the host and, when a CUDA
+    device is present, the card: every store dispatch from here on is
+    timed and appears as a ``drl/<command>`` range beside the kernels it
+    launched. The GPU analogue of attaching a wire-level profiler to the
+    Redis connection; :func:`stop_device_trace` writes it out."""
+    global _DEVICE_TRACE, _DEVICE_TRACE_DIR
+    import torch
+
+    if _DEVICE_TRACE is not None:
+        raise RuntimeError("a device trace is already running")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    _DEVICE_TRACE, _DEVICE_TRACE_DIR = prof, logdir
+
+
+def stop_device_trace() -> str:
+    """Stop the running device trace and write it into its ``logdir`` as a
+    Chrome trace (``drl_device_trace_<pid>_<n>.json``, loadable in Perfetto
+    or chrome://tracing); returns the file's path."""
+    global _DEVICE_TRACE, _DEVICE_TRACE_DIR
+    prof, logdir = _DEVICE_TRACE, _DEVICE_TRACE_DIR
+    if prof is None:
+        raise RuntimeError("no device trace is running")
+    _DEVICE_TRACE = _DEVICE_TRACE_DIR = None
+    prof.stop()
+    os.makedirs(logdir, exist_ok=True)
+    n = sum(1 for f in os.listdir(logdir)
+            if f.startswith(f"drl_device_trace_{os.getpid()}_"))
+    path = os.path.join(logdir, f"drl_device_trace_{os.getpid()}_{n}.json")
+    prof.export_chrome_trace(path)
+    return path

@@ -27,9 +27,12 @@ new modules' independence from JAX.
 
 import asyncio
 import os
+import queue
 import signal
 import subprocess
 import sys
+import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -340,6 +343,12 @@ def test_unported_ops_answer_without_the_old_peer_words():
             # admission were ported.
             assert not pserver._UNPORTED_BULK_KINDS
             assert not {pw.OP_SEMA, pw.OP_ACQUIRE_H} & pserver._UNPORTED_OPS
+            # Since the observability plane: only placement, migration,
+            # live config and federation remain.
+            assert pserver._UNPORTED_OPS == {
+                pw.OP_PLACEMENT, pw.OP_PLACEMENT_ANNOUNCE,
+                pw.OP_MIGRATE_PULL, pw.OP_MIGRATE_PUSH, pw.OP_CONFIG,
+                pw.OP_FED_LEASE, pw.OP_FED_RENEW, pw.OP_FED_RECLAIM}
             frames = []
             for op in sorted(pserver._UNPORTED_OPS):
                 frames.append(pw.encode_request(
@@ -481,34 +490,91 @@ def test_a_full_save_server_reports_no_chain(tmp_path):
     assert os.listdir(tmp_path) == ["s"]
 
 
+#: Seconds a console child may take to print a line, to exit after
+#: SIGTERM, or to die after a kill: every wait on a child is bounded.
+CHILD_LINE_S = 120.0
+CHILD_EXIT_S = 30.0
+
+
 def _console(*args):
+    """The console server as a child: its stdout read line by line on a
+    thread of its own (so a read can time out), its stderr into a file (a
+    pipe nobody reads can fill and stall the child)."""
     env = dict(os.environ, PYTHONPATH=ROOT)
-    return subprocess.Popen(
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
         [sys.executable, "-m",
          "distributedratelimiting.redis_tpu_torch.runtime.server",
          "--port", "0", *args],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT)
+        stdout=subprocess.PIPE, stderr=err, text=True, env=env, cwd=ROOT)
+    proc.err_file = err
+    proc.lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            proc.lines.put(line)
+        proc.lines.put(None)  # EOF
+
+    proc.pump = threading.Thread(target=pump, daemon=True)
+    proc.pump.start()
+    return proc
+
+
+def _stderr(proc) -> str:
+    proc.err_file.seek(0)
+    return proc.err_file.read()
+
+
+def _readline(proc) -> str:
+    """The child's next stdout line ("" at EOF), waiting at most
+    CHILD_LINE_S."""
+    try:
+        line = proc.lines.get(timeout=CHILD_LINE_S)
+    except queue.Empty:
+        raise AssertionError(
+            f"no line from the console in {CHILD_LINE_S} s: "
+            f"{_stderr(proc)[-2000:]}") from None
+    return "" if line is None else line
 
 
 def _console_address(proc):
     """The console server's address, and the lines it printed before its
     listening line (the restore's)."""
     before = []
-    line = proc.stdout.readline()
+    line = _readline(proc)
     while line.startswith(("restored", "WARNING", "starting")):
         before.append(line)
-        line = proc.stdout.readline()
+        line = _readline(proc)
     assert line.startswith("bucket-store server listening on "), (
-        line, proc.stderr.read() if proc.poll() is not None else "")
+        line, _stderr(proc) if proc.poll() is not None else "")
     host, port = line.rsplit(" ", 1)[1].strip().rsplit(":", 1)
     return before, (host, int(port))
 
 
+def _rest(proc) -> str:
+    """Everything the (exited) child printed after the lines read so far."""
+    proc.pump.join(timeout=CHILD_EXIT_S)
+    out = []
+    while not proc.lines.empty():
+        line = proc.lines.get_nowait()
+        if line is not None:
+            out.append(line)
+    return "".join(out)
+
+
 def _stop(proc) -> str:
     proc.send_signal(signal.SIGTERM)
-    assert proc.wait(timeout=20) == 0
-    return proc.stdout.read()
+    assert proc.wait(timeout=CHILD_EXIT_S) == 0, _stderr(proc)
+    return _rest(proc)
+
+
+def _kill(proc) -> None:
+    """The finally-clause cleanup: kill a child still running, and wait
+    for it with a bound."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=CHILD_EXIT_S)
+    proc.err_file.close()
 
 
 @pytest.mark.parametrize("backend", ["inprocess", "device"])
@@ -560,9 +626,7 @@ def test_console_server_restarts_on_its_chain(tmp_path, backend):
                                                         "total": 203}
         assert "final checkpoint" in _stop(proc)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        _kill(proc)
     assert sorted(os.listdir(tmp_path)) == [
         "snap.pkl", "snap.pkl.delta.1", "snap.pkl.delta.2"]
     proc = _console(*args)
@@ -572,16 +636,17 @@ def test_console_server_restarts_on_its_chain(tmp_path, backend):
         assert asyncio.run(second(addr)) == [0.0, 7.0, 6.0, 8.0]
         _stop(proc)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        _kill(proc)
 
 
 def test_console_refuses_incremental_without_a_path():
     proc = _console("--snapshot-incremental", "--device", "cpu")
-    _, err = proc.communicate(timeout=60)
-    assert proc.returncode == 2
-    assert "--snapshot-incremental requires --snapshot-path" in err
+    try:
+        assert proc.wait(timeout=60) == 2
+        assert ("--snapshot-incremental requires --snapshot-path"
+                in _stderr(proc))
+    finally:
+        _kill(proc)
 
 
 def test_checkpoint_errors_are_typed(tmp_path):
@@ -767,19 +832,10 @@ def test_client_timeout_and_dial_failure():
 
 
 def test_console_server_starts_answers_and_exits_on_sigterm():
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.Popen(
-        [sys.executable, "-m",
-         "distributedratelimiting.redis_tpu_torch.runtime.server",
-         "--device", "cpu", "--port", "0", "--slots", "1024",
-         "--sweep-period", "0.5"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT)
+    proc = _console("--device", "cpu", "--slots", "1024",
+                    "--sweep-period", "0.5")
     try:
-        line = proc.stdout.readline()
-        assert line.startswith("bucket-store server listening on "), (
-            line, proc.stderr.read() if proc.poll() is not None else "")
-        host, port = line.rsplit(" ", 1)[1].strip().rsplit(":", 1)
+        _, (host, port) = _console_address(proc)
 
         async def main():
             cli = JRemote(address=(host, int(port)))
@@ -794,13 +850,9 @@ def test_console_server_starts_answers_and_exits_on_sigterm():
             await cli.aclose()
 
         asyncio.run(main())
-        proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=20) == 0
-        assert "shutdown complete" in proc.stdout.read()
+        assert "shutdown complete" in _stop(proc)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        _kill(proc)
 
 
 def test_new_modules_import_without_jax():
@@ -811,6 +863,13 @@ def test_new_modules_import_without_jax():
         "import distributedratelimiting.redis_tpu_torch.runtime.checkpoint\n"
         "import distributedratelimiting.redis_tpu_torch.runtime.wire\n"
         "import distributedratelimiting.redis_tpu_torch.utils.resilience\n"
+        "import distributedratelimiting.redis_tpu_torch.runtime.audit\n"
+        "import distributedratelimiting.redis_tpu_torch.utils.faults\n"
+        "import distributedratelimiting.redis_tpu_torch.utils.flight_recorder\n"
+        "import distributedratelimiting.redis_tpu_torch.utils.heavy_hitters\n"
+        "import distributedratelimiting.redis_tpu_torch.utils.metrics\n"
+        "import distributedratelimiting.redis_tpu_torch.utils.slo\n"
+        "import distributedratelimiting.redis_tpu_torch.utils.tracing\n"
         "print(any(m == 'jax' or m.startswith(('jax.', "
         "'distributedratelimiting.redis_tpu.'))\n"
         "          for m in sys.modules if sys.modules[m] is not None))\n"
