@@ -175,8 +175,8 @@ Phases (any failure raises, and the script exits non-zero):
    (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
    ``serving_p99_instant`` sections once each with short windows (no key
    null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
-   alone (``--paths`` takes any of the paths of phases 3–10 and 12, comma-
-   separated).
+   alone (``--paths`` takes any of the paths of phases 3–10, 12 and 13,
+   comma-separated).
 9. The observability and overload plane (``--paths observability``), at
    the server cell's size: ``BucketStoreServer(observability=True,
    metrics_port=0, flight_dir=<tmp>, audit=AuditConfig(tick_s=0.05),
@@ -239,20 +239,47 @@ Phases (any failure raises, and the script exits non-zero):
    single-batch sections at their full widths (10M slots, 32 x 8192, 16 x
    8192, B = 8192), five timed dispatches each; the launches must be the
    sections' dispatches exactly, and the table sane after them.
-13. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
-   of phases 3–10 and 12 (``launches_by_path``; counts set to 0 before each
+13. The native front-end and tier-0 (``--paths native``;
+   ``runtime/native_frontend.py`` over ``native/frontend.cc``, built at first
+   use): ``BucketStoreServer(native_frontend=True)`` over a card
+   ``DeviceBucketStore`` of 2^24 slots. From a client process of its own
+   (``chip_smoke.py --native-client``), 100,000 ``ACQUIRE`` frames from
+   ``native_loadgen`` (4 connections; its keys, round-robin over a 1M
+   keyspace) at depth 64 and 256, the server's C histogram p50/p99 beside
+   each, and the same client against the port's asyncio listener over the
+   same store at depth 64 (25,000 frames); cap-5 x 32 -> 5 through the native batch lane for
+   buckets, sliding and fixed windows and semaphores; a seeded mixed
+   sequence (ACQUIRE with probes, WINDOW, FWINDOW, SEMA acquire then release
+   on one key, PEEK, HELLO, chained ACQUIRE_MANY chunks, a malformed frame)
+   on a ManualClock, its replies byte for byte and the store's state equal to
+   the asyncio server's over an equal card store, tier-0 off; tier-0 (a hot
+   set of 4 keys of 20,000 tokens, 40,000 requests each, and a cold tail of
+   40,000 keys): its hit rate,
+   ``overadmit_max`` within ``overadmit_epsilon(headroom_budget(cap))`` and
+   the hot grants equal to the device-only oracle's plus
+   ``overadmit_total``, an unexhausted key's ``peek`` showing the reconciled
+   debit, ``debit_packed`` launched; the 10M-key bulk as ``ACQUIRE_MANY``
+   frames in calls of 1M keys (the C lane parks at most 64 MB of a
+   connection's chained chunks), every row residue, decided by
+   ``acquire_scan``, grants and
+   remaining equal to the asyncio lane's over an equal store; shards 1 and
+   4 under the bulk loadgen (rows/s, ``local_frac``); the io_uring probe
+   and each shard's transport and fallback reason.
+14. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
+   of phases 3–10, 12 and 13 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
    two-level kernel and the debit > 0 on the reservation path, every
    store kernel but the window flushes > 0 on the checkpoint path, the
    bucket flushes, the bucket scan, the two-level kernel and the debit > 0
-   on the observability path, and every
+   on the observability path, the batch lane's flushes, the bulk scan and
+   the debit > 0 on the native path, and every
    kernel that a wire op reaches > 0 on the server path — all but the
    bench's ``acquire_scan24`` and ``acquire_batch``) and their sum
    (``launches``), the flushes',
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-14. Last line: ``{"ok": true, "device": {...}}``.
+15. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -5670,6 +5697,454 @@ async def bench_path(torch, ck, pkg, card: str) -> dict:
     return counts
 
 
+# -- phase 13: the native front-end and tier-0 (--paths native) -------------
+
+NATIVE_SEED = 1616
+NATIVE_REQS = 100_000          # ACQUIRE frames a depth (native_loadgen)
+NATIVE_KEYS = 1_000_000        # the loadgen's keyspace
+NATIVE_CONNS = 4
+NATIVE_DEPTHS = (64, 256)
+NATIVE_ASYNCIO_DEPTH = 64      # the asyncio lane beside it, same keys
+NATIVE_ASYNCIO_REQS = 25_000   # its requests (~7,600-13,200 a second)
+NATIVE_MIXED_FRAMES = 800      # the seeded mixed sequence
+NATIVE_T0_CAP = 20_000.0       # tier-0's exhausted hot keys (fill ~ 0)
+NATIVE_T0_REQS = 40_000        # a hot key's requests (one per connection)
+NATIVE_T0_COLD = 40_000        # the cold tail's requests (and keyspace)
+NATIVE_T0_PEEK = (1e6, 30_000)  # an unexhausted key: capacity, requests
+NATIVE_SHARD_FRAMES = 60       # bulk frames a connection (4,096 rows each)
+#: Keys a bulk call: the C lane parks a connection's chained chunks behind
+#: the one in flight up to 64 MB (frontend.cc kMaxConnOut), past which it
+#: answers an error and drops the connection; a 10M-key call is ~170 MB.
+NATIVE_BULK_CALL = 1_000_000
+NATIVE_SHARDS = (1, 4)
+#: The native servers' tier-0: the bench's cadence and ceiling.
+NATIVE_T0_SYNC_S = 0.01
+
+
+async def _native_client_run(host: str, port: int, mode: str,
+                             args: list) -> dict:
+    """The native path's client process (``chip_smoke.py --native-client
+    HOST PORT MODE ...``): C load generators (they block, so each runs in
+    a thread) and the server's own stats between them."""
+    import threading
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributedratelimiting.redis_tpu_torch.runtime.native_frontend import (  # noqa: E501
+        native_bulk_loadgen,
+        native_loadgen,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime.remote import (
+        RemoteBucketStore,
+    )
+
+    store = RemoteBucketStore(address=(host, port), coalesce_requests=False)
+    out: dict = {}
+    try:
+        if mode == "scalar":
+            reqs, keyspace, *depths = map(int, args)
+            for depth in depths:
+                await store.stats(reset=True)
+                replies, granted, el = await asyncio.to_thread(
+                    native_loadgen, host, port, conns=NATIVE_CONNS,
+                    depth=depth, reqs_per_conn=reqs // NATIVE_CONNS,
+                    keyspace=keyspace)
+                st = await store.stats()
+                out[f"d{depth}"] = {
+                    "replies": replies, "granted": granted, "s": el,
+                    "rate": replies / el, "p50_ms": st["serving_p50_ms"],
+                    "p99_ms": st["serving_p99_ms"],
+                    "samples": st["serving_samples"]}
+        elif mode == "tier0":
+            cap, reqs, cold, peek_cap, peek_reqs = map(float, args)
+            # The hot set: one key a connection (keyspace 1), exhausted.
+            replies, granted, el = await asyncio.to_thread(
+                native_loadgen, host, port, conns=NATIVE_CONNS, depth=64,
+                reqs_per_conn=int(reqs), keyspace=1, capacity=cap,
+                fill_rate=1e-9)
+            out["hot"] = {"replies": replies, "granted": granted, "s": el,
+                          "rate": replies / el}
+            # The cold tail: a keyspace of its own config, never exhausted.
+            replies, granted, el = await asyncio.to_thread(
+                native_loadgen, host, port, conns=NATIVE_CONNS, depth=64,
+                reqs_per_conn=int(cold) // NATIVE_CONNS,
+                keyspace=int(cold), capacity=1e7, fill_rate=1e7)
+            out["cold"] = {"replies": replies, "granted": granted,
+                           "s": el, "rate": replies / el}
+            # One key that stays unexhausted: its peek shows the debit.
+            replies, granted, el = await asyncio.to_thread(
+                native_loadgen, host, port, conns=1, depth=64,
+                reqs_per_conn=int(peek_reqs), keyspace=1,
+                capacity=peek_cap, fill_rate=1e-9)
+            out["peek"] = {"replies": replies, "granted": granted}
+        else:  # shards: the bulk loadgen from several threads
+            frames, n_threads = map(int, args)
+            rows_out: list = []
+
+            def one() -> None:
+                rows_out.append(native_bulk_loadgen(
+                    host, port, conns=4, depth=8, frames_per_conn=frames,
+                    rows_per_frame=4096, keyspace=64))
+
+            # Warm: connects and installs the 64 hot keys' replicas.
+            native_bulk_loadgen(host, port, conns=4, depth=2,
+                                frames_per_conn=10, rows_per_frame=1024,
+                                keyspace=64)
+            await store.stats(reset=True)
+            th = [threading.Thread(target=one) for _ in range(n_threads)]
+            t0 = time.perf_counter()
+            for t in th:
+                t.start()
+            for t in th:
+                t.join()
+            wall = time.perf_counter() - t0
+            st = await store.stats()
+            rows = sum(r for _f, r, _g, _el in rows_out)
+            out = {"rows": rows, "granted": sum(g for *_x, g, _el
+                                                in rows_out),
+                   "rows_per_s": rows / wall,
+                   "p50_ms": st["serving_p50_ms"],
+                   "p99_ms": st["serving_p99_ms"],
+                   "native_bulk": st.get("native_bulk"),
+                   "tier0_hit_rate": st.get("tier0", {}).get("hit_rate"),
+                   "per_shard_rows": [r["native_bulk"]["rows"]
+                                      for r in st.get("shards", [])]}
+    finally:
+        await store.aclose()
+    return out
+
+
+async def _native_client(host: str, port: int, mode: str, *args) -> dict:
+    """Run :func:`_native_client_run` in a process of its own (a client
+    host) and return its JSON line."""
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, os.path.abspath(__file__), "--native-client", host,
+        str(port), mode, *map(str, args), stdout=asyncio.subprocess.PIPE,
+        stderr=asyncio.subprocess.PIPE)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), 600)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"native client ({mode}) exited "
+                             f"{proc.returncode}: {err.decode()[-3000:]}")
+    return json.loads(out.decode().strip().splitlines()[-1])
+
+
+def _native_frames(rng, n: int) -> list:
+    """The seeded mixed sequence: ``(frames, advance_ticks)`` steps, each
+    one frame or a pipelined pair of chained ACQUIRE_MANY chunks, over a
+    few hot keys so limits bind. Covers ACQUIRE (probes too), WINDOW,
+    FWINDOW, SEMA acquire then release on one key, PEEK, HELLO and the
+    chained chunks; the malformed frame comes last, on its own."""
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    steps = []
+    seq = 1
+    keys = [f"mx{i}" for i in range(12)]
+    for _ in range(n):
+        kind = rng.integers(0, 8)
+        key = keys[int(rng.integers(0, len(keys)))]
+        tick = int(rng.integers(0, 3)) * 40
+        if kind <= 1:
+            fr = [wire.encode_request(seq, wire.OP_ACQUIRE, key,
+                                      int(rng.integers(0, 3)), 8.0, 4.0)]
+        elif kind == 2:
+            fr = [wire.encode_request(seq, wire.OP_WINDOW, key, 1, 6.0,
+                                      1.0)]
+        elif kind == 3:
+            fr = [wire.encode_request(seq, wire.OP_FWINDOW, key, 1, 5.0,
+                                      0.5)]
+        elif kind == 4:
+            # SEMA acquire then release on one key, pipelined.
+            fr = [wire.encode_request(seq, wire.OP_SEMA, "s" + key, 1, 3.0),
+                  wire.encode_request(seq + 1, wire.OP_SEMA, "s" + key, -1,
+                                      0.0)]
+        elif kind == 5:
+            fr = [wire.encode_request(seq, wire.OP_PEEK, key, 0, 8.0, 4.0)]
+        elif kind == 6:
+            fr = [wire.encode_request(seq, wire.OP_HELLO, "")]
+        else:
+            # Chained ACQUIRE_MANY chunks with repeats across the boundary.
+            ks = [keys[int(i)] for i in rng.integers(0, len(keys), 24)]
+            kb = [k.encode() for k in ks]
+            fr = [wire.encode_bulk_request(seq, kb[:12], np.ones(12),
+                                           8.0, 4.0),
+                  wire.encode_bulk_request(seq + 1, kb[12:], np.ones(12),
+                                           8.0, 4.0, chained=True)]
+        seq += len(fr)
+        steps.append((fr, tick))
+    # A malformed bulk frame (it declares more keys than it carries): the
+    # passthrough lane answers it with the asyncio handler's error.
+    bad = wire.encode_bulk_request(seq, [b"mx0", b"mx1"], np.ones(2), 8.0,
+                                   4.0)
+    bad = bad[:-4]
+    bad = len(bad[4:]).to_bytes(4, "little") + bad[4:]
+    steps.append(([bad], 0))
+    return steps
+
+
+async def _native_replay(addr, steps, clock) -> list:
+    """Send the steps on one connection, each step's frames pipelined and
+    its replies read before the next; the clock advances between steps.
+    Returns the replies, each step's sorted by seq."""
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    reader, writer = await asyncio.open_connection(*addr)
+    out = []
+    try:
+        for frames, tick in steps:
+            clock.advance_ticks(tick)
+            for fr in frames:
+                writer.write(fr)
+            await writer.drain()
+            got = []
+            for _ in frames:
+                body = await asyncio.wait_for(wire.read_frame(reader), 30)
+                if body is None:
+                    break
+                got.append(body)
+            out.extend(sorted(got, key=lambda b: b[1:5]))
+    finally:
+        writer.close()
+    return out
+
+
+async def native_path(torch, ck, pkg, card: str) -> dict:
+    """The native serving front-end and tier-0 on the card
+    (``native/frontend.cc`` through ``runtime/native_frontend.py``): a
+    ``BucketStoreServer(native_frontend=True)`` over a card
+    ``DeviceBucketStore`` of 2^24 slots, the server path's size. Returns
+    the kernel launches the path made."""
+    from distributedratelimiting.redis_tpu_torch.models.approximate import (
+        headroom_budget,
+        overadmit_epsilon,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+    from distributedratelimiting.redis_tpu_torch.runtime.native_frontend import (  # noqa: E501
+        Tier0Config,
+        uring_probe,
+    )
+
+    ck.reset_launches()
+    # An unadvanced ManualClock: the bulk phase compares remaining with an
+    # equal store's, so no refill may land between their calls.
+    store = pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                  max_batch=BATCH,
+                                  clock=pkg.ManualClock(1_000_000))
+    srv = pkg.BucketStoreServer(store, native_frontend=True)
+    host, port = await srv.start()
+    asy = pkg.BucketStoreServer(store)
+    _, aport = await asy.start()
+
+    # 1. Scalar lane: native_loadgen from a client process of its own.
+    launches0 = dict(ck.launches)
+    nat = await _native_client(host, port, "scalar", NATIVE_REQS,
+                               NATIVE_KEYS, *NATIVE_DEPTHS)
+    for d, r in nat.items():
+        if r["replies"] != NATIVE_REQS or r["granted"] != NATIVE_REQS:
+            raise AssertionError(f"native scalar {d}: {r}")
+        print(f"native scalar ACQUIRE {d} ({NATIVE_CONNS} connections, "
+              f"{NATIVE_KEYS} keys, native_loadgen): {r['replies']} "
+              f"requests in {r['s']:.3f} s = {r['rate']:.0f} requests/s "
+              f"({card}); server C histogram p50 {r['p50_ms']:.3f} ms, p99 "
+              f"{r['p99_ms']:.3f} ms ({r['samples']} samples)")
+    flushes = {k: ck.launches[k] - launches0.get(k, 0)
+               for k in ("acquire_packed", "acquire_grouped")}
+    old = await _native_client(host, aport, "scalar", NATIVE_ASYNCIO_REQS,
+                               NATIVE_KEYS, NATIVE_ASYNCIO_DEPTH)
+    for d, r in old.items():
+        if (r["replies"] != NATIVE_ASYNCIO_REQS
+                or r["granted"] != NATIVE_ASYNCIO_REQS):
+            raise AssertionError(f"asyncio scalar {d}: {r}")
+        print(f"asyncio scalar ACQUIRE {d} (the same keys and client): "
+              f"{r['rate']:.0f} requests/s ({card}); server p50 "
+              f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms; native/"
+              f"asyncio {nat[d]['rate'] / r['rate']:.1f}x")
+    print(f"native scalar flushes: {flushes}")
+
+    # 2. Exactness: cap-5 x 32 -> 5 through the native batch lane.
+    solo = pkg.RemoteBucketStore(address=(host, port),
+                                 coalesce_requests=False)
+    for what, call in (
+            ("bucket", lambda: solo.acquire("cap5", 1, 5.0, 1e-9)),
+            ("window", lambda: solo.window_acquire("cap5", 1, 5.0, 3600.0)),
+            ("fixed window",
+             lambda: solo.fixed_window_acquire("cap5", 1, 5.0, 3600.0)),
+            ("semaphore", lambda: solo.concurrency_acquire("cap5", 1, 5))):
+        res = await asyncio.gather(*(call() for _ in range(32)))
+        got = sum(bool(r.granted) for r in res)
+        if got != 5:
+            raise AssertionError(f"native cap-5 x 32 ({what}): {got}")
+    print("native cap-5 x 32 -> 5: bucket, window, fixed window, semaphore")
+
+    # 3. The seeded mixed sequence, byte for byte against the asyncio lane
+    # over an equal card store on one ManualClock schedule, tier-0 off.
+    pairs = []
+    for native in (True, False):
+        clock = pkg.ManualClock(1_000_000)
+        st = pkg.DeviceBucketStore(device="cuda", n_slots=1 << 16,
+                                   max_batch=BATCH, clock=clock)
+        s = pkg.BucketStoreServer(st, native_frontend=native)
+        pairs.append((st, s, await s.start(), clock))
+    steps = _native_frames(np.random.default_rng(NATIVE_SEED),
+                           NATIVE_MIXED_FRAMES)
+    replies = [await _native_replay(addr, steps, clock)
+               for _st, _s, addr, clock in pairs]
+    if replies[0] != replies[1]:
+        bad = next(i for i, (a, b) in enumerate(zip(*replies)) if a != b) \
+            if len(replies[0]) == len(replies[1]) else "count"
+        raise AssertionError(f"native mixed sequence: reply {bad} differs "
+                             "from the asyncio lane's")
+    if wire.decode_response(replies[0][-1])[1] != wire.RESP_ERROR:
+        raise AssertionError("native mixed sequence: malformed frame "
+                             "answered without an error")
+    _snapshots_equal("native mixed sequence", pairs[0][0].snapshot(),
+                     pairs[1][0].snapshot())
+    print(f"native mixed sequence: {len(replies[0])} replies to "
+          f"{sum(len(f) for f, _ in steps)} frames equal byte for byte to "
+          "the asyncio lane's, and the stores' states equal")
+    for st, s, _addr, _clock in pairs:
+        await s.aclose()
+        await st.aclose()
+
+    # 4. Tier-0: a hot set and a cold tail; the over-admission within its
+    # epsilon against the device-only oracle, and the debit reconciled.
+    cfg = Tier0Config(sync_interval_s=NATIVE_T0_SYNC_S,
+                      max_budget=float(1 << 24))
+    t0srv = pkg.BucketStoreServer(store, native_frontend=True,
+                                  native_tier0=cfg)
+    _, t0port = await t0srv.start()
+    d0 = ck.launches["debit_packed"]
+    rep = await _native_client(host, t0port, "tier0", NATIVE_T0_CAP,
+                               NATIVE_T0_REQS, NATIVE_T0_COLD,
+                               *NATIVE_T0_PEEK)
+    # Quiescence: every local grant drained and acked.
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        await asyncio.sleep(NATIVE_T0_SYNC_S * 5)
+        t0 = t0srv._native.tier0_stats()
+        if t0["carry_keys"] == 0 and t0["last_sync_age_s"] >= 0:
+            break
+    await asyncio.sleep(NATIVE_T0_SYNC_S * 5)
+    t0 = t0srv._native.tier0_stats()
+    fill = 1e-9
+    budget = headroom_budget(NATIVE_T0_CAP, fraction=cfg.budget_fraction,
+                             min_budget=cfg.min_budget,
+                             max_budget=cfg.max_budget)
+    eps = overadmit_epsilon(budget, fill, cfg.sync_interval_s)
+    hot = rep["hot"]["granted"]
+    oracle = NATIVE_CONNS * NATIVE_T0_CAP
+    if not (t0["overadmit_max"] <= eps and hot <= oracle + NATIVE_CONNS * eps
+            and abs(hot - (oracle + t0["overadmit_total"])) <= 1.0):
+        raise AssertionError(f"tier-0: {hot} granted on {NATIVE_CONNS} hot "
+                             f"keys, oracle {oracle:.0f}, epsilon {eps}, "
+                             f"{t0}")
+    peeks = [store.peek_blocking(f"lg{i}-0", NATIVE_T0_CAP, fill)
+             for i in range(NATIVE_CONNS)]
+    pcap, preqs = NATIVE_T0_PEEK
+    left = store.peek_blocking("lg0-0", pcap, fill)
+    if max(peeks) > 1.0 or abs(left - (pcap - preqs)) > 1.0 \
+            or rep["peek"]["granted"] != preqs:
+        raise AssertionError(f"tier-0 reconcile: hot peeks {peeks}, "
+                             f"unexhausted key {left} (want "
+                             f"{pcap - preqs})")
+    debits = ck.launches["debit_packed"] - d0
+    if debits <= 0 or t0["hits"] <= 0:
+        raise AssertionError(f"tier-0: {debits} debits, {t0}")
+    print(f"native tier-0 ({card}): hot {NATIVE_CONNS} keys x "
+          f"{NATIVE_T0_REQS} at {rep['hot']['rate']:.0f} requests/s, cold "
+          f"tail {NATIVE_T0_COLD} at {rep['cold']['rate']:.0f}; hit rate "
+          f"{t0['hit_rate']:.4f} ({t0['hits']} hits, {t0['local_denies']} "
+          f"local denies, {t0['misses']} misses); {hot} granted on the hot "
+          f"keys against the device-only oracle's {oracle:.0f}: "
+          f"overadmit_total {t0['overadmit_total']}, overadmit_max "
+          f"{t0['overadmit_max']} <= epsilon {eps:.6g}; {t0['syncs']} "
+          f"syncs, {debits} debit_packed launches; peek after quiescence "
+          f"{left} = {pcap:.0f} - {preqs}")
+    await t0srv.aclose()
+
+    # 5. The bulk lane: the 10M keys as ACQUIRE_MANY frames in calls of
+    # NATIVE_BULK_CALL keys, the residue (every row: tier-0 is off) decided
+    # by the store's scan; the asyncio lane over an equal store on the same
+    # frames.
+    opts = pkg.TokenBucketOptions(token_limit=100, tokens_per_period=10,
+                                  replenishment_period_s=1.0,
+                                  instance_name="native")
+    store2 = pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                   max_batch=BATCH,
+                                   clock=pkg.ManualClock(1_000_000))
+    asy2 = pkg.BucketStoreServer(store2)
+    _, a2port = await asy2.start()
+    grants = []
+    for lane, p in (("native", port), ("asyncio", a2port)):
+        cli = pkg.RemoteBucketStore(address=(host, p),
+                                    request_timeout_s=600.0)
+        lim = pkg.PartitionedRateLimiter(opts, cli)
+        scans0 = ck.launches["acquire_scan"]
+        t = time.perf_counter()
+        granted = []
+        for lo in range(0, N_KEYS, NATIVE_BULK_CALL):
+            res = await lim.acquire_many(
+                range(lo, min(lo + NATIVE_BULK_CALL, N_KEYS)), permits=1,
+                with_remaining=False)
+            granted.append(np.asarray(res.granted))
+        dt = time.perf_counter() - t
+        res2 = await lim.acquire_many(range(0, N_KEYS, 10), permits=1)
+        grants.append((np.concatenate(granted), np.asarray(res2.granted),
+                       np.asarray(res2.remaining)))
+        print(f"{lane} bulk over the wire: {N_KEYS} keys in {dt:.3f} s = "
+              f"{N_KEYS / dt:.0f} rows/s ({card}); "
+              f"{ck.launches['acquire_scan'] - scans0} acquire_scan "
+              f"launches; then {len(res2)} with remaining")
+        await cli.aclose()
+    nb = srv._native.bulk_stats()
+    if not (all(np.array_equal(a, b) for a, b in zip(*grants))
+            and grants[0][0].all() and np.all(grants[0][2] == 98.0)
+            and nb["rows_residue"] >= N_KEYS):
+        raise AssertionError(f"native bulk grants differ from the asyncio "
+                             f"lane's, or not all residue: {nb}")
+    print(f"native bulk: grants and remaining equal the asyncio lane's; "
+          f"{nb}")
+    await asy2.aclose()
+    await store2.aclose()
+    del store2
+    torch.cuda.empty_cache()
+
+    # 6. Shards 1 and 4 (the bulk loadgen, hot 64 keys, tier-0 on), and
+    # the io_uring probe with each shard's transport.
+    ok, reason = uring_probe()
+    print(f"io_uring probe: available {ok}: {reason}")
+    for shards in NATIVE_SHARDS:
+        s = pkg.BucketStoreServer(store, native_frontend=True,
+                                  native_tier0=cfg, native_shards=shards)
+        _, sport = await s.start()
+        r = await _native_client(host, sport, "shards",
+                                 NATIVE_SHARD_FRAMES, max(6, 4 * shards))
+        nb = r["native_bulk"]
+        frac = nb["rows_local"] / max(nb["rows"], 1)
+        if r["granted"] != r["rows"]:
+            raise AssertionError(f"shards {shards}: {r}")
+        print(f"native shards {shards} ({card}): {r['rows']} bulk rows at "
+              f"{r['rows_per_s']:.0f} rows/s, local_frac {frac:.4f}, "
+              f"tier-0 hit rate {r['tier0_hit_rate']}, server p99 "
+              f"{r['p99_ms']:.3f} ms; rows by shard {r['per_shard_rows']}")
+        await s.aclose()
+    u = pkg.BucketStoreServer(store, native_frontend=True, native_shards=4,
+                              native_uring="on")
+    await u.start()
+    tr = u._native.transport_stats()
+    print(f"io_uring requested on 4 shards: {tr['uring_shards']} on the "
+          f"ring; per-shard epoll reasons {u._native.uring_reasons()}")
+    await u.aclose()
+    await asy.aclose()
+    await srv.aclose()
+    counts = dict(ck.launches)
+    await store.aclose()
+    return counts
+
+
 #: Wrappers whose launches :func:`_record_sizes` counts by operand width,
 #: by the kernel's name: B for a flush, a sync or a debit; K x B rows for a
 #: bulk-lane scan.
@@ -5716,14 +6191,15 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
 
 
 def _paths() -> tuple:
-    """The paths of phases 3–10 and 12, in the order :func:`main` runs
-    them."""
+    """The paths of phases 3–10, 12 and 13, in the order :func:`main`
+    runs them."""
     return (("exact", main_path), ("approximate", approximate_path),
             ("window", window_path), ("admission", admission_path),
             ("reservation", reservation_path),
             ("checkpoint", checkpoint_path),
             ("observability", observability_path),
-            ("server", server_path), ("bench", bench_path))
+            ("server", server_path), ("bench", bench_path),
+            ("native", native_path))
 
 
 def paths_only(names: list) -> int:
@@ -5840,7 +6316,12 @@ def main() -> int:
                    # trace's bulk, reserves and their settles.
                    "observability": ("acquire_packed", "acquire_grouped",
                                      "acquire_scan", "acquire_hierarchical",
-                                     "debit_packed")}
+                                     "debit_packed"),
+                   # The native front-end's lanes: the batch lane's
+                   # flushes, the bulk residue's scan and tier-0's debit.
+                   "native": ("acquire_packed", "window_packed",
+                              "sema_packed", "acquire_scan",
+                              "debit_packed")}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
@@ -5956,6 +6437,11 @@ if __name__ == "__main__":
         print(json.dumps(asyncio.run(obs_client(
             _pkg, sys.argv[2], [int(p) for p in sys.argv[3].split(",")],
             sys.argv[4], *map(int, sys.argv[5:8])))))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--native-client"]:
+        # A client process of the native path (see _native_client_run).
+        print(json.dumps(asyncio.run(_native_client_run(
+            sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5:]))))
         sys.exit(0)
     if sys.argv[1:2] == ["--obs-device-trace"]:
         # The observability path's device trace (see obs_device_trace).

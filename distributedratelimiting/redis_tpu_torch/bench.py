@@ -141,43 +141,6 @@ BUDGET_S = float(os.environ.get("BENCH_BUDGET_S", "1200"))
 #: and their keys, which stay null.
 NOT_PORTED = {
     "fp_bulk": ("A12", ["e2e_fp_bulk_decisions_per_sec"]),
-    "serving_native": ("A6", [
-        "serving_native_req_per_s_d64", "serving_native_req_per_s_d256",
-        "serving_native_p50_d16_ms", "serving_native_p99_d16_ms",
-        "serving_native_p99_d64_ms"]),
-    "serving_native_tier0": ("A6", [
-        "serving_native_tier0_req_per_s_d64",
-        "serving_native_tier0_req_per_s_d256",
-        "serving_native_tier0_p99_d64_ms", "serving_native_tier0_hit_rate",
-        "serving_native_tier0_overadmit_total",
-        "serving_native_tier0_overadmit_max",
-        "serving_native_tier0_speedup_vs_off"]),
-    "serving_native_bulk": ("A6", [
-        "serving_native_bulk_rows_per_s", "serving_native_bulk_p99_ms",
-        "serving_native_bulk_tier0_hit_rate",
-        "serving_native_bulk_asyncio_rows_per_s",
-        "serving_native_bulk_speedup_vs_asyncio",
-        "serving_native_bulk_device_rows_per_s",
-        "serving_native_bulk_device_p99_ms",
-        "serving_native_bulk_device_cold_rows_per_s",
-        "serving_native_bulk_device_cold_p99_ms"]),
-    "serving_native_shards": ("A6", [
-        "serving_native_shards_rows_per_s_s1",
-        "serving_native_shards_rows_per_s_s2",
-        "serving_native_shards_rows_per_s_s4",
-        "serving_native_shards_rows_per_s_s8",
-        "serving_native_shards_speedup_4v1",
-        "serving_native_shards_speedup_8v1",
-        "serving_native_shards_p99_s4_ms",
-        "serving_native_shards_local_frac_s4"]),
-    "serving_native_uring": ("A6", [
-        "serving_native_uring_available",
-        "serving_native_uring_syscalls_per_frame_epoll_s4",
-        "serving_native_uring_syscalls_per_frame_uring_s4",
-        "serving_native_uring_syscalls_per_frame_sqpoll_s4",
-        "serving_native_uring_syscall_reduction_s4",
-        "serving_native_uring_rows_per_s_uring_s4",
-        "serving_native_uring_p99_uring_s4_ms"]),
 }
 
 #: The ported sections, in the order they run, and the keys each fills.
@@ -203,6 +166,43 @@ SECTIONS = (
     ("serving_p99_instant", [
         "serving_p99_instant_ms", "serving_p50_instant_ms",
         "serving_p99_instant_d4_ms", "serving_p99_instant_d16_ms"]),
+    ("serving_native", [
+        "serving_native_req_per_s_d64", "serving_native_req_per_s_d256",
+        "serving_native_p50_d16_ms", "serving_native_p99_d16_ms",
+        "serving_native_p99_d64_ms"]),
+    ("serving_native_tier0", [
+        "serving_native_tier0_req_per_s_d64",
+        "serving_native_tier0_req_per_s_d256",
+        "serving_native_tier0_p99_d64_ms", "serving_native_tier0_hit_rate",
+        "serving_native_tier0_overadmit_total",
+        "serving_native_tier0_overadmit_max",
+        "serving_native_tier0_speedup_vs_off"]),
+    ("serving_native_bulk", [
+        "serving_native_bulk_rows_per_s", "serving_native_bulk_p99_ms",
+        "serving_native_bulk_tier0_hit_rate",
+        "serving_native_bulk_asyncio_rows_per_s",
+        "serving_native_bulk_speedup_vs_asyncio",
+        "serving_native_bulk_device_rows_per_s",
+        "serving_native_bulk_device_p99_ms",
+        "serving_native_bulk_device_cold_rows_per_s",
+        "serving_native_bulk_device_cold_p99_ms"]),
+    ("serving_native_shards", [
+        "serving_native_shards_rows_per_s_s1",
+        "serving_native_shards_rows_per_s_s2",
+        "serving_native_shards_rows_per_s_s4",
+        "serving_native_shards_rows_per_s_s8",
+        "serving_native_shards_speedup_4v1",
+        "serving_native_shards_speedup_8v1",
+        "serving_native_shards_p99_s4_ms",
+        "serving_native_shards_local_frac_s4"]),
+    ("serving_native_uring", [
+        "serving_native_uring_available",
+        "serving_native_uring_syscalls_per_frame_epoll_s4",
+        "serving_native_uring_syscalls_per_frame_uring_s4",
+        "serving_native_uring_syscalls_per_frame_sqpoll_s4",
+        "serving_native_uring_syscall_reduction_s4",
+        "serving_native_uring_rows_per_s_uring_s4",
+        "serving_native_uring_p99_uring_s4_ms"]),
     ("serving_metrics_overhead", [
         "serving_metrics_on_req_per_s", "serving_metrics_off_req_per_s",
         "serving_metrics_overhead_pct", "serving_metrics_scrape_bytes",
@@ -765,20 +765,18 @@ def _nproc_client(host: str, port: int, wid: str, workers: int, reqs: int,
     return asyncio.run(run())
 
 
-def bench_serving_children(device, backing="device", *, samples=10240,
-                           min_reqs=160, warm_reqs=40) -> dict:
-    """A server child owning a card store (``backing="device"``) or the
-    serial ``InProcessBucketStore`` (``"instant"``), and a load child at each
-    of :data:`SERVING_DEPTHS`; returns the load child's ``{"d<depth>":
-    {"p99_ms", "p50_ms", "samples", "flush_p99_ms", "flush_p50_ms"}}`` (the
-    flush keys None for the serial store, which has no flushes)."""
-    args = ["--serving-server-child", backing]
-    if device.type != "cuda":
-        args += ["--device", device.type]
+def _server_rig(what: str, server_args: list, load_args: list,
+                timeout_s: float, *, tail: bool = False) -> dict:
+    """A server child (``--serving-server-child`` with ``server_args``) and
+    one load child (``load_args``, its flag first) against it; returns the
+    load child's result line. With ``tail``, the server's stdin is closed
+    after the load and its shutdown line (transport counters, CPU seconds,
+    tier-0's ε tokens) is folded in under ``"server"``."""
     with tempfile.TemporaryFile("w+") as err:
-        server = subprocess.Popen(_child_cmd(*args), stdin=subprocess.PIPE,
-                                  stdout=subprocess.PIPE, stderr=err,
-                                  text=True, env=_child_env(), cwd=ROOT)
+        server = subprocess.Popen(
+            _child_cmd("--serving-server-child", *server_args),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+            text=True, env=_child_env(), cwd=ROOT)
         try:
             ready, _, _ = select.select([server.stdout], [], [],
                                         CHILD_START_S)
@@ -788,22 +786,53 @@ def bench_serving_children(device, backing="device", *, samples=10240,
                 server.wait()
                 err.seek(0)
                 raise RuntimeError(
-                    f"serving server child ({backing}) printed no address "
+                    f"{what} server child printed no address "
                     f"(rc {server.returncode}): {_tail(err.read())}")
             addr = json.loads(line)
-            return _run_child(
-                f"serving load ({backing})",
-                ["--serving-load-child", addr["host"], str(addr["port"]),
-                 str(samples), str(min_reqs), str(warm_reqs)],
-                SERVING_TIMEOUT_S)
+            flag, *rest = load_args
+            res = _run_child(f"{what} load",
+                             [flag, addr["host"], str(addr["port"]), *rest],
+                             timeout_s)
+            if tail:
+                server.stdin.close()
+                ready, _, _ = select.select([server.stdout], [], [], 60.0)
+                line = server.stdout.readline() if ready else ""
+                if not line:
+                    err.seek(0)
+                    raise RuntimeError(f"{what} server child printed no "
+                                       f"shutdown line: {_tail(err.read())}")
+                res["server"] = json.loads(line)
+            return res
         finally:
             if server.poll() is None:
-                server.stdin.close()  # the server child parks on stdin EOF
+                if not server.stdin.closed:
+                    server.stdin.close()  # the server parks on stdin EOF
                 try:
                     server.wait(timeout=30)
                 except subprocess.TimeoutExpired:
                     server.kill()
                     server.wait()
+
+
+def _server_args(device, backing: str, *opts: str) -> list:
+    """A server child's arguments: the backing, the native options, and
+    ``--device`` off the card."""
+    args = [backing, *opts]
+    if device.type != "cuda":
+        args += ["--device", device.type]
+    return args
+
+
+def bench_serving_children(device, backing="device", *, samples=10240,
+                           min_reqs=160, warm_reqs=40) -> dict:
+    """A server child owning a card store (``backing="device"``) or the
+    serial ``InProcessBucketStore`` (``"instant"``), and a load child at each
+    of :data:`SERVING_DEPTHS`; returns the load child's ``{"d<depth>":
+    {"p99_ms", "p50_ms", "samples", "flush_p99_ms", "flush_p50_ms"}}`` (the
+    flush keys None for the serial store, which has no flushes)."""
+    return _server_rig(f"serving ({backing})", _server_args(device, backing),
+                       ["--serving-load-child", str(samples), str(min_reqs),
+                        str(warm_reqs)], SERVING_TIMEOUT_S)
 
 
 def serving_section(device, backing: str, **sizes) -> tuple:
@@ -817,12 +846,37 @@ def serving_section(device, backing: str, **sizes) -> tuple:
     return values if backing == "device" else values[:4]
 
 
-def _serving_server_child(backing: str, device: str) -> None:
-    """Server half of :func:`bench_serving_children`: prints its address as
-    soon as it listens (the store builds nothing before its first flush),
-    then serves until its stdin closes."""
+def _serving_server_child(backing: str, device: str, *,
+                          native: bool = False, tier0: bool = False,
+                          shards: int = 1, pin: bool = False,
+                          uring: "str | None" = None) -> None:
+    """Server half of the two-process rigs: a card store or the serial
+    ``InProcessBucketStore`` behind the asyncio listener, or behind the C
+    front-end with ``native`` (tier-0, shards pinned to CPUs 0..N-1, the
+    io_uring transport as asked). Prints its address as soon as it listens
+    (the store builds nothing before its first flush), serves until its
+    stdin closes, then prints one more line: its CPU seconds and, native,
+    the transport counters and tier-0's ε tokens."""
+    if pin:
+        # The shard threads own CPUs 0..N-1 (fe_start pins them); every
+        # Python thread of this process — the loop that serves residue
+        # frames and runs the tier-0 sync pump, and the pumps — goes to the
+        # next few CPUs, so neither the shards nor the load starve the
+        # reconciliation loop.
+        nproc = os.cpu_count() or 1
+        herd = set(range(shards, min(shards + 4, nproc))) or {0}
+        try:
+            os.sched_setaffinity(0, herd)
+        except OSError:
+            pass
 
     async def run() -> None:
+        import resource
+
+        from distributedratelimiting.redis_tpu_torch.runtime.native_frontend import (  # noqa: E501
+            Tier0Config,
+        )
+
         if backing == "instant":
             store = InProcessBucketStore()
         else:
@@ -830,12 +884,37 @@ def _serving_server_child(backing: str, device: str) -> None:
                 n_slots=SERVING_SLOTS, max_batch=SERVING_MAX_BATCH,
                 max_delay_s=SERVING_MAX_DELAY_S,
                 max_inflight=SERVING_MAX_INFLIGHT, device=device)
+        native_tier0 = False
+        if tier0:
+            # A tight sync cadence: the window is seconds long and the
+            # gauges should read settled envelopes. The pinned rig raises
+            # max_budget: at node-level demand the 1M default gives a key
+            # under a second of headroom (16M is ~10 s).
+            native_tier0 = (Tier0Config(sync_interval_s=0.01,
+                                        max_budget=float(1 << 24))
+                            if pin else Tier0Config(sync_interval_s=0.01))
         try:
-            async with BucketStoreServer(store) as srv:
+            async with BucketStoreServer(
+                    store, native_frontend=native, native_tier0=native_tier0,
+                    native_shards=shards, native_pin_shards=pin,
+                    native_uring=uring) as srv:
                 print(json.dumps({"host": srv.host, "port": srv.port}),
                       flush=True)
                 await asyncio.get_running_loop().run_in_executor(
                     None, sys.stdin.read)
+                # Sampled while the front-end is up (the handle dies with
+                # the context manager); rusage charges this process only.
+                ru = resource.getrusage(resource.RUSAGE_SELF)
+                tail: dict = {"server_cpu_s": round(ru.ru_utime
+                                                    + ru.ru_stime, 4)}
+                if srv._native is not None:
+                    tail["transport"] = srv._native.transport_stats()
+                    t0 = srv._native.tier0_stats()
+                    if t0:
+                        tail["t0_grant_tokens"] = t0["grant_tokens"]
+                        tail["t0_overadmit_total"] = t0["overadmit_total"]
+                        tail["t0_eps_tokens"] = srv._native.t0_eps_tokens()
+                print(json.dumps(tail), flush=True)
         finally:
             await store.aclose()
 
@@ -883,17 +962,338 @@ def _serving_load_child(host: str, port: int, samples: int, min_reqs: int,
     return asyncio.run(run())
 
 
+# -- the native front-end's sections (serving_native*) ------------------------
+
+#: The native load child's closed-loop depths (JAX bench.py's).
+NATIVE_DEPTHS = (4, 16, 64, 256)
+#: The shard sweep's points and the uring sweep's (JAX bench.py's).
+SHARD_POINTS = (1, 2, 4, 8)
+URING_SHARD_POINTS = (1, 4, 8)
+
+
+def _native_load_child(host: str, port: int, workload: str = "uniform",
+                       reqs: int = 50000, warm_reqs: int = 2000) -> dict:
+    """Load half of the native rigs: the C closed-loop load generator
+    (``native_loadgen``, 4 connections) at each of :data:`NATIVE_DEPTHS`,
+    the server's own C histogram read after a stats reset each window.
+    ``hot`` collapses the keyspace to one key a connection (tier-0's shape)
+    and reports the server's tier-0 gauges."""
+    from distributedratelimiting.redis_tpu_torch.runtime.native_frontend import (  # noqa: E501
+        native_loadgen,
+    )
+
+    keyspace = 1 if workload == "hot" else 1000
+
+    async def run() -> dict:
+        store = RemoteBucketStore(address=(host, port),
+                                  coalesce_requests=False)
+        out: dict = {}
+        try:
+            # Warm: connects, seeds keys (hot: installs the replicas).
+            await asyncio.to_thread(native_loadgen, host, port, conns=4,
+                                    depth=16, reqs_per_conn=warm_reqs,
+                                    keyspace=keyspace)
+            for depth in NATIVE_DEPTHS:
+                await store.stats(reset=True)
+                replies, _, elapsed = await asyncio.to_thread(
+                    native_loadgen, host, port, conns=4, depth=depth,
+                    reqs_per_conn=reqs, keyspace=keyspace)
+                stats = await store.stats()
+                out[f"d{depth}"] = {
+                    "rate": replies / elapsed,
+                    "p50_ms": stats["serving_p50_ms"],
+                    "p99_ms": stats["serving_p99_ms"],
+                    "samples": stats["serving_samples"],
+                }
+            stats = await store.stats()
+            if "tier0" in stats:
+                out["tier0"] = stats["tier0"]
+        finally:
+            await store.aclose()
+        return out
+
+    return asyncio.run(run())
+
+
+def bench_serving_native(device, *, tier0: bool = False, reqs: int = 50000,
+                         warm_reqs: int = 2000) -> dict:
+    """``serving_native`` (``tier0=False``: uniform keys) and
+    ``serving_native_tier0`` (hot keys): the serial store behind the C
+    front-end in a server child, the C load generator in a load child
+    (``reqs`` a connection at each depth, after ``warm_reqs``)."""
+    opts = ["native"] + (["tier0"] if tier0 else [])
+    return _server_rig("serving_native" + ("_tier0" if tier0 else ""),
+                       _server_args(device, "instant", *opts),
+                       ["--native-load-child", "hot" if tier0 else "uniform",
+                        str(reqs), str(warm_reqs)], SERVING_TIMEOUT_S)
+
+
+def _bulk_load_child(host: str, port: int, workload: str = "hot",
+                     reps: int = 25, warm_reps: int = 4) -> dict:
+    """Load half of the bulk rigs: closed-loop ACQUIRE_MANY frames of
+    4,096 rows from 4 concurrent submitters (the client's cost is per
+    frame). ``hot`` draws from 64 keys at a high capacity (every row
+    tier-0-hostable); ``cold`` from 100,000 keys (all residue)."""
+    keyspace = 64 if workload == "hot" else 100_000
+    n = 4096
+    capacity, fill = 1e8, 1e8
+
+    async def run() -> dict:
+        store = RemoteBucketStore(address=(host, port))
+        keys = [f"b{i % keyspace}" for i in range(n)]
+        counts = [1] * n
+        rows = 0
+
+        async def worker(reps: int) -> None:
+            nonlocal rows
+            for _ in range(reps):
+                res = await store.acquire_many(keys, counts, capacity, fill)
+                rows += len(res.granted)
+
+        try:
+            # Warm: connects, seeds keys, installs the tier-0 replicas
+            # (the first frames are all residue by construction).
+            await asyncio.gather(*(worker(warm_reps) for _ in range(4)))
+            pre = await store.stats(reset=True)
+            rows = 0
+            t0 = time.perf_counter()
+            await asyncio.gather(*(worker(reps) for _ in range(4)))
+            dt = time.perf_counter() - t0
+            stats = await store.stats()
+        finally:
+            await store.aclose()
+        out = {"rows_per_s": rows / dt, "rows": rows, "elapsed_s": dt,
+               "p50_ms": stats["serving_p50_ms"],
+               "p99_ms": stats["serving_p99_ms"],
+               "samples": stats["serving_samples"]}
+        if "tier0" in stats:
+            out["tier0_hit_rate"] = stats["tier0"]["hit_rate"]
+            if "tier0" in pre:
+                # The measured window's hit rate: the warm frames' all-
+                # residue installs must not dilute it.
+                d = {k: stats["tier0"][k] - pre["tier0"][k]
+                     for k in ("hits", "local_denies", "misses")}
+                if sum(d.values()):
+                    out["window_tier0_hit_rate"] = (
+                        (d["hits"] + d["local_denies"]) / sum(d.values()))
+        if "native_bulk" in stats:
+            out["native_bulk"] = stats["native_bulk"]
+        return out
+
+    return asyncio.run(run())
+
+
+def bench_native_bulk(device, *, reps: int = 25, warm_reps: int = 4
+                      ) -> dict:
+    """``serving_native_bulk``: the native bulk lane (tier-0 on, hot keys)
+    against the asyncio bulk path on the serial store, then on the card
+    store (``device``), and the card store's cold arm (tier-0 off, 100,000
+    keys: every row is residue, the zero-copy handoff itself)."""
+    def rig(backing, load, *opts):
+        return _server_rig(f"serving_native_bulk ({backing} {' '.join(opts)}"
+                           f" {load})", _server_args(device, backing, *opts),
+                           ["--bulk-load-child", load, str(reps),
+                            str(warm_reps)], SERVING_TIMEOUT_S)
+
+    return {"native": rig("instant", "hot", "native", "tier0"),
+            "asyncio": rig("instant", "hot"),
+            "device": rig("device", "hot", "native", "tier0"),
+            "device_cold": rig("device", "cold", "native")}
+
+
+def _shard_load_child(host: str, port: int, shards: int,
+                      frames_hot: int = 400, rows_hot: int = 4096) -> dict:
+    """Load half of the shard rigs: ``max(6, 4 x shards)`` threads, each a
+    C closed-loop bulk client (``native_bulk_loadgen``, 4 connections,
+    frames built and replies counted in C) pinned away from the shard
+    CPUs; the best of 3 windows of the threads' summed rows/s, with the
+    server's merged and per-shard gauges and the frames and rows pushed
+    over the server's life. A connection sends ``frames_hot`` frames of
+    ``rows_hot`` rows a window."""
+    import threading
+
+    from distributedratelimiting.redis_tpu_torch.runtime.native_frontend import (  # noqa: E501
+        native_bulk_loadgen,
+    )
+
+    nproc = os.cpu_count() or 1
+    # The server's CPU discipline mirrored: shards own CPUs 0..N-1, the
+    # server's Python threads the next 4; clients take the rest (all of
+    # them on a machine too small to carve).
+    first = min(shards + 4, max(nproc - 2, 0))
+    client_cpus = (set(range(first, nproc)) if first < nproc
+                   else set(range(nproc)))
+    n_threads = max(6, 4 * shards)
+
+    def one(out: list, warm: bool) -> None:
+        try:
+            os.sched_setaffinity(0, client_cpus)
+        except OSError:
+            pass  # a restricted cpuset: measure unpinned
+        out.append(native_bulk_loadgen(
+            host, port, conns=4, depth=2 if warm else 8,
+            frames_per_conn=10 if warm else frames_hot,
+            rows_per_frame=1024 if warm else rows_hot, keyspace=64))
+
+    def window(warm: bool, n: int) -> list:
+        rows_out: list = []
+        th = [threading.Thread(target=one, args=(rows_out, warm))
+              for _ in range(n)]
+        for t in th:
+            t.start()
+        for t in th:
+            t.join()
+        if len(rows_out) != n:
+            raise RuntimeError("a bulk loadgen thread failed")
+        return rows_out
+
+    async def run() -> dict:
+        store = RemoteBucketStore(address=(host, port))
+        try:
+            # Warm: connects and installs the 64 hot keys' replicas.
+            warm = window(True, 4)
+            frames_sent = sum(f for f, _r, _g, _el in warm)
+            rows_sent = sum(r for _f, r, _g, _el in warm)
+            await store.stats(reset=True)
+            best = 0.0
+            for _ in range(3):
+                got = window(False, n_threads)
+                best = max(best, sum(r / el for _f, r, _g, el in got))
+                frames_sent += sum(f for f, _r, _g, _el in got)
+                rows_sent += sum(r for _f, r, _g, _el in got)
+            stats = await store.stats()
+        finally:
+            await store.aclose()
+        out = {"rows_per_s": best, "shards": shards,
+               "load_threads": n_threads, "frames_sent": frames_sent,
+               "rows_sent": rows_sent, "p50_ms": stats["serving_p50_ms"],
+               "p99_ms": stats["serving_p99_ms"]}
+        nb = stats.get("native_bulk")
+        if nb:
+            out["rows_local_frac"] = nb["rows_local"] / max(nb["rows"], 1)
+        if "tier0" in stats:
+            out["tier0_hit_rate"] = stats["tier0"]["hit_rate"]
+        if stats.get("shards"):
+            out["per_shard_rows"] = [r["native_bulk"]["rows"]
+                                     for r in stats["shards"]]
+        return out
+
+    return asyncio.run(run())
+
+
+def _shard_rig(device, shards: int, uring: "str | None" = None, *,
+               frames: int = 400, rows: int = 4096) -> dict:
+    """One shard point: the serial store behind ``shards`` pinned native
+    shards (tier-0 on) in a server child, the shard load child against it;
+    the server's shutdown line folded in under ``"server"``."""
+    opts = ["native", "tier0", f"shards={shards}", "pin"]
+    if uring is not None:
+        opts.append(f"uring={uring}")
+    return _server_rig(f"shards={shards} uring={uring}",
+                       _server_args(device, "instant", *opts),
+                       ["--shard-load-child", str(shards), str(frames),
+                        str(rows)], SERVING_TIMEOUT_S, tail=True)
+
+
+def bench_native_shards(device, *, points=SHARD_POINTS, **load) -> dict:
+    """``serving_native_shards``: rows/s through ONE port as a function of
+    the shard count (the hot 64-key bulk load, tier-0 on)."""
+    out: dict = {f"s{s}": _shard_rig(device, s, **load) for s in points}
+    for s in (4, 8):
+        if f"s{s}" in out:
+            out[f"speedup_{s}v1"] = (out[f"s{s}"]["rows_per_s"]
+                                     / out["s1"]["rows_per_s"])
+    return out
+
+
+def _nominal_mhz() -> float:
+    """The first ``cpu MHz`` of /proc/cpuinfo (2 GHz when absent): the
+    cycles/row column's stand-in clock, compared only across arms on one
+    host."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.lower().startswith("cpu mhz"):
+                    return float(line.split(":", 1)[1])
+    except (OSError, ValueError, IndexError):
+        pass
+    return 2000.0
+
+
+def bench_native_uring(device, *, points=URING_SHARD_POINTS, **load
+                       ) -> dict:
+    """``serving_native_uring``: the shard rig once per transport arm —
+    epoll, io_uring, io_uring + SQPOLL — at each point. Per arm: the
+    server's data-plane syscalls over the frames pushed in its life, and
+    its CPU seconds x the nominal clock over the rows pushed. A uring arm
+    whose shards fell back to epoll is marked ``fell_back``; where the
+    probe finds no ring, the epoll arm runs alone and ``probe`` says why."""
+    from distributedratelimiting.redis_tpu_torch.runtime.native_frontend import (  # noqa: E501
+        uring_probe,
+    )
+
+    ok, reason = uring_probe()
+    mhz = _nominal_mhz()
+    out: dict = {"uring_available": ok, "probe": reason,
+                 "nominal_mhz": round(mhz, 1)}
+    arms = [("epoll", None)] + ([("uring", "on"), ("sqpoll", "sqpoll")]
+                                if ok else [])
+    for name, uring in arms:
+        for s in points:
+            res = _shard_rig(device, s, uring, **load)
+            tr = res["server"]["transport"]
+            row: dict = {"rows_per_s": res["rows_per_s"],
+                         "p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+                         "uring_shards": tr["uring_shards"],
+                         "fallbacks": tr["fallbacks"],
+                         "syscalls_per_frame": round(
+                             tr["io_syscalls"] / max(res["frames_sent"], 1),
+                             3),
+                         "cycles_per_row": round(
+                             res["server"]["server_cpu_s"] * mhz * 1e6
+                             / max(res["rows_sent"], 1), 1)}
+            if uring is not None and tr["uring_shards"] < s:
+                row["fell_back"] = True  # loud: NOT ring numbers
+                row["fallback_reasons"] = tr.get("fallback_reasons")
+            out[f"{name}_s{s}"] = row
+    return out
+
+
 def _child_main(argv: list[str]) -> int:
     """Run the bench child that ``argv[0]`` names; a child's result is its
     last stdout line."""
     flag, args = argv[0], argv[1:]
     if flag == "--serving-server-child":
-        device = args[2] if args[1:2] == ["--device"] else "cuda"
-        _serving_server_child(args[0], device)
+        device = "cuda"
+        if "--device" in args:
+            i = args.index("--device")
+            device = args[i + 1]
+            args = args[:i] + args[i + 2:]
+        kw: dict = {}
+        for opt in args[1:]:
+            if opt in ("native", "tier0", "pin"):
+                kw[opt] = True
+            elif opt.startswith("shards="):
+                kw["shards"] = int(opt.split("=", 1)[1])
+            elif opt.startswith("uring="):
+                kw["uring"] = opt.split("=", 1)[1]
+            else:
+                raise SystemExit(f"unknown server child option {opt!r}")
+        _serving_server_child(args[0], device, **kw)
         return 0
     if flag == "--serving-load-child":
         host, port, *sizes = args
         out = _serving_load_child(host, int(port), *map(int, sizes))
+    elif flag == "--native-load-child":
+        host, port, workload, *sizes = args
+        out = _native_load_child(host, int(port), workload,
+                                 *map(int, sizes))
+    elif flag == "--bulk-load-child":
+        host, port, workload, *sizes = args
+        out = _bulk_load_child(host, int(port), workload, *map(int, sizes))
+    elif flag == "--shard-load-child":
+        host, port, *sizes = args
+        out = _shard_load_child(host, int(port), *map(int, sizes))
     else:  # --nproc-client
         host, port, wid, *sizes = args
         out = _nproc_client(host, int(port), wid, *map(int, sizes))
@@ -1128,6 +1528,69 @@ def run(device: torch.device, sizes: dict | None = None, *,
         return serving_section(device, "instant",
                                **sizes.get("serving_p99_instant", {}))
 
+    def sec_native():
+        v = bench_serving_native(device, **sizes.get("serving_native", {}))
+        return (round(v["d64"]["rate"]), round(v["d256"]["rate"]),
+                round(v["d16"]["p50_ms"], 3), round(v["d16"]["p99_ms"], 3),
+                round(v["d64"]["p99_ms"], 3))
+
+    def sec_native_tier0():
+        v = bench_serving_native(device, tier0=True,
+                                 **sizes.get("serving_native_tier0", {}))
+        t0 = v["tier0"]
+        off = result["serving_native_req_per_s_d256"]
+        return (round(v["d64"]["rate"]), round(v["d256"]["rate"]),
+                round(v["d64"]["p99_ms"], 3), round(t0["hit_rate"], 4),
+                t0["overadmit_total"], t0["overadmit_max"],
+                round(v["d256"]["rate"] / off, 2) if off else None)
+
+    def sec_native_bulk():
+        v = bench_native_bulk(device, **sizes.get("serving_native_bulk", {}))
+        nat, asy, dev, cold = (v["native"], v["asyncio"], v["device"],
+                               v["device_cold"])
+        hit = nat.get("window_tier0_hit_rate", nat.get("tier0_hit_rate"))
+        return (round(nat["rows_per_s"]), round(nat["p99_ms"], 3),
+                round(hit, 4) if hit is not None else None,
+                round(asy["rows_per_s"]),
+                round(nat["rows_per_s"] / asy["rows_per_s"], 2),
+                round(dev["rows_per_s"]), round(dev["p99_ms"], 3),
+                round(cold["rows_per_s"]), round(cold["p99_ms"], 3))
+
+    def sec_native_shards():
+        v = bench_native_shards(device,
+                                **sizes.get("serving_native_shards", {}))
+        s4 = v.get("s4", {})
+
+        def pick(key, nd=None):
+            x = v.get(key)
+            return None if x is None else round(
+                x["rows_per_s"] if isinstance(x, dict) else x, nd)
+
+        return (pick("s1"), pick("s2"), pick("s4"), pick("s8"),
+                pick("speedup_4v1", 2), pick("speedup_8v1", 2),
+                round(s4["p99_ms"], 3) if s4 else None,
+                round(s4["rows_local_frac"], 4)
+                if "rows_local_frac" in s4 else None)
+
+    def sec_native_uring():
+        v = bench_native_uring(device, **sizes.get("serving_native_uring",
+                                                   {}))
+        result["serving_native_uring_probe"] = v["probe"]
+        print(f"bench: io_uring probe: available {v['uring_available']}: "
+              f"{v['probe']}", file=sys.stderr, flush=True)
+        spf = {arm: v[f"{arm}_s4"]["syscalls_per_frame"]
+               for arm in ("epoll", "uring", "sqpoll")
+               if f"{arm}_s4" in v and not v[f"{arm}_s4"].get("fell_back")}
+        ring = spf.get("sqpoll", spf.get("uring"))
+        u4 = v.get("uring_s4")
+        u4 = u4 if u4 is not None and not u4.get("fell_back") else None
+        return (v["uring_available"], spf.get("epoll"), spf.get("uring"),
+                spf.get("sqpoll"),
+                round(spf["epoll"] / ring, 2) if ring and "epoll" in spf
+                else None,
+                round(u4["rows_per_s"]) if u4 else None,
+                round(u4["p99_ms"], 3) if u4 else None)
+
     def sec_metrics_overhead():
         on, off, pct, nbytes, trace_rate, trace_pct = asyncio.run(
             bench_metrics_overhead(
@@ -1150,6 +1613,11 @@ def run(device: torch.device, sizes: dict | None = None, *,
            "serving_p99": sec_serving_p99, "nproc": sec_nproc,
            "serving_p99_colocated": sec_colocated,
            "serving_p99_instant": sec_instant,
+           "serving_native": sec_native,
+           "serving_native_tier0": sec_native_tier0,
+           "serving_native_bulk": sec_native_bulk,
+           "serving_native_shards": sec_native_shards,
+           "serving_native_uring": sec_native_uring,
            "serving_metrics_overhead": sec_metrics_overhead,
            "audit_overhead": sec_audit_overhead, "sweep_ok": sec_sweep}
     emit()
@@ -1182,7 +1650,9 @@ def run(device: torch.device, sizes: dict | None = None, *,
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] and argv[0] in ("--serving-server-child",
-                                "--serving-load-child", "--nproc-client"):
+                                "--serving-load-child", "--nproc-client",
+                                "--native-load-child", "--bulk-load-child",
+                                "--shard-load-child"):
         return _child_main(argv)
     device = torch.device("cuda")
     if argv[:1] == ["--device"] and len(argv) == 2:

@@ -1,10 +1,10 @@
 """Conservation audit plane — the continuous ε-ledger (DESIGN.md §22).
 
 The JAX package's ``runtime/audit.py`` on the port's server. The server
-has no federation ledger, no native front-end and no placement state yet,
-so the federation cover identity, the tier-0 / shard ε and the envelope ε
-read nothing (a JAX server without those subsystems reads nothing either),
-and their gauges stay 0.
+has no federation ledger and no placement or drain state yet, so the
+federation cover identity and the envelope ε read nothing (a JAX server
+without those subsystems reads nothing either), and their gauges stay 0.
+The tier-0 / per-shard ε reads the native front-end when it serves.
 
 The framework's correctness story is a stack of documented ε terms:
 the tier-0 cache may over-admit ``overadmit_epsilon(...)`` per key
@@ -160,6 +160,7 @@ class ConservationAuditor:
         # before the first tick would be swallowed into the anchor.
         self._deltas.delta("replied", server.audit_replied_tokens)
         self._deltas.delta("witnessed", server.audit_witnessed_tokens)
+        self._deltas.delta("t0_overadmit", 0.0)
         self._breach_active = False
         self._breach_cold = 0
         self._episode_active = False
@@ -223,9 +224,28 @@ class ConservationAuditor:
         # over-admission; positive = documented conservative slack).
         # The port's server hosts no federation ledger yet (ROADMAP Queue
         # A 11): nothing to read, as on a JAX server without federation.
-        # 4. tier-0 / per-shard ε: the port has no native front-end yet
-        # (Queue A 6), so every admitted token is a store-witnessed one.
+        # 4. tier-0 / per-shard ε utilization (the native front-end's C
+        # counters, witnessed slice-side through fe_t0_eps).
+        native = srv._native
         admitted = srv.audit_witnessed_tokens
+        if native is not None:
+            t0 = native.tier0_stats() or {}
+            grant = float(t0.get("grant_tokens", 0.0))
+            over = float(t0.get("overadmit_total", 0.0))
+            admitted += grant
+            bulk = native.bulk_stats() or {}
+            admitted += float(bulk.get("permits_local", 0.0))
+            self.overadmitted_tokens += self._deltas.delta(
+                "t0_overadmit", over)
+            budget = self.cfg.epsilon_fraction * grant
+            self.epsilon_used["tier0"] = (min(1.0, over / budget)
+                                          if budget > 0 else 0.0)
+            slices = native.t0_eps_tokens()
+            if slices and sum(slices) > 0:
+                # The hottest slice's share of the local grants: the
+                # per-shard slice bound is consumed fastest by the hottest
+                # slice (1/n_shards balanced, 1.0 one slice takes all).
+                self.epsilon_used["shard"] = max(slices) / sum(slices)
         # 5. envelope ε: the share of admissions served from bounded
         # fair-share envelopes — none without drain windows or placement
         # handoffs (Queue A 9), so 0 of every request.
@@ -276,7 +296,10 @@ class ConservationAuditor:
                 "alerts": alerts, "residues": residues}
 
     def _requests_served(self) -> int:
-        return self.server.requests_served
+        srv = self.server
+        if srv._native is not None:
+            return int(srv._native.counts()[0])
+        return srv.requests_served
 
     def _on_slo_trip(self, dim: str, alert: dict) -> None:
         # Queued, not assembled inline: the episode gate at the end of
@@ -293,6 +316,8 @@ class ConservationAuditor:
         metrics = getattr(srv.store, "metrics", None)
         hists.append(getattr(metrics, "queue_latency", None))
         hists.append(getattr(metrics, "flush_latency", None))
+        if srv._native is not None:
+            hists.extend(srv._native.stage_histograms().values())
         ids: list[str] = []
         for h in hists:
             ex = getattr(h, "exemplars", None)

@@ -44,6 +44,17 @@ dispatch (``server.dispatch``) and at the scalar decision site
 (``audit.leak``). The plane's per-request hooks are host bookkeeping: none
 touches the card; a scrape may read it.
 
+The native front-end (``native_frontend=True``, :mod:`~.native_frontend`):
+the C++ loop of ``native/frontend.cc`` owns the sockets — epoll or io_uring
+shards on one port — batches the per-request ACQUIRE / WINDOW / FWINDOW /
+SEMA frames and decides well-formed ACQUIRE_MANY frames in C, and hands
+Python one store call per flush; every other frame reaches
+:meth:`BucketStoreServer.handle_frame_body` through its passthrough lane.
+``native_tier0`` adds the tier-0 admission cache, reconciled through the
+store's ``debit_many``. The library is built from the checkout at first
+use; when it cannot build, ``start()`` raises — there is no fallback to the
+asyncio listener.
+
 The JAX server's live-config, drain-envelope and placement gates are not
 ported (nor those subsystems). An op the JAX server serves but this one
 does not yet (placement, migration, live config, federation) answers a
@@ -130,6 +141,14 @@ class BucketStoreServer:
     def __init__(self, store: BucketStore, *, host: str = "127.0.0.1",
                  port: int = 0, snapshot_path: str | None = None,
                  auth_token: str | None = None,
+                 native_frontend: bool = False,
+                 native_max_batch: int = 4096,
+                 native_deadline_us: int = 300,
+                 native_tier0=False,
+                 native_bulk: bool = True,
+                 native_shards: int = 1,
+                 native_pin_shards: bool = False,
+                 native_uring: "str | bool | int | None" = None,
                  metrics_port: int | None = None,
                  observability: bool = True,
                  heavy_hitters_k: int = 64,
@@ -142,6 +161,34 @@ class BucketStoreServer:
         self.store = store
         self.host = host
         self.port = port
+        # The native front-end (native/frontend.cc): the C++ loop owns the
+        # sockets and hands per-request micro-batches to Python once per
+        # flush. Its batcher's knobs fail fast, as MicroBatcher's do —
+        # fe_start would coerce a nonpositive value to its default.
+        self.native_frontend = native_frontend
+        if native_max_batch <= 0:
+            raise ValueError("native_max_batch must be positive")
+        if native_deadline_us <= 0:
+            raise ValueError("native_deadline_us must be positive")
+        self.native_max_batch = native_max_batch
+        self.native_deadline_us = native_deadline_us
+        #: Tier-0 admission cache (native front-end only): False/None off,
+        #: True for defaults, or a native_frontend.Tier0Config.
+        self.native_tier0 = native_tier0
+        #: The native bulk lane: ACQUIRE_MANY frames parse, tier-0-decide
+        #: and encode RESP_BULK in C; only the residue reaches Python.
+        self.native_bulk = native_bulk
+        if native_shards < 1:
+            raise ValueError("native_shards must be >= 1")
+        #: Epoll (or io_uring) shards accepting on SO_REUSEPORT listeners
+        #: bound to one port.
+        self.native_shards = native_shards
+        self.native_pin_shards = native_pin_shards
+        #: io_uring data plane: None defers to DRL_TPU_URING (off when
+        #: unset); "on" / "sqpoll" opt in; a shard the kernel refuses a
+        #: ring serves on epoll and reports why.
+        self.native_uring = native_uring
+        self._native = None
         # Server-configured checkpoint destination for OP_SAVE (≙ Redis
         # BGSAVE writing its configured dump file — clients never supply
         # paths, so the wire cannot be used to write arbitrary files).
@@ -281,6 +328,36 @@ class BucketStoreServer:
         if self.auditor is not None and self._audit_task is None:
             # The ε-ledger's pacer, ticking before the listener binds.
             self._audit_task = asyncio.create_task(self.auditor.run())
+        if self.native_frontend:
+            from distributedratelimiting.redis_tpu_torch.runtime.native_frontend import (  # noqa: E501
+                NativeFrontend,
+            )
+
+            # No fallback to the asyncio listener: a library that cannot
+            # build, or a port that cannot bind, raises here (after the
+            # audit pacer is stopped again).
+            try:
+                self._native = NativeFrontend(
+                    self, host=self.host, port=self.port,
+                    max_batch=self.native_max_batch,
+                    deadline_us=self.native_deadline_us,
+                    tier0=self.native_tier0, bulk=self.native_bulk,
+                    shards=self.native_shards,
+                    pin_shards=self.native_pin_shards,
+                    uring=self.native_uring)
+            except BaseException:
+                await self.aclose()
+                raise
+            self.port = self._native.port
+            await self._start_metrics_http()
+            return self.host, self.port
+        if self.native_tier0:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "native_tier0 is set but native_frontend is off — the "
+                "tier-0 admission cache only exists inside the native "
+                "front-end and is NOT active")
         self._server = await asyncio.start_server(
             self._serve_connection, self.host, self.port
         )
@@ -422,23 +499,45 @@ class BucketStoreServer:
     def _build_registry(self) -> MetricsRegistry:
         """The JAX server's families, in its order and with its names and
         help text, less the ones over state the port has not got (ROADMAP
-        Queue C): the native front-end's and tier-0's (``batches_flushed``,
-        ``native_*``, the native stage histograms, ``tier0``,
-        ``native_bulk``), and placement, live config, federation and the
-        controller. They are left out, not rendered as zeros."""
+        Queue C): placement, live config, federation and the controller.
+        They are left out, not rendered as zeros."""
         reg = MetricsRegistry()
         reg.counter("connections_served", "Accepted TCP connections",
-                    lambda: self.connections_served)
+                    lambda: (self._native.counts()[1]
+                             if self._native is not None
+                             else self.connections_served))
         reg.counter("requests_served", "Requests answered on any lane",
-                    lambda: self.requests_served)
+                    lambda: (self._native.counts()[0]
+                             if self._native is not None
+                             else self.requests_served))
+        reg.counter("batches_flushed",
+                    "Native front-end micro-batches handed to Python",
+                    lambda: (self._native.counts()[2]
+                             if self._native is not None else 0))
         reg.counter("requests_shed",
                     "Requests dropped unexecuted: client deadline "
                     "expired in server queueing",
                     lambda: self.requests_shed)
+        reg.gauge("native_fe_shards", "native front-end epoll shard "
+                  "count (0 = asyncio path)",
+                  lambda: (float(self._native.n_shards)
+                           if self._native is not None else 0.0))
+        reg.gauge("native_frontend", "1 when the C front-end owns the "
+                  "sockets", lambda: 1.0 if self._native is not None
+                  else 0.0)
+        reg.gauge("native_fe_uring_shards", "native front-end shards "
+                  "serving on the io_uring transport (0 = epoll or "
+                  "asyncio path)",
+                  lambda: (float(self._native.uring_shards)
+                           if self._native is not None else 0.0))
         reg.histogram("serving_latency_seconds",
                       "Request arrival to result ready",
-                      lambda: self.serving_latency)
-        # Per-stage decomposition: serving ≈ queue + flush + reply.
+                      lambda: (self._native.latency_histogram()
+                               if self._native is not None
+                               else self.serving_latency))
+        # Per-stage decomposition: serving ≈ queue + flush + reply on the
+        # asyncio path; the native path adds its C-measured queue/exec
+        # split. One family, one label.
         metrics = getattr(self.store, "metrics", None)
         reg.histogram("stage_latency_seconds",
                       "Per-stage share of the serving span",
@@ -452,11 +551,32 @@ class BucketStoreServer:
                       "Per-stage share of the serving span",
                       lambda: self.reply_latency,
                       labels={"stage": "reply"})
+        for stage in ("native_queue", "native_exec"):
+            reg.histogram(
+                "stage_latency_seconds",
+                "Per-stage share of the serving span",
+                lambda s=stage: (self._native.stage_histograms().get(s)
+                                 if self._native is not None else None),
+                labels={"stage": stage})
         reg.register_numeric_dict(
             "store", "store metrics",
             lambda: metrics.snapshot() if metrics is not None else None,
             counters={"launches", "rows_processed", "rows_valid", "sweeps",
                       "slots_evicted", "rows_coalesced"})
+        reg.register_numeric_dict(
+            "tier0", "tier-0 admission cache",
+            lambda: (self._native.tier0_stats()
+                     if self._native is not None else None),
+            counters={"hits", "local_denies", "misses", "installs",
+                      "evictions", "syncs", "sync_failures",
+                      "keys_synced"})
+        reg.register_numeric_dict(
+            "native_bulk", "native bulk admission lane",
+            lambda: (self._native.bulk_stats()
+                     if self._native is not None else None),
+            counters={"frames", "frames_local", "rows", "rows_local",
+                      "rows_residue", "permits_local",
+                      "hot_ring_dropped"})
         if self.heavy_hitters is not None:
             hh = self.heavy_hitters
             reg.gauge("hot_keys_offered",
@@ -976,7 +1096,9 @@ class BucketStoreServer:
                     seq, wire.RESP_TEXT, self._stats_json())
                 if count & wire.STATS_FLAG_RESET:
                     # Start a fresh measurement window (serving + every
-                    # stage histogram).
+                    # stage histogram, both halves of the stack).
+                    if self._native is not None:
+                        self._native.reset_latency()
                     self.serving_latency.reset()
                     self.reply_latency.reset()
                     metrics = getattr(self.store, "metrics", None)
@@ -1206,26 +1328,65 @@ class BucketStoreServer:
         await asyncio.shield(self._save_task)
 
     def _stats_json(self) -> str:
-        """OP_STATS body: the JAX server's asyncio-path keys."""
-        payload = {
-            "connections_served": self.connections_served,
-            "requests_served": self.requests_served,
-            "serving_p50_ms": self.serving_latency.p50 * 1e3,
-            "serving_p99_ms": self.serving_latency.p99 * 1e3,
-            "serving_samples": self.serving_latency.total,
-            "requests_shed": self.requests_shed,
-            # The destructive-reset tripwire: the serving histogram counts
-            # its resets, whoever triggered them.
-            "stats_resets": self.serving_latency.resets,
-        }
+        """OP_STATS body: the JAX server's keys (with the native front-end,
+        its C-measured serving histogram and counters, tier-0, the bulk
+        lane, the shards and, when io_uring was asked for, the
+        transport)."""
+        if self._native is not None:
+            # The C front-end owns the sockets and the serving histogram
+            # (arrival → completion, measured in C); passthrough ops served
+            # here count into its requests_served through fe_send.
+            hist = self._native.latency_histogram()
+            requests, connections, batches = self._native.counts()
+            payload = {
+                "connections_served": connections,
+                "requests_served": requests,
+                "serving_p50_ms": hist.p50 * 1e3,
+                "serving_p99_ms": hist.p99 * 1e3,
+                "serving_samples": hist.total,
+                "native_frontend": True,
+                "batches_flushed": batches,
+            }
+            tier0 = self._native.tier0_stats()
+            if tier0 is not None:
+                payload["tier0"] = tier0
+            bulk = self._native.bulk_stats()
+            if bulk is not None:
+                payload["native_bulk"] = bulk
+            shards = self._native.shard_stats()
+            if shards is not None:
+                # Per-shard rows beside the merged gauges above, which stay
+                # the whole-node sums.
+                payload["fe_shards"] = len(shards)
+                payload["shards"] = shards
+            transport = self._native.transport_stats()
+            if transport is not None and transport["mode"] != "epoll":
+                # Only when uring was asked for: the epoll lane's OP_STATS
+                # shape is the JAX server's, transport-blind.
+                payload["fe_transport"] = transport
+        else:
+            payload = {
+                "connections_served": self.connections_served,
+                "requests_served": self.requests_served,
+                "serving_p50_ms": self.serving_latency.p50 * 1e3,
+                "serving_p99_ms": self.serving_latency.p99 * 1e3,
+                "serving_samples": self.serving_latency.total,
+            }
+        payload["requests_shed"] = self.requests_shed
+        # The destructive-reset tripwire: the serving histogram counts its
+        # resets, whoever triggered them.
+        payload["stats_resets"] = self.serving_latency.resets
         metrics = getattr(self.store, "metrics", None)
         if metrics is not None:
             payload["store"] = metrics.snapshot()
         # Per-stage decomposition: serving ≈ queue + flush + reply.
         stages: dict = {}
-        for name, hist in (("queue", getattr(metrics, "queue_latency", None)),
-                           ("flush", getattr(metrics, "flush_latency", None)),
-                           ("reply", self.reply_latency)):
+        hists = [("queue", getattr(metrics, "queue_latency", None)),
+                 ("flush", getattr(metrics, "flush_latency", None)),
+                 ("reply", self.reply_latency)]
+        if self._native is not None:
+            hists += list(self._native.stage_histograms().items())
+        for name, hist in hists:
             if hist is not None and hist.total:
                 stages[name] = {"p50_ms": hist.p50 * 1e3,
                                 "p99_ms": hist.p99 * 1e3,
@@ -1288,6 +1449,10 @@ class BucketStoreServer:
             self._metrics_server.close()
             await self._metrics_server.wait_closed()
             self._metrics_server = None
+        if self._native is not None:
+            await self._native.aclose()
+            self._native = None
+            return
         if self._server is not None:
             self._server.close()
         # Cancel live connection handlers BEFORE wait_closed(): since
@@ -1352,6 +1517,57 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--auth-token", default=None,
                         help="shared secret; when set, clients must HELLO "
                         "with it before any other op (≙ Redis AUTH)")
+    parser.add_argument("--native-frontend", action="store_true",
+                        help="serve sockets from the C++ front-end "
+                        "(native/frontend.cc, built at first use into the "
+                        "package's build/ directory): per-request frames "
+                        "batch in C and reach Python once per flush. The "
+                        "server exits with an error if the library cannot "
+                        "build; it never falls back to the asyncio "
+                        "listener")
+    parser.add_argument("--fe-max-batch", type=int, default=4096,
+                        help="native front-end: max per-request frames per "
+                        "micro-batch flush")
+    parser.add_argument("--fe-deadline-us", type=int, default=300,
+                        help="native front-end: flush deadline for the "
+                        "oldest pending request, microseconds")
+    parser.add_argument("--fe-tier0", action="store_true",
+                        help="native front-end: enable the tier-0 "
+                        "admission cache — hot ACQUIRE keys with confident "
+                        "headroom decide in the C loop and reconcile "
+                        "through the store's debit_many; over-admission "
+                        "bounded by overadmit_epsilon")
+    parser.add_argument("--fe-tier0-sync-ms", type=float, default=20.0,
+                        help="tier-0 sync pump cadence, milliseconds")
+    parser.add_argument("--fe-tier0-min-budget", type=float, default=64.0,
+                        help="tier-0: smallest local budget worth hosting; "
+                        "smaller buckets stay exact")
+    parser.add_argument("--fe-tier0-fraction", type=float, default=0.5,
+                        help="tier-0: fraction of the last-synced balance "
+                        "granted as local headroom")
+    parser.add_argument("--fe-shards", type=int, default=1,
+                        help="native front-end: number of epoll shards "
+                        "accepting on SO_REUSEPORT listeners bound to the "
+                        "one port (1 = a single listener)")
+    parser.add_argument("--fe-pin-shards", action="store_true",
+                        help="native front-end: pin shard i's IO thread to "
+                        "CPU i mod nproc")
+    parser.add_argument("--fe-uring", default=None,
+                        choices=["off", "on", "sqpoll"],
+                        help="native front-end transport: 'on' serves each "
+                        "shard's IO from an io_uring ring, 'sqpoll' adds a "
+                        "kernel submission poller. Default defers to "
+                        "DRL_TPU_URING (off when unset); a shard the "
+                        "kernel or seccomp refuses a ring serves on epoll "
+                        "and logs why")
+    parser.add_argument("--no-uring", action="store_true",
+                        help="force the epoll transport regardless of "
+                        "--fe-uring / DRL_TPU_URING (as DRL_TPU_NO_URING=1)")
+    parser.add_argument("--no-fe-bulk", action="store_true",
+                        help="disable the native bulk lane: ACQUIRE_MANY "
+                        "frames go to the Python passthrough lane instead "
+                        "of parsing, tier-0-deciding and encoding RESP_BULK "
+                        "in C")
     parser.add_argument("--metrics-port", type=int, default=None,
                         help="serve the OpenMetrics exposition over HTTP "
                         "on this port (GET /metrics, /flight, /audit, "
@@ -1380,6 +1596,17 @@ def main(argv: list[str] | None = None) -> None:
                         help="bounded in-memory kept-trace buffer (oldest "
                         "evicted first)")
     args = parser.parse_args(argv)
+    if args.fe_tier0 and not args.native_frontend:
+        parser.error("--fe-tier0 requires --native-frontend (the tier-0 "
+                     "admission cache lives inside the C front-end)")
+    if args.fe_shards != 1 and not args.native_frontend:
+        parser.error("--fe-shards requires --native-frontend (the epoll "
+                     "shards ARE the C front-end)")
+    if args.fe_uring in ("on", "sqpoll") and not args.native_frontend:
+        parser.error("--fe-uring requires --native-frontend (the uring "
+                     "transport lives under the C front-end's shards)")
+    if args.no_uring:
+        args.fe_uring = "off"
     if args.snapshot_incremental and not args.snapshot_path:
         parser.error("--snapshot-incremental requires --snapshot-path "
                      "(there is no chain without a base file)")
@@ -1421,9 +1648,27 @@ def main(argv: list[str] | None = None) -> None:
                           flush=True)
         if args.sweep_period > 0 and hasattr(store, "start_sweeper"):
             store.start_sweeper(args.sweep_period)
+        native_tier0 = False
+        if args.fe_tier0:
+            from distributedratelimiting.redis_tpu_torch.runtime.native_frontend import (  # noqa: E501
+                Tier0Config,
+            )
+
+            native_tier0 = Tier0Config(
+                sync_interval_s=args.fe_tier0_sync_ms / 1e3,
+                min_budget=args.fe_tier0_min_budget,
+                budget_fraction=args.fe_tier0_fraction)
         server = BucketStoreServer(
             store, host=args.host, port=args.port,
             snapshot_path=args.snapshot_path, auth_token=args.auth_token,
+            native_frontend=args.native_frontend,
+            native_max_batch=args.fe_max_batch,
+            native_deadline_us=args.fe_deadline_us,
+            native_tier0=native_tier0,
+            native_bulk=not args.no_fe_bulk,
+            native_shards=args.fe_shards,
+            native_pin_shards=args.fe_pin_shards,
+            native_uring=args.fe_uring,
             metrics_port=args.metrics_port,
             observability=not args.no_observability,
             flight_dir=args.flight_dir,

@@ -305,3 +305,65 @@ def test_same_seed_identical_alert_schedule():
     a = asyncio.run(_leak_soak(SEED, jax=False))
     b = asyncio.run(_leak_soak(SEED, jax=False))
     assert json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+class _FixedNative:
+    """Stand-in counters for a server's native front-end: the C side's
+    tier-0 and bulk gauges at fixed values, so the port's and the JAX
+    package's auditors read the same inputs."""
+
+    def __init__(self, grant, over, slices, permits, requests):
+        self.grant, self.over = grant, over
+        self.slices, self.permits, self.requests = slices, permits, requests
+
+    def tier0_stats(self):
+        return {"grant_tokens": self.grant, "overadmit_total": self.over}
+
+    def bulk_stats(self):
+        return {"permits_local": self.permits}
+
+    def t0_eps_tokens(self):
+        return list(self.slices)
+
+    def counts(self):
+        return (self.requests, 3, 7)
+
+    def stage_histograms(self):
+        return {}
+
+
+@pytest.mark.parametrize("steps", [
+    [(100.0, 2.0, (75.0, 25.0), 10.0, 40)],
+    [(100.0, 0.0, (50.0, 50.0), 0.0, 10), (400.0, 30.0, (300.0, 100.0),
+                                           64.0, 90)],
+    [(0.0, 0.0, (0.0,), 0.0, 0), (1e4, 1.0, (1e4,), 5.0, 12)]])
+def test_tier0_and_shard_epsilon_identity_as_jax(steps):
+    """The auditor's tier-0 / per-shard ε (JAX ``audit.py:238-261``): the
+    tier-0 share is overadmit_total over epsilon_fraction x the locally
+    granted tokens, the shard share the hottest slice's part of them;
+    realized over-admission is added by its delta. Fed the same native
+    counters tick by tick, the port's auditor equals the JAX package's."""
+    def ticks(server, native):
+        out = []
+        for grant, over, slices, permits, requests in steps:
+            native.grant, native.over, native.slices = grant, over, slices
+            native.permits, native.requests = permits, requests
+            server.auditor.tick()
+            a = server.auditor
+            out.append((dict(a.epsilon_used), a.overadmitted_tokens,
+                        a.numeric_stats()))
+        return out
+
+    port = BucketStoreServer(DeviceBucketStore(device="cpu", n_slots=256))
+    port._native = _FixedNative(*steps[0])
+    jax = JServer(JInProcess())
+    jax._native = _FixedNative(*steps[0])
+    got, want = ticks(port, port._native), ticks(jax, jax._native)
+    assert got == want
+    last = got[-1][0]
+    grant, over, slices = steps[-1][:3]
+    assert last["tier0"] == (min(1.0, over / (0.05 * grant)) if grant
+                             else 0.0)
+    if sum(slices):
+        assert last["shard"] == max(slices) / sum(slices)
+    port._native = jax._native = None

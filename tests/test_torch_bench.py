@@ -298,6 +298,11 @@ TINY = {
     "audit_overhead": {"depth": 4, "reqs": 5, "warm_depth": 2,
                        "warm_reqs": 2, "blocks": 1},
     "sweep_ok": {"n_slots": 256},
+    "serving_native": {"reqs": 50, "warm_reqs": 10},
+    "serving_native_tier0": {"reqs": 50, "warm_reqs": 10},
+    "serving_native_bulk": {"reps": 1, "warm_reps": 1},
+    "serving_native_shards": {"frames": 2, "rows": 64},
+    "serving_native_uring": {"frames": 2, "rows": 64},
 }
 
 #: A stand-in for the bench's children: the same flags and result lines,
@@ -311,6 +316,26 @@ if os.environ.get("STUB_FAIL") == flag:
 if flag == "--serving-server-child":
     print(json.dumps({"host": "127.0.0.1", "port": 9}), flush=True)
     sys.stdin.read()
+    opts = dict(a.split("=", 1) for a in sys.argv[2:] if "=" in a)
+    shards = int(opts.get("shards", 1))
+    print(json.dumps({"server_cpu_s": 0.5, "transport": {
+        "uring_shards": shards if "uring" in opts else 0, "fallbacks": 0,
+        "io_syscalls": 300}}), flush=True)
+elif flag == "--native-load-child":
+    d = {"rate": 1000.0, "p50_ms": 0.5, "p99_ms": 1.5, "samples": 10}
+    out = {f"d{n}": dict(d, rate=1000.0 * n) for n in (4, 16, 64, 256)}
+    if sys.argv[4] == "hot":
+        out["tier0"] = {"hit_rate": 0.5, "overadmit_total": 0.0,
+                        "overadmit_max": 0.0}
+    print(json.dumps(out))
+elif flag == "--bulk-load-child":
+    print(json.dumps({"rows_per_s": 2000.0 if sys.argv[4] == "hot" else 500.0,
+                      "p99_ms": 2.0, "window_tier0_hit_rate": 0.75}))
+elif flag == "--shard-load-child":
+    n = int(sys.argv[4])
+    print(json.dumps({"rows_per_s": 1e6 * n, "p50_ms": 0.1, "p99_ms": 0.2,
+                      "rows_local_frac": 0.9, "frames_sent": 100,
+                      "rows_sent": 6400}))
 elif flag == "--serving-load-child":
     d = {"p99_ms": 1.5, "p50_ms": 0.5, "samples": 10, "flush_p99_ms": 0.25,
          "flush_p50_ms": 0.125}
@@ -325,9 +350,16 @@ elif flag == "--nproc-client":
 
 @pytest.fixture(autouse=True)
 def stub_children(monkeypatch):
-    """Every bench child runs :data:`STUB_CHILD` unless a test lifts it."""
+    """Every bench child runs :data:`STUB_CHILD` unless a test lifts it;
+    the io_uring probe answers as on a host with a ring."""
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        native_frontend,
+    )
+
     monkeypatch.setattr(bench, "_child_cmd", lambda *args: [
         sys.executable, "-c", STUB_CHILD, *args])
+    monkeypatch.setattr(native_frontend, "uring_probe",
+                        lambda: (True, "a stub ring"))
 
 PORTED_KEYS = [k for _, keys in bench.SECTIONS for k in keys] + [
     "vs_baseline", "e2e_async_link_rtt_ms", "headline_wall_ms_per_dispatch"]
@@ -370,7 +402,15 @@ def test_bench_on_cpu_prints_every_section():
         assert result["section_status"][name] == (
             f"not_ported: ROADMAP Queue {item}")
         assert all(result[k] is None for k in keys)
-    assert {item for item, _ in bench.NOT_PORTED.values()} == {"A6", "A12"}
+    assert {item for item, _ in bench.NOT_PORTED.values()} == {"A12"}
+    # The native sections' stub answers, in their keys.
+    assert result["serving_native_req_per_s_d256"] == 256000
+    assert result["serving_native_tier0_speedup_vs_off"] == 1.0
+    assert result["serving_native_bulk_speedup_vs_asyncio"] == 1.0
+    assert result["serving_native_bulk_device_cold_rows_per_s"] == 500
+    assert result["serving_native_shards_speedup_8v1"] == 8.0
+    assert result["serving_native_uring_probe"] == "a stub ring"
+    assert result["serving_native_uring_syscalls_per_frame_epoll_s4"] == 3.0
     # The plane's sections ran on the serial store: a scrape of some bytes,
     # and the auditor ticking.
     assert result["serving_metrics_scrape_bytes"] > 0
@@ -415,6 +455,9 @@ def test_a_failed_child_fails_its_section_with_null_keys(monkeypatch, flag,
     failed = {name for name, st in status.items() if st.startswith("error")}
     want = ({section, "serving_p99_instant"}
             if section == "serving_p99_colocated" else {section})
+    if flag == "--serving-server-child":  # the native sections' rigs too
+        want |= {name for name, _ in bench.SECTIONS
+                 if name.startswith("serving_native")}
     assert failed == want
     assert "child" in status[section]
     if flag != "silent":
@@ -495,3 +538,54 @@ def test_bench_module_imports_without_jax_and_exits_without_a_card():
                           text=True, timeout=120)
     assert proc.returncode == 2, proc.stderr
     assert proc.stdout == ""
+
+
+def test_native_child_flags_parse(monkeypatch, capsys):
+    seen = {}
+    monkeypatch.setattr(bench, "_native_load_child",
+                        lambda *a: seen.setdefault("native", a) and {"n": 1})
+    monkeypatch.setattr(bench, "_bulk_load_child",
+                        lambda *a: seen.setdefault("bulk", a) and {"b": 2})
+    monkeypatch.setattr(bench, "_shard_load_child",
+                        lambda *a: seen.setdefault("shard", a) and {"s": 3})
+    monkeypatch.setattr(bench, "_serving_server_child",
+                        lambda *a, **kw: seen.setdefault("server", (a, kw)))
+    assert bench.main(["--native-load-child", "h", "7", "hot", "50",
+                       "10"]) == 0
+    assert bench.main(["--bulk-load-child", "h", "7", "cold", "2", "1"]) == 0
+    assert bench.main(["--shard-load-child", "h", "7", "4", "3", "64"]) == 0
+    assert bench.main(["--serving-server-child", "instant", "native",
+                       "tier0", "shards=4", "pin", "uring=on", "--device",
+                       "cpu"]) == 0
+    assert seen == {
+        "native": ("h", 7, "hot", 50, 10), "bulk": ("h", 7, "cold", 2, 1),
+        "shard": ("h", 7, 4, 3, 64),
+        "server": (("instant", "cpu"), {"native": True, "tier0": True,
+                                        "shards": 4, "pin": True,
+                                        "uring": "on"})}
+    assert capsys.readouterr().out.splitlines() == [
+        '{"n": 1}', '{"b": 2}', '{"s": 3}']
+
+
+def test_the_real_native_children_run_on_the_cpu(monkeypatch):
+    """The native sections' children themselves (no stub), at tiny sizes:
+    the C load generator against the serial store behind the C front-end,
+    the bulk lane on the card store run on the CPU, and one pinned shard
+    point with its shutdown line. The rates are the native lane's, never
+    the asyncio listener's: the server child reports its transport."""
+    monkeypatch.undo()  # the autouse stubs
+    dev = torch.device("cpu")
+    nat = bench.bench_serving_native(dev, tier0=True, reqs=200,
+                                     warm_reqs=20)
+    assert sorted(nat) == ["d16", "d256", "d4", "d64", "tier0"]
+    assert all(nat[f"d{d}"]["rate"] > 0 for d in bench.NATIVE_DEPTHS)
+    assert nat["tier0"]["hits"] > 0
+    cold = bench._server_rig(
+        "cold", bench._server_args(dev, "device", "native"),
+        ["--bulk-load-child", "cold", "1", "1"], 300)
+    assert cold["native_bulk"]["rows_residue"] == cold["native_bulk"][
+        "rows"] > 0
+    shard = bench._shard_rig(dev, 1, frames=2, rows=64)
+    assert shard["rows_per_s"] > 0 and shard["rows_local_frac"] > 0
+    assert shard["server"]["transport"]["mode"] == "epoll"
+    assert shard["server"]["server_cpu_s"] > 0

@@ -1355,3 +1355,54 @@ def test_scan_formats_refuse_past_their_widths(cuda_device):
         ck.acquire_batch(card, *(torch.zeros(8193, dtype=d, device=cuda_device)
                                  for d in (torch.int32, torch.int32,
                                            torch.bool)), 0, CAP, 0.1)
+
+
+@pytest.mark.cuda
+def test_late_device_trace_records_kernels(cuda_device, tmp_path):
+    """ROADMAP Queue C1: a ``torch.profiler`` session with CUDA activity
+    runs first (as a timing harness's would), then
+    ``tracing.start_device_trace`` / ``stop_device_trace`` around a bulk on
+    a card store in the same process: the late trace holds the bulk's
+    kernels, each inside a ``drl/`` range's time."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedratelimiting.redis_tpu_torch.runtime.store import (
+        DeviceBucketStore,
+    )
+    from distributedratelimiting.redis_tpu_torch.utils import tracing
+
+    x = torch.ones(1 << 20, device=cuda_device)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                (x * 2).sum()
+            torch.cuda.synchronize()
+        assert sum(e.device_time_total for e in prof.key_averages()) > 0
+
+    async def body() -> str:
+        store = DeviceBucketStore(device="cuda", n_slots=1 << 16,
+                                  max_batch=4096)
+        try:
+            keys = [f"c1-{i}" for i in range(40_000)]
+            await store.acquire_many(keys, [1] * len(keys), 100.0, 10.0)
+            tracing.start_device_trace(str(tmp_path))
+            try:
+                res = await store.acquire_many(keys, [1] * len(keys), 100.0,
+                                               10.0)
+                torch.cuda.synchronize()
+            finally:
+                path = tracing.stop_device_trace()
+            assert np.asarray(res.granted).all()
+            return path
+        finally:
+            await store.aclose()
+
+    with open(asyncio.run(body())) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ranges = [e for e in events if str(e.get("name", "")).startswith("drl/")]
+    assert ranges, "the late trace holds no drl/ range"
+    assert kernels, "the late trace holds no kernel (ROADMAP C1)"
+    assert any("scan" in k["name"] for k in kernels)

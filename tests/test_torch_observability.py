@@ -462,8 +462,7 @@ def test_served_trace_metrics_match_jax(backing):
     # not got (ROADMAP Queue C) — never rendered as zeros.
     left_out = {f for f in jax_families - mine_families}
     assert left_out <= {
-        "drl_batches_flushed", "drl_native_fe_shards", "drl_native_frontend",
-        "drl_native_fe_uring_shards", "drl_federation_slice_share",
+        "drl_federation_slice_share",
         "drl_controller_actions", "drl_flight_frames",
         "drl_flight_frames_recorded", "drl_flight_dumps_written",
         "drl_flight_dumps_suppressed"}, left_out
@@ -598,3 +597,88 @@ def test_flush_failure_dumps_once(tmp_path):
     assert [fr for fr in flushes if fr["error"]][0]["n"] == len(errors)
     assert stats["flight_recorder"]["dumps_written"] == 1
     assert stats["flight_recorder"]["frames_recorded"] >= len(flushes) + 3
+
+
+class _NativeCounters:
+    """Equal counters for both packages' native front-ends (the families'
+    renderer reads nothing else of them)."""
+
+    n_shards = 2
+    uring_shards = 1
+
+    def __init__(self, hist_cls):
+        self._hist_cls = hist_cls
+
+    def counts(self):
+        return (1234, 17, 321)
+
+    def _hist(self, n):
+        h = self._hist_cls()
+        h.counts = [0] * h.N_BUCKETS
+        h.counts[20], h.counts[30] = n, 2 * n
+        h.total, h.sum_s = 3 * n, 0.125 * n
+        return h
+
+    def latency_histogram(self):
+        return self._hist(5)
+
+    def stage_histograms(self):
+        return {"native_queue": self._hist(3), "native_exec": self._hist(4)}
+
+    def tier0_stats(self):
+        return {"hits": 900, "local_denies": 40, "misses": 60,
+                "hit_rate": 0.94, "installs": 12, "evictions": 1,
+                "entries": 11, "carry_keys": 0, "syncs": 55,
+                "sync_failures": 2, "keys_synced": 300,
+                "overadmit_total": 1.5, "overadmit_max": 1.0,
+                "retired_config_rows": 0, "last_sync_age_s": 0.25,
+                "grant_tokens": 950.0}
+
+    def bulk_stats(self):
+        return {"frames": 9, "frames_local": 4, "rows": 4096,
+                "rows_local": 3000, "rows_residue": 1096,
+                "permits_local": 3000, "hot_ring_dropped": 0}
+
+
+def _native_lines(text: str) -> list:
+    keep = ("drl_connections_served", "drl_requests_served",
+            "drl_batches_flushed", "drl_native_", "drl_tier0_",
+            "drl_serving_latency_seconds")
+    out = []
+    for line in text.splitlines():
+        parts = line.split()
+        name = (parts[2] if len(parts) > 2 else "") if line.startswith(
+            "#") else line
+        if name.startswith(keep) or 'stage="native_' in line:
+            out.append(line)
+    return out
+
+
+def test_native_families_render_as_jax_does():
+    """With equal native counters, the port's registry renders the native
+    front-end's, tier-0's and the bulk lane's families — and the native
+    serving and stage histograms — byte for byte as the JAX server's."""
+    from distributedratelimiting.redis_tpu.utils.metrics import (
+        LatencyHistogram as JHist,
+    )
+    from distributedratelimiting.redis_tpu_torch.utils.metrics import (
+        LatencyHistogram as PHist,
+    )
+
+    port = BucketStoreServer(DeviceBucketStore(device="cpu", n_slots=256),
+                             audit=False)
+    jax = JServer(JInProcess(), audit=False)
+    port._native, jax._native = _NativeCounters(PHist), _NativeCounters(JHist)
+    try:
+        mine = _native_lines(port.registry.render())
+        theirs = _native_lines(jax.registry.render())
+    finally:
+        port._native = jax._native = None
+    assert mine == theirs
+    text = "\n".join(mine)
+    for family in ("drl_batches_flushed_total 321", "drl_native_frontend 1",
+                   "drl_native_fe_shards 2", "drl_native_fe_uring_shards 1",
+                   "drl_tier0_hits_total 900",
+                   "drl_native_bulk_rows_local_total 3000",
+                   'stage="native_exec"'):
+        assert family in text, family
