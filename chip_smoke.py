@@ -161,8 +161,9 @@ Phases (any failure raises, and the script exits non-zero):
    equal (a denied row after an earlier denied row of its key in one
    decision may read the card's conservative 0), every entry's state equal;
    then a ``BucketStoreServer(snapshot_incremental=True)`` over a card store
-   of 2^24 slots holding 10,000,000 bucket keys, 1,000,000 sliding-window
-   keys, 2^16 counters and 2^16 held semaphores: ``OP_SAVE`` (a base), 500,000
+   of 2^24 slots holding 4,000,000 bucket keys (cut from 10,000,000 when
+   the fp path joined: the script must end within 1,200 s), 1,000,000
+   sliding-window keys, 2^16 counters and 2^16 held semaphores: ``OP_SAVE`` (a base), 500,000
    keys again and 10,000 new ones (``dirty_stats`` 510,000), ``OP_SAVE``
    (delta 1, under a tenth of the base), ``OP_SAVE`` (dirty 0; an empty
    delta 2), the chain restored into a fresh card store equal to the saving
@@ -175,7 +176,7 @@ Phases (any failure raises, and the script exits non-zero):
    (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
    ``serving_p99_instant`` sections once each with short windows (no key
    null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
-   alone (``--paths`` takes any of the paths of phases 3–10, 12 and 13,
+   alone (``--paths`` takes any of the paths of phases 3–10 and 12–14,
    comma-separated).
 9. The observability and overload plane (``--paths observability``), at
    the server cell's size: ``BucketStoreServer(observability=True,
@@ -234,7 +235,8 @@ Phases (any failure raises, and the script exits non-zero):
 11. The console entry point on the card: ``python -m
    distributedratelimiting.redis_tpu_torch.runtime.server --port 0 --slots
    1048576 --sweep-period 1`` as a subprocess: its listening line, ping,
-   cap-5 × 32 → 5, ``OP_STATS`` keys, SIGTERM → exit 0.
+   cap-5 × 32 → 5 for a bucket and for a window, ``OP_STATS`` keys,
+   SIGTERM → exit 0.
 12. The bench path: ``redis_tpu_torch/bench.py``'s headline, compact and
    single-batch sections at their full widths (10M slots, 32 x 8192, 16 x
    8192, B = 8192), five timed dispatches each; the launches must be the
@@ -265,21 +267,57 @@ Phases (any failure raises, and the script exits non-zero):
    remaining equal to the asyncio lane's over an equal store; shards 1 and
    4 under the bulk loadgen (rows/s, ``local_frac``); the io_uring probe
    and each shard's transport and fallback reason.
-14. Print ``{"kernels": [...]}``: per kernel (16) its launches on each path
-   of phases 3–10, 12 and 13 (``launches_by_path``; counts set to 0 before each
+14. The device-resident fingerprint directory (``--paths fp``;
+   ``runtime/fp_store.py`` over ``csrc/fp_directory.cu``). First (in the
+   whole script right after phase 2, before any path, so that their
+   ``torch.profiler`` sessions record device time) each fp
+   entry point against its plain version on 2^24-slot tables holding 1M
+   keys, compared BY KEY (each key looked up in both tables; which row wins
+   a contested cell is the atomics' order on the card) and by the table's
+   invariants (no key in two cells, every cell in its key's window), each
+   launch with its cold and warm event ms, device ms and bound:
+   ``fp_acquire_scan`` at K = 1 of 8, 64 and 4,096 rows (Zipf(1.2) and
+   distinct keys, half of them new) and at the store's chunk of 8 x 4,096,
+   and ``fp_window_scan`` sliding and fixed at K = 1 of 64 and 4,096 Zipf
+   rows and at 8 x 4,096, distinct and Zipf, f32 and bits out; under
+   window pressure (8 x 4,096 new keys into 2^16 slots half full) every
+   card row left unresolved has a full window, beside the plain version's
+   (JAX's R rounds) count; ``fp_debit`` at 4,096 rows (repeats, refunds) and one
+   valid row of 8; ``fp_peek`` at 4,096 (no cell claimed); both sweeps over
+   2^24 slots at a tick that expires about half the table; both migrates
+   from a 2^22-slot table of 1M entries into 2^23 slots in the store's
+   chunks of 4,096. Then, counts reset, ``FingerprintBucketStore(n_slots=
+   2^24)`` beside a host-directory ``DeviceBucketStore`` of 2^24 slots on
+   one ManualClock: 10M distinct keys through ``acquire_many`` in calls of
+   1M (the cold pass claims, the warm pass verdict-only), grants and
+   remaining equal (the cold pass with no retry: a row may differ only
+   where the fp store counted it unresolved, denied with remaining 0; those
+   rows sent again once then equal), rows/s of both stores and the host hash's seconds beside
+   the kernels' device ms a call; 10,000 sampled peeks and a 100,000-key
+   debit with refunds equal; sliding and fixed windows over the 10M keys
+   equal (as the cold pass); a snapshot round trip of the fp store (peeks equal); a day later
+   ``sweep_all`` frees every slot and every cell, as many as the host
+   store's; a 2^20-slot fp store fed 2M keys (buckets, then sliding
+   windows; pressure-denied rows sent again) growing at least twice, peeks
+   and next window grants equal to a host store's; no key through the
+   Python hash (the native library loaded); the console server with
+   ``--directory fp`` as in phase 11.
+15. Print ``{"kernels": [...]}``: per kernel (24) its launches on each path
+   of phases 3–10 and 12–14 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
    two-level kernel and the debit > 0 on the reservation path, every
    store kernel but the window flushes > 0 on the checkpoint path, the
    bucket flushes, the bucket scan, the two-level kernel and the debit > 0
    on the observability path, the batch lane's flushes, the bulk scan and
-   the debit > 0 on the native path, and every
-   kernel that a wire op reaches > 0 on the server path — all but the
-   bench's ``acquire_scan24`` and ``acquire_batch``) and their sum
+   the debit > 0 on the native path, every fp kernel > 0 on the fp path,
+   and every kernel that a wire op reaches > 0 on the server path — all but
+   the bench's ``acquire_scan24`` and ``acquire_batch`` and the fp kernels,
+   whose store the fp path serves) and their sum
    (``launches``), the flushes',
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-15. Last line: ``{"ok": true, "device": {...}}``.
+16. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -3100,10 +3138,11 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
     return counts
 
 
-def cli_server(pkg) -> None:
+def cli_server(pkg, *flags) -> None:
     """The console entry point on the card: start it (no ``--device``, so
-    ``cuda``), read its listening line, ping, cap-5 × 32 → 5, check that
-    ``OP_STATS`` has the JAX server's keys, SIGTERM → exit 0."""
+    ``cuda``; ``flags`` added, the fp path's ``--directory fp``), read its
+    listening line, ping, cap-5 × 32 → 5 for a bucket and for a window,
+    check that ``OP_STATS`` has the JAX server's keys, SIGTERM → exit 0."""
     import select
     import signal
 
@@ -3111,7 +3150,7 @@ def cli_server(pkg) -> None:
     cmd = [sys.executable, "-m",
            "distributedratelimiting.redis_tpu_torch.runtime.server",
            "--port", "0", "--slots", "1048576", "--sweep-period", "1",
-           *CLI_EXTRA_ARGS]
+           *flags, *CLI_EXTRA_ARGS]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -3131,26 +3170,35 @@ def cli_server(pkg) -> None:
             await cli.ping()
             res = await asyncio.gather(*(cli.acquire("five", 1, 5.0, 1.0)
                                          for _ in range(32)))
+            win = await asyncio.gather(*(cli.window_acquire("wfive", 1, 5.0,
+                                                            60.0)
+                                         for _ in range(32)))
             stats = await cli.stats()
             await cli.aclose()
-            return sum(r.granted for r in res), stats
+            return (sum(r.granted for r in res), sum(r.granted for r in win),
+                    stats)
 
-        granted, stats = asyncio.run(drive())
-        if granted != 5:
-            raise AssertionError(f"console server: cap-5 granted {granted}")
+        granted, wgranted, stats = asyncio.run(drive())
+        if (granted, wgranted) != (5, 5):
+            raise AssertionError(f"console server: cap-5 granted {granted} "
+                                 f"(bucket), {wgranted} (window)")
         keys = {"connections_served", "requests_served", "serving_p50_ms",
                 "serving_p99_ms", "serving_samples", "requests_shed",
                 "stats_resets", "store"}
         if not keys <= set(stats):
             raise AssertionError(f"console server OP_STATS lacks "
                                  f"{keys - set(stats)}")
+        if not {"pregrows", "fp_unresolved"} <= set(stats["store"]):
+            raise AssertionError("console server OP_STATS' store lacks "
+                                 "pregrows / fp_unresolved")
         t1 = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=30)
         if rc != 0:
             raise AssertionError(f"console server exited {rc} on SIGTERM")
         print(f"console server ({' '.join(cmd[2:])}): listening after "
-              f"{start_s:.1f} s, ping, cap-5 x 32 -> 5, OP_STATS keys "
+              f"{start_s:.1f} s, ping, cap-5 x 32 -> 5 (bucket and window), "
+              "OP_STATS keys "
               f"present, SIGTERM -> exit 0 in {time.perf_counter() - t1:.2f} "
               "s")
     finally:
@@ -4137,6 +4185,10 @@ CKPT_SEMAS = 2**16
 CKPT_REACQUIRE = 500_000
 CKPT_NEW_KEYS = 10_000
 CKPT_FILL_CALL = 1_000_000
+#: The chain's bucket keys: 4M since the fp path joined the script (10M
+#: before): the chain at 10M keys took 200 s of a script that must end
+#: within 1,200 s.
+CKPT_CHAIN_KEYS = 4_000_000
 #: The bench's child sections, once each with a short window.
 CKPT_BENCH = {
     "nproc": {"clients": 4, "workers": 64, "reqs": 40, "warm_workers": 32,
@@ -4365,7 +4417,7 @@ def _snapshots_equal(what, a, b) -> None:
 
 async def chain_at_size(pkg, card: str, tmp: str) -> None:
     """A ``BucketStoreServer(snapshot_incremental=True)`` over a card store
-    of 2^24 slots holding 10M bucket keys, 1M sliding-window keys, 2^16
+    of 2^24 slots holding 4M bucket keys, 1M sliding-window keys, 2^16
     counters and 2^16 held semaphores: a base, a delta of 510,000 slots, an
     empty delta, and the save after a day's sweep; the chain restored into
     fresh card stores equals the saving store."""
@@ -4385,9 +4437,9 @@ async def chain_at_size(pkg, card: str, tmp: str) -> None:
     addr = await server.start()
     cli = pkg.RemoteBucketStore(address=addr, request_timeout_s=900.0)
     t0 = time.perf_counter()
-    for pos in range(0, N_KEYS, CKPT_FILL_CALL):
+    for pos in range(0, CKPT_CHAIN_KEYS, CKPT_FILL_CALL):
         keys = [f"ck{i}" for i in range(pos, min(pos + CKPT_FILL_CALL,
-                                                 N_KEYS))]
+                                                 CKPT_CHAIN_KEYS))]
         res = await store.acquire_many(keys, [1] * len(keys), CKPT_LIMIT,
                                        CKPT_RATE, with_remaining=False)
         if res.granted_count != len(keys):
@@ -4425,7 +4477,8 @@ async def chain_at_size(pkg, card: str, tmp: str) -> None:
     st = await save("base")
     base_bytes = st["base_bytes"]
     # Delta 1: 500,000 of the keys again and 10,000 new ones.
-    again = [f"ck{i}" for i in range(0, N_KEYS, N_KEYS // CKPT_REACQUIRE)]
+    again = [f"ck{i}" for i in range(0, CKPT_CHAIN_KEYS,
+                                     CKPT_CHAIN_KEYS // CKPT_REACQUIRE)]
     new = [f"cn{i}" for i in range(CKPT_NEW_KEYS)]
     clock.advance_ticks(512)
     for keys in (again, new):
@@ -4449,7 +4502,7 @@ async def chain_at_size(pkg, card: str, tmp: str) -> None:
     n_deltas = checkpoint.load_snapshot_chain(fresh, path)
     load_s = time.perf_counter() - t
     # The saving store's snapshot at delta 2, kept by the chain as the next
-    # diff's base (nothing wrote since): one 10M-key pull fewer.
+    # diff's base (nothing wrote since): one full pull fewer.
     t = time.perf_counter()
     _snapshots_equal("chain restore", fresh.snapshot(),
                      server._snapshot_chain._prev_snap)
@@ -4488,7 +4541,7 @@ async def chain_at_size(pkg, card: str, tmp: str) -> None:
     await cli.aclose()
     await server.aclose()
     await store.aclose()
-    print(f"checkpoint chain ({card}): {N_KEYS} bucket keys, "
+    print(f"checkpoint chain ({card}): {CKPT_CHAIN_KEYS} bucket keys, "
           f"{CKPT_WINDOW_KEYS} sliding-window keys, {CKPT_COUNTERS} counters,"
           f" {CKPT_SEMAS} held semaphores on {N_SLOTS} slots, filled in "
           f"{fill_s:.1f} s; dirty before delta 1 {dirty1}, before delta 2 "
@@ -6148,6 +6201,778 @@ async def native_path(torch, ck, pkg, card: str) -> dict:
 #: Wrappers whose launches :func:`_record_sizes` counts by operand width,
 #: by the kernel's name: B for a flush, a sync or a debit; K x B rows for a
 #: bulk-lane scan.
+# -- phase 14: the device-resident fingerprint directory (--paths fp) -------
+
+FP_SEED = 1717
+FP_SLOTS = 2**24
+FP_L = 16          # the store's probe window
+FP_R = 4           # the plain version's claim rounds (JAX's R)
+#: Keys placed in the kernel cases' tables before each case.
+FP_PRESENT = 1_000_000
+#: The store part: BASELINE's 10M-key tables, in calls of 1M keys.
+FP_KEYS = 10_000_000
+FP_CALL = 1_000_000
+FP_CAP = 5.0
+FP_RATE = 1.0
+FP_PEEKS = 10_000
+FP_DEBIT_KEYS = 100_000
+#: The growth case: a 2^20-slot store fed 2M keys in calls of 2^17.
+FP_GROW_SLOTS = 2**20
+FP_GROW_KEYS = 2_000_000
+FP_GROW_CALL = 1 << 17
+#: The migrate case: a 2^22-slot table's entries into 2^23 slots.
+FP_MIGRATE_FROM = 2**22
+FP_MIGRATE_ENTRIES = 1_000_000
+#: The window tier's limit and window (one second).
+FP_WLIMIT = 6.0
+FP_WINDOW_S = 1.0
+#: Each fp kernel's results for the kernels line, filled by the fp path.
+FP_RESULTS: dict = {}
+#: The CUDA kernels each fp wrapper launches (their device time).
+FP_KERNEL_NAMES = {
+    "fp_decide": ("resolve_kernel", "scan_kernel", "code_kernel"),
+    "fp_window_decide": ("resolve_kernel", "scan_kernel", "code_kernel"),
+    "fp_debit": ("resolve_kernel", "tally_", "debit_fix_kernel"),
+    "fp_peek": ("peek_kernel",),
+    "fp_sweep": ("sweep_bucket_kernel",),
+    "fp_sweep_windows": ("sweep_window_kernel",),
+    "fp_migrate": ("migrate_kernel",),
+    "fp_migrate_window": ("migrate_kernel",),
+}
+
+
+def _fp_keys(rng, m: int) -> np.ndarray:
+    return rng.integers(1, 2**32, (m, 2), dtype=np.uint64).astype(np.uint32)
+
+
+def _fp_base(torch, K, F, rng, n: int, present: int, kind: str):
+    """A CPU table of ``n`` slots with ``present`` keys placed (the plain
+    resolve) and random state on the claimed cells only (an empty cell holds
+    none: claims and sweeps keep it so). Returns (keys, (fp, state))."""
+    keys = _fp_keys(rng, present)
+    fp = F.init_fp_table(n)
+    F.fp_resolve(fp, torch.from_numpy(keys.view(np.int32)),
+                 torch.ones(present, dtype=torch.bool), probe_window=FP_L,
+                 rounds=FP_R)
+    live = (fp != 0).any(1).numpy()
+    now = 1 << 20
+    if kind == "bucket":
+        cols = [rng.uniform(0, FP_CAP, n).astype(np.float32),
+                rng.integers(now - 4096, now, n).astype(np.int32),
+                np.ones(n, bool)]
+        cls = K.BucketState
+    else:
+        cols = [rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(now // 1024 - 3, now // 1024 + 1,
+                             n).astype(np.int32),
+                np.ones(n, bool)]
+        cls = K.WindowState
+    for c in cols:
+        c[~live] = 0
+    return keys, (fp, cls(*(torch.from_numpy(c) for c in cols)))
+
+
+def _fp_copy(table, dev=None):
+    fp, st = table
+    if dev is None:
+        return fp.clone(), type(st)(*(t.clone() for t in st))
+    return fp.to(dev), type(st)(*(t.to(dev) for t in st))
+
+
+def _fp_rows(rng, keys, m: int, dist: str) -> np.ndarray:
+    """``m`` request keys: half of them present, half new; distinct, or
+    Zipf(1.2) over that pool."""
+    half = min(m // 2, len(keys))
+    pool = np.concatenate([keys[rng.permutation(len(keys))[:half]],
+                           _fp_keys(rng, m - half)])
+    if dist == "distinct":
+        return pool[rng.permutation(len(pool))]
+    return pool[np.minimum(rng.zipf(1.2, m) - 1, len(pool) - 1)]
+
+
+def _fp_same_by_key(F, what, cpu, dev, keys) -> tuple:
+    """The card's table against the plain version's BY KEY: the card's
+    invariants hold (no key in two cells, every cell in its key's window),
+    each key is present in both or in neither, its state fields equal
+    (floats within ATOL). Returns (claimed cells, max abs error)."""
+    fp_c = cpu[0].numpy().view(np.uint32)
+    fp_d = dev[0].cpu().numpy().view(np.uint32)
+    n_d = F.check_table_np(fp_d, FP_L)
+    n_c = int((fp_c != 0).any(1).sum())
+    if n_d != n_c:
+        raise AssertionError(f"{what}: {n_d} cells claimed on the card, "
+                             f"{n_c} in the plain version")
+    sc, sd = F.find_np(fp_c, keys, FP_L), F.find_np(fp_d, keys, FP_L)
+    if not np.array_equal(sc >= 0, sd >= 0):
+        raise AssertionError(f"{what}: {int(((sc >= 0) != (sd >= 0)).sum())}"
+                             " keys present on one side only")
+    hit = sc >= 0
+    err = 0.0
+    for name, a, b in zip(cpu[1]._fields, cpu[1], dev[1]):
+        a = a.numpy()[sc[hit]]
+        b = b.cpu().numpy()[sd[hit]]
+        if a.dtype == np.float32:
+            e = float(np.abs(a.astype(np.float64) - b).max(initial=0.0))
+            if not e <= ATOL:
+                raise AssertionError(f"{what}: {name} by key, max abs error "
+                                     f"{e}")
+            err = max(err, e)
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {name} differs by key")
+    return n_d, err
+
+
+def _fp_time(torch, name: str, call, plain=None) -> dict:
+    """A launch's event ms (median), its kernels' device ms (profiler) and,
+    where given, its plain version's ms."""
+    out = {"ms": _median_ms(call, reps=10, warmup=2),
+           "device_ms": _device_ms(call, FP_KERNEL_NAMES[name], reps=10)}
+    if plain is not None:
+        out["plain_ms"] = _median_ms(plain, reps=2, warmup=0)
+    return out
+
+
+def _fp_record(name: str, case: str, row: dict, err: float, nbytes: float,
+               ops: float, first: bool = False) -> None:
+    """One case of an fp kernel: its times and bound in ``shapes``; the
+    kernel's line takes the store's main shape (``first``) and the largest
+    error of any case."""
+    bound_ms, bound_by = _bound_ms(nbytes, ops)
+    r = FP_RESULTS.setdefault(name, {"max_abs_err": 0.0, "shapes": {},
+                                     "library_ms": None})
+    r["shapes"][case] = dict(row, bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=err)
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if first or "ms" not in r:
+        r.update(ms=row["ms"], device_ms=row["device_ms"],
+                 plain_ms=row.get("plain_ms"), bytes=nbytes, ops=ops)
+
+
+def _fp_kernel_phase(torch, ck, card: str) -> None:
+    """The fp kernel cases, timed. The whole script runs them right after
+    the kernel phase, in a process that has run no path yet: there its
+    ``torch.profiler`` sessions record the kernels' device time, which
+    sessions late in a long run may not (ROADMAP C1)."""
+    from distributedratelimiting.redis_tpu_torch.ops import fp_directory as F
+    from distributedratelimiting.redis_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    fp_kernel_cases(torch, K, F, ck, torch.device("cuda"),
+                    np.random.default_rng(FP_SEED))
+    print(f"fp kernel cases ({card}): {time.perf_counter() - t0:.1f} s")
+
+
+def fp_kernel_cases(torch, K, F, ck, dev, rng) -> None:
+    """Each fp entry point against its plain version on 2^24-slot tables
+    (a 2^22 → 2^23 migration), by key and by the table's invariants; fills
+    :data:`FP_RESULTS`."""
+    cap, rate = FP_CAP, FP_RATE / 1024
+    now = 1 << 20
+    tables = {}
+    for kind in ("bucket", "window"):
+        keys, base = _fp_base(torch, K, F, rng, FP_SLOTS, FP_PRESENT, kind)
+        tables[kind] = (keys, base, _fp_copy(base, dev))
+
+    # -- the decision: K = 1 (the flush) and the store's chunk K = 8 x 4096.
+    cases = [("bucket", 1, b, d, True) for b in (8, 64, BATCH)
+             for d in ("zipf", "distinct")]
+    cases += [(p, 1, b, "zipf", True) for p in ("sliding", "fixed")
+              for b in (64, BATCH)]
+    cases += [(p, 8, BATCH, d, f) for p in ("bucket", "sliding", "fixed")
+              for d in ("distinct", "zipf") for f in (True, False)]
+    for policy, k, b, dist, f32 in cases:
+        kind = "bucket" if policy == "bucket" else "window"
+        keys, base, base_d = tables[kind]
+        rows = _fp_rows(rng, keys, k * b, dist)
+        counts = rng.integers(0, 4, k * b).astype(np.int64)
+        counts[rng.random(k * b) < 0.02] = -1  # padding rows
+        fused = F.pack_fp12(rows, np.zeros(0))
+        fused[:, 2] = counts.astype(np.uint32)
+        op = torch.from_numpy(fused.view(np.int32).reshape(k, b, 3))
+        nows = torch.from_numpy((now + 37 * np.arange(k)).astype(np.int32))
+        cpu, card = _fp_copy(base), _fp_copy(base_d)
+        op_d, nows_d = op.to(dev), nows.to(dev)
+        if policy == "bucket":
+            name = "fp_decide"
+
+            def call(t, o, nw, f32=f32):
+                return ck.fp_acquire_scan(*t, o, nw, cap, rate,
+                                          with_remaining=f32)
+        else:
+            name = "fp_window_decide"
+
+            def call(t, o, nw, f32=f32, sliding=policy == "sliding"):
+                return ck.fp_window_scan(*t, o, nw, FP_WLIMIT, 1024,
+                                         interpolate=sliding,
+                                         with_remaining=f32)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = call(card, op_d, nows_d)
+        end.record()
+        end.synchronize()
+        cold_ms = start.elapsed_time(end)
+        want = call(cpu, op, nows)
+        g, w = got.cpu().numpy(), want.numpy()
+        if f32:
+            if not np.array_equal(g[:, 0], w[:, 0]):
+                raise AssertionError(f"{name} {policy} K={k} B={b} {dist}: "
+                                     "grant/resolve codes differ")
+            err = float(np.abs(g[:, 1].astype(np.float64) - w[:, 1]).max())
+            if not err <= ATOL:
+                raise AssertionError(f"{name}: remaining err {err}")
+            unresolved = int((w[:, 0] < 2).sum())
+        else:
+            if not np.array_equal(g, w):
+                raise AssertionError(f"{name} {policy} K={k} B={b} {dist}: "
+                                     "bit planes differ")
+            err = 0.0
+            unresolved = int((np.unpackbits(w[:, 1].reshape(-1)) == 0).sum())
+        if unresolved:
+            raise AssertionError(f"{name}: {unresolved} rows unresolved at "
+                                 "a load far below the limit")
+        cells, serr = _fp_same_by_key(F, f"{name} {policy} K={k} B={b}", cpu,
+                                      card, np.concatenate([rows,
+                                                            keys[:100_000]]))
+        err = max(err, serr)
+        first = (policy in ("bucket", "sliding") and k == 8 and f32
+                 and dist == "distinct")
+        row = _fp_time(torch, name, lambda: call(card, op_d, nows_d),
+                       (lambda: call(cpu, op, nows)) if first else None)
+        row["cold_ms"] = cold_ms
+        rows_n = k * b
+        d = len(np.unique(rows[counts >= 0].view(np.uint64)))
+        claimed = cells - int((base[0] != 0).any(1).sum())
+        state_b = 9 if kind == "bucket" else 13
+        out_b = rows_n * 8 if f32 else rows_n // 4
+        # Bytes: the 12 B operand row and the result of every row; for each
+        # distinct valid key its window (L x 8 B) and its slot's state once
+        # each way; an 8 B cell for each new key.
+        nbytes = 12 * rows_n + out_b + (FP_L * 8 + 2 * state_b) * d \
+            + 8 * claimed
+        _fp_record(name, f"{policy} K={k} B={b} {dist} "
+                   f"{'f32' if f32 else 'bits'}", row, err, nbytes,
+                   FP_L * d + 12 * rows_n, first)
+        print(f"{name} {policy} K={k} B={b} {dist} "
+              f"{'f32' if f32 else 'bits'}: equal to plain by key "
+              f"({cells} cells, max abs err {err!r}); cold {cold_ms:.4f} ms, "
+              f"warm {row['ms']:.4f} ms (device {row['device_ms']} ms)")
+        del cpu, card
+
+    # -- window pressure: 8 x 4,096 new keys into a 2^16-slot table half
+    #    full. On the card a row is unresolved only when its window is full;
+    #    the plain version (JAX's R rounds, the last claimant winning) may
+    #    leave a row unresolved beside a free cell. Held to the invariants.
+    n_p = 1 << 16
+    _, pbase = _fp_base(torch, K, F, rng, n_p, n_p // 2, "bucket")
+    rows = _fp_keys(rng, 8 * BATCH)
+    fused = F.pack_fp12(rows, np.zeros(0))
+    fused[:, 2] = 1
+    op = torch.from_numpy(fused.view(np.int32).reshape(8, BATCH, 3))
+    nows = torch.full((8,), now, dtype=torch.int32)
+    cpu, card = _fp_copy(pbase), _fp_copy(pbase, dev)
+    got = ck.fp_acquire_scan(*card, op.to(dev), nows.to(dev), cap,
+                             rate).cpu().numpy()
+    want = ck.fp_acquire_scan(*cpu, op, nows, cap, rate).numpy()
+    free_after = []
+    for side, out, table in (("card", got, card[0].cpu()),
+                             ("plain", want, cpu[0])):
+        fp_t = table.numpy().view(np.uint32)
+        F.check_table_np(fp_t, FP_L)
+        code, rem = out[:, 0].reshape(-1), out[:, 1].reshape(-1)
+        un = code < 2
+        if code[un].any() or rem[un].any():
+            raise AssertionError(f"window pressure ({side}): an unresolved "
+                                 "row was granted or reads remaining > 0")
+        if not (F.find_np(fp_t, rows[~un], FP_L) >= 0).all():
+            raise AssertionError(f"window pressure ({side}): a resolved "
+                                 "row's key holds no cell")
+        cells_t = fp_t.view(np.uint64).reshape(-1)
+        win = cells_t[F.base_index_np(rows[un], n_p, FP_L)[:, None]
+                      + np.arange(FP_L)[None, :]]
+        free_after.append((int(un.sum()), int((win == 0).any(1).sum())))
+    if free_after[0][1]:
+        raise AssertionError(f"window pressure: {free_after[0][1]} rows "
+                             "unresolved on the card beside a free cell")
+    print(f"fp_decide under window pressure (8 x {BATCH} new keys into "
+          f"2^16 slots half full): card {free_after[0][0]} rows unresolved, "
+          f"every one with its window full; plain version (JAX's rule, R = "
+          f"{FP_R} rounds) {free_after[1][0]}, {free_after[1][1]} of them "
+          "beside a free cell")
+    del cpu, card, pbase
+
+    # -- the debit: 4,096 rows with repeats and refunds; one valid row of 8.
+    keys, base, base_d = tables["bucket"]
+    for b, label in ((BATCH, "repeats and refunds"), (8, "one valid row")):
+        rows = _fp_rows(rng, keys, b, "zipf")
+        amounts = rng.integers(-3, 6, b).astype(np.float32)
+        n_valid = 1 if b == 8 else b - b // 64
+        packed = np.zeros((4, b), np.int32)
+        packed[0, n_valid:] = -1
+        packed[1] = amounts.view(np.int32)
+        packed[2] = now
+        packed[3, :n_valid] = F.fp_prefix_float(
+            rows[:n_valid], amounts[:n_valid]).view(np.int32)
+        kp = torch.from_numpy(rows.view(np.int32))
+        cpu, card = _fp_copy(base), _fp_copy(base_d)
+        kp_d = kp.to(dev)
+        want = ck.fp_debit(*cpu, kp, torch.from_numpy(packed.copy()), cap,
+                           rate).numpy()
+        got = ck.fp_debit(*card, kp_d, torch.from_numpy(packed.copy()).to(
+            dev), cap, rate).cpu().numpy()
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        if not err <= ATOL:
+            raise AssertionError(f"fp_debit ({label}): replies err {err}")
+        cells, serr = _fp_same_by_key(F, f"fp_debit ({label})", cpu, card,
+                                      np.concatenate([rows, keys[:100_000]]))
+        packed_d = torch.from_numpy(packed).to(dev)
+        row = _fp_time(torch, "fp_debit", lambda: ck.fp_debit(
+            *card, kp_d, packed_d.clone(), cap, rate),
+            (lambda: ck.fp_debit(*cpu, kp, torch.from_numpy(packed.copy()),
+                                 cap, rate)) if b == BATCH else None)
+        # Bytes: every row's pair, packed operand and reply; for each
+        # distinct valid key its window and its state once each way.
+        d = len(np.unique(rows[:n_valid].view(np.uint64)))
+        _fp_record("fp_debit", f"{label} (B={b})", row, max(err, serr),
+                   8 * b + 16 * b + 8 * b + (FP_L * 8 + 18) * d,
+                   FP_L * d + 12 * b, b == BATCH)
+        print(f"fp_debit B={b} ({label}): replies and state equal to plain "
+              f"by key (max abs err {max(err, serr)!r}); {row['ms']:.4f} ms "
+              f"(device {row['device_ms']} ms)")
+
+    # -- the peek: 4,096 rows, half absent; it claims nothing.
+    rows = _fp_rows(rng, keys, BATCH, "distinct")
+    valid = torch.from_numpy(rng.random(BATCH) < 0.98)
+    kp = torch.from_numpy(rows.view(np.int32))
+    card = _fp_copy(base_d)
+    kp_d, valid_d = kp.to(dev), valid.to(dev)
+    want = ck.fp_peek(*base, kp, valid, now, cap, rate)
+    got = ck.fp_peek(*card, kp_d, valid_d, now, cap, rate)
+    _check_equal("fp_peek", got, want)
+    if not torch.equal(card[0], base_d[0]):
+        raise AssertionError("fp_peek claimed a cell")
+    row = _fp_time(torch, "fp_peek", lambda: ck.fp_peek(
+        *card, kp_d, valid_d, now, cap, rate),
+        lambda: ck.fp_peek(*base, kp, valid, now, cap, rate))
+    # Bytes: every row's pair, valid byte and reply; a valid row's window
+    # (the rows are distinct); the state of the keys found.
+    found = int(((F.find_np(base[0].numpy().view(np.uint32), rows, FP_L)
+                  >= 0) & valid.numpy()).sum())
+    n_valid = int(valid.sum())
+    _fp_record("fp_peek", f"B={BATCH}", row, 0.0,
+               9 * BATCH + 4 * BATCH + FP_L * 8 * n_valid + 9 * found,
+               FP_L * n_valid + 8 * found, True)
+    print(f"fp_peek B={BATCH}: equal to plain, no cell claimed; "
+          f"{row['ms']:.4f} ms (device {row['device_ms']} ms)")
+
+    # -- the sweeps, at a tick that expires about half the table.
+    for name, kind in (("fp_sweep", "bucket"), ("fp_sweep_windows",
+                                                "window")):
+        keys, base, base_d = tables[kind]
+        if kind == "bucket":
+            # TTL = max(deficit / rate, 1024 ticks): tokens uniform in
+            # [0, 5) at 1/1024 a tick, idle since [now - 4096, now): ~3/8
+            # expire.
+            def sweep(t):
+                return ck.fp_sweep_expired(*t, now, cap, rate)
+        else:
+            # Indices now - 3 .. now: two whole windows behind for half.
+            def sweep(t):
+                return ck.fp_sweep_windows(*t, now, 1024)
+        cpu, card = _fp_copy(base), _fp_copy(base_d)
+        want = int(sweep(cpu)[0])
+        got = int(sweep(card).cpu()[0])
+        live = int((base[0] != 0).any(1).sum())
+        if got != want or not 0.25 * live < got < 0.75 * live:
+            raise AssertionError(f"{name}: freed {got}, plain {want}, of "
+                                 f"{live} live")
+        _check_equal(f"{name} cells", card[0], cpu[0])
+        for a, b2 in zip(card[1], cpu[1]):
+            _check_equal(f"{name} state", a, b2)
+        row = _fp_time(torch, name, lambda: sweep(card),
+                       lambda: sweep(cpu))
+        # Bytes: exists for every slot; the rule's columns of the live
+        # slots only (tokens and last_ts, or window_idx); exists and the
+        # 8 B cell written for each freed slot.
+        rule_b = 8 if kind == "bucket" else 4
+        _fp_record(name, f"N=2^24, {got} of {live} freed", row, 0.0,
+                   FP_SLOTS + rule_b * live + 9 * got,
+                   FP_SLOTS + 8 * live, True)
+        print(f"{name} over 2^24 slots: {got} of {live} freed, table equal "
+              f"to plain; {row['ms']:.4f} ms (device {row['device_ms']} ms)")
+        del cpu, card
+
+    # -- the migrate: a 2^22-slot table's entries into 2^23 slots, in the
+    #    store's chunks of 4,096.
+    for name, kind in (("fp_migrate", "bucket"), ("fp_migrate_window",
+                                                  "window")):
+        keys, old = _fp_base(torch, K, F, rng, FP_MIGRATE_FROM,
+                             FP_MIGRATE_ENTRIES, kind)
+        cells = np.nonzero((old[0] != 0).any(1).numpy())[0]
+        cls = type(old[1])
+        new_c = (F.init_fp_table(2 * FP_MIGRATE_FROM),
+                 cls(*(torch.zeros(2 * FP_MIGRATE_FROM, dtype=t.dtype)
+                       for t in old[1])))
+        new_d = _fp_copy(new_c, dev)
+        old_d = _fp_copy(old, dev)
+        chunks = [cells[i:i + BATCH] for i in range(0, len(cells), BATCH)]
+        t_d = t_c = 0.0
+        launches = 0
+        retried = [0, 0]
+        # As the store's _rehash: rows a pass leaves unplaced (a full
+        # window on the card; in the plain version also its R rounds under
+        # in-chunk contention: a chunk of consecutive old cells lands in two
+        # dense regions of the new table) go again in the next pass, each
+        # side on its own.
+        pend = [cells, cells]
+        for _ in range(8):
+            nxt = [[], []]
+            for side, (table, src_t, tdev) in enumerate(
+                    ((new_c, old, None), (new_d, old_d, dev))):
+                for i in range(0, len(pend[side]), BATCH):
+                    idx = pend[side][i:i + BATCH]
+                    ix = torch.from_numpy(idx)
+                    if tdev is not None:
+                        ix = ix.to(tdev)
+                    valid = torch.ones(len(idx), dtype=torch.bool,
+                                       device=ix.device)
+                    t = time.perf_counter()
+                    placed = ck.fp_migrate(*table, src_t[0][ix].contiguous(),
+                                           [c[ix] for c in src_t[1]], valid)
+                    miss = ~placed.cpu().numpy()
+                    if side:
+                        t_d += time.perf_counter() - t
+                        launches += 1
+                    else:
+                        t_c += time.perf_counter() - t
+                    nxt[side].append(idx[miss])
+            pend = [np.concatenate(x) if x else cells[:0] for x in nxt]
+            retried[0] += len(pend[0])
+            retried[1] += len(pend[1])
+            if not len(pend[0]) and not len(pend[1]):
+                break
+        if len(pend[0]) or len(pend[1]):
+            raise AssertionError(f"{name}: rows still unplaced after eight "
+                                 "passes")
+        n_cells, err = _fp_same_by_key(F, name, new_c, new_d, keys)
+        if n_cells != len(cells):
+            raise AssertionError(f"{name}: {n_cells} of {len(cells)} placed")
+        idx = chunks[0]
+        i_d = torch.from_numpy(idx).to(dev)
+        kp_d = old_d[0][i_d].contiguous()
+        cols_d = [c[i_d] for c in old_d[1]]
+        valid_d = torch.ones(len(idx), dtype=torch.bool, device=dev)
+        # Timed re-placing a chunk into the table that holds it.
+        probe = _fp_copy(new_d)
+        row = _fp_time(torch, name, lambda: ck.fp_migrate(
+            *probe, kp_d, cols_d, valid_d))
+        row["plain_ms"] = t_c / len(chunks) * 1e3
+        row["card_retried_rows"] = retried[1]
+        row["whole_s"] = t_d
+        state_b = 9 if kind == "bucket" else 13
+        _fp_record(name, f"2^22 -> 2^23, {len(cells)} entries, B={BATCH}",
+                   row, err, (8 + state_b + 1) * BATCH
+                   + (FP_L * 8 + 8 + state_b) * BATCH,
+                   (FP_L + 8) * BATCH, True)
+        print(f"{name} 2^22 -> 2^23: {len(cells)} entries in {launches} "
+              f"launches, {retried[1]} rows placed in a later pass on the "
+              f"card, {retried[0]} in the plain version ({t_d:.2f} s on the "
+              f"card, {t_c:.2f} s plain), "
+              f"equal by key; {row['ms']:.4f} ms a launch (device "
+              f"{row['device_ms']} ms)")
+        del old, old_d, new_c, new_d, probe
+    del tables
+    torch.cuda.empty_cache()
+
+
+async def _fp_bulk(store, keys, counts, with_remaining=True, window=None):
+    """``keys`` through ``acquire_many`` (or ``window_acquire_many`` with
+    ``window = fixed``) in calls of :data:`FP_CALL`; the concatenated
+    results and the wall seconds."""
+    g, r = [], []
+    t = time.perf_counter()
+    for i in range(0, len(keys), FP_CALL):
+        ks, cs = keys[i:i + FP_CALL], counts[i:i + FP_CALL]
+        if window is None:
+            res = await store.acquire_many(ks, cs, FP_CAP, FP_RATE,
+                                           with_remaining=with_remaining)
+        else:
+            res = await store.window_acquire_many(
+                ks, cs, FP_WLIMIT, FP_WINDOW_S, fixed=window,
+                with_remaining=with_remaining)
+        g.append(res.granted)
+        if with_remaining:
+            r.append(res.remaining)
+    wall = time.perf_counter() - t
+    return (np.concatenate(g), np.concatenate(r) if r else None), wall
+
+
+async def _fp_cold_equal(what, store, keys, counts, got, want, unresolved,
+                         window=None) -> int:
+    """A cold pass (fresh keys, counts within the limit: the host store
+    grants every row) held to the host directory's, without retries. A row
+    may differ only where the fp store left it unresolved — on the card
+    only a full window does — denied with remaining 0; the rows that differ
+    must be exactly the ``unresolved`` the store counted. They are then
+    sent again, once, as a client retries, into the table the store
+    relieved, and must equal the host's. Returns their number."""
+    lost = np.flatnonzero(got[0] != want[0])
+    if (len(lost) != unresolved or got[0][lost].any()
+            or np.any(got[1][lost] != 0)):
+        raise AssertionError(
+            f"{what}: {len(lost)} grants differ from the host directory's, "
+            f"the store counted {unresolved} rows unresolved")
+    keep = np.ones(len(got[0]), bool)
+    keep[lost] = False
+    _fp_equal(what, (got[0][keep], got[1][keep]),
+              (want[0][keep], want[1][keep]))
+    if len(lost):
+        again, _ = await _fp_bulk(store, [keys[j] for j in lost],
+                                  counts[lost], window=window)
+        _fp_equal(f"{what}, the unresolved rows sent again", again,
+                  (want[0][lost], want[1][lost]))
+    return len(lost)
+
+
+def _fp_equal(what, got, want) -> None:
+    if not np.array_equal(got[0], want[0]):
+        raise AssertionError(f"{what}: {int((got[0] != want[0]).sum())} "
+                             "grants differ")
+    if got[1] is not None and not np.array_equal(got[1], want[1]):
+        err = float(np.abs(got[1].astype(np.float64) - want[1]).max())
+        raise AssertionError(f"{what}: remaining differs (max {err})")
+
+
+async def fp_path(torch, ck, pkg, card: str) -> dict:
+    """The fingerprint store on the card: the kernel cases, then (counts
+    reset) 10M keys through ``FingerprintBucketStore(n_slots=2^24)``
+    against a host-directory card store, growth, the window tier, a
+    snapshot round trip, a sweep, the debit, and ``--directory fp`` as a
+    subprocess. Returns the launches of the store part."""
+    from distributedratelimiting.redis_tpu_torch.ops import fp_directory as F
+    from distributedratelimiting.redis_tpu_torch.runtime import fp_store
+
+    rng = np.random.default_rng(FP_SEED + 1)
+    if not FP_RESULTS:  # the path alone; the whole script ran them first
+        _fp_kernel_phase(torch, ck, card)
+
+    # The host hash: timed, and the Python FNV must never run.
+    hash_s, py_hashes = [0.0], [0]
+    real_fp, real_py = fp_store.fingerprints, fp_store._fp64_py
+
+    def timed_fps(keys):
+        t = time.perf_counter()
+        try:
+            return real_fp(keys)
+        finally:
+            hash_s[0] += time.perf_counter() - t
+
+    def counted_py(key):
+        py_hashes[0] += 1
+        return real_py(key)
+
+    fp_store.fingerprints, fp_store._fp64_py = timed_fps, counted_py
+    ck.reset_launches()
+    try:
+        lines = await _fp_store_part(torch, ck, pkg, F, rng, hash_s)
+    finally:
+        fp_store.fingerprints, fp_store._fp64_py = real_fp, real_py
+    torch.cuda.synchronize()
+    counts = dict(ck.launches)
+    if py_hashes[0]:
+        raise AssertionError(f"fp path: {py_hashes[0]} keys took the Python "
+                             "hash (the native directory library is not "
+                             "loaded)")
+    lines.append("native hash: every key (0 through the Python FNV)")
+    for line in lines:
+        print(f"fp path ({card}): {line}")
+    # The console server with the fingerprint directory, in a thread: its
+    # client runs an event loop of its own.
+    await asyncio.to_thread(cli_server, pkg, "--directory", "fp")
+    torch.cuda.empty_cache()
+    return counts
+
+
+async def _fp_store_part(torch, ck, pkg, F, rng, hash_s) -> list:
+    from distributedratelimiting.redis_tpu_torch.runtime import fp_store
+
+    lines = []
+    clock = pkg.ManualClock(1_000_000)
+    fp = pkg.FingerprintBucketStore(device="cuda", n_slots=FP_SLOTS,
+                                    max_batch=BATCH, clock=clock)
+    host = pkg.DeviceBucketStore(device="cuda", n_slots=FP_SLOTS,
+                                 max_batch=BATCH, clock=clock)
+    await fp.connect()
+    await host.connect()
+    keys = [f"fp{i}" for i in range(FP_KEYS)]
+    counts = rng.integers(1, 4, FP_KEYS)
+    # Cold: every key claims its cell; warm: every key probes.
+    got, fp_cold = await _fp_bulk(fp, keys, counts)
+    cold_hash = hash_s[0]
+    cold_unresolved, cold_grows = fp.metrics.fp_unresolved, \
+        fp.metrics.pregrows
+    want, host_cold = await _fp_bulk(host, keys, counts)
+    await _fp_cold_equal("10M keys, cold", fp, keys, counts, got, want,
+                         cold_unresolved)
+    cold_grows = fp.metrics.pregrows
+    counts2 = rng.integers(1, 4, FP_KEYS)
+    got, fp_warm = await _fp_bulk(fp, keys, counts2, with_remaining=False)
+    want, host_warm = await _fp_bulk(host, keys, counts2,
+                                     with_remaining=False)
+    _fp_equal("10M keys, warm", got, want)
+    denied = int((~got[0]).sum())
+    # The device time of one warm call of 1M keys.
+    call_keys, call_counts = keys[:FP_CALL], [0] * FP_CALL
+    dev_ms = _device_ms(lambda: fp.acquire_many_blocking(
+        call_keys, call_counts, FP_CAP, FP_RATE, with_remaining=False),
+        FP_KERNEL_NAMES["fp_decide"], reps=3)
+    before = hash_s[0]
+    fp_store.fingerprints(call_keys)
+    one_hash = hash_s[0] - before
+    m = fp.metrics
+    if (m.fp_unresolved, m.pregrows) != (cold_unresolved, cold_grows):
+        raise AssertionError("10M keys: the warm pass (probes only) left "
+                             "rows unresolved")
+    lines.append(
+        f"10M keys in calls of 1M, cold pass {cold_unresolved} rows "
+        f"unresolved (full windows; denied, then sent again once), "
+        f"{cold_grows} growths (table "
+        f"{fp._table(FP_CAP, FP_RATE).n_slots} slots); grants and "
+        f"remaining equal to the host "
+        f"directory's: fp store cold {FP_KEYS / fp_cold:.0f} rows/s, warm "
+        f"{FP_KEYS / fp_warm:.0f} rows/s; host directory cold "
+        f"{FP_KEYS / host_cold:.0f}, warm {FP_KEYS / host_warm:.0f}; "
+        f"{denied} denied warm; the host hash {cold_hash:.2f} s of the cold "
+        f"pass ({one_hash * 1e3:.1f} ms a 1M call) beside the kernels' "
+        f"{dev_ms} ms a 1M call")
+    # Peeks of sampled keys; the debit with refunds.
+    sample = [keys[i] for i in rng.permutation(FP_KEYS)[:FP_PEEKS]]
+    pf = [fp.peek_blocking(k, FP_CAP, FP_RATE) for k in sample]
+    ph = [host.peek_blocking(k, FP_CAP, FP_RATE) for k in sample]
+    if pf != ph:
+        raise AssertionError("fp path: peeks differ from the host store's")
+    amounts = rng.integers(-2, 4, FP_DEBIT_KEYS).astype(float)
+    dk = [keys[i] for i in rng.permutation(FP_KEYS)[:len(amounts)]]
+    a = await fp.debit_many(dk, amounts, FP_CAP, FP_RATE)
+    b = await host.debit_many(dk, amounts, FP_CAP, FP_RATE)
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        raise AssertionError("fp path: debit replies differ")
+    lines.append(f"{FP_PEEKS} peeks and a debit of {len(dk)} keys (refunds "
+                 "included) equal to the host directory's")
+
+    # The window tier, sliding and fixed, at the same scale.
+    for fixed in (False, True):
+        wc = rng.integers(1, 3, FP_KEYS)
+        before = fp.metrics.fp_unresolved
+        got, fw = await _fp_bulk(fp, keys, wc, window=fixed)
+        wres = fp.metrics.fp_unresolved - before
+        want, hw = await _fp_bulk(host, keys, wc, window=fixed)
+        await _fp_cold_equal(f"window ({'fixed' if fixed else 'sliding'})",
+                             fp, keys, wc, got, want, wres, window=fixed)
+        lines.append(f"{'fixed' if fixed else 'sliding'} window, 10M keys: "
+                     f"equal to the host directory's ({wres} rows sent "
+                     f"again); {FP_KEYS / fw:.0f} "
+                     f"rows/s (host directory {FP_KEYS / hw:.0f})")
+
+    # The snapshot round trip at 10M keys.
+    pf = [fp.peek_blocking(k, FP_CAP, FP_RATE) for k in sample]
+    t = time.perf_counter()
+    snap = fp.snapshot()
+    t_save = time.perf_counter() - t
+    fresh = pkg.FingerprintBucketStore(device="cuda", n_slots=1 << 16,
+                                       max_batch=BATCH,
+                                       clock=pkg.ManualClock(
+                                           clock.now_ticks()))
+    t = time.perf_counter()
+    fresh.restore(snap)
+    t_load = time.perf_counter() - t
+    del snap
+    if [fresh.peek_blocking(k, FP_CAP, FP_RATE) for k in sample] != pf:
+        raise AssertionError("fp path: peeks differ after the round trip")
+    lines.append(f"snapshot of 10M keys {t_save:.1f} s, restored in "
+                 f"{t_load:.1f} s, {FP_PEEKS} peeks equal")
+    await fresh.aclose()
+    del fresh
+
+    # A day later every slot expires: the sweeps free them all, as the host
+    # directory's do.
+    clock.advance_seconds(86_400.0)
+    e0, h0 = fp.metrics.slots_evicted, host.metrics.slots_evicted
+    fp.sweep_all()
+    host.sweep_all()
+    fe = fp.metrics.slots_evicted - e0
+    he = host.metrics.slots_evicted - h0
+    if fe != he or fe < 3 * FP_KEYS:
+        raise AssertionError(f"fp path: the sweep freed {fe}, the host "
+                             f"store {he}")
+    if int((fp._table(FP_CAP, FP_RATE).fp != 0).any(1).sum()):
+        raise AssertionError("fp path: cells left after the sweep")
+    lines.append(f"a day later sweep_all freed {fe} slots and every cell, "
+                 "as the host directory's")
+    await fp.aclose()
+    await host.aclose()
+    del fp, host, keys
+    torch.cuda.empty_cache()
+
+    # Growth: a 2^20-slot store fed 2M keys (buckets and sliding windows);
+    # a row denied for window pressure is sent again, as a caller retries.
+    gclock = pkg.ManualClock(1_000_000)
+    grow = pkg.FingerprintBucketStore(device="cuda", n_slots=FP_GROW_SLOTS,
+                                      max_batch=BATCH, clock=gclock)
+    ghost = pkg.DeviceBucketStore(device="cuda", n_slots=FP_GROW_SLOTS,
+                                  max_batch=BATCH, clock=gclock)
+    gkeys = [f"g{i}" for i in range(FP_GROW_KEYS)]
+    for window in (None, False):
+        retried = 0
+        for i in range(0, FP_GROW_KEYS, FP_GROW_CALL):
+            ks = gkeys[i:i + FP_GROW_CALL]
+            pending = ks
+            for _ in range(6):
+                if window is None:
+                    r = await grow.acquire_many(pending, [1] * len(pending),
+                                                FP_CAP, FP_RATE)
+                else:
+                    r = await grow.window_acquire_many(
+                        pending, [1] * len(pending), FP_WLIMIT, FP_WINDOW_S)
+                pending = [k for k, g in zip(pending, r.granted) if not g]
+                if not pending:
+                    break
+                retried += len(pending)
+            if pending:
+                raise AssertionError(f"growth: {len(pending)} rows still "
+                                     "denied after retries")
+            if window is None:
+                await ghost.acquire_many(ks, [1] * len(ks), FP_CAP, FP_RATE)
+            else:
+                await ghost.window_acquire_many(ks, [1] * len(ks), FP_WLIMIT,
+                                                FP_WINDOW_S)
+        table = (grow._table(FP_CAP, FP_RATE) if window is None
+                 else grow._wtable(FP_WLIMIT, FP_WINDOW_S))
+        lines.append(f"growth ({'bucket' if window is None else 'window'}):"
+                     f" 2M keys into 2^20 slots, {retried} rows retried, "
+                     f"table now {table.n_slots} slots")
+    if grow.metrics.pregrows < 2:
+        raise AssertionError(f"growth: pregrows {grow.metrics.pregrows}")
+    gs = [gkeys[i] for i in rng.permutation(FP_GROW_KEYS)[:FP_PEEKS]]
+    if ([grow.peek_blocking(k, FP_CAP, FP_RATE) for k in gs]
+            != [ghost.peek_blocking(k, FP_CAP, FP_RATE) for k in gs]):
+        raise AssertionError("growth: peeks differ from the host store's")
+    more = await grow.window_acquire_many(gs, [FP_WLIMIT] * len(gs),
+                                          FP_WLIMIT, FP_WINDOW_S)
+    want = await ghost.window_acquire_many(gs, [FP_WLIMIT] * len(gs),
+                                           FP_WLIMIT, FP_WINDOW_S)
+    if not np.array_equal(more.granted, want.granted):
+        raise AssertionError("growth: window state differs after growth")
+    lines.append(f"growth: pregrows {grow.metrics.pregrows}, "
+                 f"fp_unresolved {grow.metrics.fp_unresolved}; {FP_PEEKS} "
+                 "peeks and the windows' next grants equal to the host "
+                 "directory's")
+    await grow.aclose()
+    await ghost.aclose()
+    return lines
+
+
 SIZED_KERNELS = {"acquire_packed": "acquire_packed",
                  "acquire_grouped": "acquire_grouped",
                  "window_packed": "window_packed",
@@ -6191,7 +7016,7 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
 
 
 def _paths() -> tuple:
-    """The paths of phases 3–10, 12 and 13, in the order :func:`main`
+    """The paths of phases 3–10 and 12–14, in the order :func:`main`
     runs them."""
     return (("exact", main_path), ("approximate", approximate_path),
             ("window", window_path), ("admission", admission_path),
@@ -6199,7 +7024,7 @@ def _paths() -> tuple:
             ("checkpoint", checkpoint_path),
             ("observability", observability_path),
             ("server", server_path), ("bench", bench_path),
-            ("native", native_path))
+            ("native", native_path), ("fp", fp_path))
 
 
 def paths_only(names: list) -> int:
@@ -6259,6 +7084,9 @@ def main() -> int:
     t = time.perf_counter()
     res = kernel_phase(torch, K, ck, dev)
     phases["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _fp_kernel_phase(torch, ck, card)
+    phases["fp kernels"] = time.perf_counter() - t
     # Each path resets the counts just before it runs and reads them just
     # after; a kernel's launches are its count summed over the paths, and
     # it must have launched on the path it serves.
@@ -6272,6 +7100,8 @@ def main() -> int:
         by_path[name] = asyncio.run(path(torch, ck, pkg, card))
         sizes_by_path[name] = _sizes_since(sizes, before)
         phases[name] = time.perf_counter() - t
+    # The fp kernel cases (run before any path's counts were reset).
+    res.update(FP_RESULTS)
     # The server's launches by width: every bulk frame of at most max_batch
     # rows (the coalescing client's frames) is one flush of its rows, and
     # no scan launch holds a single batch.
@@ -6296,10 +7126,16 @@ def main() -> int:
               "window_scan": "window", "sweep_windows": "window",
               "sema_packed": "admission", "sweep_semas": "admission",
               "acquire_hierarchical": "admission", "debit_packed": "exact",
-              "acquire_scan24": "bench", "acquire_batch": "bench"}
+              "acquire_scan24": "bench", "acquire_batch": "bench",
+              **{name: "fp" for name in FP_KERNEL_NAMES}}
     # No wire op reaches the bench's two kernels: they are exempt from the
-    # server-path rule (OP_SETTLE reaches the debit).
-    no_wire_op = {"acquire_scan24", "acquire_batch"}
+    # server-path rule (OP_SETTLE reaches the debit). The fingerprint
+    # kernels serve the fp store, which the server path does not run (the fp
+    # path serves it through ``--directory fp``).
+    no_wire_op = {"acquire_scan24": "the bench's kernel, no wire op",
+                  "acquire_batch": "the bench's kernel, no wire op",
+                  **{name: "the fingerprint store's kernel: the fp path "
+                           "serves --directory fp" for name in FP_KERNEL_NAMES}}
     # The reservation path runs on the two-level kernel and the debit; the
     # checkpoint path (its oracle's traffic, the chain's fill and the day-
     # later sweep between saves) on every bucket, counter and semaphore
@@ -6338,7 +7174,8 @@ def main() -> int:
                "acquire_hierarchical": "csrc/admission.cu",
                "debit_packed": "csrc/admission.cu",
                "acquire_scan24": "csrc/acquire.cu",
-               "acquire_batch": "csrc/acquire.cu"}
+               "acquire_batch": "csrc/acquire.cu",
+               **{name: "csrc/fp_directory.cu" for name in FP_KERNEL_NAMES}}
     replaces = {
         "sweep_expired":
             "distributedratelimiting/redis_tpu/ops/pallas_kernels.py:80",
@@ -6379,6 +7216,27 @@ def main() -> int:
         # core acquire_core (:153); the scan at K = 1 over separate arrays.
         "acquire_batch":
             "distributedratelimiting/redis_tpu/ops/kernels.py:197",
+        # The fingerprint directory: each runs fp_resolve_core (:124) first.
+        # fp_acquire_batch; also fp_acquire_scan_fused (:320) and _bits
+        # (:290).
+        "fp_decide":
+            "distributedratelimiting/redis_tpu/ops/fp_directory.py:225",
+        # fp_window_acquire_batch; also its scans (:522, :495).
+        "fp_window_decide":
+            "distributedratelimiting/redis_tpu/ops/fp_directory.py:476",
+        "fp_debit":
+            "distributedratelimiting/redis_tpu/ops/fp_directory.py:349",
+        "fp_peek":
+            "distributedratelimiting/redis_tpu/ops/fp_directory.py:403",
+        "fp_sweep":
+            "distributedratelimiting/redis_tpu/ops/fp_directory.py:574",
+        "fp_sweep_windows":
+            "distributedratelimiting/redis_tpu/ops/fp_directory.py:560",
+        # core _fp_migrate_core (:427)
+        "fp_migrate":
+            "distributedratelimiting/redis_tpu/ops/fp_directory.py:448",
+        "fp_migrate_window":
+            "distributedratelimiting/redis_tpu/ops/fp_directory.py:548",
     }
     kernels = []
     for name, r in res.items():
@@ -6401,8 +7259,7 @@ def main() -> int:
             kernels[-1]["launch_sizes"] = {
                 str(b): c for b, c in sorted(sizes[name].items())}
         if name in no_wire_op:
-            kernels[-1]["server_path"] = "exempt: the bench's kernel, no " \
-                "wire op"
+            kernels[-1]["server_path"] = "exempt: " + no_wire_op[name]
     print(json.dumps({"kernels": kernels}))
     # Each kernel launched on the path it serves, and the server path drives
     # every kernel that a wire op reaches.

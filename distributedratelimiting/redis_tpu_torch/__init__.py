@@ -13,7 +13,9 @@ hand-written CUDA kernels (``ops/cuda_kernels.py``, sources in ``csrc/``).
 ``runtime.admission.AdmissionPolicy`` is the token-denominated gateway
 façade over the two-level lane, and ``ServiceRegistry`` with the
 ``add_tpu_*`` helpers is the DI layer. Keys resolve to slots
-through the native key directory (``native/directory.cc``). A
+through the native key directory (``native/directory.cc``);
+``FingerprintBucketStore`` keeps the bucket and window tiers' directory on
+the card instead (64-bit key fingerprints found or claimed in the kernel). A
 ``BucketStoreServer`` serves such a store over TCP, byte-compatible with
 the JAX package's server, and ``RemoteBucketStore`` is its client: limiters
 on other hosts share one card through it. ``InProcessBucketStore`` is the
@@ -77,6 +79,9 @@ from distributedratelimiting.redis_tpu_torch.runtime.remote import (
     RemoteBucketStore,
     StoreTimeoutError,
 )
+from distributedratelimiting.redis_tpu_torch.runtime.fp_store import (
+    FingerprintBucketStore,
+)
 from distributedratelimiting.redis_tpu_torch.runtime.server import (
     BucketStoreServer,
 )
@@ -124,6 +129,7 @@ __all__ = [
     "BucketStore",
     "BucketStoreServer",
     "DeviceBucketStore",
+    "FingerprintBucketStore",
     "InProcessBucketStore",
     "RemoteBucketStore",
     "StoreTimeoutError",

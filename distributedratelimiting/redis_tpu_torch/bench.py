@@ -24,6 +24,10 @@ seeds and method, on the port's store and hand kernels:
 - ``e2e_bulk``: ``PartitionedRateLimiter.acquire_many`` over a
   ``DeviceBucketStore``, 8 concurrent calls of 2^17 keys from a pool of
   1M, verdict-only (best of 2) and with remaining;
+- ``fp_bulk``: ``FingerprintBucketStore.acquire_many`` (the device-resident
+  key directory, 2^21 slots), 4 concurrent calls of 2^17 keys drawn with
+  seed 3 from a pool of 1M, verdict-only, one warm round then the best of
+  2 (``e2e_fp_bulk_decisions_per_sec``);
 - ``remote_bulk``: the same calls (4) through ``BucketStoreServer`` and
   ``RemoteBucketStore`` on 127.0.0.1;
 - ``e2e_async``: 16,384 closed-loop workers of 3 ``acquire_async`` each,
@@ -62,8 +66,9 @@ seeds and method, on the port's store and hand kernels:
 - ``sweep_ok`` (``pallas_sweep_ok``, the key kept): 64 reclaimable slots
   evicted by the CUDA sweep (``metrics.slots_evicted >= 64``).
 
-Sections that need modules the port has not got keep their keys null, with
-the status ``not_ported: ROADMAP Queue A<n>``. The children are this module
+A section that needs a module the port has not got keeps its keys null, with
+the status ``not_ported: ROADMAP Queue A<n>`` (none since the fingerprint
+store). The children are this module
 run with a child flag (``--serving-server-child``, ``--serving-load-child``,
 ``--nproc-client``); a child that fails, or prints no result, fails its
 section with its stderr's tail, and its keys stay null.
@@ -107,6 +112,9 @@ from distributedratelimiting.redis_tpu_torch.runtime.clock import (
     ManualClock,
     MonotonicClock,
 )
+from distributedratelimiting.redis_tpu_torch.runtime.fp_store import (
+    FingerprintBucketStore,
+)
 from distributedratelimiting.redis_tpu_torch.runtime.remote import (
     RemoteBucketStore,
 )
@@ -139,9 +147,7 @@ BUDGET_S = float(os.environ.get("BENCH_BUDGET_S", "1200"))
 
 #: Sections that need modules the port lacks: their ROADMAP Queue A item
 #: and their keys, which stay null.
-NOT_PORTED = {
-    "fp_bulk": ("A12", ["e2e_fp_bulk_decisions_per_sec"]),
-}
+NOT_PORTED: dict[str, tuple[str, list[str]]] = {}
 
 #: The ported sections, in the order they run, and the keys each fills.
 SECTIONS = (
@@ -152,6 +158,7 @@ SECTIONS = (
     ("single_batch", ["single_batch_decisions_per_sec"]),
     ("e2e_bulk", ["e2e_bulk_decisions_per_sec",
                   "e2e_bulk_with_remaining_decisions_per_sec"]),
+    ("fp_bulk", ["e2e_fp_bulk_decisions_per_sec"]),
     ("remote_bulk", ["e2e_remote_bulk_decisions_per_sec"]),
     ("e2e_async", ["e2e_async_decisions_per_sec", "e2e_p99_low_load_ms"]),
     ("serving_p99", ["serving_p99_ms", "serving_p50_ms",
@@ -220,6 +227,9 @@ REDUCED = {
         "(its one-batch bulk chunks are flushes); a call of 2^17 keys is "
         "still one scan launch of 32 x 4096 rows"),
     "remote_bulk.max_batch": "4096, where JAX runs 8192 (as e2e_bulk)",
+    "fp_bulk.max_batch": (
+        "4096, where JAX runs 8192 (as e2e_bulk): a dispatch of the "
+        "640 KB operand budget is then 8 x 4096 rows"),
     "headline.launches": (
         "two scan launches of 16 x 8192 rows a dispatch (one launch holds "
         "2^17 rows), one stream: the batches are decided in order"),
@@ -273,6 +283,7 @@ def _new_result(platform: str) -> dict:
         "single_batch_decisions_per_sec": None,
         "e2e_bulk_decisions_per_sec": None,
         "e2e_bulk_with_remaining_decisions_per_sec": None,
+        "e2e_fp_bulk_decisions_per_sec": None,
         "e2e_remote_bulk_decisions_per_sec": None,
         "e2e_async_decisions_per_sec": None,
         "e2e_p99_low_load_ms": None,
@@ -550,6 +561,36 @@ async def bench_e2e_bulk(device, *, n_slots=1 << 21,
     finally:
         await store.aclose()
     return verdict_only, with_remaining
+
+
+async def bench_fp_bulk(device, *, n_slots=1 << 21,
+                        max_batch=E2E_MAX_BATCH, n=1 << 17,
+                        pool_size=1_000_000, calls=4) -> float:
+    """The device-resident directory's bulk path: the same whole-array
+    workload through :class:`~.runtime.fp_store.FingerprintBucketStore`,
+    verdict only — the host hashes each key once (64-bit FNV-1a) and the
+    kernels find or claim its cell on the card. Four concurrent calls of
+    2^17 keys from a pool of 1M, one warm round, the best of two."""
+    store = FingerprintBucketStore(n_slots=n_slots, max_batch=max_batch,
+                                   device=device)
+    rng = np.random.default_rng(3)
+    pool = _pool(pool_size)
+    batches = [[pool[j] for j in rng.integers(0, len(pool), n)]
+               for _ in range(calls)]
+    counts = [1] * n
+
+    async def run_round():
+        t0 = time.perf_counter()
+        results = await asyncio.gather(
+            *(store.acquire_many(c, counts, 10_000_000.0, 10_000_000.0,
+                                 with_remaining=False) for c in batches))
+        return sum(len(r) for r in results) / (time.perf_counter() - t0)
+
+    try:
+        await run_round()  # warm: the claim pass
+        return max([await run_round() for _ in range(2)])
+    finally:
+        await store.aclose()
 
 
 async def bench_e2e_remote_bulk(device, *, n_slots=1 << 21,
@@ -1501,6 +1542,10 @@ def run(device: torch.device, sizes: dict | None = None, *,
         a, b = asyncio.run(bench_e2e_bulk(device, **sizes.get("e2e_bulk", {})))
         return round(a), round(b)
 
+    def sec_fp_bulk():
+        return round(asyncio.run(bench_fp_bulk(
+            device, **sizes.get("fp_bulk", {}))))
+
     def sec_remote_bulk():
         return round(asyncio.run(bench_e2e_remote_bulk(
             device, **sizes.get("remote_bulk", {}))))
@@ -1609,7 +1654,7 @@ def run(device: torch.device, sizes: dict | None = None, *,
     fns = {"link_probe": sec_link, "link_rtt_probe": sec_rtt,
            "headline": sec_headline, "compact": sec_compact,
            "single_batch": sec_single, "e2e_bulk": sec_bulk,
-           "remote_bulk": sec_remote_bulk, "e2e_async": sec_e2e_async,
+           "fp_bulk": sec_fp_bulk, "remote_bulk": sec_remote_bulk, "e2e_async": sec_e2e_async,
            "serving_p99": sec_serving_p99, "nproc": sec_nproc,
            "serving_p99_colocated": sec_colocated,
            "serving_p99_instant": sec_instant,

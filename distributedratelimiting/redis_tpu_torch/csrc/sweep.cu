@@ -22,23 +22,18 @@
 // Pallas kernel carried nothing between grid steps, so nothing is carried
 // between blocks here either; tile_counts must be zeroed by the caller.
 //
-// The float32 upper clamp min(1yr, 2^31 - 1) is 2^31, one past int32's
-// range: the conversion saturates it explicitly to 2^31 - 1 (as XLA's does),
-// where a plain (int) cast of an out-of-range float is undefined.
+// The TTL is bucket.cuh's ttl_ticks (shared with fp_directory.cu's sweep).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bucket.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ int ttl_ticks(float tokens, float cap, float rate) {
-  const float deficit = fmaxf(__fsub_rn(cap, tokens), 0.0f);
-  float ttl = ceilf(__fdiv_rn(deficit, fmaxf(rate, 1e-30f)));
-  ttl = fminf(fmaxf(ttl, 1024.0f), 2147483648.0f);
-  return ttl >= 2147483648.0f ? 2147483647 : __float2int_rz(ttl);
-}
+using drl_bucket::ttl_ticks;
 
 __global__ void sweep_kernel(const float* __restrict__ tokens,
                              const int32_t* __restrict__ last_ts,

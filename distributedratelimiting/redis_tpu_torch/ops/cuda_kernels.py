@@ -49,7 +49,16 @@ The wrappers, their sources, and what each replaces in the JAX package:
 - ``acquire_hierarchical`` (``csrc/admission.cu``) replaces
   ``kernels.acquire_hierarchical_packed``;
 - ``debit_packed`` (``csrc/admission.cu``) replaces
-  ``kernels.debit_batch_packed``.
+  ``kernels.debit_batch_packed``;
+- the fingerprint directory's (``csrc/fp_directory.cu``; the JAX package's
+  ``ops/fp_directory.py``): ``fp_acquire_scan`` replaces
+  ``fp_acquire_batch``, ``fp_acquire_scan_fused`` and
+  ``fp_acquire_scan_fused_bits``; ``fp_window_scan`` the three window
+  forms; ``fp_debit`` replaces ``fp_debit_batch``, ``fp_peek``
+  ``fp_peek_batch``, ``fp_sweep_expired`` and ``fp_sweep_windows`` their
+  namesakes, ``fp_migrate`` ``fp_migrate_chunk`` and
+  ``fp_migrate_window_chunk``; each runs ``fp_resolve_core``'s
+  find-or-claim first (``resolve_kernel``).
 
 The bucket and window decision kernels share their machinery
 (``csrc/decide.cuh``) on ``csrc/batch.cuh``, which the semaphore and
@@ -62,7 +71,12 @@ refill is ``csrc/bucket.cuh``'s. Each
 source's library is named by the hash of the source and of every header
 beside it. Every wrapper call on the card is one kernel launch; a bulk-lane
 chunk's K batches (decided slot-major) run inside one cooperative launch,
-as do a counter sync's and a debit's passes past 4096 rows. The bench's
+as do a counter sync's and a debit's passes past 4096 rows. The
+fingerprint wrappers chain their kernels on one stream and count one
+launch a call: ``fp_acquire_scan`` and ``fp_window_scan`` the resolve, the
+bucket or window scan over the resolved slots and (for the f32 result) the
+resolve flags folded into row 0; ``fp_debit`` the resolve, the debit and
+the unresolved rows' fix-up. The bench's
 scans (``acquire_scan_packed24``, ``acquire_scan_compact_fused``) take more
 rows than one launch holds: they run as consecutive launches of whole
 batches, at most :data:`SCAN_MAX_ROWS` rows each, on one stream, which
@@ -82,6 +96,7 @@ import time
 
 import torch
 
+from distributedratelimiting.redis_tpu_torch.ops import fp_directory as F
 from distributedratelimiting.redis_tpu_torch.ops import kernels as K
 
 __all__ = [
@@ -113,6 +128,14 @@ __all__ = [
     "sweep_semas",
     "acquire_hierarchical",
     "debit_packed",
+    "FP_MAX_WINDOW",
+    "fp_acquire_scan",
+    "fp_window_scan",
+    "fp_debit",
+    "fp_peek",
+    "fp_sweep_expired",
+    "fp_sweep_windows",
+    "fp_migrate",
 ]
 
 #: Slots per expired-count tile, as the TPU kernel's (256 rows × 128 lanes).
@@ -153,7 +176,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _SOURCES = {"sweep": "sweep.cu", "acquire": "acquire.cu",
             "counter": "counter.cu", "window": "window.cu",
-            "sema": "sema.cu", "admission": "admission.cu"}
+            "sema": "sema.cu", "admission": "admission.cu",
+            "fp_directory": "fp_directory.cu"}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -205,6 +229,19 @@ _SIGNATURES = {
         "drl_tally_scratch_bytes": (_I64, _I32),
         "drl_tally_claim_words": (_I64, _I32),
     },
+    "fp_directory": {
+        "drl_fp_resolve": (_P, _I64, _I32, _P, _I32, _P, _I64, _P, _P, _P,
+                           _P, _P),
+        "drl_fp_code": (_P, _P, _I64, _I32, _P),
+        "drl_fp_debit_fix": (_P, _P, _P, _I32, _P),
+        "drl_fp_peek": (_P, _I64, _I32, _P, _P, _I32, _P, _P, _P, _I32, _F32,
+                        _F32, _P, _P),
+        "drl_fp_sweep_bucket": (_P, _P, _P, _P, _I64, _I32, _F32, _F32, _P,
+                                _P),
+        "drl_fp_sweep_window": (_P, _P, _P, _I64, _I32, _P, _P),
+        "drl_fp_migrate": (_P, _I64, _I32, _P, _P, _I32, _I32, _P, _P, _P,
+                           _P),
+    },
 }
 
 #: Kernel launches per wrapper — plain ints, incremented only where a wrapper
@@ -214,7 +251,10 @@ launches = {"sweep_expired": 0, "acquire_packed": 0, "acquire_grouped": 0,
             "sync_counters": 0, "sweep_counters": 0,
             "window_packed": 0, "window_grouped": 0, "window_scan": 0,
             "sweep_windows": 0, "sema_packed": 0, "sweep_semas": 0,
-            "acquire_hierarchical": 0, "debit_packed": 0}
+            "acquire_hierarchical": 0, "debit_packed": 0,
+            "fp_decide": 0, "fp_window_decide": 0, "fp_debit": 0,
+            "fp_peek": 0, "fp_sweep": 0, "fp_sweep_windows": 0,
+            "fp_migrate": 0, "fp_migrate_window": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -947,6 +987,14 @@ def debit_packed(state: K.BucketState, packed: torch.Tensor,
     if _on_cpu(state):
         return K.debit_batch_packed(state, packed, capacity,
                                     fill_rate_per_tick)[1]
+    out = _debit_launch(state, packed, capacity, fill_rate_per_tick)
+    launches["debit_packed"] += 1
+    return out
+
+
+def _debit_launch(state: K.BucketState, packed: torch.Tensor,
+                  capacity: float, fill_rate_per_tick: float) -> torch.Tensor:
+    """The debit kernel's launch on a CUDA table (uncounted)."""
     n = _check_state(state)
     b = packed.shape[-1]
     _check(packed, "packed", torch.int32, (4, b))
@@ -962,5 +1010,283 @@ def debit_packed(state: K.BucketState, packed: torch.Tensor,
         float(fill_rate_per_tick), out.data_ptr(), _ptr(words),
         _ptr(scratch), stream)
     _raise_on(rc, "debit_packed")
-    launches["debit_packed"] += 1
     return out
+
+
+# -- the fingerprint directory (csrc/fp_directory.cu) ------------------------
+#: Widest probe window the kernels take (a window's empty cells are one
+#: 32-bit mask).
+FP_MAX_WINDOW = 32
+
+
+def _check_fp(fp: torch.Tensor, n: int, probe_window: int) -> None:
+    _check(fp, "fp", torch.int32, (n, 2))
+    if not 1 <= probe_window <= min(FP_MAX_WINDOW, n):
+        raise ValueError(f"probe_window must lie in [1, min({FP_MAX_WINDOW}, "
+                         f"N = {n})], got {probe_window}")
+
+
+def _fp_resolve(fp: torch.Tensor, keys: torch.Tensor, stride: int, valid_in,
+                rows: int, slots, counts, res, res_bits,
+                probe_window: int) -> None:
+    """The find-or-claim launch (uncounted): ``keys`` rows of ``stride``
+    words; see ``csrc/fp_directory.cu``'s ``resolve_kernel``. The card
+    bounds a row's claims by its window, not by ``rounds``: a row is
+    unresolved only when its window is full."""
+    rc = _lib("fp_directory").drl_fp_resolve(
+        fp.data_ptr(), fp.shape[0], int(probe_window), keys.data_ptr(), stride, _ptr(valid_in), rows, slots.data_ptr(),
+        _ptr(counts), _ptr(res), _ptr(res_bits), _stream(fp))
+    _raise_on(rc, "fp_resolve")
+
+
+def _fp_decide(name: str, fp: torch.Tensor, n: int, fused: torch.Tensor,
+               nows_k: torch.Tensor, with_remaining: bool, probe_window: int,
+               scan) -> torch.Tensor:
+    """The card's fingerprint decision: the resolve writes the scan's
+    ``i32[2, K, B]`` operand (each row's cell, -1 for padding and
+    unresolved rows, and its count) and the resolve flags; ``scan(op,
+    out, bits)`` decides it against the table; the f32 result's row 0 then
+    takes ``+ 2 * resolved``. Bits: ``u8[2, W]`` planes (grants from the
+    scan, resolve flags from the resolve), returned as a ``u8[K, 2, B/8]``
+    view."""
+    k, b = fused.shape[:2]
+    _check_fp(fp, n, probe_window)
+    _check(fused, "fused", torch.int32, (k, b, 3))
+    _check(nows_k, "nows_k", torch.int32, (k,))
+    _check_scan_size(name, k, b)
+    rows = k * b
+    dev = fp.device
+    op = torch.empty((2, k, b), dtype=torch.int32, device=dev)
+    if with_remaining:
+        out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
+        res = torch.empty((rows,), dtype=torch.uint8, device=dev)
+        _fp_resolve(fp, fused, 3, None, rows, op[0], op[1], res, None,
+                    probe_window)
+        scan(op, out, None)
+        _raise_on(_lib("fp_directory").drl_fp_code(
+            out.data_ptr(), res.data_ptr(), rows, b, _stream(fp)), name)
+        return out
+    words = -(-rows // 32)
+    planes = torch.empty((2, words * 4), dtype=torch.uint8, device=dev)
+    _fp_resolve(fp, fused, 3, None, rows, op[0], op[1], None, planes[1],
+                probe_window)
+    scan(op, None, planes[0])
+    return planes[:, :rows // 8].view(2, k, b // 8).permute(1, 0, 2)
+
+
+def fp_acquire_scan(fp: torch.Tensor, state: K.BucketState,
+                    fused: torch.Tensor, nows_k: torch.Tensor,
+                    capacity: float, fill_rate_per_tick: float, *,
+                    probe_window: int = 16, rounds: int = 4,
+                    with_remaining: bool = True) -> torch.Tensor:
+    """K batches of fingerprint requests resolved (find-or-claim) and
+    decided in order against the bucket table, both updated in place:
+    ``fused i32[K, B, 3]`` (the bits of
+    :func:`fp_directory.pack_fp12`), ``nows_k i32[K]``. Returns ``out
+    f32[K, 2, B]`` (row 0 ``granted + 2 * resolved``, row 1 remaining) or,
+    with ``with_remaining=False``, ``u8[K, 2, B/8]`` (grant plane, resolve
+    plane; ``B % 8 == 0``). K = 1 is ``fp_acquire_batch``. ``rounds``
+    bounds the plain version's claim rounds (JAX's rule); on the card a
+    row's claims are bounded by its window."""
+    k, b = fused.shape[:2]
+    if not with_remaining and b % 8:
+        raise ValueError(f"bit-packed results need B % 8 == 0, got B = {b}")
+    if _on_cpu(state):
+        fn = (F.fp_acquire_scan_fused if with_remaining
+              else F.fp_acquire_scan_fused_bits)
+        return fn(fp, state, fused, nows_k, capacity, fill_rate_per_tick,
+                  probe_window=probe_window, rounds=rounds)[2]
+    n = _check_state(state)
+    lib = _lib("acquire")
+    dev = state.tokens.device
+    stream = _stream(state.tokens)
+
+    def scan(op, out, bits):
+        scratch = torch.empty((int(lib.drl_scan_scratch_bytes(k, b)),),
+                              dtype=torch.uint8, device=dev)
+        _raise_on(lib.drl_acquire_scan(
+            state.tokens.data_ptr(), state.last_ts.data_ptr(),
+            state.exists.data_ptr(), n, op.data_ptr(), _OP_I32,
+            nows_k.data_ptr(), k, b, float(capacity),
+            float(fill_rate_per_tick), _ptr(out), _ptr(bits),
+            scratch.data_ptr(), stream), "fp_decide")
+
+    out = _fp_decide("fp_decide", fp, n, fused, nows_k, with_remaining,
+                     probe_window, scan)
+    launches["fp_decide"] += 1
+    return out
+
+
+def fp_window_scan(fp: torch.Tensor, state: K.WindowState,
+                   fused: torch.Tensor, nows_k: torch.Tensor, limit: float,
+                   window_ticks: int, *, interpolate: bool = True,
+                   probe_window: int = 16, rounds: int = 4,
+                   with_remaining: bool = True) -> torch.Tensor:
+    """:func:`fp_acquire_scan` against a window table (sliding, or fixed
+    with ``interpolate=False``), with its operands and results. K = 1 is
+    ``fp_window_acquire_batch``."""
+    k, b = fused.shape[:2]
+    if not with_remaining and b % 8:
+        raise ValueError(f"bit-packed results need B % 8 == 0, got B = {b}")
+    if _on_cpu(state):
+        fn = (F.fp_window_acquire_scan_fused if with_remaining
+              else F.fp_window_acquire_scan_fused_bits)
+        return fn(fp, state, fused, nows_k, limit, window_ticks,
+                  probe_window=probe_window, rounds=rounds,
+                  interpolate=interpolate)[2]
+    n = _check_windows(state)
+    lib = _lib("window")
+    dev = state.prev_count.device
+    stream = _stream(state.prev_count)
+    wt = _window_ticks(window_ticks)
+
+    def scan(op, out, bits):
+        scratch = torch.empty((int(lib.drl_scan_scratch_bytes(k, b)),),
+                              dtype=torch.uint8, device=dev)
+        _raise_on(lib.drl_window_scan(
+            *_window_ptrs(state), n, op.data_ptr(), 0, nows_k.data_ptr(), k,
+            b, float(limit), wt, int(bool(interpolate)), _ptr(out),
+            _ptr(bits), scratch.data_ptr(), stream), "fp_window_decide")
+
+    out = _fp_decide("fp_window_decide", fp, n, fused, nows_k,
+                     with_remaining, probe_window, scan)
+    launches["fp_window_decide"] += 1
+    return out
+
+
+def fp_debit(fp: torch.Tensor, state: K.BucketState, kpair: torch.Tensor,
+             packed: torch.Tensor, capacity: float,
+             fill_rate_per_tick: float, *, probe_window: int = 16,
+             rounds: int = 4) -> torch.Tensor:
+    """The saturating debit with in-kernel resolution (claim on miss)
+    against the bucket table, both updated in place: ``kpair i32[B, 2]``
+    and ``packed i32[4, B]`` — row 0 0 for a valid row and -1 for padding
+    (the resolve writes each row's cell there), then :func:`debit_packed`'s
+    rows 1-3 (float32 amounts, tick, and the host's float32 same-key prefix
+    of earlier amounts, :func:`fp_directory.fp_prefix_float`, all bitcast).
+    Returns ``out f32[2, B]`` (balance, shortfall); an unresolved valid row
+    applies nothing and reads ``(0, max(amount, 0))``."""
+    b = packed.shape[-1]
+    if _on_cpu(state):
+        amounts = packed[1].contiguous().view(torch.float32)
+        return F.fp_debit_batch(fp, state, kpair, amounts, packed[0] >= 0,
+                                int(packed[2, 0]), capacity,
+                                fill_rate_per_tick,
+                                probe_window=probe_window,
+                                rounds=rounds)[2]
+    n = _check_state(state)
+    _check_fp(fp, n, probe_window)
+    _check(kpair, "kpair", torch.int32, (b, 2))
+    _check(packed, "packed", torch.int32, (4, b))
+    res = torch.empty((b,), dtype=torch.uint8, device=fp.device)
+    _fp_resolve(fp, kpair, 2, packed[0], b, packed[0], None, res, None,
+                probe_window)
+    out = _debit_launch(state, packed, capacity, fill_rate_per_tick)
+    _raise_on(_lib("fp_directory").drl_fp_debit_fix(
+        out.data_ptr(), res.data_ptr(), packed[1].data_ptr(), b,
+        _stream(fp)), "fp_debit")
+    launches["fp_debit"] += 1
+    return out
+
+
+def fp_peek(fp: torch.Tensor, state: K.BucketState, kpair: torch.Tensor,
+            valid: torch.Tensor, now: int, capacity: float,
+            fill_rate_per_tick: float, *,
+            probe_window: int = 16) -> torch.Tensor:
+    """Read-only availability ``floor(refilled)`` of each key's bucket, a
+    lookup without claim (an absent key reads full; padding 0): ``kpair
+    i32[B, 2]``, ``valid bool[B]``. Returns ``f32[B]``."""
+    b = kpair.shape[0]
+    if _on_cpu(state):
+        return F.fp_peek_batch(fp, state, kpair, valid, now, capacity,
+                               fill_rate_per_tick, probe_window=probe_window)
+    n = _check_state(state)
+    _check_fp(fp, n, probe_window)
+    _check(kpair, "kpair", torch.int32, (b, 2))
+    _check(valid, "valid", torch.bool, (b,))
+    out = torch.empty((b,), dtype=torch.float32, device=fp.device)
+    rc = _lib("fp_directory").drl_fp_peek(
+        fp.data_ptr(), n, int(probe_window), kpair.data_ptr(),
+        valid.data_ptr(), b, state.tokens.data_ptr(),
+        state.last_ts.data_ptr(), state.exists.data_ptr(), int(now),
+        float(capacity), float(fill_rate_per_tick), out.data_ptr(),
+        _stream(fp))
+    _raise_on(rc, "fp_peek")
+    launches["fp_peek"] += 1
+    return out
+
+
+def fp_sweep_expired(fp: torch.Tensor, state: K.BucketState, now: int,
+                     capacity: float,
+                     fill_rate_per_tick: float) -> torch.Tensor:
+    """TTL sweep of a fingerprint bucket table (``sweep_expired``'s rule)
+    that clears ``exists`` AND the cell of each expired slot, in place.
+    Returns ``n_freed i32[1]``: one scalar to read back, no mask."""
+    if _on_cpu(state):
+        return F.fp_sweep_expired(fp, state, now, capacity,
+                                  fill_rate_per_tick)
+    n = _check_state(state)
+    _check(fp, "fp", torch.int32, (n, 2))
+    freed = torch.zeros((1,), dtype=torch.int32, device=fp.device)
+    rc = _lib("fp_directory").drl_fp_sweep_bucket(
+        fp.data_ptr(), state.tokens.data_ptr(), state.last_ts.data_ptr(),
+        state.exists.data_ptr(), n, int(now), float(capacity),
+        float(fill_rate_per_tick), freed.data_ptr(), _stream(fp))
+    _raise_on(rc, "fp_sweep")
+    launches["fp_sweep"] += 1
+    return freed
+
+
+def fp_sweep_windows(fp: torch.Tensor, state: K.WindowState, now: int,
+                     window_ticks: int) -> torch.Tensor:
+    """Window TTL sweep (two whole windows idle) that clears ``exists`` and
+    the cell, in place. Returns ``n_freed i32[1]``."""
+    if _on_cpu(state):
+        return F.fp_sweep_windows(fp, state, now, window_ticks)
+    n = _check_windows(state)
+    _check(fp, "fp", torch.int32, (n, 2))
+    # floor(now / W), as bucket_math.window_index.
+    idx_now = int(now) // _window_ticks(window_ticks)
+    freed = torch.zeros((1,), dtype=torch.int32, device=fp.device)
+    rc = _lib("fp_directory").drl_fp_sweep_window(
+        fp.data_ptr(), state.window_idx.data_ptr(), state.exists.data_ptr(),
+        n, idx_now, freed.data_ptr(), _stream(fp))
+    _raise_on(rc, "fp_sweep_windows")
+    launches["fp_sweep_windows"] += 1
+    return freed
+
+
+def fp_migrate(fp: torch.Tensor, state, kpair: torch.Tensor, cols,
+               valid: torch.Tensor, *, probe_window: int = 16,
+               rounds: int = 4) -> torch.Tensor:
+    """Growth and re-placement: claim a cell in the table ``(fp, state)``
+    for each valid row of ``kpair i32[B, 2]`` and write its state columns
+    ``cols`` (the state's fields in order: a bucket's tokens, last_ts,
+    exists or a window's prev_count, curr_count, window_idx, exists) there.
+    Returns ``placed bool[B]``; the caller retries unplaced rows."""
+    b = kpair.shape[0]
+    window = isinstance(state, K.WindowState)
+    if _on_cpu(state):
+        fn = F.fp_migrate_window_chunk if window else F.fp_migrate_chunk
+        return fn(fp, state, kpair, *cols, valid, probe_window=probe_window,
+                  rounds=rounds)[2]
+    n = _check_windows(state) if window else _check_state(state)
+    _check_fp(fp, n, probe_window)
+    _check(kpair, "kpair", torch.int32, (b, 2))
+    _check(valid, "valid", torch.bool, (b,))
+    if len(cols) != len(state):
+        raise ValueError(f"fp_migrate: {len(state)} state columns, got "
+                         f"{len(cols)}")
+    for name, dst, col in zip(state._fields, state, cols):
+        _check(col, name, dst.dtype, (b,))
+    placed = torch.empty((b,), dtype=torch.bool, device=fp.device)
+    arr = ctypes.c_void_p * len(cols)
+    dst = arr(*(t.data_ptr() for t in state))
+    src = arr(*(c.data_ptr() for c in cols))
+    rc = _lib("fp_directory").drl_fp_migrate(
+        fp.data_ptr(), n, int(probe_window), kpair.data_ptr(),
+        valid.data_ptr(), b, len(cols), dst, src, placed.data_ptr(),
+        _stream(fp))
+    _raise_on(rc, "fp_migrate")
+    launches["fp_migrate_window" if window else "fp_migrate"] += 1
+    return placed

@@ -562,7 +562,8 @@ class BucketStoreServer:
             "store", "store metrics",
             lambda: metrics.snapshot() if metrics is not None else None,
             counters={"launches", "rows_processed", "rows_valid", "sweeps",
-                      "slots_evicted", "rows_coalesced"})
+                      "slots_evicted", "rows_coalesced", "pregrows",
+                      "fp_unresolved"})
         reg.register_numeric_dict(
             "tier0", "tier-0 admission cache",
             lambda: (self._native.tier0_stats()
@@ -1497,6 +1498,12 @@ def main(argv: list[str] | None = None) -> None:
                         "baseline and test backing)")
     parser.add_argument("--slots", type=int, default=2**17,
                         help="slots per bucket table")
+    parser.add_argument("--directory", choices=("host", "fp"),
+                        default="host",
+                        help="key-directory home for the device backend: "
+                        "host = native C++ host table (default); fp = "
+                        "device-resident fingerprint directory (in-kernel "
+                        "probe/insert — see docs/OPERATIONS.md §2)")
     parser.add_argument("--device", default="cuda",
                         help="device of the store's tables: cuda (default; "
                         "the hand-written kernels) or cpu (their plain "
@@ -1624,6 +1631,13 @@ def main(argv: list[str] | None = None) -> None:
 
         if args.backend == "inprocess":
             store: BucketStore = InProcessBucketStore()
+        elif args.directory == "fp":
+            from distributedratelimiting.redis_tpu_torch.runtime.fp_store import (  # noqa: E501
+                FingerprintBucketStore,
+            )
+
+            store = FingerprintBucketStore(n_slots=args.slots,
+                                           device=args.device)
         else:
             store = DeviceBucketStore(n_slots=args.slots, device=args.device)
         if args.snapshot_path:

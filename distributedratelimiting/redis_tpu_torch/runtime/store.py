@@ -30,7 +30,10 @@ export:
   launch per ``max_batch`` rows; the tier-0 debit is one launch for all its
   rows. The store's clock stamps every launch. Tables grow by doubling and
   reclaim slots with TTL sweeps; every table resolves keys through the
-  native key directory when it builds. With ``enable_dirty_tracking`` the
+  native key directory when it builds. The store builds its tables from
+  ``_TABLE_CLS`` / ``_WTABLE_CLS``; the fingerprint store
+  (:mod:`.fp_store`) swaps in tables whose directory lives on the card.
+  With ``enable_dirty_tracking`` the
   tables count the slots they resolve between two checkpoint saves (host
   bookkeeping for the incremental chain's gauge, :mod:`.checkpoint`).
 
@@ -701,6 +704,19 @@ class _PackedLaunchMixin:
             self.dirty_slots.update(slots.tolist())
         return slots
 
+    def arm_dirty(self) -> None:
+        """Arm the dirty accounting (idempotent): the exact host-resolved
+        slot set."""
+        if self.dirty_slots is None:
+            self.dirty_slots = set()
+
+    def clear_dirty(self) -> None:
+        if self.dirty_slots is not None:
+            self.dirty_slots.clear()
+
+    def dirty_count(self) -> int:
+        return len(self.dirty_slots) if self.dirty_slots is not None else 0
+
     def _evict(self, mask: torch.Tensor, counts: torch.Tensor,
                pinned: set[int] | None) -> None:
         """Return a sweep's expired slots to the directory's free list, all
@@ -1056,23 +1072,6 @@ class _PackedLaunchMixin:
         return self._grant_probes(res, counts_np)
 
 
-def _arm_dirty(table: _PackedLaunchMixin) -> None:
-    """Arm one table's dirty accounting (idempotent): the exact
-    host-resolved slot set. (The JAX package's fingerprint tables count
-    dispatched rows instead; they come with the fingerprint store.)"""
-    if table.dirty_slots is None:
-        table.dirty_slots = set()
-
-
-def _dirty_clear(table: _PackedLaunchMixin) -> None:
-    if table.dirty_slots is not None:
-        table.dirty_slots.clear()
-
-
-def _dirty_count(table: _PackedLaunchMixin) -> int:
-    return len(table.dirty_slots) if table.dirty_slots is not None else 0
-
-
 class _DeviceTable(_PackedLaunchMixin):
     """One homogeneous-config bucket table: device tensors + host directory."""
 
@@ -1177,9 +1176,10 @@ class _DeviceTable(_PackedLaunchMixin):
     # -- checkpoint form (the JAX store's numpy schema) --------------------
     def load_snap(self, data: dict, shift: int) -> None:
         if "directory" not in data:
-            raise NotImplementedError(
+            raise ValueError(
                 "checkpoint's bucket tables use the device-resident "
-                "fingerprint directory, which is not ported yet")
+                "fingerprint directory — restore into a "
+                "FingerprintBucketStore")
         # Adopt the snapshot's size: tables grow independently at runtime.
         dev = self.store.device
         self.n_slots = len(data["tokens"])
@@ -1260,9 +1260,10 @@ class _DeviceWindowTable(_PackedLaunchMixin):
         windows of ``shift`` (a floor: a restore into a younger clock shifts
         back)."""
         if "directory" not in data:
-            raise NotImplementedError(
+            raise ValueError(
                 "checkpoint's window tables use the device-resident "
-                "fingerprint directory, which is not ported yet")
+                "fingerprint directory — restore into a "
+                "FingerprintBucketStore")
         dev = self.store.device
         self.n_slots = len(data["prev_count"])
         self.state = K.WindowState(
@@ -1402,15 +1403,21 @@ class DeviceBucketStore(BucketStore):
                 K.rebase_sema_epoch(self._sema_state, offset)
 
     # -- table routing -----------------------------------------------------
+    # Subclasses swap the constructed table classes (the fingerprint store
+    # substitutes its device-directory tables) without copying the keying
+    # or locking below.
+    _TABLE_CLS: type = None  # type: ignore[assignment]  # set after class
+    _WTABLE_CLS: type = None  # type: ignore[assignment]
+
     def _table(self, capacity: float, fill_rate_per_sec: float) -> _DeviceTable:
         key = (float(capacity), float(fill_rate_per_sec))
         with self._lock:
             table = self._tables.get(key)
             if table is None:
-                table = _DeviceTable(self, capacity, fill_rate_per_sec,
-                                     self.n_slots_default)
+                table = self._TABLE_CLS(self, capacity, fill_rate_per_sec,
+                                        self.n_slots_default)
                 if self._dirty_tracking:
-                    _arm_dirty(table)
+                    table.arm_dirty()
                 self._tables[key] = table
             return table
 
@@ -1421,10 +1428,10 @@ class DeviceBucketStore(BucketStore):
         with self._lock:
             table = self._wtables.get(key)
             if table is None:
-                table = _DeviceWindowTable(self, limit, wt,
-                                           self.n_slots_default, fixed=fixed)
+                table = self._WTABLE_CLS(self, limit, wt,
+                                         self.n_slots_default, fixed=fixed)
                 if self._dirty_tracking:
-                    _arm_dirty(table)
+                    table.arm_dirty()
                 self._wtables[key] = table
             return table
 
@@ -1684,10 +1691,23 @@ class DeviceBucketStore(BucketStore):
             pos += take
         return BulkAcquireResult(granted, remaining)
 
+    def _hier_fused_supported(self) -> bool:
+        """The two-level kernel needs host-resolved slots; fingerprint
+        tables place on the device, so the fingerprint store keeps the base
+        compose (parent, then child, the parent refunded through its
+        ``debit_many`` on a child deny)."""
+        return getattr(self._TABLE_CLS, "resolve_slots", None) is not None
+
     async def acquire_hierarchical(self, tenant, key, count,
                                    tenant_capacity, tenant_fill_rate_per_sec,
                                    capacity, fill_rate_per_sec, *,
                                    priority=0) -> AcquireResult:
+        if not self._hier_fused_supported():
+            await self.connect()
+            return await super().acquire_hierarchical(
+                tenant, key, count, tenant_capacity,
+                tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+                priority=priority)
         res = await self.acquire_hierarchical_many(
             [tenant], [key], [int(count)], tenant_capacity,
             tenant_fill_rate_per_sec, capacity, fill_rate_per_sec)
@@ -1698,6 +1718,11 @@ class DeviceBucketStore(BucketStore):
                                       tenant_fill_rate_per_sec, capacity,
                                       fill_rate_per_sec, *,
                                       priority=0) -> AcquireResult:
+        if not self._hier_fused_supported():
+            return super().acquire_hierarchical_blocking(
+                tenant, key, count, tenant_capacity,
+                tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+                priority=priority)
         return self.acquire_hierarchical_many_blocking(
             [tenant], [key], [int(count)], tenant_capacity,
             tenant_fill_rate_per_sec, capacity, fill_rate_per_sec)[0]
@@ -1710,6 +1735,11 @@ class DeviceBucketStore(BucketStore):
                                         priority: int = 0
                                         ) -> BulkAcquireResult:
         await self.connect()
+        if not self._hier_fused_supported():
+            return await BucketStore.acquire_hierarchical_many(
+                self, tenants, keys, counts, tenant_capacity,
+                tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+                with_remaining=with_remaining, priority=priority)
         counts_np = np.asarray(counts, np.int64)
         outs = self._hier_dispatch(tenants, keys, counts_np, tenant_capacity,
                                    tenant_fill_rate_per_sec, capacity,
@@ -1727,6 +1757,11 @@ class DeviceBucketStore(BucketStore):
                                            with_remaining: bool = True,
                                            priority: int = 0
                                            ) -> BulkAcquireResult:
+        if not self._hier_fused_supported():
+            return BucketStore.acquire_hierarchical_many_blocking(
+                self, tenants, keys, counts, tenant_capacity,
+                tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
+                with_remaining=with_remaining, priority=priority)
         counts_np = np.asarray(counts, np.int64)
         outs = self._hier_dispatch(tenants, keys, counts_np, tenant_capacity,
                                    tenant_fill_rate_per_sec, capacity,
@@ -1938,20 +1973,20 @@ class DeviceBucketStore(BucketStore):
         with self._lock:
             self._dirty_tracking = True
             for t in (*self._tables.values(), *self._wtables.values()):
-                _arm_dirty(t)
+                t.arm_dirty()
 
     def mark_snapshot_base(self) -> None:
         """Start a fresh dirty window (the checkpoint chain calls it at
         every save: the window is save to save)."""
         with self._lock:
             for t in (*self._tables.values(), *self._wtables.values()):
-                _dirty_clear(t)
+                t.clear_dirty()
 
     def dirty_stats(self) -> dict:
         with self._lock:
             dirty = total = 0
             for t in (*self._tables.values(), *self._wtables.values()):
-                dirty += _dirty_count(t)
+                dirty += t.dirty_count()
                 total += t.n_slots
             return {"dirty": dirty, "total": total}
 
@@ -2028,6 +2063,10 @@ class DeviceBucketStore(BucketStore):
                                         device=dev),
                 )
                 self._sema_dir.load(snap["sema_dir"], len(sm["active"]))
+
+
+DeviceBucketStore._TABLE_CLS = _DeviceTable
+DeviceBucketStore._WTABLE_CLS = _DeviceWindowTable
 
 
 class InProcessBucketStore(BucketStore):

@@ -1,8 +1,11 @@
 """Space-saving top-K sketch — hot-key telemetry for the serving path.
 
-The JAX package's ``utils/heavy_hitters.py``, backend-free and kept whole
-(numpy only), so both packages' servers report the same top-K for the same
-stream.
+The JAX package's ``utils/heavy_hitters.py``, backend-free (numpy only),
+kept whole but for one repair: a read drains a partial ``offer_buffered``
+buffer whole (see :meth:`HeavyHitters._drain`), where JAX's merges only
+its top ``batch_top`` keys and can cut a heavy key seen once in it. Both
+packages' servers report the same top-K for the same stream wherever no
+read lands on a partial buffer of more than ``batch_top`` distinct keys.
 
 Which keys dominate admission traffic is the observability input behind
 two of the framework's own mechanisms (the tier-0 admission cache hosts
@@ -24,8 +27,9 @@ Overhead discipline (the <3% serving-plane budget):
 - ``offer_buffered`` is the per-request lane's feed: one list append
   (~0.1µs), merged through a C-speed ``Counter`` pass every 1024
   observations (at most ``batch_top`` sketch merges per pass) — the
-  sketch lags the stream by at most one buffer (drained on every read),
-  and the hot path never pays an eviction.
+  sketch lags the stream by at most one buffer (drained whole on every
+  read: at most ``buffer_limit`` merges), and the hot path never pays an
+  eviction.
 - ``offer_many`` batches: one C-speed ``Counter`` pass over the batch,
   then at most ``2·K`` sketch merges regardless of batch size. Keys
   below the per-batch top-2K never reach the sketch — a true heavy
@@ -88,10 +92,17 @@ class HeavyHitters:
         return len(self._counts)
 
     def _drain(self) -> None:
+        """Merge a partial buffer WHOLE, every key of it in
+        ``offer_many``'s order. A read (every ``/metrics`` scrape) can land
+        anywhere in the stream, so a partial buffer's per-batch top would
+        cut a heavy key seen only once or twice in it, and the cut weight
+        would never come back; the buffer is bounded by ``buffer_limit``,
+        so the merge is too."""
         if self._buf:
             buf = self._buf
             self._buf = []
-            self.offer_many(buf)
+            for key, c in Counter(buf).most_common():
+                self.offer(key, float(c))
 
     def offer(self, key: str, count: float = 1.0) -> None:
         """Count one observation of ``key`` with weight ``count``."""

@@ -251,6 +251,11 @@ class StoreMetrics:
     # Duplicate requests merged away by flush coalescing (requests minus
     # launch rows) — the Zipf hot-key win's direct measure.
     rows_coalesced: int = 0
+    # Table growths (the fingerprint store's doublings).
+    pregrows: int = 0
+    # Device-resident directory: requests denied because no probe-window
+    # cell could be claimed (table pressure — a sweep or a growth follows).
+    fp_unresolved: int = 0
     # Wall time of each micro-batch flush (dispatch + device kernel +
     # readback, measured inside MicroBatcher._run_flush). Serving p99
     # minus flush p99 is the framework's own queueing/fan-out share.
@@ -285,6 +290,8 @@ class StoreMetrics:
             "sweeps": self.sweeps,
             "slots_evicted": self.slots_evicted,
             "rows_coalesced": self.rows_coalesced,
+            "pregrows": self.pregrows,
+            "fp_unresolved": self.fp_unresolved,
             "flush_p50_ms": self.flush_latency.p50 * 1e3,
             "flush_p99_ms": self.flush_latency.p99 * 1e3,
             "flush_samples": self.flush_latency.total,

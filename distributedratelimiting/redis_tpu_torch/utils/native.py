@@ -130,10 +130,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dir_dump.argtypes = [c.c_void_p, c.c_char_p, c.POINTER(c.c_int64),
                              c.POINTER(c.c_int32)]
     lib.dir_dump.restype = c.c_int64
+    # 64-bit FNV-1a key fingerprints (the fingerprint store's host hash),
+    # over a wire.KeyBlob's bytes and offsets.
+    lib.dir_fp64_batch.argtypes = [c.c_char_p, c.POINTER(c.c_int64),
+                                   c.c_int64, c.POINTER(c.c_uint32)]
+    lib.dir_fp64_batch.restype = c.c_int64
     try:
         lib.dir_resolve_pylist.argtypes = [c.c_void_p, c.py_object,
                                            c.POINTER(c.c_int32)]
         lib.dir_resolve_pylist.restype = c.c_int64
+        lib.dir_fp64_pylist.argtypes = [c.py_object, c.POINTER(c.c_uint32)]
+        lib.dir_fp64_pylist.restype = c.c_int64
         lib.has_pylist = True
     except AttributeError:  # built without Python.h
         lib.has_pylist = False

@@ -74,8 +74,7 @@ torch.set_num_threads(1)
 ATOL = 1e-4
 LIMIT_S = 20.0
 #: Names of the JAX package's exports whose modules are not ported yet.
-UNPORTED_EXPORTS = {"ClusterBucketStore",
-                    "FingerprintBucketStore", "MeshBucketStore"}
+UNPORTED_EXPORTS = {"ClusterBucketStore", "MeshBucketStore"}
 
 
 def w(coro):

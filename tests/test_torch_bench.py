@@ -282,6 +282,8 @@ TINY = {
     "single_batch": {"batch": 64, "iters": 2, "windows": 1},
     "e2e_bulk": {"n_slots": 4096, "max_batch": 64, "n": 256,
                  "pool_size": 1000, "calls": 2},
+    "fp_bulk": {"n_slots": 4096, "max_batch": 64, "n": 256,
+                "pool_size": 1000, "calls": 2},
     "remote_bulk": {"n_slots": 4096, "max_batch": 64, "n": 256,
                     "pool_size": 1000, "calls": 2},
     "e2e_async": {"n_slots": 4096, "max_batch": 64, "workers": 32,
@@ -402,7 +404,12 @@ def test_bench_on_cpu_prints_every_section():
         assert result["section_status"][name] == (
             f"not_ported: ROADMAP Queue {item}")
         assert all(result[k] is None for k in keys)
-    assert {item for item, _ in bench.NOT_PORTED.values()} == {"A12"}
+    # Every section of the JAX bench is ported: the fingerprint store's
+    # fp_bulk (A 12) was the last.
+    assert bench.NOT_PORTED == {}
+    assert result["section_status"]["fp_bulk"] == "ok"
+    assert result["e2e_fp_bulk_decisions_per_sec"] > 0
+    assert "fp_bulk.max_batch" in result["reduced"]
     # The native sections' stub answers, in their keys.
     assert result["serving_native_req_per_s_d256"] == 256000
     assert result["serving_native_tier0_speedup_vs_off"] == 1.0

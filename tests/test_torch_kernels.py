@@ -385,6 +385,27 @@ def test_launch_counts_untouched_on_cpu():
     slots = torch.from_numpy(_packed4(2)[0])
     ck.acquire_batch(_torch_state(s), slots, torch.ones_like(slots),
                      slots >= 0, 60_000, CAP, 0.01, handle_duplicates=False)
+    # The fingerprint directory's wrappers, on CPU tables too.
+    from distributedratelimiting.redis_tpu_torch.ops import fp_directory as F
+
+    kp = torch.arange(1, 17, dtype=torch.int32).view(8, 2)
+    valid = torch.ones(8, dtype=torch.bool)
+    fused = torch.cat([kp, torch.ones(8, 1, dtype=torch.int32)], 1)
+    fp, st = F.init_fp_table(N), _torch_state(s)
+    ck.fp_acquire_scan(fp, st, fused.view(1, 8, 3),
+                       torch.tensor([60_000], dtype=torch.int32), CAP, 0.01)
+    ck.fp_window_scan(F.init_fp_table(N), TK.init_window_state(N),
+                      fused.view(1, 8, 3),
+                      torch.tensor([60_000], dtype=torch.int32), CAP, 1000)
+    debit = torch.zeros((4, 8), dtype=torch.int32)
+    debit[2] = 60_000
+    ck.fp_debit(fp, st, kp, debit, CAP, 0.01)
+    ck.fp_peek(fp, st, kp, valid, 60_000, CAP, 0.01)
+    ck.fp_sweep_expired(fp, st, 60_000, CAP, 0.01)
+    ck.fp_sweep_windows(F.init_fp_table(N), TK.init_window_state(N), 60_000,
+                        1000)
+    ck.fp_migrate(F.init_fp_table(N), TK.init_bucket_state(N), kp,
+                  [t[:8] for t in st], valid)
     assert set(ck.launches) == {"sweep_expired", "acquire_packed",
                                 "acquire_grouped", "acquire_scan",
                                 "acquire_scan24", "acquire_batch",
@@ -392,7 +413,10 @@ def test_launch_counts_untouched_on_cpu():
                                 "window_packed", "window_grouped",
                                 "window_scan", "sweep_windows",
                                 "sema_packed", "sweep_semas",
-                                "acquire_hierarchical", "debit_packed"}
+                                "acquire_hierarchical", "debit_packed",
+                                "fp_decide", "fp_window_decide", "fp_debit",
+                                "fp_peek", "fp_sweep", "fp_sweep_windows",
+                                "fp_migrate", "fp_migrate_window"}
     assert all(v == 0 for v in ck.launches.values())
 
 

@@ -7,7 +7,13 @@
   ``LatencyHistogram`` quantiles, counts and bucket bounds are equal on
   seeded samples.
 - ``utils/heavy_hitters.py``: ``top()`` equal on seeded Zipf streams through
-  every feed (``offer``, ``offer_buffered``, ``offer_many``, ``offer_blob``).
+  every feed (``offer``, ``offer_buffered``, ``offer_many``, ``offer_blob``),
+  with the port's one repair: a read drains a partial buffer whole, where
+  JAX's keeps its top ``batch_top`` keys (the JAX sketch's pending buffer
+  is drained the port's way before it is read; with at most ``batch_top``
+  distinct keys pending the two drains are one). The repaired drain never
+  undercounts a key: seeded reads at random points of a buffered Zipf
+  stream leave every count at or above the key's true count.
 - ``utils/flight_recorder.py``: dumps equal byte for byte on one frame
   stream and one clock.
 - ``utils/tracing.py``: Chrome export equal to JAX's for the same spans;
@@ -56,6 +62,7 @@ from distributedratelimiting.redis_tpu.utils import tracing as jtracing
 from distributedratelimiting.redis_tpu_torch import (
     BucketStoreServer,
     DeviceBucketStore,
+    FingerprintBucketStore,
     ManualClock,
     RemoteBucketStore,
 )
@@ -206,6 +213,7 @@ def test_heavy_hitters_top_matches_jax(seed):
         blob, offsets = wire.pack_keys(sub) if hasattr(
             wire, "pack_keys") else _pack(sub)
         sk.offer_blob(blob, offsets, costs[20000:])
+    _drain_whole(theirs)
     assert mine.top() == theirs.top()
     assert mine.snapshot() == theirs.snapshot()
     assert mine.offered == theirs.offered
@@ -222,6 +230,43 @@ def test_heavy_hitters_top_matches_jax(seed):
     for k, c in exact.items():
         if c > 5000 / 64:
             assert k in {t[0] for t in small.top()}
+
+
+def _drain_whole(sketch) -> None:
+    """The port's read-time drain on a JAX sketch: the pending buffer
+    merged whole, in ``offer_many``'s order."""
+    from collections import Counter
+
+    buf, sketch._buf = sketch._buf, []
+    for key, c in Counter(buf).most_common():
+        sketch.offer(key, float(c))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_heavy_hitters_reads_lose_nothing(seed):
+    """Reads at seeded random points of a buffered Zipf stream (every
+    scrape drains): each key's count stays at or above its true count, and
+    every key above N/K is tracked; the offered weight equals JAX's."""
+    keys = _zipf_keys(seed, 40_000, n_keys=20_000)
+    rng = np.random.default_rng(seed + 7)
+    reads = np.sort(rng.choice(len(keys), 60, replace=False))
+    mine = phh.HeavyHitters(64)
+    theirs = jhh.HeavyHitters(64)
+    for i, k in enumerate(keys):
+        mine.offer_buffered(k)
+        theirs.offer_buffered(k)
+        if i in reads:
+            mine.top()
+            theirs.top()
+    exact: dict[str, int] = {}
+    for k in keys:
+        exact[k] = exact.get(k, 0) + 1
+    top = mine.top()
+    assert all(count >= exact[k] >= count - err for k, count, err in top)
+    heavy = {k for k, c in exact.items() if c > len(keys) / 64}
+    assert heavy and heavy <= {k for k, _c, _e in top}
+    theirs.top()
+    assert mine.offered == theirs.offered == len(keys)
 
 
 def _pack(keys: list[str]):
@@ -411,15 +456,30 @@ def _counter_values(text: str) -> dict:
     return out
 
 
-@pytest.mark.parametrize("backing", ["inprocess", "device"])
+@pytest.mark.parametrize("backing", ["inprocess", "device", "fp"])
 def test_served_trace_metrics_match_jax(backing):
+    """The served counters on one trace. ``fp``: both packages' fingerprint
+    stores, whose store families render too (those that depend on launch
+    widths aside: the port pads to its rows, JAX to max_batch)."""
     ops = _trace_ops(11)
 
     def port_store():
         if backing == "inprocess":
             return InProcessBucketStore(clock=ManualClock(START))
+        if backing == "fp":
+            return FingerprintBucketStore(device="cpu", n_slots=4096,
+                                          clock=ManualClock(START))
         return DeviceBucketStore(device="cpu", n_slots=4096,
                                  clock=ManualClock(START))
+
+    def jax_store():
+        if backing == "fp":
+            from distributedratelimiting.redis_tpu.runtime.fp_store import (
+                FingerprintBucketStore as JFp,
+            )
+
+            return JFp(n_slots=4096, clock=JClock(START))
+        return JInProcess(clock=JClock(START))
 
     async def run(srv, Remote):
         await srv.start()
@@ -433,13 +493,17 @@ def test_served_trace_metrics_match_jax(backing):
 
     mine = asyncio.run(run(BucketStoreServer(port_store(), audit=False),
                            RemoteBucketStore))
-    theirs = asyncio.run(run(JServer(JInProcess(clock=JClock(START)),
-                                     audit=False), JRemote))
+    theirs = asyncio.run(run(JServer(jax_store(), audit=False), JRemote))
     got, want = _counter_values(mine), _counter_values(theirs)
     # Flush frames are a card store's own (JAX's serial store has no
     # flushes to record).
     common = {k for k in set(got) & set(want)
-              if not k[0].startswith("drl_flight_")}
+              if not k[0].startswith("drl_flight_")
+              and (not k[0].startswith("drl_store_")
+                   or k[0].startswith(("drl_store_pregrows",
+                                       "drl_store_fp_unresolved",
+                                       "drl_store_sweeps",
+                                       "drl_store_slots_evicted")))}
     names = {n for n, _ in common}
     for required in ("drl_requests_served_total",
                      "drl_connections_served_total",
@@ -459,9 +523,12 @@ def test_served_trace_metrics_match_jax(backing):
              if not f.startswith(("drl_store_", "drl_flight_"))}
     assert extra == set()
     # The families JAX renders and the port leaves out: state the port has
-    # not got (ROADMAP Queue C) — never rendered as zeros.
+    # not got (ROADMAP Queue C) — never rendered as zeros. The port's store
+    # renders JAX's counters but the Pallas sweep's failures (it has no
+    # Pallas sweep).
     left_out = {f for f in jax_families - mine_families}
     assert left_out <= {
+        "drl_store_pallas_sweep_failures",
         "drl_federation_slice_share",
         "drl_controller_actions", "drl_flight_frames",
         "drl_flight_frames_recorded", "drl_flight_dumps_written",

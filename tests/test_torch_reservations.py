@@ -17,9 +17,10 @@ through ``peek_blocking`` on both stores. Tolerances:
   the tenant capacity).
 
 Cases of ``tests/test_reservations.py`` that need modules the port has not
-ported wait with them: ``:312`` (placement's entry chunks), ``:328`` and
-``:361`` (the fingerprint store), ``:478`` (live config), ``:516`` and
-``:574`` (migration) and ``:820`` (the soak's drain, chaos and OP_CONFIG).
+ported wait with them: ``:312`` (placement's entry chunks), ``:478`` (live
+config), ``:516`` and ``:574`` (migration) and ``:820`` (the soak's drain,
+chaos and OP_CONFIG). ``:328`` and ``:361`` (the fingerprint store) are in
+``tests/test_torch_fp_store.py``.
 
 The wire: the four server/client pairings on one scenario (reserve,
 settle, duplicates, unknown rids, the server-side prior, ``OP_STATS``'s
