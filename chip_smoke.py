@@ -176,7 +176,7 @@ Phases (any failure raises, and the script exits non-zero):
    (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
    ``serving_p99_instant`` sections once each with short windows (no key
    null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
-   alone (``--paths`` takes any of the paths of phases 3–10 and 12–14,
+   alone (``--paths`` takes any of the paths of phases 3–10 and 12–15,
    comma-separated).
 9. The observability and overload plane (``--paths observability``), at
    the server cell's size: ``BucketStoreServer(observability=True,
@@ -302,22 +302,47 @@ Phases (any failure raises, and the script exits non-zero):
    and next window grants equal to a host store's; no key through the
    Python hash (the native library loaded); the console server with
    ``--directory fp`` as in phase 11.
-15. Print ``{"kernels": [...]}``: per kernel (24) its launches on each path
-   of phases 3–10 and 12–14 (``launches_by_path``; counts set to 0 before each
+15. The key-sharded mesh store (``--paths mesh``; ``parallel/`` over
+   ``csrc/mesh.cu``'s ``global_tier`` and the scans), BASELINE config 5 on
+   one card. First (in the whole script right after the fp cases)
+   ``global_tier`` against its plain version at K x R = 16 x 8,192 (the
+   bulk chunk of 8 shards), 1 x 8, 1 x 8,192, 8 x 8,192, 32 x 4,096 and
+   1 x 65,536, both cadences, fresh and live counters, equal bit for bit;
+   ``fp_acquire_scan`` and ``fp_window_scan`` with 8 shard regions at 8 x
+   4,096 rows on 2^24-slot tables, ``fp_peek`` and ``fp_migrate`` at 4,096,
+   by key and by the regions' invariants. Then, counts reset,
+   ``MeshBucketStore`` over a mesh of 8 x ``cuda`` with 2^21 slots a shard,
+   10M distinct keys through ``acquire_many`` in calls of 1M against a
+   single-table ``DeviceBucketStore`` of 2^24 slots on the same keys and
+   clock (JAX's differential anchor): two passes at ``sync_cadence="batch"``
+   and one at ``"launch"``, grants and remaining equal, ``global_score``
+   within 3 float32 roundings a recurrence of a float64 oracle; each
+   cadence's device ms of a 1M-key call (decisions, ``global_tier``); the
+   sliding and fixed window tiers at 10M keys equal; a snapshot of the
+   10M-key store restored (state, counter and 10,000 peeks equal);
+   ``directory="fp"`` cold (growth allowed; unresolved rows sent again once)
+   and warm, equal; a ``BucketStoreServer`` over an 8-shard store with a
+   client process (``chip_smoke.py --mesh-client``): a 1M-key bulk and
+   4,000 ``acquire_async``, ``OP_STATS``' tiers; the console server with
+   ``--backend mesh --sync-cadence launch`` as in phase 11.
+16. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
+   of phases 3–10 and 12–15 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
    two-level kernel and the debit > 0 on the reservation path, every
    store kernel but the window flushes > 0 on the checkpoint path, the
    bucket flushes, the bucket scan, the two-level kernel and the debit > 0
    on the observability path, the batch lane's flushes, the bulk scan and
    the debit > 0 on the native path, every fp kernel > 0 on the fp path,
+   ``global_tier``, the two scans and the fp decision > 0 on the mesh path,
    and every kernel that a wire op reaches > 0 on the server path — all but
-   the bench's ``acquire_scan24`` and ``acquire_batch`` and the fp kernels,
-   whose store the fp path serves) and their sum
+   the bench's ``acquire_scan24`` and ``acquire_batch``, the fp kernels,
+   whose store the fp path serves, and ``global_tier``, whose the mesh path
+   serves) and their sum
    (``launches``), the flushes',
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-16. Last line: ``{"ok": true, "device": {...}}``.
+17. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -6245,15 +6270,17 @@ def _fp_keys(rng, m: int) -> np.ndarray:
     return rng.integers(1, 2**32, (m, 2), dtype=np.uint64).astype(np.uint32)
 
 
-def _fp_base(torch, K, F, rng, n: int, present: int, kind: str):
-    """A CPU table of ``n`` slots with ``present`` keys placed (the plain
-    resolve) and random state on the claimed cells only (an empty cell holds
-    none: claims and sweeps keep it so). Returns (keys, (fp, state))."""
+def _fp_base(torch, K, F, rng, n: int, present: int, kind: str,
+             n_shards: int = 1):
+    """A CPU table of ``n`` slots (in ``n_shards`` shard regions) with
+    ``present`` keys placed (the plain resolve) and random state on the
+    claimed cells only (an empty cell holds none: claims and sweeps keep it
+    so). Returns (keys, (fp, state))."""
     keys = _fp_keys(rng, present)
     fp = F.init_fp_table(n)
     F.fp_resolve(fp, torch.from_numpy(keys.view(np.int32)),
                  torch.ones(present, dtype=torch.bool), probe_window=FP_L,
-                 rounds=FP_R)
+                 rounds=FP_R, n_shards=n_shards)
     live = (fp != 0).any(1).numpy()
     now = 1 << 20
     if kind == "bucket":
@@ -6291,19 +6318,21 @@ def _fp_rows(rng, keys, m: int, dist: str) -> np.ndarray:
     return pool[np.minimum(rng.zipf(1.2, m) - 1, len(pool) - 1)]
 
 
-def _fp_same_by_key(F, what, cpu, dev, keys) -> tuple:
+def _fp_same_by_key(F, what, cpu, dev, keys, n_shards: int = 1) -> tuple:
     """The card's table against the plain version's BY KEY: the card's
-    invariants hold (no key in two cells, every cell in its key's window),
-    each key is present in both or in neither, its state fields equal
-    (floats within ATOL). Returns (claimed cells, max abs error)."""
+    invariants hold (no key in two cells, every cell in its key's window,
+    in its shard region), each key is present in both or in neither, its
+    state fields equal (floats within ATOL). Returns (claimed cells, max
+    abs error)."""
     fp_c = cpu[0].numpy().view(np.uint32)
     fp_d = dev[0].cpu().numpy().view(np.uint32)
-    n_d = F.check_table_np(fp_d, FP_L)
+    n_d = F.check_table_np(fp_d, FP_L, n_shards)
     n_c = int((fp_c != 0).any(1).sum())
     if n_d != n_c:
         raise AssertionError(f"{what}: {n_d} cells claimed on the card, "
                              f"{n_c} in the plain version")
-    sc, sd = F.find_np(fp_c, keys, FP_L), F.find_np(fp_d, keys, FP_L)
+    sc = F.find_np(fp_c, keys, FP_L, n_shards)
+    sd = F.find_np(fp_d, keys, FP_L, n_shards)
     if not np.array_equal(sc >= 0, sd >= 0):
         raise AssertionError(f"{what}: {int(((sc >= 0) != (sd >= 0)).sum())}"
                              " keys present on one side only")
@@ -6973,6 +7002,516 @@ async def _fp_store_part(torch, ck, pkg, F, rng, hash_s) -> list:
     return lines
 
 
+# -- the mesh (parallel/): the key-sharded store on one card ------------------
+MESH_SEED = 1818
+#: BASELINE.json config 5: 10M keys sharded over 8 shards, here all on one
+#: card (2^21 slots a shard, 2^24 in all: the bucket state is ~150 MB).
+MESH_SHARDS = 8
+MESH_PER_SHARD = 2**21
+MESH_KEYS = 10_000_000
+MESH_CALL = 1_000_000
+MESH_T0 = 1_000_000
+MESH_WIRE_KEYS = 1_000_000
+MESH_WIRE_SCALAR_KEYS = 800  # x 5 asks at capacity 3: 4,000 requests
+MESH_WIRE_ASKS = 5
+MESH_WIRE_CAP = 3.0
+MESH_PEEKS = 10_000
+#: The global tier's cases, (K, R): the bulk chunk at 8 shards (16 x 8 x
+#: 1,024) first, then a flush's K = 1 at 8 rows and at a decision batch,
+#: and wider launches.
+MESH_TIER_SHAPES = ((16, 8192), (1, 8), (1, 8192), (8, 8192), (32, 4096),
+                    (1, 65536))
+#: The mesh's kernel results for the kernels line.
+MESH_RESULTS: dict = {}
+
+
+def _device_ms_by(fn, groups: dict, reps=3) -> dict:
+    """Device ms per call of each named group of CUDA kernels, from one
+    ``torch.profiler`` trace of ``reps`` calls (``None`` where the trace
+    holds no device time for a group)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for group, names in groups.items():
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                 if any(k in e.key for k in names))
+        out[group] = us / 1e3 / reps if us > 0 else None
+    return out
+
+
+def _mesh_kernel_phase(torch, ck, card: str) -> None:
+    """The mesh's kernel cases, timed, in a process that has run no path
+    yet (ROADMAP C1, as the fp cases)."""
+    from distributedratelimiting.redis_tpu_torch.ops import fp_directory as F
+    from distributedratelimiting.redis_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    mesh_kernel_cases(torch, K, F, ck, torch.device("cuda"),
+                      np.random.default_rng(MESH_SEED))
+    print(f"mesh kernel cases ({card}): {time.perf_counter() - t0:.1f} s")
+
+
+def mesh_kernel_cases(torch, K, F, ck, dev, rng) -> None:
+    """``global_tier`` against its plain version at :data:`MESH_TIER_SHAPES`,
+    both cadences, fresh and live counters (equal bit for bit: whole counts);
+    the fp kernels with 8 shard regions against theirs, by key. Fills
+    :data:`MESH_RESULTS` and adds shapes to :data:`FP_RESULTS`."""
+    rate = 1.0 / 1024
+    for i, (k, r) in enumerate(MESH_TIER_SHAPES):
+        out = np.zeros((k, 2, r), np.float32)
+        out[:, 0] = rng.random((k, r)) < 0.7
+        counts = rng.integers(0, 4, (k, r)).astype(np.int32)
+        counts[rng.random((k, r)) < 0.02] = 0  # padding rows
+        nows = (MESH_T0 + np.cumsum(rng.integers(0, 64, k))).astype(np.int32)
+        out_t, counts_t, nows_t = (torch.from_numpy(a)
+                                   for a in (out, counts, nows))
+        out_d, counts_d, nows_d = (t.to(dev) for t in (out_t, counts_t,
+                                                        nows_t))
+        for cadence in ("batch", "launch"):
+            for live in (False, True):
+                gc_, gd = K.init_global_counter(), K.init_global_counter(dev)
+                if live:
+                    for g in (gc_, gd):
+                        g.value.fill_(123_456.0)
+                        g.period.fill_(500.25)
+                        g.last_ts.fill_(MESH_T0 - 3000)
+                        g.exists.fill_(True)
+                K.global_tier(out_t, counts_t, nows_t, gc_, rate, cadence)
+                ck.global_tier(out_d, counts_d, nows_d, gd, rate, cadence)
+                got = [t.item() for t in gd]
+                want = [t.item() for t in gc_]
+                if got != want:
+                    raise AssertionError(f"global_tier K={k} R={r} "
+                                         f"{cadence}: {got} != {want}")
+        gd = K.init_global_counter(dev)
+        gc_ = K.init_global_counter()
+        row = {"ms": _median_ms(lambda: ck.global_tier(
+            out_d, counts_d, nows_d, gd, rate), reps=20),
+            "device_ms": _device_ms(lambda: ck.global_tier(
+                out_d, counts_d, nows_d, gd, rate), ["global_tier_kernel"]),
+            "plain_ms": _median_ms(lambda: K.global_tier(
+                out_t, counts_t, nows_t, gc_, rate), reps=3, warmup=1)}
+        # Bytes: each row's grant (4 B) and count (4 B) read once, the
+        # counter's 13 B each way, nows 4 B a batch; 2 integer ops a row.
+        nbytes, ops = 8 * k * r + 26 + 4 * k, 2 * k * r
+        bound_ms, bound_by = _bound_ms(nbytes, ops)
+        res = MESH_RESULTS.setdefault("global_tier", {
+            "max_abs_err": 0.0, "shapes": {}, "library_ms": None})
+        res["shapes"][f"K={k} R={r}"] = dict(row, bound_ms=bound_ms,
+                                             bound_by=bound_by,
+                                             max_abs_err=0.0)
+        if i == 0:
+            res.update(ms=row["ms"], device_ms=row["device_ms"],
+                       plain_ms=row["plain_ms"], bytes=nbytes, ops=ops)
+        print(f"global_tier K={k} R={r}: equal to plain (both cadences, "
+              f"fresh and live counters); {row['ms']:.4f} ms (device "
+              f"{row['device_ms']} ms, bound {bound_ms:.6f} ms, plain "
+              f"{row['plain_ms']:.3f} ms)")
+
+    # -- the fp kernels with 8 shard regions: a 2^24-slot table (2^21 a
+    #    region), the sharded store's launch of 8 batches of 8 x 512 rows.
+    s_n, cap, now = MESH_SHARDS, FP_CAP, 1 << 20
+    k, b = 8, s_n * 512
+    for kind in ("bucket", "window"):
+        keys, base = _fp_base(torch, K, F, rng, FP_SLOTS, FP_PRESENT, kind,
+                              n_shards=s_n)
+        base_d = _fp_copy(base, dev)
+        rows = _fp_rows(rng, keys, k * b, "distinct")
+        counts = rng.integers(0, 4, k * b).astype(np.int64)
+        fused = F.pack_fp12(rows, counts)
+        op = torch.from_numpy(fused.view(np.int32).reshape(k, b, 3))
+        nows = torch.from_numpy(np.full(k, now, np.int32))
+        cpu, card = _fp_copy(base), _fp_copy(base_d)
+        if kind == "bucket":
+            name = "fp_decide"
+
+            def call(t, o, nw):
+                return ck.fp_acquire_scan(*t, o, nw, cap, 1.0 / 1024,
+                                          probe_window=FP_L, n_shards=s_n)
+        else:
+            name = "fp_window_decide"
+
+            def call(t, o, nw):
+                return ck.fp_window_scan(*t, o, nw, FP_WLIMIT, 1024,
+                                         probe_window=FP_L, n_shards=s_n)
+        got = call(card, op.to(dev), nows.to(dev)).cpu().numpy()
+        want = call(cpu, op, nows).numpy()
+        if not np.array_equal(got[:, 0], want[:, 0]):
+            raise AssertionError(f"{name} (8 shard regions): codes differ")
+        err = float(np.abs(got[:, 1].astype(np.float64) - want[:, 1]).max())
+        if not err <= ATOL or int((want[:, 0] < 2).sum()):
+            raise AssertionError(f"{name} (8 shard regions): err {err} or "
+                                 "rows unresolved")
+        cells, serr = _fp_same_by_key(F, f"{name} (8 shard regions)", cpu,
+                                      card, np.concatenate([
+                                          rows, keys[:100_000]]), s_n)
+        if kind == "bucket":
+            # The peek and the migrate in the regions, by key.
+            kp = torch.from_numpy(rows[:b].view(np.int32).copy())
+            valid = torch.ones(b, dtype=torch.bool)
+            pc = ck.fp_peek(*cpu, kp, valid, now, cap, 1.0 / 1024,
+                            probe_window=FP_L, n_shards=s_n)
+            kp_d, valid_d = kp.to(dev), valid.to(dev)
+
+            def peek():
+                return ck.fp_peek(*card, kp_d, valid_d, now, cap, 1.0 / 1024,
+                                  probe_window=FP_L, n_shards=s_n)
+            if not torch.equal(pc, peek().cpu()):
+                raise AssertionError("fp_peek (8 shard regions) differs")
+            prow = _fp_time(torch, "fp_peek", peek)
+            _fp_record("fp_peek", f"8 shard regions B={b}", prow, 0.0,
+                       8 * b + b + 4 * b + (FP_L * 8 + 9) * b, FP_L * b)
+            new_c = (F.init_fp_table(FP_SLOTS), K.init_bucket_state(FP_SLOTS))
+            new_d = _fp_copy(new_c, dev)
+            cols = [torch.from_numpy(rng.uniform(0, cap, b).astype(
+                np.float32)), torch.full((b,), now, dtype=torch.int32),
+                torch.ones(b, dtype=torch.bool)]
+            cols_d = [c.to(dev) for c in cols]
+            placed = ck.fp_migrate(*new_d, kp_d, cols_d, valid_d,
+                                   probe_window=FP_L, n_shards=s_n)
+            placed_c = ck.fp_migrate(*new_c, kp, cols, valid,
+                                     probe_window=FP_L, n_shards=s_n)
+            if not (placed.all() and placed_c.all()):
+                raise AssertionError("fp_migrate (8 shard regions): rows "
+                                     "not placed")
+            _fp_same_by_key(F, "fp_migrate (8 shard regions)", new_c, new_d,
+                            rows[:b], s_n)
+
+            def migrate():
+                fresh = (F.init_fp_table(FP_SLOTS, dev),
+                         K.init_bucket_state(FP_SLOTS, dev))
+                return ck.fp_migrate(*fresh, kp_d, cols_d, valid_d,
+                                     probe_window=FP_L, n_shards=s_n)
+            mrow = _fp_time(torch, "fp_migrate", migrate)
+            _fp_record("fp_migrate", f"8 shard regions B={b}", mrow, 0.0,
+                       8 * b + b + 9 * b + (FP_L * 8 + 9 + 8) * b, FP_L * b)
+        # Timed last: its repeated launches consume the card table's tokens.
+        op_d, nows_d = op.to(dev), nows.to(dev)
+        row = _fp_time(torch, name, lambda: call(card, op_d, nows_d))
+        d = len(np.unique(rows.view(np.uint64)))
+        state_b = 9 if kind == "bucket" else 13
+        claimed = cells - int((base[0] != 0).any(1).sum())
+        nbytes = 12 * k * b + 8 * k * b + (FP_L * 8 + 2 * state_b) * d \
+            + 8 * claimed
+        _fp_record(name, f"8 shard regions K={k} B={b}", row,
+                   max(err, serr), nbytes, FP_L * d + 12 * k * b)
+        print(f"{name} with 8 shard regions, K={k} x {b}: equal to plain by "
+              f"key ({cells} cells); {row['ms']:.4f} ms (device "
+              f"{row['device_ms']} ms)")
+        del cpu, card, base, base_d
+
+
+async def _mesh_bulk(store, keys, counts, *, window=None,
+                     with_remaining=True):
+    """``keys`` through the store's bulk lane in calls of
+    :data:`MESH_CALL`; the concatenated (grants, remaining) and the wall
+    seconds."""
+    g, r = [], []
+    t = time.perf_counter()
+    for i in range(0, len(keys), MESH_CALL):
+        ks, cs = keys[i:i + MESH_CALL], counts[i:i + MESH_CALL]
+        if window is None:
+            res = await store.acquire_many(ks, cs, FP_CAP, FP_RATE,
+                                           with_remaining=with_remaining)
+        else:
+            res = await store.window_acquire_many(
+                ks, cs, FP_WLIMIT, FP_WINDOW_S, fixed=window,
+                with_remaining=with_remaining)
+        g.append(res.granted)
+        if with_remaining:
+            r.append(res.remaining)
+    return ((np.concatenate(g), np.concatenate(r) if r else None),
+            time.perf_counter() - t)
+
+
+def _tier_oracle(passes) -> float:
+    """The global tier's value in float64: each pass ``(consumed, decay)``
+    decays the counter by ``decay`` (clamped at 0) and adds what it
+    consumed (every call of a pass runs at one tick, so only its first
+    recurrence decays)."""
+    v = 0.0
+    for consumed, decay in passes:
+        v = max(0.0, v - decay) + consumed
+    return v
+
+
+def _check_tier(what, store, oracle: float, recurrences: int) -> float:
+    """``global_score`` against the float64 oracle: each recurrence rounds
+    at most three times (product, difference, sum) to float32, so the score
+    lies within ``3 * recurrences`` spacings of the largest value."""
+    got = store._sharded(FP_CAP, FP_RATE).global_score
+    tol = 3 * recurrences * float(np.spacing(np.float32(max(oracle, 1.0))))
+    if not abs(got - oracle) <= tol:
+        raise AssertionError(f"{what}: global_score {got} against the "
+                             f"float64 oracle {oracle} (tolerance {tol})")
+    return got - oracle
+
+
+async def mesh_client(pkg, addr) -> dict:
+    """The mesh path's wire client, a process of its own as a client host:
+    one bulk of :data:`MESH_WIRE_KEYS` distinct keys (all granted), then
+    ``acquire_async`` through ``PartitionedRateLimiter`` over a coalescing
+    ``RemoteBucketStore``, 64 tasks, :data:`MESH_WIRE_SCALAR_KEYS` keys x
+    :data:`MESH_WIRE_ASKS` asks at capacity 3 (3 grants a key)."""
+    cli = pkg.RemoteBucketStore(address=addr)
+    keys = [f"wire{i}" for i in range(MESH_WIRE_KEYS)]
+    t = time.perf_counter()
+    res = await cli.acquire_many(keys, [1] * len(keys), FP_CAP, FP_RATE,
+                                 with_remaining=False)
+    bulk_s = time.perf_counter() - t
+    lim = pkg.PartitionedRateLimiter(pkg.TokenBucketOptions(
+        token_limit=int(MESH_WIRE_CAP), tokens_per_period=1,
+        replenishment_period_s=1000.0, instance_name="mesh"), cli)
+    asks = [k for k in range(MESH_WIRE_SCALAR_KEYS)
+            for _ in range(MESH_WIRE_ASKS)]
+    np.random.default_rng(MESH_SEED + 5).shuffle(asks)
+    grants = np.zeros(MESH_WIRE_SCALAR_KEYS, np.int64)
+    lat = []
+    t = time.perf_counter()
+    queue_ = list(asks)
+
+    async def worker():
+        while queue_:
+            key = queue_.pop()
+            t1 = time.perf_counter()
+            lease = await lim.acquire_async(key)
+            lat.append(time.perf_counter() - t1)
+            grants[key] += lease.is_acquired
+
+    await asyncio.gather(*(worker() for _ in range(SCALAR_TASKS)))
+    scalar_s = time.perf_counter() - t
+    await cli.aclose()
+    return {"bulk_granted": int(np.count_nonzero(res.granted)),
+            "bulk_s": bulk_s, "scalar_s": scalar_s,
+            "requests": len(asks), "grants": np.unique(grants).tolist(),
+            "p50_ms": _pct(lat, 50) * 1e3, "p99_ms": _pct(lat, 99) * 1e3}
+
+
+async def mesh_path(torch, ck, pkg, card: str) -> dict:
+    """BASELINE config 5 on one card: ``MeshBucketStore`` over a mesh of
+    8 x ``cuda:0``, 2^21 slots a shard, 10M distinct keys in calls of 1M,
+    against a single-table ``DeviceBucketStore`` (JAX's differential
+    anchor) on the same keys and clock: both cadences, the window tiers
+    (sliding and fixed), the fp directory (cold, then warm), a snapshot of
+    the 10M-key store restored, the wire (a client process) and the console
+    server with ``--backend mesh --sync-cadence launch``. Returns the
+    launches of the store part."""
+    from distributedratelimiting.redis_tpu_torch.parallel.mesh import Mesh
+
+    if not MESH_RESULTS:  # the path alone; the whole script ran them first
+        _mesh_kernel_phase(torch, ck, card)
+    ck.reset_launches()
+    lines = await _mesh_store_part(torch, ck, pkg, Mesh(
+        ["cuda"] * MESH_SHARDS), np.random.default_rng(MESH_SEED + 1))
+    torch.cuda.synchronize()
+    counts = dict(ck.launches)
+    for line in lines:
+        print(f"mesh path ({card}): {line}")
+    await asyncio.to_thread(cli_server, pkg, "--backend", "mesh",
+                            "--sync-cadence", "launch")
+    torch.cuda.empty_cache()
+    return counts
+
+
+async def _mesh_store_part(torch, ck, pkg, mesh, rng) -> list:
+    lines = []
+    keys = [f"mk{i}" for i in range(MESH_KEYS)]
+    c1 = rng.integers(1, 4, MESH_KEYS)
+    c2 = rng.integers(1, 4, MESH_KEYS)
+    dt = 1024  # one second between the passes
+    decay = dt * FP_RATE / 1024  # the tier decays at the fill rate
+
+    def mesh_store(**kw):
+        return pkg.MeshBucketStore(mesh, per_shard_slots=MESH_PER_SHARD,
+                                   max_batch=BATCH,
+                                   clock=pkg.ManualClock(MESH_T0), **kw)
+
+    # The anchor: one table of 2^24 slots, two bucket passes, both windows.
+    anchor = pkg.DeviceBucketStore(device="cuda", n_slots=FP_SLOTS,
+                                   max_batch=BATCH,
+                                   clock=pkg.ManualClock(MESH_T0))
+    await anchor.connect()
+    a1, a1_s = await _mesh_bulk(anchor, keys, c1)
+    anchor.clock.advance_ticks(dt)
+    a2, a2_s = await _mesh_bulk(anchor, keys, c2)
+    wanted = {}
+    for fixed in (False, True):
+        wanted[fixed] = await _mesh_bulk(anchor, keys, c1, window=fixed)
+    await anchor.aclose()
+    del anchor
+    torch.cuda.empty_cache()
+    consumed1 = float((c1 * a1[0]).sum())
+    consumed2 = float((c2 * a2[0]).sum())
+
+    # Both cadences: grants and remaining equal to the anchor's, the tier
+    # against its float64 oracle.
+    rates = {}
+    stores = {}
+    for cadence in ("batch", "launch"):
+        store = mesh_store(sync_cadence=cadence)
+        await store.connect()
+        tier = store._sharded(FP_CAP, FP_RATE)
+        resolve_s = [0.0]
+        _time_calls(tier, "_resolve_batch", resolve_s)
+        l0 = ck.launches["global_tier"]
+        got, s1 = await _mesh_bulk(store, keys, c1)
+        _fp_equal(f"mesh ({cadence}), 10M keys, pass 1", got, a1)
+        err1 = _check_tier(f"mesh ({cadence}), pass 1", store,
+                           _tier_oracle([(consumed1, 0.0)]),
+                           16 * (ck.launches["global_tier"] - l0))
+        line = (f"{cadence} cadence, 10M keys in calls of 1M: grants and "
+                f"remaining equal to the single table's; pass 1 "
+                f"{MESH_KEYS / s1:.0f} rows/s (the single table "
+                f"{MESH_KEYS / a1_s:.0f}), routing and resolve "
+                f"{resolve_s[0]:.2f} s; global_score - oracle {err1!r}")
+        if cadence == "batch":
+            store.clock.advance_ticks(dt)
+            got, s2 = await _mesh_bulk(store, keys, c2)
+            _fp_equal("mesh (batch), 10M keys, pass 2", got, a2)
+            err2 = _check_tier("mesh (batch), pass 2", store, _tier_oracle(
+                [(consumed1, 0.0), (consumed2, decay)]),
+                16 * (ck.launches["global_tier"] - l0))
+            line += (f"; pass 2 {MESH_KEYS / s2:.0f} rows/s (single table "
+                     f"{MESH_KEYS / a2_s:.0f}), global_score - oracle "
+                     f"{err2!r}")
+        rates[cadence] = MESH_KEYS / s1
+        lines.append(line)
+        stores[cadence] = store
+
+    # The device time of one 1M call (probes: nothing granted), by kernel.
+    call_keys, zeros = keys[:MESH_CALL], [0] * MESH_CALL
+    for cadence, store in stores.items():
+        dev = _device_ms_by(
+            lambda: store.acquire_many_blocking(call_keys, zeros, FP_CAP,
+                                                FP_RATE,
+                                                with_remaining=False),
+            {"decide": ["scan_kernel"], "tier": ["global_tier_kernel"]})
+        lines.append(f"{cadence} cadence, a 1M-key call's device ms: "
+                     f"decisions {dev['decide']}, global_tier {dev['tier']}")
+    lines.append(f"launch against batch cadence: {rates['launch']:.0f} "
+                 f"against {rates['batch']:.0f} rows/s "
+                 f"({rates['launch'] / rates['batch'] - 1:+.1%})")
+
+    # The window tiers on the batch store against the single table's.
+    store = stores["batch"]
+    for fixed in (False, True):
+        got, ws = await _mesh_bulk(store, keys, c1, window=fixed)
+        want, wa_s = wanted[fixed]
+        _fp_equal(f"mesh window ({'fixed' if fixed else 'sliding'})", got,
+                  want)
+        lines.append(f"{'fixed' if fixed else 'sliding'} window tier, 10M "
+                     f"keys: equal to the single table's; "
+                     f"{MESH_KEYS / ws:.0f} rows/s (single table "
+                     f"{MESH_KEYS / wa_s:.0f})")
+    await store.aclose()
+    del store, stores["batch"]
+    torch.cuda.empty_cache()
+
+    # A snapshot of the 10M-key store (launch cadence), restored.
+    store = stores.pop("launch")
+    sample = [keys[i] for i in rng.permutation(MESH_KEYS)[:MESH_PEEKS]]
+    peeks = [store.peek_blocking(k, FP_CAP, FP_RATE) for k in sample]
+    t = time.perf_counter()
+    snap = store.snapshot()
+    t_save = time.perf_counter() - t
+    fresh = mesh_store()
+    fresh.clock.set_ticks(store.clock.now_ticks())
+    t = time.perf_counter()
+    fresh.restore(snap)
+    t_load = time.perf_counter() - t
+    src, dst = store._sharded(FP_CAP, FP_RATE), fresh._sharded(FP_CAP,
+                                                                FP_RATE)
+    if not (all(torch.equal(a, b) for a, b in zip(src.state, dst.state))
+            and all(torch.equal(a, b) for a, b in zip(src.gcounter,
+                                                      dst.gcounter))):
+        raise AssertionError("mesh snapshot: the restored state differs")
+    if [fresh.peek_blocking(k, FP_CAP, FP_RATE) for k in sample] != peeks:
+        raise AssertionError("mesh snapshot: peeks differ after restore")
+    del snap
+    lines.append(f"snapshot of the 10M-key store {t_save:.1f} s, restored in "
+                 f"{t_load:.1f} s: state, counter and {MESH_PEEKS} peeks "
+                 "equal")
+    await fresh.aclose()
+    await store.aclose()
+    del fresh, store
+    torch.cuda.empty_cache()
+
+    # The fp directory: cold (claims; growth allowed), then warm.
+    fps = mesh_store(directory="fp")
+    await fps.connect()
+    got, f1 = await _mesh_bulk(fps, keys, c1)
+    tier = fps._sharded(FP_CAP, FP_RATE)
+    cold_unresolved, cold_grows = tier.fp_unresolved, tier.grows
+    await _fp_cold_equal("mesh fp, 10M keys, cold", fps, keys, c1, got, a1,
+                         cold_unresolved)
+    fps.clock.advance_ticks(dt)
+    u0 = tier.fp_unresolved
+    got, f2 = await _mesh_bulk(fps, keys, c2)
+    if tier.fp_unresolved != u0:
+        raise AssertionError("mesh fp: the warm pass left rows unresolved")
+    _fp_equal("mesh fp, 10M keys, warm", got, a2)
+    lines.append(f"fp directory, 8 shard regions, 10M keys: cold "
+                 f"{MESH_KEYS / f1:.0f} rows/s ({cold_unresolved} rows "
+                 f"unresolved, sent again once; {cold_grows} growths to "
+                 f"{tier.per_shard_slots} slots a shard), warm "
+                 f"{MESH_KEYS / f2:.0f} rows/s; decisions equal to the "
+                 "single table's")
+    await fps.aclose()
+    del fps, tier
+    torch.cuda.empty_cache()
+
+    # The wire: a server over an 8-shard store, a client process.
+    store = pkg.MeshBucketStore(mesh, per_shard_slots=2**18,
+                                max_batch=BATCH,
+                                clock=pkg.ManualClock(MESH_T0))
+    server = pkg.BucketStoreServer(store, host="127.0.0.1", port=0)
+    host, port = await server.start()
+    try:
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, os.path.abspath(__file__), "--mesh-client", host,
+            str(port), stdout=asyncio.subprocess.PIPE,
+            stderr=asyncio.subprocess.PIPE)
+        try:
+            out, err = await asyncio.wait_for(proc.communicate(), 600)
+        finally:
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"mesh client exited {proc.returncode}: "
+                                 f"{err.decode()[-3000:]}")
+        rep = json.loads(out.decode().strip().splitlines()[-1])
+        if rep["bulk_granted"] != MESH_WIRE_KEYS or rep["grants"] != [
+                int(MESH_WIRE_CAP)]:
+            raise AssertionError(f"mesh wire: {rep}")
+        cli = pkg.RemoteBucketStore(address=(host, port))
+        stats = await cli.stats()
+        await cli.aclose()
+    finally:
+        await server.aclose()
+        await store.aclose()
+    tiers = stats["store"]["tiers"]
+    rows = sum(t["rows_valid"] for t in tiers.values())
+    if rows < MESH_WIRE_KEYS + MESH_WIRE_SCALAR_KEYS * MESH_WIRE_ASKS:
+        raise AssertionError(f"mesh wire: OP_STATS tiers count {rows} rows")
+    lines.append(
+        f"wire (client process): a {MESH_WIRE_KEYS}-key bulk "
+        f"{MESH_WIRE_KEYS / rep['bulk_s']:.0f} rows/s; {rep['requests']} "
+        f"acquire_async {rep['requests'] / rep['scalar_s']:.0f} requests/s "
+        f"(client p50 {rep['p50_ms']:.2f} ms, p99 {rep['p99_ms']:.2f} ms), "
+        f"{int(MESH_WIRE_CAP)} grants a key; OP_STATS tiers "
+        f"{sorted(tiers)} hold {rows} rows")
+    return lines
+
+
 SIZED_KERNELS = {"acquire_packed": "acquire_packed",
                  "acquire_grouped": "acquire_grouped",
                  "window_packed": "window_packed",
@@ -7016,7 +7555,7 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
 
 
 def _paths() -> tuple:
-    """The paths of phases 3–10 and 12–14, in the order :func:`main`
+    """The paths of phases 3–10 and 12–15, in the order :func:`main`
     runs them."""
     return (("exact", main_path), ("approximate", approximate_path),
             ("window", window_path), ("admission", admission_path),
@@ -7024,7 +7563,7 @@ def _paths() -> tuple:
             ("checkpoint", checkpoint_path),
             ("observability", observability_path),
             ("server", server_path), ("bench", bench_path),
-            ("native", native_path), ("fp", fp_path))
+            ("native", native_path), ("fp", fp_path), ("mesh", mesh_path))
 
 
 def paths_only(names: list) -> int:
@@ -7087,6 +7626,9 @@ def main() -> int:
     t = time.perf_counter()
     _fp_kernel_phase(torch, ck, card)
     phases["fp kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _mesh_kernel_phase(torch, ck, card)
+    phases["mesh kernels"] = time.perf_counter() - t
     # Each path resets the counts just before it runs and reads them just
     # after; a kernel's launches are its count summed over the paths, and
     # it must have launched on the path it serves.
@@ -7100,8 +7642,9 @@ def main() -> int:
         by_path[name] = asyncio.run(path(torch, ck, pkg, card))
         sizes_by_path[name] = _sizes_since(sizes, before)
         phases[name] = time.perf_counter() - t
-    # The fp kernel cases (run before any path's counts were reset).
+    # The fp and mesh kernel cases (run before any path's counts were reset).
     res.update(FP_RESULTS)
+    res.update(MESH_RESULTS)
     # The server's launches by width: every bulk frame of at most max_batch
     # rows (the coalescing client's frames) is one flush of its rows, and
     # no scan launch holds a single batch.
@@ -7127,7 +7670,8 @@ def main() -> int:
               "sema_packed": "admission", "sweep_semas": "admission",
               "acquire_hierarchical": "admission", "debit_packed": "exact",
               "acquire_scan24": "bench", "acquire_batch": "bench",
-              **{name: "fp" for name in FP_KERNEL_NAMES}}
+              **{name: "fp" for name in FP_KERNEL_NAMES},
+              "global_tier": "mesh"}
     # No wire op reaches the bench's two kernels: they are exempt from the
     # server-path rule (OP_SETTLE reaches the debit). The fingerprint
     # kernels serve the fp store, which the server path does not run (the fp
@@ -7135,7 +7679,9 @@ def main() -> int:
     no_wire_op = {"acquire_scan24": "the bench's kernel, no wire op",
                   "acquire_batch": "the bench's kernel, no wire op",
                   **{name: "the fingerprint store's kernel: the fp path "
-                           "serves --directory fp" for name in FP_KERNEL_NAMES}}
+                           "serves --directory fp" for name in FP_KERNEL_NAMES},
+                  "global_tier": "the mesh store's kernel: the mesh path "
+                                 "serves --backend mesh"}
     # The reservation path runs on the two-level kernel and the debit; the
     # checkpoint path (its oracle's traffic, the chain's fill and the day-
     # later sweep between saves) on every bucket, counter and semaphore
@@ -7157,7 +7703,11 @@ def main() -> int:
                    # flushes, the bulk residue's scan and tier-0's debit.
                    "native": ("acquire_packed", "window_packed",
                               "sema_packed", "acquire_scan",
-                              "debit_packed")}
+                              "debit_packed"),
+                   # The mesh: its decisions (the bucket and window scans,
+                   # the fp decision), sweeps none, the aux store's flushes
+                   # none; every fp decision of the fp tier.
+                   "mesh": ("acquire_scan", "window_scan", "fp_decide")}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
@@ -7175,7 +7725,8 @@ def main() -> int:
                "debit_packed": "csrc/admission.cu",
                "acquire_scan24": "csrc/acquire.cu",
                "acquire_batch": "csrc/acquire.cu",
-               **{name: "csrc/fp_directory.cu" for name in FP_KERNEL_NAMES}}
+               **{name: "csrc/fp_directory.cu" for name in FP_KERNEL_NAMES},
+               "global_tier": "csrc/mesh.cu"}
     replaces = {
         "sweep_expired":
             "distributedratelimiting/redis_tpu/ops/pallas_kernels.py:80",
@@ -7237,6 +7788,10 @@ def main() -> int:
             "distributedratelimiting/redis_tpu/ops/fp_directory.py:448",
         "fp_migrate_window":
             "distributedratelimiting/redis_tpu/ops/fp_directory.py:548",
+        # global_tier_update (:75) with the psum before it (:201, :243,
+        # :304; fp_sharded.py:180, :192).
+        "global_tier":
+            "distributedratelimiting/redis_tpu/parallel/sharded_store.py:75",
     }
     kernels = []
     for name, r in res.items():
@@ -7294,6 +7849,14 @@ if __name__ == "__main__":
         print(json.dumps(asyncio.run(obs_client(
             _pkg, sys.argv[2], [int(p) for p in sys.argv[3].split(",")],
             sys.argv[4], *map(int, sys.argv[5:8])))))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mesh-client"]:
+        # The mesh path's wire client (see mesh_client).
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import distributedratelimiting.redis_tpu_torch as _pkg
+
+        print(json.dumps(asyncio.run(mesh_client(
+            _pkg, (sys.argv[2], int(sys.argv[3]))))))
         sys.exit(0)
     if sys.argv[1:2] == ["--native-client"]:
         # A client process of the native path (see _native_client_run).

@@ -15,7 +15,9 @@ façade over the two-level lane, and ``ServiceRegistry`` with the
 ``add_tpu_*`` helpers is the DI layer. Keys resolve to slots
 through the native key directory (``native/directory.cc``);
 ``FingerprintBucketStore`` keeps the bucket and window tiers' directory on
-the card instead (64-bit key fingerprints found or claimed in the kernel). A
+the card instead (64-bit key fingerprints found or claimed in the kernel);
+``MeshBucketStore`` shards the bucket and window tiers by key over a mesh
+of shards with a two-level global tier (``parallel/``). A
 ``BucketStoreServer`` serves such a store over TCP, byte-compatible with
 the JAX package's server, and ``RemoteBucketStore`` is its client: limiters
 on other hosts share one card through it. ``InProcessBucketStore`` is the
@@ -82,6 +84,9 @@ from distributedratelimiting.redis_tpu_torch.runtime.remote import (
 from distributedratelimiting.redis_tpu_torch.runtime.fp_store import (
     FingerprintBucketStore,
 )
+from distributedratelimiting.redis_tpu_torch.parallel.mesh_store import (
+    MeshBucketStore,
+)
 from distributedratelimiting.redis_tpu_torch.runtime.server import (
     BucketStoreServer,
 )
@@ -131,6 +136,7 @@ __all__ = [
     "DeviceBucketStore",
     "FingerprintBucketStore",
     "InProcessBucketStore",
+    "MeshBucketStore",
     "RemoteBucketStore",
     "StoreTimeoutError",
     "ManualClock",

@@ -29,6 +29,11 @@
 //
 // The resolve, per valid row with key (lo, hi) != (0, 0):
 //   base = ((lo * 0x9E3779B1) ^ hi) mod (N - L + 1)     (uint32, as JAX)
+//   (with S shard regions of P = N / S cells, the mesh's tables laid end
+//   to end: base = (lo mod S) * P + ((lo * 0x9E3779B1) ^ hi) mod (P - L + 1),
+//   each key in its shard's region as in a table of P cells; S = 1 is the
+//   line above. Rows of different regions never meet, so one launch places
+//   every shard's rows as JAX's per-shard programs do.)
 //   pref = (lo ^ hi * 0x85EBCA6B) mod L
 //   repeat: read the L cells [base, base + L) (through L2, __ldcg): a cell
 //     holding the key is the row's slot; else, with no empty cell, the row
@@ -82,13 +87,15 @@ using u64 = unsigned long long;
 
 struct Fp {
   u64* cells;
-  uint32_t n;
-  int32_t L;  // probe window, 1..32
+  uint32_t per;     // cells of a shard region (N / shards)
+  uint32_t shards;  // shard regions, >= 1
+  int32_t L;        // probe window, 1..32
 };
 
 __device__ __forceinline__ uint32_t base_of(uint32_t lo, uint32_t hi,
                                             const Fp& f) {
-  return ((lo * kMix) ^ hi) % (f.n - (uint32_t)f.L + 1u);
+  const uint32_t base = ((lo * kMix) ^ hi) % (f.per - (uint32_t)f.L + 1u);
+  return f.shards == 1u ? base : (lo % f.shards) * f.per + base;
 }
 
 __device__ __forceinline__ uint32_t pref_of(uint32_t lo, uint32_t hi,
@@ -329,25 +336,33 @@ int grid_for(int64_t rows) {
   return (int)blocks;
 }
 
-bool bad_table(int64_t n, int32_t L) {
-  return L < 1 || L > 32 || n < L || n >= (int64_t(1) << 31);
+bool bad_table(int64_t n, int32_t L, int32_t shards) {
+  return L < 1 || L > 32 || shards < 1 || n % shards != 0 ||
+         n / shards < L || n >= (int64_t(1) << 31);
+}
+
+Fp make_fp(void* cells, int64_t n, int32_t L, int32_t shards) {
+  return Fp{static_cast<u64*>(cells), (uint32_t)(n / shards),
+            (uint32_t)shards, L};
 }
 
 }  // namespace
 
 // keys u32[rows, stride] (stride 2: pairs, validity from valid_in; stride 3:
-// pack_fp12 rows); see resolve_kernel for the outputs.
+// pack_fp12 rows); see resolve_kernel for the outputs. shards: the table's
+// shard regions (1: one table).
 extern "C" int drl_fp_resolve(void* cells, int64_t n, int32_t L,
-                              const uint32_t* keys, int32_t stride,
+                              int32_t shards, const uint32_t* keys,
+                              int32_t stride,
                               const int32_t* valid_in, int64_t rows,
                               int32_t* slots, int32_t* counts, uint8_t* res,
                               uint32_t* res_bits, cudaStream_t stream) {
-  if (bad_table(n, L) || (stride != 2 && stride != 3) ||
+  if (bad_table(n, L, shards) || (stride != 2 && stride != 3) ||
       (stride == 2 && valid_in == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (rows <= 0) return (int)cudaSuccess;
-  const Fp f{static_cast<u64*>(cells), (uint32_t)n, L};
+  const Fp f = make_fp(cells, n, L, shards);
   // A warp a 32-row word: blocks cover 256 rows.
   resolve_kernel<<<grid_for(rows), kThreads, 0, stream>>>(
       f, keys, stride, valid_in, rows, slots, counts, res, res_bits);
@@ -371,14 +386,15 @@ extern "C" int drl_fp_debit_fix(float* out, const uint8_t* res,
 }
 
 extern "C" int drl_fp_peek(void* cells, int64_t n, int32_t L,
-                           const uint32_t* kpair, const uint8_t* valid,
+                           int32_t shards, const uint32_t* kpair,
+                           const uint8_t* valid,
                            int32_t b, const float* tokens,
                            const int32_t* last_ts, const uint8_t* exists,
                            int32_t now, float cap, float rate, float* out,
                            cudaStream_t stream) {
-  if (bad_table(n, L)) return (int)cudaErrorInvalidValue;
+  if (bad_table(n, L, shards)) return (int)cudaErrorInvalidValue;
   if (b <= 0) return (int)cudaSuccess;
-  const Fp f{static_cast<u64*>(cells), (uint32_t)n, L};
+  const Fp f = make_fp(cells, n, L, shards);
   peek_kernel<<<grid_for(b), kThreads, 0, stream>>>(
       f, kpair, valid, b, tokens, last_ts, exists, now, cap, rate, out);
   return (int)cudaGetLastError();
@@ -409,15 +425,16 @@ extern "C" int drl_fp_sweep_window(void* cells, const int32_t* idx,
 // n_cols 3 (tokens f32, last_ts i32, exists u8) or 4 (prev f32, curr f32,
 // idx i32, exists u8); dst/src the new table's and the chunk's columns.
 extern "C" int drl_fp_migrate(void* cells, int64_t n, int32_t L,
-                              const uint32_t* kpair, const uint8_t* valid,
+                              int32_t shards, const uint32_t* kpair,
+                              const uint8_t* valid,
                               int32_t b, int32_t n_cols, void* const* dst,
                               const void* const* src, uint8_t* placed,
                               cudaStream_t stream) {
-  if (bad_table(n, L) || (n_cols != 3 && n_cols != 4)) {
+  if (bad_table(n, L, shards) || (n_cols != 3 && n_cols != 4)) {
     return (int)cudaErrorInvalidValue;
   }
   if (b <= 0) return (int)cudaSuccess;
-  const Fp f{static_cast<u64*>(cells), (uint32_t)n, L};
+  const Fp f = make_fp(cells, n, L, shards);
   Cols c{};
   for (int j = 0; j < n_cols; ++j) {
     c.dst[j] = dst[j];

@@ -58,7 +58,14 @@ The wrappers, their sources, and what each replaces in the JAX package:
   ``fp_peek_batch``, ``fp_sweep_expired`` and ``fp_sweep_windows`` their
   namesakes, ``fp_migrate`` ``fp_migrate_chunk`` and
   ``fp_migrate_window_chunk``; each runs ``fp_resolve_core``'s
-  find-or-claim first (``resolve_kernel``).
+  find-or-claim first (``resolve_kernel``). With ``n_shards`` the decisions,
+  the peek and the migrate place keys in the mesh's shard regions
+  (:mod:`.fp_directory`), every shard's rows in one launch;
+- ``global_tier`` (``csrc/mesh.cu``) replaces the mesh's
+  ``parallel/sharded_store.py`` ``global_tier_update`` with the ``lax.psum``
+  before it (every two-level step, ``fp_sharded.py``'s scan too): one
+  launch folds a decision's per-batch consumed totals into the global
+  counter.
 
 The bucket and window decision kernels share their machinery
 (``csrc/decide.cuh``) on ``csrc/batch.cuh``, which the semaphore and
@@ -136,6 +143,7 @@ __all__ = [
     "fp_sweep_expired",
     "fp_sweep_windows",
     "fp_migrate",
+    "global_tier",
 ]
 
 #: Slots per expired-count tile, as the TPU kernel's (256 rows × 128 lanes).
@@ -177,7 +185,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _SOURCES = {"sweep": "sweep.cu", "acquire": "acquire.cu",
             "counter": "counter.cu", "window": "window.cu",
             "sema": "sema.cu", "admission": "admission.cu",
-            "fp_directory": "fp_directory.cu"}
+            "fp_directory": "fp_directory.cu", "mesh": "mesh.cu"}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -230,17 +238,21 @@ _SIGNATURES = {
         "drl_tally_claim_words": (_I64, _I32),
     },
     "fp_directory": {
-        "drl_fp_resolve": (_P, _I64, _I32, _P, _I32, _P, _I64, _P, _P, _P,
-                           _P, _P),
+        "drl_fp_resolve": (_P, _I64, _I32, _I32, _P, _I32, _P, _I64, _P, _P,
+                           _P, _P, _P),
         "drl_fp_code": (_P, _P, _I64, _I32, _P),
         "drl_fp_debit_fix": (_P, _P, _P, _I32, _P),
-        "drl_fp_peek": (_P, _I64, _I32, _P, _P, _I32, _P, _P, _P, _I32, _F32,
-                        _F32, _P, _P),
+        "drl_fp_peek": (_P, _I64, _I32, _I32, _P, _P, _I32, _P, _P, _P, _I32,
+                        _F32, _F32, _P, _P),
         "drl_fp_sweep_bucket": (_P, _P, _P, _P, _I64, _I32, _F32, _F32, _P,
                                 _P),
         "drl_fp_sweep_window": (_P, _P, _P, _I64, _I32, _P, _P),
-        "drl_fp_migrate": (_P, _I64, _I32, _P, _P, _I32, _I32, _P, _P, _P,
-                           _P),
+        "drl_fp_migrate": (_P, _I64, _I32, _I32, _P, _P, _I32, _I32, _P, _P,
+                           _P, _P),
+    },
+    "mesh": {
+        "drl_global_tier": (_P, _P, _P, _I32, _I32, _P, _P, _P, _P, _F32,
+                            _I32, _P, _P, _P),
     },
 }
 
@@ -254,7 +266,7 @@ launches = {"sweep_expired": 0, "acquire_packed": 0, "acquire_grouped": 0,
             "acquire_hierarchical": 0, "debit_packed": 0,
             "fp_decide": 0, "fp_window_decide": 0, "fp_debit": 0,
             "fp_peek": 0, "fp_sweep": 0, "fp_sweep_windows": 0,
-            "fp_migrate": 0, "fp_migrate_window": 0}
+            "fp_migrate": 0, "fp_migrate_window": 0, "global_tier": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -1019,38 +1031,45 @@ def _debit_launch(state: K.BucketState, packed: torch.Tensor,
 FP_MAX_WINDOW = 32
 
 
-def _check_fp(fp: torch.Tensor, n: int, probe_window: int) -> None:
+def _check_fp(fp: torch.Tensor, n: int, probe_window: int,
+              n_shards: int = 1) -> None:
     _check(fp, "fp", torch.int32, (n, 2))
-    if not 1 <= probe_window <= min(FP_MAX_WINDOW, n):
+    if n_shards < 1 or n % n_shards:
+        raise ValueError(f"a table of {n} slots does not split into "
+                         f"{n_shards} shard regions")
+    per = n // n_shards
+    if not 1 <= probe_window <= min(FP_MAX_WINDOW, per):
         raise ValueError(f"probe_window must lie in [1, min({FP_MAX_WINDOW}, "
-                         f"N = {n})], got {probe_window}")
+                         f"N / shards = {per})], got {probe_window}")
 
 
 def _fp_resolve(fp: torch.Tensor, keys: torch.Tensor, stride: int, valid_in,
                 rows: int, slots, counts, res, res_bits,
-                probe_window: int) -> None:
+                probe_window: int, n_shards: int = 1) -> None:
     """The find-or-claim launch (uncounted): ``keys`` rows of ``stride``
     words; see ``csrc/fp_directory.cu``'s ``resolve_kernel``. The card
     bounds a row's claims by its window, not by ``rounds``: a row is
     unresolved only when its window is full."""
     rc = _lib("fp_directory").drl_fp_resolve(
-        fp.data_ptr(), fp.shape[0], int(probe_window), keys.data_ptr(), stride, _ptr(valid_in), rows, slots.data_ptr(),
+        fp.data_ptr(), fp.shape[0], int(probe_window), int(n_shards),
+        keys.data_ptr(), stride, _ptr(valid_in), rows, slots.data_ptr(),
         _ptr(counts), _ptr(res), _ptr(res_bits), _stream(fp))
     _raise_on(rc, "fp_resolve")
 
 
 def _fp_decide(name: str, fp: torch.Tensor, n: int, fused: torch.Tensor,
                nows_k: torch.Tensor, with_remaining: bool, probe_window: int,
-               scan) -> torch.Tensor:
+               scan, n_shards: int = 1):
     """The card's fingerprint decision: the resolve writes the scan's
     ``i32[2, K, B]`` operand (each row's cell, -1 for padding and
     unresolved rows, and its count) and the resolve flags; ``scan(op,
     out, bits)`` decides it against the table; the f32 result's row 0 then
     takes ``+ 2 * resolved``. Bits: ``u8[2, W]`` planes (grants from the
     scan, resolve flags from the resolve), returned as a ``u8[K, 2, B/8]``
-    view."""
+    view. Returns ``(result, counts i32[K, B])``, the counts the operand's
+    row 1."""
     k, b = fused.shape[:2]
-    _check_fp(fp, n, probe_window)
+    _check_fp(fp, n, probe_window, n_shards)
     _check(fused, "fused", torch.int32, (k, b, 3))
     _check(nows_k, "nows_k", torch.int32, (k,))
     _check_scan_size(name, k, b)
@@ -1061,24 +1080,26 @@ def _fp_decide(name: str, fp: torch.Tensor, n: int, fused: torch.Tensor,
         out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
         res = torch.empty((rows,), dtype=torch.uint8, device=dev)
         _fp_resolve(fp, fused, 3, None, rows, op[0], op[1], res, None,
-                    probe_window)
+                    probe_window, n_shards)
         scan(op, out, None)
         _raise_on(_lib("fp_directory").drl_fp_code(
             out.data_ptr(), res.data_ptr(), rows, b, _stream(fp)), name)
-        return out
+        return out, op[1]
     words = -(-rows // 32)
     planes = torch.empty((2, words * 4), dtype=torch.uint8, device=dev)
     _fp_resolve(fp, fused, 3, None, rows, op[0], op[1], None, planes[1],
-                probe_window)
+                probe_window, n_shards)
     scan(op, None, planes[0])
-    return planes[:, :rows // 8].view(2, k, b // 8).permute(1, 0, 2)
+    return (planes[:, :rows // 8].view(2, k, b // 8).permute(1, 0, 2),
+            op[1])
 
 
 def fp_acquire_scan(fp: torch.Tensor, state: K.BucketState,
                     fused: torch.Tensor, nows_k: torch.Tensor,
                     capacity: float, fill_rate_per_tick: float, *,
                     probe_window: int = 16, rounds: int = 4,
-                    with_remaining: bool = True) -> torch.Tensor:
+                    with_remaining: bool = True, n_shards: int = 1,
+                    return_counts: bool = False):
     """K batches of fingerprint requests resolved (find-or-claim) and
     decided in order against the bucket table, both updated in place:
     ``fused i32[K, B, 3]`` (the bits of
@@ -1087,15 +1108,20 @@ def fp_acquire_scan(fp: torch.Tensor, state: K.BucketState,
     with ``with_remaining=False``, ``u8[K, 2, B/8]`` (grant plane, resolve
     plane; ``B % 8 == 0``). K = 1 is ``fp_acquire_batch``. ``rounds``
     bounds the plain version's claim rounds (JAX's rule); on the card a
-    row's claims are bounded by its window."""
+    row's claims are bounded by its window. ``n_shards``: the table's shard
+    regions (the mesh's; every shard's rows in one call). With
+    ``return_counts`` it returns ``(out, counts i32[K, B])``, each row's
+    count (0 on padding), for :func:`global_tier`."""
     k, b = fused.shape[:2]
     if not with_remaining and b % 8:
         raise ValueError(f"bit-packed results need B % 8 == 0, got B = {b}")
     if _on_cpu(state):
         fn = (F.fp_acquire_scan_fused if with_remaining
               else F.fp_acquire_scan_fused_bits)
-        return fn(fp, state, fused, nows_k, capacity, fill_rate_per_tick,
-                  probe_window=probe_window, rounds=rounds)[2]
+        out = fn(fp, state, fused, nows_k, capacity, fill_rate_per_tick,
+                 probe_window=probe_window, rounds=rounds,
+                 n_shards=n_shards)[2]
+        return (out, F._unpack_fp12(fused)[1]) if return_counts else out
     n = _check_state(state)
     lib = _lib("acquire")
     dev = state.tokens.device
@@ -1111,20 +1137,21 @@ def fp_acquire_scan(fp: torch.Tensor, state: K.BucketState,
             float(fill_rate_per_tick), _ptr(out), _ptr(bits),
             scratch.data_ptr(), stream), "fp_decide")
 
-    out = _fp_decide("fp_decide", fp, n, fused, nows_k, with_remaining,
-                     probe_window, scan)
+    out, counts = _fp_decide("fp_decide", fp, n, fused, nows_k,
+                             with_remaining, probe_window, scan, n_shards)
     launches["fp_decide"] += 1
-    return out
+    return (out, counts) if return_counts else out
 
 
 def fp_window_scan(fp: torch.Tensor, state: K.WindowState,
                    fused: torch.Tensor, nows_k: torch.Tensor, limit: float,
                    window_ticks: int, *, interpolate: bool = True,
                    probe_window: int = 16, rounds: int = 4,
-                   with_remaining: bool = True) -> torch.Tensor:
+                   with_remaining: bool = True,
+                   n_shards: int = 1) -> torch.Tensor:
     """:func:`fp_acquire_scan` against a window table (sliding, or fixed
-    with ``interpolate=False``), with its operands and results. K = 1 is
-    ``fp_window_acquire_batch``."""
+    with ``interpolate=False``), with its operands, results and shard
+    regions. K = 1 is ``fp_window_acquire_batch``."""
     k, b = fused.shape[:2]
     if not with_remaining and b % 8:
         raise ValueError(f"bit-packed results need B % 8 == 0, got B = {b}")
@@ -1133,7 +1160,7 @@ def fp_window_scan(fp: torch.Tensor, state: K.WindowState,
               else F.fp_window_acquire_scan_fused_bits)
         return fn(fp, state, fused, nows_k, limit, window_ticks,
                   probe_window=probe_window, rounds=rounds,
-                  interpolate=interpolate)[2]
+                  interpolate=interpolate, n_shards=n_shards)[2]
     n = _check_windows(state)
     lib = _lib("window")
     dev = state.prev_count.device
@@ -1148,8 +1175,8 @@ def fp_window_scan(fp: torch.Tensor, state: K.WindowState,
             b, float(limit), wt, int(bool(interpolate)), _ptr(out),
             _ptr(bits), scratch.data_ptr(), stream), "fp_window_decide")
 
-    out = _fp_decide("fp_window_decide", fp, n, fused, nows_k,
-                     with_remaining, probe_window, scan)
+    out, _ = _fp_decide("fp_window_decide", fp, n, fused, nows_k,
+                        with_remaining, probe_window, scan, n_shards)
     launches["fp_window_decide"] += 1
     return out
 
@@ -1191,22 +1218,24 @@ def fp_debit(fp: torch.Tensor, state: K.BucketState, kpair: torch.Tensor,
 
 def fp_peek(fp: torch.Tensor, state: K.BucketState, kpair: torch.Tensor,
             valid: torch.Tensor, now: int, capacity: float,
-            fill_rate_per_tick: float, *,
-            probe_window: int = 16) -> torch.Tensor:
+            fill_rate_per_tick: float, *, probe_window: int = 16,
+            n_shards: int = 1) -> torch.Tensor:
     """Read-only availability ``floor(refilled)`` of each key's bucket, a
     lookup without claim (an absent key reads full; padding 0): ``kpair
-    i32[B, 2]``, ``valid bool[B]``. Returns ``f32[B]``."""
+    i32[B, 2]``, ``valid bool[B]``; ``n_shards`` the table's shard regions.
+    Returns ``f32[B]``."""
     b = kpair.shape[0]
     if _on_cpu(state):
         return F.fp_peek_batch(fp, state, kpair, valid, now, capacity,
-                               fill_rate_per_tick, probe_window=probe_window)
+                               fill_rate_per_tick, probe_window=probe_window,
+                               n_shards=n_shards)
     n = _check_state(state)
-    _check_fp(fp, n, probe_window)
+    _check_fp(fp, n, probe_window, n_shards)
     _check(kpair, "kpair", torch.int32, (b, 2))
     _check(valid, "valid", torch.bool, (b,))
     out = torch.empty((b,), dtype=torch.float32, device=fp.device)
     rc = _lib("fp_directory").drl_fp_peek(
-        fp.data_ptr(), n, int(probe_window), kpair.data_ptr(),
+        fp.data_ptr(), n, int(probe_window), int(n_shards), kpair.data_ptr(),
         valid.data_ptr(), b, state.tokens.data_ptr(),
         state.last_ts.data_ptr(), state.exists.data_ptr(), int(now),
         float(capacity), float(fill_rate_per_tick), out.data_ptr(),
@@ -1258,20 +1287,21 @@ def fp_sweep_windows(fp: torch.Tensor, state: K.WindowState, now: int,
 
 def fp_migrate(fp: torch.Tensor, state, kpair: torch.Tensor, cols,
                valid: torch.Tensor, *, probe_window: int = 16,
-               rounds: int = 4) -> torch.Tensor:
+               rounds: int = 4, n_shards: int = 1) -> torch.Tensor:
     """Growth and re-placement: claim a cell in the table ``(fp, state)``
     for each valid row of ``kpair i32[B, 2]`` and write its state columns
     ``cols`` (the state's fields in order: a bucket's tokens, last_ts,
-    exists or a window's prev_count, curr_count, window_idx, exists) there.
-    Returns ``placed bool[B]``; the caller retries unplaced rows."""
+    exists or a window's prev_count, curr_count, window_idx, exists) there;
+    ``n_shards`` the table's shard regions. Returns ``placed bool[B]``; the
+    caller retries unplaced rows."""
     b = kpair.shape[0]
     window = isinstance(state, K.WindowState)
     if _on_cpu(state):
         fn = F.fp_migrate_window_chunk if window else F.fp_migrate_chunk
         return fn(fp, state, kpair, *cols, valid, probe_window=probe_window,
-                  rounds=rounds)[2]
+                  rounds=rounds, n_shards=n_shards)[2]
     n = _check_windows(state) if window else _check_state(state)
-    _check_fp(fp, n, probe_window)
+    _check_fp(fp, n, probe_window, n_shards)
     _check(kpair, "kpair", torch.int32, (b, 2))
     _check(valid, "valid", torch.bool, (b,))
     if len(cols) != len(state):
@@ -1284,9 +1314,63 @@ def fp_migrate(fp: torch.Tensor, state, kpair: torch.Tensor, cols,
     dst = arr(*(t.data_ptr() for t in state))
     src = arr(*(c.data_ptr() for c in cols))
     rc = _lib("fp_directory").drl_fp_migrate(
-        fp.data_ptr(), n, int(probe_window), kpair.data_ptr(),
+        fp.data_ptr(), n, int(probe_window), int(n_shards), kpair.data_ptr(),
         valid.data_ptr(), b, len(cols), dst, src, placed.data_ptr(),
         _stream(fp))
     _raise_on(rc, "fp_migrate")
     launches["fp_migrate_window" if window else "fp_migrate"] += 1
     return placed
+
+
+# -- the mesh's global tier (csrc/mesh.cu) ------------------------------------
+#: One done counter a stream for the global tier's last-block fold (the
+#: kernel leaves it 0 after each launch, and launches on one stream follow
+#: each other).
+_TIER_DONE: dict = {}
+
+
+def global_tier(out: torch.Tensor, counts: torch.Tensor,
+                nows_k: torch.Tensor, g: K.GlobalCounter,
+                decay_rate_per_tick: float,
+                cadence: str = "batch") -> K.GlobalCounter:
+    """The mesh's two-level global tier after one decision launch of K
+    batches of R rows (every shard's rows of batch k in row k): ``out
+    f32[K, 2, R]`` the decision's result (row 0's bit 0 the grant),
+    ``counts i32[K, R]`` its counts (0 on padding), ``nows_k i32[K]``.
+    Each batch's consumed total ``sum(count * grant)`` decays and adds into
+    the counter ``g`` (updated in place): once a batch in order
+    (``cadence="batch"``) or once at ``nows_k[-1]`` with the launch's total
+    (``"launch"``). Returns ``g``. On the card: one launch."""
+    if cadence not in ("batch", "launch"):
+        raise ValueError("sync_cadence must be 'batch' or 'launch'")
+    if _on_cpu(g):
+        return K.global_tier(out, counts, nows_k, g, decay_rate_per_tick,
+                             cadence)
+    k, _, r = out.shape
+    _check(out, "out", torch.float32, (k, 2, r))
+    _check(counts, "counts", torch.int32, (k, r))
+    _check(nows_k, "nows_k", torch.int32, (k,))
+    dev = g.value.device
+    for name, t, dtype in zip(g._fields, g, (torch.float32, torch.float32,
+                                             torch.int32, torch.bool)):
+        _check(t, f"g.{name}", dtype, ())
+        if t.device != dev:
+            raise ValueError("the global counter's fields lie on different "
+                             "devices")
+    if out.device != dev:
+        raise ValueError(f"the decision lies on {out.device}, the counter on "
+                         f"{dev}")
+    stream = _stream(out)
+    done = _TIER_DONE.get((dev, stream))
+    if done is None:
+        done = _TIER_DONE[(dev, stream)] = torch.zeros(
+            (1,), dtype=torch.int32, device=dev)
+    totals = torch.empty((k,), dtype=torch.int64, device=dev)
+    rc = _lib("mesh").drl_global_tier(
+        out.data_ptr(), counts.data_ptr(), nows_k.data_ptr(), k, r,
+        g.value.data_ptr(), g.period.data_ptr(), g.last_ts.data_ptr(),
+        g.exists.data_ptr(), float(decay_rate_per_tick),
+        int(cadence == "launch"), totals.data_ptr(), done.data_ptr(), stream)
+    _raise_on(rc, "global_tier")
+    launches["global_tier"] += 1
+    return g

@@ -19,6 +19,12 @@ they are the oracle the hand kernels of ``csrc/fp_directory.cu``
   installs verbatim with every key at its JAX cell. A lookup scans the
   whole window (it never stops at an empty cell), so clearing a cell can
   hide no other key.
+- **Shard regions** (the mesh's tables, ``parallel/fp_sharded.py``): with
+  ``n_shards`` the table is that many equal regions of ``P = N /
+  n_shards`` cells, shard-major, and a key lives in region ``s = lo mod
+  n_shards`` at ``s * P + base``, ``base`` as above with ``P`` for ``N``:
+  JAX's per-shard tables laid end to end. ``n_shards = 1`` is the
+  placement above.
 - **Claim**: a row whose key is absent claims the first empty cell of its
   window in the rotated order from ``pref = (lo ^ hi * 0x85EBCA6B) mod L``
   (duplicates of one new key pick the same cell). Here, as in JAX, each of
@@ -106,9 +112,12 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def _base_index(kpair: torch.Tensor, n: int, probe_window: int):
+def _base_index(kpair: torch.Tensor, n: int, probe_window: int,
+                n_shards: int = 1):
     lo, hi = _u32(kpair[:, 0]), _u32(kpair[:, 1])
-    return (_mul32(lo, MIX) ^ hi) % (n - probe_window + 1)
+    per = n // n_shards
+    base = (_mul32(lo, MIX) ^ hi) % (per - probe_window + 1)
+    return base if n_shards == 1 else (lo % n_shards) * per + base
 
 
 def _pref_index(kpair: torch.Tensor, probe_window: int):
@@ -116,12 +125,19 @@ def _pref_index(kpair: torch.Tensor, probe_window: int):
     return (lo ^ _mul32(hi, PREF_MIX)) % probe_window
 
 
-def base_index_np(fps: np.ndarray, n: int, probe_window: int) -> np.ndarray:
+def base_index_np(fps: np.ndarray, n: int, probe_window: int,
+                  n_shards: int = 1) -> np.ndarray:
     """Each fingerprint's first window cell, ``fps u32[B, 2]`` → ``i64[B]``
-    (numpy's uint32 products wrap as the JAX package's do)."""
+    (numpy's uint32 products wrap as the JAX package's do). With
+    ``n_shards`` shard regions of ``n / n_shards`` cells, a key's window
+    lies in region ``lo % n_shards`` (the mesh's route), placed there as in
+    a table of the region's size."""
     fps = np.asarray(fps, np.uint32)
+    per = n // n_shards
     h = (fps[:, 0] * np.uint32(MIX)) ^ fps[:, 1]
-    return (h % np.uint32(n - probe_window + 1)).astype(np.int64)
+    base = (h % np.uint32(per - probe_window + 1)).astype(np.int64)
+    shard = (fps[:, 0] % np.uint32(n_shards)).astype(np.int64)
+    return shard * per + base
 
 
 def pref_index_np(fps: np.ndarray, probe_window: int) -> np.ndarray:
@@ -131,20 +147,22 @@ def pref_index_np(fps: np.ndarray, probe_window: int) -> np.ndarray:
             % np.uint32(probe_window)).astype(np.int64)
 
 
-def find_np(fp: np.ndarray, fps: np.ndarray, probe_window: int) -> np.ndarray:
+def find_np(fp: np.ndarray, fps: np.ndarray, probe_window: int,
+            n_shards: int = 1) -> np.ndarray:
     """Host lookup of fingerprints ``fps u32[M, 2]`` in a table read back
     (``fp u32[N, 2]``): each key's cell, -1 where absent. Tables compare by
     key through it: which cell a key won may differ, its state may not."""
     fp = np.ascontiguousarray(fp, np.uint32).view(np.uint64).reshape(-1)
     key = np.ascontiguousarray(fps, np.uint32).view(np.uint64).reshape(-1)
-    widx = (base_index_np(fps, len(fp), probe_window)[:, None]
+    widx = (base_index_np(fps, len(fp), probe_window, n_shards)[:, None]
             + np.arange(probe_window)[None, :])
     match = fp[widx] == key[:, None]
     return np.where(match.any(1), widx[np.arange(len(key)),
                                        match.argmax(1)], -1)
 
 
-def check_table_np(fp: np.ndarray, probe_window: int) -> int:
+def check_table_np(fp: np.ndarray, probe_window: int,
+                   n_shards: int = 1) -> int:
     """The table's invariants, raising ``AssertionError`` on a breach: no
     fingerprint holds two cells, and every claimed cell lies in its key's
     probe window. Returns the claimed cells."""
@@ -153,7 +171,7 @@ def check_table_np(fp: np.ndarray, probe_window: int) -> int:
     live = fp[cells]
     packed = live.view(np.uint64).reshape(-1)
     assert len(np.unique(packed)) == len(packed), "a key holds two cells"
-    base = base_index_np(live, len(fp), probe_window)
+    base = base_index_np(live, len(fp), probe_window, n_shards)
     inside = (cells >= base) & (cells < base + probe_window)
     assert inside.all(), "a claimed cell lies outside its key's window"
     return len(cells)
@@ -164,14 +182,18 @@ def _as64(pairs: torch.Tensor) -> torch.Tensor:
     return pairs.contiguous().view(torch.int64).view(-1)
 
 
-def _check_table(fp: torch.Tensor, probe_window: int) -> int:
+def _check_table(fp: torch.Tensor, probe_window: int,
+                 n_shards: int = 1) -> int:
     n = fp.shape[0]
     if not fp.is_contiguous():
         raise ValueError("the fp table must be contiguous (it is updated "
                          "in place)")
-    if n < probe_window:
-        raise ValueError(f"fp table of {n} slots is smaller than "
-                         f"probe_window {probe_window}")
+    if n_shards < 1 or n % n_shards:
+        raise ValueError(f"fp table of {n} slots does not split into "
+                         f"{n_shards} shard regions")
+    if n // n_shards < probe_window:
+        raise ValueError(f"fp table of {n} slots ({n // n_shards} a shard) "
+                         f"is smaller than probe_window {probe_window}")
     return n
 
 
@@ -189,18 +211,23 @@ def _probe(cells64, widx, key64, slots, resolved):
 
 
 def fp_resolve(fp: torch.Tensor, kpair: torch.Tensor, valid: torch.Tensor, *,
-               probe_window: int, rounds: int,
-               claim: bool = True) -> FpResolveOut:
+               probe_window: int, rounds: int, claim: bool = True,
+               n_shards: int = 1) -> FpResolveOut:
     """Find or claim a cell for each fingerprint (plain version, in place).
 
     ``kpair i32[B, 2]`` (never ``(0, 0)`` on a valid row), ``valid
     bool[B]`` (padding rows neither match nor claim). With ``claim=False``
-    a lookup only: absent keys stay unresolved (slot -1)."""
-    n = _check_table(fp, probe_window)
+    a lookup only: absent keys stay unresolved (slot -1). ``n_shards``
+    splits the table into that many equal regions, shard-major, and places
+    each key in region ``lo % n_shards`` as a table of the region's size
+    would (:func:`base_index_np`): the JAX mesh's per-shard tables, one
+    array. Rows of different regions never meet, so one call places every
+    shard's rows as JAX's per-shard calls do."""
+    n = _check_table(fp, probe_window, n_shards)
     b = kpair.shape[0]
     cells64 = _as64(fp)
     key64 = _as64(kpair)
-    base = _base_index(kpair, n, probe_window)
+    base = _base_index(kpair, n, probe_window, n_shards)
     widx = base[:, None] + torch.arange(probe_window)[None, :]
     slots = torch.full((b,), -1, dtype=torch.int64)
     resolved = ~valid
@@ -278,12 +305,14 @@ def fp_prefix_float(fps: np.ndarray, amounts: np.ndarray) -> np.ndarray:
 # -- bucket decisions ----------------------------------------------------------
 def fp_acquire_batch(fp, state: K.BucketState, kpair, counts, valid, now,
                      capacity, fill_rate_per_tick, *, probe_window: int = 16,
-                     rounds: int = 4, handle_duplicates: bool = True):
+                     rounds: int = 4, handle_duplicates: bool = True,
+                     n_shards: int = 1):
     """Resolve, then the bucket decision (``acquire_core``) for one batch;
     unresolved rows are denied with remaining 0. Returns ``(fp, state,
-    granted, remaining, resolved)``, table and state updated in place."""
+    granted, remaining, resolved)``, table and state updated in place.
+    ``n_shards``: :func:`fp_resolve`'s shard regions."""
     out = fp_resolve(fp, kpair, valid, probe_window=probe_window,
-                     rounds=rounds)
+                     rounds=rounds, n_shards=n_shards)
     live = valid & out.resolved
     _, granted, remaining = K.acquire_core(
         state, out.slots.to(torch.int32), counts, live, now, capacity,
@@ -317,36 +346,39 @@ def _bits_out(results) -> torch.Tensor:
 
 
 def _bucket_step(fp, state, capacity, rate, probe_window, rounds,
-                 handle_duplicates):
+                 handle_duplicates, n_shards):
     def step(kpair, counts, valid, now):
         return fp_acquire_batch(fp, state, kpair, counts, valid, now,
                                 capacity, rate, probe_window=probe_window,
                                 rounds=rounds,
-                                handle_duplicates=handle_duplicates)[2:]
+                                handle_duplicates=handle_duplicates,
+                                n_shards=n_shards)[2:]
     return step
 
 
 def fp_acquire_scan_fused(fp, state: K.BucketState, fused_k, nows_k,
                           capacity, fill_rate_per_tick, *,
                           probe_window: int = 16, rounds: int = 4,
-                          handle_duplicates: bool = True):
+                          handle_duplicates: bool = True,
+                          n_shards: int = 1):
     """The fingerprint bulk lane with remaining: ``fused_k i32[K, B, 3]``
     (:func:`pack_fp12`'s bits), ``nows_k i32[K]``; K batches resolved and
     decided in order. Returns ``(fp, state, out f32[K, 2, B])``, row 0
     ``granted + 2 * resolved``, row 1 remaining."""
     step = _bucket_step(fp, state, capacity, fill_rate_per_tick,
-                        probe_window, rounds, handle_duplicates)
+                        probe_window, rounds, handle_duplicates, n_shards)
     return fp, state, _code_out(_scan(step, fp, state, fused_k, nows_k))
 
 
 def fp_acquire_scan_fused_bits(fp, state: K.BucketState, fused_k, nows_k,
                                capacity, fill_rate_per_tick, *,
                                probe_window: int = 16, rounds: int = 4,
-                               handle_duplicates: bool = True):
+                               handle_duplicates: bool = True,
+                               n_shards: int = 1):
     """The verdict-only fingerprint bulk lane: returns ``(fp, state, bits
     u8[K, 2, B/8])`` (grant plane, resolve plane; ``B % 8 == 0``)."""
     step = _bucket_step(fp, state, capacity, fill_rate_per_tick,
-                        probe_window, rounds, handle_duplicates)
+                        probe_window, rounds, handle_duplicates, n_shards)
     return fp, state, _bits_out(_scan(step, fp, state, fused_k, nows_k))
 
 
@@ -378,11 +410,12 @@ def fp_debit_batch(fp, state: K.BucketState, kpair, amounts, valid, now,
 
 
 def fp_peek_batch(fp, state: K.BucketState, kpair, valid, now, capacity,
-                  fill_rate_per_tick, *, probe_window: int = 16):
+                  fill_rate_per_tick, *, probe_window: int = 16,
+                  n_shards: int = 1):
     """Read-only availability ``floor(refilled)``: a lookup without claim;
     an absent key reads a full bucket. Returns ``f32[B]``."""
     out = fp_resolve(fp, kpair, valid, probe_window=probe_window, rounds=0,
-                     claim=False)
+                     claim=False, n_shards=n_shards)
     hit = out.slots >= 0
     gs = torch.where(hit, out.slots, 0)
     refilled = bm.refill_or_init(
@@ -401,9 +434,9 @@ def fp_sweep_expired(fp, state: K.BucketState, now, capacity,
     return expired.sum(dtype=torch.int32).view(1)
 
 
-def _migrate(fp, state, kpair, cols, valid, probe_window, rounds):
+def _migrate(fp, state, kpair, cols, valid, probe_window, rounds, n_shards):
     out = fp_resolve(fp, kpair, valid, probe_window=probe_window,
-                     rounds=rounds)
+                     rounds=rounds, n_shards=n_shards)
     live = valid & out.resolved
     idx = out.slots[live]
     for dst, col in zip(state, cols):
@@ -413,12 +446,12 @@ def _migrate(fp, state, kpair, cols, valid, probe_window, rounds):
 
 def fp_migrate_chunk(fp, state: K.BucketState, kpair, tokens, last_ts,
                      exists, valid, *, probe_window: int = 16,
-                     rounds: int = 4):
+                     rounds: int = 4, n_shards: int = 1):
     """Growth and re-placement step: claim cells in the (new) table for a
     chunk of old entries and write their state columns there. Returns
     ``(fp, state, placed bool[B])``; the host retries unplaced rows."""
     return _migrate(fp, state, kpair, (tokens, last_ts, exists), valid,
-                    probe_window, rounds)
+                    probe_window, rounds, n_shards)
 
 
 # -- windows -------------------------------------------------------------------
@@ -426,12 +459,12 @@ def fp_window_acquire_batch(fp, state: K.WindowState, kpair, counts, valid,
                             now, limit, window_ticks, *,
                             probe_window: int = 16, rounds: int = 4,
                             handle_duplicates: bool = True,
-                            interpolate: bool = True):
+                            interpolate: bool = True, n_shards: int = 1):
     """Resolve, then the sliding (or, ``interpolate=False``, fixed) window
     decision for one batch. Returns ``(fp, state, granted, remaining,
     resolved)``."""
     out = fp_resolve(fp, kpair, valid, probe_window=probe_window,
-                     rounds=rounds)
+                     rounds=rounds, n_shards=n_shards)
     live = valid & out.resolved
     _, granted, remaining = K.window_acquire_core(
         state, out.slots.to(torch.int32), counts, live, now, limit,
@@ -441,13 +474,13 @@ def fp_window_acquire_batch(fp, state: K.WindowState, kpair, counts, valid,
 
 
 def _window_step(fp, state, limit, window_ticks, probe_window, rounds,
-                 handle_duplicates, interpolate):
+                 handle_duplicates, interpolate, n_shards):
     def step(kpair, counts, valid, now):
         return fp_window_acquire_batch(
             fp, state, kpair, counts, valid, now, limit, window_ticks,
             probe_window=probe_window, rounds=rounds,
             handle_duplicates=handle_duplicates,
-            interpolate=interpolate)[2:]
+            interpolate=interpolate, n_shards=n_shards)[2:]
     return step
 
 
@@ -455,11 +488,12 @@ def fp_window_acquire_scan_fused(fp, state: K.WindowState, fused_k, nows_k,
                                  limit, window_ticks, *,
                                  probe_window: int = 16, rounds: int = 4,
                                  handle_duplicates: bool = True,
-                                 interpolate: bool = True):
+                                 interpolate: bool = True,
+                                 n_shards: int = 1):
     """The window bulk lane with remaining: ``(fp, state, out f32[K, 2,
     B])`` as :func:`fp_acquire_scan_fused`."""
     step = _window_step(fp, state, limit, window_ticks, probe_window, rounds,
-                        handle_duplicates, interpolate)
+                        handle_duplicates, interpolate, n_shards)
     return fp, state, _code_out(_scan(step, fp, state, fused_k, nows_k))
 
 
@@ -468,11 +502,12 @@ def fp_window_acquire_scan_fused_bits(fp, state: K.WindowState, fused_k,
                                       probe_window: int = 16,
                                       rounds: int = 4,
                                       handle_duplicates: bool = True,
-                                      interpolate: bool = True):
+                                      interpolate: bool = True,
+                                      n_shards: int = 1):
     """The verdict-only window bulk lane: ``(fp, state, bits u8[K, 2,
     B/8])``."""
     step = _window_step(fp, state, limit, window_ticks, probe_window, rounds,
-                        handle_duplicates, interpolate)
+                        handle_duplicates, interpolate, n_shards)
     return fp, state, _bits_out(_scan(step, fp, state, fused_k, nows_k))
 
 
@@ -487,9 +522,10 @@ def fp_sweep_windows(fp, state: K.WindowState, now,
 
 def fp_migrate_window_chunk(fp, state: K.WindowState, kpair, prev_count,
                             curr_count, window_idx, exists, valid, *,
-                            probe_window: int = 16, rounds: int = 4):
+                            probe_window: int = 16, rounds: int = 4,
+                            n_shards: int = 1):
     """The window table's migrate step, four state columns. Returns
     ``(fp, state, placed bool[B])``."""
     return _migrate(fp, state, kpair,
                     (prev_count, curr_count, window_idx, exists), valid,
-                    probe_window, rounds)
+                    probe_window, rounds, n_shards)

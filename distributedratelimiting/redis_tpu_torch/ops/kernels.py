@@ -11,7 +11,9 @@ sync). The window family (sliding windows, and fixed windows with
 batch (``i32[4, B]``: slots, signed deltas, limits, tick), the two-level
 tenant → key admission over two bucket tables (``i32[4, B]``: child slots,
 costs, tick, parent slots) and the saturating debit (``i32[3, B]``, or
-``i32[4, B]`` with the host's float prefix) return ``f32[2, B]`` too.
+``i32[4, B]`` with the host's float prefix) return ``f32[2, B]`` too. The
+mesh's global tier (:func:`global_tier`) folds a decision's consumed totals
+into the replicated decaying counter (:class:`GlobalCounter`).
 They run whenever the state lies on the CPU, and they are the oracle the
 hand-written CUDA kernels (:mod:`.cuda_kernels`) are held against on the card.
 
@@ -82,6 +84,10 @@ __all__ = [
     "rebase_sema_epoch",
     "acquire_hierarchical_packed",
     "debit_batch_packed",
+    "GlobalCounter",
+    "init_global_counter",
+    "global_tier_update",
+    "global_tier",
 ]
 
 
@@ -812,3 +818,67 @@ def debit_batch_packed(state: BucketState, packed, capacity,
     remaining = torch.where(valid, avail - applied, zero)
     _scatter(state, slots, valid, refilled, applied, now)
     return state, torch.stack([remaining, shortfall])
+
+
+# -- the mesh's two-level global tier (parallel/sharded_store.py) -----------
+class GlobalCounter(NamedTuple):
+    """The mesh's replicated decaying global counter (one logical
+    limiter's shared tier, the reference's ``{v, p, t}`` hash): four 0-d
+    tensors on the mesh's device, updated in place."""
+
+    value: torch.Tensor    # f32[] decaying throttle score
+    period: torch.Tensor   # f32[] EWMA of the inter-sync interval (ticks)
+    last_ts: torch.Tensor  # i32[]
+    exists: torch.Tensor   # bool[]
+
+
+def init_global_counter(device="cpu") -> GlobalCounter:
+    return GlobalCounter(
+        value=torch.zeros((), dtype=torch.float32, device=device),
+        period=torch.zeros((), dtype=torch.float32, device=device),
+        last_ts=torch.zeros((), dtype=torch.int32, device=device),
+        exists=torch.zeros((), dtype=torch.bool, device=device),
+    )
+
+
+def global_tier_update(g: GlobalCounter, total, now,
+                       decay_rate_per_tick) -> GlobalCounter:
+    """ONE recurrence of the global tier, as JAX's
+    ``sharded_store.global_tier_update``: decay the counter to ``now``
+    (:func:`bm.decay_core`), add the float32 ``total``, refresh the period
+    EWMA. Returns a new counter; ``g`` is not changed."""
+    dev = g.value.device
+    decayed, new_period = bm.decay_core(g.value, g.period, g.last_ts,
+                                        g.exists, now, decay_rate_per_tick)
+    return GlobalCounter(
+        value=decayed + torch.as_tensor(total, dtype=torch.float32,
+                                        device=dev),
+        period=new_period,
+        last_ts=torch.as_tensor(int(now), dtype=torch.int32, device=dev),
+        exists=torch.ones((), dtype=torch.bool, device=dev))
+
+
+def global_tier(out, counts, nows_k, g: GlobalCounter, decay_rate_per_tick,
+                cadence: str = "batch") -> GlobalCounter:
+    """The global tier after one decision launch of K batches (every
+    shard's rows of batch k in row k): each batch's consumed total
+    ``sum(count * grant)`` over the decision's ``out f32[K, 2, R]`` (row
+    0's bit 0 is the grant: a bucket decision's 0/1 or an fp decision's
+    ``granted + 2 * resolved``) and its ``counts i32[K, R]``, exact in
+    int64; then with ``cadence="batch"`` one :func:`global_tier_update` a
+    batch in order, each at ``nows_k[k]`` with that batch's total, and with
+    ``"launch"`` one at ``nows_k[-1]`` with the launch's total (JAX's
+    deferred step). Each total is rounded to float32 once. Updates ``g`` in
+    place and returns it."""
+    if cadence not in ("batch", "launch"):
+        raise ValueError("sync_cadence must be 'batch' or 'launch'")
+    grants = out[:, 0].to(torch.int32) & 1
+    totals = (counts.to(torch.int64) * grants).sum(1)
+    nows = [int(t) for t in nows_k.tolist()]
+    steps = (list(zip(totals.tolist(), nows)) if cadence == "batch"
+             else [(int(totals.sum()), nows[-1])])
+    for total, now in steps:
+        new = global_tier_update(g, float(total), now, decay_rate_per_tick)
+        for dst, src in zip(g, new):
+            dst.copy_(src)
+    return g

@@ -63,8 +63,11 @@ routable error that names it as not served — never the "unknown op" /
 silently falls back from.
 
 Run it with ``python -m distributedratelimiting.redis_tpu_torch.runtime.server``
-(a ``DeviceBucketStore`` on ``cuda`` unless ``--device cpu`` is given, or the
-serial ``InProcessBucketStore`` with ``--backend inprocess``).
+(a ``DeviceBucketStore`` on ``cuda`` unless ``--device cpu`` is given, a
+``MeshBucketStore`` over every visible card with ``--backend mesh`` and
+``--sync-cadence batch|launch``, or the serial ``InProcessBucketStore`` with
+``--backend inprocess``). A mesh server's ``OP_STATS`` carries each sharded
+tier's counters under ``store.tiers``.
 """
 
 from __future__ import annotations
@@ -1490,20 +1493,30 @@ def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description="GPU bucket-store server")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6380)
-    parser.add_argument("--backend", choices=("device", "inprocess"),
+    parser.add_argument("--backend", choices=("device", "mesh", "inprocess"),
                         default="device",
                         help="device = DeviceBucketStore (the card's "
-                        "tables and kernels); inprocess = the serial "
-                        "pure-Python InProcessBucketStore (the kernel-free "
-                        "baseline and test backing)")
+                        "tables and kernels); mesh = MeshBucketStore, "
+                        "key-sharded over a mesh of every visible card "
+                        "(with --device cpu, one CPU shard); inprocess = "
+                        "the serial pure-Python InProcessBucketStore (the "
+                        "kernel-free baseline and test backing)")
     parser.add_argument("--slots", type=int, default=2**17,
-                        help="slots per bucket table")
+                        help="slots per bucket table (device backend) or "
+                        "per shard (mesh backend)")
     parser.add_argument("--directory", choices=("host", "fp"),
                         default="host",
-                        help="key-directory home for the device backend: "
-                        "host = native C++ host table (default); fp = "
-                        "device-resident fingerprint directory (in-kernel "
-                        "probe/insert — see docs/OPERATIONS.md §2)")
+                        help="key-directory home for the device and mesh "
+                        "backends: host = native C++ host table (default); "
+                        "fp = device-resident fingerprint directory "
+                        "(in-kernel probe/insert — see docs/OPERATIONS.md "
+                        "§2)")
+    parser.add_argument("--sync-cadence", choices=("batch", "launch"),
+                        default="batch",
+                        help="global-tier cadence of the mesh backend's "
+                        "sharded bucket tiers: batch = one recurrence a "
+                        "scanned batch; launch = one a launch (counter "
+                        "staleness bounded by one launch's span)")
     parser.add_argument("--device", default="cuda",
                         help="device of the store's tables: cuda (default; "
                         "the hand-written kernels) or cpu (their plain "
@@ -1631,6 +1644,22 @@ def main(argv: list[str] | None = None) -> None:
 
         if args.backend == "inprocess":
             store: BucketStore = InProcessBucketStore()
+        elif args.backend == "mesh":
+            from distributedratelimiting.redis_tpu_torch.parallel.mesh import (  # noqa: E501
+                Mesh,
+                create_mesh,
+            )
+            from distributedratelimiting.redis_tpu_torch.parallel.mesh_store import (  # noqa: E501
+                MeshBucketStore,
+            )
+
+            # Every visible card; an explicit device (cpu, cuda:i) is a
+            # mesh of one shard there.
+            mesh = (create_mesh() if args.device == "cuda"
+                    else Mesh([args.device]))
+            store = MeshBucketStore(mesh, per_shard_slots=args.slots,
+                                    directory=args.directory,
+                                    sync_cadence=args.sync_cadence)
         elif args.directory == "fp":
             from distributedratelimiting.redis_tpu_torch.runtime.fp_store import (  # noqa: E501
                 FingerprintBucketStore,

@@ -135,12 +135,29 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dir_fp64_batch.argtypes = [c.c_char_p, c.POINTER(c.c_int64),
                                    c.c_int64, c.POINTER(c.c_uint32)]
     lib.dir_fp64_batch.restype = c.c_int64
+    # The mesh store's key → shard routing (crc32 % n_shards) and its fused
+    # route-and-resolve over one directory a shard, over a KeyBlob.
+    lib.dir_route_batch.argtypes = [c.c_char_p, c.POINTER(c.c_int64),
+                                    c.c_int64, c.c_int32,
+                                    c.POINTER(c.c_int32)]
+    lib.dir_route_batch.restype = None
+    lib.dir_resolve_sharded_batch.argtypes = [
+        c.c_char_p, c.POINTER(c.c_int64), c.c_int64, c.POINTER(c.c_void_p),
+        c.c_int32, c.POINTER(c.c_int32), c.POINTER(c.c_int32)]
+    lib.dir_resolve_sharded_batch.restype = c.c_int64
     try:
         lib.dir_resolve_pylist.argtypes = [c.c_void_p, c.py_object,
                                            c.POINTER(c.c_int32)]
         lib.dir_resolve_pylist.restype = c.c_int64
         lib.dir_fp64_pylist.argtypes = [c.py_object, c.POINTER(c.c_uint32)]
         lib.dir_fp64_pylist.restype = c.c_int64
+        lib.dir_route_pylist.argtypes = [c.py_object, c.c_int32,
+                                         c.POINTER(c.c_int32)]
+        lib.dir_route_pylist.restype = c.c_int64
+        lib.dir_resolve_sharded_pylist.argtypes = [
+            c.py_object, c.POINTER(c.c_void_p), c.c_int32,
+            c.POINTER(c.c_int32), c.POINTER(c.c_int32)]
+        lib.dir_resolve_sharded_pylist.restype = c.c_int64
         lib.has_pylist = True
     except AttributeError:  # built without Python.h
         lib.has_pylist = False

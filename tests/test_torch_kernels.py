@@ -406,6 +406,10 @@ def test_launch_counts_untouched_on_cpu():
                         1000)
     ck.fp_migrate(F.init_fp_table(N), TK.init_bucket_state(N), kp,
                   [t[:8] for t in st], valid)
+    # The mesh's global tier, on a CPU counter.
+    ck.global_tier(torch.ones((1, 2, 8)), torch.ones((1, 8), dtype=torch.int32),
+                   torch.tensor([60_000], dtype=torch.int32),
+                   TK.init_global_counter(), 0.01)
     assert set(ck.launches) == {"sweep_expired", "acquire_packed",
                                 "acquire_grouped", "acquire_scan",
                                 "acquire_scan24", "acquire_batch",
@@ -416,7 +420,8 @@ def test_launch_counts_untouched_on_cpu():
                                 "acquire_hierarchical", "debit_packed",
                                 "fp_decide", "fp_window_decide", "fp_debit",
                                 "fp_peek", "fp_sweep", "fp_sweep_windows",
-                                "fp_migrate", "fp_migrate_window"}
+                                "fp_migrate", "fp_migrate_window",
+                                "global_tier"}
     assert all(v == 0 for v in ck.launches.values())
 
 
