@@ -84,8 +84,11 @@ Phases (any failure raises, and the script exits non-zero):
    ``torch.profiler``) beside the plain version and the bound.
 3. The main path at full size: ``PartitionedRateLimiter`` over
    ``DeviceBucketStore(device="cuda", n_slots=2**24)`` — ``acquire_many``
-   over 10,000,000 distinct keys, one more bulk chunk under
-   ``torch.profiler`` (its device busy share and kernel launches),
+   over 10,000,000 distinct keys, a bulk chunk of new keys under
+   ``torch.profiler`` before it (its device busy share and kernel
+   launches; the trace must hold the kernel) and one after it (the same
+   reading, or "not measured" where the trace holds no kernel, ROADMAP
+   C1),
    concurrent ``acquire_async`` on hot and cold keys checked against a host
    oracle (cap-5 bucket × 32 asks → 5), the tier-0 debit (``debit_many`` of
    float amounts on 1,000,000 of the table's keys in one launch, then a
@@ -176,7 +179,7 @@ Phases (any failure raises, and the script exits non-zero):
    (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
    ``serving_p99_instant`` sections once each with short windows (no key
    null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
-   alone (``--paths`` takes any of the paths of phases 3–10 and 12–15,
+   alone (``--paths`` takes any of the paths of phases 3–10 and 12–16,
    comma-separated).
 9. The observability and overload plane (``--paths observability``), at
    the server cell's size: ``BucketStoreServer(observability=True,
@@ -325,8 +328,45 @@ Phases (any failure raises, and the script exits non-zero):
    client process (``chip_smoke.py --mesh-client``): a 1M-key bulk and
    4,000 ``acquire_async``, ``OP_STATS``' tiers; the console server with
    ``--backend mesh --sync-cadence launch`` as in phase 11.
-16. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
-   of phases 3–10 and 12–15 (``launches_by_path``; counts set to 0 before each
+16. Placement and live migration (``--paths placement``;
+   ``runtime/placement.py``, BASELINE config 2 made elastic): three
+   ``BucketStoreServer``s, each over a card ``DeviceBucketStore`` of 2^24
+   slots (the cut: three nodes share one card), on one frozen ManualClock
+   (the handoff envelopes read it too). 2,000,000 bucket keys (cut from
+   BASELINE's 10,000,000: the path alone took over 200 s at 10M, and 101 s
+   at 4M in a script that must end within 1,200 s), 100,000 sliding
+   windows, 10,000 counters and 10,000 semaphores (2 permits held)
+   loaded at epoch 0 under ``PlacementMap.initial(2)`` over nodes 0 and 1,
+   each node's keys through ``acquire_many`` over the wire; 1,000 sampled
+   keys answer on their owner and ``placement moved`` on the other. The
+   join of node 2 (``rebalance_moves([0, 1, 2])``, epoch 1) by the
+   script's coordinator (``_PlaceCoordinator``, JAX ``cluster.py:781-912``
+   step for step: health, pull page by page, split and push in chunks,
+   commit to the new owner first): the pull's seconds and the store
+   lock's longest hold, the push's seconds and rows/s, the import's
+   ``debit_packed`` launches and CUDA-event ms. 10,000 moved keys: 8 asks
+   each at its old owner while that owner's export runs (its slots parked,
+   its pull not yet answered), then inside the handoff window (node 2
+   committed, the sources parked) 16 asks at both owners:
+   admitted(old) + admitted(new) <= the pre-pull balance + one
+   ``headroom_budget`` envelope, key by key; a settle there defers, a
+   reserve serves from the envelope. After the commit: every moved key's
+   balance on node 2 equals a host float32 oracle of ``debit_export``, its
+   old owner holds the envelope and answers MOVED to node 2 (1,000 over
+   the wire, peeks on node 2 equal), every unmoved balance unchanged;
+   windows, counters and semaphores as the generic lane replays them; the
+   hold exported with the pull settles on node 2 and answers MOVED on node
+   0. A drain of node 1 aborted after its pull's first page and one push:
+   the epoch kept, node 1 serving its residual, the push retried applied
+   again.
+   ``OP_STATS``' ``placement``, ``drl_placement_*``, a clean audit with
+   envelope ε > 0. A native and an asyncio server over equal card stores,
+   announced one map and parked on one slot: per-request and bulk frames
+   on owned, moved and parked keys answer byte for byte alike; the
+   asyncio one's ``OP_SAVE`` stamps the epoch and a load held to another
+   raises ``PlacementMismatchError``.
+17. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
+   of phases 3–10 and 12–16 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
    two-level kernel and the debit > 0 on the reservation path, every
    store kernel but the window flushes > 0 on the checkpoint path, the
@@ -334,7 +374,8 @@ Phases (any failure raises, and the script exits non-zero):
    on the observability path, the batch lane's flushes, the bulk scan and
    the debit > 0 on the native path, every fp kernel > 0 on the fp path,
    ``global_tier``, the two scans and the fp decision > 0 on the mesh path,
-   and every kernel that a wire op reaches > 0 on the server path — all but
+   the debit, the window, counter and semaphore flushes, the bucket flush
+   and the bucket scan > 0 on the placement path, and every kernel that a wire op reaches > 0 on the server path — all but
    the bench's ``acquire_scan24`` and ``acquire_batch``, the fp kernels,
    whose store the fp path serves, and ``global_tier``, whose the mesh path
    serves) and their sum
@@ -342,7 +383,7 @@ Phases (any failure raises, and the script exits non-zero):
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-17. Last line: ``{"ok": true, "device": {...}}``.
+18. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -2112,11 +2153,15 @@ def scan_case(torch, K, ck, dev, rng, table, now, cap, rate) -> dict:
     return main
 
 
-async def trace_chunk(torch, ck, lim, keys, card: str) -> None:
+async def trace_chunk(torch, ck, lim, keys, card: str, state: str,
+                      required: bool = True) -> None:
     """One bulk chunk of new keys (one K = 32 launch) under
     ``torch.profiler``: the device's busy share of the call's wall time (the
-    union of kernel and copy intervals) and the kernels it launched. The
-    Chrome trace goes to the build directory."""
+    union of kernel and copy intervals), the kernels it launched, and how
+    far each kernel's start lies from its launch call on the host's clock.
+    A trace without a kernel fails the path if ``required``, and otherwise
+    prints the reading as not measured (ROADMAP C1). The Chrome trace goes
+    to the build directory."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2134,21 +2179,37 @@ async def trace_chunk(torch, ck, lim, keys, card: str) -> None:
         events = json.load(f)["traceEvents"]
     device = [e for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    # The function's name, without its namespace, template and arguments.
+    kernels = [re.sub(r"^.*?(\w+)(<.*?>)?\(.*$", r"\1", e["name"])
+               for e in device if e["cat"] == "kernel"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "Launch" in e.get("name", "")
+                 and "correlation" in e.get("args", {})}
+    if not kernels:
+        msg = (f"no kernel in the trace ({len(launch_ts)} kernel launch "
+               f"calls and {len(device)} copies or sets recorded)")
+        if required:
+            raise AssertionError(f"traced chunk ({state}): {msg}")
+        print(f"bulk chunk under torch.profiler ({state}): not measured, "
+              f"{msg}; ROADMAP C1")
+        return
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
         if b > end:  # the union of the device intervals
             busy_us += b - max(a, end)
             end = b
-    # The function's name, without its namespace, template and arguments.
-    kernels = [re.sub(r"^.*?(\w+)(<.*?>)?\(.*$", r"\1", e["name"])
-               for e in device if e["cat"] == "kernel"]
-    if not kernels:
-        raise AssertionError("traced chunk: no kernel in the trace")
-    print(f"bulk chunk under torch.profiler: {len(keys)} keys in "
+    skew_us = [e["ts"] - launch_ts[e["args"]["correlation"]]
+               for e in device if e["cat"] == "kernel"
+               and e.get("args", {}).get("correlation") in launch_ts]
+    skew = (f"kernel start - its launch call {min(skew_us):.1f} to "
+            f"{max(skew_us):.1f} us" if skew_us else
+            "no kernel matched to its launch call")
+    print(f"bulk chunk under torch.profiler ({state}): {len(keys)} keys in "
           f"{wall_us / 1e3:.3f} ms ({card}); device busy "
           f"{busy_us / 1e3:.4f} ms = {busy_us / wall_us:.4%} of wall; "
           f"{len(kernels)} kernel launch(es) {kernels}, "
-          f"{len(device) - len(kernels)} copies or sets")
+          f"{len(device) - len(kernels)} copies or sets; {skew}")
 
 
 def _check_native(store) -> None:
@@ -2188,10 +2249,21 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
         pkg.TokenBucketOptions(token_limit=5, tokens_per_period=1,
                                instance_name="cap5"), store)
     await store.connect()
-    # Time the host key→slot resolve inside the bulk dispatch.
+    # Time the host key→slot resolve inside the bulk dispatch (the table
+    # exists from here on).
     resolve_s = [0.0]
     _time_calls(store._table(opts.token_limit, opts.fill_rate_per_second).dir,
                 "resolve_batch", resolve_s)
+    # A chunk of new keys under the profiler on the fresh table, where its
+    # trace must hold the kernel, and another after the 10M-key bulk, the
+    # state the path serves: there a session recorded no kernel in half of
+    # the whole-script runs, stickily (ROADMAP C1), so its reading may be
+    # "not measured".
+    n_chunk = SCAN_K * BATCH
+    await trace_chunk(torch, ck, lim, range(N_KEYS, N_KEYS + n_chunk), card,
+                      "fresh table")
+    session.finish()
+    resolve_s[0] = 0.0
     gc_clock = _GcClock()
     gc.callbacks.append(gc_clock)
     ck.reset_launches()
@@ -2219,8 +2291,9 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
           f"{dispatch_s:.3f} s, of which key->slot resolve "
           f"{bulk_resolve_s:.3f} s; garbage collector {bulk_gc_s:.3f} s; "
           f"kernel launches {bulk_launches}")
-    chunk = range(N_KEYS, N_KEYS + SCAN_K * BATCH)
-    await trace_chunk(torch, ck, lim, chunk, card)
+    await trace_chunk(torch, ck, lim,
+                      range(N_KEYS + n_chunk, N_KEYS + 2 * n_chunk), card,
+                      "after the 10M-key bulk", required=False)
 
     # Flushes: cold keys (distinct rows) and hot keys (duplicates, grouped).
     rng = np.random.default_rng(SEED)
@@ -2309,7 +2382,7 @@ async def main_path(torch, ck, pkg, card: str) -> dict:
     sweep_s = time.perf_counter() - t0
     sweep_gc_s = gc_clock.total - gc0
     if store.metrics.slots_evicted != live or \
-            live != N_KEYS + len(chunk) + len(hot) + 1:
+            live != N_KEYS + 2 * n_chunk + len(hot) + 1:
         raise AssertionError(f"sweep evicted {store.metrics.slots_evicted} "
                              f"of {live} live slots")
     print(f"sweep_all: evicted {live} slots in {sweep_s:.3f} s ({card}); "
@@ -7512,6 +7585,735 @@ async def _mesh_store_part(torch, ck, pkg, mesh, rng) -> list:
     return lines
 
 
+PLACE_SEED = 1919
+#: Bucket keys loaded over nodes 0 and 1 at epoch 0: 2M, cut from BASELINE's
+#: 10M (the path alone took over 200 s at 10M: each pull snapshots a node's
+#: whole directory) and then from 4M (101 s at 4M), so that the whole script,
+#: every earlier path at its own depth, ends well within 1,200 s.
+PLACE_KEYS = 2_000_000
+PLACE_CALL = 1_000_000       # keys a bulk call over the wire
+PLACE_CAP = 10.0             # capacity; each key takes 1-3 tokens at load
+PLACE_RATE = 1.0
+PLACE_WINDOW_KEYS = 100_000  # sliding windows (limit 100 a second)
+PLACE_COUNTERS = 10_000
+PLACE_SEMAS = 10_000         # semaphores of limit 5, 2 permits held
+PLACE_SEMA_LIMIT = 5
+PLACE_DUAL_KEYS = 10_000     # moved keys driven at both owners (check 3)
+PLACE_DUAL_ASKS = 16         # unit asks a key at each owner
+PLACE_GAP_ASKS = 8           # unit asks a key at its old owner mid-export
+PLACE_SAMPLE = 1_000         # keys checked one frame each over the wire
+#: The handoff window the coordinator asks for: long enough that no
+#: handoff of this path expires (expiry is the CPU tests' case).
+PLACE_WINDOW_S = 900.0
+PLACE_TENANT = (1000.0, 100.0)  # the reservation lane's tenant budget
+PLACE_HOLD = 40.0               # its hold, settled at 25
+PLACE_RES_KEY = (100.0, 10.0)   # the held key's bucket
+
+
+class _PlaceCoordinator:
+    """The coordinator of the placement path: JAX ``cluster.py:781-912``
+    (``_apply_placement``) step for step over the port's
+    ``RemoteBucketStore``s — health-gate the new owners, pull (park and
+    debit) from the old ones page by page, split and push the state in
+    chunks (batch ids namespaced by source), then commit by announcing the
+    target epoch to the new owners first, the old owners next and the
+    bystanders last, or abort before the commit by announcing the abort
+    to every node involved. The path calls the steps one by one, so that
+    it can check state between them; ``between`` runs after the new owners
+    adopted the target and before the old owners do (the dual-ownership
+    window)."""
+
+    def __init__(self, pl, clis, pmap, window_s: float) -> None:
+        self.pl, self.clis, self.pmap = pl, clis, pmap
+        self.window_s = window_s
+        self.pull_s = self.push_s = 0.0
+        self.pages = 0
+        self.rows_pushed = 0
+        self.pushes = 0
+
+    async def pull(self, target, moves, first_page_only=False) -> dict:
+        """Health, then every source's pages (``first_page_only``: the
+        first, whose request exports, debits and parks the source; a
+        coordinator that fails there aborts): ``{src: entries}``."""
+        src_of_slot = {int(s): int(self.pmap.slot_owner[s]) for s in moves}
+        for j in sorted(set(moves.values())):
+            await self.clis[j].ping()
+        t = time.perf_counter()
+        pulls = {}
+        for src in sorted(set(src_of_slot.values())):
+            req = {"target_epoch": target.epoch, "window_s": self.window_s,
+                   "slots": sorted(s for s, o in src_of_slot.items()
+                                   if o == src)}
+            out = await self.clis[src].migrate_pull(req)
+            entries = out["entries"]
+            self.pages = int(out["pages"])
+            for page in range(1, 1 if first_page_only else self.pages):
+                more = await self.clis[src].migrate_pull({**req,
+                                                          "page": page})
+                entries = self.pl.merge_entries(entries, more["entries"])
+            if self.pl.entry_count(entries):
+                pulls[src] = entries
+        self.pull_s = time.perf_counter() - t
+        return pulls
+
+    async def push(self, target, pulls: dict, only_first=False) -> list:
+        """Split each source's export by new owner and push it in chunks;
+        returns the pushes ``(dst, req)`` made."""
+        t = time.perf_counter()
+        made = []
+        for src, entries in pulls.items():
+            per_dst = self.pl.split_entries(entries, target.node_of)
+            for dst, sub in sorted(per_dst.items()):
+                if dst == src:
+                    continue
+                for bid, chunk in enumerate(self.pl.chunk_entries(sub)):
+                    req = {"target_epoch": target.epoch,
+                           "batch": (src << 20) | bid, "entries": chunk}
+                    self.rows_pushed += await self.clis[dst].migrate_push(
+                        req)
+                    self.pushes += 1
+                    made.append((dst, req))
+                    if only_first:
+                        self.push_s = time.perf_counter() - t
+                        return made
+        self.push_s = time.perf_counter() - t
+        return made
+
+    async def abort(self, target, moves) -> None:
+        involved = ({int(self.pmap.slot_owner[s]) for s in moves}
+                    | set(moves.values()))
+        for j in sorted(involved):
+            await self.clis[j].placement_announce(
+                {"abort_epoch": target.epoch})
+
+    async def commit(self, target, moves, between=None) -> None:
+        srcs = {int(self.pmap.slot_owner[s]) for s in moves}
+        dsts = set(moves.values())
+        for j in sorted(dsts):
+            await self.clis[j].placement_announce(
+                {"map": target.to_dict(), "node_id": j})
+        if between is not None:
+            await between()
+        rest = ([j for j in sorted(srcs) if j not in dsts]
+                + [j for j in range(len(self.clis))
+                   if j not in dsts and j not in srcs])
+        for j in rest:
+            await self.clis[j].placement_announce(
+                {"map": target.to_dict(), "node_id": j})
+        self.pmap = target
+
+
+def _tenant_in(pmap, slots, prefix: str) -> str:
+    """The first name ``<prefix><i>`` whose slot is in ``slots``."""
+    i = 0
+    while pmap.slot_of(f"{prefix}{i}") not in slots:
+        i += 1
+    return f"{prefix}{i}"
+
+
+async def _frames(addr, frames: list) -> dict:
+    """Pipeline ``frames`` on one connection; the replies' bodies by seq."""
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    reader, writer = await asyncio.open_connection(*addr)
+    try:
+        for f in frames:
+            writer.write(f)
+        await writer.drain()
+        out = {}
+        for _ in frames:
+            body = await asyncio.wait_for(wire.read_frame(reader), 60)
+            out[int.from_bytes(body[1:5], "little")] = body
+        return out
+    finally:
+        writer.close()
+
+
+async def _place_gates_pair(pkg, pl, wire, tmp: str) -> list:
+    """Check 5's lanes and check 6's save: a native and an asyncio server,
+    each over a card store of 2^16 slots on one frozen clock, announced the
+    same epoch-1 map (node 0 of two) and parked on the same slot by one
+    pull; the same frames (per-request ACQUIRE / WINDOW / SEMA / PEEK on
+    owned, moved and parked keys, pipelined so the native lane batches
+    them; bulk frames served, gated and moved) answer byte for byte alike.
+    Then the asyncio server's ``OP_SAVE`` stamps epoch 1 and a load held to
+    another epoch raises ``PlacementMismatchError``."""
+    from distributedratelimiting.redis_tpu_torch.runtime import checkpoint
+
+    clock = pkg.ManualClock(1_000_000)
+    stores = [pkg.DeviceBucketStore(device="cuda", n_slots=2**16,
+                                    clock=clock) for _ in range(2)]
+    path = os.path.join(tmp, "pair.snap")
+    servers = [pkg.BucketStoreServer(stores[0], host="127.0.0.1", port=0,
+                                     native_frontend=True),
+               pkg.BucketStoreServer(stores[1], host="127.0.0.1", port=0,
+                                     snapshot_path=path)]
+    for s in servers:
+        s.placement = pl.NodePlacementState(clock=clock.now_seconds)
+    addrs = [await s.start() for s in servers]
+    try:
+        pmap = pl.PlacementMap(1, [0, 1] * 8)
+        ann = json.dumps({"map": pmap.to_dict(), "node_id": 0})
+        keys = [f"g{i}" for i in range(512)]
+        owned = [k for k in keys if pmap.node_of(k) == 0]
+        parked_slot = pmap.slot_of(owned[0])
+        parked = [k for k in owned if pmap.slot_of(k) == parked_slot]
+        moved = [k for k in keys if pmap.node_of(k) == 1]
+        served = [k for k in owned if pmap.slot_of(k) != parked_slot]
+        for st in stores:
+            await st.acquire_many(owned, [2] * len(owned), PLACE_CAP,
+                                  PLACE_RATE)
+            await st.window_acquire_many(owned, [3] * len(owned), 100.0,
+                                         1.0)
+            await st.concurrency_acquire_many(owned, [1] * len(owned), 5)
+        pull = json.dumps({"target_epoch": 2, "slots": [parked_slot],
+                           "window_s": PLACE_WINDOW_S})
+        setup = [wire.encode_request(1, wire.OP_PLACEMENT_ANNOUNCE, ann),
+                 wire.encode_request(2, wire.OP_MIGRATE_PULL, pull)]
+        replies = []
+        for frame in setup:
+            rs = [await _frames(a, [frame]) for a in addrs]
+            if rs[0] != rs[1]:
+                raise AssertionError(f"placement gates: setup replies "
+                                     f"differ {rs}")
+            replies.append(rs[0])
+        # Three groups, each sent once the one before has answered (the
+        # native lane decides the batch lane, the passthrough lane and the
+        # bulk lane apart, so only arrival order within a group is kept):
+        # per-request admissions, each (key, op) once, pipelined so the
+        # C batcher groups them; PEEKs; then bulk frames one at a time.
+        rng = np.random.default_rng(PLACE_SEED + 5)
+        admit = (wire.OP_ACQUIRE, wire.OP_WINDOW, wire.OP_FWINDOW,
+                 wire.OP_SEMA)
+        combos = [(k, op) for pool in (parked, moved, served)
+                  for k in pool[:32] for op in admit]
+        order = rng.permutation(len(combos))
+        groups = [[], [], []]
+        seq = 100
+        for n in order.tolist():
+            k, op = combos[n]
+            count = (-1 if op == wire.OP_SEMA and rng.random() < 0.3
+                     else int(rng.integers(0, 3)))
+            a, b = ((5.0, 0.0) if op == wire.OP_SEMA
+                    else (100.0, 1.0) if op != wire.OP_ACQUIRE
+                    else (PLACE_CAP, PLACE_RATE))
+            groups[0].append(wire.encode_request(seq, op, k, count, a, b))
+            seq += 1
+        for k in parked[:8] + moved[:8] + served[:8]:
+            groups[1].append(wire.encode_request(seq, wire.OP_PEEK, k, 0,
+                                                 PLACE_CAP, PLACE_RATE))
+            seq += 1
+        for ks in (served[:40], parked + served[:20],
+                   served[:10] + moved[:1], parked * 3):
+            groups[2].append(wire.encode_bulk_request(
+                seq, [k.encode() for k in ks], np.ones(len(ks), np.int64),
+                PLACE_CAP, PLACE_RATE))
+            seq += 1
+        got = [{}, {}]
+        for side, a in enumerate(addrs):
+            for g, frames in enumerate(groups):
+                if g < 2:
+                    got[side].update(await _frames(a, frames))
+                else:
+                    for f in frames:
+                        got[side].update(await _frames(a, [f]))
+        frames = groups[0] + groups[1] + groups[2]
+        if got[0] != got[1]:
+            diff = [q for q in got[1] if got[0].get(q) != got[1][q]]
+            raise AssertionError(
+                f"placement gates: native and asyncio replies differ at "
+                f"seqs {diff[:10]}: "
+                + "; ".join(f"{wire.decode_response(got[0][q])} != "
+                            f"{wire.decode_response(got[1][q])}"
+                            for q in diff[:3]))
+        text = b"".join(got[0].values())
+        kinds = {w: text.count(w) for w in (
+            b"placement moved", b"placement handoff in progress")}
+        if not all(kinds.values()):
+            raise AssertionError(f"placement gates: answers {kinds}")
+        envelope = servers[0].placement.envelope_decisions
+        if envelope <= 0 or envelope != servers[1].placement.envelope_decisions:
+            raise AssertionError("placement gates: envelope decisions "
+                                 f"{servers[0].placement.envelope_decisions}"
+                                 f" / {servers[1].placement.envelope_decisions}")
+        # Check 6: the save stamps the adopted epoch.
+        save = await _frames(addrs[1], [wire.encode_request(
+            3, wire.OP_SAVE)])
+        if wire.decode_response(save[3])[1] != wire.RESP_EMPTY:
+            raise AssertionError(f"placement save: {save}")
+        fresh = pkg.DeviceBucketStore(device="cuda", n_slots=2**16,
+                                      clock=clock)
+        try:
+            checkpoint.load_snapshot(fresh, path,
+                                     expected_placement_epoch=7)
+        except checkpoint.PlacementMismatchError:
+            pass
+        else:
+            raise AssertionError("placement save: a load held to epoch 7 "
+                                 "did not raise")
+        checkpoint.load_snapshot(fresh, path, expected_placement_epoch=1)
+        back = fresh.peek_blocking(served[0], PLACE_CAP, PLACE_RATE)
+        if back != stores[1].peek_blocking(served[0], PLACE_CAP,
+                                           PLACE_RATE):
+            raise AssertionError("placement save: restored balance differs")
+        return [f"native and asyncio lanes byte-equal on {len(frames)} "
+                f"frames ({kinds[b'placement moved']} MOVED, "
+                f"{kinds[b'placement handoff in progress']} deferrals, "
+                f"{envelope} envelope decisions a server); the save "
+                "stamps epoch 1, a load held to epoch 7 raises "
+                "PlacementMismatchError"]
+    finally:
+        for s in servers:
+            await s.aclose()
+        for st in stores:
+            await st.aclose()
+
+
+async def placement_path(torch, ck, pkg, card: str) -> dict:
+    """Placement and live migration (phase 16): three
+    ``BucketStoreServer``s, each over a card ``DeviceBucketStore`` of 2^24
+    slots, on one frozen ManualClock; keys loaded at epoch 0 under
+    ``PlacementMap.initial(2)`` over nodes 0 and 1 through ``acquire_many``
+    over the wire; a join of node 2 migrated by :class:`_PlaceCoordinator`
+    (JAX's ``_apply_placement``), the dual-ownership drive inside its
+    handoff window, a drain of node 1 aborted after its pull, the
+    reservation lane's gates and holds, the native lane's gates, the
+    save's epoch, ``OP_STATS``, ``/metrics`` and the audit. Returns the
+    path's launches."""
+    import shutil
+    import tempfile
+
+    from distributedratelimiting.redis_tpu_torch.models.approximate import (
+        headroom_budget,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        placement as pl,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(PLACE_SEED)
+    ck.reset_launches()
+    def say(line: str) -> None:
+        print(f"placement path ({card}) "
+              f"[{time.perf_counter() - t_path:.1f} s]: {line}", flush=True)
+
+    clock = pkg.ManualClock(1_000_000)
+    stores = [pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                    counter_slots=2**15, clock=clock)
+              for _ in range(3)]
+    servers = [pkg.BucketStoreServer(s, host="127.0.0.1", port=0)
+               for s in stores]
+    for s in servers:
+        # The handoff envelopes and windows on the same frozen clock: an
+        # envelope refills nothing across a migration, so the balances
+        # compare exactly (window expiry is the CPU tests' case).
+        s.placement = pl.NodePlacementState(clock=clock.now_seconds)
+    addrs = [await s.start() for s in servers]
+    clis = [pkg.RemoteBucketStore(address=a, request_timeout_s=900.0)
+            for a in addrs]
+    solo = [pkg.RemoteBucketStore(address=a, coalesce_requests=False,
+                                  request_timeout_s=60.0) for a in addrs]
+    tmp = tempfile.mkdtemp(prefix="drl-place-")
+    try:
+        pmap0 = pl.PlacementMap.initial(2)
+        for j, cli in enumerate(clis):  # the coordinator's bootstrap
+            if await cli.placement_announce(
+                    {"map": pmap0.to_dict(), "node_id": j}) != 0:
+                raise AssertionError("placement: bootstrap epoch")
+        # -- the load: every node's keys through acquire_many on the wire.
+        t = time.perf_counter()
+        keys = [f"pk{i}" for i in range(PLACE_KEYS)]
+        owner0 = pmap0.route(keys)
+        counts = rng.integers(1, 4, PLACE_KEYS)
+        for j in (0, 1):
+            idx = np.nonzero(owner0 == j)[0]
+            for pos in range(0, len(idx), PLACE_CALL):
+                part = idx[pos:pos + PLACE_CALL]
+                res = await clis[j].acquire_many(
+                    [keys[i] for i in part], counts[part], PLACE_CAP,
+                    PLACE_RATE, with_remaining=False)
+                if res.granted_count != len(part):
+                    raise AssertionError("placement load: a fresh key "
+                                         "was denied")
+        load_s = time.perf_counter() - t
+        wkeys = [f"pw{i}" for i in range(PLACE_WINDOW_KEYS)]
+        wown = pmap0.route(wkeys)
+        ckeys = [f"pc{i}" for i in range(PLACE_COUNTERS)]
+        cown = pmap0.route(ckeys)
+        cvals = rng.integers(1, 50, PLACE_COUNTERS).astype(np.float64)
+        skeys = [f"ps{i}" for i in range(PLACE_SEMAS)]
+        sown = pmap0.route(skeys)
+        for j in (0, 1):
+            wj = [k for k, o in zip(wkeys, wown) if o == j]
+            res = await clis[j].window_acquire_many(
+                wj, [1] * len(wj), 100.0, 1.0)
+            if not res.granted.all():
+                raise AssertionError("placement load: a window was denied")
+            # Counters and semaphores in one launch each, in process (the
+            # wire has no bulk frame for them; a frame a key would take
+            # seconds of launches here).
+            cj = cown == j
+            await stores[j].sync_counters_many(
+                [k for k, m in zip(ckeys, cj) if m], cvals[cj], DECAY_PER_S)
+            sj = [k for k, o in zip(skeys, sown) if o == j]
+            got = await stores[j].concurrency_acquire_many(
+                sj, np.full(len(sj), 2, np.int64), PLACE_SEMA_LIMIT)
+            if not np.asarray(got.granted).all():
+                raise AssertionError("placement load: a semaphore refused")
+        setup_s = time.perf_counter() - t - load_s
+        # -- check 1: routing at epoch 0.
+        sample = rng.choice(PLACE_KEYS, PLACE_SAMPLE, replace=False)
+        for i in sample.tolist():
+            own = int(owner0[i])
+            r = await solo[own].acquire(keys[i], 0, PLACE_CAP, PLACE_RATE)
+            if abs(r.remaining - (PLACE_CAP - counts[i])) > 0:
+                raise AssertionError(f"placement routing: {keys[i]} reads "
+                                     f"{r.remaining} on node {own}")
+            try:
+                await solo[1 - own].acquire(keys[i], 0, PLACE_CAP,
+                                            PLACE_RATE)
+            except wire.RemoteStoreError as exc:
+                want = (f"placement moved: key routes to node {own} at "
+                        "epoch 0")
+                if want not in str(exc):
+                    raise AssertionError(f"placement routing: {exc}")
+            else:
+                raise AssertionError(f"placement routing: {keys[i]} "
+                                     f"served on node {1 - own}")
+        say(f"epoch 0: {PLACE_KEYS:,} bucket keys loaded over "
+                     f"nodes 0 and 1 in {load_s:.1f} s "
+                     f"({PLACE_KEYS / load_s / 1e6:.2f} M rows/s), "
+                     f"{PLACE_WINDOW_KEYS:,} windows, {PLACE_COUNTERS:,} "
+                     f"counters, {PLACE_SEMAS:,} semaphores in "
+                     f"{setup_s:.1f} s more; "
+                     f"{PLACE_SAMPLE:,} keys served by their owner and "
+                     "MOVED by the other")
+        # -- the join of node 2 (epoch 1).
+        moves = pmap0.rebalance_moves([0, 1, 2])
+        target = pmap0.with_assignments(moves)
+        moved_slots = set(moves)
+        slot_of = np.asarray(pl.route_keys(keys, pmap0.n_slots))
+        is_moved = np.isin(slot_of, np.fromiter(moved_slots, np.int64))
+        moved_idx = np.nonzero(is_moved)[0]
+        kept_idx = np.nonzero(~is_moved)[0]
+        tenant = _tenant_in(pmap0, {s for s, d in moves.items()
+                                    if pmap0.slot_owner[s] == 0}, "pt")
+        hold = await clis[0].reserve("hold-1", tenant, "pk-res", PLACE_HOLD,
+                                     *PLACE_TENANT, *PLACE_RES_KEY,
+                                     ttl_s=3600.0)
+        if not hold.granted:
+            raise AssertionError(f"placement reserve: {hold}")
+        timers = [_HoldTimer(s._lock) for s in stores[:2]]
+        export_s = [0.0]
+        for s, timer in zip(stores[:2], timers):
+            s._lock = timer
+            _time_calls(s, "export_entries", export_s)
+        coord = _PlaceCoordinator(pl, clis, pmap0, PLACE_WINDOW_S)
+        launch_before = dict(ck.launches)
+        debit_ms = [0.0, 0]
+        real_debit = ck.debit_packed
+
+        def timed_debit(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_debit(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            debit_ms[0] += start.elapsed_time(end)
+            debit_ms[1] += 1
+            return out
+
+        # -- check 3, first half: while each source exports (its slots
+        # parked, the pull not yet answered), unit asks on its dual keys
+        # at that source; they serve from the handoff envelope.
+        dual_idx = rng.choice(moved_idx, PLACE_DUAL_KEYS, replace=False)
+        dual = [keys[i] for i in dual_idx]
+        admitted = np.zeros((3, PLACE_DUAL_KEYS), np.int64)
+        pull_task = asyncio.ensure_future(coord.pull(target, moves))
+        gap = []
+        for src in (0, 1):
+            ps = servers[src].placement
+            t = time.perf_counter()
+            while not ps._parked_slots:
+                if pull_task.done():
+                    await pull_task
+                    raise AssertionError(f"placement gap: node {src} never "
+                                         "parked during the pull")
+                await asyncio.sleep(0.005)
+            rows = np.repeat(np.nonzero(owner0[dual_idx] == src)[0],
+                             PLACE_GAP_ASKS)
+            t_ask = time.perf_counter()
+            for pos in range(0, len(rows), BATCH):
+                part = rows[pos:pos + BATCH]
+                out = await solo[src].acquire_many(
+                    [dual[r] for r in part], np.ones(len(part), np.int64),
+                    PLACE_CAP, PLACE_RATE, with_remaining=False)
+                np.add.at(admitted[0], part,
+                          np.asarray(out.granted, np.int64))
+            if ps.pulls or not ps._parked_slots:
+                raise AssertionError(f"placement gap: node {src}'s export "
+                                     "ended before its asks did")
+            gap.append(f"node {src}: {len(rows):,} asks "
+                       f"{time.perf_counter() - t_ask:.2f} s after it parked "
+                       f"({t_ask - t:.2f} s into its pull)")
+        pulls = await pull_task
+        hold_s = max(t.longest for t in timers)
+        pull_s, pull_export_s = coord.pull_s, export_s[0]
+        pulled = sum(pl.entry_count(e) for e in pulls.values())
+        if not any(e.get("reservations") for e in pulls.values()):
+            raise AssertionError("placement pull: the hold did not ship")
+        ck.debit_packed = timed_debit
+        try:
+            await coord.push(target, pulls)
+        finally:
+            ck.debit_packed = real_debit
+        push_launches = {k: v - launch_before.get(k, 0)
+                         for k, v in ck.launches.items()
+                         if v > launch_before.get(k, 0)}
+        say(
+            f"join of node 2 ({card}): {len(moves)} of {pmap0.n_slots} "
+            f"slots, {len(moved_idx):,} bucket keys; pull {pull_s:.1f} s "
+            f"for {pulled:,} rows ({pull_export_s:.1f} s of it the "
+            "sources' export_entries: the snapshot and the per-key "
+            "filter), the store lock's longest hold "
+            f"{hold_s:.2f} s; push {coord.push_s:.1f} s, {coord.pushes} "
+            f"pushes, {coord.rows_pushed:,} rows "
+            f"({coord.rows_pushed / coord.push_s:,.0f} rows/s); the "
+            f"import's debit_packed launches {debit_ms[1]}, "
+            f"{debit_ms[0]:.2f} ms of CUDA events around them; launches "
+            f"of pull and push {json.dumps(push_launches)}")
+
+        # -- check 3 (inside the handoff window: node 2 adopted epoch 1,
+        # the sources still park): acquires at both owners.
+        asks = np.repeat(np.arange(PLACE_DUAL_KEYS), PLACE_DUAL_ASKS)
+        checks = []
+
+        async def between():
+            for side, j in enumerate((None, 2), start=1):
+                for pos in range(0, len(asks), BATCH):
+                    rows = asks[pos:pos + BATCH]
+                    kj = [dual[r] for r in rows]
+                    if j is None:  # each key at its old owner
+                        res = [None] * len(rows)
+                        for src in (0, 1):
+                            sel = [n for n, r in enumerate(rows)
+                                   if owner0[dual_idx[r]] == src]
+                            if not sel:
+                                continue
+                            out = await clis[src].acquire_many(
+                                [kj[n] for n in sel],
+                                np.ones(len(sel), np.int64),
+                                PLACE_CAP, PLACE_RATE,
+                                with_remaining=False)
+                            for n, g in zip(sel, out.granted):
+                                res[n] = g
+                        granted = np.asarray(res, bool)
+                    else:
+                        granted = (await clis[2].acquire_many(
+                            kj, np.ones(len(rows), np.int64), PLACE_CAP,
+                            PLACE_RATE,
+                            with_remaining=False)).granted
+                    np.add.at(admitted[side], rows, granted.astype(np.int64))
+            # The reservation lane mid-handoff: a settle defers, a reserve
+            # serves from the envelope.
+            r = await _raw_request(addrs[0], wire.encode_request(
+                11, wire.OP_SETTLE, json.dumps(
+                    {"rid": "hold-1", "tenant": tenant, "actual": 25.0})))
+            checks.append(("settle mid-handoff", r))
+            r = await _raw_request(addrs[0], wire.encode_request(
+                12, wire.OP_RESERVE, json.dumps(
+                    {"rid": "hold-2", "tenant": tenant, "key": "pk-res",
+                     "estimate": 3.0, "a": PLACE_RES_KEY[0],
+                     "b": PLACE_RES_KEY[1],
+                     "ta": PLACE_TENANT[0], "tb": PLACE_TENANT[1]})))
+            checks.append(("reserve mid-handoff", r))
+
+        await coord.commit(target, moves, between)
+        pre = (PLACE_CAP - counts[dual_idx]).astype(np.float64)
+        budget = headroom_budget(PLACE_CAP, fraction=0.5, min_budget=1.0)
+        over = admitted.sum(axis=0) - (pre + budget)
+        if (over > 0).any():
+            raise AssertionError(f"dual ownership: {int((over > 0).sum())} "
+                                 "keys over balance + one envelope")
+        if admitted[0].sum() == 0 or admitted[2].sum() == 0:
+            raise AssertionError(f"dual ownership: admitted {admitted.sum(1)}")
+        (_, kind, vals) = checks[0][1]
+        if kind != wire.RESP_ERROR or pl.HANDOFF_DEFERRAL_PREFIX not in vals[0]:
+            raise AssertionError(f"settle mid-handoff: {checks[0]}")
+        (_, kind, vals) = checks[1][1]
+        if kind != wire.RESP_TEXT or not json.loads(vals[0]).get("envelope"):
+            raise AssertionError(f"reserve mid-handoff: {checks[1]}")
+        say(
+            f"dual ownership ({card}): {PLACE_DUAL_KEYS:,} moved keys x "
+            f"{PLACE_GAP_ASKS} asks at the old owner during its export "
+            f"({'; '.join(gap)}), then {PLACE_DUAL_ASKS} asks at each "
+            f"owner: admitted old {int(admitted[0].sum()):,} during the "
+            f"export + {int(admitted[1].sum()):,} after it (envelope), new "
+            f"{int(admitted[2].sum()):,}; max over (balance + envelope "
+            f"{budget:.0f}) {int(over.max())} (<= 0 holds); mid-handoff "
+            "settle deferred, reserve served from the envelope")
+
+        # -- check 2: state after the commit.
+        src_tok = np.float32(PLACE_CAP) - counts.astype(np.float32)
+        shipped = np.maximum(np.float32(0.0), src_tok - np.float32(budget))
+        not_dual = np.setdiff1d(moved_idx, dual_idx)
+        res = await stores[2].acquire_many(
+            [keys[i] for i in not_dual], np.zeros(len(not_dual), np.int64),
+            PLACE_CAP, PLACE_RATE)
+        bad = np.nonzero(res.remaining != shipped[not_dual])[0]
+        if len(bad):
+            i = int(not_dual[bad[0]])
+            raise AssertionError(
+                f"placement import: {len(bad)} keys differ from the host "
+                f"oracle ({keys[i]}: {res.remaining[bad[0]]} != "
+                f"{shipped[i]})")
+        for j in (0, 1):
+            mine = not_dual[owner0[not_dual] == j]
+            res = await stores[j].acquire_many(
+                [keys[i] for i in mine], np.zeros(len(mine), np.int64),
+                PLACE_CAP, PLACE_RATE)
+            if not (res.remaining == np.float32(budget)).all():
+                raise AssertionError(f"placement source {j}: residual is "
+                                     "not the envelope")
+            kept = kept_idx[owner0[kept_idx] == j]
+            res = await stores[j].acquire_many(
+                [keys[i] for i in kept], np.zeros(len(kept), np.int64),
+                PLACE_CAP, PLACE_RATE)
+            if not (res.remaining == src_tok[kept]).all():
+                raise AssertionError(f"placement node {j}: an unmoved "
+                                     "key's balance changed")
+        moved_sample = rng.choice(not_dual, PLACE_SAMPLE, replace=False)
+        for i in moved_sample.tolist():
+            try:
+                await solo[int(owner0[i])].acquire(keys[i], 0, PLACE_CAP,
+                                                   PLACE_RATE)
+            except wire.RemoteStoreError as exc:
+                if "key routes to node 2 at epoch 1" not in str(exc):
+                    raise AssertionError(f"placement commit: {exc}")
+            else:
+                raise AssertionError(f"placement commit: {keys[i]} served "
+                                     "by its old owner")
+            peek = await asyncio.to_thread(solo[2].peek_blocking, keys[i],
+                                           PLACE_CAP, PLACE_RATE)
+            if peek != shipped[i]:
+                raise AssertionError(f"placement peek: {keys[i]} {peek} "
+                                     f"!= {shipped[i]}")
+        # Windows, counters and semaphores by the generic lane's rules.
+        wmoved = [k for k in wkeys if pmap0.slot_of(k) in moved_slots]
+        wbudget = headroom_budget(100.0, fraction=0.5, min_budget=1.0)
+        res = await stores[2].window_acquire_many(
+            wmoved, np.zeros(len(wmoved), np.int64), 100.0, 1.0)
+        if not (res.remaining == np.float32(100.0 - (1 + wbudget))).all():
+            raise AssertionError("placement windows: the new owner's count "
+                                 "is not the replayed one")
+        for j in (0, 1):
+            wsrc = [k for k in wmoved if pmap0.node_of(k) == j]
+            res = await stores[j].window_acquire_many(
+                wsrc, np.zeros(len(wsrc), np.int64), 100.0, 1.0)
+            if not (res.remaining == 0.0).all():
+                raise AssertionError("placement windows: a source window "
+                                     "was not charged to its limit")
+        cmask = np.isin(np.asarray(pl.route_keys(ckeys, pmap0.n_slots)),
+                        np.fromiter(moved_slots, np.int64))
+        cm = [k for k, m in zip(ckeys, cmask) if m]
+        got = await stores[2].sync_counters_many(
+            cm, np.zeros(len(cm)), DECAY_PER_S)
+        score = np.asarray(got[0] if isinstance(got, tuple) else
+                           [r.global_score for r in got])
+        if not np.array_equal(score.astype(np.float32),
+                              cvals[cmask].astype(np.float32)):
+            raise AssertionError("placement counters: a value differs")
+        sm = [k for k in skeys if pmap0.slot_of(k) in moved_slots]
+        res = await stores[2].concurrency_acquire_many(
+            sm, np.zeros(len(sm), np.int64), PLACE_SEMA_LIMIT)
+        # A probe's remaining reads the permits held.
+        if not (np.asarray(res.remaining) == 2).all():
+            raise AssertionError("placement semaphores: held permits differ")
+        # The reservation lane after the commit.
+        r = await _raw_request(addrs[0], wire.encode_request(
+            13, wire.OP_SETTLE, json.dumps(
+                {"rid": "hold-1", "tenant": tenant, "actual": 25.0})))
+        if "key routes to node 2" not in str(r[2]):
+            raise AssertionError(f"settle on the old owner: {r}")
+        settled = await clis[2].settle("hold-1", tenant, 25.0)
+        if settled.outcome != "settled":
+            raise AssertionError(f"settle on the new owner: {settled}")
+        say(
+            f"epoch 1 ({card}): {len(not_dual):,} moved keys on node 2 "
+            "equal the host float32 oracle of debit_export, their old "
+            f"owners hold the envelope ({budget:.0f}) and answer MOVED to "
+            f"node 2 ({PLACE_SAMPLE:,} over the wire, peeks equal), "
+            f"{len(kept_idx):,} unmoved balances unchanged; "
+            f"{len(wmoved):,} windows, {len(cm):,} counters, {len(sm):,} "
+            "semaphores by the generic lane's rules; the hold settled on "
+            "node 2, MOVED on node 0")
+
+        # -- check 4: drain node 1, aborted after its pull.
+        epoch_before = target.epoch
+        moves2 = target.rebalance_moves([0, 2])
+        target2 = target.with_assignments(moves2)
+        for tm in timers:
+            tm.longest = 0.0
+        pulls2 = await coord.pull(target2, moves2, first_page_only=True)
+        hold2 = max(t.longest for t in timers)
+        made = await coord.push(target2, pulls2, only_first=True)
+        dst, req = made[0]
+        await coord.abort(target2, moves2)
+        again = await clis[dst].migrate_push(req)
+        if again <= 0 or servers[dst].placement.pushes_duplicate:
+            raise AssertionError(f"abort: a retried push was deduplicated "
+                                 f"({again})")
+        for j, cli in enumerate(clis):
+            if (await cli.placement_fetch())["epoch"] != epoch_before:
+                raise AssertionError("abort: the epoch moved")
+        d1 = [i for i in kept_idx[owner0[kept_idx] == 1][:PLACE_SAMPLE]]
+        res = await clis[1].acquire_many(
+            [keys[i] for i in d1], np.zeros(len(d1), np.int64), PLACE_CAP,
+            PLACE_RATE)
+        if not (res.remaining == np.float32(budget)).all():
+            raise AssertionError("abort: node 1 does not serve its residual")
+        say(
+            f"abort ({card}): drain of node 1, its pull's first page "
+            f"{coord.pull_s:.1f} s (of {coord.pages} pages; lock "
+            f"{hold2:.2f} s), one push, abort: epoch {epoch_before} "
+            "kept, node 1 serves its residual, the retried push applied "
+            f"{again} rows again")
+
+        # -- check 6: OP_STATS, /metrics, the audit.
+        stats = await clis[0].stats()
+        text = await clis[0].metrics()
+        if "placement" not in stats or "drl_placement_epoch 1" not in text:
+            raise AssertionError("placement: OP_STATS / metrics lack the "
+                                 "placement section")
+        for s in servers:
+            s.auditor.tick()
+        eps = [s.auditor.epsilon_used["envelope"] for s in servers]
+        breaches = [s.auditor.breaches for s in servers]
+        if max(eps) <= 0 or any(breaches):
+            raise AssertionError(f"placement audit: envelope eps {eps}, "
+                                 f"breaches {breaches}")
+        say(f"OP_STATS placement {json.dumps(stats['placement'])}"
+                     f"; audit clean, envelope eps {eps}")
+        for line in await _place_gates_pair(pkg, pl, wire, tmp):
+            say(line)
+    finally:
+        for c in clis + solo:
+            await c.aclose()
+        for s in servers:
+            await s.aclose()
+        for s in stores:
+            await s.aclose()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    counts_out = dict(ck.launches)
+    print(f"placement path ({card}): {time.perf_counter() - t_path:.1f} s "
+          "of wall")
+    torch.cuda.empty_cache()
+    return counts_out
+
+
 SIZED_KERNELS = {"acquire_packed": "acquire_packed",
                  "acquire_grouped": "acquire_grouped",
                  "window_packed": "window_packed",
@@ -7555,7 +8357,7 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
 
 
 def _paths() -> tuple:
-    """The paths of phases 3–10 and 12–15, in the order :func:`main`
+    """The paths of phases 3–10 and 12–16, in the order :func:`main`
     runs them."""
     return (("exact", main_path), ("approximate", approximate_path),
             ("window", window_path), ("admission", admission_path),
@@ -7563,7 +8365,8 @@ def _paths() -> tuple:
             ("checkpoint", checkpoint_path),
             ("observability", observability_path),
             ("server", server_path), ("bench", bench_path),
-            ("native", native_path), ("fp", fp_path), ("mesh", mesh_path))
+            ("native", native_path), ("fp", fp_path), ("mesh", mesh_path),
+            ("placement", placement_path))
 
 
 def paths_only(names: list) -> int:
@@ -7707,7 +8510,13 @@ def main() -> int:
                    # The mesh: its decisions (the bucket and window scans,
                    # the fp decision), sweeps none, the aux store's flushes
                    # none; every fp decision of the fp tier.
-                   "mesh": ("acquire_scan", "window_scan", "fp_decide")}
+                   "mesh": ("acquire_scan", "window_scan", "fp_decide"),
+                   # Placement: the import's and the source's debits, the
+                   # generic lane's window, counter and semaphore replays,
+                   # and the traffic (bulk calls, one-batch frames).
+                   "placement": ("debit_packed", "window_packed",
+                                 "sync_counters", "sema_packed",
+                                 "acquire_scan", "acquire_packed")}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",

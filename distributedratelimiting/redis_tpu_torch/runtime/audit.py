@@ -1,9 +1,9 @@
 """Conservation audit plane — the continuous ε-ledger (DESIGN.md §22).
 
 The JAX package's ``runtime/audit.py`` on the port's server. The server
-has no federation ledger and no placement or drain state yet, so the
-federation cover identity and the envelope ε read nothing (a JAX server
-without those subsystems reads nothing either), and their gauges stay 0.
+has no federation ledger and no drain state yet, so the federation cover
+identity reads nothing (a JAX server without it reads nothing either) and
+the envelope ε reads the placement handoffs' envelope decisions alone.
 The tier-0 / per-shard ε reads the native front-end when it serves.
 
 The framework's correctness story is a stack of documented ε terms:
@@ -247,9 +247,15 @@ class ConservationAuditor:
                 # slice (1/n_shards balanced, 1.0 one slice takes all).
                 self.epsilon_used["shard"] = max(slices) / sum(slices)
         # 5. envelope ε: the share of admissions served from bounded
-        # fair-share envelopes — none without drain windows or placement
-        # handoffs (Queue A 9), so 0 of every request.
-        self.epsilon_used["envelope"] = 0.0
+        # fair-share envelopes (placement handoffs; drain windows come
+        # with ROADMAP A 7) — a share-of-traffic proxy, since the
+        # envelopes' token bounds are enforced at grant time.
+        requests = max(1.0, float(self._requests_served()))
+        env = 0.0
+        if srv.placement.active:
+            env += float(srv.placement.stats().get(
+                "envelope_decisions", 0.0))
+        self.epsilon_used["envelope"] = min(1.0, env / requests)
 
         # -- breach bookkeeping / episode hysteresis --
         self.residues = residues

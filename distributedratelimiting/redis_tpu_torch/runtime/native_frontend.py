@@ -32,12 +32,19 @@ inside the C loop from a replica table; its sync pump
 store with ``debit_many`` (the card's ``debit_packed``) and acks the fresh
 balances back.
 
-Not ported, as the server state behind them is not: the placement gate
-(ROADMAP A 9), the live-config gate and tier-0's retired-config debits
-(A 4), and the drain envelope (A 7). The first two keep named seams,
-:meth:`NativeFrontend._placement_gate` and
-:meth:`NativeFrontend._config_gate`, dormant: no map is announced and no
-rule has committed, so every row is served.
+The placement gate (:meth:`NativeFrontend._placement_gate`, the server's
+:class:`~.placement.NodePlacementState`) holds both lanes to keyspace
+ownership as the asyncio lanes are held: on the batch lane a moved row
+answers MOVED and a parked SEMA or release row the handoff deferral, each
+through ``fe_send`` with the ``kRowSkip`` sentinel telling ``fe_complete``
+the row is answered, and a parked admission row serves from its handoff
+envelope; on the bulk lane a frame with a moved row answers one
+frame-level MOVED through ``fe_send`` and ``fe_bulk_discard``, and parked
+rows serve from their envelopes. Not ported, as the server state behind
+them is not: the live-config gate and tier-0's retired-config debits
+(ROADMAP A 4) and the drain envelope (A 7). The live-config gate keeps a
+named seam, :meth:`NativeFrontend._config_gate`, dormant: no rule has
+committed, so every row is served.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from distributedratelimiting.redis_tpu_torch.runtime import wire
+from distributedratelimiting.redis_tpu_torch.runtime import placement, wire
 from distributedratelimiting.redis_tpu_torch.runtime.store import BucketStore
 from distributedratelimiting.redis_tpu_torch.utils import faults, log, tracing
 from distributedratelimiting.redis_tpu_torch.utils.metrics import (
@@ -141,6 +148,11 @@ _OP_BUCKET = wire.OP_ACQUIRE
 _OP_WINDOW = wire.OP_WINDOW
 _OP_FWINDOW = wire.OP_FWINDOW
 _OP_SEMA = wire.OP_SEMA
+
+#: ``fe_complete``'s per-row sentinel (``kRowSkip`` in ``frontend.cc``): the
+#: row was already answered through ``fe_send`` (a placement MOVED or
+#: handoff deferral).
+_ROW_SKIP = 2
 
 #: The batch record ``np.unique`` groups on: one group per (op, a, b).
 _GROUP_DTYPE = np.dtype([("op", np.uint8), ("a", np.float64),
@@ -290,15 +302,15 @@ class NativeFrontend:
         """Schedule ``coro`` on the loop from a pump thread, tracked."""
         self._loop.call_soon_threadsafe(self._track_task, coro)
 
-    # -- the row gates (dormant seams) --------------------------------------
+    # -- the row gates -------------------------------------------------------
 
     def _placement_gate(self, keys):
-        """Keyspace ownership on the batch and bulk lanes (JAX
-        ``native_frontend.py:559-573``, ``:868-880``): moved rows answer
-        MOVED, parked rows their handoff envelope. Placement is ROADMAP
-        A 9; until it is ported no map is announced, so this returns None
-        (every row served)."""
-        return None
+        """Keyspace ownership on the batch and bulk lanes: the server's
+        :meth:`~.placement.NodePlacementState.bulk_gate` over the rows
+        (``None`` while no map is adopted, or when every row is owned and
+        unparked), else ``(serve_mask, envelope_rows, moved_mask)``."""
+        ps = self._server.placement
+        return ps.bulk_gate(keys) if ps.active else None
 
     def _config_gate(self, ops, a_arr, b_arr):
         """Retired configs on the batch and bulk lanes (JAX ``:574-608``,
@@ -308,14 +320,13 @@ class NativeFrontend:
         None (every row served)."""
         return None
 
-    def _gated(self, keys, ops, a_arr, b_arr) -> None:
-        """Both seams on one batch or frame: a gate that answers needs the
-        body its ROADMAP item ports."""
-        if (self._placement_gate(keys) is not None
-                or self._config_gate(ops, a_arr, b_arr) is not None):
+    def _gated(self, ops, a_arr, b_arr) -> None:
+        """The live-config seam on one batch or frame: a gate that answers
+        needs the body ROADMAP A 4 ports."""
+        if self._config_gate(ops, a_arr, b_arr) is not None:
             raise NotImplementedError(
-                "placement (ROADMAP A 9) and live config (A 4) are not "
-                "ported: their gates have no body yet")
+                "live config (ROADMAP A 4) is not ported: its gate has no "
+                "body yet")
 
     # -- pump threads --------------------------------------------------------
 
@@ -397,7 +408,7 @@ class NativeFrontend:
                 tr_fl.ctypes.data_as(c.POINTER(c.c_uint8)))
             traces = (tr_hi, tr_lo, tr_par, tr_fl)
         self._track(self._serve_batch(sh, bid, keys, counts, ops, a_arr,
-                                      b_arr, traces))
+                                      b_arr, traces, seqs, conn_ids))
 
     def _dispatch_passthrough(self, sh: int) -> None:
         lib = self._lib
@@ -497,13 +508,25 @@ class NativeFrontend:
     async def _serve_batch(self, sh: int, bid: int, keys: list[str],
                            counts: np.ndarray, ops: np.ndarray,
                            a_arr: np.ndarray, b_arr: np.ndarray,
-                           traces=None) -> None:
+                           traces=None, seqs: "np.ndarray | None" = None,
+                           conn_ids: "np.ndarray | None" = None) -> None:
         n = len(keys)
         t_start = time.perf_counter()
         store = self._server.store
+        full = None
         try:
             self._offer_batch_hot(keys, counts)
-            self._gated(keys, ops, a_arr, b_arr)
+            self._gated(ops, a_arr, b_arr)
+            pgate = self._placement_gate(keys)
+            if pgate is not None:
+                # Only the owned, unparked rows reach the store; the rest
+                # are answered below, after the store calls.
+                full = (n, keys, counts, ops, a_arr, b_arr)
+                serve_idx = np.nonzero(pgate[0])[0]
+                keys = [keys[int(i)] for i in serve_idx]
+                counts, ops = counts[serve_idx], ops[serve_idx]
+                a_arr, b_arr = a_arr[serve_idx], b_arr[serve_idx]
+                n = len(keys)
             granted = np.zeros(n, np.uint8)
             remaining = np.zeros(n, np.float64)
             # Elected dispatch span (first traced row): the store's spans
@@ -549,6 +572,11 @@ class NativeFrontend:
                     else:
                         granted[idx] = g
                         remaining[idx] = r
+            if pgate is not None:
+                n, keys, counts, ops, a_arr, b_arr = full
+                granted, remaining = self._placement_rows(
+                    sh, pgate, serve_idx, granted, remaining, keys, counts,
+                    ops, a_arr, b_arr, seqs, conn_ids)
             if traces is not None:
                 self._record_batch_spans(traces, granted, ops, t_start)
             c = ctypes
@@ -561,8 +589,45 @@ class NativeFrontend:
         except Exception as exc:  # noqa: BLE001 — every request must get
             log.error_evaluating_kernel(exc)  # a routable error reply
             if traces is not None:
-                self._record_batch_spans(traces, None, ops, t_start)
+                self._record_batch_spans(
+                    traces, None, ops if full is None else full[3], t_start)
             self._lib.fe_fail(sh, bid, repr(exc)[:200].encode())
+
+    def _placement_rows(self, sh: int, pgate, serve_idx: np.ndarray,
+                        granted: np.ndarray, remaining: np.ndarray, keys,
+                        counts, ops, a_arr, b_arr, seqs, conn_ids) -> tuple:
+        """The whole batch's verdicts once the served rows are decided: a
+        parked admission row decides from its handoff envelope (after the
+        store's rows, as the asyncio lane's gated bulk does); a parked SEMA
+        or release row answers the handoff deferral and a moved row the
+        routable MOVED, each sent here through ``fe_send`` and marked
+        :data:`_ROW_SKIP` for ``fe_complete``."""
+        ps = self._server.placement
+        n = len(keys)
+        g_full = np.zeros(n, np.uint8)
+        r_full = np.zeros(n, np.float64)
+        g_full[serve_idx] = granted
+        r_full[serve_idx] = remaining
+        for i, handoff in pgate[1]:
+            ekind = placement.ENVELOPE_KIND.get(int(ops[i]))
+            if ekind is not None and counts[i] >= 0:
+                g_full[i], r_full[i] = ps.envelope_acquire(
+                    handoff, keys[i], int(counts[i]), float(a_arr[i]),
+                    float(b_arr[i]), ekind)
+            else:
+                # No envelope value: a denial would eat a permit release
+                # (leaking the migrated semaphore's held permits).
+                self._send(sh, int(conn_ids[i]), wire.encode_response(
+                    int(seqs[i]), wire.RESP_ERROR,
+                    ps.deferral_message(handoff)))
+                g_full[i] = _ROW_SKIP
+        for i in np.nonzero(pgate[2])[0].tolist():
+            # bulk_gate already counted these moved rows.
+            self._send(sh, int(conn_ids[i]), wire.encode_response(
+                int(seqs[i]), wire.RESP_ERROR, ps.moved_message(
+                    keys[i], int(ps.pmap.node_of(keys[i])))))
+            g_full[i] = _ROW_SKIP
+        return g_full, r_full
 
     def _record_batch_spans(self, traces, granted, ops: np.ndarray,
                             t_start: float) -> None:
@@ -578,7 +643,9 @@ class NativeFrontend:
             ctx = tracing.TraceContext(int(tr_hi[i]), int(tr_lo[i]),
                                        int(tr_par[i]),
                                        1 if tr_fl[i] & 2 else 0)
-            if granted is None:
+            if granted is None or granted[i] == _ROW_SKIP:
+                # The whole batch failed, or the row was answered with a
+                # placement error (MOVED, handoff deferral).
                 status = "error"
             else:
                 status = "ok" if granted[i] else "denied"
@@ -594,9 +661,15 @@ class NativeFrontend:
         side could not (cold keys, windows, probes) with the same store
         entry the asyncio server's ACQUIRE_MANY branch calls, then
         ``fe_bulk_complete`` merges the verdicts and encodes RESP_BULK in C.
-        The key blob is C memory: the store resolves it to slots before
-        its first await (the card store's bulk plan), and the job stays
-        alive until ``fe_bulk_complete`` / ``fe_bulk_fail`` below."""
+        The placement gate runs as the asyncio lane's does: a frame with a
+        moved row answers the frame-level MOVED through ``fe_send`` and
+        ``fe_bulk_discard`` (no row applied); parked rows serve from their
+        handoff envelopes after the store's rows. Rows tier-0 already
+        granted in a frame that then meets a gate stay debited through the
+        sync lane (the tier-0 epsilon). The key blob is C memory: the store
+        resolves it to slots before its first await (the card store's bulk
+        plan), and the job stays alive until ``fe_bulk_complete`` /
+        ``fe_bulk_fail`` / ``fe_bulk_discard`` below."""
         lib = self._lib
         n = len(keys)
         try:
@@ -604,7 +677,14 @@ class NativeFrontend:
             kind = (flags & wire._KIND_MASK) >> wire._KIND_SHIFT
             # A drain window's envelope (JAX :861-867) comes with
             # drain-and-handoff, ROADMAP A 7.
-            self._gated(keys, None, a, b)
+            self._gated(None, a, b)
+            gate = self._placement_gate(keys)
+            if gate is not None and gate[2].any():
+                self._send(sh, conn_id, wire.encode_response(
+                    seq, wire.RESP_ERROR,
+                    self._server._bulk_moved(keys, gate)))
+                lib.fe_bulk_discard(sh, jid)
+                return
             rn = len(residue)
             granted = np.zeros(rn, np.uint8)
             remaining = np.zeros(rn, np.float64)
@@ -616,17 +696,27 @@ class NativeFrontend:
                         "fe.bulk", parent=tctx,
                         attrs={"n": n, "residue": rn})
             with espan:
-                # A whole-frame residue keeps the zero-copy KeyBlob (the
-                # tier-0-cold and window-kind shape); a partial residue
-                # decodes only its own minority.
-                sub_keys = (keys if rn == n
-                            else [keys[int(i)] for i in residue])
-                sub_counts = counts if rn == n else counts[residue]
-                res = await self._bulk_store_call(sub_keys, sub_counts, a,
-                                                  b, kind, with_rem)
-                granted = np.asarray(res.granted, np.uint8)
-                if res.remaining is not None:
-                    remaining = np.asarray(res.remaining, np.float64)
+                if gate is None:
+                    # A whole-frame residue keeps the zero-copy KeyBlob
+                    # (the tier-0-cold and window-kind shape); a partial
+                    # residue decodes only its own minority.
+                    sub_keys = (keys if rn == n
+                                else [keys[int(i)] for i in residue])
+                    sub_counts = counts if rn == n else counts[residue]
+                    res = await self._server._bulk_store_call(
+                        sub_keys, sub_counts, a, b, kind, with_rem)
+                    granted = np.asarray(res.granted, np.uint8)
+                    if res.remaining is not None:
+                        remaining = np.asarray(res.remaining, np.float64)
+                else:
+                    # The residue's owned rows in one store call, then
+                    # its parked rows from their envelopes.
+                    await placement.serve_gated_bulk(
+                        self._server.placement, gate, keys, counts,
+                        residue, a, b, kind,
+                        lambda ks, cs: self._server._bulk_store_call(
+                            ks, cs, a, b, kind, with_rem),
+                        granted, remaining)
             c = ctypes
             lib.fe_bulk_complete(
                 sh, jid,
@@ -637,18 +727,6 @@ class NativeFrontend:
         except Exception as exc:  # noqa: BLE001 — every frame must get
             log.error_evaluating_kernel(exc)  # a routable error reply
             lib.fe_bulk_fail(sh, jid, repr(exc)[:200].encode())
-
-    async def _bulk_store_call(self, keys, counts, a: float, b: float,
-                               kind: int, with_rem: bool):
-        """The store entry the asyncio ACQUIRE_MANY branch calls: shared
-        shape, shared semantics."""
-        store = self._server.store
-        if kind == wire.BULK_KIND_BUCKET:
-            return await store.acquire_many(keys, counts, a, b,
-                                            with_remaining=with_rem)
-        return await store.window_acquire_many(
-            keys, counts, a, b, fixed=(kind == wire.BULK_KIND_FWINDOW),
-            with_remaining=with_rem)
 
     async def _serve_passthrough(self, sh: int, conn_id: int,
                                  body: bytes) -> None:

@@ -48,14 +48,19 @@ redirect is chased once (``reserves_routed``).
 
 The observability plane reads over the wire: ``metrics()`` (``OP_METRICS``,
 OpenMetrics text), ``traces()`` (``OP_TRACES``, Chrome-trace JSON) and
-``audit()`` (``OP_AUDIT``). The chaos seams of :mod:`..utils.faults` sit at
-the dial (``client.connect``, and the wrapped transport's ``client.read`` /
-``client.write``) and before each retry (``client.retry``).
+``audit()`` (``OP_AUDIT``); the placement control plane
+``placement_fetch()``, ``placement_announce()``, ``migrate_pull()`` and
+``migrate_push()`` (a coordinator's calls, :mod:`~.placement`). The chaos
+seams of :mod:`..utils.faults` sit at the dial (``client.connect``, and the
+wrapped transport's ``client.read`` / ``client.write``) and before each
+retry (``client.retry``).
 
-Not ported yet: the live-config chase ("config moved" errors surface as
+Not ported yet: the chase of a ``placement moved`` error (the cluster's,
+ROADMAP A 10: it surfaces as :class:`wire.RemoteStoreError`), the
+live-config chase ("config moved" errors surface as
 :class:`wire.RemoteStoreError`, and a reserve sends the caller's configs
-as given), and the federation, placement and config methods, which raise
-``NotImplementedError`` as the port's ``BucketStore`` does.
+as given), and the federation and config methods, which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -1311,6 +1316,45 @@ class RemoteBucketStore(BucketStore):
         (text,) = await self._request(wire.OP_METRICS)
         return text
 
+    # -- placement / migration control plane (runtime/placement.py) ---------
+    async def placement_fetch(self, *,
+                              timeout_s: "float | None" = None) -> dict:
+        """The node's adopted placement map and handoff state
+        (``OP_PLACEMENT``); ``{"epoch": -1, …}`` from a node no coordinator
+        has announced to yet."""
+        (text,) = await self._request(wire.OP_PLACEMENT,
+                                      timeout_s=timeout_s)
+        return json.loads(text)
+
+    async def placement_announce(self, payload: dict, *,
+                                 timeout_s: "float | None" = None) -> int:
+        """Announce a placement map (``{"map": …, "node_id": j}``) or an
+        abort (``{"abort_epoch": e}``) to the node; returns the node's
+        adopted epoch. A stale epoch answers :class:`wire.RemoteStoreError`."""
+        (epoch,) = await self._request(
+            wire.OP_PLACEMENT_ANNOUNCE, json.dumps(payload),
+            timeout_s=timeout_s)
+        return int(epoch)
+
+    async def migrate_pull(self, req: dict, *,
+                           timeout_s: "float | None" = None) -> dict:
+        """Export and park state on the old owner for a pending epoch
+        (``OP_MIGRATE_PULL``; idempotent per target epoch; a large export
+        pages, ``req["page"]`` naming the page)."""
+        (text,) = await self._request(wire.OP_MIGRATE_PULL,
+                                      json.dumps(req), timeout_s=timeout_s)
+        return json.loads(text)
+
+    async def migrate_push(self, req: dict, *,
+                           timeout_s: "float | None" = None) -> int:
+        """Apply one handoff batch on the new owner (``OP_MIGRATE_PUSH``;
+        exactly once per ``(target_epoch, batch)``). Returns the rows
+        applied (0 for a deduplicated re-delivery)."""
+        (applied,) = await self._request(wire.OP_MIGRATE_PUSH,
+                                         json.dumps(req),
+                                         timeout_s=timeout_s)
+        return int(applied)
+
     async def traces(self, drain: bool = False) -> dict:
         """The server's kept traces as Chrome-trace-event JSON
         (``OP_TRACES``) — the payload of its HTTP ``/traces`` endpoint.
@@ -1375,10 +1419,7 @@ class RemoteBucketStore(BucketStore):
         )
 
 
-# The JAX client's other lanes: placement and live-config control, and
-# federation.
-for _name in ("placement_fetch",
-              "placement_announce", "migrate_pull", "migrate_push",
-              "config_fetch", "config_announce", "fed_lease", "fed_renew",
+# The JAX client's other lanes: live-config control and federation.
+for _name in ("config_fetch", "config_announce", "fed_lease", "fed_renew",
               "fed_reclaim"):
     setattr(RemoteBucketStore, _name, _not_ported(_name))

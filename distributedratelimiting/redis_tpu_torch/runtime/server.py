@@ -19,7 +19,10 @@ through ``wire.KeyBlob``), ``OP_RESERVE`` / ``OP_SETTLE`` (the
 estimate-reserve-settle lane, through the store's one
 :class:`~.reservations.ReservationLedger`), ``OP_PEEK``, ``OP_SYNC``,
 ``OP_PING``, ``OP_SAVE`` (a full file, or with ``snapshot_incremental`` a
-v4 delta against the previous save), ``OP_STATS`` and the ``OP_HELLO`` auth
+v4 delta against the previous save; either stamped with the adopted
+placement epoch), ``OP_STATS``, the placement and migration control ops
+(``OP_PLACEMENT``, ``OP_PLACEMENT_ANNOUNCE``, ``OP_MIGRATE_PULL``,
+``OP_MIGRATE_PUSH``; :mod:`~.placement`) and the ``OP_HELLO`` auth
 handshake, with the trace, deadline and attempt tails (deadline-expired
 work is shed unexecuted). Granted hierarchical costs and settled actuals
 feed a per-tenant :class:`~.admission.TokenVelocity` (``OP_STATS``
@@ -55,12 +58,18 @@ store's ``debit_many``. The library is built from the checkout at first
 use; when it cannot build, ``start()`` raises — there is no fallback to the
 asyncio listener.
 
-The JAX server's live-config, drain-envelope and placement gates are not
-ported (nor those subsystems). An op the JAX server serves but this one
-does not yet (placement, migration, live config, federation) answers a
-routable error that names it as not served — never the "unknown op" /
-"unknown bulk kind" text, which a JAX client reads as an old peer and
-silently falls back from.
+The placement gate (:class:`~.placement.NodePlacementState`, dormant until
+a coordinator announces a map) checks every keyed admission, PEEK and SYNC
+frame, each bulk frame, and the tenant of every two-level, reserve and
+settle frame: a key another node owns answers the routable ``placement
+moved`` error, a key parked mid-handoff serves from the handoff's
+fair-share envelope (or answers the transient handoff deferral where there
+is no envelope value). The JAX server's live-config and drain-envelope
+gates are not ported (nor those subsystems). An op the JAX server serves
+but this one does not yet (live config, federation) answers a routable
+error that names it as not served — never the "unknown op" / "unknown bulk
+kind" text, which a JAX client reads as an old peer and silently falls
+back from.
 
 Run it with ``python -m distributedratelimiting.redis_tpu_torch.runtime.server``
 (a ``DeviceBucketStore`` on ``cuda`` unless ``--device cpu`` is given, a
@@ -81,6 +90,7 @@ import numpy as np
 
 from distributedratelimiting.redis_tpu_torch.runtime import (
     admission,
+    placement,
     reservations,
     wire,
 )
@@ -106,14 +116,19 @@ __all__ = ["BucketStoreServer", "main"]
 #: Ops the JAX server serves that this one does not yet. Each answers a
 #: routable error that never reads as "unknown op" (see the module doc).
 _UNPORTED_OPS = frozenset((
-    wire.OP_PLACEMENT, wire.OP_PLACEMENT_ANNOUNCE, wire.OP_MIGRATE_PULL,
-    wire.OP_MIGRATE_PUSH, wire.OP_CONFIG, wire.OP_FED_LEASE,
-    wire.OP_FED_RENEW, wire.OP_FED_RECLAIM))
+    wire.OP_CONFIG, wire.OP_FED_LEASE, wire.OP_FED_RENEW,
+    wire.OP_FED_RECLAIM))
 #: Scalar keyed admission ops fed to the heavy-hitter sketch. A module
 #: constant: an inline tuple would rebuild from four global lookups on
 #: every request.
 _HOT_KEYED_OPS = frozenset(
     (wire.OP_ACQUIRE, wire.OP_WINDOW, wire.OP_FWINDOW, wire.OP_SEMA))
+#: Keyed ops the placement gate checks once a map is adopted. Admission
+#: ops on a parked (mid-handoff) key serve from the handoff's fair-share
+#: envelope; everything else gated answers the routable moved error.
+_PLACEMENT_GATED_OPS = frozenset(
+    (wire.OP_ACQUIRE, wire.OP_WINDOW, wire.OP_FWINDOW, wire.OP_SEMA,
+     wire.OP_PEEK, wire.OP_SYNC))
 #: Bulk kinds the JAX server serves that this one does not yet: none.
 _UNPORTED_BULK_KINDS: dict[int, str] = {}
 
@@ -279,6 +294,10 @@ class BucketStoreServer:
             self.reservations.flight_recorder = self.flight_recorder
         else:
             self.reservations = None
+        # The elastic-membership half: the epoch-versioned placement map and
+        # the handoff state. Dormant (one attribute read a request) until a
+        # coordinator announces a map (OP_PLACEMENT_ANNOUNCE).
+        self.placement = placement.NodePlacementState()
         # Tracing rides the process-global tracer: True enables it with
         # defaults, a dict passes knobs through, None leaves it as is.
         if tracing_config is not None:
@@ -502,8 +521,8 @@ class BucketStoreServer:
     def _build_registry(self) -> MetricsRegistry:
         """The JAX server's families, in its order and with its names and
         help text, less the ones over state the port has not got (ROADMAP
-        Queue C): placement, live config, federation and the controller.
-        They are left out, not rendered as zeros."""
+        Queue C): live config, federation and the controller. They are
+        left out, not rendered as zeros."""
         reg = MetricsRegistry()
         reg.counter("connections_served", "Accepted TCP connections",
                     lambda: (self._native.counts()[1]
@@ -672,6 +691,14 @@ class BucketStoreServer:
                 self.flight_recorder.snapshot,
                 counters={"frames_recorded", "dumps_written",
                           "dumps_suppressed"})
+        reg.register_numeric_dict(
+            "placement", "placement/migration state",
+            lambda: (self.placement.stats()
+                     if self.placement.active else None),
+            counters={"moved_errors", "envelope_decisions",
+                      "handoff_deferrals", "pulls", "pushes_applied",
+                      "pushes_duplicate", "rows_imported", "aborts",
+                      "expired_aborts", "announces", "stale_announces"})
         reg.register_numeric_dict(
             "snapshot_chain", "incremental checkpoint chain",
             lambda: (self._snapshot_chain.stats()
@@ -987,15 +1014,21 @@ class BucketStoreServer:
                 if kind == wire.BULK_KIND_HBUCKET:
                     return await self._serve_bulk_hier(
                         seq, body, keys, counts, a, b, with_rem)
+                gate = (self.placement.bulk_gate(keys)
+                        if self.placement.active else None)
+                if gate is not None and gate[2].any():
+                    # Misrouted rows answer a FRAME-level moved error (no
+                    # row applied): the client refreshes its map and sends
+                    # the whole frame again.
+                    return wire.encode_response(
+                        seq, wire.RESP_ERROR, self._bulk_moved(keys, gate))
                 self._offer_bulk_hot(keys, counts)
-                if kind == wire.BULK_KIND_BUCKET:
-                    res = await self.store.acquire_many(
-                        keys, counts, a, b, with_remaining=with_rem)
+                if gate is not None:
+                    res = await self._serve_bulk_gated(
+                        keys, counts, a, b, with_rem, kind, gate)
                 else:
-                    res = await self.store.window_acquire_many(
-                        keys, counts, a, b,
-                        fixed=(kind == wire.BULK_KIND_FWINDOW),
-                        with_remaining=with_rem)
+                    res = await self._bulk_store_call(keys, counts, a, b,
+                                                      kind, with_rem)
                 return wire.encode_bulk_response(seq, res.granted,
                                                  res.remaining)
             if len(body) >= 6 and body[5] == wire.OP_ACQUIRE_H:
@@ -1012,6 +1045,11 @@ class BucketStoreServer:
                     raise wire.RemoteStoreError(
                         f"unknown op {flagged_op}") from exc
                 raise
+            if self.placement.active and op in _PLACEMENT_GATED_OPS:
+                verdict = self.placement.gate(key)
+                if verdict is not None:
+                    return self._gated_reply(seq, op, key, count, a, b,
+                                             verdict)
             hh = self.heavy_hitters
             if hh is not None and count > 0 and op in _HOT_KEYED_OPS:
                 # Hot-key telemetry, scalar lane: count > 0 gates out SEMA
@@ -1123,6 +1161,35 @@ class BucketStoreServer:
                 resp = wire.encode_response(
                     seq, wire.RESP_TEXT,
                     self._audit_json(json.loads(key) if key else {}))
+            elif op == wire.OP_PLACEMENT:
+                resp = wire.encode_response(
+                    seq, wire.RESP_TEXT,
+                    json.dumps(self.placement.snapshot_payload()))
+            elif op == wire.OP_PLACEMENT_ANNOUNCE:
+                epoch = self.placement.announce(json.loads(key))
+                if self._native is not None and self.native_tier0:
+                    # The C tier-0 cache decides hot keys without the gate;
+                    # its epsilon bound still holds, but a membership
+                    # change deserves the operator's eye.
+                    import logging
+
+                    logging.getLogger(__name__).warning(
+                        "placement epoch %d adopted with the tier-0 "
+                        "cache enabled: tier-0 keeps deciding hot keys "
+                        "until their budgets drain", epoch)
+                resp = wire.encode_response(seq, wire.RESP_VALUE,
+                                            float(epoch))
+            elif op == wire.OP_MIGRATE_PULL:
+                await faults.seam("server.migrate")
+                out = await self.placement.pull(json.loads(key), self.store)
+                resp = wire.encode_response(seq, wire.RESP_TEXT,
+                                            json.dumps(out))
+            elif op == wire.OP_MIGRATE_PUSH:
+                await faults.seam("server.migrate")
+                applied = await self.placement.push(json.loads(key),
+                                                    self.store)
+                resp = wire.encode_response(seq, wire.RESP_VALUE,
+                                            float(applied))
             else:  # HELLO past the connection gate
                 resp = wire.encode_response(
                     seq, wire.RESP_ERROR, f"unknown op {op}")
@@ -1133,11 +1200,113 @@ class BucketStoreServer:
             resp = wire.encode_response(seq, wire.RESP_ERROR, repr(exc))
         return resp
 
+    # -- the placement gate (runtime/placement.py) ----------------------------
+    def _gated_reply(self, seq: int, op: int, key: str, count: int,
+                     a: float, b: float, verdict: tuple) -> bytes:
+        """The reply to a scalar frame the placement gate stopped: a parked
+        key's admission serves from its handoff envelope; a parked PEEK,
+        SYNC, SEMA or release answers the transient handoff deferral (a
+        MOVED would name this node and send the client in a circle); a key
+        another node owns answers the routable moved error."""
+        what, info = verdict
+        if what == "envelope":
+            ekind = placement.ENVELOPE_KIND.get(op)
+            if ekind is not None and count >= 0:
+                granted, remaining = self.placement.envelope_acquire(
+                    info, key, count, a, b, ekind)
+                return wire.encode_response(seq, wire.RESP_DECISION,
+                                            granted, remaining)
+            return wire.encode_response(
+                seq, wire.RESP_ERROR, self.placement.deferral_message(info))
+        return wire.encode_response(
+            seq, wire.RESP_ERROR, self.placement.moved_message(key, info))
+
+    def _bulk_moved(self, keys, gate) -> str:
+        """The frame-level moved error of a bulk frame with misrouted rows:
+        it names the first one's owner."""
+        key = keys[int(np.nonzero(gate[2])[0][0])]
+        return self.placement.moved_message(
+            key, int(self.placement.pmap.node_of(key)))
+
+    async def _bulk_store_call(self, keys, counts, a: float, b: float,
+                               kind: int, with_rem: bool):
+        """The store call of one bulk frame's rows, by kind; the native
+        lane's residue takes it too."""
+        if kind == wire.BULK_KIND_BUCKET:
+            return await self.store.acquire_many(keys, counts, a, b,
+                                                 with_remaining=with_rem)
+        return await self.store.window_acquire_many(
+            keys, counts, a, b, fixed=(kind == wire.BULK_KIND_FWINDOW),
+            with_remaining=with_rem)
+
+    async def _serve_bulk_gated(self, keys, counts, a: float, b: float,
+                                with_rem: bool, kind: int, gate):
+        """One bulk frame under an adopted map with a parked row and no
+        misrouted one (:func:`~.placement.serve_gated_bulk`). Row order is
+        kept."""
+        from distributedratelimiting.redis_tpu_torch.runtime.store import (
+            BulkAcquireResult,
+        )
+
+        n = len(keys)
+        granted = np.zeros(n, bool)
+        remaining = np.zeros(n, np.float32) if with_rem else None
+        await placement.serve_gated_bulk(
+            self.placement, gate, keys, counts, np.arange(n), a, b, kind,
+            lambda ks, cs: self._bulk_store_call(ks, cs, a, b, kind,
+                                                 with_rem),
+            granted, remaining)
+        return BulkAcquireResult(granted, remaining)
+
+    @staticmethod
+    def _hier_envelope(env_acquire, tenant: str, key: str, count: int,
+                       a: float, b: float, ta: float, tb: float,
+                       priority: int) -> tuple[bool, float]:
+        """Two-level envelope serving for a parked tenant: the child's
+        envelope, then the tenant's, granted iff both (a child debit on a
+        tenant deny stays debited: the conservative direction). The
+        priority shed order applies at both levels
+        (:func:`~.admission.shed_allows`)."""
+        g1, r1 = env_acquire(key, count, a, b, "bucket", priority)
+        if not g1:
+            return False, r1
+        g2, r2 = env_acquire(tenant, count, ta, tb, "bucket", priority)
+        return g2, min(r1, r2)
+
+    def _tenant_envelope(self, handoff):
+        """The envelope acquire of one parked tenant's handoff, in the
+        shape :meth:`_hier_envelope` calls."""
+        return (lambda k, c, pa, pb, kind, prio:
+                self.placement.envelope_acquire(handoff, k, c, pa, pb,
+                                                kind, prio))
+
+    def _tenant_deferral(self, seq: int, handoff) -> bytes:
+        return wire.encode_response(
+            seq, wire.RESP_ERROR,
+            self.placement.deferral_message(handoff, "tenant"))
+
     async def _serve_hierarchical(self, body: bytes) -> bytes:
         """One ``OP_ACQUIRE_H`` frame: two-level tenant → key weighted-cost
-        admission, one store call (one launch on a card store)."""
+        admission, one store call (one launch on a card store). The
+        placement gate keys on the TENANT: two-level traffic routes by
+        tenant (the parent bucket lives whole on one node)."""
         seq, key, count, a, b, tenant, ta, tb, priority = (
             wire.decode_hierarchical_request(body))
+        if self.placement.active:
+            verdict = self.placement.gate(tenant)
+            if verdict is not None:
+                what, info = verdict
+                if what == "envelope" and count >= 0:
+                    granted, remaining = self._hier_envelope(
+                        self._tenant_envelope(info), tenant, key, count,
+                        a, b, ta, tb, priority)
+                    return wire.encode_response(
+                        seq, wire.RESP_DECISION, granted, remaining)
+                if what == "envelope":
+                    return self._tenant_deferral(seq, info)
+                return wire.encode_response(
+                    seq, wire.RESP_ERROR,
+                    self.placement.moved_message(tenant, info))
         hh = self.heavy_hitters
         if hh is not None and count > 0:
             # Cost-weighted: an N-token admission weighs N in the sketch,
@@ -1160,6 +1329,29 @@ class BucketStoreServer:
         call."""
         tenant, ta, tb, priority = wire.bulk_hier_tail(body)
         counts_np = np.asarray(counts, np.int64)
+        if self.placement.active:
+            # Frame-level, keyed on the tenant (the frame's routing
+            # identity): a moved tenant answers MOVED, a parked one serves
+            # every row from its handoff envelope.
+            verdict = self.placement.gate(tenant)
+            if verdict is not None:
+                what, info = verdict
+                if what != "envelope":
+                    return wire.encode_response(
+                        seq, wire.RESP_ERROR,
+                        self.placement.moved_message(tenant, info))
+                env_acquire = self._tenant_envelope(info)
+                n = len(keys)
+                granted = np.zeros(n, bool)
+                remaining = np.zeros(n, np.float32) if with_rem else None
+                for i in range(n):
+                    g, rem = self._hier_envelope(
+                        env_acquire, tenant, keys[i], int(counts_np[i]),
+                        a, b, ta, tb, priority)
+                    granted[i] = g
+                    if remaining is not None:
+                        remaining[i] = rem
+                return wire.encode_bulk_response(seq, granted, remaining)
         self._offer_bulk_hot(keys, counts_np)
         res = await self.store.acquire_hierarchical_many(
             [tenant] * len(keys), keys, counts_np, ta, tb, a, b,
@@ -1206,21 +1398,41 @@ class BucketStoreServer:
         except (TypeError, ValueError):
             deadline_s = None
         # Not ported here, as the subsystems behind them are not: the
-        # live-config gate on both levels, the drain envelope, and the
-        # placement MOVED / envelope answers keyed on the tenant.
+        # live-config gate on both levels and the drain envelope.
         led = self.reservations
-        if led is None:
-            return wire.encode_response(
-                seq, wire.RESP_ERROR,
-                "this server has no reservation ledger")
         est = float(estimate) if estimate else None
-        if est is None:
+        if est is None and led is not None:
             est = led.prior.estimate(tenant, priority)
             if est is None:
                 est = led.default_estimate
         # fallback_charge floors an estimate-less charge at the ledger's
-        # DEFAULT_ESTIMATE (the charge the sketch and the pool route see).
+        # DEFAULT_ESTIMATE (the charge the sketch, the envelope and the
+        # pool route see).
         charge = reservations.fallback_charge(est)
+        if self.placement.active:
+            # Keyed on the TENANT (reservations route with the two-level
+            # traffic they budget). An envelope-served reserve takes NO
+            # ledger entry: its settle answers the counted "unknown"
+            # no-op, so the hold is never refunded (conservative).
+            verdict = self.placement.gate(tenant)
+            if verdict is not None:
+                what, info = verdict
+                if what != "envelope":
+                    return wire.encode_response(
+                        seq, wire.RESP_ERROR,
+                        self.placement.moved_message(tenant, info))
+                granted, remaining = self._hier_envelope(
+                    self._tenant_envelope(info), tenant, key, charge, a, b,
+                    ta, tb, priority)
+                return wire.encode_response(seq, wire.RESP_TEXT, json.dumps(
+                    {"granted": bool(granted),
+                     "reserved": float(charge) if granted else 0.0,
+                     "remaining": float(remaining), "debt": 0.0,
+                     "envelope": True}))
+        if led is None:
+            return wire.encode_response(
+                seq, wire.RESP_ERROR,
+                "this server has no reservation ledger")
         if attempt:
             self.retry_attempts_seen += 1
             if self.retry_shed_enabled:
@@ -1300,8 +1512,19 @@ class BucketStoreServer:
         except (TypeError, ValueError):
             return wire.encode_response(seq, wire.RESP_ERROR,
                                         "settle actual must be a number")
-        # Not ported here: the drain relay to a successor and the
-        # placement deferral / MOVED answers.
+        # Not ported here: the drain relay to a successor (ROADMAP A 7).
+        if self.placement.active:
+            verdict = self.placement.gate(tenant)
+            if verdict is not None:
+                what, info = verdict
+                if what == "envelope":
+                    # Parked mid-handoff: the ledger rows already left with
+                    # the export; the retry lands on the new owner after
+                    # the commit (a settle is retry-safe).
+                    return self._tenant_deferral(seq, info)
+                return wire.encode_response(
+                    seq, wire.RESP_ERROR,
+                    self.placement.moved_message(tenant, info))
         if self.reservations is None:
             return wire.encode_response(
                 seq, wire.RESP_ERROR,
@@ -1322,13 +1545,17 @@ class BucketStoreServer:
         )
 
         if self._save_task is None or self._save_task.done():
+            # Placement-versioned: a rejoining node restoring this file can
+            # be held to the cluster's current epoch.
+            epoch = (self.placement.epoch if self.placement.active
+                     else None)
             if self._snapshot_chain is not None:
                 self._save_task = asyncio.ensure_future(asyncio.to_thread(
-                    self._snapshot_chain.save, self.store))
+                    self._snapshot_chain.save, self.store, epoch))
             else:
                 self._save_task = asyncio.ensure_future(asyncio.to_thread(
                     checkpoint.save_snapshot, self.store,
-                    self.snapshot_path))
+                    self.snapshot_path, placement_epoch=epoch))
         await asyncio.shield(self._save_task)
 
     def _stats_json(self) -> str:
@@ -1397,6 +1624,8 @@ class BucketStoreServer:
                                 "samples": hist.total}
         if stages:
             payload["stages"] = stages
+        if self.placement.active:
+            payload["placement"] = self.placement.stats()
         if self._snapshot_chain is not None:
             payload["snapshot_chain"] = self._snapshot_chain.stats()
             dirty = getattr(self.store, "dirty_stats", None)
@@ -1534,6 +1763,12 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--sweep-period", type=float, default=0.0,
                         help="active TTL-expiry period in seconds "
                         "(0 = on-demand sweeps only)")
+    parser.add_argument("--expect-placement-epoch", type=int, default=None,
+                        help="refuse a startup snapshot whose recorded "
+                        "placement epoch differs (typed mismatch → "
+                        "init-on-miss): a node rejoining a resharded "
+                        "cluster must not serve key memberships from a "
+                        "retired epoch")
     parser.add_argument("--auth-token", default=None,
                         help="shared secret; when set, clients must HELLO "
                         "with it before any other op (≙ Redis AUTH)")
@@ -1677,7 +1912,9 @@ def main(argv: list[str] | None = None) -> None:
                     # Chain-aware: applies any .delta.* files beside the
                     # base (exactly load_snapshot when there are none).
                     deltas = checkpoint.load_snapshot_chain(
-                        store, args.snapshot_path)
+                        store, args.snapshot_path,
+                        expected_placement_epoch=(
+                            args.expect_placement_epoch))
                 except checkpoint.SnapshotCorruptError as exc:
                     # Init-on-miss: a torn snapshot or a broken chain
                     # (SnapshotChainError) must not keep the store down —

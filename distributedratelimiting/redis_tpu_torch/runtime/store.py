@@ -1,15 +1,15 @@
 """The bucket store — where rate-limit state lives and decisions execute.
 
-The JAX package's ``runtime/store.py`` on PyTorch, all but the migration
-export:
+The JAX package's ``runtime/store.py`` on PyTorch:
 
 - :class:`BucketStore` — the storage seam (abstract). The bucket, counter,
   window (sliding and fixed) and semaphore methods are the contract; the
   two-level (tenant → key) admission methods default to a sequential
   compose; ``debit_many`` is for stores that host tier-0 replicas;
   ``reserve`` and ``settle`` go through the store's one
-  :class:`~.reservations.ReservationLedger`; ``export_entries`` is not
-  ported yet and raises ``NotImplementedError``.
+  :class:`~.reservations.ReservationLedger`; ``export_entries`` is the
+  live-migration export (:mod:`~.placement`), the snapshot filtered by
+  key.
 - :class:`InProcessBucketStore` — the serial, pure-Python store with the
   same semantics, one "script" per request and no batching, in Python
   floats: the differential oracle of the device store and the bench's
@@ -547,6 +547,17 @@ class BucketStore(abc.ABC):
     @abc.abstractmethod
     def restore(self, snap: dict) -> None: ...
 
+    def export_entries(self, keep) -> dict:
+        """Normalized per-key state for the keys ``keep`` selects — the
+        live-migration handoff unit (:mod:`~.placement`): this store's
+        :meth:`snapshot` (under the store lock, read back after every
+        launch before it) filtered through the schema-aware extractor.
+        The matching import is :func:`placement.import_entries`, whose
+        generic lane replays buckets through ``debit_many``."""
+        from distributedratelimiting.redis_tpu_torch.runtime import placement
+
+        return placement.extract_entries(self.snapshot(), keep)
+
 
 def _not_ported(name: str):
     def method(self, *args, **kwargs):
@@ -557,9 +568,6 @@ def _not_ported(name: str):
     method.__name__ = name
     return method
 
-
-# The rest of the storage seam: the migration export.
-BucketStore.export_entries = _not_ported("export_entries")
 
 
 def start_periodic_sweeper(sweep_all: Callable[[], None],
@@ -2367,9 +2375,9 @@ class InProcessBucketStore(BucketStore):
         pass
 
     async def import_entries(self, entries: dict) -> int:
-        """Exact merge lane for migration handoffs (the JAX package's
-        generic replay in ``placement.import_entries`` is for stores whose
-        state only the kernels can write). Conservative on collisions — a
+        """Exact merge lane for migration handoffs (the generic replay in
+        :func:`~.placement.import_entries` is for stores whose state only
+        the kernels can write). Conservative on collisions — a
         re-pushed batch or pre-existing local state must never inflate
         a budget: buckets keep the smaller balance, windows sum their
         counts (clamped to the limit), counters and semaphores keep the

@@ -8,8 +8,9 @@ the sketch, the gauges in OpenMetrics, the passthrough fall-through, the
 ``native_bulk=False`` knob, windows and verdict-only frames) and
 ``tests/test_native_parity_fuzz.py``'s byte-level fuzz between the port's
 native and asyncio servers over equal stores on lockstep ManualClocks (the
-placement and live-config arm waits for ROADMAP A 9 and A 4). The card
-store runs on the CPU (``DeviceBucketStore(device="cpu")``).
+placement arm is in ``tests/test_torch_reshard.py``; the live-config arm
+waits for ROADMAP A 4). The card store runs on the CPU
+(``DeviceBucketStore(device="cpu")``).
 """
 
 from __future__ import annotations

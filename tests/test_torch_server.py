@@ -343,12 +343,21 @@ def test_unported_ops_answer_without_the_old_peer_words():
             # admission were ported.
             assert not pserver._UNPORTED_BULK_KINDS
             assert not {pw.OP_SEMA, pw.OP_ACQUIRE_H} & pserver._UNPORTED_OPS
-            # Since the observability plane: only placement, migration,
-            # live config and federation remain.
+            # Since the placement plane: only live config and federation
+            # remain; the four placement ops answer as a JAX server does.
             assert pserver._UNPORTED_OPS == {
-                pw.OP_PLACEMENT, pw.OP_PLACEMENT_ANNOUNCE,
-                pw.OP_MIGRATE_PULL, pw.OP_MIGRATE_PUSH, pw.OP_CONFIG,
-                pw.OP_FED_LEASE, pw.OP_FED_RENEW, pw.OP_FED_RECLAIM}
+                pw.OP_CONFIG, pw.OP_FED_LEASE, pw.OP_FED_RENEW,
+                pw.OP_FED_RECLAIM}
+            placement_frames = [pw.encode_request(
+                300 + i, op, "{}", 1, 5.0, 1.0) for i, op in enumerate(
+                    (pw.OP_PLACEMENT, pw.OP_PLACEMENT_ANNOUNCE,
+                     pw.OP_MIGRATE_PULL, pw.OP_MIGRATE_PUSH))]
+            got, closed = await _raw(srv.address, *placement_frames)
+            assert not closed
+            async with _Server("jax") as jsrv:
+                want, _ = await _raw(jsrv.address, *placement_frames)
+            assert got == want
+            assert all("not served" not in str(v) for v in got.values())
             frames = []
             for op in sorted(pserver._UNPORTED_OPS):
                 frames.append(pw.encode_request(

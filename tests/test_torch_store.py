@@ -187,11 +187,28 @@ def test_blocking_and_single_bucket_paths():
 
 
 def test_unported_methods_raise():
-    """Only the migration export is left unported; the reservation lane,
-    the semaphores, two-level admission and the debit work."""
+    """Nothing of the storage seam is left unported: the migration export
+    equals the JAX store's on the same traffic (it raised before the
+    placement plane was ported), and the reservation lane, the
+    semaphores, two-level admission and the debit work."""
     store = _port(ManualClock(0))
-    with pytest.raises(NotImplementedError, match="export_entries"):
-        store.export_entries()
+    jstore = _jax(JClock(0))
+
+    async def traffic(st):
+        await st.acquire_many(["a", "b", "a", "c"], [1, 2, 3, 4], 10.0, 2.0)
+        await st.window_acquire("w", 3, 10.0, 1.0)
+        await st.sync_counter("n", 4.0, 1.0)
+        await st.concurrency_acquire("s", 2, 5)
+
+    asyncio.run(traffic(store))
+    asyncio.run(traffic(jstore))
+
+    def keep(k):
+        return k != "c"
+
+    assert store.export_entries(keep) == jstore.export_entries(keep)
+    assert sorted(r[0] for r in store.export_entries(keep)["buckets"]) == [
+        "a", "b"]
 
     async def lane():
         r = await store.reserve("r1", "t", "k", 2.0, 9.0, 1.0, 5.0, 1.0)
