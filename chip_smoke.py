@@ -179,7 +179,7 @@ Phases (any failure raises, and the script exits non-zero):
    (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
    ``serving_p99_instant`` sections once each with short windows (no key
    null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
-   alone (``--paths`` takes any of the paths of phases 3–10 and 12–16,
+   alone (``--paths`` takes any of the paths of phases 3–10 and 12–17,
    comma-separated).
 9. The observability and overload plane (``--paths observability``), at
    the server cell's size: ``BucketStoreServer(observability=True,
@@ -222,8 +222,8 @@ Phases (any failure raises, and the script exits non-zero):
    every round grants all, then denies all; each key grants exactly 5);
    cap-5 × 32 → 5 on both lanes; windows over the wire (1M keys as
    ``BULK_KIND_WINDOW`` frames, 4,000 ``OP_WINDOW`` / ``OP_FWINDOW``
-   requests, cap-5 × 32 → 5), ``OP_CONFIG`` (still unported) answering
-   "not served by this server yet" and raw ``OP_RESERVE`` / ``OP_SETTLE``
+   requests, cap-5 × 32 → 5), a raw ``OP_CONFIG`` fetch answering
+   ``{"version": 0, "rules": []}`` and raw ``OP_RESERVE`` / ``OP_SETTLE``
    frames (a hold of 10 settled at 4); 4,000 ``OP_SEMA`` acquires (cap-5 × 32
    → 5 a round) and their releases; 4,000 ``OP_ACQUIRE_H`` requests on the
    LLM rows and the 2^16 rows as ``BULK_KIND_HBUCKET`` frames (one per
@@ -365,8 +365,37 @@ Phases (any failure raises, and the script exits non-zero):
    on owned, moved and parked keys answer byte for byte alike; the
    asyncio one's ``OP_SAVE`` stamps the epoch and a load held to another
    raises ``PlacementMismatchError``.
-17. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
-   of phases 3–10 and 12–16 (``launches_by_path``; counts set to 0 before each
+17. Live config (``--paths config``; ``runtime/liveconfig.py``, the server's
+   ``OP_CONFIG`` and gates, the client's chase): one ``BucketStoreServer``
+   over a card ``DeviceBucketStore`` of 2^24 slots on a frozen ManualClock,
+   the exact cell's deployment. 1,000,000 bucket keys (cut from
+   BASELINE's 10,000,000: at 2,000,000 the whole script ran 1,130 s) at
+   capacity 10 with seeded
+   spends of 0-10, 100,000 sliding and 100,000 fixed windows with seeded
+   counts, loaded over the wire; a fresh node's fetch reads version 0.
+   Version 1 cuts the bucket capacity to 6: the commit's seconds, the store
+   lock's longest hold (the snapshot), the rebase's ``debit_packed``
+   launches and CUDA-event ms, ``rebased_rows`` 1,000,000; while it runs a
+   client asks one unit a key a round on 10,000 keys at the old config
+   until they deny: admitted <= the pre-commit balance + the one round in
+   flight at the flip, key by key (the over-admission and the longest
+   round, the serving stall, printed). Every bucket on the new config
+   equals a host float32 oracle of the rebase (``max(0, 6 - spent)``)
+   through the export, and 10,000 PEEKs at the old config over the wire;
+   versions 2 and 3 (a sliding and a fixed window cut) replay to
+   ``floor(min(count, limit))`` in window flushes; a hold reserved before
+   the commit settles after it on the new table; 4 fresh clients take one
+   moved error each, then translate; the moved text equals
+   ``moved_message``; a revert (version 4) deletes the fixed window's
+   self-rule; a stale prepare raises ``StaleConfigError`` over the wire. A
+   native server with tier-0 over a card store of its own (JAX
+   ``tests/test_upgrade.py:858``'s shape): the pump retires the replica
+   (``retired_config_rows`` >= 1), the new table accounts for every grant,
+   and its batch-lane and bulk-lane moved answers equal an asyncio server's
+   byte for byte. ``OP_STATS``' ``config``, the ``drl_config_*`` families, a
+   clean audit.
+18. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
+   of phases 3–10 and 12–17 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
    two-level kernel and the debit > 0 on the reservation path, every
    store kernel but the window flushes > 0 on the checkpoint path, the
@@ -375,7 +404,9 @@ Phases (any failure raises, and the script exits non-zero):
    the debit > 0 on the native path, every fp kernel > 0 on the fp path,
    ``global_tier``, the two scans and the fp decision > 0 on the mesh path,
    the debit, the window, counter and semaphore flushes, the bucket flush
-   and the bucket scan > 0 on the placement path, and every kernel that a wire op reaches > 0 on the server path — all but
+   and the bucket scan > 0 on the placement path, the debit, the window
+   flush, the bucket flush and the bucket scan > 0 on the config path, and
+   every kernel that a wire op reaches > 0 on the server path — all but
    the bench's ``acquire_scan24`` and ``acquire_batch``, the fp kernels,
    whose store the fp path serves, and ``global_tier``, whose the mesh path
    serves) and their sum
@@ -383,7 +414,7 @@ Phases (any failure raises, and the script exits non-zero):
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-18. Last line: ``{"ok": true, "device": {...}}``.
+19. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -3057,10 +3088,10 @@ async def server_path(torch, ck, pkg, card: str) -> dict:
 
     _, kind, vals = await _raw_request(addr, wire.encode_request(
         77, wire.OP_CONFIG, "{}", 1, 5.0, 0.0))
-    if kind != wire.RESP_ERROR or "not served by this server yet" \
-            not in vals[0]:
-        raise AssertionError(f"OP_CONFIG answered {kind} {vals}")
-    print(f"server OP_CONFIG (still unported): {vals[0]!r}")
+    if kind != wire.RESP_TEXT or json.loads(vals[0]) != {"version": 0,
+                                                         "rules": []}:
+        raise AssertionError(f"OP_CONFIG fetch answered {kind} {vals}")
+    print(f"server OP_CONFIG fetch: {vals[0]!r}")
     # OP_RESERVE / OP_SETTLE as raw JSON frames: a hold of 10, settled at
     # 4 (the refund of 6 is one debit launch a level).
     replies = []
@@ -8314,6 +8345,498 @@ async def placement_path(torch, ck, pkg, card: str) -> dict:
     return counts_out
 
 
+# -- phase 17: live config ----------------------------------------------------
+
+CFG_SEED = 2020
+#: Bucket keys at the retired config: 1M, cut from BASELINE's 10M. A
+#: commit enumerates the whole store, as a pull does: at 2M keys (the
+#: placement path's cut) the path took 115-116 s and the whole script
+#: 1,130 s, past the 1,100 s this script keeps under its 1,200 s limit.
+CFG_KEYS = 1_000_000
+CFG_CALL = 1_000_000          # keys a bulk call over the wire
+CFG_OLD = (10.0, 1.0)         # the bucket config version 1 retires
+CFG_NEW = (6.0, 1.0)          # its replacement: capacity cut
+CFG_WINDOW_KEYS = 100_000     # sliding windows, and as many fixed ones
+CFG_WINDOW = (50.0, 60.0)     # limit, seconds (both kinds)
+CFG_WINDOW_NEW = (30.0, 60.0)  # version 2 (sliding)
+CFG_FWINDOW_NEW = (20.0, 60.0)  # version 3 (fixed); version 4 reverts it
+CFG_CONC_KEYS = 10_000        # asked at the old config while v1 commits
+CFG_PEEKS = 10_000
+CFG_FRESH = 4                 # fresh clients on the old config
+CFG_TENANT = (1e6, 1e-9)      # the hold's tenant budget (never retired)
+CFG_HOLD = 4.0                # the hold on keys[0], settled at 1
+CFG_T0 = ((1000.0, 1e-9), (500.0, 1e-9))  # tier-0's retired config
+
+
+async def _cfg_native_part(pkg, lc, wire, say) -> int:
+    """Check 8: a native server with tier-0 on over a card store of its own
+    (JAX ``tests/test_upgrade.py:858-910``'s shape) beside an asyncio server
+    over another; the same mutation on both. Tier-0 retires the replica
+    within a sync interval, the new table accounts for every grant, and the
+    batch-lane and bulk-lane moved answers equal the asyncio server's byte
+    for byte. Returns the pump's retired rows."""
+    from distributedratelimiting.redis_tpu_torch.runtime.native_frontend import (  # noqa: E501
+        Tier0Config,
+    )
+
+    (old, new) = CFG_T0
+    clock = pkg.ManualClock(1_000_000)
+    stores = [pkg.DeviceBucketStore(device="cuda", n_slots=2**16,
+                                    clock=clock) for _ in range(2)]
+    servers = [pkg.BucketStoreServer(
+        stores[0], host="127.0.0.1", port=0, native_frontend=True,
+        native_tier0=Tier0Config(min_budget=8.0, sync_interval_s=0.02,
+                                 max_stale_s=10.0)),
+        pkg.BucketStoreServer(stores[1], host="127.0.0.1", port=0)]
+    addrs = [await s.start() for s in servers]
+    c = pkg.RemoteBucketStore(address=addrs[0], coalesce_requests=False,
+                              request_timeout_s=60.0)
+    try:
+        for _ in range(200):
+            if not (await c.acquire("hot", 1, *old)).granted:
+                raise AssertionError("config tier-0: a hot ask denied")
+        m = servers[0]._native.t0_metrics
+        deadline = time.monotonic() + 30.0
+        while m.syncs < 1:  # a replica installed, its grants synced
+            if time.monotonic() > deadline:
+                raise AssertionError("config tier-0: no replica synced")
+            await asyncio.sleep(0.01)
+        t = time.perf_counter()
+        for n, payload in enumerate((
+                {"prepare": {"kind": "bucket", "old": list(old),
+                             "new": list(new)}, "version": 1},
+                {"commit": 1})):
+            frame = wire.encode_request(50 + n, wire.OP_CONFIG,
+                                        json.dumps(payload))
+            rs = [await _frames(a, [frame]) for a in addrs]
+            if rs[0] != rs[1]:
+                raise AssertionError(f"config tier-0: {rs}")
+        # Right after the commit stale frames may still be served from the
+        # replica's last-acked headroom (the one-sync-interval epsilon).
+        for _ in range(100):
+            if not (await c.acquire("hot", 1, *old)).granted:
+                raise AssertionError("config tier-0: a stale ask denied")
+        while m.retired_config_rows < 1:
+            if time.perf_counter() - t > 30.0:
+                raise AssertionError("config tier-0: the pump never retired "
+                                     "the old replica")
+            await asyncio.sleep(0.005)
+        retire_s = time.perf_counter() - t
+        if not (await c.acquire("hot", 1, *old)).granted:
+            raise AssertionError("config tier-0: the chased ask denied")
+        # Every grant (301) on the new table, once the pump has synced.
+        deadline = time.monotonic() + 30.0
+        while stores[0].peek_blocking("hot", *new) > new[0] - 301 + 16:
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    "config tier-0: the new table holds "
+                    f"{stores[0].peek_blocking('hot', *new)}")
+            await asyncio.sleep(0.01)
+        bal = stores[0].peek_blocking("hot", *new)
+        if abs(bal - (new[0] - 301)) > 16:
+            raise AssertionError(f"config tier-0: balance {bal}")
+        frames = [wire.encode_request(60, wire.OP_ACQUIRE, "hot", 1, *old),
+                  wire.encode_bulk_request(61, [b"hot", b"cold"],
+                                           np.ones(2, np.int64), *old)]
+        got = [{}, {}]
+        for side, a in enumerate(addrs):
+            for f in frames:  # one at a time: the two native lanes apart
+                got[side].update(await _frames(a, [f]))
+        want = lc.moved_message("bucket", old, new, 1)
+        for seq in (60, 61):
+            if got[0][seq] != got[1][seq]:
+                raise AssertionError(
+                    f"config tier-0: native {wire.decode_response(got[0][seq])}"
+                    f" != asyncio {wire.decode_response(got[1][seq])}")
+            _, kind, vals = wire.decode_response(got[0][seq])
+            if kind != wire.RESP_ERROR or vals[0] != want:
+                raise AssertionError(f"config tier-0: {vals}")
+        say(f"tier-0 ({CFG_T0[0]} -> {CFG_T0[1]}): the pump retired the "
+            f"replica within {retire_s * 1e3:.0f} ms of the commit and 100 "
+            f"stale asks (retired_config_rows {m.retired_config_rows}), the "
+            "new table "
+            f"{bal:.0f} = {new[0]:.0f} - 301 grants (within 16); the batch "
+            "lane's and the bulk lane's moved answers equal the asyncio "
+            "server's byte for byte")
+        return int(m.retired_config_rows)
+    finally:
+        await c.aclose()
+        for s in servers:
+            await s.aclose()
+        for s in stores:
+            await s.aclose()
+
+
+async def config_path(torch, ck, pkg, card: str) -> dict:
+    """Live config (phase 17): one ``BucketStoreServer`` over a card
+    ``DeviceBucketStore`` of 2^24 slots on a frozen ManualClock, 1M bucket
+    keys at one config with seeded spends, 100,000 sliding and 100,000 fixed
+    windows with seeded counts, loaded over the wire; four committed
+    mutations through ``OP_CONFIG`` (bucket capacity cut, a sliding and a
+    fixed window cut, the fixed one reverted), each rebase held to a host
+    float32 oracle, asks at the old config while the first commits, fresh
+    clients' one chase, the moved text, a stale prepare, a hold settled
+    across the commit, tier-0's retire on a native server, ``OP_STATS``,
+    ``/metrics`` and the audit. Returns the path's launches."""
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        liveconfig as lc,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(CFG_SEED)
+    ck.reset_launches()
+
+    def say(line: str) -> None:
+        print(f"config path ({card}) "
+              f"[{time.perf_counter() - t_path:.1f} s]: {line}", flush=True)
+
+    def rule(kind, old, new) -> dict:
+        return {"kind": kind, "old": list(old), "new": list(new)}
+
+    clock = pkg.ManualClock(1_000_000)
+    store = pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                  clock=clock)
+    server = pkg.BucketStoreServer(store, host="127.0.0.1", port=0)
+    addr = await server.start()
+    cli = pkg.RemoteBucketStore(address=addr, request_timeout_s=900.0)
+    solo = pkg.RemoteBucketStore(address=addr, coalesce_requests=False,
+                                 request_timeout_s=900.0)
+    extra = []
+    real_debit = ck.debit_packed
+    try:
+        # -- check 1: a fresh node's fetch.
+        got = await cli.config_fetch()
+        if got != {"version": 0, "rules": []}:
+            raise AssertionError(f"config fetch: {got}")
+        # -- the load: every key through acquire_many over the wire.
+        keys = [f"ck{i}" for i in range(CFG_KEYS)]
+        spend = rng.integers(0, int(CFG_OLD[0]) + 1, CFG_KEYS)
+        spend[0] = 0  # keys[0] carries the hold (check 7)
+        t = time.perf_counter()
+        for pos in range(0, CFG_KEYS, CFG_CALL):
+            res = await cli.acquire_many(
+                keys[pos:pos + CFG_CALL], spend[pos:pos + CFG_CALL],
+                *CFG_OLD, with_remaining=False)
+            if res.granted_count != min(CFG_CALL, CFG_KEYS - pos):
+                raise AssertionError("config load: a fresh key was denied")
+        load_s = time.perf_counter() - t
+        wkeys = [f"cw{i}" for i in range(CFG_WINDOW_KEYS)]
+        wcount = rng.integers(1, int(CFG_WINDOW[0]) + 1, CFG_WINDOW_KEYS)
+        fcount = rng.integers(1, int(CFG_WINDOW[0]) + 1, CFG_WINDOW_KEYS)
+        for counts, fixed in ((wcount, False), (fcount, True)):
+            res = await cli.window_acquire_many(wkeys, counts, *CFG_WINDOW,
+                                                fixed=fixed,
+                                                with_remaining=False)
+            if res.granted_count != CFG_WINDOW_KEYS:
+                raise AssertionError("config load: a window was denied")
+        hold = await solo.reserve("cfg-hold", "ct", keys[0], CFG_HOLD,
+                                  *CFG_TENANT, *CFG_OLD, ttl_s=3600.0)
+        if not hold.granted:
+            raise AssertionError(f"config hold: {hold}")
+        say(f"{CFG_KEYS:,} bucket keys at {CFG_OLD} loaded over the wire in "
+            f"{load_s:.1f} s ({CFG_KEYS / load_s / 1e6:.2f} M rows/s), "
+            f"{CFG_WINDOW_KEYS:,} sliding and {CFG_WINDOW_KEYS:,} fixed "
+            f"windows at {CFG_WINDOW}; fetch {got}; a hold of {CFG_HOLD} on "
+            "keys[0]")
+
+        # -- checks 2 and 5: version 1 commits while a client asks at the
+        # old config.
+        conc = np.sort(rng.choice(np.arange(1, CFG_KEYS), CFG_CONC_KEYS,
+                                  replace=False))
+        conc_keys = [keys[i] for i in conc]
+        before = (CFG_OLD[0] - spend[conc]).astype(np.int64)
+        admitted = np.zeros(CFG_CONC_KEYS, np.int64)
+        asker = pkg.RemoteBucketStore(address=addr, coalesce_requests=False,
+                                      request_timeout_s=900.0)
+        extra.append(asker)
+        ones = np.ones(CFG_CONC_KEYS, np.int64)
+        lat = []
+
+        async def ask_round():
+            t = time.perf_counter()
+            res = await asker.acquire_many(conc_keys, ones, *CFG_OLD,
+                                           with_remaining=False)
+            lat.append(time.perf_counter() - t)
+            got = np.asarray(res.granted, np.int64)
+            admitted[:] += got
+            return int(got.sum())
+
+        await ask_round()  # one round on the old table before the commit
+        pre_rounds = len(lat)
+        if await solo.config_announce({"prepare": rule("bucket", CFG_OLD,
+                                                       CFG_NEW),
+                                       "version": 1}) != 0:
+            raise AssertionError("config prepare: the version moved")
+        timer = store._lock = _HoldTimer(store._lock)
+        launch_before = dict(ck.launches)
+        debit_ms = [0.0, 0]
+
+        def timed_debit(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_debit(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            debit_ms[0] += start.elapsed_time(end)
+            debit_ms[1] += 1
+            return out
+
+        done = asyncio.Event()
+
+        async def asks():
+            while True:
+                granted = await ask_round()
+                if done.is_set() and granted == 0:
+                    return
+
+        ck.debit_packed = timed_debit
+        task = asyncio.ensure_future(asks())
+        try:
+            t = time.perf_counter()
+            version = await solo.config_announce({"commit": 1})
+            commit_s = time.perf_counter() - t
+            during = lat[pre_rounds:]
+            done.set()
+            await task
+        finally:
+            ck.debit_packed = real_debit
+        if version != 1:
+            raise AssertionError(f"config commit: version {version}")
+        commit_launches = {k: v - launch_before.get(k, 0)
+                           for k, v in ck.launches.items()
+                           if v > launch_before.get(k, 0)}
+        hold_s = timer.longest
+        rebased = server.liveconfig.rebased_rows
+        if rebased != CFG_KEYS:
+            raise AssertionError(f"config commit: rebased_rows {rebased}")
+        if debit_ms[1] <= 0:
+            raise AssertionError("config commit: no debit_packed launch")
+        over = admitted - before
+        if (over > 1).any():
+            raise AssertionError(
+                f"config commit: {int((over > 1).sum())} keys admitted more "
+                "than their balance plus the one round in flight")
+        say(f"version 1 {CFG_OLD} -> {CFG_NEW}: commit {commit_s:.2f} s, "
+            f"the store lock's longest hold {hold_s:.2f} s, rebased_rows "
+            f"{rebased:,}; the rebase's debit_packed launches "
+            f"{debit_ms[1]}, {debit_ms[0]:.3f} ms of CUDA events; launches "
+            f"during the commit {json.dumps(commit_launches)}")
+        say(f"asks at the old config on {CFG_CONC_KEYS:,} keys, one round "
+            f"of one unit a key at a time: {len(lat)} rounds "
+            f"({len(during)} while the commit ran, the longest "
+            f"{max(during, default=0.0):.2f} s: the serving stall), admitted "
+            f"{int(admitted.sum()):,} against pre-commit balances "
+            f"{int(before.sum()):,}; over-admission (admitted - balance) "
+            f"max {int(over.max())}, {int((over > 0).sum())} keys over by "
+            f"1, {int(over[over > 0].sum())} tokens in all (JAX's envelope: "
+            "the requests in flight when the gate flipped, one a key)")
+
+        # -- check 3: every bucket against the host float32 oracle.
+        t = time.perf_counter()
+        entries = await asyncio.to_thread(store.export_entries,
+                                          lambda _k: True)
+        export_s = time.perf_counter() - t
+        pos_of = {k: i for i, k in enumerate(keys)}
+        tok_old = np.float32(CFG_OLD[0]) - spend.astype(np.float32)
+        spent = (np.float32(CFG_OLD[0]) - tok_old).astype(np.float32)
+        oracle = np.maximum(np.float32(0.0),
+                            np.float32(CFG_NEW[0]) - spent)
+        skip = np.zeros(CFG_KEYS, bool)
+        skip[conc] = True
+        skip[0] = True
+        seen = np.zeros(CFG_KEYS, bool)
+        bad = 0
+        for key, cap, rate, tokens, _age in entries["buckets"]:
+            if (cap, rate) != CFG_NEW:
+                continue
+            i = pos_of.get(key)
+            if i is None or skip[i]:
+                continue
+            seen[i] = True
+            if np.float32(tokens) != oracle[i]:
+                bad += 1
+        plain = ~skip
+        # A key that spent nothing was never debited: it is born full.
+        missing = plain & (spend > 0) & ~seen
+        extra_rows = plain & (spend == 0) & seen
+        if bad or missing.any() or extra_rows.any():
+            raise AssertionError(
+                f"config rebase: {bad} balances off the oracle, "
+                f"{int(missing.sum())} spent keys missing, "
+                f"{int(extra_rows.sum())} unspent keys debited")
+        sample = rng.choice(np.nonzero(plain)[0], CFG_PEEKS, replace=False)
+        peeker = pkg.RemoteBucketStore(address=addr, coalesce_requests=False,
+                                       request_timeout_s=900.0)
+        extra.append(peeker)
+        t = time.perf_counter()
+        peeks = await asyncio.to_thread(
+            lambda: [peeker.peek_blocking(keys[i], *CFG_OLD)
+                     for i in sample.tolist()])
+        peek_s = time.perf_counter() - t
+        if not np.array_equal(np.asarray(peeks, np.float32), oracle[sample]):
+            raise AssertionError("config peek: a balance differs from the "
+                                 "oracle")
+        say(f"{int(plain.sum()):,} buckets on {CFG_NEW} equal the host "
+            "float32 oracle max(0, new_cap - spent) through the export "
+            f"({export_s:.1f} s; {int((plain & (spend == 0)).sum()):,} "
+            f"unspent keys born full on first touch), {CFG_PEEKS:,} PEEKs at "
+            f"the old config over the wire equal it ({peek_s:.1f} s, one "
+            "chase)")
+
+        # -- check 7: the hold settles on the new table.
+        settled = await solo.settle("cfg-hold", "ct", 1.0)
+        if settled.outcome != "settled" or settled.refunded != CFG_HOLD - 1:
+            raise AssertionError(f"config settle: {settled}")
+        bal = store.peek_blocking(keys[0], *CFG_NEW)
+        want = CFG_NEW[0] - CFG_HOLD + (CFG_HOLD - 1.0)
+        if bal != want or server.reservations.rehomed < 1:
+            raise AssertionError(f"config settle: balance {bal} != {want}, "
+                                 f"rehomed {server.reservations.rehomed}")
+        say(f"the hold reserved before the commit settled after it: refund "
+            f"{settled.refunded} into {CFG_NEW} (balance {bal}), rehomed "
+            f"{server.reservations.rehomed}")
+
+        # -- check 4: the window rules (versions 2 and 3).
+        for v, kind, new, counts, fixed in (
+                (2, "window", CFG_WINDOW_NEW, wcount, False),
+                (3, "fwindow", CFG_FWINDOW_NEW, fcount, True)):
+            await solo.config_announce({"prepare": rule(kind, CFG_WINDOW,
+                                                        new),
+                                        "version": v})
+            timer.longest = 0.0
+            rows_before = server.liveconfig.rebased_rows
+            launch_before = dict(ck.launches)
+            t = time.perf_counter()
+            await solo.config_announce({"commit": v})
+            commit_s = time.perf_counter() - t
+            flushes = {k: ck.launches[k] - launch_before.get(k, 0)
+                       for k in ("window_packed", "window_grouped")}
+            if sum(flushes.values()) <= 0:
+                raise AssertionError(f"config v{v}: no window flush")
+            rows = server.liveconfig.rebased_rows - rows_before
+            if rows != CFG_WINDOW_KEYS:
+                raise AssertionError(f"config v{v}: rebased_rows {rows}")
+            res = await store.window_acquire_many(
+                wkeys, np.zeros(CFG_WINDOW_KEYS, np.int64), *new,
+                fixed=fixed)
+            want = (np.float32(new[0])
+                    - np.minimum(counts, new[0]).astype(np.float32))
+            if not np.array_equal(np.asarray(res.remaining, np.float32),
+                                  want):
+                raise AssertionError(f"config v{v}: a window differs from "
+                                     "the oracle")
+            say(f"version {v} ({kind} {CFG_WINDOW} -> {new}): commit "
+                f"{commit_s:.2f} s, lock {timer.longest:.2f} s, "
+                f"{rows:,} windows replayed in {json.dumps(flushes)} "
+                "flushes, every window at floor(min(count, new limit)) "
+                "(the oracle)")
+
+        # -- check 6: fresh clients, the moved text, the revert, a stale
+        # prepare.
+        moved_before = server.liveconfig.moved_errors
+        for n in range(CFG_FRESH):
+            fresh = pkg.RemoteBucketStore(address=addr,
+                                          coalesce_requests=False)
+            extra.append(fresh)
+            i = int(sample[n])
+            r = await fresh.acquire(keys[i], 0, *CFG_OLD)
+            if r.remaining != oracle[i]:
+                raise AssertionError(f"config fresh client: {r}")
+            res = await fresh.acquire_many(
+                [keys[int(j)] for j in sample[:100]], np.zeros(100, np.int64),
+                *CFG_OLD)
+            if not np.array_equal(np.asarray(res.remaining, np.float32),
+                                  oracle[sample[:100]]):
+                raise AssertionError("config fresh client: bulk differs")
+        chased = server.liveconfig.moved_errors - moved_before
+        if chased != CFG_FRESH:
+            raise AssertionError(f"config fresh clients: {chased} moved "
+                                 f"errors for {CFG_FRESH} clients")
+        replies = await _frames(addr, [
+            wire.encode_request(70, wire.OP_ACQUIRE, keys[1], 1, *CFG_OLD),
+            wire.encode_bulk_request(71, [keys[1].encode()],
+                                     np.ones(1, np.int64), *CFG_OLD)])
+        want = lc.moved_message("bucket", CFG_OLD, CFG_NEW, 1)
+        for seq, body in replies.items():
+            _, kind, vals = wire.decode_response(body)
+            if kind != wire.RESP_ERROR or vals[0] != want:
+                raise AssertionError(f"config moved text: {vals!r} != "
+                                     f"{want!r}")
+        await solo.config_announce({"prepare": rule(
+            "fwindow", CFG_FWINDOW_NEW, CFG_WINDOW), "version": 4})
+        await solo.config_announce({"commit": 4})
+        fetched = await solo.config_fetch()
+        fwd = {(r["kind"], *r["old"]): (*r["new"], r["version"])
+               for r in fetched["rules"]}
+        if (fetched["version"] != 4
+                or ("fwindow", *CFG_WINDOW) in fwd
+                or fwd.get(("fwindow", *CFG_FWINDOW_NEW))
+                != (*CFG_WINDOW, 4)):
+            raise AssertionError(f"config revert: rules {fetched}")
+        # The revert replays each fixed window's carried count onto the
+        # original table, which still holds its own: granted where the sum
+        # stays within the limit, else nothing recorded (JAX's rule).
+        res = await store.window_acquire_many(
+            wkeys, np.zeros(CFG_WINDOW_KEYS, np.int64), *CFG_WINDOW,
+            fixed=True)
+        carried = np.minimum(fcount, CFG_FWINDOW_NEW[0])
+        total = np.where(fcount + carried <= CFG_WINDOW[0],
+                         fcount + carried, fcount)
+        if not np.array_equal(np.asarray(res.remaining, np.float32),
+                              (CFG_WINDOW[0] - total).astype(np.float32)):
+            raise AssertionError("config revert: a fixed window differs")
+        try:
+            await solo.config_announce({"prepare": rule(
+                "bucket", CFG_OLD, CFG_NEW), "version": 1})
+        except wire.RemoteStoreError as exc:
+            stale = str(exc)
+            if "StaleConfigError" not in stale:
+                raise AssertionError(f"config stale prepare: {exc}")
+        else:
+            raise AssertionError("config stale prepare: accepted")
+        say(f"{CFG_FRESH} fresh clients on {CFG_OLD}: {chased} moved errors "
+            "(one each), then translated (a bulk of 100 each, none more); "
+            f"the moved text byte-equal to moved_message: {want!r}; the "
+            "revert (version 4) deleted the fwindow self-rule and replayed "
+            "onto the original table; a stale prepare answered "
+            f"{stale[:60]!r}...")
+
+        # -- check 8: tier-0's retire on a native server.
+        retired = await _cfg_native_part(pkg, lc, wire, say)
+
+        # -- check 9: OP_STATS, /metrics, the audit.
+        stats = await cli.stats()
+        text = await cli.metrics()
+        if stats.get("config") != server.liveconfig.stats():
+            raise AssertionError(f"config stats: {stats.get('config')}")
+        fams = [ln for ln in text.splitlines()
+                if ln.startswith("drl_config_") and not ln.startswith("#")]
+        if "drl_config_commits_total 4" not in fams or \
+                "drl_config_version 4" not in fams:
+            raise AssertionError(f"config metrics: {fams}")
+        server.auditor.tick()
+        if server.auditor.breaches:
+            raise AssertionError(f"config audit: {server.auditor.breaches} "
+                                 "breaches")
+        say(f"OP_STATS config {json.dumps(stats['config'])}; "
+            f"{len(fams)} drl_config_* samples; audit clean; tier-0 "
+            f"retired_config_rows {retired}")
+    finally:
+        ck.debit_packed = real_debit
+        for c in [cli, solo, *extra]:
+            await c.aclose()
+        await server.aclose()
+        await store.aclose()
+    torch.cuda.synchronize()
+    counts_out = dict(ck.launches)
+    print(f"config path ({card}): {time.perf_counter() - t_path:.1f} s "
+          "of wall")
+    torch.cuda.empty_cache()
+    return counts_out
+
+
 SIZED_KERNELS = {"acquire_packed": "acquire_packed",
                  "acquire_grouped": "acquire_grouped",
                  "window_packed": "window_packed",
@@ -8357,7 +8880,7 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
 
 
 def _paths() -> tuple:
-    """The paths of phases 3–10 and 12–16, in the order :func:`main`
+    """The paths of phases 3–10 and 12–17, in the order :func:`main`
     runs them."""
     return (("exact", main_path), ("approximate", approximate_path),
             ("window", window_path), ("admission", admission_path),
@@ -8366,7 +8889,7 @@ def _paths() -> tuple:
             ("observability", observability_path),
             ("server", server_path), ("bench", bench_path),
             ("native", native_path), ("fp", fp_path), ("mesh", mesh_path),
-            ("placement", placement_path))
+            ("placement", placement_path), ("config", config_path))
 
 
 def paths_only(names: list) -> int:
@@ -8516,7 +9039,12 @@ def main() -> int:
                    # and the traffic (bulk calls, one-batch frames).
                    "placement": ("debit_packed", "window_packed",
                                  "sync_counters", "sema_packed",
-                                 "acquire_scan", "acquire_packed")}
+                                 "acquire_scan", "acquire_packed"),
+                   # Live config: the rebase's debit and window flushes,
+                   # tier-0's retire (the debit), the load's bulk calls and
+                   # the per-request asks (flushes).
+                   "config": ("debit_packed", "window_packed",
+                              "acquire_scan", "acquire_packed")}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",

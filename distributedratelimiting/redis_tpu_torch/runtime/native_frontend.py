@@ -32,19 +32,24 @@ inside the C loop from a replica table; its sync pump
 store with ``debit_many`` (the card's ``debit_packed``) and acks the fresh
 balances back.
 
-The placement gate (:meth:`NativeFrontend._placement_gate`, the server's
-:class:`~.placement.NodePlacementState`) holds both lanes to keyspace
-ownership as the asyncio lanes are held: on the batch lane a moved row
-answers MOVED and a parked SEMA or release row the handoff deferral, each
-through ``fe_send`` with the ``kRowSkip`` sentinel telling ``fe_complete``
-the row is answered, and a parked admission row serves from its handoff
-envelope; on the bulk lane a frame with a moved row answers one
-frame-level MOVED through ``fe_send`` and ``fe_bulk_discard``, and parked
-rows serve from their envelopes. Not ported, as the server state behind
-them is not: the live-config gate and tier-0's retired-config debits
-(ROADMAP A 4) and the drain envelope (A 7). The live-config gate keeps a
-named seam, :meth:`NativeFrontend._config_gate`, dormant: no rule has
-committed, so every row is served.
+The live-config gate (:meth:`NativeFrontend._config_gate` and
+:meth:`NativeFrontend._gated`, the server's
+:class:`~.liveconfig.ConfigState`) and the placement gate
+(:meth:`NativeFrontend._placement_gate`, the server's
+:class:`~.placement.NodePlacementState`) hold both lanes to the server's
+rules as the asyncio lanes are held, config first. On the batch lane a row
+of a retired (kind, a, b) answers ``config moved``, a moved row MOVED and a
+parked SEMA or release row the handoff deferral, each through ``fe_send``
+with the ``kRowSkip`` sentinel telling ``fe_complete`` the row is answered,
+and a parked admission row serves from its handoff envelope; one
+``forward()`` probe a distinct (op, a, b) of the batch. On the bulk lane a
+frame of a retired config answers one frame-level ``config moved`` and a
+frame with a moved row one frame-level MOVED, each through ``fe_send`` and
+``fe_bulk_discard``, and parked rows serve from their envelopes. Tier-0's
+sync pump retires the C replicas of a retired bucket config
+(``fe_t0_retire``) and debits their grants through the replacement
+config's table. Not ported, as the server state behind it is not: the
+drain envelope (ROADMAP A 7).
 """
 
 from __future__ import annotations
@@ -60,7 +65,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from distributedratelimiting.redis_tpu_torch.runtime import placement, wire
+from distributedratelimiting.redis_tpu_torch.runtime import (
+    liveconfig,
+    placement,
+    wire,
+)
 from distributedratelimiting.redis_tpu_torch.runtime.store import BucketStore
 from distributedratelimiting.redis_tpu_torch.utils import faults, log, tracing
 from distributedratelimiting.redis_tpu_torch.utils.metrics import (
@@ -312,21 +321,45 @@ class NativeFrontend:
         ps = self._server.placement
         return ps.bulk_gate(keys) if ps.active else None
 
-    def _config_gate(self, ops, a_arr, b_arr):
-        """Retired configs on the batch and bulk lanes (JAX ``:574-608``,
-        ``:847-860``) and tier-0's retired-config debits (``:1143-1191``):
-        rows of a retired (kind, a, b) answer "config moved". Live config
-        is ROADMAP A 4; until it is ported no rule commits, so this returns
-        None (every row served)."""
-        return None
+    def _config_gate(self, ops: np.ndarray, a_arr: np.ndarray,
+                     b_arr: np.ndarray) -> "list | None":
+        """Retired configs on the batch lane: ``None`` while no rule has
+        committed or no row is of a retired config, else ``[(row, (kind,
+        a, b), fwd)]`` for the rows that answer "config moved". One
+        ``forward()`` probe a distinct (op, a, b) of the batch (numpy
+        grouping: a mutated fleet keeps its rules, so this path must not
+        pay a Python loop a row); ``liveconfig.OP_KINDS`` is the one
+        op → kind table."""
+        lc = self._server.liveconfig
+        n = len(ops)
+        if not lc.active or not n:
+            return None
+        rec = np.empty(n, _GROUP_DTYPE)
+        rec["op"], rec["a"], rec["b"] = ops, a_arr, b_arr
+        uniq, inverse = np.unique(rec, return_inverse=True)
+        inverse = inverse.reshape(-1)
+        rows = []
+        for gi, u in enumerate(uniq):
+            kind = liveconfig.OP_KINDS.get(int(u["op"]))
+            if kind is None:
+                continue
+            pk = (kind, float(u["a"]), float(u["b"]))
+            fwd = lc.forward(*pk)
+            if fwd is not None:
+                rows.extend((int(i), pk, fwd)
+                            for i in np.nonzero(inverse == gi)[0])
+        return rows or None
 
-    def _gated(self, ops, a_arr, b_arr) -> None:
-        """The live-config seam on one batch or frame: a gate that answers
-        needs the body ROADMAP A 4 ports."""
-        if self._config_gate(ops, a_arr, b_arr) is not None:
-            raise NotImplementedError(
-                "live config (ROADMAP A 4) is not ported: its gate has no "
-                "body yet")
+    def _gated(self, kind: int, a: float, b: float) -> "str | None":
+        """The frame-level live-config gate of the bulk lane: the routable
+        "config moved" text (byte for byte the asyncio lane's) when the
+        frame's (kind, a, b) is retired, else ``None``."""
+        lc = self._server.liveconfig
+        ckind = liveconfig.BULK_KINDS.get(kind)
+        if not lc.active or ckind is None:
+            return None
+        fwd = lc.forward(ckind, a, b)
+        return None if fwd is None else lc.moved(ckind, a, b, fwd)
 
     # -- pump threads --------------------------------------------------------
 
@@ -516,13 +549,18 @@ class NativeFrontend:
         full = None
         try:
             self._offer_batch_hot(keys, counts)
-            self._gated(ops, a_arr, b_arr)
             pgate = self._placement_gate(keys)
-            if pgate is not None:
-                # Only the owned, unparked rows reach the store; the rest
-                # are answered below, after the store calls.
+            cmoved = self._config_gate(ops, a_arr, b_arr)
+            if pgate is not None or cmoved is not None:
+                # Only the rows of a current config that this node owns
+                # unparked reach the store; the rest are answered below,
+                # after the store calls.
                 full = (n, keys, counts, ops, a_arr, b_arr)
-                serve_idx = np.nonzero(pgate[0])[0]
+                serve_mask = (pgate[0].copy() if pgate is not None
+                              else np.ones(n, bool))
+                for i, _pk, _fwd in cmoved or ():
+                    serve_mask[i] = False
+                serve_idx = np.nonzero(serve_mask)[0]
                 keys = [keys[int(i)] for i in serve_idx]
                 counts, ops = counts[serve_idx], ops[serve_idx]
                 a_arr, b_arr = a_arr[serve_idx], b_arr[serve_idx]
@@ -572,11 +610,11 @@ class NativeFrontend:
                     else:
                         granted[idx] = g
                         remaining[idx] = r
-            if pgate is not None:
+            if full is not None:
                 n, keys, counts, ops, a_arr, b_arr = full
-                granted, remaining = self._placement_rows(
-                    sh, pgate, serve_idx, granted, remaining, keys, counts,
-                    ops, a_arr, b_arr, seqs, conn_ids)
+                granted, remaining = self._gated_rows(
+                    sh, pgate, cmoved, serve_idx, granted, remaining, keys,
+                    counts, ops, a_arr, b_arr, seqs, conn_ids)
             if traces is not None:
                 self._record_batch_spans(traces, granted, ops, t_start)
             c = ctypes
@@ -593,22 +631,34 @@ class NativeFrontend:
                     traces, None, ops if full is None else full[3], t_start)
             self._lib.fe_fail(sh, bid, repr(exc)[:200].encode())
 
-    def _placement_rows(self, sh: int, pgate, serve_idx: np.ndarray,
-                        granted: np.ndarray, remaining: np.ndarray, keys,
-                        counts, ops, a_arr, b_arr, seqs, conn_ids) -> tuple:
+    def _gated_rows(self, sh: int, pgate, cmoved, serve_idx: np.ndarray,
+                    granted: np.ndarray, remaining: np.ndarray, keys,
+                    counts, ops, a_arr, b_arr, seqs, conn_ids) -> tuple:
         """The whole batch's verdicts once the served rows are decided: a
+        row of a retired config answers "config moved" first; then a
         parked admission row decides from its handoff envelope (after the
-        store's rows, as the asyncio lane's gated bulk does); a parked SEMA
+        store's rows, as the asyncio lane's gated bulk does), a parked SEMA
         or release row answers the handoff deferral and a moved row the
-        routable MOVED, each sent here through ``fe_send`` and marked
-        :data:`_ROW_SKIP` for ``fe_complete``."""
-        ps = self._server.placement
+        routable MOVED. Each answer is sent here through ``fe_send`` and
+        its row marked :data:`_ROW_SKIP` for ``fe_complete``."""
         n = len(keys)
         g_full = np.zeros(n, np.uint8)
         r_full = np.zeros(n, np.float64)
         g_full[serve_idx] = granted
         r_full[serve_idx] = remaining
+        lc = self._server.liveconfig
+        for i, pk, fwd in cmoved or ():
+            # The store never saw this row, so the client's translated
+            # re-send is not a replay.
+            self._send(sh, int(conn_ids[i]), wire.encode_response(
+                int(seqs[i]), wire.RESP_ERROR, lc.moved(*pk, fwd)))
+            g_full[i] = _ROW_SKIP
+        if pgate is None:
+            return g_full, r_full
+        ps = self._server.placement
         for i, handoff in pgate[1]:
+            if g_full[i] == _ROW_SKIP:
+                continue  # answered "config moved"
             ekind = placement.ENVELOPE_KIND.get(int(ops[i]))
             if ekind is not None and counts[i] >= 0:
                 g_full[i], r_full[i] = ps.envelope_acquire(
@@ -622,6 +672,8 @@ class NativeFrontend:
                     ps.deferral_message(handoff)))
                 g_full[i] = _ROW_SKIP
         for i in np.nonzero(pgate[2])[0].tolist():
+            if g_full[i] == _ROW_SKIP:
+                continue  # answered "config moved"
             # bulk_gate already counted these moved rows.
             self._send(sh, int(conn_ids[i]), wire.encode_response(
                 int(seqs[i]), wire.RESP_ERROR, ps.moved_message(
@@ -675,9 +727,17 @@ class NativeFrontend:
         try:
             with_rem = bool(flags & wire._FLAG_WITH_REMAINING)
             kind = (flags & wire._KIND_MASK) >> wire._KIND_SHIFT
+            moved = self._gated(kind, a, b)
+            if moved is not None:
+                # A retired config: the frame-level routable moved error,
+                # byte for byte the asyncio gate's (no residue row applied,
+                # so the translated re-send is not a replay).
+                self._send(sh, conn_id, wire.encode_response(
+                    seq, wire.RESP_ERROR, moved))
+                lib.fe_bulk_discard(sh, jid)
+                return
             # A drain window's envelope (JAX :861-867) comes with
             # drain-and-handoff, ROADMAP A 7.
-            self._gated(None, a, b)
             gate = self._placement_gate(keys)
             if gate is not None and gate[2].any():
                 self._send(sh, conn_id, wire.encode_response(
@@ -897,15 +957,31 @@ class NativeFrontend:
                 by_cfg: dict[tuple[float, float], list] = {}
                 for (key, cap, rate), amount in merged.items():
                     by_cfg.setdefault((cap, rate), []).append((key, amount))
+                lc = self._server.liveconfig
                 for (cap, rate), rows in by_cfg.items():
-                    # With live config (ROADMAP A 4) a retired config's
-                    # replicas are killed here through _t0_retire and their
-                    # grants debited through the replacement config.
+                    # A retired config (a mutation committed since these
+                    # replicas were installed): kill its C replicas with
+                    # _t0_retire, one locked call that also returns the
+                    # grants admitted since the harvest, and debit every
+                    # grant through the replacement config's table, the
+                    # one the rebase carried the balances into. Dead
+                    # replicas make later stale frames fall through to the
+                    # batch lane's "config moved"; the over-admission is
+                    # bounded by one sync interval's headroom.
+                    fwd = (lc.forward("bucket", cap, rate)
+                           if lc.active else None)
+                    if fwd is not None:
+                        for key, amount in self._t0_retire(cap, rate):
+                            ident = (key, cap, rate)
+                            merged[ident] = merged.get(ident, 0.0) + amount
+                        rows = [(k, a) for (k, c2, r2), a in merged.items()
+                                if (c2, r2) == (cap, rate)]
                     keys = [k for k, _ in rows]
                     amounts = [a for _, a in rows]
+                    dcap, drate = (cap, rate) if fwd is None else fwd[:2]
                     try:
                         remaining, shortfall = await store.debit_many(
-                            keys, amounts, cap, rate)
+                            keys, amounts, dcap, drate)
                     except asyncio.CancelledError:
                         raise
                     except Exception as exc:  # degraded: rows stay in
@@ -914,7 +990,11 @@ class NativeFrontend:
                         self.t0_metrics.sync_failures += 1
                         round_failures += 1
                         continue
-                    self._t0_ack(keys, cap, rate, remaining)
+                    if fwd is not None:
+                        # No ack: the retired replicas are dead.
+                        self.t0_metrics.retired_config_rows += len(keys)
+                    else:
+                        self._t0_ack(keys, cap, rate, remaining)
                     self.t0_metrics.record_sync(len(keys), shortfall,
                                                 time.monotonic())
                     round_keys += len(keys)

@@ -55,12 +55,16 @@ seams of :mod:`..utils.faults` sit at the dial (``client.connect``, and the
 wrapped transport's ``client.read`` / ``client.write``) and before each
 retry (``client.retry``).
 
+Live config (:mod:`~.liveconfig`): every keyed lane (scalar, PEEK, bulk,
+window bulk, two-level on both levels, ``reserve``) translates its config
+through the rules it learned, and on a routable ``config moved`` error
+learns the rule and re-sends once with the new operands (the server
+answered without touching the store, so the re-send is not a replay);
+``config_fetch()`` and ``config_announce()`` are a coordinator's calls.
+
 Not ported yet: the chase of a ``placement moved`` error (the cluster's,
-ROADMAP A 10: it surfaces as :class:`wire.RemoteStoreError`), the
-live-config chase ("config moved" errors surface as
-:class:`wire.RemoteStoreError`, and a reserve sends the caller's configs
-as given), and the federation and config methods, which raise
-``NotImplementedError``.
+ROADMAP A 10: it surfaces as :class:`wire.RemoteStoreError`) and the
+federation methods, which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ from typing import Awaitable, Callable, Sequence
 import numpy as np
 
 from distributedratelimiting.redis_tpu_torch.runtime import (
+    liveconfig,
     reservations,
     wire,
 )
@@ -193,6 +198,10 @@ class RemoteBucketStore(BucketStore):
         # for the connection the first time an old server answers a
         # stamped frame with its routable "unknown op" error.
         self._peer_traces = True
+        # Live-config translations learned from "config moved" errors: a
+        # call carrying a retired (a, b) chases one routable error, then
+        # every later call translates up front. {(kind, a, b) → (a, b)}.
+        self._config_fwd: dict[tuple, tuple[float, float]] = {}
 
         # Bounded, jittered retries (at-most-once for admission; see the
         # module doc). retry_policy=None disables them.
@@ -780,9 +789,13 @@ class RemoteBucketStore(BucketStore):
                            with_remaining: bool = True,
                            timeout_s: "float | None" = None
                            ) -> BulkAcquireResult:
-        return await self._bulk_call(keys, counts, capacity,
-                                     fill_rate_per_sec, with_remaining,
-                                     wire.BULK_KIND_BUCKET, timeout_s)
+        # One config-moved chase, like the scalar lanes: the server answers
+        # a retired config frame-level without applying any row, so the
+        # translated re-send is not a replay.
+        return await self._chase_config(
+            "bucket", capacity, fill_rate_per_sec,
+            lambda a, b: self._bulk_call(keys, counts, a, b, with_remaining,
+                                         wire.BULK_KIND_BUCKET, timeout_s))
 
     def acquire_many_blocking(self, keys: Sequence[str],
                               counts: Sequence[int], capacity: float,
@@ -790,9 +803,11 @@ class RemoteBucketStore(BucketStore):
                               with_remaining: bool = True,
                               timeout_s: "float | None" = None
                               ) -> BulkAcquireResult:
-        return self._bulk_call_blocking(keys, counts, capacity,
-                                        fill_rate_per_sec, with_remaining,
-                                        wire.BULK_KIND_BUCKET, timeout_s)
+        return self._chase_config_blocking(
+            "bucket", capacity, fill_rate_per_sec,
+            lambda a, b: self._bulk_call_blocking(
+                keys, counts, a, b, with_remaining, wire.BULK_KIND_BUCKET,
+                timeout_s))
 
     async def window_acquire_many(self, keys: Sequence[str],
                                   counts: Sequence[int], limit: float,
@@ -802,8 +817,10 @@ class RemoteBucketStore(BucketStore):
         """Bulk windows over the wire: the ACQUIRE_MANY framing with the
         table-kind flag selecting the server's window tier."""
         kind = wire.BULK_KIND_FWINDOW if fixed else wire.BULK_KIND_WINDOW
-        return await self._bulk_call(keys, counts, limit, window_sec,
-                                     with_remaining, kind)
+        return await self._chase_config(
+            liveconfig.BULK_KINDS[kind], limit, window_sec,
+            lambda a, b: self._bulk_call(keys, counts, a, b, with_remaining,
+                                         kind))
 
     def window_acquire_many_blocking(self, keys: Sequence[str],
                                      counts: Sequence[int], limit: float,
@@ -812,8 +829,10 @@ class RemoteBucketStore(BucketStore):
                                      with_remaining: bool = True
                                      ) -> BulkAcquireResult:
         kind = wire.BULK_KIND_FWINDOW if fixed else wire.BULK_KIND_WINDOW
-        return self._bulk_call_blocking(keys, counts, limit, window_sec,
-                                        with_remaining, kind)
+        return self._chase_config_blocking(
+            liveconfig.BULK_KINDS[kind], limit, window_sec,
+            lambda a, b: self._bulk_call_blocking(
+                keys, counts, a, b, with_remaining, kind))
 
     # -- client-side frame coalescing ---------------------------------------
     #: Cap on distinct (capacity, fill_rate) coalescing batchers: configs
@@ -891,6 +910,13 @@ class RemoteBucketStore(BucketStore):
     async def acquire(self, key: str, count: int, capacity: float,
                       fill_rate_per_sec: float, *,
                       timeout_s: "float | None" = None) -> AcquireResult:
+        return await self._chase_config(
+            "bucket", capacity, fill_rate_per_sec,
+            lambda a, b: self._acquire_once(key, count, a, b, timeout_s))
+
+    async def _acquire_once(self, key: str, count: int, capacity: float,
+                            fill_rate_per_sec: float,
+                            timeout_s: "float | None") -> AcquireResult:
         if self._coalesce and timeout_s is None:
             return await self._await_on_io(self._acquire_coalesced_io(
                 key, count, capacity, fill_rate_per_sec,
@@ -903,6 +929,14 @@ class RemoteBucketStore(BucketStore):
     def acquire_blocking(self, key: str, count: int, capacity: float,
                          fill_rate_per_sec: float, *,
                          timeout_s: "float | None" = None) -> AcquireResult:
+        return self._chase_config_blocking(
+            "bucket", capacity, fill_rate_per_sec,
+            lambda a, b: self._acquire_once_blocking(key, count, a, b,
+                                                     timeout_s))
+
+    def _acquire_once_blocking(self, key: str, count: int,
+                               capacity: float, fill_rate_per_sec: float,
+                               timeout_s: "float | None") -> AcquireResult:
         if self._coalesce and timeout_s is None:
             return self._submit(self._acquire_coalesced_io(
                 key, count, capacity, fill_rate_per_sec,
@@ -915,8 +949,9 @@ class RemoteBucketStore(BucketStore):
 
     def peek_blocking(self, key: str, capacity: float,
                       fill_rate_per_sec: float) -> float:
-        (value,) = self._request_blocking(wire.OP_PEEK, key, 0, capacity,
-                                          fill_rate_per_sec)
+        (value,) = self._chase_config_blocking(
+            "bucket", capacity, fill_rate_per_sec,
+            lambda a, b: self._request_blocking(wire.OP_PEEK, key, 0, a, b))
         return value
 
     async def sync_counter(self, key: str, local_count: float,
@@ -938,27 +973,129 @@ class RemoteBucketStore(BucketStore):
 
     async def window_acquire(self, key: str, count: int, limit: float,
                              window_sec: float) -> AcquireResult:
-        granted, remaining = await self._request(
-            wire.OP_WINDOW, key, count, limit, window_sec)
-        return AcquireResult(granted, remaining)
+        return await self._keyed_admission(wire.OP_WINDOW, "window", key,
+                                           count, limit, window_sec)
 
     def window_acquire_blocking(self, key: str, count: int, limit: float,
                                 window_sec: float) -> AcquireResult:
-        granted, remaining = self._request_blocking(
-            wire.OP_WINDOW, key, count, limit, window_sec)
-        return AcquireResult(granted, remaining)
+        return self._keyed_admission_blocking(wire.OP_WINDOW, "window", key,
+                                              count, limit, window_sec)
 
     async def fixed_window_acquire(self, key: str, count: int, limit: float,
                                    window_sec: float) -> AcquireResult:
-        granted, remaining = await self._request(
-            wire.OP_FWINDOW, key, count, limit, window_sec)
-        return AcquireResult(granted, remaining)
+        return await self._keyed_admission(wire.OP_FWINDOW, "fwindow", key,
+                                           count, limit, window_sec)
 
     def fixed_window_acquire_blocking(self, key: str, count: int,
                                       limit: float,
                                       window_sec: float) -> AcquireResult:
-        granted, remaining = self._request_blocking(
-            wire.OP_FWINDOW, key, count, limit, window_sec)
+        return self._keyed_admission_blocking(wire.OP_FWINDOW, "fwindow",
+                                              key, count, limit, window_sec)
+
+    # -- live-config forwarding (runtime/liveconfig.py) ----------------------
+    def _fwd_config(self, kind: str, a: float, b: float
+                    ) -> tuple[float, float]:
+        """Translate a possibly-retired config through the learned rules.
+        Cycle-safe: a reverted mutation can leave a stale entry whose
+        target maps back, and the walk stops at the first revisit, which is
+        the serving config. The steady state is one empty-dict test."""
+        fwd = self._config_fwd
+        if not fwd:
+            return a, b
+        key = (kind, float(a), float(b))
+        seen = set()
+        while key not in seen:
+            seen.add(key)
+            nxt = fwd.get(key)
+            if nxt is None:
+                break
+            key = (kind, nxt[0], nxt[1])
+        return key[1], key[2]
+
+    def _learn_config(self, exc: Exception, kind: str
+                      ) -> "tuple[float, float] | None":
+        """If ``exc`` is the routable "config moved" error of ``kind``,
+        record the rule and return the (transitively resolved) operands to
+        retry with; ``None`` for any other error."""
+        parsed = liveconfig.parse_moved(str(exc))
+        if parsed is None:
+            return None
+        pkind, old, new, _version = parsed
+        if pkind != kind or old == new:
+            return None
+        self._config_fwd[(pkind, old[0], old[1])] = new
+        # A rule old→new contradicts a cached new→old (a revert retired
+        # it): evict it, or the walk would bounce between the pair.
+        if self._config_fwd.get((pkind, new[0], new[1])) == old:
+            del self._config_fwd[(pkind, new[0], new[1])]
+        return self._fwd_config(pkind, new[0], new[1])
+
+    async def _chase_config(self, kind: str, a: float, b: float, call):
+        """The live-config contract every keyed lane shares: translate up
+        front through the learned rules, and on a "config moved" error
+        learn the rule and re-send once with the new operands. ``call(a,
+        b)`` awaits the wire op."""
+        a, b = self._fwd_config(kind, a, b)
+        try:
+            return await call(a, b)
+        except wire.RemoteStoreError as exc:
+            fwd = self._learn_config(exc, kind)
+            if fwd is None:
+                raise
+            return await call(fwd[0], fwd[1])
+
+    def _chase_config_blocking(self, kind: str, a: float, b: float,
+                               call):
+        a, b = self._fwd_config(kind, a, b)
+        try:
+            return call(a, b)
+        except wire.RemoteStoreError as exc:
+            fwd = self._learn_config(exc, kind)
+            if fwd is None:
+                raise
+            return call(fwd[0], fwd[1])
+
+    async def _chase_hier(self, tcap: float, trate: float, cap: float,
+                          rate: float, call):
+        """The two-level edition of :meth:`_chase_config`: both levels
+        translate through the learned "bucket" rules up front, and a moved
+        error on either level learns its rule and re-sends — at most two
+        chases, one a level. ``call(ta, tb, a, b)`` awaits the wire op."""
+        for attempt in range(3):
+            a, b = self._fwd_config("bucket", cap, rate)
+            ta, tb = self._fwd_config("bucket", tcap, trate)
+            try:
+                return await call(ta, tb, a, b)
+            except wire.RemoteStoreError as exc:
+                if (attempt >= 2
+                        or self._learn_config(exc, "bucket") is None):
+                    raise
+
+    def _chase_hier_blocking(self, tcap: float, trate: float, cap: float,
+                             rate: float, call):
+        for attempt in range(3):
+            a, b = self._fwd_config("bucket", cap, rate)
+            ta, tb = self._fwd_config("bucket", tcap, trate)
+            try:
+                return call(ta, tb, a, b)
+            except wire.RemoteStoreError as exc:
+                if (attempt >= 2
+                        or self._learn_config(exc, "bucket") is None):
+                    raise
+
+    async def _keyed_admission(self, op: int, kind: str, key: str,
+                               count: int, a: float, b: float
+                               ) -> AcquireResult:
+        granted, remaining = await self._chase_config(
+            kind, a, b, lambda a2, b2: self._request(op, key, count, a2, b2))
+        return AcquireResult(granted, remaining)
+
+    def _keyed_admission_blocking(self, op: int, kind: str, key: str,
+                                  count: int, a: float, b: float
+                                  ) -> AcquireResult:
+        granted, remaining = self._chase_config_blocking(
+            kind, a, b,
+            lambda a2, b2: self._request_blocking(op, key, count, a2, b2))
         return AcquireResult(granted, remaining)
 
     # -- concurrency semaphore (OP_SEMA) ------------------------------------
@@ -1014,13 +1151,17 @@ class RemoteBucketStore(BucketStore):
                                 tenant_fill_rate_per_sec, capacity,
                                 fill_rate_per_sec)
         if self._peer_hier:
-            try:
+
+            async def call(ta, tb, a, b):
                 granted, remaining = await self._request(
-                    wire.OP_ACQUIRE_H, key, count, capacity,
-                    fill_rate_per_sec, timeout_s=timeout_s,
-                    hier=(tenant, tenant_capacity, tenant_fill_rate_per_sec,
-                          priority))
+                    wire.OP_ACQUIRE_H, key, count, a, b,
+                    timeout_s=timeout_s, hier=(tenant, ta, tb, priority))
                 return AcquireResult(granted, remaining)
+
+            try:
+                return await self._chase_hier(
+                    tenant_capacity, tenant_fill_rate_per_sec, capacity,
+                    fill_rate_per_sec, call)
             except wire.RemoteStoreError as exc:
                 if not self._hier_unsupported(exc):
                     raise
@@ -1042,13 +1183,17 @@ class RemoteBucketStore(BucketStore):
                                 tenant_fill_rate_per_sec, capacity,
                                 fill_rate_per_sec)
         if self._peer_hier:
-            try:
+
+            def call(ta, tb, a, b):
                 granted, remaining = self._request_blocking(
-                    wire.OP_ACQUIRE_H, key, count, capacity,
-                    fill_rate_per_sec, timeout_s=timeout_s,
-                    hier=(tenant, tenant_capacity, tenant_fill_rate_per_sec,
-                          priority))
+                    wire.OP_ACQUIRE_H, key, count, a, b,
+                    timeout_s=timeout_s, hier=(tenant, ta, tb, priority))
                 return AcquireResult(granted, remaining)
+
+            try:
+                return self._chase_hier_blocking(
+                    tenant_capacity, tenant_fill_rate_per_sec, capacity,
+                    fill_rate_per_sec, call)
             except wire.RemoteStoreError as exc:
                 if not self._hier_unsupported(exc):
                     raise
@@ -1098,16 +1243,21 @@ class RemoteBucketStore(BucketStore):
             sub_keys = [keys[i] for i in idx]
             sub_counts = counts_np[idx]
             if self._peer_hier:
-                blob, offsets, klens, c_np, spans = self._bulk_prepare(
-                    sub_keys, sub_counts, self._hier_tail_budget(tenant))
-                try:
+
+                async def call(ta, tb, a, b):
+                    blob, offsets, klens, c_np, spans = self._bulk_prepare(
+                        sub_keys, sub_counts, self._hier_tail_budget(tenant))
                     chunks = await self._await_on_io(self._bulk_io(
-                        blob, offsets, klens, c_np, spans, capacity,
-                        fill_rate_per_sec, with_remaining, parent=parent,
-                        timeout_s=timeout_s, kind=wire.BULK_KIND_HBUCKET,
-                        hier=(tenant, tenant_capacity,
-                              tenant_fill_rate_per_sec, priority)))
+                        blob, offsets, klens, c_np, spans, a, b,
+                        with_remaining, parent=parent, timeout_s=timeout_s,
+                        kind=wire.BULK_KIND_HBUCKET,
+                        hier=(tenant, ta, tb, priority)))
                     return self._bulk_assemble(chunks, with_remaining)
+
+                try:
+                    return await self._chase_hier(
+                        tenant_capacity, tenant_fill_rate_per_sec, capacity,
+                        fill_rate_per_sec, call)
                 except wire.RemoteStoreError as exc:
                     if not self._hier_unsupported(exc):
                         raise
@@ -1177,9 +1327,10 @@ class RemoteBucketStore(BucketStore):
                       attempt: int = 0,
                       deadline_s: "float | None" = None):
         """One ``OP_RESERVE`` frame: admission at the estimate + a TTL'd
-        server-side hold (:mod:`~.reservations`). Post-send retries are
-        safe — the server dedups by ``rid``. The configs go as given (the
-        client does not chase "config moved").
+        server-side hold (:mod:`~.reservations`). Both config levels
+        translate through the learned live-config rules up front (the
+        ``_chase_hier`` contract); post-send retries are safe — the server
+        dedups by ``rid``.
 
         ``attempt``/``deadline_s`` ride as JSON fields (not binary tails —
         old servers ignore unknown keys, so no latch). A "route-to-pool"
@@ -1193,11 +1344,11 @@ class RemoteBucketStore(BucketStore):
                 tenant_fill_rate_per_sec, capacity, fill_rate_per_sec,
                 priority, timeout_s)
 
-        async def call(ta, tb, *, _tenant=tenant, _priority=int(priority),
-                       _route=True):
+        async def call(ta, tb, a, b, *, _tenant=tenant,
+                       _priority=int(priority), _route=True):
             payload: dict = {"rid": rid, "tenant": _tenant, "key": key,
-                             "a": capacity, "b": fill_rate_per_sec,
-                             "ta": ta, "tb": tb, "priority": _priority}
+                             "a": a, "b": b, "ta": ta, "tb": tb,
+                             "priority": _priority}
             if estimate is not None:
                 payload["estimate"] = float(estimate)
             if ttl_s is not None:
@@ -1223,7 +1374,7 @@ class RemoteBucketStore(BucketStore):
                 self._reserves_routed += 1
                 pool_name = str(route["pool"])
                 routed = await call(
-                    float(route["ta"]), float(route["tb"]),
+                    float(route["ta"]), float(route["tb"]), a, b,
                     _tenant=pool_name,
                     _priority=int(route.get("priority", _priority)),
                     _route=False)
@@ -1235,7 +1386,9 @@ class RemoteBucketStore(BucketStore):
                 bool(d.get("duplicate", False)))
 
         try:
-            return await call(tenant_capacity, tenant_fill_rate_per_sec)
+            return await self._chase_hier(
+                tenant_capacity, tenant_fill_rate_per_sec, capacity,
+                fill_rate_per_sec, call)
         except wire.RemoteStoreError as exc:
             if "unknown op" not in str(exc):
                 raise
@@ -1355,6 +1508,27 @@ class RemoteBucketStore(BucketStore):
                                          timeout_s=timeout_s)
         return int(applied)
 
+    # -- live-config control plane (runtime/liveconfig.py) --------------------
+    async def config_fetch(self, *,
+                           timeout_s: "float | None" = None) -> dict:
+        """The node's committed live-config state (``OP_CONFIG`` with an
+        empty payload): ``{"version": v, "rules": […]}``, ``{"version": 0,
+        "rules": []}`` from a node no mutation has reached."""
+        (text,) = await self._request(wire.OP_CONFIG, "{}",
+                                      timeout_s=timeout_s)
+        return json.loads(text)
+
+    async def config_announce(self, payload: dict, *,
+                              timeout_s: "float | None" = None) -> int:
+        """One step of a live config mutation on the node: ``{"prepare":
+        rule, "version": v}``, ``{"commit": v}``, ``{"abort": v}`` or
+        ``{"adopt": snapshot}`` (each idempotent at its version). Returns
+        the node's committed version; a stale version surfaces as
+        :class:`wire.RemoteStoreError`."""
+        (version,) = await self._request(
+            wire.OP_CONFIG, json.dumps(payload), timeout_s=timeout_s)
+        return int(version)
+
     async def traces(self, drain: bool = False) -> dict:
         """The server's kept traces as Chrome-trace-event JSON
         (``OP_TRACES``) — the payload of its HTTP ``/traces`` endpoint.
@@ -1419,7 +1593,6 @@ class RemoteBucketStore(BucketStore):
         )
 
 
-# The JAX client's other lanes: live-config control and federation.
-for _name in ("config_fetch", "config_announce", "fed_lease", "fed_renew",
-              "fed_reclaim"):
+# The JAX client's other lane: federation.
+for _name in ("fed_lease", "fed_renew", "fed_reclaim"):
     setattr(RemoteBucketStore, _name, _not_ported(_name))

@@ -51,10 +51,13 @@ tenant's real overdraft went untracked.
 
 The migration rows (``export_rows``, ``drop_rids``, ``restore_rows``)
 and the ``liveconfig`` and ``flight_recorder`` hooks are here as in the
-JAX package; the server sets ``flight_recorder`` (its observability
-plane's), while the port has no placement or live-config subsystem yet,
-so nothing sets ``liveconfig`` and the store's ``export_entries`` still
-raises. ``stats(reset=True)`` on a server never
+JAX package. The server sets both: ``flight_recorder`` to its
+observability plane's, and ``liveconfig`` to its
+:class:`~.liveconfig.ConfigState`, so a settle of a hold made under a
+retired config refunds into the table the rebase carried its balance into
+(:meth:`ReservationLedger._cfg`, counted ``rehomed``). The migration rows
+ride the placement plane's pull and push (:mod:`~.placement`, the store's
+``export_entries``). ``stats(reset=True)`` on a server never
 touches the ledger (the monotonic-counter contract)."""
 
 from __future__ import annotations

@@ -64,12 +64,16 @@ frame, each bulk frame, and the tenant of every two-level, reserve and
 settle frame: a key another node owns answers the routable ``placement
 moved`` error, a key parked mid-handoff serves from the handoff's
 fair-share envelope (or answers the transient handoff deferral where there
-is no envelope value). The JAX server's live-config and drain-envelope
-gates are not ported (nor those subsystems). An op the JAX server serves
-but this one does not yet (live config, federation) answers a routable
-error that names it as not served — never the "unknown op" / "unknown bulk
-kind" text, which a JAX client reads as an old peer and silently falls
-back from.
+is no envelope value). The live-config gate (:class:`~.liveconfig.
+ConfigState`, dormant until a rule commits through ``OP_CONFIG``) runs
+before it, in the JAX server's order: a keyed ACQUIRE, WINDOW, FWINDOW or
+PEEK frame, a bulk frame, or either level of a two-level, two-level bulk
+or reserve frame that carries a retired config answers the routable
+``config moved`` error, the store untouched. The JAX server's drain
+envelope is not ported (nor drain-and-handoff). An op the JAX server serves
+but this one does not yet (federation) answers a routable error that names
+it as not served — never the "unknown op" / "unknown bulk kind" text,
+which a JAX client reads as an old peer and silently falls back from.
 
 Run it with ``python -m distributedratelimiting.redis_tpu_torch.runtime.server``
 (a ``DeviceBucketStore`` on ``cuda`` unless ``--device cpu`` is given, a
@@ -90,6 +94,7 @@ import numpy as np
 
 from distributedratelimiting.redis_tpu_torch.runtime import (
     admission,
+    liveconfig,
     placement,
     reservations,
     wire,
@@ -116,8 +121,7 @@ __all__ = ["BucketStoreServer", "main"]
 #: Ops the JAX server serves that this one does not yet. Each answers a
 #: routable error that never reads as "unknown op" (see the module doc).
 _UNPORTED_OPS = frozenset((
-    wire.OP_CONFIG, wire.OP_FED_LEASE, wire.OP_FED_RENEW,
-    wire.OP_FED_RECLAIM))
+    wire.OP_FED_LEASE, wire.OP_FED_RENEW, wire.OP_FED_RECLAIM))
 #: Scalar keyed admission ops fed to the heavy-hitter sketch. A module
 #: constant: an inline tuple would rebuild from four global lookups on
 #: every request.
@@ -283,15 +287,21 @@ class BucketStoreServer:
         self.metrics_port = metrics_port
         self._metrics_server: asyncio.AbstractServer | None = None
         self._registry: MetricsRegistry | None = None
+        # The live-config half: the committed forwarding rules behind
+        # OP_CONFIG. Dormant until the first rule commits.
+        self.liveconfig = liveconfig.ConfigState()
         # The estimate-reserve-settle ledger: the STORE-attached one, so a
         # store re-fronted by a new server keeps its holds and debts;
         # (re)wired to THIS server's plane (settles feed the velocity the
-        # actual spend, reserve events land in the flight recorder). A
-        # client store (no ledger of its own) serves no reservations.
+        # actual spend, reserve events land in the flight recorder, a
+        # settle of a hold made under a retired config lands on the table
+        # the rebase carried its balance into). A client store (no ledger
+        # of its own) serves no reservations.
         if callable(getattr(store, "reservation_ledger", None)):
             self.reservations = store.reservation_ledger()
             self.reservations.velocity = self.token_velocity
             self.reservations.flight_recorder = self.flight_recorder
+            self.reservations.liveconfig = self.liveconfig
         else:
             self.reservations = None
         # The elastic-membership half: the epoch-versioned placement map and
@@ -521,8 +531,8 @@ class BucketStoreServer:
     def _build_registry(self) -> MetricsRegistry:
         """The JAX server's families, in its order and with its names and
         help text, less the ones over state the port has not got (ROADMAP
-        Queue C): live config, federation and the controller. They are
-        left out, not rendered as zeros."""
+        Queue A): federation and the controller. They are left out, not
+        rendered as zeros."""
         reg = MetricsRegistry()
         reg.counter("connections_served", "Accepted TCP connections",
                     lambda: (self._native.counts()[1]
@@ -699,6 +709,13 @@ class BucketStoreServer:
                       "handoff_deferrals", "pulls", "pushes_applied",
                       "pushes_duplicate", "rows_imported", "aborts",
                       "expired_aborts", "announces", "stale_announces"})
+        reg.register_numeric_dict(
+            "config", "live-config mutation state",
+            lambda: (self.liveconfig.stats()
+                     if (self.liveconfig.active
+                         or self.liveconfig.version) else None),
+            counters={"moved_errors", "commits", "aborts",
+                      "stale_announces", "rebased_rows"})
         reg.register_numeric_dict(
             "snapshot_chain", "incremental checkpoint chain",
             lambda: (self._snapshot_chain.stats()
@@ -1014,6 +1031,18 @@ class BucketStoreServer:
                 if kind == wire.BULK_KIND_HBUCKET:
                     return await self._serve_bulk_hier(
                         seq, body, keys, counts, a, b, with_rem)
+                if self.liveconfig.active:
+                    # Frame-level config gate: one (kind, a, b) decides the
+                    # whole frame. A retired config answers the routable
+                    # moved error (no row applied); the client re-sends the
+                    # frame with the new operands.
+                    ckind = liveconfig.BULK_KINDS.get(kind)
+                    fwd = (self.liveconfig.forward(ckind, a, b)
+                           if ckind is not None else None)
+                    if fwd is not None:
+                        return wire.encode_response(
+                            seq, wire.RESP_ERROR,
+                            self.liveconfig.moved(ckind, a, b, fwd))
                 gate = (self.placement.bulk_gate(keys)
                         if self.placement.active else None)
                 if gate is not None and gate[2].any():
@@ -1045,6 +1074,19 @@ class BucketStoreServer:
                     raise wire.RemoteStoreError(
                         f"unknown op {flagged_op}") from exc
                 raise
+            ckind = (liveconfig.OP_KINDS.get(op)
+                     if self.liveconfig.active else None)
+            if ckind is not None:
+                fwd = self.liveconfig.forward(ckind, a, b)
+                if fwd is not None:
+                    # Retired config: the routable moved error, the store
+                    # untouched; the client re-sends once with the new
+                    # operands and caches the translation. OP_KINDS is the
+                    # one op → kind table (the native batch lane and the
+                    # client use it too).
+                    return wire.encode_response(
+                        seq, wire.RESP_ERROR,
+                        self.liveconfig.moved(ckind, a, b, fwd))
             if self.placement.active and op in _PLACEMENT_GATED_OPS:
                 verdict = self.placement.gate(key)
                 if verdict is not None:
@@ -1190,6 +1232,20 @@ class BucketStoreServer:
                                                     self.store)
                 resp = wire.encode_response(seq, wire.RESP_VALUE,
                                             float(applied))
+            elif op == wire.OP_CONFIG:
+                # An empty payload fetches the committed rules; any other
+                # is one step of a two-phase mutation.
+                payload = json.loads(key)
+                if not payload:
+                    resp = wire.encode_response(
+                        seq, wire.RESP_TEXT, json.dumps(
+                            self.liveconfig.snapshot_payload()))
+                else:
+                    await faults.seam("server.config")
+                    version = await self.liveconfig.announce(payload,
+                                                             self.store)
+                    resp = wire.encode_response(seq, wire.RESP_VALUE,
+                                                float(version))
             else:  # HELLO past the connection gate
                 resp = wire.encode_response(
                     seq, wire.RESP_ERROR, f"unknown op {op}")
@@ -1258,6 +1314,22 @@ class BucketStoreServer:
             granted, remaining)
         return BulkAcquireResult(granted, remaining)
 
+    def _hier_config_gate(self, seq: int, a: float, b: float,
+                          ta: float, tb: float) -> "bytes | None":
+        """Both levels of a two-level frame gate on the live-config rules:
+        a retired child config and a retired parent (tenant) config each
+        answer the routable moved error (the client learns the rule of
+        whichever level moved and re-sends; both are "bucket" rules)."""
+        if not self.liveconfig.active:
+            return None
+        for pa, pb in ((a, b), (ta, tb)):
+            fwd = self.liveconfig.forward("bucket", pa, pb)
+            if fwd is not None:
+                return wire.encode_response(
+                    seq, wire.RESP_ERROR,
+                    self.liveconfig.moved("bucket", pa, pb, fwd))
+        return None
+
     @staticmethod
     def _hier_envelope(env_acquire, tenant: str, key: str, count: int,
                        a: float, b: float, ta: float, tb: float,
@@ -1292,6 +1364,9 @@ class BucketStoreServer:
         tenant (the parent bucket lives whole on one node)."""
         seq, key, count, a, b, tenant, ta, tb, priority = (
             wire.decode_hierarchical_request(body))
+        gate_resp = self._hier_config_gate(seq, a, b, ta, tb)
+        if gate_resp is not None:
+            return gate_resp
         if self.placement.active:
             verdict = self.placement.gate(tenant)
             if verdict is not None:
@@ -1328,6 +1403,9 @@ class BucketStoreServer:
         extension rides the frame's tail) decided two-level in one store
         call."""
         tenant, ta, tb, priority = wire.bulk_hier_tail(body)
+        gate_resp = self._hier_config_gate(seq, a, b, ta, tb)
+        if gate_resp is not None:
+            return gate_resp
         counts_np = np.asarray(counts, np.int64)
         if self.placement.active:
             # Frame-level, keyed on the tenant (the frame's routing
@@ -1397,8 +1475,10 @@ class BucketStoreServer:
                           if req.get("deadline_s") is not None else None)
         except (TypeError, ValueError):
             deadline_s = None
-        # Not ported here, as the subsystems behind them are not: the
-        # live-config gate on both levels and the drain envelope.
+        gate_resp = self._hier_config_gate(seq, a, b, ta, tb)
+        if gate_resp is not None:
+            return gate_resp
+        # The drain envelope is not ported here (nor drain-and-handoff).
         led = self.reservations
         est = float(estimate) if estimate else None
         if est is None and led is not None:
@@ -1626,6 +1706,8 @@ class BucketStoreServer:
             payload["stages"] = stages
         if self.placement.active:
             payload["placement"] = self.placement.stats()
+        if self.liveconfig.active or self.liveconfig.version:
+            payload["config"] = self.liveconfig.stats()
         if self._snapshot_chain is not None:
             payload["snapshot_chain"] = self._snapshot_chain.stats()
             dirty = getattr(self.store, "dirty_stats", None)

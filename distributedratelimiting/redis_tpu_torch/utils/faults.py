@@ -35,6 +35,10 @@ runtime consults when — and only when — an injector is installed:
 - ``server.migrate`` — a MIGRATE_PULL/PUSH dispatch on the serving node
   (:meth:`BucketStoreServer._handle_frame_inner`): a fault here fails
   one handoff step — the coordinator's abort path must fire.
+- ``server.config`` — an OP_CONFIG prepare/commit/abort/adopt on the
+  serving node (:meth:`BucketStoreServer._handle_frame_inner`; a fetch
+  does not pass it): a fault fails that step, and a failed prepare makes
+  the coordinator abort the mutation everywhere.
 - ``cluster.migrate`` — one membership-change step on the coordinator
   (:meth:`ClusterBucketStore._apply_placement`: health gate, pull, each
   push batch, each commit announce): the membership-change seam the

@@ -8,14 +8,16 @@ the sketch, the gauges in OpenMetrics, the passthrough fall-through, the
 ``native_bulk=False`` knob, windows and verdict-only frames) and
 ``tests/test_native_parity_fuzz.py``'s byte-level fuzz between the port's
 native and asyncio servers over equal stores on lockstep ManualClocks (the
-placement arm is in ``tests/test_torch_reshard.py``; the live-config arm
-waits for ROADMAP A 4). The card store runs on the CPU
+placement arm is in ``tests/test_torch_reshard.py``; the live-config arm,
+a retired config's frame-level "config moved", is
+``test_bulk_config_gated_rows_byte_identical`` here). The card store runs on the CPU
 (``DeviceBucketStore(device="cpu")``).
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import struct
 import time
 
@@ -447,6 +449,54 @@ def test_bulk_frames_reply_byte_identical(backing, seed, tier0, shards,
                     dt = float(rng.uniform(0.0, 2.0))
                     for c in clocks:
                         c.advance_seconds(dt)
+        finally:
+            await _close_pair(stores, servers, conns)
+
+    run(main())
+
+
+@pytest.mark.parametrize("backing,uring", [
+    ("inprocess", None), ("device", None), _uring_arm("inprocess", "on")])
+def test_bulk_config_gated_rows_byte_identical(backing, uring):
+    """The config half of JAX ``test_native_parity_fuzz.py::
+    test_bulk_gated_rows_byte_identical``: after the same OP_CONFIG
+    mutation on both servers (retire (50, 1) -> (80, 2), then a window
+    rule), a bulk frame of a retired config answers the same frame-level
+    "config moved" from both lanes (the native one through ``fe_send`` and
+    ``fe_bulk_discard``) and current-config frames decide alike — on
+    either transport."""
+    async def main():
+        _clocks, stores, servers, conns = await _start_pair(backing,
+                                                            uring=uring)
+        try:
+            for seq, payload in ((900, {"prepare": {
+                    "kind": "bucket", "old": [50.0, 1.0],
+                    "new": [80.0, 2.0]}, "version": 1}),
+                    (901, {"commit": 1}),
+                    (902, {"prepare": {"kind": "window",
+                                       "old": [20.0, 1.0],
+                                       "new": [12.0, 1.0]}, "version": 2}),
+                    (903, {"commit": 2})):
+                frame = wire.encode_request(seq, wire.OP_CONFIG,
+                                            key=json.dumps(payload))
+                rs = [await _roundtrip(cn, frame) for cn in conns]
+                assert rs[0] == rs[1]
+            for seq, kind, a, b, moved in (
+                    (7, wire.BULK_KIND_BUCKET, 50.0, 1.0, True),
+                    (8, wire.BULK_KIND_BUCKET, 80.0, 2.0, False),
+                    (9, wire.BULK_KIND_WINDOW, 20.0, 1.0, True),
+                    (10, wire.BULK_KIND_FWINDOW, 20.0, 1.0, False),
+                    (11, wire.BULK_KIND_WINDOW, 12.0, 1.0, False)):
+                frame = wire.encode_bulk_request(
+                    seq, [b"a", b"b", b"a"], [1, 2, 1], a, b, kind=kind)
+                rs = [await _roundtrip(cn, frame) for cn in conns]
+                assert rs[0] == rs[1], seq
+                if moved:
+                    assert b"config moved" in rs[0], rs[0]
+                else:
+                    assert rs[0][9] == wire.RESP_BULK, rs[0]
+            stats = [s.liveconfig.stats() for s in servers]
+            assert stats[0] == stats[1] and stats[0]["moved_errors"] == 2
         finally:
             await _close_pair(stores, servers, conns)
 

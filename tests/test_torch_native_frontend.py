@@ -4,8 +4,10 @@
 The JAX package's ``tests/test_native_frontend.py`` cases that need only
 ported state, each on the port's serial store and on its card store run on
 the CPU (``DeviceBucketStore(device="cpu")``, the kernels' plain versions),
-through the unmodified port client. Left out: the cluster over native
-servers (ROADMAP A 10) and the live-config gate (A 4). Added: the loader's
+through the unmodified port client, the live-config gate on the batch
+lane included (a retired config's rows answer "config moved" byte for
+byte as the port's asyncio lane and the JAX package's native lane do).
+Left out: the cluster over native servers (ROADMAP A 10). Added: the loader's
 content-hashed build, a failed build raising, the modules importing with
 no JAX, the two packages' library copies keeping separate state, knobs and
 CLI checks, and a seeded differential against the JAX package's native
@@ -16,6 +18,7 @@ compared exactly (tier-0 off). Every wait is a condition under a deadline.
 from __future__ import annotations
 
 import asyncio
+import json
 import os
 import pathlib
 import struct
@@ -972,5 +975,140 @@ def test_native_servers_answer_like_the_jax_package(backing, seed,
         for i, (a, b) in enumerate(zip(got, want)):
             assert a == b, (i, wire.decode_response(a),
                             wire.decode_response(b))
+
+    run(body())
+
+
+# -- the live-config gate on the batch lane ---------------------------------
+
+@pytest.mark.parametrize("backing", BACKINGS)
+def test_config_moved_gate_on_native_batch_lane(backing):
+    """JAX ``test_native_frontend.py::test_config_moved_gate_on_native_batch_
+    lane``: a per-request frame carrying a retired (kind, a, b) answers the
+    routable "config moved" error from the C batch lane (``fe_send`` and
+    the row-skip sentinel), the store untouched for that row; the client
+    chases once and translates every later call (one moved error in all,
+    bucket and window kinds alike), the balance carried exactly."""
+    async def body(srv):
+        store = _client(srv)
+        try:
+            for _ in range(30):
+                await store.acquire("k", 1, 100.0, 0.0)
+            await store.config_announce({"prepare": {
+                "kind": "bucket", "old": [100.0, 0.0],
+                "new": [50.0, 0.0]}, "version": 1})
+            await store.config_announce({"commit": 1})
+            r = await store.acquire("k", 0, 100.0, 0.0)
+            assert r.remaining == 20.0  # 50 − 30 spent
+            r = await store.acquire("k", 20, 100.0, 0.0)
+            assert r.granted and r.remaining == 0.0
+            assert not (await store.acquire("k", 1, 100.0, 0.0)).granted
+            st = await store.stats()
+            assert st["config"]["moved_errors"] == 1
+            await store.window_acquire("w", 3, 10.0, 100.0)
+            await store.config_announce({"prepare": {
+                "kind": "window", "old": [10.0, 100.0],
+                "new": [4.0, 100.0]}, "version": 2})
+            await store.config_announce({"commit": 2})
+            r = await store.window_acquire("w", 1, 10.0, 100.0)
+            assert r.granted  # 3 of 4 replayed + 1 = at the limit
+            assert not (await store.window_acquire("w", 1, 10.0,
+                                                   100.0)).granted
+            st = await store.stats()
+            assert st["config"]["moved_errors"] == 2
+            assert st["config"]["rebased_rows"] == 2
+        finally:
+            await store.aclose()
+
+    run(_with_server(body, backing))
+
+
+@pytest.mark.parametrize("backing", BACKINGS)
+def test_config_moved_rows_byte_equal_to_the_jax_native_lane(backing):
+    """The same pipelined per-request frames — rows of a retired bucket,
+    window and fixed-window config mixed with current ones and SEMA rows —
+    answer byte for byte alike from the port's native batch lane, its
+    asyncio lane and the JAX package's native lane, after the same
+    OP_CONFIG mutations on equal stores and lockstep clocks."""
+    from distributedratelimiting.redis_tpu.runtime import store as jstore
+    from distributedratelimiting.redis_tpu.runtime.clock import (
+        ManualClock as JaxClock,
+    )
+    from distributedratelimiting.redis_tpu.runtime.server import (
+        BucketStoreServer as JaxServer,
+    )
+
+    rules = [("bucket", [10.0, 1.0], [6.0, 1.0]),
+             ("window", [20.0, 1.0], [12.0, 1.0]),
+             ("fwindow", [20.0, 1.0], [9.0, 1.0])]
+    rng = np.random.default_rng(7)
+    setup, frames = [], []
+    for i, op in enumerate((wire.OP_ACQUIRE, wire.OP_WINDOW,
+                            wire.OP_FWINDOW)):
+        for k in range(6):
+            a = 10.0 if op == wire.OP_ACQUIRE else 20.0
+            setup.append(wire.encode_request(10 + 6 * i + k, op, f"g{k}",
+                                             int(rng.integers(1, 5)), a,
+                                             1.0))
+    for n, (kind, old, new) in enumerate(rules):
+        setup.append(wire.encode_request(100 + n, wire.OP_CONFIG, json.dumps(
+            {"prepare": {"kind": kind, "old": old, "new": new},
+             "version": n + 1})))
+        setup.append(wire.encode_request(200 + n, wire.OP_CONFIG, json.dumps(
+            {"commit": n + 1})))
+    combos = []
+    for op, old, new in ((wire.OP_ACQUIRE, (10.0, 1.0), (6.0, 1.0)),
+                         (wire.OP_WINDOW, (20.0, 1.0), (12.0, 1.0)),
+                         (wire.OP_FWINDOW, (20.0, 1.0), (9.0, 1.0))):
+        for k in range(6):
+            combos += [(op, f"g{k}", old), (op, f"g{k}", new)]
+    combos += [(wire.OP_SEMA, f"s{k}", (5.0, 0.0)) for k in range(4)]
+    for n, i in enumerate(rng.permutation(len(combos)).tolist()):
+        op, key, (a, b) = combos[i]
+        frames.append(wire.encode_request(1000 + n, op, key,
+                                          int(rng.integers(0, 3)), a, b))
+
+    async def replay(addr):
+        reader, writer = await asyncio.open_connection(*addr)
+        try:
+            out = {}
+            for f in setup:  # one at a time: each answered before the next
+                writer.write(f)
+                await writer.drain()
+                body = await asyncio.wait_for(wire.read_frame(reader), 10.0)
+                out[int.from_bytes(body[1:5], "little")] = body
+            for f in frames:
+                writer.write(f)
+            await writer.drain()
+            for _ in frames:
+                body = await asyncio.wait_for(wire.read_frame(reader), 10.0)
+                out[int.from_bytes(body[1:5], "little")] = body
+            return out
+        finally:
+            writer.close()
+
+    async def body():
+        js = (jstore.InProcessBucketStore(clock=JaxClock(1 << 20))
+              if backing == "inprocess" else
+              jstore.DeviceBucketStore(n_slots=1 << 12, counter_slots=256,
+                                       max_batch=64,
+                                       clock=JaxClock(1 << 20)))
+        ps = [_store(backing, ManualClock(1 << 20)) for _ in range(2)]
+        try:
+            async with JaxServer(js, native_frontend=True) as jsrv, \
+                    BucketStoreServer(ps[0], native_frontend=True) as nsrv, \
+                    BucketStoreServer(ps[1]) as asrv:
+                got = [await replay((s.host, s.port))
+                       for s in (nsrv, asrv, jsrv)]
+                stats = [s.liveconfig.stats() for s in (nsrv, asrv, jsrv)]
+        finally:
+            await js.aclose()
+            for s in ps:
+                await s.aclose()
+        assert got[0] == got[1] == got[2]
+        text = b"".join(got[0].values())
+        assert text.count(b"config moved") == 18
+        assert stats[0] == stats[1] == stats[2]
+        assert stats[0]["moved_errors"] == 18
 
     run(body())

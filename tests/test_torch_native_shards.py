@@ -9,8 +9,9 @@ split across shards (on epoll and on the ring), the bulk load generator's
 own accounting; the io_uring probe, the kill switch, a seccomp-denied ring
 falling back per shard with its reason, epoll by default, the ring engaged
 and cheaper in syscalls, chained-chunk order under multishot recv's
-rechunking. Left out: the retired-config fan-out (live config, ROADMAP
-A 4). The JAX package's stale-binary fallbacks have no counterpart: the
+rechunking, and the retired-config fan-out under bulk load (tier-0's
+retire sweeps every shard's slice) on epoll and on the ring. The JAX
+package's stale-binary fallbacks have no counterpart: the
 port builds the library from the source it ships, so the whole ABI is
 always there. Each case runs on the port's serial store, the ring cases
 skip on a host whose kernel refuses io_uring.
@@ -19,7 +20,9 @@ skip on a host whose kernel refuses io_uring.
 from __future__ import annotations
 
 import asyncio
+import json
 import struct
+import time
 
 import pytest
 
@@ -208,6 +211,99 @@ def test_bulk_loadgen_counts_are_consistent():
                 await store.aclose()
 
     run(body())
+
+
+
+# -- live config: the retire fans out to every shard -------------------------
+
+async def _retire_fans_out(store, uring) -> None:
+    """JAX ``test_native_shards.py::test_retire_fans_out_to_every_shard``
+    (and its io_uring twin): a live OP_CONFIG mutation under multi-shard
+    bulk load. Once the sync pump retires the old config no shard may still
+    answer old-config frames from a live replica — ``fe_t0_retire`` sweeps
+    every shard's slice in one critical section."""
+    old_cap, old_rate = 100000.0, 1e-9
+    new_cap, new_rate = 120000.0, 2e-9
+    cfg = Tier0Config(sync_interval_s=0.005, min_budget=8.0)
+    ring = uring is not None
+    async with BucketStoreServer(store, native_frontend=True,
+                                 native_tier0=cfg, native_shards=4,
+                                 native_uring=uring) as srv:
+        if ring:
+            assert srv._native.uring_shards == 4
+        # Hot old-config bulk traffic over many connections, so replicas
+        # install across several shards' slices.
+        await asyncio.to_thread(
+            native_bulk_loadgen, srv.host, srv.port, conns=16, depth=4,
+            frames_per_conn=40, rows_per_frame=256, keyspace=8,
+            capacity=old_cap, fill_rate=old_rate, uring=ring)
+        client = RemoteBucketStore(address=(srv.host, srv.port))
+        try:
+            st = await client.stats()
+            hosting = [s["shard"] for s in st["shards"]
+                       if s["tier0"]["entries"] > 0]
+            assert len(hosting) >= 2, hosting
+            # Mutate while loadgen traffic is still in flight.
+            load = asyncio.create_task(asyncio.to_thread(
+                native_bulk_loadgen, srv.host, srv.port, conns=8, depth=2,
+                frames_per_conn=40, rows_per_frame=256, keyspace=8,
+                capacity=old_cap, fill_rate=old_rate, uring=ring))
+            for payload in ({"prepare": {"kind": "bucket",
+                                         "old": [old_cap, old_rate],
+                                         "new": [new_cap, new_rate]},
+                             "version": 1},
+                            {"commit": 1}):
+                frame = wire.encode_request(900, wire.OP_CONFIG,
+                                            key=json.dumps(payload))
+                reply = (await _roundtrip_raw(srv.host, srv.port,
+                                              [frame]))[0]
+                assert reply[9] != wire.RESP_ERROR, reply
+            await load
+            # The pump retires a config when it harvests a grant of it:
+            # where the load ended before the commit, old-config frames
+            # (served from the replicas' last-acked headroom, the tier-0
+            # epsilon) give it one.
+            m = srv._native.t0_metrics
+            deadline = time.monotonic() + 10.0
+            while m.retired_config_rows < 1:
+                assert time.monotonic() < deadline, "the pump never retired"
+                await _roundtrip_raw(srv.host, srv.port, [
+                    wire.encode_bulk_request(6, [b"b0", b"b1"], [1, 1],
+                                             old_cap, old_rate)])
+                await asyncio.sleep(cfg.sync_interval_s)
+            await asyncio.sleep(cfg.sync_interval_s * 10)
+            # Every connection (each on a kernel-chosen shard) answers an
+            # old-config frame with the routable moved error, and decides
+            # a new-config frame normally.
+            for _ in range(16):
+                frame = wire.encode_bulk_request(
+                    7, [b"b0", b"b1"], [1, 1], old_cap, old_rate)
+                reply = (await _roundtrip_raw(srv.host, srv.port,
+                                              [frame]))[0]
+                assert reply[9] == wire.RESP_ERROR, reply
+                assert b"config moved" in reply, reply
+                frame = wire.encode_bulk_request(
+                    8, [b"b0", b"b1"], [1, 1], new_cap, new_rate)
+                reply = (await _roundtrip_raw(srv.host, srv.port,
+                                              [frame]))[0]
+                assert reply[9] == wire.RESP_BULK, reply
+        finally:
+            await client.aclose()
+
+
+@pytest.mark.parametrize("backing", ["inprocess", "device"])
+def test_retire_fans_out_to_every_shard(backing):
+    store = (InProcessBucketStore() if backing == "inprocess"
+             else DeviceBucketStore(device="cpu", n_slots=1 << 12))
+    run(_retire_fans_out(store, None))
+
+
+@needs_ring
+def test_retire_fans_out_under_uring_bulk_load():
+    """The io_uring twin: the retire sweep is transport-independent state,
+    and the ring's queued sends must not reorder the terminal error/grant
+    split."""
+    run(_retire_fans_out(InProcessBucketStore(), "on"))
 
 
 # -- the io_uring transport --------------------------------------------------

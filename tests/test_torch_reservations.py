@@ -17,10 +17,11 @@ through ``peek_blocking`` on both stores. Tolerances:
   the tenant capacity).
 
 Cases of ``tests/test_reservations.py`` that need modules the port has not
-ported wait with them: ``:312`` (placement's entry chunks), ``:478`` (live
-config), ``:516`` and ``:574`` (migration) and ``:820`` (the soak's drain,
-chaos and OP_CONFIG). ``:328`` and ``:361`` (the fingerprint store) are in
-``tests/test_torch_fp_store.py``.
+ported wait with them: ``:312`` (placement's entry chunks), ``:516`` and
+``:574`` (migration) and ``:820`` (the soak's drain, chaos and OP_CONFIG).
+``:328`` and ``:361`` (the fingerprint store) are in
+``tests/test_torch_fp_store.py``, ``:478`` (a settle after a live config
+rebase) in ``tests/test_torch_liveconfig.py``.
 
 The wire: the four server/client pairings on one scenario (reserve,
 settle, duplicates, unknown rids, the server-side prior, ``OP_STATS``'s

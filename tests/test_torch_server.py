@@ -26,6 +26,7 @@ new modules' independence from JAX.
 """
 
 import asyncio
+import json
 import os
 import queue
 import signal
@@ -343,15 +344,21 @@ def test_unported_ops_answer_without_the_old_peer_words():
             # admission were ported.
             assert not pserver._UNPORTED_BULK_KINDS
             assert not {pw.OP_SEMA, pw.OP_ACQUIRE_H} & pserver._UNPORTED_OPS
-            # Since the placement plane: only live config and federation
-            # remain; the four placement ops answer as a JAX server does.
+            # Since live config: only federation remains; the four
+            # placement ops and OP_CONFIG (a fetch, an abort, an unknown
+            # form, a stale prepare) answer as a JAX server does.
             assert pserver._UNPORTED_OPS == {
-                pw.OP_CONFIG, pw.OP_FED_LEASE, pw.OP_FED_RENEW,
-                pw.OP_FED_RECLAIM}
+                pw.OP_FED_LEASE, pw.OP_FED_RENEW, pw.OP_FED_RECLAIM}
             placement_frames = [pw.encode_request(
                 300 + i, op, "{}", 1, 5.0, 1.0) for i, op in enumerate(
                     (pw.OP_PLACEMENT, pw.OP_PLACEMENT_ANNOUNCE,
-                     pw.OP_MIGRATE_PULL, pw.OP_MIGRATE_PUSH))]
+                     pw.OP_MIGRATE_PULL, pw.OP_MIGRATE_PUSH, pw.OP_CONFIG))]
+            placement_frames += [pw.encode_request(
+                310 + i, pw.OP_CONFIG, json.dumps(body), 1, 5.0, 1.0)
+                for i, body in enumerate((
+                    {"abort": 3}, {"bogus": 1},
+                    {"prepare": {"kind": "bucket", "old": [5.0, 1.0],
+                                 "new": [4.0, 1.0]}, "version": 0}))]
             got, closed = await _raw(srv.address, *placement_frames)
             assert not closed
             async with _Server("jax") as jsrv:
@@ -362,8 +369,8 @@ def test_unported_ops_answer_without_the_old_peer_words():
             for op in sorted(pserver._UNPORTED_OPS):
                 frames.append(pw.encode_request(
                     op, op, "{}" if op in pw.TEXT_OPS else "k", 1, 5.0, 1.0))
-            frames.append(pw.encode_request(200, pw.OP_CONFIG, "{}", 1, 5.0,
-                                            1.0, trace=(1, 2, 3, 1)))
+            frames.append(pw.encode_request(200, pw.OP_FED_LEASE, "{}", 1,
+                                            5.0, 1.0, trace=(1, 2, 3, 1)))
             frames.append(bytes([6, 0, 0, 0, 4, 99, 0, 0, 0, 30]))  # no such op
             replies, closed = await _raw(srv.address, *frames)
             assert not closed

@@ -582,3 +582,64 @@ def test_t0_retire_kills_replicas_and_returns_their_grants():
                 await store.aclose()
 
     run(body())
+
+
+# -- live config: a retired config's replicas ---------------------------------
+
+@pytest.mark.parametrize("backing", BACKINGS)
+def test_tier0_retired_config_reroutes_debits_and_stops_serving(backing):
+    """JAX ``tests/test_upgrade.py:858``: a config mutation retiring a
+    tier-0-hosted (cap, rate). The sync pump retires the C replicas
+    (``_t0_retire``) and debits the harvested grants through the
+    REPLACEMENT config's table, so within a sync interval the C lane stops
+    admitting against the dead table and a stale frame falls through to the
+    batch lane's routable "config moved"; the new table accounts for every
+    grant, before and after the commit."""
+    async def body():
+        store = _store(backing)
+        try:
+            async with BucketStoreServer(
+                    store, native_frontend=True,
+                    native_tier0=_cfg(sync_interval_s=0.02)) as srv:
+                c = _client(srv)
+                try:
+                    for _ in range(200):
+                        assert (await c.acquire("hot", 1, 1000.0,
+                                                1e-9)).granted
+                    await until(lambda: srv._native.t0_metrics.syncs >= 1)
+                    st = await c.stats()
+                    assert st["tier0"]["installs"] >= 1
+                    await c.config_announce({"prepare": {
+                        "kind": "bucket", "old": [1000.0, 1e-9],
+                        "new": [500.0, 1e-9]}, "version": 1})
+                    await c.config_announce({"commit": 1})
+                    # Right after the commit a stale frame may still be
+                    # served from the replica's last-acked headroom: the
+                    # one-sync-interval epsilon.
+                    for _ in range(100):
+                        assert (await c.acquire("hot", 1, 1000.0,
+                                                1e-9)).granted
+                    m = srv._native.t0_metrics
+                    await until(lambda: m.retired_config_rows >= 1
+                                and not srv._native._t0_carry)
+                    r = await c.acquire("hot", 1, 1000.0, 1e-9)
+                    assert r.granted
+                    st = await c.stats()
+                    assert st["config"]["moved_errors"] >= 1
+                    assert st["tier0"]["retired_config_rows"] >= 1
+                    # Every grant (~301) reaches the new table, saturating:
+                    # the retired replica's through the retire, those a
+                    # replica of the new config served through its syncs.
+                    async def settled():
+                        bal = await _balance(store, "hot", 500.0, 1e-9)
+                        return bal <= 500.0 - 301.0 + 16.0
+
+                    await until(settled)
+                    bal = await _balance(store, "hot", 500.0, 1e-9)
+                    assert bal == pytest.approx(500.0 - 301.0, abs=16.0)
+                finally:
+                    await c.aclose()
+        finally:
+            await store.aclose()
+
+    run(body())
