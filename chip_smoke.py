@@ -164,8 +164,9 @@ Phases (any failure raises, and the script exits non-zero):
    equal (a denied row after an earlier denied row of its key in one
    decision may read the card's conservative 0), every entry's state equal;
    then a ``BucketStoreServer(snapshot_incremental=True)`` over a card store
-   of 2^24 slots holding 4,000,000 bucket keys (cut from 10,000,000 when
-   the fp path joined: the script must end within 1,200 s), 1,000,000
+   of 2^24 slots holding 2,000,000 bucket keys (cut from 10,000,000 to
+   4,000,000 when the fp path joined, and to 2,000,000 when the drain path
+   did: the script must end within 1,200 s), 1,000,000
    sliding-window keys, 2^16 counters and 2^16 held semaphores: ``OP_SAVE`` (a base), 500,000
    keys again and 10,000 new ones (``dirty_stats`` 510,000), ``OP_SAVE``
    (delta 1, under a tenth of the base), ``OP_SAVE`` (dirty 0; an empty
@@ -179,14 +180,14 @@ Phases (any failure raises, and the script exits non-zero):
    (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
    ``serving_p99_instant`` sections once each with short windows (no key
    null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
-   alone (``--paths`` takes any of the paths of phases 3–10 and 12–17,
+   alone (``--paths`` takes any of the paths of phases 3–10 and 12–18,
    comma-separated).
 9. The observability and overload plane (``--paths observability``), at
    the server cell's size: ``BucketStoreServer(observability=True,
    metrics_port=0, flight_dir=<tmp>, audit=AuditConfig(tick_s=0.05),
    overflow_pool=...)`` over a card ``DeviceBucketStore`` of 2^24 slots.
    From a client process of its own (``chip_smoke.py --obs-client``),
-   100,000 ``acquire``s, one frame each, 64 tasks, Zipf(1.1) over 1M keys;
+   50,000 ``acquire``s, one frame each, 64 tasks, Zipf(1.1) over 1M keys;
    the heavy-hitter sketch's top 64 (``OP_METRICS``'s ``hot_key_*``
    families, ``OP_STATS``' top 10 their head) held to the stream's exact
    counts (``count - error <= true`` for all 64; present, and ``true <=
@@ -207,7 +208,7 @@ Phases (any failure raises, and the script exits non-zero):
    (JAX's words; the store untouched) and the overflow-pool redirect of
    ``OP_RESERVE``. A seeded storm (``storm_schedule``) with faults on the
    client's and the server's seams: cap-5 x 32 -> 5, every rid held and
-   settled once. The plane's cost: the same 100,000 requests in ABBA
+   settled once. The plane's cost: the same 50,000 requests in ABBA
    blocks against this server and one with ``observability=False`` over a
    store of its own: requests/s and p99 each way, printed, not asserted.
 10. The shared store server (README "Multi-host", BASELINE config 2's
@@ -381,7 +382,7 @@ Phases (any failure raises, and the script exits non-zero):
    flight at the flip, key by key (the over-admission and the longest
    round, the serving stall, printed). Every bucket on the new config
    equals a host float32 oracle of the rebase (``max(0, 6 - spent)``)
-   through the export, and 10,000 PEEKs at the old config over the wire;
+   through the export, and 2,000 PEEKs at the old config over the wire;
    versions 2 and 3 (a sliding and a fixed window cut) replay to
    ``floor(min(count, limit))`` in window flushes; a hold reserved before
    the commit settles after it on the new table; 4 fresh clients take one
@@ -394,8 +395,32 @@ Phases (any failure raises, and the script exits non-zero):
    and its batch-lane and bulk-lane moved answers equal an asyncio server's
    byte for byte. ``OP_STATS``' ``config``, the ``drl_config_*`` families, a
    clean audit.
-18. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
-   of phases 3–10 and 12–17 (``launches_by_path``; counts set to 0 before each
+18. Drain-and-handoff shutdown (``--paths drain``; the server's
+   ``shutdown``, the drain gates and the settle relay): a source and a
+   successor ``BucketStoreServer``, each over a card ``DeviceBucketStore``
+   of 2^24 slots on one frozen ManualClock, the exact cell's server
+   restarted in a rolling way. The source holds 1,000,000 bucket keys (cut
+   from 10,000,000, as the config cell's) at capacity 10 with seeded spends
+   of 0-10, a quarter of them at a config version 1 retires (capacity 10 ->
+   6), 100,000 sliding windows, 10,000 counters and semaphores and 300 open
+   holds. ``shutdown(successor, window_s=2.0)``: the export's seconds and
+   the store lock's longest hold, the source debit's ``debit_packed``
+   launches and CUDA-event ms, the push's seconds and rows/s and the
+   import's launches per kernel, the linger, the envelope decisions; a
+   client asks one unit a key a round on 10,000 keys through the source
+   while its gate is on (the longest round, the serving stall) and two holds
+   settle through it (relayed), then asks through the successor until it
+   denies. The successor's export equals a host float32 oracle of
+   ``debit_export`` row for row (windows, counters, semaphores and the
+   ledger too); admitted(source) + admitted(successor) <= the pre-drain
+   balance + one envelope, key by key; ``shipped_rows`` equals the exported
+   rows; the successor runs config version 1 and a fresh client at the old
+   config chases one moved error. A drain whose successor closes after its
+   first push falls back to the final checkpoint, which restores equal to
+   the debited source; a source with no snapshot path raises, disarms its
+   gate and drains on a retry.
+19. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
+   of phases 3–10 and 12–18 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
    two-level kernel and the debit > 0 on the reservation path, every
    store kernel but the window flushes > 0 on the checkpoint path, the
@@ -405,8 +430,9 @@ Phases (any failure raises, and the script exits non-zero):
    ``global_tier``, the two scans and the fp decision > 0 on the mesh path,
    the debit, the window, counter and semaphore flushes, the bucket flush
    and the bucket scan > 0 on the placement path, the debit, the window
-   flush, the bucket flush and the bucket scan > 0 on the config path, and
-   every kernel that a wire op reaches > 0 on the server path — all but
+   flush, the bucket flush and the bucket scan > 0 on the config path, the
+   debit, the window, counter and semaphore flushes, the bucket scan and
+   the two-level kernel > 0 on the drain path, and every kernel that a wire op reaches > 0 on the server path — all but
    the bench's ``acquire_scan24`` and ``acquire_batch``, the fp kernels,
    whose store the fp path serves, and ``global_tier``, whose the mesh path
    serves) and their sum
@@ -414,7 +440,7 @@ Phases (any failure raises, and the script exits non-zero):
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-19. Last line: ``{"ok": true, "device": {...}}``.
+20. Last line: ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -4314,17 +4340,19 @@ CKPT_SEMAS = 2**16
 CKPT_REACQUIRE = 500_000
 CKPT_NEW_KEYS = 10_000
 CKPT_FILL_CALL = 1_000_000
-#: The chain's bucket keys: 4M since the fp path joined the script (10M
-#: before): the chain at 10M keys took 200 s of a script that must end
-#: within 1,200 s.
-CKPT_CHAIN_KEYS = 4_000_000
+#: The chain's bucket keys: 2M since the drain path joined the script (4M
+#: since the fp path did, 10M before): with the drain path the whole script
+#: took 1,169 s at 4M, against the 1,100 s it keeps under its 1,200 s limit.
+CKPT_CHAIN_KEYS = 2_000_000
 #: The bench's child sections, once each with a short window.
+#: Halved (from 40 requests a worker and 2,048 samples) when the drain
+#: path joined the script.
 CKPT_BENCH = {
-    "nproc": {"clients": 4, "workers": 64, "reqs": 40, "warm_workers": 32,
-              "warm_reqs": 10},
-    "serving_p99_colocated": {"samples": 2048, "min_reqs": 32,
+    "nproc": {"clients": 4, "workers": 64, "reqs": 20, "warm_workers": 32,
+              "warm_reqs": 5},
+    "serving_p99_colocated": {"samples": 1024, "min_reqs": 32,
                               "warm_reqs": 10},
-    "serving_p99_instant": {"samples": 2048, "min_reqs": 32,
+    "serving_p99_instant": {"samples": 1024, "min_reqs": 32,
                             "warm_reqs": 10},
 }
 
@@ -4546,7 +4574,7 @@ def _snapshots_equal(what, a, b) -> None:
 
 async def chain_at_size(pkg, card: str, tmp: str) -> None:
     """A ``BucketStoreServer(snapshot_incremental=True)`` over a card store
-    of 2^24 slots holding 4M bucket keys, 1M sliding-window keys, 2^16
+    of 2^24 slots holding 2M bucket keys, 1M sliding-window keys, 2^16
     counters and 2^16 held semaphores: a base, a delta of 510,000 slots, an
     empty delta, and the save after a day's sweep; the chain restored into
     fresh card stores equals the saving store."""
@@ -4831,10 +4859,12 @@ async def checkpoint_path(torch, ck, pkg, card: str) -> dict:
 
 
 OBS_SEED = 1515
-#: The client process's traffic: Zipf(1.1) over 1M keys, 100,000
-#: ``acquire``s one frame each, 64 tasks (the server cell's scalar shape).
+#: The client process's traffic: Zipf(1.1) over 1M keys, 50,000
+#: ``acquire``s one frame each, 64 tasks (the server cell's scalar shape;
+#: 100,000 until the drain path joined the script, whose 1,200 s limit a
+#: slow host's run passed at 1,227 s).
 OBS_ZIPF_KEYS = 1_000_000
-OBS_REQUESTS = 100_000
+OBS_REQUESTS = 50_000
 OBS_TASKS = 64
 #: The heavy-hitter sketch's K (the server's default) and the traced
 #: window's requests.
@@ -4843,10 +4873,11 @@ OBS_TRACED = 200
 #: The device trace's bulk, and its store's device.
 OBS_TRACE_KEYS = 1_000_000
 OBS_TRACE_DEVICE = "cuda"
-#: The plane's cost: the same 100,000 requests split over ABBA blocks of
-#: windows (on, off, off, on), each window this many requests.
+#: The plane's cost: the same 50,000 requests split over ABBA blocks of
+#: windows (on, off, off, on), each window this many requests (12,500
+#: until the drain path joined the script).
 OBS_COST_BLOCKS = 2
-OBS_COST_WINDOW = 12_500
+OBS_COST_WINDOW = 6_250
 #: A bucket no traffic here exhausts: every scalar request is granted.
 OBS_CAP, OBS_RATE = 1e9, 1e9
 #: The chaos phase's storm (``utils/faults.storm_schedule``).
@@ -6343,7 +6374,7 @@ FP_KEYS = 10_000_000
 FP_CALL = 1_000_000
 FP_CAP = 5.0
 FP_RATE = 1.0
-FP_PEEKS = 10_000
+FP_PEEKS = 2_500   # 10,000 until the drain path joined the script
 FP_DEBIT_KEYS = 100_000
 #: The growth case: a 2^20-slot store fed 2M keys in calls of 2^17.
 FP_GROW_SLOTS = 2**20
@@ -8361,7 +8392,7 @@ CFG_WINDOW = (50.0, 60.0)     # limit, seconds (both kinds)
 CFG_WINDOW_NEW = (30.0, 60.0)  # version 2 (sliding)
 CFG_FWINDOW_NEW = (20.0, 60.0)  # version 3 (fixed); version 4 reverts it
 CFG_CONC_KEYS = 10_000        # asked at the old config while v1 commits
-CFG_PEEKS = 10_000
+CFG_PEEKS = 2_000             # 10,000 (20 s) until the drain path joined
 CFG_FRESH = 4                 # fresh clients on the old config
 CFG_TENANT = (1e6, 1e-9)      # the hold's tenant budget (never retired)
 CFG_HOLD = 4.0                # the hold on keys[0], settled at 1
@@ -8837,6 +8868,598 @@ async def config_path(torch, ck, pkg, card: str) -> dict:
     return counts_out
 
 
+# -- phase 18: drain-and-handoff shutdown -------------------------------------
+
+DRAIN_SEED = 2121
+#: Bucket keys: 1M, cut from BASELINE's 10M, as the config cell's. A drain
+#: enumerates the whole store, as a config commit does.
+DRAIN_KEYS = 1_000_000
+DRAIN_CALL = 1_000_000
+#: Three quarters of the keys stay at DRAIN_KEPT; a quarter load at
+#: DRAIN_OLD, which version 1 retires for DRAIN_NEW (capacity 10 -> 6). The
+#: store's clock is frozen; the rates are small so that the shutdown
+#: envelope, which refills on the host's clock, gains under a token a key
+#: over the drain.
+DRAIN_KEPT = (10.0, 1.0 / 512)
+DRAIN_OLD = (10.0, 1.0 / 1024)
+DRAIN_NEW = (6.0, 1.0 / 1024)
+DRAIN_WINDOW_KEYS = 100_000   # sliding windows (limit 100 a second)
+DRAIN_COUNTERS = 10_000
+DRAIN_SEMAS = 10_000          # semaphores of limit 5, 2 permits held
+DRAIN_HOLDS = 300             # open reservations, 4 tokens each
+DRAIN_TENANTS = 8
+DRAIN_TENANT = (1e6, 1e-9)
+DRAIN_HOLD_KEY = (100.0, 1e-9)
+DRAIN_ASK_KEYS = 10_000       # asked through the source, then the successor
+DRAIN_ASK_PAUSE_S = 0.5       # between the rounds through the source
+DRAIN_WINDOW_S = 2.0
+DRAIN_FAIL_KEYS = 100_000     # the failed drain's source
+DRAIN_FAIL_SLOTS = 2**20
+DRAIN_RETRY_KEYS = 10_000     # the source with no snapshot path
+
+
+class _DrainSuccessor:
+    """The successor handle a drain pushes into: the remote store, with its
+    ``migrate_push`` timed (``on_first`` called as the first push starts:
+    the import's phase begins) and, after the push that lands the ledger's
+    rows, ``relay`` awaited (the settles the source relays while its gate
+    is on). ``fail_at`` closes the successor's server before that push (a
+    successor lost mid-push)."""
+
+    def __init__(self, inner, relay=None, on_first=None, fail_at=None,
+                 kill=None):
+        self._inner = inner
+        self._relay = relay
+        self._on_first = on_first
+        self._fail_at = fail_at
+        self._kill = kill
+        self.pushes = 0
+        self.first_push_t = None
+        self.last_push_t = None
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    async def migrate_push(self, req):
+        if self.first_push_t is None:
+            self.first_push_t = time.perf_counter()
+            if self._on_first is not None:
+                self._on_first()
+        if self._fail_at is not None and self.pushes == self._fail_at:
+            await self._kill()
+        n = await self._inner.migrate_push(req)
+        self.pushes += 1
+        self.last_push_t = time.perf_counter()
+        if self._relay is not None and req["entries"].get("reservations"):
+            relay, self._relay = self._relay, None
+            await relay()
+        return n
+
+
+def _drain_check_buckets(buckets, spend, retired, holds_by_tenant,
+                         settled) -> int:
+    """Hold the successor's bucket rows to a host float32 oracle of what a
+    drain ships, from the load alone: every row's ``max(0, tokens -
+    headroom_budget(cap))`` (``debit_export``), the relayed settles' refunds
+    on top. Raises on any missing, extra or differing row; returns the
+    rows."""
+    from distributedratelimiting.redis_tpu_torch.models.approximate import (
+        headroom_budget,
+    )
+
+    f = np.float32
+
+    def env(cap):
+        return f(headroom_budget(cap, fraction=0.5, min_budget=1.0))
+
+    spent = spend.astype(np.float32)
+    old = np.maximum(f(0.0), f(10.0) - spent - env(10.0))
+    new = np.maximum(f(0.0), np.maximum(f(0.0), f(6.0) - spent) - env(6.0))
+    want = {DRAIN_KEPT: (np.nonzero(~retired)[0], old),
+            DRAIN_OLD: (np.nonzero(retired)[0], old),
+            # The rebase created a retired key on the new table only if it
+            # had spent something.
+            DRAIN_NEW: (np.nonzero(retired & (spend > 0))[0], new)}
+    other = {(f"dh{j}", *DRAIN_HOLD_KEY): f(100.0) - f(4.0) - env(100.0)
+             for j in range(DRAIN_HOLDS)}
+    for t, n in holds_by_tenant.items():
+        other[(t, *DRAIN_TENANT)] = (f(DRAIN_TENANT[0]) - f(4.0 * n)
+                                     - env(DRAIN_TENANT[0]))
+    for j, t in settled:  # actual 1 of 4: 3 back to both levels
+        other[(f"dh{j}", *DRAIN_HOLD_KEY)] += f(3.0)
+        other[(t, *DRAIN_TENANT)] += f(3.0)
+    got = {cfg: ([], []) for cfg in want}
+    got_other = {}
+    for key, cap, rate, tokens, _age in buckets:
+        rows = got.get((cap, rate))
+        if rows is not None and key.startswith("dk"):
+            rows[0].append(int(key[2:]))
+            rows[1].append(tokens)
+        else:
+            got_other[(key, cap, rate)] = f(tokens)
+    for cfg, (idx, values) in want.items():
+        gi = np.asarray(got[cfg][0], np.int64)
+        order = np.argsort(gi)
+        gi = gi[order]
+        gt = np.asarray(got[cfg][1], np.float32)[order]
+        if not np.array_equal(gi, idx):
+            raise AssertionError(f"drain import: the rows at {cfg} are not "
+                                 f"the shipped keys ({len(gi)} != "
+                                 f"{len(idx)})")
+        bad = np.nonzero(gt != values[idx])[0]
+        if len(bad):
+            i = int(gi[bad[0]])
+            raise AssertionError(
+                f"drain import: {len(bad)} balances at {cfg} differ from "
+                f"the oracle (dk{i}: {gt[bad[0]]} != {values[i]})")
+    if got_other != other:
+        raise AssertionError("drain import: the holds' rows differ from the "
+                             "oracle")
+    return len(buckets)
+
+
+async def _drain_failed(pkg, say, tmp: str) -> None:
+    """Phase 4: a drain whose successor is lost mid-push falls back to the
+    final checkpoint, which restores equal to the debited source; a source
+    with no snapshot path raises, disarms its gate and drains on a retry."""
+    from distributedratelimiting.redis_tpu_torch.runtime import checkpoint
+
+    clock = pkg.ManualClock(1_000_000)
+    path = os.path.join(tmp, "drain-fallback.snap")
+    src_store = pkg.DeviceBucketStore(device="cuda", n_slots=DRAIN_FAIL_SLOTS,
+                                      clock=clock)
+    dst_store = pkg.DeviceBucketStore(device="cuda", n_slots=DRAIN_FAIL_SLOTS,
+                                      clock=clock)
+    src = pkg.BucketStoreServer(src_store, host="127.0.0.1", port=0,
+                                snapshot_path=path)
+    dst = pkg.BucketStoreServer(dst_store, host="127.0.0.1", port=0)
+    a_src, a_dst = await src.start(), await dst.start()
+    cli = pkg.RemoteBucketStore(address=a_src, request_timeout_s=300.0)
+    succ = pkg.RemoteBucketStore(address=a_dst, coalesce_requests=False,
+                                 request_timeout_s=5.0, retry_policy=None)
+    fresh = None
+    try:
+        keys = [f"fk{i}" for i in range(DRAIN_FAIL_KEYS)]
+        spend = np.random.default_rng(DRAIN_SEED + 1).integers(
+            1, 11, DRAIN_FAIL_KEYS)
+        res = await cli.acquire_many(keys, spend, *DRAIN_KEPT,
+                                     with_remaining=False)
+        if res.granted_count != DRAIN_FAIL_KEYS:
+            raise AssertionError("drain fallback: a fresh key was denied")
+        handle = _DrainSuccessor(succ, fail_at=1, kill=dst.aclose)
+        t = time.perf_counter()
+        summary = await src.shutdown(handle, window_s=DRAIN_WINDOW_S)
+        fail_s = time.perf_counter() - t
+        if ("drain_error" not in summary or summary.get("checkpoint") != path
+                or summary["shipped_rows"] != 0):
+            raise AssertionError(f"drain fallback: summary {summary}")
+        if src._drain_envelope is not None:
+            raise AssertionError("drain fallback: the gate stayed armed")
+        fresh = pkg.DeviceBucketStore(device="cuda", n_slots=DRAIN_FAIL_SLOTS,
+                                      clock=clock)
+        t = time.perf_counter()
+        await asyncio.to_thread(checkpoint.load_snapshot_chain, fresh, path)
+        restore_s = time.perf_counter() - t
+        _snapshots_equal("drain fallback", src_store.snapshot(),
+                         fresh.snapshot())
+        res = await fresh.acquire_many(keys, np.zeros(DRAIN_FAIL_KEYS,
+                                                      np.int64), *DRAIN_KEPT)
+        want = np.minimum(np.float32(10.0) - spend.astype(np.float32),
+                          np.float32(5.0))
+        if not np.array_equal(np.asarray(res.remaining, np.float32), want):
+            raise AssertionError("drain fallback: a restored balance is not "
+                                 "the debited source's")
+        say(f"failed drain ({DRAIN_FAIL_KEYS:,} keys, the successor closed "
+            f"after push 1 of {handle.pushes + 1}): {fail_s:.2f} s to the "
+            f"fallback, summary {summary['drain_error'][:60]!r}..., the "
+            f"checkpoint restored in {restore_s:.2f} s equals the debited "
+            "source (every key min(balance, envelope 5))")
+    finally:
+        for c in (cli, succ):
+            await c.aclose()
+        await src.aclose()
+        await dst.aclose()
+        for s in (src_store, dst_store, fresh):
+            if s is not None:
+                await s.aclose()
+    # A source with no snapshot path: the failure re-opens the shutdown.
+    stores = [pkg.DeviceBucketStore(device="cuda", n_slots=2**16, clock=clock)
+              for _ in range(2)]
+    servers = [pkg.BucketStoreServer(s, host="127.0.0.1", port=0)
+               for s in stores]
+    addrs = [await s.start() for s in servers]
+    gone = pkg.BucketStoreServer(pkg.InProcessBucketStore(), port=0)
+    dead_addr = await gone.start()
+    await gone.aclose()
+    cli = pkg.RemoteBucketStore(address=addrs[0], request_timeout_s=60.0)
+    dead = pkg.RemoteBucketStore(address=dead_addr, coalesce_requests=False,
+                                 request_timeout_s=2.0, retry_policy=None)
+    succ = pkg.RemoteBucketStore(address=addrs[1], coalesce_requests=False,
+                                 request_timeout_s=60.0)
+    try:
+        keys = [f"rk{i}" for i in range(DRAIN_RETRY_KEYS)]
+        await cli.acquire_many(keys, np.ones(DRAIN_RETRY_KEYS, np.int64),
+                               *DRAIN_KEPT, with_remaining=False)
+        try:
+            await servers[0].shutdown(dead, window_s=0.0)
+        except Exception as exc:  # noqa: BLE001 — the failure is the check
+            err = type(exc).__name__
+        else:
+            raise AssertionError("drain retry: a drain into a dead "
+                                 "successor returned")
+        if servers[0]._drain_envelope is not None:
+            raise AssertionError("drain retry: the gate stayed armed")
+        r = await cli.acquire(keys[0], 0, *DRAIN_KEPT)
+        if not r.granted or r.remaining != 5.0:
+            raise AssertionError(f"drain retry: the source serves {r}")
+        summary = await servers[0].shutdown(succ, window_s=0.0)
+        if summary.get("shipped_rows") != DRAIN_RETRY_KEYS:
+            raise AssertionError(f"drain retry: {summary}")
+        say(f"no snapshot path: the drain into a dead successor raised "
+            f"{err}, the gate disarmed (the source serves its residual "
+            f"{r.remaining}), the retry shipped {summary['shipped_rows']:,} "
+            "rows")
+    finally:
+        for c in (cli, dead, succ):
+            await c.aclose()
+        for s in servers:
+            await s.aclose()
+        for s in stores:
+            await s.aclose()
+
+
+async def drain_path(torch, ck, pkg, card: str) -> dict:
+    """Drain-and-handoff shutdown (phase 18): the exact cell's server,
+    restarted in a rolling way. A source and a successor
+    ``BucketStoreServer``, each over a card ``DeviceBucketStore`` of 2^24
+    slots on one frozen ManualClock; the source loaded over the wire with
+    1M bucket keys (spends 0-10; a quarter at a config version 1 retires,
+    capacity 10 -> 6), 100,000 sliding windows, 10,000 counters and
+    semaphores, 300 open holds; ``shutdown(successor, window_s=2.0)`` with
+    asks on 10,000 keys through the source while its gate is on and two
+    holds settled through it (relayed), then the asks through the
+    successor. Checks: the successor's rows against a host float32 oracle
+    of ``debit_export``, admitted(source) + admitted(successor) <= the
+    pre-drain balance + one envelope key by key, ``shipped_rows``, the
+    forwarded config and its one chase, the relayed settles; then a failed
+    drain's fallback checkpoint and a retried one. Returns the path's
+    launches."""
+    import shutil
+    import tempfile
+
+    from distributedratelimiting.redis_tpu_torch.models.approximate import (
+        headroom_budget,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        placement as pl,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import wire
+
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(DRAIN_SEED)
+    ck.reset_launches()
+
+    def say(line: str) -> None:
+        print(f"drain path ({card}) "
+              f"[{time.perf_counter() - t_path:.1f} s]: {line}", flush=True)
+
+    clock = pkg.ManualClock(1_000_000)
+    stores = [pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                    counter_slots=2**15, clock=clock)
+              for _ in range(2)]
+    servers = [pkg.BucketStoreServer(s, host="127.0.0.1", port=0)
+               for s in stores]
+    addrs = [await s.start() for s in servers]
+    cli = pkg.RemoteBucketStore(address=addrs[0], request_timeout_s=900.0)
+    solo = pkg.RemoteBucketStore(address=addrs[0], coalesce_requests=False,
+                                 request_timeout_s=900.0)
+    asker = pkg.RemoteBucketStore(address=addrs[0], coalesce_requests=False,
+                                  request_timeout_s=900.0, retry_policy=None)
+    succ = pkg.RemoteBucketStore(address=addrs[1], coalesce_requests=False,
+                                 request_timeout_s=900.0)
+    extra = []
+    real_debit = ck.debit_packed
+    tmp = tempfile.mkdtemp(prefix="drl-drain-")
+    try:
+        # -- the load, over the wire.
+        t = time.perf_counter()
+        keys = [f"dk{i}" for i in range(DRAIN_KEYS)]
+        spend = rng.integers(0, 11, DRAIN_KEYS)
+        retired = rng.random(DRAIN_KEYS) < 0.25
+        for cfg, mask in ((DRAIN_KEPT, ~retired), (DRAIN_OLD, retired)):
+            idx = np.nonzero(mask)[0]
+            for pos in range(0, len(idx), DRAIN_CALL):
+                part = idx[pos:pos + DRAIN_CALL]
+                res = await cli.acquire_many(
+                    [keys[i] for i in part], spend[part], *cfg,
+                    with_remaining=False)
+                if res.granted_count != len(part):
+                    raise AssertionError("drain load: a fresh key was "
+                                         "denied")
+        load_s = time.perf_counter() - t
+        wkeys = [f"dw{i}" for i in range(DRAIN_WINDOW_KEYS)]
+        wcount = rng.integers(1, 51, DRAIN_WINDOW_KEYS)
+        res = await cli.window_acquire_many(wkeys, wcount, 100.0, 1.0,
+                                            with_remaining=False)
+        if res.granted_count != DRAIN_WINDOW_KEYS:
+            raise AssertionError("drain load: a window was denied")
+        # Counters and semaphores in one launch each, in process (the wire
+        # has no bulk frame for them).
+        ckeys = [f"dc{i}" for i in range(DRAIN_COUNTERS)]
+        cvals = rng.integers(1, 50, DRAIN_COUNTERS).astype(np.float64)
+        await stores[0].sync_counters_many(ckeys, cvals, DECAY_PER_S)
+        skeys = [f"ds{i}" for i in range(DRAIN_SEMAS)]
+        got = await stores[0].concurrency_acquire_many(
+            skeys, np.full(DRAIN_SEMAS, 2, np.int64), 5)
+        if not np.asarray(got.granted).all():
+            raise AssertionError("drain load: a semaphore refused")
+        holds_by_tenant: dict = {}
+        for j in range(DRAIN_HOLDS):
+            tenant = f"dt{j % DRAIN_TENANTS}"
+            r = await solo.reserve(f"dr{j}", tenant, f"dh{j}", 4.0,
+                                   *DRAIN_TENANT, *DRAIN_HOLD_KEY,
+                                   ttl_s=3600.0)
+            if not r.granted:
+                raise AssertionError(f"drain hold: {r}")
+            holds_by_tenant[tenant] = holds_by_tenant.get(tenant, 0) + 1
+        setup_s = time.perf_counter() - t - load_s
+        t = time.perf_counter()
+        await solo.config_announce({"prepare": {
+            "kind": "bucket", "old": list(DRAIN_OLD),
+            "new": list(DRAIN_NEW)}, "version": 1})
+        if await solo.config_announce({"commit": 1}) != 1:
+            raise AssertionError("drain config: version 1 did not commit")
+        commit_s = time.perf_counter() - t
+        say(f"{DRAIN_KEYS:,} bucket keys loaded over the wire in "
+            f"{load_s:.1f} s ({DRAIN_KEYS / load_s / 1e6:.2f} M rows/s; "
+            f"{int(retired.sum()):,} at {DRAIN_OLD}), "
+            f"{DRAIN_WINDOW_KEYS:,} windows, {DRAIN_COUNTERS:,} counters, "
+            f"{DRAIN_SEMAS:,} semaphores and {DRAIN_HOLDS} holds in "
+            f"{setup_s:.1f} s more; version 1 {DRAIN_OLD} -> {DRAIN_NEW} "
+            f"committed in {commit_s:.2f} s")
+
+        # -- the drain, asked through the source while its gate is on.
+        ask_idx = np.sort(rng.choice(DRAIN_KEYS, DRAIN_ASK_KEYS,
+                                     replace=False))
+        ask_ret = retired[ask_idx]
+        groups = [([keys[i] for i in ask_idx[m]], cfg, np.nonzero(m)[0])
+                  for m, cfg in ((~ask_ret, DRAIN_KEPT),
+                                 (ask_ret, DRAIN_NEW))]
+        before = np.where(ask_ret, np.maximum(0, 6 - spend[ask_idx]),
+                          10 - spend[ask_idx]).astype(np.int64)
+        env_of = np.where(ask_ret, 3, 5).astype(np.int64)
+        admitted = np.zeros((2, DRAIN_ASK_KEYS), np.int64)
+
+        async def ask_round(client, side: int) -> int:
+            n = 0
+            for ks, cfg, pos in groups:
+                res = await client.acquire_many(
+                    ks, np.ones(len(ks), np.int64), *cfg,
+                    with_remaining=False)
+                g = np.asarray(res.granted, np.int64)
+                admitted[side, pos] += g
+                n += int(g.sum())
+            return n
+
+        timer = stores[0]._lock = _HoldTimer(stores[0]._lock)
+        export_s = [0.0]
+        exported = {}
+        real_export = stores[0].export_entries
+
+        def export_entries(keep):
+            t0 = time.perf_counter()
+            try:
+                exported["entries"] = out = real_export(keep)
+                return out
+            finally:
+                export_s[0] += time.perf_counter() - t0
+
+        stores[0].export_entries = export_entries
+        debit = {"source": [0.0, 0], "import": [0.0, 0]}
+        phase = ["source"]
+
+        def timed_debit(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_debit(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            debit[phase[0]][0] += start.elapsed_time(end)
+            debit[phase[0]][1] += 1
+            return out
+
+        settle_holds = [(0, "dt0"), (1, "dt1")]
+        relayed = []
+
+        async def relay():
+            for j, tenant in settle_holds:
+                if f"dr{j}" not in servers[1].reservations._entries:
+                    raise AssertionError("drain relay: the hold did not "
+                                         "ship")
+                relayed.append(await solo.settle(f"dr{j}", tenant, 1.0))
+
+        launch_before = {}
+
+        def import_begins():
+            phase[0] = "import"
+            launch_before.update(ck.launches)
+
+        handle = _DrainSuccessor(succ, relay=relay, on_first=import_begins)
+        ck.debit_packed = timed_debit
+        t_drain = time.perf_counter()
+        task = asyncio.ensure_future(servers[0].shutdown(
+            handle, window_s=DRAIN_WINDOW_S))
+        try:
+            while servers[0]._drain_envelope is None:
+                if task.done():
+                    await task
+                    raise AssertionError("drain: the gate never armed")
+                await asyncio.sleep(0.001)
+            t_armed = time.perf_counter()
+            rounds = []
+            while not task.done():
+                t = time.perf_counter()
+                try:
+                    await ask_round(asker, 0)
+                except (ConnectionError, OSError, wire.RemoteStoreError,
+                        pkg.StoreTimeoutError):
+                    if not task.done():
+                        await asyncio.sleep(0.01)
+                        if not task.done():
+                            raise
+                    break
+                rounds.append(time.perf_counter() - t)
+                # A round every DRAIN_ASK_PAUSE_S: each is 10,000 envelope
+                # decisions in Python on the loop the push shares.
+                await asyncio.wait([task], timeout=DRAIN_ASK_PAUSE_S)
+            summary = await task
+        finally:
+            ck.debit_packed = real_debit
+            stores[0].export_entries = real_export
+        t_closed = time.perf_counter()
+        drain_s = t_closed - t_drain
+        import_launches = {k: v - launch_before.get(k, 0)
+                           for k, v in ck.launches.items()
+                           if v > launch_before.get(k, 0)}
+        push_s = handle.last_push_t - handle.first_push_t
+        # From the gate's arming to the first push: the source debit (the
+        # buckets' launches and the windows' charge to their limits).
+        source_debit_s = handle.first_push_t - t_armed
+        gate_s = t_closed - t_armed
+        linger_s = max(0.0, t_closed - handle.last_push_t)
+        if debit["source"][1] <= 0 or debit["import"][1] <= 0:
+            raise AssertionError(f"drain: debit_packed launches {debit}")
+        if len(relayed) != 2 or any(r.outcome != "settled" or
+                                    r.refunded != 3.0 for r in relayed):
+            raise AssertionError(f"drain relay: {relayed}")
+        n_export = pl.entry_count(exported["entries"]) + DRAIN_HOLDS
+        if summary["shipped_rows"] != n_export:
+            raise AssertionError(f"drain: shipped_rows "
+                                 f"{summary['shipped_rows']} != {n_export} "
+                                 "exported rows")
+        say(f"shutdown(successor, window_s={DRAIN_WINDOW_S}): the export "
+            f"{export_s[0]:.2f} s, the store lock's longest hold "
+            f"{timer.longest:.2f} s; the source debit {source_debit_s:.2f} "
+            f"s, its debit_packed launches {debit['source'][1]}, "
+            f"{debit['source'][0]:.3f} ms of CUDA events; the push {push_s:.2f} s for "
+            f"{summary['shipped_rows']:,} rows "
+            f"({summary['shipped_rows'] / push_s:,.0f} rows/s, "
+            f"{handle.pushes} chunks), the import's launches "
+            f"{json.dumps(import_launches)} (its debit_packed "
+            f"{debit['import'][0]:.3f} ms of CUDA events); the linger "
+            f"{linger_s:.2f} s after the last push (the gate on "
+            f"{gate_s:.2f} s); envelope decisions "
+            f"{summary['envelope_decisions']:,}; the drain {drain_s:.2f} s")
+        say(f"asks through the source on {DRAIN_ASK_KEYS:,} keys while the "
+            f"gate was on: {len(rounds)} rounds, the longest "
+            f"{max(rounds, default=0.0):.2f} s (the serving stall), admitted "
+            f"{int(admitted[0].sum()):,} from the envelope; two holds "
+            "settled through the source, relayed: refunds "
+            f"{[r.refunded for r in relayed]}")
+
+        # -- check 3: the successor's state, in process.
+        t = time.perf_counter()
+        entries = await asyncio.to_thread(stores[1].export_entries,
+                                          lambda _k: True)
+        succ_export_s = time.perf_counter() - t
+        n_rows = _drain_check_buckets(entries["buckets"], spend, retired,
+                                      holds_by_tenant, settle_holds)
+        wbudget = headroom_budget(100.0, fraction=0.5, min_budget=1.0)
+        wgot = {k: (prev, curr) for k, _lim, _wt, _i, prev, curr, _b
+                in entries["windows"]}
+        wwant = np.minimum(100.0, wcount + wbudget)
+        if (len(wgot) != DRAIN_WINDOW_KEYS
+                or any(wgot[k] != (0.0, float(c))
+                       for k, c in zip(wkeys, wwant))):
+            raise AssertionError("drain import: a window differs from "
+                                 "min(limit, count + envelope)")
+        cgot = {k: v for k, v, _p, _a in entries["counters"]}
+        if not np.array_equal(
+                np.asarray([cgot[k] for k in ckeys], np.float32),
+                cvals.astype(np.float32)):
+            raise AssertionError("drain import: a counter differs")
+        sgot = dict(entries["semas"])
+        if len(sgot) != DRAIN_SEMAS or set(sgot.values()) != {2}:
+            raise AssertionError("drain import: held permits differ")
+        led = servers[1].reservations
+        if (any(f"dr{j}" not in led._settled for j, _ in settle_holds)
+                or len(led._entries) != DRAIN_HOLDS - 2):
+            raise AssertionError("drain import: the ledger differs")
+        if servers[1].liveconfig.version != 1:
+            raise AssertionError("drain config: the successor's version is "
+                                 f"{servers[1].liveconfig.version}")
+        say(f"the successor's export ({succ_export_s:.1f} s): "
+            f"{n_rows:,} bucket rows equal the host float32 oracle of "
+            "debit_export (the relayed refunds included), "
+            f"{DRAIN_WINDOW_KEYS:,} windows at min(limit, count + "
+            f"{wbudget:.0f}), {DRAIN_COUNTERS:,} counters and "
+            f"{DRAIN_SEMAS:,} semaphores equal, {len(led._entries)} holds "
+            "open and the two relayed ones settled; shipped_rows "
+            f"{summary['shipped_rows']:,} = the exported rows; config "
+            f"version {servers[1].liveconfig.version}")
+
+        # -- the asks through the successor, and the bound.
+        succ_asker = pkg.RemoteBucketStore(address=addrs[1],
+                                           coalesce_requests=False,
+                                           request_timeout_s=900.0)
+        extra.append(succ_asker)
+        n_rounds = 0
+        while await ask_round(succ_asker, 1):
+            n_rounds += 1
+        refill = np.where(ask_ret, DRAIN_NEW[1], DRAIN_KEPT[1]) * 0.5 \
+            * (time.perf_counter() - t_armed)
+        bound = before + env_of + np.floor(refill).astype(np.int64)
+        total = admitted.sum(axis=0)
+        over = total - bound
+        if (over > 0).any():
+            raise AssertionError(
+                f"drain bound: {int((over > 0).sum())} keys admitted past "
+                "their balance plus one envelope")
+        say(f"asks through the successor: {n_rounds} rounds granted "
+            f"{int(admitted[1].sum()):,}; source + successor admitted "
+            f"{int(total.sum()):,} against pre-drain balances "
+            f"{int(before.sum()):,} + envelopes {int(env_of.sum()):,}, "
+            f"every key within its bound (max total - balance "
+            f"{int((total - before).max())})")
+
+        # -- the forwarded config: a fresh client chases once.
+        moved_before = servers[1].liveconfig.moved_errors
+        fresh = pkg.RemoteBucketStore(address=addrs[1],
+                                      coalesce_requests=False)
+        extra.append(fresh)
+        # A retired key that spent 1 (shipped 5 - 3 = 2), never asked.
+        i = int(np.nonzero(retired & (spend == 1) & ~np.isin(
+            np.arange(DRAIN_KEYS), ask_idx))[0][0])
+        r = await fresh.acquire(keys[i], 0, *DRAIN_OLD)
+        chased = servers[1].liveconfig.moved_errors - moved_before
+        want = 2.0
+        if chased != 1 or r.remaining != want:
+            raise AssertionError(f"drain config: {chased} chases, {r} "
+                                 f"(want {want})")
+        say(f"a fresh client at {DRAIN_OLD} on the successor chased "
+            f"{chased} config moved error and read the shipped balance "
+            f"{r.remaining} at {DRAIN_NEW}")
+
+        # -- check 4: a failed drain and a retried one.
+        await _drain_failed(pkg, say, tmp)
+    finally:
+        ck.debit_packed = real_debit
+        for c in [cli, solo, asker, succ, *extra]:
+            await c.aclose()
+        for s in servers:
+            await s.aclose()
+        for s in stores:
+            await s.aclose()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    counts_out = dict(ck.launches)
+    print(f"drain path ({card}): {time.perf_counter() - t_path:.1f} s "
+          "of wall")
+    torch.cuda.empty_cache()
+    return counts_out
+
+
 SIZED_KERNELS = {"acquire_packed": "acquire_packed",
                  "acquire_grouped": "acquire_grouped",
                  "window_packed": "window_packed",
@@ -8880,7 +9503,7 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
 
 
 def _paths() -> tuple:
-    """The paths of phases 3–10 and 12–17, in the order :func:`main`
+    """The paths of phases 3–10 and 12–18, in the order :func:`main`
     runs them."""
     return (("exact", main_path), ("approximate", approximate_path),
             ("window", window_path), ("admission", admission_path),
@@ -8889,7 +9512,8 @@ def _paths() -> tuple:
             ("observability", observability_path),
             ("server", server_path), ("bench", bench_path),
             ("native", native_path), ("fp", fp_path), ("mesh", mesh_path),
-            ("placement", placement_path), ("config", config_path))
+            ("placement", placement_path), ("config", config_path),
+            ("drain", drain_path))
 
 
 def paths_only(names: list) -> int:
@@ -9044,7 +9668,14 @@ def main() -> int:
                    # tier-0's retire (the debit), the load's bulk calls and
                    # the per-request asks (flushes).
                    "config": ("debit_packed", "window_packed",
-                              "acquire_scan", "acquire_packed")}
+                              "acquire_scan", "acquire_packed"),
+                   # Drain: the source's debit and the import's (buckets,
+                   # the relayed settles' refunds), the import's window,
+                   # counter and semaphore replays, the load's bulk calls
+                   # and holds, the asks through the successor.
+                   "drain": ("debit_packed", "window_packed",
+                             "sync_counters", "sema_packed", "acquire_scan",
+                             "acquire_hierarchical")}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",

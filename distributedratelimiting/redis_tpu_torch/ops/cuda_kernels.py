@@ -24,7 +24,10 @@ The wrappers, their sources, and what each replaces in the JAX package:
   ``kernels.acquire_batch_packed_grouped``;
 - ``acquire_scan_packed`` (``csrc/acquire.cu``) replaces
   ``kernels.acquire_scan_fused_packed``, ``acquire_scan_fused_bits`` and
-  ``acquire_scan_compact_packed``; ``acquire_scan_compact_fused`` (the
+  ``acquire_scan_compact_packed``, and its ``i32[2, K, B]`` operand (the
+  ``kOpI32`` lane, padding rows' slots negative) ``kernels.acquire_scan``
+  (i32 counts and an explicit ``valid``), which the JAX store launches for
+  a bulk chunk with a count above 255; ``acquire_scan_compact_fused`` (the
   same kernel, in whole-batch pieces) replaces
   ``kernels.acquire_scan_compact_fused``;
 - ``acquire_scan_packed24`` (``csrc/acquire.cu``, the scan's 3-byte

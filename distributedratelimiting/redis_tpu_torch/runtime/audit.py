@@ -1,9 +1,11 @@
 """Conservation audit plane — the continuous ε-ledger (DESIGN.md §22).
 
 The JAX package's ``runtime/audit.py`` on the port's server. The server
-has no federation ledger and no drain state yet, so the federation cover
-identity reads nothing (a JAX server without it reads nothing either) and
-the envelope ε reads the placement handoffs' envelope decisions alone.
+has no federation ledger yet, so the federation cover identity reads
+nothing (a JAX server without it reads nothing either). The envelope ε
+reads the placement handoffs' envelope decisions alone, as JAX's does: a
+drain window's envelope decisions are reported by the shutdown's summary,
+not counted here.
 The tier-0 / per-shard ε reads the native front-end when it serves.
 
 The framework's correctness story is a stack of documented ε terms:
@@ -246,10 +248,11 @@ class ConservationAuditor:
                 # per-shard slice bound is consumed fastest by the hottest
                 # slice (1/n_shards balanced, 1.0 one slice takes all).
                 self.epsilon_used["shard"] = max(slices) / sum(slices)
-        # 5. envelope ε: the share of admissions served from bounded
-        # fair-share envelopes (placement handoffs; drain windows come
-        # with ROADMAP A 7) — a share-of-traffic proxy, since the
-        # envelopes' token bounds are enforced at grant time.
+        # 5. envelope ε: the share of admissions served from placement
+        # handoffs' fair-share envelopes (their envelope_decisions), as
+        # JAX's auditor counts it; a drain window's decisions are not in
+        # it. A share-of-traffic proxy, since the envelopes' token bounds
+        # are enforced at grant time.
         requests = max(1.0, float(self._requests_served()))
         env = 0.0
         if srv.placement.active:

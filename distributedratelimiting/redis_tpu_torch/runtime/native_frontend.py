@@ -48,8 +48,10 @@ frame with a moved row one frame-level MOVED, each through ``fe_send`` and
 ``fe_bulk_discard``, and parked rows serve from their envelopes. Tier-0's
 sync pump retires the C replicas of a retired bucket config
 (``fe_t0_retire``) and debits their grants through the replacement
-config's table. Not ported, as the server state behind it is not: the
-drain envelope (ROADMAP A 7).
+config's table. While the server drains (:meth:`~.server.
+BucketStoreServer.shutdown`), a bulk frame past the config gate answers
+the server's ``_serve_bulk_draining`` reply (every row from the shutdown
+envelope, byte for byte the asyncio lane's) and its C job is discarded.
 """
 
 from __future__ import annotations
@@ -736,8 +738,15 @@ class NativeFrontend:
                     seq, wire.RESP_ERROR, moved))
                 lib.fe_bulk_discard(sh, jid)
                 return
-            # A drain window's envelope (JAX :861-867) comes with
-            # drain-and-handoff, ROADMAP A 7.
+            env = self._server._drain_envelope
+            if env is not None:
+                # Draining: every row from the shutdown envelope (config
+                # gate first, then the drain, then placement: the asyncio
+                # lane's order), the C job discarded.
+                self._send(sh, conn_id, self._server._serve_bulk_draining(
+                    seq, keys, counts, a, b, with_rem, kind, env))
+                lib.fe_bulk_discard(sh, jid)
+                return
             gate = self._placement_gate(keys)
             if gate is not None and gate[2].any():
                 self._send(sh, conn_id, wire.encode_response(

@@ -69,11 +69,27 @@ ConfigState`, dormant until a rule commits through ``OP_CONFIG``) runs
 before it, in the JAX server's order: a keyed ACQUIRE, WINDOW, FWINDOW or
 PEEK frame, a bulk frame, or either level of a two-level, two-level bulk
 or reserve frame that carries a retired config answers the routable
-``config moved`` error, the store untouched. The JAX server's drain
-envelope is not ported (nor drain-and-handoff). An op the JAX server serves
-but this one does not yet (federation) answers a routable error that names
-it as not served — never the "unknown op" / "unknown bulk kind" text,
-which a JAX client reads as an old peer and silently falls back from.
+``config moved`` error, the store untouched.
+
+Drain-and-handoff shutdown (:meth:`BucketStoreServer.shutdown`, the JAX
+server's, step for step): the whole store is exported off the loop, the
+ledger's holds and debts ride along, and the drain gate goes on before the
+source debit (``placement.debit_source(..., keep_envelope=True)``: one
+``debit_packed`` launch a config on a card store). From then until the
+server closes, every admission lane after the config gate (scalar, bulk,
+two-level, two-level bulk, reserve, and the native bulk lane) serves from
+the bounded fair-share envelope the export withheld, any other gated op
+answers the handoff deferral, and ``OP_SETTLE`` relays to the successor.
+The export lands on the successor in ``MIGRATE_PUSH`` chunks, the committed
+config rules follow as an ``adopt``, and the server lingers for the rest of
+the window. Without a successor (or when the drain fails) the state goes to
+the final checkpoint. The console's ``--drain-to HOST:PORT`` drains on
+SIGTERM.
+
+An op the JAX server serves but this one does not yet (federation) answers
+a routable error that names it as not served — never the "unknown op" /
+"unknown bulk kind" text, which a JAX client reads as an old peer and
+silently falls back from.
 
 Run it with ``python -m distributedratelimiting.redis_tpu_torch.runtime.server``
 (a ``DeviceBucketStore`` on ``cuda`` unless ``--device cpu`` is given, a
@@ -135,6 +151,13 @@ _PLACEMENT_GATED_OPS = frozenset(
      wire.OP_PEEK, wire.OP_SYNC))
 #: Bulk kinds the JAX server serves that this one does not yet: none.
 _UNPORTED_BULK_KINDS: dict[int, str] = {}
+
+
+#: The deferral a draining server answers for a gated op the envelope has
+#: no value for (PEEK, SYNC, SEMA, a release), byte for byte the JAX
+#: server's.
+_DRAINING = (f"{placement.HANDOFF_DEFERRAL_PREFIX}: server is draining to "
+             "its successor; retry shortly")
 
 
 def _not_served(what: str) -> str:
@@ -308,6 +331,15 @@ class BucketStoreServer:
         # the handoff state. Dormant (one attribute read a request) until a
         # coordinator announces a map (OP_PLACEMENT_ANNOUNCE).
         self.placement = placement.NodePlacementState()
+        # Drain-and-handoff shutdown (shutdown()): while a drain is in
+        # flight, admission ops serve from this bounded fair-share envelope
+        # instead of the (already exported) store.
+        self._drain_envelope: "placement._FairShareEnvelope | None" = None
+        #: Successor handle while a drain window is open: OP_SETTLE is
+        #: relayed there (the ledger entries shipped with the export).
+        self._drain_successor = None
+        self._drain_deadline = 0.0
+        self._shutdown_done = False
         # Tracing rides the process-global tracer: True enables it with
         # defaults, a dict passes knobs through, None leaves it as is.
         if tracing_config is not None:
@@ -1043,6 +1075,10 @@ class BucketStoreServer:
                         return wire.encode_response(
                             seq, wire.RESP_ERROR,
                             self.liveconfig.moved(ckind, a, b, fwd))
+                env = self._drain_envelope
+                if env is not None:
+                    return self._serve_bulk_draining(
+                        seq, keys, counts, a, b, with_rem, kind, env)
                 gate = (self.placement.bulk_gate(keys)
                         if self.placement.active else None)
                 if gate is not None and gate[2].any():
@@ -1087,6 +1123,20 @@ class BucketStoreServer:
                     return wire.encode_response(
                         seq, wire.RESP_ERROR,
                         self.liveconfig.moved(ckind, a, b, fwd))
+            env = self._drain_envelope
+            if env is not None and op in _PLACEMENT_GATED_OPS:
+                ekind = placement.ENVELOPE_KIND.get(op)
+                if ekind is not None and count >= 0:
+                    # Draining: the store's balances already shipped to the
+                    # successor; admission serves the bounded fair-share
+                    # envelope the export withheld, as a parked key does
+                    # mid-handoff.
+                    granted, remaining = env.acquire(key, count, a, b,
+                                                     ekind)
+                    return wire.encode_response(
+                        seq, wire.RESP_DECISION, granted, remaining)
+                return wire.encode_response(
+                    seq, wire.RESP_ERROR, _DRAINING)
             if self.placement.active and op in _PLACEMENT_GATED_OPS:
                 verdict = self.placement.gate(key)
                 if verdict is not None:
@@ -1314,6 +1364,25 @@ class BucketStoreServer:
             granted, remaining)
         return BulkAcquireResult(granted, remaining)
 
+    def _serve_bulk_draining(self, seq: int, keys, counts, a: float,
+                             b: float, with_rem: bool, kind: int,
+                             env) -> bytes:
+        """One bulk frame while the drain is in flight: every row serves
+        from the shutdown envelope (the store's balances already shipped to
+        the successor), in row order. The native bulk lane answers with
+        this too, so the two lanes' replies are equal byte for byte."""
+        ekind = placement.BULK_ENVELOPE_KIND[kind]
+        n = len(keys)
+        counts_np = np.asarray(counts, np.int64)
+        granted = np.zeros(n, bool)
+        remaining = np.zeros(n, np.float32) if with_rem else None
+        for i in range(n):
+            g, rem = env.acquire(keys[i], int(counts_np[i]), a, b, ekind)
+            granted[i] = g
+            if remaining is not None:
+                remaining[i] = rem
+        return wire.encode_bulk_response(seq, granted, remaining)
+
     def _hier_config_gate(self, seq: int, a: float, b: float,
                           ta: float, tb: float) -> "bytes | None":
         """Both levels of a two-level frame gate on the live-config rules:
@@ -1367,6 +1436,14 @@ class BucketStoreServer:
         gate_resp = self._hier_config_gate(seq, a, b, ta, tb)
         if gate_resp is not None:
             return gate_resp
+        env = self._drain_envelope
+        if env is not None:
+            if count >= 0:
+                granted, remaining = self._hier_envelope(
+                    env.acquire, tenant, key, count, a, b, ta, tb, priority)
+                return wire.encode_response(
+                    seq, wire.RESP_DECISION, granted, remaining)
+            return wire.encode_response(seq, wire.RESP_ERROR, _DRAINING)
         if self.placement.active:
             verdict = self.placement.gate(tenant)
             if verdict is not None:
@@ -1407,7 +1484,11 @@ class BucketStoreServer:
         if gate_resp is not None:
             return gate_resp
         counts_np = np.asarray(counts, np.int64)
-        if self.placement.active:
+        env_acquire = None
+        if self._drain_envelope is not None:
+            # Draining: every row serves from the shutdown envelope.
+            env_acquire = self._drain_envelope.acquire
+        elif self.placement.active:
             # Frame-level, keyed on the tenant (the frame's routing
             # identity): a moved tenant answers MOVED, a parked one serves
             # every row from its handoff envelope.
@@ -1419,17 +1500,18 @@ class BucketStoreServer:
                         seq, wire.RESP_ERROR,
                         self.placement.moved_message(tenant, info))
                 env_acquire = self._tenant_envelope(info)
-                n = len(keys)
-                granted = np.zeros(n, bool)
-                remaining = np.zeros(n, np.float32) if with_rem else None
-                for i in range(n):
-                    g, rem = self._hier_envelope(
-                        env_acquire, tenant, keys[i], int(counts_np[i]),
-                        a, b, ta, tb, priority)
-                    granted[i] = g
-                    if remaining is not None:
-                        remaining[i] = rem
-                return wire.encode_bulk_response(seq, granted, remaining)
+        if env_acquire is not None:
+            n = len(keys)
+            granted = np.zeros(n, bool)
+            remaining = np.zeros(n, np.float32) if with_rem else None
+            for i in range(n):
+                g, rem = self._hier_envelope(
+                    env_acquire, tenant, keys[i], int(counts_np[i]),
+                    a, b, ta, tb, priority)
+                granted[i] = g
+                if remaining is not None:
+                    remaining[i] = rem
+            return wire.encode_bulk_response(seq, granted, remaining)
         self._offer_bulk_hot(keys, counts_np)
         res = await self.store.acquire_hierarchical_many(
             [tenant] * len(keys), keys, counts_np, ta, tb, a, b,
@@ -1478,7 +1560,6 @@ class BucketStoreServer:
         gate_resp = self._hier_config_gate(seq, a, b, ta, tb)
         if gate_resp is not None:
             return gate_resp
-        # The drain envelope is not ported here (nor drain-and-handoff).
         led = self.reservations
         est = float(estimate) if estimate else None
         if est is None and led is not None:
@@ -1489,11 +1570,24 @@ class BucketStoreServer:
         # DEFAULT_ESTIMATE (the charge the sketch, the envelope and the
         # pool route see).
         charge = reservations.fallback_charge(est)
+
+        def envelope_reply(env_acquire) -> bytes:
+            # An envelope-served reserve takes NO ledger entry: its settle
+            # answers the counted "unknown" no-op, so the hold is never
+            # refunded (conservative).
+            granted, remaining = self._hier_envelope(
+                env_acquire, tenant, key, charge, a, b, ta, tb, priority)
+            return wire.encode_response(seq, wire.RESP_TEXT, json.dumps(
+                {"granted": bool(granted),
+                 "reserved": float(charge) if granted else 0.0,
+                 "remaining": float(remaining), "debt": 0.0,
+                 "envelope": True}))
+
+        if self._drain_envelope is not None:
+            return envelope_reply(self._drain_envelope.acquire)
         if self.placement.active:
             # Keyed on the TENANT (reservations route with the two-level
-            # traffic they budget). An envelope-served reserve takes NO
-            # ledger entry: its settle answers the counted "unknown"
-            # no-op, so the hold is never refunded (conservative).
+            # traffic they budget).
             verdict = self.placement.gate(tenant)
             if verdict is not None:
                 what, info = verdict
@@ -1501,14 +1595,7 @@ class BucketStoreServer:
                     return wire.encode_response(
                         seq, wire.RESP_ERROR,
                         self.placement.moved_message(tenant, info))
-                granted, remaining = self._hier_envelope(
-                    self._tenant_envelope(info), tenant, key, charge, a, b,
-                    ta, tb, priority)
-                return wire.encode_response(seq, wire.RESP_TEXT, json.dumps(
-                    {"granted": bool(granted),
-                     "reserved": float(charge) if granted else 0.0,
-                     "remaining": float(remaining), "debt": 0.0,
-                     "envelope": True}))
+                return envelope_reply(self._tenant_envelope(info))
         if led is None:
             return wire.encode_response(
                 seq, wire.RESP_ERROR,
@@ -1592,7 +1679,22 @@ class BucketStoreServer:
         except (TypeError, ValueError):
             return wire.encode_response(seq, wire.RESP_ERROR,
                                         "settle actual must be a number")
-        # Not ported here: the drain relay to a successor (ROADMAP A 7).
+        successor = self._drain_successor
+        if self._drain_envelope is not None and successor is not None:
+            # Draining: the ledger's entries shipped with the export, so the
+            # settle relays to the successor (idempotent by rid: a duplicated
+            # relay is safe). A failed relay answers the deferral; the
+            # client's retry lands after the LB switch.
+            try:
+                res = await successor.settle(rid, tenant, actual)
+            except Exception as exc:
+                log.error_evaluating_kernel(exc)
+                return wire.encode_response(
+                    seq, wire.RESP_ERROR,
+                    f"{placement.HANDOFF_DEFERRAL_PREFIX}: settle relay to "
+                    "the drain successor failed; retry")
+            return wire.encode_response(seq, wire.RESP_TEXT,
+                                        json.dumps(res._asdict()))
         if self.placement.active:
             verdict = self.placement.gate(tenant)
             if verdict is not None:
@@ -1637,6 +1739,161 @@ class BucketStoreServer:
                     checkpoint.save_snapshot, self.store,
                     self.snapshot_path, placement_epoch=epoch))
         await asyncio.shield(self._save_task)
+
+    # -- drain-and-handoff shutdown ---------------------------------------------
+    async def shutdown(self, successor=None, *, window_s: float = 2.0,
+                       envelope_fraction: float =
+                       placement.DEFAULT_ENVELOPE_FRACTION) -> dict:
+        """Planned shutdown that ships state instead of wiping it.
+
+        With a ``successor`` store (any :class:`~.store.BucketStore`,
+        typically a :class:`~.remote.RemoteBucketStore` at the new process)
+        this reuses the migration handoff lane end to end: the whole
+        keyspace is exported with the fair-share envelope withheld, the
+        local store is charged for the shipped amount
+        (:func:`placement.debit_source`, so the dual-ownership bound holds
+        while this process lingers), in-flight and late admission traffic
+        serves from the withheld envelope for at most ``window_s``, and the
+        remainder lands on the successor through the ``MIGRATE_PUSH`` import
+        lane (batch-deduped: a retried push cannot apply twice).
+
+        With no successor the final state goes to the configured snapshot
+        path (through the incremental chain when one is armed). Returns a
+        summary dict; idempotent once complete. A failed drain falls back
+        to the final checkpoint when a snapshot path is set (the summary
+        carries ``drain_error``), else re-opens for a retry and raises."""
+        if self._shutdown_done:
+            return {"already": True}
+        self._shutdown_done = True
+        # An OP_SAVE still writing must finish first: a concurrent final
+        # save would interleave the chain's delta links.
+        if self._save_task is not None and not self._save_task.done():
+            try:
+                await asyncio.shield(self._save_task)
+            # The save's own OP_SAVE caller already saw this failure.
+            # drl-check: ok(swallowed-exception)
+            except Exception:
+                pass
+        try:
+            return await self._shutdown_body(successor, window_s,
+                                             envelope_fraction)
+        except asyncio.CancelledError:
+            self._shutdown_done = False
+            self._drain_envelope = None
+            self._drain_successor = None
+            raise
+        except Exception as exc:
+            # Resume authoritative serving from the (possibly debited)
+            # store, the migration-abort posture: the residual IS the
+            # envelope, so un-gating under-admits at worst. Exported holds
+            # stay gone from the local ledger (which chunks landed is
+            # unknowable); their settles answer the counted "unknown".
+            self._drain_envelope = None
+            self._drain_successor = None
+            if successor is not None and self.snapshot_path is not None:
+                # The shipped-but-unreceived balance must not evaporate:
+                # the final checkpoint is its home, the restarted process
+                # restores it.
+                try:
+                    path = await self._final_checkpoint()
+                except Exception as save_exc:
+                    log.error_evaluating_kernel(save_exc)
+                else:
+                    log.error_evaluating_kernel(exc)
+                    await self.aclose()
+                    return {"shipped_rows": 0, "checkpoint": path,
+                            "drain_error": repr(exc)}
+            self._shutdown_done = False  # retryable: nothing landed
+            raise
+
+    async def _final_checkpoint(self) -> str:
+        """The final save, off the loop: through the chain when one is
+        armed, else a full file; stamped with the adopted placement
+        epoch."""
+        from distributedratelimiting.redis_tpu_torch.runtime import (
+            checkpoint,
+        )
+
+        epoch = self.placement.epoch if self.placement.active else None
+        if self._snapshot_chain is not None:
+            return await asyncio.to_thread(self._snapshot_chain.save,
+                                           self.store, epoch)
+        await asyncio.to_thread(checkpoint.save_snapshot, self.store,
+                                self.snapshot_path, placement_epoch=epoch)
+        return self.snapshot_path
+
+    async def _shutdown_body(self, successor, window_s: float,
+                             envelope_fraction: float) -> dict:
+        out: dict = {"shipped_rows": 0, "checkpoint": None}
+        if successor is not None:
+            env = placement._FairShareEnvelope(envelope_fraction)
+            # A card store's export takes seconds: off the loop, so the
+            # other connections are served meanwhile.
+            entries = await asyncio.to_thread(
+                placement._export_from_store, self.store, lambda _k: True)
+            export = placement.debit_export(entries, envelope_fraction)
+            target_epoch = (self.placement.epoch + 1
+                            if self.placement.active else 1)
+            # Outstanding holds and tenant debts ship with the state: their
+            # settles relay to the successor during the window and must
+            # find the entries there. The tag dedups a re-delivered debt.
+            led = self.reservations
+            if led is not None:
+                res_rows, debt_rows = led.export_rows(
+                    lambda _t: True, tag=f"drain:{target_epoch}")
+                if res_rows or debt_rows:
+                    export = dict(export)
+                    export["reservations"] = res_rows
+                    export["debts"] = debt_rows
+            # Gate on BEFORE the source debit lands: from here until aclose
+            # admission serves only the envelope the export withheld, so no
+            # late request spends a balance the successor receives.
+            self._drain_envelope = env
+            self._drain_successor = successor
+            self._drain_deadline = time.monotonic() + window_s
+            await placement.debit_source(self.store, entries,
+                                         envelope_fraction,
+                                         keep_envelope=True)
+            push = getattr(successor, "migrate_push", None)
+            rows = 0
+            for bid, chunk in enumerate(placement.chunk_entries(export)):
+                if callable(push):
+                    rows += await push({"target_epoch": target_epoch,
+                                        # Namespaced like the cluster's
+                                        # per-source batch ids: a drain's
+                                        # pushes never collide with a
+                                        # concurrent migration's.
+                                        "batch": (0xD << 24) | bid,
+                                        "entries": chunk})
+                else:
+                    rows += await placement.import_entries(successor,
+                                                           chunk)
+            if self.liveconfig.active:
+                # The gates ride along: a successor serving the rebased
+                # state without the forwarding rules would re-open every
+                # retired config init-on-miss. Adopt is idempotent and
+                # version-monotonic.
+                ann = getattr(successor, "config_announce", None)
+                if callable(ann):
+                    try:
+                        await ann({"adopt":
+                                   self.liveconfig.snapshot_payload()})
+                        out["config_version"] = self.liveconfig.version
+                    except Exception as exc:
+                        log.error_evaluating_kernel(exc)
+                        out["config_forward_error"] = repr(exc)
+            out["shipped_rows"] = rows
+            # Linger for the rest of the window serving the envelope:
+            # in-flight and stale-mapped clients get bounded answers, not
+            # connection resets.
+            linger = self._drain_deadline - time.monotonic()
+            if linger > 0:
+                await asyncio.sleep(linger)
+            out["envelope_decisions"] = env.decisions
+        elif self.snapshot_path is not None:
+            out["checkpoint"] = await self._final_checkpoint()
+        await self.aclose()
+        return out
 
     def _stats_json(self) -> str:
         """OP_STATS body: the JAX server's keys (with the native front-end,
@@ -1796,9 +2053,11 @@ def main(argv: list[str] | None = None) -> None:
 
         python -m distributedratelimiting.redis_tpu_torch.runtime.server --port 6380
 
-    SIGTERM or SIGINT closes it cleanly (after a final checkpoint when
-    ``--snapshot-path`` is set, through the delta chain with
-    ``--snapshot-incremental``) and the process exits 0."""
+    SIGTERM or SIGINT is a planned shutdown (:meth:`BucketStoreServer.
+    shutdown`): with ``--drain-to HOST:PORT`` the state ships to the
+    successor server there; without it a final checkpoint goes to
+    ``--snapshot-path`` when one is set (through the delta chain with
+    ``--snapshot-incremental``). The process then exits 0."""
     import argparse
 
     parser = argparse.ArgumentParser(description="GPU bucket-store server")
@@ -1842,6 +2101,13 @@ def main(argv: list[str] | None = None) -> None:
                         "the previous save instead of full files (base + "
                         "bounded chain + compaction); requires "
                         "--snapshot-path")
+    parser.add_argument("--drain-to", default=None, metavar="HOST:PORT",
+                        help="on SIGTERM, ship the whole keyspace's state "
+                        "to the successor server at this address through "
+                        "the migration handoff lane before exiting "
+                        "(drain-and-handoff shutdown); without it SIGTERM "
+                        "writes a final checkpoint to --snapshot-path when "
+                        "one is configured")
     parser.add_argument("--sweep-period", type=float, default=0.0,
                         help="active TTL-expiry period in seconds "
                         "(0 = on-demand sweeps only)")
@@ -2053,18 +2319,31 @@ def main(argv: list[str] | None = None) -> None:
             loop.add_signal_handler(sig, term.set)
         try:
             await term.wait()
-            print("SIGTERM: shutting down", flush=True)
-            await server.aclose()
-            if args.snapshot_path:
-                # A planned restart keeps its state: the final checkpoint
-                # is what the next process restores.
-                await server._save()
-                print(f"final checkpoint written to {args.snapshot_path}",
+            successor = None
+            if args.drain_to:
+                from distributedratelimiting.redis_tpu_torch.runtime.remote import (  # noqa: E501
+                    RemoteBucketStore,
+                )
+
+                successor = RemoteBucketStore(url=args.drain_to,
+                                              auth_token=args.auth_token)
+            print("SIGTERM: drain-and-handoff shutdown"
+                  + (f" → {args.drain_to}" if args.drain_to else ""),
+                  flush=True)
+            # A planned restart keeps its state: shipped to the successor,
+            # or in the final checkpoint the next process restores.
+            try:
+                summary = await server.shutdown(successor)
+            finally:
+                if successor is not None:
+                    await successor.aclose()
+            if summary.get("checkpoint"):
+                print(f"final checkpoint written to {summary['checkpoint']}",
                       flush=True)
+            print(f"shutdown complete: {summary}", flush=True)
         finally:
-            await server.aclose()  # a no-op after the close above
+            await server.aclose()  # a no-op after the shutdown's close
             await store.aclose()
-        print("shutdown complete", flush=True)
 
     asyncio.run(serve())
 

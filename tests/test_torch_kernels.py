@@ -643,3 +643,34 @@ def test_bindings_match_the_c_prototypes():
         assert set(fns) == set(protos[lib]), lib
         for fn, argtypes in fns.items():
             assert list(argtypes) == protos[lib][fn], fn
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_scan_i32_lane_matches_jax_acquire_scan(seed):
+    """The i32 lane of ``acquire_scan_packed`` (``kOpI32``: an ``i32[2, K,
+    B]`` operand, padding rows' slots negative) against JAX's
+    ``acquire_scan`` (i32 counts and an explicit ``valid``), which the JAX
+    store launches for a bulk chunk whose count is above 255
+    (``redis_tpu/runtime/store.py:1312``): a seeded chunk with counts up
+    to 1,000, repeated slots within and across batches, padding rows and
+    three ticks. Grants exact, remaining and state within ATOL."""
+    cap = 1000.0
+    s = _state_np(N, seed + 40)
+    s = (s[0] * (cap / CAP), s[1], s[2])
+    _operand, slots, counts, nows = _scan_case(seed + 900, False)
+    assert (counts > 255).any()
+    rate = 0.013
+    jstate, jgranted, jremaining = JK.acquire_scan(
+        _jax_state(s), jnp.asarray(slots), jnp.asarray(counts),
+        jnp.asarray(slots >= 0), jnp.asarray(nows), jnp.float32(cap),
+        jnp.float32(rate))
+    tstate = _torch_state(s)
+    operand = np.stack([slots, counts]).astype(np.int32)
+    tout = ck.acquire_scan_packed(tstate, torch.from_numpy(operand),
+                                  torch.from_numpy(nows), cap, rate)
+    grants = np.asarray(jgranted).astype(np.float32)
+    np.testing.assert_array_equal(tout[:, 0].numpy(), grants)
+    np.testing.assert_allclose(tout[:, 1].numpy(), np.asarray(jremaining),
+                               atol=ATOL, rtol=0)
+    _assert_state(tstate, jstate)
+    assert grants.sum() > 0 and (grants == 0).any()

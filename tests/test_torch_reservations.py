@@ -18,8 +18,9 @@ through ``peek_blocking`` on both stores. Tolerances:
 
 Cases of ``tests/test_reservations.py`` that need modules the port has not
 ported wait with them: ``:312`` (placement's entry chunks), ``:516`` and
-``:574`` (migration) and ``:820`` (the soak's drain, chaos and OP_CONFIG).
-``:328`` and ``:361`` (the fingerprint store) are in
+``:574`` (migration). ``:820`` (the streaming soak: its drain, chaos and
+OP_CONFIG) is in ``tests/test_torch_drain.py``; ``:328`` and ``:361`` (the
+fingerprint store) are in
 ``tests/test_torch_fp_store.py``, ``:478`` (a settle after a live config
 rebase) in ``tests/test_torch_liveconfig.py``.
 
