@@ -180,7 +180,7 @@ Phases (any failure raises, and the script exits non-zero):
    (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
    ``serving_p99_instant`` sections once each with short windows (no key
    null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
-   alone (``--paths`` takes any of the paths of phases 3–10 and 12–18,
+   alone (``--paths`` takes any of the paths of phases 3–10 and 12–19,
    comma-separated).
 9. The observability and overload plane (``--paths observability``), at
    the server cell's size: ``BucketStoreServer(observability=True,
@@ -333,9 +333,10 @@ Phases (any failure raises, and the script exits non-zero):
    ``runtime/placement.py``, BASELINE config 2 made elastic): three
    ``BucketStoreServer``s, each over a card ``DeviceBucketStore`` of 2^24
    slots (the cut: three nodes share one card), on one frozen ManualClock
-   (the handoff envelopes read it too). 2,000,000 bucket keys (cut from
-   BASELINE's 10,000,000: the path alone took over 200 s at 10M, and 101 s
-   at 4M in a script that must end within 1,200 s), 100,000 sliding
+   (the handoff envelopes read it too). 1,000,000 bucket keys (cut from
+   BASELINE's 10,000,000: the path alone took over 200 s at 10M, 101 s
+   at 4M and 53-73 s at 2M, in a script that must end within 1,200 s and
+   now runs the cluster path too), 100,000 sliding
    windows, 10,000 counters and 10,000 semaphores (2 permits held)
    loaded at epoch 0 under ``PlacementMap.initial(2)`` over nodes 0 and 1,
    each node's keys through ``acquire_many`` over the wire; 1,000 sampled
@@ -419,8 +420,45 @@ Phases (any failure raises, and the script exits non-zero):
    first push falls back to the final checkpoint, which restores equal to
    the debited source; a source with no snapshot path raises, disarms its
    gate and drains on a retry.
-19. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
-   of phases 3–10 and 12–18 (``launches_by_path``; counts set to 0 before each
+19. The cluster and its controller (``--paths cluster``;
+   ``runtime/cluster.py``, ``runtime/controller.py``, BASELINE config 2
+   made a three-node fleet): three ``BucketStoreServer``s, each over a
+   card ``DeviceBucketStore`` of 2^24 slots on one frozen ManualClock (the
+   cut: the nodes share one card), behind one port ``ClusterBucketStore``
+   with breakers on a manual clock, the degraded fallback and ``deny``
+   partial failures. 1,000,000 bucket keys (cut from 10,000,000, as the
+   config and drain cells) at capacity 10 spending 1-3 through
+   ``acquire_many`` in 250,000-row calls, 250,000 unit window asks over
+   100,000 sliding windows, 10,000 counters (``sync_counter``), 10,000
+   semaphores (2 held), the LLM workload's 2^16 two-level rows and 300
+   reserve/settle pairs: grants and remaining equal host oracles (float32
+   balances, the window path's serial oracle, the plain versions on the
+   host for the two-level rows), each tenant within its budget; the
+   fan-out's rows/s beside one server's wire bulk. 10,000 routed
+   ``acquire`` and 2,000 ``peek_blocking``, p50 and p99; each node's
+   ``OP_STATS`` rows equal the keys ``node_index_of`` routes to it;
+   ``cluster_metrics()``'s sums equal the node series. Node 1's server
+   stops (its store kept): 8 rounds of unit asks on 10,000 of its keys
+   open its breaker after 3 failures and serve from the degraded envelope
+   (<= ``headroom_budget(10, 0.5)`` + its refill a key); nodes 0 and 2
+   exact; a client without the fallback denies node 1's rows; a restart on
+   the same port and one probe close the breaker (flight frames,
+   ``drl_cluster_breaker_state``); the rejoin debit leaves each asked key
+   at its pre-outage balance less its degraded grants. ``add_node`` of a
+   fourth server: the pull's and the push's seconds, the store lock's
+   longest hold, rows/s, the import's ``debit_packed`` launches; moved
+   balances equal a host oracle of ``debit_export``, unmoved ones
+   unchanged; a client at epoch 0 sends 1,000 moved keys, each chasing one
+   MOVED to node 3. A ``Controller`` ticked by hand over Zipf(1.1) traffic
+   on 100,000 keys splits the hot key (its balance on the new owner equal
+   to the oracle), arms the retry-shed and doomed-work gates on every
+   server after two ticks of retried reserves and releases them after
+   three calm ticks; a dry-run twin fed the same ``Sensors`` decides the
+   same intents; node 0's ``/metrics`` carries ``drl_controller_*`` and its
+   incident bundle the controller's actions. Two days on, ``sweep_all``
+   evicts exactly every node's expired slots.
+20. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
+   of phases 3–10 and 12–19 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
    two-level kernel and the debit > 0 on the reservation path, every
    store kernel but the window flushes > 0 on the checkpoint path, the
@@ -432,7 +470,11 @@ Phases (any failure raises, and the script exits non-zero):
    and the bucket scan > 0 on the placement path, the debit, the window
    flush, the bucket flush and the bucket scan > 0 on the config path, the
    debit, the window, counter and semaphore flushes, the bucket scan and
-   the two-level kernel > 0 on the drain path, and every kernel that a wire op reaches > 0 on the server path — all but
+   the two-level kernel > 0 on the drain path, the bucket and window scans
+   and flushes, the counter, semaphore and two-level kernels, the debit and
+   the bucket sweep > 0 on the cluster path (its windows by the grouped and
+   the plain flush), and every kernel that a wire
+   op reaches > 0 on the server path — all but
    the bench's ``acquire_scan24`` and ``acquire_batch``, the fp kernels,
    whose store the fp path serves, and ``global_tier``, whose the mesh path
    serves) and their sum
@@ -440,7 +482,17 @@ Phases (any failure raises, and the script exits non-zero):
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-20. Last line: ``{"ok": true, "device": {...}}``.
+21. Last line: ``{"ok": true, "device": {...}}``.
+
+Phases 3-10 and 12-19 run in this order in one process, but for the side
+lane: after the exact path, while this process runs the placement, config,
+cluster, reservation, admission, approximate and window paths, a second
+process (``python3 chip_smoke.py --lane fp,mesh,checkpoint``, started and
+stopped by this one) runs the fp, mesh and checkpoint paths on the same
+card; the server, bench, native, observability and drain paths then run
+alone. Each path's
+launch counts are set to 0 just before it and read just after it, in the
+process that runs it.
 
 It needs a CUDA device and the rest of the repository beside it.
 """
@@ -2216,20 +2268,37 @@ async def trace_chunk(torch, ck, lim, keys, card: str, state: str,
     ``torch.profiler``: the device's busy share of the call's wall time (the
     union of kernel and copy intervals), the kernels it launched, and how
     far each kernel's start lies from its launch call on the host's clock.
-    A trace without a kernel fails the path if ``required``, and otherwise
-    prints the reading as not measured (ROADMAP C1). The Chrome trace goes
+    If ``required``, the proof that the chunk ran on the card does not go
+    through the profiler's CUPTI trace: ``acquire_scan``'s launch count must
+    go up by one and CUDA events around the call must read a time above 0,
+    else the path fails. A trace without a kernel prints its reading as not
+    measured (ROADMAP C1), whether required or not. The Chrome trace goes
     to the build directory."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    scans_before = ck.launches["acquire_scan"]
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        ev0.record()
         res = await lim.acquire_many(keys, permits=1, with_remaining=False)
+        ev1.record()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    event_ms = ev0.elapsed_time(ev1)
+    scans = ck.launches["acquire_scan"] - scans_before
     if res.granted_count != len(keys):
         raise AssertionError("traced chunk: not every fresh key granted")
+    if required and (scans != 1 or not event_ms > 0.0):
+        raise AssertionError(
+            f"traced chunk ({state}): {scans} acquire_scan launch(es) and "
+            f"{event_ms} ms between CUDA events; the chunk did not run on "
+            "the card")
+    print(f"bulk chunk ({state}): {scans} acquire_scan launch, "
+          f"{event_ms:.4f} ms between CUDA events around the call ({card})")
     path = ck.BUILD_DIR / "bulk_chunk_trace.json"
     prof.export_chrome_trace(str(path))
     with open(path) as f:
@@ -2246,8 +2315,6 @@ async def trace_chunk(torch, ck, lim, keys, card: str, state: str,
     if not kernels:
         msg = (f"no kernel in the trace ({len(launch_ts)} kernel launch "
                f"calls and {len(device)} copies or sets recorded)")
-        if required:
-            raise AssertionError(f"traced chunk ({state}): {msg}")
         print(f"bulk chunk under torch.profiler ({state}): not measured, "
               f"{msg}; ROADMAP C1")
         return
@@ -6918,7 +6985,8 @@ async def fp_path(torch, ck, pkg, card: str) -> dict:
     from distributedratelimiting.redis_tpu_torch.runtime import fp_store
 
     rng = np.random.default_rng(FP_SEED + 1)
-    if not FP_RESULTS:  # the path alone; the whole script ran them first
+    if not FP_RESULTS and not _KERNEL_CASES_RAN:
+        # The path alone; the whole script ran them first.
         _fp_kernel_phase(torch, ck, card)
 
     # The host hash: timed, and the Python FNV must never run.
@@ -7441,7 +7509,8 @@ async def mesh_path(torch, ck, pkg, card: str) -> dict:
     launches of the store part."""
     from distributedratelimiting.redis_tpu_torch.parallel.mesh import Mesh
 
-    if not MESH_RESULTS:  # the path alone; the whole script ran them first
+    if not MESH_RESULTS and not _KERNEL_CASES_RAN:
+        # The path alone; the whole script ran them first.
         _mesh_kernel_phase(torch, ck, card)
     ck.reset_launches()
     lines = await _mesh_store_part(torch, ck, pkg, Mesh(
@@ -7648,11 +7717,12 @@ async def _mesh_store_part(torch, ck, pkg, mesh, rng) -> list:
 
 
 PLACE_SEED = 1919
-#: Bucket keys loaded over nodes 0 and 1 at epoch 0: 2M, cut from BASELINE's
+#: Bucket keys loaded over nodes 0 and 1 at epoch 0: 1M, cut from BASELINE's
 #: 10M (the path alone took over 200 s at 10M: each pull snapshots a node's
-#: whole directory) and then from 4M (101 s at 4M), so that the whole script,
-#: every earlier path at its own depth, ends well within 1,200 s.
-PLACE_KEYS = 2_000_000
+#: whole directory), then from 4M (101 s at 4M) and from 2M (53-73 s), so
+#: that the whole script, the cluster path included, ends well within
+#: 1,200 s.
+PLACE_KEYS = 1_000_000
 PLACE_CALL = 1_000_000       # keys a bulk call over the wire
 PLACE_CAP = 10.0             # capacity; each key takes 1-3 tokens at load
 PLACE_RATE = 1.0
@@ -9460,6 +9530,816 @@ async def drain_path(torch, ck, pkg, card: str) -> dict:
     return counts_out
 
 
+# -- phase 19: the cluster and its controller ---------------------------------
+
+CLUSTER_SEED = 2222
+#: Bucket keys over the three nodes: 1M, cut from BASELINE's 10M for the
+#: same time limit that cut the config and drain cells (the scale-out pulls
+#: from every node, and a pull enumerates the whole store).
+CLUSTER_KEYS = 1_000_000
+CLUSTER_CALL = 250_000          # rows an acquire_many call of the fan-out
+CLUSTER_CAP, CLUSTER_RATE = 10.0, 1.0
+CLUSTER_WINDOW_KEYS = 100_000   # sliding windows, limit 3 a second
+CLUSTER_WINDOW_ROWS = 250_000   # their unit asks, uniform over the keys
+CLUSTER_WINDOW = (3.0, 1.0)     # limit, seconds
+CLUSTER_COUNTERS = 10_000
+CLUSTER_SEMAS = 10_000          # semaphores of limit 5, 2 permits held
+CLUSTER_SEMA_LIMIT = 5
+CLUSTER_LLM_BUDGETS = (1e6, 5e4)  # (key, tenant) tokens; the tenant binds
+CLUSTER_LLM_RATE = 1e5
+CLUSTER_PAIRS = 300             # reserve/settle pairs
+CLUSTER_TENANT = (1e6, 10.0)    # the pairs' tenant budget
+CLUSTER_HOLD_KEY = (1000.0, 10.0)
+CLUSTER_ACQUIRES = 10_000       # routed single-key acquires
+CLUSTER_PEEKS = 2_000
+CLUSTER_TASKS = 32              # concurrent callers of the routed acquires
+CLUSTER_OUTAGE_KEYS = 10_000    # node 1's keys asked during its outage
+CLUSTER_OUTAGE_ROUNDS = 8       # unit asks a key (the envelope admits 5)
+CLUSTER_DENY_ROWS = 30_000      # a no-fallback client's bulk in the outage
+CLUSTER_BREAKER = (3, 30.0)     # failure threshold, recovery seconds
+CLUSTER_CHASE_KEYS = 1_000      # moved keys a stale client sends
+CLUSTER_ZIPF_KEYS = 100_000     # the controller's traffic
+CLUSTER_ZIPF_DRAWS = 20_000     # a tick
+#: Their bucket: a split leaves half of it on each side, so the rate keeps
+#: its time to full inside the final sweep's two days.
+CLUSTER_ZIPF_CAP = (1e6, 1000.0)
+CLUSTER_STORM = 200             # retried reserves a storm tick
+CLUSTER_CALM = 200              # plain acquires a calm tick
+CLUSTER_CTL = dict(tick_s=1.0, split_share=0.1, split_min_tokens=100.0,
+                   split_streak_ticks=2, cooldown_ticks=2)
+
+
+class _ClusterOracle:
+    """Host float32 balances of the path's bucket keys at one capacity
+    (every key whole-numbered, the clock frozen: no refill)."""
+
+    def __init__(self, n: int, cap: float) -> None:
+        self.tok = np.full(n, np.float32(cap), np.float32)
+
+    def take(self, idx: np.ndarray, counts: np.ndarray) -> tuple:
+        """Distinct ``idx`` asking ``counts``: (granted, remaining)."""
+        counts = counts.astype(np.float32)
+        granted = self.tok[idx] >= counts
+        self.tok[idx] = np.where(granted, self.tok[idx] - counts,
+                                 self.tok[idx])
+        return granted, self.tok[idx].copy()
+
+
+def _check_rows(what, got_granted, got_remaining, granted,
+                remaining) -> None:
+    """Rows' grants (and, unless ``remaining`` is None, their remaining)
+    equal the oracle's."""
+    g = np.asarray(got_granted, bool)
+    if not np.array_equal(g, granted):
+        bad = int(np.nonzero(g != granted)[0][0])
+        raise AssertionError(f"{what}: row {bad} granted {g[bad]}, oracle "
+                             f"{granted[bad]}")
+    if remaining is not None:
+        r = np.asarray(got_remaining, np.float32)
+        if not np.array_equal(r, remaining):
+            bad = int(np.nonzero(r != remaining)[0][0])
+            raise AssertionError(f"{what}: row {bad} remaining {r[bad]}, "
+                                 f"oracle {remaining[bad]}")
+
+
+async def _cluster_load(pkg, cluster, stores, rng, oracle, keys) -> dict:
+    """Step 1: the fan-out's load against host oracles."""
+    out = {}
+    counts = rng.integers(1, 4, CLUSTER_KEYS)
+    t = time.perf_counter()
+    for pos in range(0, CLUSTER_KEYS, CLUSTER_CALL):
+        idx = np.arange(pos, min(pos + CLUSTER_CALL, CLUSTER_KEYS))
+        res = await cluster.acquire_many([keys[i] for i in idx],
+                                         counts[idx], CLUSTER_CAP,
+                                         CLUSTER_RATE)
+        _check_rows("cluster load", res.granted, res.remaining,
+                    *oracle.take(idx, counts[idx]))
+    out["fan_s"] = time.perf_counter() - t
+    # Windows: unit asks, uniform over the keys, against the window path's
+    # serial oracle (all at one frozen tick).
+    limit, window_s = CLUSTER_WINDOW
+    wkeys = [f"cw{i}" for i in range(CLUSTER_WINDOW_KEYS)]
+    wrows = rng.integers(0, CLUSTER_WINDOW_KEYS, CLUSTER_WINDOW_ROWS)
+    now = stores[0].clock.now_ticks()
+    wo = _WindowOracle(limit, int(window_s * 1024))
+    want = np.array([wo.decide(wkeys[i], 1, now) for i in wrows.tolist()],
+                    bool)
+    curr = {}
+    rem = np.empty(len(wrows), np.float32)
+    for n, (i, g) in enumerate(zip(wrows.tolist(), want.tolist())):
+        curr[i] = curr.get(i, 0) + int(g)
+        rem[n] = np.float32(max(limit - curr[i], 0.0))
+    t = time.perf_counter()
+    res = await cluster.window_acquire_many([wkeys[i] for i in wrows],
+                                            np.ones(len(wrows), np.int64),
+                                            limit, window_s)
+    out["window_s"] = time.perf_counter() - t
+    _check_rows("cluster windows", res.granted, res.remaining, want, rem)
+    out["window_denied"] = int((~want).sum())
+    # Counters and semaphores, one routed op a key, gathered.
+    ckeys = [f"cc{i}" for i in range(CLUSTER_COUNTERS)]
+    cvals = rng.integers(1, 50, CLUSTER_COUNTERS).astype(np.float64)
+    skeys = [f"cs{i}" for i in range(CLUSTER_SEMAS)]
+    t = time.perf_counter()
+    for pos in range(0, CLUSTER_COUNTERS, 1000):
+        got = await asyncio.gather(*(
+            cluster.sync_counter(ckeys[i], float(cvals[i]), DECAY_PER_S)
+            for i in range(pos, min(pos + 1000, CLUSTER_COUNTERS))))
+        score = np.array([r.global_score for r in got], np.float32)
+        if not np.array_equal(score, cvals[pos:pos + 1000]
+                              .astype(np.float32)):
+            raise AssertionError("cluster counters: a score differs")
+    for pos in range(0, CLUSTER_SEMAS, 1000):
+        got = await asyncio.gather(*(
+            cluster.concurrency_acquire(k, 2, CLUSTER_SEMA_LIMIT)
+            for k in skeys[pos:pos + 1000]))
+        if not all(r.granted for r in got):
+            raise AssertionError("cluster semaphores: a fresh one refused")
+    out["ops_s"] = time.perf_counter() - t
+    # Two-level rows of the LLM workload, by tenant; each tenant's rows held
+    # to a CPU store on the same clock (the plain versions on the host).
+    tenants, hkeys, costs, _ = _llm_workload(LLM_SEED, LLM_ROWS)
+    kcap, tcap = CLUSTER_LLM_BUDGETS
+    t = time.perf_counter()
+    res = await cluster.acquire_hierarchical_many(
+        tenants, hkeys, costs, tcap, CLUSTER_LLM_RATE, kcap,
+        CLUSTER_LLM_RATE)
+    out["hier_s"] = time.perf_counter() - t
+    host = pkg.DeviceBucketStore(device="cpu", n_slots=LLM_SLOTS,
+                                 clock=stores[0].clock)
+    want_g = np.zeros(LLM_ROWS, bool)
+    want_r = np.zeros(LLM_ROWS, np.float32)
+    by_tenant: dict = {}
+    for i, tn in enumerate(tenants):
+        by_tenant.setdefault(tn, []).append(i)
+    for tn, idx in by_tenant.items():
+        r = await host.acquire_hierarchical_many(
+            [tn] * len(idx), [hkeys[i] for i in idx], costs[idx], tcap,
+            CLUSTER_LLM_RATE, kcap, CLUSTER_LLM_RATE)
+        want_g[idx] = r.granted
+        want_r[idx] = r.remaining
+    await host.aclose()
+    # Grants exactly; remaining within two float32 spacings of the value
+    # (a tenant's prefix past 2^24 tokens rounds, in both alike or not).
+    _check_rows("cluster two-level", res.granted, None, want_g, None)
+    err = np.abs(np.asarray(res.remaining, np.float32) - want_r)
+    if (err > 2 * np.spacing(np.maximum(np.abs(want_r),
+                                        np.float32(1.0)))).any():
+        raise AssertionError(f"cluster two-level: remaining off by "
+                             f"{err.max()}")
+    out["hier_err"] = float(err.max())
+    admitted = _tenant_totals(tenants, costs, res.granted)
+    if max(admitted.values()) > tcap:
+        raise AssertionError(f"cluster two-level: a tenant admitted "
+                             f"{max(admitted.values())} > {tcap}")
+    out["hier_denied"] = int((~want_g).sum())
+    out["hier_tokens"] = int(costs[want_g].sum())
+    # Reserve/settle pairs.
+    t = time.perf_counter()
+    settled = 0
+    for i in range(CLUSTER_PAIRS):
+        tn = f"crt{i % 8}"
+        r = await cluster.reserve(f"crid{i}", tn, f"{tn}/k{i % 50}", 8.0,
+                                  *CLUSTER_TENANT, *CLUSTER_HOLD_KEY,
+                                  ttl_s=3600.0)
+        if not r.granted or r.reserved != 8.0:
+            raise AssertionError(f"cluster reserve {i}: {r}")
+        s = await cluster.settle(f"crid{i}", tn, float(i % 8))
+        settled += s.outcome == "settled"
+    if settled != CLUSTER_PAIRS:
+        raise AssertionError(f"cluster settles: {settled} settled")
+    out["pairs_s"] = time.perf_counter() - t
+    out["ckeys"], out["skeys"], out["wkeys"] = ckeys, skeys, wkeys
+    return out
+
+
+async def _cluster_singles(cluster, addrs, rng, oracle, keys, wire_solo,
+                           say) -> None:
+    """Step 2: routed single-key ops, p50/p99, OP_STATS rows per node and
+    the fleet scrape."""
+    clis = [wire_solo(a) for a in addrs[:3]]
+    before = [(await c.stats())["store"]["rows_valid"] for c in clis]
+    idx = rng.choice(CLUSTER_KEYS, CLUSTER_ACQUIRES, replace=False)
+    lat, got = [], {}
+    it = iter(idx.tolist())
+
+    async def worker():
+        for i in it:
+            t = time.perf_counter()
+            got[i] = await cluster.acquire(keys[i], 1, CLUSTER_CAP,
+                                           CLUSTER_RATE)
+            lat.append(time.perf_counter() - t)
+
+    t_acq = time.perf_counter()
+    await asyncio.gather(*(worker() for _ in range(CLUSTER_TASKS)))
+    t_acq = time.perf_counter() - t_acq
+    g, rem = oracle.take(idx, np.ones(len(idx), np.int64))
+    _check_rows("cluster acquire", [got[i].granted for i in idx.tolist()],
+                [got[i].remaining for i in idx.tolist()], g, rem)
+    after = [(await c.stats())["store"]["rows_valid"] for c in clis]
+    routed = np.bincount([cluster.node_index_of(keys[i]) for i in idx],
+                         minlength=3)
+    rows = [a - b for a, b in zip(after, before)]
+    if rows != routed.tolist():
+        raise AssertionError(f"cluster routing: OP_STATS rows {rows}, "
+                             f"node_index_of {routed.tolist()}")
+    plat = []
+    pidx = rng.choice(CLUSTER_KEYS, CLUSTER_PEEKS, replace=False)
+    for i in pidx.tolist():
+        t = time.perf_counter()
+        v = await asyncio.to_thread(cluster.peek_blocking, keys[i],
+                                    CLUSTER_CAP, CLUSTER_RATE)
+        plat.append(time.perf_counter() - t)
+        if np.float32(v) != oracle.tok[i]:
+            raise AssertionError(f"cluster peek {keys[i]}: {v} != "
+                                 f"{oracle.tok[i]}")
+    # The fleet scrape: each summed series is the sum of its node series.
+    text = await cluster.cluster_metrics()
+    from distributedratelimiting.redis_tpu_torch.utils import metrics as pm
+
+    _, samples = pm.parse_openmetrics(text)
+    checked = 0
+    for fam in ("drl_requests_served_total", "drl_admitted_tokens_total",
+                "drl_connections_served_total"):
+        per = [v for n, lb, v in samples if n == fam
+               and dict(lb).get("node") is not None]
+        tot = [v for n, lb, v in samples if n == fam
+               and dict(lb).get("node") is None]
+        if len(per) != 3 or tot != [sum(per)]:
+            raise AssertionError(f"cluster_metrics {fam}: {tot} != "
+                                 f"sum {per}")
+        checked += 1
+    for c in clis:
+        await c.aclose()
+    say(f"routed: {CLUSTER_ACQUIRES:,} acquire from {CLUSTER_TASKS} tasks, "
+        f"p50 {_pct(lat, 50) * 1e3:.3f} ms, p99 {_pct(lat, 99) * 1e3:.3f} "
+        f"ms ({CLUSTER_ACQUIRES / t_acq:,.0f} requests/s); "
+        f"{CLUSTER_PEEKS:,} peek_blocking one at a time, p50 "
+        f"{_pct(plat, 50) * 1e3:.3f} ms, p99 {_pct(plat, 99) * 1e3:.3f} ms; "
+        "grants, remaining and "
+        f"peeks equal the oracle; OP_STATS rows by node {rows} = "
+        f"node_index_of; cluster_metrics() sums equal the node series "
+        f"({checked} families)")
+
+
+async def _cluster_outage(pkg, cluster, stores, servers, addrs, rng, oracle,
+                          keys, bclock, fr, remote_kw, say) -> None:
+    """Step 3: node 1's outage, the breaker, the deny and degraded rows,
+    the restart, the probe and the rejoin debit."""
+    from distributedratelimiting.redis_tpu_torch.models.approximate import (
+        headroom_budget,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        placement as pl,
+    )
+
+    owner = cluster.placement.route(keys)
+    on1 = np.nonzero(owner == 1)[0]
+    asked = rng.choice(on1, CLUSTER_OUTAGE_KEYS, replace=False)
+    others = rng.choice(np.nonzero(owner != 1)[0], CLUSTER_OUTAGE_KEYS,
+                        replace=False)
+    pre = oracle.tok[asked].copy()
+    await servers[1].aclose()
+    t_out = time.perf_counter()
+    grants = np.zeros(CLUSTER_OUTAGE_KEYS, np.int64)
+    states = []
+    for rnd in range(CLUSTER_OUTAGE_ROUNDS):
+        rows = np.concatenate([asked, others]) if rnd == 0 else asked
+        res = await cluster.acquire_many([keys[i] for i in rows],
+                                         np.ones(len(rows), np.int64),
+                                         CLUSTER_CAP, CLUSTER_RATE)
+        g = np.asarray(res.granted, bool)
+        grants += g[:CLUSTER_OUTAGE_KEYS]
+        if rnd == 0:  # nodes 0 and 2 decide exactly
+            m = len(asked)
+            _check_rows("outage: nodes 0 and 2", g[m:],
+                        np.asarray(res.remaining)[m:],
+                        *oracle.take(others, np.ones(len(others), np.int64)))
+        states.append(cluster._breakers[1].state)
+    t_deg = time.perf_counter() - t_out
+    thr = CLUSTER_BREAKER[0]
+    if states[thr - 1:] != ["open"] * (CLUSTER_OUTAGE_ROUNDS - thr + 1) \
+            or "open" in states[:thr - 1]:
+        raise AssertionError(f"outage: breaker states by round {states}")
+    budget = headroom_budget(CLUSTER_CAP, fraction=0.5, min_budget=1.0)
+    refill = 0.5 * CLUSTER_RATE * t_deg
+    if grants.max() > budget + refill or grants.min() < min(budget, 1):
+        raise AssertionError(f"outage: a key admitted {grants.max()} "
+                             f"(budget {budget} + refill {refill:.2f})")
+    # The deny rule: a client with no fallback denies node 1's rows.
+    deny = pkg.ClusterBucketStore(addresses=addrs[:3],
+                                  partial_failures="deny", **remote_kw)
+    deny.placement = cluster.placement
+    drows = rng.choice(CLUSTER_KEYS, CLUSTER_DENY_ROWS, replace=False)
+    res = await deny.acquire_many([keys[i] for i in drows],
+                                  np.ones(len(drows), np.int64), CLUSTER_CAP,
+                                  CLUSTER_RATE)
+    d1 = owner[drows] == 1
+    if np.asarray(res.granted)[d1].any() or \
+            np.asarray(res.remaining)[d1].any():
+        raise AssertionError("outage: a deny row of node 1 was granted")
+    _check_rows("outage: deny client's live rows",
+                np.asarray(res.granted)[~d1], np.asarray(res.remaining)[~d1],
+                *oracle.take(drows[~d1], np.ones(int((~d1).sum()),
+                                                  np.int64)))
+    await deny.aclose()
+    text_open = cluster.metrics_registry().render()
+    if 'drl_cluster_breaker_state{node="1"} 2' not in text_open:
+        raise AssertionError("outage: the gauge does not read open")
+    # Restart over the same store on the same port; the probe re-closes.
+    srv = pkg.BucketStoreServer(stores[1], host=addrs[1][0],
+                                port=addrs[1][1])
+    srv.placement = pl.NodePlacementState(clock=stores[1].clock.now_seconds)
+    await srv.start()
+    servers[1] = srv
+    node1 = cluster.nodes[1]
+    for _ in range(200):
+        if not node1.resilience_stats()["backing_off"]:
+            break
+        await asyncio.sleep(0.01)
+    bclock[0] += CLUSTER_BREAKER[1] + 1.0
+    probes = cluster._breakers[1].probes
+    r = await cluster.acquire(keys[int(asked[0])], 0, CLUSTER_CAP,
+                              CLUSTER_RATE)
+    if cluster._breakers[1].state != "closed" or \
+            cluster._breakers[1].probes != probes + 1:
+        raise AssertionError(f"rejoin: breaker {cluster._breakers[1].state}"
+                             f" after {cluster._breakers[1].probes - probes}"
+                             " probes")
+    t = time.perf_counter()
+    while cluster._bg_tasks and time.perf_counter() - t < 300:
+        await asyncio.sleep(0.01)
+    debit_s = time.perf_counter() - t
+    if cluster._bg_tasks:
+        raise AssertionError("rejoin: the debit did not finish")
+    n_debited = int((grants > 0).sum())
+    if cluster.rejoin_debits != n_debited:
+        raise AssertionError(f"rejoin: {cluster.rejoin_debits} debits, "
+                             f"{n_debited} keys with degraded grants")
+    want = np.maximum(np.float32(0.0), pre - grants.astype(np.float32))
+    got = await stores[1].acquire_many([keys[i] for i in asked],
+                                       np.zeros(len(asked), np.int64),
+                                       CLUSTER_CAP, CLUSTER_RATE)
+    if not np.array_equal(np.asarray(got.remaining, np.float32), want):
+        bad = int(np.nonzero(np.asarray(got.remaining) != want)[0][0])
+        raise AssertionError(f"rejoin: {keys[int(asked[bad])]} holds "
+                             f"{got.remaining[bad]}, oracle {want[bad]}")
+    oracle.tok[asked] = want
+    trans = [(f["node"], f["old"], f["new"])
+             for f in fr.frames(kind="breaker")]
+    if trans != [(1, "closed", "open"), (1, "open", "half_open"),
+                 (1, "half_open", "closed")]:
+        raise AssertionError(f"outage: flight frames {trans}")
+    if 'drl_cluster_breaker_state{node="1"} 0' not in \
+            cluster.metrics_registry().render():
+        raise AssertionError("rejoin: the gauge does not read closed")
+    say(f"outage of node 1: {CLUSTER_OUTAGE_ROUNDS} bulk rounds of unit "
+        f"asks on {CLUSTER_OUTAGE_KEYS:,} of its keys in {t_deg:.2f} s; "
+        f"breaker open from round {thr} (flight frames and "
+        "drl_cluster_breaker_state), degraded grants a key "
+        f"{grants.min()}-{grants.max()} <= {budget:.0f} + {refill:.2f} "
+        f"refill, {cluster.degraded_decisions:,} degraded decisions; nodes "
+        f"0 and 2 exact; a deny client's {int(d1.sum()):,} node-1 rows "
+        "denied; restart on the same port, one probe closed the breaker "
+        f"({r.remaining:.0f} read); {cluster.rejoin_debits:,} rejoin debits "
+        f"in {debit_s:.2f} s, every asked key's balance = max(0, "
+        "pre-outage - degraded grants)")
+
+
+async def _cluster_scale_out(torch, ck, pkg, cluster, stores, addrs, rng,
+                             oracle, keys, remote_kw, say) -> None:
+    """Step 4: ``add_node`` of a fourth server, the moved and unmoved
+    balances, and a stale client's MOVED chase."""
+    from distributedratelimiting.redis_tpu_torch.models.approximate import (
+        headroom_budget,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        placement as pl,
+    )
+
+    pmap0 = cluster.placement
+    timers = [_HoldTimer(s._lock) for s in stores[:3]]
+    for s, tm in zip(stores[:3], timers):
+        s._lock = tm
+    # The pull and the push timed on the client class: the new node's
+    # client is made inside add_node.
+    pull_s, push_s, pushed = [0.0], [0.0], [0]
+    remote = pkg.RemoteBucketStore
+    real_pull, real_push = remote.migrate_pull, remote.migrate_push
+
+    async def timed_pull(self, req, **kw):
+        t = time.perf_counter()
+        try:
+            return await real_pull(self, req, **kw)
+        finally:
+            pull_s[0] += time.perf_counter() - t
+
+    async def timed_push(self, req, **kw):
+        t = time.perf_counter()
+        try:
+            n = await real_push(self, req, **kw)
+            pushed[0] += n
+            return n
+        finally:
+            push_s[0] += time.perf_counter() - t
+
+    debit_ms = [0.0, 0]
+    real_debit = ck.debit_packed
+
+    def timed_debit(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_debit(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        debit_ms[0] += start.elapsed_time(end)
+        debit_ms[1] += 1
+        return out
+
+    launches0 = dict(ck.launches)
+    ck.debit_packed = timed_debit
+    remote.migrate_pull, remote.migrate_push = timed_pull, timed_push
+    t = time.perf_counter()
+    try:
+        j = await cluster.add_node(address=addrs[3])
+    finally:
+        ck.debit_packed = real_debit
+        remote.migrate_pull, remote.migrate_push = real_pull, real_push
+        for s, tm in zip(stores[:3], timers):
+            s._lock = tm._lock
+    add_s = time.perf_counter() - t
+    launches = {k: v - launches0.get(k, 0) for k, v in ck.launches.items()
+                if v > launches0.get(k, 0)}
+    if j != 3 or cluster.placement.epoch != pmap0.epoch + 1:
+        raise AssertionError(f"add_node: node {j}, epoch "
+                             f"{cluster.placement.epoch}")
+    owner0 = pmap0.route(keys)
+    owner1 = cluster.placement.route(keys)
+    moved = np.nonzero(owner0 != owner1)[0]
+    kept = np.nonzero(owner0 == owner1)[0]
+    if not len(moved) or (owner1[moved] != 3).any():
+        raise AssertionError("add_node: nothing moved, or not to node 3")
+    budget = headroom_budget(CLUSTER_CAP, fraction=0.5, min_budget=1.0)
+    shipped = np.maximum(np.float32(0.0),
+                         oracle.tok[moved] - np.float32(budget))
+    res = await stores[3].acquire_many([keys[i] for i in moved],
+                                       np.zeros(len(moved), np.int64),
+                                       CLUSTER_CAP, CLUSTER_RATE)
+    if not np.array_equal(np.asarray(res.remaining, np.float32), shipped):
+        raise AssertionError("add_node: a moved balance differs from the "
+                             "host oracle of debit_export")
+    for n in range(3):
+        mine = kept[owner0[kept] == n]
+        res = await stores[n].acquire_many(
+            [keys[i] for i in mine], np.zeros(len(mine), np.int64),
+            CLUSTER_CAP, CLUSTER_RATE)
+        if not np.array_equal(np.asarray(res.remaining, np.float32),
+                              oracle.tok[mine]):
+            raise AssertionError(f"add_node: an unmoved balance on node "
+                                 f"{n} changed")
+    oracle.tok[moved] = shipped
+    hold = max(tm.longest for tm in timers)
+    say(f"scale-out: add_node(address=...) -> node 3, epoch "
+        f"{cluster.placement.epoch}, {len(moved):,} of {CLUSTER_KEYS:,} "
+        f"bucket keys moved, in {add_s:.1f} s: pull {pull_s[0]:.1f} s, the "
+        f"store lock's longest hold {hold:.2f} s, push {push_s[0]:.1f} s, "
+        f"{pushed[0]:,} rows ({pushed[0] / max(push_s[0], 1e-9):,.0f} "
+        f"rows/s), the import's debit_packed {debit_ms[1]} launches at "
+        f"{debit_ms[0]:.2f} ms of CUDA events; launches {json.dumps(launches)}"
+        f"; moved balances = the host oracle of debit_export, "
+        f"{len(kept):,} unmoved unchanged")
+    # A second client still at epoch 0: each moved key chases one MOVED.
+    stale = pkg.ClusterBucketStore(addresses=addrs,
+                                   placement=pl.PlacementMap.initial(3),
+                                   **remote_kw)
+    refreshes = [0]
+    real_refresh = stale.refresh_placement
+
+    async def counted_refresh():
+        refreshes[0] += 1
+        return await real_refresh()
+
+    stale.refresh_placement = counted_refresh
+    sample = rng.choice(moved, CLUSTER_CHASE_KEYS, replace=False)
+    t = time.perf_counter()
+    for i in sample.tolist():
+        stale.placement = pl.PlacementMap.initial(3)
+        refreshes[0] = 0
+        r = await stale.acquire(keys[i], 1, CLUSTER_CAP, CLUSTER_RATE)
+        g, rem = oracle.take(np.array([i]), np.ones(1, np.int64))
+        if refreshes[0] != 1 or stale.node_index_of(keys[i]) != 3 or \
+                r.granted != g[0] or np.float32(r.remaining) != rem[0]:
+            raise AssertionError(f"chase {keys[i]}: {refreshes[0]} "
+                                 f"refreshes, {r}, oracle {g[0]} {rem[0]}")
+    chase_s = time.perf_counter() - t
+    await stale.aclose()
+    say(f"MOVED chase: {CLUSTER_CHASE_KEYS:,} moved keys from a client at "
+        f"epoch 0, each one refresh and one re-route to node 3, in "
+        f"{chase_s:.2f} s; grants and remaining = the oracle")
+
+
+async def _cluster_controller(cluster, stores, servers, addrs, rng,
+                              say) -> None:
+    """Step 5: the controller ticked by hand: the hot split, the
+    retry-storm rung on every server, the dry-run twin, the surfaces."""
+    import types
+
+    from distributedratelimiting.redis_tpu_torch.models.approximate import (
+        headroom_budget,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import controller
+    from distributedratelimiting.redis_tpu_torch.utils import faults
+
+    cfg = controller.ControllerConfig(**CLUSTER_CTL)
+    ctl = controller.Controller(cluster, config=cfg, shed_targets=servers,
+                                flight_recorder=cluster.flight_recorder)
+    servers[0].controller = ctl
+    twin = controller.Controller(types.SimpleNamespace(), config=(
+        controller.ControllerConfig(**CLUSTER_CTL, dry_run=True)))
+    scrape = ctl.scrape
+    sensors = []
+
+    async def recorded():
+        s = await scrape()
+        sensors.append(s)
+        return s
+
+    ctl.scrape = recorded
+    live, dry = [], []
+
+    async def tick():
+        recs = await ctl.tick()
+        twin._tick = sensors[-1].tick
+        live.append([(r["action"], r["target"], r["reason"])
+                     for r in recs])
+        dry.append([(i["action"], i["target"], i["reason"])
+                    for i in twin.decide(sensors[-1])])
+        return recs
+
+    # The sketches' window starts with the controller's traffic (an
+    # operator's reset): the load's two-level rows weigh up to 8,192 tokens
+    # each, and split_hot_keys ranks by the sketch's totals.
+    for s in servers:
+        s.heavy_hitters.reset()
+    zkeys = [f"cz{i}" for i in range(CLUSTER_ZIPF_KEYS)]
+    hot = zkeys[0]
+    hot_draws = 0
+    split = None
+    t = time.perf_counter()
+    for n in range(10):
+        rows = (rng.zipf(ZIPF_S, CLUSTER_ZIPF_DRAWS) - 1) % CLUSTER_ZIPF_KEYS
+        res = await cluster.acquire_many([zkeys[i] for i in rows],
+                                         np.ones(len(rows), np.int64),
+                                         *CLUSTER_ZIPF_CAP,
+                                         with_remaining=False)
+        if res.granted_count != len(rows):
+            raise AssertionError("controller traffic: a draw was denied")
+        hot_draws += int((rows == 0).sum())
+        src = cluster.node_index_of(hot)
+        recs = await tick()
+        done = [r for r in recs if r["action"] == "split"
+                and r["outcome"] == "executed"]
+        if done:
+            split = (n + 1, done[0], src)
+            break
+    zipf_s = time.perf_counter() - t
+    if split is None:
+        raise AssertionError(f"controller: no split in 10 ticks {live}")
+    tick_n, rec, src = split
+    dst = cluster.node_index_of(hot)
+    if rec["split_keys"] != [hot] or dst == src or \
+            cluster.placement.overrides.get(hot) != dst:
+        raise AssertionError(f"controller split: {rec}, {src} -> {dst}")
+    cap = CLUSTER_ZIPF_CAP[0]
+    want = max(np.float32(0.0), np.float32(cap - hot_draws)
+               - np.float32(headroom_budget(cap, fraction=0.5,
+                                            min_budget=1.0)))
+    got = await asyncio.to_thread(stores[dst].peek_blocking, hot,
+                                  *CLUSTER_ZIPF_CAP)
+    if np.float32(got) != want:
+        raise AssertionError(f"controller split: {hot} holds {got} on node "
+                             f"{dst}, oracle {want}")
+    # The retry storm: retried reserves only, then calm plain traffic.
+    storm_ticks = calm_ticks = 0
+    armed_at = released_at = None
+    holds = []
+    while armed_at is None and storm_ticks < 6:
+        storm_ticks += 1
+        got = await asyncio.gather(*(cluster.reserve(
+            f"storm{storm_ticks}-{i}", f"cst{i % 8}", f"cst{i % 8}/k{i}", 1.0,
+            1e6, 10.0, 1000.0, 10.0, attempt=1, ttl_s=3600.0)
+            for i in range(CLUSTER_STORM)))
+        holds += [(f"storm{storm_ticks}-{i}", f"cst{i % 8}")
+                  for i, r in enumerate(got) if r.granted]
+        recs = await tick()
+        if any(r["action"] == "retry_shed_on" for r in recs):
+            armed_at = storm_ticks
+    gates = [(s.retry_shed_enabled, s.doomed_gate_enabled) for s in servers]
+    if armed_at != cfg.retry_storm_raise_ticks or gates != [(True,
+                                                             True)] * 4:
+        raise AssertionError(f"storm: armed at storm tick {armed_at}, "
+                             f"gates {gates}")
+    ckeys = [f"cz{i}" for i in range(1, CLUSTER_ZIPF_KEYS)]
+    while released_at is None and calm_ticks < 8:
+        calm_ticks += 1
+        rows = rng.integers(0, len(ckeys), CLUSTER_CALM)
+        await asyncio.gather(*(cluster.acquire(ckeys[i], 1,
+                                               *CLUSTER_ZIPF_CAP)
+                               for i in rows.tolist()))
+        recs = await tick()
+        if any(r["action"] == "retry_shed_off" for r in recs):
+            released_at = calm_ticks
+    if released_at != cfg.retry_storm_lower_ticks or any(
+            s.retry_shed_enabled or s.doomed_gate_enabled for s in servers):
+        raise AssertionError(f"storm: released at calm tick {released_at}")
+    for rid, tn in holds:
+        await cluster.settle(rid, tn, 1.0)
+    if live != dry or not any(live):
+        raise AssertionError(f"dry-run twin: {dry} != {live}")
+    # The surfaces: node 0's /metrics and OP_STATS, and an incident bundle
+    # carrying the controller's actions (a leak injected as the audit
+    # tests inject it).
+    status, _, body = await _obs_http(addrs[0][0], servers[0].metrics_port,
+                                      "/metrics")
+    text = body.decode()
+    if f"drl_controller_ticks_total {ctl.ticks}" not in text or \
+            'drl_controller_actions_total{action="split"' not in text:
+        raise AssertionError("controller: node 0's /metrics lacks the "
+                             "drl_controller_* families")
+    leak = next(f"cleak{i}" for i in range(1000)
+                if cluster.node_index_of(f"cleak{i}") == 0)
+    aud = servers[0].auditor
+    for _ in range(3):
+        aud.tick()
+    bundles0 = aud.bundles_assembled
+    faults.install(faults.FaultInjector(CLUSTER_SEED, {"audit.leak": (
+        faults.FaultRule(kind="error", probability=1.0),)}))
+    try:
+        for _ in range(10):
+            await cluster.acquire(leak, 50, 100.0, CLUSTER_RATE)
+    finally:
+        faults.uninstall()
+    for _ in range(7):
+        aud.tick()
+        if aud.bundles_assembled > bundles0:
+            break
+    bundle = aud.bundles[-1] if aud.bundles_assembled > bundles0 else {}
+    window = aud.cfg.action_window
+    if bundle.get("controller_actions") != list(ctl.actions)[-window:]:
+        raise AssertionError("controller: the incident bundle does not "
+                             "carry the controller's actions")
+    say(f"controller: {len(sensors)} ticks by hand; Zipf({ZIPF_S}) "
+        f"{CLUSTER_ZIPF_DRAWS:,} draws a tick over {CLUSTER_ZIPF_KEYS:,} "
+        f"keys ({zipf_s:.1f} s); split_hot_keys of {hot} at tick {tick_n} "
+        f"(node {src} -> {dst}, {hot_draws:,} draws; its balance on node "
+        f"{dst} = the oracle {want:.0f}); retry storm of {CLUSTER_STORM} "
+        f"retried reserves a tick armed retry-shed and doomed-work on all "
+        f"{len(servers)} servers at storm tick {armed_at}, released at calm "
+        f"tick {released_at}; the dry-run twin "
+        f"decided the same {sum(map(len, live))} intents; node 0's /metrics "
+        "carries drl_controller_*, its incident bundle the controller's "
+        f"{len(bundle['controller_actions'])} actions; actions "
+        + json.dumps(ctl.stats()["actions_total"]))
+
+
+async def cluster_path(torch, ck, pkg, card: str) -> dict:
+    """The cluster and its controller (phase 19): BASELINE config 2 made a
+    three-node fleet. Three ``BucketStoreServer``s, each over a card
+    ``DeviceBucketStore`` of 2^24 slots on one frozen ManualClock (the cut:
+    the nodes share one card), behind one port ``ClusterBucketStore``
+    with breakers on a manual clock, the degraded fallback and ``deny``
+    partial failures: the fan-out's load against host oracles, routed
+    single-key ops, node 1's outage and rejoin, the scale-out to a fourth
+    server with a stale client's MOVED chase, the controller ticked by
+    hand, and a sweep of every node. Returns the path's launches."""
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        placement as pl,
+    )
+    from distributedratelimiting.redis_tpu_torch.utils.flight_recorder import (
+        FlightRecorder,
+    )
+    from distributedratelimiting.redis_tpu_torch.utils.resilience import (
+        BreakerConfig,
+    )
+
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(CLUSTER_SEED)
+    ck.reset_launches()
+
+    def say(line: str) -> None:
+        print(f"cluster path ({card}) "
+              f"[{time.perf_counter() - t_path:.1f} s]: {line}", flush=True)
+
+    clock = pkg.ManualClock(1_000_000)
+    stores = [pkg.DeviceBucketStore(device="cuda", n_slots=N_SLOTS,
+                                    counter_slots=2**15, clock=clock)
+              for _ in range(4)]
+    servers = [pkg.BucketStoreServer(s, host="127.0.0.1", port=0,
+                                     metrics_port=0 if j == 0 else None)
+               for j, s in enumerate(stores)]
+    for s in servers:
+        # Handoff envelopes and windows on the frozen clock: an envelope
+        # refills nothing, so moved balances compare exactly.
+        s.placement = pl.NodePlacementState(clock=clock.now_seconds)
+    addrs = [await s.start() for s in servers]
+    remote_kw = dict(coalesce_requests=False, request_timeout_s=900.0,
+                     reconnect_backoff_max_s=0.5)
+    bclock = [0.0]
+    fr = FlightRecorder(1024)
+    cluster = pkg.ClusterBucketStore(
+        addresses=addrs[:3],
+        breaker=BreakerConfig(failure_threshold=CLUSTER_BREAKER[0],
+                              recovery_timeout_s=CLUSTER_BREAKER[1]),
+        breaker_clock=lambda: bclock[0], degraded_fallback=True,
+        partial_failures="deny", flight_recorder=fr,
+        handoff_window_s=900.0, **remote_kw)
+
+    def wire_solo(addr):
+        return pkg.RemoteBucketStore(address=addr, coalesce_requests=False,
+                                     request_timeout_s=900.0)
+
+    keys = [f"ck{i}" for i in range(CLUSTER_KEYS)]
+    oracle = _ClusterOracle(CLUSTER_KEYS, CLUSTER_CAP)
+    try:
+        # -- 1. the load through the fan-out; a single server's wire bulk
+        # beside it (node 3, before it joins, on keys of its own).
+        load = await _cluster_load(pkg, cluster, stores, rng, oracle, keys)
+        solo = wire_solo(addrs[3])
+        skeys = [f"cx{i}" for i in range(CLUSTER_CALL)]
+        t = time.perf_counter()
+        res = await solo.acquire_many(skeys, np.ones(len(skeys), np.int64),
+                                      CLUSTER_CAP, CLUSTER_RATE)
+        solo_s = time.perf_counter() - t
+        await solo.aclose()
+        if res.granted_count != len(skeys):
+            raise AssertionError("single-server bulk: a fresh key denied")
+        spread = np.bincount(cluster.placement.route(keys), minlength=3)
+        say(f"load: {CLUSTER_KEYS:,} bucket keys through the fan-out in "
+            f"{CLUSTER_KEYS // CLUSTER_CALL} acquire_many calls of "
+            f"{CLUSTER_CALL:,} rows (nodes {spread.tolist()}), "
+            f"{CLUSTER_KEYS / load['fan_s']:,.0f} rows/s, beside a single "
+            f"server's wire bulk of {CLUSTER_CALL:,} rows at "
+            f"{CLUSTER_CALL / solo_s:,.0f} rows/s; {CLUSTER_WINDOW_ROWS:,} "
+            f"window asks over {CLUSTER_WINDOW_KEYS:,} windows "
+            f"({load['window_denied']:,} denied) = the serial oracle; "
+            f"{CLUSTER_COUNTERS:,} counters and {CLUSTER_SEMAS:,} semaphores"
+            f" (2 held) in {load['ops_s']:.1f} s; {LLM_ROWS:,} two-level "
+            f"LLM rows in {load['hier_s']:.2f} s ({load['hier_denied']:,} "
+            f"denied, {load['hier_tokens']:,} tokens; each tenant <= "
+            f"{CLUSTER_LLM_BUDGETS[1]:.0f}) = the host's plain versions; "
+            f"{CLUSTER_PAIRS} reserve/settle pairs in {load['pairs_s']:.2f}"
+            " s; every grant and remaining = the host oracle")
+        # -- 2. routed single-key ops.
+        await _cluster_singles(cluster, addrs, rng, oracle, keys, wire_solo,
+                               say)
+        # -- 3. node 1's outage.
+        await _cluster_outage(pkg, cluster, stores, servers, addrs, rng,
+                              oracle, keys, bclock, fr, remote_kw, say)
+        # -- 4. the scale-out and the MOVED chase.
+        await _cluster_scale_out(torch, ck, pkg, cluster, stores, addrs,
+                                 rng, oracle, keys, remote_kw, say)
+        # -- 5. the controller.
+        await _cluster_controller(cluster, stores, servers, addrs, rng, say)
+        # -- 6. a sweep of every node, two days on.
+        live = []
+        for s in stores:
+            sema = 0
+            if s._sema_state is not None:
+                active = s._semas.active.cpu().numpy()
+                sema = sum(1 for slot in s._sema_dir.to_dict().values()
+                           if active[slot] <= 0)
+            live.append(sum(len(t.dir) for t in (*s._tables.values(),
+                                                 *s._wtables.values()))
+                        + len(s._counter_dir) + sema)
+        clock.advance_seconds(2 * 86_400.0)
+        evicted = []
+        t = time.perf_counter()
+        for s in stores:
+            e0 = s.metrics.slots_evicted
+            s.sweep_all()
+            evicted.append(s.metrics.slots_evicted - e0)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t
+        if evicted != live:
+            raise AssertionError(f"cluster sweep: evicted {evicted}, live "
+                                 f"{live}")
+        say(f"sweep two days on: every node evicted exactly its expired "
+            f"slots {evicted} in {sweep_s:.2f} s")
+    finally:
+        await cluster.aclose()
+        for s in servers:
+            await s.aclose()
+        for s in stores:
+            await s.aclose()
+    torch.cuda.synchronize()
+    counts_out = dict(ck.launches)
+    print(f"cluster path ({card}): {time.perf_counter() - t_path:.1f} s "
+          "of wall")
+    torch.cuda.empty_cache()
+    return counts_out
+
+
 SIZED_KERNELS = {"acquire_packed": "acquire_packed",
                  "acquire_grouped": "acquire_grouped",
                  "window_packed": "window_packed",
@@ -9503,7 +10383,7 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
 
 
 def _paths() -> tuple:
-    """The paths of phases 3–10 and 12–18, in the order :func:`main`
+    """The paths of phases 3–10 and 12–19, in the order :func:`main`
     runs them."""
     return (("exact", main_path), ("approximate", approximate_path),
             ("window", window_path), ("admission", admission_path),
@@ -9513,7 +10393,129 @@ def _paths() -> tuple:
             ("server", server_path), ("bench", bench_path),
             ("native", native_path), ("fp", fp_path), ("mesh", mesh_path),
             ("placement", placement_path), ("config", config_path),
-            ("drain", drain_path))
+            ("drain", drain_path), ("cluster", cluster_path))
+
+
+#: The paths :func:`main` runs in a second process (the side lane) while
+#: its own process runs :data:`BESIDE_SIDE_LANE`; the exact path runs
+#: before them (its device trace in a young process, ROADMAP C1) and the
+#: rest of :func:`_paths` after the side lane has ended, alone. The side
+#: lane's checks are state checks on its own stores; the paths measured
+#: against earlier PRs' rates (the exact, server, bench, native and
+#: observability paths) and the drain's timed window run alone.
+SIDE_LANE = ("fp", "mesh", "checkpoint")
+BESIDE_SIDE_LANE = ("placement", "config", "cluster", "reservation",
+                    "admission", "approximate", "window")
+#: Set in the side lane's process: the parent ran the fp and mesh kernel
+#: cases, so the fp and mesh paths do not run them again.
+_KERNEL_CASES_RAN = False
+
+
+def _run_paths(torch, ck, pkg, card: str, names, sizes: dict) -> tuple:
+    """Run the named paths of :func:`_paths` in order: ``(launches by
+    path, launches by width by path, wall seconds by path)``."""
+    paths = dict(_paths())
+    by_path, sizes_by_path, walls = {}, {}, {}
+    for name in names:
+        t = time.perf_counter()
+        before = {k: dict(v) for k, v in sizes.items()}
+        by_path[name] = asyncio.run(paths[name](torch, ck, pkg, card))
+        sizes_by_path[name] = _sizes_since(sizes, before)
+        walls[name] = time.perf_counter() - t
+    return by_path, sizes_by_path, walls
+
+
+def _run_all_paths(torch, ck, pkg, card: str, sizes: dict) -> tuple:
+    """Every path of :func:`_paths`: the exact path first; then the side
+    lane in a process of its own beside :data:`BESIDE_SIDE_LANE` in this
+    one; the rest after it, alone. Returns ``(launches by path, launches
+    by width by path, wall seconds by path, the lanes' wall)``, the first
+    and third in :func:`_paths` order; ``sizes`` gains the side lane's
+    widths."""
+    by_path, sizes_by_path, walls = _run_paths(torch, ck, pkg, card,
+                                               ["exact"], sizes)
+    t = time.perf_counter()
+    lane = _SideLane(SIDE_LANE)
+    try:
+        beside = _run_paths(torch, ck, pkg, card, BESIDE_SIDE_LANE, sizes)
+        side = lane.finish()
+    finally:
+        lane.stop()
+    lane_s = time.perf_counter() - t
+    rest = [n for n, _ in _paths() if n not in SIDE_LANE
+            and n not in BESIDE_SIDE_LANE and n != "exact"]
+    for more in (beside, _run_paths(torch, ck, pkg, card, rest, sizes)):
+        for got, extra in zip((by_path, sizes_by_path, walls), more):
+            got.update(extra)
+    by_path.update(side["by_path"])
+    walls.update(side["walls"])
+    for name, counts in side["sizes"].items():
+        mine = sizes.setdefault(name, {})
+        for b, c in counts.items():
+            mine[int(b)] = mine.get(int(b), 0) + c
+    order = [n for n, _ in _paths()]
+    return ({n: by_path[n] for n in order}, sizes_by_path,
+            {n: walls[n] for n in order}, lane_s)
+
+
+def side_lane(names: list) -> int:
+    """``python3 chip_smoke.py --lane NAME[,NAME...]``: :func:`main`'s side
+    lane. Runs the named paths in this process, as :func:`main` would, and
+    prints their lines and then one ``LANE {json}`` line with their
+    launches, launch widths and walls."""
+    import torch
+
+    global _KERNEL_CASES_RAN
+    _KERNEL_CASES_RAN = True
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import distributedratelimiting.redis_tpu_torch as pkg
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+
+    card = _card_line()
+    ck.build()
+    sizes: dict = {}
+    _record_sizes(ck, sizes)
+    by_path, sizes_by_path, walls = _run_paths(torch, ck, pkg, card, names,
+                                               sizes)
+    print("LANE " + json.dumps({"by_path": by_path, "sizes": sizes,
+                                "walls": walls}), flush=True)
+    return 0
+
+
+class _SideLane:
+    """The side lane's process: its stdout lines echoed as they come, its
+    ``LANE`` line kept."""
+
+    def __init__(self, names) -> None:
+        import threading
+
+        self.result = None
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--lane",
+             ",".join(names)], stdout=subprocess.PIPE, text=True)
+        self._pump = threading.Thread(target=self._read, daemon=True)
+        self._pump.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.startswith("LANE "):
+                self.result = json.loads(line[5:])
+            else:
+                print(line, end="", flush=True)
+
+    def finish(self) -> dict:
+        """Wait for the lane; its result, or an error if it failed."""
+        rc = self.proc.wait()
+        self._pump.join()
+        if rc != 0 or self.result is None:
+            raise AssertionError(f"the side lane {SIDE_LANE} failed "
+                                 f"(exit {rc})")
+        return self.result
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 def paths_only(names: list) -> int:
@@ -9584,14 +10586,10 @@ def main() -> int:
     # it must have launched on the path it serves.
     sizes: dict = {}
     _record_sizes(ck, sizes)
-    by_path = {}
-    sizes_by_path = {}
-    for name, path in _paths():
-        t = time.perf_counter()
-        before = {k: dict(v) for k, v in sizes.items()}
-        by_path[name] = asyncio.run(path(torch, ck, pkg, card))
-        sizes_by_path[name] = _sizes_since(sizes, before)
-        phases[name] = time.perf_counter() - t
+    by_path, sizes_by_path, walls, lane_s = _run_all_paths(torch, ck, pkg,
+                                                           card, sizes)
+    phases["side lane " + "+".join(SIDE_LANE)] = lane_s
+    phases.update(walls)
     # The fp and mesh kernel cases (run before any path's counts were reset).
     res.update(FP_RESULTS)
     res.update(MESH_RESULTS)
@@ -9675,7 +10673,18 @@ def main() -> int:
                    # and holds, the asks through the successor.
                    "drain": ("debit_packed", "window_packed",
                              "sync_counters", "sema_packed", "acquire_scan",
-                             "acquire_hierarchical")}
+                             "acquire_hierarchical"),
+                   # The cluster: the fan-out's bulk calls (scans), the
+                   # routed single ops and the rejoin debit (flushes), the
+                   # window asks (repeated keys: grouped flushes) and the
+                   # import's window replays, counters, semaphores and
+                   # two-level rows, the scale-out's import and the settles
+                   # (the debit), the final sweep.
+                   "cluster": ("acquire_scan", "acquire_packed",
+                               "window_grouped", "window_packed",
+                               "sync_counters", "sema_packed",
+                               "acquire_hierarchical", "debit_packed",
+                               "sweep_expired")}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
@@ -9850,6 +10859,8 @@ if __name__ == "__main__":
         sys.exit(sync_bench())
     if sys.argv[1:2] == ["--window-traffic"]:
         sys.exit(window_traffic())
+    if sys.argv[1:2] == ["--lane"] and len(sys.argv) == 3:
+        sys.exit(side_lane(sys.argv[2].split(",")))
     if sys.argv[1:2] == ["--paths"] and len(sys.argv) == 3:
         sys.exit(paths_only(sys.argv[2].split(",")))
     sys.exit(main())

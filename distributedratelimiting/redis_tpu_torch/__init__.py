@@ -20,9 +20,13 @@ the card instead (64-bit key fingerprints found or claimed in the kernel);
 of shards with a two-level global tier (``parallel/``). A
 ``BucketStoreServer`` serves such a store over TCP, byte-compatible with
 the JAX package's server, and ``RemoteBucketStore`` is its client: limiters
-on other hosts share one card through it. ``InProcessBucketStore`` is the
-serial pure-Python store with the same semantics (the differential oracle
-and the kernel-free serving backing), used only where a caller names it.
+on other hosts share one card through it. ``ClusterBucketStore`` shards
+keys over N such servers through an epoch-versioned placement map, with
+per-node breakers, a degraded fallback and live migration, and
+``runtime.controller.Controller`` reconciles such a cluster on a tick.
+``InProcessBucketStore`` is the serial pure-Python store with the same
+semantics (the differential oracle and the kernel-free serving backing),
+used only where a caller names it.
 Module and
 class names follow the JAX package so each counterpart is easy to find.
 This package imports PyTorch and numpy only.
@@ -68,6 +72,9 @@ from distributedratelimiting.redis_tpu_torch.models.sliding_window import (
 )
 from distributedratelimiting.redis_tpu_torch.models.token_bucket import (
     TokenBucketRateLimiter,
+)
+from distributedratelimiting.redis_tpu_torch.runtime.cluster import (
+    ClusterBucketStore,
 )
 from distributedratelimiting.redis_tpu_torch.runtime.clock import (
     TICKS_PER_SECOND,
@@ -133,6 +140,7 @@ __all__ = [
     "SyncResult",
     "BucketStore",
     "BucketStoreServer",
+    "ClusterBucketStore",
     "DeviceBucketStore",
     "FingerprintBucketStore",
     "InProcessBucketStore",

@@ -343,8 +343,8 @@ class ConservationAuditor:
         ids = self._exemplar_trace_ids()
         kept = {t.get("trace_id"): t for t in srv.tracer.traces()}
         traces = [kept[i] for i in ids if i in kept][:self.cfg.trace_window]
-        # No autonomous controller in the port yet (Queue A 10).
-        actions: list = []
+        actions = (list(srv.controller.actions)[-self.cfg.action_window:]
+                   if srv.controller is not None else [])
         bundle = {
             # Counter-derived id: no wall clock, no randomness — the
             # seeded-soak determinism contract.

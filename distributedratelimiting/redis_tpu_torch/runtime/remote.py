@@ -62,8 +62,10 @@ learns the rule and re-sends once with the new operands (the server
 answered without touching the store, so the re-send is not a replay);
 ``config_fetch()`` and ``config_announce()`` are a coordinator's calls.
 
-Not ported yet: the chase of a ``placement moved`` error (the cluster's,
-ROADMAP A 10: it surfaces as :class:`wire.RemoteStoreError`) and the
+A ``placement moved`` error surfaces here as :class:`wire.RemoteStoreError`:
+its chase lives in the cluster, as in JAX (:mod:`~.cluster`:
+``ClusterBucketStore._routed``, ``peek_blocking``, the submitter and the
+bulk fan-out refetch the map and re-route once). Not ported yet: the
 federation methods, which raise ``NotImplementedError``.
 """
 

@@ -264,7 +264,7 @@ class BucketStoreServer:
         # server's own queueing.
         self.requests_shed = 0
         # Goodput under overload: the two gates are DISARMED by default
-        # (an operator, or the controller once it is ported, arms them);
+        # (an operator, or the controller's retry-storm rung, arms them);
         # a healthy server's serving path is the ungated one.
         #: Requests denied by the doomed-work gate: their propagated
         #: deadline cannot be met given the current p99 serving latency.
@@ -340,6 +340,11 @@ class BucketStoreServer:
         self._drain_successor = None
         self._drain_deadline = 0.0
         self._shutdown_done = False
+        #: Autonomous control plane, when this process hosts one (the
+        #: ``--controller`` CLI or an embedder assigns it): its audit
+        #: surface rides OP_STATS, /flight (shared flight recorder), and
+        #: the drl_controller_* families.
+        self.controller = None
         # Tracing rides the process-global tracer: True enables it with
         # defaults, a dict passes knobs through, None leaves it as is.
         if tracing_config is not None:
@@ -563,8 +568,7 @@ class BucketStoreServer:
     def _build_registry(self) -> MetricsRegistry:
         """The JAX server's families, in its order and with its names and
         help text, less the ones over state the port has not got (ROADMAP
-        Queue A): federation and the controller. They are left out, not
-        rendered as zeros."""
+        Queue A): federation. They are left out, not rendered as zeros."""
         reg = MetricsRegistry()
         reg.counter("connections_served", "Accepted TCP connections",
                     lambda: (self._native.counts()[1]
@@ -759,6 +763,20 @@ class BucketStoreServer:
                      if self.tracer.enabled else None),
             counters={"spans_recorded", "traces_kept", "traces_dropped",
                       "traces_evicted"})
+        # Autonomous control plane (read dynamically: the CLI attaches the
+        # controller after start(), which may be after the first scrape
+        # built this registry — a None controller renders nothing).
+        reg.register_numeric_dict(
+            "controller", "autonomous control plane",
+            lambda: (self.controller.numeric_stats()
+                     if self.controller is not None else None),
+            counters={"ticks", "tick_failures", "actions_recorded",
+                      "actuation_errors"})
+        reg.labeled_counters(
+            "controller_actions",
+            "Controller decisions by action and outcome",
+            lambda: (self.controller.action_series()
+                     if self.controller is not None else []))
         # Conservation audit plane: drl_audit_overadmitted_tokens is the
         # SLI numerator utils/slo.py's SLO_SERIES names.
         reg.register_numeric_dict(
@@ -1992,6 +2010,8 @@ class BucketStoreServer:
             payload["flight_recorder"] = self.flight_recorder.snapshot()
         if self.tracer.enabled:
             payload["tracing"] = self.tracer.snapshot()
+        if self.controller is not None:
+            payload["controller"] = self.controller.stats()
         if self.auditor is not None:
             payload["audit"] = self.auditor.snapshot()
         return json.dumps(payload)
@@ -2198,6 +2218,35 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--trace-buffer", type=int, default=256,
                         help="bounded in-memory kept-trace buffer (oldest "
                         "evicted first)")
+    parser.add_argument("--controller", default=None,
+                        metavar="HOST:PORT[,HOST:PORT...]",
+                        help="arm the autonomous control plane: run the "
+                        "reconciliation loop (runtime/controller.py) "
+                        "inside this server process over the given fleet "
+                        "(comma-separated store addresses — include this "
+                        "node's own to reconcile it). The controller "
+                        "scrapes the fleet's OP_STATS plane every tick, "
+                        "derives rates from counter deltas (never "
+                        "reset=True), and splits hot-cost keys, "
+                        "rebalances, drains/rejoins breaker-dead nodes, "
+                        "and steps the shed ladder; every action is a "
+                        "flight-recorder frame and drl_controller_* "
+                        "series")
+    parser.add_argument("--controller-tick-ms", type=float, default=500.0,
+                        help="controller reconciliation cadence")
+    parser.add_argument("--controller-dry-run", action="store_true",
+                        help="controller decides and logs intended "
+                        "actions without executing them")
+    parser.add_argument("--controller-token-rate", type=float,
+                        default=None,
+                        help="sustainable fleet admitted-tokens/sec for "
+                        "the controller's shed ladder (unset disarms the "
+                        "shed actuator; membership/split actuators stay "
+                        "armed). Shed actuation needs admission gateways "
+                        "(AdmissionPolicy shed_targets), which live "
+                        "client-side: a server-embedded controller "
+                        "records shed decisions as outcome=noop and "
+                        "exports the decided level for gateways to poll")
     args = parser.parse_args(argv)
     if args.fe_tier0 and not args.native_frontend:
         parser.error("--fe-tier0 requires --native-frontend (the tier-0 "
@@ -2213,6 +2262,14 @@ def main(argv: list[str] | None = None) -> None:
     if args.snapshot_incremental and not args.snapshot_path:
         parser.error("--snapshot-incremental requires --snapshot-path "
                      "(there is no chain without a base file)")
+    if (args.controller_dry_run or args.controller_token_rate
+            is not None) and not args.controller:
+        parser.error("--controller-dry-run/--controller-token-rate "
+                     "require --controller (there is no loop to "
+                     "configure)")
+    if args.controller_token_rate is not None \
+            and args.controller_token_rate <= 0:
+        parser.error("--controller-token-rate must be positive")
 
     async def serve() -> None:
         import signal
@@ -2313,6 +2370,35 @@ def main(argv: list[str] | None = None) -> None:
             print(f"metrics exposition on "
                   f"http://{host}:{server.metrics_port}/metrics",
                   flush=True)
+        controller_task = None
+        controller_cluster = None
+        if args.controller:
+            from distributedratelimiting.redis_tpu_torch.runtime.cluster import (  # noqa: E501
+                ClusterBucketStore,
+            )
+            from distributedratelimiting.redis_tpu_torch.runtime.controller import (  # noqa: E501
+                Controller,
+                ControllerConfig,
+            )
+
+            urls = [u.strip() for u in args.controller.split(",")
+                    if u.strip()]
+            controller_cluster = ClusterBucketStore(
+                urls=urls, breaker=True, auth_token=args.auth_token,
+                flight_recorder=server.flight_recorder)
+            server.controller = Controller(
+                controller_cluster,
+                config=ControllerConfig(
+                    tick_s=args.controller_tick_ms / 1e3,
+                    dry_run=args.controller_dry_run,
+                    token_rate_capacity=args.controller_token_rate),
+                flight_recorder=server.flight_recorder)
+            controller_task = asyncio.ensure_future(
+                server.controller.run())
+            print(f"controller reconciling {len(urls)} node(s) every "
+                  f"{args.controller_tick_ms:g} ms"
+                  + (" [dry-run]" if args.controller_dry_run else ""),
+                  flush=True)
         term = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -2342,6 +2428,13 @@ def main(argv: list[str] | None = None) -> None:
                       flush=True)
             print(f"shutdown complete: {summary}", flush=True)
         finally:
+            if controller_task is not None:
+                server.controller.stop()
+                controller_task.cancel()
+                await asyncio.gather(controller_task,
+                                     return_exceptions=True)
+            if controller_cluster is not None:
+                await controller_cluster.aclose()
             await server.aclose()  # a no-op after the shutdown's close
             await store.aclose()
 

@@ -74,7 +74,7 @@ torch.set_num_threads(1)
 ATOL = 1e-4
 LIMIT_S = 20.0
 #: Names of the JAX package's exports whose modules are not ported yet.
-UNPORTED_EXPORTS = {"ClusterBucketStore"}
+UNPORTED_EXPORTS: set = set()
 
 
 def w(coro):

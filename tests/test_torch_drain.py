@@ -25,8 +25,8 @@ port pair over ``DeviceBucketStore(device="cpu")`` and over the port's
 - The JAX scenarios that drain: the LLM soak's drain phase
   (``tests/test_llm_admission.py:421-445``), the reservation streaming
   soak (``tests/test_reservations.py:820``) and ``TestRollingRestartSoak``
-  (``tests/test_upgrade.py:665-678``) with JAX's ``ClusterBucketStore``
-  coordinating port servers.
+  (``tests/test_upgrade.py:665-678``) with JAX's or the port's
+  ``ClusterBucketStore`` coordinating port servers.
 
 The envelope refills on its own clock (``time.monotonic``), so where grants
 and ``remaining`` are compared the scenarios freeze it (``_frozen_envelope``)
@@ -70,7 +70,7 @@ from distributedratelimiting.redis_tpu.runtime.clock import (
     ManualClock as JClock,
 )
 from distributedratelimiting.redis_tpu.runtime.cluster import (
-    ClusterBucketStore,
+    ClusterBucketStore as JCluster,
 )
 from distributedratelimiting.redis_tpu.runtime.remote import (
     RemoteBucketStore as JRemote,
@@ -87,10 +87,12 @@ from distributedratelimiting.redis_tpu.runtime.store import (
 from distributedratelimiting.redis_tpu.utils import faults as jfaults
 from distributedratelimiting.redis_tpu_torch import (
     BucketStoreServer,
+    ClusterBucketStore,
     DeviceBucketStore,
     InProcessBucketStore,
     ManualClock,
     RemoteBucketStore,
+    StoreTimeoutError,
 )
 from distributedratelimiting.redis_tpu_torch.models.approximate import (
     headroom_budget,
@@ -1216,29 +1218,37 @@ class _RecordingSerial(InProcessBucketStore):
         return res
 
 
-def test_rolling_restart_soak_over_port_servers():
-    """JAX ``TestRollingRestartSoak``, its nodes port servers under JAX's
-    ``ClusterBucketStore``: every node drains to a successor process one at
-    a time under wire chaos and live traffic, a limit mutates mid-roll;
-    no unique-key acquire is admitted twice over the stores' own records,
-    the hot key stays within its cap plus one envelope a restart."""
+@pytest.mark.parametrize("coordinator", ["jax", "port"])
+def test_rolling_restart_soak_over_port_servers(coordinator):
+    """JAX ``TestRollingRestartSoak``, its nodes port servers under either
+    package's ``ClusterBucketStore``: every node drains to a successor
+    process one at a time under wire chaos and live traffic, a limit
+    mutates mid-roll; no unique-key acquire is admitted twice over the
+    stores' own records, the hot key stays within its cap plus one
+    envelope a restart. The coordinator's package owns the client seams,
+    so its injector's realized schedule is the one held to its preview."""
     seed = 20260803
-    rules = _chaos_rules(JAX)
+    pk = JAX if coordinator == "jax" else PORT
+    Cluster = JCluster if coordinator == "jax" else ClusterBucketStore
+    rules = _chaos_rules(pk)
 
     async def main():
-        inj = jfaults.FaultInjector(seed, rules)
-        jfaults.install(inj)
-        pfaults.install(pfaults.FaultInjector(seed, _chaos_rules(PORT)))
+        jinj = jfaults.FaultInjector(seed, _chaos_rules(JAX))
+        pinj = pfaults.FaultInjector(seed, _chaos_rules(PORT))
+        jfaults.install(jinj)
+        pfaults.install(pinj)
+        inj = jinj if coordinator == "jax" else pinj
         cap_hot, new_cap = 40.0, 24.0
         generations = [[_RecordingSerial()] for _ in range(3)]
         servers = [BucketStoreServer(g[0]) for g in generations]
         for s in servers:
             await s.start()
-        cluster = ClusterBucketStore(
+        cluster = Cluster(
             addresses=[(s.host, s.port) for s in servers],
             coalesce_requests=False, request_timeout_s=1.0,
             reconnect_backoff_base_s=0.004, resilience_seed=seed)
-        net = (ConnectionError, OSError, JTimeout, jwire.RemoteStoreError)
+        net = (ConnectionError, OSError, JTimeout, jwire.RemoteStoreError,
+               StoreTimeoutError, pw.RemoteStoreError)
         tally = {"hot": 0, "cold_ok": 0, "cold_n": 0, "shipped": 0}
         stop = asyncio.Event()
 

@@ -6,8 +6,8 @@ ported state, each on the port's serial store and on its card store run on
 the CPU (``DeviceBucketStore(device="cpu")``, the kernels' plain versions),
 through the unmodified port client, the live-config gate on the batch
 lane included (a retired config's rows answer "config moved" byte for
-byte as the port's asyncio lane and the JAX package's native lane do).
-Left out: the cluster over native servers (ROADMAP A 10). Added: the loader's
+byte as the port's asyncio lane and the JAX package's native lane do),
+and the port's cluster over native servers. Added: the loader's
 content-hashed build, a failed build raising, the modules importing with
 no JAX, the two packages' library copies keeping separate state, knobs and
 CLI checks, and a seeded differential against the JAX package's native
@@ -561,6 +561,47 @@ def test_loadgen_rejects_unknown_op():
 
     with pytest.raises(ValueError, match="unknown loadgen op"):
         native_loadgen("127.0.0.1", 1, op="nope")
+
+
+@pytest.mark.parametrize("backing", BACKINGS)
+def test_cluster_over_native_servers(backing):
+    """JAX ``test_cluster_over_native_servers`` on the port: a
+    ``ClusterBucketStore`` sharding keys across two native-fronted servers
+    — bulk split/merge rides the passthrough lane, per-key capacity is
+    sticky to its owning node, and stats fan out per node."""
+    from distributedratelimiting.redis_tpu_torch.runtime.cluster import (
+        ClusterBucketStore,
+    )
+
+    async def body():
+        servers = [BucketStoreServer(_store(backing), native_frontend=True)
+                   for _ in range(2)]
+        for s in servers:
+            await s.start()
+        cluster = ClusterBucketStore(
+            addresses=[(s.host, s.port) for s in servers])
+        try:
+            keys = [f"ck{i}" for i in range(200)]
+            res = await cluster.acquire_many(keys, [1] * 200, 3.0, 1e-9)
+            assert res.granted.all()
+            # Capacity is sticky per key regardless of which node owns it.
+            res2 = await cluster.acquire_many(keys * 2, [2] * 400, 3.0,
+                                              1e-9)
+            g = np.asarray(res2.granted)
+            assert int(g.sum()) == 200  # each key grants once more (1+2=3)
+            st = await cluster.stats()
+            assert len(st["nodes"]) == 2
+            assert all(n.get("native_frontend") for n in st["nodes"])
+            # Both nodes took a share of the keys.
+            routes = cluster.placement.route(keys)
+            assert set(routes.tolist()) == {0, 1}
+        finally:
+            await cluster.aclose()
+            for s in servers:
+                await s.aclose()
+                await s.store.aclose()
+
+    run(body())
 
 
 @pytest.mark.parametrize("backing", BACKINGS)

@@ -529,8 +529,7 @@ def test_served_trace_metrics_match_jax(backing):
     left_out = {f for f in jax_families - mine_families}
     assert left_out <= {
         "drl_store_pallas_sweep_failures",
-        "drl_federation_slice_share",
-        "drl_controller_actions", "drl_flight_frames",
+        "drl_federation_slice_share", "drl_flight_frames",
         "drl_flight_frames_recorded", "drl_flight_dumps_written",
         "drl_flight_dumps_suppressed"}, left_out
 

@@ -7,8 +7,9 @@ against the JAX package's, on the CPU.
   envelope and deferral, ``OP_STATS``' ``placement`` section and the
   ``drl_placement_*`` families of ``OP_METRICS`` alike (placement clocks
   injected and frozen, so envelopes compare exactly).
-- **A JAX coordinator.** JAX's ``ClusterBucketStore(addresses=...)``
-  coordinates three port servers, beside the same coordinator over three
+- **A coordinator of either package.** JAX's or the port's
+  ``ClusterBucketStore(addresses=...)`` coordinates three port servers,
+  beside the same coordinator over three
   JAX servers, on one seeded trace: a join (``add_node``), a drain aborted
   by a fault on the servers' ``server.migrate`` seam and retried. Epochs,
   every key's balance and the admitted totals are equal.
@@ -37,8 +38,10 @@ from distributedratelimiting.redis_tpu.runtime.clock import (
     ManualClock as JClock,
 )
 from distributedratelimiting.redis_tpu.runtime.cluster import (
-    ClusterBucketStore,
-    PlacementError,
+    ClusterBucketStore as JCluster,
+)
+from distributedratelimiting.redis_tpu.runtime.cluster import (
+    PlacementError as JPlacementError,
 )
 from distributedratelimiting.redis_tpu.runtime.remote import (
     RemoteBucketStore as JRemote,
@@ -55,6 +58,7 @@ from distributedratelimiting.redis_tpu.runtime.store import (
 from distributedratelimiting.redis_tpu.utils import faults as jfaults
 from distributedratelimiting.redis_tpu_torch import (
     BucketStoreServer,
+    ClusterBucketStore,
     DeviceBucketStore,
     InProcessBucketStore,
     ManualClock,
@@ -65,6 +69,9 @@ from distributedratelimiting.redis_tpu_torch.models.approximate import (
 )
 from distributedratelimiting.redis_tpu_torch.runtime import placement as ppl
 from distributedratelimiting.redis_tpu_torch.runtime import wire as pw
+from distributedratelimiting.redis_tpu_torch.runtime.cluster import (
+    PlacementError,
+)
 from distributedratelimiting.redis_tpu_torch.utils import faults as pfaults
 
 torch.set_num_threads(1)
@@ -202,7 +209,8 @@ def test_four_pairings_answer_alike(backing):
 
 # -- a JAX coordinator over port servers ---------------------------------------
 
-async def _cluster(kind: str, backing: str, seed: int) -> dict:
+async def _cluster(kind: str, backing: str, seed: int,
+                   coordinator: str = "jax") -> dict:
     rng = np.random.default_rng(seed)
     clock = (ManualClock if kind == "port" else JClock)(START)
     stores = [_store(kind, backing, clock) for _ in range(3)]
@@ -210,9 +218,11 @@ async def _cluster(kind: str, backing: str, seed: int) -> dict:
     for s in servers:
         await s.start()
     addrs = [(s.host, s.port) for s in servers]
-    cluster = ClusterBucketStore(addresses=addrs[:2], coalesce_requests=False,
-                                 request_timeout_s=10.0, retry_policy=None,
-                                 handoff_window_s=60.0)
+    Cluster, Error = ((JCluster, JPlacementError) if coordinator == "jax"
+                      else (ClusterBucketStore, PlacementError))
+    cluster = Cluster(addresses=addrs[:2], coalesce_requests=False,
+                      request_timeout_s=10.0, retry_policy=None,
+                      handoff_window_s=60.0)
     faults = pfaults if kind == "port" else jfaults
     keys = [f"c{i}" for i in range(80)]
     out = {"admitted": 0}
@@ -232,7 +242,7 @@ async def _cluster(kind: str, backing: str, seed: int) -> dict:
             "server.migrate": (faults.FaultRule("error", after=2,
                                                 probability=1.0),)}))
         try:
-            with pytest.raises(PlacementError):
+            with pytest.raises(Error):
                 await cluster.drain_node(1)
         finally:
             faults.uninstall()
@@ -257,9 +267,15 @@ async def _cluster(kind: str, backing: str, seed: int) -> dict:
     return out
 
 
+@pytest.mark.parametrize("coordinator", ["jax", "port"])
 @pytest.mark.parametrize("backing", ["serial", "device"])
-def test_jax_coordinator_over_port_servers(backing):
-    got = {kind: run(_cluster(kind, backing, 5)) for kind in ("port", "jax")}
+def test_jax_coordinator_over_port_servers(backing, coordinator):
+    """Either package's coordinator over port servers and over JAX
+    servers; every run equals JAX's coordinator over JAX servers."""
+    got = {kind: run(_cluster(kind, backing, 5, coordinator))
+           for kind in ("port", "jax")}
+    if coordinator == "port":
+        assert got["jax"] == run(_cluster("jax", backing, 5, "jax"))
     assert got["port"] == got["jax"]
     port = got["port"]
     assert port["join"] == 2 and port["abort_epoch"] == 1
