@@ -180,7 +180,7 @@ Phases (any failure raises, and the script exits non-zero):
    (``(+2 deltas)``); the bench's ``nproc``, ``serving_p99_colocated`` and
    ``serving_p99_instant`` sections once each with short windows (no key
    null). ``python3 chip_smoke.py --paths checkpoint`` runs this path
-   alone (``--paths`` takes any of the paths of phases 3–10 and 12–19,
+   alone (``--paths`` takes any of the paths of phases 3–10 and 12–20,
    comma-separated).
 9. The observability and overload plane (``--paths observability``), at
    the server cell's size: ``BucketStoreServer(observability=True,
@@ -457,8 +457,55 @@ Phases (any failure raises, and the script exits non-zero):
    same intents; node 0's ``/metrics`` carries ``drl_controller_*`` and its
    incident bundle the controller's actions. Two days on, ``sweep_all``
    evicts exactly every node's expired slots.
-20. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
-   of phases 3–10 and 12–19 (``launches_by_path``; counts set to 0 before each
+20. Global quota federation (``--paths federation``;
+   ``runtime/federation.py``, the server's ``OP_FED_*``, the client's
+   ``fed_lease`` / ``fed_renew`` / ``fed_reclaim``; JAX's 3-region soak,
+   ``tests/test_federation.py:596-900``, on the card): first one slice
+   commit on a card store of 2^24 slots a table (one tenant key), timed.
+   Then a home ``BucketStoreServer`` over a card ``DeviceBucketStore`` with
+   ``federation_ledger(default_ttl_s=6.0)`` and a ``SnapshotChain``; regions
+   r0 and r2 single servers over card stores (slices apply through
+   ``config_announce``), r1 a two-server ``ClusterBucketStore`` (through
+   ``mutate_config``); every store on one frozen ManualClock, its tables
+   2^12 slots to start (a card store keeps one table per config, and every
+   tenant budget, slice and envelope is one: 2^24 a table would put 37 GB
+   on the home alone). 64 global tenants (cut from 256: a slice commit
+   snapshots every table of its region; ``FED_TENANTS=N`` sets another
+   count), cap 60 + i and rate (100 + i) x 1e-4, so that the slices, r2's
+   envelope and the global bound deny asks, as JAX's 600-token soak
+   budget does under the same ask counts. 26 rounds on manual
+   monotonic lease clocks, a second a round, TTL 6 s, renew fraction 0.5:
+   each region's agent ticks (lease, renew, degrade), then 0-4 seeded unit
+   asks a region and tenant go out at once under the first slice's
+   operands (later slices are chased). r0 heats up at round 4; the soak's
+   chaos on the federation seams; r2 fully partitioned from round 8 to 20;
+   the home crashes at round 14 and restarts from its chain (the load's
+   seconds; ``restores`` 1, no lease's term longer, a WAN retry of every
+   r0 lease answers duplicate). A ``Controller`` with ``federation=`` r0's
+   agent, ticked by hand 6 times: the actuator at every third tick (and
+   on the degraded rung), a dry-run twin deciding the same intents. The
+   stall: r0 loaded with 1,000,000 bucket keys, one tenant's resize forced
+   through a renew: the commit's seconds, the store lock's longest hold,
+   the longest ask round of another tenant meanwhile. Every region
+   reclaims. Checks: no slice application raised, and every lease not
+   degraded serves its slice; every home reply equal to a host replay (a
+   port ``FederationLedger`` over an ``InProcessBucketStore`` fed the same
+   requests at the same clock readings; ids, epochs and flags exact,
+   tokens within 1e-6 relative), and the home card store's global buckets
+   equal to the replay store's, each tenant's spend plus debt equal to
+   its admits (one float32 spacing of the cap a debit); every grant and
+   every tenant balance in every table equal to a float32 oracle of the
+   region's applied config history; some asks denied, in r2's partition
+   too; Σ admits a tenant <= cap + rate x elapsed + ε; r2's partition
+   admits <= 2 x its envelope; the heal re-leases r2 with fresh ids,
+   ``refunded_tokens`` > 0; the home's audit with no federation breach;
+   ``drl_federation_*``, ``drl_federation_slice_share`` and (r0)
+   ``drl_federation_region_*`` on ``/metrics``; ``sweep_all`` two days on
+   evicts exactly every store's slots. Prints renews/s one at a time and
+   their p50 / p99, the slice commits' count, p50 and max, and the
+   launches of ``debit_packed`` and the flushes.
+21. Print ``{"kernels": [...]}``: per kernel (25) its launches on each path
+   of phases 3–10 and 12–20 (``launches_by_path``; counts set to 0 before each
    path and read after it; > 0 on the path the kernel serves, the
    two-level kernel and the debit > 0 on the reservation path, every
    store kernel but the window flushes > 0 on the checkpoint path, the
@@ -473,7 +520,9 @@ Phases (any failure raises, and the script exits non-zero):
    the two-level kernel > 0 on the drain path, the bucket and window scans
    and flushes, the counter, semaphore and two-level kernels, the debit and
    the bucket sweep > 0 on the cluster path (its windows by the grouped and
-   the plain flush), and every kernel that a wire
+   the plain flush), the debit and a bucket flush (``acquire_packed`` or
+   ``acquire_grouped``) > 0 on the federation path, and every kernel that a
+   wire
    op reaches > 0 on the server path — all but
    the bench's ``acquire_scan24`` and ``acquire_batch``, the fp kernels,
    whose store the fp path serves, and ``global_tier``, whose the mesh path
@@ -482,15 +531,15 @@ Phases (any failure raises, and the script exits non-zero):
    counter syncs' and debits' launches on those paths by operand width
    (``launch_sizes``), the error against the plain version, and its times;
    before it, each phase's wall seconds.
-21. Last line: ``{"ok": true, "device": {...}}``.
+22. Last line: ``{"ok": true, "device": {...}}``.
 
-Phases 3-10 and 12-19 run in this order in one process, but for the side
-lane: after the exact path, while this process runs the placement, config,
-cluster, reservation, admission, approximate and window paths, a second
-process (``python3 chip_smoke.py --lane fp,mesh,checkpoint``, started and
-stopped by this one) runs the fp, mesh and checkpoint paths on the same
-card; the server, bench, native, observability and drain paths then run
-alone. Each path's
+Phases 3-10 and 12-20 run in this order in one process, but for the side
+lanes: after the exact path, while this process runs the placement,
+config and federation paths, three processes of their own (``python3
+chip_smoke.py --lane NAME,...``, started and stopped by this one) run the
+cluster and reservation paths, the checkpoint, approximate, window and
+admission paths, and the fp and mesh paths on the same card; the server,
+bench, native, observability and drain paths then run alone. Each path's
 launch counts are set to 0 just before it and read just after it, in the
 process that runs it.
 
@@ -500,9 +549,11 @@ It needs a CUDA device and the rest of the repository beside it.
 from __future__ import annotations
 
 import asyncio
+import collections
 import functools
 import gc
 import json
+import logging
 import os
 import re
 import statistics
@@ -10340,6 +10391,896 @@ async def cluster_path(torch, ck, pkg, card: str) -> dict:
     return counts_out
 
 
+# -- phase 20: global quota federation -----------------------------------------
+
+FED_SEED = 2323
+#: Global tenants; ``FED_TENANTS=N`` in the environment sets another count
+#: (``FED_TENANTS=128 python3 chip_smoke.py --paths federation``). 64, cut
+#: from 256: every slice commit snapshots all its region's tables, one a
+#: config, so the commits' seconds grow as the square of the tenants.
+FED_TENANTS = int(os.environ.get("FED_TENANTS", "64"))
+#: Tenant i's global budget: cap FED_CAP + i tokens, rate
+#: (FED_RATE_BASE + i) x FED_RATE_UNIT tokens/s. Like JAX's soak (a
+#: pure-burst 600 against the same ask counts), the budget binds: a
+#: tenant's ~150 asks over the rounds exceed its cap, so its slices, r2's
+#: envelope and the global bound deny asks. The rates are distinct, so no
+#: two tenants share a slice config (a commit rebases a config's whole
+#: table), and small, so rate x elapsed adds under a tenant's one token.
+FED_CAP = 60.0
+FED_RATE_BASE, FED_RATE_UNIT = 100.0, 1e-4
+FED_ROUNDS = 26                 # the soak's rounds, one second each
+FED_PARTITION_AT, FED_RESTART_AT, FED_HEAL_AT = 8, 14, 20
+FED_TTL = 6.0
+FED_RENEW_FRACTION = 0.5
+#: Initial slots of every table of the path's stores (tables grow by
+#: doubling). A card store keeps one dense table per (cap, rate) config,
+#: and federation gives every tenant's global budget, slice and envelope a
+#: config of its own: at 2^24 slots a table (144 MB) the home alone would
+#: hold 256 tables, 37 GB, and every snapshot would read them all.
+FED_SLOTS = 2**12
+FED_CTL_TICKS = 6               # controller ticks, the actuator every 3
+FED_CTL_RENEW = 3
+FED_STALL_KEYS = 1_000_000      # r0's ordinary per-user keys
+FED_STALL_CALL = 250_000
+FED_STALL_CFG = (100.0, 1.0)
+FED_PROBE_SLOTS = 2**24         # the one commit on a full-size table
+#: Relative tolerance of a token field of a home reply against the host
+#: replay (a float32 debit stands between): of the field, and of a debt
+#: (an amount less a float32 balance, so off by the balance's rounding)
+#: of the tenant's cap, the scale of the balance it came from.
+FED_RTOL = 1e-6
+
+
+def _fed_tenants() -> dict:
+    return {f"fed:t{i}": (FED_CAP + i, (FED_RATE_BASE + i) * FED_RATE_UNIT)
+            for i in range(FED_TENANTS)}
+
+
+def _fed_chaos(faults) -> dict:
+    """The soak's chaos on the federation seams (JAX
+    ``tests/test_federation.py:600-617``): delays, injected errors and
+    resets on the WAN calls, delays at the home's dispatch."""
+    R = faults.FaultRule
+    return {
+        "federation.renew": (R(kind=faults.DELAY, probability=0.2,
+                               delay_s=0.001),
+                             R(kind=faults.ERROR, probability=0.08),
+                             R(kind=faults.RESET, probability=0.05)),
+        "federation.lease": (R(kind=faults.DELAY, probability=0.2,
+                               delay_s=0.001),
+                             R(kind=faults.ERROR, probability=0.1)),
+        "server.federation": (R(kind=faults.DELAY, probability=0.1,
+                                delay_s=0.001),),
+    }
+
+
+def _fed_same(got, want, where: str, cap: float,
+              scale: float = 1.0) -> None:
+    """A home reply against the replay's: ids, epochs, outcomes and flags
+    exactly; token fields within :data:`FED_RTOL` relative (a debt's of
+    ``cap``, the tenant's)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            raise AssertionError(f"{where}: fields {got!r} != {want!r}")
+        for k in want:
+            _fed_same(got[k], want[k], f"{where}.{k}", cap,
+                      cap if k == "debt" else 1.0)
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{where}: {got!r} != {want!r}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _fed_same(g, w, f"{where}[{i}]", cap)
+    elif isinstance(want, float) or isinstance(got, float):
+        if isinstance(got, bool) or isinstance(want, bool) or abs(
+                float(got) - float(want)) > FED_RTOL * max(1.0, abs(want),
+                                                           scale):
+            raise AssertionError(f"{where}: {got!r} != {want!r}")
+    elif got != want:
+        raise AssertionError(f"{where}: {got!r} != {want!r}")
+
+
+class _FedTape:
+    """Every home ledger call, in order, with the home clock's reading and
+    the reply: the host replay's input."""
+
+    def __init__(self, mono) -> None:
+        self.mono = mono
+        self.calls: list = []
+
+    def wrap(self, led) -> None:
+        for op in ("lease", "renew", "reclaim"):
+            real = getattr(led, op)
+
+            async def recorded(req, _real=real, _op=op):
+                at = self.mono[0]
+                out = await _real(req)
+                self.calls.append((_op, json.loads(json.dumps(req)), at,
+                                   json.loads(json.dumps(out))))
+                return out
+
+            setattr(led, op, recorded)
+
+    def restart(self) -> None:
+        self.calls.append(("restart", None, self.mono[0], None))
+
+
+async def _fed_replay(pkg, tape: _FedTape) -> tuple:
+    """The host replay: the tape's requests, in order and at the recorded
+    home clock readings, to a port ``FederationLedger`` over an
+    ``InProcessBucketStore``; the restart re-anchors its state as the
+    chain does. Every reply must equal the card home's. Returns the calls
+    replayed, the replay store's global tenant balances ``{(key, cap,
+    rate): tokens}`` and the debits each key took."""
+    from distributedratelimiting.redis_tpu_torch.runtime import checkpoint
+
+    mono = [0.0]
+    debits: collections.Counter = collections.Counter()
+
+    def fresh():
+        st = pkg.InProcessBucketStore(clock=pkg.ManualClock(1_000_000))
+        led = st.federation_ledger(clock=lambda: mono[0],
+                                   default_ttl_s=FED_TTL)
+        real = st.debit_many
+
+        async def counted(keys, amounts, cap, rate):
+            debits.update(keys)
+            return await real(keys, amounts, cap, rate)
+
+        st.debit_many = counted
+        return st, led
+
+    store, led = fresh()
+    caps = {t: cap for t, (cap, _rate) in _fed_tenants().items()}
+    n = 0
+    for i, (op, req, at, want) in enumerate(tape.calls):
+        mono[0] = at
+        if op == "restart":
+            snap = checkpoint._snapshot_with_attachments(store)
+            await store.aclose()
+            store, led = fresh()
+            checkpoint._restore_with_attachments(store, snap)
+            continue
+        got = await getattr(led, op)(req)
+        _fed_same(json.loads(json.dumps(got)), want,
+                  f"home reply {i} ({op} {req.get('lease_id')})",
+                  caps[req["tenant"]])
+        n += 1
+    balances = _fed_balances(store)
+    await store.aclose()
+    return n, balances, debits
+
+
+def _fed_balances(store) -> dict:
+    """A store's tenant buckets ``{(key, cap, rate): tokens}``, read
+    through its export."""
+    return {(key, float(cap), float(rate)): float(tokens)
+            for key, cap, rate, tokens, _age in store.export_entries(
+                lambda k: k.startswith("fed:t"))["buckets"]}
+
+
+class _FedOracle:
+    """One region's float32 host oracle: each tenant key's balance in every
+    config table it touched, following the region's applied config
+    history (a commit carries ``cap_old - tokens`` into the new table
+    through the saturating debit, as the rebase does; the clock is frozen,
+    so nothing refills)."""
+
+    def __init__(self) -> None:
+        self.tokens: dict = {}          # (tenant, cap, rate) -> f32
+        self.applied: dict = {}         # tenant -> (cap, rate)
+
+    def apply(self, tenant, old, new) -> None:
+        if old is not None and tuple(old) != tuple(new):
+            was = self.tokens.get((tenant, *old))
+            spent = 0.0 if was is None else float(old[0]) - float(was)
+            if spent > 0.0:
+                base = self.tokens.get((tenant, *new), np.float32(new[0]))
+                self.tokens[(tenant, *new)] = max(
+                    np.float32(0.0), np.float32(base) - np.float32(spent))
+        self.applied[tenant] = tuple(new)
+
+    def ask(self, tenant, n: int) -> int:
+        cfg = self.applied[tenant]
+        tok = self.tokens.get((tenant, *cfg), np.float32(cfg[0]))
+        granted = 0
+        for _ in range(n):
+            if tok >= np.float32(1.0):
+                tok = np.float32(tok - np.float32(1.0))
+                granted += 1
+        self.tokens[(tenant, *cfg)] = tok
+        return granted
+
+
+class _FedRegion:
+    """One region of the federation path: its card store(s) and server(s),
+    a traffic client that always sends the first slice's operands (every
+    later change is an ``OP_CONFIG`` rule it chases), the agent, and the
+    oracle."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.mono = [0.0]
+        self.stores: list = []
+        self.servers: list = []
+        self.client = None
+        self.target = None
+        self.agent = None
+        self.oracle = _FedOracle()
+        #: The schedule's demand, the agent's own report when a
+        #: controller's tick brings no tenant rates.
+        self.demand = 4.0
+        self.first: dict = {}
+        self.admitted: dict = {}
+        self.denied: dict = {}
+        self.partition_admits: dict = {}
+        self.partition_denied = 0
+        #: Slice applications that raised. The agent absorbs such a failure
+        #: (it keeps the old config and counts it among its renew
+        #: failures, beside the chaos's injected ones), so the path counts
+        #: them here and fails on any.
+        self.apply_failures: list = []
+        self.commits: list = []         # seconds of each slice commit
+        self.renews: list = []          # seconds of each renew round trip
+
+    async def start(self, pkg, fed, clock, home_client, tenants) -> None:
+        n = 2 if self.name == "r1" else 1
+        self.stores = [pkg.DeviceBucketStore(device="cuda", n_slots=FED_SLOTS,
+                                             clock=clock) for _ in range(n)]
+        self.servers = [pkg.BucketStoreServer(s, host="127.0.0.1", port=0)
+                        for s in self.stores]
+        addrs = [await s.start() for s in self.servers]
+        kw = dict(coalesce_requests=False, request_timeout_s=900.0)
+        if n == 2:
+            # r1 is a two-server cluster: slices apply through
+            # mutate_config, two-phase over both nodes.
+            self.client = pkg.ClusterBucketStore(addresses=addrs, **kw)
+            self.target = pkg.ClusterBucketStore(addresses=addrs, **kw)
+        else:
+            # r0 and r2 are single servers: slices apply through
+            # config_announce (prepare, then commit at the next version).
+            self.client = pkg.RemoteBucketStore(address=addrs[0], **kw)
+            self.target = pkg.RemoteBucketStore(address=addrs[0], **kw)
+        inner = fed.slice_applier(self.target)
+
+        async def apply(tenant, old, new):
+            t = time.perf_counter()
+            try:
+                await inner(tenant, old, new)
+            except Exception as exc:
+                self.apply_failures.append(f"{tenant} {old} -> {new}: "
+                                           f"{exc!r}")
+                raise
+            if old is not None and tuple(old) != tuple(new):
+                self.commits.append(time.perf_counter() - t)
+            self.oracle.apply(tenant, old, new)
+
+        self.agent = fed.RegionFederation(
+            self.name, home_client, tenants=tenants, apply_slice=apply,
+            admitted_total=lambda t: float(self.admitted.get(t, 0)),
+            demand=lambda _t: self.demand,
+            ttl_s=FED_TTL, renew_fraction=FED_RENEW_FRACTION,
+            clock=lambda: self.mono[0])
+        real_call = self.agent._call_home
+
+        async def timed(method, payload):
+            t = time.perf_counter()
+            out = await real_call(method, payload)
+            if method == "fed_renew":
+                self.renews.append(time.perf_counter() - t)
+            return out
+
+        self.agent._call_home = timed
+        self.servers[0].federation_agent = self.agent
+
+    async def drive(self, counts, tenants: list, partitioned: bool) -> None:
+        """``counts[j]`` unit asks for tenant ``j``, all sent at once under
+        the tenant's first slice; every tenant's grants equal the
+        oracle's."""
+        asks, who = [], []
+        for j, n in enumerate(counts.tolist()):
+            t = tenants[j]
+            cfg = self.agent.slice(t)
+            if cfg is None or n == 0:
+                continue
+            first = self.first.setdefault(t, cfg)
+            asks += [self.client.acquire(t, 1, *first) for _ in range(n)]
+            who += [t] * n
+        res = await asyncio.gather(*asks)
+        got: dict = {}
+        for t, r in zip(who, res):
+            got[t] = got.get(t, 0) + int(r.granted)
+        for t, n in collections.Counter(who).items():
+            want = self.oracle.ask(t, n)
+            if got.get(t, 0) != want:
+                raise AssertionError(
+                    f"federation {self.name}: {t} granted {got.get(t, 0)}, "
+                    f"the oracle {want}")
+            self.admitted[t] = self.admitted.get(t, 0) + want
+            self.denied[t] = self.denied.get(t, 0) + n - want
+            if partitioned:
+                self.partition_admits[t] = \
+                    self.partition_admits.get(t, 0) + want
+                self.partition_denied += n - want
+
+    def balances(self) -> dict:
+        """Every tenant key's balance in every table, read from the card
+        stores' export."""
+        out: dict = {}
+        for s in self.stores:
+            for key, cap, rate, tokens, _age in s.export_entries(
+                    lambda k: k.startswith("fed:t"))["buckets"]:
+                if (key, cap, rate) in out:
+                    raise AssertionError(f"federation {self.name}: {key} "
+                                         "on two nodes")
+                out[(key, float(cap), float(rate))] = np.float32(tokens)
+        return out
+
+    async def aclose(self) -> None:
+        for c in (self.client, self.target):
+            if c is not None:
+                await c.aclose()
+        for s in self.servers:
+            await s.aclose()
+        for s in self.stores:
+            await s.aclose()
+
+
+class _FedQuiet(logging.Filter):
+    """The federation path's log filter: drops, and counts by kind, the
+    records of what the path injects on purpose (the chaos rules' errors
+    and resets, the partition's resets) and r1's routine config-commit
+    lines; every other record passes."""
+
+    def __init__(self, faults) -> None:
+        super().__init__()
+        self._injected = faults.FaultInjectedError
+        self.dropped: collections.Counter = collections.Counter()
+
+    def filter(self, record) -> bool:
+        exc = record.exc_info[1] if record.exc_info else None
+        if isinstance(exc, self._injected):
+            kind = "injected error"
+        elif isinstance(exc, ConnectionResetError) and (
+                str(exc) == "partitioned" or str(exc).startswith("injected")):
+            kind = "reset"
+        elif str(getattr(record, "migration", {}).get("type", "")
+                 ).startswith("config"):
+            kind = "r1 commit"
+        else:
+            return True
+        self.dropped[kind] += 1
+        return False
+
+
+class _FedDownHome:
+    """The full partition: every WAN call from the region dies."""
+
+    async def fed_lease(self, _payload, **_kw):
+        raise ConnectionResetError("partitioned")
+
+    fed_renew = fed_lease
+    fed_reclaim = fed_lease
+
+
+async def _fed_probe(pkg, fed, clock, say) -> float:
+    """One slice commit on a card store of 2^24 slots a table, the store
+    holding one tenant key: the rebase snapshots the whole store."""
+    store = pkg.DeviceBucketStore(device="cuda", n_slots=FED_PROBE_SLOTS,
+                                  clock=clock)
+    server = pkg.BucketStoreServer(store, host="127.0.0.1", port=0)
+    addr = await server.start()
+    cli = pkg.RemoteBucketStore(address=addr, coalesce_requests=False,
+                                request_timeout_s=900.0)
+    try:
+        old, new = (10_000.0, 100.0), (5_000.0, 50.0)
+        if not (await cli.acquire("fed:probe", 3, *old)).granted:
+            raise AssertionError("federation probe: the ask was denied")
+        t = time.perf_counter()
+        await fed.slice_applier(cli)("fed:probe", old, new)
+        commit_s = time.perf_counter() - t
+        got = store.peek_blocking("fed:probe", *new)
+        if got != new[0] - 3:
+            raise AssertionError(f"federation probe: {got} after the commit")
+    finally:
+        await cli.aclose()
+        await server.aclose()
+        await store.aclose()
+    say(f"one slice commit on a card store of {FED_PROBE_SLOTS:,} slots a "
+        f"table (one tenant key, 144 MB a table): {commit_s:.3f} s")
+    return commit_s
+
+
+async def _fed_stall(ck, reg, tenant_cfg: dict, say) -> dict:
+    """The real-size stall: r0 holds 1M ordinary bucket keys beside its
+    tenant buckets; one tenant's resize forced through a renew commits on
+    that store while another tenant asks."""
+    keys = [f"fu{i}" for i in range(FED_STALL_KEYS)]
+    t = time.perf_counter()
+    for pos in range(0, FED_STALL_KEYS, FED_STALL_CALL):
+        res = await reg.client.acquire_many(
+            keys[pos:pos + FED_STALL_CALL],
+            np.ones(min(FED_STALL_CALL, FED_STALL_KEYS - pos), np.int64),
+            *FED_STALL_CFG, with_remaining=False)
+        if res.granted_count != min(FED_STALL_CALL, FED_STALL_KEYS - pos):
+            raise AssertionError("federation stall: a fresh key was denied")
+    load_s = time.perf_counter() - t
+    store = reg.stores[0]
+    timer = store._lock = _HoldTimer(store._lock)
+    resized, other = list(tenant_cfg)[:2]
+    lease = reg.agent._leases[resized]
+    # A share far above the floor shrinks to it; one near it grows.
+    share = lease.slice_cap / tenant_cfg[resized][0]
+    demand = 1e-3 if share > 0.1 else 1e9
+    epoch, commits0 = lease.epoch, len(reg.commits)
+    first = reg.first.setdefault(other, reg.agent.slice(other))
+    lat = []
+    done = asyncio.Event()
+
+    async def asks():
+        while True:
+            t = time.perf_counter()
+            r = await reg.client.acquire(other, 1, *first)
+            lat.append(time.perf_counter() - t)
+            if int(r.granted) != reg.oracle.ask(other, 1):
+                raise AssertionError("federation stall: an ask differs "
+                                     "from the oracle")
+            reg.admitted[other] = reg.admitted.get(other, 0) + int(r.granted)
+            if done.is_set():
+                return
+
+    task = asyncio.ensure_future(asks())
+    launch_before = dict(ck.launches)
+    try:
+        t = time.perf_counter()
+        ok, _ = await reg.agent._renew(resized, lease, demand, reg.mono[0])
+        renew_s = time.perf_counter() - t
+    finally:
+        done.set()
+        await task
+    if not ok or lease.epoch == epoch or len(reg.commits) != commits0 + 1:
+        raise AssertionError(f"federation stall: the renew did not resize "
+                             f"{resized} (ok {ok}, epoch {epoch} -> "
+                             f"{lease.epoch})")
+    commit_s = reg.commits[-1]
+    launches = {k: v - launch_before.get(k, 0) for k, v in ck.launches.items()
+                if v > launch_before.get(k, 0)}
+    say(f"the stall: r0 loaded with {FED_STALL_KEYS:,} bucket keys at "
+        f"{FED_STALL_CFG} in {load_s:.1f} s; {resized}'s resize forced "
+        f"through a renew: the renew {renew_s:.2f} s, its slice commit "
+        f"{commit_s:.2f} s, the store lock's longest hold "
+        f"{timer.longest:.2f} s; {len(lat)} asks on {other} meanwhile, the "
+        f"longest {max(lat):.2f} s (the serving stall); launches "
+        f"{json.dumps(launches)}")
+    store._lock = timer._lock
+    return {"commit_s": commit_s, "lock_s": timer.longest,
+            "ask_max_s": max(lat), "renew_s": renew_s}
+
+
+async def _fed_controller(pkg, ctl_mod, regions: dict, home_mono,
+                          say) -> None:
+    """A ``Controller`` with ``federation=`` r0's agent, over r0's server's
+    own stats, ticked by hand with every clock a second on between ticks
+    (r1 and r2 tick themselves): the actuator fires at its cadence, and a
+    dry-run twin fed the same ``Sensors`` decides the same intents."""
+    import types
+
+    r0 = regions["r0"]
+    scraper = pkg.RemoteBucketStore(address=(r0.servers[0].host,
+                                             r0.servers[0].port),
+                                    coalesce_requests=False)
+
+    async def stats():
+        return {"nodes": [await scraper.stats()], "resilience": {},
+                "placement": {}}
+
+    cfg = dict(federation_renew_ticks=FED_CTL_RENEW, cooldown_ticks=0)
+    ctl = ctl_mod.Controller(types.SimpleNamespace(stats=stats),
+                             config=ctl_mod.ControllerConfig(**cfg),
+                             federation=r0.agent)
+    twin = ctl_mod.Controller(types.SimpleNamespace(), config=(
+        ctl_mod.ControllerConfig(**cfg, dry_run=True)), federation=r0.agent)
+    scrape = ctl.scrape
+    sensors = []
+
+    async def recorded():
+        s = await scrape()
+        sensors.append(s)
+        return s
+
+    ctl.scrape = recorded
+    live, dry, fired = [], [], []
+    renews0 = r0.agent.renews
+    try:
+        for n in range(1, FED_CTL_TICKS + 1):
+            home_mono[0] += 1.0
+            for reg in regions.values():
+                reg.mono[0] += 1.0
+            for name in ("r1", "r2"):
+                await regions[name].agent.tick()
+            recs = await ctl.tick()
+            twin._tick = sensors[-1].tick
+            live.append([(r["action"], r["target"], r["reason"])
+                         for r in recs])
+            dry.append([(i["action"], i["target"], i["reason"])
+                        for i in twin.decide(sensors[-1])])
+            fired += [(n, r["outcome"], r["reason"]) for r in recs
+                      if r["action"] == "federation"]
+    finally:
+        await scraper.aclose()
+    # The actuator fires at its cadence, and off it only on the degraded
+    # rung (a slice serving its envelope two ticks running).
+    cadence = [n for n, _, why in fired if why.startswith("renew cadence")]
+    off = [why for n, _, why in fired if n % FED_CTL_RENEW]
+    if cadence != list(range(FED_CTL_RENEW, FED_CTL_TICKS + 1,
+                             FED_CTL_RENEW)) or \
+            any(o != "executed" for _, o, _ in fired) or \
+            any("degraded" not in why for why in off):
+        raise AssertionError(f"federation controller: fired {fired}")
+    if live != dry:
+        raise AssertionError(f"federation dry-run twin: {dry} != {live}")
+    if r0.agent.renews <= renews0:
+        raise AssertionError("federation controller: the actuator renewed "
+                             "nothing")
+    say(f"controller: {FED_CTL_TICKS} ticks by hand, the federation "
+        f"actuator at ticks {[n for n, _, _ in fired]} (every "
+        f"{FED_CTL_RENEW}), {r0.agent.renews - renews0} renews through it; "
+        f"the dry-run twin decided the same {sum(map(len, live))} intents")
+
+
+async def federation_path(torch, ck, pkg, card: str) -> dict:
+    """Global quota federation (phase 20): JAX's 3-region soak
+    (``tests/test_federation.py:596-900``) on the card. A home
+    ``BucketStoreServer`` over a card store with a ``FederationLedger`` and
+    a ``SnapshotChain``; regions r0 and r2 single servers over card stores
+    (slices through ``config_announce``), r1 a two-server
+    ``ClusterBucketStore`` (slices through ``mutate_config``); all on one
+    frozen store clock, the leases on manual monotonic clocks a second a
+    round. :data:`FED_TENANTS` global tenants on budgets that bind; the
+    soak's chaos, partition, home restart and heal; every slice applied,
+    every home reply and global bucket held to a host replay, every grant
+    and balance to a float32 oracle; the controller's actuator; the
+    1M-key commit stall; a sweep. Returns the path's launches."""
+    from distributedratelimiting.redis_tpu_torch.runtime import checkpoint
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        controller as ctl_mod,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime import (
+        federation as fed,
+    )
+    from distributedratelimiting.redis_tpu_torch.utils import faults
+    import tempfile
+
+    t_path = time.perf_counter()
+    rng = np.random.default_rng(FED_SEED)
+    ck.reset_launches()
+
+    def say(line: str) -> None:
+        print(f"federation path ({card}) "
+              f"[{time.perf_counter() - t_path:.1f} s]: {line}", flush=True)
+
+    clock = pkg.ManualClock(1_000_000)
+    probe_s = await _fed_probe(pkg, fed, clock, say)
+    tenant_cfg = _fed_tenants()
+    tenants = list(tenant_cfg)
+    counts = rng.integers(0, 5, (FED_ROUNDS, 3, FED_TENANTS))
+    counts[FED_HEAL_AT:, 2] = rng.integers(
+        0, 3, (FED_ROUNDS - FED_HEAL_AT, FED_TENANTS))
+    tmp = tempfile.mkdtemp(prefix="drl-fed-")
+    chain_path = os.path.join(tmp, "home.ckpt")
+    chain = checkpoint.SnapshotChain(chain_path)
+    home_mono = [0.0]
+    tape = _FedTape(home_mono)
+
+    def home_store():
+        st = pkg.DeviceBucketStore(device="cuda", n_slots=FED_SLOTS,
+                                   clock=clock)
+        st.federation_ledger(clock=lambda: home_mono[0],
+                             default_ttl_s=FED_TTL)
+        return st
+
+    home = home_store()
+    tape.wrap(home._federation)
+    home_srv = pkg.BucketStoreServer(home, host="127.0.0.1", port=0,
+                                     metrics_port=0)
+    home_addr = await home_srv.start()
+
+    def home_client():
+        return pkg.RemoteBucketStore(address=home_addr,
+                                     coalesce_requests=False,
+                                     request_timeout_s=900.0)
+
+    regions = {n: _FedRegion(n) for n in ("r0", "r1", "r2")}
+    clients = {n: home_client() for n in regions}
+    faults.install(faults.FaultInjector(FED_SEED, _fed_chaos(faults)))
+    # The chaos's injected faults log a traceback each, and every commit of
+    # r1's cluster a line: thousands. The filter drops those alone.
+    pkg_log = logging.getLogger("distributedratelimiting.redis_tpu_torch")
+    quiet = _FedQuiet(faults)
+    pkg_log.addFilter(quiet)
+    events = []
+    slice_at_partition: dict = {}
+    ids_before: set = set()
+    try:
+        for n, reg in regions.items():
+            await reg.start(pkg, fed, clock, clients[n], tenant_cfg)
+        t_rounds = time.perf_counter()
+        tick_s = drive_s = 0.0
+        for rnd in range(FED_ROUNDS):
+            home_mono[0] += 1.0
+            for reg in regions.values():
+                reg.mono[0] += 1.0
+            if rnd == FED_PARTITION_AT:
+                r2 = regions["r2"]
+                r2.agent.home = _FedDownHome()
+                slice_at_partition = {t: r2.agent.slice(t) for t in tenants
+                                      if r2.agent.slice(t) is not None}
+                ids_before = {r2.agent._leases[t].lease_id for t in tenants}
+                ids_before.discard(None)
+                events.append(f"partition:r2@{rnd}")
+            if rnd == FED_RESTART_AT:
+                led = home._federation
+                before = {(t, r): l.expires_mono - home_mono[0]
+                          for t, p in led._pools.items()
+                          for r, l in p.leases.items()}
+                t = time.perf_counter()
+                chain.save(home)
+                save_s = time.perf_counter() - t
+                await home_srv.aclose()
+                for c in clients.values():
+                    await c.aclose()
+                await home.aclose()
+                tape.restart()
+                home = home_store()
+                t = time.perf_counter()
+                links = checkpoint.load_snapshot_chain(home, chain_path)
+                load_s = time.perf_counter() - t
+                led = home._federation
+                tape.wrap(led)
+                after = {(t, r): l.expires_mono - home_mono[0]
+                         for t, p in led._pools.items()
+                         for r, l in p.leases.items()}
+                if led.restores != 1 or set(after) != set(before) or any(
+                        after[k] > before[k] for k in after):
+                    raise AssertionError(
+                        f"federation restart: restores {led.restores}, "
+                        f"{len(after)} leases against {len(before)}, or a "
+                        "term extended")
+                home_srv = pkg.BucketStoreServer(home, host="127.0.0.1",
+                                                 port=0, metrics_port=0)
+                home_addr = await home_srv.start()
+                for n, reg in regions.items():
+                    clients[n] = home_client()
+                    if n != "r2":
+                        reg.agent.home = clients[n]
+                dups = 0
+                for t in tenants:
+                    held = regions["r0"].agent._leases[t].lease_id
+                    if held is None:
+                        continue
+                    r = await clients["r0"].fed_lease({
+                        "region": "r0", "lease_id": held, "tenant": t,
+                        "demand": 8.0, "global_cap": tenant_cfg[t][0],
+                        "global_rate": tenant_cfg[t][1]})
+                    if not r.get("duplicate"):
+                        raise AssertionError(f"federation restart: a WAN "
+                                             f"retry of {held}: {r}")
+                    dups += 1
+                events.append(f"restart@{rnd}")
+                say(f"home restart at round {rnd}: the chain's save "
+                    f"{save_s:.3f} s, its load {load_s:.3f} s ({links} delta "
+                    f"links), {len(after)} leases restored, none extended; "
+                    f"{dups} WAN retries of r0's leases answered duplicate")
+            if rnd == FED_HEAL_AT:
+                regions["r2"].agent.home = clients["r2"]
+                events.append(f"heal:r2@{rnd}")
+            demands = {"r0": 8.0 if rnd >= 4 else 4.0,
+                       "r1": 2.0 if rnd >= 4 else 4.0, "r2": 4.0}
+            for j, (n, reg) in enumerate(regions.items()):
+                reg.demand = demands[n]
+                t = time.perf_counter()
+                summary = await reg.agent.tick()
+                tick_s += time.perf_counter() - t
+                if summary["degraded"]:
+                    events.append(f"degraded:{n}@{rnd}x{summary['degraded']}")
+                if summary["healed"]:
+                    events.append(f"healed:{n}@{rnd}x{summary['healed']}")
+                t = time.perf_counter()
+                await reg.drive(counts[rnd, j], tenants,
+                                n == "r2" and FED_PARTITION_AT <= rnd
+                                < FED_HEAL_AT)
+                drive_s += time.perf_counter() - t
+            if rnd % 4 == 1:
+                chain.save(home)
+        rounds_s = time.perf_counter() - t_rounds
+        say(f"{FED_ROUNDS} rounds of {FED_TENANTS} tenants x 3 regions in "
+            f"{rounds_s:.1f} s (agent ticks {tick_s:.1f} s, asks "
+            f"{drive_s:.1f} s); events {events}")
+        await _fed_controller(pkg, ctl_mod, regions, home_mono, say)
+        stall = await _fed_stall(ck, regions["r0"], tenant_cfg, say)
+        # The surfaces while the leases are held: the home's /metrics, a
+        # region server's (its federation_agent set).
+        status, _, body = await _obs_http(home_addr[0],
+                                          home_srv.metrics_port, "/metrics")
+        text = body.decode()
+        region_text = await regions["r0"].client.metrics()
+        shares = text.count("drl_federation_slice_share{")
+        if "drl_federation_leases_granted_total" not in text or \
+                shares == 0 or \
+                "drl_federation_region_renews_total" not in region_text:
+            raise AssertionError(f"federation: /metrics lacks the "
+                                 f"drl_federation_* families ({status})")
+        # Every slice change applied: no application raised, and every
+        # lease that is not degraded serves its slice.
+        failures = [f for reg in regions.values() for f in reg.apply_failures]
+        stale = [(reg.name, t, l.applied, (l.slice_cap, l.slice_rate))
+                 for reg in regions.values()
+                 for t, l in reg.agent._leases.items()
+                 if l.lease_id is not None and not l.degraded
+                 and l.applied != (l.slice_cap, l.slice_rate)]
+        if failures or stale:
+            raise AssertionError(f"federation: {len(failures)} slice "
+                                 f"applications failed {failures[:3]}; "
+                                 f"leases not on their slice {stale[:3]}")
+        r2 = regions["r2"]
+        fresh = {r2.agent._leases[t].lease_id for t in tenants}
+        for reg in regions.values():
+            await reg.agent.reclaim_all()
+        led = home._federation
+        held_after = [(reg.name, t) for reg in regions.values()
+                      for t, l in reg.agent._leases.items()
+                      if l.lease_id is not None]
+        if held_after or led.outstanding_leases():
+            raise AssertionError(f"federation reclaim: {held_after[:3]} "
+                                 f"held, {led.outstanding_leases()} at the "
+                                 "home")
+
+        # -- the checks.
+        held = len(slice_at_partition)
+        if r2.agent.degraded_entries < held:
+            raise AssertionError(f"federation: r2 degraded "
+                                 f"{r2.agent.degraded_entries} of {held} "
+                                 f"slices {events}")
+        if None in fresh or r2.agent.heals < held or led.heals < 1 or \
+                led.refunded_tokens <= 0.0:
+            raise AssertionError(f"federation heal: agent heals "
+                                 f"{r2.agent.heals}, home heals {led.heals}, "
+                                 f"refunded {led.refunded_tokens}")
+        if fresh & ids_before:
+            raise AssertionError("federation heal: a lease id was reused")
+        eps_window = (FED_ROUNDS + FED_CTL_TICKS) * 1.0
+        worst = []
+        for t in tenants:
+            cap, rate = tenant_cfg[t]
+            # The soak's ε: r2's envelope twice (its burst and the heal's
+            # re-mint) and federation_epsilon over r2's slice at the
+            # partition; a tenant r2 held no slice of then, the staleness
+            # term over the whole budget.
+            sl = slice_at_partition.get(t)
+            env = fed.degraded_config(*sl)[0] if sl else 0.0
+            eps = 2 * env + fed.federation_epsilon(
+                3, *(sl or (cap, rate)), FED_TTL * FED_RENEW_FRACTION,
+                partition_s=float(FED_HEAL_AT - FED_PARTITION_AT) if sl
+                else 0.0)
+            total = sum(reg.admitted.get(t, 0) for reg in regions.values())
+            if total > cap + rate * eps_window + eps:
+                raise AssertionError(f"federation bound: {t} admitted "
+                                     f"{total}")
+            part = r2.partition_admits.get(t, 0)
+            if part > 2 * env:
+                raise AssertionError(f"federation partition: {t} admitted "
+                                     f"{part} > 2 x {env}")
+            worst.append(total / (cap + rate * eps_window + eps))
+        for reg in regions.values():
+            got = reg.balances()
+            want = reg.oracle.tokens
+            if got != want:
+                diff = [k for k in set(got) | set(want)
+                        if got.get(k) != want.get(k)][:5]
+                raise AssertionError(f"federation {reg.name}: balances "
+                                     f"differ from the oracle at {diff}")
+        denied = sum(sum(reg.denied.values()) for reg in regions.values())
+        if denied == 0 or r2.partition_denied == 0:
+            raise AssertionError(f"federation: the budgets bound no ask "
+                                 f"(denied {denied}, in r2's partition "
+                                 f"{r2.partition_denied})")
+        t = time.perf_counter()
+        replayed, replay_bal, debits = await _fed_replay(pkg, tape)
+        replay_s = time.perf_counter() - t
+        # The home's card store: every global tenant bucket equal to the
+        # replay store's, and (JAX's soak, check 2) its spend plus the
+        # debts equal to what the regions admitted. Tolerance: the card
+        # debits in float32, one rounding of the amount and one of the
+        # balance a debit, so one float32 spacing of the cap a debit.
+        home_bal = _fed_balances(home)
+        one_side = sorted(set(home_bal) ^ set(replay_bal))
+        if one_side:
+            raise AssertionError(f"federation home: buckets {one_side[:3]} "
+                                 "on one side only")
+        debts = led.debts()
+        for t in tenants:
+            cap, rate = tenant_cfg[t]
+            tol = max(1, debits[t]) * float(np.spacing(np.float32(cap)))
+            got = home_bal.get((t, cap, rate), cap)
+            want = replay_bal.get((t, cap, rate), cap)
+            owed = sum(v for (tt, _r), v in debts.items() if tt == t)
+            admitted = sum(reg.admitted.get(t, 0)
+                           for reg in regions.values())
+            if abs(got - want) > tol or \
+                    abs(cap - got + owed - admitted) > tol:
+                raise AssertionError(
+                    f"federation home: {t} holds {got} (replay {want}, "
+                    f"{debits[t]} debits), spent {cap - got} + debt {owed} "
+                    f"against {admitted} admitted")
+        audit = home_srv.auditor.tick()
+        res = audit["residues"]
+        if "federation" in audit["breaches"] or "federation" not in res:
+            raise AssertionError(f"federation audit: {res}")
+        renews = [x for reg in regions.values() for x in reg.renews]
+        commits = [x for reg in regions.values() for x in reg.commits]
+        n_bal = sum(len(r.oracle.tokens) for r in regions.values())
+        by_region = {r.name: sum(r.denied.values()) for r in regions.values()}
+        say(f"every home reply ({replayed:,}) = the host replay "
+            f"({replay_s:.1f} s), and the home's {len(home_bal)} global "
+            f"buckets = the replay's, spend + debt = admitted; every grant "
+            f"and {n_bal:,} tenant balances = the float32 oracle; asks "
+            f"denied {json.dumps(by_region)}"
+            f" ({r2.partition_denied} in r2's partition); Σ admits <= cap + "
+            f"rate x {eps_window:.0f} s + ε for every tenant (at most "
+            f"{max(worst):.3f} of it); r2's partition admits <= 2 x its "
+            f"envelope; {led.heals} heals, refunded "
+            f"{led.refunded_tokens:,.1f} tokens, fresh lease ids; no slice "
+            f"application failed; log records dropped "
+            f"{json.dumps(dict(quiet.dropped))}; the "
+            f"home's audit clean (federation residue "
+            f"{res['federation']:,.1f}); /metrics renders "
+            f"drl_federation_* and {shares} drl_federation_slice_share "
+            "samples, r0's drl_federation_region_*")
+        say(f"renews {len(renews):,}: {len(renews) / sum(renews):,.0f}/s "
+            f"one at a time, p50 {_pct(renews, 50) * 1e3:.2f} ms, p99 "
+            f"{_pct(renews, 99) * 1e3:.2f} ms; slice commits "
+            f"{len(commits):,}: p50 {_pct(commits, 50) * 1e3:.1f} ms, max "
+            f"{max(commits) * 1e3:.1f} ms, {sum(commits):.1f} s in all; the "
+            f"{FED_STALL_KEYS:,}-key stall {stall['commit_s']:.2f} s; the "
+            f"{FED_PROBE_SLOTS:,}-slot probe "
+            f"{probe_s:.3f} s; ledger {json.dumps(led.numeric_stats())}")
+
+        # -- the sweep, two days on.
+        stores = [home] + [s for reg in regions.values() for s in reg.stores]
+        live = [sum(len(tb.dir) for tb in (*s._tables.values(),
+                                           *s._wtables.values()))
+                + len(s._counter_dir) for s in stores]
+        clock.advance_seconds(2 * 86_400.0)
+        evicted = []
+        for s in stores:
+            e0 = s.metrics.slots_evicted
+            s.sweep_all()
+            evicted.append(s.metrics.slots_evicted - e0)
+        torch.cuda.synchronize()
+        if evicted != live:
+            raise AssertionError(f"federation sweep: evicted {evicted}, live "
+                                 f"{live}")
+        say(f"sweep two days on: every store evicted exactly its expired "
+            f"slots {evicted}")
+    finally:
+        faults.uninstall()
+        pkg_log.removeFilter(quiet)
+        for reg in regions.values():
+            await reg.aclose()
+        for c in clients.values():
+            await c.aclose()
+        await home_srv.aclose()
+        await home.aclose()
+    torch.cuda.synchronize()
+    counts_out = dict(ck.launches)
+    print(f"federation path ({card}): launches debit_packed "
+          f"{counts_out.get('debit_packed', 0)}, acquire_packed "
+          f"{counts_out.get('acquire_packed', 0)}, acquire_grouped "
+          f"{counts_out.get('acquire_grouped', 0)}; "
+          f"{time.perf_counter() - t_path:.1f} s of wall")
+    torch.cuda.empty_cache()
+    return counts_out
+
+
 SIZED_KERNELS = {"acquire_packed": "acquire_packed",
                  "acquire_grouped": "acquire_grouped",
                  "window_packed": "window_packed",
@@ -10383,7 +11324,7 @@ def _sizes_since(sizes: dict, before: dict) -> dict:
 
 
 def _paths() -> tuple:
-    """The paths of phases 3–10 and 12–19, in the order :func:`main`
+    """The paths of phases 3–10 and 12–20, in the order :func:`main`
     runs them."""
     return (("exact", main_path), ("approximate", approximate_path),
             ("window", window_path), ("admission", admission_path),
@@ -10393,20 +11334,30 @@ def _paths() -> tuple:
             ("server", server_path), ("bench", bench_path),
             ("native", native_path), ("fp", fp_path), ("mesh", mesh_path),
             ("placement", placement_path), ("config", config_path),
-            ("drain", drain_path), ("cluster", cluster_path))
+            ("drain", drain_path), ("cluster", cluster_path),
+            ("federation", federation_path))
 
 
-#: The paths :func:`main` runs in a second process (the side lane) while
-#: its own process runs :data:`BESIDE_SIDE_LANE`; the exact path runs
-#: before them (its device trace in a young process, ROADMAP C1) and the
-#: rest of :func:`_paths` after the side lane has ended, alone. The side
-#: lane's checks are state checks on its own stores; the paths measured
-#: against earlier PRs' rates (the exact, server, bench, native and
-#: observability paths) and the drain's timed window run alone.
-SIDE_LANE = ("fp", "mesh", "checkpoint")
-BESIDE_SIDE_LANE = ("placement", "config", "cluster", "reservation",
-                    "admission", "approximate", "window")
-#: Set in the side lane's process: the parent ran the fp and mesh kernel
+#: The paths :func:`main` runs in processes of their own (the side lanes,
+#: each lane's paths in order) while its own process runs
+#: :data:`BESIDE_SIDE_LANE`; the exact path runs before them (its device
+#: trace in a young process, ROADMAP C1) and the rest of :func:`_paths`
+#: after every lane has ended, alone. The lanes' checks are state checks
+#: on their own stores; the paths measured against earlier PRs' rates (the
+#: exact, server, bench, native and observability paths) and the drain's
+#: timed window run alone. With one side lane (fp, mesh, checkpoint) and
+#: the federation path beside it, the script took 805 s on a fast host and
+#: 1,059 s on a slow one (H100 80GB HBM3, 700 W), each half of the lanes
+#: 498 s there. Its paths' walls in that run (cluster 150 s, checkpoint
+#: 192, reservation 95, fp 83, mesh 140, placement 65, config 85,
+#: federation 70, admission 15, window 15, approximate 4) make the four
+#: groups below, three side lanes and this process, 219-245 s each; the
+#: lanes then took 318 s of an 886 s script. No path is cut for it.
+SIDE_LANES = (("cluster", "reservation"),
+              ("checkpoint", "approximate", "window", "admission"),
+              ("fp", "mesh"))
+BESIDE_SIDE_LANE = ("placement", "config", "federation")
+#: Set in a side lane's process: the parent ran the fp and mesh kernel
 #: cases, so the fp and mesh paths do not run them again.
 _KERNEL_CASES_RAN = False
 
@@ -10426,33 +11377,37 @@ def _run_paths(torch, ck, pkg, card: str, names, sizes: dict) -> tuple:
 
 
 def _run_all_paths(torch, ck, pkg, card: str, sizes: dict) -> tuple:
-    """Every path of :func:`_paths`: the exact path first; then the side
-    lane in a process of its own beside :data:`BESIDE_SIDE_LANE` in this
-    one; the rest after it, alone. Returns ``(launches by path, launches
-    by width by path, wall seconds by path, the lanes' wall)``, the first
-    and third in :func:`_paths` order; ``sizes`` gains the side lane's
-    widths."""
+    """Every path of :func:`_paths`: the exact path first; then each of
+    :data:`SIDE_LANES` in a process of its own beside
+    :data:`BESIDE_SIDE_LANE` in this one; the rest after them, alone.
+    Returns ``(launches by path, launches by width by path, wall seconds by
+    path, the lanes' wall)``, the first and third in :func:`_paths` order;
+    ``sizes`` gains the side lanes' widths."""
     by_path, sizes_by_path, walls = _run_paths(torch, ck, pkg, card,
                                                ["exact"], sizes)
     t = time.perf_counter()
-    lane = _SideLane(SIDE_LANE)
+    lanes = []
     try:
+        lanes = [_SideLane(names) for names in SIDE_LANES]
         beside = _run_paths(torch, ck, pkg, card, BESIDE_SIDE_LANE, sizes)
-        side = lane.finish()
+        sides = [lane.finish() for lane in lanes]
     finally:
-        lane.stop()
+        for lane in lanes:
+            lane.stop()
     lane_s = time.perf_counter() - t
-    rest = [n for n, _ in _paths() if n not in SIDE_LANE
+    in_lanes = {n for names in SIDE_LANES for n in names}
+    rest = [n for n, _ in _paths() if n not in in_lanes
             and n not in BESIDE_SIDE_LANE and n != "exact"]
     for more in (beside, _run_paths(torch, ck, pkg, card, rest, sizes)):
         for got, extra in zip((by_path, sizes_by_path, walls), more):
             got.update(extra)
-    by_path.update(side["by_path"])
-    walls.update(side["walls"])
-    for name, counts in side["sizes"].items():
-        mine = sizes.setdefault(name, {})
-        for b, c in counts.items():
-            mine[int(b)] = mine.get(int(b), 0) + c
+    for side in sides:
+        by_path.update(side["by_path"])
+        walls.update(side["walls"])
+        for name, counts in side["sizes"].items():
+            mine = sizes.setdefault(name, {})
+            for b, c in counts.items():
+                mine[int(b)] = mine.get(int(b), 0) + c
     order = [n for n, _ in _paths()]
     return ({n: by_path[n] for n in order}, sizes_by_path,
             {n: walls[n] for n in order}, lane_s)
@@ -10483,12 +11438,13 @@ def side_lane(names: list) -> int:
 
 
 class _SideLane:
-    """The side lane's process: its stdout lines echoed as they come, its
+    """A side lane's process: its stdout lines echoed as they come, its
     ``LANE`` line kept."""
 
     def __init__(self, names) -> None:
         import threading
 
+        self.names = tuple(names)
         self.result = None
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--lane",
@@ -10508,7 +11464,7 @@ class _SideLane:
         rc = self.proc.wait()
         self._pump.join()
         if rc != 0 or self.result is None:
-            raise AssertionError(f"the side lane {SIDE_LANE} failed "
+            raise AssertionError(f"the side lane {self.names} failed "
                                  f"(exit {rc})")
         return self.result
 
@@ -10588,7 +11544,8 @@ def main() -> int:
     _record_sizes(ck, sizes)
     by_path, sizes_by_path, walls, lane_s = _run_all_paths(torch, ck, pkg,
                                                            card, sizes)
-    phases["side lane " + "+".join(SIDE_LANE)] = lane_s
+    phases["side lanes " + " | ".join("+".join(names)
+                                      for names in SIDE_LANES)] = lane_s
     phases.update(walls)
     # The fp and mesh kernel cases (run before any path's counts were reset).
     res.update(FP_RESULTS)
@@ -10684,7 +11641,10 @@ def main() -> int:
                                "window_grouped", "window_packed",
                                "sync_counters", "sema_packed",
                                "acquire_hierarchical", "debit_packed",
-                               "sweep_expired")}
+                               "sweep_expired"),
+                   # Federation: the home's renew charges, reclaims and
+                   # heal refunds, and every region's rebase (the debit).
+                   "federation": ("debit_packed",)}
 
     sources = {"sweep_expired": "csrc/sweep.cu",
                "acquire_packed": "csrc/acquire.cu",
@@ -10801,6 +11761,12 @@ def main() -> int:
              if name not in no_wire_op and by_path["server"][name] <= 0]
     idle += [f"{name} ({path} path)" for path, names in also_serves.items()
              for name in names if by_path[path][name] <= 0]
+    # Federation's asks reach a bucket flush: the plain one where a tenant's
+    # asks of one flush are one row, the grouped one where they repeat —
+    # which, the flush's timing decides (both > 0 in every run so far).
+    fed = by_path["federation"]
+    if fed["acquire_packed"] + fed["acquire_grouped"] <= 0:
+        idle.append("acquire_packed or acquire_grouped (federation path)")
     if idle:
         raise AssertionError(f"never launched: {idle}")
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Conservation audit plane — the continuous ε-ledger (DESIGN.md §22).
 
-The JAX package's ``runtime/audit.py`` on the port's server. The server
-has no federation ledger yet, so the federation cover identity reads
-nothing (a JAX server without it reads nothing either). The envelope ε
+The JAX package's ``runtime/audit.py`` on the port's server. The
+federation cover identity reads the home's store-attached ledger once it
+is active (a server that is no home reads nothing). The envelope ε
 reads the placement handoffs' envelope decisions alone, as JAX's does: a
 drain window's envelope decisions are reported by the shutdown's summary,
 not counted here.
@@ -163,6 +163,7 @@ class ConservationAuditor:
         self._deltas.delta("replied", server.audit_replied_tokens)
         self._deltas.delta("witnessed", server.audit_witnessed_tokens)
         self._deltas.delta("t0_overadmit", 0.0)
+        self._fed_under_prev = 0.0
         self._breach_active = False
         self._breach_cold = 0
         self._episode_active = False
@@ -224,8 +225,24 @@ class ConservationAuditor:
 
         # 3. federation cover identity (negative residue = global
         # over-admission; positive = documented conservative slack).
-        # The port's server hosts no federation ledger yet (ROADMAP Queue
-        # A 11): nothing to read, as on a JAX server without federation.
+        fed = srv.federation
+        if fed is not None and fed.active:
+            fc = fed.conservation()
+            res = fc["residue"]
+            residues["federation"] = res
+            tol = self.cfg.tolerance_tokens * max(1.0, fc["accounted"])
+            if res < -tol:
+                breaches.append("federation")
+                witness["federation_conservation"] = fc
+            under = max(0.0, -res)
+            self.overadmitted_tokens += max(
+                0.0, under - self._fed_under_prev)
+            self._fed_under_prev = under
+            budget = fc.get("epsilon_budget", 0.0)
+            self.epsilon_used["federation"] = (
+                min(1.0, fc.get("epsilon_used", 0.0) / budget)
+                if budget > 0 else 0.0)
+
         # 4. tier-0 / per-shard ε utilization (the native front-end's C
         # counters, witnessed slice-side through fe_t0_eps).
         native = srv._native

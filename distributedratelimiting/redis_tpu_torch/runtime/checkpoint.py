@@ -141,16 +141,47 @@ def _retire_chain(path: str) -> None:
             pass
 
 
+def _snapshot_with_attachments(store) -> dict:
+    """``store.snapshot()`` plus the store-attached control-plane state
+    that must survive a planned restart: an ACTIVE federation ledger's
+    lease state (runtime/federation.py) rides as its own ``"federation"``
+    section — TTLs exported as remaining ages, so a restore can only
+    shorten a lease's term (conservative, never extended). Non-home
+    stores (no ledger, or a never-used one) keep their snapshot shape
+    byte for byte, and the structural diff handles the extra dict section
+    generically."""
+    snap = store.snapshot()
+    fed = getattr(store, "_federation", None)
+    if fed is not None and fed.active:
+        snap = dict(snap)
+        snap["federation"] = fed.export_state()
+    return snap
+
+
+def _restore_with_attachments(store, snap: dict) -> None:
+    """The restore half: route a ``"federation"`` section back into the
+    store-attached ledger (created on demand) after the store body
+    restores — the store's own ``restore`` never sees the attachment
+    key."""
+    fed_state = None
+    if isinstance(snap, dict) and "federation" in snap:
+        snap = dict(snap)
+        fed_state = snap.pop("federation")
+    store.restore(snap)
+    if fed_state is not None:
+        store.federation_ledger().restore_state(fed_state)
+
+
 def save_snapshot(store, path: str,
                   placement_epoch: "int | None" = None) -> None:
     """Pull ``store``'s live state to the host and write it to ``path``
     atomically, retiring any delta chain beside it (a full save supersedes
     the chain). ``placement_epoch`` stamps the cluster placement epoch the
-    state was owned under, so a later restore can be held to it."""
-    # The JAX package adds a federation ledger's lease section here
-    # (_snapshot_with_attachments): it comes with the federation (ROADMAP
-    # Queue A 11).
-    payload = _full_payload(store.snapshot(), placement_epoch)
+    state was owned under, so a later restore can be held to it.
+    Store-attached federation lease state rides along
+    (:func:`_snapshot_with_attachments`)."""
+    payload = _full_payload(_snapshot_with_attachments(store),
+                            placement_epoch)
     _retire_chain(path)
     _atomic_write(path, payload)
 
@@ -171,7 +202,7 @@ def load_snapshot(store, path: str,
     and plain :class:`ValueError` for a file that is not a snapshot or
     speaks an unknown newer version."""
     snap, _crc = _read_full(path, expected_placement_epoch)
-    store.restore(snap)
+    _restore_with_attachments(store, snap)
 
 
 def _read_full(path: str,
@@ -445,7 +476,7 @@ def load_snapshot_chain(store, path: str,
         payloads.append(payload)
     for payload in payloads:
         snap = apply_snapshot_delta(snap, payload["delta"])
-    store.restore(snap)
+    _restore_with_attachments(store, snap)
     return len(payloads)
 
 
@@ -477,11 +508,11 @@ class SnapshotChain:
 
     def save(self, store, placement_epoch: "int | None" = None) -> str:
         """One checkpoint: a delta when a base is held and the chain has
-        room, else a compacting full save. Returns the file written."""
-        # The JAX chain snapshots through _snapshot_with_attachments, which
-        # adds a federation ledger's lease section: it comes with the
-        # federation (ROADMAP Queue A 11).
-        snap = store.snapshot()
+        room, else a compacting full save. Returns the file written.
+        Store-attached federation lease state rides every link
+        (:func:`_snapshot_with_attachments` — the structural diff treats
+        the section like any other dict)."""
+        snap = _snapshot_with_attachments(store)
         mark = getattr(store, "mark_snapshot_base", None)
         if callable(mark):
             mark()  # reset the store's dirty accounting window

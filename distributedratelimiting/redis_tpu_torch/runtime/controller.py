@@ -41,11 +41,10 @@ controller's own state; ticks are counted, not clocked; there is no
 randomness, so a seeded traffic schedule gives the same action schedule
 bit for bit. The ``controller.tick`` fault seam fails a tick loudly.
 
-One difference from the JAX module: the federation actuator is not
-ported (the port has no ``RegionFederation``), so ``federation=`` accepts
-only ``None`` and raises :class:`NotImplementedError` otherwise. Without
-federation the federation sensors read the zeros a fleet without
-federation reports, exactly as the JAX loop reads them.
+With ``federation=`` a region's :class:`~.federation.RegionFederation`,
+the ``federation`` actuator drives its WAN round on the
+``federation_renew_ticks`` cadence (and off-cadence while a slice serves
+its degraded envelope), as the JAX loop does.
 """
 
 from __future__ import annotations
@@ -314,15 +313,13 @@ class Controller:
                  federation=None,
                  flight_recorder=None,
                  clock: Callable[[], float] = time.monotonic) -> None:
-        if federation is not None:
-            raise NotImplementedError(
-                "the federation actuator is not ported yet (ROADMAP A 11): "
-                "pass federation=None")
         self.cluster = cluster
         self.config = config or ControllerConfig()
         self._shed_targets = list(shed_targets)
-        #: Always ``None`` on the port (the region agent is not ported);
-        #: kept so ``decide`` and ``_execute`` read as the JAX loop's.
+        #: Optional :class:`~.federation.RegionFederation`: when
+        #: attached, the ``federation`` actuator drives its WAN
+        #: lease/renew round (demand = the velocity-delta tenant rates)
+        #: on the ``federation_renew_ticks`` cadence.
         self.federation = federation
         self.flight_recorder = (flight_recorder
                                 if flight_recorder is not None

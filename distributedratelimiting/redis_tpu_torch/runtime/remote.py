@@ -65,8 +65,13 @@ answered without touching the store, so the re-send is not a replay);
 A ``placement moved`` error surfaces here as :class:`wire.RemoteStoreError`:
 its chase lives in the cluster, as in JAX (:mod:`~.cluster`:
 ``ClusterBucketStore._routed``, ``peek_blocking``, the submitter and the
-bulk fan-out refetch the map and re-route once). Not ported yet: the
-federation methods, which raise ``NotImplementedError``.
+bulk fan-out refetch the map and re-route once).
+
+The federation lane (``fed_lease`` / ``fed_renew`` / ``fed_reclaim``, one
+``OP_FED_*`` JSON frame each) is a region's WAN link to its home ledger
+(:mod:`~.federation`). Against a home that answers "unknown op" it latches
+off once and answers ``{"fallback": True}``, which the region treats as a
+partition.
 """
 
 from __future__ import annotations
@@ -93,7 +98,6 @@ from distributedratelimiting.redis_tpu_torch.runtime.store import (
     BucketStore,
     BulkAcquireResult,
     SyncResult,
-    _not_ported,
     check_hierarchical_args,
 )
 from distributedratelimiting.redis_tpu_torch.utils import (
@@ -240,6 +244,13 @@ class RemoteBucketStore(BucketStore):
         self._reserve_fallbacks = 0
         # OP_RESERVE route-to-pool redirects chased (once each).
         self._reserves_routed = 0
+        # Federation-lane latch (OP_FED_LEASE/RENEW/RECLAIM): an old home
+        # answers the routable unknown-op error — latch off once per
+        # connection lifetime; the region then treats federation as
+        # partitioned (keep serving the current slice, degrade to the
+        # envelope at expiry — never unlimited, never hard-down).
+        self._peer_fed = True
+        self._fed_fallbacks = 0
 
         self._coalesce = coalesce_requests
         self._coalesce_max_batch = coalesce_max_batch
@@ -1425,6 +1436,64 @@ class RemoteBucketStore(BucketStore):
             str(d.get("outcome", "settled")), float(d.get("delta", 0.0)),
             float(d.get("refunded", 0.0)), float(d.get("debt", 0.0)))
 
+    # -- global quota federation (OP_FED_LEASE / RENEW / RECLAIM) ------------
+    #: The ledger lives at the HOME; None (not a method) for the same
+    #: reason as reservation_ledger — a ``callable(...)`` probe must skip
+    #: this client, not mint a local ledger nothing serves.
+    federation_ledger = None
+
+    def _note_fed_fallback(self) -> None:
+        if self._peer_fed:
+            self._peer_fed = False
+            log.error_evaluating_kernel(RuntimeError(
+                "home does not speak the federation lane "
+                "(OP_FED_LEASE/RENEW/RECLAIM); the region keeps "
+                "serving from its current slice and degrades to its "
+                "fair-share envelope at lease expiry — federation "
+                "unavailability is treated as a partition"))
+        self._fed_fallbacks += 1
+
+    async def _fed_call(self, op: int, payload: dict,
+                        timeout_s: "float | None") -> dict:
+        """One federation control frame (JSON text; post-send-retry-safe
+        — see _IDEMPOTENT_OPS). Against a latched old home this returns
+        ``{"fallback": True}``: the region treats it as a partition
+        symptom (keep serving, degrade at expiry) — the conservative
+        direction, never unlimited."""
+        if not self._peer_fed:
+            self._fed_fallbacks += 1
+            return {"fallback": True}
+        try:
+            (text,) = await self._request(op, json.dumps(payload),
+                                          timeout_s=timeout_s)
+        except wire.RemoteStoreError as exc:
+            if "unknown op" not in str(exc):
+                raise
+            self._note_fed_fallback()
+            return {"fallback": True}
+        return json.loads(text)
+
+    async def fed_lease(self, payload: dict, *,
+                        timeout_s: "float | None" = None) -> dict:
+        """Request (or idempotently re-request) a slice lease from the
+        home federation ledger (``OP_FED_LEASE``; wire.py documents the
+        payload and reply fields)."""
+        return await self._fed_call(wire.OP_FED_LEASE, payload, timeout_s)
+
+    async def fed_renew(self, payload: dict, *,
+                        timeout_s: "float | None" = None) -> dict:
+        """Renew a lease: report the region's monotonic admitted total
+        and demand, extend the TTL, adopt any slice resize
+        (``OP_FED_RENEW``; absorbing — replay-safe)."""
+        return await self._fed_call(wire.OP_FED_RENEW, payload, timeout_s)
+
+    async def fed_reclaim(self, payload: dict, *,
+                          timeout_s: "float | None" = None) -> dict:
+        """Return a slice to the pool (``OP_FED_RECLAIM``; idempotent by
+        lease id — a duplicate replays the recorded result)."""
+        return await self._fed_call(wire.OP_FED_RECLAIM, payload,
+                                    timeout_s)
+
     async def ping(self, *, timeout_s: "float | None" = None) -> None:
         await self._request(wire.OP_PING, timeout_s=timeout_s)
 
@@ -1593,8 +1662,3 @@ class RemoteBucketStore(BucketStore):
             "snapshot/restore runs on the server's store — durable state "
             "lives with the store, clients are stateless"
         )
-
-
-# The JAX client's other lane: federation.
-for _name in ("fed_lease", "fed_renew", "fed_reclaim"):
-    setattr(RemoteBucketStore, _name, _not_ported(_name))

@@ -86,10 +86,13 @@ the window. Without a successor (or when the drain fails) the state goes to
 the final checkpoint. The console's ``--drain-to HOST:PORT`` drains on
 SIGTERM.
 
-An op the JAX server serves but this one does not yet (federation) answers
-a routable error that names it as not served — never the "unknown op" /
-"unknown bulk kind" text, which a JAX client reads as an old peer and
-silently falls back from.
+Every op of the wire is served, the federation lane too: a home's
+``OP_FED_LEASE`` / ``OP_FED_RENEW`` / ``OP_FED_RECLAIM`` reach the
+store-attached :class:`~.federation.FederationLedger` (created by the first
+frame, or configured before ``start`` with ``store.federation_ledger(...)``),
+and a region's :class:`~.federation.RegionFederation` assigned to
+``federation_agent`` rides ``OP_STATS`` and the
+``drl_federation_region_*`` families.
 
 Run it with ``python -m distributedratelimiting.redis_tpu_torch.runtime.server``
 (a ``DeviceBucketStore`` on ``cuda`` unless ``--device cpu`` is given, a
@@ -134,10 +137,6 @@ from distributedratelimiting.redis_tpu_torch.utils.metrics import (
 
 __all__ = ["BucketStoreServer", "main"]
 
-#: Ops the JAX server serves that this one does not yet. Each answers a
-#: routable error that never reads as "unknown op" (see the module doc).
-_UNPORTED_OPS = frozenset((
-    wire.OP_FED_LEASE, wire.OP_FED_RENEW, wire.OP_FED_RECLAIM))
 #: Scalar keyed admission ops fed to the heavy-hitter sketch. A module
 #: constant: an inline tuple would rebuild from four global lookups on
 #: every request.
@@ -149,20 +148,12 @@ _HOT_KEYED_OPS = frozenset(
 _PLACEMENT_GATED_OPS = frozenset(
     (wire.OP_ACQUIRE, wire.OP_WINDOW, wire.OP_FWINDOW, wire.OP_SEMA,
      wire.OP_PEEK, wire.OP_SYNC))
-#: Bulk kinds the JAX server serves that this one does not yet: none.
-_UNPORTED_BULK_KINDS: dict[int, str] = {}
-
 
 #: The deferral a draining server answers for a gated op the envelope has
 #: no value for (PEEK, SYNC, SEMA, a release), byte for byte the JAX
 #: server's.
 _DRAINING = (f"{placement.HANDOFF_DEFERRAL_PREFIX}: server is draining to "
              "its successor; retry shortly")
-
-
-def _not_served(what: str) -> str:
-    return (f"{what} is not served by this server yet (the PyTorch store "
-            "server has not ported it)")
 
 
 def _recover_seq(body: bytes) -> int:
@@ -327,6 +318,11 @@ class BucketStoreServer:
             self.reservations.liveconfig = self.liveconfig
         else:
             self.reservations = None
+        #: Region-side federation agent, when this process hosts one (an
+        #: embedder or the controller wiring assigns it): its
+        #: partition/degraded counters ride OP_STATS and the
+        #: drl_federation_region_* families.
+        self.federation_agent = None
         # The elastic-membership half: the epoch-versioned placement map and
         # the handoff state. Dormant (one attribute read a request) until a
         # coordinator announces a map (OP_PLACEMENT_ANNOUNCE).
@@ -567,8 +563,7 @@ class BucketStoreServer:
 
     def _build_registry(self) -> MetricsRegistry:
         """The JAX server's families, in its order and with its names and
-        help text, less the ones over state the port has not got (ROADMAP
-        Queue A): federation. They are left out, not rendered as zeros."""
+        help text."""
         reg = MetricsRegistry()
         reg.counter("connections_served", "Accepted TCP connections",
                     lambda: (self._native.counts()[1]
@@ -731,6 +726,41 @@ class BucketStoreServer:
             "and the retry-shed gate)",
             lambda: self._retry_numeric_stats(),
             counters={"attempts_seen", "shed", "grants", "reserves"})
+        # Global quota federation (runtime/federation.py). Read
+        # dynamically: the home ledger materializes on the first OP_FED_*
+        # frame and the region agent is attached by an embedder — both may
+        # postdate the first scrape.
+        reg.register_numeric_dict(
+            "federation", "WAN federation ledger (home side)",
+            lambda: (self.federation.numeric_stats()
+                     if self.federation is not None
+                     and self.federation.active else None),
+            counters={"leases_granted", "lease_duplicates",
+                      "lease_denied", "renews", "renew_unknown",
+                      "resizes", "reclaims", "reclaim_duplicates",
+                      "reclaim_unknown", "leases_expired", "heals",
+                      "charged_tokens", "conservative_tokens",
+                      "refunded_tokens", "debts_created",
+                      "debt_tokens_created", "debt_tokens_collected",
+                      "restores"})
+        reg.labeled_gauges(
+            "federation_slice_share",
+            "Leased share of each global tenant budget per region "
+            "(slice utilization — Σ over regions <= 1 per tenant)",
+            lambda: ([({"tenant": t, "region": r}, s)
+                      for t, r, s in self.federation.shares()]
+                     if self.federation is not None else []))
+        reg.register_numeric_dict(
+            "federation_region",
+            "WAN federation agent (region side): partition/degraded "
+            "counters",
+            lambda: (self.federation_agent.numeric_stats()
+                     if self.federation_agent is not None else None),
+            counters={"leases_acquired", "lease_failures", "renews",
+                      "renew_failures", "partition_errors",
+                      "degraded_entries", "heals", "slice_updates",
+                      "stale_slice_replies", "reclaims",
+                      "fed_fallbacks"})
         if self.flight_recorder is not None:
             reg.register_numeric_dict(
                 "flight", "flight recorder",
@@ -1073,11 +1103,6 @@ class BucketStoreServer:
                 # Python string per key. One frame = one store bulk call.
                 seq, keys, counts, a, b, with_rem, kind = (
                     wire.decode_bulk_request(body, as_view=True))
-                if kind in _UNPORTED_BULK_KINDS:
-                    return wire.encode_response(
-                        seq, wire.RESP_ERROR, _not_served(
-                            f"bulk kind {kind} "
-                            f"({_UNPORTED_BULK_KINDS[kind]})"))
                 if kind == wire.BULK_KIND_HBUCKET:
                     return await self._serve_bulk_hier(
                         seq, body, keys, counts, a, b, with_rem)
@@ -1171,10 +1196,7 @@ class BucketStoreServer:
                     hh.offer(key, count)
                 else:
                     hh.offer_buffered(key)
-            if op in _UNPORTED_OPS:
-                resp = wire.encode_response(
-                    seq, wire.RESP_ERROR, _not_served(wire.op_name(op)))
-            elif op == wire.OP_ACQUIRE:
+            if op == wire.OP_ACQUIRE:
                 res = await self.store.acquire(key, count, a, b)
                 granted = res.granted
                 if granted:
@@ -1228,6 +1250,11 @@ class BucketStoreServer:
                 resp = await self._serve_reserve(seq, json.loads(key))
             elif op == wire.OP_SETTLE:
                 resp = await self._serve_settle(seq, json.loads(key))
+            elif op in (wire.OP_FED_LEASE, wire.OP_FED_RENEW,
+                        wire.OP_FED_RECLAIM):
+                await faults.seam("server.federation")
+                resp = await self._serve_federation(seq, op,
+                                                    json.loads(key))
             elif op == wire.OP_PING:
                 resp = wire.encode_response(seq, wire.RESP_EMPTY)
             elif op == wire.OP_SAVE:
@@ -1683,6 +1710,40 @@ class BucketStoreServer:
              "remaining": res.remaining, "debt": res.debt,
              "duplicate": res.duplicate}))
 
+    # -- global quota federation dispatch (runtime/federation.py) ------------
+    @property
+    def federation(self):
+        """The store-attached home ledger, or ``None`` until the first
+        federation frame creates it (non-home servers never pay for one) —
+        read dynamically so the registry and stats callables see it the
+        moment it exists."""
+        return getattr(self.store, "_federation", None)
+
+    def _fed_ledger(self):
+        """Get-or-create the home ledger, wired into THIS server's
+        observability plane (the reservations re-wire posture: a store
+        re-fronted by a new server must see the new plane)."""
+        led = self.store.federation_ledger()
+        led.flight_recorder = self.flight_recorder
+        led.velocity = self.token_velocity
+        return led
+
+    async def _serve_federation(self, seq: int, op: int,
+                                req: dict) -> bytes:
+        """One federation control frame at the home: lease / renew /
+        reclaim against the store-attached :class:`~.federation.
+        FederationLedger`. All three are post-send-retry-safe (lease and
+        reclaim replay recorded results, renew is absorbing) — validation
+        failures answer the routable error, the ledger untouched."""
+        led = self._fed_ledger()
+        if op == wire.OP_FED_LEASE:
+            out = await led.lease(req)
+        elif op == wire.OP_FED_RENEW:
+            out = await led.renew(req)
+        else:
+            out = await led.reclaim(req)
+        return wire.encode_response(seq, wire.RESP_TEXT, json.dumps(out))
+
     async def _serve_settle(self, seq: int, req: dict) -> bytes:
         """One ``OP_SETTLE`` frame: reconcile a reservation's actual cost
         (idempotent by rid: a retry replays the recorded result)."""
@@ -2006,6 +2067,12 @@ class BucketStoreServer:
             payload["goodput"] = goodput
         if any(retry.values()) or self.retry_shed_enabled:
             payload["retry"] = retry
+        if self.federation is not None and self.federation.active:
+            # stats() piggybacks one monotonic-expiry pass — a
+            # scraped-but-idle home still expires unrenewed leases.
+            payload["federation"] = self.federation.stats()
+        if self.federation_agent is not None:
+            payload["federation_region"] = self.federation_agent.stats()
         if self.flight_recorder is not None:
             payload["flight_recorder"] = self.flight_recorder.snapshot()
         if self.tracer.enabled:

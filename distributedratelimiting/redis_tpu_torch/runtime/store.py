@@ -383,6 +383,24 @@ class BucketStore(abc.ABC):
                 self, **kwargs)
         return led
 
+    # -- global quota federation (runtime/federation.py) -------------------
+    def federation_ledger(self, **kwargs):
+        """Get-or-create this store's :class:`~.federation.
+        FederationLedger` — ONE ledger per store (the
+        ``reservation_ledger`` pattern), shared by the server's OP_FED_*
+        dispatch and the checkpoint attachment lane (runtime/checkpoint.py
+        snapshots and restores its lease state beside the bucket tables,
+        so a home restart resumes every lease). ``kwargs`` configure the
+        ledger on FIRST creation only."""
+        led = getattr(self, "_federation", None)
+        if led is None:
+            from distributedratelimiting.redis_tpu_torch.runtime.federation import (
+                FederationLedger,
+            )
+
+            led = self._federation = FederationLedger(self, **kwargs)
+        return led
+
     async def reserve(self, rid: str, tenant: str, key: str,
                       estimate: "float | None",
                       tenant_capacity: float,
@@ -557,17 +575,6 @@ class BucketStore(abc.ABC):
         from distributedratelimiting.redis_tpu_torch.runtime import placement
 
         return placement.extract_entries(self.snapshot(), keep)
-
-
-def _not_ported(name: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}.{name} is not ported to the PyTorch "
-            "package yet")
-
-    method.__name__ = name
-    return method
-
 
 
 def start_periodic_sweeper(sweep_all: Callable[[], None],

@@ -513,8 +513,14 @@ def test_hierarchical_four_pairings():
 
 
 def test_port_server_serves_the_hierarchical_bulk_kind():
-    assert not pserver._UNPORTED_BULK_KINDS
-    assert pw.OP_ACQUIRE_H not in pserver._UNPORTED_OPS
+    # Every op and bulk kind is served since the federation lane was
+    # ported: the tables of unserved ops are gone, and the dispatch names
+    # OP_ACQUIRE_H and the hierarchical bulk kind.
+    assert not hasattr(pserver, "_UNPORTED_BULK_KINDS")
+    assert not hasattr(pserver, "_UNPORTED_OPS")
+    import inspect
+    src = inspect.getsource(pserver.BucketStoreServer._handle_frame_inner)
+    assert "wire.OP_ACQUIRE_H" in src and "BULK_KIND_HBUCKET" in src
 
 
 @pytest.mark.parametrize("old", ["op", "bulk"])

@@ -13,6 +13,10 @@
   residues and witness deltas — equals the JAX server's on the same seed;
   the same seed gives the same schedule twice; ``OP_AUDIT``, ``GET /audit``
   and the ``drl_audit_*`` families serve it.
+- The federation cover identity: a home's ledger fed leases, renews and a
+  reclaim over the wire gives the JAX server's conservation, residues and
+  ε use tick for tick (exact: whole-token flows on a rate-0 budget), and
+  no breach or alert.
 """
 
 from __future__ import annotations
@@ -367,3 +371,86 @@ def test_tier0_and_shard_epsilon_identity_as_jax(steps):
     if sum(slices):
         assert last["shard"] == max(slices) / sum(slices)
     port._native = jax._native = None
+
+
+# -- the federation cover identity (JAX tests/test_audit.py:212 and :485) ------
+
+async def _fed_audit(jax: bool, flow: str) -> dict:
+    """A home's ledger over the wire, then auditor ticks. ``cover``: one
+    lease and a renew of 25 tokens, then one tick (JAX ``test_audit.py``'s
+    cover identity); ``flow``: three leases, two renews and a reclaim,
+    then six ticks under the soak's SLO windows (its federation flow that
+    raises nothing). Returns the ledger's conservation and each tick's
+    residues, breaches, alerts and ε use."""
+    if jax:
+        Server, Remote = JServer, JRemote
+        store = JInProcess()
+        cfg = _soak_cfg(JAuditConfig, JSLO)
+    else:
+        Server, Remote = BucketStoreServer, RemoteBucketStore
+        store = DeviceBucketStore(device="cpu", n_slots=1024)
+        cfg = _soak_cfg(AuditConfig, SLOConfig)
+    store.federation_ledger(default_ttl_s=30.0)
+    srv = Server(store, port=0, audit=cfg)
+    await srv.start()
+    await _drain_audit_task(srv)
+    st = Remote(address=(srv.host, srv.port), coalesce_requests=False)
+    ticks = []
+    try:
+        if flow == "cover":
+            r = await st.fed_lease({"region": "r0", "lease_id": "L1",
+                                    "tenant": "t", "demand": 2.0,
+                                    "global_cap": 600.0,
+                                    "global_rate": 0.0})
+            assert r["granted"]
+            n = await st.fed_renew({"region": "r0", "lease_id": "L1",
+                                    "tenant": "t", "total": 25.0,
+                                    "demand": 2.0})
+            assert n["outcome"] == "ok"
+        else:
+            for rid in ("A", "B", "C"):
+                r = await st.fed_lease({"region": f"r{rid}",
+                                        "lease_id": rid, "tenant": "t",
+                                        "demand": 1.0,
+                                        "global_cap": 600.0,
+                                        "global_rate": 0.0})
+                assert r["granted"]
+            for rid in ("A", "B"):
+                await st.fed_renew({"region": f"r{rid}", "lease_id": rid,
+                                    "tenant": "t", "total": 10.0,
+                                    "demand": 1.0})
+            await st.fed_reclaim({"region": "rC", "lease_id": "C",
+                                  "tenant": "t", "total": 5.0})
+        fc = srv.federation.conservation()
+        for _ in range(1 if flow == "cover" else 6):
+            out = srv.auditor.tick()
+            ticks.append({"residues": out["residues"],
+                          "breaches": out["breaches"],
+                          "alerts": out["alerts"],
+                          "epsilon": dict(srv.auditor.epsilon_used)})
+        return {"conservation": fc, "ticks": ticks,
+                "bundles": srv.auditor.bundles_assembled}
+    finally:
+        await st.aclose()
+        await srv.aclose()
+
+
+def test_federation_cover_identity_nonnegative_as_jax():
+    mine = asyncio.run(_fed_audit(False, "cover"))
+    theirs = asyncio.run(_fed_audit(True, "cover"))
+    fc = mine["conservation"]
+    # Charges (+ conservative pending) cover the regional reports.
+    assert fc["residue"] >= -1e-6
+    assert fc["admitted"] == pytest.approx(25.0)
+    assert "federation" not in mine["ticks"][0]["breaches"]
+    assert "federation" in mine["ticks"][0]["residues"]
+    assert mine == theirs
+
+
+def test_federation_flow_raises_nothing_as_jax():
+    mine = asyncio.run(_fed_audit(False, "flow"))
+    theirs = asyncio.run(_fed_audit(True, "flow"))
+    for t in mine["ticks"]:
+        assert t["breaches"] == [] and t["alerts"] == []
+    assert mine["bundles"] == 0
+    assert mine == theirs

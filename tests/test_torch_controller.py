@@ -17,10 +17,11 @@
   the grants and the shed levels. The port fleet's ``Sensors`` sequence
   then goes to both packages' ``decide`` (and to a dry-run port twin):
   equal intents and equal state after each tick.
-- ``ControllerConfig``'s validation, ``federation=`` refused until it is
-  ported, the server's ``controller`` families, OP_STATS section and the
-  auditor's incident bundle (its ``controller_actions``), and the
-  console's ``--controller`` flags parsed and armed.
+- ``ControllerConfig``'s validation, the server's ``controller`` families,
+  OP_STATS section and the auditor's incident bundle (its
+  ``controller_actions``), and the console's ``--controller`` flags parsed
+  and armed. The federation actuator's cadence and dry-run parity are in
+  ``tests/test_torch_federation.py``.
 """
 
 from __future__ import annotations
@@ -396,7 +397,7 @@ def test_unit_scenarios_hold_jax_expectations():
     assert tcalls == [] and {a["outcome"] for a in acts} == {"noop"}
 
 
-# -- config validation, federation, the surfaces -------------------------------
+# -- config validation, the surfaces ------------------------------------------
 
 @pytest.mark.parametrize("kw", [
     dict(shed_high=0.5, shed_low=0.5), dict(tick_s=0.0),
@@ -421,13 +422,6 @@ def test_config_defaults_and_sensor_series_as_jax():
     assert pctl.__all__ == jctl.__all__
     assert [f.name for f in dataclasses.fields(pctl.Sensors)] == \
         [f.name for f in dataclasses.fields(jctl.Sensors)]
-
-
-def test_federation_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="A 11"):
-        pctl.Controller(FakeCluster([]), federation=object())
-    assert pctl.Controller(FakeCluster([]), federation=None).federation \
-        is None
 
 
 def test_tick_seam_fault_fails_the_tick_as_jax():

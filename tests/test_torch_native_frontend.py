@@ -635,6 +635,61 @@ def test_save_checkpoint_through_native_server(backing, tmp_path):
     run(body())
 
 
+@pytest.mark.parametrize("backing", BACKINGS)
+def test_federation_ops_ride_the_passthrough_lane(backing):
+    """OP_FED_LEASE / RENEW / RECLAIM reach the home's ledger through the
+    native front-end's passthrough lane: the replies equal those of an
+    asyncio server over the same store kind, and the ledger's counters
+    and the ``drl_federation_*`` families show the frames."""
+    class Mono:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    lease = {"region": "r0", "lease_id": "L1", "tenant": "g",
+             "demand": 2.0, "global_cap": 600.0, "global_rate": 0.0}
+    renew = {"region": "r0", "lease_id": "L1", "tenant": "g",
+             "total": 25.0, "demand": 2.0}
+
+    async def flow(native_frontend):
+        store = _store(backing)
+        mono = Mono()
+        store.federation_ledger(clock=mono, default_ttl_s=6.0)
+        srv = BucketStoreServer(store, native_frontend=native_frontend)
+        await srv.start()
+        cli = _client(srv)
+        try:
+            out = [await cli.fed_lease(lease), await cli.fed_lease(lease),
+                   await cli.fed_renew(renew)]
+            mono.t = 2.0
+            out += [await cli.fed_renew(dict(renew, total=30.0)),
+                    await cli.fed_reclaim(dict(renew, total=40.0)),
+                    await cli.fed_reclaim(dict(renew, total=40.0)),
+                    await cli.fed_renew(dict(renew, lease_id="L9"))]
+            with pytest.raises(wire.RemoteStoreError, match="global_cap"):
+                await cli.fed_lease(dict(lease, lease_id="L3",
+                                         global_cap=0.0))
+            text = await cli.metrics()
+            return out, srv.federation.numeric_stats(), text
+        finally:
+            await cli.aclose()
+            await srv.aclose()
+            await store.aclose()
+
+    async def body():
+        return await flow(True), await flow(False)
+
+    (got, stats, text), (want, want_stats, _) = run(body())
+    assert got == want and stats == want_stats
+    assert got[0]["granted"] and got[1]["duplicate"]
+    assert [r["outcome"] for r in got[2:]] == [
+        "ok", "ok", "reclaimed", "duplicate", "unknown"]
+    assert stats["leases_granted"] == 1 and stats["renews"] == 2
+    assert stats["charged_tokens"] == 40.0
+    assert "drl_federation_reclaims_total 1" in text
+
+
 def test_native_batching_knobs_configurable():
     """max_batch=1 forces one flush a request: the knob reaches C."""
     async def body():

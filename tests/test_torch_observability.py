@@ -522,16 +522,92 @@ def test_served_trace_metrics_match_jax(backing):
     extra = {f for f in mine_families - jax_families
              if not f.startswith(("drl_store_", "drl_flight_"))}
     assert extra == set()
-    # The families JAX renders and the port leaves out: state the port has
-    # not got (ROADMAP Queue C) — never rendered as zeros. The port's store
-    # renders JAX's counters but the Pallas sweep's failures (it has no
-    # Pallas sweep).
+    # The families JAX renders and the port leaves out — never rendered as
+    # zeros: the Pallas sweep's failures (the port has no Pallas sweep) and
+    # the flight families of this trace. Federation renders as JAX's.
     left_out = {f for f in jax_families - mine_families}
     assert left_out <= {
-        "drl_store_pallas_sweep_failures",
-        "drl_federation_slice_share", "drl_flight_frames",
+        "drl_store_pallas_sweep_failures", "drl_flight_frames",
         "drl_flight_frames_recorded", "drl_flight_dumps_written",
         "drl_flight_dumps_suppressed"}, left_out
+    assert "drl_federation_slice_share" in mine_families
+
+
+class _Mono:
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+@pytest.mark.parametrize("backing", ["inprocess", "device"])
+def test_federation_families_render_as_jax(backing):
+    """A home with an active ledger (leases, renews, a reclaim, an expiry
+    and its heal on a manual monotonic clock) and a region agent attached
+    to the server render JAX's ``drl_federation_*``,
+    ``drl_federation_slice_share`` and ``drl_federation_region_*`` families:
+    the same HELP and TYPE lines and the same samples."""
+    from distributedratelimiting.redis_tpu.runtime.federation import (
+        RegionFederation as JRegion,
+    )
+    from distributedratelimiting.redis_tpu_torch.runtime.federation import (
+        RegionFederation,
+    )
+
+    def port_store():
+        if backing == "inprocess":
+            return InProcessBucketStore(clock=ManualClock(START))
+        return DeviceBucketStore(device="cpu", n_slots=1024,
+                                 clock=ManualClock(START))
+
+    async def run(store, Server, Remote, Region):
+        mono = _Mono()
+        store.federation_ledger(clock=mono, default_ttl_s=6.0)
+        srv = Server(store, audit=False)
+        await srv.start()
+        cli = Remote(address=(srv.host, srv.port), coalesce_requests=False)
+        try:
+            for i, region in enumerate(("r0", "r1", "r2")):
+                for t, cap in (("g:a", 600.0), ("g:b", 900.0)):
+                    await cli.fed_lease({
+                        "region": region, "lease_id": f"{region}{t}",
+                        "tenant": t, "demand": 1.0 + i,
+                        "global_cap": cap, "global_rate": 2.0})
+            mono.t = 2.0
+            await cli.fed_renew({"region": "r0", "lease_id": "r0g:a",
+                                 "tenant": "g:a", "total": 30.0,
+                                 "demand": 9.0})
+            await cli.fed_reclaim({"region": "r1", "lease_id": "r1g:b",
+                                   "tenant": "g:b", "total": 12.0})
+            mono.t = 7.0   # every lease but r0's renewed one expires
+            await cli.fed_renew({"region": "r2", "lease_id": "r2g:a",
+                                 "tenant": "g:a", "total": 5.0,
+                                 "demand": 1.0})
+            srv.federation_agent = Region(
+                "rX", cli, tenants={"g:a": (600.0, 2.0)}, ttl_s=6.0,
+                clock=_Mono())
+            return await asyncio.wait_for(cli.metrics(), LIMIT_S)
+        finally:
+            await cli.aclose()
+            await srv.aclose()
+
+    mine = asyncio.run(run(port_store(), BucketStoreServer,
+                           RemoteBucketStore, RegionFederation))
+    theirs = asyncio.run(run(JInProcess(clock=JClock(START)), JServer,
+                             JRemote, JRegion))
+
+    def fed_lines(text):
+        return [ln for ln in text.splitlines() if "drl_federation" in ln]
+
+    got, want = fed_lines(mine), fed_lines(theirs)
+    assert got == want
+    names = set(pm.parse_openmetrics(mine)[0])
+    for fam in ("drl_federation_leases_granted", "drl_federation_heals",
+                "drl_federation_slice_share",
+                "drl_federation_region_renews"):
+        assert fam in names, fam
+    assert 'drl_federation_slice_share{tenant="g:a",region="r0"}' in mine
 
 
 def test_jax_client_reads_the_port_servers_plane(tmp_path):

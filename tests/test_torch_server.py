@@ -17,9 +17,10 @@ consumption, as in ``tests/test_torch_store.py``). A denied row's remaining
 is not compared: it depends on how a burst's requests split into flushes,
 which timing decides in either package.
 
-Also: HELLO auth, the version gate, deadline shedding, the not-served
-answer of unported ops (never "unknown op", which the JAX client would take
-for an old peer), ``OP_SAVE`` files restored across packages, the key-blob
+Also: HELLO auth, the version gate, deadline shedding, every op of the wire
+served as a JAX server serves it (the control and federation ops answer the
+JAX server's bytes; only an op no server knows answers "unknown op"),
+``OP_SAVE`` files restored across packages, the key-blob
 lane through the store, the periodic sweeper, the limiters over a remote
 store, client timeouts and dial failures, the console entry point, and the
 new modules' independence from JAX.
@@ -339,54 +340,67 @@ async def _stats(address):
 def test_unported_ops_answer_without_the_old_peer_words():
     async def main():
         async with _Server("port") as srv:
-            # OP_SEMA, OP_ACQUIRE_H and every bulk kind (the hierarchical
-            # one too) are served since the semaphores and the two-level
-            # admission were ported.
-            assert not pserver._UNPORTED_BULK_KINDS
-            assert not {pw.OP_SEMA, pw.OP_ACQUIRE_H} & pserver._UNPORTED_OPS
-            # Since live config: only federation remains; the four
-            # placement ops and OP_CONFIG (a fetch, an abort, an unknown
-            # form, a stale prepare) answer as a JAX server does.
-            assert pserver._UNPORTED_OPS == {
-                pw.OP_FED_LEASE, pw.OP_FED_RENEW, pw.OP_FED_RECLAIM}
-            placement_frames = [pw.encode_request(
+            # Every op and bulk kind is served since the federation lane
+            # was ported: the gap's tables and their error are gone.
+            for name in ("_UNPORTED_OPS", "_UNPORTED_BULK_KINDS",
+                         "_not_served"):
+                assert not hasattr(pserver, name), name
+            # The four placement ops, OP_CONFIG (a fetch, an abort, an
+            # unknown form, a stale prepare) and the three federation ops
+            # (a malformed lease, a grant, its replay, a renew, an unknown
+            # lease's renew, a reclaim and its replay, a traced lease)
+            # answer as a JAX server does, byte for byte.
+            frames = [pw.encode_request(
                 300 + i, op, "{}", 1, 5.0, 1.0) for i, op in enumerate(
                     (pw.OP_PLACEMENT, pw.OP_PLACEMENT_ANNOUNCE,
                      pw.OP_MIGRATE_PULL, pw.OP_MIGRATE_PUSH, pw.OP_CONFIG))]
-            placement_frames += [pw.encode_request(
+            frames += [pw.encode_request(
                 310 + i, pw.OP_CONFIG, json.dumps(body), 1, 5.0, 1.0)
                 for i, body in enumerate((
                     {"abort": 3}, {"bogus": 1},
                     {"prepare": {"kind": "bucket", "old": [5.0, 1.0],
                                  "new": [4.0, 1.0]}, "version": 0}))]
-            got, closed = await _raw(srv.address, *placement_frames)
-            assert not closed
+            lease = {"region": "r0", "lease_id": "L1", "tenant": "g",
+                     "demand": 2.0, "global_cap": 600.0,
+                     "global_rate": 0.0}
+            renew = {"region": "r0", "lease_id": "L1", "tenant": "g",
+                     "total": 25.0, "demand": 2.0}
+            fed = ((pw.OP_FED_LEASE, {}), (pw.OP_FED_LEASE, lease),
+                   (pw.OP_FED_LEASE, lease), (pw.OP_FED_RENEW, renew),
+                   (pw.OP_FED_RENEW, dict(renew, lease_id="L9")),
+                   (pw.OP_FED_RECLAIM, dict(renew, total=40.0)),
+                   (pw.OP_FED_RECLAIM, dict(renew, total=40.0)),
+                   (pw.OP_FED_LEASE, dict(lease, global_cap=-1.0)))
+            frames += [pw.encode_request(320 + i, op, json.dumps(body), 1,
+                                         5.0, 1.0)
+                       for i, (op, body) in enumerate(fed)]
+            frames.append(pw.encode_request(
+                340, pw.OP_FED_LEASE, json.dumps(dict(lease, lease_id="L2")),
+                1, 5.0, 1.0, trace=(1, 2, 3, 1)))
+            frames.append(bytes([6, 0, 0, 0, 4, 99, 0, 0, 0, 30]))  # no op 30
+            got, closed = await _raw(srv.address, *frames)
+            assert not closed and len(got) == len(frames)
             async with _Server("jax") as jsrv:
-                want, _ = await _raw(jsrv.address, *placement_frames)
+                want, _ = await _raw(jsrv.address, *frames)
             assert got == want
             assert all("not served" not in str(v) for v in got.values())
-            frames = []
-            for op in sorted(pserver._UNPORTED_OPS):
-                frames.append(pw.encode_request(
-                    op, op, "{}" if op in pw.TEXT_OPS else "k", 1, 5.0, 1.0))
-            frames.append(pw.encode_request(200, pw.OP_FED_LEASE, "{}", 1,
-                                            5.0, 1.0, trace=(1, 2, 3, 1)))
-            frames.append(bytes([6, 0, 0, 0, 4, 99, 0, 0, 0, 30]))  # no such op
-            replies, closed = await _raw(srv.address, *frames)
-            assert not closed
-            for seq, (kind, vals) in replies.items():
-                assert kind == pw.RESP_ERROR, seq
-                if seq == 99:
-                    assert vals[0] == "RemoteStoreError('unknown op 30')"
-                    continue
-                assert "not served by this server" in vals[0], (seq, vals)
-                assert "unknown op" not in vals[0]
-                assert "unknown bulk kind" not in vals[0]
-            assert len(replies) == len(frames)
+            assert got[99] == (pw.RESP_ERROR,
+                               ("RemoteStoreError('unknown op 30')",))
+            replies = {seq: json.loads(vals[0])
+                       for seq, (kind, vals) in got.items()
+                       if kind == pw.RESP_TEXT and 321 <= seq <= 326}
+            assert replies[321]["granted"] and replies[322]["duplicate"]
+            assert replies[323]["outcome"] == "ok"
+            assert replies[323]["charged"] == 25.0
+            assert replies[324]["outcome"] == "unknown"
+            assert replies[325]["outcome"] == "reclaimed"
+            assert replies[326]["outcome"] == "duplicate"
+            assert got[320][0] == got[327][0] == pw.RESP_ERROR
+            # The home's global bucket took the reported 40 tokens.
+            assert srv.store.peek_blocking("g", 600.0, 0.0) == 560.0
             # The JAX client's reservation lane, hierarchical and
             # semaphore calls are served: no silent fallback, no latch
             # (two-level, not the flat fallback).
-            assert not {pw.OP_RESERVE, pw.OP_SETTLE} & pserver._UNPORTED_OPS
             cli = JRemote(address=srv.address)
             res = await w(cli.reserve("r1", "t", "k", 2.0, 9.0, 1.0, 5.0,
                                       1.0))
@@ -402,9 +416,8 @@ def test_unported_ops_answer_without_the_old_peer_words():
             assert stats["hier_fallbacks"] == stats["reserve_fallbacks"] == 0
             assert cli._peer_traces and cli._peer_hier
             await cli.aclose()
-            # The unported ops never touched the store; the tenant's bucket
-            # took the reserve's 2 and the two granted costs, the keys'
-            # theirs.
+            # The tenant's bucket took the reserve's 2 and the two granted
+            # costs, the keys' theirs.
             assert srv.store.peek_blocking("k", 5.0, 1.0) == 3.0
             assert srv.store.peek_blocking("hk", 5.0, 1.0) == 3.0
             assert srv.store.peek_blocking("t", 9.0, 1.0) == 5.0
