@@ -287,10 +287,15 @@ Phases (any failure raises, and the script exits non-zero):
    window pressure (8 x 4,096 new keys into 2^16 slots half full) every
    card row left unresolved has a full window, beside the plain version's
    (JAX's R rounds) count; ``fp_debit`` at 4,096 rows (repeats, refunds) and one
-   valid row of 8; ``fp_peek`` at 4,096 (no cell claimed); both sweeps over
-   2^24 slots at a tick that expires about half the table; both migrates
-   from a 2^22-slot table of 1M entries into 2^23 slots in the store's
-   chunks of 4,096. Then, counts reset, ``FingerprintBucketStore(n_slots=
+   valid row of 8; ``fp_peek`` at 4,096 (no cell claimed) and at one
+   valid row of 8 (``peek_blocking``'s shape); both sweeps over 2^24 slots
+   at a tick that expires about half the table; both migrates' table form
+   (growth: one launch a pass) from a 2^22-slot table of 1M entries into
+   2^23 slots against the plain version (JAX's passes in chunks of 4,096),
+   every entry placed, by key and by the invariants, one launch timed
+   beside the zeroing of the new table, then the chunked replay the growth
+   loop ran before (a launch and a readback a chunk of 4,096), its wall
+   seconds and launches. Then, counts reset, ``FingerprintBucketStore(n_slots=
    2^24)`` beside a host-directory ``DeviceBucketStore`` of 2^24 slots on
    one ManualClock: 10M distinct keys through ``acquire_many`` in calls of
    1M (the cold pass claims, the warm pass verdict-only), grants and
@@ -302,8 +307,9 @@ Phases (any failure raises, and the script exits non-zero):
    equal (as the cold pass); a snapshot round trip of the fp store (peeks equal); a day later
    ``sweep_all`` frees every slot and every cell, as many as the host
    store's; a 2^20-slot fp store fed 2M keys (buckets, then sliding
-   windows; pressure-denied rows sent again) growing at least twice, peeks
-   and next window grants equal to a host store's; no key through the
+   windows; pressure-denied rows sent again) growing at least twice (each
+   growth's wall seconds and the store lock's longest hold during it),
+   peeks and next window grants equal to a host store's; no key through the
    Python hash (the native library loaded); the console server with
    ``--directory fp`` as in phase 11.
 15. The key-sharded mesh store (``--paths mesh``; ``parallel/`` over
@@ -314,7 +320,9 @@ Phases (any failure raises, and the script exits non-zero):
    1 x 65,536, both cadences, fresh and live counters, equal bit for bit;
    ``fp_acquire_scan`` and ``fp_window_scan`` with 8 shard regions at 8 x
    4,096 rows on 2^24-slot tables, ``fp_peek`` and ``fp_migrate`` at 4,096,
-   by key and by the regions' invariants. Then, counts reset,
+   and ``fp_migrate``'s table form from a 2^22-slot table of 1M entries in 8
+   regions into 2^23 slots (the plain version in the mesh tier's chunks of
+   512 a region), by key and by the regions' invariants. Then, counts reset,
    ``MeshBucketStore`` over a mesh of 8 x ``cuda`` with 2^21 slots a shard,
    10M distinct keys through ``acquire_many`` in calls of 1M against a
    single-table ``DeviceBucketStore`` of 2^24 slots on the same keys and
@@ -324,8 +332,8 @@ Phases (any failure raises, and the script exits non-zero):
    cadence's device ms of a 1M-key call (decisions, ``global_tier``); the
    sliding and fixed window tiers at 10M keys equal; a snapshot of the
    10M-key store restored (state, counter and 10,000 peeks equal);
-   ``directory="fp"`` cold (growth allowed; unresolved rows sent again once)
-   and warm, equal; a ``BucketStoreServer`` over an 8-shard store with a
+   ``directory="fp"`` cold (growth allowed and timed; unresolved rows sent
+   again once) and warm, equal; a ``BucketStoreServer`` over an 8-shard store with a
    client process (``chip_smoke.py --mesh-client``): a 1M-key bulk and
    4,000 ``acquire_async``, ``OP_STATS``' tiers; the console server with
    ``--backend mesh --sync-cadence launch`` as in phase 11.
@@ -655,17 +663,22 @@ def _median_ms(fn, setup=None, reps=REPS, warmup=3, inner=1) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel_names, reps=20):
+def _device_ms(fn, kernel_names, reps=20, setup=None):
     """Device time per call of the named CUDA kernels, summed from a
-    ``torch.profiler`` trace of ``reps`` calls; ``None`` if the trace holds
-    no device time for them."""
+    ``torch.profiler`` trace of ``reps`` calls (each after ``setup``, whose
+    kernels are not named); ``None`` if the trace holds no device time for
+    them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if setup is not None:
+        setup()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if setup is not None:
+                setup()
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", 0.0)
@@ -6605,11 +6618,13 @@ def _fp_same_by_key(F, what, cpu, dev, keys, n_shards: int = 1) -> tuple:
     return n_d, err
 
 
-def _fp_time(torch, name: str, call, plain=None) -> dict:
+def _fp_time(torch, name: str, call, plain=None, setup=None) -> dict:
     """A launch's event ms (median), its kernels' device ms (profiler) and,
-    where given, its plain version's ms."""
-    out = {"ms": _median_ms(call, reps=10, warmup=2),
-           "device_ms": _device_ms(call, FP_KERNEL_NAMES[name], reps=10)}
+    where given, its plain version's ms; ``setup`` (untimed) runs before
+    each call."""
+    out = {"ms": _median_ms(call, setup=setup, reps=10, warmup=2),
+           "device_ms": _device_ms(call, FP_KERNEL_NAMES[name], reps=10,
+                                   setup=setup)}
     if plain is not None:
         out["plain_ms"] = _median_ms(plain, reps=2, warmup=0)
     return out
@@ -6643,6 +6658,84 @@ def _fp_kernel_phase(torch, ck, card: str) -> None:
     fp_kernel_cases(torch, K, F, ck, torch.device("cuda"),
                     np.random.default_rng(FP_SEED))
     print(f"fp kernel cases ({card}): {time.perf_counter() - t0:.1f} s")
+
+
+def _fp_fresh(torch, F, cls, n: int, like, dev=None):
+    """An empty table of ``n`` cells, its state of ``like``'s family."""
+    return (F.init_fp_table(n, dev or "cpu"),
+            cls(*(torch.zeros(n, dtype=t.dtype, device=dev or "cpu")
+                  for t in like)))
+
+
+def _fp_migrate_case(torch, K, F, ck, dev, name, keys, old, n_shards: int,
+                     chunk: int, case: str, first: bool) -> None:
+    """Growth's table form from ``old`` (a CPU table) into twice its size,
+    on the card and in the plain version (JAX's passes, chunks of
+    ``chunk`` a region): every entry placed on both sides, one launch a
+    pass, the card's table held by key and by the invariants; then one
+    launch timed into a zeroed table (the zeroing untimed, printed on its
+    own line)."""
+    from distributedratelimiting.redis_tpu_torch.runtime.fp_store import (
+        migrate_passes,
+    )
+
+    n_new = 2 * old[0].shape[0]
+    cls = type(old[1])
+    entries = int((old[0] != 0).any(1).sum())
+    old_d = _fp_copy(old, dev)
+    new_c = _fp_fresh(torch, F, cls, n_new, old[1])
+    new_d = _fp_fresh(torch, F, cls, n_new, old[1], dev)
+    geometry = dict(probe_window=FP_L, rounds=FP_R, n_shards=n_shards,
+                    chunk=chunk)
+    t = time.perf_counter()
+    left_c, _ = migrate_passes(*new_c, *old, **geometry)
+    plain_s = time.perf_counter() - t
+    l0 = ck.launches[name]
+    t = time.perf_counter()
+    left_d, _ = migrate_passes(*new_d, *old_d, **geometry)
+    card_s = time.perf_counter() - t
+    # The stores' own pass loop: on the card a pass is one launch.
+    passes_d = ck.launches[name] - l0
+    if left_c or left_d or passes_d != 1:
+        raise AssertionError(f"{name} ({case}): {left_d} rows left on the "
+                             f"card in {passes_d} launches, {left_c} in the "
+                             "plain version")
+    n_cells, err = _fp_same_by_key(F, f"{name} ({case})", new_c, new_d, keys,
+                                   n_shards)
+    if n_cells != entries:
+        raise AssertionError(f"{name} ({case}): {n_cells} of {entries} "
+                             "placed")
+    probe = _fp_fresh(torch, F, cls, n_new, old[1], dev)
+
+    def zero():
+        probe[0].zero_()
+        for col in probe[1]:
+            col.zero_()
+
+    def call():
+        return ck.fp_migrate_table(*probe, *old_d, probe_window=FP_L,
+                                   n_shards=n_shards)
+    row = _fp_time(torch, name, call, setup=zero)
+    zero_ms = _median_ms(zero, reps=10, warmup=2)
+    state_b = 9 if cls is K.BucketState else 13
+    row.update(plain_ms=plain_s * 1e3, card_passes=passes_d,
+               card_wall_s=card_s, zero_ms=zero_ms)
+    # Bytes: every old cell read once; for each entry (a live cell) its
+    # state read, its window, the CAS's 8 B and its state written. The
+    # kernel reads no empty cell's state. The new table's zeroing (every
+    # new cell and its state written once) is counted on its own.
+    old_n = old[0].shape[0]
+    nbytes = old_n * 8 + entries * (state_b + FP_L * 8 + 8 + state_b)
+    _fp_record(name, case, row, err, nbytes, FP_L * entries + old_n, first)
+    bound_ms = _bound_ms(nbytes, 0)[0]
+    zero_bound = _bound_ms(n_new * (8 + state_b), 0)[0]
+    print(f"{name} {case}: {entries} entries in {passes_d} launch(es) on "
+          f"the card ({card_s:.3f} s wall with the readback), equal to "
+          f"plain by key, every entry placed (plain: {plain_s:.2f} s); "
+          f"a launch {row['ms']:.4f} ms (device "
+          f"{row['device_ms']} ms, bound {bound_ms:.4f} ms)")
+    print(f"{name} {case}: zeroing the {n_new}-cell table {zero_ms:.4f} ms "
+          f"(bound {zero_bound:.4f} ms), not in the launch's time")
 
 
 def fp_kernel_cases(torch, K, F, ck, dev, rng) -> None:
@@ -6847,6 +6940,27 @@ def fp_kernel_cases(torch, K, F, ck, dev, rng) -> None:
                FP_L * n_valid + 8 * found, True)
     print(f"fp_peek B={BATCH}: equal to plain, no cell claimed; "
           f"{row['ms']:.4f} ms (device {row['device_ms']} ms)")
+    # The shape of the store's peek_blocking: one valid row (a present key)
+    # in a B = 8 operand.
+    kp8 = np.zeros((8, 2), np.uint32)
+    kp8[0] = keys[0]
+    kp8 = torch.from_numpy(kp8.view(np.int32))
+    valid8 = torch.zeros(8, dtype=torch.bool)
+    valid8[0] = True
+    kp8_d, valid8_d = kp8.to(dev), valid8.to(dev)
+    _check_equal("fp_peek B=8", ck.fp_peek(*card, kp8_d, valid8_d, now, cap,
+                                           rate),
+                 ck.fp_peek(*base, kp8, valid8, now, cap, rate))
+    row = _fp_time(torch, "fp_peek", lambda: ck.fp_peek(
+        *card, kp8_d, valid8_d, now, cap, rate),
+        lambda: ck.fp_peek(*base, kp8, valid8, now, cap, rate))
+    # Bytes: 8 pairs, valid bytes and replies; one window and one state.
+    nbytes8 = 9 * 8 + 4 * 8 + FP_L * 8 + 9
+    _fp_record("fp_peek", "B=8, one valid row (peek_blocking)", row, 0.0,
+               nbytes8, FP_L + 8)
+    print(f"fp_peek B=8, one valid row (the shape of peek_blocking): equal "
+          f"to plain; {row['ms']:.4f} ms (device {row['device_ms']} ms, "
+          f"bound {_bound_ms(nbytes8, FP_L + 8)[0]:.7f} ms)")
 
     # -- the sweeps, at a tick that expires about half the table.
     for name, kind in (("fp_sweep", "bucket"), ("fp_sweep_windows",
@@ -6885,85 +6999,58 @@ def fp_kernel_cases(torch, K, F, ck, dev, rng) -> None:
               f"to plain; {row['ms']:.4f} ms (device {row['device_ms']} ms)")
         del cpu, card
 
-    # -- the migrate: a 2^22-slot table's entries into 2^23 slots, in the
-    #    store's chunks of 4,096.
+    # -- the migrate: growth's table form, a 2^22-slot table's entries into
+    #    2^23 slots, one launch a pass on the card, against its plain version
+    #    (JAX's passes, chunks of 4,096); then the chunked replay growth ran
+    #    before (a launch and a readback a chunk of 4,096), the before
+    #    figure on the same entries.
     for name, kind in (("fp_migrate", "bucket"), ("fp_migrate_window",
                                                   "window")):
         keys, old = _fp_base(torch, K, F, rng, FP_MIGRATE_FROM,
                              FP_MIGRATE_ENTRIES, kind)
+        _fp_migrate_case(torch, K, F, ck, dev, name, keys, old, 1, BATCH,
+                         f"table 2^22 -> 2^23, {kind}", True)
+        # The chunked replay (chunk form, the same kernel), held by key to
+        # the old table.
         cells = np.nonzero((old[0] != 0).any(1).numpy())[0]
-        cls = type(old[1])
-        new_c = (F.init_fp_table(2 * FP_MIGRATE_FROM),
-                 cls(*(torch.zeros(2 * FP_MIGRATE_FROM, dtype=t.dtype)
-                       for t in old[1])))
-        new_d = _fp_copy(new_c, dev)
         old_d = _fp_copy(old, dev)
-        chunks = [cells[i:i + BATCH] for i in range(0, len(cells), BATCH)]
-        t_d = t_c = 0.0
-        launches = 0
-        retried = [0, 0]
-        # As the store's _rehash: rows a pass leaves unplaced (a full
-        # window on the card; in the plain version also its R rounds under
-        # in-chunk contention: a chunk of consecutive old cells lands in two
-        # dense regions of the new table) go again in the next pass, each
-        # side on its own.
-        pend = [cells, cells]
+        new_d = _fp_fresh(torch, F, type(old[1]), 2 * FP_MIGRATE_FROM,
+                          old[1], dev)
+        launches, retried = 0, 0
+        t = time.perf_counter()
+        pend = cells
         for _ in range(8):
-            nxt = [[], []]
-            for side, (table, src_t, tdev) in enumerate(
-                    ((new_c, old, None), (new_d, old_d, dev))):
-                for i in range(0, len(pend[side]), BATCH):
-                    idx = pend[side][i:i + BATCH]
-                    ix = torch.from_numpy(idx)
-                    if tdev is not None:
-                        ix = ix.to(tdev)
-                    valid = torch.ones(len(idx), dtype=torch.bool,
-                                       device=ix.device)
-                    t = time.perf_counter()
-                    placed = ck.fp_migrate(*table, src_t[0][ix].contiguous(),
-                                           [c[ix] for c in src_t[1]], valid)
-                    miss = ~placed.cpu().numpy()
-                    if side:
-                        t_d += time.perf_counter() - t
-                        launches += 1
-                    else:
-                        t_c += time.perf_counter() - t
-                    nxt[side].append(idx[miss])
-            pend = [np.concatenate(x) if x else cells[:0] for x in nxt]
-            retried[0] += len(pend[0])
-            retried[1] += len(pend[1])
-            if not len(pend[0]) and not len(pend[1]):
+            nxt = []
+            for i in range(0, len(pend), BATCH):
+                idx = pend[i:i + BATCH]
+                ix = torch.from_numpy(idx).to(dev)
+                placed = ck.fp_migrate(
+                    *new_d, old_d[0][ix].contiguous(),
+                    [c[ix] for c in old_d[1]],
+                    torch.ones(len(idx), dtype=torch.bool, device=dev))
+                nxt.append(idx[~placed.cpu().numpy()])
+                launches += 1
+            pend = np.concatenate(nxt)
+            retried += len(pend)
+            if not len(pend):
                 break
-        if len(pend[0]) or len(pend[1]):
-            raise AssertionError(f"{name}: rows still unplaced after eight "
-                                 "passes")
-        n_cells, err = _fp_same_by_key(F, name, new_c, new_d, keys)
+        whole_s = time.perf_counter() - t
+        if len(pend):
+            raise AssertionError(f"{name}: the chunked replay left "
+                                 f"{len(pend)} rows after eight passes")
+        n_cells, _ = _fp_same_by_key(F, f"{name} (chunked replay)", old,
+                                     new_d, keys)
         if n_cells != len(cells):
-            raise AssertionError(f"{name}: {n_cells} of {len(cells)} placed")
-        idx = chunks[0]
-        i_d = torch.from_numpy(idx).to(dev)
-        kp_d = old_d[0][i_d].contiguous()
-        cols_d = [c[i_d] for c in old_d[1]]
-        valid_d = torch.ones(len(idx), dtype=torch.bool, device=dev)
-        # Timed re-placing a chunk into the table that holds it.
-        probe = _fp_copy(new_d)
-        row = _fp_time(torch, name, lambda: ck.fp_migrate(
-            *probe, kp_d, cols_d, valid_d))
-        row["plain_ms"] = t_c / len(chunks) * 1e3
-        row["card_retried_rows"] = retried[1]
-        row["whole_s"] = t_d
-        state_b = 9 if kind == "bucket" else 13
-        _fp_record(name, f"2^22 -> 2^23, {len(cells)} entries, B={BATCH}",
-                   row, err, (8 + state_b + 1) * BATCH
-                   + (FP_L * 8 + 8 + state_b) * BATCH,
-                   (FP_L + 8) * BATCH, True)
-        print(f"{name} 2^22 -> 2^23: {len(cells)} entries in {launches} "
-              f"launches, {retried[1]} rows placed in a later pass on the "
-              f"card, {retried[0]} in the plain version ({t_d:.2f} s on the "
-              f"card, {t_c:.2f} s plain), "
-              f"equal by key; {row['ms']:.4f} ms a launch (device "
-              f"{row['device_ms']} ms)")
-        del old, old_d, new_c, new_d, probe
+            raise AssertionError(f"{name} (chunked replay): {n_cells} of "
+                                 f"{len(cells)} placed")
+        r = FP_RESULTS[name]["shapes"][f"table 2^22 -> 2^23, {kind}"]
+        r.update(chunked_replay_s=whole_s, chunked_replay_launches=launches,
+                 chunked_replay_retried=retried)
+        print(f"{name} chunked replay (the growth loop before, chunk form "
+              f"B={BATCH}): {len(cells)} entries in {launches} launches "
+              f"and readbacks, {retried} rows in a later pass, "
+              f"{whole_s:.3f} s wall, equal by key")
+        del old, old_d, new_d
     del tables
     torch.cuda.empty_cache()
 
@@ -7206,6 +7293,69 @@ async def _fp_store_part(torch, ck, pkg, F, rng, hash_s) -> list:
     ghost = pkg.DeviceBucketStore(device="cuda", n_slots=FP_GROW_SLOTS,
                                   max_batch=BATCH, clock=gclock)
     gkeys = [f"g{i}" for i in range(FP_GROW_KEYS)]
+    # Each growth's wall seconds, and the store lock's longest hold during
+    # the pressure relief that ran it (the sweep and the growth: the
+    # serving stall).
+    from distributedratelimiting.redis_tpu_torch.runtime import fp_store
+    timer = grow._lock = _HoldTimer(grow._lock)
+    real_grow = fp_store._FpTable._grow
+    real_relieve = fp_store._FpTable._relieve_pressure
+    grow_s, grow_holds = [], []
+
+    def timed_grow(self):
+        t = time.perf_counter()
+        try:
+            real_grow(self)
+        finally:
+            grow_s.append(time.perf_counter() - t)
+
+    def timed_relieve(self):
+        n0, longest = len(grow_s), timer.longest
+        timer.longest = 0.0
+        try:
+            real_relieve(self)
+        finally:
+            if len(grow_s) > n0:
+                grow_holds.append(timer.longest)
+            timer.longest = max(timer.longest, longest)
+
+    fp_store._FpTable._grow = timed_grow
+    fp_store._FpTable._relieve_pressure = timed_relieve
+    try:
+        lines += await _fp_grow_traffic(grow, ghost, gkeys)
+    finally:
+        fp_store._FpTable._grow = real_grow
+        fp_store._FpTable._relieve_pressure = real_relieve
+    if len(grow_s) != grow.metrics.pregrows or len(grow_holds) != len(grow_s):
+        raise AssertionError(f"growth: {len(grow_s)} growths timed, "
+                             f"{grow.metrics.pregrows} counted")
+    lines.append(f"growth: {len(grow_s)} growths, wall s each "
+                 f"{[round(x, 4) for x in grow_s]}; the store lock's longest "
+                 f"hold during each {[round(x, 4) for x in grow_holds]}")
+    gs = [gkeys[i] for i in rng.permutation(FP_GROW_KEYS)[:FP_PEEKS]]
+    if ([grow.peek_blocking(k, FP_CAP, FP_RATE) for k in gs]
+            != [ghost.peek_blocking(k, FP_CAP, FP_RATE) for k in gs]):
+        raise AssertionError("growth: peeks differ from the host store's")
+    more = await grow.window_acquire_many(gs, [FP_WLIMIT] * len(gs),
+                                          FP_WLIMIT, FP_WINDOW_S)
+    want = await ghost.window_acquire_many(gs, [FP_WLIMIT] * len(gs),
+                                           FP_WLIMIT, FP_WINDOW_S)
+    if not np.array_equal(more.granted, want.granted):
+        raise AssertionError("growth: window state differs after growth")
+    lines.append(f"growth: pregrows {grow.metrics.pregrows}, "
+                 f"fp_unresolved {grow.metrics.fp_unresolved}; {FP_PEEKS} "
+                 "peeks and the windows' next grants equal to the host "
+                 "directory's")
+    await grow.aclose()
+    await ghost.aclose()
+    return lines
+
+
+async def _fp_grow_traffic(grow, ghost, gkeys) -> list:
+    """The growth case's traffic: 2M keys into 2^20 slots, buckets then
+    sliding windows, rows denied for window pressure sent again; the host
+    store takes the same keys."""
+    lines = []
     for window in (None, False):
         retried = 0
         for i in range(0, FP_GROW_KEYS, FP_GROW_CALL):
@@ -7237,22 +7387,6 @@ async def _fp_store_part(torch, ck, pkg, F, rng, hash_s) -> list:
                      f"table now {table.n_slots} slots")
     if grow.metrics.pregrows < 2:
         raise AssertionError(f"growth: pregrows {grow.metrics.pregrows}")
-    gs = [gkeys[i] for i in rng.permutation(FP_GROW_KEYS)[:FP_PEEKS]]
-    if ([grow.peek_blocking(k, FP_CAP, FP_RATE) for k in gs]
-            != [ghost.peek_blocking(k, FP_CAP, FP_RATE) for k in gs]):
-        raise AssertionError("growth: peeks differ from the host store's")
-    more = await grow.window_acquire_many(gs, [FP_WLIMIT] * len(gs),
-                                          FP_WLIMIT, FP_WINDOW_S)
-    want = await ghost.window_acquire_many(gs, [FP_WLIMIT] * len(gs),
-                                           FP_WLIMIT, FP_WINDOW_S)
-    if not np.array_equal(more.granted, want.granted):
-        raise AssertionError("growth: window state differs after growth")
-    lines.append(f"growth: pregrows {grow.metrics.pregrows}, "
-                 f"fp_unresolved {grow.metrics.fp_unresolved}; {FP_PEEKS} "
-                 "peeks and the windows' next grants equal to the host "
-                 "directory's")
-    await grow.aclose()
-    await ghost.aclose()
     return lines
 
 
@@ -7447,6 +7581,15 @@ def mesh_kernel_cases(torch, K, F, ck, dev, rng) -> None:
             mrow = _fp_time(torch, "fp_migrate", migrate)
             _fp_record("fp_migrate", f"8 shard regions B={b}", mrow, 0.0,
                        8 * b + b + 9 * b + (FP_L * 8 + 9 + 8) * b, FP_L * b)
+            # Growth's table form over 8 shard regions: a 2^22-slot table of
+            # 1M entries into 2^23 slots in one launch; the plain version
+            # takes the mesh tier's chunks, 512 rows a region.
+            mkeys, mold = _fp_base(torch, K, F, rng, FP_MIGRATE_FROM,
+                                   FP_MIGRATE_ENTRIES, "bucket", n_shards=s_n)
+            _fp_migrate_case(torch, K, F, ck, dev, "fp_migrate", mkeys, mold,
+                             s_n, 512, "table 2^22 -> 2^23, 8 shard regions",
+                             False)
+            del mold
         # Timed last: its repeated launches consume the card table's tokens.
         op_d, nows_d = op.to(dev), nows.to(dev)
         row = _fp_time(torch, name, lambda: call(card, op_d, nows_d))
@@ -7699,11 +7842,30 @@ async def _mesh_store_part(torch, ck, pkg, mesh, rng) -> list:
     del fresh, store
     torch.cuda.empty_cache()
 
-    # The fp directory: cold (claims; growth allowed), then warm.
+    # The fp directory: cold (claims; growth allowed, each growth timed),
+    # then warm.
+    from distributedratelimiting.redis_tpu_torch.parallel import fp_sharded
     fps = mesh_store(directory="fp")
     await fps.connect()
-    got, f1 = await _mesh_bulk(fps, keys, c1)
+    real_grow = fp_sharded.ShardedFpDeviceStore._grow_locked
+    grow_s = []
+
+    def timed_grow(self):
+        t = time.perf_counter()
+        try:
+            real_grow(self)
+        finally:
+            grow_s.append(time.perf_counter() - t)
+
+    fp_sharded.ShardedFpDeviceStore._grow_locked = timed_grow
+    try:
+        got, f1 = await _mesh_bulk(fps, keys, c1)
+    finally:
+        fp_sharded.ShardedFpDeviceStore._grow_locked = real_grow
     tier = fps._sharded(FP_CAP, FP_RATE)
+    if len(grow_s) != tier.grows:
+        raise AssertionError(f"mesh fp: {len(grow_s)} growths timed, "
+                             f"{tier.grows} counted")
     cold_unresolved, cold_grows = tier.fp_unresolved, tier.grows
     await _fp_cold_equal("mesh fp, 10M keys, cold", fps, keys, c1, got, a1,
                          cold_unresolved)
@@ -7716,7 +7878,9 @@ async def _mesh_store_part(torch, ck, pkg, mesh, rng) -> list:
     lines.append(f"fp directory, 8 shard regions, 10M keys: cold "
                  f"{MESH_KEYS / f1:.0f} rows/s ({cold_unresolved} rows "
                  f"unresolved, sent again once; {cold_grows} growths to "
-                 f"{tier.per_shard_slots} slots a shard), warm "
+                 f"{tier.per_shard_slots} slots a shard, wall s each "
+                 f"{[round(x, 4) for x in grow_s]}, the call's lock held "
+                 "through each), warm "
                  f"{MESH_KEYS / f2:.0f} rows/s; decisions equal to the "
                  "single table's")
     await fps.aclose()

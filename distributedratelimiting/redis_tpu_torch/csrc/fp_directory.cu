@@ -18,8 +18,12 @@
 //   fp_peek_batch       -> peek_kernel;
 //   fp_sweep_expired, fp_sweep_windows
 //                       -> sweep_bucket_kernel, sweep_window_kernel;
-//   fp_migrate_chunk, fp_migrate_window_chunk (_fp_migrate_core)
-//                       -> migrate_kernel<3> and migrate_kernel<4>.
+//   fp_migrate_chunk, fp_migrate_window_chunk (_fp_migrate_core), and the
+//   host loop of growth that drove them chunk by chunk (runtime/fp_store.py
+//   _rehash, parallel/fp_sharded.py _rehash_locked)
+//                       -> migrate_kernel<3> and migrate_kernel<4>: one pass
+//                          over a whole old table (or a list of its rows, or
+//                          a chunk of pairs).
 // The Python wrappers (ops/cuda_kernels.py) chain the launches of one entry
 // point on one stream; this file holds the kernels that touch the table.
 //
@@ -50,11 +54,15 @@
 // follows a full read of the window, so one key never takes two cells: if
 // two rows of key X claimed cells a then b (a first), b's reader saw a
 // empty, so b precedes a in X's rotation; but a's reader, earlier, saw b
-// occupied, and b was empty until X's claim. Lookups never stop at an empty
-// cell, so a sweep clearing a cell hides no other key. Padding rows count as
-// resolved (JAX: resolved = ~valid). Which row wins a contested cell is the
-// atomics' order, not JAX's last-scatter-wins: tables agree by key, not by
-// slot, and under window pressure the unresolved rows may differ.
+// occupied, and b was empty until X's claim. The migrate reads a window
+// with a group of lanes, up to four cells a lane, and claims from one lane
+// after ballots of all L loads: a ballot returns only when every lane holds
+// its cells, so its claim, too, follows a full read of the window, and the
+// argument holds word for word. Lookups never stop at an empty cell, so a sweep
+// clearing a cell hides no other key. Padding rows count as resolved (JAX:
+// resolved = ~valid). Which row wins a contested cell is the atomics'
+// order, not JAX's last-scatter-wins: tables agree by key, not by slot,
+// and under window pressure the unresolved rows may differ.
 //
 // Bound: bytes. A row reads its operand (12 B fused, 8 B a pair) and its
 // window, L x 8 B (128 B at L = 16, one or two 128-byte lines), and writes
@@ -65,8 +73,40 @@
 // Design: one thread a row, a grid-stride loop of warps over consecutive
 // rows (the resolve bit plane is one __ballot_sync a 32-row word). The
 // window read is a loop of L 8-byte loads (base is any cell: the window is
-// 8-byte aligned, not 16). Simple first: a row's probe is serial in its
-// thread; a warp-cooperative probe (a lane a cell) is later work.
+// 8-byte aligned, not 16): a serial probe, right for the small launches of
+// a decision. The migrate probes cooperatively (below).
+//
+// The migrate (growth): every live entry of the old table goes into a fresh
+// table with its state. JAX reads the table back and ships chunks of 4,096
+// rows, a launch and a readback each, because an XLA program has a fixed
+// shape; here one launch walks the old table itself. Its rows are the old
+// table's cells (a row is live where its cell is not 0, its state at the
+// same index of the old columns), a list of the old table's rows (the rows
+// a previous pass left unplaced), or a chunk of pairs with a valid mask
+// (JAX's chunk form). Unplaced rows go to a device list by a warp-
+// aggregated atomicAdd; the host reads one 4-byte count a pass.
+// Bound of a whole-table pass: bytes. It reads N_old x 8 B of cells, and
+// per entry (a live cell; no empty cell's state is read) its state
+// (9 | 13 B), its window (L x 8 B), the CAS's 8 B and its state written
+// (9 | 13 B); the new table's zeroing (torch.zeros, N_new x (17 | 21) B) is
+// a separate launch, counted on its own. Design: a persistent grid (the
+// resident blocks on every SM) of warps walks the source in 32-row tiles;
+// a tile's cells and live rows' state are read coalesced, and a ballot of
+// the live rows skips the empty cells (a table grows at 70% occupancy or
+// below, so 30% or more are empty). The warp then probes its live rows in
+// groups of G lanes (G = L / 4 rounded up to a power of two: eight rows a
+// warp step at L = 16): lane s of a group loads cells s, s + G, s + 2G and
+// s + 3G of the window, so a window is four coalesced G-cell requests, all
+// in flight with the other groups' at once, instead of L dependent loads;
+// ballots give the hit and empty masks, the group's first lane makes the
+// CAS and a shuffle broadcasts it (a lost CAS reads the window again), and
+// the group's lanes copy the state columns, one column a lane. A warp step
+// waits on two round trips (the window, then the CAS), so the rows a step
+// set the pass's pace, and four cells a lane put eight rows in a step
+// where one cell a lane would put two. Each entry's state lands in 32-byte
+// sectors at random slots, which the bound, counting 9-13 bytes, does not
+// see (chip_smoke.py's fp kernel phase prints a pass's device time beside
+// its bound).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -293,39 +333,176 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Migrate: claim a cell in the (new) table for each valid row of kpair
-// u32[B, 2] and write its state columns there: column c of row i is
-// src[c] + i * width[c], copied as width[c] bytes (4 or 1). placed[i] is 1
-// where a valid row got a cell.
+// Migrate: each live source row claims a cell in the (new) table f and its
+// state columns are written there. Row r of the source is index i = idx[r]
+// (idx non-null) or r; its key is cells[i] (the old table's cell, live
+// where not 0) or the pair kpair[i] (live where valid[i]); its column c is
+// src[c][i], 4 bytes wide but the last (exists, 1 byte). placed[r] (where
+// non-null) is 1 where a live row got a cell; the source index of every
+// live row left unplaced (its window full) is appended to unplaced, counted
+// in *n_unplaced (zeroed by the caller).
 struct Cols {
   void* dst[4];
   const void* src[4];
-  int32_t width[4];
 };
+
+struct MigrateSrc {
+  const u64* cells;        // the old table, or null (pairs)
+  const int32_t* idx;      // rows of cells to take, or null (all)
+  const uint32_t* kpair;   // pairs u32[rows, 2], or null (old table)
+  const uint8_t* valid;    // with kpair
+  int64_t rows;
+};
+
+struct MigrateOut {
+  uint8_t* placed;       // u8[rows] or null
+  int32_t* unplaced;     // i32[rows] or null
+  int32_t* n_unplaced;   // with unplaced
+};
+
+// Cells a lane reads of a window: a group of G lanes covers L <= 4 G cells.
+constexpr int kMaxCells = 4;
 
 template <int kCols>
 __global__ void __launch_bounds__(kThreads)
-    migrate_kernel(Fp f, const uint32_t* __restrict__ kpair,
-                   const uint8_t* __restrict__ valid, int32_t b, Cols c,
-                   uint8_t* __restrict__ placed) {
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < b;
-       i += (int64_t)gridDim.x * kThreads) {
-    int32_t s = -1;
-    if (valid[i]) s = find_or_claim(f, kpair[2 * i], kpair[2 * i + 1]);
-    if (s >= 0) {
+    migrate_kernel(Fp f, MigrateSrc s, Cols c, MigrateOut o, int group) {
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / group, sub = lane - grp * group;
+  const int lead = grp * group;
+  const int groups = 32 / group;
+  const unsigned gmask =
+      group == 32 ? kFullMask : ((1u << group) - 1u) << lead;
+  const int64_t warps = (int64_t)gridDim.x * (kThreads / 32);
+  for (int64_t w = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+       w * 32 < s.rows; w += warps) {
+    // The tile: 32 consecutive rows, cells and live rows' state coalesced.
+    const int64_t r = w * 32 + lane;
+    int32_t i = 0;
+    u64 key = 0;
+    bool live = false;
+    uint32_t v[kCols];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        if (c.width[j] == 4) {
-          static_cast<uint32_t*>(c.dst[j])[s] =
-              static_cast<const uint32_t*>(c.src[j])[i];
-        } else {
-          static_cast<uint8_t*>(c.dst[j])[s] =
-              static_cast<const uint8_t*>(c.src[j])[i];
+    for (int j = 0; j < kCols; ++j) v[j] = 0;
+    if (r < s.rows) {
+      i = s.idx != nullptr ? s.idx[r] : (int32_t)r;
+      if (s.cells != nullptr) {
+        key = s.cells[i];
+        live = key != 0ull;
+      } else {
+        key = ((u64)s.kpair[2 * (int64_t)i + 1] << 32) |
+              s.kpair[2 * (int64_t)i];
+        live = s.valid[i] != 0;
+      }
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          v[j] = j == kCols - 1
+                     ? (uint32_t) static_cast<const uint8_t*>(c.src[j])[i]
+                     : static_cast<const uint32_t*>(c.src[j])[i];
         }
+      } else if (o.placed != nullptr) {
+        o.placed[r] = 0;
       }
     }
-    placed[i] = s >= 0 ? 1 : 0;
+    unsigned todo = __ballot_sync(kFullMask, live);
+    while (todo != 0u) {  // warp-uniform
+      // Group g takes the g-th live row left; up to `groups` rows a step.
+      unsigned t = todo;
+      for (int k = 0; k < grp && t != 0u; ++k) t &= t - 1u;
+      const bool act = t != 0u;
+      const int src = act ? __ffs((int)t) - 1 : lane;
+      for (int k = 0; k < groups && todo != 0u; ++k) todo &= todo - 1u;
+      const u64 k64 = __shfl_sync(kFullMask, key, src);
+      const int32_t si = __shfl_sync(kFullMask, i, src);
+      const uint32_t lo = (uint32_t)k64, hi = (uint32_t)(k64 >> 32);
+      const uint32_t base = base_of(lo, hi, f);
+      const uint32_t pref = pref_of(lo, hi, f);
+      int32_t slot = -1;
+      bool pend = act;
+      while (__any_sync(kFullMask, pend)) {
+        // Lane sub reads cells sub, sub + G, ... (at most four) of the
+        // window, all loads in flight at once; the ballots return once
+        // every lane of the group holds its cells: the whole window is read.
+        u64 cell[kMaxCells];
+#pragma unroll
+        for (int q = 0; q < kMaxCells; ++q) {
+          const int j = sub + q * group;
+          cell[q] = pend && j < f.L ? __ldcg(&f.cells[base + j]) : 0ull;
+        }
+        uint32_t h = 0u, e = 0u;
+#pragma unroll
+        for (int q = 0; q < kMaxCells; ++q) {
+          const bool in = pend && sub + q * group < f.L;
+          const unsigned hit = __ballot_sync(kFullMask, in && cell[q] == k64);
+          const unsigned emp =
+              __ballot_sync(kFullMask, in && cell[q] == 0ull);
+          h |= ((hit & gmask) >> lead) << (q * group);
+          e |= ((emp & gmask) >> lead) << (q * group);
+        }
+        uint32_t target = 0;
+        if (pend) {
+          if (h != 0u) {
+            slot = (int32_t)(base + (uint32_t)(__ffs((int)h) - 1));
+            pend = false;
+          } else if (e == 0u) {
+            pend = false;  // the window is full: unplaced
+          } else {
+            target = base + (uint32_t)first_empty(e, pref, f.L);
+          }
+        }
+        u64 old = 0ull;
+        if (pend && sub == 0) old = atomicCAS(&f.cells[target], 0ull, k64);
+        old = __shfl_sync(kFullMask, old, lead);
+        if (pend && (old == 0ull || old == k64)) {
+          slot = (int32_t)target;
+          pend = false;
+        }
+      }
+      // The state: the group's lanes copy the columns, one a lane (a lane
+      // takes several where the group has fewer lanes than columns).
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const uint32_t val = __shfl_sync(kFullMask, v[j], src);
+        if (slot >= 0 && j % group == sub) {
+          if (j == kCols - 1) {
+            static_cast<uint8_t*>(c.dst[j])[slot] = (uint8_t)val;
+          } else {
+            static_cast<uint32_t*>(c.dst[j])[slot] = val;
+          }
+        }
+      }
+      if (act && sub == 0 && o.placed != nullptr) {
+        o.placed[w * 32 + src] = slot >= 0 ? 1 : 0;
+      }
+      // Unplaced rows: one atomicAdd a warp step, then each group's first
+      // lane writes its row's source index.
+      const bool miss = act && sub == 0 && slot < 0;
+      const unsigned mm = __ballot_sync(kFullMask, miss);
+      if (mm != 0u && o.unplaced != nullptr) {
+        const int first = __ffs((int)mm) - 1;
+        int32_t at = 0;
+        if (lane == first) at = atomicAdd(o.n_unplaced, __popc(mm));
+        at = __shfl_sync(kFullMask, at, first);
+        if (miss) o.unplaced[at + __popc(mm & ((1u << lane) - 1u))] = si;
+      }
+    }
   }
+}
+
+// The resident blocks of migrate_kernel<kCols> on every SM: the persistent
+// grid (cached; the card does not change under a process).
+template <int kCols>
+int migrate_grid() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, migrate_kernel<kCols>, kThreads, 0);
+    blocks = (sms > 0 ? sms : 132) * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
 }
 
 int grid_for(int64_t rows) {
@@ -422,31 +599,53 @@ extern "C" int drl_fp_sweep_window(void* cells, const int32_t* idx,
   return (int)cudaGetLastError();
 }
 
-// n_cols 3 (tokens f32, last_ts i32, exists u8) or 4 (prev f32, curr f32,
-// idx i32, exists u8); dst/src the new table's and the chunk's columns.
+// One migrate pass into the (new) table cells u64[n]. The source is the old
+// table old_cells (rows = its cells, or with idx the rows idx[0..rows) of
+// it) or the pairs kpair u32[rows, 2] with valid u8[rows]: exactly one of
+// old_cells and kpair. n_cols 3 (tokens f32, last_ts i32, exists u8) or 4
+// (prev f32, curr f32, idx i32, exists u8); dst the new table's columns,
+// src the source's (indexed like its cells or pairs). placed (u8[rows]) or
+// unplaced (i32[rows]) with n_unplaced (i32, zeroed by the caller) may be
+// null. One launch: a persistent grid of 32-row warp tiles.
 extern "C" int drl_fp_migrate(void* cells, int64_t n, int32_t L,
-                              int32_t shards, const uint32_t* kpair,
-                              const uint8_t* valid,
-                              int32_t b, int32_t n_cols, void* const* dst,
+                              int32_t shards, const void* old_cells,
+                              const int32_t* idx, const uint32_t* kpair,
+                              const uint8_t* valid, int64_t rows,
+                              int32_t n_cols, void* const* dst,
                               const void* const* src, uint8_t* placed,
+                              int32_t* unplaced, int32_t* n_unplaced,
                               cudaStream_t stream) {
-  if (bad_table(n, L, shards) || (n_cols != 3 && n_cols != 4)) {
+  if (bad_table(n, L, shards) || (n_cols != 3 && n_cols != 4) ||
+      (old_cells == nullptr) == (kpair == nullptr) ||
+      (kpair != nullptr && (valid == nullptr || idx != nullptr)) ||
+      (unplaced != nullptr && n_unplaced == nullptr) ||
+      rows >= (int64_t(1) << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (b <= 0) return (int)cudaSuccess;
+  if (rows <= 0) return (int)cudaSuccess;
   const Fp f = make_fp(cells, n, L, shards);
   Cols c{};
   for (int j = 0; j < n_cols; ++j) {
     c.dst[j] = dst[j];
     c.src[j] = src[j];
-    c.width[j] = j == n_cols - 1 ? 1 : 4;
   }
+  const MigrateSrc s{static_cast<const u64*>(old_cells), idx, kpair, valid,
+                     rows};
+  const MigrateOut o{placed, unplaced, n_unplaced};
+  // Lanes a row: L / 4 rounded up to a power of two (4 at L = 16: eight
+  // rows a warp step), each lane reading up to four cells.
+  int group = 1;
+  while (group * kMaxCells < L) group <<= 1;
+  const int64_t tiles = (rows + 31) / 32;
+  const int64_t need = (tiles + kThreads / 32 - 1) / (kThreads / 32);
   if (n_cols == 3) {
-    migrate_kernel<3><<<grid_for(b), kThreads, 0, stream>>>(f, kpair, valid,
-                                                            b, c, placed);
+    const int blocks = (int)(need < migrate_grid<3>() ? need
+                                                      : migrate_grid<3>());
+    migrate_kernel<3><<<blocks, kThreads, 0, stream>>>(f, s, c, o, group);
   } else {
-    migrate_kernel<4><<<grid_for(b), kThreads, 0, stream>>>(f, kpair, valid,
-                                                            b, c, placed);
+    const int blocks = (int)(need < migrate_grid<4>() ? need
+                                                      : migrate_grid<4>());
+    migrate_kernel<4><<<blocks, kThreads, 0, stream>>>(f, s, c, o, group);
   }
   return (int)cudaGetLastError();
 }

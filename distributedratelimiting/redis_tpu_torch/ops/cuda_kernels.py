@@ -60,8 +60,11 @@ The wrappers, their sources, and what each replaces in the JAX package:
   forms; ``fp_debit`` replaces ``fp_debit_batch``, ``fp_peek``
   ``fp_peek_batch``, ``fp_sweep_expired`` and ``fp_sweep_windows`` their
   namesakes, ``fp_migrate`` ``fp_migrate_chunk`` and
-  ``fp_migrate_window_chunk``; each runs ``fp_resolve_core``'s
-  find-or-claim first (``resolve_kernel``). With ``n_shards`` the decisions,
+  ``fp_migrate_window_chunk``, and ``fp_migrate_table`` the growth loop
+  that drove them chunk by chunk (one launch over the whole old table,
+  the same ``migrate_kernel``); each runs ``fp_resolve_core``'s
+  find-or-claim first (``resolve_kernel``; the migrate a cooperative probe,
+  a group of lanes a window). With ``n_shards`` the decisions,
   the peek and the migrate place keys in the mesh's shard regions
   (:mod:`.fp_directory`), every shard's rows in one launch;
 - ``global_tier`` (``csrc/mesh.cu``) replaces the mesh's
@@ -146,6 +149,7 @@ __all__ = [
     "fp_sweep_expired",
     "fp_sweep_windows",
     "fp_migrate",
+    "fp_migrate_table",
     "global_tier",
 ]
 
@@ -250,8 +254,8 @@ _SIGNATURES = {
         "drl_fp_sweep_bucket": (_P, _P, _P, _P, _I64, _I32, _F32, _F32, _P,
                                 _P),
         "drl_fp_sweep_window": (_P, _P, _P, _I64, _I32, _P, _P),
-        "drl_fp_migrate": (_P, _I64, _I32, _I32, _P, _P, _I32, _I32, _P, _P,
-                           _P, _P),
+        "drl_fp_migrate": (_P, _I64, _I32, _I32, _P, _P, _P, _P, _I64, _I32,
+                           _P, _P, _P, _P, _P, _P),
     },
     "mesh": {
         "drl_global_tier": (_P, _P, _P, _I32, _I32, _P, _P, _P, _P, _F32,
@@ -1288,15 +1292,39 @@ def fp_sweep_windows(fp: torch.Tensor, state: K.WindowState, now: int,
     return freed
 
 
+def _migrate_launch(fp, state, n, window, probe_window, n_shards, old, idx,
+                    kpair, valid, rows, cols, n_src, placed, unplaced,
+                    n_unplaced) -> None:
+    """One ``migrate_kernel`` launch (csrc/fp_directory.cu), counted; each
+    source column of ``cols`` is checked against its state field, ``n_src``
+    long (the source's cells or pairs)."""
+    if len(cols) != len(state):
+        raise ValueError(f"fp_migrate: {len(state)} state columns, got "
+                         f"{len(cols)}")
+    for name, dst_t, col in zip(state._fields, state, cols):
+        _check(col, name, dst_t.dtype, (n_src,))
+    arr = ctypes.c_void_p * len(cols)
+    dst = arr(*(t.data_ptr() for t in state))
+    src = arr(*(c.data_ptr() for c in cols))
+    rc = _lib("fp_directory").drl_fp_migrate(
+        fp.data_ptr(), n, int(probe_window), int(n_shards), _ptr(old),
+        _ptr(idx), _ptr(kpair), _ptr(valid), rows, len(cols), dst, src,
+        _ptr(placed), _ptr(unplaced), _ptr(n_unplaced), _stream(fp))
+    _raise_on(rc, "fp_migrate")
+    launches["fp_migrate_window" if window else "fp_migrate"] += 1
+
+
 def fp_migrate(fp: torch.Tensor, state, kpair: torch.Tensor, cols,
                valid: torch.Tensor, *, probe_window: int = 16,
                rounds: int = 4, n_shards: int = 1) -> torch.Tensor:
-    """Growth and re-placement: claim a cell in the table ``(fp, state)``
+    """Growth's chunk form (JAX's ``fp_migrate_chunk`` /
+    ``fp_migrate_window_chunk``): claim a cell in the table ``(fp, state)``
     for each valid row of ``kpair i32[B, 2]`` and write its state columns
     ``cols`` (the state's fields in order: a bucket's tokens, last_ts,
     exists or a window's prev_count, curr_count, window_idx, exists) there;
     ``n_shards`` the table's shard regions. Returns ``placed bool[B]``; the
-    caller retries unplaced rows."""
+    caller retries unplaced rows. The same kernel as
+    :func:`fp_migrate_table`, with pairs for its source."""
     b = kpair.shape[0]
     window = isinstance(state, K.WindowState)
     if _on_cpu(state):
@@ -1307,22 +1335,52 @@ def fp_migrate(fp: torch.Tensor, state, kpair: torch.Tensor, cols,
     _check_fp(fp, n, probe_window, n_shards)
     _check(kpair, "kpair", torch.int32, (b, 2))
     _check(valid, "valid", torch.bool, (b,))
-    if len(cols) != len(state):
-        raise ValueError(f"fp_migrate: {len(state)} state columns, got "
-                         f"{len(cols)}")
-    for name, dst, col in zip(state._fields, state, cols):
-        _check(col, name, dst.dtype, (b,))
     placed = torch.empty((b,), dtype=torch.bool, device=fp.device)
-    arr = ctypes.c_void_p * len(cols)
-    dst = arr(*(t.data_ptr() for t in state))
-    src = arr(*(c.data_ptr() for c in cols))
-    rc = _lib("fp_directory").drl_fp_migrate(
-        fp.data_ptr(), n, int(probe_window), int(n_shards), kpair.data_ptr(),
-        valid.data_ptr(), b, len(cols), dst, src, placed.data_ptr(),
-        _stream(fp))
-    _raise_on(rc, "fp_migrate")
-    launches["fp_migrate_window" if window else "fp_migrate"] += 1
+    _migrate_launch(fp, state, n, window, probe_window, n_shards, None, None,
+                    kpair, valid, b, cols, b, placed, None, None)
     return placed
+
+
+def fp_migrate_table(new_fp: torch.Tensor, new_state, old_fp: torch.Tensor,
+                     old_state, *, probe_window: int = 16, rounds: int = 4,
+                     n_shards: int = 1, source=None, chunk: int = 4096):
+    """One growth pass: re-place the live entries of the old table
+    ``(old_fp i32[N_old, 2], old_state)`` — or, with ``source`` (the
+    ``unplaced`` of an earlier pass into the same new table), those rows of
+    it — into the new table ``(new_fp, new_state)`` with their state, both
+    of one family (a bucket's or a window's columns); ``n_shards`` the new
+    table's shard regions (each key goes to region ``lo % n_shards``).
+    Returns ``(unplaced i32[M], M)``: the old table's rows left unplaced
+    (a full window), on the new table's device. On the card ONE launch over
+    the whole source; the host reads one 4-byte count. The plain version
+    runs JAX's passes (:func:`fp_directory.fp_migrate_table`: chunks of
+    ``chunk`` rows, ``rounds`` claim rounds); the card ignores both."""
+    window = isinstance(new_state, K.WindowState)
+    if _on_cpu(new_state):
+        return F.fp_migrate_table(new_fp, new_state, old_fp, old_state,
+                                  probe_window=probe_window, rounds=rounds,
+                                  n_shards=n_shards, source=source,
+                                  chunk=chunk)
+    n = _check_windows(new_state) if window else _check_state(new_state)
+    _check_fp(new_fp, n, probe_window, n_shards)
+    n_old = old_fp.shape[0]
+    _check(old_fp, "old_fp", torch.int32, (n_old, 2))
+    if old_fp.data_ptr() == new_fp.data_ptr():
+        raise ValueError("fp_migrate_table: the old and new tables are one")
+    rows = n_old
+    if source is not None:
+        rows = source.shape[0]
+        _check(source, "source", torch.int32, (rows,))
+    dev = new_fp.device
+    unplaced = torch.empty((rows,), dtype=torch.int32, device=dev)
+    if rows == 0:
+        return unplaced, 0
+    count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _migrate_launch(new_fp, new_state, n, window, probe_window, n_shards,
+                    old_fp, source, None, None, rows, list(old_state), n_old,
+                    None, unplaced, count)
+    m = int(count.item())
+    return unplaced[:m], m
 
 
 # -- the mesh's global tier (csrc/mesh.cu) ------------------------------------

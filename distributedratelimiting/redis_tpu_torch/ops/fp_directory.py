@@ -73,6 +73,7 @@ __all__ = [
     "fp_window_acquire_scan_fused_bits",
     "fp_sweep_windows",
     "fp_migrate_window_chunk",
+    "fp_migrate_table",
 ]
 
 #: Golden-ratio multiplier of the base probe index (uint32 arithmetic).
@@ -529,3 +530,46 @@ def fp_migrate_window_chunk(fp, state: K.WindowState, kpair, prev_count,
     return _migrate(fp, state, kpair,
                     (prev_count, curr_count, window_idx, exists), valid,
                     probe_window, rounds, n_shards)
+
+
+# -- growth ----------------------------------------------------------------------
+def fp_migrate_table(new_fp, new_state, old_fp, old_state, *,
+                     probe_window: int = 16, rounds: int = 4,
+                     n_shards: int = 1, source=None, chunk: int = 4096):
+    """One growth pass (plain version), JAX's ``_rehash`` pass step for
+    step (``runtime/fp_store.py`` and, with ``n_shards``,
+    ``parallel/fp_sharded.py``'s ``_rehash_locked``): the live entries of
+    the old table ``(old_fp i32[N_old, 2], old_state)`` — or, with
+    ``source``, those rows of it — in old-cell order, each shard region's
+    rows (``N_old / n_shards`` cells a region) on their own, go to the new
+    table in chunks of ``chunk`` rows a region, every region's chunk in one
+    :func:`fp_migrate_chunk` / :func:`fp_migrate_window_chunk` call of
+    ``rounds`` claim rounds. Returns ``(unplaced i32[M], M)``: the rows
+    left unplaced, region by region in old-cell order (the next pass's
+    ``source``)."""
+    if source is None:
+        idx = torch.nonzero(_as64(old_fp) != 0).view(-1)
+    else:
+        idx = source.to(torch.int64).view(-1)
+    region = idx // (old_fp.shape[0] // n_shards)
+    order = torch.argsort(region, stable=True)
+    idx, region = idx[order], region[order]
+    bounds = torch.searchsorted(region, torch.arange(n_shards + 1))
+    groups = [idx[bounds[s]:bounds[s + 1]] for s in range(n_shards)]
+    misses = []
+    for pos in range(0, max(len(g) for g in groups), chunk):
+        parts = [g[pos:pos + chunk] for g in groups]
+        rows = torch.cat(parts)
+        _, _, placed = _migrate(
+            new_fp, new_state, old_fp[rows].contiguous(),
+            [c[rows] for c in old_state],
+            torch.ones(len(rows), dtype=torch.bool), probe_window, rounds,
+            n_shards)
+        at = 0
+        for s, part in enumerate(parts):
+            misses.append((s, pos, part[~placed[at:at + len(part)]]))
+            at += len(part)
+    misses.sort(key=lambda m: m[:2])
+    unplaced = torch.cat([m[2] for m in misses] or
+                         [torch.zeros(0, dtype=torch.int64)])
+    return unplaced.to(torch.int32), len(unplaced)

@@ -15,8 +15,8 @@ table of the region's size would give it. A launch takes every shard's rows
 for shard s), and one launch places them as JAX's per-shard programs do:
 rows of different regions never meet. A row must sit in its route's shard,
 as the stores put it. Sweeps run over the whole table; growth doubles every
-region through the migrate kernel (the route is resize-invariant, so
-entries never change shard).
+region through the migrate kernel, one pass over the whole old table (the
+route is resize-invariant, so entries never change shard).
 
 Both families ship: token buckets (:class:`ShardedFpDeviceStore`, with the
 global tier through ``cuda_kernels.global_tier``) and sliding/fixed windows
@@ -45,6 +45,9 @@ from distributedratelimiting.redis_tpu_torch.parallel.mesh import Mesh
 from distributedratelimiting.redis_tpu_torch.runtime.clock import (
     Clock,
     MonotonicClock,
+)
+from distributedratelimiting.redis_tpu_torch.runtime.fp_store import (
+    migrate_passes,
 )
 from distributedratelimiting.redis_tpu_torch.runtime.store import (
     AcquireResult,
@@ -391,90 +394,39 @@ class ShardedFpDeviceStore:
     def _occupancy(self) -> int:
         return int((self.fp != 0).any(1).sum())
 
-    def _host_tables(self):
-        """The fingerprints ``u32[S, P, 2]`` and state columns ``[S, P]``
-        read back."""
-        s_n = self.n_shards
-        old_fp = _to_host(self.fp).view(np.uint32).reshape(s_n, -1, 2)
-        olds = [_to_host(t).reshape(s_n, -1) for t in self.state]
-        return old_fp, olds
-
     def _grow_locked(self) -> None:
         """All-shard doubling through the migrate kernel: each shard's
-        entries re-place within its doubled region."""
-        old_fp, olds = self._host_tables()
-        self._rehash_locked(old_fp, olds, old_fp.shape[1] * 2)
+        entries re-place within its doubled region, in one device pass."""
+        self._rehash_locked(self.fp, self.state, self.per_shard_slots * 2)
         self.grows += 1
         self.metrics.pregrows += 1
 
-    def _rehash_locked(self, old_fp: np.ndarray, olds: list,
+    def _rehash_locked(self, old_fp: torch.Tensor, old_state,
                        per_start: int,
                        probe_window: int | None = None) -> None:
-        """Re-place every shard's live entries into fresh tables (``old_fp
-        u32[S, P_old, 2]``, ``olds`` the state columns ``[S, P_old]`` in
-        field order): the routine behind growth and legacy-snapshot
-        adoption. Nothing changes until placement succeeds. An entry whose
-        whole window fills cannot be placed at a size: double and retry,
-        four times at most."""
+        """Re-place every shard's live entries of the table ``(old_fp
+        i32[S·P_old, 2], old_state)`` (on the mesh's device, shard-major)
+        into fresh tables of ``per_start`` cells a region: the routine
+        behind growth and legacy-snapshot adoption. Nothing changes until
+        placement succeeds. The passes (``fp_store.migrate_passes``, with
+        ``n_shards``: one launch a pass on the card, every region's rows)
+        leave rows only where a window is full at this size: double and
+        retry, four times at most."""
         pw = self.probe_window if probe_window is None else probe_window
         s_n = self.n_shards
-        entries = [np.nonzero((old_fp[s] != 0).any(-1))[0]
-                   for s in range(s_n)]
-        b = self.batch
         per_new = per_start
-        leftover = 0
         for _attempt in range(4):
             fp, state = self._fresh(per_new * s_n)
-            pending = entries
-            stuck = False
-            # Rows a pass cannot place retry in later passes; a pass that
-            # places none means some window is full at this size.
-            while any(len(p) for p in pending):
-                next_pending = [[] for _ in range(s_n)]
-                rows = max(len(p) for p in pending)
-                for pos in range(0, rows, b):
-                    kpair = np.zeros((s_n, b, 2), np.uint32)
-                    cols = [np.zeros((s_n, b), a.dtype) for a in olds]
-                    valid = np.zeros((s_n, b), bool)
-                    chunk = [None] * s_n
-                    for s in range(s_n):
-                        idx = pending[s][pos:pos + b]
-                        if len(idx) == 0:
-                            continue
-                        chunk[s] = idx
-                        kpair[s, :len(idx)] = old_fp[s][idx]
-                        for c, a in zip(cols, olds):
-                            c[s, :len(idx)] = a[s][idx]
-                        valid[s, :len(idx)] = True
-                    placed = _to_host(ck.fp_migrate(
-                        fp, state, _i32(kpair.reshape(-1, 2),
-                                        self.mesh.device),
-                        [self._upload(c.reshape(-1)) for c in cols],
-                        self._upload(valid.reshape(-1)), probe_window=pw,
-                        rounds=self.rounds, n_shards=s_n)).reshape(s_n, b)
-                    for s in range(s_n):
-                        idx = chunk[s]
-                        if idx is None:
-                            continue
-                        miss = ~placed[s, :len(idx)]
-                        if miss.any():
-                            next_pending[s].append(idx[miss])
-                new_pending = [
-                    np.concatenate(p) if p else np.zeros((0,), np.int64)
-                    for p in next_pending]
-                if (sum(len(p) for p in new_pending)
-                        >= sum(len(p) for p in pending)):
-                    stuck = True
-                    leftover = sum(len(p) for p in new_pending)
-                    break
-                pending = new_pending
-            if not stuck:
+            left, _ = migrate_passes(fp, state, old_fp, old_state,
+                                     probe_window=pw, rounds=self.rounds,
+                                     n_shards=s_n, chunk=self.batch)
+            if not left:
                 self.fp, self.state = fp, state
                 self.per_shard_slots = per_new
                 return
             per_new *= 2
         raise RuntimeError(
-            f"sharded fingerprint rehash cannot place {leftover} entries "
+            f"sharded fingerprint rehash cannot place {left} entries "
             f"even at {per_new // 2} slots/shard")
 
     def sweep(self) -> int:
@@ -585,19 +537,18 @@ class ShardedFpDeviceStore:
             old_fp = np.asarray(snap["fp"], np.uint32)
             # Install the tables FIRST: the legacy re-place can raise, and
             # config committed before it would not match the live tables.
+            dev = self.mesh.device
+            fp = torch.tensor(old_fp.view(np.int32), device=dev)
+            state = type(self.state)(*(torch.tensor(c, device=dev)
+                                       for c in cols))
             if snap.get("placement") != F.PLACEMENT_VERSION:
                 # A v1 snapshot placed entries with the wrapping h % n
-                # window: re-place them through the migrate kernel (shard
-                # routing is placement-invariant).
-                self._rehash_locked(
-                    old_fp.reshape(self.n_shards, -1, 2),
-                    [c.reshape(self.n_shards, -1) for c in cols],
-                    int(snap["per_shard"]), probe_window=new_pw)
+                # window: re-place them from the uploaded arrays through the
+                # migrate kernel (shard routing is placement-invariant).
+                self._rehash_locked(fp, state, int(snap["per_shard"]),
+                                    probe_window=new_pw)
             else:
-                dev = self.mesh.device
-                self.fp = torch.tensor(old_fp.view(np.int32), device=dev)
-                self.state = type(self.state)(
-                    *(torch.tensor(c, device=dev) for c in cols))
+                self.fp, self.state = fp, state
                 self.per_shard_slots = int(snap["per_shard"])
             self.probe_window = new_pw
             g = snap.get("gcounter")

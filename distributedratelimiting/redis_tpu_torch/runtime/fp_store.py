@@ -11,8 +11,10 @@ on the same stream (``csrc/fp_directory.cu``, :mod:`..ops.cuda_kernels`).
 
 - no host table for buckets and windows: no arena, no insert pass, no
   free-list bookkeeping on sweeps (a sweep clears the cell on the device);
-- growth is a re-placement on the device (``fp_migrate``): the host reads
-  the fingerprints back and chunks them, the kernel places them.
+- growth is a re-placement on the device (``fp_migrate_table``): one
+  kernel pass walks the old table and places every entry with its state in
+  the new one; the host reads back one 4-byte count of unplaced rows a
+  pass, never a table or a column.
 
 The trade: a decision ships an 8-byte fingerprint where the host
 directory ships a resolved slot, and two keys share a bucket iff their
@@ -96,6 +98,27 @@ def fingerprints(keys: Sequence[str]) -> np.ndarray:
         out[i, 0] = h & 0xFFFFFFFF
         out[i, 1] = h >> 32
     return out
+
+
+def migrate_passes(fp, state, old_fp, old_state,
+                   **kw) -> tuple[int, torch.Tensor]:
+    """Growth's passes into one fresh table ``(fp, state)``: the live
+    entries of ``(old_fp, old_state)`` through ``fp_migrate_table``, each
+    pass taking the rows the one before left (on the card one pass places
+    every row a free cell of its window can hold; the plain version runs
+    JAX's chunks and rounds), until none is left or a pass places none —
+    JAX's rule that some window is full. The first pass into a fresh table
+    always places a row, so the rule first applies to a second pass, as in
+    JAX. ``kw``: the wrapper's geometry and plain-version arguments.
+    Returns ``(left, unplaced)``: the rows left (0: every entry placed) and
+    their indices into the old table."""
+    source, pending = None, None
+    while True:
+        source, left = ck.fp_migrate_table(fp, state, old_fp, old_state,
+                                           source=source, **kw)
+        if not left or (pending is not None and left >= pending):
+            return left, source
+        pending = left
 
 
 def _i32(arr: np.ndarray) -> np.ndarray:
@@ -408,75 +431,40 @@ class _FpTable:
                                    self.rate_per_tick)
 
     def _grow(self) -> None:
-        """Double the table: read the fingerprints back, then re-place
-        every entry in a fresh table on the device (``fp_migrate``)."""
+        """Double the table: re-place every entry in a fresh table on the
+        device (``fp_migrate_table``), reading nothing back but a count."""
         store = self.store
         with store._lock:
-            self._rehash(_to_host(self.fp).view(np.uint32),
-                         [_to_host(t) for t in self.state],
-                         self.n_slots * 2)
+            self._rehash(self.fp, self.state, self.n_slots * 2)
             store.metrics.pregrows += 1
 
-    def _rehash(self, old_fp: np.ndarray, olds: list, start_n: int,
+    def _rehash(self, old_fp: torch.Tensor, old_state, start_n: int,
                 probe_window: int | None = None) -> None:
-        """Re-place every live entry of ``old_fp`` (with its state columns
-        ``olds``, in field order) into a fresh table through the migrate
-        kernel, doubling and retrying when placement gets stuck: the routine
-        behind growth and legacy-snapshot adoption (the caller holds the
-        store lock). Changes nothing until placement succeeds, so a raise
-        leaves the table as it was. ``probe_window`` places under a
-        snapshot's geometry before committing it.
+        """Re-place every live entry of the table ``(old_fp, old_state)``
+        (on the store's device) into a fresh table, doubling and retrying
+        when placement gets stuck: the routine behind growth and
+        legacy-snapshot adoption (the caller holds the store lock). Changes
+        nothing until placement succeeds, so a raise leaves the table as it
+        was. ``probe_window`` places under a snapshot's geometry before
+        committing it.
 
         An entry whose whole window fills with other entries cannot be
         placed at a given size (a density accident, seen at ~0.8 load);
         each doubling halves the load, and after four a pathological hash
         set fails loudly."""
         pw = self.probe_window if probe_window is None else probe_window
-        entries = np.nonzero((old_fp != 0).any(-1))[0]
-        b = self.store.max_batch
         new_n = start_n
-        leftover = 0
         for _attempt in range(4):
             fp, state = self._init_fresh(new_n)
-            pending = entries
-            stuck = False
-            # Rows a pass cannot place (bounded claims under in-chunk
-            # contention) retry in later passes; a pass that places none
-            # means some window is full.
-            while len(pending):
-                next_pending = []
-                for pos in range(0, len(pending), b):
-                    idx = pending[pos:pos + b]
-                    m = len(idx)
-                    kp = np.zeros((b, 2), np.uint32)
-                    kp[:m] = old_fp[idx]
-                    cols = []
-                    for arr in olds:
-                        col = np.zeros((b,), arr.dtype)
-                        col[:m] = arr[idx]
-                        cols.append(self._upload(col))
-                    valid = np.zeros((b,), bool)
-                    valid[:m] = True
-                    placed = ck.fp_migrate(
-                        fp, state, self._upload(_i32(kp)), cols,
-                        self._upload(valid), probe_window=pw,
-                        rounds=self.rounds)
-                    miss = ~_to_host(placed)[:m]
-                    if miss.any():
-                        next_pending.append(idx[miss])
-                if not next_pending:
-                    break
-                next_pending = np.concatenate(next_pending)
-                if len(next_pending) >= len(pending):
-                    stuck, leftover = True, len(next_pending)
-                    break
-                pending = next_pending
-            if not stuck:
+            left, _ = migrate_passes(fp, state, old_fp, old_state,
+                                     probe_window=pw, rounds=self.rounds,
+                                     chunk=self.store.max_batch)
+            if not left:
                 self.fp, self.state, self.n_slots = fp, state, new_n
                 self.probe_window = pw
                 return
             new_n *= 2
-        raise RuntimeError(f"fingerprint rehash cannot place {leftover} "
+        raise RuntimeError(f"fingerprint rehash cannot place {left} "
                            f"entries even at {new_n // 2} slots")
 
     def rebase(self, offset: int) -> None:
@@ -507,18 +495,20 @@ class _FpTable:
         # 12 of a 16-cell window is invisible to an 8-cell scan.
         pw = int(data.get("probe_window", self.probe_window))
         cols = self._snap_cols(data, shift)
-        old_fp = np.asarray(data["fp"], np.uint32)
+        dev = self.store.device
+        fp = torch.tensor(np.asarray(data["fp"], np.uint32).view(np.int32),
+                          device=dev)
+        state = type(self.state)(*(torch.tensor(c, device=dev)
+                                   for c in cols))
         if data.get("placement") != F.PLACEMENT_VERSION:
             # A v1 snapshot placed entries with a wrapping h mod N: re-place
-            # them (commit on success, so a failed restore changes nothing).
-            self._rehash(old_fp, cols, len(cols[0]), probe_window=pw)
+            # them from the uploaded arrays, one pass on the device (commit
+            # on success, so a failed restore changes nothing).
+            self._rehash(fp, state, len(cols[0]), probe_window=pw)
             return
-        dev = self.store.device
         self.probe_window = pw
         self.n_slots = len(cols[0])
-        self.fp = torch.tensor(old_fp.view(np.int32), device=dev)
-        self.state = type(self.state)(
-            *(torch.tensor(c, device=dev) for c in cols))
+        self.fp, self.state = fp, state
 
 
 class _FpWindowTable(_FpTable):

@@ -101,12 +101,13 @@ def _draw(rng, keys, rows, dist):
     return pool[np.minimum(rng.zipf(1.2, rows) - 1, len(pool) - 1)]
 
 
-def _same_by_key(cpu, dev, keys):
+def _same_by_key(cpu, dev, keys, n_shards=1):
     """Each key present in both tables or in neither, its state equal."""
     fp_c = cpu[0].numpy().view(np.uint32)
     fp_d = dev[0].cpu().numpy().view(np.uint32)
-    F.check_table_np(fp_d, L)
-    sc, sd = F.find_np(fp_c, keys, L), F.find_np(fp_d, keys, L)
+    F.check_table_np(fp_d, L, n_shards)
+    sc = F.find_np(fp_c, keys, L, n_shards)
+    sd = F.find_np(fp_d, keys, L, n_shards)
     np.testing.assert_array_equal(sc >= 0, sd >= 0)
     hit = sc >= 0
     for a, b in zip(cpu[1], dev[1]):
@@ -255,6 +256,110 @@ def test_fp_migrate_matches_plain(cuda_device, kind):
                         valid.to(cuda_device), probe_window=L, rounds=R)
     assert want.all() and got.cpu().all()
     _same_by_key(new_c, new_d, keys)
+
+
+def _region_tables(rng, device, kind, n, present, n_shards):
+    """``_tables`` with the keys placed in ``n_shards`` shard regions."""
+    keys = _fps(rng, present)
+    fp = F.init_fp_table(n)
+    F.fp_resolve(fp, _t(keys.view(np.int32)), torch.ones(present, dtype=bool),
+                 probe_window=L, rounds=R, n_shards=n_shards)
+    live = (fp != 0).any(1).numpy()
+    if kind == "bucket":
+        cols = [rng.uniform(0, CAP, n).astype(np.float32),
+                rng.integers(NOW - 3000, NOW + 50, n).astype(np.int32),
+                rng.random(n) < 0.7]
+        cls = K.BucketState
+    else:
+        cols = [rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(NOW // WINDOW - 3, NOW // WINDOW + 1,
+                             n).astype(np.int32),
+                rng.random(n) < 0.7]
+        cls = K.WindowState
+    for c in cols:
+        c[~live] = 0
+    cpu = (fp, cls(*(torch.tensor(c) for c in cols)))
+    return keys[F.find_np(fp.numpy().view(np.uint32), keys, L,
+                          n_shards) >= 0], cpu, _copy(cpu, device)
+
+
+def _copy(table, device=None):
+    fp, st = table
+    return (fp.to(device) if device else fp.clone(),
+            type(st)(*(t.to(device) if device else t.clone() for t in st)))
+
+
+def _passes(new, old, n_shards):
+    """The stores' growth loop (``fp_store.migrate_passes``) into one new
+    table. Returns (unplaced rows, rows left, launches)."""
+    from distributedratelimiting.redis_tpu_torch.runtime.fp_store import (
+        migrate_passes,
+    )
+
+    before = dict(ck.launches)
+    left, source = migrate_passes(*new, *old, probe_window=L, rounds=R,
+                                  n_shards=n_shards, chunk=4096)
+    spent = sum(ck.launches[k] - before[k] for k in ck.launches)
+    return source, left, spent
+
+
+@pytest.mark.parametrize("kind", ["bucket", "window"])
+@pytest.mark.parametrize("n_shards", [1, 8])
+def test_fp_migrate_table_matches_plain(cuda_device, kind, n_shards):
+    """Growth's table form: a 2^16-slot table of 40,000 entries into 2^17
+    slots, on the card (one launch, every entry placed) and in the plain
+    version (JAX's chunks), held by key and by the invariants."""
+    rng = np.random.default_rng(21 + n_shards)
+    keys, old_c, old_d = _region_tables(rng, cuda_device, kind, 1 << 16,
+                                        40_000, n_shards)
+    cls = type(old_c[1])
+    new_c = (F.init_fp_table(1 << 17),
+             cls(*(torch.zeros(1 << 17, dtype=t.dtype) for t in old_c[1])))
+    new_d = _copy(new_c, cuda_device)
+    _, left_c, spent_c = _passes(new_c, old_c, n_shards)
+    _, left_d, spent_d = _passes(new_d, old_d, n_shards)
+    assert left_c == left_d == 0 and spent_c == 0
+    assert spent_d == 1
+    _same_by_key(new_c, new_d, keys, n_shards)
+    assert F.check_table_np(new_d[0].cpu().numpy().view(np.uint32), L,
+                            n_shards) == len(keys)
+
+
+@pytest.mark.parametrize("n_shards", [1, 8])
+def test_fp_migrate_table_unplaced_rows_have_full_windows(cuda_device,
+                                                          n_shards):
+    """Re-placing a dense table at its own size: the card leaves a row
+    unplaced only when its window is full; the unplaced list holds exactly
+    the entries the new table lacks, each once; a second pass over the
+    list places none (the stores' "stuck" rule)."""
+    rng = np.random.default_rng(31 + n_shards)
+    n = 1 << 14
+    keys, old_c, old_d = _region_tables(rng, cuda_device, "bucket", n,
+                                        int(0.95 * n), n_shards)
+    new_d = (F.init_fp_table(n, cuda_device),
+             K.init_bucket_state(n, cuda_device))
+    source, left, spent = _passes(new_d, old_d, n_shards)
+    fp_new = new_d[0].cpu().numpy().view(np.uint32)
+    fp_old = old_c[0].numpy().view(np.uint32)
+    assert len(source) == left
+    missing = source.cpu().numpy()
+    assert len(np.unique(missing)) == left
+    assert spent == (2 if left else 1)
+    if left:
+        lost = fp_old[missing]
+        assert (F.find_np(fp_new, lost, L, n_shards) < 0).all()
+        win = fp_new.view(np.uint64).reshape(-1)[
+            F.base_index_np(lost, n, L, n_shards)[:, None]
+            + np.arange(L)[None, :]]
+        assert (win != 0).all()
+    placed = keys[F.find_np(fp_new, keys, L, n_shards) >= 0]
+    assert len(placed) + left == len(keys)
+    assert F.check_table_np(fp_new, L, n_shards) == len(placed)
+    sc = F.find_np(fp_old, placed, L, n_shards)
+    sd = F.find_np(fp_new, placed, L, n_shards)
+    for a, b in zip(old_c[1], new_d[1]):
+        np.testing.assert_array_equal(b.cpu().numpy()[sd], a.numpy()[sc])
 
 
 def test_fp_store_on_card_equals_cpu_store(cuda_device):

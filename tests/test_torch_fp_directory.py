@@ -441,6 +441,132 @@ def test_fp_migrate_matches_jax(kind, new_n):
     _same_tables(pfp, pst, nfp, nst)
 
 
+def _routed_table(rng, n, n_shards, kind, present):
+    """An old table of ``n`` cells in ``n_shards`` regions holding
+    ``present`` keys (each in its region, placed by the plain resolve) with
+    random state on its live cells only. Returns (keys, fp u32[n, 2],
+    numpy state columns)."""
+    keys = _fps(rng, present)
+    fp = F.init_fp_table(n)
+    F.fp_resolve(fp, _t(keys.view(np.int32)),
+                 torch.ones(present, dtype=torch.bool), probe_window=16,
+                 rounds=4, n_shards=n_shards)
+    fp = fp.numpy().view(np.uint32).copy()
+    live = (fp != 0).any(1)
+    if kind == "bucket":
+        cols = [rng.uniform(0, CAP, n).astype(np.float32),
+                rng.integers(NOW - 3000, NOW + 50, n).astype(np.int32),
+                rng.random(n) < 0.7]
+    else:
+        cols = [rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(NOW // WINDOW - 3, NOW // WINDOW + 1,
+                             n).astype(np.int32),
+                rng.random(n) < 0.7]
+    for c in cols:
+        c[~live] = 0
+    return keys, fp, cols
+
+
+def _jax_rehash_pass(jtabs, old, cols, pending, b, kind):
+    """One pass of JAX's ``_rehash`` loop (``runtime/fp_store.py``; with
+    shard regions ``parallel/fp_sharded.py``'s ``_rehash_locked``, each
+    region its own table): each region's pending rows in chunks of ``b``
+    through ``fp_migrate_chunk`` / ``fp_migrate_window_chunk``. Returns each
+    region's rows left unplaced."""
+    fn = JF.fp_migrate_chunk if kind == "bucket" else \
+        JF.fp_migrate_window_chunk
+    left = []
+    for s, idx_s in enumerate(pending):
+        miss = []
+        for pos in range(0, len(idx_s), b):
+            idx = idx_s[pos:pos + b]
+            m = len(idx)
+            kp = np.zeros((b, 2), np.uint32)
+            kp[:m] = old[idx]
+            chunk = []
+            for c in cols:
+                col = np.zeros((b,), c.dtype)
+                col[:m] = c[idx]
+                chunk.append(jnp.asarray(col))
+            valid = np.zeros((b,), bool)
+            valid[:m] = True
+            jfp, jst, placed = fn(*jtabs[s], jnp.asarray(kp), *chunk,
+                                  jnp.asarray(valid), probe_window=16,
+                                  rounds=4)
+            jtabs[s] = (jfp, jst)
+            miss.append(idx[~np.asarray(placed)[:m]])
+        left.append(np.concatenate(miss) if miss else idx_s[:0])
+    return left
+
+
+@pytest.mark.parametrize("kind", ["bucket", "window"])
+@pytest.mark.parametrize("n_shards", [1, 8])
+@pytest.mark.parametrize("grow", [1, 2])
+def test_fp_migrate_table_matches_jax_passes(kind, n_shards, grow):
+    """The table form's plain version, pass by pass, against JAX's growth
+    loop over the same old table: the new table slot for slot and column
+    for column, and the rows left unplaced, after each pass. Re-placing at
+    the old size (``grow`` 1: a dense table, chunks of 64 under contention)
+    leaves rows for a second pass; doubling (``grow`` 2) too, rarely."""
+    rng = np.random.default_rng(40 + 2 * n_shards + grow)
+    n_old = 1024
+    _, old, cols = _routed_table(rng, n_old, n_shards, kind, 700)
+    n_new = grow * n_old
+    per_new = n_new // n_shards
+    init = JK.init_bucket_state if kind == "bucket" else \
+        JK.init_window_state
+    jtabs = [(JF.init_fp_table(per_new), init(per_new))
+             for _ in range(n_shards)]
+    pinit = K.init_bucket_state if kind == "bucket" else K.init_window_state
+    pfp, pst = F.init_fp_table(n_new), pinit(n_new)
+    old_t = _t(old.view(np.int32))
+    old_st = type(pst)(*(_t(c) for c in cols))
+    live = np.nonzero((old != 0).any(1))[0]
+    per_old = n_old // n_shards
+    pending = [live[live // per_old == s] for s in range(n_shards)]
+    source = None
+    passes = 0
+    while True:
+        pending = _jax_rehash_pass(jtabs, old, cols, pending, 64, kind)
+        source, left = F.fp_migrate_table(
+            pfp, pst, old_t, old_st, probe_window=16, rounds=4,
+            n_shards=n_shards, source=source, chunk=64)
+        passes += 1
+        want = np.concatenate(pending)
+        assert left == len(want)
+        np.testing.assert_array_equal(source.numpy(), want)
+        np.testing.assert_array_equal(
+            pfp.numpy().view(np.uint32),
+            np.concatenate([np.asarray(t[0]) for t in jtabs]))
+        for j, (name, col) in enumerate(zip(pst._fields, pst)):
+            np.testing.assert_array_equal(
+                col.numpy(), np.concatenate([np.asarray(t[1][j])
+                                             for t in jtabs]), name)
+        if not left or passes == 4:
+            break
+    if grow == 1:
+        assert passes >= 2  # the retry pass ran
+    F.check_table_np(pfp.numpy().view(np.uint32), 16, n_shards)
+
+
+def test_fp_migrate_table_wrapper_is_the_plain_version_on_the_cpu():
+    """``cuda_kernels.fp_migrate_table`` on CPU tensors is the plain
+    version (no launch counted); its source list comes back as ``i32``."""
+    rng = np.random.default_rng(5)
+    _, old, cols = _routed_table(rng, 256, 1, "bucket", 120)
+    before = dict(ck.launches)
+    a = (F.init_fp_table(512), K.init_bucket_state(512))
+    b = (F.init_fp_table(512), K.init_bucket_state(512))
+    old_st = K.BucketState(*(_t(c) for c in cols))
+    got = ck.fp_migrate_table(*a, _t(old.view(np.int32)), old_st, chunk=32)
+    want = F.fp_migrate_table(*b, _t(old.view(np.int32)), old_st, chunk=32)
+    assert ck.launches == before
+    assert got[1] == want[1] == 0 and got[0].dtype == torch.int32
+    assert torch.equal(a[0], b[0])
+    assert F.check_table_np(a[0].numpy().view(np.uint32), 16) == 120
+
+
 # -- the wrappers' device rule ------------------------------------------------
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():

@@ -395,6 +395,135 @@ def test_fp_window_store_matches_jax(jmesh, mesh, fixed):
     np.testing.assert_array_equal(a.granted, b.granted)
 
 
+# -- growth: one device pass over every region -------------------------------------
+def _region_table(rng, per, keys, kind):
+    """A shard-major table of ``S`` regions of ``per`` cells holding
+    ``keys`` (each at a random cell of its region ``lo % S``; growth reads
+    live cells wherever they lie in it), random state on live cells."""
+    fp = np.zeros((S * per, 2), np.uint32)
+    for s in range(S):
+        mine = keys[keys[:, 0] % S == s]
+        fp[s * per + rng.permutation(per)[:len(mine)]] = mine
+    n = S * per
+    live = (fp != 0).any(1)
+    if kind == "bucket":
+        cols = [rng.uniform(0, 6, n).astype(np.float32),
+                rng.integers(5_000, 8_000, n).astype(np.int32),
+                rng.random(n) < 0.8]
+    else:
+        cols = [rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(4, 8, n).astype(np.int32),
+                rng.random(n) < 0.8]
+    for c in cols:
+        c[~live] = 0
+    return fp, cols
+
+
+@pytest.mark.parametrize("kind", ["bucket", "window"])
+@pytest.mark.parametrize("full", [False, True])
+def test_growth_matches_jax_rehash(jmesh, mesh, kind, full):
+    """The mesh tier's growth (``_grow_locked``: the table form with
+    ``n_shards = 8``, the plain version's chunks of ``batch`` a region)
+    against JAX's ``_rehash_locked`` on the same regions: per-shard size,
+    ``grows``, cells slot for slot, every state column. ``full``: in region
+    3, L + 1 keys share one window at the doubled size, so both double
+    again (64 → 128 cells a region)."""
+    rng = np.random.default_rng(60 + full)
+    keys = _routed(rng, 20).reshape(-1, 2)
+    if full:
+        # (lo * MIX) ^ hi == h with lo % S == 3: one window at 64 cells.
+        lo = (rng.integers(1, 2**28, L + 1, dtype=np.uint64) * S + 3).astype(
+            np.uint32)
+        hs = (9 + 57 * rng.permutation(np.arange(1, 3000))[:L + 1]).astype(
+            np.uint32)
+        keys = np.concatenate([keys, np.stack(
+            [lo, hs ^ (lo * np.uint32(F.MIX))], 1)])
+    fp, cols = _region_table(rng, 32, keys, kind)
+    if kind == "bucket":
+        kw = dict(capacity=6.0, fill_rate_per_sec=2.0)
+        jstore, pstore, _, _ = _pair(jmesh, mesh, JS.ShardedFpDeviceStore,
+                                     PS.ShardedFpDeviceStore,
+                                     per_shard_slots=32, batch=16,
+                                     probe_window=L, **kw)
+    else:
+        jstore, pstore, _, _ = _pair(jmesh, mesh, JS.ShardedFpWindowStore,
+                                     PS.ShardedFpWindowStore, limit=5.0,
+                                     window_sec=1.0, per_shard_slots=32,
+                                     batch=16, probe_window=L)
+    jstore.fp = _jput(jmesh, fp, JP(JAXIS, None))
+    jstore.state = type(jstore.state)(*(_jput(jmesh, c, JP(JAXIS))
+                                        for c in cols))
+    pstore.fp = torch.from_numpy(fp.view(np.int32).copy())
+    pstore.state = type(pstore.state)(*(torch.from_numpy(c.copy())
+                                        for c in cols))
+    jstore._grow_locked()
+    pstore._grow_locked()
+    assert pstore.per_shard_slots == jstore.per_shard_slots == \
+        (128 if full else 64)
+    assert pstore.grows == jstore.grows == 1
+    np.testing.assert_array_equal(_to_u32(pstore.fp), np.asarray(jstore.fp))
+    for name, a, b in zip(pstore.state._fields, pstore.state, jstore.state):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), name)
+    assert F.check_table_np(_to_u32(pstore.fp), L, S) == len(keys)
+
+
+def test_growth_reads_no_table_back(mesh, monkeypatch):
+    """The mesh tier grows from traffic with no readback larger than a
+    scalar (``_to_host``) during a growth, one ``fp_migrate_table`` pass
+    (or a second for leftovers) a growth, and a v1 snapshot re-places
+    through the same pass."""
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+
+    sizes, passes, inside = [], [], [False]
+    real_host, real_pass = PS._to_host, ck.fp_migrate_table
+    real_grow = PS.ShardedFpDeviceStore._grow_locked
+
+    def host(t):
+        if inside[0]:
+            sizes.append(t.numel())
+        return real_host(t)
+
+    def one_pass(*a, **kw):
+        passes.append(kw.get("source") is None)
+        return real_pass(*a, **kw)
+
+    def grow(self):
+        inside[0] = True
+        try:
+            real_grow(self)
+        finally:
+            inside[0] = False
+
+    monkeypatch.setattr(PS, "_to_host", host)
+    monkeypatch.setattr(ck, "fp_migrate_table", one_pass)
+    monkeypatch.setattr(PS.ShardedFpDeviceStore, "_grow_locked", grow)
+    store = PS.ShardedFpDeviceStore(mesh, capacity=6.0, fill_rate_per_sec=2.0,
+                                    per_shard_slots=16, batch=16,
+                                    probe_window=L,
+                                    clock=ManualClock(start_ticks=8_000))
+    keys = [f"g{i}" for i in range(600)]
+    for i in range(0, len(keys), 200):
+        part = keys[i:i + 200]
+        for _ in range(4):
+            r = store.acquire_many_blocking(part, [1] * len(part))
+            part = [k for k, g in zip(part, r.granted) if not g]
+            if not part:
+                break
+    assert store.grows >= 1 and all(n <= 1 for n in sizes)
+    # Each attempt (a doubling may need another) is a whole-table pass and
+    # at most a pass or two of its leftovers, never a pass a chunk.
+    attempts = passes.count(True)
+    assert store.grows <= attempts and len(passes) <= 3 * attempts
+    snap = store.snapshot()
+    snap["placement"] = 1
+    del passes[:]
+    store.restore(snap)
+    assert passes and passes[0] and not any(passes[1:])
+    assert F.check_table_np(_to_u32(store.fp), L, S) == int(
+        (snap["fp"] != 0).any(1).sum())
+
+
 # -- the JAX file's surface (tests/test_fp_sharded.py) on the port -------------------
 def make_store(mesh, **kw):
     kw.setdefault("capacity", 5.0)

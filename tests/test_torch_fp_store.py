@@ -780,6 +780,185 @@ def test_v1_snapshot_replaced_as_jax_does():
     np.testing.assert_array_equal(mine[1], theirs[1])
 
 
+# -- growth: one device pass over the old table -----------------------------------
+def _h_keys(rng, hs):
+    """Fingerprints whose placement hash ``(lo * MIX) ^ hi`` is each of
+    ``hs``: keys that share a window at a chosen table size."""
+    lo = rng.integers(1, 2**32, len(hs), dtype=np.uint64).astype(np.uint32)
+    hi = np.asarray(hs, np.uint32) ^ (lo * np.uint32(F.MIX))
+    return np.stack([lo, hi], 1)
+
+
+def _old_table(rng, n, keys, kind):
+    """A table of ``n`` cells holding ``keys`` at random cells (growth reads
+    live cells wherever they lie) with random state on them."""
+    fp = np.zeros((n, 2), np.uint32)
+    cells = rng.permutation(n)[:len(keys)]
+    fp[cells] = keys
+    live = (fp != 0).any(1)
+    if kind == "bucket":
+        cols = [rng.uniform(0, 6, n).astype(np.float32),
+                rng.integers(START - 3000, START, n).astype(np.int32),
+                rng.random(n) < 0.8]
+    else:
+        cols = [rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(0, 4, n).astype(np.float32),
+                rng.integers(90, 98, n).astype(np.int32),
+                rng.random(n) < 0.8]
+    for c in cols:
+        c[~live] = 0
+    return fp, cols
+
+
+def _install(jtable, ptable, fp, cols):
+    """The same old table in a JAX store's table and the port's."""
+    import jax.numpy as jnp
+
+    jtable.fp = jnp.asarray(fp)
+    jtable.state = type(jtable.state)(*(jnp.asarray(c) for c in cols))
+    jtable.n_slots = len(fp)
+    ptable.fp = torch.from_numpy(fp.view(np.int32).copy())
+    ptable.state = type(ptable.state)(*(torch.from_numpy(c.copy())
+                                        for c in cols))
+    ptable.n_slots = len(fp)
+
+
+def _tables(kind, n, max_batch):
+    j = jfs.FingerprintBucketStore(n_slots=n, clock=JClock(START),
+                                   probe_window=16, max_batch=max_batch)
+    p = FpStore(n_slots=n, clock=ManualClock(START), probe_window=16,
+                max_batch=max_batch)
+    if kind == "bucket":
+        return j, p, j._table(6.0, 2.0), p._table(6.0, 2.0)
+    return j, p, j._wtable(6.0, 2.0), p._wtable(6.0, 2.0)
+
+
+@pytest.mark.parametrize("kind", ["bucket", "window"])
+@pytest.mark.parametrize("full", [False, True])
+def test_growth_matches_jax_rehash(kind, full):
+    """A store's growth (``_grow``: the table form's passes, the plain
+    version's chunks of ``max_batch``) against the JAX store's ``_rehash``
+    on the same old table: the new size, ``pregrows``, the cells slot for
+    slot and every state column. ``full``: 17 keys share one 16-cell window
+    at the doubled size, so JAX's rule doubles again (512 → 1024), and the
+    port must too."""
+    rng = np.random.default_rng(7 + full)
+    keys = _fps_np(rng, 150)
+    if full:
+        hs = 5 + 497 * rng.permutation(np.arange(1, 4000))[:17]
+        keys = np.concatenate([keys, _h_keys(rng, hs)])
+    fp, cols = _old_table(rng, 256, keys, kind)
+    j, p, jt, pt = _tables(kind, 256, 64)
+    _install(jt, pt, fp, cols)
+    jt._grow()
+    pt._grow()
+    assert pt.n_slots == jt.n_slots == (1024 if full else 512)
+    assert p.metrics.pregrows == j.metrics.pregrows == 1
+    np.testing.assert_array_equal(pt.fp.numpy().view(np.uint32),
+                                  np.asarray(jt.fp))
+    for name, a, b in zip(pt.state._fields, pt.state, jt.state):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), name)
+    assert F.check_table_np(pt.fp.numpy().view(np.uint32), 16) == len(keys)
+    run(j.aclose())
+    run(p.aclose())
+
+
+def _fps_np(rng, m):
+    return np.unique(rng.integers(1, 2**32, (m, 2), dtype=np.uint64).astype(
+        np.uint32), axis=0)
+
+
+def test_growth_fails_loudly_as_jax_after_four_doublings():
+    """17 keys of one placement hash share a window at every size: both
+    stores raise the same error after four doublings and keep the old
+    table."""
+    rng = np.random.default_rng(9)
+    keys = np.concatenate([_fps_np(rng, 40), _h_keys(rng, [12345] * 17)])
+    fp, cols = _old_table(rng, 256, keys, "bucket")
+    j, p, jt, pt = _tables("bucket", 256, 64)
+    _install(jt, pt, fp, cols)
+    errors = []
+    for t in (jt, pt):
+        with pytest.raises(RuntimeError) as e:
+            t._grow()
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == ("fingerprint rehash cannot place 1 "
+                                      "entries even at 4096 slots")
+    assert pt.n_slots == 256 and p.metrics.pregrows == 0
+    np.testing.assert_array_equal(pt.fp.numpy().view(np.uint32), fp)
+    run(j.aclose())
+    run(p.aclose())
+
+
+@pytest.mark.parametrize("kind", ["bucket", "window"])
+def test_growth_reads_no_table_back(kind, monkeypatch):
+    """Growth, from traffic that fills a small table, and a v1 snapshot's
+    re-placement read nothing back larger than a scalar (``_to_host``), and
+    each growth pass is one ``fp_migrate_table`` call, not one a chunk."""
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+    from distributedratelimiting.redis_tpu_torch.runtime import fp_store
+
+    sizes, passes, grows = [], [], []
+    real_host, real_pass = fp_store._to_host, ck.fp_migrate_table
+    real_grow = fp_store._FpTable._grow
+
+    def host(t):
+        if grows and grows[-1] == "in":
+            sizes.append(t.numel())
+        return real_host(t)
+
+    def one_pass(*a, **kw):
+        passes.append(kw.get("source") is None)
+        return real_pass(*a, **kw)
+
+    def grow(self):
+        grows.append("in")
+        try:
+            real_grow(self)
+        finally:
+            grows.append("out")
+
+    monkeypatch.setattr(fp_store, "_to_host", host)
+    monkeypatch.setattr(ck, "fp_migrate_table", one_pass)
+    monkeypatch.setattr(fp_store._FpTable, "_grow", grow)
+    store = FpStore(n_slots=256, clock=ManualClock(START), max_batch=64)
+    keys = [f"k{i}" for i in range(900)]
+
+    async def fill():
+        for i in range(0, len(keys), 300):
+            part = keys[i:i + 300]
+            for _ in range(4):
+                if kind == "bucket":
+                    r = await store.acquire_many(part, [1] * len(part), 6.0,
+                                                 2.0)
+                else:
+                    r = await store.window_acquire_many(
+                        part, [1] * len(part), 6.0, 2.0)
+                part = [k for k, g in zip(part, r.granted) if not g]
+                if not part:
+                    break
+    run(fill())
+    n_grows = grows.count("in")
+    assert n_grows >= 1 and store.metrics.pregrows == n_grows
+    assert all(n <= 1 for n in sizes)
+    # Each attempt (a doubling may need another) is a whole-table pass and
+    # at most a pass or two of its leftovers, never a pass a chunk.
+    attempts = passes.count(True)
+    assert n_grows <= attempts and len(passes) <= 3 * attempts
+    # A v1 snapshot's re-placement: the same pass, nothing read back.
+    table = (store._table(6.0, 2.0) if kind == "bucket"
+             else store._wtable(6.0, 2.0))
+    snap = table.to_snap()
+    snap["placement"] = 1
+    del passes[:]
+    grows.append("in")
+    table.load_snap(snap, 0)
+    grows.append("out")
+    assert passes and passes[0] and not any(passes[1:])
+    assert all(n <= 1 for n in sizes)
+    run(store.aclose())
+
+
 # -- the store's growth and pressure counters -------------------------------------
 
 def test_store_metrics_carry_pregrows_and_fp_unresolved_as_jax():
