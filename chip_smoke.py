@@ -283,7 +283,10 @@ Phases (any failure raises, and the script exits non-zero):
    ``fp_acquire_scan`` at K = 1 of 8, 64 and 4,096 rows (Zipf(1.2) and
    distinct keys, half of them new) and at the store's chunk of 8 x 4,096,
    and ``fp_window_scan`` sliding and fixed at K = 1 of 64 and 4,096 Zipf
-   rows and at 8 x 4,096, distinct and Zipf, f32 and bits out; under
+   rows and at 8 x 4,096, distinct and Zipf, f32 and bits out (and all three
+   at K = 1 of 4,096 Zipf rows, bits out), each decision's device ms split
+   by kernel (``--fp-bench [JSON]`` runs these cases and the mesh's alone);
+   under
    window pressure (8 x 4,096 new keys into 2^16 slots half full) every
    card row left unresolved has a full window, beside the plain version's
    (JAX's R rounds) count; ``fp_debit`` at 4,096 rows (repeats, refunds) and one
@@ -6521,8 +6524,12 @@ FP_WINDOW_S = 1.0
 FP_RESULTS: dict = {}
 #: The CUDA kernels each fp wrapper launches (their device time).
 FP_KERNEL_NAMES = {
-    "fp_decide": ("resolve_kernel", "scan_kernel", "code_kernel"),
-    "fp_window_decide": ("resolve_kernel", "scan_kernel", "code_kernel"),
+    # The flush form at K = 1 (one launch: a warp kernel up to 32 rows,
+    # blocks up to 4,096), else the resolve and the scan's fingerprint form.
+    "fp_decide": ("fp_flush_warp_kernel", "fp_flush_block_kernel",
+                  "resolve_kernel", "scan_kernel"),
+    "fp_window_decide": ("fp_flush_warp_kernel", "fp_flush_block_kernel",
+                         "resolve_kernel", "scan_kernel"),
     "fp_debit": ("resolve_kernel", "tally_", "debit_fix_kernel"),
     "fp_peek": ("peek_kernel",),
     "fp_sweep": ("sweep_bucket_kernel",),
@@ -6618,16 +6625,67 @@ def _fp_same_by_key(F, what, cpu, dev, keys, n_shards: int = 1) -> tuple:
     return n_d, err
 
 
+#: Timed fp calls whose profiler trace held no kernel at all (ROADMAP C1).
+FP_C1: list = []
+
+
+def _device_split(fn, names, reps=20, setup=None) -> dict:
+    """Device ms per call of each named CUDA kernel (a kernel matches a
+    name it contains), from one ``torch.profiler`` trace of ``reps`` calls
+    (each after ``setup``): ``{name: ms or None}``, and under ``"trace"``
+    the device ms per call of every kernel in the trace (0 when the trace
+    recorded none: ROADMAP C1)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if setup is not None:
+        setup()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if setup is not None:
+                setup()
+            fn()
+        torch.cuda.synchronize()
+    events = [(e.key, getattr(e, "self_device_time_total", 0.0))
+              for e in prof.key_averages()]
+    out = {}
+    for name in names:
+        us = sum(t for key, t in events if name in key)
+        out[name] = us / 1e3 / reps if us > 0 else None
+    out["trace"] = sum(t for _, t in events) / 1e3 / reps
+    return out
+
+
 def _fp_time(torch, name: str, call, plain=None, setup=None) -> dict:
-    """A launch's event ms (median), its kernels' device ms (profiler) and,
-    where given, its plain version's ms; ``setup`` (untimed) runs before
-    each call."""
+    """A launch's event ms (median), its kernels' device ms (profiler: the
+    sum, and ``split`` per kernel of :data:`FP_KERNEL_NAMES`) and, where
+    given, its plain version's ms; ``setup`` (untimed) runs before each
+    call. A trace with device time in which no kernel of the wrapper
+    shows raises (a stale name); a trace with none at all is ROADMAP C1:
+    device_ms None, the case listed in :data:`FP_C1`."""
+    split = _device_split(call, FP_KERNEL_NAMES[name], reps=10, setup=setup)
+    trace = split.pop("trace")
+    known = [v for v in split.values() if v is not None]
+    if not known and trace > 0:
+        raise AssertionError(f"{name}: the trace holds {trace:.5f} ms of "
+                             f"device time a call, none of it in "
+                             f"{FP_KERNEL_NAMES[name]}")
+    if not known:
+        FP_C1.append(name)
+        print(f"{name}: device time not measured (the trace holds no "
+              "kernel: ROADMAP C1)")
     out = {"ms": _median_ms(call, setup=setup, reps=10, warmup=2),
-           "device_ms": _device_ms(call, FP_KERNEL_NAMES[name], reps=10,
-                                   setup=setup)}
+           "device_ms": sum(known) if known else None, "split": split}
     if plain is not None:
         out["plain_ms"] = _median_ms(plain, reps=2, warmup=0)
     return out
+
+
+def _split_text(row: dict) -> str:
+    """A timed row's device ms per kernel, for its printed line."""
+    return ", ".join(f"{k} {v}" for k, v in row["split"].items())
 
 
 def _fp_record(name: str, case: str, row: dict, err: float, nbytes: float,
@@ -6754,6 +6812,10 @@ def fp_kernel_cases(torch, K, F, ck, dev, rng) -> None:
              for d in ("zipf", "distinct")]
     cases += [(p, 1, b, "zipf", True) for p in ("sliding", "fixed")
               for b in (64, BATCH)]
+    # The flush form's bit planes (the bulk lane's verdict-only one-batch
+    # calls): every row sets or clears its own bits.
+    cases += [(p, 1, BATCH, "zipf", False)
+              for p in ("bucket", "sliding", "fixed")]
     cases += [(p, 8, BATCH, d, f) for p in ("bucket", "sliding", "fixed")
               for d in ("distinct", "zipf") for f in (True, False)]
     for policy, k, b, dist, f32 in cases:
@@ -6832,7 +6894,8 @@ def fp_kernel_cases(torch, K, F, ck, dev, rng) -> None:
         print(f"{name} {policy} K={k} B={b} {dist} "
               f"{'f32' if f32 else 'bits'}: equal to plain by key "
               f"({cells} cells, max abs err {err!r}); cold {cold_ms:.4f} ms, "
-              f"warm {row['ms']:.4f} ms (device {row['device_ms']} ms)")
+              f"warm {row['ms']:.4f} ms (device {row['device_ms']} ms: "
+              f"{_split_text(row)})")
         del cpu, card
 
     # -- window pressure: 8 x 4,096 new keys into a 2^16-slot table half
@@ -7435,6 +7498,44 @@ def _device_ms_by(fn, groups: dict, reps=3) -> dict:
     return out
 
 
+def fp_bench() -> int:
+    """``python3 chip_smoke.py --fp-bench [JSON]``: only the fp and mesh
+    kernel cases (:func:`fp_kernel_cases`, :func:`mesh_kernel_cases`), on
+    the package beside this file (copy the script into another checkout to
+    time that checkout's kernels). Prints the card, every case's line and
+    the fp kernels' ``-Xptxas -v`` lines; writes each fp wrapper's timed
+    shapes (event ms, device ms and its split by kernel) to ``JSON``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributedratelimiting.redis_tpu_torch.ops import cuda_kernels as ck
+
+    card = _card_line()
+    print(card)
+    report = ck.build(["fp_directory", "acquire", "window", "admission",
+                       "mesh"])
+    for name in ("fp_directory", "acquire", "window"):
+        lines = report[name]["log"].splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and any(
+                    k in line for k in ("resolve", "migrate", "scan_kernel",
+                                        "fp_flush")):
+                print(f"{name}: {line.strip()} | "
+                      + " | ".join(x.strip() for x in lines[i + 1:i + 3]))
+    _fp_kernel_phase(torch, ck, card)
+    _mesh_kernel_phase(torch, ck, card)
+    if FP_C1:
+        print(f"ROADMAP C1: {len(FP_C1)} timed fp calls without device time")
+    if len(sys.argv) > 2:
+        with open(sys.argv[2], "w") as f:
+            json.dump({"card": card, "c1": FP_C1, "fp": FP_RESULTS,
+                       "mesh": MESH_RESULTS}, f, indent=1, default=str)
+    return 0
+
+
 def _mesh_kernel_phase(torch, ck, card: str) -> None:
     """The mesh's kernel cases, timed, in a process that has run no path
     yet (ROADMAP C1, as the fp cases)."""
@@ -7602,7 +7703,7 @@ def mesh_kernel_cases(torch, K, F, ck, dev, rng) -> None:
                    max(err, serr), nbytes, FP_L * d + 12 * k * b)
         print(f"{name} with 8 shard regions, K={k} x {b}: equal to plain by "
               f"key ({cells} cells); {row['ms']:.4f} ms (device "
-              f"{row['device_ms']} ms)")
+              f"{row['device_ms']} ms: {_split_text(row)})")
         del cpu, card, base, base_d
 
 
@@ -11827,6 +11928,9 @@ def main() -> int:
                "acquire_scan24": "csrc/acquire.cu",
                "acquire_batch": "csrc/acquire.cu",
                **{name: "csrc/fp_directory.cu" for name in FP_KERNEL_NAMES},
+               # The decisions: decide.cuh's fingerprint form, entered here.
+               "fp_decide": "csrc/acquire.cu",
+               "fp_window_decide": "csrc/window.cu",
                "global_tier": "csrc/mesh.cu"}
     replaces = {
         "sweep_expired":
@@ -11987,6 +12091,8 @@ if __name__ == "__main__":
         sys.exit(flush_bench())
     if sys.argv[1:2] == ["--sync-bench"]:
         sys.exit(sync_bench())
+    if sys.argv[1:2] == ["--fp-bench"]:
+        sys.exit(fp_bench())
     if sys.argv[1:2] == ["--window-traffic"]:
         sys.exit(window_traffic())
     if sys.argv[1:2] == ["--lane"] and len(sys.argv) == 3:

@@ -152,7 +152,7 @@ extern "C" int drl_acquire_scan(float* tokens, int32_t* last_ts,
   if (fmt == drl::kOpSlots24) {  // the bench's operand: the wide kernel
     const drl::ScanOp op{static_cast<const unsigned char*>(operand), nullptr,
                          nullptr, fmt, 0};
-    return drl::launch_scan<BucketPolicy, true>(
+    return drl::launch_scan<BucketPolicy, drl::kWideOps>(
         {tokens, last_ts, exists}, n_slots, op, true, nows_k, n_batches, b,
         {cap, rate}, out, bits, scratch, stream);
   }
@@ -174,11 +174,32 @@ extern "C" int drl_acquire_batch(float* tokens, int32_t* last_ts,
                                  cudaStream_t stream) {
   const drl::ScanOp op{reinterpret_cast<const unsigned char*>(slots), counts,
                        valid, drl::kOpArrays, now};
-  return drl::launch_scan<BucketPolicy, true>(
+  return drl::launch_scan<BucketPolicy, drl::kWideOps>(
       {tokens, last_ts, exists}, n_slots, op, dup != 0, nullptr, 1, b,
       {cap, rate}, out, nullptr, scratch, stream);
 }
 
 extern "C" int64_t drl_scan_scratch_bytes(int32_t n_batches, int32_t b) {
   return drl::scan_scratch_bytes(n_batches, b);
+}
+
+// The fingerprint decision against the fingerprint table cells (u64[n],
+// probe window L, shard regions) and the bucket table of the same n slots:
+// keys u32[K, B, 3], nows_k i32[K]; see decide.cuh's launch_fp_decide for
+// out, bits, counts and scratch (drl_fp_scratch_bytes(K, B) bytes). One
+// launch.
+extern "C" int drl_fp_acquire(float* tokens, int32_t* last_ts,
+                              uint8_t* exists, int32_t n_slots, void* cells,
+                              int32_t L, int32_t shards, const uint32_t* keys,
+                              const int32_t* nows_k, int32_t n_batches,
+                              int32_t b, float cap, float rate, float* out,
+                              uint8_t* bits, int32_t* counts, void* scratch,
+                              cudaStream_t stream) {
+  return drl::launch_fp_decide<BucketPolicy>(
+      {tokens, last_ts, exists}, n_slots, cells, L, shards, keys, nows_k,
+      n_batches, b, {cap, rate}, out, bits, counts, scratch, stream);
+}
+
+extern "C" int64_t drl_fp_scratch_bytes(int32_t n_batches, int32_t b) {
+  return drl::fp_scratch_bytes(n_batches, b);
 }

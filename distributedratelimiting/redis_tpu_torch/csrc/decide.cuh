@@ -1,5 +1,7 @@
 // The decision machinery shared by the bucket and window kernels, for Hopper
-// (sm_90a): the flush (plain and grouped) and the bulk lane's scan.
+// (sm_90a): the flush (plain and grouped), the bulk lane's scan, and the
+// fingerprint decision (the flush and the scan over 64-bit keys, which
+// resolve their cells in the same launch).
 // acquire.cu instantiates it with the token bucket's rule, window.cu with the
 // sliding/fixed window's. What differs between the two is only the rule for
 // one slot, so every kernel here is a template on a policy P that holds it:
@@ -34,10 +36,15 @@
 //            count), i32[2, K, B] (slots, counts), u8[K, B, 3] (a 24-bit
 //            little-endian slot, count 1, 0xFFFFFF padding) or separate
 //            slots, counts and valid arrays (ScanOp, below), and nows i32[K];
-//            with dup false every row's same-batch prefix is 0.
+//            with dup false every row's same-batch prefix is 0;
+//   fingerprint  u32[K, B, 3] (a key's lo, hi and count; count 0xFFFFFFFF
+//            padding) against the fingerprint table (fp_probe.cuh), and
+//            nows i32[K].
 // Results: f32[2, B] (flush, grouped) or f32[K, 2, B] (scan): row 0 the grant
 // (0/1) or n_granted, row 1 remaining; or, for a verdict-only scan, the
-// grants bit-packed little-endian within each byte, u8[K, B / 8].
+// grants bit-packed little-endian within each byte, u8[K, B / 8]. The
+// fingerprint decision's row 0 is grant + 2 x resolved (padding counts as
+// resolved), and its bits form is two planes, grants then resolve flags.
 //
 // Design. Every call is ONE launch.
 //   - Flush and grouped (host prefix, no sort): a launch sized by its rows,
@@ -129,6 +136,34 @@
 //     that mostly belong to short slots; here only the long slots' rows are
 //     sorted (one pass), and a short or middling slot's few rows are ordered
 //     by their own walker without a barrier.
+//   - Fingerprint decision (K batches of 64-bit keys, one launch; every
+//     probe the group probe of fp_probe.cuh, a step of which reads 32 / G
+//     windows, G lanes each). The rows of one key in a launch share one
+//     cell or are all unresolved, so a key's rows are a cell's rows.
+//       K = 1, B <= 4096 (every fingerprint flush, and the bulk lane's
+//     one-batch calls): the flush, sized by its rows, with the prefix
+//     computed on the card instead of by the host. B <= 32: a few warps
+//     probe 32 / G rows each into shared memory, then one warp decides as
+//     flush_warp_kernel does (peers by __match_any_sync on the cell, lane
+//     order is request order: a row's prefix is the int64 sum of its lower
+//     peers' counts). Above: blocks of 1024 threads own the rows of a
+//     31-bit hash of the key (own_rows: a key holds one cell, so this
+//     partitions the cells); a block probes its rows spread over its 32
+//     warps (one step up to 256 rows), then batch.cuh's find_repeats, and
+//     where a cell repeats sort_repeats and two segmented int64 scans give
+//     each row its prefix and each cell its consumption, written once by
+//     the cell's last row. Bits are set or cleared a row at a time (a
+//     block's rows are not whole words): no zeroing launch.
+//       Otherwise two launches on one stream: fp_probe.cuh's resolve_kernel
+//     (32 / G rows a warp: one probe step) writes the kOpI32 operand into
+//     the scan's scratch, then the scan's fingerprint form (kFpOps, the
+//     narrow scan) decides it. An unresolved row's slot reads
+//     kUnresolvedSlot (denied, code 0), a padding row's -1 (code 2). Its
+//     stores write grant + 2 (every decided row is resolved) and, in the
+//     bits form, step 3 stores the resolve plane's words beside the
+//     grants'. The counts row of the operand is what the mesh's global
+//     tier reads. (The resolve as the scan's first phase, before its first
+//     grid.sync(), measured slower: PERF.md §6.)
 //
 // Traps, each with a test:
 //   - Warp collectives: every lane reaches every __match_any_sync and
@@ -155,6 +190,7 @@
 #include <cooperative_groups.h>
 
 #include "batch.cuh"
+#include "fp_probe.cuh"
 
 namespace drl {
 
@@ -191,6 +227,23 @@ __device__ __forceinline__ FlushIn load_row(const int32_t* packed, int32_t b,
                  kGrouped ? packed[4 * b + r] : 0};
 }
 
+// A row's all-or-nothing decision for cnt from its slot's advanced state sl
+// (Slot{} for padding) after an earlier same-slot demand pre.
+template <class P>
+__device__ __forceinline__ FlushRow decide_one(const typename P::Slot& sl,
+                                               bool valid, int32_t now,
+                                               const typename P::Params& prm,
+                                               int32_t cnt, float pre) {
+  const float c = __int2float_rn(cnt);
+  const bool ok = valid && P::fits(sl, now, prm, pre, c);
+  const float room = P::room(sl, now, prm);
+  return FlushRow{
+      ok ? 1.0f : 0.0f,
+      valid ? fmaxf(__fsub_rn(__fsub_rn(room, pre), ok ? c : 0.0f), 0.0f)
+            : 0.0f,
+      ok ? (long long)cnt : 0};
+}
+
 // A row's decision from its slot's advanced state sl (Slot{} for padding)
 // and its operand.
 template <class P, bool kGrouped>
@@ -216,13 +269,7 @@ __device__ __forceinline__ FlushRow decide_row(const typename P::Slot& sl,
                     valid ? fmaxf(__fsub_rn(avail, consumed), 0.0f) : 0.0f,
                     (long long)granted * cnt};
   }
-  const bool ok = valid && P::fits(sl, now, prm, pre, c);
-  const float room = P::room(sl, now, prm);
-  return FlushRow{
-      ok ? 1.0f : 0.0f,
-      valid ? fmaxf(__fsub_rn(__fsub_rn(room, pre), ok ? c : 0.0f), 0.0f)
-            : 0.0f,
-      ok ? (long long)cnt : 0};
+  return decide_one<P>(sl, valid, now, prm, cnt, pre);
 }
 
 // B <= 32: row = lane. The highest lane of a slot's peers writes it once
@@ -558,13 +605,19 @@ __host__ __device__ inline ScanScratch scan_scratch(void* base, int64_t rows,
 // Each batch's tick is nows_k[k], or, where nows_k is null, the operand's
 // `now` (one batch whose tick the host passes by value).
 // A slot < 0 or >= N is padding: it is denied and touches no state.
-// The scan kernel is compiled twice per policy, by kWide: the store's bulk
-// lane (kOpI32 or kOpFused5, nows_k, the duplicate prefix) as it always was,
-// and a wide form that takes every format, a by-value tick and dup false.
-// The bench's formats take the wide one, so the store's scan keeps its
-// registers (one kernel over all four spilled ~5x more bytes in the window
-// scan, chip_smoke.py's nvcc.log).
+// The scan kernel is compiled in up to three forms per policy (kForm): the
+// store's bulk lane (kNarrow: kOpI32 or kOpFused5, nows_k, the duplicate
+// prefix) as it always was; a wide form (kWideOps) that takes every format, a
+// by-value tick and dup false; and the fingerprint form (kFpOps), the narrow
+// one over the kOpI32 operand the resolve launch wrote into scratch, whose
+// stores carry the resolve flags (below). The bench's formats take the wide
+// one, so the store's scan keeps its registers (one kernel over all four
+// spilled ~5x more bytes in the window scan, chip_smoke.py's nvcc.log).
 enum : int32_t { kOpI32 = 0, kOpFused5 = 1, kOpSlots24 = 2, kOpArrays = 3 };
+enum : int { kNarrow = 0, kWideOps = 1, kFpOps = 2 };
+// The fingerprint form's operand marks a valid row whose window is full
+// (unresolved: denied, code 0) apart from padding (-1: code 2).
+constexpr int32_t kUnresolvedSlot = -2;
 
 struct ScanOp {
   const unsigned char* op;
@@ -574,17 +627,17 @@ struct ScanOp {
   int32_t now;  // the tick where nows_k is null
 };
 
-template <bool kWide>
+template <int kForm>
 __device__ __forceinline__ int32_t tick_of(const ScanOp& o,
                                            const int32_t* nows_k, int32_t k) {
-  if constexpr (!kWide) return nows_k[k];
+  if constexpr (kForm != kWideOps) return nows_k[k];
   return nows_k != nullptr ? nows_k[k] : o.now;
 }
 
 // Row g's slot and count (rows = K * B).
-template <bool kWide>
+template <int kForm>
 __device__ __forceinline__ int32_t op_slot(const ScanOp& o, int64_t g) {
-  if constexpr (!kWide) {
+  if constexpr (kForm != kWideOps) {
     if (o.fmt == kOpFused5) {
       const unsigned char* p = o.op + 5 * g;
       return (int32_t)((uint32_t)p[0] | ((uint32_t)p[1] << 8) |
@@ -611,10 +664,10 @@ __device__ __forceinline__ int32_t op_slot(const ScanOp& o, int64_t g) {
   }
 }
 
-template <bool kWide>
+template <int kForm>
 __device__ __forceinline__ int32_t op_count(const ScanOp& o, int64_t rows,
                                             int64_t g) {
-  if constexpr (!kWide) {
+  if constexpr (kForm != kWideOps) {
     if (o.fmt == kOpFused5) return o.op[5 * g + 4];
     return reinterpret_cast<const int32_t*>(o.op)[rows + g];
   }
@@ -659,13 +712,15 @@ __device__ __forceinline__ int32_t entry_rows(const unsigned long long* e) {
 // One row's results: out f32[K, 2, B] (grant, remaining), or its grant bit
 // g of the flat little-endian bit array (bit i of byte q is row 8q + i of
 // the chunk, as bit i of u8[K, B / 8]'s byte q of batch k is row 8q + i of
-// batch k when B % 8 == 0).
+// batch k when B % 8 == 0). kCode: a resolved fingerprint row, whose row 0
+// is grant + 2.
+template <bool kCode = false>
 __device__ __forceinline__ void emit(float* out, uint8_t* bits, int32_t b,
                                      int64_t g, bool ok, float remaining) {
   if (out != nullptr) {
     const int64_t k = g / b;
     const int64_t o = k * 2 * b + (g - k * b);
-    out[o] = ok ? 1.0f : 0.0f;
+    out[o] = kCode ? (ok ? 3.0f : 2.0f) : (ok ? 1.0f : 0.0f);
     out[o + b] = remaining;
   } else if (ok) {
     atomicOr(reinterpret_cast<unsigned int*>(bits) + (g >> 5),
@@ -715,11 +770,11 @@ struct ScanShared {
 
 // What every walker reads: the table, the chunk's operand, ticks and
 // results, and the repeated slots' rows in slot-major order.
-template <class P, bool kWide>
+template <class P, int kForm>
 struct Chunk {
   typename P::Table T;
   ScanOp op;
-  bool dup;  // false (kWide only): every row's same-batch prefix is 0
+  bool dup;  // false (kWideOps only): every row's same-batch prefix is 0
   int64_t rows;
   const int32_t* nows_k;
   int32_t b;
@@ -729,26 +784,26 @@ struct Chunk {
   const int32_t* sorted;
 
   __device__ int32_t count(int64_t g) const {
-    return op_count<kWide>(op, rows, g);
+    return op_count<kForm>(op, rows, g);
   }
   __device__ int32_t tick(int32_t k) const {
-    return tick_of<kWide>(op, nows_k, k);
+    return tick_of<kForm>(op, nows_k, k);
   }
   // A row's prefix: its same-batch earlier demand, or 0 without the
   // duplicate serialization.
   __device__ float pre(long long demand) const {
-    if constexpr (!kWide) return __ll2float_rn(demand);
+    if constexpr (kForm != kWideOps) return __ll2float_rn(demand);
     return dup ? __ll2float_rn(demand) : 0.0f;
   }
   __device__ void emit(int64_t g, bool ok, float remaining) const {
-    drl::emit(out, bits, b, g, ok, remaining);
+    drl::emit<kForm == kFpOps>(out, bits, b, g, ok, remaining);
   }
 };
 
 // A short repeated slot (at most kThreadSeg rows), walked by one thread: its
 // rows load at once (placed in no order), a sorting network puts them in
 // (k, row) order, and the chain runs in registers.
-template <class P, bool kW>
+template <class P, int kW>
 __device__ void walk_short(const Chunk<P, kW>& ch, int32_t slot, int32_t base,
                            int32_t len) {
   int32_t gs[kThreadSeg], cs[kThreadSeg];
@@ -815,7 +870,7 @@ __device__ __forceinline__ long long warp_sum(long long v) {
 // a segmented warp scan, and the groups go in order: every lane computes the
 // group's advanced state (the same value), the group's lanes decide, and a
 // warp sum gives the group's grants.
-template <class P, bool kW>
+template <class P, int kW>
 __device__ void walk_warp(const Chunk<P, kW>& ch, int32_t slot, int32_t base,
                           int32_t len, int32_t* buf) {
   const int lane = threadIdx.x & 31;
@@ -903,7 +958,7 @@ __device__ void walk_warp(const Chunk<P, kW>& ch, int32_t slot, int32_t base,
 // go in order, each deciding its rows in parallel from its advanced state and
 // summing its grants per warp, which warp 0 adds up before thread 0 carries
 // the slot into the next group: two barriers a group.
-template <class P, bool kW>
+template <class P, int kW>
 __device__ void walk_long(ScanShared<P>& sh, const Chunk<P, kW>& ch,
                           int32_t slot, int32_t base, int32_t len) {
   using Sh = ScanShared<P>;
@@ -1032,12 +1087,13 @@ __device__ void walk_long(ScanShared<P>& sh, const Chunk<P, kW>& ch,
   __syncthreads();  // the walk arrays are free again
 }
 
-template <class P, bool kWide>
+template <class P, int kForm>
 __global__ void __launch_bounds__(kScanThreads, 2)
     scan_kernel(typename P::Table T, int32_t n_slots, ScanOp op, bool dup,
                 const int32_t* __restrict__ nows_k, int32_t n_batches,
                 int32_t b, typename P::Params prm, float* __restrict__ out,
-                uint8_t* __restrict__ bits, void* scratch) {
+                uint8_t* __restrict__ bits, void* scratch,
+                uint32_t* __restrict__ res_bits) {
   using Sh = ScanShared<P>;
   __shared__ Sh sh;
   const int64_t rows = (int64_t)n_batches * b;
@@ -1067,7 +1123,7 @@ __global__ void __launch_bounds__(kScanThreads, 2)
 #pragma unroll
     for (int j = 0; j < kR; ++j) {
       const int64_t g = w0 + j * stride + lane;
-      sl[j] = g < rows ? op_slot<kWide>(op, g) : -1;
+      sl[j] = g < rows ? op_slot<kForm>(op, g) : -1;
     }
 #pragma unroll
     for (int j = 0; j < kR; ++j) {
@@ -1108,9 +1164,14 @@ __global__ void __launch_bounds__(kScanThreads, 2)
       const int64_t g = w0 + j * stride + lane;
       const int32_t e = g < rows ? S.ent[g] : -1;
       single[j] = e >= 0 && (!repeats || entry_rows(&S.hent[e]) == 1);
-      sl[j] = single[j] ? op_slot<kWide>(op, g) : -1;
+      sl[j] = single[j] ? op_slot<kForm>(op, g) : -1;
       if (out != nullptr && g < rows && e < 0) {
-        emit(out, nullptr, b, g, false, 0.0f);
+        // Padding (a resolved fingerprint row: code 2), or unresolved.
+        if (kForm == kFpOps && op_slot<kForm>(op, g) == -1) {
+          emit<true>(out, nullptr, b, g, false, 0.0f);
+        } else {
+          emit(out, nullptr, b, g, false, 0.0f);
+        }
       }
     }
 #pragma unroll
@@ -1124,13 +1185,13 @@ __global__ void __launch_bounds__(kScanThreads, 2)
       bool ok = false;
       if (single[j]) {
         const int32_t kk = (int32_t)(g / b);
-        const int32_t now = tick_of<kWide>(op, nows_k, kk);
+        const int32_t now = tick_of<kForm>(op, nows_k, kk);
         const typename P::Slot st = P::advance(old[j], now, prm);
-        const int32_t cnt = op_count<kWide>(op, rows, g);
+        const int32_t cnt = op_count<kForm>(op, rows, g);
         const float c = __int2float_rn(cnt);
         ok = P::fits(st, now, prm, 0.0f, c);
         if (out != nullptr) {
-          emit(out, nullptr, b, g, ok,
+          emit<kForm == kFpOps>(out, nullptr, b, g, ok,
                fmaxf(__fsub_rn(__fsub_rn(P::room(st, now, prm), 0.0f),
                                ok ? c : 0.0f),
                      0.0f));
@@ -1141,6 +1202,12 @@ __global__ void __launch_bounds__(kScanThreads, 2)
         const unsigned word = __ballot_sync(kFullMask, ok);
         if (lane == 0) {
           reinterpret_cast<unsigned int*>(bits)[(g - lane) >> 5] = word;
+        }
+        if constexpr (kForm == kFpOps) {  // the resolve plane, too
+          const unsigned res = __ballot_sync(
+              kFullMask,
+              g < rows && op_slot<kForm>(op, g) != kUnresolvedSlot);
+          if (lane == 0) res_bits[(g - lane) >> 5] = res;
         }
       }
     }
@@ -1301,7 +1368,7 @@ __global__ void __launch_bounds__(kScanThreads, 2)
     __syncthreads();
   }
   if (n_big > 0) cg::this_grid().sync();
-  const Chunk<P, kWide> ch{T, op, dup, rows, nows_k, b, prm, out, bits,
+  const Chunk<P, kForm> ch{T, op, dup, rows, nows_k, b, prm, out, bits,
                            S.sorted};
 
   // 5. Walk every repeated slot: the long ones a block each, taken from a
@@ -1316,7 +1383,7 @@ __global__ void __launch_bounds__(kScanThreads, 2)
     __syncthreads();
     if (i >= n_big) break;
     const int32_t d = __ldcg(&S.big[i]);
-    walk_long<P, kWide>(sh, ch, __ldcg(&S.seg_slot[d]),
+    walk_long<P, kForm>(sh, ch, __ldcg(&S.seg_slot[d]),
                         __ldcg(&S.seg_base[d]), __ldcg(&S.seg_len[d]));
   }
   // From here every warp takes its own work: a warp segment, or 32 segment
@@ -1327,7 +1394,7 @@ __global__ void __launch_bounds__(kScanThreads, 2)
     i = __shfl_sync(kFullMask, i, 0);
     if (i >= n_mid) break;
     const int32_t d = __ldcg(&S.mid[i]);
-    walk_warp<P, kWide>(ch, __ldcg(&S.seg_slot[d]), __ldcg(&S.seg_base[d]),
+    walk_warp<P, kForm>(ch, __ldcg(&S.seg_slot[d]), __ldcg(&S.seg_base[d]),
                         __ldcg(&S.seg_len[d]), sh.u.warp[tid >> 5]);
   }
   for (;;) {
@@ -1338,7 +1405,7 @@ __global__ void __launch_bounds__(kScanThreads, 2)
     if (d < n_seg) {
       const int32_t len = __ldcg(&S.seg_len[d]);
       if (len <= kThreadSeg) {
-        walk_short<P, kWide>(ch, __ldcg(&S.seg_slot[d]),
+        walk_short<P, kForm>(ch, __ldcg(&S.seg_slot[d]),
                              __ldcg(&S.seg_base[d]), len);
       }
     }
@@ -1347,7 +1414,7 @@ __global__ void __launch_bounds__(kScanThreads, 2)
 
 // Resident blocks of one scan kernel instantiation on the current device: a
 // cooperative grid may hold no more. Cached per device.
-template <class P, bool kWide>
+template <class P, int kForm>
 int scan_grid_limit(int* limit) {
   static int cached[64] = {0};
   int dev = 0;
@@ -1361,7 +1428,7 @@ int scan_grid_limit(int* limit) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, scan_kernel<P, kWide>, kScanThreads, 0);
+      &per_sm, scan_kernel<P, kForm>, kScanThreads, 0);
   if (err != cudaSuccess) return (int)err;
   *limit = sms * per_sm;
   if (dev < 64) cached[dev] = *limit;
@@ -1378,34 +1445,39 @@ inline int64_t scan_scratch_bytes(int32_t n_batches, int32_t b) {
 // Exactly one of out (f32[K, 2, B]) and bits (u8[K, B / 8], B % 8 == 0, in
 // a 4-byte aligned allocation rounded up to whole 4-byte words) is
 // non-null; scratch holds scan_scratch_bytes(K, B) bytes. The narrow kernel
-// (kWide false) takes kOpI32 or kOpFused5, nows_k and dup true; the wide
-// one every format, a null nows_k (the operand's tick) and dup false, which
-// gives every row prefix 0 (rows of one slot then all decide from its
-// state).
-template <class P, bool kWide>
+// takes kOpI32 or kOpFused5, nows_k and dup true; the wide one every
+// format, a null nows_k (the operand's tick) and dup false, which gives
+// every row prefix 0 (rows of one slot then all decide from its state); the
+// fingerprint form the narrow one's arguments over the kOpI32 operand the
+// resolve wrote, and for the bits result the resolve plane's words
+// res_bits.
+template <class P, int kForm>
 int launch_scan(typename P::Table T, int32_t n_slots, const ScanOp& op,
                 bool dup, const int32_t* nows_k, int32_t n_batches, int32_t b,
                 typename P::Params prm, float* out, uint8_t* bits,
-                void* scratch, cudaStream_t stream) {
+                void* scratch, cudaStream_t stream,
+                uint32_t* res_bits = nullptr) {
   if (b <= 0 || n_batches <= 0) return (int)cudaSuccess;
   const int64_t rows = (int64_t)n_batches * b;
   if (rows > kMaxRows) return (int)cudaErrorInvalidValue;
-  const int32_t last = kWide ? kOpArrays : kOpFused5;
+  const int32_t last = kForm == kWideOps ? kOpArrays
+                       : kForm == kFpOps ? kOpI32
+                                         : kOpFused5;
   if (op.fmt < kOpI32 || op.fmt > last) return (int)cudaErrorInvalidValue;
-  if (!kWide && (nows_k == nullptr || !dup)) {
+  if (kForm != kWideOps && (nows_k == nullptr || !dup)) {
     return (int)cudaErrorInvalidValue;
   }
   int limit = 0;
-  const int rc = scan_grid_limit<P, kWide>(&limit);
+  const int rc = scan_grid_limit<P, kForm>(&limit);
   if (rc != 0) return rc;
   if (limit <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   int64_t blocks = (rows + kScanThreads - 1) / kScanThreads;
   if (blocks > limit) blocks = limit;
   ScanOp o = op;
   void* args[] = {&T, &n_slots, &o, &dup, (void*)&nows_k, &n_batches,
-                  &b, &prm, &out, &bits, &scratch};
+                  &b, &prm, &out, &bits, &scratch, &res_bits};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)scan_kernel<P, kWide>, dim3((unsigned)blocks),
+      (const void*)scan_kernel<P, kForm>, dim3((unsigned)blocks),
       dim3(kScanThreads), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -1420,8 +1492,359 @@ int launch_scan_any(typename P::Table T, int32_t n_slots, const void* operand,
                     uint8_t* bits, void* scratch, cudaStream_t stream) {
   const ScanOp op{static_cast<const unsigned char*>(operand), nullptr,
                   nullptr, fmt, 0};
-  return launch_scan<P, false>(T, n_slots, op, true, nows_k, n_batches, b,
-                               prm, out, bits, scratch, stream);
+  return launch_scan<P, kNarrow>(T, n_slots, op, true, nows_k, n_batches, b,
+                                 prm, out, bits, scratch, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The fingerprint decision: K batches of keys u32[K, B, 3] resolved (the
+// group probe, fp_probe.cuh) and decided against the table. K = 1 and B <=
+// 4096 (every flush of a fingerprint store, and its bulk lane's one-batch
+// calls) is ONE launch, a flush sized by its rows (fp_flush_*_kernel,
+// below); anything else two: the resolve into the scan's operand, then the
+// scan's fingerprint form.
+
+// The flush form's operands and results: keys u32[B, 3]; the tick
+// nows_k[0]; out f32[2, B] (row 0 grant + 2 * resolved, padding counting as
+// resolved; row 1 remaining) or the bit planes at bits (u32 words: grants
+// from word 0, resolve flags from word `plane`); counts i32[B] (max(count,
+// 0)) where non-null.
+struct FpFlush {
+  drl_fp::Fp f;
+  const uint32_t* keys;
+  const int32_t* nows_k;
+  float* out;
+  uint32_t* bits;
+  int32_t plane;
+  int32_t* counts;
+};
+
+// Row r's f32 result and count (the bit planes are the callers').
+__device__ __forceinline__ void fp_reply(const FpFlush& io, int32_t b, int r,
+                                         const FlushRow& row, bool resolved,
+                                         int32_t cnt) {
+  if (io.out != nullptr) {
+    io.out[r] = row.granted + (resolved ? 2.0f : 0.0f);
+    io.out[b + r] = row.remaining;
+  }
+  if (io.counts != nullptr) io.counts[r] = cnt > 0 ? cnt : 0;
+}
+
+// Set or clear bit r of a plane: every row writes its own bit once, so the
+// planes need no zeroing launch and the result is the same in any order.
+__device__ __forceinline__ void put_bit(uint32_t* words, int r, bool on) {
+  const uint32_t m = 1u << (r & 31);
+  if (on) {
+    atomicOr(&words[r >> 5], m);
+  } else {
+    atomicAnd(&words[r >> 5], ~m);
+  }
+}
+
+// B <= 32: ceil(B / (32 / G)) warps probe, 32 / G rows each (one step of
+// the group probe), and leave each row's cell in shared memory; warp 0
+// then decides, row = lane: __match_any_sync on the cell gives each row its
+// peers, lane order is request order, so a row's prefix is the int64 sum of
+// its lower peers' counts and the highest peer writes the slot with their
+// consumption (peer_sum, from a 32-entry buffer; skipped where no key
+// repeats).
+template <class P>
+__global__ void __launch_bounds__(256, 1)
+    fp_flush_warp_kernel(typename P::Table T, FpFlush io, int32_t b,
+                         typename P::Params prm) {
+  __shared__ int32_t cell[32];
+  __shared__ long long buf[32];
+  const int lane = threadIdx.x & 31;
+  const int rpw = 32 / io.f.group;
+  {
+    const int r = (threadIdx.x >> 5) * rpw + lane;
+    const bool in = lane < rpw && r < b;
+    uint32_t lo = 0, hi = 0;
+    int32_t cnt = -1;
+    if (in) {
+      lo = io.keys[3 * r];
+      hi = io.keys[3 * r + 1];
+      cnt = (int32_t)io.keys[3 * r + 2];
+    }
+    const int32_t s = drl_fp::warp_find_or_claim(
+        io.f, ((unsigned long long)hi << 32) | lo, cnt >= 0);
+    if (in) cell[r] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  const int32_t now = io.nows_k[0];
+  const unsigned me = 1u << lane;
+  const int32_t cnt = lane < b ? (int32_t)io.keys[3 * lane + 2] : -1;
+  const int32_t s = lane < b ? cell[lane] : -1;
+  const bool live = s >= 0;
+  typename P::Slot sl{};
+  if (live) sl = P::advance(P::gather(T, s), now, prm);
+  const unsigned peers =
+      __match_any_sync(kFullMask, live ? (uint32_t)s : kEmptyKey);
+  const bool alone = __all_sync(kFullMask, !live || peers == me);
+  long long pre = 0;
+  if (!alone) {
+    buf[lane] = live ? cnt : 0;
+    __syncwarp();
+    if (live) pre = drl_batch::peer_sum(buf, peers & (me - 1));
+    __syncwarp();  // the buffer is read before its next use
+  }
+  const FlushRow row =
+      decide_one<P>(sl, live, now, prm, live ? cnt : 0,
+                       __ll2float_rn(pre));
+  const bool resolved = cnt < 0 || live;
+  if (lane < b) fp_reply(io, b, lane, row, resolved, cnt);
+  if (io.bits != nullptr) {
+    const unsigned g = __ballot_sync(kFullMask, lane < b && row.granted > 0);
+    const unsigned rs = __ballot_sync(kFullMask, lane < b && resolved);
+    if (lane == 0) {
+      io.bits[0] = g;
+      io.bits[io.plane] = rs;
+    }
+  }
+  const bool writer = live && lane == 31 - __clz(peers);
+  long long used = row.used;
+  if (!alone) {
+    buf[lane] = row.used;
+    __syncwarp();
+    if (writer) used = drl_batch::peer_sum(buf, peers);
+  }
+  __syncwarp();  // every row has read its slot
+  if (writer) P::commit(T, s, sl, now, used);
+}
+
+// A fingerprint flush block's shared memory: batch.cuh's partition, hash
+// set and sort, and each position's cell.
+template <int kT, int kIpt>
+struct FpFlushShared {
+  typename drl_batch::Block<kT, kIpt>::Shared blk;
+  int32_t cell[kT * kIpt];
+};
+
+// 33 <= B <= 1024 x kIpt, on G blocks of 1024 threads (batch.cuh's
+// launch_blocks): each decides the rows of its share of the KEYS (own_rows
+// over a 31-bit hash of the 64-bit key: a key holds one cell, so this is a
+// partition of the cells), in request order.
+//   1. Probe: position p = j * kT + lane * 32 + warp, so a block's m rows
+//      spread over its 32 warps first (m <= 256 rows: one step of the group
+//      probe a warp); each position's cell goes to shared memory.
+//   2. Decide, position i = threadIdx.x * kIpt + j (blocked, as the sort
+//      wants): batch.cuh's find_repeats counts each cell's rows; where no
+//      cell repeats every row decides at once (prefix 0) and writes its own
+//      slot; otherwise sort_repeats orders the repeated cells' rows and two
+//      segmented int64 scans give each row its same-cell prefix of earlier
+//      demand and each cell's consumption, which the cell's last row writes
+//      once (P::commit).
+// Bits are set or cleared one row at a time (put_bit): a block's rows are
+// not the words' 32 consecutive rows.
+template <class P, int kT, int kIpt>
+__global__ void __launch_bounds__(kT, 1)
+    fp_flush_block_kernel(typename P::Table T, FpFlush io, int32_t b,
+                          typename P::Params prm) {
+  using Blk = drl_batch::Block<kT, kIpt>;
+  using Sh = FpFlushShared<kT, kIpt>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Sh& shf = *reinterpret_cast<Sh*>(smem);
+  typename Blk::Shared& sh = shf.blk;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const bool all = gridDim.x == 1;
+  const int32_t now = io.nows_k[0];
+  auto count_of = [&](int r) {
+    return r < b ? (int32_t)io.keys[3 * r + 2] : -1;
+  };
+  uint32_t key[kIpt];
+  if (!all) {
+#pragma unroll
+    for (int j = 0; j < kIpt; ++j) {
+      const int r = tid * kIpt + j;
+      key[j] = count_of(r) >= 0
+                   ? ((io.keys[3 * r] * drl_fp::kMix) ^ io.keys[3 * r + 1]) >> 1
+                   : kEmptyKey;
+    }
+  }
+  const int m =
+      drl_batch::own_rows<kT, kIpt>(sh.temp.count, sh.sub, b, all, key);
+  if (m == 0) return;  // none of the batch's keys is this block's
+  auto row_at = [&](int i) { return i >= m ? b : all ? i : (int)sh.sub[i]; };
+
+  // 1. Probe.
+#pragma unroll
+  for (int j = 0; j < kIpt; ++j) {
+    if (j * kT + (tid >> 5) >= m) break;  // warp-uniform: lane 0's p
+    const int p = j * kT + lane * (kT / 32) + (tid >> 5);
+    const int r = row_at(p);
+    const int32_t cnt = count_of(r);
+    const uint32_t lo = cnt >= 0 ? io.keys[3 * r] : 0u;
+    const uint32_t hi = cnt >= 0 ? io.keys[3 * r + 1] : 0u;
+    const int32_t s = drl_fp::warp_find_or_claim(
+        io.f, ((unsigned long long)hi << 32) | lo, cnt >= 0);
+    if (p < m) shf.cell[p] = s;
+  }
+  __syncthreads();
+
+  // 2. Decide.
+  int32_t r[kIpt], cnt[kIpt], s[kIpt];
+  typename P::Old old[kIpt];
+#pragma unroll
+  for (int j = 0; j < kIpt; ++j) {
+    const int i = tid * kIpt + j;
+    r[j] = row_at(i);
+    cnt[j] = count_of(r[j]);
+    s[j] = i < m ? shf.cell[i] : -1;
+    key[j] = s[j] >= 0 ? (uint32_t)s[j] : kEmptyKey;
+    if (s[j] >= 0) old[j] = P::gather(T, s[j]);
+  }
+  int32_t rep[kIpt];
+  const int n_rep = drl_batch::find_repeats<kT, kIpt>(sh, m, key, rep);
+  if (n_rep == 0) {  // every live row alone: prefix 0, its own writer
+#pragma unroll
+    for (int j = 0; j < kIpt; ++j) {
+      if (r[j] >= b) continue;
+      const bool live = s[j] >= 0;
+      typename P::Slot sl{};
+      if (live) sl = P::advance(old[j], now, prm);
+      const FlushRow row =
+          decide_one<P>(sl, live, now, prm, live ? cnt[j] : 0, 0.0f);
+      const bool resolved = cnt[j] < 0 || live;
+      fp_reply(io, b, r[j], row, resolved, cnt[j]);
+      if (io.bits != nullptr) {
+        put_bit(io.bits, r[j], row.granted > 0);
+        put_bit(io.bits + io.plane, r[j], resolved);
+      }
+      if (live) P::commit(T, s[j], sl, now, row.used);
+    }
+    return;
+  }
+  using Scan = typename Blk::Scan;
+  uint32_t k[kIpt];
+  uint16_t pos[kIpt];
+  bool head[kIpt];
+  drl_batch::sort_repeats<kT, kIpt>(sh, rep, n_rep, k, pos, head);
+  typename P::Slot sl[kIpt];
+  drl::Seg seg[kIpt];
+#pragma unroll
+  for (int j = 0; j < kIpt; ++j) {
+    const int p = tid * kIpt + j;
+    r[j] = row_at(pos[j]);
+    cnt[j] = count_of(r[j]);
+    s[j] = pos[j] < m ? shf.cell[pos[j]] : -1;
+    sl[j] = typename P::Slot{};
+    if (s[j] >= 0) sl[j] = P::advance(P::gather(T, s[j]), now, prm);
+    seg[j] = drl::Seg{s[j] >= 0 ? (long long)cnt[j] : 0, head[j] ? p : -1};
+  }
+  Scan(sh.temp.scan).InclusiveScan(seg, seg, drl::SegSum());
+  FlushRow row[kIpt];
+#pragma unroll
+  for (int j = 0; j < kIpt; ++j) {
+    const int p = tid * kIpt + j;
+    const bool live = s[j] >= 0;
+    const long long c = live ? cnt[j] : 0;
+    row[j] = decide_one<P>(sl[j], live, now, prm, (int32_t)c,
+                              __ll2float_rn(seg[j].sum - c));
+    seg[j] = drl::Seg{row[j].used, head[j] ? p : -1};
+  }
+  __syncthreads();  // the scan's storage is used again
+  Scan(sh.temp.scan).InclusiveScan(seg, seg, drl::SegSum());
+#pragma unroll
+  for (int j = 0; j < kIpt; ++j) {
+    const int p = tid * kIpt + j;
+    if (r[j] >= b) continue;
+    const bool resolved = cnt[j] < 0 || s[j] >= 0;
+    fp_reply(io, b, r[j], row[j], resolved, cnt[j]);
+    if (io.bits != nullptr) {
+      put_bit(io.bits, r[j], row[j].granted > 0);
+      put_bit(io.bits + io.plane, r[j], resolved);
+    }
+    if (s[j] >= 0 &&
+        drl_batch::segment_tail<kT, kIpt>(sh, sh.key, k[j], n_rep, p)) {
+      P::commit(T, s[j], sl[j], now, seg[j].sum);
+    }
+  }
+}
+
+template <class P, int kIpt>
+int launch_fp_flush_block(typename P::Table T, const FpFlush& io, int32_t b,
+                          typename P::Params prm, cudaStream_t stream) {
+  constexpr int kT = 1024;
+  constexpr size_t kSmem = sizeof(FpFlushShared<kT, kIpt>);
+  static_assert(kSmem <= 232448, "fits in an SM's shared memory");
+  if constexpr (kSmem > 48 * 1024) {
+    static bool allowed[64] = {false};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 64 || !allowed[dev]) {
+      err = cudaFuncSetAttribute(fp_flush_block_kernel<P, kT, kIpt>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kSmem);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < 64) allowed[dev] = true;
+    }
+  }
+  fp_flush_block_kernel<P, kT, kIpt>
+      <<<drl_batch::launch_blocks(b), kT, kSmem, stream>>>(T, io, b, prm);
+  return (int)cudaGetLastError();
+}
+
+// Scratch bytes of a fingerprint decision of K x B rows: none for the flush
+// form; the scan form's operand (i32[2, K, B]: slots, then counts) and the
+// scan's scratch after it.
+inline int64_t fp_scratch_bytes(int32_t n_batches, int32_t b) {
+  if (n_batches == 1 && b <= kFlushBlockRows) return 0;
+  const int64_t rows = (int64_t)n_batches * b;
+  return (int64_t)align16(8 * rows) + scan_scratch_bytes(n_batches, b);
+}
+
+// keys u32[K, B, 3]; nows_k i32[K]; exactly one of out (f32[K, 2, B]) and
+// bits (u8[2, W], W the rows' 32-bit words x 4 bytes: the grant plane,
+// then the resolve plane; B % 8 == 0) is non-null; counts (i32[B], K = 1
+// only) may be null; scratch holds fp_scratch_bytes(K, B) bytes, and in the
+// scan form its first 8 K B bytes are the operand, whose counts row the
+// caller may read (i32[K, B] at byte 4 K B). The flush form is one launch;
+// the scan form two, on one stream.
+template <class P>
+int launch_fp_decide(typename P::Table T, int32_t n_slots, void* cells,
+                     int32_t L, int32_t shards, const uint32_t* keys,
+                     const int32_t* nows_k, int32_t n_batches, int32_t b,
+                     typename P::Params prm, float* out, uint8_t* bits,
+                     int32_t* counts, void* scratch, cudaStream_t stream) {
+  if (b <= 0 || n_batches <= 0) return (int)cudaSuccess;
+  if (drl_fp::bad_table(n_slots, L, shards) || keys == nullptr ||
+      nows_k == nullptr || (out == nullptr) == (bits == nullptr) ||
+      (bits != nullptr && b % 8 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const drl_fp::Fp f = drl_fp::make_fp(cells, n_slots, L, shards);
+  const int64_t rows = (int64_t)n_batches * b;
+  const int32_t words = (int32_t)((rows + 31) / 32);
+  if (n_batches == 1 && b <= kFlushBlockRows) {
+    const FpFlush io{f, keys, nows_k, out, reinterpret_cast<uint32_t*>(bits),
+                     words, counts};
+    if (b <= drl_batch::kWarpRows) {
+      const int rpw = 32 / f.group;
+      fp_flush_warp_kernel<P><<<1, 32 * ((b + rpw - 1) / rpw), 0, stream>>>(
+          T, io, b, prm);
+      return (int)cudaGetLastError();
+    }
+    if (b <= 1024) return launch_fp_flush_block<P, 1>(T, io, b, prm, stream);
+    if (b <= 2048) return launch_fp_flush_block<P, 2>(T, io, b, prm, stream);
+    return launch_fp_flush_block<P, 4>(T, io, b, prm, stream);
+  }
+  if (scratch == nullptr || counts != nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  int32_t* op_rows = reinterpret_cast<int32_t*>(base);
+  const int rc = drl_fp::launch_resolve(f, keys, 3, nullptr, rows, op_rows,
+                                        kUnresolvedSlot, op_rows + rows,
+                                        nullptr, stream);
+  if (rc != 0) return rc;
+  const ScanOp op{base, nullptr, nullptr, kOpI32, 0};
+  return launch_scan<P, kFpOps>(
+      T, n_slots, op, true, nows_k, n_batches, b, prm, out, bits,
+      base + align16(8 * rows), stream,
+      bits != nullptr ? reinterpret_cast<uint32_t*>(bits) + words : nullptr);
 }
 
 }  // namespace drl

@@ -4,15 +4,17 @@
 // Replaces, in distributedratelimiting/redis_tpu/ops/fp_directory.py (XLA
 // programs on the TPU, not Pallas):
 //   fp_resolve_core (with _base_index and _window_cells)
-//                       -> fp_resolve (resolve_kernel), the find-or-claim
-//                          every entry point below runs first;
+//                       -> the group probe (fp_probe.cuh's
+//                          warp_find_or_claim), the find-or-claim every
+//                          entry point below runs first;
 //   fp_acquire_batch, fp_acquire_scan_fused, fp_acquire_scan_fused_bits,
 //   fp_window_acquire_batch, fp_window_acquire_scan_fused,
 //   fp_window_acquire_scan_fused_bits
-//                       -> fp_decide: resolve_kernel, then decide.cuh's scan
-//                          (the acquire or window library's drl_*_scan with
-//                          the bucket or window policy), then, for the f32
-//                          result, code_kernel;
+//                       -> fp_decide: decide.cuh's fingerprint decision
+//                          (acquire.cu's drl_fp_acquire, window.cu's
+//                          drl_fp_window): one launch that resolves and
+//                          decides at K = 1, the resolve then the scan
+//                          otherwise;
 //   fp_debit_batch      -> fp_debit: resolve_kernel, admission.cu's
 //                          debit_packed, debit_fix_kernel;
 //   fp_peek_batch       -> peek_kernel;
@@ -25,7 +27,9 @@
 //                          over a whole old table (or a list of its rows, or
 //                          a chunk of pairs).
 // The Python wrappers (ops/cuda_kernels.py) chain the launches of one entry
-// point on one stream; this file holds the kernels that touch the table.
+// point on one stream; this file holds the kernels that touch only the
+// table (the decision's kernels need the bucket or window rule, so they live
+// in decide.cuh under acquire.cu and window.cu).
 //
 // The table: fp u32[N, 2], row (lo, hi), (0, 0) empty. Each row is read and
 // claimed as ONE little-endian unsigned long long (lo in the low word), so a
@@ -54,12 +58,15 @@
 // follows a full read of the window, so one key never takes two cells: if
 // two rows of key X claimed cells a then b (a first), b's reader saw a
 // empty, so b precedes a in X's rotation; but a's reader, earlier, saw b
-// occupied, and b was empty until X's claim. The migrate reads a window
-// with a group of lanes, up to four cells a lane, and claims from one lane
-// after ballots of all L loads: a ballot returns only when every lane holds
-// its cells, so its claim, too, follows a full read of the window, and the
-// argument holds word for word. Lookups never stop at an empty cell, so a sweep
-// clearing a cell hides no other key. Padding rows count as resolved (JAX:
+// occupied, and b was empty until X's claim. A group of lanes reads a
+// window, up to four cells a lane, and claims from one lane after ballots
+// of all L loads: a ballot returns only when every lane holds its cells, so
+// a claim follows a full read of the window, and the argument holds word
+// for word. For the same reason all rows of one key in a launch share one
+// outcome (its cell, or unresolved): a row that read the window full of
+// other keys read every cell the key could have claimed already taken.
+// Lookups never stop at an empty cell, so a sweep clearing a cell hides no
+// other key. Padding rows count as resolved (JAX:
 // resolved = ~valid). Which row wins a contested cell is the atomics'
 // order, not JAX's last-scatter-wins: tables agree by key, not by slot,
 // and under window pressure the unresolved rows may differ.
@@ -68,13 +75,24 @@
 // window, L x 8 B (128 B at L = 16, one or two 128-byte lines), and writes
 // its slot; a claim adds one 8-byte CAS. The decision that follows moves
 // each touched slot's state once each way. No operation is a product:
-// wgmma and the tensor cores do not apply.
+// wgmma and the tensor cores do not apply. What a decision really waits on
+// is latency: the window's round trip, then the CAS's, then the state's.
 //
-// Design: one thread a row, a grid-stride loop of warps over consecutive
-// rows (the resolve bit plane is one __ballot_sync a 32-row word). The
-// window read is a loop of L 8-byte loads (base is any cell: the window is
-// 8-byte aligned, not 16): a serial probe, right for the small launches of
-// a decision. The migrate probes cooperatively (below).
+// Design. Every probe is the group probe (fp_probe.cuh): G lanes a window
+// (G = L / 4 rounded up to a power of two, 4 at L = 16), each lane loading up
+// to four cells at once, so a window is one round of coalesced loads and a
+// warp probes 32 / G keys a step; rows of one key in a warp probe once. The
+// callers give a warp 32 / G rows where they can, so a step is the probe's
+// whole latency. A decision (decide.cuh) at K = 1 and B <= 4096 is ONE
+// launch, a flush sized by its rows whose rows resolve their cells first,
+// then decide with a same-key prefix computed on the card (lane order in a
+// warp at B <= 32; above, blocks own the rows of a hash of the 64-bit key
+// and sort their repeated cells' rows, batch.cuh); at K > 1 it is two, the
+// resolve (resolve_kernel) into the scan's operand, then the scan's
+// fingerprint form. Row 0 of the f32 result is written as grant + 2 x
+// resolved in the same store, and the bits form writes both planes: there
+// is no code pass. The peek is a lookup of one thread a row
+// (find): no claim, so nothing to share.
 //
 // The migrate (growth): every live entry of the old table goes into a fresh
 // table with its state. JAX reads the table back and ships chunks of 4,096
@@ -91,162 +109,33 @@
 // (9 | 13 B); the new table's zeroing (torch.zeros, N_new x (17 | 21) B) is
 // a separate launch, counted on its own. Design: a persistent grid (the
 // resident blocks on every SM) of warps walks the source in 32-row tiles;
-// a tile's cells and live rows' state are read coalesced, and a ballot of
-// the live rows skips the empty cells (a table grows at 70% occupancy or
-// below, so 30% or more are empty). The warp then probes its live rows in
-// groups of G lanes (G = L / 4 rounded up to a power of two: eight rows a
-// warp step at L = 16): lane s of a group loads cells s, s + G, s + 2G and
-// s + 3G of the window, so a window is four coalesced G-cell requests, all
-// in flight with the other groups' at once, instead of L dependent loads;
-// ballots give the hit and empty masks, the group's first lane makes the
-// CAS and a shuffle broadcasts it (a lost CAS reads the window again), and
-// the group's lanes copy the state columns, one column a lane. A warp step
-// waits on two round trips (the window, then the CAS), so the rows a step
-// set the pass's pace, and four cells a lane put eight rows in a step
-// where one cell a lane would put two. Each entry's state lands in 32-byte
-// sectors at random slots, which the bound, counting 9-13 bytes, does not
-// see (chip_smoke.py's fp kernel phase prints a pass's device time beside
-// its bound).
+// a tile's cells and live rows' state are read coalesced, the empty cells
+// (a table grows at 70% occupancy or below, so 30% or more are empty) stay
+// out of the probe, and the warp probes its live rows with the group probe,
+// eight a step at L = 16; each placed row's lane then writes its state. A
+// warp step waits on two round trips (the window, then the CAS), so the
+// rows a step set the pass's pace, and four cells a lane put eight rows in
+// a step where one cell a lane would put two. Each entry's state lands in
+// 32-byte sectors at random slots, which the bound, counting 9-13 bytes,
+// does not see (chip_smoke.py's fp kernel phase prints a pass's device time
+// beside its bound).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bucket.cuh"
+#include "fp_probe.cuh"
 
 namespace {
 
 using drl_bucket::refill_or_init;
 using drl_bucket::ttl_ticks;
+using drl_fp::Fp;
+using drl_fp::kFullMask;
+using drl_fp::u64;
+using drl_fp::warp_find_or_claim;
 
 constexpr int kThreads = 256;
-constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr uint32_t kMix = 0x9E3779B1u;
-constexpr uint32_t kPrefMix = 0x85EBCA6Bu;
-
-using u64 = unsigned long long;
-
-struct Fp {
-  u64* cells;
-  uint32_t per;     // cells of a shard region (N / shards)
-  uint32_t shards;  // shard regions, >= 1
-  int32_t L;        // probe window, 1..32
-};
-
-__device__ __forceinline__ uint32_t base_of(uint32_t lo, uint32_t hi,
-                                            const Fp& f) {
-  const uint32_t base = ((lo * kMix) ^ hi) % (f.per - (uint32_t)f.L + 1u);
-  return f.shards == 1u ? base : (lo % f.shards) * f.per + base;
-}
-
-__device__ __forceinline__ uint32_t pref_of(uint32_t lo, uint32_t hi,
-                                            const Fp& f) {
-  return (lo ^ (hi * kPrefMix)) % (uint32_t)f.L;
-}
-
-// One read of the window: the key's position (-1 if absent) and the mask of
-// empty cells.
-__device__ __forceinline__ int read_window(const Fp& f, uint32_t base, u64 key,
-                                           uint32_t* empty) {
-  int hit = -1;
-  uint32_t e = 0;
-  for (int j = 0; j < f.L; ++j) {
-    const u64 c = __ldcg(&f.cells[base + j]);
-    if (c == key && hit < 0) hit = j;
-    if (c == 0) e |= 1u << j;
-  }
-  *empty = e;
-  return hit;
-}
-
-// The first empty cell at or after pref in the window's rotation.
-__device__ __forceinline__ int first_empty(uint32_t empty, uint32_t pref,
-                                           int L) {
-  const uint64_t m = (uint64_t)empty;
-  const uint64_t full = (L == 32) ? 0xFFFFFFFFull : ((1ull << L) - 1);
-  const uint64_t rot = ((m >> pref) | (m << (L - pref))) & full;
-  return (int)((pref + (uint32_t)(__ffsll((long long)rot) - 1)) %
-               (uint32_t)L);
-}
-
-// Find or claim key's cell; -1 when the window is full. Each lost CAS fills
-// a cell of the window, so the loop runs at most L + 1 times.
-__device__ int32_t find_or_claim(const Fp& f, uint32_t lo, uint32_t hi) {
-  const u64 key = ((u64)hi << 32) | lo;
-  const uint32_t base = base_of(lo, hi, f);
-  const uint32_t pref = pref_of(lo, hi, f);
-  for (;;) {
-    uint32_t empty;
-    const int hit = read_window(f, base, key, &empty);
-    if (hit >= 0) return (int32_t)(base + hit);
-    if (empty == 0) return -1;
-    const uint32_t cell = base + first_empty(empty, pref, f.L);
-    const u64 old = atomicCAS(&f.cells[cell], 0ull, key);
-    if (old == 0ull || old == key) return (int32_t)cell;
-  }
-}
-
-// A lookup with no claim; -1 when absent.
-__device__ __forceinline__ int32_t find(const Fp& f, uint32_t lo,
-                                        uint32_t hi) {
-  const u64 key = ((u64)hi << 32) | lo;
-  const uint32_t base = base_of(lo, hi, f);
-  uint32_t empty;
-  const int hit = read_window(f, base, key, &empty);
-  return hit >= 0 ? (int32_t)(base + hit) : -1;
-}
-
-// Rows: keys u32[rows, stride] (lo, hi[, count]). A row is valid where
-// valid_in[g] >= 0 or, with valid_in null, where the count word read as
-// int32 is >= 0 (pack_fp12's padding is 0xFFFFFFFF). Writes slots[g] (the
-// cell, or -1 for padding and unresolved rows; slots may alias valid_in),
-// counts[g] = max(count, 0) where counts is non-null, the resolve flag
-// res[g] (1 resolved or padding) where res is non-null, and the same flags
-// as a little-endian bit plane res_bits (rows rounded up to 32-bit words)
-// where res_bits is non-null.
-__global__ void __launch_bounds__(kThreads)
-    resolve_kernel(Fp f, const uint32_t* __restrict__ keys, int32_t stride,
-                   const int32_t* valid_in, int64_t rows, int32_t* slots,
-                   int32_t* __restrict__ counts, uint8_t* __restrict__ res,
-                   uint32_t* __restrict__ res_bits) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (int64_t)gridDim.x * (kThreads / 32);
-  for (int64_t w = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-       w * 32 < rows; w += warps) {
-    const int64_t g = w * 32 + lane;
-    bool ok = true;
-    if (g < rows) {
-      const uint32_t* k = keys + g * stride;
-      const uint32_t lo = k[0], hi = k[1];
-      const int32_t cnt = stride > 2 ? (int32_t)k[2] : 0;
-      const bool valid = valid_in != nullptr ? valid_in[g] >= 0 : cnt >= 0;
-      int32_t s = -1;
-      if (valid) {
-        s = find_or_claim(f, lo, hi);
-        ok = s >= 0;
-      }
-      slots[g] = s;
-      if (counts != nullptr) counts[g] = cnt > 0 ? cnt : 0;
-      if (res != nullptr) res[g] = ok ? 1 : 0;
-    }
-    const unsigned word = __ballot_sync(kFullMask, g < rows && ok);
-    if (res_bits != nullptr && lane == 0) res_bits[w] = word;
-  }
-}
-
-// The f32 decision result's row 0 becomes granted + 2 * resolved.
-__global__ void __launch_bounds__(kThreads)
-    code_kernel(float* __restrict__ out, const uint8_t* __restrict__ res,
-                int64_t rows, int32_t b) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x; g < rows;
-       g += stride) {
-    if (res[g]) {
-      const int64_t k = g / b;
-      const int64_t o = k * 2 * b + (g - k * b);
-      out[o] = __fadd_rn(out[o], 2.0f);
-    }
-  }
-}
 
 // A debit's unresolved valid rows applied nothing: (0, max(amount, 0)).
 __global__ void __launch_bounds__(kThreads)
@@ -273,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
        i += (int64_t)gridDim.x * kThreads) {
     float v = 0.0f;
     if (valid[i]) {
-      const int32_t s = find(f, kpair[2 * i], kpair[2 * i + 1]);
+      const int32_t s = drl_fp::find(f, kpair[2 * i], kpair[2 * i + 1]);
       const bool hit = s >= 0;
       const int32_t gs = hit ? s : 0;
       v = floorf(refill_or_init(tokens[gs], last_ts[gs],
@@ -360,18 +249,10 @@ struct MigrateOut {
   int32_t* n_unplaced;   // with unplaced
 };
 
-// Cells a lane reads of a window: a group of G lanes covers L <= 4 G cells.
-constexpr int kMaxCells = 4;
-
 template <int kCols>
 __global__ void __launch_bounds__(kThreads)
-    migrate_kernel(Fp f, MigrateSrc s, Cols c, MigrateOut o, int group) {
+    migrate_kernel(Fp f, MigrateSrc s, Cols c, MigrateOut o) {
   const int lane = threadIdx.x & 31;
-  const int grp = lane / group, sub = lane - grp * group;
-  const int lead = grp * group;
-  const int groups = 32 / group;
-  const unsigned gmask =
-      group == 32 ? kFullMask : ((1u << group) - 1u) << lead;
   const int64_t warps = (int64_t)gridDim.x * (kThreads / 32);
   for (int64_t w = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
        w * 32 < s.rows; w += warps) {
@@ -400,91 +281,30 @@ __global__ void __launch_bounds__(kThreads)
                      ? (uint32_t) static_cast<const uint8_t*>(c.src[j])[i]
                      : static_cast<const uint32_t*>(c.src[j])[i];
         }
-      } else if (o.placed != nullptr) {
-        o.placed[r] = 0;
       }
     }
-    unsigned todo = __ballot_sync(kFullMask, live);
-    while (todo != 0u) {  // warp-uniform
-      // Group g takes the g-th live row left; up to `groups` rows a step.
-      unsigned t = todo;
-      for (int k = 0; k < grp && t != 0u; ++k) t &= t - 1u;
-      const bool act = t != 0u;
-      const int src = act ? __ffs((int)t) - 1 : lane;
-      for (int k = 0; k < groups && todo != 0u; ++k) todo &= todo - 1u;
-      const u64 k64 = __shfl_sync(kFullMask, key, src);
-      const int32_t si = __shfl_sync(kFullMask, i, src);
-      const uint32_t lo = (uint32_t)k64, hi = (uint32_t)(k64 >> 32);
-      const uint32_t base = base_of(lo, hi, f);
-      const uint32_t pref = pref_of(lo, hi, f);
-      int32_t slot = -1;
-      bool pend = act;
-      while (__any_sync(kFullMask, pend)) {
-        // Lane sub reads cells sub, sub + G, ... (at most four) of the
-        // window, all loads in flight at once; the ballots return once
-        // every lane of the group holds its cells: the whole window is read.
-        u64 cell[kMaxCells];
-#pragma unroll
-        for (int q = 0; q < kMaxCells; ++q) {
-          const int j = sub + q * group;
-          cell[q] = pend && j < f.L ? __ldcg(&f.cells[base + j]) : 0ull;
-        }
-        uint32_t h = 0u, e = 0u;
-#pragma unroll
-        for (int q = 0; q < kMaxCells; ++q) {
-          const bool in = pend && sub + q * group < f.L;
-          const unsigned hit = __ballot_sync(kFullMask, in && cell[q] == k64);
-          const unsigned emp =
-              __ballot_sync(kFullMask, in && cell[q] == 0ull);
-          h |= ((hit & gmask) >> lead) << (q * group);
-          e |= ((emp & gmask) >> lead) << (q * group);
-        }
-        uint32_t target = 0;
-        if (pend) {
-          if (h != 0u) {
-            slot = (int32_t)(base + (uint32_t)(__ffs((int)h) - 1));
-            pend = false;
-          } else if (e == 0u) {
-            pend = false;  // the window is full: unplaced
-          } else {
-            target = base + (uint32_t)first_empty(e, pref, f.L);
-          }
-        }
-        u64 old = 0ull;
-        if (pend && sub == 0) old = atomicCAS(&f.cells[target], 0ull, k64);
-        old = __shfl_sync(kFullMask, old, lead);
-        if (pend && (old == 0ull || old == k64)) {
-          slot = (int32_t)target;
-          pend = false;
-        }
-      }
-      // The state: the group's lanes copy the columns, one a lane (a lane
-      // takes several where the group has fewer lanes than columns).
+    // The warp's live rows, 32 / G a step of the group probe.
+    const int32_t slot = warp_find_or_claim(f, key, live);
+    if (slot >= 0) {
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        const uint32_t val = __shfl_sync(kFullMask, v[j], src);
-        if (slot >= 0 && j % group == sub) {
-          if (j == kCols - 1) {
-            static_cast<uint8_t*>(c.dst[j])[slot] = (uint8_t)val;
-          } else {
-            static_cast<uint32_t*>(c.dst[j])[slot] = val;
-          }
+        if (j == kCols - 1) {
+          static_cast<uint8_t*>(c.dst[j])[slot] = (uint8_t)v[j];
+        } else {
+          static_cast<uint32_t*>(c.dst[j])[slot] = v[j];
         }
       }
-      if (act && sub == 0 && o.placed != nullptr) {
-        o.placed[w * 32 + src] = slot >= 0 ? 1 : 0;
-      }
-      // Unplaced rows: one atomicAdd a warp step, then each group's first
-      // lane writes its row's source index.
-      const bool miss = act && sub == 0 && slot < 0;
-      const unsigned mm = __ballot_sync(kFullMask, miss);
-      if (mm != 0u && o.unplaced != nullptr) {
-        const int first = __ffs((int)mm) - 1;
-        int32_t at = 0;
-        if (lane == first) at = atomicAdd(o.n_unplaced, __popc(mm));
-        at = __shfl_sync(kFullMask, at, first);
-        if (miss) o.unplaced[at + __popc(mm & ((1u << lane) - 1u))] = si;
-      }
+    }
+    if (r < s.rows && o.placed != nullptr) o.placed[r] = slot >= 0 ? 1 : 0;
+    // Unplaced rows: one atomicAdd a tile, then each writes its source index.
+    const bool miss = live && slot < 0;
+    const unsigned mm = __ballot_sync(kFullMask, miss);
+    if (mm != 0u && o.unplaced != nullptr) {
+      const int first = __ffs((int)mm) - 1;
+      int32_t at = 0;
+      if (lane == first) at = atomicAdd(o.n_unplaced, __popc(mm));
+      at = __shfl_sync(kFullMask, at, first);
+      if (miss) o.unplaced[at + __popc(mm & ((1u << lane) - 1u))] = i;
     }
   }
 }
@@ -513,44 +333,23 @@ int grid_for(int64_t rows) {
   return (int)blocks;
 }
 
-bool bad_table(int64_t n, int32_t L, int32_t shards) {
-  return L < 1 || L > 32 || shards < 1 || n % shards != 0 ||
-         n / shards < L || n >= (int64_t(1) << 31);
-}
-
-Fp make_fp(void* cells, int64_t n, int32_t L, int32_t shards) {
-  return Fp{static_cast<u64*>(cells), (uint32_t)(n / shards),
-            (uint32_t)shards, L};
-}
-
 }  // namespace
 
-// keys u32[rows, stride] (stride 2: pairs, validity from valid_in; stride 3:
-// pack_fp12 rows); see resolve_kernel for the outputs. shards: the table's
-// shard regions (1: one table).
+// The debit's resolve over kpair u32[rows, 2], a row valid where
+// valid_in[g] >= 0 (fp_probe.cuh's resolve_kernel): slots[g] the cell or
+// -1, res[g] 1 where resolved or padding; slots may alias valid_in.
+// shards: the table's shard regions (1: one table).
 extern "C" int drl_fp_resolve(void* cells, int64_t n, int32_t L,
-                              int32_t shards, const uint32_t* keys,
-                              int32_t stride,
+                              int32_t shards, const uint32_t* kpair,
                               const int32_t* valid_in, int64_t rows,
-                              int32_t* slots, int32_t* counts, uint8_t* res,
-                              uint32_t* res_bits, cudaStream_t stream) {
-  if (bad_table(n, L, shards) || (stride != 2 && stride != 3) ||
-      (stride == 2 && valid_in == nullptr)) {
+                              int32_t* slots, uint8_t* res,
+                              cudaStream_t stream) {
+  if (drl_fp::bad_table(n, L, shards) || valid_in == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  if (rows <= 0) return (int)cudaSuccess;
-  const Fp f = make_fp(cells, n, L, shards);
-  // A warp a 32-row word: blocks cover 256 rows.
-  resolve_kernel<<<grid_for(rows), kThreads, 0, stream>>>(
-      f, keys, stride, valid_in, rows, slots, counts, res, res_bits);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int drl_fp_code(float* out, const uint8_t* res, int64_t rows,
-                           int32_t b, cudaStream_t stream) {
-  if (rows <= 0) return (int)cudaSuccess;
-  code_kernel<<<grid_for(rows), kThreads, 0, stream>>>(out, res, rows, b);
-  return (int)cudaGetLastError();
+  return drl_fp::launch_resolve(drl_fp::make_fp(cells, n, L, shards), kpair,
+                                2, valid_in, rows, slots, -1, nullptr, res,
+                                stream);
 }
 
 extern "C" int drl_fp_debit_fix(float* out, const uint8_t* res,
@@ -569,9 +368,9 @@ extern "C" int drl_fp_peek(void* cells, int64_t n, int32_t L,
                            const int32_t* last_ts, const uint8_t* exists,
                            int32_t now, float cap, float rate, float* out,
                            cudaStream_t stream) {
-  if (bad_table(n, L, shards)) return (int)cudaErrorInvalidValue;
+  if (drl_fp::bad_table(n, L, shards)) return (int)cudaErrorInvalidValue;
   if (b <= 0) return (int)cudaSuccess;
-  const Fp f = make_fp(cells, n, L, shards);
+  const Fp f = drl_fp::make_fp(cells, n, L, shards);
   peek_kernel<<<grid_for(b), kThreads, 0, stream>>>(
       f, kpair, valid, b, tokens, last_ts, exists, now, cap, rate, out);
   return (int)cudaGetLastError();
@@ -615,7 +414,7 @@ extern "C" int drl_fp_migrate(void* cells, int64_t n, int32_t L,
                               const void* const* src, uint8_t* placed,
                               int32_t* unplaced, int32_t* n_unplaced,
                               cudaStream_t stream) {
-  if (bad_table(n, L, shards) || (n_cols != 3 && n_cols != 4) ||
+  if (drl_fp::bad_table(n, L, shards) || (n_cols != 3 && n_cols != 4) ||
       (old_cells == nullptr) == (kpair == nullptr) ||
       (kpair != nullptr && (valid == nullptr || idx != nullptr)) ||
       (unplaced != nullptr && n_unplaced == nullptr) ||
@@ -623,7 +422,7 @@ extern "C" int drl_fp_migrate(void* cells, int64_t n, int32_t L,
     return (int)cudaErrorInvalidValue;
   }
   if (rows <= 0) return (int)cudaSuccess;
-  const Fp f = make_fp(cells, n, L, shards);
+  const Fp f = drl_fp::make_fp(cells, n, L, shards);
   Cols c{};
   for (int j = 0; j < n_cols; ++j) {
     c.dst[j] = dst[j];
@@ -632,20 +431,16 @@ extern "C" int drl_fp_migrate(void* cells, int64_t n, int32_t L,
   const MigrateSrc s{static_cast<const u64*>(old_cells), idx, kpair, valid,
                      rows};
   const MigrateOut o{placed, unplaced, n_unplaced};
-  // Lanes a row: L / 4 rounded up to a power of two (4 at L = 16: eight
-  // rows a warp step), each lane reading up to four cells.
-  int group = 1;
-  while (group * kMaxCells < L) group <<= 1;
   const int64_t tiles = (rows + 31) / 32;
   const int64_t need = (tiles + kThreads / 32 - 1) / (kThreads / 32);
   if (n_cols == 3) {
     const int blocks = (int)(need < migrate_grid<3>() ? need
                                                       : migrate_grid<3>());
-    migrate_kernel<3><<<blocks, kThreads, 0, stream>>>(f, s, c, o, group);
+    migrate_kernel<3><<<blocks, kThreads, 0, stream>>>(f, s, c, o);
   } else {
     const int blocks = (int)(need < migrate_grid<4>() ? need
                                                       : migrate_grid<4>());
-    migrate_kernel<4><<<blocks, kThreads, 0, stream>>>(f, s, c, o, group);
+    migrate_kernel<4><<<blocks, kThreads, 0, stream>>>(f, s, c, o);
   }
   return (int)cudaGetLastError();
 }

@@ -217,6 +217,28 @@ extern "C" int64_t drl_scan_scratch_bytes(int32_t n_batches, int32_t b) {
   return drl::scan_scratch_bytes(n_batches, b);
 }
 
+// The fingerprint decision against the fingerprint table cells (u64[n],
+// probe window L, shard regions) and the window table of the same n slots,
+// as drl_fp_acquire.
+extern "C" int drl_fp_window(float* prev, float* curr, int32_t* idx,
+                             uint8_t* exists, int32_t n_slots, void* cells,
+                             int32_t L, int32_t shards, const uint32_t* keys,
+                             const int32_t* nows_k, int32_t n_batches,
+                             int32_t b, float limit, int32_t window,
+                             int32_t interpolate, float* out, uint8_t* bits,
+                             int32_t* counts, void* scratch,
+                             cudaStream_t stream) {
+  if (window < 1) return (int)cudaErrorInvalidValue;
+  return drl::launch_fp_decide<WindowPolicy>(
+      {prev, curr, idx, exists}, n_slots, cells, L, shards, keys, nows_k,
+      n_batches, b, {limit, window, interpolate}, out, bits, counts, scratch,
+      stream);
+}
+
+extern "C" int64_t drl_fp_scratch_bytes(int32_t n_batches, int32_t b) {
+  return drl::fp_scratch_bytes(n_batches, b);
+}
+
 extern "C" int drl_sweep_windows(const int32_t* idx, uint8_t* exists,
                                  int8_t* mask, int32_t* tile_counts,
                                  int64_t n, int32_t idx_now, int64_t tile,

@@ -53,20 +53,22 @@ The wrappers, their sources, and what each replaces in the JAX package:
   ``kernels.acquire_hierarchical_packed``;
 - ``debit_packed`` (``csrc/admission.cu``) replaces
   ``kernels.debit_batch_packed``;
-- the fingerprint directory's (``csrc/fp_directory.cu``; the JAX package's
-  ``ops/fp_directory.py``): ``fp_acquire_scan`` replaces
-  ``fp_acquire_batch``, ``fp_acquire_scan_fused`` and
-  ``fp_acquire_scan_fused_bits``; ``fp_window_scan`` the three window
-  forms; ``fp_debit`` replaces ``fp_debit_batch``, ``fp_peek``
-  ``fp_peek_batch``, ``fp_sweep_expired`` and ``fp_sweep_windows`` their
-  namesakes, ``fp_migrate`` ``fp_migrate_chunk`` and
-  ``fp_migrate_window_chunk``, and ``fp_migrate_table`` the growth loop
-  that drove them chunk by chunk (one launch over the whole old table,
-  the same ``migrate_kernel``); each runs ``fp_resolve_core``'s
-  find-or-claim first (``resolve_kernel``; the migrate a cooperative probe,
-  a group of lanes a window). With ``n_shards`` the decisions,
-  the peek and the migrate place keys in the mesh's shard regions
-  (:mod:`.fp_directory`), every shard's rows in one launch;
+- the fingerprint directory's (``csrc/fp_directory.cu``, and the
+  decision in ``csrc/decide.cuh`` under ``csrc/acquire.cu`` and
+  ``csrc/window.cu``; the JAX package's ``ops/fp_directory.py``):
+  ``fp_acquire_scan`` replaces ``fp_acquire_batch``,
+  ``fp_acquire_scan_fused`` and ``fp_acquire_scan_fused_bits``;
+  ``fp_window_scan`` the three window forms; ``fp_debit`` replaces
+  ``fp_debit_batch``, ``fp_peek`` ``fp_peek_batch``, ``fp_sweep_expired``
+  and ``fp_sweep_windows`` their namesakes, ``fp_migrate``
+  ``fp_migrate_chunk`` and ``fp_migrate_window_chunk``, and
+  ``fp_migrate_table`` the growth loop that drove them chunk by chunk (one
+  launch over the whole old table, the same ``migrate_kernel``); each that
+  claims runs ``fp_resolve_core``'s find-or-claim as the group probe
+  (``csrc/fp_probe.cuh``: a group of lanes a window; the decision inside
+  its one launch at K = 1). With ``n_shards``
+  the decisions, the peek and the migrate place keys in the mesh's shard
+  regions (:mod:`.fp_directory`), every shard's rows in one launch;
 - ``global_tier`` (``csrc/mesh.cu``) replaces the mesh's
   ``parallel/sharded_store.py`` ``global_tier_update`` with the ``lax.psum``
   before it (every two-level step, ``fp_sharded.py``'s scan too): one
@@ -84,12 +86,12 @@ refill is ``csrc/bucket.cuh``'s. Each
 source's library is named by the hash of the source and of every header
 beside it. Every wrapper call on the card is one kernel launch; a bulk-lane
 chunk's K batches (decided slot-major) run inside one cooperative launch,
-as do a counter sync's and a debit's passes past 4096 rows. The
-fingerprint wrappers chain their kernels on one stream and count one
-launch a call: ``fp_acquire_scan`` and ``fp_window_scan`` the resolve, the
-bucket or window scan over the resolved slots and (for the f32 result) the
-resolve flags folded into row 0; ``fp_debit`` the resolve, the debit and
-the unresolved rows' fix-up. The bench's
+as do a counter sync's and a debit's passes past 4096 rows, and a
+one-batch fingerprint decision's resolve and decision (``fp_acquire_scan``,
+``fp_window_scan``; a chunk of K > 1 batches is the resolve, then the
+scan). The fingerprint wrappers chain their kernels on one stream and
+count one launch a call: ``fp_debit`` the resolve, the debit and the
+unresolved rows' fix-up. The bench's
 scans (``acquire_scan_packed24``, ``acquire_scan_compact_fused``) take more
 rows than one launch holds: they run as consecutive launches of whole
 batches, at most :data:`SCAN_MAX_ROWS` rows each, on one stream, which
@@ -213,6 +215,9 @@ _SIGNATURES = {
         "drl_acquire_batch": (_P, _P, _P, _I32, _P, _P, _P, _I32, _I32,
                               _I32, _F32, _F32, _P, _P, _P),
         "drl_scan_scratch_bytes": (_I32, _I32),
+        "drl_fp_acquire": (_P, _P, _P, _I32, _P, _I32, _I32, _P, _P, _I32,
+                           _I32, _F32, _F32, _P, _P, _P, _P, _P),
+        "drl_fp_scratch_bytes": (_I32, _I32),
     },
     "counter": {
         "drl_sync_counters": (_P, _P, _P, _P, _I64, _P, _I32, _F32, _P, _P,
@@ -230,6 +235,9 @@ _SIGNATURES = {
                             _F32, _I32, _I32, _P, _P, _P, _P),
         "drl_scan_scratch_bytes": (_I32, _I32),
         "drl_sweep_windows": (_P, _P, _P, _P, _I64, _I32, _I64, _P),
+        "drl_fp_window": (_P, _P, _P, _P, _I32, _P, _I32, _I32, _P, _P, _I32,
+                          _I32, _F32, _I32, _I32, _P, _P, _P, _P, _P),
+        "drl_fp_scratch_bytes": (_I32, _I32),
     },
     "sema": {
         "drl_sema_packed": (_P, _P, _P, _I32, _P, _I32, _P, _P),
@@ -245,9 +253,7 @@ _SIGNATURES = {
         "drl_tally_claim_words": (_I64, _I32),
     },
     "fp_directory": {
-        "drl_fp_resolve": (_P, _I64, _I32, _I32, _P, _I32, _P, _I64, _P, _P,
-                           _P, _P, _P),
-        "drl_fp_code": (_P, _P, _I64, _I32, _P),
+        "drl_fp_resolve": (_P, _I64, _I32, _I32, _P, _P, _I64, _P, _P, _P),
         "drl_fp_debit_fix": (_P, _P, _P, _I32, _P),
         "drl_fp_peek": (_P, _I64, _I32, _I32, _P, _P, _I32, _P, _P, _P, _I32,
                         _F32, _F32, _P, _P),
@@ -1050,31 +1056,21 @@ def _check_fp(fp: torch.Tensor, n: int, probe_window: int,
                          f"N / shards = {per})], got {probe_window}")
 
 
-def _fp_resolve(fp: torch.Tensor, keys: torch.Tensor, stride: int, valid_in,
-                rows: int, slots, counts, res, res_bits,
-                probe_window: int, n_shards: int = 1) -> None:
-    """The find-or-claim launch (uncounted): ``keys`` rows of ``stride``
-    words; see ``csrc/fp_directory.cu``'s ``resolve_kernel``. The card
-    bounds a row's claims by its window, not by ``rounds``: a row is
-    unresolved only when its window is full."""
-    rc = _lib("fp_directory").drl_fp_resolve(
-        fp.data_ptr(), fp.shape[0], int(probe_window), int(n_shards),
-        keys.data_ptr(), stride, _ptr(valid_in), rows, slots.data_ptr(),
-        _ptr(counts), _ptr(res), _ptr(res_bits), _stream(fp))
-    _raise_on(rc, "fp_resolve")
-
-
-def _fp_decide(name: str, fp: torch.Tensor, n: int, fused: torch.Tensor,
-               nows_k: torch.Tensor, with_remaining: bool, probe_window: int,
-               scan, n_shards: int = 1):
-    """The card's fingerprint decision: the resolve writes the scan's
-    ``i32[2, K, B]`` operand (each row's cell, -1 for padding and
-    unresolved rows, and its count) and the resolve flags; ``scan(op,
-    out, bits)`` decides it against the table; the f32 result's row 0 then
-    takes ``+ 2 * resolved``. Bits: ``u8[2, W]`` planes (grants from the
-    scan, resolve flags from the resolve), returned as a ``u8[K, 2, B/8]``
-    view. Returns ``(result, counts i32[K, B])``, the counts the operand's
-    row 1."""
+def _fp_decide(lib, entry: str, name: str, table_ptrs, fp: torch.Tensor,
+               n: int, fused: torch.Tensor, nows_k: torch.Tensor, params,
+               with_remaining: bool, probe_window: int, n_shards: int,
+               return_counts: bool):
+    """The card's fingerprint decision: ONE call of ``entry``
+    (``drl_fp_acquire`` or ``drl_fp_window``: decide.cuh's
+    ``launch_fp_decide``) that resolves every row of ``fused i32[K, B, 3]``
+    and decides it against the table: one launch at K = 1 and B <= 4096,
+    else the resolve and the scan. The result is allocated here, and the
+    scratch where the scan needs one (its operand, whose counts row is the
+    ``counts`` view); with ``return_counts`` at K = 1 the kernel writes
+    each row's count to a tensor of its own. Returns ``(result, counts
+    i32[K, B] or None)``:
+    ``f32[K, 2, B]`` (row 0 ``granted + 2 * resolved``) or the two bit
+    planes as a ``u8[K, 2, B/8]`` view."""
     k, b = fused.shape[:2]
     _check_fp(fp, n, probe_window, n_shards)
     _check(fused, "fused", torch.int32, (k, b, 3))
@@ -1082,23 +1078,29 @@ def _fp_decide(name: str, fp: torch.Tensor, n: int, fused: torch.Tensor,
     _check_scan_size(name, k, b)
     rows = k * b
     dev = fp.device
-    op = torch.empty((2, k, b), dtype=torch.int32, device=dev)
     if with_remaining:
         out = torch.empty((k, 2, b), dtype=torch.float32, device=dev)
-        res = torch.empty((rows,), dtype=torch.uint8, device=dev)
-        _fp_resolve(fp, fused, 3, None, rows, op[0], op[1], res, None,
-                    probe_window, n_shards)
-        scan(op, out, None)
-        _raise_on(_lib("fp_directory").drl_fp_code(
-            out.data_ptr(), res.data_ptr(), rows, b, _stream(fp)), name)
-        return out, op[1]
-    words = -(-rows // 32)
-    planes = torch.empty((2, words * 4), dtype=torch.uint8, device=dev)
-    _fp_resolve(fp, fused, 3, None, rows, op[0], op[1], None, planes[1],
-                probe_window, n_shards)
-    scan(op, None, planes[0])
-    return (planes[:, :rows // 8].view(2, k, b // 8).permute(1, 0, 2),
-            op[1])
+    else:
+        words = -(-rows // 32)
+        out = torch.empty((2, words * 4), dtype=torch.uint8, device=dev)
+    n_scratch = int(lib.drl_fp_scratch_bytes(k, b))
+    scratch = counts = None
+    if n_scratch:
+        scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=dev)
+        if return_counts:
+            counts = scratch[4 * rows:8 * rows].view(torch.int32).view(k, b)
+    elif return_counts:
+        counts = torch.empty((k, b), dtype=torch.int32, device=dev)
+    rc = getattr(lib, entry)(
+        *table_ptrs, n, fp.data_ptr(), int(probe_window), int(n_shards),
+        fused.data_ptr(), nows_k.data_ptr(), k, b, *params,
+        out.data_ptr() if with_remaining else None,
+        None if with_remaining else out.data_ptr(),
+        _ptr(counts if scratch is None else None), _ptr(scratch), _stream(fp))
+    _raise_on(rc, name)
+    if not with_remaining:
+        out = out[:, :rows // 8].view(2, k, b // 8).permute(1, 0, 2)
+    return out, counts
 
 
 def fp_acquire_scan(fp: torch.Tensor, state: K.BucketState,
@@ -1118,7 +1120,9 @@ def fp_acquire_scan(fp: torch.Tensor, state: K.BucketState,
     row's claims are bounded by its window. ``n_shards``: the table's shard
     regions (the mesh's; every shard's rows in one call). With
     ``return_counts`` it returns ``(out, counts i32[K, B])``, each row's
-    count (0 on padding), for :func:`global_tier`."""
+    count (0 on padding), for :func:`global_tier`. On the card: one launch
+    at K = 1, B <= 4096 (a flush sized by its rows that resolves its rows
+    first); else two (the resolve, then the scan's fingerprint form)."""
     k, b = fused.shape[:2]
     if not with_remaining and b % 8:
         raise ValueError(f"bit-packed results need B % 8 == 0, got B = {b}")
@@ -1130,22 +1134,12 @@ def fp_acquire_scan(fp: torch.Tensor, state: K.BucketState,
                  n_shards=n_shards)[2]
         return (out, F._unpack_fp12(fused)[1]) if return_counts else out
     n = _check_state(state)
-    lib = _lib("acquire")
-    dev = state.tokens.device
-    stream = _stream(state.tokens)
-
-    def scan(op, out, bits):
-        scratch = torch.empty((int(lib.drl_scan_scratch_bytes(k, b)),),
-                              dtype=torch.uint8, device=dev)
-        _raise_on(lib.drl_acquire_scan(
-            state.tokens.data_ptr(), state.last_ts.data_ptr(),
-            state.exists.data_ptr(), n, op.data_ptr(), _OP_I32,
-            nows_k.data_ptr(), k, b, float(capacity),
-            float(fill_rate_per_tick), _ptr(out), _ptr(bits),
-            scratch.data_ptr(), stream), "fp_decide")
-
-    out, counts = _fp_decide("fp_decide", fp, n, fused, nows_k,
-                             with_remaining, probe_window, scan, n_shards)
+    out, counts = _fp_decide(
+        _lib("acquire"), "drl_fp_acquire", "fp_decide",
+        (state.tokens.data_ptr(), state.last_ts.data_ptr(),
+         state.exists.data_ptr()), fp, n, fused, nows_k,
+        (float(capacity), float(fill_rate_per_tick)), with_remaining,
+        probe_window, n_shards, return_counts)
     launches["fp_decide"] += 1
     return (out, counts) if return_counts else out
 
@@ -1169,21 +1163,11 @@ def fp_window_scan(fp: torch.Tensor, state: K.WindowState,
                   probe_window=probe_window, rounds=rounds,
                   interpolate=interpolate, n_shards=n_shards)[2]
     n = _check_windows(state)
-    lib = _lib("window")
-    dev = state.prev_count.device
-    stream = _stream(state.prev_count)
-    wt = _window_ticks(window_ticks)
-
-    def scan(op, out, bits):
-        scratch = torch.empty((int(lib.drl_scan_scratch_bytes(k, b)),),
-                              dtype=torch.uint8, device=dev)
-        _raise_on(lib.drl_window_scan(
-            *_window_ptrs(state), n, op.data_ptr(), 0, nows_k.data_ptr(), k,
-            b, float(limit), wt, int(bool(interpolate)), _ptr(out),
-            _ptr(bits), scratch.data_ptr(), stream), "fp_window_decide")
-
-    out, _ = _fp_decide("fp_window_decide", fp, n, fused, nows_k,
-                        with_remaining, probe_window, scan, n_shards)
+    out, _ = _fp_decide(
+        _lib("window"), "drl_fp_window", "fp_window_decide",
+        _window_ptrs(state), fp, n, fused, nows_k,
+        (float(limit), _window_ticks(window_ticks), int(bool(interpolate))),
+        with_remaining, probe_window, n_shards, False)
     launches["fp_window_decide"] += 1
     return out
 
@@ -1213,8 +1197,10 @@ def fp_debit(fp: torch.Tensor, state: K.BucketState, kpair: torch.Tensor,
     _check(kpair, "kpair", torch.int32, (b, 2))
     _check(packed, "packed", torch.int32, (4, b))
     res = torch.empty((b,), dtype=torch.uint8, device=fp.device)
-    _fp_resolve(fp, kpair, 2, packed[0], b, packed[0], None, res, None,
-                probe_window)
+    _raise_on(_lib("fp_directory").drl_fp_resolve(
+        fp.data_ptr(), n, int(probe_window), 1, kpair.data_ptr(),
+        packed[0].data_ptr(), b, packed[0].data_ptr(), res.data_ptr(),
+        _stream(fp)), "fp_resolve")
     out = _debit_launch(state, packed, capacity, fill_rate_per_tick)
     _raise_on(_lib("fp_directory").drl_fp_debit_fix(
         out.data_ptr(), res.data_ptr(), packed[1].data_ptr(), b,

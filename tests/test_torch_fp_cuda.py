@@ -24,6 +24,11 @@ flag clear.
 """
 
 import asyncio
+import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -421,3 +426,193 @@ def test_fp_store_on_card_equals_cpu_store(cuda_device):
                                    atol=ATOL)
     assert got[2] >= 1 and want[2] >= 1
     np.testing.assert_array_equal(got[1], want[1])
+
+
+def _planes(out):
+    """A bits result ``u8[K, 2, B/8]`` → (grants, resolved), bool[K * B]."""
+    bits = np.unpackbits(out, axis=-1, bitorder="little").astype(bool)
+    return bits[:, 0].reshape(-1), bits[:, 1].reshape(-1)
+
+
+def _plain_over(kind, table, slots, counts, live, now):
+    """The plain decision of one batch over given cells (the card's):
+    ``acquire_core`` / ``window_acquire_core`` with JAX's same-batch
+    prefix, on ``table`` (updated in place). Returns (granted, remaining)."""
+    args = (table[1], _t(slots.astype(np.int32)), _t(counts.astype(np.int32)),
+            _t(live), now)
+    if kind == "bucket":
+        _, g, r = K.acquire_core(*args, CAP, RATE, handle_duplicates=True)
+    else:
+        _, g, r = K.window_acquire_core(*args, LIMIT, WINDOW,
+                                        handle_duplicates=True,
+                                        interpolate=kind == "sliding")
+    return g.numpy(), r.numpy()
+
+
+@pytest.mark.parametrize("kind", ["bucket", "sliding", "fixed"])
+@pytest.mark.parametrize("b,with_remaining", [
+    (8, True), (8, False), (32, True), (32, False), (33, True), (64, True),
+    (64, False), (4096, True), (4096, False)])
+def test_fp_flush_form_equals_plain_over_its_cells(cuda_device, kind, b,
+                                                   with_remaining):
+    """K = 1 (the flush form: a warp up to 32 rows, blocks above) under
+    window pressure, keys repeated within a warp and across blocks, padding
+    rows: each row's outcome is its key's (a key present in the card's
+    table after the launch, or a full window: unresolved, code 0 or 1 with
+    no +2 and denied), and the card's grants, remaining and state equal the
+    plain decision over the card's cells with JAX's same-batch prefix."""
+    rng = np.random.default_rng(100 * b + len(kind) + with_remaining)
+    n = max(64, b)
+    keys, cpu, dev = _tables(rng, cuda_device,
+                             "bucket" if kind == "bucket" else "window",
+                             n=n, present=n)
+    # A table of n cells offered n keys (R claim rounds leave a few cells
+    # free), then more new keys than free cells.
+    placed = keys[F.find_np(cpu[0].numpy().view(np.uint32), keys, L) >= 0]
+    pool = np.concatenate([placed[rng.permutation(len(placed))[
+        :max(2, b // 8)]], _fps(rng, max(2, b // 4))])
+    rows = pool[rng.integers(0, len(pool), b)]
+    counts = rng.integers(0, 4, b)
+    counts[rng.random(b) < 0.1] = -1  # padding rows
+    fused = F.pack_fp12(rows, np.zeros(0))
+    fused[:, 2] = counts.astype(np.int64).astype(np.uint32)
+    before = ck.launches["fp_decide" if kind == "bucket"
+                         else "fp_window_decide"]
+    out = _decide(kind, dev, _t(fused.view(np.int32)).reshape(1, b, 3).to(
+        cuda_device), _t(np.array([NOW], np.int32)).to(cuda_device),
+        with_remaining).cpu().numpy()
+    assert ck.launches["fp_decide" if kind == "bucket"
+                       else "fp_window_decide"] == before + 1
+    if with_remaining:
+        code = out[0, 0].astype(np.int32)
+        got_g, got_res, got_rem = (code & 1) > 0, (code & 2) > 0, out[0, 1]
+        assert set(np.unique(code)) <= {0, 1, 2, 3}
+    else:
+        got_g, got_res = _planes(out)
+        got_rem = None
+    fp_d = dev[0].cpu().numpy().view(np.uint32)
+    F.check_table_np(fp_d, L)
+    valid = counts >= 0
+    slot = F.find_np(fp_d, rows, L)
+    np.testing.assert_array_equal(got_res, ~valid | (slot >= 0))
+    lost = valid & ~got_res
+    if b >= 64:
+        assert lost.any() and (valid & got_res).any(), "no window pressure"
+    cells = fp_d.view(np.uint64).reshape(-1)
+    win = cells[F.base_index_np(rows[lost], n, L)[:, None]
+                + np.arange(L)[None, :]]
+    assert (win != 0).all(), "an unresolved row beside a free cell"
+    live = valid & got_res
+    want_g, want_rem = _plain_over(kind, cpu, np.where(live, slot, -1),
+                                   np.maximum(counts, 0), live, NOW)
+    np.testing.assert_array_equal(got_g, want_g)
+    assert not got_g[~live].any()
+    if got_rem is not None:
+        np.testing.assert_allclose(got_rem, want_rem, rtol=0, atol=ATOL)
+    for a, d in zip(cpu[1], dev[1]):
+        a, d = a.numpy(), d.cpu().numpy()
+        if a.dtype == np.float32:
+            np.testing.assert_allclose(d, a, rtol=0, atol=ATOL)
+        else:
+            np.testing.assert_array_equal(d, a)
+
+
+@pytest.mark.parametrize("kind,k,b,with_remaining", [
+    ("bucket", 8, 4096, True), ("bucket", 1, 4096, True),
+    ("bucket", 8, 4096, False), ("sliding", 8, 4096, True),
+    ("fixed", 1, 512, False)])
+def test_fp_decide_shard_regions_with_counts(cuda_device, kind, k, b,
+                                             with_remaining):
+    """The mesh's launch: every shard region's rows in one decision (8
+    regions), against the plain version by key, with each row's count
+    returned for the global tier (K > 1: the scan's operand row; K = 1:
+    a tensor of its own)."""
+    rng = np.random.default_rng(7 * k + b + len(kind))
+    keys, cpu, dev = _region_tables(
+        rng, cuda_device, "bucket" if kind == "bucket" else "window", N,
+        20_000, 8)
+    rows = _draw(rng, keys, k * b, "zipf")
+    counts = rng.integers(0, 4, k * b)
+    counts[rng.random(k * b) < 0.05] = -1
+    fused = F.pack_fp12(rows, np.zeros(0)).reshape(k, b, 3)
+    fused[..., 2] = counts.reshape(k, b).astype(np.int64).astype(np.uint32)
+    fused_t = _t(fused.view(np.int32))
+    nows = _t(np.arange(k, dtype=np.int32) * 37 + NOW)
+
+    def call(table, f, nw):
+        if kind == "bucket":
+            return ck.fp_acquire_scan(*table, f, nw, CAP, RATE,
+                                      probe_window=L, rounds=R, n_shards=8,
+                                      with_remaining=with_remaining,
+                                      return_counts=True)
+        return (ck.fp_window_scan(*table, f, nw, LIMIT, WINDOW,
+                                  interpolate=kind == "sliding",
+                                  probe_window=L, rounds=R, n_shards=8,
+                                  with_remaining=with_remaining), None)
+    want, want_c = call(cpu, fused_t, nows)
+    got, got_c = call(dev, fused_t.to(cuda_device), nows.to(cuda_device))
+    got, want = got.cpu().numpy(), want.numpy()
+    if with_remaining:
+        np.testing.assert_array_equal(got[:, 0], want[:, 0])
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=ATOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+    if want_c is not None:
+        assert tuple(got_c.shape) == (k, b)
+        np.testing.assert_array_equal(got_c.cpu().numpy(), want_c.numpy())
+        np.testing.assert_array_equal(want_c.numpy().reshape(-1),
+                                      np.maximum(counts, 0))
+    _same_by_key(cpu, dev, np.concatenate([keys, rows]), 8)
+
+
+def _launch_traces():
+    """Each decision's kernels from a profiler trace, on the card: the
+    flush form at K = 1 (8, 64 and 4,096 rows) and the chunk form at 8 x
+    4,096, f32 and bits, buckets and windows. Returns ``[(kind, k, b,
+    with_remaining, [kernel names])]``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    traces = []
+    for kind in ("bucket", "sliding"):
+        keys, _, table = _tables(rng, dev,
+                                 "bucket" if kind == "bucket" else "window")
+        for k, b in ((1, 8), (1, 64), (1, 4096), (8, 4096)):
+            rows = _draw(rng, keys, k * b, "zipf")
+            fused = _t(F.pack_fp12(rows, rng.integers(0, 4, k * b)).view(
+                np.int32)).reshape(k, b, 3).to(dev)
+            nows = _t(np.full(k, NOW, np.int32)).to(dev)
+            for with_remaining in (True, False):
+                _decide(kind, table, fused, nows, with_remaining)  # built
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    _decide(kind, table, fused, nows, with_remaining)
+                    torch.cuda.synchronize()
+                traces.append((kind, k, b, with_remaining, [
+                    e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]))
+    return traces
+
+
+def test_fp_decide_kernel_launches(cuda_device):
+    """A profiler trace of each decision holds ONE kernel at K = 1 (the
+    flush form) and two at 8 x 4,096 (the resolve, then the scan's
+    fingerprint form). The traces are taken in a process of their own: a
+    torch.profiler session late in a long process may record no kernel at
+    all (ROADMAP C1), which would say nothing of the launches."""
+    here = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent), str(here), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, test_torch_fp_cuda as t; "
+         "print(json.dumps(t._launch_traces()))"],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    traces = json.loads(proc.stdout.splitlines()[-1])
+    assert len(traces) == 16
+    for kind, k, b, with_remaining, kernels in traces:
+        want = ["resolve_kernel", "scan_kernel"] if k > 1 else ["fp_flush_"]
+        assert len(kernels) == len(want) and all(
+            w in n for w, n in zip(want, kernels)), (
+            kind, k, b, with_remaining, kernels)
